@@ -1,0 +1,501 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (vslnet_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+  1. device   the card's name and power limit (and the nvidia-smi line);
+              TF32 off for matmuls and cuDNN, so fp32 means fp32.
+  2. build    compiles vslnet_torch/csrc/*.cu with nvcc (sm_90a) into
+              vslnet_torch/_build/ and reports the seconds it took.
+  3. kernels  each hand-written kernel against its plain PyTorch version on
+              the card at the served shapes (random inputs, ragged lengths):
+              max abs difference against the stated tolerance, the kernel's
+              and the plain version's time (CUDA events), the least time the
+              card could take (bound), and for the LSTM a cuDNN yardstick.
+  4. slice    the rnn VSLNet at full width (hidden 128, 8 heads, T 128,
+              1024-d video features, 300-d GloVe, batch 16), seeded numpy
+              weights in the flax layout loaded through convert_flax, a
+              synthetic dataset at Charades shapes; serves HTTP requests
+              through Localizer + make_server, counts the kernel launches of
+              that run, and holds logits and spans against the same weights
+              with every kernel off (use_pallas=off) on the card; times a
+              served batch of 16 both ways and profiles one (device time by
+              kernel, the card's idle share).
+Then the "kernels" line, and last {"ok": true, "device": {...}}.
+Any failure raises and exits non-zero before the last line.
+"""
+import json
+import math
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+import numpy as np
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the tensor cores
+# and HBM3 bandwidth. The bound of a kernel is the larger of its FLOPs over
+# the first and its bytes (inputs read once, outputs written once) over the
+# second.
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+TOL = 1e-4          # fp32 kernel vs plain version: summation order only
+LOGIT_ATOL = 1e-3   # whole model, kernels vs plain, on the served logits
+SEED = 0
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def cuda_ms(fn, iters, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+# --- phase 3 -------------------------------------------------------------------
+
+
+def lstm_yardstick(x_proj, k_h):
+    """cuDNN nn.LSTM computing the same recurrence on right-padded rows:
+    input weights select the pre-projected gates, TF's [i, j, f, o] is
+    permuted to torch's [i, f, g, o] and the forget bias folded in."""
+    import torch
+
+    H = k_h.shape[0]
+    perm = torch.cat([torch.arange(0, H), torch.arange(2 * H, 3 * H),
+                      torch.arange(H, 2 * H), torch.arange(3 * H, 4 * H)])
+    lstm = torch.nn.LSTM(4 * H, H).to(x_proj.device)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(torch.eye(4 * H, device=x_proj.device)[perm])
+        lstm.weight_hh_l0.copy_(k_h.t()[perm])
+        lstm.bias_ih_l0.zero_()
+        lstm.bias_ih_l0[H:2 * H] = 1.0
+        lstm.bias_hh_l0.zero_()
+    return lstm
+
+
+def kernel_phase(dev, max_w):
+    import torch
+
+    from vslnet_torch.ops import kernels as K
+
+    rng = np.random.default_rng(SEED)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    B, T, D, H, L, KS, heads = 16, 128, 128, 128, 4, 7, 8
+    rows = []
+
+    def record(name, source, replaces, err, tol, ms, plain_ms, flops, nbytes,
+               library_ms=None, **extra):
+        bound_ms, bound_by = bound(flops, nbytes)
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "max_abs_err": err, "tol": tol,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": library_ms, **extra}
+        emit({"phase": "kernel", **row})
+        check(err <= tol, "%s disagrees with its plain version: max abs err "
+              "%g > %g" % (name, err, tol))
+        rows.append(row)
+
+    # 1. LSTM recurrence [T, B, 4H]
+    lens = np.concatenate([[T, 1], rng.integers(1, T + 1, B - 2)])
+    x_proj = t(rng.standard_normal((T, B, 4 * H)))
+    k_h = t(rng.standard_normal((H, 4 * H)) / math.sqrt(H))
+    valid = t(np.arange(T)[:, None] < lens[None, :])
+    out = K.fused_lstm_recurrence(x_proj, k_h, valid)
+    torch.cuda.synchronize()
+    err = max_err(out, K.lstm_recurrence_plain(x_proj, k_h, valid))
+    lstm = lstm_yardstick(x_proj, k_h)
+    with torch.no_grad():
+        lib_out = lstm(x_proj)[0]
+        ms_lib = cuda_ms(lambda: lstm(x_proj), 20)
+    vmask = valid.bool()
+    lib_err = float((lib_out - out).abs()[vmask].max())
+    record("lstm_recurrence_fwd", "vslnet_torch/csrc/lstm.cu",
+           "vslnet_tpu/ops/pallas_kernels.py:241", err, TOL,
+           cuda_ms(lambda: K.fused_lstm_recurrence(x_proj, k_h, valid), 20),
+           cuda_ms(lambda: K.lstm_recurrence_plain(x_proj, k_h, valid), 3),
+           # only the valid steps need the product: padding freezes the state
+           2 * int(lens.sum()) * H * 4 * H,
+           4 * (T * B * 4 * H + H * 4 * H + T * B + T * B * H),
+           library_ms=ms_lib, library_max_abs_err_valid=lib_err,
+           shape=[T, B, 4 * H])
+
+    # 2. conv block [B, T, D] and at the query length
+    def conv_inputs(T_):
+        return [t(rng.standard_normal((B, T_, D))),
+                t(1 + 0.1 * rng.standard_normal((L, D))),
+                t(0.1 * rng.standard_normal((L, D))),
+                t(rng.standard_normal((L, KS, D)) / math.sqrt(KS)),
+                t(rng.standard_normal((L, D, D)) / math.sqrt(D)),
+                t(0.1 * rng.standard_normal((L, D)))]
+
+    q_args = conv_inputs(max_w)
+    q_err = max_err(K.fused_conv_block(*q_args), K.conv_block_plain(*q_args))
+    args = conv_inputs(T)
+    err = max_err(K.fused_conv_block(*args), K.conv_block_plain(*args))
+    record("conv_block_fwd", "vslnet_torch/csrc/conv_block.cu",
+           "vslnet_tpu/ops/pallas_kernels.py:1019", max(err, q_err), TOL,
+           cuda_ms(lambda: K.fused_conv_block(*args), 50),
+           cuda_ms(lambda: K.conv_block_plain(*args), 50),
+           L * 2 * B * T * D * (D + KS),
+           4 * (2 * B * T * D + L * (3 * D + KS * D + D * D)),
+           shape=[B, T, D], query_T=max_w, query_max_abs_err=q_err)
+
+    # 3. MHA block [B, T, D] and at the query length, one row fully masked
+    def mha_inputs(T_, lens_):
+        return [t(rng.standard_normal((B, T_, D))),
+                t(np.arange(T_)[None, :] < np.asarray(lens_)[:, None]),
+                t(1 + 0.1 * rng.standard_normal((2, D))),
+                t(0.1 * rng.standard_normal((2, D))),
+                t(rng.standard_normal((D, 3 * D)) / math.sqrt(D)),
+                t(0.1 * rng.standard_normal((3 * D,))),
+                t(rng.standard_normal((D, D)) / math.sqrt(D)),
+                t(0.1 * rng.standard_normal((D,)))]
+
+    q_args = mha_inputs(max_w, list(rng.integers(1, max_w + 1, B - 1)) + [0])
+    q_out = K.fused_mha_block(*q_args, heads)
+    check(bool(torch.isfinite(q_out).all()),
+          "mha_block_fwd: non-finite output on a fully masked row")
+    q_err = max_err(q_out, K.mha_block_plain(*q_args, heads))
+    args = mha_inputs(T, lens)
+    err = max_err(K.fused_mha_block(*args, heads),
+                  K.mha_block_plain(*args, heads))
+    # scores and P.V need only the valid keys (all T for a fully masked row)
+    keys = int(lens.sum())
+    record("mha_block_fwd", "vslnet_torch/csrc/mha_block.cu",
+           "vslnet_tpu/ops/pallas_kernels.py:1736", max(err, q_err), TOL,
+           cuda_ms(lambda: K.fused_mha_block(*args, heads), 50),
+           cuda_ms(lambda: K.mha_block_plain(*args, heads), 50),
+           2 * B * T * D * 3 * D + 4 * T * keys * D + 2 * B * T * D * D,
+           4 * (2 * B * T * D + B * T + 4 * D + 4 * D * D + 4 * D),
+           shape=[B, T, D], heads=heads, query_T=max_w,
+           query_max_abs_err=q_err)
+
+    # 4. context-query attention: video [B, T, D], query [B, max_w, D],
+    # ragged lengths and one padded query (every word masked)
+    W = max_w
+    q_lens = list(rng.integers(1, W + 1, B - 1)) + [0]
+    args = [t(rng.standard_normal((B, T, D))), t(rng.standard_normal((B, W, D))),
+            t(np.arange(T)[None, :] < lens[:, None]),
+            t(np.arange(W)[None, :] < np.asarray(q_lens)[:, None]),
+            *[t(rng.standard_normal(D) / math.sqrt(D)) for _ in range(3)]]
+    out = K.fused_cqa_concat(*args)
+    check(bool(torch.isfinite(out).all()),
+          "cqa_concat_fwd: non-finite output on a padded query")
+    err = max_err(out, K.cqa_plain(*args)[0])
+    record("cqa_concat_fwd", "vslnet_torch/csrc/cqa.cu",
+           "vslnet_tpu/ops/pallas_kernels.py:102", err, TOL,
+           cuda_ms(lambda: K.fused_cqa_concat(*args), 50),
+           cuda_ms(lambda: K.cqa_plain(*args), 50),
+           # scores, both softmaxes, v2q, Sv^T.v, Sq.(Sv^T.v), the products
+           B * (8 * T * W * D + 5 * T * D + 2 * W * D + 18 * T * W),
+           4 * (B * T * D + B * W * D + B * T + B * W + 3 * D
+                + B * T * 4 * D),
+           shape=[B, T, W, D])
+
+    # 5. highlight gate [B, T, D], ragged lengths
+    args = [t(rng.standard_normal((B, T, D))),
+            t(rng.standard_normal(D) / math.sqrt(D)),
+            t(0.1 * rng.standard_normal(1)),
+            t(np.arange(T)[None, :] < lens[:, None])]
+    gated, scores = K.fused_highlight_gate(*args)
+    scores_ref = K.highlight_plain(*args)[1]
+    err = max(max_err(scores, scores_ref),
+              max_err(gated, args[0] * scores_ref[:, :, None]))
+
+    def highlight_plain_gate():
+        scores = K.highlight_plain(*args)[1]
+        return args[0] * scores[:, :, None], scores
+
+    record("highlight_gate_fwd", "vslnet_torch/csrc/highlight_gate.cu",
+           "vslnet_tpu/ops/pallas_kernels.py:180", err, TOL,
+           cuda_ms(lambda: K.fused_highlight_gate(*args), 100),
+           cuda_ms(highlight_plain_gate, 100),
+           B * T * (3 * D + 4), 4 * (2 * B * T * D + 2 * B * T + D + 1),
+           shape=[B, T, D])
+
+    # 6. span decode [B, T] of masked logits; exact indices
+    mask = t(np.arange(T)[None, :] < lens[:, None])
+    sl = t(rng.standard_normal((B, T)) * 3) * mask + (1 - mask) * -1e30
+    el = t(rng.standard_normal((B, T)) * 3) * mask + (1 - mask) * -1e30
+    s, e = K.fused_span_decode(sl, el)
+    s_ref, e_ref = K.span_decode_plain(sl, el)
+    index_err = max(max_err(s, s_ref), max_err(e, e_ref))
+    record("span_decode", "vslnet_torch/csrc/span_decode.cu",
+           "vslnet_tpu/ops/pallas_kernels.py:57", index_err, 0.0,
+           cuda_ms(lambda: K.fused_span_decode(sl, el), 100),
+           cuda_ms(lambda: K.span_decode_plain(sl, el), 100),
+           10 * B * T, 4 * (2 * B * T + 2 * B), shape=[B, T])
+    return rows
+
+
+# --- phase 4 -------------------------------------------------------------------
+
+
+def flax_layout_weights(model, glove, seed):
+    """Seeded numpy weights for every tensor of `model`, nested as the JAX
+    package's {"params": ..., "frozen": ...} tree."""
+    rng = np.random.default_rng(seed)
+    tree = {"params": {}, "frozen": {}}
+    for key, value in model.state_dict().items():
+        shape = tuple(value.shape)
+        leaf = key.rsplit(".", 1)[-1]
+        if key == "word_embeddings.word_vectors":
+            arr = glove
+        elif leaf == "scale":
+            arr = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif leaf == "bias" or leaf.startswith("bias_"):
+            arr = 0.1 * rng.standard_normal(shape)
+        else:
+            fan_in = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+            arr = rng.standard_normal(shape) / math.sqrt(fan_in)
+        node = tree["frozen" if key == "word_embeddings.word_vectors"
+                    else "params"]
+        *path, last = key.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = np.asarray(arr, np.float32)
+    return tree
+
+
+def post(url, obj):
+    req = urllib.request.Request(
+        url, data=json.dumps(obj).encode("utf-8"), method="POST",
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        check(r.status == 200, "HTTP %d from %s" % (r.status, url))
+        return json.loads(r.read())
+
+
+def charades_like_dataset():
+    """Synthetic records, features and GloVe rows at Charades-STA shapes:
+    <= 128 clips of 1024-d I3D features, 300-d word vectors, queries of 3-12
+    words; plus one 300-clip video that serving mean-pools to 128."""
+    from vslnet_torch.data.synthetic import synthetic_dataset
+
+    dataset, feats = synthetic_dataset(
+        n_train=64, n_test=32, n_videos=24, n_words=1200, n_chars=40,
+        max_pos_len=128, video_feature_dim=1024, word_dim=300, seed=SEED)
+    feats["long_video"] = np.random.default_rng(SEED + 1).standard_normal(
+        (300, 1024)).astype(np.float32)
+    splits = [dataset["train_set"], dataset["val_set"], dataset["test_set"]]
+    return dataset, feats, splits
+
+
+def profile_batch(loc, triples, batch_ms):
+    """Device time by kernel over one served batch of 16 (torch.profiler),
+    and the share of the unprofiled batch time the card sits idle."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loc.localize_batch(triples)
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    return {"device_ms": device_ms, "batch_ms": batch_ms,
+            "device_idle_share": 1.0 - device_ms / batch_ms,
+            "device_launches": sum(r[2] for r in rows),
+            "top": [[k[:70], ms, n] for k, ms, n in rows[:12]]}
+
+
+def slice_phase(dataset, feats, splits):
+    import torch
+
+    from vslnet_torch.config import Config
+    from vslnet_torch.convert_flax import load_flax_variables
+    from vslnet_torch.data.loader import static_caps
+    from vslnet_torch.models.vslnet import build_model
+    from vslnet_torch.ops import kernels as K
+    from vslnet_torch.serve import Localizer
+    from vslnet_torch.server import durations_from_dataset, make_server
+
+    def localizer(use_pallas):
+        cfg = Config(task="charades", predictor="rnn", hidden_size=128,
+                     num_heads=8, max_pos_len=128, video_feature_dim=1024,
+                     word_dim=300, char_dim=50, batch_size=16,
+                     char_size=dataset["n_chars"], use_pallas=use_pallas,
+                     seed=SEED)
+        model = build_model(cfg, dataset["word_vector"].shape)
+        load_flax_variables(model, flax_layout_weights(
+            model, dataset["word_vector"], SEED))
+        max_w, max_c = static_caps(splits, cfg)
+        return Localizer(model, cfg, dataset["word_dict"],
+                         dataset["char_dict"], max_w, max_c), cfg
+
+    loc, cfg = localizer("auto")
+    loc_off, _ = localizer("off")
+    check(loc.device.type == "cuda" and loc.use_kernels and all(
+        m.use_kernels for m in loc.model.modules()
+        if hasattr(m, "use_kernels")),
+        "use_pallas=auto on the card must turn every kernel on")
+    check(not loc_off.use_kernels and not any(
+        m.use_kernels for m in loc_off.model.modules()
+        if hasattr(m, "use_kernels")), "use_pallas=off must turn them off")
+
+    durations = durations_from_dataset(dataset)
+    durations["long_video"] = 300.0
+    recs = dataset["test_set"]
+    single = {"vid": recs[0]["vid"], "query": " ".join(recs[0]["words"])}
+    many = [{"vid": r["vid"], "query": " ".join(r["words"])}
+            for r in recs[:cfg.batch_size + 4]]
+    many[1]["vid"] = "long_video"
+    topk = [{"vid": r["vid"], "query": " ".join(r["words"]), "top_k": 3}
+            for r in recs[20:23]]
+
+    server = make_server(loc, feats, durations, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://127.0.0.1:%d/localize" % server.server_address[1]
+    try:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        replies = [post(base, single)] + post(base, many) + post(base, topk)
+        served_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "server thread did not stop")
+
+    reqs = [single] + many + topk
+    for req, rep in zip(reqs, replies):
+        dur = durations[req["vid"]]
+        spans = rep["spans"] if "top_k" in req else [rep]
+        check(len(spans) == req.get("top_k", 1), rep)
+        for sp in spans:
+            check(0.0 <= sp["start"] <= sp["end"] <= dur + 1e-3,
+                  "span out of range: %s" % rep)
+        probs = [sp.get("prob", 1.0) for sp in spans]
+        check(probs == sorted(probs, reverse=True), rep)
+    # 4 forwards: 1 (single) + 2 (20 requests) + 1 (top_k); the top_k
+    # decode is plain torch.topk, so 3 span decodes
+    expected = {"lstm_recurrence_fwd": 8, "conv_block_fwd": 8,
+                "mha_block_fwd": 8, "cqa_concat_fwd": 4,
+                "highlight_gate_fwd": 4, "span_decode": 3}
+    check(launches == expected,
+          "launch counts %s, expected %s" % (launches, expected))
+
+    # the served path against the same weights with every kernel off
+    triples = [(feats[r["vid"]], durations[r["vid"]], r["query"])
+               for r in many[:cfg.batch_size]]
+    batch, _ = loc.make_batch(triples)
+    with torch.inference_mode():
+        out_k = loc.model(*batch)
+        out_p = loc_off.model(*batch)
+    logit_err = max(max_err(out_k[k], out_p[k])
+                    for k in ("start_logits", "end_logits", "highlight_scores"))
+    finite = all(bool(torch.isfinite(out_k[k]).all())
+                 for k in ("highlight_scores", "end_logits"))
+
+    def spans(lo):
+        """Top-1 spans and the top-3 spans without their probabilities."""
+        return (lo.localize_batch(triples),
+                [[sp[:2] for sp in row]
+                 for row in lo.localize_batch(triples, top_k=3)])
+
+    same_spans = spans(loc) == spans(loc_off)
+
+    def batch_ms(lo):
+        def run():
+            lo.localize_batch(triples)
+            torch.cuda.synchronize()
+        run()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run()
+        return (time.perf_counter() - t0) / 5 * 1e3
+
+    ms_kernels = batch_ms(loc)
+    emit({"phase": "slice", "requests": len(reqs), "http_200": len(replies),
+          "served_seconds": served_s, "launches": launches,
+          "max_logit_err_vs_off": logit_err, "logit_atol": LOGIT_ATOL,
+          "spans_equal_vs_off": same_spans, "finite": finite,
+          "batch16_ms_kernels": ms_kernels, "batch16_ms_off": batch_ms(loc_off),
+          "max_w": loc.max_w, "max_c": loc.max_c})
+    emit({"phase": "profile", **profile_batch(loc, triples, ms_kernels)})
+    check(finite and logit_err <= LOGIT_ATOL and same_spans,
+          "served path disagrees with use_pallas=off")
+    return launches
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from vslnet_torch.ops import kernels as K
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi.stdout.strip(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    path, seconds, log = K.build_library()
+    emit({"phase": "build", "seconds": seconds, "library": str(path),
+          "ptxas": [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]})
+
+    from vslnet_torch.config import Config
+    from vslnet_torch.data.loader import static_caps
+
+    dataset, feats, splits = charades_like_dataset()
+    # the query stream's length on the served path
+    max_w, _ = static_caps(splits, Config())
+    rows = kernel_phase(dev, max_w)
+    launches = slice_phase(dataset, feats, splits)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        check(row["launches"] > 0,
+              "%s never launched on the served path" % row["name"])
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,202 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch
+versions on the card, at the served shapes and at small ragged ones. Skips
+without a CUDA device. Imports no JAX, so it also runs on a machine that
+has only PyTorch (there: `python -m pytest --noconftest
+tests/test_torch_cuda.py`, since tests/conftest.py sets up JAX)."""
+import numpy as np
+import pytest
+import torch
+
+from vslnet_torch.ops import kernels
+
+torch.set_num_threads(1)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _lstm_inputs(rng, T, B, H, lens):
+    x_proj = rng.standard_normal((T, B, 4 * H)).astype(np.float32)
+    k_h = (rng.standard_normal((H, 4 * H)) / np.sqrt(H)).astype(np.float32)
+    valid = (np.arange(T)[:, None] < np.asarray(lens)[None, :]).astype(
+        np.float32)
+    return x_proj, k_h, valid
+
+
+def _conv_inputs(rng, B, T, D, L=4, K=7):
+    x = rng.standard_normal((B, T, D)).astype(np.float32)
+    gam = (1.0 + 0.1 * rng.standard_normal((L, D))).astype(np.float32)
+    beta = (0.1 * rng.standard_normal((L, D))).astype(np.float32)
+    dw = (rng.standard_normal((L, K, D)) / np.sqrt(K)).astype(np.float32)
+    wp = (rng.standard_normal((L, D, D)) / np.sqrt(D)).astype(np.float32)
+    bp = (0.1 * rng.standard_normal((L, D))).astype(np.float32)
+    return x, gam, beta, dw, wp, bp
+
+
+def _mha_inputs(rng, B, T, D, lens):
+    x = rng.standard_normal((B, T, D)).astype(np.float32)
+    mask = (np.arange(T)[None, :] < np.asarray(lens)[:, None]).astype(
+        np.float32)
+    gam = (1.0 + 0.1 * rng.standard_normal((2, D))).astype(np.float32)
+    beta = (0.1 * rng.standard_normal((2, D))).astype(np.float32)
+    wqkv = (rng.standard_normal((D, 3 * D)) / np.sqrt(D)).astype(np.float32)
+    bqkv = (0.1 * rng.standard_normal((3 * D,))).astype(np.float32)
+    wd = (rng.standard_normal((D, D)) / np.sqrt(D)).astype(np.float32)
+    bd = (0.1 * rng.standard_normal((D,))).astype(np.float32)
+    return x, mask, gam, beta, wqkv, bqkv, wd, bd
+
+
+def _cqa_inputs(rng, B, T, W, D, v_lens, q_lens):
+    """video, query, masks (a q_len of 0 is a padded query) and the three
+    trilinear weights."""
+    video = rng.standard_normal((B, T, D)).astype(np.float32)
+    query = rng.standard_normal((B, W, D)).astype(np.float32)
+    v_mask = (np.arange(T)[None, :] < np.asarray(v_lens)[:, None]).astype(
+        np.float32)
+    q_mask = (np.arange(W)[None, :] < np.asarray(q_lens)[:, None]).astype(
+        np.float32)
+    ws = [(rng.standard_normal((D,)) / np.sqrt(D)).astype(np.float32)
+          for _ in range(3)]
+    return [video, query, v_mask, q_mask, *ws]
+
+
+def _highlight_inputs(rng, B, T, D, lens):
+    x = rng.standard_normal((B, T, D)).astype(np.float32)
+    w = (rng.standard_normal((D,)) / np.sqrt(D)).astype(np.float32)
+    b = (0.1 * rng.standard_normal((1,))).astype(np.float32)
+    v_mask = (np.arange(T)[None, :] < np.asarray(lens)[:, None]).astype(
+        np.float32)
+    return x, w, b, v_mask
+
+
+def _span_cases():
+    rng = np.random.default_rng(3)
+    B, T = 6, 20
+    sl = (rng.standard_normal((B, T)) * 3).astype(np.float32)
+    el = (rng.standard_normal((B, T)) * 3).astype(np.float32)
+    sl[:, 15:] = -1e30  # masked tail
+    el[:, 15:] = -1e30
+    tied_s = sl.copy()
+    tied_e = el.copy()
+    tied_s[0, :] = 0.0          # every start tied
+    tied_e[0, :] = 0.0          # every end tied
+    tied_s[1, [3, 9]] = 9.0     # two tied best starts
+    tied_e[1, [9, 12]] = 9.0    # two tied best ends
+    return [(sl, el), (tied_s, tied_e)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _cuda_pair(fn, plain, args):
+    before = dict(kernels.LAUNCHES)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1
+    return out, plain(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(128, 16, 128), (12, 4, 8)])
+def test_cuda_lstm_matches_plain(cuda, T, B, H):
+    rng = np.random.default_rng(5)
+    lens = rng.integers(1, T + 1, size=B)
+    args = [_t(a).to(cuda) for a in _lstm_inputs(rng, T, B, H, lens)]
+    out, ref = _cuda_pair(kernels.fused_lstm_recurrence,
+                          kernels.lstm_recurrence_plain, args)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D", [(16, 128, 128), (16, 13, 128), (2, 13, 16)])
+def test_cuda_conv_block_matches_plain(cuda, B, T, D):
+    rng = np.random.default_rng(6)
+    args = [_t(a).to(cuda) for a in _conv_inputs(rng, B, T, D)]
+    out, ref = _cuda_pair(kernels.fused_conv_block, kernels.conv_block_plain,
+                          args)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,heads", [(16, 128, 128, 8), (16, 13, 128, 8),
+                                         (3, 10, 16, 2)])
+def test_cuda_mha_block_matches_plain(cuda, B, T, D, heads):
+    rng = np.random.default_rng(7)
+    lens = list(rng.integers(1, T + 1, size=B - 1)) + [0]  # one fully masked
+    args = [_t(a).to(cuda) for a in _mha_inputs(rng, B, T, D, lens)]
+    out, ref = _cuda_pair(
+        lambda *a: kernels.fused_mha_block(*a, heads),
+        lambda *a: kernels.mha_block_plain(*a, heads), args)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,W,D", [(16, 128, 12, 128), (3, 10, 7, 16)])
+def test_cuda_cqa_concat_matches_plain(cuda, B, T, W, D):
+    rng = np.random.default_rng(9)
+    v_lens = rng.integers(1, T + 1, size=B)
+    q_lens = list(rng.integers(1, W + 1, size=B - 1)) + [0]  # a padded query
+    args = [_t(a).to(cuda) for a in _cqa_inputs(rng, B, T, W, D, v_lens,
+                                                 q_lens)]
+    out, ref = _cuda_pair(kernels.fused_cqa_concat,
+                          lambda *a: kernels.cqa_plain(*a)[0], args)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D", [(16, 128, 128), (3, 10, 16)])
+def test_cuda_highlight_gate_matches_plain(cuda, B, T, D):
+    rng = np.random.default_rng(10)
+    lens = rng.integers(1, T + 1, size=B)
+    args = [_t(a).to(cuda) for a in _highlight_inputs(rng, B, T, D, lens)]
+
+    def plain(x, w, b, v_mask):
+        scores = kernels.highlight_plain(x, w, b, v_mask)[1]
+        return x * scores[:, :, None], scores
+
+    (gated, scores), (gated_ref, scores_ref) = _cuda_pair(
+        kernels.fused_highlight_gate, plain, args)
+    torch.testing.assert_close(scores, scores_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(gated, gated_ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [0, 1], ids=["tie_free", "tied"])
+def test_cuda_span_decode_matches_plain(cuda, case):
+    args = [_t(a).to(cuda) for a in _span_cases()[case]]
+    (s, e), (s_ref, e_ref) = _cuda_pair(kernels.fused_span_decode,
+                                        kernels.span_decode_plain, args)
+    assert torch.equal(s, s_ref) and torch.equal(e, e_ref)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    rng = np.random.default_rng(8)
+    x_proj, k_h, valid = [_t(a).to(cuda) for a in
+                          _lstm_inputs(rng, 4, 2, 8, [4, 2])]
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.fused_lstm_recurrence(x_proj.transpose(0, 1).contiguous()
+                                      .transpose(0, 1), k_h, valid)
+    with pytest.raises(TypeError):
+        kernels.fused_lstm_recurrence(x_proj.double(), k_h, valid)
+    with pytest.raises(ValueError, match="CPU or all on one"):
+        kernels.fused_lstm_recurrence(x_proj, k_h.cpu(), valid)
+    conv = [_t(a).to(cuda) for a in _conv_inputs(rng, 2, 300, 128)]
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.fused_conv_block(*conv)
+    mha = [_t(a).to(cuda) for a in _mha_inputs(rng, 2, 5, 24, [5, 3])]
+    with pytest.raises(ValueError, match="head dim"):
+        kernels.fused_mha_block(*mha, 2)
+    cqa = [_t(a).to(cuda) for a in _cqa_inputs(rng, 2, 128, 200, 128,
+                                                [128, 3], [200, 5])]
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.fused_cqa_concat(*cqa)
