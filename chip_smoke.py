@@ -13,6 +13,12 @@ Phases, each printing one JSON line:
               max abs difference against the stated tolerance, the kernel's
               and the plain version's time (CUDA events), the least time the
               card could take (bound), and for the LSTM a cuDNN yardstick.
+              The training kernels (the LSTM forward with residuals and its
+              reverse recurrence, the conv and MHA block backwards) and the
+              two block forwards with dropout are held the same way at the
+              training shapes (T = 128 and the query stream's T = max_w,
+              drop_rate 0.2, one fully masked query row): the forward, every
+              gradient of sum(out * g), and the dropout's zero pattern.
   4. slice    the rnn VSLNet at full width (hidden 128, 8 heads, T 128,
               1024-d video features, 300-d GloVe, batch 16), seeded numpy
               weights in the flax layout loaded through convert_flax, a
@@ -22,6 +28,14 @@ Phases, each printing one JSON line:
               with every kernel off (use_pallas=off) on the card; times a
               served batch of 16 both ways and profiles one (device time by
               kernel, the card's idle share).
+  5. train    the same model trained by vslnet_torch.train.Trainer on the
+              synthetic training split (drop_rate 0.2, bert_adamw, lr 1e-4
+              with linear decay, clip 1.0, l2 3e-7, highlight lambda 5): one
+              step with the kernels against one with use_pallas=off from the
+              same weights and generator seed (loss and every gradient), then
+              20 steps with the kernels, counting their launches (the loss
+              must fall), the step time both ways, one profiled step, and an
+              evaluation of the test split (R1@{0.3,0.5,0.7}, mIoU).
 Then the "kernels" line, and last {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.
 """
@@ -43,6 +57,17 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 TOL = 1e-4          # fp32 kernel vs plain version: summation order only
 LOGIT_ATOL = 1e-3   # whole model, kernels vs plain, on the served logits
+# A train step with the kernels vs use_pallas=off: the loss within 1e-4
+# relative; each parameter's gradient within GRAD_RTOL of its largest
+# entry (fp32 sums in another order through two 128-step LSTM chains, four
+# blocks and their batch-summed weight gradients) plus GRAD_ATOL, for the
+# gradients that are zero up to rounding (the start and end heads' biases:
+# the softmax CE's gradient sums to 0 over a row).
+LOSS_RTOL = 1e-4
+GRAD_RTOL = 1e-3
+GRAD_ATOL = 1e-6
+DROP = 0.2          # the training phase's drop_rate (the reference's)
+TRAIN_STEPS = 20
 SEED = 0
 
 
@@ -74,6 +99,37 @@ def cuda_ms(fn, iters, warmup=3):
 
 def max_err(a, b):
     return float((a.double() - b.double()).abs().max())
+
+
+def scaled_err(a, b):
+    """max |a - b| over max(1, max |b|): an absolute error for values of
+    order one, a relative one for the large batch-summed gradients."""
+    return max_err(a, b) / max(1.0, float(b.double().abs().max()))
+
+
+def autograd_pair(fn, plain, args, n_grad, g):
+    """The output and the gradients of sum(out * g) with respect to the
+    first n_grad args, through fn (the kernels' autograd Function) and
+    through torch's autograd of the plain version, on the same inputs:
+    (max abs error, the output's abs error and the gradients' scaled_err,
+    all finite)."""
+    import torch
+
+    res = []
+    for f in (fn, plain):
+        leaves = [a.detach().clone().requires_grad_(i < n_grad)
+                  for i, a in enumerate(args)]
+        out = f(*leaves)
+        grads = torch.autograd.grad(out, leaves[:n_grad], g)
+        torch.cuda.synchronize()
+        res.append((out.detach(), grads))
+    (out, grads), (out_ref, grads_ref) = res
+    pairs = [(out, out_ref), *zip(grads, grads_ref)]
+    abs_err = max(max_err(a, b) for a, b in pairs)
+    err = max([max_err(out, out_ref)]
+              + [scaled_err(a, b) for a, b in zip(grads, grads_ref)])
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+    return abs_err, err, finite
 
 
 def check(cond, msg):
@@ -114,16 +170,23 @@ def kernel_phase(dev, max_w):
     rows = []
 
     def record(name, source, replaces, err, tol, ms, plain_ms, flops, nbytes,
-               library_ms=None, **extra):
+               library_ms=None, checked_err=None, **extra):
+        """checked_err, where given, is what is held to tol (scaled_err for
+        gradients); err is always the raw max abs error."""
         bound_ms, bound_by = bound(flops, nbytes)
+        checked = err if checked_err is None else checked_err
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "max_abs_err": err, "tol": tol,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": library_ms, **extra}
+               "checked_err": checked, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms, **extra}
         emit({"phase": "kernel", **row})
-        check(err <= tol, "%s disagrees with its plain version: max abs err "
-              "%g > %g" % (name, err, tol))
+        check(checked <= tol, "%s disagrees with its plain version: error "
+              "%g > %g" % (name, checked, tol))
         rows.append(row)
+
+    def seeds_for(n):
+        return t(rng.integers(0, 1 << 23, (n, 1)))
 
     # 1. LSTM recurrence [T, B, 4H]
     lens = np.concatenate([[T, 1], rng.integers(1, T + 1, B - 2)])
@@ -162,13 +225,28 @@ def kernel_phase(dev, max_w):
     q_err = max_err(K.fused_conv_block(*q_args), K.conv_block_plain(*q_args))
     args = conv_inputs(T)
     err = max_err(K.fused_conv_block(*args), K.conv_block_plain(*args))
+    # with dropout (the training forward), at T and at max_w
+    seeds = seeds_for(B)
+    drop = {"seeds": seeds, "drop_rate": DROP}
+    d_err = max(max_err(K.fused_conv_block(*a, **drop),
+                        K.conv_block_plain(*a, **drop)) for a in (args, q_args))
+    # one layer: out - x is 0 exactly where its mask (or the ReLU) drops
+    one = [args[0]] + [w[:1].contiguous() for w in args[1:]]
+    zeros_equal = torch.equal(K.fused_conv_block(*one, **drop) == args[0],
+                              K.conv_block_plain(*one, **drop) == args[0])
+    check(zeros_equal, "conv_block_fwd: the dropout zero pattern differs")
     record("conv_block_fwd", "vslnet_torch/csrc/conv_block.cu",
-           "vslnet_tpu/ops/pallas_kernels.py:1019", max(err, q_err), TOL,
+           "vslnet_tpu/ops/pallas_kernels.py:1019", max(err, q_err, d_err), TOL,
            cuda_ms(lambda: K.fused_conv_block(*args), 50),
            cuda_ms(lambda: K.conv_block_plain(*args), 50),
            L * 2 * B * T * D * (D + KS),
            4 * (2 * B * T * D + L * (3 * D + KS * D + D * D)),
-           shape=[B, T, D], query_T=max_w, query_max_abs_err=q_err)
+           shape=[B, T, D], query_T=max_w, query_max_abs_err=q_err,
+           dropout_max_abs_err=d_err, dropout_zero_pattern_equal=zeros_equal,
+           dropout_ms=cuda_ms(lambda: K.fused_conv_block(*args, **drop), 50),
+           dropout_plain_ms=cuda_ms(
+               lambda: K.conv_block_plain(*args, **drop), 50))
+    conv_args, conv_q_args = args, q_args
 
     # 3. MHA block [B, T, D] and at the query length, one row fully masked
     def mha_inputs(T_, lens_):
@@ -189,16 +267,36 @@ def kernel_phase(dev, max_w):
     args = mha_inputs(T, lens)
     err = max_err(K.fused_mha_block(*args, heads),
                   K.mha_block_plain(*args, heads))
+    # with dropout, at T and at max_w (one fully masked row)
+    drop = {"seeds": seeds_for(B), "drop_rate": DROP}
+    d_err = max(max_err(K.fused_mha_block(*a, heads, **drop),
+                        K.mha_block_plain(*a, heads, **drop))
+                for a in (args, q_args))
+    # zero q, k, v and an identity dense layer: out - x is drop(drop(LN2
+    # (x))), 0 exactly where the 0x202 or the 0x203 mask drops
+    x, mask = args[:2]
+    probe = [x, mask, *args[2:4], torch.zeros_like(args[4]),
+             torch.zeros_like(args[5]), torch.eye(D, device=dev),
+             torch.zeros_like(args[7])]
+    zeros_equal = torch.equal(K.fused_mha_block(*probe, heads, **drop) == x,
+                              K.mha_block_plain(*probe, heads, **drop) == x)
+    check(zeros_equal, "mha_block_fwd: the dropout zero pattern differs")
     # scores and P.V need only the valid keys (all T for a fully masked row)
     keys = int(lens.sum())
     record("mha_block_fwd", "vslnet_torch/csrc/mha_block.cu",
-           "vslnet_tpu/ops/pallas_kernels.py:1736", max(err, q_err), TOL,
+           "vslnet_tpu/ops/pallas_kernels.py:1736", max(err, q_err, d_err), TOL,
            cuda_ms(lambda: K.fused_mha_block(*args, heads), 50),
            cuda_ms(lambda: K.mha_block_plain(*args, heads), 50),
            2 * B * T * D * 3 * D + 4 * T * keys * D + 2 * B * T * D * D,
            4 * (2 * B * T * D + B * T + 4 * D + 4 * D * D + 4 * D),
            shape=[B, T, D], heads=heads, query_T=max_w,
-           query_max_abs_err=q_err)
+           query_max_abs_err=q_err, dropout_max_abs_err=d_err,
+           dropout_zero_pattern_equal=zeros_equal,
+           dropout_ms=cuda_ms(lambda: K.fused_mha_block(*args, heads, **drop),
+                              50),
+           dropout_plain_ms=cuda_ms(
+               lambda: K.mha_block_plain(*args, heads, **drop), 50))
+    mha_args, mha_q_args = args, q_args
 
     # 4. context-query attention: video [B, T, D], query [B, max_w, D],
     # ragged lengths and one padded query (every word masked)
@@ -255,6 +353,99 @@ def kernel_phase(dev, max_w):
            cuda_ms(lambda: K.fused_span_decode(sl, el), 100),
            cuda_ms(lambda: K.span_decode_plain(sl, el), 100),
            10 * B * T, 4 * (2 * B * T + 2 * B), shape=[B, T])
+
+    # --- the training kernels: forward and every gradient of sum(out * g)
+    # against the plain version's autograd, then each kernel timed alone
+    # 7, 8. LSTM forward with residuals and the reverse recurrence
+    dy = t(rng.standard_normal((T, B, H)))
+    abs_err, err, finite = autograd_pair(
+        K.fused_lstm_recurrence, K.lstm_recurrence_plain,
+        [x_proj, k_h, valid], 2, dy)
+    check(finite, "LSTM training path: non-finite output or gradient")
+    res = K.launch_lstm_fwd_res(x_proj, k_h, valid)
+    leaves = [x_proj.clone().requires_grad_(), k_h.clone().requires_grad_()]
+    out_p = K.lstm_recurrence_plain(*leaves, valid)
+    xp_req = x_proj.clone().requires_grad_()
+    ms_lib_f = cuda_ms(lambda: lstm(xp_req), 20)
+    ms_lib_fb = cuda_ms(lambda: lstm(xp_req)[0].backward(dy), 20)
+    steps = int(lens.sum())  # only valid steps need the products
+    record("lstm_recurrence_fwd_res", "vslnet_torch/csrc/lstm.cu",
+           "vslnet_tpu/ops/pallas_kernels.py:276", abs_err, TOL,
+           cuda_ms(lambda: K.launch_lstm_fwd_res(x_proj, k_h, valid), 20),
+           cuda_ms(lambda: K.lstm_recurrence_plain(*leaves, valid), 3),
+           2 * steps * H * 4 * H,
+           4 * (2 * T * B * 4 * H + H * 4 * H + T * B + 4 * T * B * H),
+           library_ms=ms_lib_f, checked_err=err, shape=[T, B, 4 * H])
+    record("lstm_recurrence_bwd", "vslnet_torch/csrc/lstm.cu",
+           "vslnet_tpu/ops/pallas_kernels.py:316", abs_err, TOL,
+           cuda_ms(lambda: K.launch_lstm_bwd(dy, *res[1:], valid, k_h), 20),
+           cuda_ms(lambda: torch.autograd.grad(out_p, leaves, dy,
+                                               retain_graph=True), 3),
+           # dgates . k_h^T along the chain and dk_h = h_prev^T . dgates
+           2 * 2 * steps * H * 4 * H,
+           4 * (2 * T * B * 4 * H + 4 * T * B * H + T * B + 2 * H * 4 * H),
+           library_ms=ms_lib_fb - ms_lib_f, checked_err=err,
+           library_fwd_bwd_ms=ms_lib_fb, shape=[T, B, 4 * H])
+
+    # 9. conv block backward, at T and at max_w, drop_rate 0.2
+    def conv_pair(a, sd):
+        g = t(rng.standard_normal(tuple(a[0].shape)))
+        kw = {"seeds": sd, "drop_rate": DROP}
+        return autograd_pair(lambda *x: K.fused_conv_block(*x, **kw),
+                             lambda *x: K.conv_block_plain(*x, **kw),
+                             a, 6, g), g
+
+    (q_abs, q_err, q_fin), _ = conv_pair(conv_q_args, seeds_for(B))
+    seeds = seeds_for(B)
+    (abs_err, err, finite), g = conv_pair(conv_args, seeds)
+    check(finite and q_fin, "conv block: non-finite gradient")
+    leaves = [a.clone().requires_grad_() for a in conv_args]
+    out_p = K.conv_block_plain(*leaves, seeds=seeds, drop_rate=DROP)
+    record("conv_block_bwd", "vslnet_torch/csrc/conv_block.cu",
+           "vslnet_tpu/ops/pallas_kernels.py:1039", max(abs_err, q_abs), TOL,
+           cuda_ms(lambda: K.launch_conv_block_bwd(*conv_args, seeds, DROP, g),
+                   20),
+           cuda_ms(lambda: torch.autograd.grad(out_p, leaves, g,
+                                               retain_graph=True), 20),
+           # the forward replayed, then the data and weight products
+           L * 6 * B * T * D * (D + KS),
+           4 * (4 * B * T * D + 2 * L * (3 * D + KS * D + D * D) + B),
+           checked_err=max(err, q_err), shape=[B, T, D], drop_rate=DROP,
+           query_T=max_w, query_checked_err=q_err)
+
+    # 10. MHA block backward, at T and at max_w (one fully masked row)
+    def mha_pair(a, sd):
+        g = t(rng.standard_normal(tuple(a[0].shape)))
+        kw = {"seeds": sd, "drop_rate": DROP}
+        mask_ = a[1]
+        return autograd_pair(
+            lambda x, *w: K.fused_mha_block(x, mask_, *w, heads, **kw),
+            lambda x, *w: K.mha_block_plain(x, mask_, *w, heads, **kw),
+            [a[0], *a[2:]], 7, g), g
+
+    (q_abs, q_err, q_fin), _ = mha_pair(mha_q_args, seeds_for(B))
+    seeds = seeds_for(B)
+    (abs_err, err, finite), g = mha_pair(mha_args, seeds)
+    check(finite and q_fin, "MHA block: non-finite gradient")
+    x, mask, gam, beta, wqkv, bqkv, wd, bd = mha_args
+    _, qkv, att = K.launch_mha_block_fwd(*mha_args, heads, seeds, DROP)
+    leaves = [a.clone().requires_grad_() for a in (x, *mha_args[2:])]
+    out_p = K.mha_block_plain(leaves[0], mask, *leaves[1:], heads, seeds=seeds,
+                              drop_rate=DROP)
+    record("mha_block_bwd", "vslnet_torch/csrc/mha_block.cu",
+           "vslnet_tpu/ops/pallas_kernels.py:1762", max(abs_err, q_abs), TOL,
+           cuda_ms(lambda: K.launch_mha_block_bwd(
+               x, mask, gam, beta, wqkv, wd, heads, seeds, DROP, qkv, att, g),
+               20),
+           cuda_ms(lambda: torch.autograd.grad(out_p, leaves, g,
+                                               retain_graph=True), 20),
+           # dense and QKV data + weight products; the scores recomputed,
+           # dP, dV, dQ and dK over the valid keys
+           4 * B * T * D * D + 4 * B * T * D * 3 * D + 10 * T * keys * D,
+           4 * (3 * B * T * D + B * T + B * T * 3 * D + B * T * D
+                + 2 * (4 * D + 4 * D * D + 4 * D) + B),
+           checked_err=max(err, q_err), shape=[B, T, D], heads=heads,
+           drop_rate=DROP, query_T=max_w, query_checked_err=q_err)
     return rows
 
 
@@ -311,24 +502,24 @@ def charades_like_dataset():
     return dataset, feats, splits
 
 
-def profile_batch(loc, triples, batch_ms):
-    """Device time by kernel over one served batch of 16 (torch.profiler),
-    and the share of the unprofiled batch time the card sits idle."""
+def profile_device(run, wall_ms):
+    """Device time by kernel over one call of run() (torch.profiler), and
+    the share of the unprofiled wall time wall_ms the card sits idle."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        loc.localize_batch(triples)
+        run()
         torch.cuda.synchronize()
     rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA),
                   key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    return {"device_ms": device_ms, "batch_ms": batch_ms,
-            "device_idle_share": 1.0 - device_ms / batch_ms,
+    return {"device_ms": device_ms, "wall_ms": wall_ms,
+            "device_idle_share": 1.0 - device_ms / wall_ms,
             "device_launches": sum(r[2] for r in rows),
             "top": [[k[:70], ms, n] for k, ms, n in rows[:12]]}
 
@@ -405,9 +596,10 @@ def slice_phase(dataset, feats, splits):
         check(probs == sorted(probs, reverse=True), rep)
     # 4 forwards: 1 (single) + 2 (20 requests) + 1 (top_k); the top_k
     # decode is plain torch.topk, so 3 span decodes
-    expected = {"lstm_recurrence_fwd": 8, "conv_block_fwd": 8,
-                "mha_block_fwd": 8, "cqa_concat_fwd": 4,
-                "highlight_gate_fwd": 4, "span_decode": 3}
+    expected = {name: 0 for name in K.LAUNCHES}  # no training kernel
+    expected.update({"lstm_recurrence_fwd": 8, "conv_block_fwd": 8,
+                     "mha_block_fwd": 8, "cqa_concat_fwd": 4,
+                     "highlight_gate_fwd": 4, "span_decode": 3})
     check(launches == expected,
           "launch counts %s, expected %s" % (launches, expected))
 
@@ -448,9 +640,108 @@ def slice_phase(dataset, feats, splits):
           "spans_equal_vs_off": same_spans, "finite": finite,
           "batch16_ms_kernels": ms_kernels, "batch16_ms_off": batch_ms(loc_off),
           "max_w": loc.max_w, "max_c": loc.max_c})
-    emit({"phase": "profile", **profile_batch(loc, triples, ms_kernels)})
+    emit({"phase": "profile", "of": "served batch of 16",
+          **profile_device(lambda: loc.localize_batch(triples), ms_kernels)})
     check(finite and logit_err <= LOGIT_ATOL and same_spans,
           "served path disagrees with use_pallas=off")
+    return launches
+
+
+# --- phase 5 -------------------------------------------------------------------
+
+TRAIN_KERNELS = ("lstm_recurrence_fwd_res", "lstm_recurrence_bwd",
+                 "conv_block_fwd", "conv_block_bwd", "mha_block_fwd",
+                 "mha_block_bwd")
+
+
+def train_config(dataset, use_pallas):
+    """The reference's default run (main.py flags): rnn predictor, hidden
+    128, 8 heads, T 128, batch 16, drop_rate 0.2, bert_adamw at lr 1e-4
+    with linear decay over 100 epochs, clip 1.0, l2 3e-7, lambda 5."""
+    from vslnet_torch.config import Config
+
+    return Config(task="charades", predictor="rnn", hidden_size=128,
+                  num_heads=8, max_pos_len=128, video_feature_dim=1024,
+                  word_dim=300, char_dim=50, batch_size=16, drop_rate=DROP,
+                  optimizer="bert_adamw", init_lr=1e-4, lr_schedule="linear",
+                  clip_norm=1.0, l2_decay=3e-7, highlight_lambda=5.0,
+                  epochs=100, char_size=dataset["n_chars"],
+                  use_pallas=use_pallas, seed=SEED)
+
+
+def timed_steps(trainer, n):
+    """n train steps, each ended by a synchronise: (losses, ms per step)."""
+    import torch
+
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        loss, _ = trainer.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return losses, times
+
+
+def train_phase(dataset, feats):
+    import torch
+
+    from vslnet_torch.ops import kernels as K
+    from vslnet_torch.train.runner import Trainer
+
+    tk = Trainer(train_config(dataset, "auto"), dataset, feats)
+    to = Trainer(train_config(dataset, "off"), dataset, feats)
+    check(tk.device.type == "cuda" and tk.use_kernels and not to.use_kernels,
+          "the trainers must run on the card, with and without the kernels")
+    named_k = list(tk.model.named_parameters())
+    named_o = dict(to.model.named_parameters())
+    check(all(torch.equal(p, named_o[n]) for n, p in named_k),
+          "the two trainers must start from the same weights")
+
+    # 1. one step each: same weights, batch and generator seed
+    loss_k, _ = tk.step()
+    loss_o, _ = to.step()
+    loss_rel = abs(float(loss_k) - float(loss_o)) / abs(float(loss_o))
+    # per parameter: (max abs error, max abs gradient, error over its bound)
+    grad_errs = {}
+    for n, p in named_k:
+        ref = named_o[n].grad
+        err, scale = max_err(p.grad, ref), float(ref.abs().max())
+        grad_errs[n] = (err, scale, err / (GRAD_RTOL * scale + GRAD_ATOL))
+    worst = sorted(grad_errs, key=lambda n: -grad_errs[n][2])[:3]
+    emit({"phase": "train_step_vs_off", "loss_kernels": float(loss_k),
+          "loss_off": float(loss_o), "loss_rel_err": loss_rel,
+          "loss_rtol": LOSS_RTOL, "grad_rtol": GRAD_RTOL,
+          "grad_atol": GRAD_ATOL, "params": len(grad_errs),
+          "worst_params": {n: grad_errs[n] for n in worst}})
+    check(loss_rel <= LOSS_RTOL and grad_errs[worst[0]][2] <= 1.0,
+          "a train step with the kernels disagrees with use_pallas=off")
+    _, off_times = timed_steps(to, 3)
+
+    # 2. the main path: TRAIN_STEPS steps with the kernels, launches counted
+    K.reset_launches()
+    losses, times = timed_steps(tk, TRAIN_STEPS)
+    launches = dict(K.LAUNCHES)
+    expected = {name: 2 * TRAIN_STEPS if name in TRAIN_KERNELS else 0
+                for name in K.LAUNCHES}
+    step_ms = float(np.mean(times[2:]))
+    emit({"phase": "train", "steps": TRAIN_STEPS, "losses": losses,
+          "launches": launches, "step_ms_kernels": step_ms,
+          "step_ms_off": float(np.mean(off_times)), "step_ms_each": times,
+          "train_records": len(dataset["train_set"]),
+          "num_train_steps": tk.configs.num_train_steps})
+    check(launches == expected,
+          "train launch counts %s, expected %s" % (launches, expected))
+    check(bool(np.isfinite(losses).all()), "non-finite training loss")
+    check(float(np.mean(losses[-5:])) < losses[0],
+          "the loss did not fall: %s" % losses)
+    emit({"phase": "profile", "of": "train step",
+          **profile_device(tk.step, step_ms)})
+
+    # 3. evaluation of the test split (reported, not judged)
+    r1_3, r1_5, r1_7, miou, _, _ = tk.evaluate()
+    emit({"phase": "evaluate", "records": len(dataset["test_set"]),
+          "R1@0.3": r1_3, "R1@0.5": r1_5, "R1@0.7": r1_7, "mIoU": miou})
     return launches
 
 
@@ -486,10 +777,17 @@ def main():
     max_w, _ = static_caps(splits, Config())
     rows = kernel_phase(dev, max_w)
     launches = slice_phase(dataset, feats, splits)
+    train_launches = train_phase(dataset, feats)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        # each kernel's launches on the path that runs it: serving for the
+        # forward kernels, training for the residual forward and backwards
+        name = row["name"]
+        on_train = name in TRAIN_KERNELS and not launches[name]
+        row["launches"] = (train_launches if on_train else launches)[name]
+        row["launches_path"] = "train" if on_train else "serve"
+        row["launches_train_step"] = train_launches[name] / TRAIN_STEPS
         check(row["launches"] > 0,
-              "%s never launched on the served path" % row["name"])
+              "%s never launched on its main path" % name)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,11 @@ def _mha_inputs(rng, B, T, D, lens):
     return x, mask, gam, beta, wqkv, bqkv, wd, bd
 
 
+def _seeds(rng, B):
+    """Per-row dropout seeds [B, 1], float32 holding integers in [0, 2^23)."""
+    return rng.integers(0, 1 << 23, (B, 1)).astype(np.float32)
+
+
 def _cqa_inputs(rng, B, T, W, D, v_lens, q_lens):
     """video, query, masks (a q_len of 0 is a padded query) and the three
     trilinear weights."""
@@ -176,6 +181,94 @@ def test_cuda_span_decode_matches_plain(cuda, case):
     (s, e), (s_ref, e_ref) = _cuda_pair(kernels.fused_span_decode,
                                         kernels.span_decode_plain, args)
     assert torch.equal(s, s_ref) and torch.equal(e, e_ref)
+
+
+def _grads(fn, args, n_grad, g):
+    """fn's output and the gradients of sum(out * g) for the first n_grad
+    args, each a fresh leaf."""
+    leaves = [a.detach().clone().requires_grad_(i < n_grad)
+              for i, a in enumerate(args)]
+    out = fn(*leaves)
+    (out * g).sum().backward()
+    return out.detach(), [leaf.grad for leaf in leaves[:n_grad]]
+
+
+def _check_grads(fn, plain, args, n_grad, names, tol):
+    """The kernel path (one forward and one backward launch) against the
+    plain version's autograd on the same inputs."""
+    rng = np.random.default_rng(11)
+    g = _t(rng.standard_normal(tuple(fn(*args).shape)).astype(np.float32)).to(
+        args[0].device)
+    kernels.reset_launches()
+    out, grads = _grads(fn, args, n_grad, g)
+    torch.cuda.synchronize()
+    assert sorted(v for v in kernels.LAUNCHES.values() if v) == [1, 1], \
+        kernels.LAUNCHES
+    out_ref, grads_ref = _grads(plain, args, n_grad, g)
+    torch.testing.assert_close(out, out_ref, atol=1e-4, rtol=1e-4)
+    for name, a, b in zip(names, grads, grads_ref):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(128, 16, 128), (12, 4, 8)])
+def test_cuda_lstm_grads_match_plain(cuda, T, B, H):
+    rng = np.random.default_rng(12)
+    lens = rng.integers(1, T + 1, size=B)
+    args = [_t(a).to(cuda) for a in _lstm_inputs(rng, T, B, H, lens)]
+    # 128 dependent steps in fp32, sums in another order: 1e-3
+    _check_grads(kernels.fused_lstm_recurrence, kernels.lstm_recurrence_plain,
+                 args, 2, ["x_proj", "k_h"], 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("B,T,D", [(16, 128, 128), (16, 12, 128), (2, 13, 16)])
+def test_cuda_conv_block_grads_match_plain(cuda, B, T, D, rate):
+    rng = np.random.default_rng(13)
+    args = [_t(a).to(cuda) for a in _conv_inputs(rng, B, T, D)]
+    seeds = _t(_seeds(rng, B)).to(cuda)
+
+    def run(fn):
+        return lambda *a: fn(*a, seeds=seeds, drop_rate=rate)
+
+    # batch-summed weight gradients of B*T terms, fp32: 1e-3
+    _check_grads(run(kernels.fused_conv_block), run(kernels.conv_block_plain),
+                 args, 6, ["x", "gam", "beta", "dw", "wp", "bp"], 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("B,T,D,heads", [(16, 128, 128, 8), (16, 12, 128, 8),
+                                         (3, 10, 16, 2)])
+def test_cuda_mha_block_grads_match_plain(cuda, B, T, D, heads, rate):
+    rng = np.random.default_rng(14)
+    lens = list(rng.integers(1, T + 1, size=B - 1)) + [0]  # one fully masked
+    x, mask, *w = [_t(a).to(cuda) for a in _mha_inputs(rng, B, T, D, lens)]
+    seeds = _t(_seeds(rng, B)).to(cuda)
+
+    def run(fn):
+        return lambda x, *w: fn(x, mask, *w, heads, seeds=seeds,
+                                drop_rate=rate)
+
+    _check_grads(run(kernels.fused_mha_block), run(kernels.mha_block_plain),
+                 [x, *w], 7, ["x", "gam", "beta", "wqkv", "bqkv", "wd", "bd"],
+                 1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_dropout_masks_equal_plain(cuda):
+    """One conv layer: out - x is zero exactly where the layer's mask (or
+    the ReLU) drops, in the kernel as in the plain version."""
+    rng = np.random.default_rng(15)
+    for T in (128, 12):
+        x, *w = [_t(a).to(cuda) for a in _conv_inputs(rng, 16, T, 128, L=1)]
+        seeds = _t(_seeds(rng, 16)).to(cuda)
+        out = kernels.fused_conv_block(x, *w, seeds=seeds, drop_rate=0.2)
+        ref = kernels.conv_block_plain(x, *w, seeds=seeds, drop_rate=0.2)
+        assert torch.equal(out == x, ref == x)
+        assert 0.2 < float((out == x).float().mean()) < 0.9
 
 
 @pytest.mark.cuda

@@ -11,8 +11,8 @@ from vslnet_tpu.models import losses as jax_losses
 from vslnet_tpu.ops import pallas_kernels as pk
 from test_torch_cuda import (
     _conv_inputs, _cqa_inputs, _highlight_inputs, _lstm_inputs, _mha_inputs,
-    _span_cases, _t)
-from vslnet_torch.models import losses
+    _seeds, _span_cases, _t)
+from vslnet_torch.models import layers, losses
 from vslnet_torch.ops import kernels
 
 torch.set_num_threads(1)
@@ -108,21 +108,61 @@ def test_decode_span_topk_matches_jax():
     np.testing.assert_allclose(out[2].numpy(), np.asarray(ref[2]), rtol=1e-6)
 
 
-def test_cpu_path_launches_nothing_and_refuses_dropout():
-    rng = np.random.default_rng(4)
-    kernels.reset_launches()
-    kernels.fused_lstm_recurrence(*map(_t, _lstm_inputs(rng, 4, 2, 8, [4, 2])))
-    conv = list(map(_t, _conv_inputs(rng, 2, 5, 8)))
-    kernels.fused_conv_block(*conv)
-    mha = list(map(_t, _mha_inputs(rng, 2, 5, 8, [5, 3])))
-    kernels.fused_mha_block(*mha, 2)
+def _launch_every_wrapper(rng, drop_rate):
+    """Every wrapper on CPU tensors, the blocks at `drop_rate`, with a
+    backward through the three that have backward kernels."""
+    lstm = [_t(a).requires_grad_() for a in _lstm_inputs(rng, 4, 2, 8, [4, 2])]
+    kernels.fused_lstm_recurrence(*lstm).sum().backward()
+    conv = [_t(a).requires_grad_() for a in _conv_inputs(rng, 2, 5, 8)]
+    seeds = _t(_seeds(rng, 2))
+    out = kernels.fused_conv_block(*conv, seeds=seeds, drop_rate=drop_rate)
+    out.sum().backward()
+    x, mask, *w = [_t(a) for a in _mha_inputs(rng, 2, 5, 8, [5, 3])]
+    x.requires_grad_()
+    kernels.fused_mha_block(x, mask, *w, 2, seeds=seeds,
+                            drop_rate=drop_rate).sum().backward()
     kernels.fused_cqa_concat(*map(_t, _cqa_inputs(rng, 2, 5, 3, 8, [5, 2],
                                                   [3, 0])))
     kernels.fused_highlight_gate(*map(_t, _highlight_inputs(rng, 2, 5, 8,
                                                             [5, 2])))
     kernels.fused_span_decode(torch.zeros(2, 5), torch.zeros(2, 5))
-    assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
-    with pytest.raises(NotImplementedError):
-        kernels.fused_conv_block(*conv, drop_rate=0.1)
-    with pytest.raises(NotImplementedError):
-        kernels.fused_mha_block(*mha, 2, drop_rate=0.1)
+    return conv, out
+
+
+@pytest.mark.parametrize("case", ["launches_nothing", "blocks_take_dropout",
+                                  "training_skips_cqa_and_gate_kernels"])
+def test_cpu_path_launches_nothing_and_refuses_dropout(case):
+    """The CPU path launches no kernel; the two block wrappers take
+    drop_rate > 0 (with seeds; without them they refuse); a model in
+    training mode never takes the CQA or highlight-gate kernel path."""
+    rng = np.random.default_rng(4)
+    kernels.reset_launches()
+    if case == "launches_nothing":
+        _launch_every_wrapper(rng, 0.0)
+        assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    elif case == "blocks_take_dropout":
+        conv, out = _launch_every_wrapper(rng, 0.5)
+        assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+        assert not torch.allclose(out, kernels.conv_block_plain(*conv))
+        with pytest.raises(ValueError, match="seeds"):
+            kernels.fused_conv_block(*conv, drop_rate=0.1)
+        mha = [_t(a) for a in _mha_inputs(rng, 2, 5, 8, [5, 3])]
+        with pytest.raises(ValueError, match="seeds"):
+            kernels.fused_mha_block(*mha, 2, drop_rate=0.1)
+    else:
+        cqa = layers.CQAttention(8, use_kernels=True)
+        gate = layers.HighlightLayer(8, use_kernels=True)
+        video, query, v_mask, q_mask = map(_t, _cqa_inputs(
+            rng, 2, 5, 3, 8, [5, 2], [3, 0])[:4])
+        gen = torch.Generator().manual_seed(0)
+        for mod in (cqa, gate):
+            mod.train()
+        # training mode: the plain path, whose score and logits the losses
+        # read (on the card as well: the gate is the mode, not the device)
+        assert cqa(video, query, v_mask, q_mask, 0.2, gen)[1] is not None
+        assert gate(video, v_mask)[0] is not None
+        for mod in (cqa, gate):
+            mod.eval()
+        assert cqa(video, query, v_mask, q_mask)[1] is None
+        assert gate(video, v_mask)[0] is None
+        assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES

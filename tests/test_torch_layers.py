@@ -113,7 +113,8 @@ def test_module_matches_flax_twin(name):
     variables = noisy_variables(
         mod.init(jax.random.PRNGKey(0), *args, **kw), 1)
     ref = _flat(mod.apply(variables, *args, **kw))
-    twin = load_flax_variables(make_torch(), variables)
+    # every flax call here is deterministic: the port's eval mode
+    twin = load_flax_variables(make_torch(), variables).eval()
     out = _flat(twin(*[torch.from_numpy(a) for a in args]))
     assert len(out) == len(ref)
     for o, r in zip(out, ref):

@@ -2,7 +2,9 @@
 
 The serving path, from request to span: data helpers, the VSLNet model,
 hand-written CUDA kernels for its hot blocks (ops/kernels.py, csrc/), the
-`Localizer` and the stdlib HTTP server. Importing the package imports no
+`Localizer` and the stdlib HTTP server. The training path: dropout,
+backward kernels behind autograd Functions, the losses, the optimizer and
+the `Trainer` (train/). Importing the package imports no
 JAX and builds nothing: the CUDA library is compiled and loaded at the
 first kernel launch.
 """

@@ -5,6 +5,9 @@ the conversion is a name map: the flax path params/a/b/c becomes the
 state_dict key "a.b.c". The GloVe table sits in flax's `frozen` collection
 and becomes the buffer `word_embeddings.word_vectors`. The shared
 `feature_encoder` subtree appears once in the flax tree and maps once.
+`flax_path` is the map back, from a port name to its flax path, for the
+predicates that key on flax names (the l2 regularizer, the weight-decay
+mask).
 
 Takes nested dicts of numpy arrays (turn JAX arrays into numpy first, e.g.
 with `jax.tree.map(np.asarray, variables)`); imports no JAX.
@@ -15,6 +18,12 @@ import numpy as np
 import torch
 
 COLLECTIONS = ("params", "frozen")
+
+
+def flax_path(name):
+    """The flax path (within its collection) of a port parameter or buffer:
+    state_dict key "a.b.c" is params/a/b/c."""
+    return tuple(name.split("."))
 
 
 def _flatten(tree, prefix, out):

@@ -3,6 +3,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cfloat>
 #include <cstddef>
 
@@ -68,9 +69,76 @@ inline __device__ void layer_norm_rows(const float* src, float* dst, const float
   }
 }
 
+// The LayerNorm statistics of src [T, D] (shared or global): xh [T, D] =
+// (x - mean) * inv and inv [T], as the JAX package's _ln_fwd. xh may alias
+// src. One warp per row.
+inline __device__ void ln_normalize_rows(const float* src, float* xh, float* inv, int T, int D) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int t = warp; t < T; t += nwarps) {
+    const float* row = src + (size_t)t * D;
+    float s = 0.f;
+    for (int c = lane; c < D; c += 32) s += row[c];
+    const float mean = warp_sum(s) / D;
+    float v = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float d = row[c] - mean;
+      v += d * d;
+    }
+    const float r = rsqrtf(warp_sum(v) / D + kLnEps);
+    for (int c = lane; c < D; c += 32) xh[(size_t)t * D + c] = (row[c] - mean) * r;
+    if (lane == 0) inv[t] = r;
+  }
+}
+
+// LayerNorm backward over one [T, D] tile (the JAX package's _ln_bwd):
+// given the gradient of the normalised output g_n = grad_n(t, c), xh and
+// inv, hands dx = inv * (dxh - mean(dxh) - xh * mean(dxh * xh)), dxh =
+// g_n * gam, to out(t, c, dx). Adds the column sums of g_n * xh (dgam) and
+// g_n (dbeta) into red[warp][c] and red[warp][D + c]; the caller zeroes
+// red [nwarps, 2D] and folds it with fold_rows. One warp per row;
+// grad_n is called twice per element.
+template <typename GradN, typename Out>
+__device__ void ln_backward_rows(const float* xh, const float* inv, const float* __restrict__ gam,
+                                 int T, int D, float* red, GradN grad_n, Out out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  float* rw = red + (size_t)warp * 2 * D;
+  for (int t = warp; t < T; t += nwarps) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float gn = grad_n(t, c);
+      const float x = xh[(size_t)t * D + c];
+      const float dxh = gn * __ldg(gam + c);
+      s1 += dxh;
+      s2 += dxh * x;
+      rw[c] += gn * x;
+      rw[D + c] += gn;
+    }
+    const float m1 = warp_sum(s1) / D;
+    const float m2 = warp_sum(s2) / D;
+    for (int c = lane; c < D; c += 32) {
+      const float x = xh[(size_t)t * D + c];
+      const float dxh = grad_n(t, c) * __ldg(gam + c);
+      out(t, c, inv[t] * (dxh - m1 - x * m2));
+    }
+  }
+}
+
+// dst[c] = sum over w < nrows of src[w * n + c], for c < n, in a fixed
+// order. src may be shared or global memory.
+inline __device__ void fold_rows(const float* src, int nrows, int n, float* dst) {
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    float s = 0.f;
+    for (int w = 0; w < nrows; ++w) s += src[(size_t)w * n + c];
+    dst[c] = s;
+  }
+}
+
 // acc(t, o) = sum_k A[t, k] * W[k, o] for rows t < T and columns o in
-// [c0, c1), handed to epi(t, o, acc). A [T, K] lies in shared memory with
-// K % 4 == 0; W is row-major in global memory with leading dim ldw.
+// [c0, c1), handed to epi(t, o, acc). A [T, K] lies in shared or global
+// memory, 16-byte aligned, with K % 4 == 0; W is row-major in global memory
+// with leading dim ldw.
 // A work item is one column and kRows consecutive rows: the lanes of a warp
 // take neighbouring columns, so each W load is coalesced and each A load is
 // one broadcast float4, and one W value feeds kRows multiply-adds.
@@ -105,5 +173,107 @@ __device__ void gemm_rows(const float* A, int T, int K, const float* __restrict_
       if (t0 + r < T) epi(t0 + r, o, acc[r]);
   }
 }
+
+// --- weight gradients summed over the batch --------------------------------
+// C[z] = A[z]^T . B[z] for z < Z: A[z] [K, M] and B[z] [K, N] row-major
+// (z-strides K*M and K*N), C[z] [M, N]; K runs over every (row, position)
+// of the batch. The TPU kernels sum these over a sequential grid into
+// revisited output blocks; here the K rows are cut into S contiguous
+// chunks, one block per (64 x 64 tile, z, chunk) writes its partial to
+// P[z][s] [M, N], and sum_partials_kernel adds the S partials in a fixed
+// order. No atomics: two equal calls give equal bits.
+
+namespace {  // internal linkage: every .cu that includes this gets its own
+
+constexpr int kWgTile = 64;
+constexpr int kWgDepth = 16;
+
+__global__ void __launch_bounds__(256)
+wgrad_partial_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                     float* __restrict__ P, int M, int N, int K, int S, int chunk) {
+  __shared__ float As[kWgDepth][kWgTile];
+  __shared__ float Bs[kWgDepth][kWgTile];
+  const int z = blockIdx.z / S, s = blockIdx.z - z * S;
+  const int m0 = blockIdx.y * kWgTile, n0 = blockIdx.x * kWgTile;
+  const float* Az = A + (size_t)z * K * M;
+  const float* Bz = B + (size_t)z * K * N;
+  const int k_begin = s * chunk, k_end = min(K, k_begin + chunk);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = k_begin; k0 < k_end; k0 += kWgDepth) {
+    for (int i = threadIdx.x; i < kWgDepth * kWgTile; i += blockDim.x) {
+      const int kk = i / kWgTile, c = i - kk * kWgTile;
+      const int k = k0 + kk;
+      As[kk][c] = (k < k_end && m0 + c < M) ? Az[(size_t)k * M + m0 + c] : 0.f;
+      Bs[kk][c] = (k < k_end && n0 + c < N) ? Bz[(size_t)k * N + n0 + c] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kWgDepth; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* Pz = P + ((size_t)z * S + s) * M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (m < M && n < N) Pz[(size_t)m * N + n] = acc[i][j];
+    }
+  }
+}
+
+// C[z][e] = sum over s < S of P[z][s][e] for e < n, in order of s. Also the
+// batch sum of per-row partials (Z = 1, S = B).
+__global__ void sum_partials_kernel(const float* __restrict__ P, float* __restrict__ C, int Z,
+                                    int S, int n) {
+  const size_t total = (size_t)Z * n;
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += (size_t)gridDim.x * blockDim.x) {
+    const size_t z = idx / n, e = idx - z * n;
+    const float* p = P + z * S * n + e;
+    float acc = 0.f;
+    for (int s = 0; s < S; ++s) acc += p[(size_t)s * n];
+    C[idx] = acc;
+  }
+}
+
+cudaError_t sum_partials(const float* P, float* C, int Z, int S, int n,
+                                cudaStream_t stream) {
+  const size_t total = (size_t)Z * n;
+  const int blocks = static_cast<int>(std::min<size_t>((total + 255) / 256, 1024));
+  sum_partials_kernel<<<blocks, 256, 0, stream>>>(P, C, Z, S, n);
+  return cudaGetLastError();
+}
+
+// C = A^T . B as above, with S chunks of K and the partials in P [Z, S, M,
+// N] (unused when S == 1: the single partial is C itself).
+cudaError_t wgrad(const float* A, const float* B, float* C, float* P, int Z, int M, int N,
+                         int K, int S, cudaStream_t stream) {
+  if (S < 1) return cudaErrorInvalidValue;
+  const int chunk = ((K + S - 1) / S + kWgDepth - 1) / kWgDepth * kWgDepth;
+  dim3 grid((N + kWgTile - 1) / kWgTile, (M + kWgTile - 1) / kWgTile, Z * S);
+  wgrad_partial_kernel<<<grid, 256, 0, stream>>>(A, B, S == 1 ? C : P, M, N, K, S, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return err;
+  return sum_partials(P, C, Z, S, M * N, stream);
+}
+
+}  // namespace
 
 }  // namespace vsl

@@ -7,7 +7,7 @@ Parameters keep the flax names and layouts (`Conv1D.kernel` [in, out], the
 LSTM's one [in+H, 4H] `kernel`, `depthwise_filter` [k, 1, D, 1],
 `pointwise_filter` [1, 1, D, D], char filters [1, k, D, C]), so
 convert_flax.py is a name map and the kernels take the JAX argument
-layouts. Inference only in this slice: no dropout.
+layouts.
 
 ConvBlock, MultiHeadAttentionBlock, CQAttention, HighlightLayer and
 LSTMEncoder call the kernel wrappers of ops/kernels.py when built with
@@ -15,7 +15,15 @@ LSTMEncoder call the kernel wrappers of ops/kernels.py when built with
 otherwise. A wrapper launches its CUDA kernel for tensors on the card and
 runs the plain version for tensors on the CPU, so the choice of device is
 made at each call, never when the module is built. As in the JAX package,
-CQAttention's kernel path returns no score and HighlightLayer's no logits.
+CQAttention's kernel path returns no score and HighlightLayer's no logits,
+and both take their kernels only when deterministic: here, in eval mode.
+
+Dropout (training mode, drop_rate > 0) follows the JAX package's sites.
+Where the JAX package uses flax's nn.Dropout (embeddings, video features,
+the CQA score inputs), `dropout` draws its mask from an explicit
+torch.Generator. The conv and MHA blocks draw per-row seeds from the same
+generator and drop by the counter hash, in their kernels and in their
+plain versions alike.
 """
 import math
 
@@ -41,6 +49,24 @@ def glorot_(param, generator):
 
 def _param(*shape):
     return nn.Parameter(torch.zeros(*shape))
+
+
+def dropout(x, rate, generator):
+    """Inverted dropout with its mask drawn from `generator` (on x's
+    device); x itself at rate 0."""
+    if rate <= 0.0:
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep * (1.0 / (1.0 - rate))
+
+
+def draw_seeds(generator, batch, rate):
+    """Per-row counter-hash seeds [B, 1], float32 holding integers in
+    [0, 2^23) as the JAX package draws them; None at rate 0."""
+    if rate <= 0.0:
+        return None
+    return torch.randint(0, 1 << 23, (batch, 1), generator=generator,
+                         device=generator.device).to(torch.float32)
 
 
 class LayerNorm(nn.Module):
@@ -83,10 +109,11 @@ class WordEmbedding(nn.Module):
         self.register_buffer("word_vectors", torch.zeros(n, dim))
         self.unk = _param(1, dim)
 
-    def forward(self, word_ids):
+    def forward(self, word_ids, drop_rate=0.0, generator=None):
         table = torch.cat([self.unk.new_zeros(1, self.unk.shape[1]), self.unk,
                            self.word_vectors])
-        return F.embedding(word_ids.long(), table)
+        return dropout(F.embedding(word_ids.long(), table),
+                       drop_rate if self.training else 0.0, generator)
 
 
 class CharEmbedding(nn.Module):
@@ -103,11 +130,13 @@ class CharEmbedding(nn.Module):
             self.register_parameter("bias_%d" % i, _param(ch))
         self.out_dim = sum(filters)
 
-    def forward(self, char_ids):
+    def forward(self, char_ids, drop_rate=0.0, generator=None):
         B, W, C = char_ids.shape
         table = torch.cat([self.char_table.new_zeros(1, self.char_table.shape[1]),
                            self.char_table])
-        x = F.embedding(char_ids.long(), table).reshape(B * W, C, -1)
+        x = dropout(F.embedding(char_ids.long(), table),
+                    drop_rate if self.training else 0.0, generator)
+        x = x.reshape(B * W, C, -1)
         x = x.transpose(1, 2)  # [B*W, dim, C]
         outs = []
         for i in range(len(self.kernel_sizes)):
@@ -149,7 +178,8 @@ class DepthwiseSeparableConv(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """num_layers x {pre-LN -> depthwise-separable conv -> +residual}."""
+    """num_layers x {pre-LN -> depthwise-separable conv -> dropout ->
+    +residual}."""
 
     def __init__(self, kernel_size, dim, num_layers, use_kernels=False):
         super().__init__()
@@ -171,10 +201,14 @@ class ConvBlock(nn.Module):
                 torch.stack([c[1] for c in convs]),
                 torch.stack([c[2] for c in convs]))
 
-    def forward(self, x):
+    def forward(self, x, drop_rate=0.0, generator=None):
+        rate = drop_rate if self.training else 0.0
+        seeds = draw_seeds(generator, x.shape[0], rate)
         if self.use_kernels:
-            return kernels.fused_conv_block(x.contiguous(), *self.stacked_params())
-        return kernels.conv_block_plain(x, *self.stacked_params())
+            return kernels.fused_conv_block(x.contiguous(), *self.stacked_params(),
+                                            seeds=seeds, drop_rate=rate)
+        return kernels.conv_block_plain(x, *self.stacked_params(), seeds=seeds,
+                                        drop_rate=rate)
 
 
 class MultiHeadAttention(nn.Module):
@@ -203,8 +237,9 @@ class MultiHeadAttention(nn.Module):
 
 
 class MultiHeadAttentionBlock(nn.Module):
-    """Pre-LN attention + 1-layer dense block:
-    res = MHA(LN1(x)) + x;  out = dense(LN2(res)) + res."""
+    """Pre-LN attention + 1-layer dense block, dropout at the JAX sites:
+    res = drop(MHA(drop(LN1(x)))) + x;  out = drop(dense(drop(LN2(res)))) +
+    res, and on the attention probabilities."""
 
     def __init__(self, dim, num_heads, use_kernels=False):
         super().__init__()
@@ -215,15 +250,18 @@ class MultiHeadAttentionBlock(nn.Module):
         self.layer_norm_2 = LayerNorm(dim)
         self.dense = Conv1D(dim, dim, use_bias=True)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, drop_rate=0.0, generator=None):
         gam = torch.stack([self.layer_norm_1.scale, self.layer_norm_2.scale])
         beta = torch.stack([self.layer_norm_1.bias, self.layer_norm_2.bias])
         wqkv, bqkv = self.multihead_attention.qkv_params()
+        rate = drop_rate if self.training else 0.0
         args = (mask.to(torch.float32), gam, beta, wqkv, bqkv,
                 self.dense.kernel, self.dense.bias, self.num_heads)
+        kw = {"seeds": draw_seeds(generator, x.shape[0], rate),
+              "drop_rate": rate}
         if self.use_kernels:
-            return kernels.fused_mha_block(x.contiguous(), *args)
-        return kernels.mha_block_plain(x, *args)
+            return kernels.fused_mha_block(x.contiguous(), *args, **kw)
+        return kernels.mha_block_plain(x, *args, **kw)
 
 
 class FeatureEncoder(nn.Module):
@@ -239,16 +277,18 @@ class FeatureEncoder(nn.Module):
         self.multihead_attention_block = MultiHeadAttentionBlock(
             hidden_size, num_heads, use_kernels)
 
-    def forward(self, x, mask):
-        x = self.conv_block(self.positional_embedding(x))
-        return self.multihead_attention_block(x, mask)
+    def forward(self, x, mask, drop_rate=0.0, generator=None):
+        x = self.conv_block(self.positional_embedding(x), drop_rate, generator)
+        return self.multihead_attention_block(x, mask, drop_rate, generator)
 
 
 class CQAttention(nn.Module):
     """Context-query attention with the low-rank trilinear score
     S = v.w0 + (q.w1)^T + (v*w_mul) q^T, masked row/col softmaxes, v2q and
     q2v, 4-way concat -> conv1d (no bias, TF parity; t7 dialect: bias).
-    Returns (output, score); the kernel path returns no score."""
+    Returns (output, score); the kernel path (eval mode only, as the JAX
+    package takes it only when deterministic) returns no score. In
+    training the score's inputs are dropped."""
 
     def __init__(self, dim, out_bias=False, use_kernels=False):
         super().__init__()
@@ -258,15 +298,22 @@ class CQAttention(nn.Module):
         self.linear_kernel4mul = _param(1, 1, dim)
         self.dense = Conv1D(4 * dim, dim, use_bias=out_bias)
 
-    def forward(self, video, query, v_mask, q_mask):
-        args = (v_mask.to(torch.float32), q_mask.to(torch.float32),
-                self.linear_kernel4arg0[:, 0], self.linear_kernel4arg1[:, 0],
-                self.linear_kernel4mul[0, 0])
-        if self.use_kernels:
+    def forward(self, video, query, v_mask, q_mask, drop_rate=0.0,
+                generator=None):
+        v_mask = v_mask.to(torch.float32)
+        q_mask = q_mask.to(torch.float32)
+        weights = (self.linear_kernel4arg0[:, 0], self.linear_kernel4arg1[:, 0],
+                   self.linear_kernel4mul[0, 0])
+        if self.use_kernels and not self.training:
             out = kernels.fused_cqa_concat(video.contiguous(),
-                                           query.contiguous(), *args)
+                                           query.contiguous(), v_mask, q_mask,
+                                           *weights)
             return self.dense(out), None
-        out, score = kernels.cqa_plain(video, query, *args)
+        rate = drop_rate if self.training else 0.0
+        score = kernels.trilinear_score(dropout(video, rate, generator),
+                                        dropout(query, rate, generator),
+                                        *weights)
+        out = kernels.cqa_from_score(score, video, query, v_mask, q_mask)
         return self.dense(out), score
 
 
@@ -288,8 +335,8 @@ class CQConcat(nn.Module):
 
 class HighlightLayer(nn.Module):
     """Per-frame logit head: (masked logits, sigmoid scores, None); the
-    kernel path fuses the feature gate x * scores and returns
-    (None, scores, gated x)."""
+    kernel path (eval mode only: training needs the logits) fuses the
+    feature gate x * scores and returns (None, scores, gated x)."""
 
     def __init__(self, dim, use_kernels=False):
         super().__init__()
@@ -299,7 +346,7 @@ class HighlightLayer(nn.Module):
     def forward(self, x, v_mask):
         args = (self.dense.kernel[:, 0], self.dense.bias,
                 v_mask.to(torch.float32))
-        if self.use_kernels:
+        if self.use_kernels and not self.training:
             gated, scores = kernels.fused_highlight_gate(x.contiguous(), *args)
             return None, scores, gated
         logits, scores = kernels.highlight_plain(x, *args)
@@ -357,13 +404,15 @@ class ConditionedPredictor(nn.Module):
         self.start_dense = Conv1D(hidden_size, 1, use_bias=True)
         self.end_dense = Conv1D(hidden_size, 1, use_bias=True)
 
-    def forward(self, x, seq_len, v_mask):
+    def forward(self, x, seq_len, v_mask, drop_rate=0.0, generator=None):
         if self.mode == "rnn":
             start_features = self.start_rnn(x, seq_len)
             end_features = self.end_rnn(start_features, seq_len)
         else:
-            start_features = self.feature_encoder(x, v_mask)
-            end_features = self.feature_encoder(start_features, v_mask)
+            start_features = self.feature_encoder(x, v_mask, drop_rate,
+                                                  generator)
+            end_features = self.feature_encoder(start_features, v_mask,
+                                                drop_rate, generator)
             start_features = self.s_layer_norm(start_features)
             end_features = self.e_layer_norm(end_features)
         start = self.start_hidden(torch.cat([start_features, x], dim=-1))

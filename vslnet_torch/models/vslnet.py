@@ -1,12 +1,16 @@
 """VSLNet assembly, the counterpart of the JAX package's models/vslnet.py
-(GloVe + char-CNN text encoder; inference in this slice).
+(GloVe + char-CNN text encoder).
 
     word emb (frozen GloVe + UNK) ++ char-CNN  ->  conv1d -> hidden
-    video feats -> conv1d -> hidden
+    video feats -> dropout -> conv1d -> hidden
     one shared FeatureEncoder on both streams
     context-query attention -> query-pooled concat
     highlight head; features gated by the sigmoid scores
     conditioned predictor (rnn | transformer) -> start/end logits
+
+Training mode with drop_rate > 0 is the JAX package's
+`deterministic=False`: dropout at its sites, every mask drawn from the
+caller's torch.Generator (models/layers.py). Eval mode is serving.
 """
 import torch
 from torch import nn
@@ -21,6 +25,7 @@ from vslnet_torch.models.layers import (
     FeatureEncoder,
     HighlightLayer,
     WordEmbedding,
+    dropout,
     glorot_,
 )
 from vslnet_torch.ops.masking import sequence_mask
@@ -47,23 +52,30 @@ class VSLNet(nn.Module):
         self.conditioned_predictor = ConditionedPredictor(
             hidden_size, num_heads, max_pos_len, predictor, use_kernels)
 
-    def forward(self, word_ids, char_ids, vfeats, v_len):
+    def forward(self, word_ids, char_ids, vfeats, v_len, drop_rate=0.0,
+                generator=None):
+        """drop_rate acts in training mode only; it needs `generator`, a
+        torch.Generator on the inputs' device."""
+        drop = (drop_rate if self.training else 0.0, generator)
+        if drop[0] > 0.0 and generator is None:
+            raise ValueError("drop_rate > 0 in training mode needs a "
+                             "torch.Generator on the inputs' device")
         T = vfeats.shape[1]
         v_mask = sequence_mask(v_len, T)
         q_mask = (word_ids != 0).to(torch.int32)
-        query = torch.cat([self.word_embeddings(word_ids),
-                           self.char_embeddings(char_ids)], dim=-1)
-        video = self.video_conv1d(vfeats.to(torch.float32))
+        query = torch.cat([self.word_embeddings(word_ids, *drop),
+                           self.char_embeddings(char_ids, *drop)], dim=-1)
+        video = self.video_conv1d(dropout(vfeats.to(torch.float32), *drop))
         query = self.query_conv1d(query)
-        video = self.feature_encoder(video, v_mask)
-        query = self.feature_encoder(query, q_mask)
+        video = self.feature_encoder(video, v_mask, *drop)
+        query = self.feature_encoder(query, q_mask, *drop)
         feats, vq_score = self.video_query_attention(video, query, v_mask,
-                                                     q_mask)
+                                                     q_mask, *drop)
         feats = self.context_query_concat(feats, query, q_mask)
         h_logits, h_scores, gated = self.highlighting_layer(feats, v_mask)
         feats = feats * h_scores[:, :, None] if gated is None else gated
-        start_logits, end_logits = self.conditioned_predictor(feats, v_len,
-                                                              v_mask)
+        start_logits, end_logits = self.conditioned_predictor(
+            feats, v_len, v_mask, *drop)
         return {
             "start_logits": start_logits,
             "end_logits": end_logits,

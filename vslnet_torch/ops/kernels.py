@@ -1,19 +1,28 @@
-"""Hand-written CUDA kernels for the serving path, with their plain PyTorch
-versions and launch counters. The counterpart of the JAX package's
+"""Hand-written CUDA kernels of the port, with their plain PyTorch versions
+and launch counters. The counterpart of the JAX package's
 ops/pallas_kernels.py.
 
 Each wrapper below takes the plain version for tensors on the CPU (the
 tests) and launches its kernel for tensors on a CUDA device; there it
 raises on anything the kernel does not take and never falls back. The
-plain versions also serve the model under `use_pallas=off`.
+plain versions also serve the model under `use_pallas=off`. The LSTM
+recurrence, the conv block and the MHA block have backward kernels too:
+on the card their wrappers go through a `torch.autograd.Function`
+(`FusedLSTMRecurrence`, `FusedConvBlock`, `FusedMHABlock`), on the CPU
+through torch's autograd of the plain versions. The `launch_*` functions
+are the kernels alone, for CUDA tensors only: the autograd Functions call
+them, and chip_smoke.py times them.
 
 The kernels (csrc/*.cu, sm_90a, fp32) are compiled with nvcc into one
 shared library with a plain C interface, one nvcc process per source, all
 started together, at the first launch (or by `build_library`), into
 vslnet_torch/_build/, and bound with ctypes. Nothing is built at import.
 
-Dropout inside the kernels (the JAX package's counter hash) belongs to
-training and is not ported yet: every wrapper raises for drop_rate > 0.
+Dropout inside the blocks is the JAX package's counter hash (`hash_bits`,
+`mha_hash_bits`; csrc/hash.cuh): a murmur3 finalizer over (row, col,
+seed, salt), so the keep masks of the kernels, their plain versions and
+the TPU kernels are equal bit for bit, and a backward regenerates them
+from the per-row seeds.
 """
 import ctypes
 import hashlib
@@ -38,12 +47,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # shared memory one block may use on Hopper (232,448 bytes of the SM's 256 KB)
 MAX_SMEM_BYTES = 232448
+# streaming multiprocessors of an H100 SXM: the split-K weight products aim
+# to fill them
+N_SMS = 132
 
 # launches of each kernel since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else
-LAUNCHES = {"lstm_recurrence_fwd": 0, "conv_block_fwd": 0,
-            "mha_block_fwd": 0, "cqa_concat_fwd": 0, "highlight_gate_fwd": 0,
-            "span_decode": 0}
+LAUNCHES = {"lstm_recurrence_fwd": 0, "lstm_recurrence_fwd_res": 0,
+            "lstm_recurrence_bwd": 0, "conv_block_fwd": 0, "conv_block_bwd": 0,
+            "mha_block_fwd": 0, "mha_block_bwd": 0, "cqa_concat_fwd": 0,
+            "highlight_gate_fwd": 0, "span_decode": 0}
 
 
 def reset_launches():
@@ -57,10 +70,17 @@ _LIB = None
 _LIB_LOCK = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
+_DROP = [_U, _F]  # dropout threshold and scale, after the seeds pointer
 _SIGNATURES = {
-    "vsl_lstm_recurrence_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "vsl_conv_block_fwd": [_P] * 7 + [_I] * 5 + [_P],
-    "vsl_mha_block_fwd": [_P] * 11 + [_I] * 4 + [_P],
+    "vsl_lstm_recurrence_fwd": [_P] * 4 + [_I] * 3 + [_P],
+    "vsl_lstm_recurrence_fwd_res": [_P] * 8 + [_I] * 3 + [_P],
+    "vsl_lstm_recurrence_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    "vsl_conv_block_fwd": [_P] * 7 + _DROP + [_P] + [_I] * 5 + [_P],
+    "vsl_conv_block_bwd": [_P] * 8 + _DROP + [_P] * 9 + [_I] * 6 + [_P],
+    "vsl_mha_block_fwd": [_P] * 9 + _DROP + [_P] * 3 + [_I] * 4 + [_P],
+    "vsl_mha_block_bwd": [_P] * 7 + _DROP + [_P] * 15 + [_I] * 5 + [_P],
     "vsl_cqa_concat_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "vsl_highlight_gate_fwd": [_P] * 6 + [_I] * 2 + [_P],
     "vsl_span_decode": [_P] * 4 + [_I] * 2 + [_P],
@@ -166,6 +186,11 @@ def _on_cuda(name, *tensors):
     return True
 
 
+def _require_cuda(name, *tensors):
+    if not _on_cuda(name, *tensors):
+        raise ValueError("%s: the kernel takes CUDA tensors only" % name)
+
+
 def _check(name, t, shape):
     if t.dtype != torch.float32:
         raise TypeError("%s: expected float32, got %s" % (name, t.dtype))
@@ -176,11 +201,89 @@ def _check(name, t, shape):
         raise ValueError("%s: tensor must be contiguous" % name)
 
 
-def _no_dropout(name, drop_rate):
-    if drop_rate > 0.0:
-        raise NotImplementedError(
-            "%s: dropout inside the kernel (drop_rate > 0) comes with the "
-            "training kernels, which are not ported yet" % name)
+def _dropout_args(name, seeds, drop_rate, B):
+    """(seeds pointer or None, threshold, scale) of a kernel's dropout:
+    off at drop_rate 0; above it the per-row seeds [B, 1] are required."""
+    if not drop_rate > 0.0:
+        return None, 0, 1.0
+    if not drop_rate < 1.0:
+        raise ValueError("%s: drop_rate must be below 1, got %r"
+                         % (name, drop_rate))
+    if seeds is None:
+        raise ValueError("%s: drop_rate > 0 needs per-row seeds [B, 1]" % name)
+    _check(name, seeds, (B, 1))
+    return seeds.data_ptr(), drop_threshold(drop_rate), 1.0 / (1.0 - drop_rate)
+
+
+def _wgrad_splits(Z, M, N, K):
+    """Chunks of the K rows of a split-K weight product (common.cuh wgrad):
+    enough 64 x 64-tile blocks to fill the SMs, at least 64 rows a chunk."""
+    tiles = Z * -(-M // 64) * -(-N // 64)
+    return max(1, min(-(-N_SMS // tiles), K // 64))
+
+
+def _empty(device, *shape):
+    return torch.empty(*shape, device=device, dtype=torch.float32)
+
+
+# --- counter-hash dropout --------------------------------------------------------
+# Replaces vslnet_tpu/ops/pallas_kernels.py:_hash_bits, _mha_hash_bits and
+# _drop32 (their device twin is csrc/hash.cuh). uint32 arithmetic is done
+# in int64 and cut to 32 bits; each product is split so that it never
+# leaves int64.
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c):
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a constant c < 2^32."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _counter_hash(seeds, salt_term, rows, cols):
+    """[R, rows, cols] int64 bits: the murmur3 finalizer over (i, j, seed,
+    salt) for each of the R seeds."""
+    seeds = torch.as_tensor(seeds).reshape(-1, 1, 1).to(torch.int64)
+    i = torch.arange(rows, dtype=torch.int64, device=seeds.device)[:, None]
+    j = torch.arange(cols, dtype=torch.int64, device=seeds.device)[None, :]
+    x = _mul32(i, 0x9E3779B9) ^ _mul32(j, 0x85EBCA6B)
+    x = x ^ ((_mul32(seeds, 2654435761) + salt_term) & _M32)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def hash_bits(seeds, salt, shape):
+    """Bits of a block site (`_hash_bits`): seeds [R] (or [R, 1]) holding
+    integers, salt, shape (A, B) -> [R, A, B] int64 in [0, 2^32)."""
+    return _counter_hash(seeds, (0x94D049BB * (salt + 1)) & _M32, *shape)
+
+
+def mha_hash_bits(seeds, head, T):
+    """Bits of head `head`'s [T, T] probability tile (`_mha_hash_bits`)."""
+    return _counter_hash(seeds, (0x27D4EB2F * (head + 1)) & _M32, T, T)
+
+
+def drop_threshold(rate):
+    """Keep an element iff its bits are at least this (as the JAX package)."""
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def _drop_bits(a, bits, rate):
+    return torch.where(bits >= drop_threshold(rate), a * (1.0 / (1.0 - rate)),
+                       0.0)
+
+
+def site_dropout(a, seeds, salt, rate):
+    """Inverted dropout of a [R, A, B] tile by the counter hash (`_drop32`):
+    the row's seed and the site's salt pick the mask."""
+    if rate <= 0.0:
+        return a
+    if seeds is None:
+        raise ValueError("drop_rate > 0 needs per-row seeds [B, 1]")
+    return _drop_bits(a, hash_bits(seeds, salt, a.shape[-2:]), rate)
 
 
 # --- shared plain math ---------------------------------------------------------
@@ -203,9 +306,10 @@ def depthwise_separable(x, dw, wp, bp):
     return torch.relu(y @ wp + bp)
 
 
-def attention(q, k, v, mask, n_heads):
+def attention(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
     """Multi-head attention without an output projection: q, k, v [B, T, D],
-    key mask [B, T] added as (1 - m) * -1e30, fp32 softmax."""
+    key mask [B, T] added as (1 - m) * -1e30, fp32 softmax, then each
+    head's probabilities dropped by its counter hash."""
     B, T, D = q.shape
     hd = D // n_heads
 
@@ -214,21 +318,29 @@ def attention(q, k, v, mask, n_heads):
 
     s = (split(q) * (1.0 / math.sqrt(float(hd)))) @ split(k).transpose(-1, -2)
     s = s + (1.0 - mask.to(torch.float32)).reshape(B, 1, 1, T) * -1e30
-    out = torch.softmax(s, dim=-1) @ split(v)
-    return out.transpose(1, 2).reshape(B, T, D)
+    p = torch.softmax(s, dim=-1)
+    if drop_rate > 0.0:
+        if seeds is None:
+            raise ValueError("drop_rate > 0 needs per-row seeds [B, 1]")
+        bits = torch.stack([mha_hash_bits(seeds, h, T)
+                            for h in range(n_heads)], dim=1)
+        p = _drop_bits(p, bits, drop_rate)
+    return (p @ split(v)).transpose(1, 2).reshape(B, T, D)
 
 
 # --- 1. LSTM recurrence --------------------------------------------------------
-# Replaces vslnet_tpu/ops/pallas_kernels.py:_lstm_fwd_lean_kernel (via
-# fused_lstm_recurrence). Kernel: csrc/lstm.cu. Bound on the H100 by its
-# chain of T dependent steps on B SMs, not by bytes or FLOPs; one launch
-# runs all T steps with h and c in shared memory.
+# Replaces vslnet_tpu/ops/pallas_kernels.py:_lstm_fwd_lean_kernel,
+# _lstm_fwd_kernel and _lstm_bwd_kernel (via fused_lstm_recurrence and its
+# VJP). Kernels: csrc/lstm.cu. Bound on the H100 by their chains of T
+# dependent steps on B SMs, not by bytes or FLOPs; one launch runs all T
+# steps with h and c (dh and dc) in shared memory.
 
 
 def lstm_recurrence_plain(x_proj, k_h, valid):
     """[T, B, 4H] pre-projected inputs, [H, 4H] recurrent kernel, [T, B]
     validity -> [T, B, H]; TF gates [i, j, f, o], forget bias 1, state
-    frozen and output zeroed where valid is 0."""
+    frozen and output zeroed where valid is 0. Its gradient is torch's
+    autograd through the loop."""
     T, B, G = x_proj.shape
     H = G // 4
     h = x_proj.new_zeros(B, H)
@@ -247,10 +359,7 @@ def lstm_recurrence_plain(x_proj, k_h, valid):
     return torch.stack(outs)
 
 
-def fused_lstm_recurrence(x_proj, k_h, valid):
-    name = "lstm_recurrence_fwd"
-    if not _on_cuda(name, x_proj, k_h, valid):
-        return lstm_recurrence_plain(x_proj, k_h, valid)
+def _lstm_shapes(name, x_proj, k_h, valid):
     T, B, G = x_proj.shape
     H = G // 4
     if G != 4 * H or not 1 <= H <= 256:
@@ -259,25 +368,103 @@ def fused_lstm_recurrence(x_proj, k_h, valid):
     _check(name, x_proj, (T, B, 4 * H))
     _check(name, k_h, (H, 4 * H))
     _check(name, valid, (T, B))
-    out = torch.empty(T, B, H, device=x_proj.device, dtype=torch.float32)
+    return T, B, H
+
+
+def launch_lstm_fwd(x_proj, k_h, valid):
+    """The lean forward kernel (no residuals): CUDA tensors only."""
+    name = "lstm_recurrence_fwd"
+    _require_cuda(name, x_proj, k_h, valid)
+    T, B, H = _lstm_shapes(name, x_proj, k_h, valid)
+    out = _empty(x_proj.device, T, B, H)
     _launch(name, x_proj.data_ptr(), k_h.data_ptr(), valid.data_ptr(),
             out.data_ptr(), T, B, H)
     return out
 
 
+def launch_lstm_fwd_res(x_proj, k_h, valid):
+    """The forward kernel with residuals: (out, acts [T, B, 4H], tanh(c~),
+    c_prev, h_prev [T, B, H]). CUDA tensors only."""
+    name = "lstm_recurrence_fwd_res"
+    _require_cuda(name, x_proj, k_h, valid)
+    T, B, H = _lstm_shapes(name, x_proj, k_h, valid)
+    dev = x_proj.device
+    out, th, c_prev, h_prev = (_empty(dev, T, B, H) for _ in range(4))
+    acts = _empty(dev, T, B, 4 * H)
+    _launch(name, x_proj.data_ptr(), k_h.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), acts.data_ptr(), th.data_ptr(), c_prev.data_ptr(),
+            h_prev.data_ptr(), T, B, H)
+    return out, acts, th, c_prev, h_prev
+
+
+def launch_lstm_bwd(dy, acts, th, c_prev, h_prev, valid, k_h):
+    """The reverse recurrence and dk_h: (dx_proj [T, B, 4H], dk_h [H, 4H]).
+    CUDA tensors only."""
+    name = "lstm_recurrence_bwd"
+    _require_cuda(name, dy, acts, th, c_prev, h_prev, valid, k_h)
+    T, B, H = dy.shape
+    for t, shape in ((dy, (T, B, H)), (acts, (T, B, 4 * H)), (th, (T, B, H)),
+                     (c_prev, (T, B, H)), (h_prev, (T, B, H)), (valid, (T, B)),
+                     (k_h, (H, 4 * H))):
+        _check(name, t, shape)
+    dev = dy.device
+    khT = k_h.t().contiguous()
+    dxp = _empty(dev, T, B, 4 * H)
+    dkh = _empty(dev, H, 4 * H)
+    splits = _wgrad_splits(1, H, 4 * H, T * B)
+    ws = _empty(dev, splits * H * 4 * H if splits > 1 else 1)
+    _launch(name, dy.data_ptr(), acts.data_ptr(), th.data_ptr(),
+            c_prev.data_ptr(), h_prev.data_ptr(), valid.data_ptr(),
+            khT.data_ptr(), dxp.data_ptr(), dkh.data_ptr(), ws.data_ptr(),
+            splits, T, B, H)
+    return dxp, dkh
+
+
+class FusedLSTMRecurrence(torch.autograd.Function):
+    """The recurrence on the card: the residual forward kernel, then the
+    reverse kernel in backward (`fused_lstm_recurrence`'s VJP)."""
+
+    @staticmethod
+    def forward(ctx, x_proj, k_h, valid):
+        out, acts, th, c_prev, h_prev = launch_lstm_fwd_res(x_proj, k_h, valid)
+        ctx.save_for_backward(acts, th, c_prev, h_prev, valid, k_h)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        acts, th, c_prev, h_prev, valid, k_h = ctx.saved_tensors
+        dxp, dkh = launch_lstm_bwd(dy.contiguous(), acts, th, c_prev, h_prev,
+                                   valid, k_h)
+        return dxp, dkh, None
+
+
+def fused_lstm_recurrence(x_proj, k_h, valid):
+    """On the card: the lean kernel where no gradient is needed, else
+    FusedLSTMRecurrence. On the CPU: the plain version."""
+    name = "lstm_recurrence_fwd"
+    if not _on_cuda(name, x_proj, k_h, valid):
+        return lstm_recurrence_plain(x_proj, k_h, valid)
+    if torch.is_grad_enabled() and (x_proj.requires_grad or k_h.requires_grad):
+        return FusedLSTMRecurrence.apply(x_proj, k_h, valid)
+    return launch_lstm_fwd(x_proj, k_h, valid)
+
+
 # --- 2. conv block -------------------------------------------------------------
-# Replaces vslnet_tpu/ops/pallas_kernels.py:_make_conv_block_fwd_kernel (via
-# fused_conv_block). Kernel: csrc/conv_block.cu. Bound by the pointwise
-# products on the B SMs that hold a row; all L layers run in one launch with
-# the row's activations in shared memory.
+# Replaces vslnet_tpu/ops/pallas_kernels.py:_make_conv_block_fwd_kernel and
+# _make_conv_block_bwd_kernel (via fused_conv_block). Kernels:
+# csrc/conv_block.cu. Bound by the pointwise products on the B SMs that
+# hold a row; all L layers run in one launch with the row's activations in
+# shared memory, and the backward replays the forward from the block input.
 
 
-def conv_block_plain(x, gam, beta, dw, wp, bp):
-    """L x {x + relu(pointwise(depthwise(LN(x))) + bp)}: x [B, T, D],
-    gam/beta/bp [L, D], dw [L, k, D], wp [L, D, D]."""
+def conv_block_plain(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
+    """L x {x + drop(relu(pointwise(depthwise(LN(x))) + bp))}: x [B, T, D],
+    gam/beta/bp [L, D], dw [L, k, D], wp [L, D, D]; layer l's dropout is the
+    counter hash with salt 0x100 + l and the row seeds [B, 1]."""
     for l in range(gam.shape[0]):
-        x = x + depthwise_separable(layer_norm(x, gam[l], beta[l]), dw[l],
-                                    wp[l], bp[l])
+        r = depthwise_separable(layer_norm(x, gam[l], beta[l]), dw[l], wp[l],
+                                bp[l])
+        x = x + site_dropout(r, seeds, 0x100 + l, drop_rate)
     return x
 
 
@@ -285,88 +472,248 @@ def conv_block_smem_bytes(T, D):
     return 3 * T * D * 4
 
 
-def fused_conv_block(x, gam, beta, dw, wp, bp, drop_rate=0.0):
-    name = "conv_block_fwd"
-    _no_dropout(name, drop_rate)
-    if not _on_cuda(name, x, gam, beta, dw, wp, bp):
-        return conv_block_plain(x, gam, beta, dw, wp, bp)
+def conv_block_bwd_smem_bytes(T, D):
+    return (3 * T * D + T + 16 * D) * 4
+
+
+def _conv_shapes(name, x, gam, beta, dw, wp, bp, smem):
     B, T, D = x.shape
     L, K, _ = dw.shape
     if D % 4:
         raise ValueError("%s: needs D %% 4 == 0, got D=%d" % (name, D))
-    if conv_block_smem_bytes(T, D) > MAX_SMEM_BYTES:
+    if smem > MAX_SMEM_BYTES:
         raise ValueError("%s: T=%d, D=%d needs %d bytes of shared memory, "
-                         "above the %d a block has" % (
-                             name, T, D, conv_block_smem_bytes(T, D),
-                             MAX_SMEM_BYTES))
+                         "above the %d a block has" % (name, T, D, smem,
+                                                       MAX_SMEM_BYTES))
     _check(name, x, (B, T, D))
     for t in (gam, beta, bp):
         _check(name, t, (L, D))
     _check(name, dw, (L, K, D))
     _check(name, wp, (L, D, D))
+    return B, T, D, L, K
+
+
+def launch_conv_block_fwd(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
+    """The forward kernel: CUDA tensors only."""
+    name = "conv_block_fwd"
+    _require_cuda(name, x, gam, beta, dw, wp, bp)
+    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp,
+                                 conv_block_smem_bytes(*x.shape[1:]))
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     out = torch.empty_like(x)
     _launch(name, x.data_ptr(), gam.data_ptr(), beta.data_ptr(), dw.data_ptr(),
-            wp.data_ptr(), bp.data_ptr(), out.data_ptr(), B, T, D, L, K)
+            wp.data_ptr(), bp.data_ptr(), sp, thresh, scale, out.data_ptr(),
+            B, T, D, L, K)
     return out
 
 
+def launch_conv_block_bwd(x, gam, beta, dw, wp, bp, seeds, drop_rate, g):
+    """The backward kernel: (dx, dgam, dbeta, ddw, dwp, dbp), the weight
+    gradients summed over the batch. CUDA tensors only."""
+    name = "conv_block_bwd"
+    _require_cuda(name, x, gam, beta, dw, wp, bp, g)
+    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp,
+                                 conv_block_bwd_smem_bytes(*x.shape[1:]))
+    _check(name, g, (B, T, D))
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    dev = x.device
+    wpT = wp.transpose(1, 2).contiguous()
+    dx = torch.empty_like(x)
+    dsmall = _empty(dev, L, 3 + K, D)
+    dwp = _empty(dev, L, D, D)
+    xs, d_ws, gp_ws = (_empty(dev, L, B, T, D) for _ in range(3))
+    part = _empty(dev, B, L, 3 + K, D)
+    splits = _wgrad_splits(L, D, D, B * T)
+    ws = _empty(dev, L * splits * D * D if splits > 1 else 1)
+    _launch(name, x.data_ptr(), gam.data_ptr(), beta.data_ptr(), dw.data_ptr(),
+            wp.data_ptr(), wpT.data_ptr(), bp.data_ptr(), sp, thresh, scale,
+            g.data_ptr(), dx.data_ptr(), dsmall.data_ptr(), dwp.data_ptr(),
+            xs.data_ptr(), d_ws.data_ptr(), gp_ws.data_ptr(), part.data_ptr(),
+            ws.data_ptr(), splits, B, T, D, L, K)
+    return dx, dsmall[:, 0], dsmall[:, 1], dsmall[:, 3:], dwp, dsmall[:, 2]
+
+
+class FusedConvBlock(torch.autograd.Function):
+    """The conv block on the card: forward kernel, backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, gam, beta, dw, wp, bp, seeds, drop_rate):
+        out = launch_conv_block_fwd(x, gam, beta, dw, wp, bp, seeds, drop_rate)
+        ctx.save_for_backward(x, gam, beta, dw, wp, bp, seeds)
+        ctx.drop_rate = drop_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gam, beta, dw, wp, bp, seeds = ctx.saved_tensors
+        grads = launch_conv_block_bwd(x, gam, beta, dw, wp, bp, seeds,
+                                      ctx.drop_rate, g.contiguous())
+        return (*grads, None, None)
+
+
+def fused_conv_block(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
+    name = "conv_block_fwd"
+    tensors = [x, gam, beta, dw, wp, bp] + ([] if seeds is None else [seeds])
+    if not _on_cuda(name, *tensors):
+        return conv_block_plain(x, gam, beta, dw, wp, bp, seeds, drop_rate)
+    return FusedConvBlock.apply(x, gam, beta, dw, wp, bp, seeds,
+                                float(drop_rate))
+
+
 # --- 3. MHA block --------------------------------------------------------------
-# Replaces vslnet_tpu/ops/pallas_kernels.py:_make_mha_block_fwd_kernel (via
-# fused_mha_block). Kernel: csrc/mha_block.cu, three launches (LN1 + QKV,
+# Replaces vslnet_tpu/ops/pallas_kernels.py:_make_mha_block_fwd_kernel and
+# _make_mha_block_bwd_kernel (via fused_mha_block). Kernels:
+# csrc/mha_block.cu, three launches each way (forward: LN1 + QKV,
 # per-(row, head) attention, residual + LN2 + dense + residual). Bound by
-# the projections on few SMs and the attention's serial key loop.
+# the projections on few SMs and the attention's serial key loops.
 
 
-def mha_block_plain(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads):
+def mha_block_plain(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
+                    seeds=None, drop_rate=0.0):
     """Pre-LN attention block: x [B, T, D], key mask [B, T], gam/beta [2, D]
-    (LN1, LN2), wqkv [D, 3D], bqkv [3D], wd [D, D], bd [D]."""
+    (LN1, LN2), wqkv [D, 3D], bqkv [3D], wd [D, D], bd [D]; counter-hash
+    dropout at sites 0x200 (LN1 out), the probabilities, 0x201 (attention
+    out), 0x202 (LN2 out) and 0x203 (dense out)."""
     D = x.shape[-1]
-    qkv = layer_norm(x, gam[0], beta[0]) @ wqkv + bqkv
-    res = attention(qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], mask,
-                    n_heads) + x
-    return layer_norm(res, gam[1], beta[1]) @ wd + bd + res
+    y = site_dropout(layer_norm(x, gam[0], beta[0]), seeds, 0x200, drop_rate)
+    qkv = y @ wqkv + bqkv
+    att = attention(qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], mask,
+                    n_heads, seeds, drop_rate)
+    res = site_dropout(att, seeds, 0x201, drop_rate) + x
+    z = site_dropout(layer_norm(res, gam[1], beta[1]), seeds, 0x202, drop_rate)
+    return site_dropout(z @ wd + bd, seeds, 0x203, drop_rate) + res
 
 
 MHA_HEAD_DIMS = (8, 16, 32, 64)
 
 
 def mha_block_smem_bytes(T, D):
-    """The largest of the three launches' shared memory (the attention's
-    K, V and mask rows fit under 2*T*D + T floats for any head count)."""
+    """The largest of the three forward launches' shared memory (the
+    attention's K, V and mask rows fit under 2*T*D + T floats for any head
+    count)."""
     return (2 * D + 1) * T * 4
 
 
-def fused_mha_block(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
-                    drop_rate=0.0):
-    name = "mha_block_fwd"
-    _no_dropout(name, drop_rate)
-    if not _on_cuda(name, x, mask, gam, beta, wqkv, bqkv, wd, bd):
-        return mha_block_plain(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads)
+def mha_block_bwd_smem_bytes(T, D, n_heads):
+    """The largest of the backward launches' shared memory: the dense + LN2
+    launch's three [T, D] tiles, or the attention's q, k, v, g of a head
+    and dS [T, T + 1]."""
+    hd = D // n_heads
+    return max(3 * T * D + T + 16 * D, 4 * T * hd + 3 * T + T * (T + 1)) * 4
+
+
+def _mha_shapes(name, x, n_heads, smem, mask, gam, beta, wqkv, wd, bqkv=None,
+                bd=None):
     B, T, D = x.shape
     if D % n_heads or D // n_heads not in MHA_HEAD_DIMS:
         raise ValueError("%s: head dim D/n_heads must be one of %s, got D=%d "
                          "heads=%d" % (name, MHA_HEAD_DIMS, D, n_heads))
-    if mha_block_smem_bytes(T, D) > MAX_SMEM_BYTES:
+    if smem > MAX_SMEM_BYTES:
         raise ValueError("%s: T=%d, D=%d needs %d bytes of shared memory, "
-                         "above the %d a block has" % (
-                             name, T, D, mha_block_smem_bytes(T, D),
-                             MAX_SMEM_BYTES))
+                         "above the %d a block has" % (name, T, D, smem,
+                                                       MAX_SMEM_BYTES))
     _check(name, x, (B, T, D))
     _check(name, mask, (B, T))
     _check(name, gam, (2, D))
     _check(name, beta, (2, D))
     _check(name, wqkv, (D, 3 * D))
-    _check(name, bqkv, (3 * D,))
     _check(name, wd, (D, D))
-    _check(name, bd, (D,))
-    qkv = torch.empty(B, T, 3 * D, device=x.device, dtype=torch.float32)
+    if bqkv is not None:
+        _check(name, bqkv, (3 * D,))
+    if bd is not None:
+        _check(name, bd, (D,))
+    return B, T, D
+
+
+def launch_mha_block_fwd(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
+                         seeds=None, drop_rate=0.0):
+    """The forward kernels: (out, qkv [B, T, 3D], att [B, T, D]), the last
+    two being what the backward reads back. CUDA tensors only."""
+    name = "mha_block_fwd"
+    _require_cuda(name, x, mask, gam, beta, wqkv, bqkv, wd, bd)
+    B, T, D = _mha_shapes(name, x, n_heads, mha_block_smem_bytes(*x.shape[1:]),
+                          mask, gam, beta, wqkv, wd, bqkv, bd)
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    qkv = _empty(x.device, B, T, 3 * D)
     att = torch.empty_like(x)
     out = torch.empty_like(x)
     _launch(name, x.data_ptr(), mask.data_ptr(), gam.data_ptr(),
             beta.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wd.data_ptr(),
-            bd.data_ptr(), qkv.data_ptr(), att.data_ptr(), out.data_ptr(),
-            B, T, D, n_heads)
-    return out
+            bd.data_ptr(), sp, thresh, scale, qkv.data_ptr(), att.data_ptr(),
+            out.data_ptr(), B, T, D, n_heads)
+    return out, qkv, att
+
+
+def launch_mha_block_bwd(x, mask, gam, beta, wqkv, wd, n_heads, seeds,
+                         drop_rate, qkv, att, g):
+    """The backward kernels: (dx, dgam, dbeta, dwqkv, dbqkv, dwd, dbd), the
+    weight gradients summed over the batch. CUDA tensors only."""
+    name = "mha_block_bwd"
+    _require_cuda(name, x, mask, gam, beta, wqkv, wd, qkv, att, g)
+    T, D = x.shape[1:]
+    B, T, D = _mha_shapes(name, x, n_heads,
+                          mha_block_bwd_smem_bytes(T, D, n_heads), mask, gam,
+                          beta, wqkv, wd)
+    for t, shape in ((qkv, (B, T, 3 * D)), (att, (B, T, D)), (g, (B, T, D))):
+        _check(name, t, shape)
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    dev = x.device
+    wqkvT = wqkv.t().contiguous()
+    wdT = wd.t().contiguous()
+    dx = torch.empty_like(x)
+    dsmall = _empty(dev, 8 * D)
+    dwqkv = _empty(dev, D, 3 * D)
+    dwd = _empty(dev, D, D)
+    z, gdpre, gres, gatt, y = (_empty(dev, B, T, D) for _ in range(5))
+    dqkv = _empty(dev, B, T, 3 * D)
+    part = _empty(dev, B, 8 * D)
+    splits = _wgrad_splits(1, D, 3 * D, B * T)
+    ws = _empty(dev, splits * D * 3 * D if splits > 1 else 1)
+    _launch(name, x.data_ptr(), mask.data_ptr(), gam.data_ptr(),
+            beta.data_ptr(), wqkvT.data_ptr(), wdT.data_ptr(), sp, thresh,
+            scale, qkv.data_ptr(), att.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            dsmall.data_ptr(), dwqkv.data_ptr(), dwd.data_ptr(), z.data_ptr(),
+            gdpre.data_ptr(), gres.data_ptr(), gatt.data_ptr(), y.data_ptr(),
+            dqkv.data_ptr(), part.data_ptr(), ws.data_ptr(), splits, B, T, D,
+            n_heads)
+    return (dx, dsmall[:2 * D].view(2, D), dsmall[2 * D:4 * D].view(2, D),
+            dwqkv, dsmall[4 * D:7 * D], dwd, dsmall[7 * D:])
+
+
+class FusedMHABlock(torch.autograd.Function):
+    """The MHA block on the card: forward kernels, backward kernels; qkv
+    and the attention output are kept from the forward."""
+
+    @staticmethod
+    def forward(ctx, x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads, seeds,
+                drop_rate):
+        out, qkv, att = launch_mha_block_fwd(x, mask, gam, beta, wqkv, bqkv,
+                                             wd, bd, n_heads, seeds, drop_rate)
+        ctx.save_for_backward(x, mask, gam, beta, wqkv, wd, seeds, qkv, att)
+        ctx.n_heads, ctx.drop_rate = n_heads, drop_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mask, gam, beta, wqkv, wd, seeds, qkv, att = ctx.saved_tensors
+        dx, dgam, dbeta, dwqkv, dbqkv, dwd, dbd = launch_mha_block_bwd(
+            x, mask, gam, beta, wqkv, wd, ctx.n_heads, seeds, ctx.drop_rate,
+            qkv, att, g.contiguous())
+        return (dx, None, dgam, dbeta, dwqkv, dbqkv, dwd, dbd, None, None,
+                None)
+
+
+def fused_mha_block(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
+                    seeds=None, drop_rate=0.0):
+    name = "mha_block_fwd"
+    tensors = [x, mask, gam, beta, wqkv, bqkv, wd, bd]
+    if seeds is not None:
+        tensors.append(seeds)
+    if not _on_cuda(name, *tensors):
+        return mha_block_plain(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
+                               seeds, drop_rate)
+    return FusedMHABlock.apply(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
+                               seeds, float(drop_rate))
 
 
 # --- 4. span decode ------------------------------------------------------------
@@ -422,13 +769,24 @@ def cqa_plain(video, query, v_mask, q_mask, w4v, w4q, w4mul):
     """Context-query attention up to its output projection: video [B, T, d],
     query [B, W, d], masks [B, T] / [B, W], w4v, w4q, w4mul [d] ->
     ([B, T, 4d] concat [v, v2q, v*v2q, v*q2v], [B, T, W] trilinear score)."""
-    score = ((video @ w4v)[:, :, None] + (query @ w4q)[:, None, :]
-             + (video * w4mul) @ query.transpose(1, 2))
+    score = trilinear_score(video, query, w4v, w4q, w4mul)
+    return cqa_from_score(score, video, query, v_mask, q_mask), score
+
+
+def trilinear_score(video, query, w4v, w4q, w4mul):
+    """[B, T, W] score v.w4v + (q.w4q)^T + (v * w4mul).q^T."""
+    return ((video @ w4v)[:, :, None] + (query @ w4q)[:, None, :]
+            + (video * w4mul) @ query.transpose(1, 2))
+
+
+def cqa_from_score(score, video, query, v_mask, q_mask):
+    """The [B, T, 4d] concat from a trilinear score (which training forms
+    from dropped inputs): masked row and column softmaxes, v2q, q2v."""
     score_q = torch.softmax(mask_logits(score, q_mask[:, None, :]), dim=-1)
     score_v = torch.softmax(mask_logits(score, v_mask[:, :, None]), dim=1)
     v2q = score_q @ query
     q2v = score_q @ (score_v.transpose(1, 2) @ video)
-    return torch.cat([video, v2q, video * v2q, video * q2v], dim=-1), score
+    return torch.cat([video, v2q, video * v2q, video * q2v], dim=-1)
 
 
 def cqa_smem_bytes(T, W, D):
