@@ -36,6 +36,17 @@ Phases, each printing one JSON line:
               20 steps with the kernels, counting their launches (the loss
               must fall), the step time both ways, one profiled step, and an
               evaluation of the test split (R1@{0.3,0.5,0.7}, mIoU).
+  6. long_t   beyond T = 145, where the whole-row conv and MHA block
+              kernels do not fit: the whole-T and flash attention kernels
+              (forward, backward) and the T-tiled conv block (forward,
+              backward) against their plain versions at the paths' shapes
+              (output, every gradient, dropout zero pattern; SDPA as the
+              attention yardstick); then path M (rnn, max_pos_len 192,
+              batch 16) and path L (transformer, max_pos_len 1024, batch
+              8): a served batch against use_pallas=off, one train step
+              against off, then 3 (M) or 10 (L) steps with the kernels (on
+              L the loss must fall), with their launches, step times and,
+              on L, profiles.
 Then the "kernels" line, and last {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.
 """
@@ -159,6 +170,24 @@ def lstm_yardstick(x_proj, k_h):
     return lstm
 
 
+def kernel_row(name, source, replaces, err, tol, ms, plain_ms, flops, nbytes,
+               library_ms=None, checked_err=None, **extra):
+    """One kernel's row, emitted and held to tol. checked_err, where given,
+    is what is held to tol (scaled_err for gradients); err is always the
+    raw max abs error."""
+    bound_ms, bound_by = bound(flops, nbytes)
+    checked = err if checked_err is None else checked_err
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "max_abs_err": err, "tol": tol,
+           "checked_err": checked, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms, **extra}
+    emit({"phase": "kernel", **row})
+    check(checked <= tol, "%s disagrees with its plain version: error "
+          "%g > %g" % (name, checked, tol))
+    return row
+
+
 def kernel_phase(dev, max_w):
     import torch
 
@@ -169,21 +198,8 @@ def kernel_phase(dev, max_w):
     B, T, D, H, L, KS, heads = 16, 128, 128, 128, 4, 7, 8
     rows = []
 
-    def record(name, source, replaces, err, tol, ms, plain_ms, flops, nbytes,
-               library_ms=None, checked_err=None, **extra):
-        """checked_err, where given, is what is held to tol (scaled_err for
-        gradients); err is always the raw max abs error."""
-        bound_ms, bound_by = bound(flops, nbytes)
-        checked = err if checked_err is None else checked_err
-        row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "max_abs_err": err, "tol": tol,
-               "checked_err": checked, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": library_ms, **extra}
-        emit({"phase": "kernel", **row})
-        check(checked <= tol, "%s disagrees with its plain version: error "
-              "%g > %g" % (name, checked, tol))
-        rows.append(row)
+    def record(*args, **kw):
+        rows.append(kernel_row(*args, **kw))
 
     def seeds_for(n):
         return t(rng.integers(0, 1 << 23, (n, 1)))
@@ -524,15 +540,27 @@ def profile_device(run, wall_ms):
             "top": [[k[:70], ms, n] for k, ms, n in rows[:12]]}
 
 
+def build_localizer(cfg, dataset, splits):
+    """A Localizer over cfg's VSLNet with seeded weights in the flax
+    layout, loaded through convert_flax."""
+    from vslnet_torch.convert_flax import load_flax_variables
+    from vslnet_torch.data.loader import static_caps
+    from vslnet_torch.models.vslnet import build_model
+    from vslnet_torch.serve import Localizer
+
+    model = build_model(cfg, dataset["word_vector"].shape)
+    load_flax_variables(model, flax_layout_weights(
+        model, dataset["word_vector"], SEED))
+    max_w, max_c = static_caps(splits, cfg)
+    return Localizer(model, cfg, dataset["word_dict"], dataset["char_dict"],
+                     max_w, max_c)
+
+
 def slice_phase(dataset, feats, splits):
     import torch
 
     from vslnet_torch.config import Config
-    from vslnet_torch.convert_flax import load_flax_variables
-    from vslnet_torch.data.loader import static_caps
-    from vslnet_torch.models.vslnet import build_model
     from vslnet_torch.ops import kernels as K
-    from vslnet_torch.serve import Localizer
     from vslnet_torch.server import durations_from_dataset, make_server
 
     def localizer(use_pallas):
@@ -541,12 +569,7 @@ def slice_phase(dataset, feats, splits):
                      word_dim=300, char_dim=50, batch_size=16,
                      char_size=dataset["n_chars"], use_pallas=use_pallas,
                      seed=SEED)
-        model = build_model(cfg, dataset["word_vector"].shape)
-        load_flax_variables(model, flax_layout_weights(
-            model, dataset["word_vector"], SEED))
-        max_w, max_c = static_caps(splits, cfg)
-        return Localizer(model, cfg, dataset["word_dict"],
-                         dataset["char_dict"], max_w, max_c), cfg
+        return build_localizer(cfg, dataset, splits), cfg
 
     loc, cfg = localizer("auto")
     loc_off, _ = localizer("off")
@@ -654,15 +677,18 @@ TRAIN_KERNELS = ("lstm_recurrence_fwd_res", "lstm_recurrence_bwd",
                  "mha_block_bwd")
 
 
-def train_config(dataset, use_pallas):
+def train_config(dataset, use_pallas, predictor="rnn", max_pos_len=128,
+                 batch_size=16):
     """The reference's default run (main.py flags): rnn predictor, hidden
     128, 8 heads, T 128, batch 16, drop_rate 0.2, bert_adamw at lr 1e-4
-    with linear decay over 100 epochs, clip 1.0, l2 3e-7, lambda 5."""
+    with linear decay over 100 epochs, clip 1.0, l2 3e-7, lambda 5; the
+    long_t phase changes the predictor, T and the batch."""
     from vslnet_torch.config import Config
 
-    return Config(task="charades", predictor="rnn", hidden_size=128,
-                  num_heads=8, max_pos_len=128, video_feature_dim=1024,
-                  word_dim=300, char_dim=50, batch_size=16, drop_rate=DROP,
+    return Config(task="charades", predictor=predictor, hidden_size=128,
+                  num_heads=8, max_pos_len=max_pos_len,
+                  video_feature_dim=1024, word_dim=300, char_dim=50,
+                  batch_size=batch_size, drop_rate=DROP,
                   optimizer="bert_adamw", init_lr=1e-4, lr_schedule="linear",
                   clip_norm=1.0, l2_decay=3e-7, highlight_lambda=5.0,
                   epochs=100, char_size=dataset["n_chars"],
@@ -683,39 +709,56 @@ def timed_steps(trainer, n):
     return losses, times
 
 
-def train_phase(dataset, feats):
+def trainers(configs, dataset, feats):
+    """Two Trainers of configs on the card from the same weights: with the
+    kernels (use_pallas=auto) and with every kernel off."""
     import torch
 
-    from vslnet_torch.ops import kernels as K
     from vslnet_torch.train.runner import Trainer
 
-    tk = Trainer(train_config(dataset, "auto"), dataset, feats)
-    to = Trainer(train_config(dataset, "off"), dataset, feats)
+    tk = Trainer(configs("auto"), dataset, feats)
+    to = Trainer(configs("off"), dataset, feats)
     check(tk.device.type == "cuda" and tk.use_kernels and not to.use_kernels,
           "the trainers must run on the card, with and without the kernels")
-    named_k = list(tk.model.named_parameters())
     named_o = dict(to.model.named_parameters())
-    check(all(torch.equal(p, named_o[n]) for n, p in named_k),
+    check(all(torch.equal(p, named_o[n])
+              for n, p in tk.model.named_parameters()),
           "the two trainers must start from the same weights")
+    return tk, to
 
-    # 1. one step each: same weights, batch and generator seed
+
+def step_vs_off(tk, to, of):
+    """One step each of the two trainers (same weights, batch and generator
+    seed): the losses within LOSS_RTOL, every parameter's gradient within
+    GRAD_RTOL of its largest entry plus GRAD_ATOL."""
     loss_k, _ = tk.step()
     loss_o, _ = to.step()
     loss_rel = abs(float(loss_k) - float(loss_o)) / abs(float(loss_o))
+    named_o = dict(to.model.named_parameters())
     # per parameter: (max abs error, max abs gradient, error over its bound)
     grad_errs = {}
-    for n, p in named_k:
+    for n, p in tk.model.named_parameters():
         ref = named_o[n].grad
         err, scale = max_err(p.grad, ref), float(ref.abs().max())
         grad_errs[n] = (err, scale, err / (GRAD_RTOL * scale + GRAD_ATOL))
     worst = sorted(grad_errs, key=lambda n: -grad_errs[n][2])[:3]
-    emit({"phase": "train_step_vs_off", "loss_kernels": float(loss_k),
-          "loss_off": float(loss_o), "loss_rel_err": loss_rel,
-          "loss_rtol": LOSS_RTOL, "grad_rtol": GRAD_RTOL,
-          "grad_atol": GRAD_ATOL, "params": len(grad_errs),
+    emit({"phase": "train_step_vs_off", "of": of,
+          "loss_kernels": float(loss_k), "loss_off": float(loss_o),
+          "loss_rel_err": loss_rel, "loss_rtol": LOSS_RTOL,
+          "grad_rtol": GRAD_RTOL, "grad_atol": GRAD_ATOL,
+          "params": len(grad_errs),
           "worst_params": {n: grad_errs[n] for n in worst}})
     check(loss_rel <= LOSS_RTOL and grad_errs[worst[0]][2] <= 1.0,
-          "a train step with the kernels disagrees with use_pallas=off")
+          "%s: a train step with the kernels disagrees with use_pallas=off"
+          % of)
+
+
+def train_phase(dataset, feats):
+    from vslnet_torch.ops import kernels as K
+
+    tk, to = trainers(lambda up: train_config(dataset, up), dataset, feats)
+    # 1. one step each: same weights, batch and generator seed
+    step_vs_off(tk, to, "rnn T=128")
     _, off_times = timed_steps(to, 3)
 
     # 2. the main path: TRAIN_STEPS steps with the kernels, launches counted
@@ -743,6 +786,345 @@ def train_phase(dataset, feats):
     emit({"phase": "evaluate", "records": len(dataset["test_set"]),
           "R1@0.3": r1_3, "R1@0.5": r1_5, "R1@0.7": r1_7, "mIoU": miou})
     return launches
+
+
+# --- phase 6 -------------------------------------------------------------------
+# Beyond T = 145, where the whole-row conv and MHA block kernels do not fit
+# a block: path M (the rnn predictor at max_pos_len 192, batch 16; its
+# attention takes the whole-T kernels) and path L (the long-context
+# transformer predictor at max_pos_len 1024, batch 8, as the JAX bench's
+# long_context rows at fp32; flash). Both tile the video stream's conv
+# block; the query stream (T = max_w) keeps the block kernels.
+
+LONG_PATHS = {"M": {"predictor": "rnn", "max_pos_len": 192, "batch_size": 16,
+                    "train_steps": 3},
+              "L": {"predictor": "transformer", "max_pos_len": 1024,
+                    "batch_size": 8, "train_steps": 10}}
+LONG_KERNELS = {  # the new kernels' paths: the other path never runs them
+    "mha_fwd": "M", "mha_bwd": "M", "flash_mha_fwd": "L", "flash_mha_bwd": "L",
+    "conv_block_fwd_tiled": "ML", "conv_block_bwd_tiled": "ML"}
+
+
+def attention_probe(rng, q, heads):
+    """A v whose channel d of head h is 1 at one key j_d and 0 elsewhere:
+    out[t, h * hd + d] is head h's dropped probability of (t, j_d), 0
+    exactly where the hash drops it (or the key is masked)."""
+    import torch
+
+    B, T, D = q.shape
+    hd = D // heads
+    v = torch.zeros_like(q)
+    cols = torch.from_numpy(rng.choice(T, hd, replace=False)).to(q.device)
+    for h in range(heads):
+        v[:, cols, h * hd + torch.arange(hd, device=q.device)] = 1.0
+    return v
+
+
+def long_kernel_rows(dev):
+    """The whole-T and flash attention kernels and the tiled conv block
+    against their plain versions at the long paths' shapes (random inputs,
+    the paths' ragged lengths T/2..T and one fully masked row): output,
+    every gradient of sum(out * g) and the dropout zero pattern; times
+    beside the plain versions and, for attention, SDPA's."""
+    import torch
+    import torch.nn.functional as F
+
+    from vslnet_torch.ops import kernels as K
+
+    rng = np.random.default_rng(SEED + 2)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    D, heads, L, KS = 128, 8, 4, 7
+    rows = []
+
+    def seeds_for(n):
+        return t(rng.integers(0, 1 << 23, (n, 1)))
+
+    def sdpa_ms(q, k, v, mask):
+        """F.scaled_dot_product_attention on the same heads and the additive
+        mask at drop 0: (forward ms, backward ms = forward+backward minus
+        forward). A yardstick; the port never calls it."""
+        B, T, _ = q.shape
+
+        def split(x):
+            return x.view(B, T, heads, D // heads).transpose(1, 2).contiguous()
+
+        qh, kh, vh = (split(x).requires_grad_() for x in (q, k, v))
+        bias = ((1.0 - mask) * -1e30).view(B, 1, 1, T)
+        g = torch.randn_like(qh)
+
+        def fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+
+        def fwd_bwd():
+            out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+            torch.autograd.grad(out, (qh, kh, vh), g)
+
+        f = cuda_ms(fwd, 20)
+        fb = cuda_ms(fwd_bwd, 20)
+        return f, fb - f, fb
+
+    def attention_rows(path, fname, bname, rep_fwd, rep_bwd, source,
+                       launch_fwd, launch_bwd, flash):
+        cfg = LONG_PATHS[path]
+        B, T = cfg["batch_size"], cfg["max_pos_len"]
+        lens = list(rng.integers(T // 2, T + 1, B - 1)) + [0]
+        q, k, v = (t(rng.standard_normal((B, T, D))) for _ in range(3))
+        mask = t(np.arange(T)[None, :] < np.asarray(lens)[:, None])
+        seeds = seeds_for(B)
+        check(K.attention_route(T, D // heads) == ("flash" if flash else
+                                                    "whole"), "route")
+        # forward at drop 0 (serving) and 0.2 (training); the flash lse
+        err = max(max_err(K.fused_mha(q, k, v, mask, heads, *sd),
+                          K.attention(q, k, v, mask, heads, *sd))
+                  for sd in ((None, 0.0), (seeds, DROP)))
+        extra = {}
+        if flash:
+            out, lse = K.launch_flash_mha_fwd(q, k, v, mask, heads, seeds,
+                                              DROP)
+            out_p, lse_p = K.flash_attention_plain(q, k, v, mask, heads,
+                                                   seeds, DROP)
+            extra["lse_max_abs_err"] = max_err(lse, lse_p)
+            err = max(err, max_err(out, out_p), extra["lse_max_abs_err"])
+        probe = [q, k, attention_probe(rng, q, heads), mask, heads, seeds,
+                 DROP]
+        zeros_equal = torch.equal(K.fused_mha(*probe) == 0,
+                                  K.attention(*probe) == 0)
+        check(zeros_equal, "%s: the dropout zero pattern differs" % fname)
+        g = t(rng.standard_normal((B, T, D)))
+        abs_err, g_err, finite = autograd_pair(
+            lambda q, k, v: K.fused_mha(q, k, v, mask, heads, seeds, DROP),
+            lambda q, k, v: K.attention(q, k, v, mask, heads, seeds, DROP),
+            [q, k, v], 3, g)
+        check(finite, "%s: non-finite output or gradient" % fname)
+        lib_f, lib_b, lib_fb = sdpa_ms(q, k, v, mask)
+        # only the valid keys need scores and P.V (all T on the masked row)
+        keys = sum(n if n else T for n in lens)
+        io = B * T * D
+        lse_io = B * heads * T if flash else 0
+        shape = {"shape": [B, T, D], "heads": heads, "path": path}
+        rows.append(kernel_row(
+            fname, source, rep_fwd, err, TOL,
+            cuda_ms(lambda: launch_fwd(q, k, v, mask, heads), 20),
+            cuda_ms(lambda: K.attention(q, k, v, mask, heads), 5),
+            # q, k, v and the mask read, out (and lse) written
+            4 * T * keys * D, 4 * (4 * io + B * T + lse_io),
+            library_ms=lib_f, dropout_zero_pattern_equal=zeros_equal,
+            dropout_ms=cuda_ms(lambda: launch_fwd(q, k, v, mask, heads,
+                                                  seeds, DROP), 20),
+            **extra, **shape))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out_p = K.attention(*leaves, mask, heads, seeds, DROP)
+        saved = (K.launch_flash_mha_fwd(q, k, v, mask, heads, seeds, DROP)
+                 if flash else ())
+        rows.append(kernel_row(
+            bname, source, rep_bwd, abs_err, TOL,
+            cuda_ms(lambda: launch_bwd(q, k, v, mask, heads, seeds, DROP,
+                                       *saved, g), 20),
+            cuda_ms(lambda: torch.autograd.grad(out_p, leaves, g,
+                                                retain_graph=True), 5),
+            # scores recomputed, dP, dV, dQ and dK over the valid keys;
+            # q, k, v, g (flash: out, lse), mask and seeds read, dq, dk,
+            # dv written
+            10 * T * keys * D,
+            4 * (7 * io + B * T + B + (io + lse_io if flash else 0)),
+            library_ms=lib_b, checked_err=g_err, library_fwd_bwd_ms=lib_fb,
+            drop_rate=DROP, **shape))
+
+    tpu = "vslnet_tpu/ops/pallas_kernels.py:"
+    attention_rows("M", "mha_fwd", "mha_bwd", tpu + "696", tpu + "716",
+                   "vslnet_torch/csrc/mha_block.cu", K.launch_mha_fwd,
+                   K.launch_mha_bwd, flash=False)
+    attention_rows("L", "flash_mha_fwd", "flash_mha_bwd", tpu + "1395",
+                   tpu + "1454", "vslnet_torch/csrc/flash_mha.cu",
+                   K.launch_flash_mha_fwd, K.launch_flash_mha_bwd, flash=True)
+
+    # the tiled conv block at both paths' shapes, timed at path L's. Biases
+    # of +-1 and a pointwise product ten times smaller keep every
+    # pre-activation ~1 from the ReLU's kink, where fp32 sums in another
+    # order than cuBLAS's could flip a ReLU and move the gradients of the
+    # frames around it by ~0.1 (tests/test_torch_cuda.py
+    # _conv_inputs_off_kink)
+    def conv_inputs(B, T):
+        return [t(rng.standard_normal((B, T, D))),
+                t(1 + 0.1 * rng.standard_normal((L, D))),
+                t(0.1 * rng.standard_normal((L, D))),
+                t(rng.standard_normal((L, KS, D)) / math.sqrt(KS)),
+                t(0.1 * rng.standard_normal((L, D, D)) / math.sqrt(D)),
+                t(np.where(rng.random((L, D)) < 0.5, -1.0, 1.0))]
+
+    f_errs, b_errs, g_errs, zeros = [], [], [], []
+    for path in ("M", "L"):
+        B, T = (LONG_PATHS[path][k] for k in ("batch_size", "max_pos_len"))
+        check(K.conv_route(T, D) == "tiled", "conv route at T=%d" % T)
+        args, seeds = conv_inputs(B, T), seeds_for(B)
+        f_errs += [max_err(K.fused_conv_block(*args, *sd),
+                           K.conv_block_plain(*args, *sd))
+                   for sd in ((None, 0.0), (seeds, DROP))]
+        one = [args[0]] + [w[:1].contiguous() for w in args[1:]]
+        zeros.append(torch.equal(
+            K.fused_conv_block(*one, seeds, DROP) == args[0],
+            K.conv_block_plain(*one, seeds, DROP) == args[0]))
+        g = t(rng.standard_normal((B, T, D)))
+        abs_err, g_err, finite = autograd_pair(
+            lambda *a: K.fused_conv_block(*a, seeds, DROP),
+            lambda *a: K.conv_block_plain(*a, seeds, DROP), args, 6, g)
+        check(finite, "tiled conv block: non-finite output or gradient")
+        b_errs.append(abs_err)
+        g_errs.append(g_err)
+    check(all(zeros), "conv_block_fwd_tiled: the dropout zero pattern differs")
+    shape = {"shape": [B, T, D], "path": "L", "M_shape": [
+        LONG_PATHS["M"]["batch_size"], LONG_PATHS["M"]["max_pos_len"], D]}
+    weights = L * (3 * D + KS * D + D * D)
+    rows.append(kernel_row(
+        "conv_block_fwd_tiled", "vslnet_torch/csrc/conv_block.cu",
+        tpu + "1019", max(f_errs), TOL,
+        cuda_ms(lambda: K.launch_conv_block_fwd_tiled(*args), 20),
+        cuda_ms(lambda: K.conv_block_plain(*args), 20),
+        L * 2 * B * T * D * (D + KS), 4 * (2 * B * T * D + weights),
+        dropout_zero_pattern_equal=all(zeros),
+        dropout_ms=cuda_ms(lambda: K.launch_conv_block_fwd_tiled(
+            *args, seeds, DROP), 20), **shape))
+    _, xs = K.launch_conv_block_fwd_tiled(*args, seeds, DROP)
+    leaves = [a.clone().requires_grad_() for a in args]
+    out_p = K.conv_block_plain(*leaves, seeds, DROP)
+    rows.append(kernel_row(
+        "conv_block_bwd_tiled", "vslnet_torch/csrc/conv_block.cu",
+        tpu + "1039", max(b_errs), TOL,
+        cuda_ms(lambda: K.launch_conv_block_bwd_tiled(
+            args[0], xs, *args[1:], seeds, DROP, g), 20),
+        cuda_ms(lambda: torch.autograd.grad(out_p, leaves, g,
+                                            retain_graph=True), 20),
+        # the forward's products for the ReLU masks, then the data and
+        # weight products
+        L * 6 * B * T * D * (D + KS),
+        4 * (3 * B * T * D + 2 * weights + B),
+        checked_err=max(g_errs), drop_rate=DROP, **shape))
+    return rows
+
+
+def long_path(path):
+    """One path: a served batch through Localizer against use_pallas=off
+    (logits, spans), its launches; one train step against off, then the
+    path's steps with the kernels, their launches and times. Returns
+    {run: launches}."""
+    import torch
+
+    from vslnet_torch.data.synthetic import synthetic_dataset
+    from vslnet_torch.ops import kernels as K
+
+    cfg = LONG_PATHS[path]
+    B, T = cfg["batch_size"], cfg["max_pos_len"]
+    # the JAX bench's long_context data (bench.py _bench_long_context_one):
+    # videos of T/2..T clips of 1024-d features, queries of 3-12 words
+    dataset, feats = synthetic_dataset(
+        n_train=64, n_test=B, n_videos=8, n_words=1000, n_chars=40,
+        max_pos_len=T, video_feature_dim=1024, word_dim=300,
+        min_video_len=T // 2, seed=SEED)
+    splits = [dataset["train_set"], dataset["test_set"]]
+
+    def configs(use_pallas):
+        return train_config(dataset, use_pallas, cfg["predictor"], T, B)
+
+    # serving: one batch of B requests
+    loc = build_localizer(configs("auto"), dataset, splits)
+    loc_off = build_localizer(configs("off"), dataset, splits)
+    triples = [(feats[r["vid"]], r["duration"], " ".join(r["words"]))
+               for r in dataset["test_set"][:B]]
+    loc.localize_batch(triples)  # warm-up
+    torch.cuda.synchronize()
+    K.reset_launches()
+    spans_k = loc.localize_batch(triples)
+    torch.cuda.synchronize()
+    runs = {"serve": dict(K.LAUNCHES)}
+    batch, _ = loc.make_batch(triples)
+    with torch.inference_mode():
+        out_k, out_p = loc.model(*batch), loc_off.model(*batch)
+    logit_err = max(max_err(out_k[k], out_p[k])
+                    for k in ("start_logits", "end_logits", "highlight_scores"))
+    finite = all(bool(torch.isfinite(out_k[k]).all())
+                 for k in ("highlight_scores", "end_logits"))
+    same_spans = spans_k == loc_off.localize_batch(triples)
+
+    def batch_ms(lo):
+        def run():
+            lo.localize_batch(triples)
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run()
+        return (time.perf_counter() - t0) / 3 * 1e3
+
+    ms_k = batch_ms(loc)
+    emit({"phase": "long_t_serve", "path": path, "T": T, "batch": B,
+          "predictor": cfg["predictor"], "launches": runs["serve"],
+          "max_logit_err_vs_off": logit_err, "logit_atol": LOGIT_ATOL,
+          "spans_equal_vs_off": same_spans, "finite": finite,
+          "batch_ms_kernels": ms_k, "batch_ms_off": batch_ms(loc_off),
+          "max_w": loc.max_w})
+    check(finite and logit_err <= LOGIT_ATOL and same_spans,
+          "path %s: the served batch disagrees with use_pallas=off" % path)
+    if path == "L":
+        emit({"phase": "profile", "of": "path L served batch of 8",
+              **profile_device(lambda: loc.localize_batch(triples), ms_k)})
+    del loc, loc_off, out_k, out_p
+
+    # training: one step against off, then the path's steps
+    tk, to = trainers(configs, dataset, feats)
+    step_vs_off(tk, to, "path %s (%s, T=%d)" % (path, cfg["predictor"], T))
+    _, off_times = timed_steps(to, 2)
+    del to
+    n = cfg["train_steps"]
+    K.reset_launches()
+    losses, times = timed_steps(tk, n)
+    runs["train"] = dict(K.LAUNCHES)
+    step_ms = float(np.mean(times[1:]))
+    emit({"phase": "long_t_train", "path": path, "steps": n,
+          "losses": losses, "launches": runs["train"],
+          "step_ms_kernels": step_ms, "step_ms_off": float(np.mean(off_times)),
+          "step_ms_each": times})
+    check(bool(np.isfinite(losses).all()), "non-finite training loss")
+    if path == "L":
+        check(float(np.mean(losses[-5:])) < losses[0],
+              "path L: the loss did not fall: %s" % losses)
+        emit({"phase": "profile", "of": "path L train step",
+              **profile_device(tk.step, step_ms)})
+
+    # every launch where the path's model says, per served batch and step
+    heavy = 3 if cfg["predictor"] == "transformer" else 1  # T-long encoders
+    attn_f, attn_b = (("flash_mha_fwd", "flash_mha_bwd") if path == "L"
+                      else ("mha_fwd", "mha_bwd"))
+    lstm = 2 if cfg["predictor"] == "rnn" else 0
+    serve = {"conv_block_fwd_tiled": heavy, attn_f: heavy,
+             "conv_block_fwd": 1, "mha_block_fwd": 1, "cqa_concat_fwd": 1,
+             "highlight_gate_fwd": 1, "span_decode": 1,
+             "lstm_recurrence_fwd": lstm}
+    step = {"conv_block_fwd_tiled": heavy, "conv_block_bwd_tiled": heavy,
+            attn_f: heavy, attn_b: heavy, "conv_block_fwd": 1,
+            "conv_block_bwd": 1, "mha_block_fwd": 1, "mha_block_bwd": 1,
+            "lstm_recurrence_fwd_res": lstm, "lstm_recurrence_bwd": lstm}
+    for run, want in (("serve", serve), ("train", {k: n * v for k, v in
+                                                   step.items()})):
+        expected = {name: want.get(name, 0) for name in K.LAUNCHES}
+        check(runs[run] == expected, "path %s %s launch counts %s, expected "
+              "%s" % (path, run, runs[run], expected))
+    return runs
+
+
+def long_t_phase(dev):
+    rows = long_kernel_rows(dev)
+    runs = {path: long_path(path) for path in LONG_PATHS}
+    for row in rows:
+        by_run = {"%s_%s" % (p, r): c[row["name"]]
+                  for p, pr in runs.items() for r, c in pr.items()}
+        row["launches"] = sum(by_run.values())
+        row["launches_by_run"] = by_run
+        row["launches_path"] = "long_t " + "+".join(LONG_KERNELS[row["name"]])
+        for p in LONG_PATHS:
+            ran = any(by_run["%s_%s" % (p, r)] for r in runs[p])
+            check(ran == (p in LONG_KERNELS[row["name"]]),
+                  "%s launched on path %s: %s" % (row["name"], p, by_run))
+    return rows
 
 
 def main():
@@ -788,6 +1170,7 @@ def main():
         row["launches_train_step"] = train_launches[name] / TRAIN_STEPS
         check(row["launches"] > 0,
               "%s never launched on its main path" % name)
+    rows += long_t_phase(dev)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -52,6 +52,16 @@ def _seeds(rng, B):
     return rng.integers(0, 1 << 23, (B, 1)).astype(np.float32)
 
 
+def _attn_inputs(rng, B, T, D, lens):
+    """q, k, v [B, T, D] and the key mask [B, T] of the rows' lengths (a
+    length of 0 masks every key)."""
+    q, k, v = (rng.standard_normal((B, T, D)).astype(np.float32)
+               for _ in range(3))
+    mask = (np.arange(T)[None, :] < np.asarray(lens)[:, None]).astype(
+        np.float32)
+    return q, k, v, mask
+
+
 def _cqa_inputs(rng, B, T, W, D, v_lens, q_lens):
     """video, query, masks (a q_len of 0 is a padded query) and the three
     trilinear weights."""
@@ -283,13 +293,149 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         kernels.fused_lstm_recurrence(x_proj.double(), k_h, valid)
     with pytest.raises(ValueError, match="CPU or all on one"):
         kernels.fused_lstm_recurrence(x_proj, k_h.cpu(), valid)
-    conv = [_t(a).to(cuda) for a in _conv_inputs(rng, 2, 300, 128)]
+    # T = 300 goes to the tiled conv kernels, which take D up to ~560
+    conv = [_t(a).to(cuda) for a in _conv_inputs(rng, 2, 300, 1024, L=1)]
     with pytest.raises(ValueError, match="shared memory"):
         kernels.fused_conv_block(*conv)
     mha = [_t(a).to(cuda) for a in _mha_inputs(rng, 2, 5, 24, [5, 3])]
     with pytest.raises(ValueError, match="head dim"):
         kernels.fused_mha_block(*mha, 2)
+    q, k, v, mask = [_t(a).to(cuda) for a in _attn_inputs(rng, 2, 300, 24,
+                                                           [300, 3])]
+    with pytest.raises(ValueError, match="head dim"):
+        kernels.fused_mha(q, k, v, mask, 2)
     cqa = [_t(a).to(cuda) for a in _cqa_inputs(rng, 2, 128, 200, 128,
                                                 [128, 3], [200, 5])]
     with pytest.raises(ValueError, match="shared memory"):
         kernels.fused_cqa_concat(*cqa)
+
+
+# --- beyond T = 145: the whole-T and flash attention kernels and the tiled
+# conv block, each against its plain version: output, every gradient and
+# the dropout zero pattern
+
+
+def _attention_probe(rng, B, T, D, heads, lens):
+    """q, k, mask and a v whose channel d of head h is 1 at one key j_d and 0
+    elsewhere: out[t, h * hd + d] is head h's dropped probability of (t,
+    j_d), 0 exactly where the hash drops it."""
+    q, k, _, mask = _attn_inputs(rng, B, T, D, lens)
+    hd = D // heads
+    v = np.zeros((B, T, D), np.float32)
+    cols = rng.choice(T, hd, replace=False)
+    for h in range(heads):
+        v[:, cols, h * hd + np.arange(hd)] = 1.0
+    return q, k, v, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("T,route", [(150, "whole"), (192, "whole"),
+                                     (209, "whole"), (256, "flash"),
+                                     (1000, "flash"), (1024, "flash")])
+def test_cuda_fused_mha_matches_plain(cuda, T, route, rate):
+    """One fully masked row and ragged lengths; 1000 leaves a ragged tail
+    of the flash tiles."""
+    rng = np.random.default_rng(16)
+    B, D, heads = 4, 128, 8
+    assert kernels.attention_route(T, D // heads) == route
+    lens = [T, T // 2 + 3, 1, 0]
+    q, k, v, mask = [_t(a).to(cuda) for a in _attn_inputs(rng, B, T, D, lens)]
+    seeds = _t(_seeds(rng, B)).to(cuda)
+
+    def run(fn):
+        return lambda q, k, v: fn(q, k, v, mask, heads, seeds=seeds,
+                                  drop_rate=rate)
+
+    _check_grads(run(kernels.fused_mha), run(kernels.attention), [q, k, v], 3,
+                 ["q", "k", "v"], 1e-4)
+    kernels.reset_launches()
+    with torch.no_grad():
+        run(kernels.fused_mha)(q, k, v)
+    names = ("mha_fwd",) if route == "whole" else ("flash_mha_fwd",)
+    assert {n for n, c in kernels.LAUNCHES.items() if c} == set(names)
+    if route == "flash":
+        out, lse = kernels.launch_flash_mha_fwd(q, k, v, mask, heads, seeds,
+                                                rate)
+        ref, lse_ref = kernels.flash_attention_plain(q, k, v, mask, heads,
+                                                     seeds, rate)
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    if rate:
+        probe = [_t(a).to(cuda) for a in _attention_probe(
+            rng, B, T, D, heads, [T, T - 7, T // 3, T])]
+        out = kernels.fused_mha(*probe, heads, seeds, rate)
+        ref = kernels.attention(*probe, heads, seeds, rate)
+        assert torch.equal(out == 0, ref == 0)
+        dropped = float((out[0] == 0).float().mean())
+        assert 0.1 < dropped < 0.3, dropped
+
+
+def _conv_inputs_off_kink(rng, B, T, D):
+    """_conv_inputs with biases of +-1 and a pointwise product ten times
+    smaller: every pre-activation lies ~1 from the ReLU's kink. Where one
+    lies within ~1e-6 of it (about one in 10^6 at _conv_inputs' scales),
+    fp32 sums in another order may flip its ReLU between the kernel and
+    cuBLAS, and the gradients of the frames around it differ by ~0.1; the
+    seeded inputs of T = 1000 and 1024 have such an element."""
+    x, gam, beta, dw, wp, bp = _conv_inputs(rng, B, T, D)
+    bp = np.where(rng.random(bp.shape) < 0.5, -1.0, 1.0).astype(np.float32)
+    return x, gam, beta, dw, (0.1 * wp).astype(np.float32), bp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("T", [146, 192, 1000, 1024, 64, 32])
+def test_cuda_conv_block_tiled_matches_plain(cuda, T, rate):
+    """The tiled kernels at any T (64 and 32: one or two tiles a row; 1000:
+    a ragged last tile) through FusedConvBlockTiled, and fused_conv_block
+    taking them above T = 145."""
+    rng = np.random.default_rng(17)
+    B, D = 4, 128
+    args = [_t(a).to(cuda) for a in _conv_inputs_off_kink(rng, B, T, D)]
+    seeds = _t(_seeds(rng, B)).to(cuda)
+
+    def run(fn):
+        return lambda *a: fn(*a, seeds, rate)
+
+    def plain(*a):
+        return kernels.conv_block_plain(*a, seeds=seeds, drop_rate=rate)
+
+    _check_grads(run(kernels.FusedConvBlockTiled.apply), plain, args, 6,
+                 ["x", "gam", "beta", "dw", "wp", "bp"], 1e-3)
+    kernels.reset_launches()
+    with torch.no_grad():
+        kernels.fused_conv_block(*args, seeds=seeds, drop_rate=rate)
+    tiled = kernels.conv_route(T, D) == "tiled"
+    assert kernels.LAUNCHES["conv_block_fwd_tiled"] == int(tiled)
+    assert kernels.LAUNCHES["conv_block_fwd"] == int(not tiled)
+    if rate:  # one layer: out - x is 0 exactly where the mask or ReLU drops
+        one = [args[0]] + [w[:1].contiguous() for w in args[1:]]
+        out = kernels.FusedConvBlockTiled.apply(*one, seeds, rate)
+        assert torch.equal(out == args[0], plain(*one) == args[0])
+        if T <= 145:
+            whole = kernels.FusedConvBlock.apply(*args, seeds, rate)
+            # the same arithmetic in the same order as the whole-row kernel
+            assert torch.equal(kernels.FusedConvBlockTiled.apply(
+                *args, seeds, rate), whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,route", [(192, "whole"), (1024, "flash")])
+def test_cuda_mha_block_routes_beyond_the_block_kernels(cuda, T, route):
+    """fused_mha_block above T = 145: the unfused block around fused_mha,
+    the same masks as mha_block_plain at rate 0.2, every gradient."""
+    rng = np.random.default_rng(18)
+    B, D, heads = 2, 128, 8
+    assert kernels.mha_route(T, D, heads) == route
+    x, mask, *w = [_t(a).to(cuda) for a in
+                   _mha_inputs(rng, B, T, D, [T, T // 2])]
+    seeds = _t(_seeds(rng, B)).to(cuda)
+
+    def run(fn):
+        return lambda x, *w: fn(x, mask, *w, heads, seeds=seeds,
+                                drop_rate=0.2)
+
+    _check_grads(run(kernels.fused_mha_block), run(kernels.mha_block_plain),
+                 [x, *w], 7, ["x", "gam", "beta", "wqkv", "bqkv", "wd", "bd"],
+                 1e-3)

@@ -5,12 +5,27 @@
 
 #include <algorithm>
 #include <cfloat>
+#include <cmath>
 #include <cstddef>
+#include <type_traits>
 
 namespace vsl {
 
 constexpr float kMaskValue = -1e30f;  // the reference's additive key mask
 constexpr float kLnEps = 1e-6f;       // LayerNorm epsilon of the reference
+
+// f(std::integral_constant<int, HD>) for the attention kernels' head dims
+// (ops/kernels.py MHA_HEAD_DIMS); cudaErrorInvalidValue for any other.
+template <typename F>
+cudaError_t by_head_dim(int hd, F f) {
+  switch (hd) {
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -45,6 +60,20 @@ __device__ float block_reduce(float v, float* red) {
 }
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
+
+// 1 / sqrt(hd), the attention kernels' query scale, rounded to fp32 once.
+inline float head_scale(int hd) { return static_cast<float>(1.0 / sqrt(static_cast<double>(hd))); }
+
+// s(t, j) = q_t . k_j + neg_j for one attention head, q pre-scaled; the
+// same order of sums wherever it is formed (fmaf is symmetric in q and k),
+// so a backward recomputes the forward's scores bit for bit.
+template <int HD>
+__device__ __forceinline__ float head_score(const float* q, const float* k, float neg) {
+  float s = 0.f;
+#pragma unroll
+  for (int d = 0; d < HD; ++d) s = fmaf(q[d], k[d], s);
+  return s + neg;
+}
 
 // LayerNorm over the last dim of src [T, D] into dst [T, D] (either may be
 // shared or global memory): one warp per row, fp32 statistics, population

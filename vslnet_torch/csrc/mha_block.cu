@@ -43,6 +43,12 @@
 // more in the backward) on few SMs, and the attention's per-thread serial
 // key loops; bytes are a read of x (and g), the weights and the saved qkv
 // and att, and a write of the output (dx and the weight gradients).
+//
+// The attention launches (2 of the forward, 2 of the backward) also serve
+// on their own as the whole-T fused_mha kernels (vsl_mha_fwd, vsl_mha_bwd
+// at the end): they take q, k, v and the outputs through base pointers and
+// row strides, so one device body serves both callers. Those are bound by
+// the per-thread key loops on B * n_heads blocks.
 #include "common.cuh"
 #include "hash.cuh"
 
@@ -77,31 +83,29 @@ ln_qkv_kernel(const float* __restrict__ x, const float* __restrict__ gam,
   });
 }
 
-// s(t, j) = q_t . k_j + neg_j for one head, q pre-scaled; the same order of
-// sums wherever it is formed, so the backward recomputes P bit for bit.
-template <int HD>
-__device__ __forceinline__ float head_score(const float* q, const float* k, float neg) {
-  float s = 0.f;
-#pragma unroll
-  for (int d = 0; d < HD; ++d) s = fmaf(q[d], k[d], s);
-  return s + neg;
-}
+using vsl::head_score;
 
+// The attention kernels read q, k and v through base pointers and one row
+// stride ld: element (b, t, c) of q is q[(b * T + t) * ld + c]. The block
+// passes its packed qkv [B, T, 3D] (ld = 3D, k = qkv + D, v = qkv + 2D),
+// fused_mha three [B, T, D] tensors (ld = D); the outputs and g the same
+// way with their own strides.
 template <int HD>
-__global__ void attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
-                                 vsl::Dropout drop, float* __restrict__ att, int T, int D,
-                                 float scale) {
+__global__ void attention_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
+                                 const float* __restrict__ vp, int ld,
+                                 const float* __restrict__ mask, vsl::Dropout drop,
+                                 float* __restrict__ att, int ldo, int T, float scale) {
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);  // [T, HD]
   float* Vs = Ks + (size_t)T * HD;               // [T, HD]
   float* neg = Vs + (size_t)T * HD;              // [T]
   const int b = blockIdx.x, h = blockIdx.y;
-  const float* base = qkv + (size_t)b * T * 3 * D;
+  const size_t base = (size_t)b * T * ld + h * HD;
   const uint32_t seed = drop.seed(b), salt = vsl::head_salt(h);
   for (int i = threadIdx.x; i < T * HD; i += blockDim.x) {
     const int j = i / HD, d = i - j * HD;
-    Ks[i] = base[(size_t)j * 3 * D + D + h * HD + d];
-    Vs[i] = base[(size_t)j * 3 * D + 2 * D + h * HD + d];
+    Ks[i] = kp[base + (size_t)j * ld + d];
+    Vs[i] = vp[base + (size_t)j * ld + d];
   }
   for (int j = threadIdx.x; j < T; j += blockDim.x)
     neg[j] = (1.f - mask[(size_t)b * T + j]) * vsl::kMaskValue;
@@ -109,7 +113,7 @@ __global__ void attention_kernel(const float* __restrict__ qkv, const float* __r
   for (int t = threadIdx.x; t < T; t += blockDim.x) {
     float q[HD];
 #pragma unroll
-    for (int d = 0; d < HD; ++d) q[d] = base[(size_t)t * 3 * D + h * HD + d] * scale;
+    for (int d = 0; d < HD; ++d) q[d] = qp[base + (size_t)t * ld + d] * scale;
     float m = -FLT_MAX;
     for (int j = 0; j < T; ++j) m = fmaxf(m, head_score<HD>(q, Ks + j * HD, neg[j]));
     float l = 0.f, acc[HD];
@@ -124,7 +128,7 @@ __global__ void attention_kernel(const float* __restrict__ qkv, const float* __r
       }
     }
     const float inv = (drop.on() ? drop.scale : 1.f) / l;
-    float* o = att + ((size_t)b * T + t) * D + h * HD;
+    float* o = att + ((size_t)b * T + t) * ldo + h * HD;
 #pragma unroll
     for (int d = 0; d < HD; ++d) o[d] = acc[d] * inv;
   }
@@ -162,16 +166,17 @@ out_kernel(const float* __restrict__ x, const float* __restrict__ att,
 }
 
 template <int HD>
-cudaError_t launch_attention(const float* qkv, const float* mask, vsl::Dropout drop, float* att,
-                             int B, int T, int D, int n_heads, cudaStream_t stream) {
+cudaError_t launch_attention(const float* q, const float* k, const float* v, int ld,
+                             const float* mask, vsl::Dropout drop, float* att, int ldo, int B,
+                             int T, int n_heads, cudaStream_t stream) {
   const int threads = min(kThreads, (T + 31) / 32 * 32);
   const size_t smem = ((size_t)2 * T * HD + T) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  attention_kernel<HD><<<dim3(B, n_heads), threads, smem, stream>>>(
-      qkv, mask, drop, att, T, D, static_cast<float>(1.0 / sqrt(static_cast<double>(HD))));
+  attention_kernel<HD><<<dim3(B, n_heads), threads, smem, stream>>>(q, k, v, ld, mask, drop, att,
+                                                                   ldo, T, vsl::head_scale(HD));
   return cudaGetLastError();
 }
 
@@ -250,10 +255,12 @@ bwd_out_kernel(const float* __restrict__ x, const float* __restrict__ att,
 // dq = scale * ds . k. Phase B, a thread per key column j: P recomputed,
 // dv = sum_t drop(p) * g_t and dk = sum_t ds * q_t * scale.
 template <int HD>
-__global__ void attention_bwd_kernel(const float* __restrict__ qkv,
+__global__ void attention_bwd_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
+                                     const float* __restrict__ vp, int ld,
                                      const float* __restrict__ mask, vsl::Dropout drop,
-                                     const float* __restrict__ gatt, float* __restrict__ dqkv,
-                                     int T, int D, float scale) {
+                                     const float* __restrict__ gatt, int ldg,
+                                     float* __restrict__ dqp, float* __restrict__ dkp,
+                                     float* __restrict__ dvp, int ldd, int T, float scale) {
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [T, HD], q * scale
   float* Ks = Qs + (size_t)T * HD;               // [T, HD]
@@ -263,19 +270,19 @@ __global__ void attention_bwd_kernel(const float* __restrict__ qkv,
   float* ms = neg + T;                           // [T] row max
   float* ls = ms + T;                            // [T] 1 / row sum
   float* DS = ls + T;                            // [T, T + 1]
-  const int ld = T + 1;
+  const int lds = T + 1;  // DS row stride
   const int b = blockIdx.x, h = blockIdx.y;
-  const float* base = qkv + (size_t)b * T * 3 * D;
-  const float* gbase = gatt + (size_t)b * T * D;
-  float* dbase = dqkv + (size_t)b * T * 3 * D;
+  const size_t base = (size_t)b * T * ld + h * HD;
+  const size_t gbase = (size_t)b * T * ldg + h * HD;
+  const size_t dbase = (size_t)b * T * ldd + h * HD;
   const uint32_t seed = drop.seed(b), salt = vsl::head_salt(h);
   const float dscale = drop.on() ? drop.scale : 1.f;
   for (int i = threadIdx.x; i < T * HD; i += blockDim.x) {
     const int j = i / HD, d = i - j * HD;
-    Qs[i] = base[(size_t)j * 3 * D + h * HD + d] * scale;
-    Ks[i] = base[(size_t)j * 3 * D + D + h * HD + d];
-    Vs[i] = base[(size_t)j * 3 * D + 2 * D + h * HD + d];
-    Gs[i] = gbase[(size_t)j * D + h * HD + d];
+    Qs[i] = qp[base + (size_t)j * ld + d] * scale;
+    Ks[i] = kp[base + (size_t)j * ld + d];
+    Vs[i] = vp[base + (size_t)j * ld + d];
+    Gs[i] = gatt[gbase + (size_t)j * ldg + d];
   }
   for (int j = threadIdx.x; j < T; j += blockDim.x)
     neg[j] = (1.f - mask[(size_t)b * T + j]) * vsl::kMaskValue;
@@ -312,14 +319,14 @@ __global__ void attention_bwd_kernel(const float* __restrict__ qkv,
         dp *= dscale;
       }
       const float ds = p * (dp - Dt);
-      DS[(size_t)t * ld + j] = ds;
+      DS[(size_t)t * lds + j] = ds;
 #pragma unroll
       for (int d = 0; d < HD; ++d) dq[d] = fmaf(ds, Ks[j * HD + d], dq[d]);
     }
     ms[t] = m;
     ls[t] = linv;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) dbase[(size_t)t * 3 * D + h * HD + d] = dq[d] * scale;
+    for (int d = 0; d < HD; ++d) dqp[dbase + (size_t)t * ldd + d] = dq[d] * scale;
   }
   __syncthreads();
   for (int j = threadIdx.x; j < T; j += blockDim.x) {
@@ -337,14 +344,14 @@ __global__ void attention_bwd_kernel(const float* __restrict__ qkv,
 #pragma unroll
         for (int d = 0; d < HD; ++d) dv[d] = fmaf(pd, Gs[t * HD + d], dv[d]);
       }
-      const float ds = DS[(size_t)t * ld + j];
+      const float ds = DS[(size_t)t * lds + j];
 #pragma unroll
       for (int d = 0; d < HD; ++d) dk[d] = fmaf(ds, qt[d], dk[d]);
     }
 #pragma unroll
     for (int d = 0; d < HD; ++d) {
-      dbase[(size_t)j * 3 * D + D + h * HD + d] = dk[d];
-      dbase[(size_t)j * 3 * D + 2 * D + h * HD + d] = dv[d];
+      dkp[dbase + (size_t)j * ldd + d] = dk[d];
+      dvp[dbase + (size_t)j * ldd + d] = dv[d];
     }
   }
 }
@@ -403,8 +410,9 @@ bwd_qkv_kernel(const float* __restrict__ x, const float* __restrict__ gam,
 }
 
 template <int HD>
-cudaError_t launch_attention_bwd(const float* qkv, const float* mask, vsl::Dropout drop,
-                                 const float* gatt, float* dqkv, int B, int T, int D,
+cudaError_t launch_attention_bwd(const float* q, const float* k, const float* v, int ld,
+                                 const float* mask, vsl::Dropout drop, const float* gatt, int ldg,
+                                 float* dq, float* dk, float* dv, int ldd, int B, int T,
                                  int n_heads, cudaStream_t stream) {
   const int threads = min(kThreads, (T + 31) / 32 * 32);
   const size_t smem = ((size_t)4 * T * HD + 3 * T + (size_t)T * (T + 1)) * sizeof(float);
@@ -413,7 +421,7 @@ cudaError_t launch_attention_bwd(const float* qkv, const float* mask, vsl::Dropo
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   attention_bwd_kernel<HD><<<dim3(B, n_heads), threads, smem, stream>>>(
-      qkv, mask, drop, gatt, dqkv, T, D, static_cast<float>(1.0 / sqrt(static_cast<double>(HD))));
+      q, k, v, ld, mask, drop, gatt, ldg, dq, dk, dv, ldd, T, vsl::head_scale(HD));
   return cudaGetLastError();
 }
 
@@ -438,13 +446,10 @@ extern "C" int vsl_mha_block_fwd(const float* x, const float* mask, const float*
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  switch (D / n_heads) {
-    case 8: err = launch_attention<8>(qkv, mask, drop, att, B, T, D, n_heads, stream); break;
-    case 16: err = launch_attention<16>(qkv, mask, drop, att, B, T, D, n_heads, stream); break;
-    case 32: err = launch_attention<32>(qkv, mask, drop, att, B, T, D, n_heads, stream); break;
-    case 64: err = launch_attention<64>(qkv, mask, drop, att, B, T, D, n_heads, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  err = vsl::by_head_dim(D / n_heads, [&](auto hd) {
+    return launch_attention<decltype(hd)::value>(qkv, qkv + D, qkv + 2 * D, 3 * D, mask, drop,
+                                                 att, D, B, T, n_heads, stream);
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int smem3 = 2 * T * D * static_cast<int>(sizeof(float));
@@ -477,13 +482,11 @@ extern "C" int vsl_mha_block_bwd(const float* x, const float* mask, const float*
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  switch (D / n_heads) {
-    case 8: err = launch_attention_bwd<8>(qkv, mask, drop, gatt_ws, dqkv, B, T, D, n_heads, stream); break;
-    case 16: err = launch_attention_bwd<16>(qkv, mask, drop, gatt_ws, dqkv, B, T, D, n_heads, stream); break;
-    case 32: err = launch_attention_bwd<32>(qkv, mask, drop, gatt_ws, dqkv, B, T, D, n_heads, stream); break;
-    case 64: err = launch_attention_bwd<64>(qkv, mask, drop, gatt_ws, dqkv, B, T, D, n_heads, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  err = vsl::by_head_dim(D / n_heads, [&](auto hd) {
+    return launch_attention_bwd<decltype(hd)::value>(qkv, qkv + D, qkv + 2 * D, 3 * D, mask, drop,
+                                                     gatt_ws, D, dqkv, dqkv + D, dqkv + 2 * D,
+                                                     3 * D, B, T, n_heads, stream);
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int smem3 = (2 * T * D + T + kWarps * 2 * D) * static_cast<int>(sizeof(float));
@@ -499,4 +502,33 @@ extern "C" int vsl_mha_block_bwd(const float* x, const float* mask, const float*
   err = vsl::wgrad(z_ws, gdpre_ws, dwd, gemm_ws, 1, D, D, B * T, splits, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(vsl::wgrad(y_ws, dqkv, dwqkv, gemm_ws, 1, D, 3 * D, B * T, splits, stream));
+}
+
+// Whole-T multi-head attention (fused_mha's small-T route), replacing the
+// TPU kernels _make_mha_fwd_kernel and _make_mha_bwd_kernel: the block's
+// attention launches over unsplit q, k, v [B, T, D], key mask [B, T] and
+// per-row seeds. The backward keeps a head's dS [T, T + 1] in shared
+// memory, so it takes T up to 209 at head dim 16 (ops/kernels.py
+// attention_route); longer T goes to flash_mha.cu.
+extern "C" int vsl_mha_fwd(const float* q, const float* k, const float* v, const float* mask,
+                           const float* seeds, unsigned thresh, float scale, float* out, int B,
+                           int T, int D, int n_heads, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const vsl::Dropout drop{seeds, thresh, scale};
+  return static_cast<int>(vsl::by_head_dim(D / n_heads, [&](auto hd) {
+    return launch_attention<decltype(hd)::value>(q, k, v, D, mask, drop, out, D, B, T, n_heads,
+                                                 stream);
+  }));
+}
+
+extern "C" int vsl_mha_bwd(const float* q, const float* k, const float* v, const float* mask,
+                           const float* seeds, unsigned thresh, float scale, const float* g,
+                           float* dq, float* dk, float* dv, int B, int T, int D, int n_heads,
+                           void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const vsl::Dropout drop{seeds, thresh, scale};
+  return static_cast<int>(vsl::by_head_dim(D / n_heads, [&](auto hd) {
+    return launch_attention_bwd<decltype(hd)::value>(q, k, v, D, mask, drop, g, D, dq, dk, dv, D,
+                                                     B, T, n_heads, stream);
+  }));
 }

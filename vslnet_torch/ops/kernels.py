@@ -6,12 +6,20 @@ Each wrapper below takes the plain version for tensors on the CPU (the
 tests) and launches its kernel for tensors on a CUDA device; there it
 raises on anything the kernel does not take and never falls back. The
 plain versions also serve the model under `use_pallas=off`. The LSTM
-recurrence, the conv block and the MHA block have backward kernels too:
-on the card their wrappers go through a `torch.autograd.Function`
-(`FusedLSTMRecurrence`, `FusedConvBlock`, `FusedMHABlock`), on the CPU
-through torch's autograd of the plain versions. The `launch_*` functions
-are the kernels alone, for CUDA tensors only: the autograd Functions call
-them, and chip_smoke.py times them.
+recurrence, the conv block, the MHA block and attention have backward
+kernels too: on the card their wrappers go through a
+`torch.autograd.Function` (`FusedLSTMRecurrence`, `FusedConvBlock`,
+`FusedConvBlockTiled`, `FusedMHABlock`, `FusedMHA`, `FusedFlashMHA`), on
+the CPU through torch's autograd of the plain versions. The `launch_*`
+functions are the kernels alone, for CUDA tensors only: the autograd
+Functions call them, and chip_smoke.py times them.
+
+Which kernels a block takes on the card depends on its shape alone, by
+the port's own shared-memory gates (`conv_route`, `mha_route`,
+`attention_route`): the whole-row conv and MHA block kernels up to T = 145
+at D = 128, above that the T-tiled conv block and the MHA block's PyTorch
+ops around `fused_mha`, whose whole-T kernels take T up to 209 at head dim
+16 and its flash kernels any longer T.
 
 The kernels (csrc/*.cu, sm_90a, fp32) are compiled with nvcc into one
 shared library with a plain C interface, one nvcc process per source, all
@@ -56,7 +64,9 @@ N_SMS = 132
 LAUNCHES = {"lstm_recurrence_fwd": 0, "lstm_recurrence_fwd_res": 0,
             "lstm_recurrence_bwd": 0, "conv_block_fwd": 0, "conv_block_bwd": 0,
             "mha_block_fwd": 0, "mha_block_bwd": 0, "cqa_concat_fwd": 0,
-            "highlight_gate_fwd": 0, "span_decode": 0}
+            "highlight_gate_fwd": 0, "span_decode": 0,
+            "conv_block_fwd_tiled": 0, "conv_block_bwd_tiled": 0,
+            "mha_fwd": 0, "mha_bwd": 0, "flash_mha_fwd": 0, "flash_mha_bwd": 0}
 
 
 def reset_launches():
@@ -84,6 +94,12 @@ _SIGNATURES = {
     "vsl_cqa_concat_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "vsl_highlight_gate_fwd": [_P] * 6 + [_I] * 2 + [_P],
     "vsl_span_decode": [_P] * 4 + [_I] * 2 + [_P],
+    "vsl_conv_block_fwd_tiled": [_P] * 7 + _DROP + [_P] * 2 + [_I] * 5 + [_P],
+    "vsl_conv_block_bwd_tiled": [_P] * 9 + _DROP + [_P] * 9 + [_I] * 6 + [_P],
+    "vsl_mha_fwd": [_P] * 5 + _DROP + [_P] + [_I] * 4 + [_P],
+    "vsl_mha_bwd": [_P] * 5 + _DROP + [_P] * 4 + [_I] * 4 + [_P],
+    "vsl_flash_mha_fwd": [_P] * 5 + _DROP + [_P] * 2 + [_I] * 4 + [_P],
+    "vsl_flash_mha_bwd": [_P] * 5 + _DROP + [_P] * 7 + [_I] * 4 + [_P],
 }
 
 
@@ -306,10 +322,8 @@ def depthwise_separable(x, dw, wp, bp):
     return torch.relu(y @ wp + bp)
 
 
-def attention(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
-    """Multi-head attention without an output projection: q, k, v [B, T, D],
-    key mask [B, T] added as (1 - m) * -1e30, fp32 softmax, then each
-    head's probabilities dropped by its counter hash."""
+def _attention_scores(q, k, v, mask, n_heads, seeds, drop_rate):
+    """(out [B, T, D], the masked scores s [B, H, T, T]) of `attention`."""
     B, T, D = q.shape
     hd = D // n_heads
 
@@ -325,7 +339,15 @@ def attention(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
         bits = torch.stack([mha_hash_bits(seeds, h, T)
                             for h in range(n_heads)], dim=1)
         p = _drop_bits(p, bits, drop_rate)
-    return (p @ split(v)).transpose(1, 2).reshape(B, T, D)
+    return (p @ split(v)).transpose(1, 2).reshape(B, T, D), s
+
+
+def attention(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
+    """Multi-head attention without an output projection: q, k, v [B, T, D],
+    key mask [B, T] added as (1 - m) * -1e30, fp32 softmax, then each
+    head's probabilities dropped by its counter hash (at (t, j) of the
+    head's [T, T] tile)."""
+    return _attention_scores(q, k, v, mask, n_heads, seeds, drop_rate)[0]
 
 
 # --- 1. LSTM recurrence --------------------------------------------------------
@@ -552,12 +574,110 @@ class FusedConvBlock(torch.autograd.Function):
 
 
 def fused_conv_block(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
+    """On the card: the whole-row kernels or the T-tiled ones, as
+    conv_route says (forward and backward alike). On the CPU: the plain
+    version."""
     name = "conv_block_fwd"
     tensors = [x, gam, beta, dw, wp, bp] + ([] if seeds is None else [seeds])
     if not _on_cuda(name, *tensors):
         return conv_block_plain(x, gam, beta, dw, wp, bp, seeds, drop_rate)
-    return FusedConvBlock.apply(x, gam, beta, dw, wp, bp, seeds,
-                                float(drop_rate))
+    fn = FusedConvBlock if conv_route(*x.shape[1:]) == "block" else \
+        FusedConvBlockTiled
+    return fn.apply(x, gam, beta, dw, wp, bp, seeds, float(drop_rate))
+
+
+# --- 2b. conv block at any T ---------------------------------------------------
+# The same function as section 2, T-tiled (csrc/conv_block.cu, the tiled
+# kernels): one launch a layer over (T-tiles of CONV_TILE frames, rows),
+# each tile LayerNorming a halo of the depthwise reach. Taken where a
+# row's backward does not fit a block (T > 145 at D = 128).
+
+CONV_TILE = 32  # frames of a tile (csrc/conv_block.cu kTile)
+
+
+def conv_route(T, D):
+    """"block" (the whole-row kernels) where a row's backward fits one
+    block's shared memory, else "tiled"."""
+    return "block" if conv_block_bwd_smem_bytes(T, D) <= MAX_SMEM_BYTES \
+        else "tiled"
+
+
+def conv_block_tiled_smem_bytes(D, K):
+    """The largest of the tiled launches' shared memory: backward launch A's
+    halo of LN rows and two [CONV_TILE, D] tiles, or launch B's two halos,
+    the inverse deviations and the LN reductions."""
+    halo = CONV_TILE + K - 1
+    return max((2 * CONV_TILE + halo) * D, 2 * halo * D + halo + 16 * D) * 4
+
+
+def launch_conv_block_fwd_tiled(x, gam, beta, dw, wp, bp, seeds=None,
+                                drop_rate=0.0):
+    """The tiled forward kernels: (out, xs [L - 1, B, T, D], the inputs of
+    layers 1..L-1, which the tiled backward reads). CUDA tensors only."""
+    name = "conv_block_fwd_tiled"
+    _require_cuda(name, x, gam, beta, dw, wp, bp)
+    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp,
+                                 conv_block_tiled_smem_bytes(x.shape[2],
+                                                             dw.shape[1]))
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    out = torch.empty_like(x)
+    xs = _empty(x.device, max(L - 1, 1), B, T, D)
+    _launch(name, x.data_ptr(), gam.data_ptr(), beta.data_ptr(), dw.data_ptr(),
+            wp.data_ptr(), bp.data_ptr(), sp, thresh, scale, xs.data_ptr(),
+            out.data_ptr(), B, T, D, L, K)
+    return out, xs
+
+
+def launch_conv_block_bwd_tiled(x, xs, gam, beta, dw, wp, bp, seeds,
+                                drop_rate, g):
+    """The tiled backward kernels from the forward's xs: (dx, dgam, dbeta,
+    ddw, dwp, dbp), the weight gradients summed over the batch. CUDA tensors
+    only."""
+    name = "conv_block_bwd_tiled"
+    _require_cuda(name, x, xs, gam, beta, dw, wp, bp, g)
+    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp,
+                                 conv_block_tiled_smem_bytes(x.shape[2],
+                                                             dw.shape[1]))
+    _check(name, xs, (max(L - 1, 1), B, T, D))
+    _check(name, g, (B, T, D))
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    dev = x.device
+    wpT = wp.transpose(1, 2).contiguous()
+    dx = torch.empty_like(x)
+    dsmall = _empty(dev, L, 3 + K, D)
+    dwp = _empty(dev, L, D, D)
+    d_ws, gp_ws = (_empty(dev, L, B, T, D) for _ in range(2))
+    gd_ws = _empty(dev, B, T, D)
+    part = _empty(dev, B * -(-T // CONV_TILE), L, 3 + K, D)
+    splits = _wgrad_splits(L, D, D, B * T)
+    ws = _empty(dev, L * splits * D * D if splits > 1 else 1)
+    _launch(name, x.data_ptr(), xs.data_ptr(), gam.data_ptr(),
+            beta.data_ptr(), dw.data_ptr(), wp.data_ptr(), wpT.data_ptr(),
+            bp.data_ptr(), sp, thresh, scale, g.data_ptr(), dx.data_ptr(),
+            dsmall.data_ptr(), dwp.data_ptr(), d_ws.data_ptr(),
+            gp_ws.data_ptr(), gd_ws.data_ptr(), part.data_ptr(), ws.data_ptr(),
+            splits, B, T, D, L, K)
+    return dx, dsmall[:, 0], dsmall[:, 1], dsmall[:, 3:], dwp, dsmall[:, 2]
+
+
+class FusedConvBlockTiled(torch.autograd.Function):
+    """The conv block on the card at any T: the tiled forward kernels, which
+    keep each layer's input, then the tiled backward kernels."""
+
+    @staticmethod
+    def forward(ctx, x, gam, beta, dw, wp, bp, seeds, drop_rate):
+        out, xs = launch_conv_block_fwd_tiled(x, gam, beta, dw, wp, bp, seeds,
+                                              drop_rate)
+        ctx.save_for_backward(x, xs, gam, beta, dw, wp, bp, seeds)
+        ctx.drop_rate = drop_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, xs, gam, beta, dw, wp, bp, seeds = ctx.saved_tensors
+        grads = launch_conv_block_bwd_tiled(x, xs, gam, beta, dw, wp, bp, seeds,
+                                            ctx.drop_rate, g.contiguous())
+        return (*grads, None, None)
 
 
 # --- 3. MHA block --------------------------------------------------------------
@@ -568,23 +688,73 @@ def fused_conv_block(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
 # the projections on few SMs and the attention's serial key loops.
 
 
+def _mha_block(attend, x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
+               seeds, drop_rate):
+    D = x.shape[-1]
+    y = site_dropout(layer_norm(x, gam[0], beta[0]), seeds, 0x200, drop_rate)
+    q, k, v = (t.contiguous() for t in (y @ wqkv + bqkv).split(D, dim=-1))
+    att = attend(q, k, v, mask, n_heads, seeds, drop_rate)
+    res = site_dropout(att, seeds, 0x201, drop_rate) + x
+    z = site_dropout(layer_norm(res, gam[1], beta[1]), seeds, 0x202, drop_rate)
+    return site_dropout(z @ wd + bd, seeds, 0x203, drop_rate) + res
+
+
 def mha_block_plain(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
                     seeds=None, drop_rate=0.0):
     """Pre-LN attention block: x [B, T, D], key mask [B, T], gam/beta [2, D]
     (LN1, LN2), wqkv [D, 3D], bqkv [3D], wd [D, D], bd [D]; counter-hash
     dropout at sites 0x200 (LN1 out), the probabilities, 0x201 (attention
     out), 0x202 (LN2 out) and 0x203 (dense out)."""
-    D = x.shape[-1]
-    y = site_dropout(layer_norm(x, gam[0], beta[0]), seeds, 0x200, drop_rate)
-    qkv = y @ wqkv + bqkv
-    att = attention(qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], mask,
-                    n_heads, seeds, drop_rate)
-    res = site_dropout(att, seeds, 0x201, drop_rate) + x
-    z = site_dropout(layer_norm(res, gam[1], beta[1]), seeds, 0x202, drop_rate)
-    return site_dropout(z @ wd + bd, seeds, 0x203, drop_rate) + res
+    return _mha_block(attention, x, mask, gam, beta, wqkv, bqkv, wd, bd,
+                      n_heads, seeds, drop_rate)
+
+
+def mha_block_unfused(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
+                      seeds=None, drop_rate=0.0):
+    """The MHA block where the block kernels do not fit (mha_route "whole"
+    or "flash"): mha_block_plain's PyTorch LayerNorms, projections,
+    residuals and site dropouts (the same per-row seeds, so the same
+    masks) around fused_mha, as the JAX package's unfused block keeps them
+    in XLA around its fused_mha."""
+    return _mha_block(fused_mha, x, mask, gam, beta, wqkv, bqkv, wd, bd,
+                      n_heads, seeds, drop_rate)
 
 
 MHA_HEAD_DIMS = (8, 16, 32, 64)
+
+
+def attention_bwd_smem_bytes(T, hd):
+    """The whole-T attention backward's shared memory: q, k, v, g of a head,
+    the mask, row maxima and sums, and dS [T, T + 1]."""
+    return (4 * T * hd + 3 * T + T * (T + 1)) * 4
+
+
+def attention_route(T, hd):
+    """fused_mha's kernels: "whole" (one block a (row, head), the whole
+    [T, T] tile of dS in shared memory: T <= 209 at head dim 16) where the
+    backward fits, else "flash". Forward and backward read the same gate,
+    so one call never mixes the routes' residuals."""
+    return "whole" if attention_bwd_smem_bytes(T, hd) <= MAX_SMEM_BYTES \
+        else "flash"
+
+
+def _head_dim(name, D, n_heads):
+    if D % n_heads or D // n_heads not in MHA_HEAD_DIMS:
+        raise ValueError("%s: head dim D/n_heads must be one of %s, got D=%d "
+                         "heads=%d" % (name, MHA_HEAD_DIMS, D, n_heads))
+    return D // n_heads
+
+
+def mha_route(T, D, n_heads):
+    """The MHA block's kernels on the card: "block" (the fused block
+    kernels) where its forward and backward fit one block's shared memory
+    (T <= 145 at D = 128), else the unfused block around fused_mha's
+    `attention_route`. Raises for a head dim no kernel takes."""
+    hd = _head_dim("mha_route", D, n_heads)
+    if max(mha_block_smem_bytes(T, D),
+           mha_block_bwd_smem_bytes(T, D, n_heads)) <= MAX_SMEM_BYTES:
+        return "block"
+    return attention_route(T, hd)
 
 
 def mha_block_smem_bytes(T, D):
@@ -605,9 +775,7 @@ def mha_block_bwd_smem_bytes(T, D, n_heads):
 def _mha_shapes(name, x, n_heads, smem, mask, gam, beta, wqkv, wd, bqkv=None,
                 bd=None):
     B, T, D = x.shape
-    if D % n_heads or D // n_heads not in MHA_HEAD_DIMS:
-        raise ValueError("%s: head dim D/n_heads must be one of %s, got D=%d "
-                         "heads=%d" % (name, MHA_HEAD_DIMS, D, n_heads))
+    _head_dim(name, D, n_heads)
     if smem > MAX_SMEM_BYTES:
         raise ValueError("%s: T=%d, D=%d needs %d bytes of shared memory, "
                          "above the %d a block has" % (name, T, D, smem,
@@ -705,15 +873,164 @@ class FusedMHABlock(torch.autograd.Function):
 
 def fused_mha_block(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
                     seeds=None, drop_rate=0.0):
+    """On the card: the block kernels where mha_route says "block", else
+    mha_block_unfused (fused_mha's whole-T or flash kernels). On the CPU:
+    the plain version."""
     name = "mha_block_fwd"
     tensors = [x, mask, gam, beta, wqkv, bqkv, wd, bd]
     if seeds is not None:
         tensors.append(seeds)
+    args = (x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads, seeds)
     if not _on_cuda(name, *tensors):
-        return mha_block_plain(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
-                               seeds, drop_rate)
-    return FusedMHABlock.apply(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
-                               seeds, float(drop_rate))
+        return mha_block_plain(*args, drop_rate)
+    if mha_route(x.shape[1], x.shape[2], n_heads) == "block":
+        return FusedMHABlock.apply(*args, float(drop_rate))
+    return mha_block_unfused(*args, float(drop_rate))
+
+
+# --- 3b. multi-head attention at any T -----------------------------------------
+# Replaces vslnet_tpu/ops/pallas_kernels.py:_make_mha_fwd_kernel and
+# _make_mha_bwd_kernel (whole-T; csrc/mha_block.cu's attention launches,
+# one block a (row, head)), _make_flash_fwd_kernel and
+# _make_flash_bwd_kernel (csrc/flash_mha.cu), via fused_mha and its VJP.
+# attention_route picks one route for both directions. Bound by their
+# per-thread key loops (an exp, a hash and 2 * hd FMAs a pair).
+
+
+def flash_attention_plain(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
+    """(out, lse [B, H, T]): attention's output and the logsumexp over the
+    keys of each head's masked, scaled scores (what the flash forward
+    saves)."""
+    out, s = _attention_scores(q, k, v, mask, n_heads, seeds, drop_rate)
+    return out, torch.logsumexp(s, dim=-1)
+
+
+def _attention_shapes(name, q, k, v, mask, n_heads, *more):
+    B, T, D = q.shape
+    _head_dim(name, D, n_heads)
+    for t in (q, k, v, *more):
+        _check(name, t, (B, T, D))
+    _check(name, mask, (B, T))
+    return B, T, D
+
+
+def launch_mha_fwd(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
+    """The whole-T forward kernel: out [B, T, D]. CUDA tensors only."""
+    name = "mha_fwd"
+    _require_cuda(name, q, k, v, mask)
+    B, T, D = _attention_shapes(name, q, k, v, mask, n_heads)
+    smem = (2 * T * (D // n_heads) + T) * 4  # K and V of a head, the mask
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError("%s: T=%d needs %d bytes of shared memory, above the "
+                         "%d a block has" % (name, T, smem, MAX_SMEM_BYTES))
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    out = torch.empty_like(q)
+    _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            sp, thresh, scale, out.data_ptr(), B, T, D, n_heads)
+    return out
+
+
+def launch_mha_bwd(q, k, v, mask, n_heads, seeds, drop_rate, g):
+    """The whole-T backward kernel (P recomputed): (dq, dk, dv). CUDA
+    tensors only."""
+    name = "mha_bwd"
+    _require_cuda(name, q, k, v, mask, g)
+    B, T, D = _attention_shapes(name, q, k, v, mask, n_heads, g)
+    if attention_route(T, D // n_heads) != "whole":
+        raise ValueError("%s: T=%d needs %d bytes of shared memory, above the "
+                         "%d a block has" % (name, T, attention_bwd_smem_bytes(
+                             T, D // n_heads), MAX_SMEM_BYTES))
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            sp, thresh, scale, g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, T, D, n_heads)
+    return dq, dk, dv
+
+
+def launch_flash_mha_fwd(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
+    """The flash forward kernel: (out [B, T, D], lse [B, H, T]). CUDA
+    tensors only."""
+    name = "flash_mha_fwd"
+    _require_cuda(name, q, k, v, mask)
+    B, T, D = _attention_shapes(name, q, k, v, mask, n_heads)
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    out = torch.empty_like(q)
+    lse = _empty(q.device, B, n_heads, T)
+    _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            sp, thresh, scale, out.data_ptr(), lse.data_ptr(), B, T, D,
+            n_heads)
+    return out, lse
+
+
+def launch_flash_mha_bwd(q, k, v, mask, n_heads, seeds, drop_rate, out, lse,
+                         g):
+    """The flash backward kernels (P recomputed from lse): (dq, dk, dv).
+    CUDA tensors only."""
+    name = "flash_mha_bwd"
+    _require_cuda(name, q, k, v, mask, out, lse, g)
+    B, T, D = _attention_shapes(name, q, k, v, mask, n_heads, out, g)
+    _check(name, lse, (B, n_heads, T))
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = _empty(q.device, B, n_heads, T)
+    _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            sp, thresh, scale, out.data_ptr(), lse.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B,
+            T, D, n_heads)
+    return dq, dk, dv
+
+
+class FusedMHA(torch.autograd.Function):
+    """fused_mha's whole-T route: forward kernel, backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, n_heads, seeds, drop_rate):
+        out = launch_mha_fwd(q, k, v, mask, n_heads, seeds, drop_rate)
+        ctx.save_for_backward(q, k, v, mask, seeds)
+        ctx.n_heads, ctx.drop_rate = n_heads, drop_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, seeds = ctx.saved_tensors
+        return (*launch_mha_bwd(q, k, v, mask, ctx.n_heads, seeds,
+                                ctx.drop_rate, g.contiguous()),
+                None, None, None, None)
+
+
+class FusedFlashMHA(torch.autograd.Function):
+    """fused_mha's flash route: the forward kernel, which keeps lse, then
+    the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, n_heads, seeds, drop_rate):
+        out, lse = launch_flash_mha_fwd(q, k, v, mask, n_heads, seeds,
+                                        drop_rate)
+        ctx.save_for_backward(q, k, v, mask, seeds, out, lse)
+        ctx.n_heads, ctx.drop_rate = n_heads, drop_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, seeds, out, lse = ctx.saved_tensors
+        return (*launch_flash_mha_bwd(q, k, v, mask, ctx.n_heads, seeds,
+                                      ctx.drop_rate, out, lse,
+                                      g.contiguous()),
+                None, None, None, None)
+
+
+def fused_mha(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
+    """`attention` on the card through the whole-T or the flash kernels, as
+    attention_route says; on the CPU, `attention` itself."""
+    name = "mha_fwd"
+    tensors = [q, k, v, mask] + ([] if seeds is None else [seeds])
+    if not _on_cuda(name, *tensors):
+        return attention(q, k, v, mask, n_heads, seeds, drop_rate)
+    hd = _head_dim(name, q.shape[2], n_heads)
+    fn = FusedMHA if attention_route(q.shape[1], hd) == "whole" else \
+        FusedFlashMHA
+    return fn.apply(q, k, v, mask, n_heads, seeds, float(drop_rate))
 
 
 # --- 4. span decode ------------------------------------------------------------
