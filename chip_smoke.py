@@ -12,7 +12,9 @@ Phases, each printing one JSON line:
               the card at the served shapes (random inputs, ragged lengths):
               max abs difference against the stated tolerance, the kernel's
               and the plain version's time (CUDA events), the least time the
-              card could take (bound), and for the LSTM a cuDNN yardstick.
+              card could take (bound), and for the LSTM a cuDNN yardstick
+              (the two LSTM forwards must beat it), its time a step and
+              its launch plan.
               The training kernels (the LSTM forward with residuals and its
               reverse recurrence, the conv and MHA block backwards) and the
               two block forwards with dropout are held the same way at the
@@ -170,6 +172,12 @@ def lstm_yardstick(x_proj, k_h):
     return lstm
 
 
+def plan_fields(plan):
+    return {"n": plan.n, "bt": plan.bt, "ctas": plan.n * plan.clusters,
+            "threads": plan.threads, "splits": plan.splits,
+            "smem_bytes": plan.smem}
+
+
 def kernel_row(name, source, replaces, err, tol, ms, plain_ms, flops, nbytes,
                library_ms=None, checked_err=None, **extra):
     """One kernel's row, emitted and held to tol. checked_err, where given,
@@ -218,15 +226,19 @@ def kernel_phase(dev, max_w):
         ms_lib = cuda_ms(lambda: lstm(x_proj), 20)
     vmask = valid.bool()
     lib_err = float((lib_out - out).abs()[vmask].max())
+    plan = K.lstm_plan(B, H)
+    ms = cuda_ms(lambda: K.fused_lstm_recurrence(x_proj, k_h, valid), 20)
     record("lstm_recurrence_fwd", "vslnet_torch/csrc/lstm.cu",
-           "vslnet_tpu/ops/pallas_kernels.py:241", err, TOL,
-           cuda_ms(lambda: K.fused_lstm_recurrence(x_proj, k_h, valid), 20),
+           "vslnet_tpu/ops/pallas_kernels.py:241", err, TOL, ms,
            cuda_ms(lambda: K.lstm_recurrence_plain(x_proj, k_h, valid), 3),
            # only the valid steps need the product: padding freezes the state
            2 * int(lens.sum()) * H * 4 * H,
            4 * (T * B * 4 * H + H * 4 * H + T * B + T * B * H),
            library_ms=ms_lib, library_max_abs_err_valid=lib_err,
-           shape=[T, B, 4 * H])
+           shape=[T, B, 4 * H], us_per_step=ms * 1e3 / T,
+           plan=plan_fields(plan))
+    check(ms < ms_lib, "lstm_recurrence_fwd: %g ms, not below cuDNN's %g"
+          % (ms, ms_lib))
 
     # 2. conv block [B, T, D] and at the query length
     def conv_inputs(T_):
@@ -385,13 +397,16 @@ def kernel_phase(dev, max_w):
     ms_lib_f = cuda_ms(lambda: lstm(xp_req), 20)
     ms_lib_fb = cuda_ms(lambda: lstm(xp_req)[0].backward(dy), 20)
     steps = int(lens.sum())  # only valid steps need the products
+    ms = cuda_ms(lambda: K.launch_lstm_fwd_res(x_proj, k_h, valid), 20)
     record("lstm_recurrence_fwd_res", "vslnet_torch/csrc/lstm.cu",
-           "vslnet_tpu/ops/pallas_kernels.py:276", abs_err, TOL,
-           cuda_ms(lambda: K.launch_lstm_fwd_res(x_proj, k_h, valid), 20),
+           "vslnet_tpu/ops/pallas_kernels.py:276", abs_err, TOL, ms,
            cuda_ms(lambda: K.lstm_recurrence_plain(*leaves, valid), 3),
            2 * steps * H * 4 * H,
            4 * (2 * T * B * 4 * H + H * 4 * H + T * B + 4 * T * B * H),
-           library_ms=ms_lib_f, checked_err=err, shape=[T, B, 4 * H])
+           library_ms=ms_lib_f, checked_err=err, shape=[T, B, 4 * H],
+           us_per_step=ms * 1e3 / T, plan=plan_fields(plan))
+    check(ms < ms_lib_f, "lstm_recurrence_fwd_res: %g ms, not below cuDNN's "
+          "training forward %g" % (ms, ms_lib_f))
     record("lstm_recurrence_bwd", "vslnet_torch/csrc/lstm.cu",
            "vslnet_tpu/ops/pallas_kernels.py:316", abs_err, TOL,
            cuda_ms(lambda: K.launch_lstm_bwd(dy, *res[1:], valid, k_h), 20),

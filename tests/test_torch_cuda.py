@@ -118,8 +118,16 @@ def _cuda_pair(fn, plain, args):
     return out, plain(*args)
 
 
+# The LSTM forward's launch plan under stress: the main path, a tiny H,
+# H = 256 (134 KiB of shared memory), an H that 8 CTAs do not divide (13
+# units a CTA, the last one's 9 of them), B = 1, a ragged last cluster (33
+# rows in clusters of 4), T = 1 and path M's T = 192.
+LSTM_SHAPES = [(128, 16, 128), (12, 4, 8), (24, 6, 256), (20, 5, 100),
+               (40, 1, 128), (16, 33, 64), (1, 16, 128), (192, 16, 128)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,B,H", [(128, 16, 128), (12, 4, 8)])
+@pytest.mark.parametrize("T,B,H", LSTM_SHAPES)
 def test_cuda_lstm_matches_plain(cuda, T, B, H):
     rng = np.random.default_rng(5)
     lens = rng.integers(1, T + 1, size=B)
@@ -127,6 +135,24 @@ def test_cuda_lstm_matches_plain(cuda, T, B, H):
     out, ref = _cuda_pair(kernels.fused_lstm_recurrence,
                           kernels.lstm_recurrence_plain, args)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_launch_setup_holds_across_hidden_sizes(cuda):
+    """The forward's one-time launch set-up is kept per configuration and
+    its shared-memory opt-in only ever rises: one kernel (2 rows a
+    cluster) at H = 256, then 128 and 8 with less shared memory, then 256
+    again, lean and with residuals, each equal to the plain version."""
+    rng = np.random.default_rng(19)
+    for H in (256, 128, 8, 256):
+        T, B = 20, 16
+        args = [_t(a).to(cuda) for a in _lstm_inputs(
+            rng, T, B, H, rng.integers(1, T + 1, B))]
+        ref = kernels.lstm_recurrence_plain(*args)
+        torch.testing.assert_close(kernels.launch_lstm_fwd(*args), ref,
+                                   atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(kernels.launch_lstm_fwd_res(*args)[0], ref,
+                                   atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -222,12 +248,12 @@ def _check_grads(fn, plain, args, n_grad, names, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,B,H", [(128, 16, 128), (12, 4, 8)])
+@pytest.mark.parametrize("T,B,H", LSTM_SHAPES)
 def test_cuda_lstm_grads_match_plain(cuda, T, B, H):
     rng = np.random.default_rng(12)
     lens = rng.integers(1, T + 1, size=B)
     args = [_t(a).to(cuda) for a in _lstm_inputs(rng, T, B, H, lens)]
-    # 128 dependent steps in fp32, sums in another order: 1e-3
+    # up to 192 dependent steps in fp32, sums in another order: 1e-3
     _check_grads(kernels.fused_lstm_recurrence, kernels.lstm_recurrence_plain,
                  args, 2, ["x_proj", "k_h"], 1e-3)
 

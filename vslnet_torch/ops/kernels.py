@@ -42,6 +42,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -84,8 +85,8 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 _DROP = [_U, _F]  # dropout threshold and scale, after the seeds pointer
 _SIGNATURES = {
-    "vsl_lstm_recurrence_fwd": [_P] * 4 + [_I] * 3 + [_P],
-    "vsl_lstm_recurrence_fwd_res": [_P] * 8 + [_I] * 3 + [_P],
+    "vsl_lstm_recurrence_fwd": [_P] * 4 + [_I] * 7 + [_P],
+    "vsl_lstm_recurrence_fwd_res": [_P] * 8 + [_I] * 7 + [_P],
     "vsl_lstm_recurrence_bwd": [_P] * 10 + [_I] * 4 + [_P],
     "vsl_conv_block_fwd": [_P] * 7 + _DROP + [_P] + [_I] * 5 + [_P],
     "vsl_conv_block_bwd": [_P] * 8 + _DROP + [_P] * 9 + [_I] * 6 + [_P],
@@ -353,9 +354,59 @@ def attention(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
 # --- 1. LSTM recurrence --------------------------------------------------------
 # Replaces vslnet_tpu/ops/pallas_kernels.py:_lstm_fwd_lean_kernel,
 # _lstm_fwd_kernel and _lstm_bwd_kernel (via fused_lstm_recurrence and its
-# VJP). Kernels: csrc/lstm.cu. Bound on the H100 by their chains of T
-# dependent steps on B SMs, not by bytes or FLOPs; one launch runs all T
-# steps with h and c (dh and dc) in shared memory.
+# VJP). Kernels: csrc/lstm.cu. The forwards run as thread-block clusters
+# (lstm_plan): each CTA keeps its slice of k_h in shared memory for all T
+# steps and sends its slice of the new h to every CTA of the cluster
+# through distributed shared memory, so a step is bound by its on-chip
+# dot product, gate math and exchange latency, not by L2. The backward
+# keeps one block per batch row: its chain of T steps on B SMs, re-reading
+# k_h^T from L2, bounds it.
+
+LSTM_CLUSTER = 8          # CTAs a cluster: the most every sm_90 part schedules
+LSTM_ROWS = (1, 2, 4, 8)  # batch rows a cluster the kernel is built for
+# the (unit, lane) threads a CTA aims at; 128 and 2 rows a cluster measured
+# fastest at the main path's shape (PERF.md, the LSTM plans)
+_LSTM_THREADS = 128
+
+
+class LSTMPlan(NamedTuple):
+    """One launch of the cluster-resident forward: clusters of `n` CTAs,
+    each owning `units` hidden units (the last CTA's range may be ragged)
+    of `bt` batch rows; `splits` neighbouring lanes of a warp share a unit,
+    each taking every splits-th float4 of H; `threads` a CTA, `smem` bytes
+    of dynamic shared memory; `clusters` = ceil(B / bt)."""
+    n: int
+    bt: int
+    units: int
+    splits: int
+    threads: int
+    smem: int
+    clusters: int
+
+
+def lstm_plan(B, H):
+    """The forward kernels' launch plan for B rows of hidden size H:
+    clusters of up to LSTM_CLUSTER CTAs, 2 rows a cluster (fewer for B = 1,
+    more where the clusters would not fit the card's SMs at one CTA each)
+    and about _LSTM_THREADS (unit, lane) threads a CTA. The lanes a unit
+    are a power of two from bt to 32. `smem` is the size of csrc/lstm.cu's
+    FwdLayout, which the launch computes itself: two mbarriers; k_h's 4U
+    columns, each H floats padded to an odd number of float4s; h [2, bt,
+    4 ceil(H/4)]."""
+    if not 1 <= H <= 256 or B < 1:
+        raise ValueError("lstm_plan: needs 1 <= H <= 256 and B >= 1, got "
+                         "B=%d, H=%d" % (B, H))
+    units = -(-H // min(LSTM_CLUSTER, H))
+    n = -(-H // units)  # no CTA without a unit
+    fits = [r for r in LSTM_ROWS[1:] if -(-B // r) * n <= N_SMS]
+    bt = min(1 << (B - 1).bit_length(), fits[0] if fits else LSTM_ROWS[-1])
+    hq = -(-H // 4)
+    lanes = max(1, _LSTM_THREADS // units)
+    splits = max(bt, min(32, 1 << (hq - 1).bit_length(),
+                         1 << (lanes.bit_length() - 1)))
+    threads = -(-units * splits // 32) * 32
+    smem = 16 + 4 * (16 * units * (hq | 1) + 8 * bt * hq)
+    return LSTMPlan(n, bt, units, splits, threads, smem, -(-B // bt))
 
 
 def lstm_recurrence_plain(x_proj, k_h, valid):
@@ -382,25 +433,28 @@ def lstm_recurrence_plain(x_proj, k_h, valid):
 
 
 def _lstm_shapes(name, x_proj, k_h, valid):
+    """(T, B, H, the plan's ints for csrc/lstm.cu): the forward's shapes
+    checked, then planned."""
     T, B, G = x_proj.shape
     H = G // 4
-    if G != 4 * H or not 1 <= H <= 256:
-        raise ValueError("%s: needs x_proj [T, B, 4H] with H <= 256 (4H "
-                         "threads a block), got %s" % (name, tuple(x_proj.shape)))
+    if G != 4 * H or not 1 <= H <= 256 or B < 1:
+        raise ValueError("%s: needs x_proj [T, B, 4H] with B >= 1 and H <= "
+                         "256, got %s" % (name, tuple(x_proj.shape)))
     _check(name, x_proj, (T, B, 4 * H))
     _check(name, k_h, (H, 4 * H))
     _check(name, valid, (T, B))
-    return T, B, H
+    plan = lstm_plan(B, H)
+    return T, B, H, (plan.n, plan.bt, plan.splits, plan.threads)
 
 
 def launch_lstm_fwd(x_proj, k_h, valid):
     """The lean forward kernel (no residuals): CUDA tensors only."""
     name = "lstm_recurrence_fwd"
+    T, B, H, plan = _lstm_shapes(name, x_proj, k_h, valid)
     _require_cuda(name, x_proj, k_h, valid)
-    T, B, H = _lstm_shapes(name, x_proj, k_h, valid)
     out = _empty(x_proj.device, T, B, H)
     _launch(name, x_proj.data_ptr(), k_h.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), T, B, H)
+            out.data_ptr(), T, B, H, *plan)
     return out
 
 
@@ -408,14 +462,14 @@ def launch_lstm_fwd_res(x_proj, k_h, valid):
     """The forward kernel with residuals: (out, acts [T, B, 4H], tanh(c~),
     c_prev, h_prev [T, B, H]). CUDA tensors only."""
     name = "lstm_recurrence_fwd_res"
+    T, B, H, plan = _lstm_shapes(name, x_proj, k_h, valid)
     _require_cuda(name, x_proj, k_h, valid)
-    T, B, H = _lstm_shapes(name, x_proj, k_h, valid)
     dev = x_proj.device
     out, th, c_prev, h_prev = (_empty(dev, T, B, H) for _ in range(4))
     acts = _empty(dev, T, B, 4 * H)
     _launch(name, x_proj.data_ptr(), k_h.data_ptr(), valid.data_ptr(),
             out.data_ptr(), acts.data_ptr(), th.data_ptr(), c_prev.data_ptr(),
-            h_prev.data_ptr(), T, B, H)
+            h_prev.data_ptr(), T, B, H, *plan)
     return out, acts, th, c_prev, h_prev
 
 
