@@ -175,7 +175,7 @@ def lstm_yardstick(x_proj, k_h):
 def plan_fields(plan):
     return {"n": plan.n, "bt": plan.bt, "ctas": plan.n * plan.clusters,
             "threads": plan.threads, "splits": plan.splits,
-            "smem_bytes": plan.smem}
+            "smem_bytes": plan.smem, "smem_bwd_bytes": plan.smem_bwd}
 
 
 def kernel_row(name, source, replaces, err, tol, ms, plain_ms, flops, nbytes,
@@ -407,16 +407,19 @@ def kernel_phase(dev, max_w):
            us_per_step=ms * 1e3 / T, plan=plan_fields(plan))
     check(ms < ms_lib_f, "lstm_recurrence_fwd_res: %g ms, not below cuDNN's "
           "training forward %g" % (ms, ms_lib_f))
+    ms = cuda_ms(lambda: K.launch_lstm_bwd(dy, *res[1:], valid, k_h), 20)
     record("lstm_recurrence_bwd", "vslnet_torch/csrc/lstm.cu",
-           "vslnet_tpu/ops/pallas_kernels.py:316", abs_err, TOL,
-           cuda_ms(lambda: K.launch_lstm_bwd(dy, *res[1:], valid, k_h), 20),
+           "vslnet_tpu/ops/pallas_kernels.py:316", abs_err, TOL, ms,
            cuda_ms(lambda: torch.autograd.grad(out_p, leaves, dy,
                                                retain_graph=True), 3),
            # dgates . k_h^T along the chain and dk_h = h_prev^T . dgates
            2 * 2 * steps * H * 4 * H,
            4 * (2 * T * B * 4 * H + 4 * T * B * H + T * B + 2 * H * 4 * H),
            library_ms=ms_lib_fb - ms_lib_f, checked_err=err,
-           library_fwd_bwd_ms=ms_lib_fb, shape=[T, B, 4 * H])
+           library_fwd_bwd_ms=ms_lib_fb, shape=[T, B, 4 * H],
+           us_per_step=ms * 1e3 / T, plan=plan_fields(plan))
+    check(ms < ms_lib_fb - ms_lib_f, "lstm_recurrence_bwd: %g ms, not below "
+          "cuDNN's backward %g" % (ms, ms_lib_fb - ms_lib_f))
 
     # 9. conv block backward, at T and at max_w, drop_rate 0.2
     def conv_pair(a, sd):
@@ -432,17 +435,29 @@ def kernel_phase(dev, max_w):
     check(finite and q_fin, "conv block: non-finite gradient")
     leaves = [a.clone().requires_grad_() for a in conv_args]
     out_p = K.conv_block_plain(*leaves, seeds=seeds, drop_rate=DROP)
+    ms = cuda_ms(lambda: K.launch_conv_block_bwd(*conv_args, seeds, DROP, g),
+                 20)
+    # the T-tiled backward at the same shape, from its forward's xs
+    _, xs = K.launch_conv_block_fwd_tiled(*conv_args, seeds, DROP)
+    tiled_ms = cuda_ms(lambda: K.launch_conv_block_bwd_tiled(
+        conv_args[0], xs, *conv_args[1:], seeds, DROP, g), 20)
+    gq = g[:, :max_w].contiguous()
     record("conv_block_bwd", "vslnet_torch/csrc/conv_block.cu",
-           "vslnet_tpu/ops/pallas_kernels.py:1039", max(abs_err, q_abs), TOL,
-           cuda_ms(lambda: K.launch_conv_block_bwd(*conv_args, seeds, DROP, g),
-                   20),
+           "vslnet_tpu/ops/pallas_kernels.py:1039", max(abs_err, q_abs), TOL, ms,
            cuda_ms(lambda: torch.autograd.grad(out_p, leaves, g,
                                                retain_graph=True), 20),
            # the forward replayed, then the data and weight products
            L * 6 * B * T * D * (D + KS),
            4 * (4 * B * T * D + 2 * L * (3 * D + KS * D + D * D) + B),
            checked_err=max(err, q_err), shape=[B, T, D], drop_rate=DROP,
-           query_T=max_w, query_checked_err=q_err)
+           query_T=max_w, query_checked_err=q_err,
+           plan=K.conv_plan(B, T, D, KS, L)._asdict(),
+           query_plan=K.conv_plan(B, max_w, D, KS, L)._asdict(),
+           tiled_ms=tiled_ms,
+           query_ms=cuda_ms(lambda: K.launch_conv_block_bwd(
+               *conv_q_args, seeds, DROP, gq), 20))
+    check(ms < tiled_ms, "conv_block_bwd: %g ms, not below the tiled "
+          "backward's %g" % (ms, tiled_ms))
 
     # 10. MHA block backward, at T and at max_w (one fully masked row)
     def mha_pair(a, sd):
@@ -971,7 +986,7 @@ def long_kernel_rows(dev):
     f_errs, b_errs, g_errs, zeros = [], [], [], []
     for path in ("M", "L"):
         B, T = (LONG_PATHS[path][k] for k in ("batch_size", "max_pos_len"))
-        check(K.conv_route(T, D) == "tiled", "conv route at T=%d" % T)
+        check(K.conv_route(T, D, KS, L) == "tiled", "conv route at T=%d" % T)
         args, seeds = conv_inputs(B, T), seeds_for(B)
         f_errs += [max_err(K.fused_conv_block(*args, *sd),
                            K.conv_block_plain(*args, *sd))

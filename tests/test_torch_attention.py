@@ -117,7 +117,7 @@ def test_mha_route(T, D, heads, route):
                                      (145, "block"), (146, "tiled"),
                                      (192, "tiled"), (1024, "tiled")])
 def test_conv_route(T, route):
-    assert kernels.conv_route(T, 128) == route
+    assert kernels.conv_route(T, 128, 7, 4) == route
 
 
 def test_routes_refuse_head_dims_no_kernel_takes():

@@ -3,6 +3,8 @@ versions on the card, at the served shapes and at small ragged ones. Skips
 without a CUDA device. Imports no JAX, so it also runs on a machine that
 has only PyTorch (there: `python -m pytest --noconftest
 tests/test_torch_cuda.py`, since tests/conftest.py sets up JAX)."""
+import faulthandler
+
 import numpy as np
 import pytest
 import torch
@@ -101,13 +103,21 @@ def _span_cases():
     return [(sl, el), (tied_s, tied_e)]
 
 
+# seconds a card test may take: the cluster kernels wait on mbarriers, and
+# one that nobody fills would hang the run; past this the process dumps its
+# stacks and exits
+CARD_TEST_TIMEOUT = 300
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
+    faulthandler.dump_traceback_later(CARD_TEST_TIMEOUT, exit=True)
+    yield torch.device("cuda")
+    faulthandler.cancel_dump_traceback_later()
 
 
 def _cuda_pair(fn, plain, args):
@@ -258,9 +268,17 @@ def test_cuda_lstm_grads_match_plain(cuda, T, B, H):
                  args, 2, ["x_proj", "k_h"], 1e-3)
 
 
+# The conv block backward's plan under stress: the main path (6 CTAs of 22
+# frames a row), the query stream (6 of 2), the longest whole-row T (7 of
+# 21), a ragged last CTA (5 CTAs of 3 frames, the last holding 1) at D = 16
+# with 33 rows and with 2, and T = 1 (one CTA).
+CONV_SHAPES = [(16, 128, 128), (16, 12, 128), (1, 145, 128), (33, 13, 16),
+               (4, 1, 128), (2, 13, 16)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("B,T,D", [(16, 128, 128), (16, 12, 128), (2, 13, 16)])
+@pytest.mark.parametrize("B,T,D", CONV_SHAPES)
 def test_cuda_conv_block_grads_match_plain(cuda, B, T, D, rate):
     rng = np.random.default_rng(13)
     args = [_t(a).to(cuda) for a in _conv_inputs(rng, B, T, D)]
@@ -291,6 +309,36 @@ def test_cuda_mha_block_grads_match_plain(cuda, B, T, D, heads, rate):
     _check_grads(run(kernels.fused_mha_block), run(kernels.mha_block_plain),
                  [x, *w], 7, ["x", "gam", "beta", "wqkv", "bqkv", "wd", "bd"],
                  1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["conv_block_bwd", "lstm_recurrence_bwd"])
+def test_cuda_backward_kernels_give_equal_bits_twice(cuda, kernel):
+    """No atomics, a fixed order of every sum: two equal calls of each
+    backward give equal bits, at the main path's shape."""
+    rng = np.random.default_rng(20)
+    if kernel == "conv_block_bwd":
+        B, T, D = 16, 128, 128
+        args = [_t(a).to(cuda) for a in _conv_inputs(rng, B, T, D)]
+        seeds = _t(_seeds(rng, B)).to(cuda)
+        g = _t(rng.standard_normal((B, T, D)).astype(np.float32)).to(cuda)
+
+        def run():
+            return kernels.launch_conv_block_bwd(*args, seeds, 0.2, g)
+    else:
+        T, B, H = 128, 16, 128
+        x_proj, k_h, valid = [_t(a).to(cuda) for a in _lstm_inputs(
+            rng, T, B, H, rng.integers(1, T + 1, B))]
+        res = kernels.launch_lstm_fwd_res(x_proj, k_h, valid)
+        dy = _t(rng.standard_normal((T, B, H)).astype(np.float32)).to(cuda)
+
+        def run():
+            return kernels.launch_lstm_bwd(dy, *res[1:], valid, k_h)
+    first = [t.clone() for t in run()]
+    second = run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -432,7 +480,8 @@ def test_cuda_conv_block_tiled_matches_plain(cuda, T, rate):
     kernels.reset_launches()
     with torch.no_grad():
         kernels.fused_conv_block(*args, seeds=seeds, drop_rate=rate)
-    tiled = kernels.conv_route(T, D) == "tiled"
+    L, K, _ = args[3].shape
+    tiled = kernels.conv_route(T, D, K, L) == "tiled"
     assert kernels.LAUNCHES["conv_block_fwd_tiled"] == int(tiled)
     assert kernels.LAUNCHES["conv_block_fwd"] == int(not tiled)
     if rate:  # one layer: out - x is 0 exactly where the mask or ReLU drops

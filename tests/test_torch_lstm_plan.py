@@ -22,6 +22,7 @@ def test_lstm_plan_fits_and_covers_every_cell_once(B):
     for H in range(1, 257):
         plan = kernels.lstm_plan(B, H)
         assert plan.smem <= kernels.MAX_SMEM_BYTES, (B, H, plan)
+        assert plan.smem_bwd <= kernels.MAX_SMEM_BYTES, (B, H, plan)
         assert 1 <= plan.n <= kernels.LSTM_CLUSTER, (B, H, plan)
         assert plan.bt in kernels.LSTM_ROWS
         # CTA r owns units [r U, (r + 1) U) cut to H: all of H, and no CTA

@@ -1,0 +1,63 @@
+"""What the card-only scripts of vslnet_torch/bench share: CUDA-event
+timing, time by kernel, the card's name and power limit, and building a
+changed copy of a kernel source into a library of its own."""
+import ctypes
+import subprocess
+
+from vslnet_torch.ops import kernels as K
+
+
+def cuda_ms(fn, reps=20, warmup=3):
+    """Device ms a call of fn: CUDA events around reps calls, after warmup
+    calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def by_kernel(fn, reps=10):
+    """{kernel name, cut to 60 characters: device ms a call of fn}, from
+    torch.profiler over reps calls after one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.device_time_total / 1e3 / reps
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def build_copy(name, src):
+    """src, a changed copy of a csrc/*.cu source, built with the package's
+    nvcc flags into vslnet_torch/_build/bench/lib<name>.so and loaded."""
+    out_dir = K.BUILD_DIR / "bench"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / ("%s.cu" % name)
+    path.write_text(src)
+    lib_path = out_dir / ("lib%s.so" % name)
+    subprocess.run([K._nvcc(), *[f for f in K.NVCC_FLAGS if f not in ("-Xptxas", "-v")],
+                    "-shared", "-I", str(K.CSRC), "-o", str(lib_path), str(path)],
+                   check=True)
+    return ctypes.CDLL(str(lib_path))

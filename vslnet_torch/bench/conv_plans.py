@@ -1,0 +1,217 @@
+#!/usr/bin/env python3
+"""The conv block backward's launch plans on the card (csrc/conv_block.cu,
+the cluster kernel): the time of each, how many of its clusters the card
+holds at once, the product's tile, where a call spends its time by kernel,
+and where the kernel spends its cycles.
+
+    python3 -m vslnet_torch.bench.conv_plans
+
+At [16, T, 128], drop_rate 0.2, for T = 128 (the main path), 145 (the
+longest whole-row T) and 12 (the query stream):
+- every plan of n CTAs a row (n <= 8, ceil(T / n) frames each) whose
+  shared memory fits, through the kernel library: CUDA events over 20
+  calls after a warm-up (the call: the kernel, the batch sum of its
+  partials and the split-K dwp), dx's and dwp's largest difference from
+  conv_plan's plan, and cudaOccupancyMaxActiveClusters for its clusters;
+- at T = 128 and 12:
+  - conv_plan's plan with the product's tile changed (PRODUCT_TILES: rows
+    an item, unroll of the k loop), from copies of conv_block.cu built into
+    vslnet_torch/_build/bench/;
+  - `launch_conv_block_bwd` and the T-tiled `launch_conv_block_bwd_tiled`
+    at the same inputs, each call's device time by kernel (torch.profiler);
+  - the cycles a call from each block or cluster barrier of the kernel to
+    the next (thread 0 of CTA 0, summed over the layers), from a copy with
+    a clock stamp after each, keyed by the barrier's line in conv_block.cu.
+Prints one JSON line a row with the card's name and power limit. The
+shipped kernel carries no instrumentation.
+"""
+import ctypes
+import json
+import math
+import sys
+
+import numpy as np
+
+from vslnet_torch.bench.common import build_copy, by_kernel, card, cuda_ms
+from vslnet_torch.ops import kernels as K
+
+L, KS, D, B = 4, 7, 128, 16
+# (rows an item, k-loop unroll): conv_block.cu's own first
+PRODUCT_TILES = [(3, 4), (2, 1), (2, 4), (3, 1), (4, 1), (4, 4)]
+BARRIERS = ("cluster.sync();", "__syncthreads();")
+
+
+def renamed(src, tag):
+    """src with its entry points renamed vsl_ -> <tag>_."""
+    return src.replace('extern "C" int vsl_', 'extern "C" int %s_' % tag)
+
+
+def with_tile(src, rows, unroll):
+    """csrc/conv_block.cu with the product's tile set to (rows, unroll)."""
+    for name, old, new in zip(("kGemmRows", "kGemmUnroll"), PRODUCT_TILES[0], (rows, unroll)):
+        line = "constexpr int %s = %%d;" % name
+        if src.count(line % old) != 1:
+            raise RuntimeError("not found once in conv_block.cu: %r" % (line % old))
+        src = src.replace(line % old, line % new)
+    return src
+
+
+def instrumented(src):
+    """(csrc/conv_block.cu with a clock stamp after every barrier of the
+    cluster kernel and a helper that reports how many clusters fit, the
+    conv_block.cu line of each stamp's barrier)."""
+    lines = src.split("\n")
+    head = "conv_block_bwd_cluster_kernel(const float* __restrict__ x"
+    first = next(i for i, s in enumerate(lines) if s.startswith(head))
+    last = lines.index("}", first)
+    stamp = (" { if (threadIdx.x == 0 && blockIdx.x == 0) { long long now = "
+             "clock64(); g_prof[%d] += now - plast; plast = now; } }")
+    at = []
+    for i in range(first, last):
+        code = lines[i].split("//")[0]
+        if any(b in code for b in BARRIERS):
+            lines[i] = code.rstrip() + stamp % len(at)
+            at.append(i + 1)
+    body_open = next(i for i in range(first, last) if lines[i].endswith(") {"))
+    lines[body_open] += "\n  long long plast = clock64();"
+    src = "\n".join(lines).replace(
+        '#include "hash.cuh"\n', '#include "hash.cuh"\n'
+        "__device__ unsigned long long g_prof[64];\n", 1)
+    return src + r'''
+extern "C" int prof_read(unsigned long long* h) {
+  const int err = (int)cudaMemcpyFromSymbol(h, g_prof, sizeof(g_prof));
+  unsigned long long z[64] = {0};
+  return err ? err : (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));
+}
+extern "C" int prof_clusters(int N, int smem) {
+  cudaError_t e = cudaFuncSetAttribute(conv_block_bwd_cluster_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e) return -(int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = N;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(16 * N);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int c = -1;
+  e = cudaOccupancyMaxActiveClusters(&c, conv_block_bwd_cluster_kernel, &cfg);
+  return e ? -(int)e : c;
+}
+''', at
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("conv_plans: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = card()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    src = (K.CSRC / "conv_block.cu").read_text()
+    prof_src, stamped = instrumented(src)
+    prof_lib = build_copy("conv_prof", renamed(prof_src, "prof"))
+    prof_lib.prof_read.argtypes = [ctypes.c_void_p]
+    prof_lib.prof_read.restype = ctypes.c_int
+    prof_lib.prof_clusters.argtypes = [ctypes.c_int, ctypes.c_int]
+    prof_lib.prof_clusters.restype = ctypes.c_int
+    fns = {"vsl": K._library().vsl_conv_block_bwd,
+           "prof": prof_lib.prof_conv_block_bwd}
+    for tile in PRODUCT_TILES[1:]:
+        tag = "tile%d%d" % tile
+        fns[tag] = getattr(build_copy(tag, renamed(with_tile(src, *tile), tag)),
+                           tag + "_conv_block_bwd")
+    for fn in fns.values():
+        fn.argtypes = K._SIGNATURES["vsl_conv_block_bwd"]
+        fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    for T in (128, 145, 12):
+        x, gam, beta, dw, wp, bp = args = [
+            t(rng.standard_normal((B, T, D))), t(1 + 0.1 * rng.standard_normal((L, D))),
+            t(0.1 * rng.standard_normal((L, D))),
+            t(rng.standard_normal((L, KS, D)) / math.sqrt(KS)),
+            t(rng.standard_normal((L, D, D)) / math.sqrt(D)),
+            t(0.1 * rng.standard_normal((L, D)))]
+        seeds = t(rng.integers(0, 1 << 23, (B, 1)))
+        g = t(rng.standard_normal((B, T, D)))
+        ref = K.launch_conv_block_bwd(*args, seeds, 0.2, g)
+        default = K.conv_plan(B, T, D, KS, L)
+        wpT = wp.transpose(1, 2).contiguous()
+        dx, dsmall, dwp = (torch.empty_like(x), torch.empty(L, 3 + KS, D, device=dev),
+                           torch.empty(L, D, D, device=dev))
+        d_ws, gp_ws = (torch.empty(L, B, T, D, device=dev) for _ in range(2))
+        splits = K._wgrad_splits(L, D, D, B * T)
+        ws = torch.empty(max(1, L * splits * D * D), device=dev)
+        thresh = K.drop_threshold(0.2)
+
+        def runner(fn, n, frames):
+            part = torch.empty(B * n, L, 3 + KS, D, device=dev)
+
+            def run():
+                code = fn(x.data_ptr(), gam.data_ptr(), beta.data_ptr(), dw.data_ptr(),
+                          wp.data_ptr(), wpT.data_ptr(), bp.data_ptr(), seeds.data_ptr(),
+                          thresh, 1.0 / 0.8, g.data_ptr(), dx.data_ptr(), dsmall.data_ptr(),
+                          dwp.data_ptr(), d_ws.data_ptr(), gp_ws.data_ptr(), part.data_ptr(),
+                          ws.data_ptr(), splits, B, T, D, L, KS, n, frames, stream)
+                if code:
+                    raise RuntimeError("conv_block_bwd launch failed: %d" % code)
+            return run
+
+        def err():
+            return max(float((dx - ref[0]).abs().max()), float((dwp - ref[4]).abs().max()))
+
+        def emit(**row):
+            print(json.dumps({"bench": "conv_plans", "card": smi, "shape": [B, T, D],
+                              **row}), flush=True)
+
+        for n in range(1, K.CONV_CLUSTER + 1):
+            frames = -(-T // n)
+            smem = K._conv_smem_bytes(frames, D, KS, L)
+            if -(-T // frames) != n or smem > K.MAX_SMEM_BYTES:
+                continue
+            ms = cuda_ms(runner(fns["vsl"], n, frames))
+            emit(n=n, frames=frames, ctas=B * n, smem=smem, default=n == default.n,
+                 ms=ms, max_abs_diff_from_default=err(),
+                 max_active_clusters=prof_lib.prof_clusters(n, smem))
+        if T == 145:
+            continue
+        for tile in PRODUCT_TILES:
+            tag = "vsl" if tile == PRODUCT_TILES[0] else "tile%d%d" % tile
+            ms = cuda_ms(runner(fns[tag], default.n, default.frames))
+            emit(n=default.n, product_rows=tile[0], product_unroll=tile[1], ms=ms,
+                 max_abs_diff_from_default=err())
+        _, xs = K.launch_conv_block_fwd_tiled(*args, seeds, 0.2)
+        emit(n=default.n, by_kernel=by_kernel(
+                 lambda: K.launch_conv_block_bwd(*args, seeds, 0.2, g)),
+             tiled_by_kernel=by_kernel(lambda: K.launch_conv_block_bwd_tiled(
+                 x, xs, *args[1:], seeds, 0.2, g)))
+        run = runner(fns["prof"], default.n, default.frames)
+        run()
+        torch.cuda.synchronize()
+        stamps = (ctypes.c_ulonglong * 64)()
+        prof_lib.prof_read(stamps)
+        reps = 5
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        prof_lib.prof_read(stamps)
+        cycles = {"conv_block.cu:%d" % line: stamps[k] / reps
+                  for k, line in enumerate(stamped)}
+        emit(n=default.n, cycles_to_each_barrier=cycles,
+             cycles_total=sum(cycles.values()))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

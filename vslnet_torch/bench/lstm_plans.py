@@ -26,12 +26,12 @@ kernel carries no instrumentation.
 import ctypes
 import json
 import math
-import subprocess
 import sys
 import time
 
 import numpy as np
 
+from vslnet_torch.bench.common import build_copy, card, cuda_ms
 from vslnet_torch.ops import kernels as K
 
 PHASES = ["wait", "dot", "butterfly+gates", "sends", "stores"]
@@ -48,7 +48,8 @@ def stamp(k, indent):
 
 def instrumented(src):
     """csrc/lstm.cu with clock stamps before lines of its forward kernel's
-    step loop, and its entry points renamed vsl_ -> prof_."""
+    step loop (anchors long enough to miss the backward's like lines), and
+    its entry points renamed vsl_ -> prof_."""
     def insert(anchor, text, after=False):
         nonlocal src
         if src.count(anchor) != 1:
@@ -57,12 +58,14 @@ def instrumented(src):
 
     insert('#include "common.cuh"\n', "__device__ unsigned long long g_prof[8];\n",
            after=True)
-    insert("  uint32_t phase = 0;", "  unsigned long long pacc[5] = {0, 0, 0, 0, 0}, "
+    insert("  uint32_t phase = 0;  // bit p: the parity of full[p]'s next phase\n\n"
+           "  for (int t = 0;", "  unsigned long long pacc[5] = {0, 0, 0, 0, 0}, "
            "plast = 0, pt0 = 0, pt1 = 0;\n  if (tid == 0 && blockIdx.x == 0) {\n"
            "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pt0));\n"
            "    plast = clock64();\n  }\n")
     insert("    float nx[4] = {0.f, 0.f, 0.f, 0.f}, nv = 0.f;\n", stamp(0, "    "))
-    insert("    for (int off = S >> 1; off > 0; off >>= 1)\n", stamp(1, "    "))
+    insert("    for (int off = S >> 1; off > 0; off >>= 1)\n#pragma unroll\n"
+           "      for (int g = 0;", stamp(1, "    "))
     insert("      if (t + 1 < T) {", stamp(2, "      "))
     insert("      const size_t o = (size_t)t * B + row;\n", stamp(3, "      "))
     insert("#pragma unroll\n    for (int g = 0; g < 4; ++g) x[g] = nx[g];\n",
@@ -77,35 +80,12 @@ def instrumented(src):
 
 
 def build_instrumented():
-    out_dir = K.BUILD_DIR / "bench"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src = out_dir / "lstm_prof.cu"
-    src.write_text(instrumented((K.CSRC / "lstm.cu").read_text()))
-    lib_path = out_dir / "liblstm_prof.so"
-    subprocess.run([K._nvcc(), *[f for f in K.NVCC_FLAGS if f not in ("-Xptxas", "-v")],
-                    "-shared", "-I", str(K.CSRC), "-o", str(lib_path), str(src)],
-                   check=True)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = build_copy("lstm_prof", instrumented((K.CSRC / "lstm.cu").read_text()))
     lib.prof_lstm_recurrence_fwd.argtypes = K._SIGNATURES["vsl_lstm_recurrence_fwd"]
     lib.prof_lstm_recurrence_fwd.restype = ctypes.c_int
     lib.prof_read.argtypes = [ctypes.c_void_p]
     lib.prof_read.restype = ctypes.c_int
     return lib
-
-
-def cuda_ms(fn, reps=20):
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main():
@@ -116,9 +96,7 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     prof = build_instrumented()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    smi = card()
     rng = np.random.default_rng(0)
     B, H = 16, 128
     dev = torch.device("cuda")

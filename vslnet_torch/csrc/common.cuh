@@ -4,6 +4,11 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <map>
+#include <mutex>
+#include <set>
+#include <tuple>
+#include <utility>
 #include <cfloat>
 #include <cmath>
 #include <cstddef>
@@ -220,8 +225,8 @@ constexpr int kWgDepth = 16;
 __global__ void __launch_bounds__(256)
 wgrad_partial_kernel(const float* __restrict__ A, const float* __restrict__ B,
                      float* __restrict__ P, int M, int N, int K, int S, int chunk) {
-  __shared__ float As[kWgDepth][kWgTile];
-  __shared__ float Bs[kWgDepth][kWgTile];
+  __shared__ __align__(16) float As[kWgDepth][kWgTile];
+  __shared__ __align__(16) float Bs[kWgDepth][kWgTile];
   const int z = blockIdx.z / S, s = blockIdx.z - z * S;
   const int m0 = blockIdx.y * kWgTile, n0 = blockIdx.x * kWgTile;
   const float* Az = A + (size_t)z * K * M;
@@ -233,21 +238,34 @@ wgrad_partial_kernel(const float* __restrict__ A, const float* __restrict__ B,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = k_begin; k0 < k_end; k0 += kWgDepth) {
-    for (int i = threadIdx.x; i < kWgDepth * kWgTile; i += blockDim.x) {
-      const int kk = i / kWgTile, c = i - kk * kWgTile;
+  // this thread's elements of the next depth slice, loaded while the block
+  // multiplies the current one
+  constexpr int kLoads = kWgDepth * kWgTile / 256;
+  float ra[kLoads], rb[kLoads];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int i = threadIdx.x + q * 256, kk = i / kWgTile, c = i - kk * kWgTile;
       const int k = k0 + kk;
-      As[kk][c] = (k < k_end && m0 + c < M) ? Az[(size_t)k * M + m0 + c] : 0.f;
-      Bs[kk][c] = (k < k_end && n0 + c < N) ? Bz[(size_t)k * N + n0 + c] : 0.f;
+      ra[q] = (k < k_end && m0 + c < M) ? Az[(size_t)k * M + m0 + c] : 0.f;
+      rb[q] = (k < k_end && n0 + c < N) ? Bz[(size_t)k * N + n0 + c] : 0.f;
+    }
+  };
+  fetch(k_begin);
+  for (int k0 = k_begin; k0 < k_end; k0 += kWgDepth) {
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int i = threadIdx.x + q * 256, kk = i / kWgTile, c = i - kk * kWgTile;
+      As[kk][c] = ra[q];
+      Bs[kk][c] = rb[q];
     }
     __syncthreads();
+    if (k0 + kWgDepth < k_end) fetch(k0 + kWgDepth);
 #pragma unroll
     for (int kk = 0; kk < kWgDepth; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
+      const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w}, b[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -301,6 +319,59 @@ cudaError_t wgrad(const float* A, const float* B, float* C, float* P, int Z, int
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return err;
   return sum_partials(P, C, Z, S, M * N, stream);
+}
+
+// --- launches of thread-block clusters ---------------------------------------
+// The set-up a configuration needs once per device, so that later calls go
+// straight to the launch: the opt-in to its dynamic shared memory (raised,
+// never lowered, as another shape may need more of the same kernel) and
+// the check that the card can schedule one of its clusters.
+inline cudaError_t ready_to_launch(const void* fn, const cudaLaunchConfig_t& cfg, int N) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, size_t> opt_in;
+  static std::set<std::tuple<const void*, int, int, unsigned, size_t>> ready;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_tuple(fn, dev, N, cfg.blockDim.x, cfg.dynamicSmemBytes);
+  std::lock_guard<std::mutex> lock(mu);
+  if (ready.count(key)) return cudaSuccess;
+  size_t& bytes = opt_in[{fn, dev}];
+  if (cfg.dynamicSmemBytes > bytes) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(cfg.dynamicSmemBytes));
+    if (err != cudaSuccess) return err;
+    bytes = cfg.dynamicSmemBytes;
+  }
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;  // the plan cannot be scheduled
+  ready.insert(key);
+  return cudaSuccess;
+}
+
+// kernel<<<ctas, threads, smem, stream>>>(args...) in clusters of N CTAs
+// along x (ctas a multiple of N).
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), int ctas, int N, int threads, size_t smem,
+                           cudaStream_t stream, Args... args) {
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = N;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = ready_to_launch(fn, cfg, N);
+  if (err != cudaSuccess) return err;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 }  // namespace

@@ -16,30 +16,54 @@
 // T = D = 128), so nothing goes back to device memory between layers.
 // Ragged T (the query stream's max_w) is masked in every stage.
 //
-// Backward: the TPU kernel keeps every layer's residuals (x_in, n, xh, inv,
-// d, p) of a row in VMEM; a Hopper block has room for three [T, D] tiles.
-// So one block per row first replays the forward and writes each layer's
-// input to a workspace xs [L, B, T, D] (4 MB at the served shapes,
-// L2-resident), then walks the layers backwards, recomputing LN, the
-// depthwise output and the pre-ReLU from xs, with the dropout masks
-// regenerated from the same seeds. It writes dx, per-row partials of dgam,
-// dbeta, dbp and ddw, and each layer's depthwise output d and pointwise
-// gradient g_p to workspaces; dwp = sum over rows of d^T . g_p is then a
-// deterministic split-K product (common.cuh wgrad), and the per-row
-// partials are summed over the batch in a fixed order.
+// Backward: a thread-block cluster of N CTAs per batch row (plan:
+// ops/kernels.py conv_plan; 6 CTAs of 22 frames at T = 128, so the card
+// holds the 16 rows' clusters at once), CTA r owning the frames
+// [r*F, min(T, (r+1)*F)). The TPU kernel keeps every layer's residuals of a
+// row in VMEM; here each CTA keeps, for its own frames and for all L
+// layers, the layer input x_l, the normalised n_l and a bit each of the
+// ReLU's mask (p > 0) and the dropout's keep in shared memory:
+//   1. replay: for each layer, n_l = LN(x_l) over the own frames, one
+//      cluster barrier, the depthwise output d over the own frames (the
+//      halo of the depthwise reach read from the neighbours' n_l through
+//      distributed shared memory; d also to the [L, B, T, D] workspace for
+//      dwp), the pointwise product, the masks, x_(l+1);
+//   2. backward, layers in reverse, G the running gradient: g_p = mask *
+//      drop(G) (also to a workspace for dwp); dbp; g_d = g_p . wp^T into a
+//      buffer double-buffered by layer parity; one cluster barrier; g_n =
+//      the depthwise transpose of g_d (its halo from the neighbours); the
+//      column sums ddw, dgam, dbeta; the LN backward, G += dx_ln.
+// That is one cluster barrier a layer each way and one before exit: the
+// n_l stay in place, and the g_d buffer a layer writes was last read two
+// layers before, behind a barrier every CTA has passed since (g_n goes
+// into the other parity's buffer for the same reason). Each layer's wp (or
+// wp^T) goes into shared memory by cp.async once a phase, behind the LN
+// and the depthwise product; the pointwise products are register-tiled
+// (smem_gemm, operands from shared memory). dwp = sum over rows of
+// d^T . g_p is the deterministic split-K product (common.cuh wgrad); dgam,
+// dbeta, dbp and ddw are per-CTA column sums in frame order, summed over
+// the CTAs in a fixed order. No atomics.
 //
-// What bounds them: the pointwise products, 2*T*D*D FLOPs a layer (three
-// such products a layer in the backward, plus the replay), on the B SMs
-// that hold a row (16 of 132 at B=16); bytes are a read of x (and g) and a
-// write of the output (dx), the workspaces staying in L2. The products read
-// A as broadcast float4s from shared memory and reuse each weight for 16
-// rows.
+// What bounds them: the pointwise products, 2*T*D*D FLOPs a layer (the
+// replay's and g_d's a layer in the backward, plus dwp's). The forward runs
+// them on the B SMs that hold a row (16 of 132 at B=16), reading A as
+// broadcast float4s from shared memory and reusing each weight for 16
+// rows. The backward runs them on B*N CTAs (96 at the main path's shape),
+// where shared-memory bandwidth of the products, the LN and depthwise
+// passes and the cluster barriers split the time (PERF.md has the phases;
+// vslnet_torch/bench/conv_plans.py measures them).
 //
 // These whole-row kernels take T up to 145 at D = 128 (the backward's
 // shared memory); the T-tiled kernels further down take any T, one layer
 // a launch (ops/kernels.py conv_route picks between them).
+#include <cooperative_groups.h>
+
+#include <cstdint>
+
 #include "common.cuh"
 #include "hash.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -108,103 +132,306 @@ conv_block_fwd_kernel(const float* __restrict__ x, ConvParams p, vsl::Dropout dr
   for (int i = threadIdx.x; i < TD; i += blockDim.x) out[row + i] = X[i];
 }
 
-// Per-row partials, [B, L, (3 + K) * D]: dgam, dbeta, dbp, then ddw [K, D].
-__global__ void __launch_bounds__(kThreads)
-conv_block_bwd_kernel(const float* __restrict__ x, ConvParams p, const float* __restrict__ wpT,
-                      vsl::Dropout drop, const float* __restrict__ g, float* __restrict__ dx,
-                      float* __restrict__ xs, float* __restrict__ d_ws, float* __restrict__ gp_ws,
-                      float* __restrict__ part) {
-  extern __shared__ float4 smem4[];
-  const int T = p.T, D = p.D, K = p.K, TD = T * D;
-  const int pad = (K - 1) / 2;
-  float* S0 = reinterpret_cast<float*>(smem4);  // X during the replay, then the gradient G
-  float* S1 = S0 + TD;                          // N / xh / g_p
-  float* S2 = S1 + TD;                          // Dw / g_d
-  float* inv = S2 + TD;                         // [T]
-  float* red = inv + T;                         // [kWarps, 2D]
-  const int b = blockIdx.x;
-  const size_t row = (size_t)b * TD;
-  const size_t layer = (size_t)gridDim.x * TD;  // stride of one layer in the workspaces
-  const size_t per_row = (size_t)p.L * (3 + K) * D;
-  const uint32_t seed = drop.seed(b);
+// --- the backward as a cluster per row ------------------------------------------
 
-  // 1. forward replay, saving each layer's input
-  for (int i = threadIdx.x; i < TD; i += blockDim.x) S0[i] = x[row + i];
-  __syncthreads();
-  for (int l = 0; l < p.L; ++l) {
-    for (int i = threadIdx.x; i < TD; i += blockDim.x) xs[l * layer + row + i] = S0[i];
-    layer_forward(S0, S1, S2, p, l, drop, seed);
+// The backward's shared memory for F frames a CTA and K taps (ops/kernels.py
+// conv_plan reports its size; the launch uses this one), in floats, with
+// H = F + K - 1 the rows of a window (the own frames and the halo of the
+// depthwise reach on either side):
+//   X   [L][F][D]  each layer's input
+//   NW  [L][H][D]  each layer's n_l: own frames at rows [pad, pad + F),
+//                  the halo copied from the neighbours, 0 outside [0, T)
+//   W   [D][D]     the layer's wp or wp^T
+//   G   [F][D]     the running gradient
+//   P   [F][D]     the depthwise output (replay), g_p, then xh
+//   GW  [2][H][D]  g_d by layer parity: own frames at rows [K-1-pad, ...);
+//                  the other parity's first F rows hold g_n
+//   DW  [K][D]     the layer's depthwise taps
+//   inv [F4]
+//   M   [L][F][D/4] bytes: for the columns 4 c4 + q of frame t, bit q of
+//                  byte (t, c4) is the ReLU's mask (p > 0), bit 4 + q the
+//                  dropout's keep
+struct BwdLayout {
+  size_t FD, HD, F4, MF;
+  __host__ __device__ BwdLayout(int F, int D, int L, int K)
+      : FD((size_t)F * D), HD((size_t)(F + K - 1) * D), F4(((size_t)F + 3) / 4 * 4),
+        MF(((size_t)L * F * (D / 4) + 15) / 16 * 4) {}
+  __host__ __device__ size_t floats(int D, int L, int K) const {
+    return L * FD + L * HD + (size_t)D * D + 2 * FD + 2 * HD + (size_t)K * D + F4 + MF;
+  }
+};
+
+// C[t, o] = sum_k A[t, k] * W[k, o] for t < rows and o < D, A [rows, D] and
+// W [D, D] in shared memory, handed to epi(t, o, float4 of columns o..o+3).
+// An item is kGemmRows rows x 4 columns; the lanes of a warp take
+// neighbouring column quads (conflict-free float4 loads of W, broadcast
+// loads of A), and each W float4 feeds kGemmRows rows. 3 rows, the k loop
+// unrolled 4 times: at the main path's 22 frames a CTA that is 256 items,
+// one a thread, and the fastest of the tiles vslnet_torch/bench/
+// conv_plans.py times at T = 128 and 12 (PERF.md).
+constexpr int kGemmRows = 3;
+constexpr int kGemmUnroll = 4;
+template <typename Epi>
+__device__ void smem_gemm(const float* A, int rows, int D, const float* W, Epi epi) {
+  constexpr int R = kGemmRows;
+  const int D4 = D / 4;
+  const int items = (rows + R - 1) / R * D4;
+  const float4* A4 = reinterpret_cast<const float4*>(A);
+  const float4* W4 = reinterpret_cast<const float4*>(W);
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int c4 = it % D4, t0 = it / D4 * R;
+    float4 acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    int ta[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) ta[r] = min(t0 + r, rows - 1) * D4;  // ragged edge: never stored
+#pragma unroll kGemmUnroll
+    for (int k4 = 0; k4 < D4; ++k4) {
+      const float4 w0 = W4[(4 * k4 + 0) * D4 + c4], w1 = W4[(4 * k4 + 1) * D4 + c4];
+      const float4 w2 = W4[(4 * k4 + 2) * D4 + c4], w3 = W4[(4 * k4 + 3) * D4 + c4];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 a = A4[ta[r] + k4];
+        acc[r].x = fmaf(a.x, w0.x, acc[r].x);
+        acc[r].y = fmaf(a.x, w0.y, acc[r].y);
+        acc[r].z = fmaf(a.x, w0.z, acc[r].z);
+        acc[r].w = fmaf(a.x, w0.w, acc[r].w);
+        acc[r].x = fmaf(a.y, w1.x, acc[r].x);
+        acc[r].y = fmaf(a.y, w1.y, acc[r].y);
+        acc[r].z = fmaf(a.y, w1.z, acc[r].z);
+        acc[r].w = fmaf(a.y, w1.w, acc[r].w);
+        acc[r].x = fmaf(a.z, w2.x, acc[r].x);
+        acc[r].y = fmaf(a.z, w2.y, acc[r].y);
+        acc[r].z = fmaf(a.z, w2.z, acc[r].z);
+        acc[r].w = fmaf(a.z, w2.w, acc[r].w);
+        acc[r].x = fmaf(a.w, w3.x, acc[r].x);
+        acc[r].y = fmaf(a.w, w3.y, acc[r].y);
+        acc[r].z = fmaf(a.w, w3.z, acc[r].z);
+        acc[r].w = fmaf(a.w, w3.w, acc[r].w);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (t0 + r < rows) epi(t0 + r, 4 * c4, acc[r]);
+  }
+}
+
+// W [D, D] <- src [D, D] (global, 16-byte aligned) by cp.async, left in
+// flight: wait_weights() before W is read.
+__device__ void load_weights(float* W, const float* __restrict__ src, int D) {
+  const uint32_t w = static_cast<uint32_t>(__cvta_generic_to_shared(W));
+  for (int i = threadIdx.x; i < D * D / 4; i += blockDim.x)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(w + 16u * i), "l"(src + 4 * i)
+                 : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_weights() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The halo rows of a window buf [F + K - 1][D] whose own frames [c0, c0 + nf)
+// sit at rows [lo, lo + nf): each row h outside them is frame c0 - lo + h,
+// read from the window of the CTA of the cluster that owns it (the same
+// offset there), or 0 outside [0, T). Float4s along D, so a remote row is
+// one coalesced read.
+__device__ void fill_halo(cg::cluster_group& cluster, float* buf, int lo, int c0, int nf, int F,
+                          int T, int D, int K) {
+  const int D4 = D / 4, H = F + K - 1;
+  float4* b4 = reinterpret_cast<float4*>(buf);
+  for (int i = threadIdx.x; i < H * D4; i += blockDim.x) {
+    const int h = i / D4, c4 = i - h * D4;
+    if (h >= lo && h < lo + nf) continue;  // own
+    const int t = c0 - lo + h;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t >= 0 && t < T) {
+      const int r = t / F;
+      const float4* src = reinterpret_cast<const float4*>(cluster.map_shared_rank(buf, r));
+      v = src[(size_t)(t - r * F + lo) * D4 + c4];
+    }
+    b4[i] = v;
+  }
+}
+
+// dst [K][D] <- a layer's depthwise taps src [K][D] (global, 16-byte
+// aligned) by cp.async, a group of their own: issued before the weights,
+// wait_taps() waits for them and leaves the weights in flight.
+__device__ void load_taps(float* dst, const float* __restrict__ src, int K, int D) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  for (int i = threadIdx.x; i < K * D / 4; i += blockDim.x)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d + 16u * i), "l"(src + 4 * i)
+                 : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_taps() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// out[t][c] = sum_j win[t + j][c] * taps[j][c] for the nf own frames: the
+// depthwise product over a window (taps in order, as the plain version
+// adds them) or its transpose (taps reversed).
+template <bool kReversed>
+__device__ void window_taps(const float* win, const float* taps, int nf, int D, int K, float* out) {
+  for (int i = threadIdx.x; i < nf * D; i += blockDim.x) {
+    const int t = i / D, c = i - t * D;
+    float acc = 0.f;
+#pragma unroll 7
+    for (int j = 0; j < K; ++j)
+      acc = fmaf(win[(size_t)(t + j) * D + c], taps[(size_t)(kReversed ? K - 1 - j : j) * D + c],
+                 acc);
+    out[i] = acc;
+  }
+}
+
+// Per-CTA partials part [B * N, L, 3 + K, D]: dgam, dbeta, dbp, then ddw [K, D].
+__global__ void __launch_bounds__(kThreads)
+conv_block_bwd_cluster_kernel(const float* __restrict__ x, ConvParams p,
+                              const float* __restrict__ wpT, vsl::Dropout drop,
+                              const float* __restrict__ g, float* __restrict__ dx,
+                              float* __restrict__ d_ws, float* __restrict__ gp_ws,
+                              float* __restrict__ part, int F) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int T = p.T, D = p.D, K = p.K, L = p.L, pad = (K - 1) / 2, gl = K - 1 - pad;
+  const int N = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = static_cast<int>(blockIdx.x) / N;
+  const int c0 = rank * F, nf = min(F, T - c0);  // the own frames [c0, c0 + nf)
+  const BwdLayout lay(F, D, L, K);
+  const size_t FD = lay.FD, HD = lay.HD;
+  float* X = reinterpret_cast<float*>(smem4);
+  float* NW = X + L * FD;
+  float* W = NW + L * HD;
+  float* G = W + (size_t)D * D;
+  float* P = G + FD;
+  float* GW = P + FD;
+  float* DW = GW + 2 * HD;
+  float* inv = DW + (size_t)K * D;
+  uint8_t* M = reinterpret_cast<uint8_t*>(inv + lay.F4);
+  const int D4 = D / 4, FD4 = F * D4;
+  const size_t row = (size_t)b * T * D, own = row + (size_t)c0 * D;
+  const size_t layer = (size_t)gridDim.x / N * T * D;  // stride of one layer in the workspaces
+  const uint32_t seed = drop.seed(b);
+  const int tid = threadIdx.x, nt = blockDim.x, nel = nf * D;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+
+  // 1. forward replay: each layer's input, n_l window and masks stay in
+  // place; d = depthwise(n_l) goes to d_ws for dwp
+  for (int i = tid; i < nel; i += nt) X[i] = x[own + i];
+  for (int l = 0; l < L; ++l) {
+    float* Xl = X + l * FD;
+    float* NWl = NW + l * HD;
+    uint8_t* Ml = M + l * FD4;
+    load_taps(DW, p.dw + (size_t)l * K * D, K, D);
+    load_weights(W, p.wp + (size_t)l * D * D, D);  // lands during the LN and depthwise
+    __syncthreads();  // x_l written
+    vsl::layer_norm_rows(Xl, NWl + (size_t)pad * D, p.gam + (size_t)l * D,
+                         p.beta + (size_t)l * D, nf, D);
+    cluster.sync();  // every CTA's n_l, before the halo reads
+    fill_halo(cluster, NWl, pad, c0, nf, F, T, D, K);
+    wait_taps();
+    __syncthreads();
+    window_taps<false>(NWl, DW, nf, D, K, P);  // P[t] = sum_j n(t + j - pad) dw[j]
+    for (int i = tid; i < nel; i += nt) d_ws[l * layer + own + i] = P[i];  // own writes: no barrier
+    wait_weights();
+    __syncthreads();
+    const float* bpl = p.bp + (size_t)l * D;
+    const uint32_t salt = vsl::site_salt(0x100u + l);
+    const bool next = l + 1 < L;
+    smem_gemm(P, nf, D, W, [&](int t, int o, float4 acc) {
+      const float a[4] = {acc.x, acc.y, acc.z, acc.w};
+      uint32_t bits = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const size_t i = (size_t)t * D + o + q;
+        const float pre = a[q] + __ldg(bpl + o + q);
+        const bool keep = drop.keep(seed, salt, c0 + t, o + q);
+        bits |= ((pre > 0.f ? 1u : 0u) | (keep ? 16u : 0u)) << q;
+        if (next) Xl[FD + i] = Xl[i] + (keep ? drop.kept(fmaxf(pre, 0.f)) : 0.f);
+      }
+      Ml[t * D4 + o / 4] = static_cast<uint8_t>(bits);
+    });
+    __syncthreads();
   }
 
   // 2. backward, layer by layer
-  for (int i = threadIdx.x; i < TD; i += blockDim.x) S0[i] = g[row + i];
-  for (int l = p.L - 1; l >= 0; --l) {
-    const float* xin = xs + l * layer + row;
+  for (int i = tid; i < nel; i += nt) G[i] = g[own + i];
+  for (int l = L - 1; l >= 0; --l) {
+    const float* Xl = X + l * FD;
+    const float* NWl = NW + l * HD;
+    const uint8_t* Ml = M + l * FD4;
+    float* GWl = GW + (l & 1) * HD;
+    // g_n's rows: the other parity's g_d (layer l + 1's), which every CTA
+    // has read before it arrived at this layer's cluster barrier
+    float* GN = GW + ((l + 1) & 1) * HD;
     const float* gam = p.gam + (size_t)l * D;
-    const float* beta = p.beta + (size_t)l * D;
-    const float* dwl = p.dw + (size_t)l * K * D;
-    const float* bpl = p.bp + (size_t)l * D;
-    float* pr = part + (size_t)b * per_row + (size_t)l * (3 + K) * D;
-    const uint32_t salt = vsl::site_salt(0x100u + l);
-    auto n_at = [&](int t, int c) { return S1[(size_t)t * D + c] * __ldg(gam + c) + __ldg(beta + c); };
-    for (int i = threadIdx.x; i < kWarps * 2 * D; i += blockDim.x) red[i] = 0.f;
-    vsl::ln_normalize_rows(xin, S1, inv, T, D);
+    float* pr = part + ((size_t)blockIdx.x * L + l) * (3 + K) * D;
+    load_taps(DW, p.dw + (size_t)l * K * D, K, D);  // both land behind the g_p pass
+    load_weights(W, wpT + (size_t)l * D * D, D);
+    __syncthreads();  // G written
+    for (int i = tid; i < nel; i += nt) {  // g_p = mask * drop(G)
+      const int t = i / D, c = i - t * D;
+      const uint32_t m = Ml[t * D4 + (c >> 2)] >> (c & 3);
+      const float gp = (m & 17u) == 17u ? drop.kept(G[i]) : 0.f;
+      P[i] = gp;
+      gp_ws[l * layer + own + i] = gp;
+    }
+    wait_weights();
     __syncthreads();
-    // d = depthwise(n), kept for ddw's partner g_d below and for dwp
-    depthwise(n_at, dwl, T, D, K, [&](int i, float v) {
-      S2[i] = v;
-      d_ws[l * layer + row + i] = v;
-    });
-    __syncthreads();
-    // g_p = [p > 0] * drop(g): the pre-ReLU p recomputed, the mask regenerated
-    vsl::gemm_rows<kRows>(S2, T, D, p.wp + (size_t)l * D * D, D, 0, D,
-                          [&](int t, int o, float acc) {
-                            const size_t i = (size_t)t * D + o;
-                            const float gp = acc + __ldg(bpl + o) > 0.f
-                                                 ? drop.apply(S0[i], seed, salt, t, o)
-                                                 : 0.f;
-                            S1[i] = gp;
-                            gp_ws[l * layer + row + i] = gp;
-                          });
-    __syncthreads();
-    // dbp: column sums of g_p; g_d = g_p . wp^T
-    for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    for (int c = tid; c < D; c += nt) {  // dbp
       float s = 0.f;
-      for (int t = 0; t < T; ++t) s += S1[(size_t)t * D + c];
+      for (int t = 0; t < nf; ++t) s += P[(size_t)t * D + c];
       pr[2 * D + c] = s;
     }
-    vsl::gemm_rows<kRows>(S1, T, D, wpT + (size_t)l * D * D, D, 0, D,
-                          [&](int t, int o, float acc) { S2[(size_t)t * D + o] = acc; });
+    smem_gemm(P, nf, D, W, [&](int t, int o, float4 acc) {  // g_d = g_p . wp^T
+      *reinterpret_cast<float4*>(GWl + (size_t)(gl + t) * D + o) = acc;
+    });
+    cluster.sync();  // every CTA's g_d, before the halo reads
+    fill_halo(cluster, GWl, gl, c0, nf, F, T, D, K);
+    vsl::ln_normalize_rows(Xl, P, inv, nf, D);  // xh into P (g_p is in gp_ws)
     __syncthreads();
-    vsl::ln_normalize_rows(xin, S1, inv, T, D);  // xh again (g_p is in gp_ws)
+    // g_n(t, c) = sum_j g_d(t + pad - j, c) * dw[j, c]
+    window_taps<true>(GWl, DW, nf, D, K, GN);
     __syncthreads();
-    // ddw[j, c] = sum_t n(t + j - pad, c) * g_d(t, c)
-    for (int i = threadIdx.x; i < K * D; i += blockDim.x) {
+    // column sums over the own frames, each in frame order: ddw[j, c] =
+    // sum_t n(t + j - pad, c) g_d(t, c); dgam = sum_t g_n xh; dbeta = sum_t g_n
+    for (int i = tid; i < (K + 2) * D; i += nt) {
       const int j = i / D, c = i - j * D;
       float s = 0.f;
-      for (int t = 0; t < T; ++t) {
-        const int tt = t + j - pad;
-        if (tt >= 0 && tt < T) s = fmaf(n_at(tt, c), S2[(size_t)t * D + c], s);
+      if (j < K) {
+#pragma unroll 4
+        for (int t = 0; t < nf; ++t)
+          s = fmaf(NWl[(size_t)(t + j) * D + c], GWl[(size_t)(gl + t) * D + c], s);
+        pr[3 * D + i] = s;
+      } else if (j == K) {
+#pragma unroll 4
+        for (int t = 0; t < nf; ++t) s = fmaf(GN[(size_t)t * D + c], P[(size_t)t * D + c], s);
+        pr[c] = s;
+      } else {
+#pragma unroll 4
+        for (int t = 0; t < nf; ++t) s += GN[(size_t)t * D + c];
+        pr[D + c] = s;
       }
-      pr[3 * D + i] = s;
     }
-    // g_n = depthwise backward of g_d (the reversed shifts); LN backward;
-    // G = g_o + dx_ln (residual and LN input paths)
-    auto g_n = [&](int t, int c) {
-      float s = 0.f;
-      for (int j = 0; j < K; ++j) {
-        const int tt = t + pad - j;
-        if (tt >= 0 && tt < T) s = fmaf(S2[(size_t)tt * D + c], __ldg(dwl + (size_t)j * D + c), s);
+    // the LN backward, one warp a frame: G += inv * (dxh - mean(dxh) -
+    // xh * mean(dxh * xh)), dxh = g_n * gam
+    for (int t = warp; t < nf; t += nwarps) {
+      const float* gn = GN + (size_t)t * D;
+      const float* xh = P + (size_t)t * D;
+      float s1 = 0.f, s2 = 0.f;
+      for (int c = lane; c < D; c += 32) {
+        const float dxh = gn[c] * __ldg(gam + c);
+        s1 += dxh;
+        s2 += dxh * xh[c];
       }
-      return s;
-    };
-    vsl::ln_backward_rows(S1, inv, gam, T, D, red, g_n,
-                          [&](int t, int c, float v) { S0[(size_t)t * D + c] += v; });
-    __syncthreads();
-    vsl::fold_rows(red, kWarps, 2 * D, pr);  // dgam, dbeta
-    __syncthreads();
+      const float m1 = vsl::warp_sum(s1) / D, m2 = vsl::warp_sum(s2) / D;
+      for (int c = lane; c < D; c += 32)
+        G[(size_t)t * D + c] += inv[t] * (gn[c] * __ldg(gam + c) - m1 - xh[c] * m2);
+    }
   }
-  for (int i = threadIdx.x; i < TD; i += blockDim.x) dx[row + i] = S0[i];
+  __syncthreads();
+  for (int i = tid; i < nel; i += nt) dx[own + i] = G[i];
+  cluster.sync();  // no CTA leaves while a neighbour may read its windows
 }
 
 ConvParams make_params(const float* gam, const float* beta, const float* dw, const float* wp,
@@ -406,27 +633,29 @@ extern "C" int vsl_conv_block_fwd(const float* x, const float* gam, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
-// dsmall [L, 3 + K, D]: dgam, dbeta, dbp, ddw; dwp [L, D, D]. Workspaces:
-// xs, d_ws, gp_ws [L, B, T, D]; part [B, L, 3 + K, D]; gemm_ws [L, splits,
-// D, D] (unused when splits == 1).
+// The backward on conv_plan's N CTAs a row, F frames a CTA (N = ceil(T /
+// F) <= 8). dsmall [L, 3 + K, D]: dgam, dbeta, dbp, ddw; dwp [L, D, D].
+// Workspaces: d_ws, gp_ws [L, B, T, D]; part [B * N, L, 3 + K, D];
+// gemm_ws [L, splits, D, D] (unused when splits == 1).
 extern "C" int vsl_conv_block_bwd(const float* x, const float* gam, const float* beta,
                                   const float* dw, const float* wp, const float* wpT,
                                   const float* bp, const float* seeds, unsigned thresh,
                                   float scale, const float* g, float* dx, float* dsmall,
-                                  float* dwp, float* xs, float* d_ws, float* gp_ws, float* part,
+                                  float* dwp, float* d_ws, float* gp_ws, float* part,
                                   float* gemm_ws, int splits, int B, int T, int D, int L, int K,
-                                  void* stream_) {
+                                  int N, int F, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int smem = (3 * T * D + T + kWarps * 2 * D) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(conv_block_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || N < 1 || N > 8 ||
+      N != (T + F - 1) / F)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = BwdLayout(F, D, L, K).floats(D, L, K) * sizeof(float);
+  cudaError_t err = vsl::launch_cluster(
+      conv_block_bwd_cluster_kernel, B * N, N, kThreads, smem, stream, x,
+      make_params(gam, beta, dw, wp, bp, T, D, L, K), wpT, vsl::Dropout{seeds, thresh, scale}, g,
+      dx, d_ws, gp_ws, part, F);
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_block_bwd_kernel<<<B, kThreads, smem, stream>>>(
-      x, make_params(gam, beta, dw, wp, bp, T, D, L, K), wpT, vsl::Dropout{seeds, thresh, scale},
-      g, dx, xs, d_ws, gp_ws, part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = vsl::sum_partials(part, dsmall, 1, B, L * (3 + K) * D, stream);
+  err = vsl::sum_partials(part, dsmall, 1, B * N, L * (3 + K) * D, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   // dwp[l] = d_l^T . g_p,l over the B*T rows of layer l
   return static_cast<int>(vsl::wgrad(d_ws, gp_ws, dwp, gemm_ws, L, D, D, B * T, splits, stream));

@@ -48,6 +48,8 @@ struct Dropout {
   __device__ bool keep(uint32_t seed, uint32_t salt_term, int i, int j) const {
     return !on() || counter_hash(i, j, seed, salt_term) >= thresh;
   }
+  // v as a kept element leaves the dropout: v * scale, or v when it is off
+  __device__ float kept(float v) const { return on() ? v * scale : v; }
   // inverted dropout of v at (i, j): v * scale where kept, 0 where dropped,
   // v itself when dropout is off
   __device__ float apply(float v, uint32_t seed, uint32_t salt_term, int i, int j) const {

@@ -55,19 +55,31 @@
 // one-block-per-row forward this replaces: 16 SMs each re-reading k_h's
 // 256 KB every step.
 //
-// Backward design: one launch for all T steps, one block per batch row, 4H
-// threads; dh and dc live in shared memory. H threads form dgates and the
-// new dc; then all 4H threads form dgates.k_h^T as four partial sums over
-// quarters of the gates, reading k_h^T [4H, H] (coalesced along H) from
-// L2; H threads add the four. Bound by its chain of T steps on B SMs.
+// Backward design: the mirror of the forward, on the same plan and
+// clusters, one launch for all T steps walked in reverse.
+// - CTA r owns the same units; before the first step it copies the k_h
+//   rows of its units (4H floats each, a gate's H padded to whole float4s,
+//   rows padded to an odd number of float4s) into shared memory and keeps
+//   them: dh_(t-1)[j] = sum_k dg_t[k] * k_h[j, k] reads no L2.
+// - The thread of (row, unit) keeps that cell's dh carried through padding
+//   and dc in registers. A step: the S lanes of a unit form its dot with
+//   the dgates of the step before (all 4H of each row, from every CTA) and
+//   sum it by the butterfly; lane b < Bt does row b's gate gradients; the
+//   group's lanes then share the 4*Bt values by shuffles, and each writes
+//   its share of dx_proj and sends it to every CTA of the cluster by
+//   st.async into the other buffer of a double buffer of dgates, whose
+//   mbarrier counts the bytes, exactly as the forward's h exchange (the
+//   same argument makes the buffers safe without a barrier).
+// - dy, acts, tanh(c~), c_prev and valid of the next step are loaded a
+//   step ahead with asm volatile loads.
+// - dk_h = h_prev^T . dgates is then the split-K product over [T*B, H].
+// What bounds it: the chain of T dependent steps (dot, butterfly, gate
+// gradients, exchange latency), not bytes or FLOPs; the one-block-per-row
+// backward this replaces re-read k_h^T's 256 KB from L2 every step on B
+// SMs.
 #include <cooperative_groups.h>
 
 #include <cstdint>
-#include <map>
-#include <mutex>
-#include <set>
-#include <tuple>
-#include <utility>
 
 #include "common.cuh"
 
@@ -87,6 +99,20 @@ struct FwdLayout {
   __host__ __device__ FwdLayout(int H, int N) : U((H + N - 1) / N), Hq((H + 3) / 4), KS4(Hq | 1) {}
   __host__ __device__ size_t smem_bytes(int Bt) const {
     return 16 + sizeof(float) * (16 * (size_t)U * KS4 + 8 * (size_t)Bt * Hq);
+  }
+};
+
+// The backward's (ops/kernels.py lstm_plan smem_bwd):
+//   full [2] mbarrier: the dgates of the step before have arrived, by parity
+//   khs  [U][KS4] float4: row u is k_h[r*U + u, :], each gate's H padded to
+//        Hq float4s, KS4 = 4*Hq | 1
+//   dgb  [2][Bt][4*Hq] float4: the dgates of the cluster's rows, same layout
+struct BwdLayout {
+  int U, Hq, KS4;
+  __host__ __device__ BwdLayout(int H, int N)
+      : U((H + N - 1) / N), Hq((H + 3) / 4), KS4((4 * ((H + 3) / 4)) | 1) {}
+  __host__ __device__ size_t smem_bytes(int Bt) const {
+    return 16 + 16 * ((size_t)U * KS4 + 8 * (size_t)Bt * Hq);
   }
 };
 
@@ -284,66 +310,144 @@ lstm_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ 
   }
 }
 
-__global__ void lstm_recurrence_bwd_kernel(const float* __restrict__ dy,
-                                           const float* __restrict__ acts,
-                                           const float* __restrict__ th,
-                                           const float* __restrict__ c_prev,
-                                           const float* __restrict__ valid,
-                                           const float* __restrict__ khT,
-                                           float* __restrict__ dxp, int T, int B, int H) {
-  extern __shared__ float smem[];
-  float* dh = smem;         // [H]
-  float* dc = dh + H;       // [H]
-  float* dg = dc + H;       // [4H] dgates of the current step
-  float* part = dg + 4 * H;  // [4H] quarter sums of dgates . k_h^T
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int G = 4 * H;
-  if (tid < H) {
-    dh[tid] = 0.f;
-    dc[tid] = 0.f;
+template <int kBt>
+__global__ void __launch_bounds__(512)
+lstm_bwd_cluster_kernel(const float* __restrict__ dy, const float* __restrict__ acts,
+                        const float* __restrict__ th, const float* __restrict__ c_prev,
+                        const float* __restrict__ valid, const float* __restrict__ kh,
+                        float* __restrict__ dxp, int T, int B, int H, int S) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int N = static_cast<int>(cluster.num_blocks());
+  const BwdLayout L(H, N);
+  const int U = L.U, Hq = L.Hq, Q = 4 * Hq, G = 4 * H;
+  const int u0 = static_cast<int>(cluster.block_rank()) * U;
+  const int row0 = static_cast<int>(blockIdx.x) / N * kBt;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem4);
+  float4* khs = smem4 + 1;
+  float4* dgb = khs + (size_t)U * L.KS4;
+  // a step's dgates arrive from every CTA: 4H floats for each valid row
+  const uint32_t dg_bytes = 4u * G * min(kBt, B - row0);
+
+  // k_h's rows of this CTA's units, once; global reads run along the gates
+  float* khf = reinterpret_cast<float*>(khs);
+  const int KS = 4 * L.KS4, Hp = 4 * Hq;
+  for (int i = tid; i < U * KS; i += nt) {
+    const int u = i / KS, k = i - u * KS;
+    const int g = k / Hp, kk = k - g * Hp;
+    const int j = u0 + u;
+    khf[i] = (g < 4 && kk < H && j < H) ? kh[(size_t)j * G + g * H + kk] : 0.f;
   }
-  __syncthreads();
-  float dh_pass = 0.f;
-  const int q = tid / H, jj = tid - q * H;
-  for (int t = T - 1; t >= 0; --t) {
-    if (tid < H) {
-      const int j = tid;
-      const size_t o = (size_t)t * B + b;
-      const float v = valid[o];
-      const float i = acts[o * G + j], g = acts[o * G + H + j];
-      const float f = acts[o * G + 2 * H + j], og = acts[o * G + 3 * H + j];
-      const float tc = th[o * H + j];
-      const float dh_t = v * (dy[o * H + j] + dh[j]);
-      dh_pass = (1.f - v) * dh[j];
-      const float dc_t = v * dc[j] + dh_t * og * (1.f - tc * tc);
-      const float dc_pass = (1.f - v) * dc[j];
-      const float d_o = dh_t * tc;
-      const float d_f = dc_t * c_prev[o * H + j];
-      const float d_i = dc_t * g;
-      const float d_g = dc_t * i;
-      const float gi = d_i * i * (1.f - i);
-      const float gg = d_g * (1.f - g * g);
-      const float gf = d_f * f * (1.f - f);
-      const float go = d_o * og * (1.f - og);
-      dg[j] = gi;
-      dg[H + j] = gg;
-      dg[2 * H + j] = gf;
-      dg[3 * H + j] = go;
-      dxp[o * G + j] = gi;
-      dxp[o * G + H + j] = gg;
-      dxp[o * G + 2 * H + j] = gf;
-      dxp[o * G + 3 * H + j] = go;
-      dc[j] = dc_pass + dc_t * f;
+  float* dgf = reinterpret_cast<float*>(dgb);
+  for (int i = tid; i < 2 * kBt * Q * 4; i += nt) dgf[i] = 0.f;
+  if (tid == 0) {
+    for (int p = 0; p < 2; ++p) {
+      mbar_init(smem_u32(full + p));
+      mbar_expect(smem_u32(full + p), dg_bytes);
     }
-    __syncthreads();
-    float acc = 0.f;
-    const float* kq = khT + (size_t)q * H * H + jj;
-#pragma unroll 8
-    for (int k = 0; k < H; ++k) acc = fmaf(dg[q * H + k], __ldg(kq + (size_t)k * H), acc);
-    part[tid] = acc;
-    __syncthreads();
-    if (tid < H) dh[tid] = dh_pass + ((part[tid] + part[H + tid]) + (part[2 * H + tid] + part[3 * H + tid]));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();  // every CTA's buffers and mbarriers are set before any remote store
+
+  // S neighbouring lanes of a warp share unit u0 + lu: lane ls takes the
+  // float4s q = ls, ls + S, ... of the unit's k_h row and every row's
+  // dgates, the lanes sum by a butterfly, lane ls < kBt does row ls's
+  // gate gradients, and the group's lanes share out the 4*kBt results.
+  const int lu = tid / S, ls = tid - lu * S;
+  const int unit = u0 + lu, row = row0 + ls;
+  const bool column = lu < U && unit < H;
+  const bool own = column && ls < kBt && row < B;
+  const int base = (threadIdx.x & 31) - ls;  // the group's first lane in the warp
+  float dc = 0.f, dh_pass = 0.f;
+  float in[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // dy, i, g, f, o, tc, c_prev, v
+  auto load = [&](int t, float* v) {
+    const size_t o = (size_t)t * B + row;
+    const float* src[8] = {dy + o * H + unit, acts + o * G + unit, acts + o * G + H + unit,
+                           acts + o * G + 2 * H + unit, acts + o * G + 3 * H + unit,
+                           th + o * H + unit, c_prev + o * H + unit, valid + o};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = ld_early(src[k]);
+  };
+  if (own && T > 0) load(T - 1, in);
+  const float4* wrow = khs + (size_t)lu * L.KS4;
+  uint32_t phase = 0;  // bit p: the parity of full[p]'s next phase
+
+  for (int s = 0; s < T; ++s) {
+    const int t = T - 1 - s, p = s & 1;
+    const float4* dgc4 = dgb + (size_t)p * kBt * Q;  // dgates of step t + 1
+    float4* dn4 = dgb + (size_t)(p ^ 1) * kBt * Q;
+    if (s > 0) {  // stored by every CTA at step t + 1
+      mbar_wait(smem_u32(full + p), (phase >> p) & 1u);
+      phase ^= 1u << p;
+      if (tid == 0) mbar_expect(smem_u32(full + p), dg_bytes);  // for step t - 1's
+    }
+    float nx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (own && t > 0) load(t - 1, nx);  // off the chain: the next step's inputs
+    float acc[kBt];
+#pragma unroll
+    for (int b = 0; b < kBt; ++b) acc[b] = 0.f;
+    if (column && s > 0) {
+#pragma unroll 4
+      for (int q = ls; q < Q; q += S) {
+        const float4 w = wrow[q];
+#pragma unroll
+        for (int b = 0; b < kBt; ++b) {
+          const float4 d = dgc4[b * Q + q];
+          acc[b] = fmaf(d.x, w.x, acc[b]);
+          acc[b] = fmaf(d.y, w.y, acc[b]);
+          acc[b] = fmaf(d.z, w.z, acc[b]);
+          acc[b] = fmaf(d.w, w.w, acc[b]);
+        }
+      }
+    }
+    for (int off = S >> 1; off > 0; off >>= 1)
+#pragma unroll
+      for (int b = 0; b < kBt; ++b) acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], off);
+    float dg[4] = {0.f, 0.f, 0.f, 0.f};
+    if (own) {
+      float a = acc[0];  // row ls's sum, without indexing registers at run time
+#pragma unroll
+      for (int b = 1; b < kBt; ++b) a = ls == b ? acc[b] : a;
+      const float v = in[7], ig = in[1], gg = in[2], f = in[3], og = in[4], tc = in[5];
+      const float dh = dh_pass + a;
+      const float dh_t = v * (in[0] + dh);
+      dh_pass = (1.f - v) * dh;
+      const float dc_t = v * dc + dh_t * og * (1.f - tc * tc);
+      const float dc_pass = (1.f - v) * dc;
+      const float d_o = dh_t * tc;
+      const float d_f = dc_t * in[6];
+      const float d_i = dc_t * gg;
+      const float d_g = dc_t * ig;
+      dg[0] = d_i * ig * (1.f - ig);
+      dg[1] = d_g * (1.f - gg * gg);
+      dg[2] = d_f * f * (1.f - f);
+      dg[3] = d_o * og * (1.f - og);
+      dc = dc_pass + dc_t * f;
+    }
+    // item i of the group's 4*kBt results is gate i & 3 of row i >> 2, held
+    // by lane i >> 2; lane ls writes and sends items ls, ls + S, ...
+    for (int m = 0; m * S < 4 * kBt; ++m) {
+      const int i = ls + m * S;
+      const int src = base + min(i >> 2, kBt - 1);
+      float val = 0.f;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float x = __shfl_sync(0xffffffffu, dg[g], src);
+        val = (i & 3) == g ? x : val;
+      }
+      const int rb = i >> 2, r = row0 + rb, g = i & 3;
+      if (column && i < 4 * kBt && r < B) {
+        dxp[((size_t)t * B + r) * G + g * H + unit] = val;
+        if (t > 0) {  // dg_t into every CTA of the cluster
+          const uint32_t dst = smem_u32(reinterpret_cast<float*>(dn4 + (size_t)rb * Q) + g * Hp + unit);
+          const uint32_t bar = smem_u32(full + (p ^ 1));
+          for (int c = 0; c < N; ++c) st_async(cluster_u32(dst, c), val, cluster_u32(bar, c));
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) in[k] = nx[k];
   }
 }
 
@@ -361,71 +465,14 @@ cudaError_t check_plan(int H, int N, int Bt, int S, int threads) {
   return cudaSuccess;
 }
 
-// The set-up a configuration needs once per device, so that later calls go
-// straight to the launch: the opt-in to its dynamic shared memory (raised,
-// never lowered, as another H may need more of the same kernel) and the
-// check that the card can schedule one of its clusters.
-cudaError_t ready_to_launch(const void* fn, const cudaLaunchConfig_t& cfg, int N) {
-  static std::mutex mu;
-  static std::map<std::pair<const void*, int>, size_t> opt_in;
-  static std::set<std::tuple<const void*, int, int, unsigned, size_t>> ready;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const auto key = std::make_tuple(fn, dev, N, cfg.blockDim.x, cfg.dynamicSmemBytes);
-  std::lock_guard<std::mutex> lock(mu);
-  if (ready.count(key)) return cudaSuccess;
-  size_t& bytes = opt_in[{fn, dev}];
-  if (cfg.dynamicSmemBytes > bytes) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(cfg.dynamicSmemBytes));
-    if (err != cudaSuccess) return err;
-    bytes = cfg.dynamicSmemBytes;
-  }
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
-  if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorInvalidConfiguration;  // the plan cannot be scheduled
-  ready.insert(key);
-  return cudaSuccess;
-}
-
-template <bool kResiduals, int kBt>
-cudaError_t launch_fwd(const float* xp, const float* kh, const float* valid, float* out,
-                       float* acts, float* th, float* c_prev, float* h_prev, int T, int B, int H,
-                       int N, int S, int threads, cudaStream_t stream) {
-  const void* fn = reinterpret_cast<const void*>(lstm_fwd_cluster_kernel<kResiduals, kBt>);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = N;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((B + kBt - 1) / kBt * N);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = FwdLayout(H, N).smem_bytes(kBt);
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = ready_to_launch(fn, cfg, N);
-  if (err != cudaSuccess) return err;
-  return cudaLaunchKernelEx(&cfg, lstm_fwd_cluster_kernel<kResiduals, kBt>, xp, kh, valid, out,
-                            acts, th, c_prev, h_prev, T, B, H, S);
-}
-
-template <bool kResiduals>
-int launch_fwd_plan(const float* xp, const float* kh, const float* valid, float* out, float* acts,
-                    float* th, float* c_prev, float* h_prev, int T, int B, int H, int N, int Bt,
-                    int S, int threads, void* stream) {
+// launch(std::integral_constant<int, Bt>) for the batch rows a cluster the
+// kernels are built for (lstm_plan LSTM_ROWS), after the plan's check.
+template <typename F>
+int by_rows(int B, int H, int N, int Bt, int S, int threads, F launch) {
   if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = check_plan(H, N, Bt, S, threads);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto launch = [&](auto rows) {
-    return launch_fwd<kResiduals, decltype(rows)::value>(xp, kh, valid, out, acts, th, c_prev,
-                                                         h_prev, T, B, H, N, S, threads,
-                                                         static_cast<cudaStream_t>(stream));
-  };
-  switch (Bt) {  // the batch rows a cluster the kernel is built for (lstm_plan LSTM_ROWS)
+  switch (Bt) {
     case 1: err = launch(std::integral_constant<int, 1>{}); break;
     case 2: err = launch(std::integral_constant<int, 2>{}); break;
     case 4: err = launch(std::integral_constant<int, 4>{}); break;
@@ -433,6 +480,19 @@ int launch_fwd_plan(const float* xp, const float* kh, const float* valid, float*
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <bool kResiduals>
+int launch_fwd_plan(const float* xp, const float* kh, const float* valid, float* out, float* acts,
+                    float* th, float* c_prev, float* h_prev, int T, int B, int H, int N, int Bt,
+                    int S, int threads, void* stream) {
+  return by_rows(B, H, N, Bt, S, threads, [&](auto rows) {
+    constexpr int kBt = decltype(rows)::value;
+    return vsl::launch_cluster(lstm_fwd_cluster_kernel<kResiduals, kBt>, (B + kBt - 1) / kBt * N,
+                               N, threads, FwdLayout(H, N).smem_bytes(kBt),
+                               static_cast<cudaStream_t>(stream), xp, kh, valid, out, acts, th,
+                               c_prev, h_prev, T, B, H, S);
+  });
 }
 
 }  // namespace
@@ -453,18 +513,20 @@ extern "C" int vsl_lstm_recurrence_fwd_res(const float* xp, const float* kh, con
                                threads, stream);
 }
 
-// dkh = sum over the T*B rows of h_prev^T . dxp; gemm_ws [splits, H, 4H]
-// (unused when splits == 1).
+// The reverse recurrence on the same plan, then dkh = sum over the T*B rows
+// of h_prev^T . dxp; gemm_ws [splits, H, 4H] (unused when splits == 1).
 extern "C" int vsl_lstm_recurrence_bwd(const float* dy, const float* acts, const float* th,
                                        const float* c_prev, const float* h_prev,
-                                       const float* valid, const float* khT, float* dxp,
+                                       const float* valid, const float* kh, float* dxp,
                                        float* dkh, float* gemm_ws, int splits, int T, int B,
-                                       int H, void* stream_) {
+                                       int H, int N, int Bt, int S, int threads, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const size_t smem = (size_t)10 * H * sizeof(float);
-  lstm_recurrence_bwd_kernel<<<B, 4 * H, smem, stream>>>(dy, acts, th, c_prev, valid, khT, dxp,
-                                                         T, B, H);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = by_rows(B, H, N, Bt, S, threads, [&](auto rows) {
+    constexpr int kBt = decltype(rows)::value;
+    return vsl::launch_cluster(lstm_bwd_cluster_kernel<kBt>, (B + kBt - 1) / kBt * N, N,
+                               threads, BwdLayout(H, N).smem_bytes(kBt), stream, dy, acts, th,
+                               c_prev, valid, kh, dxp, T, B, H, S);
+  });
+  if (err != 0) return err;
   return static_cast<int>(vsl::wgrad(h_prev, dxp, dkh, gemm_ws, 1, H, 4 * H, T * B, splits, stream));
 }

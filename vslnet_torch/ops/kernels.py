@@ -33,6 +33,7 @@ the TPU kernels are equal bit for bit, and a backward regenerates them
 from the per-row seeds.
 """
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -87,9 +88,9 @@ _DROP = [_U, _F]  # dropout threshold and scale, after the seeds pointer
 _SIGNATURES = {
     "vsl_lstm_recurrence_fwd": [_P] * 4 + [_I] * 7 + [_P],
     "vsl_lstm_recurrence_fwd_res": [_P] * 8 + [_I] * 7 + [_P],
-    "vsl_lstm_recurrence_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    "vsl_lstm_recurrence_bwd": [_P] * 10 + [_I] * 8 + [_P],
     "vsl_conv_block_fwd": [_P] * 7 + _DROP + [_P] + [_I] * 5 + [_P],
-    "vsl_conv_block_bwd": [_P] * 8 + _DROP + [_P] * 9 + [_I] * 6 + [_P],
+    "vsl_conv_block_bwd": [_P] * 8 + _DROP + [_P] * 8 + [_I] * 8 + [_P],
     "vsl_mha_block_fwd": [_P] * 9 + _DROP + [_P] * 3 + [_I] * 4 + [_P],
     "vsl_mha_block_bwd": [_P] * 7 + _DROP + [_P] * 15 + [_I] * 5 + [_P],
     "vsl_cqa_concat_fwd": [_P] * 8 + [_I] * 4 + [_P],
@@ -358,9 +359,9 @@ def attention(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
 # (lstm_plan): each CTA keeps its slice of k_h in shared memory for all T
 # steps and sends its slice of the new h to every CTA of the cluster
 # through distributed shared memory, so a step is bound by its on-chip
-# dot product, gate math and exchange latency, not by L2. The backward
-# keeps one block per batch row: its chain of T steps on B SMs, re-reading
-# k_h^T from L2, bounds it.
+# dot product, gate math and exchange latency, not by L2. The backward runs
+# on the same plan in reverse: each CTA keeps its units' k_h rows in shared
+# memory and sends its slice of each step's dgates to every CTA.
 
 LSTM_CLUSTER = 8          # CTAs a cluster: the most every sm_90 part schedules
 LSTM_ROWS = (1, 2, 4, 8)  # batch rows a cluster the kernel is built for
@@ -374,7 +375,8 @@ class LSTMPlan(NamedTuple):
     each owning `units` hidden units (the last CTA's range may be ragged)
     of `bt` batch rows; `splits` neighbouring lanes of a warp share a unit,
     each taking every splits-th float4 of H; `threads` a CTA, `smem` bytes
-    of dynamic shared memory; `clusters` = ceil(B / bt)."""
+    of the forward's dynamic shared memory, `smem_bwd` the backward's;
+    `clusters` = ceil(B / bt)."""
     n: int
     bt: int
     units: int
@@ -382,6 +384,7 @@ class LSTMPlan(NamedTuple):
     threads: int
     smem: int
     clusters: int
+    smem_bwd: int
 
 
 def lstm_plan(B, H):
@@ -392,7 +395,9 @@ def lstm_plan(B, H):
     are a power of two from bt to 32. `smem` is the size of csrc/lstm.cu's
     FwdLayout, which the launch computes itself: two mbarriers; k_h's 4U
     columns, each H floats padded to an odd number of float4s; h [2, bt,
-    4 ceil(H/4)]."""
+    4 ceil(H/4)]. `smem_bwd` is csrc/lstm.cu's BwdLayout: two mbarriers;
+    the 4H floats of k_h's U rows, each gate's H padded to whole float4s and
+    a row to an odd number of float4s; the dgates [2, bt, 4 ceil(H/4) * 4]."""
     if not 1 <= H <= 256 or B < 1:
         raise ValueError("lstm_plan: needs 1 <= H <= 256 and B >= 1, got "
                          "B=%d, H=%d" % (B, H))
@@ -406,7 +411,8 @@ def lstm_plan(B, H):
                          1 << (lanes.bit_length() - 1)))
     threads = -(-units * splits // 32) * 32
     smem = 16 + 4 * (16 * units * (hq | 1) + 8 * bt * hq)
-    return LSTMPlan(n, bt, units, splits, threads, smem, -(-B // bt))
+    smem_bwd = 16 + 16 * (units * (4 * hq | 1) + 8 * bt * hq)
+    return LSTMPlan(n, bt, units, splits, threads, smem, -(-B // bt), smem_bwd)
 
 
 def lstm_recurrence_plain(x_proj, k_h, valid):
@@ -483,16 +489,19 @@ def launch_lstm_bwd(dy, acts, th, c_prev, h_prev, valid, k_h):
                      (c_prev, (T, B, H)), (h_prev, (T, B, H)), (valid, (T, B)),
                      (k_h, (H, 4 * H))):
         _check(name, t, shape)
+    if not 1 <= H <= 256 or B < 1:
+        raise ValueError("%s: needs dy [T, B, H] with B >= 1 and H <= 256, "
+                         "got %s" % (name, tuple(dy.shape)))
+    plan = lstm_plan(B, H)
     dev = dy.device
-    khT = k_h.t().contiguous()
     dxp = _empty(dev, T, B, 4 * H)
     dkh = _empty(dev, H, 4 * H)
     splits = _wgrad_splits(1, H, 4 * H, T * B)
     ws = _empty(dev, splits * H * 4 * H if splits > 1 else 1)
     _launch(name, dy.data_ptr(), acts.data_ptr(), th.data_ptr(),
             c_prev.data_ptr(), h_prev.data_ptr(), valid.data_ptr(),
-            khT.data_ptr(), dxp.data_ptr(), dkh.data_ptr(), ws.data_ptr(),
-            splits, T, B, H)
+            k_h.data_ptr(), dxp.data_ptr(), dkh.data_ptr(), ws.data_ptr(),
+            splits, T, B, H, plan.n, plan.bt, plan.splits, plan.threads)
     return dxp, dkh
 
 
@@ -528,9 +537,13 @@ def fused_lstm_recurrence(x_proj, k_h, valid):
 # --- 2. conv block -------------------------------------------------------------
 # Replaces vslnet_tpu/ops/pallas_kernels.py:_make_conv_block_fwd_kernel and
 # _make_conv_block_bwd_kernel (via fused_conv_block). Kernels:
-# csrc/conv_block.cu. Bound by the pointwise products on the B SMs that
-# hold a row; all L layers run in one launch with the row's activations in
-# shared memory, and the backward replays the forward from the block input.
+# csrc/conv_block.cu. All L layers run in one launch with a row's
+# activations in shared memory. The forward takes one block a row, bound by
+# the pointwise products on the B SMs that hold one; the backward a cluster
+# of conv_plan's CTAs a row, each replaying the forward over its own frames
+# (the depthwise halo through distributed shared memory) and keeping every
+# layer's input, LayerNorm output and ReLU and dropout masks for the walk
+# back.
 
 
 def conv_block_plain(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
@@ -548,8 +561,63 @@ def conv_block_smem_bytes(T, D):
     return 3 * T * D * 4
 
 
-def conv_block_bwd_smem_bytes(T, D):
-    return (3 * T * D + T + 16 * D) * 4
+CONV_CLUSTER = 8  # the most CTAs a row: the most every sm_90 part schedules
+# CTAs a row where they fit: the H100 holds 17 clusters of 6 CTAs of ~225 KB
+# of shared memory at once, so B = 16 rows run in one wave; clusters of 7 or
+# 8 such CTAs fit 15 times (vslnet_torch/bench/conv_plans.py measures it)
+CONV_ROW_CTAS = 6
+
+
+def _conv_smem_bytes(frames, D, K, L):
+    """csrc/conv_block.cu BwdLayout's bytes for `frames` frames a CTA."""
+    fd, hd = frames * D, (frames + K - 1) * D
+    floats = (L * fd + L * hd + D * D + 2 * fd + 2 * hd + K * D
+              + -(-frames // 4) * 4 + -(-L * frames * (D // 4) // 16) * 4)
+    return 4 * floats
+
+
+@functools.lru_cache(maxsize=256)
+def _conv_plan_sizes(T, D, K, L):
+    """(n, frames, shared-memory bytes) of conv_plan: CONV_ROW_CTAS CTAs a
+    row, or more, up to CONV_CLUSTER, where their frames do not fit."""
+    for n in range(min(T, CONV_ROW_CTAS), min(T, CONV_CLUSTER) + 1):
+        frames = -(-T // n)
+        smem = _conv_smem_bytes(frames, D, K, L)
+        if smem <= MAX_SMEM_BYTES:
+            break
+    return -(-T // frames), frames, smem  # no empty CTA
+
+
+class ConvPlan(NamedTuple):
+    """One launch of the conv block backward: clusters of `n` CTAs a batch
+    row, CTA r owning the frames [r * frames, min(T, (r + 1) * frames));
+    `smem` bytes of dynamic shared memory a CTA, `ctas` = B * n."""
+    n: int
+    frames: int
+    smem: int
+    ctas: int
+
+
+def conv_plan(B, T, D, K, L):
+    """The backward kernel's launch plan for B rows of [T, D] and a
+    depthwise kernel of K taps over L layers: ceil(T / CONV_ROW_CTAS) frames
+    a CTA (fewer CTAs where T is short, none of them empty), or more CTAs
+    where those frames do not fit a block's shared memory. `smem` is
+    csrc/conv_block.cu's BwdLayout: for each layer the input, the ReLU and
+    dropout masks (a bit each) of the own frames and the LayerNorm output
+    over the own frames and the halo of the depthwise reach (frames + K - 1
+    rows); one layer's [D, D] weights and K taps; the running gradient, a
+    product operand, and g_d over frames + K - 1 rows twice; the inverse
+    deviations. Raises on what the kernel cannot take."""
+    if B < 1 or T < 1 or K < 1 or L < 1 or D < 4 or D % 4:
+        raise ValueError("conv_plan: needs B, T, K, L >= 1 and D %% 4 == 0, "
+                         "got B=%d, T=%d, D=%d, K=%d, L=%d" % (B, T, D, K, L))
+    n, frames, smem = _conv_plan_sizes(T, D, K, L)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError("conv_plan: T=%d, D=%d needs %d bytes of shared "
+                         "memory a CTA, above the %d a block has"
+                         % (T, D, smem, MAX_SMEM_BYTES))
+    return ConvPlan(n, frames, smem, B * n)
 
 
 def _conv_shapes(name, x, gam, beta, dw, wp, bp, smem):
@@ -588,24 +656,26 @@ def launch_conv_block_bwd(x, gam, beta, dw, wp, bp, seeds, drop_rate, g):
     gradients summed over the batch. CUDA tensors only."""
     name = "conv_block_bwd"
     _require_cuda(name, x, gam, beta, dw, wp, bp, g)
-    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp,
-                                 conv_block_bwd_smem_bytes(*x.shape[1:]))
+    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0)
+    plan = conv_plan(B, T, D, K, L)
     _check(name, g, (B, T, D))
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     dev = x.device
+    # the kernel copies each layer's taps and weights by 16-byte cp.async
+    dw, wp = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (dw, wp))
     wpT = wp.transpose(1, 2).contiguous()
     dx = torch.empty_like(x)
     dsmall = _empty(dev, L, 3 + K, D)
     dwp = _empty(dev, L, D, D)
-    xs, d_ws, gp_ws = (_empty(dev, L, B, T, D) for _ in range(3))
-    part = _empty(dev, B, L, 3 + K, D)
+    d_ws, gp_ws = (_empty(dev, L, B, T, D) for _ in range(2))
+    part = _empty(dev, plan.ctas, L, 3 + K, D)
     splits = _wgrad_splits(L, D, D, B * T)
     ws = _empty(dev, L * splits * D * D if splits > 1 else 1)
     _launch(name, x.data_ptr(), gam.data_ptr(), beta.data_ptr(), dw.data_ptr(),
             wp.data_ptr(), wpT.data_ptr(), bp.data_ptr(), sp, thresh, scale,
             g.data_ptr(), dx.data_ptr(), dsmall.data_ptr(), dwp.data_ptr(),
-            xs.data_ptr(), d_ws.data_ptr(), gp_ws.data_ptr(), part.data_ptr(),
-            ws.data_ptr(), splits, B, T, D, L, K)
+            d_ws.data_ptr(), gp_ws.data_ptr(), part.data_ptr(), ws.data_ptr(),
+            splits, B, T, D, L, K, plan.n, plan.frames)
     return dx, dsmall[:, 0], dsmall[:, 1], dsmall[:, 3:], dwp, dsmall[:, 2]
 
 
@@ -635,7 +705,8 @@ def fused_conv_block(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
     tensors = [x, gam, beta, dw, wp, bp] + ([] if seeds is None else [seeds])
     if not _on_cuda(name, *tensors):
         return conv_block_plain(x, gam, beta, dw, wp, bp, seeds, drop_rate)
-    fn = FusedConvBlock if conv_route(*x.shape[1:]) == "block" else \
+    L, K, _ = dw.shape
+    fn = FusedConvBlock if conv_route(*x.shape[1:], K, L) == "block" else \
         FusedConvBlockTiled
     return fn.apply(x, gam, beta, dw, wp, bp, seeds, float(drop_rate))
 
@@ -649,11 +720,16 @@ def fused_conv_block(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
 CONV_TILE = 32  # frames of a tile (csrc/conv_block.cu kTile)
 
 
-def conv_route(T, D):
-    """"block" (the whole-row kernels) where a row's backward fits one
-    block's shared memory, else "tiled"."""
-    return "block" if conv_block_bwd_smem_bytes(T, D) <= MAX_SMEM_BYTES \
-        else "tiled"
+def conv_route(T, D, K, L):
+    """"block" (the whole-row forward, the backward a cluster a row) up to
+    the route's T limit, where conv_plan's CTAs also fit; else "tiled". The
+    T limit is the one the whole-row backward had when it was one block a
+    row, kept so that every shape takes the route it took then: three
+    [T, D] rows, T inverse deviations and 16 D floats of LN reductions in a
+    block's shared memory (T <= 145 at D = 128)."""
+    t_limit = (3 * T * D + T + 16 * D) * 4 <= MAX_SMEM_BYTES
+    plan_fits = _conv_plan_sizes(T, D, K, L)[2] <= MAX_SMEM_BYTES
+    return "block" if t_limit and plan_fits else "tiled"
 
 
 def conv_block_tiled_smem_bytes(D, K):
