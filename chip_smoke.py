@@ -20,7 +20,20 @@ Phases, each printing one JSON line:
               two block forwards with dropout are held the same way at the
               training shapes (T = 128 and the query stream's T = max_w,
               drop_rate 0.2, one fully masked query row): the forward, every
-              gradient of sum(out * g), and the dropout's zero pattern.
+              gradient of sum(out * g), and the dropout's zero pattern;
+              the conv block's forward and the MHA block's backward also
+              give equal bits on two equal calls.
+              The cluster kernels carry their launch plans; the conv
+              block's forward and backward must beat the T-tiled kernels
+              at the same shape, the MHA block's backward the backward of
+              the unfused block (its PyTorch ops around the whole-T
+              attention kernels), each timed in the same run. Those two
+              rows give beside ms (CUDA events around back-to-back calls,
+              as every row, which time the wrapper's host work once it
+              outlasts the kernels, and so vary with the host's load)
+              device_ms, the device time of a call's kernels
+              (torch.profiler), and hold the kernel below its yardstick
+              by device time.
   4. slice    the rnn VSLNet at full width (hidden 128, 8 heads, T 128,
               1024-d video features, 300-d GloVe, batch 16), seeded numpy
               weights in the flax layout loaded through convert_flax, a
@@ -199,6 +212,7 @@ def kernel_row(name, source, replaces, err, tol, ms, plain_ms, flops, nbytes,
 def kernel_phase(dev, max_w):
     import torch
 
+    from vslnet_torch.bench.common import by_kernel
     from vslnet_torch.ops import kernels as K
 
     rng = np.random.default_rng(SEED)
@@ -263,17 +277,42 @@ def kernel_phase(dev, max_w):
     zeros_equal = torch.equal(K.fused_conv_block(*one, **drop) == args[0],
                               K.conv_block_plain(*one, **drop) == args[0])
     check(zeros_equal, "conv_block_fwd: the dropout zero pattern differs")
+    # no atomics, a fixed order of every sum: two equal calls, equal bits
+    twice = torch.equal(K.launch_conv_block_fwd(*args, **drop),
+                        K.launch_conv_block_fwd(*args, **drop))
+    check(twice, "conv_block_fwd: two equal calls differ")
+    # the cluster forward against the T-tiled one at the same shape, in
+    # this run, by CUDA events around back-to-back calls and by the device
+    # time of a call's kernels (torch.profiler): the kernel must be the
+    # faster by device time (events time the host once it outlasts the
+    # kernel)
+    parts = by_kernel(lambda: K.launch_conv_block_fwd(*args))
+    tiled_parts = by_kernel(lambda: K.launch_conv_block_fwd_tiled(*args))
+    device_ms = sum(parts.values())
+    tiled_device_ms = sum(tiled_parts.values())
+    ms = cuda_ms(lambda: K.fused_conv_block(*args), 50)
+    tiled_ms = cuda_ms(lambda: K.launch_conv_block_fwd_tiled(*args), 50)
     record("conv_block_fwd", "vslnet_torch/csrc/conv_block.cu",
            "vslnet_tpu/ops/pallas_kernels.py:1019", max(err, q_err, d_err), TOL,
-           cuda_ms(lambda: K.fused_conv_block(*args), 50),
-           cuda_ms(lambda: K.conv_block_plain(*args), 50),
+           ms, cuda_ms(lambda: K.conv_block_plain(*args), 50),
            L * 2 * B * T * D * (D + KS),
            4 * (2 * B * T * D + L * (3 * D + KS * D + D * D)),
            shape=[B, T, D], query_T=max_w, query_max_abs_err=q_err,
            dropout_max_abs_err=d_err, dropout_zero_pattern_equal=zeros_equal,
+           equal_bits_twice=twice,
            dropout_ms=cuda_ms(lambda: K.fused_conv_block(*args, **drop), 50),
            dropout_plain_ms=cuda_ms(
-               lambda: K.conv_block_plain(*args, **drop), 50))
+               lambda: K.conv_block_plain(*args, **drop), 50),
+           plan=K.conv_fwd_plan(B, T, D, KS, L)._asdict(),
+           query_plan=K.conv_fwd_plan(B, max_w, D, KS, L)._asdict(),
+           device_ms=device_ms, by_kernel=parts, tiled_ms=tiled_ms,
+           tiled_device_ms=tiled_device_ms, tiled_by_kernel=tiled_parts,
+           query_ms=cuda_ms(lambda: K.launch_conv_block_fwd(*q_args), 50),
+           query_device_ms=sum(by_kernel(
+               lambda: K.launch_conv_block_fwd(*q_args)).values()))
+    check(device_ms < tiled_device_ms, "conv_block_fwd: %g ms of device "
+          "time, not below the tiled forward's %g" % (device_ms,
+                                                      tiled_device_ms))
     conv_args, conv_q_args = args, q_args
 
     # 3. MHA block [B, T, D] and at the query length, one row fully masked
@@ -478,20 +517,62 @@ def kernel_phase(dev, max_w):
     leaves = [a.clone().requires_grad_() for a in (x, *mha_args[2:])]
     out_p = K.mha_block_plain(leaves[0], mask, *leaves[1:], heads, seeds=seeds,
                               drop_rate=DROP)
+
+    def mha_bwd():
+        return K.launch_mha_block_bwd(x, mask, gam, beta, wqkv, wd, heads,
+                                      seeds, DROP, qkv, att, g)
+
+    def unfused(grad):
+        """The block's PyTorch ops around the whole-T attention kernels
+        (mha_block_unfused) at the same inputs, forward (and backward)."""
+        with torch.set_grad_enabled(grad):
+            out = K.mha_block_unfused(leaves[0], mask, *leaves[1:], heads,
+                                      seeds, DROP)
+            if grad:
+                torch.autograd.grad(out, leaves, g)
+
+    # the kernels against the unfused block's backward at the same shape, in
+    # this run, by CUDA events around back-to-back calls and by the device
+    # time of a call's kernels (torch.profiler); the unfused backward's is
+    # its forward + backward's less its forward's: the kernels must be the
+    # faster by device time
+    twice = all(torch.equal(a, b) for a, b in zip(mha_bwd(), mha_bwd()))
+    check(twice, "mha_block_bwd: two equal calls differ")
+    parts = by_kernel(mha_bwd)
+    device_ms = sum(parts.values())
+    unfused_device_ms = (sum(by_kernel(lambda: unfused(True)).values())
+                         - sum(by_kernel(lambda: unfused(False)).values()))
+    ms = cuda_ms(mha_bwd, 20)
+    unfused_ms = (cuda_ms(lambda: unfused(True), 20)
+                  - cuda_ms(lambda: unfused(False), 20))
+    xq, maskq, gamq, betaq, wqkvq, _, wdq, _ = mha_q_args
+    _, qkvq, attq = K.launch_mha_block_fwd(*mha_q_args, heads, seeds, DROP)
+    gq = g[:, :max_w].contiguous()
+
+    def mha_bwd_q():
+        return K.launch_mha_block_bwd(xq, maskq, gamq, betaq, wqkvq, wdq, heads,
+                                      seeds, DROP, qkvq, attq, gq)
     record("mha_block_bwd", "vslnet_torch/csrc/mha_block.cu",
            "vslnet_tpu/ops/pallas_kernels.py:1762", max(abs_err, q_abs), TOL,
-           cuda_ms(lambda: K.launch_mha_block_bwd(
-               x, mask, gam, beta, wqkv, wd, heads, seeds, DROP, qkv, att, g),
-               20),
-           cuda_ms(lambda: torch.autograd.grad(out_p, leaves, g,
-                                               retain_graph=True), 20),
+           ms, cuda_ms(lambda: torch.autograd.grad(out_p, leaves, g,
+                                                   retain_graph=True), 20),
            # dense and QKV data + weight products; the scores recomputed,
            # dP, dV, dQ and dK over the valid keys
            4 * B * T * D * D + 4 * B * T * D * 3 * D + 10 * T * keys * D,
            4 * (3 * B * T * D + B * T + B * T * 3 * D + B * T * D
                 + 2 * (4 * D + 4 * D * D + 4 * D) + B),
            checked_err=max(err, q_err), shape=[B, T, D], heads=heads,
-           drop_rate=DROP, query_T=max_w, query_checked_err=q_err)
+           drop_rate=DROP, query_T=max_w, query_checked_err=q_err,
+           equal_bits_twice=twice,
+           plan=K.mha_bwd_plan(B, T, D, heads)._asdict(),
+           query_plan=K.mha_bwd_plan(B, max_w, D, heads)._asdict(),
+           device_ms=device_ms, by_kernel=parts, unfused_ms=unfused_ms,
+           unfused_device_ms=unfused_device_ms,
+           query_ms=cuda_ms(mha_bwd_q, 20),
+           query_device_ms=sum(by_kernel(mha_bwd_q).values()))
+    check(device_ms < unfused_device_ms, "mha_block_bwd: %g ms of device "
+          "time, not below the unfused block's backward %g"
+          % (device_ms, unfused_device_ms))
     return rows
 
 

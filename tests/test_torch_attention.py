@@ -120,6 +120,38 @@ def test_conv_route(T, route):
     assert kernels.conv_route(T, 128, 7, 4) == route
 
 
+# Each route's answer, one letter a T of ROUTE_TS, as the port gave them
+# before the MHA block backward and the conv block forward became cluster
+# kernels; their new launch plans must leave every answer as it was
+ROUTE_TS = [1, 12, 64, 128, 145, 146, 192, 209, 210, 224, 225, 1024]
+MHA_ROUTES = {(16, 2): "bbbbbbbbbfff", (64, 8): "bbbbbbbbbfff",
+              (128, 2): "bbbbffffffff", (128, 4): "bbbbbwffffff",
+              (128, 8): "bbbbbwwwffff", (256, 4): "bbbwffffffff",
+              (1024, 16): "bbwwffffffff"}
+ATTENTION_ROUTES = {8: "wwwwwwwwwfff", 16: "wwwwwwwwffff", 32: "wwwwwwffffff",
+                    64: "wwwwffffffff"}
+CONV_ROUTES = {16: "bbbbbbbbbbbb", 128: "bbbbbttttttt", 160: "bbbttttttttt",
+               256: "tttttttttttt"}
+
+
+@pytest.mark.parametrize("D,heads", sorted(MHA_ROUTES))
+def test_mha_route_keeps_its_answers(D, heads):
+    got = "".join(kernels.mha_route(T, D, heads)[0] for T in ROUTE_TS)
+    assert got == MHA_ROUTES[D, heads]
+
+
+@pytest.mark.parametrize("hd", sorted(ATTENTION_ROUTES))
+def test_attention_route_keeps_its_answers(hd):
+    got = "".join(kernels.attention_route(T, hd)[0] for T in ROUTE_TS)
+    assert got == ATTENTION_ROUTES[hd]
+
+
+@pytest.mark.parametrize("D", sorted(CONV_ROUTES))
+def test_conv_route_keeps_its_answers(D):
+    got = "".join(kernels.conv_route(T, D, 7, 4)[0] for T in ROUTE_TS)
+    assert got == CONV_ROUTES[D]
+
+
 def test_routes_refuse_head_dims_no_kernel_takes():
     with pytest.raises(ValueError, match="head dim"):
         kernels.mha_route(1024, 24, 2)

@@ -292,11 +292,26 @@ def test_cuda_conv_block_grads_match_plain(cuda, B, T, D, rate):
                  args, 6, ["x", "gam", "beta", "dw", "wp", "bp"], 1e-3)
 
 
+# The MHA block backward's plan under stress, each shape with mha_bwd_plan's
+# (frames a tile, tiles, query rows a CTA, query tiles), asserted by the
+# test: the main path (16 tiles of 8 frames, a cluster of 2 query tiles of
+# 64 a (row, head)), the query stream (2 tiles, the last holding 4; one
+# query tile), 3 rows at D = 16, T = 1, the longest block T at D = 128 (19
+# tiles, the last holding 1; 3 query tiles, the last holding 17), and 33
+# rows at D = 16 in 2 heads of 8 (a ragged frame tile).
+MHA_PLANS = {(16, 128, 128, 8): (8, 16, 64, 2), (16, 12, 128, 8): (8, 2, 12, 1),
+             (3, 10, 16, 2): (8, 2, 10, 1), (16, 1, 128, 8): (1, 1, 1, 1),
+             (16, 145, 128, 8): (8, 19, 64, 3), (33, 13, 16, 2): (8, 2, 13, 1)}
+MHA_SHAPES = list(MHA_PLANS)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("B,T,D,heads", [(16, 128, 128, 8), (16, 12, 128, 8),
-                                         (3, 10, 16, 2)])
+@pytest.mark.parametrize("B,T,D,heads", MHA_SHAPES)
 def test_cuda_mha_block_grads_match_plain(cuda, B, T, D, heads, rate):
+    plan = kernels.mha_bwd_plan(B, T, D, heads)
+    assert (plan.frames, plan.tiles, plan.q_tile,
+            plan.q_tiles) == MHA_PLANS[B, T, D, heads]
     rng = np.random.default_rng(14)
     lens = list(rng.integers(1, T + 1, size=B - 1)) + [0]  # one fully masked
     x, mask, *w = [_t(a).to(cuda) for a in _mha_inputs(rng, B, T, D, lens)]
@@ -312,19 +327,35 @@ def test_cuda_mha_block_grads_match_plain(cuda, B, T, D, heads, rate):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["conv_block_bwd", "lstm_recurrence_bwd"])
+@pytest.mark.parametrize("kernel", ["conv_block_bwd", "lstm_recurrence_bwd",
+                                    "conv_block_fwd", "mha_block_bwd"])
 def test_cuda_backward_kernels_give_equal_bits_twice(cuda, kernel):
     """No atomics, a fixed order of every sum: two equal calls of each
-    backward give equal bits, at the main path's shape."""
+    backward (and of the conv block's cluster forward) give equal bits, at
+    the main path's shape and drop_rate 0.2."""
     rng = np.random.default_rng(20)
-    if kernel == "conv_block_bwd":
-        B, T, D = 16, 128, 128
+    B, T, D = 16, 128, 128
+    if kernel.startswith("conv_block"):
         args = [_t(a).to(cuda) for a in _conv_inputs(rng, B, T, D)]
         seeds = _t(_seeds(rng, B)).to(cuda)
         g = _t(rng.standard_normal((B, T, D)).astype(np.float32)).to(cuda)
 
         def run():
+            if kernel == "conv_block_fwd":
+                return [kernels.launch_conv_block_fwd(*args, seeds, 0.2)]
             return kernels.launch_conv_block_bwd(*args, seeds, 0.2, g)
+    elif kernel == "mha_block_bwd":
+        lens = list(rng.integers(1, T + 1, size=B - 1)) + [0]
+        x, mask, gam, beta, wqkv, bqkv, wd, bd = [
+            _t(a).to(cuda) for a in _mha_inputs(rng, B, T, D, lens)]
+        seeds = _t(_seeds(rng, B)).to(cuda)
+        g = _t(rng.standard_normal((B, T, D)).astype(np.float32)).to(cuda)
+        _, qkv, att = kernels.launch_mha_block_fwd(
+            x, mask, gam, beta, wqkv, bqkv, wd, bd, 8, seeds, 0.2)
+
+        def run():
+            return kernels.launch_mha_block_bwd(x, mask, gam, beta, wqkv, wd, 8,
+                                                seeds, 0.2, qkv, att, g)
     else:
         T, B, H = 128, 16, 128
         x_proj, k_h, valid = [_t(a).to(cuda) for a in _lstm_inputs(
@@ -339,6 +370,38 @@ def test_cuda_backward_kernels_give_equal_bits_twice(cuda, kernel):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [128, 12])
+def test_cuda_block_plans_agree(cuda, T):
+    """Every plan the bench scripts time, through the kernel library, gives
+    what the wrapper's plan gives: the conv block forward on 1 to 8 CTAs a
+    row (equal bits: each output is the same chain of sums), the MHA block
+    backward on other frame and query tiles (within 1e-4 of the default's
+    gradients)."""
+    from vslnet_torch.bench import conv_plans, mha_plans
+
+    rng = np.random.default_rng(21)
+    B, D = 16, 128
+    args = [_t(a).to(cuda) for a in _conv_inputs(rng, B, T, D)]
+    seeds = _t(_seeds(rng, B)).to(cuda)
+    ref = kernels.launch_conv_block_fwd(*args, seeds, 0.2)
+    for plan in conv_plans.fwd_plans(B, T, D, 7):
+        out = conv_plans.fwd_runner(args, seeds, 0.2, plan)()
+        assert torch.equal(out, ref), plan
+    lens = list(rng.integers(1, T + 1, size=B - 1)) + [0]
+    x, mask, gam, beta, wqkv, bqkv, wd, bd = [
+        _t(a).to(cuda) for a in _mha_inputs(rng, B, T, D, lens)]
+    g = _t(rng.standard_normal((B, T, D)).astype(np.float32)).to(cuda)
+    _, qkv, att = kernels.launch_mha_block_fwd(x, mask, gam, beta, wqkv, bqkv,
+                                               wd, bd, 8, seeds, 0.2)
+    bwd = [x, mask, gam, beta, wqkv, wd, 8, seeds, 0.2, qkv, att, g]
+    ref = kernels.launch_mha_block_bwd(*bwd)
+    for plan in mha_plans.plans(B, T, D, 8):
+        for a, b in zip(mha_plans.runner(bwd, plan)(), ref):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
+                                       msg=str(plan))
 
 
 @pytest.mark.cuda

@@ -219,6 +219,18 @@ def test_trainer_needs_a_device_and_supported_options():
                 device="cpu")
 
 
+@pytest.mark.parametrize("field,value", [
+    ("nan_guard", True), ("patience", 2), ("eval_split", "val"),
+    ("t7_checkpoint", "model.t7"), ("tf_checkpoint", "model.ckpt")])
+def test_trainer_raises_on_training_flags_it_ignores(field, value):
+    """Each flag the JAX Runner acts on and the port lacks, set away from
+    its default, stops the Trainer before it builds anything."""
+    dataset, feats = _dataset()
+    with pytest.raises(NotImplementedError, match="%s.*ROADMAP" % field):
+        Trainer(Config(**SMALL, **{field: value}), dataset, feats,
+                device="cpu")
+
+
 def test_twenty_steps_with_dropout_lower_the_loss():
     dataset, feats = _dataset()
     trainer = Trainer(Config(**SMALL, drop_rate=0.2, init_lr=1e-3, epochs=50),

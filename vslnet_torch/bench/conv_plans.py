@@ -1,13 +1,20 @@
 #!/usr/bin/env python3
-"""The conv block backward's launch plans on the card (csrc/conv_block.cu,
-the cluster kernel): the time of each, how many of its clusters the card
-holds at once, the product's tile, where a call spends its time by kernel,
-and where the kernel spends its cycles.
+"""The conv block's launch plans on the card (csrc/conv_block.cu, the
+cluster kernels): the time of each, how many of its clusters the card
+holds at once, the backward product's tile, where a call spends its time
+by kernel, and where the backward spends its cycles.
 
     python3 -m vslnet_torch.bench.conv_plans
 
 At [16, T, 128], drop_rate 0.2, for T = 128 (the main path), 145 (the
 longest whole-row T) and 12 (the query stream):
+- the forward on every plan of n CTAs a row (n <= 8, ceil(T / n)
+  frames each) whose shared memory fits (`fwd_plans`), through the kernel
+  library (`fwd_runner`): CUDA events over 20 calls after a warm-up and
+  the device time (torch.profiler), whether its output equals
+  conv_fwd_plan's bit for bit, and cudaOccupancyMaxActiveClusters for its
+  clusters; at T = 128 and 12 the forward's and the T-tiled forward's
+  device time by kernel and their calls' times;
 - every plan of n CTAs a row (n <= 8, ceil(T / n) frames each) whose
   shared memory fits, through the kernel library: CUDA events over 20
   calls after a warm-up (the call: the kernel, the batch sum of its
@@ -39,6 +46,40 @@ L, KS, D, B = 4, 7, 128, 16
 # (rows an item, k-loop unroll): conv_block.cu's own first
 PRODUCT_TILES = [(3, 4), (2, 1), (2, 4), (3, 1), (4, 1), (4, 4)]
 BARRIERS = ("cluster.sync();", "__syncthreads();")
+
+
+def fwd_plans(B, T, D, k):
+    """The forward's plans this script times at [B, T, D] and k taps: n =
+    1..8 CTAs a row of ceil(T / n) frames (ceil(T / frames) CTAs, none
+    empty) whose shared memory fits, each once, as conv_fwd_plan gives
+    them."""
+    plans = []
+    for n in range(1, K.CONV_CLUSTER + 1):
+        frames = -(-T // n)
+        n = -(-T // frames)
+        plan = K.ConvPlan(n, frames, K._conv_fwd_smem_bytes(frames, D, k), B * n)
+        if plan.smem <= K.MAX_SMEM_BYTES and plan not in plans:
+            plans.append(plan)
+    return plans
+
+
+def fwd_runner(args, seeds, rate, plan):
+    """A call of the forward kernel through the kernel library on `plan`,
+    at args = (x, gam, beta, dw, wp, bp) (16-byte aligned) and per-row
+    seeds: returns the output."""
+    import torch
+
+    x, gam, beta, dw, wp, bp = args
+    (B, T, D), (L, k, _) = x.shape, dw.shape
+    sp, thresh, scale = K._dropout_args("conv_plans", seeds, rate, B)
+    out = torch.empty_like(x)
+
+    def run():
+        K._launch("conv_block_fwd", x.data_ptr(), gam.data_ptr(), beta.data_ptr(),
+                  dw.data_ptr(), wp.data_ptr(), bp.data_ptr(), sp, thresh, scale,
+                  out.data_ptr(), B, T, D, L, k, plan.n, plan.frames)
+        return out
+    return run
 
 
 def renamed(src, tag):
@@ -83,9 +124,12 @@ extern "C" int prof_read(unsigned long long* h) {
   unsigned long long z[64] = {0};
   return err ? err : (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));
 }
-extern "C" int prof_clusters(int N, int smem) {
-  cudaError_t e = cudaFuncSetAttribute(conv_block_bwd_cluster_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+extern "C" int prof_clusters(int N, int smem, int fwd_frames) {
+  // the backward's kernel, or the forward's for fwd_frames frames a CTA
+  const void* fn = fwd_frames == 0 ? (const void*)conv_block_bwd_cluster_kernel
+                   : fwd_frames <= 16 ? (const void*)conv_block_fwd_cluster_kernel<2>
+                                      : (const void*)conv_block_fwd_cluster_kernel<3>;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e) return -(int)e;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -99,7 +143,7 @@ extern "C" int prof_clusters(int N, int smem) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int c = -1;
-  e = cudaOccupancyMaxActiveClusters(&c, conv_block_bwd_cluster_kernel, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&c, fn, &cfg);
   return e ? -(int)e : c;
 }
 ''', at
@@ -120,7 +164,7 @@ def main():
     prof_lib = build_copy("conv_prof", renamed(prof_src, "prof"))
     prof_lib.prof_read.argtypes = [ctypes.c_void_p]
     prof_lib.prof_read.restype = ctypes.c_int
-    prof_lib.prof_clusters.argtypes = [ctypes.c_int, ctypes.c_int]
+    prof_lib.prof_clusters.argtypes = [ctypes.c_int] * 3
     prof_lib.prof_clusters.restype = ctypes.c_int
     fns = {"vsl": K._library().vsl_conv_block_bwd,
            "prof": prof_lib.prof_conv_block_bwd}
@@ -137,6 +181,10 @@ def main():
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
     for T in (128, 145, 12):
+        def emit(**row):
+            print(json.dumps({"bench": "conv_plans", "card": smi, "shape": [B, T, D],
+                              **row}), flush=True)
+
         x, gam, beta, dw, wp, bp = args = [
             t(rng.standard_normal((B, T, D))), t(1 + 0.1 * rng.standard_normal((L, D))),
             t(0.1 * rng.standard_normal((L, D))),
@@ -145,6 +193,24 @@ def main():
             t(0.1 * rng.standard_normal((L, D)))]
         seeds = t(rng.integers(0, 1 << 23, (B, 1)))
         g = t(rng.standard_normal((B, T, D)))
+        # the forward's plans
+        fwd_ref = K.launch_conv_block_fwd(*args, seeds, 0.2)
+        fwd_default = K.conv_fwd_plan(B, T, D, KS, L)
+        for plan in fwd_plans(B, T, D, KS):
+            fwd = fwd_runner(args, seeds, 0.2, plan)
+            emit(kernel="forward", n=plan.n, frames=plan.frames, ctas=plan.ctas,
+                 smem=plan.smem, default=plan == fwd_default, ms=cuda_ms(fwd),
+                 device_ms=sum(by_kernel(fwd).values()),
+                 equal_to_default=bool(torch.equal(fwd(), fwd_ref)),
+                 max_active_clusters=prof_lib.prof_clusters(plan.n, plan.smem, plan.frames))
+        if T != 145:
+            def fwd():
+                return K.launch_conv_block_fwd(*args, seeds, 0.2)
+
+            def tiled():
+                return K.launch_conv_block_fwd_tiled(*args, seeds, 0.2)
+            emit(kernel="forward", n=fwd_default.n, ms=cuda_ms(fwd), by_kernel=by_kernel(fwd),
+                 tiled_ms=cuda_ms(tiled), tiled_by_kernel=by_kernel(tiled))
         ref = K.launch_conv_block_bwd(*args, seeds, 0.2, g)
         default = K.conv_plan(B, T, D, KS, L)
         wpT = wp.transpose(1, 2).contiguous()
@@ -171,10 +237,6 @@ def main():
         def err():
             return max(float((dx - ref[0]).abs().max()), float((dwp - ref[4]).abs().max()))
 
-        def emit(**row):
-            print(json.dumps({"bench": "conv_plans", "card": smi, "shape": [B, T, D],
-                              **row}), flush=True)
-
         for n in range(1, K.CONV_CLUSTER + 1):
             frames = -(-T // n)
             smem = K._conv_smem_bytes(frames, D, KS, L)
@@ -183,7 +245,7 @@ def main():
             ms = cuda_ms(runner(fns["vsl"], n, frames))
             emit(n=n, frames=frames, ctas=B * n, smem=smem, default=n == default.n,
                  ms=ms, max_abs_diff_from_default=err(),
-                 max_active_clusters=prof_lib.prof_clusters(n, smem))
+                 max_active_clusters=prof_lib.prof_clusters(n, smem, 0))
         if T == 145:
             continue
         for tile in PRODUCT_TILES:

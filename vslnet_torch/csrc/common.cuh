@@ -12,6 +12,7 @@
 #include <cfloat>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
 
 namespace vsl {
@@ -126,46 +127,39 @@ inline __device__ void ln_normalize_rows(const float* src, float* xh, float* inv
 }
 
 // LayerNorm backward over one [T, D] tile (the JAX package's _ln_bwd):
-// given the gradient of the normalised output g_n = grad_n(t, c), xh and
-// inv, hands dx = inv * (dxh - mean(dxh) - xh * mean(dxh * xh)), dxh =
-// g_n * gam, to out(t, c, dx). Adds the column sums of g_n * xh (dgam) and
-// g_n (dbeta) into red[warp][c] and red[warp][D + c]; the caller zeroes
-// red [nwarps, 2D] and folds it with fold_rows. One warp per row;
-// grad_n is called twice per element.
-template <typename GradN, typename Out>
-__device__ void ln_backward_rows(const float* xh, const float* inv, const float* __restrict__ gam,
-                                 int T, int D, float* red, GradN grad_n, Out out) {
+// given gn [T, D], the gradient of the normalised output, xh and inv,
+// writes the tile's column sums of gn * xh (dgam) and of gn (dbeta), one
+// thread a column in row order, and hands dx = inv * (dxh - mean(dxh) - xh
+// * mean(dxh * xh)), dxh = gn * gam, to out(t, c, dx), one warp a row.
+template <typename Out>
+__device__ void ln_backward_rows(const float* gn, const float* xh, const float* inv,
+                                 const float* __restrict__ gam, int T, int D, float* dgam,
+                                 float* dbeta, Out out) {
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    float sg = 0.f, sb = 0.f;
+    for (int t = 0; t < T; ++t) {
+      const float g = gn[(size_t)t * D + c];
+      sg = fmaf(g, xh[(size_t)t * D + c], sg);
+      sb += g;
+    }
+    dgam[c] = sg;
+    dbeta[c] = sb;
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  float* rw = red + (size_t)warp * 2 * D;
   for (int t = warp; t < T; t += nwarps) {
+    const float* g = gn + (size_t)t * D;
+    const float* x = xh + (size_t)t * D;
     float s1 = 0.f, s2 = 0.f;
     for (int c = lane; c < D; c += 32) {
-      const float gn = grad_n(t, c);
-      const float x = xh[(size_t)t * D + c];
-      const float dxh = gn * __ldg(gam + c);
+      const float dxh = g[c] * __ldg(gam + c);
       s1 += dxh;
-      s2 += dxh * x;
-      rw[c] += gn * x;
-      rw[D + c] += gn;
+      s2 += dxh * x[c];
     }
     const float m1 = warp_sum(s1) / D;
     const float m2 = warp_sum(s2) / D;
-    for (int c = lane; c < D; c += 32) {
-      const float x = xh[(size_t)t * D + c];
-      const float dxh = grad_n(t, c) * __ldg(gam + c);
-      out(t, c, inv[t] * (dxh - m1 - x * m2));
-    }
-  }
-}
-
-// dst[c] = sum over w < nrows of src[w * n + c], for c < n, in a fixed
-// order. src may be shared or global memory.
-inline __device__ void fold_rows(const float* src, int nrows, int n, float* dst) {
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    float s = 0.f;
-    for (int w = 0; w < nrows; ++w) s += src[(size_t)w * n + c];
-    dst[c] = s;
+    for (int c = lane; c < D; c += 32)
+      out(t, c, inv[t] * (g[c] * __ldg(gam + c) - m1 - x[c] * m2));
   }
 }
 
@@ -206,6 +200,75 @@ __device__ void gemm_rows(const float* A, int T, int K, const float* __restrict_
     for (int r = 0; r < kRows; ++r)
       if (t0 + r < T) epi(t0 + r, o, acc[r]);
   }
+}
+
+// C[t, o] = sum_k A[t, k] * W[k, o] for t < rows and o < ncols, A [rows,
+// K] (row stride lda) and W [K, ncols] (row stride ldw) in shared memory,
+// handed to epi(t, o, float4 of columns o..o+3). K, ncols, lda and ldw are
+// multiples of 4, A and W 16-byte aligned. An item is R rows x 4 columns;
+// the lanes of a warp take neighbouring column quads (conflict-free float4
+// loads of W, broadcast loads of A), and each W float4 feeds R rows; the k
+// loop is unrolled U times. Each output is one fmaf chain over k in order,
+// as gemm_rows sums it.
+template <int R, int U, typename Epi>
+__device__ void smem_gemm(const float* A, int lda, int rows, int K, const float* W, int ldw,
+                          int ncols, Epi epi) {
+  const int N4 = ncols / 4, K4 = K / 4, lda4 = lda / 4, ldw4 = ldw / 4;
+  const int items = (rows + R - 1) / R * N4;
+  const float4* A4 = reinterpret_cast<const float4*>(A);
+  const float4* W4 = reinterpret_cast<const float4*>(W);
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int c4 = it % N4, t0 = it / N4 * R;
+    float4 acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    int ta[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) ta[r] = min(t0 + r, rows - 1) * lda4;  // ragged edge: never stored
+#pragma unroll U
+    for (int k4 = 0; k4 < K4; ++k4) {
+      const float4 w0 = W4[(4 * k4 + 0) * ldw4 + c4], w1 = W4[(4 * k4 + 1) * ldw4 + c4];
+      const float4 w2 = W4[(4 * k4 + 2) * ldw4 + c4], w3 = W4[(4 * k4 + 3) * ldw4 + c4];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 a = A4[ta[r] + k4];
+        acc[r].x = fmaf(a.x, w0.x, acc[r].x);
+        acc[r].y = fmaf(a.x, w0.y, acc[r].y);
+        acc[r].z = fmaf(a.x, w0.z, acc[r].z);
+        acc[r].w = fmaf(a.x, w0.w, acc[r].w);
+        acc[r].x = fmaf(a.y, w1.x, acc[r].x);
+        acc[r].y = fmaf(a.y, w1.y, acc[r].y);
+        acc[r].z = fmaf(a.y, w1.z, acc[r].z);
+        acc[r].w = fmaf(a.y, w1.w, acc[r].w);
+        acc[r].x = fmaf(a.z, w2.x, acc[r].x);
+        acc[r].y = fmaf(a.z, w2.y, acc[r].y);
+        acc[r].z = fmaf(a.z, w2.z, acc[r].z);
+        acc[r].w = fmaf(a.z, w2.w, acc[r].w);
+        acc[r].x = fmaf(a.w, w3.x, acc[r].x);
+        acc[r].y = fmaf(a.w, w3.y, acc[r].y);
+        acc[r].z = fmaf(a.w, w3.z, acc[r].z);
+        acc[r].w = fmaf(a.w, w3.w, acc[r].w);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (t0 + r < rows) epi(t0 + r, 4 * c4, acc[r]);
+  }
+}
+
+// dst <- src, n floats (n % 4 == 0, both 16-byte aligned; src global), by
+// cp.async as one commit group, left in flight: cp_async_wait<G>() waits
+// until at most G of the groups issued after it are pending.
+__device__ __forceinline__ void cp_async_floats(float* dst, const float* __restrict__ src, int n) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  for (int i = threadIdx.x; i < n / 4; i += blockDim.x)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d + 16u * i), "l"(src + 4 * i)
+                 : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int G>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(G) : "memory");
 }
 
 // --- weight gradients summed over the batch --------------------------------
@@ -285,26 +348,34 @@ wgrad_partial_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-// C[z][e] = sum over s < S of P[z][s][e] for e < n, in order of s. Also the
-// batch sum of per-row partials (Z = 1, S = B).
-__global__ void sum_partials_kernel(const float* __restrict__ P, float* __restrict__ C, int Z,
-                                    int S, int n) {
-  const size_t total = (size_t)Z * n;
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (size_t)gridDim.x * blockDim.x) {
-    const size_t z = idx / n, e = idx - z * n;
+// C[z][e] = sum over s < S of P[z][s][e] for e < n, in a fixed order: a
+// block takes 32 neighbouring e of one z, each of its 8 warps adds a
+// contiguous eighth of the S partials in order of s, and one warp adds the
+// eight sums in order. Also the batch sum of per-row partials (Z = 1).
+__global__ void __launch_bounds__(256)
+sum_partials_kernel(const float* __restrict__ P, float* __restrict__ C, int S, int n) {
+  __shared__ float sums[8][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const size_t z = blockIdx.y, e = (size_t)blockIdx.x * 32 + lane;
+  const int chunk = (S + 7) / 8, s0 = w * chunk, s1 = min(S, s0 + chunk);
+  float acc = 0.f;
+  if (e < (size_t)n) {
     const float* p = P + z * S * n + e;
-    float acc = 0.f;
-    for (int s = 0; s < S; ++s) acc += p[(size_t)s * n];
-    C[idx] = acc;
+    for (int s = s0; s < s1; ++s) acc += p[(size_t)s * n];
+  }
+  sums[w][lane] = acc;
+  __syncthreads();
+  if (w == 0 && e < (size_t)n) {
+    float c = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) c += sums[q][lane];
+    C[z * n + e] = c;
   }
 }
 
 cudaError_t sum_partials(const float* P, float* C, int Z, int S, int n,
                                 cudaStream_t stream) {
-  const size_t total = (size_t)Z * n;
-  const int blocks = static_cast<int>(std::min<size_t>((total + 255) / 256, 1024));
-  sum_partials_kernel<<<blocks, 256, 0, stream>>>(P, C, Z, S, n);
+  sum_partials_kernel<<<dim3((n + 31) / 32, Z), 256, 0, stream>>>(P, C, S, n);
   return cudaGetLastError();
 }
 
@@ -323,12 +394,28 @@ cudaError_t wgrad(const float* A, const float* B, float* C, float* P, int Z, int
 
 // --- launches of thread-block clusters ---------------------------------------
 // The set-up a configuration needs once per device, so that later calls go
-// straight to the launch: the opt-in to its dynamic shared memory (raised,
-// never lowered, as another shape may need more of the same kernel) and
-// the check that the card can schedule one of its clusters.
+// straight to the launch: the opt-in to its dynamic shared memory and the
+// check that the card can schedule one of its clusters.
+// The opt-in of kernel fn to `bytes` of dynamic shared memory on the
+// current device, made once and raised, never lowered, as another shape
+// may need more of the same kernel.
+inline cudaError_t opt_in_smem(const void* fn, size_t bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, size_t> opted;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& have = opted[{fn, dev}];
+  if (bytes <= have) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) have = bytes;
+  return err;
+}
+
 inline cudaError_t ready_to_launch(const void* fn, const cudaLaunchConfig_t& cfg, int N) {
   static std::mutex mu;
-  static std::map<std::pair<const void*, int>, size_t> opt_in;
   static std::set<std::tuple<const void*, int, int, unsigned, size_t>> ready;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -336,13 +423,8 @@ inline cudaError_t ready_to_launch(const void* fn, const cudaLaunchConfig_t& cfg
   const auto key = std::make_tuple(fn, dev, N, cfg.blockDim.x, cfg.dynamicSmemBytes);
   std::lock_guard<std::mutex> lock(mu);
   if (ready.count(key)) return cudaSuccess;
-  size_t& bytes = opt_in[{fn, dev}];
-  if (cfg.dynamicSmemBytes > bytes) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(cfg.dynamicSmemBytes));
-    if (err != cudaSuccess) return err;
-    bytes = cfg.dynamicSmemBytes;
-  }
+  err = opt_in_smem(fn, cfg.dynamicSmemBytes);
+  if (err != cudaSuccess) return err;
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
   if (err != cudaSuccess) return err;

@@ -10,11 +10,21 @@
 //   drop_l: inverted dropout by the counter hash (hash.cuh), salt 0x100 + l,
 //           at (t, o) of the row's [T, D] tile; off when seeds is null.
 //
-// Forward: all L layers in one launch, one block per batch row. The row's
-// [T, D] residual stream X, its normalised copy N and the depthwise output
-// Dw stay in dynamic shared memory for all layers (3*T*D*4 bytes: 192 KB at
-// T = D = 128), so nothing goes back to device memory between layers.
-// Ragged T (the query stream's max_w) is masked in every stage.
+// Forward: all L layers in one launch, a thread-block cluster of N CTAs
+// per batch row (plan: ops/kernels.py conv_fwd_plan), CTA r owning the
+// frames [r*F, min(T, (r+1)*F)) of the row's residual stream X in shared
+// memory for all layers. A layer: n = LN(X) over the own frames into a
+// window double-buffered by layer parity, one cluster barrier, the halo of
+// the depthwise reach read from the neighbours' windows through
+// distributed shared memory, the depthwise product, then the pointwise
+// product register-tiled out of shared memory (smem_gemm; the layer's wp
+// and taps land by cp.async behind the LN and the barrier), its epilogue
+// adding bp, the ReLU, the dropout and the residual in place. One cluster
+// barrier a layer and one before exit: a window a layer writes was last
+// read by the neighbours two layers before, behind the barrier of the
+// layer between. Ragged T (the query stream's max_w) is masked in every
+// stage. The arithmetic, in its order, is the backward's replay and the
+// T-tiled forward's, so the three give equal bits and equal masks.
 //
 // Backward: a thread-block cluster of N CTAs per batch row (plan:
 // ops/kernels.py conv_plan; 6 CTAs of 22 frames at T = 128, so the card
@@ -45,12 +55,10 @@
 // the CTAs in a fixed order. No atomics.
 //
 // What bounds them: the pointwise products, 2*T*D*D FLOPs a layer (the
-// replay's and g_d's a layer in the backward, plus dwp's). The forward runs
-// them on the B SMs that hold a row (16 of 132 at B=16), reading A as
-// broadcast float4s from shared memory and reusing each weight for 16
-// rows. The backward runs them on B*N CTAs (96 at the main path's shape),
-// where shared-memory bandwidth of the products, the LN and depthwise
-// passes and the cluster barriers split the time (PERF.md has the phases;
+// forward's, the replay's and g_d's a layer in the backward, plus dwp's),
+// run on B*N CTAs (128 and 96 at the main path's shape), where
+// shared-memory bandwidth of the products, the LN and depthwise passes and
+// the cluster barriers split the time (PERF.md has the phases;
 // vslnet_torch/bench/conv_plans.py measures them).
 //
 // These whole-row kernels take T up to 145 at D = 128 (the backward's
@@ -68,8 +76,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;
+constexpr int kGnPer = 4;  // tiled launch B: g_n elements a thread holds, so D <= kGnPer * kThreads
 
 struct ConvParams {
   const float* gam;   // [L, D]
@@ -80,59 +88,23 @@ struct ConvParams {
   int T, D, L, K;
 };
 
-// out[t, c] = sum_j n_at(t + j - pad, c) * dw[j, c], zero outside [0, T)
-template <typename NAt, typename Out>
-__device__ void depthwise(NAt n_at, const float* __restrict__ dwl, int T, int D, int K, Out out) {
-  const int pad = (K - 1) / 2;
-  for (int i = threadIdx.x; i < T * D; i += blockDim.x) {
-    const int t = i / D, c = i - t * D;
-    float acc = 0.f;
-    for (int j = 0; j < K; ++j) {
-      const int tt = t + j - pad;
-      const float nv = (tt >= 0 && tt < T) ? n_at(tt, c) : 0.f;
-      acc = fmaf(nv, __ldg(dwl + (size_t)j * D + c), acc);
-    }
-    out(i, acc);
+// --- the forward and the backward, a cluster per row ------------------------------
+
+// The forward's shared memory for F frames a CTA and K taps (ops/kernels.py
+// conv_fwd_plan reports its size; the launch uses this one), in floats:
+//   X   [F][D]     the residual stream over the own frames
+//   NW  [2][H][D]  n_l by layer parity, own frames at rows [pad, pad + F)
+//   P   [F][D]     the depthwise output
+//   W   [D][D]     the layer's wp
+//   DW  [K][D]     the layer's depthwise taps
+struct FwdLayout {
+  size_t FD, HD;
+  __host__ __device__ FwdLayout(int F, int D, int K)
+      : FD((size_t)F * D), HD((size_t)(F + K - 1) * D) {}
+  __host__ __device__ size_t floats(int D, int K) const {
+    return 2 * FD + 2 * HD + (size_t)D * D + (size_t)K * D;
   }
-}
-
-// One layer forward over the row's tile in shared memory:
-// X += drop(relu(depthwise(LN(X)) . wp + bp)), with N and Dw as scratch.
-__device__ void layer_forward(float* X, float* N, float* Dw, const ConvParams& p, int l,
-                              const vsl::Dropout& drop, uint32_t seed) {
-  const int T = p.T, D = p.D;
-  vsl::layer_norm_rows(X, N, p.gam + (size_t)l * D, p.beta + (size_t)l * D, T, D);
-  __syncthreads();
-  depthwise([&](int t, int c) { return N[(size_t)t * D + c]; }, p.dw + (size_t)l * p.K * D, T, D,
-            p.K, [&](int i, float v) { Dw[i] = v; });
-  __syncthreads();
-  const float* bpl = p.bp + (size_t)l * D;
-  const uint32_t salt = vsl::site_salt(0x100u + l);
-  vsl::gemm_rows<kRows>(Dw, T, D, p.wp + (size_t)l * D * D, D, 0, D,
-                        [&](int t, int o, float acc) {
-                          X[(size_t)t * D + o] +=
-                              drop.apply(fmaxf(acc + __ldg(bpl + o), 0.f), seed, salt, t, o);
-                        });
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-conv_block_fwd_kernel(const float* __restrict__ x, ConvParams p, vsl::Dropout drop,
-                      float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  const int TD = p.T * p.D;
-  float* X = reinterpret_cast<float*>(smem4);
-  float* N = X + TD;
-  float* Dw = N + TD;
-  const size_t row = (size_t)blockIdx.x * TD;
-  const uint32_t seed = drop.seed(blockIdx.x);
-  for (int i = threadIdx.x; i < TD; i += blockDim.x) X[i] = x[row + i];
-  __syncthreads();
-  for (int l = 0; l < p.L; ++l) layer_forward(X, N, Dw, p, l, drop, seed);
-  for (int i = threadIdx.x; i < TD; i += blockDim.x) out[row + i] = X[i];
-}
-
-// --- the backward as a cluster per row ------------------------------------------
+};
 
 // The backward's shared memory for F frames a CTA and K taps (ops/kernels.py
 // conv_plan reports its size; the launch uses this one), in floats, with
@@ -161,74 +133,12 @@ struct BwdLayout {
   }
 };
 
-// C[t, o] = sum_k A[t, k] * W[k, o] for t < rows and o < D, A [rows, D] and
-// W [D, D] in shared memory, handed to epi(t, o, float4 of columns o..o+3).
-// An item is kGemmRows rows x 4 columns; the lanes of a warp take
-// neighbouring column quads (conflict-free float4 loads of W, broadcast
-// loads of A), and each W float4 feeds kGemmRows rows. 3 rows, the k loop
-// unrolled 4 times: at the main path's 22 frames a CTA that is 256 items,
-// one a thread, and the fastest of the tiles vslnet_torch/bench/
+// The backward's product tile (vsl::smem_gemm): 3 rows x 4 columns, the k
+// loop unrolled 4 times; at the main path's 22 frames a CTA that is 256
+// items, one a thread, and the fastest of the tiles vslnet_torch/bench/
 // conv_plans.py times at T = 128 and 12 (PERF.md).
 constexpr int kGemmRows = 3;
 constexpr int kGemmUnroll = 4;
-template <typename Epi>
-__device__ void smem_gemm(const float* A, int rows, int D, const float* W, Epi epi) {
-  constexpr int R = kGemmRows;
-  const int D4 = D / 4;
-  const int items = (rows + R - 1) / R * D4;
-  const float4* A4 = reinterpret_cast<const float4*>(A);
-  const float4* W4 = reinterpret_cast<const float4*>(W);
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int c4 = it % D4, t0 = it / D4 * R;
-    float4 acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-    int ta[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) ta[r] = min(t0 + r, rows - 1) * D4;  // ragged edge: never stored
-#pragma unroll kGemmUnroll
-    for (int k4 = 0; k4 < D4; ++k4) {
-      const float4 w0 = W4[(4 * k4 + 0) * D4 + c4], w1 = W4[(4 * k4 + 1) * D4 + c4];
-      const float4 w2 = W4[(4 * k4 + 2) * D4 + c4], w3 = W4[(4 * k4 + 3) * D4 + c4];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 a = A4[ta[r] + k4];
-        acc[r].x = fmaf(a.x, w0.x, acc[r].x);
-        acc[r].y = fmaf(a.x, w0.y, acc[r].y);
-        acc[r].z = fmaf(a.x, w0.z, acc[r].z);
-        acc[r].w = fmaf(a.x, w0.w, acc[r].w);
-        acc[r].x = fmaf(a.y, w1.x, acc[r].x);
-        acc[r].y = fmaf(a.y, w1.y, acc[r].y);
-        acc[r].z = fmaf(a.y, w1.z, acc[r].z);
-        acc[r].w = fmaf(a.y, w1.w, acc[r].w);
-        acc[r].x = fmaf(a.z, w2.x, acc[r].x);
-        acc[r].y = fmaf(a.z, w2.y, acc[r].y);
-        acc[r].z = fmaf(a.z, w2.z, acc[r].z);
-        acc[r].w = fmaf(a.z, w2.w, acc[r].w);
-        acc[r].x = fmaf(a.w, w3.x, acc[r].x);
-        acc[r].y = fmaf(a.w, w3.y, acc[r].y);
-        acc[r].z = fmaf(a.w, w3.z, acc[r].z);
-        acc[r].w = fmaf(a.w, w3.w, acc[r].w);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (t0 + r < rows) epi(t0 + r, 4 * c4, acc[r]);
-  }
-}
-
-// W [D, D] <- src [D, D] (global, 16-byte aligned) by cp.async, left in
-// flight: wait_weights() before W is read.
-__device__ void load_weights(float* W, const float* __restrict__ src, int D) {
-  const uint32_t w = static_cast<uint32_t>(__cvta_generic_to_shared(W));
-  for (int i = threadIdx.x; i < D * D / 4; i += blockDim.x)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(w + 16u * i), "l"(src + 4 * i)
-                 : "memory");
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void wait_weights() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // The halo rows of a window buf [F + K - 1][D] whose own frames [c0, c0 + nf)
 // sit at rows [lo, lo + nf): each row h outside them is frame c0 - lo + h,
@@ -253,20 +163,6 @@ __device__ void fill_halo(cg::cluster_group& cluster, float* buf, int lo, int c0
   }
 }
 
-// dst [K][D] <- a layer's depthwise taps src [K][D] (global, 16-byte
-// aligned) by cp.async, a group of their own: issued before the weights,
-// wait_taps() waits for them and leaves the weights in flight.
-__device__ void load_taps(float* dst, const float* __restrict__ src, int K, int D) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  for (int i = threadIdx.x; i < K * D / 4; i += blockDim.x)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d + 16u * i), "l"(src + 4 * i)
-                 : "memory");
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void wait_taps() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // out[t][c] = sum_j win[t + j][c] * taps[j][c] for the nf own frames: the
 // depthwise product over a window (taps in order, as the plain version
 // adds them) or its transpose (taps reversed).
@@ -281,6 +177,59 @@ __device__ void window_taps(const float* win, const float* taps, int nf, int D, 
                  acc);
     out[i] = acc;
   }
+}
+
+// The forward's product tile: R rows x 4 columns (R = 3 above 16 frames a
+// CTA, so that the main path's 22 are 256 items, one a thread; else 2),
+// the k loop unrolled 4 times.
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+conv_block_fwd_cluster_kernel(const float* __restrict__ x, ConvParams p, vsl::Dropout drop,
+                              float* __restrict__ out, int F) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2;
+  const int N = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = static_cast<int>(blockIdx.x) / N;
+  const int c0 = rank * F, nf = min(F, T - c0);  // the own frames [c0, c0 + nf)
+  const FwdLayout lay(F, D, K);
+  float* X = reinterpret_cast<float*>(smem4);
+  float* NW = X + lay.FD;
+  float* P = NW + 2 * lay.HD;
+  float* W = P + lay.FD;
+  float* DW = W + (size_t)D * D;
+  const size_t own = ((size_t)b * T + c0) * D;
+  const uint32_t seed = drop.seed(b);
+  const int nel = nf * D;
+  for (int i = threadIdx.x; i < nel; i += blockDim.x) X[i] = x[own + i];
+  for (int l = 0; l < p.L; ++l) {
+    float* NWl = NW + (l & 1) * lay.HD;
+    __syncthreads();  // X written; W, DW and P read by the layer before
+    vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
+    vsl::cp_async_floats(W, p.wp + (size_t)l * D * D, D * D);  // lands behind the LN and depthwise
+    vsl::layer_norm_rows(X, NWl + (size_t)pad * D, p.gam + (size_t)l * D,
+                         p.beta + (size_t)l * D, nf, D);
+    cluster.sync();  // every CTA's n_l, before the halo reads
+    fill_halo(cluster, NWl, pad, c0, nf, F, T, D, K);
+    vsl::cp_async_wait<1>();
+    __syncthreads();
+    window_taps<false>(NWl, DW, nf, D, K, P);  // P[t] = sum_j n(t + j - pad) dw[j]
+    vsl::cp_async_wait<0>();
+    __syncthreads();
+    const float* bpl = p.bp + (size_t)l * D;
+    const uint32_t salt = vsl::site_salt(0x100u + l);
+    vsl::smem_gemm<R, 4>(P, D, nf, D, W, D, D, [&](int t, int o, float4 acc) {
+      const float a[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        X[(size_t)t * D + o + q] +=
+            drop.apply(fmaxf(a[q] + __ldg(bpl + o + q), 0.f), seed, salt, c0 + t, o + q);
+    });
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nel; i += blockDim.x) out[own + i] = X[i];
+  cluster.sync();  // no CTA leaves while a neighbour may read its window
 }
 
 // Per-CTA partials part [B * N, L, 3 + K, D]: dgam, dbeta, dbp, then ddw [K, D].
@@ -322,23 +271,23 @@ conv_block_bwd_cluster_kernel(const float* __restrict__ x, ConvParams p,
     float* Xl = X + l * FD;
     float* NWl = NW + l * HD;
     uint8_t* Ml = M + l * FD4;
-    load_taps(DW, p.dw + (size_t)l * K * D, K, D);
-    load_weights(W, p.wp + (size_t)l * D * D, D);  // lands during the LN and depthwise
+    vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
+    vsl::cp_async_floats(W, p.wp + (size_t)l * D * D, D * D);  // lands during the LN and depthwise
     __syncthreads();  // x_l written
     vsl::layer_norm_rows(Xl, NWl + (size_t)pad * D, p.gam + (size_t)l * D,
                          p.beta + (size_t)l * D, nf, D);
     cluster.sync();  // every CTA's n_l, before the halo reads
     fill_halo(cluster, NWl, pad, c0, nf, F, T, D, K);
-    wait_taps();
+    vsl::cp_async_wait<1>();
     __syncthreads();
     window_taps<false>(NWl, DW, nf, D, K, P);  // P[t] = sum_j n(t + j - pad) dw[j]
     for (int i = tid; i < nel; i += nt) d_ws[l * layer + own + i] = P[i];  // own writes: no barrier
-    wait_weights();
+    vsl::cp_async_wait<0>();
     __syncthreads();
     const float* bpl = p.bp + (size_t)l * D;
     const uint32_t salt = vsl::site_salt(0x100u + l);
     const bool next = l + 1 < L;
-    smem_gemm(P, nf, D, W, [&](int t, int o, float4 acc) {
+    vsl::smem_gemm<kGemmRows, kGemmUnroll>(P, D, nf, D, W, D, D, [&](int t, int o, float4 acc) {
       const float a[4] = {acc.x, acc.y, acc.z, acc.w};
       uint32_t bits = 0;
 #pragma unroll
@@ -366,8 +315,8 @@ conv_block_bwd_cluster_kernel(const float* __restrict__ x, ConvParams p,
     float* GN = GW + ((l + 1) & 1) * HD;
     const float* gam = p.gam + (size_t)l * D;
     float* pr = part + ((size_t)blockIdx.x * L + l) * (3 + K) * D;
-    load_taps(DW, p.dw + (size_t)l * K * D, K, D);  // both land behind the g_p pass
-    load_weights(W, wpT + (size_t)l * D * D, D);
+    vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);  // both land behind the g_p pass
+    vsl::cp_async_floats(W, wpT + (size_t)l * D * D, D * D);
     __syncthreads();  // G written
     for (int i = tid; i < nel; i += nt) {  // g_p = mask * drop(G)
       const int t = i / D, c = i - t * D;
@@ -376,14 +325,15 @@ conv_block_bwd_cluster_kernel(const float* __restrict__ x, ConvParams p,
       P[i] = gp;
       gp_ws[l * layer + own + i] = gp;
     }
-    wait_weights();
+    vsl::cp_async_wait<0>();
     __syncthreads();
     for (int c = tid; c < D; c += nt) {  // dbp
       float s = 0.f;
       for (int t = 0; t < nf; ++t) s += P[(size_t)t * D + c];
       pr[2 * D + c] = s;
     }
-    smem_gemm(P, nf, D, W, [&](int t, int o, float4 acc) {  // g_d = g_p . wp^T
+    // g_d = g_p . wp^T
+    vsl::smem_gemm<kGemmRows, kGemmUnroll>(P, D, nf, D, W, D, D, [&](int t, int o, float4 acc) {
       *reinterpret_cast<float4*>(GWl + (size_t)(gl + t) * D + o) = acc;
     });
     cluster.sync();  // every CTA's g_d, before the halo reads
@@ -575,14 +525,12 @@ conv_layer_bwd_b_kernel(const float* __restrict__ xin, ConvParams p, int l,
   float* XH = reinterpret_cast<float*>(smem4);  // [rows, D] xh of the LN halo
   float* GD = XH + (size_t)(kTile + K - 1) * D;  // [rows, D] g_d, zero outside [0, T)
   float* inv = GD + (size_t)(kTile + K - 1) * D; // [rows]
-  float* red = inv + kTile + K - 1;             // [kWarps, 2D]
   const size_t row = (size_t)b * T * D;
   const float* gam = p.gam + (size_t)l * D;
   const float* beta = p.beta + (size_t)l * D;
   const float* dwl = p.dw + (size_t)l * K * D;
   float* pr = part + ((size_t)(b * gridDim.x + blockIdx.x) * p.L + l) * (3 + K) * D;
   const int lo = max(h0, 0), hi = min(h0 + rows, T);
-  for (int i = threadIdx.x; i < kWarps * 2 * D; i += blockDim.x) red[i] = 0.f;
   for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
     const int t = g0 + i / D;
     GD[i] = (t >= 0 && t < T) ? gd[row + (size_t)t * D + i % D] : 0.f;
@@ -602,35 +550,58 @@ conv_layer_bwd_b_kernel(const float* __restrict__ xin, ConvParams p, int l,
     }
     pr[3 * D + i] = s;
   }
-  // g_n(t, c) = sum_j g_d(t + pad - j, c) * dw[j, c]; then the LN backward
-  // over the tile's own frames, G += dx_ln
-  auto g_n = [&](int r, int c) {
-    float s = 0.f;
-    for (int j = 0; j < K; ++j)
-      s = fmaf(GD[(size_t)(t0 + r + pad - j - g0) * D + c], __ldg(dwl + (size_t)j * D + c), s);
-    return s;
-  };
-  vsl::ln_backward_rows(XH + (size_t)(t0 - h0) * D, inv + (t0 - h0), gam, nt, D, red, g_n,
+  // g_n(t0 + r, c) = sum_j g_d(t0 + r + pad - j, c) * dw[j, c], which reads
+  // GD's rows r .. r + K - 1, into GD's row r in place: chunks of rows in
+  // increasing order, each computed into registers before any of it is
+  // written
+  const int chunk = kGnPer * kThreads / D;
+  for (int r0 = 0; r0 < nt; r0 += chunk) {
+    const int n = min(chunk, nt - r0) * D;
+    float v[kGnPer];
+#pragma unroll
+    for (int q = 0; q < kGnPer; ++q) {
+      const int i = threadIdx.x + q * kThreads, r = r0 + i / D, c = i % D;
+      v[q] = 0.f;
+      if (i < n)
+        for (int j = 0; j < K; ++j)
+          v[q] = fmaf(GD[(size_t)(r + K - 1 - j) * D + c], __ldg(dwl + (size_t)j * D + c), v[q]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kGnPer; ++q) {
+      const int i = threadIdx.x + q * kThreads;
+      if (i < n) GD[(size_t)r0 * D + i] = v[q];
+    }
+    __syncthreads();
+  }
+  // the LN backward over the tile's own frames (dgam, dbeta), G += dx_ln
+  vsl::ln_backward_rows(GD, XH + (size_t)(t0 - h0) * D, inv + (t0 - h0), gam, nt, D, pr, pr + D,
                         [&](int r, int c, float v) { G[row + (size_t)(t0 + r) * D + c] += v; });
-  __syncthreads();
-  vsl::fold_rows(red, kWarps, 2 * D, pr);  // dgam, dbeta
 }
 
 int tiles(int T) { return (T + kTile - 1) / kTile; }
 
 }  // namespace
 
+// The forward on conv_fwd_plan's N CTAs a row, F frames a CTA (N = ceil(T /
+// F) <= 8).
 extern "C" int vsl_conv_block_fwd(const float* x, const float* gam, const float* beta,
                                   const float* dw, const float* wp, const float* bp,
                                   const float* seeds, unsigned thresh, float scale, float* out,
-                                  int B, int T, int D, int L, int K, void* stream) {
-  const int smem = 3 * T * D * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(conv_block_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  conv_block_fwd_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, make_params(gam, beta, dw, wp, bp, T, D, L, K), vsl::Dropout{seeds, thresh, scale}, out);
-  return static_cast<int>(cudaGetLastError());
+                                  int B, int T, int D, int L, int K, int N, int F, void* stream) {
+  if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || N < 1 || N > 8 ||
+      N != (T + F - 1) / F)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = FwdLayout(F, D, K).floats(D, K) * sizeof(float);
+  const ConvParams p = make_params(gam, beta, dw, wp, bp, T, D, L, K);
+  const vsl::Dropout drop{seeds, thresh, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = F <= 16 ? vsl::launch_cluster(conv_block_fwd_cluster_kernel<2>, B * N, N,
+                                                  kThreads, smem, s, x, p, drop, out, F)
+                            : vsl::launch_cluster(conv_block_fwd_cluster_kernel<3>, B * N, N,
+                                                  kThreads, smem, s, x, p, drop, out, F);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
 }
 
 // The backward on conv_plan's N CTAs a row, F frames a CTA (N = ceil(T /
@@ -698,9 +669,10 @@ extern "C" int vsl_conv_block_bwd_tiled(const float* x, const float* xs, const f
                                         float* gd_ws, float* part, float* gemm_ws, int splits,
                                         int B, int T, int D, int L, int K, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (D > kGnPer * kThreads) return static_cast<int>(cudaErrorInvalidValue);
   const int smem_a = ((3 * kTile + K - 1) * D) * static_cast<int>(sizeof(float));
   const int smem_b =
-      (2 * (kTile + K - 1) * D + kTile + K - 1 + kWarps * 2 * D) * static_cast<int>(sizeof(float));
+      (2 * (kTile + K - 1) * D + kTile + K - 1) * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(conv_layer_bwd_a_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a);
   if (err != cudaSuccess) return static_cast<int>(err);

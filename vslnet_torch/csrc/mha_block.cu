@@ -28,34 +28,53 @@
 // qkv [B, T, 3D] and att [B, T, D] go through device memory (L2-resident at
 // the served shapes); the backward takes them as saved residuals.
 //
-// Backward: a row's q, k, v, P and dP do not fit one block's shared memory
-// together, so it is three launches too, plus the weight products.
-//   1. dense + LN2 backward, one block per row: g_dpre, g_res and g_att.
-//   2. attention backward, grid (B, n_heads): P recomputed from q, k and
-//      the mask, dS kept in shared memory ([T, T+1]), dq by query rows,
-//      dk and dv by key columns.
-//   3. QKV + LN1 backward, one block per row: dx.
+// Backward: three launches, plus the weight products; the plan (frames a
+// tile F, weight slice SK, query tile TQ) is ops/kernels.py mha_bwd_plan.
+//   1. dense + LN2 backward on a grid of (tiles of F frames, rows): the
+//      frames couple only through the weight and LN column sums. g_dpre,
+//      g_z = g_dpre . Wd^T (Wd^T streamed into shared memory by cp.async in
+//      double-buffered slices of SK rows, the product register-tiled out of
+//      shared memory), g_res and g_att.
+//   2. attention backward, a thread-block cluster of ceil(T / TQ) CTAs a
+//      (row, head), CTA r taking the query rows [r TQ, (r + 1) TQ) against
+//      all keys: S = Q.K^T as a register-tiled product into shared memory,
+//      P and drop(P) by warp reductions over each row, the keep bits hashed
+//      once a (t, j), D_t = g_att_t . att_t from the saved output
+//      (att = drop(P).V, so this is sum_j dP * P without a pass over the
+//      keys), dV = drop(P)^T.G, dS = P * (drop(G.V^T) - D_t) in place,
+//      dQ = dS.K and dK = dS^T.Q, all register-tiled out of shared
+//      memory; each CTA's dK and dV partials over its query rows are
+//      summed in rank order through distributed shared memory by the CTA
+//      that owns those key rows.
+//   3. QKV + LN1 backward on the grid of launch 1: g_y = dqkv . Wqkv^T
+//      (Wqkv^T [3D, D] streamed in slices), dx.
 // dwd = sum over rows of z^T . g_dpre and dwqkv = y^T . dqkv are
 // deterministic split-K products (common.cuh wgrad); the bias and LN
-// gradients are per-row partials summed over the batch in a fixed order.
+// gradients are per-tile column sums in frame order, summed over the
+// tiles in a fixed order. No atomics: two equal calls give equal bits.
 //
 // What bounds them: the projections' 2*T*D*4D FLOPs a row (twice that and
-// more in the backward) on few SMs, and the attention's per-thread serial
-// key loops; bytes are a read of x (and g), the weights and the saved qkv
-// and att, and a write of the output (dx and the weight gradients).
+// more in the backward) and, in the attention, 10*T*T*hd FLOPs a (row,
+// head) of small products out of shared memory; bytes are a read of x
+// (and g), the weights and the saved qkv and att, and a write of the
+// output (dx and the weight gradients).
 //
-// The attention launches (2 of the forward, 2 of the backward) also serve
-// on their own as the whole-T fused_mha kernels (vsl_mha_fwd, vsl_mha_bwd
-// at the end): they take q, k, v and the outputs through base pointers and
-// row strides, so one device body serves both callers. Those are bound by
-// the per-thread key loops on B * n_heads blocks.
+// The forward's attention launch and the old one-thread-a-query-row
+// attention backward also serve on their own as the whole-T fused_mha
+// kernels (vsl_mha_fwd, vsl_mha_bwd at the end): they take q, k, v and
+// the outputs through base pointers and row strides, so one device body
+// serves both callers. Those are bound by the per-thread key loops on
+// B * n_heads blocks.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "hash.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;
 constexpr int kChunk = 64;  // output columns per block in forward launches 1 and 3
 
@@ -181,79 +200,336 @@ cudaError_t launch_attention(const float* q, const float* k, const float* v, int
 }
 
 // --- backward ------------------------------------------------------------------
-// Per-row partials part [B, 8D]: dgam [2D], dbeta [2D], dbqkv [3D], dbd [D].
+// Per-tile partials part [B * tiles, 8D]: dgam [2D], dbeta [2D], dbqkv [3D],
+// dbd [D].
 
-// 1. out = drop203(z.Wd + bd) + res: g_dpre = drop203(g) (and dbd);
-// g_z = g_dpre . Wd^T; z = drop202(LN2(res)): LN2 backward (dgam2, dbeta2);
-// g_res = g + the LN2 path; g_att = drop201(g_res). Writes z and g_dpre
-// (for dwd), g_res and g_att.
-__global__ void __launch_bounds__(kThreads)
-bwd_out_kernel(const float* __restrict__ x, const float* __restrict__ att,
-               const float* __restrict__ gam, const float* __restrict__ beta,
-               const float* __restrict__ wdT, vsl::Dropout drop, const float* __restrict__ g,
-               float* __restrict__ z_ws, float* __restrict__ gdpre_ws,
-               float* __restrict__ gres_ws, float* __restrict__ gatt_ws,
-               float* __restrict__ part, int T, int D) {
-  extern __shared__ float4 smem4[];
-  const int TD = T * D;
-  float* XH = reinterpret_cast<float*>(smem4);  // res, then its xh
-  float* GD = XH + TD;                           // g_dpre
-  float* GZ = GD + TD;                           // g_z
-  float* inv = GZ + TD;                          // [T]
-  float* red = inv + T;                          // [kWarps, 2D]
-  const int b = blockIdx.x;
-  const size_t row = (size_t)b * TD;
-  const uint32_t seed = drop.seed(b);
-  const uint32_t s201 = vsl::site_salt(0x201u), s202 = vsl::site_salt(0x202u),
-                 s203 = vsl::site_salt(0x203u);
-  float* pr = part + (size_t)b * 8 * D;
-  for (int i = threadIdx.x; i < TD; i += blockDim.x) {
-    const int t = i / D, c = i - t * D;
-    const float gd = drop.apply(g[row + i], seed, s203, t, c);
-    GD[i] = gd;
-    gdpre_ws[row + i] = gd;
-    XH[i] = drop.apply(att[row + i], seed, s201, t, c) + x[row + i];
-  }
-  for (int i = threadIdx.x; i < kWarps * 2 * D; i += blockDim.x) red[i] = 0.f;
-  __syncthreads();
-  vsl::ln_normalize_rows(XH, XH, inv, T, D);
-  vsl::gemm_rows<kRows>(GD, T, D, wdT, D, 0, D,
-                        [&](int t, int o, float acc) { GZ[(size_t)t * D + o] = acc; });
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    float s = 0.f;
-    for (int t = 0; t < T; ++t) s += GD[(size_t)t * D + c];
-    pr[7 * D + c] = s;  // dbd
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < TD; i += blockDim.x) {
-    const int t = i / D, c = i - t * D;
-    z_ws[row + i] = drop.apply(XH[i] * __ldg(gam + c) + __ldg(beta + c), seed, s202, t, c);
-  }
-  vsl::ln_backward_rows(
-      XH, inv, gam, T, D, red,
-      [&](int t, int c) { return drop.apply(GZ[(size_t)t * D + c], seed, s202, t, c); },
-      [&](int t, int c, float v) {
-        const size_t i = row + (size_t)t * D + c;
-        const float gr = g[i] + v;
-        gres_ws[i] = gr;
-        gatt_ws[i] = drop.apply(gr, seed, s201, t, c);
-      });
-  __syncthreads();
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    float sg = 0.f, sb = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      sg += red[(size_t)w * 2 * D + c];
-      sb += red[(size_t)w * 2 * D + D + c];
+constexpr int kBwdGemmRows = 2;  // the per-frame launches' product tile: rows an item
+
+// The per-frame launches' shared memory for F frames a tile and weight
+// slices of SK rows, in floats: launch 1 the slices [2][SK][D], GD, XH, GZ
+// [F][D] and inv [F4]; launch 3 the slices, DQ [F][3D], XH, GY [F][D] and
+// inv (ops/kernels.py mha_bwd_plan reports them; the launch uses these).
+__host__ __device__ inline size_t out_tile_floats(int F, int SK, int D) {
+  return 2 * (size_t)SK * D + 3 * (size_t)F * D + ((size_t)F + 3) / 4 * 4;
+}
+__host__ __device__ inline size_t qkv_tile_floats(int F, int SK, int D) {
+  return 2 * (size_t)SK * D + 5 * (size_t)F * D + ((size_t)F + 3) / 4 * 4;
+}
+
+// C [rows, ncols] = A [rows, K] (row stride lda, shared) . W [K, ncols]
+// (global, row-major), W streamed through buf [2][SK][ncols] in slices of
+// SK rows by cp.async, each slice's product register-tiled (smem_gemm) and
+// added to C in slice order. The caller has issued the first slice into
+// buf as the last cp.async group; every thread calls this, and it ends
+// with a block barrier.
+__device__ void streamed_gemm(const float* A, int lda, int rows, int K, const float* __restrict__ Wg,
+                              int ncols, float* buf, int SK, float* C) {
+  const int S = K / SK;
+  for (int s = 0; s < S; ++s) {
+    if (s + 1 < S) {
+      vsl::cp_async_floats(buf + (size_t)((s + 1) & 1) * SK * ncols,
+                           Wg + (size_t)(s + 1) * SK * ncols, SK * ncols);
+      vsl::cp_async_wait<1>();
+    } else {
+      vsl::cp_async_wait<0>();
     }
-    pr[D + c] = sg;      // dgam of LN2
-    pr[3 * D + c] = sb;  // dbeta of LN2
+    __syncthreads();  // slice s landed for every thread; C's last slice written
+    vsl::smem_gemm<kBwdGemmRows, 4>(
+        A + s * SK, lda, rows, SK, buf + (size_t)(s & 1) * SK * ncols, ncols, ncols,
+        [&](int t, int o, float4 acc) {
+          float4* c = reinterpret_cast<float4*>(C + (size_t)t * ncols + o);
+          if (s > 0) {
+            const float4 v = *c;
+            acc.x += v.x;
+            acc.y += v.y;
+            acc.z += v.z;
+            acc.w += v.w;
+          }
+          *c = acc;
+        });
+    __syncthreads();  // slice s read before its buffer takes slice s + 2
   }
 }
 
-// 2. attention backward for one (row, head). Phase A, a thread per query
-// row t: m, l and D_t = sum_j dp * p, then ds = p * (dp - D_t) into DS and
-// dq = scale * ds . k. Phase B, a thread per key column j: P recomputed,
-// dv = sum_t drop(p) * g_t and dk = sum_t ds * q_t * scale.
+// 1. out = drop203(z.Wd + bd) + res: g_dpre = drop203(g) (and dbd); g_z =
+// g_dpre . Wd^T; z = drop202(LN2(res)): the LN2 backward (dgam2, dbeta2);
+// g_res = g + the LN2 path; g_att = drop201(g_res). One tile of F frames
+// of one row; writes z and g_dpre (for dwd), g_res and g_att.
+__global__ void __launch_bounds__(kThreads)
+bwd_out_tile_kernel(const float* __restrict__ x, const float* __restrict__ att,
+                    const float* __restrict__ gam, const float* __restrict__ beta,
+                    const float* __restrict__ wdT, vsl::Dropout drop, const float* __restrict__ g,
+                    float* __restrict__ z_ws, float* __restrict__ gdpre_ws,
+                    float* __restrict__ gres_ws, float* __restrict__ gatt_ws,
+                    float* __restrict__ part, int T, int D, int F, int SK) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0), nel = nf * D;
+  const size_t FD = (size_t)F * D;
+  float* buf = reinterpret_cast<float*>(smem4);
+  float* GD = buf + 2 * (size_t)SK * D;  // g_dpre
+  float* XH = GD + FD;                   // res, then its xh
+  float* GZ = XH + FD;                   // g_z, then drop202(g_z)
+  float* inv = GZ + FD;                  // [F]
+  const size_t tile = ((size_t)b * T + t0) * D;
+  const uint32_t seed = drop.seed(b);
+  const uint32_t s201 = vsl::site_salt(0x201u), s202 = vsl::site_salt(0x202u),
+                 s203 = vsl::site_salt(0x203u);
+  float* pr = part + ((size_t)b * gridDim.x + blockIdx.x) * 8 * D;
+  vsl::cp_async_floats(buf, wdT, SK * D);  // lands behind the loads and the LN
+  for (int i = threadIdx.x; i < nel; i += blockDim.x) {
+    const int t = t0 + i / D, c = i % D;
+    const float gd = drop.apply(g[tile + i], seed, s203, t, c);
+    GD[i] = gd;
+    gdpre_ws[tile + i] = gd;
+    XH[i] = drop.apply(att[tile + i], seed, s201, t, c) + x[tile + i];
+  }
+  __syncthreads();
+  vsl::ln_normalize_rows(XH, XH, inv, nf, D);
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    float s = 0.f;
+    for (int t = 0; t < nf; ++t) s += GD[(size_t)t * D + c];
+    pr[7 * D + c] = s;  // dbd
+  }
+  streamed_gemm(GD, D, nf, D, wdT, D, buf, SK, GZ);  // g_z = g_dpre . Wd^T
+  for (int i = threadIdx.x; i < nel; i += blockDim.x) {
+    const int t = t0 + i / D, c = i % D;
+    GZ[i] = drop.apply(GZ[i], seed, s202, t, c);
+    z_ws[tile + i] = drop.apply(XH[i] * __ldg(gam + c) + __ldg(beta + c), seed, s202, t, c);
+  }
+  __syncthreads();
+  vsl::ln_backward_rows(  // dgam, dbeta of LN2
+      GZ, XH, inv, gam, nf, D, pr + D, pr + 3 * D, [&](int t, int c, float v) {
+        const size_t i = tile + (size_t)t * D + c;
+        const float gr = g[i] + v;
+        gres_ws[i] = gr;
+        gatt_ws[i] = drop.apply(gr, seed, s201, t0 + t, c);
+      });
+}
+
+// 3. qkv = y.Wqkv + bqkv, y = drop200(LN1(x)): dbqkv, g_y = dqkv . Wqkv^T,
+// the LN1 backward (dgam1, dbeta1), dx = g_res + the LN1 path. One tile of
+// F frames of one row; writes y (for dwqkv) and dx.
+__global__ void __launch_bounds__(kThreads)
+bwd_qkv_tile_kernel(const float* __restrict__ x, const float* __restrict__ gam,
+                    const float* __restrict__ beta, const float* __restrict__ wqkvT,
+                    vsl::Dropout drop, const float* __restrict__ dqkv,
+                    const float* __restrict__ gres_ws, float* __restrict__ y_ws,
+                    float* __restrict__ dx, float* __restrict__ part, int T, int D, int F, int SK) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0), nel = nf * D;
+  const size_t FD = (size_t)F * D;
+  float* buf = reinterpret_cast<float*>(smem4);
+  float* DQ = buf + 2 * (size_t)SK * D;  // dqkv [F][3D]
+  float* XH = DQ + 3 * FD;               // xh of LN1
+  float* GY = XH + FD;                   // g_y, then drop200(g_y)
+  float* inv = GY + FD;                  // [F]
+  const size_t tile = ((size_t)b * T + t0) * D;
+  const uint32_t seed = drop.seed(b), s200 = vsl::site_salt(0x200u);
+  float* pr = part + ((size_t)b * gridDim.x + blockIdx.x) * 8 * D;
+  vsl::cp_async_floats(buf, wqkvT, SK * D);  // lands behind the loads and the LN
+  for (int i = threadIdx.x; i < 3 * nel; i += blockDim.x) DQ[i] = dqkv[3 * tile + i];
+  vsl::ln_normalize_rows(x + tile, XH, inv, nf, D);
+  __syncthreads();
+  for (int c = threadIdx.x; c < 3 * D; c += blockDim.x) {
+    float s = 0.f;
+    for (int t = 0; t < nf; ++t) s += DQ[(size_t)t * 3 * D + c];
+    pr[4 * D + c] = s;  // dbqkv
+  }
+  streamed_gemm(DQ, 3 * D, nf, 3 * D, wqkvT, D, buf, SK, GY);  // g_y = dqkv . Wqkv^T
+  for (int i = threadIdx.x; i < nel; i += blockDim.x) {
+    const int t = t0 + i / D, c = i % D;
+    GY[i] = drop.apply(GY[i], seed, s200, t, c);
+    y_ws[tile + i] = drop.apply(XH[i] * __ldg(gam + c) + __ldg(beta + c), seed, s200, t, c);
+  }
+  __syncthreads();
+  vsl::ln_backward_rows(  // dgam, dbeta of LN1
+      GY, XH, inv, gam, nf, D, pr, pr + 2 * D, [&](int t, int c, float v) {
+        const size_t i = tile + (size_t)t * D + c;
+        dx[i] = gres_ws[i] + v;
+      });
+}
+
+// out(m, n) = sum_k a(m, k) * b(k, n) for m < M, n < N, k < Kd, one fmaf
+// chain over k in order, handed to epi(m, n, v). A work item is RM rows m =
+// mi + i * MT and RN columns n = ni + j * NT (MT = ceil(M / RM), NT =
+// ceil(N / RN)), ni fastest: neighbouring threads take neighbouring
+// columns, so rows of an operand laid out along k with an odd stride are
+// read without bank conflicts, and rows shared by a warp are broadcast.
+template <int RM, int RN, typename A, typename Bf, typename Epi>
+__device__ void tile_product(int M, int N, int Kd, A a, Bf b, Epi epi) {
+  const int MT = (M + RM - 1) / RM, NT = (N + RN - 1) / RN;
+  for (int it = threadIdx.x; it < MT * NT; it += blockDim.x) {
+    const int mi = it / NT, ni = it - mi * NT;
+    int m[RM], n[RN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) m[i] = min(mi + i * MT, M - 1);  // ragged: computed, never stored
+#pragma unroll
+    for (int j = 0; j < RN; ++j) n[j] = min(ni + j * NT, N - 1);
+    float acc[RM][RN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < Kd; ++k) {
+      float av[RM], bv[RN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) av[i] = a(m[i], k);
+#pragma unroll
+      for (int j = 0; j < RN; ++j) bv[j] = b(k, n[j]);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j)
+        if (mi + i * MT < M && ni + j * NT < N) epi(mi + i * MT, ni + j * NT, acc[i][j]);
+  }
+}
+
+// The block's attention backward's shared memory for query tiles of TQ
+// rows against T keys at head dim hd, in floats: Ks, Vs [T][hd + 1]; Qs (q
+// * scale), Gs (g_att) [TQ][hd + 1]; SP [TQ][T + 1] (S, then P, then dS);
+// PD [TQ][T + 1], drop(P); D_t [TQ]; the key mask's -1e30 terms [T]; this
+// CTA's dK and dV partials [T][hd] each.
+__host__ __device__ inline size_t attn_tile_floats(int T, int TQ, int hd) {
+  return 2 * (size_t)T * (hd + 1) + 2 * (size_t)TQ * (hd + 1) + 2 * (size_t)TQ * (T + 1) + TQ +
+         T + 2 * (size_t)T * hd;
+}
+
+// 2. the attention backward of one (row, head, query tile), in clusters of
+// ceil(T / TQ) CTAs a (row, head) along x, CTA r taking the query rows
+// [r TQ, min(T, (r + 1) TQ)). Reads q, k, v from qkv [B, T, 3D], the saved
+// attention output att and its gradient g_att [B, T, D]; writes dq, dk, dv
+// into dqkv [B, T, 3D].
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_cluster_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+                        vsl::Dropout drop, const float* __restrict__ att,
+                        const float* __restrict__ gatt, float* __restrict__ dqkv, int T, int D,
+                        int n_heads, int TQ, float scale) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nq = static_cast<int>(cluster.num_blocks());
+  const int r = static_cast<int>(cluster.block_rank());
+  const int bh = static_cast<int>(blockIdx.x) / nq, b = bh / n_heads, h = bh - b * n_heads;
+  const int t0 = r * TQ, nt = min(TQ, T - t0);
+  constexpr int LD = HD + 1;
+  const int lds = T + 1;
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + (size_t)T * LD;
+  float* Qs = Vs + (size_t)T * LD;
+  float* Gs = Qs + (size_t)TQ * LD;
+  float* SP = Gs + (size_t)TQ * LD;
+  float* PD = SP + (size_t)TQ * lds;
+  float* Dt = PD + (size_t)TQ * lds;
+  float* neg = Dt + TQ;
+  float* dKp = neg + T;
+  float* dVp = dKp + (size_t)T * HD;
+  const int ld3 = 3 * D;
+  const float* qb = qkv + (size_t)b * T * ld3 + h * HD;  // q; k at + D, v at + 2D
+  const size_t gb = (size_t)b * T * D + h * HD;           // att and g_att
+  float* db = dqkv + (size_t)b * T * ld3 + h * HD;
+  const uint32_t seed = drop.seed(b), salt = vsl::head_salt(h);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nth >> 5;
+  for (int i = tid; i < T * HD; i += nth) {
+    const int j = i / HD, d = i - j * HD;
+    Ks[j * LD + d] = qb[(size_t)j * ld3 + D + d];
+    Vs[j * LD + d] = qb[(size_t)j * ld3 + 2 * D + d];
+  }
+  for (int i = tid; i < nt * HD; i += nth) {
+    const int t = i / HD, d = i - t * HD;
+    Qs[t * LD + d] = qb[(size_t)(t0 + t) * ld3 + d] * scale;
+    Gs[t * LD + d] = gatt[gb + (size_t)(t0 + t) * D + d];
+  }
+  for (int j = tid; j < T; j += nth) neg[j] = (1.f - mask[(size_t)b * T + j]) * vsl::kMaskValue;
+  // D_t = sum_j P dP = g_att_t . att_t, since att = drop(P).V
+  for (int t = tid; t < nt; t += nth) {
+    const float* gt = gatt + gb + (size_t)(t0 + t) * D;
+    const float* at = att + gb + (size_t)(t0 + t) * D;
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) s = fmaf(gt[d], at[d], s);
+    Dt[t] = s;
+  }
+  __syncthreads();
+  // S = (q * scale).k^T + neg, the forward's scores bit for bit (head_score)
+  tile_product<4, 4>(
+      nt, T, HD, [&](int m, int k) { return Qs[m * LD + k]; },
+      [&](int k, int n) { return Ks[n * LD + k]; },
+      [&](int m, int n, float v) { SP[(size_t)m * lds + n] = v + neg[n]; });
+  __syncthreads();
+  // P and drop(P), one warp a query row, the keep bits hashed once a (t, j)
+  for (int t = warp; t < nt; t += nwarps) {
+    float* row = SP + (size_t)t * lds;
+    float* prow = PD + (size_t)t * lds;
+    float mx = -FLT_MAX;
+    for (int j = lane; j < T; j += 32) mx = fmaxf(mx, row[j]);
+    mx = vsl::warp_max(mx);
+    float l = 0.f;
+    for (int j = lane; j < T; j += 32) {
+      const float e = expf(row[j] - mx);
+      row[j] = e;
+      l += e;
+    }
+    const float linv = 1.f / vsl::warp_sum(l);
+    for (int j = lane; j < T; j += 32) {
+      const float p = row[j] * linv;
+      row[j] = p;
+      prow[j] = drop.keep(seed, salt, t0 + t, j) ? drop.kept(p) : 0.f;
+    }
+  }
+  __syncthreads();
+  // this CTA's dV = drop(P)^T . G over its query rows
+  tile_product<4, 2>(
+      T, HD, nt, [&](int j, int t) { return PD[(size_t)t * lds + j]; },
+      [&](int t, int d) { return Gs[t * LD + d]; },
+      [&](int j, int d, float v) { dVp[j * HD + d] = v; });
+  // dS = P * (drop(G.V^T) - D_t), in place: each element has one owner.
+  // Where P > 0, drop(P) > 0 exactly where the key is kept; where P = 0,
+  // dS = 0 whatever the keep.
+  tile_product<4, 4>(
+      nt, T, HD, [&](int m, int k) { return Gs[m * LD + k]; },
+      [&](int k, int n) { return Vs[n * LD + k]; },
+      [&](int t, int j, float dp) {
+        float* sp = SP + (size_t)t * lds + j;
+        const float dpd = PD[(size_t)t * lds + j] != 0.f ? drop.kept(dp) : 0.f;
+        *sp = *sp * (dpd - Dt[t]);
+      });
+  __syncthreads();
+  // dQ = scale * dS.K; this CTA's dK = dS^T . (q * scale) over its query rows
+  tile_product<2, 2>(
+      nt, HD, T, [&](int t, int j) { return SP[(size_t)t * lds + j]; },
+      [&](int j, int d) { return Ks[j * LD + d]; },
+      [&](int t, int d, float v) { db[(size_t)(t0 + t) * ld3 + d] = v * scale; });
+  tile_product<4, 2>(
+      T, HD, nt, [&](int j, int t) { return SP[(size_t)t * lds + j]; },
+      [&](int t, int d) { return Qs[t * LD + d]; },
+      [&](int j, int d, float v) { dKp[j * HD + d] = v; });
+  cluster.sync();  // every CTA's partials
+  // dK, dV of the key rows [t0, t0 + nt): the cluster's partials in rank order
+  for (int i = tid; i < nt * HD; i += nth) {
+    const int j = t0 + i / HD, d = i % HD;
+    float sk = 0.f, sv = 0.f;
+    for (int q = 0; q < nq; ++q) {
+      sk += cluster.map_shared_rank(dKp, q)[j * HD + d];
+      sv += cluster.map_shared_rank(dVp, q)[j * HD + d];
+    }
+    db[(size_t)j * ld3 + D + d] = sk;
+    db[(size_t)j * ld3 + 2 * D + d] = sv;
+  }
+  cluster.sync();  // no CTA leaves while another may read its partials
+}
+
+// The whole-T attention backward (fused_mha's, vsl_mha_bwd) for one (row,
+// head). Phase A, a thread per query row t: m, l and D_t = sum_j dp * p,
+// then ds = p * (dp - D_t) into DS and dq = scale * ds . k. Phase B, a
+// thread per key column j: P recomputed, dv = sum_t drop(p) * g_t and dk =
+// sum_t ds * q_t * scale.
 template <int HD>
 __global__ void attention_bwd_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
                                      const float* __restrict__ vp, int ld,
@@ -356,59 +632,6 @@ __global__ void attention_bwd_kernel(const float* __restrict__ qp, const float* 
   }
 }
 
-// 3. qkv = y.Wqkv + bqkv, y = drop200(LN1(x)): dbqkv, g_y = dqkv . Wqkv^T,
-// LN1 backward (dgam1, dbeta1), dx = g_res + the LN1 path. Writes y (for
-// dwqkv) and dx.
-__global__ void __launch_bounds__(kThreads)
-bwd_qkv_kernel(const float* __restrict__ x, const float* __restrict__ gam,
-               const float* __restrict__ beta, const float* __restrict__ wqkvT,
-               vsl::Dropout drop, const float* __restrict__ dqkv,
-               const float* __restrict__ gres_ws, float* __restrict__ y_ws,
-               float* __restrict__ dx, float* __restrict__ part, int T, int D) {
-  extern __shared__ float4 smem4[];
-  const int TD = T * D;
-  float* XH = reinterpret_cast<float*>(smem4);  // xh of LN1
-  float* GY = XH + TD;                           // g_y
-  float* inv = GY + TD;                          // [T]
-  float* red = inv + T;                          // [kWarps, 2D]
-  const int b = blockIdx.x;
-  const size_t row = (size_t)b * TD;
-  const uint32_t seed = drop.seed(b), s200 = vsl::site_salt(0x200u);
-  const float* dq = dqkv + (size_t)b * T * 3 * D;
-  float* pr = part + (size_t)b * 8 * D;
-  for (int i = threadIdx.x; i < kWarps * 2 * D; i += blockDim.x) red[i] = 0.f;
-  vsl::ln_normalize_rows(x + row, XH, inv, T, D);
-  vsl::gemm_rows<kRows>(dq, T, 3 * D, wqkvT, D, 0, D,
-                        [&](int t, int o, float acc) { GY[(size_t)t * D + o] = acc; });
-  for (int c = threadIdx.x; c < 3 * D; c += blockDim.x) {
-    float s = 0.f;
-    for (int t = 0; t < T; ++t) s += dq[(size_t)t * 3 * D + c];
-    pr[4 * D + c] = s;  // dbqkv
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < TD; i += blockDim.x) {
-    const int t = i / D, c = i - t * D;
-    y_ws[row + i] = drop.apply(XH[i] * __ldg(gam + c) + __ldg(beta + c), seed, s200, t, c);
-  }
-  vsl::ln_backward_rows(
-      XH, inv, gam, T, D, red,
-      [&](int t, int c) { return drop.apply(GY[(size_t)t * D + c], seed, s200, t, c); },
-      [&](int t, int c, float v) {
-        const size_t i = row + (size_t)t * D + c;
-        dx[i] = gres_ws[i] + v;
-      });
-  __syncthreads();
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    float sg = 0.f, sb = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      sg += red[(size_t)w * 2 * D + c];
-      sb += red[(size_t)w * 2 * D + D + c];
-    }
-    pr[c] = sg;          // dgam of LN1
-    pr[2 * D + c] = sb;  // dbeta of LN1
-  }
-}
-
 template <int HD>
 cudaError_t launch_attention_bwd(const float* q, const float* k, const float* v, int ld,
                                  const float* mask, vsl::Dropout drop, const float* gatt, int ldg,
@@ -425,10 +648,6 @@ cudaError_t launch_attention_bwd(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-cudaError_t set_smem(const void* kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 }  // namespace
 
 extern "C" int vsl_mha_block_fwd(const float* x, const float* mask, const float* gam,
@@ -439,7 +658,7 @@ extern "C" int vsl_mha_block_fwd(const float* x, const float* mask, const float*
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const vsl::Dropout drop{seeds, thresh, scale};
   const int smem1 = T * D * static_cast<int>(sizeof(float));
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(ln_qkv_kernel), smem1);
+  cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(ln_qkv_kernel), smem1);
   if (err != cudaSuccess) return static_cast<int>(err);
   ln_qkv_kernel<<<dim3(B, (3 * D + kChunk - 1) / kChunk), kThreads, smem1, stream>>>(
       x, gam, beta, wqkv, bqkv, drop, qkv, T, D);
@@ -453,7 +672,7 @@ extern "C" int vsl_mha_block_fwd(const float* x, const float* mask, const float*
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int smem3 = 2 * T * D * static_cast<int>(sizeof(float));
-  err = set_smem(reinterpret_cast<const void*>(out_kernel), smem3);
+  err = vsl::opt_in_smem(reinterpret_cast<const void*>(out_kernel), smem3);
   if (err != cudaSuccess) return static_cast<int>(err);
   out_kernel<<<dim3(B, (D + kChunk - 1) / kChunk), kThreads, smem3, stream>>>(
       x, att, gam + D, beta + D, wd, bd, drop, out, T, D);
@@ -461,9 +680,10 @@ extern "C" int vsl_mha_block_fwd(const float* x, const float* mask, const float*
 }
 
 // dsmall [8D]: dgam [2, D], dbeta [2, D], dbqkv [3D], dbd [D]; dwqkv
-// [D, 3D]; dwd [D, D]. Workspaces: z, gdpre, gres, gatt, y [B, T, D]; dqkv
-// [B, T, 3D]; part [B, 8D]; gemm_ws [splits, D, 3D] (unused when splits ==
-// 1).
+// [D, 3D]; dwd [D, D]. Plan: tiles of F frames, weight slices of SK rows
+// (D % SK == 0, SK % 4 == 0), query tiles of TQ rows (ceil(T / TQ) <= 8).
+// Workspaces: z, gdpre, gres, gatt, y [B, T, D]; dqkv [B, T, 3D]; part
+// [B * ceil(T / F), 8D]; gemm_ws [splits, D, 3D] (unused when splits == 1).
 extern "C" int vsl_mha_block_bwd(const float* x, const float* mask, const float* gam,
                                  const float* beta, const float* wqkvT, const float* wdT,
                                  const float* seeds, unsigned thresh, float scale,
@@ -471,33 +691,43 @@ extern "C" int vsl_mha_block_bwd(const float* x, const float* mask, const float*
                                  float* dsmall, float* dwqkv, float* dwd, float* z_ws,
                                  float* gdpre_ws, float* gres_ws, float* gatt_ws, float* y_ws,
                                  float* dqkv, float* part, float* gemm_ws, int splits, int B,
-                                 int T, int D, int n_heads, void* stream_) {
+                                 int T, int D, int n_heads, int F, int SK, int TQ,
+                                 void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const int nq = TQ > 0 ? (T + TQ - 1) / TQ : 0;
+  if (B < 1 || T < 1 || D < 4 || D % 4 || n_heads < 1 || D % n_heads || F < 1 || SK < 4 ||
+      SK % 4 || D % SK || nq < 1 || nq > 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   const vsl::Dropout drop{seeds, thresh, scale};
-  const int smem1 = (3 * T * D + T + kWarps * 2 * D) * static_cast<int>(sizeof(float));
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(bwd_out_kernel), smem1);
+  const dim3 grid((T + F - 1) / F, B);
+  const int smem1 = static_cast<int>(out_tile_floats(F, SK, D) * sizeof(float));
+  cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(bwd_out_tile_kernel), smem1);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_out_kernel<<<B, kThreads, smem1, stream>>>(x, att, gam + D, beta + D, wdT, drop, g, z_ws,
-                                                 gdpre_ws, gres_ws, gatt_ws, part, T, D);
+  bwd_out_tile_kernel<<<grid, kThreads, smem1, stream>>>(x, att, gam + D, beta + D, wdT, drop, g,
+                                                         z_ws, gdpre_ws, gres_ws, gatt_ws, part,
+                                                         T, D, F, SK);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   err = vsl::by_head_dim(D / n_heads, [&](auto hd) {
-    return launch_attention_bwd<decltype(hd)::value>(qkv, qkv + D, qkv + 2 * D, 3 * D, mask, drop,
-                                                     gatt_ws, D, dqkv, dqkv + D, dqkv + 2 * D,
-                                                     3 * D, B, T, n_heads, stream);
+    constexpr int HD = decltype(hd)::value;
+    const size_t smem2 = attn_tile_floats(T, TQ, HD) * sizeof(float);
+    cudaError_t e = vsl::launch_cluster(attn_bwd_cluster_kernel<HD>, B * n_heads * nq, nq,
+                                        kThreads, smem2, stream, qkv, mask, drop, att, gatt_ws,
+                                        dqkv, T, D, n_heads, TQ, vsl::head_scale(HD));
+    return e == cudaSuccess ? cudaGetLastError() : e;
   });
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int smem3 = (2 * T * D + T + kWarps * 2 * D) * static_cast<int>(sizeof(float));
-  err = set_smem(reinterpret_cast<const void*>(bwd_qkv_kernel), smem3);
+  const int smem3 = static_cast<int>(qkv_tile_floats(F, SK, D) * sizeof(float));
+  err = vsl::opt_in_smem(reinterpret_cast<const void*>(bwd_qkv_tile_kernel), smem3);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_qkv_kernel<<<B, kThreads, smem3, stream>>>(x, gam, beta, wqkvT, drop, dqkv, gres_ws, y_ws,
-                                                 dx, part, T, D);
+  bwd_qkv_tile_kernel<<<grid, kThreads, smem3, stream>>>(x, gam, beta, wqkvT, drop, dqkv, gres_ws,
+                                                         y_ws, dx, part, T, D, F, SK);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = vsl::sum_partials(part, dsmall, 1, B, 8 * D, stream);
+  err = vsl::sum_partials(part, dsmall, 1, B * grid.x, 8 * D, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = vsl::wgrad(z_ws, gdpre_ws, dwd, gemm_ws, 1, D, D, B * T, splits, stream);
   if (err != cudaSuccess) return static_cast<int>(err);

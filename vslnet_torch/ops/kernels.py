@@ -89,10 +89,10 @@ _SIGNATURES = {
     "vsl_lstm_recurrence_fwd": [_P] * 4 + [_I] * 7 + [_P],
     "vsl_lstm_recurrence_fwd_res": [_P] * 8 + [_I] * 7 + [_P],
     "vsl_lstm_recurrence_bwd": [_P] * 10 + [_I] * 8 + [_P],
-    "vsl_conv_block_fwd": [_P] * 7 + _DROP + [_P] + [_I] * 5 + [_P],
+    "vsl_conv_block_fwd": [_P] * 7 + _DROP + [_P] + [_I] * 7 + [_P],
     "vsl_conv_block_bwd": [_P] * 8 + _DROP + [_P] * 8 + [_I] * 8 + [_P],
     "vsl_mha_block_fwd": [_P] * 9 + _DROP + [_P] * 3 + [_I] * 4 + [_P],
-    "vsl_mha_block_bwd": [_P] * 7 + _DROP + [_P] * 15 + [_I] * 5 + [_P],
+    "vsl_mha_block_bwd": [_P] * 7 + _DROP + [_P] * 15 + [_I] * 8 + [_P],
     "vsl_cqa_concat_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "vsl_highlight_gate_fwd": [_P] * 6 + [_I] * 2 + [_P],
     "vsl_span_decode": [_P] * 4 + [_I] * 2 + [_P],
@@ -537,13 +537,13 @@ def fused_lstm_recurrence(x_proj, k_h, valid):
 # --- 2. conv block -------------------------------------------------------------
 # Replaces vslnet_tpu/ops/pallas_kernels.py:_make_conv_block_fwd_kernel and
 # _make_conv_block_bwd_kernel (via fused_conv_block). Kernels:
-# csrc/conv_block.cu. All L layers run in one launch with a row's
-# activations in shared memory. The forward takes one block a row, bound by
-# the pointwise products on the B SMs that hold one; the backward a cluster
-# of conv_plan's CTAs a row, each replaying the forward over its own frames
-# (the depthwise halo through distributed shared memory) and keeping every
-# layer's input, LayerNorm output and ReLU and dropout masks for the walk
-# back.
+# csrc/conv_block.cu. All L layers run in one launch, a thread-block
+# cluster a batch row each way, the depthwise halo through distributed
+# shared memory: the forward on conv_fwd_plan's CTAs, each keeping its
+# frames of the residual stream in shared memory; the backward on
+# conv_plan's, each replaying the forward over its own frames and keeping
+# every layer's input, LayerNorm output and ReLU and dropout masks for the
+# walk back.
 
 
 def conv_block_plain(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
@@ -555,10 +555,6 @@ def conv_block_plain(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
                                 bp[l])
         x = x + site_dropout(r, seeds, 0x100 + l, drop_rate)
     return x
-
-
-def conv_block_smem_bytes(T, D):
-    return 3 * T * D * 4
 
 
 CONV_CLUSTER = 8  # the most CTAs a row: the most every sm_90 part schedules
@@ -589,9 +585,10 @@ def _conv_plan_sizes(T, D, K, L):
 
 
 class ConvPlan(NamedTuple):
-    """One launch of the conv block backward: clusters of `n` CTAs a batch
-    row, CTA r owning the frames [r * frames, min(T, (r + 1) * frames));
-    `smem` bytes of dynamic shared memory a CTA, `ctas` = B * n."""
+    """One launch of the conv block forward or backward: clusters of `n`
+    CTAs a batch row, CTA r owning the frames [r * frames, min(T, (r + 1)
+    * frames)); `smem` bytes of dynamic shared memory a CTA, `ctas` = B *
+    n."""
     n: int
     frames: int
     smem: int
@@ -620,6 +617,43 @@ def conv_plan(B, T, D, K, L):
     return ConvPlan(n, frames, smem, B * n)
 
 
+# CTAs a row of the forward where they fit: 6 CTAs of 22 frames at T = 128
+# (~118 KB each; all 16 rows' clusters run at once), the fastest of the
+# plans vslnet_torch/bench/conv_plans.py times at T = 128 and 12 (PERF.md)
+CONV_FWD_ROW_CTAS = 6
+
+
+def _conv_fwd_smem_bytes(frames, D, K):
+    """csrc/conv_block.cu FwdLayout's bytes for `frames` frames a CTA."""
+    return 4 * (2 * frames * D + 2 * (frames + K - 1) * D + D * D + K * D)
+
+
+def conv_fwd_plan(B, T, D, K, L):
+    """The forward kernel's launch plan for B rows of [T, D] and a depthwise
+    kernel of K taps over L layers: ceil(T / CONV_FWD_ROW_CTAS) frames a
+    CTA (fewer CTAs where T is short, none of them empty), or more CTAs, up
+    to CONV_CLUSTER, where those frames do not fit. `smem` is
+    csrc/conv_block.cu's FwdLayout: the residual stream and the depthwise
+    output over the own frames, the LayerNorm output over frames + K - 1
+    rows twice (by layer parity), one layer's [D, D] weights and K taps.
+    Raises on what the kernel cannot take."""
+    if B < 1 or T < 1 or K < 1 or L < 1 or D < 4 or D % 4:
+        raise ValueError("conv_fwd_plan: needs B, T, K, L >= 1 and D %% 4 == "
+                         "0, got B=%d, T=%d, D=%d, K=%d, L=%d"
+                         % (B, T, D, K, L))
+    for n in range(min(T, CONV_FWD_ROW_CTAS), min(T, CONV_CLUSTER) + 1):
+        frames = -(-T // n)
+        smem = _conv_fwd_smem_bytes(frames, D, K)
+        if smem <= MAX_SMEM_BYTES:
+            break
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError("conv_fwd_plan: T=%d, D=%d needs %d bytes of shared "
+                         "memory a CTA, above the %d a block has"
+                         % (T, D, smem, MAX_SMEM_BYTES))
+    n = -(-T // frames)  # no empty CTA
+    return ConvPlan(n, frames, smem, B * n)
+
+
 def _conv_shapes(name, x, gam, beta, dw, wp, bp, smem):
     B, T, D = x.shape
     L, K, _ = dw.shape
@@ -637,17 +671,24 @@ def _conv_shapes(name, x, gam, beta, dw, wp, bp, smem):
     return B, T, D, L, K
 
 
+def _aligned16(*tensors):
+    """The tensors, each copied where it does not start on 16 bytes: the
+    cluster kernels copy a layer's taps and weights by 16-byte cp.async."""
+    return [a if a.data_ptr() % 16 == 0 else a.clone() for a in tensors]
+
+
 def launch_conv_block_fwd(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
-    """The forward kernel: CUDA tensors only."""
+    """The forward kernel on conv_fwd_plan's CTAs: CUDA tensors only."""
     name = "conv_block_fwd"
     _require_cuda(name, x, gam, beta, dw, wp, bp)
-    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp,
-                                 conv_block_smem_bytes(*x.shape[1:]))
+    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0)
+    plan = conv_fwd_plan(B, T, D, K, L)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    dw, wp = _aligned16(dw, wp)
     out = torch.empty_like(x)
     _launch(name, x.data_ptr(), gam.data_ptr(), beta.data_ptr(), dw.data_ptr(),
             wp.data_ptr(), bp.data_ptr(), sp, thresh, scale, out.data_ptr(),
-            B, T, D, L, K)
+            B, T, D, L, K, plan.n, plan.frames)
     return out
 
 
@@ -661,8 +702,7 @@ def launch_conv_block_bwd(x, gam, beta, dw, wp, bp, seeds, drop_rate, g):
     _check(name, g, (B, T, D))
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     dev = x.device
-    # the kernel copies each layer's taps and weights by 16-byte cp.async
-    dw, wp = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (dw, wp))
+    dw, wp = _aligned16(dw, wp)
     wpT = wp.transpose(1, 2).contiguous()
     dx = torch.empty_like(x)
     dsmall = _empty(dev, L, 3 + K, D)
@@ -734,10 +774,10 @@ def conv_route(T, D, K, L):
 
 def conv_block_tiled_smem_bytes(D, K):
     """The largest of the tiled launches' shared memory: backward launch A's
-    halo of LN rows and two [CONV_TILE, D] tiles, or launch B's two halos,
-    the inverse deviations and the LN reductions."""
+    halo of LN rows and two [CONV_TILE, D] tiles, or launch B's two halos
+    and the inverse deviations."""
     halo = CONV_TILE + K - 1
-    return max((2 * CONV_TILE + halo) * D, 2 * halo * D + halo + 16 * D) * 4
+    return max((2 * CONV_TILE + halo) * D, 2 * halo * D + halo) * 4
 
 
 def launch_conv_block_fwd_tiled(x, gam, beta, dw, wp, bp, seeds=None,
@@ -813,9 +853,11 @@ class FusedConvBlockTiled(torch.autograd.Function):
 # --- 3. MHA block --------------------------------------------------------------
 # Replaces vslnet_tpu/ops/pallas_kernels.py:_make_mha_block_fwd_kernel and
 # _make_mha_block_bwd_kernel (via fused_mha_block). Kernels:
-# csrc/mha_block.cu, three launches each way (forward: LN1 + QKV,
-# per-(row, head) attention, residual + LN2 + dense + residual). Bound by
-# the projections on few SMs and the attention's serial key loops.
+# csrc/mha_block.cu, three launches each way. The forward: LN1 + QKV,
+# per-(row, head) attention, residual + LN2 + dense + residual. The
+# backward on mha_bwd_plan: the dense + LN2 and QKV + LN1 backwards on
+# tiles of frames with the weights streamed into shared memory, and the
+# attention backward as a cluster of query tiles a (row, head).
 
 
 def _mha_block(attend, x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
@@ -877,12 +919,19 @@ def _head_dim(name, D, n_heads):
 
 def mha_route(T, D, n_heads):
     """The MHA block's kernels on the card: "block" (the fused block
-    kernels) where its forward and backward fit one block's shared memory
-    (T <= 145 at D = 128), else the unfused block around fused_mha's
-    `attention_route`. Raises for a head dim no kernel takes."""
+    kernels) up to the route's T limit, where the forward's launches and
+    mha_bwd_plan's tiles also fit; else the unfused block around fused_mha's
+    `attention_route`. The T limit is the one the block backward had when
+    it ran one block a row, kept so that every shape takes the route it
+    took then: three [T, D] rows, T inverse deviations and 16 D floats of
+    LN reductions, or a head's q, k, v and g, three [T] rows and dS [T, T +
+    1], in a block's shared memory (T <= 145 at D = 128). Raises for a head
+    dim no kernel takes."""
     hd = _head_dim("mha_route", D, n_heads)
-    if max(mha_block_smem_bytes(T, D),
-           mha_block_bwd_smem_bytes(T, D, n_heads)) <= MAX_SMEM_BYTES:
+    t_limit = (max(3 * T * D + T + 16 * D, 4 * T * hd + 3 * T + T * (T + 1))
+               * 4 <= MAX_SMEM_BYTES)
+    if (t_limit and mha_block_smem_bytes(T, D) <= MAX_SMEM_BYTES
+            and _mha_bwd_sizes(T, D, hd) is not None):
         return "block"
     return attention_route(T, hd)
 
@@ -894,12 +943,85 @@ def mha_block_smem_bytes(T, D):
     return (2 * D + 1) * T * 4
 
 
-def mha_block_bwd_smem_bytes(T, D, n_heads):
-    """The largest of the backward launches' shared memory: the dense + LN2
-    launch's three [T, D] tiles, or the attention's q, k, v, g of a head
-    and dS [T, T + 1]."""
-    hd = D // n_heads
-    return max(3 * T * D + T + 16 * D, 4 * T * hd + 3 * T + T * (T + 1)) * 4
+# frames a tile of the backward's per-frame launches, and query rows a CTA
+# of its attention launch: the fastest of the plans
+# vslnet_torch/bench/mha_plans.py times at T = 128 (PERF.md)
+MHA_FRAMES = 8
+MHA_QTILE = 64
+MHA_CLUSTER = 8  # the most query tiles a (row, head): a portable cluster
+
+
+class MHABwdPlan(NamedTuple):
+    """One call of the MHA block backward: the per-frame launches on
+    `tiles` = ceil(T / frames) tiles a row, the weights streamed in slices
+    of `slice_rows` rows, `smem_frames` bytes a CTA (the larger launch);
+    the attention on clusters of `q_tiles` = ceil(T / q_tile) CTAs a (row,
+    head), `smem_attention` bytes each."""
+    frames: int
+    tiles: int
+    slice_rows: int
+    smem_frames: int
+    q_tile: int
+    q_tiles: int
+    smem_attention: int
+
+
+def _mha_frames_bytes(frames, sk, D):
+    """csrc/mha_block.cu qkv_tile_floats (the larger per-frame launch)."""
+    return 4 * (2 * sk * D + 5 * frames * D + -(-frames // 4) * 4)
+
+
+def _mha_attention_bytes(T, q_tile, hd):
+    """csrc/mha_block.cu attn_tile_floats."""
+    return 4 * (2 * T * (hd + 1) + 2 * q_tile * (hd + 1) + 2 * q_tile * (T + 1)
+                + q_tile + T + 2 * T * hd)
+
+
+@functools.lru_cache(maxsize=256)
+def _mha_bwd_sizes(T, D, hd):
+    """(frames, slice rows, query rows) of mha_bwd_plan at [T, D] and head
+    dim hd, or None where no tile fits: tiles of MHA_FRAMES frames, weight
+    slices of D / 2 rows, halved (then the frames) until a tile's shared
+    memory fits; query tiles of MHA_QTILE rows, at least T / MHA_CLUSTER,
+    halved while they do not fit."""
+    frames, sk = min(T, MHA_FRAMES), D // 2 if D // 2 % 4 == 0 else D
+    while _mha_frames_bytes(frames, sk, D) > MAX_SMEM_BYTES:
+        if sk % 8 == 0:
+            sk //= 2
+        elif frames > 1:
+            frames = -(-frames // 2)
+        else:
+            return None
+    least = -(-T // MHA_CLUSTER)
+    q_tile = min(T, max(MHA_QTILE, least))
+    while (_mha_attention_bytes(T, q_tile, hd) > MAX_SMEM_BYTES
+           and -(-q_tile // 2) >= least and q_tile > 1):
+        q_tile = -(-q_tile // 2)
+    if _mha_attention_bytes(T, q_tile, hd) > MAX_SMEM_BYTES:
+        return None
+    return frames, sk, q_tile
+
+
+def mha_bwd_plan(B, T, D, n_heads):
+    """The MHA block backward's launch plan for B rows of [T, D] and
+    n_heads heads (_mha_bwd_sizes). The per-frame launches keep two weight
+    slices, the tile's g and LN rows (and its dqkv [frames, 3D]); the
+    attention keeps a head's k and v, its query tile's q and g, the tile's
+    [q_tile, T + 1] scores, keep bits and its dK, dV partials. Raises on
+    what the kernels cannot take."""
+    hd = _head_dim("mha_bwd_plan", D, n_heads)
+    if B < 1 or T < 1:
+        raise ValueError("mha_bwd_plan: needs B, T >= 1, got B=%d, T=%d"
+                         % (B, T))
+    sizes = _mha_bwd_sizes(T, D, hd)
+    if sizes is None:
+        raise ValueError("mha_bwd_plan: T=%d, D=%d, head dim %d: no tile "
+                         "fits the %d bytes of shared memory a block has"
+                         % (T, D, hd, MAX_SMEM_BYTES))
+    frames, sk, q_tile = sizes
+    return MHABwdPlan(frames, -(-T // frames), sk,
+                      _mha_frames_bytes(frames, sk, D), q_tile,
+                      -(-T // q_tile), _mha_attention_bytes(T, q_tile, hd))
 
 
 def _mha_shapes(name, x, n_heads, smem, mask, gam, beta, wqkv, wd, bqkv=None,
@@ -944,36 +1066,39 @@ def launch_mha_block_fwd(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
 
 def launch_mha_block_bwd(x, mask, gam, beta, wqkv, wd, n_heads, seeds,
                          drop_rate, qkv, att, g):
-    """The backward kernels: (dx, dgam, dbeta, dwqkv, dbqkv, dwd, dbd), the
-    weight gradients summed over the batch. CUDA tensors only."""
+    """The backward kernels on mha_bwd_plan's tiles: (dx, dgam, dbeta,
+    dwqkv, dbqkv, dwd, dbd), the weight gradients summed over the batch.
+    CUDA tensors only."""
     name = "mha_block_bwd"
     _require_cuda(name, x, mask, gam, beta, wqkv, wd, qkv, att, g)
-    T, D = x.shape[1:]
-    B, T, D = _mha_shapes(name, x, n_heads,
-                          mha_block_bwd_smem_bytes(T, D, n_heads), mask, gam,
-                          beta, wqkv, wd)
+    B, T, D = _mha_shapes(name, x, n_heads, 0, mask, gam, beta, wqkv, wd)
     for t, shape in ((qkv, (B, T, 3 * D)), (att, (B, T, D)), (g, (B, T, D))):
         _check(name, t, shape)
+    plan = mha_bwd_plan(B, T, D, n_heads)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     dev = x.device
+    # the per-frame launches copy the weights by 16-byte cp.async
     wqkvT = wqkv.t().contiguous()
     wdT = wd.t().contiguous()
     dx = torch.empty_like(x)
     dsmall = _empty(dev, 8 * D)
     dwqkv = _empty(dev, D, 3 * D)
     dwd = _empty(dev, D, D)
-    z, gdpre, gres, gatt, y = (_empty(dev, B, T, D) for _ in range(5))
-    dqkv = _empty(dev, B, T, 3 * D)
-    part = _empty(dev, B, 8 * D)
+    # one allocation for the workspaces: z, g_dpre, g_res, g_att, y [B, T,
+    # D], dqkv [B, T, 3D], the tiles' partials and the split-K partials
     splits = _wgrad_splits(1, D, 3 * D, B * T)
-    ws = _empty(dev, splits * D * 3 * D if splits > 1 else 1)
+    btd, n_part = B * T * D, B * plan.tiles * 8 * D
+    work = _empty(dev, 8 * btd + n_part + (splits * D * 3 * D if splits > 1
+                                           else 1))
+    z, gdpre, gres, gatt, y = (work[i * btd:] for i in range(5))
+    dqkv, part, ws = work[5 * btd:], work[8 * btd:], work[8 * btd + n_part:]
     _launch(name, x.data_ptr(), mask.data_ptr(), gam.data_ptr(),
             beta.data_ptr(), wqkvT.data_ptr(), wdT.data_ptr(), sp, thresh,
             scale, qkv.data_ptr(), att.data_ptr(), g.data_ptr(), dx.data_ptr(),
             dsmall.data_ptr(), dwqkv.data_ptr(), dwd.data_ptr(), z.data_ptr(),
             gdpre.data_ptr(), gres.data_ptr(), gatt.data_ptr(), y.data_ptr(),
             dqkv.data_ptr(), part.data_ptr(), ws.data_ptr(), splits, B, T, D,
-            n_heads)
+            n_heads, plan.frames, plan.slice_rows, plan.q_tile)
     return (dx, dsmall[:2 * D].view(2, D), dsmall[2 * D:4 * D].view(2, D),
             dwqkv, dsmall[4 * D:7 * D], dwd, dsmall[7 * D:])
 

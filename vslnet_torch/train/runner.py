@@ -12,7 +12,8 @@ mask from the trainer's torch.Generator), localization CE +
 highlight_lambda * highlight BCE + l2_decay * l2, backward (through the
 kernels' autograd Functions on the card), then the optimizer of
 train/optim.py. Checkpoints, resume, fused steps, nan_guard and EMA are
-not ported yet (ROADMAP.md).
+not ported yet (ROADMAP.md); the Trainer raises on the training flags the
+JAX Runner acts on and the port lacks (`UNPORTED_FLAGS`).
 """
 import numpy as np
 import torch
@@ -67,11 +68,24 @@ def train_step(model, optimizer, batch, configs, generator):
     return loss.detach(), hl.detach()
 
 
+# Flags the JAX Runner acts on and the port does not yet, with the value
+# at which they do nothing: nan_guard skips non-finite updates, patience
+# stops early, eval_split picks the evaluated split, and the checkpoint
+# imports replace the initial weights (ROADMAP.md A4, A5, A11).
+UNPORTED_FLAGS = {"nan_guard": False, "patience": 0, "eval_split": "test",
+                  "t7_checkpoint": None, "tf_checkpoint": None}
+
+
 class Trainer:
     """A VSLNet, its optimizer, dropout generator and loaders on one
     device: the card unless `device` says otherwise."""
 
     def __init__(self, configs, dataset, visual_features, device=None):
+        for flag, default in UNPORTED_FLAGS.items():
+            if getattr(configs, flag) != default:
+                raise NotImplementedError(
+                    "%s=%r: the Trainer does not act on it yet; see "
+                    "ROADMAP.md" % (flag, getattr(configs, flag)))
         self.device = resolve_device(device)
         self.configs = configs
         if configs.char_size is None:
