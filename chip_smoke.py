@@ -21,17 +21,17 @@ Phases, each printing one JSON line:
               training shapes (T = 128 and the query stream's T = max_w,
               drop_rate 0.2, one fully masked query row): the forward, every
               gradient of sum(out * g), and the dropout's zero pattern;
-              the conv block's forward and the MHA block's backward also
-              give equal bits on two equal calls.
-              The cluster kernels carry their launch plans; the conv
-              block's forward and backward must beat the T-tiled kernels
-              at the same shape, the MHA block's backward the backward of
-              the unfused block (its PyTorch ops around the whole-T
-              attention kernels), each timed in the same run. Those two
-              rows give beside ms (CUDA events around back-to-back calls,
-              as every row, which time the wrapper's host work once it
-              outlasts the kernels, and so vary with the host's load)
-              device_ms, the device time of a call's kernels
+              the conv block's forward and the MHA block's forward and
+              backward also give equal bits on two equal calls.
+              The cluster and tiled kernels carry their launch plans; the
+              conv block's forward and backward must beat the T-tiled
+              kernels at the same shape, the MHA block's forward and
+              backward those of the unfused block (its PyTorch ops around
+              the whole-T attention kernels), each timed in the same run.
+              Those rows give beside ms (CUDA events around back-to-back
+              calls, as every row, which time the wrapper's host work
+              once it outlasts the kernels, and so vary with the host's
+              load) device_ms, the device time of a call's kernels
               (torch.profiler), and hold the kernel below its yardstick
               by device time.
   4. slice    the rnn VSLNet at full width (hidden 128, 8 heads, T 128,
@@ -56,12 +56,14 @@ Phases, each printing one JSON line:
               (forward, backward) and the T-tiled conv block (forward,
               backward) against their plain versions at the paths' shapes
               (output, every gradient, dropout zero pattern; SDPA as the
-              attention yardstick); then path M (rnn, max_pos_len 192,
-              batch 16) and path L (transformer, max_pos_len 1024, batch
-              8): a served batch against use_pallas=off, one train step
-              against off, then 3 (M) or 10 (L) steps with the kernels (on
-              L the loss must fall), with their launches, step times and,
-              on L, profiles.
+              attention yardstick; the flash backward gives equal bits on
+              two equal calls, carries its plan and device time by kernel
+              and must beat SDPA's backward); then path M (rnn,
+              max_pos_len 192, batch 16) and path L (transformer,
+              max_pos_len 1024, batch 8): a served batch against
+              use_pallas=off, one train step against off, then 3 (M) or
+              10 (L) steps with the kernels (on L the loss must fall),
+              with their launches, step times and, on L, profiles.
 Then the "kernels" line, and last {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.
 """
@@ -348,6 +350,25 @@ def kernel_phase(dev, max_w):
     zeros_equal = torch.equal(K.fused_mha_block(*probe, heads, **drop) == x,
                               K.mha_block_plain(*probe, heads, **drop) == x)
     check(zeros_equal, "mha_block_fwd: the dropout zero pattern differs")
+    # no atomics, a fixed order of every sum: two equal calls, equal bits
+    twice = all(torch.equal(a, b) for a, b in zip(
+        K.launch_mha_block_fwd(*args, heads, **drop),
+        K.launch_mha_block_fwd(*args, heads, **drop)))
+    check(twice, "mha_block_fwd: two equal calls differ")
+
+    def unfused():
+        """The block's PyTorch ops around the whole-T attention kernel
+        (mha_block_unfused) at the same inputs."""
+        with torch.no_grad():
+            K.mha_block_unfused(*args, heads)
+
+    # the kernels against the unfused forward at the same shape, in this
+    # run, by CUDA events around back-to-back calls and by the device time
+    # of a call's kernels (torch.profiler): the kernels must be the faster
+    # by device time
+    parts = by_kernel(lambda: K.launch_mha_block_fwd(*args, heads))
+    device_ms = sum(parts.values())
+    unfused_device_ms = sum(by_kernel(unfused).values())
     # scores and P.V need only the valid keys (all T for a fully masked row)
     keys = int(lens.sum())
     record("mha_block_fwd", "vslnet_torch/csrc/mha_block.cu",
@@ -358,11 +379,21 @@ def kernel_phase(dev, max_w):
            4 * (2 * B * T * D + B * T + 4 * D + 4 * D * D + 4 * D),
            shape=[B, T, D], heads=heads, query_T=max_w,
            query_max_abs_err=q_err, dropout_max_abs_err=d_err,
-           dropout_zero_pattern_equal=zeros_equal,
+           dropout_zero_pattern_equal=zeros_equal, equal_bits_twice=twice,
            dropout_ms=cuda_ms(lambda: K.fused_mha_block(*args, heads, **drop),
                               50),
            dropout_plain_ms=cuda_ms(
-               lambda: K.mha_block_plain(*args, heads, **drop), 50))
+               lambda: K.mha_block_plain(*args, heads, **drop), 50),
+           plan=K.mha_fwd_plan(B, T, D, heads)._asdict(),
+           query_plan=K.mha_fwd_plan(B, max_w, D, heads)._asdict(),
+           device_ms=device_ms, by_kernel=parts,
+           unfused_ms=cuda_ms(unfused, 50), unfused_device_ms=unfused_device_ms,
+           query_ms=cuda_ms(lambda: K.launch_mha_block_fwd(*q_args, heads), 50),
+           query_device_ms=sum(by_kernel(
+               lambda: K.launch_mha_block_fwd(*q_args, heads)).values()))
+    check(device_ms < unfused_device_ms, "mha_block_fwd: %g ms of device "
+          "time, not below the unfused block's forward %g"
+          % (device_ms, unfused_device_ms))
     mha_args, mha_q_args = args, q_args
 
     # 4. context-query attention: video [B, T, D], query [B, max_w, D],
@@ -940,6 +971,7 @@ def long_kernel_rows(dev):
     import torch
     import torch.nn.functional as F
 
+    from vslnet_torch.bench.common import by_kernel
     from vslnet_torch.ops import kernels as K
 
     rng = np.random.default_rng(SEED + 2)
@@ -1028,10 +1060,23 @@ def long_kernel_rows(dev):
         out_p = K.attention(*leaves, mask, heads, seeds, DROP)
         saved = (K.launch_flash_mha_fwd(q, k, v, mask, heads, seeds, DROP)
                  if flash else ())
+
+        def bwd():
+            return launch_bwd(q, k, v, mask, heads, seeds, DROP, *saved, g)
+
+        extra = {}
+        if flash:
+            # no atomics: two equal calls, equal bits; the plan, and the
+            # device time of a call's kernels (torch.profiler)
+            twice = all(torch.equal(a, b) for a, b in zip(bwd(), bwd()))
+            check(twice, "%s: two equal calls differ" % bname)
+            parts = by_kernel(bwd)
+            extra = {"equal_bits_twice": twice,
+                     "plan": K.flash_bwd_plan(B, T, D, heads)._asdict(),
+                     "device_ms": sum(parts.values()), "by_kernel": parts}
+        ms = cuda_ms(bwd, 20)
         rows.append(kernel_row(
-            bname, source, rep_bwd, abs_err, TOL,
-            cuda_ms(lambda: launch_bwd(q, k, v, mask, heads, seeds, DROP,
-                                       *saved, g), 20),
+            bname, source, rep_bwd, abs_err, TOL, ms,
             cuda_ms(lambda: torch.autograd.grad(out_p, leaves, g,
                                                 retain_graph=True), 5),
             # scores recomputed, dP, dV, dQ and dK over the valid keys;
@@ -1040,7 +1085,10 @@ def long_kernel_rows(dev):
             10 * T * keys * D,
             4 * (7 * io + B * T + B + (io + lse_io if flash else 0)),
             library_ms=lib_b, checked_err=g_err, library_fwd_bwd_ms=lib_fb,
-            drop_rate=DROP, **shape))
+            drop_rate=DROP, **extra, **shape))
+        if flash:
+            check(ms < lib_b, "%s: %g ms, not below SDPA's backward %g"
+                  % (bname, ms, lib_b))
 
     tpu = "vslnet_tpu/ops/pallas_kernels.py:"
     attention_rows("M", "mha_fwd", "mha_bwd", tpu + "696", tpu + "716",

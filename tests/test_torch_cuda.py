@@ -326,6 +326,112 @@ def test_cuda_mha_block_grads_match_plain(cuda, B, T, D, heads, rate):
                  1e-3)
 
 
+# The MHA block forward's plan (mha_fwd_plan): the query stream (6 tiles of
+# 2 frames; one query tile of 12), the main path (16 tiles of 8, 4 query
+# tiles of 32) and the longest block T at D = 128 (19 tiles, the last
+# holding 1; 5 query tiles, the last holding 17).
+MHA_FWD_PLANS = {12: (2, 6, 12, 1), 128: (8, 16, 32, 4), 145: (8, 19, 32, 5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("T", sorted(MHA_FWD_PLANS))
+def test_cuda_mha_block_fwd_matches_plain(cuda, T, rate):
+    """The forward kernels at [16, T, 128], 8 heads, one fully masked row:
+    out within 1e-4 of mha_block_plain, qkv and att within 1e-4 of the
+    plain projections and attention, equal bits on two equal calls."""
+    B, D, heads = 16, 128, 8
+    plan = kernels.mha_fwd_plan(B, T, D, heads)
+    assert (plan.frames, plan.tiles, plan.q_tile,
+            plan.q_tiles) == MHA_FWD_PLANS[T]
+    rng = np.random.default_rng(22)
+    lens = list(rng.integers(1, T + 1, size=B - 1)) + [0]
+    x, mask, gam, beta, wqkv, bqkv, wd, bd = args = [
+        _t(a).to(cuda) for a in _mha_inputs(rng, B, T, D, lens)]
+    seeds = _t(_seeds(rng, B)).to(cuda) if rate else None
+    first = [t.clone() for t in kernels.launch_mha_block_fwd(
+        *args, heads, seeds, rate)]
+    out, qkv, att = kernels.launch_mha_block_fwd(*args, heads, seeds, rate)
+    torch.cuda.synchronize()
+    for a, b in zip(first, (out, qkv, att)):
+        assert torch.equal(a, b)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, kernels.mha_block_plain(
+        *args, heads, seeds, rate), atol=1e-4, rtol=1e-4)
+    y = kernels.site_dropout(kernels.layer_norm(x, gam[0], beta[0]), seeds,
+                             0x200, rate)
+    qkv_ref = y @ wqkv + bqkv
+    torch.testing.assert_close(qkv, qkv_ref, atol=1e-4, rtol=1e-4)
+    q, k, v = (t.contiguous() for t in qkv.split(D, dim=-1))
+    torch.testing.assert_close(att, kernels.attention(
+        q, k, v, mask, heads, seeds, rate), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [128, 12])
+def test_cuda_mha_block_fwd_residuals_feed_the_backward(cuda, T):
+    """The forward's saved qkv and att keep their layout: the backward
+    kernels fed them give the gradients they give fed the plain version's
+    qkv and att (within 1e-4), at drop_rate 0.2."""
+    B, D, heads, rate = 16, 128, 8, 0.2
+    rng = np.random.default_rng(23)
+    lens = list(rng.integers(1, T + 1, size=B - 1)) + [0]
+    x, mask, gam, beta, wqkv, bqkv, wd, bd = args = [
+        _t(a).to(cuda) for a in _mha_inputs(rng, B, T, D, lens)]
+    seeds = _t(_seeds(rng, B)).to(cuda)
+    g = _t(rng.standard_normal((B, T, D)).astype(np.float32)).to(cuda)
+    _, qkv, att = kernels.launch_mha_block_fwd(*args, heads, seeds, rate)
+    y = kernels.site_dropout(kernels.layer_norm(x, gam[0], beta[0]), seeds,
+                             0x200, rate)
+    qkv_ref = (y @ wqkv + bqkv).contiguous()
+    q, k, v = (t.contiguous() for t in qkv_ref.split(D, dim=-1))
+    att_ref = kernels.attention(q, k, v, mask, heads, seeds, rate)
+    bwd = [x, mask, gam, beta, wqkv, wd, heads, seeds, rate]
+    grads = kernels.launch_mha_block_bwd(*bwd, qkv, att, g)
+    grads_ref = kernels.launch_mha_block_bwd(*bwd, qkv_ref, att_ref, g)
+    names = ["dx", "dgam", "dbeta", "dwqkv", "dbqkv", "dwd", "dbd"]
+    for name, a, b in zip(names, grads, grads_ref):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg=name)
+
+
+# The flash backward's plan (flash_bwd_plan: key tiles) at [4, T, 128]:
+# head dim 16 in key tiles of 128 (2 at T = 210 and 256, the first with a
+# ragged last key tile of 82; 8 at 1000 and 1024), head dim 64 in key tiles
+# of 64 (4 at 210 and 256, 16 at 1000 and 1024).
+FLASH_PLANS = {(210, 16): 2, (256, 16): 2, (1000, 16): 8, (1024, 16): 8,
+               (210, 64): 4, (256, 64): 4, (1000, 64): 16, (1024, 64): 16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,hd", list(FLASH_PLANS))
+def test_cuda_flash_bwd_matches_plain(cuda, T, hd):
+    """The flash backward kernels at [4, T, 128], drop_rate 0.2, ragged key
+    lengths and one fully masked row: dq, dk, dv within 1e-4 of autograd
+    of `attention`, equal bits on two equal calls."""
+    B, D, rate = 4, 128, 0.2
+    heads = D // hd
+    plan = kernels.flash_bwd_plan(B, T, D, heads)
+    assert plan.key_tiles == FLASH_PLANS[T, hd]
+    rng = np.random.default_rng(24)
+    lens = [T, T // 2 + 3, 1, 0]
+    q, k, v, mask = [_t(a).to(cuda) for a in _attn_inputs(rng, B, T, D, lens)]
+    seeds = _t(_seeds(rng, B)).to(cuda)
+    g = _t(rng.standard_normal((B, T, D)).astype(np.float32)).to(cuda)
+    out, lse = kernels.launch_flash_mha_fwd(q, k, v, mask, heads, seeds, rate)
+    bwd = [q, k, v, mask, heads, seeds, rate, out, lse, g]
+    first = [t.clone() for t in kernels.launch_flash_mha_bwd(*bwd)]
+    grads = kernels.launch_flash_mha_bwd(*bwd)
+    torch.cuda.synchronize()
+    for a, b in zip(first, grads):
+        assert torch.equal(a, b)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = kernels.attention(*leaves, mask, heads, seeds, rate)
+    grads_ref = torch.autograd.grad(ref, leaves, g)
+    for name, a, b in zip("qkv", grads, grads_ref):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg="d" + name)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["conv_block_bwd", "lstm_recurrence_bwd",
                                     "conv_block_fwd", "mha_block_bwd"])
@@ -379,7 +485,8 @@ def test_cuda_block_plans_agree(cuda, T):
     what the wrapper's plan gives: the conv block forward on 1 to 8 CTAs a
     row (equal bits: each output is the same chain of sums), the MHA block
     backward on other frame and query tiles (within 1e-4 of the default's
-    gradients)."""
+    gradients), the MHA block forward on other frame tiles, weight slices
+    and query tiles (within 1e-4 of the default's out, qkv and att)."""
     from vslnet_torch.bench import conv_plans, mha_plans
 
     rng = np.random.default_rng(21)
@@ -400,6 +507,12 @@ def test_cuda_block_plans_agree(cuda, T):
     ref = kernels.launch_mha_block_bwd(*bwd)
     for plan in mha_plans.plans(B, T, D, 8):
         for a, b in zip(mha_plans.runner(bwd, plan)(), ref):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
+                                       msg=str(plan))
+    fwd = [x, mask, gam, beta, wqkv, bqkv, wd, bd]
+    ref = kernels.launch_mha_block_fwd(*fwd, 8, seeds, 0.2)
+    for plan in mha_plans.fwd_plans(B, T, D, 8):
+        for a, b in zip(mha_plans.fwd_runner(fwd, 8, seeds, 0.2, plan)(), ref):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
                                        msg=str(plan))
 

@@ -1,12 +1,12 @@
-"""The MHA block backward's launch plan (ops/kernels.py mha_bwd_plan), on
-the CPU: the per-frame launches' tiles cover every frame of every row
-exactly once and the attention's query tiles every query row once in a
-cluster of at most 8; every plan fits a block's shared memory, at the
-lengths the tests use and at every shape that mha_route sends to the
-block kernels; the plans of the main path and the query stream are the
-ones PERF.md records; shapes the kernels cannot take raise. How the
-kernels index within those ranges is held to the plain version by the
-card tests (tests/test_torch_cuda.py)."""
+"""The MHA block's launch plans (ops/kernels.py mha_bwd_plan and
+mha_fwd_plan), on the CPU: the per-frame launches' tiles cover every frame
+of every row exactly once and the attention's query tiles every query row
+once (the backward's in a cluster of at most 8); every plan fits a block's
+shared memory, at the lengths the tests use and at every shape that
+mha_route sends to the block kernels; the plans of the main path and the
+query stream are the ones PERF.md records; shapes the kernels cannot take
+raise. How the kernels index within those ranges is held to the plain
+version by the card tests (tests/test_torch_cuda.py)."""
 import pytest
 
 from vslnet_torch.bench import mha_plans
@@ -78,3 +78,75 @@ def test_mha_bwd_plan_at_the_main_path_and_the_query_stream():
 def test_mha_bwd_plan_refuses(B, T, D, heads):
     with pytest.raises(ValueError, match="mha_bwd_plan"):
         kernels.mha_bwd_plan(B, T, D, heads)
+
+
+def _check_fwd_plan(T, D, plan):
+    assert plan.smem_frames <= kernels.MAX_SMEM_BYTES, plan
+    assert plan.smem_attention <= kernels.MAX_SMEM_BYTES, plan
+    # fwd_out_tile_floats, the other per-frame launch, is the smaller
+    assert 4 * (2 * plan.slice_rows * D + 3 * plan.frames * D) \
+        <= plan.smem_frames, plan
+    assert plan.slice_rows % 4 == 0 and D % plan.slice_rows == 0, plan
+    for size, count, name in ((plan.frames, plan.tiles, "frames"),
+                              (plan.q_tile, plan.q_tiles, "query rows")):
+        rows = [t for r in range(count)
+                for t in range(r * size, min(T, (r + 1) * size))]
+        assert sorted(rows) == list(range(T)), (name, plan)  # each once
+        assert (count - 1) * size < T, (name, plan)          # none empty
+
+
+@pytest.mark.parametrize("D,heads", [(128, 128 // hd) for hd in
+                                     kernels.MHA_HEAD_DIMS] + [(16, 2)])
+@pytest.mark.parametrize("T", [1, 12, 128, 145])
+def test_mha_fwd_plan_covers_every_frame_and_query_once(T, D, heads):
+    """At every head dim, the default and every plan the bench script
+    times fit the 232,448 bytes and cover each frame and query once."""
+    for B in (1, 16, 33):
+        _check_fwd_plan(T, D, kernels.mha_fwd_plan(B, T, D, heads))
+        plans = mha_plans.fwd_plans(B, T, D, heads)
+        assert plans
+        for plan in plans:
+            _check_fwd_plan(T, D, plan)
+
+
+@pytest.mark.parametrize("D", [8, 16, 32, 64, 128, 256, 512, 1024])
+def test_mha_fwd_plan_fits_every_shape_of_the_block_route(D):
+    """Every (T, D, heads) that mha_route sends to the block kernels gets a
+    forward plan that fits, so the route's answers (the T limit of PR 3,
+    pinned by tests/test_torch_attention.py) need no gate of the
+    forward's own."""
+    checked = 0
+    for heads in (1, 2, 4, 8, 16, 32, 64, 128):
+        if D % heads or D // heads not in kernels.MHA_HEAD_DIMS:
+            continue
+        for T in range(1, 300):
+            if kernels.mha_route(T, D, heads) != "block":
+                continue
+            _check_fwd_plan(T, D, kernels.mha_fwd_plan(16, T, D, heads))
+            checked += 1
+    assert checked > 0
+
+
+def test_mha_fwd_plan_at_the_main_path_and_the_query_stream():
+    """[16, 128, 128], 8 heads: 16 tiles of 8 frames a row (256 CTAs), Wqkv
+    and Wd in slices of 32 rows, 4 query tiles of 32 a (row, head) (512
+    CTAs); the query stream's T = 12: 6 tiles of 2 frames, so that its 96
+    CTAs fill most of the SMs, and one query tile a (row, head); D = 1024
+    streams the weights in slices of 4 rows."""
+    plan = kernels.mha_fwd_plan(16, 128, 128, 8)
+    assert (plan.frames, plan.tiles, plan.slice_rows, plan.q_tile,
+            plan.q_tiles) == (8, 16, 32, 32, 4)
+    plan = kernels.mha_fwd_plan(16, 12, 128, 8)
+    assert (plan.frames, plan.tiles, plan.slice_rows, plan.q_tile,
+            plan.q_tiles) == (2, 6, 32, 12, 1)
+    plan = kernels.mha_fwd_plan(16, 18, 1024, 16)
+    assert (plan.frames, plan.slice_rows) == (3, 4)
+    assert kernels.mha_fwd_plan(1, 128, 128, 8).frames == 1
+
+
+@pytest.mark.parametrize("B,T,D,heads", [(0, 128, 128, 8), (16, 0, 128, 8),
+                                         (16, 128, 24, 2), (16, 128, 130, 13),
+                                         (16, 128, 128, 1)])
+def test_mha_fwd_plan_refuses(B, T, D, heads):
+    with pytest.raises(ValueError, match="mha_fwd_plan"):
+        kernels.mha_fwd_plan(B, T, D, heads)

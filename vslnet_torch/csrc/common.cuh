@@ -266,6 +266,26 @@ __device__ __forceinline__ void cp_async_floats(float* dst, const float* __restr
                  : "memory");
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+// dst <- *src, one float (4-byte aligned) by cp.async, for values whose
+// source is not 16-byte aligned; the caller commits the group
+// (cp_async_commit).
+__device__ __forceinline__ void cp_async_float(float* dst, const float* __restrict__ src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+// dst <- src, one float4 (both 16-byte aligned) by cp.async; the caller
+// commits the group.
+__device__ __forceinline__ void cp_async_float4(float* dst, const float* __restrict__ src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 template <int G>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(G) : "memory");

@@ -18,13 +18,23 @@
 // [T, D] tile, and per head at (t, j) of the [T, T] probability tile with
 // the head salt; off when seeds is null.
 //
-// Forward: one op, three launches.
-//   1. LN1 + QKV projection: grid (B, column chunks of 3D); each block
-//      normalises its row into shared memory and writes a chunk of qkv.
-//   2. attention: grid (B, n_heads); K_h and V_h of one (row, head) sit in
-//      shared memory (8 KB each at T=128, hd=16), one thread per query row,
-//      two passes over the keys (max, then exp-sum and P.V).
-//   3. residual + LN2 + dense + residual: grid (B, column chunks of D).
+// Forward: three launches on the plan of ops/kernels.py mha_fwd_plan
+// (frames a tile F, weight slice SK, query tile TQ).
+//   1. LN1 + QKV on a grid of (tiles of F frames, rows): LayerNorm is per
+//      frame, so the tiles are independent; each CTA normalises its F
+//      frames, drops them (site 0x200 at the global (t, c)) and multiplies
+//      them by Wqkv [D, 3D], which streams into shared memory in
+//      double-buffered slices of SK rows by cp.async (streamed_gemm), each
+//      slice's product register-tiled out of shared memory; + bqkv.
+//   2. attention on CTAs of (query tile, head, row), no cluster: K_h and
+//      V_h of the row in shared memory, S = (Q * scale).K^T + mask as a
+//      register-tiled product into a [TQ, T + 1] tile (head_score's sum,
+//      bit for bit), max and sum by warp reductions over each row, the keep
+//      bit hashed once a (t, j) while exp(s - max) is written back,
+//      drop(P).V register-tiled, scaled by the drop scale over the sum.
+//   3. residual + LN2 + dense + residual on the grid of launch 1: R =
+//      drop_0x201(att) + x, Z = drop_0x202(LN2(R)), Z.Wd streamed as in 1,
+//      out = drop_0x203(. + bd) + R.
 // qkv [B, T, 3D] and att [B, T, D] go through device memory (L2-resident at
 // the served shapes); the backward takes them as saved residuals.
 //
@@ -59,12 +69,12 @@
 // (and g), the weights and the saved qkv and att, and a write of the
 // output (dx and the weight gradients).
 //
-// The forward's attention launch and the old one-thread-a-query-row
-// attention backward also serve on their own as the whole-T fused_mha
-// kernels (vsl_mha_fwd, vsl_mha_bwd at the end): they take q, k, v and
-// the outputs through base pointers and row strides, so one device body
-// serves both callers. Those are bound by the per-thread key loops on
-// B * n_heads blocks.
+// The whole-T fused_mha kernels (vsl_mha_fwd, vsl_mha_bwd at the end): the
+// forward runs the block forward's attention body on q, k, v [B, T, D];
+// the backward keeps the port's first body, one thread a query row
+// (attention_bwd_kernel), bound by its per-thread key loops on B * n_heads
+// blocks. Both take q, k, v and the outputs through base pointers and row
+// strides.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -75,135 +85,14 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 16;
-constexpr int kChunk = 64;  // output columns per block in forward launches 1 and 3
-
-__global__ void __launch_bounds__(kThreads)
-ln_qkv_kernel(const float* __restrict__ x, const float* __restrict__ gam,
-              const float* __restrict__ beta, const float* __restrict__ wqkv,
-              const float* __restrict__ bqkv, vsl::Dropout drop, float* __restrict__ qkv, int T,
-              int D) {
-  extern __shared__ float4 smem4[];
-  float* Y = reinterpret_cast<float*>(smem4);  // [T, D]
-  const int b = blockIdx.x;
-  const int c0 = blockIdx.y * kChunk;
-  const int c1 = min(c0 + kChunk, 3 * D);
-  vsl::layer_norm_rows(x + (size_t)b * T * D, Y, gam, beta, T, D);
-  __syncthreads();
-  if (drop.on()) {
-    const uint32_t seed = drop.seed(b), salt = vsl::site_salt(0x200u);
-    for (int i = threadIdx.x; i < T * D; i += blockDim.x)
-      Y[i] = drop.apply(Y[i], seed, salt, i / D, i % D);
-    __syncthreads();
-  }
-  float* q = qkv + (size_t)b * T * 3 * D;
-  vsl::gemm_rows<kRows>(Y, T, D, wqkv, 3 * D, c0, c1, [&](int t, int o, float acc) {
-    q[(size_t)t * 3 * D + o] = acc + __ldg(bqkv + o);
-  });
-}
 
 using vsl::head_score;
-
-// The attention kernels read q, k and v through base pointers and one row
-// stride ld: element (b, t, c) of q is q[(b * T + t) * ld + c]. The block
-// passes its packed qkv [B, T, 3D] (ld = 3D, k = qkv + D, v = qkv + 2D),
-// fused_mha three [B, T, D] tensors (ld = D); the outputs and g the same
-// way with their own strides.
-template <int HD>
-__global__ void attention_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
-                                 const float* __restrict__ vp, int ld,
-                                 const float* __restrict__ mask, vsl::Dropout drop,
-                                 float* __restrict__ att, int ldo, int T, float scale) {
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // [T, HD]
-  float* Vs = Ks + (size_t)T * HD;               // [T, HD]
-  float* neg = Vs + (size_t)T * HD;              // [T]
-  const int b = blockIdx.x, h = blockIdx.y;
-  const size_t base = (size_t)b * T * ld + h * HD;
-  const uint32_t seed = drop.seed(b), salt = vsl::head_salt(h);
-  for (int i = threadIdx.x; i < T * HD; i += blockDim.x) {
-    const int j = i / HD, d = i - j * HD;
-    Ks[i] = kp[base + (size_t)j * ld + d];
-    Vs[i] = vp[base + (size_t)j * ld + d];
-  }
-  for (int j = threadIdx.x; j < T; j += blockDim.x)
-    neg[j] = (1.f - mask[(size_t)b * T + j]) * vsl::kMaskValue;
-  __syncthreads();
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    float q[HD];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) q[d] = qp[base + (size_t)t * ld + d] * scale;
-    float m = -FLT_MAX;
-    for (int j = 0; j < T; ++j) m = fmaxf(m, head_score<HD>(q, Ks + j * HD, neg[j]));
-    float l = 0.f, acc[HD];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] = 0.f;
-    for (int j = 0; j < T; ++j) {
-      const float p = expf(head_score<HD>(q, Ks + j * HD, neg[j]) - m);
-      l += p;
-      if (drop.keep(seed, salt, t, j)) {
-#pragma unroll
-        for (int d = 0; d < HD; ++d) acc[d] = fmaf(p, Vs[j * HD + d], acc[d]);
-      }
-    }
-    const float inv = (drop.on() ? drop.scale : 1.f) / l;
-    float* o = att + ((size_t)b * T + t) * ldo + h * HD;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) o[d] = acc[d] * inv;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-out_kernel(const float* __restrict__ x, const float* __restrict__ att,
-           const float* __restrict__ gam, const float* __restrict__ beta,
-           const float* __restrict__ wd, const float* __restrict__ bd, vsl::Dropout drop,
-           float* __restrict__ out, int T, int D) {
-  extern __shared__ float4 smem4[];
-  float* R = reinterpret_cast<float*>(smem4);  // [T, D] residual
-  float* Z = R + (size_t)T * D;                 // [T, D] drop(LN2(residual))
-  const int b = blockIdx.x;
-  const int c0 = blockIdx.y * kChunk;
-  const int c1 = min(c0 + kChunk, D);
-  const size_t row = (size_t)b * T * D;
-  const uint32_t seed = drop.seed(b);
-  const uint32_t s201 = vsl::site_salt(0x201u), s202 = vsl::site_salt(0x202u),
-                 s203 = vsl::site_salt(0x203u);
-  for (int i = threadIdx.x; i < T * D; i += blockDim.x)
-    R[i] = drop.apply(att[row + i], seed, s201, i / D, i % D) + x[row + i];
-  __syncthreads();
-  vsl::layer_norm_rows(R, Z, gam, beta, T, D);
-  __syncthreads();
-  if (drop.on()) {
-    for (int i = threadIdx.x; i < T * D; i += blockDim.x)
-      Z[i] = drop.apply(Z[i], seed, s202, i / D, i % D);
-    __syncthreads();
-  }
-  vsl::gemm_rows<kRows>(Z, T, D, wd, D, c0, c1, [&](int t, int o, float acc) {
-    out[row + (size_t)t * D + o] =
-        drop.apply(acc + __ldg(bd + o), seed, s203, t, o) + R[(size_t)t * D + o];
-  });
-}
-
-template <int HD>
-cudaError_t launch_attention(const float* q, const float* k, const float* v, int ld,
-                             const float* mask, vsl::Dropout drop, float* att, int ldo, int B,
-                             int T, int n_heads, cudaStream_t stream) {
-  const int threads = min(kThreads, (T + 31) / 32 * 32);
-  const size_t smem = ((size_t)2 * T * HD + T) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  attention_kernel<HD><<<dim3(B, n_heads), threads, smem, stream>>>(q, k, v, ld, mask, drop, att,
-                                                                   ldo, T, vsl::head_scale(HD));
-  return cudaGetLastError();
-}
 
 // --- backward ------------------------------------------------------------------
 // Per-tile partials part [B * tiles, 8D]: dgam [2D], dbeta [2D], dbqkv [3D],
 // dbd [D].
 
-constexpr int kBwdGemmRows = 2;  // the per-frame launches' product tile: rows an item
+constexpr int kGemmRows = 2;  // the per-frame launches' product tile (both directions)
 
 // The per-frame launches' shared memory for F frames a tile and weight
 // slices of SK rows, in floats: launch 1 the slices [2][SK][D], GD, XH, GZ
@@ -234,7 +123,7 @@ __device__ void streamed_gemm(const float* A, int lda, int rows, int K, const fl
       vsl::cp_async_wait<0>();
     }
     __syncthreads();  // slice s landed for every thread; C's last slice written
-    vsl::smem_gemm<kBwdGemmRows, 4>(
+    vsl::smem_gemm<kGemmRows, 4>(
         A + s * SK, lda, rows, SK, buf + (size_t)(s & 1) * SK * ncols, ncols, ncols,
         [&](int t, int o, float4 acc) {
           float4* c = reinterpret_cast<float4*>(C + (size_t)t * ncols + o);
@@ -648,34 +537,200 @@ cudaError_t launch_attention_bwd(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// --- forward, on mha_fwd_plan ---------------------------------------------------
+// The per-frame launches' shared memory for F frames a tile and weight
+// slices of SK rows, in floats: launch 1 the slices [2][SK][3D], Y [F][D]
+// and C [F][3D]; launch 3 the slices [2][SK][D], R, Z and O [F][D]. The
+// attention's for query tiles of TQ rows against T keys at head dim hd:
+// Ks, Vs [T][hd + 1], Qs [TQ][hd + 1], S [TQ][T + 1], the key mask's -1e30
+// terms [T] and each row's drop scale over its sum [TQ].
+// (ops/kernels.py mha_fwd_plan reports them; the launches use these.)
+__host__ __device__ inline size_t fwd_qkv_tile_floats(int F, int SK, int D) {
+  return 6 * (size_t)SK * D + 4 * (size_t)F * D;
+}
+__host__ __device__ inline size_t fwd_out_tile_floats(int F, int SK, int D) {
+  return 2 * (size_t)SK * D + 3 * (size_t)F * D;
+}
+__host__ __device__ inline size_t fwd_attn_tile_floats(int T, int TQ, int hd) {
+  return 2 * (size_t)T * (hd + 1) + (size_t)TQ * (hd + 1) + (size_t)TQ * (T + 1) + T + TQ;
+}
+
+// 1. qkv = drop200(LN1(x)).Wqkv + bqkv for one tile of F frames of one row.
+__global__ void __launch_bounds__(kThreads)
+fwd_qkv_tile_kernel(const float* __restrict__ x, const float* __restrict__ gam,
+                    const float* __restrict__ beta, const float* __restrict__ wqkv,
+                    const float* __restrict__ bqkv, vsl::Dropout drop, float* __restrict__ qkv,
+                    int T, int D, int F, int SK) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0), nel = nf * D;
+  float* buf = reinterpret_cast<float*>(smem4);
+  float* Y = buf + 6 * (size_t)SK * D;  // drop200(LN1(x)) [F][D]
+  float* C = Y + (size_t)F * D;         // Y.Wqkv [F][3D]
+  const size_t tile = ((size_t)b * T + t0) * D;
+  vsl::cp_async_floats(buf, wqkv, SK * 3 * D);  // lands behind the LN
+  vsl::layer_norm_rows(x + tile, Y, gam, beta, nf, D);
+  __syncthreads();
+  if (drop.on()) {
+    const uint32_t seed = drop.seed(b), s200 = vsl::site_salt(0x200u);
+    for (int i = threadIdx.x; i < nel; i += blockDim.x)
+      Y[i] = drop.apply(Y[i], seed, s200, t0 + i / D, i % D);
+    __syncthreads();
+  }
+  streamed_gemm(Y, D, nf, D, wqkv, 3 * D, buf, SK, C);
+  float* q = qkv + 3 * tile;
+  for (int i = threadIdx.x; i < 3 * nel; i += blockDim.x) q[i] = C[i] + __ldg(bqkv + i % (3 * D));
+}
+
+// 2. the attention of one (query tile, head, row): att from q, k and v,
+// read through base pointers and one row stride ld as the whole-T kernels
+// read them (the block's packed qkv [B, T, 3D]: ld = 3D, k = qkv + D, v =
+// qkv + 2D), the output with row stride ldo.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+attn_fwd_tile_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
+                     const float* __restrict__ vp, int ld, const float* __restrict__ mask,
+                     vsl::Dropout drop, float* __restrict__ att, int ldo, int T, int TQ,
+                     float scale) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * TQ, nt = min(TQ, T - t0);
+  constexpr int LD = HD + 1;
+  const int lds = T + 1;
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + (size_t)T * LD;
+  float* Qs = Vs + (size_t)T * LD;
+  float* S = Qs + (size_t)TQ * LD;
+  float* neg = S + (size_t)TQ * lds;
+  float* rs = neg + T;
+  const size_t hb = (size_t)b * T * ld + h * HD;
+  const uint32_t seed = drop.seed(b), salt = vsl::head_salt(h);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nth >> 5;
+  for (int i = tid; i < T * HD; i += nth) {
+    const int j = i / HD, d = i - j * HD;
+    Ks[j * LD + d] = kp[hb + (size_t)j * ld + d];
+    Vs[j * LD + d] = vp[hb + (size_t)j * ld + d];
+  }
+  for (int i = tid; i < nt * HD; i += nth) {
+    const int t = i / HD, d = i - t * HD;
+    Qs[t * LD + d] = qp[hb + (size_t)(t0 + t) * ld + d] * scale;
+  }
+  for (int j = tid; j < T; j += nth) neg[j] = (1.f - mask[(size_t)b * T + j]) * vsl::kMaskValue;
+  __syncthreads();
+  // S = (q * scale).k^T + neg, head_score's chain of sums
+  tile_product<4, 4>(
+      nt, T, HD, [&](int m, int k) { return Qs[m * LD + k]; },
+      [&](int k, int n) { return Ks[n * LD + k]; },
+      [&](int m, int n, float v) { S[(size_t)m * lds + n] = v + neg[n]; });
+  __syncthreads();
+  // one warp a query row: exp(s - max) where the key is kept, 0 where it is
+  // dropped, the keep bits hashed once a (t, j); the sum over every key
+  const float dscale = drop.on() ? drop.scale : 1.f;
+  for (int t = warp; t < nt; t += nwarps) {
+    float* row = S + (size_t)t * lds;
+    float mx = -FLT_MAX;
+    for (int j = lane; j < T; j += 32) mx = fmaxf(mx, row[j]);
+    mx = vsl::warp_max(mx);
+    float l = 0.f;
+    for (int j = lane; j < T; j += 32) {
+      const float e = expf(row[j] - mx);
+      l += e;
+      row[j] = drop.keep(seed, salt, t0 + t, j) ? e : 0.f;
+    }
+    l = vsl::warp_sum(l);
+    if (lane == 0) rs[t] = dscale / l;
+  }
+  __syncthreads();
+  // att = drop(P).V: the kept exps . V, times the drop scale over the sum
+  float* ob = att + ((size_t)b * T + t0) * ldo + h * HD;
+  tile_product<2, 2>(
+      nt, HD, T, [&](int t, int j) { return S[(size_t)t * lds + j]; },
+      [&](int j, int d) { return Vs[j * LD + d]; },
+      [&](int t, int d, float v) { ob[(size_t)t * ldo + d] = v * rs[t]; });
+}
+
+template <int HD>
+cudaError_t launch_attention_tiles(const float* q, const float* k, const float* v, int ld,
+                                   const float* mask, vsl::Dropout drop, float* att, int ldo,
+                                   int B, int T, int n_heads, int TQ, cudaStream_t stream) {
+  const size_t smem = fwd_attn_tile_floats(T, TQ, HD) * sizeof(float);
+  cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(attn_fwd_tile_kernel<HD>), smem);
+  if (err != cudaSuccess) return err;
+  attn_fwd_tile_kernel<HD><<<dim3((T + TQ - 1) / TQ, n_heads, B), kThreads, smem, stream>>>(
+      q, k, v, ld, mask, drop, att, ldo, T, TQ, vsl::head_scale(HD));
+  return cudaGetLastError();
+}
+
+// 3. out = drop203(drop202(LN2(R)).Wd + bd) + R, R = drop201(att) + x, for
+// one tile of F frames of one row.
+__global__ void __launch_bounds__(kThreads)
+fwd_out_tile_kernel(const float* __restrict__ x, const float* __restrict__ att,
+                    const float* __restrict__ gam, const float* __restrict__ beta,
+                    const float* __restrict__ wd, const float* __restrict__ bd, vsl::Dropout drop,
+                    float* __restrict__ out, int T, int D, int F, int SK) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0), nel = nf * D;
+  const size_t FD = (size_t)F * D;
+  float* buf = reinterpret_cast<float*>(smem4);
+  float* R = buf + 2 * (size_t)SK * D;  // the residual
+  float* Z = R + FD;                    // drop202(LN2(R))
+  float* O = Z + FD;                    // Z.Wd
+  const size_t tile = ((size_t)b * T + t0) * D;
+  const uint32_t seed = drop.seed(b);
+  const uint32_t s201 = vsl::site_salt(0x201u), s202 = vsl::site_salt(0x202u),
+                 s203 = vsl::site_salt(0x203u);
+  vsl::cp_async_floats(buf, wd, SK * D);  // lands behind the residual and the LN
+  for (int i = threadIdx.x; i < nel; i += blockDim.x)
+    R[i] = drop.apply(att[tile + i], seed, s201, t0 + i / D, i % D) + x[tile + i];
+  __syncthreads();
+  vsl::layer_norm_rows(R, Z, gam, beta, nf, D);
+  __syncthreads();
+  if (drop.on()) {
+    for (int i = threadIdx.x; i < nel; i += blockDim.x)
+      Z[i] = drop.apply(Z[i], seed, s202, t0 + i / D, i % D);
+    __syncthreads();
+  }
+  streamed_gemm(Z, D, nf, D, wd, D, buf, SK, O);
+  for (int i = threadIdx.x; i < nel; i += blockDim.x) {
+    const int c = i % D;
+    out[tile + i] = drop.apply(O[i] + __ldg(bd + c), seed, s203, t0 + i / D, c) + R[i];
+  }
+}
+
 }  // namespace
 
+// Plan: tiles of F frames, weight slices of SK rows (D % SK == 0, SK % 4 ==
+// 0), query tiles of TQ rows (ops/kernels.py mha_fwd_plan).
 extern "C" int vsl_mha_block_fwd(const float* x, const float* mask, const float* gam,
                                  const float* beta, const float* wqkv, const float* bqkv,
                                  const float* wd, const float* bd, const float* seeds,
                                  unsigned thresh, float scale, float* qkv, float* att,
-                                 float* out, int B, int T, int D, int n_heads, void* stream_) {
+                                 float* out, int B, int T, int D, int n_heads, int F, int SK,
+                                 int TQ, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (B < 1 || T < 1 || D < 4 || D % 4 || n_heads < 1 || D % n_heads || F < 1 || SK < 4 ||
+      SK % 4 || D % SK || TQ < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const vsl::Dropout drop{seeds, thresh, scale};
-  const int smem1 = T * D * static_cast<int>(sizeof(float));
-  cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(ln_qkv_kernel), smem1);
+  const dim3 grid((T + F - 1) / F, B);
+  const int smem1 = static_cast<int>(fwd_qkv_tile_floats(F, SK, D) * sizeof(float));
+  cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(fwd_qkv_tile_kernel), smem1);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ln_qkv_kernel<<<dim3(B, (3 * D + kChunk - 1) / kChunk), kThreads, smem1, stream>>>(
-      x, gam, beta, wqkv, bqkv, drop, qkv, T, D);
+  fwd_qkv_tile_kernel<<<grid, kThreads, smem1, stream>>>(x, gam, beta, wqkv, bqkv, drop, qkv, T,
+                                                         D, F, SK);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   err = vsl::by_head_dim(D / n_heads, [&](auto hd) {
-    return launch_attention<decltype(hd)::value>(qkv, qkv + D, qkv + 2 * D, 3 * D, mask, drop,
-                                                 att, D, B, T, n_heads, stream);
+    return launch_attention_tiles<decltype(hd)::value>(qkv, qkv + D, qkv + 2 * D, 3 * D, mask,
+                                                       drop, att, D, B, T, n_heads, TQ, stream);
   });
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int smem3 = 2 * T * D * static_cast<int>(sizeof(float));
-  err = vsl::opt_in_smem(reinterpret_cast<const void*>(out_kernel), smem3);
+  const int smem3 = static_cast<int>(fwd_out_tile_floats(F, SK, D) * sizeof(float));
+  err = vsl::opt_in_smem(reinterpret_cast<const void*>(fwd_out_tile_kernel), smem3);
   if (err != cudaSuccess) return static_cast<int>(err);
-  out_kernel<<<dim3(B, (D + kChunk - 1) / kChunk), kThreads, smem3, stream>>>(
-      x, att, gam + D, beta + D, wd, bd, drop, out, T, D);
+  fwd_out_tile_kernel<<<grid, kThreads, smem3, stream>>>(x, att, gam + D, beta + D, wd, bd, drop,
+                                                         out, T, D, F, SK);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -735,19 +790,21 @@ extern "C" int vsl_mha_block_bwd(const float* x, const float* mask, const float*
 }
 
 // Whole-T multi-head attention (fused_mha's small-T route), replacing the
-// TPU kernels _make_mha_fwd_kernel and _make_mha_bwd_kernel: the block's
-// attention launches over unsplit q, k, v [B, T, D], key mask [B, T] and
-// per-row seeds. The backward keeps a head's dS [T, T + 1] in shared
+// TPU kernels _make_mha_fwd_kernel and _make_mha_bwd_kernel, over unsplit
+// q, k, v [B, T, D], key mask [B, T] and per-row seeds. The forward runs
+// the block forward's attention on query tiles of TQ rows (ops/kernels.py
+// MHA_WHOLE_QTILE). The backward keeps a head's dS [T, T + 1] in shared
 // memory, so it takes T up to 209 at head dim 16 (ops/kernels.py
 // attention_route); longer T goes to flash_mha.cu.
 extern "C" int vsl_mha_fwd(const float* q, const float* k, const float* v, const float* mask,
                            const float* seeds, unsigned thresh, float scale, float* out, int B,
-                           int T, int D, int n_heads, void* stream_) {
+                           int T, int D, int n_heads, int TQ, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (TQ < 1) return static_cast<int>(cudaErrorInvalidValue);
   const vsl::Dropout drop{seeds, thresh, scale};
   return static_cast<int>(vsl::by_head_dim(D / n_heads, [&](auto hd) {
-    return launch_attention<decltype(hd)::value>(q, k, v, D, mask, drop, out, D, B, T, n_heads,
-                                                 stream);
+    return launch_attention_tiles<decltype(hd)::value>(q, k, v, D, mask, drop, out, D, B, T,
+                                                       n_heads, TQ, stream);
   }));
 }
 

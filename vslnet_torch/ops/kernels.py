@@ -91,17 +91,17 @@ _SIGNATURES = {
     "vsl_lstm_recurrence_bwd": [_P] * 10 + [_I] * 8 + [_P],
     "vsl_conv_block_fwd": [_P] * 7 + _DROP + [_P] + [_I] * 7 + [_P],
     "vsl_conv_block_bwd": [_P] * 8 + _DROP + [_P] * 8 + [_I] * 8 + [_P],
-    "vsl_mha_block_fwd": [_P] * 9 + _DROP + [_P] * 3 + [_I] * 4 + [_P],
+    "vsl_mha_block_fwd": [_P] * 9 + _DROP + [_P] * 3 + [_I] * 7 + [_P],
     "vsl_mha_block_bwd": [_P] * 7 + _DROP + [_P] * 15 + [_I] * 8 + [_P],
     "vsl_cqa_concat_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "vsl_highlight_gate_fwd": [_P] * 6 + [_I] * 2 + [_P],
     "vsl_span_decode": [_P] * 4 + [_I] * 2 + [_P],
     "vsl_conv_block_fwd_tiled": [_P] * 7 + _DROP + [_P] * 2 + [_I] * 5 + [_P],
     "vsl_conv_block_bwd_tiled": [_P] * 9 + _DROP + [_P] * 9 + [_I] * 6 + [_P],
-    "vsl_mha_fwd": [_P] * 5 + _DROP + [_P] + [_I] * 4 + [_P],
+    "vsl_mha_fwd": [_P] * 5 + _DROP + [_P] + [_I] * 5 + [_P],
     "vsl_mha_bwd": [_P] * 5 + _DROP + [_P] * 4 + [_I] * 4 + [_P],
     "vsl_flash_mha_fwd": [_P] * 5 + _DROP + [_P] * 2 + [_I] * 4 + [_P],
-    "vsl_flash_mha_bwd": [_P] * 5 + _DROP + [_P] * 7 + [_I] * 4 + [_P],
+    "vsl_flash_mha_bwd": [_P] * 5 + _DROP + [_P] * 8 + [_I] * 4 + [_P],
 }
 
 
@@ -673,7 +673,7 @@ def _conv_shapes(name, x, gam, beta, dw, wp, bp, smem):
 
 def _aligned16(*tensors):
     """The tensors, each copied where it does not start on 16 bytes: the
-    cluster kernels copy a layer's taps and weights by 16-byte cp.async."""
+    conv and MHA block kernels copy their weights by 16-byte cp.async."""
     return [a if a.data_ptr() % 16 == 0 else a.clone() for a in tensors]
 
 
@@ -853,11 +853,13 @@ class FusedConvBlockTiled(torch.autograd.Function):
 # --- 3. MHA block --------------------------------------------------------------
 # Replaces vslnet_tpu/ops/pallas_kernels.py:_make_mha_block_fwd_kernel and
 # _make_mha_block_bwd_kernel (via fused_mha_block). Kernels:
-# csrc/mha_block.cu, three launches each way. The forward: LN1 + QKV,
-# per-(row, head) attention, residual + LN2 + dense + residual. The
-# backward on mha_bwd_plan: the dense + LN2 and QKV + LN1 backwards on
-# tiles of frames with the weights streamed into shared memory, and the
-# attention backward as a cluster of query tiles a (row, head).
+# csrc/mha_block.cu, three launches each way. The forward on mha_fwd_plan:
+# LN1 + QKV on tiles of frames with Wqkv streamed into shared memory, the
+# attention on (query tile, head, row) CTAs, residual + LN2 + dense +
+# residual on the frame tiles. The backward on mha_bwd_plan: the dense +
+# LN2 and QKV + LN1 backwards on tiles of frames with the weights streamed
+# into shared memory, and the attention backward as a cluster of query
+# tiles a (row, head).
 
 
 def _mha_block(attend, x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
@@ -919,28 +921,22 @@ def _head_dim(name, D, n_heads):
 
 def mha_route(T, D, n_heads):
     """The MHA block's kernels on the card: "block" (the fused block
-    kernels) up to the route's T limit, where the forward's launches and
+    kernels) up to the route's T limit, where mha_fwd_plan's and
     mha_bwd_plan's tiles also fit; else the unfused block around fused_mha's
     `attention_route`. The T limit is the one the block backward had when
     it ran one block a row, kept so that every shape takes the route it
     took then: three [T, D] rows, T inverse deviations and 16 D floats of
     LN reductions, or a head's q, k, v and g, three [T] rows and dS [T, T +
-    1], in a block's shared memory (T <= 145 at D = 128). Raises for a head
-    dim no kernel takes."""
+    1], in a block's shared memory (T <= 145 at D = 128). The forward of
+    that time, one block a row holding (2 D + 1) T floats, lies inside the
+    limit. Raises for a head dim no kernel takes."""
     hd = _head_dim("mha_route", D, n_heads)
     t_limit = (max(3 * T * D + T + 16 * D, 4 * T * hd + 3 * T + T * (T + 1))
                * 4 <= MAX_SMEM_BYTES)
-    if (t_limit and mha_block_smem_bytes(T, D) <= MAX_SMEM_BYTES
+    if (t_limit and _mha_fwd_sizes(T, D, hd) is not None
             and _mha_bwd_sizes(T, D, hd) is not None):
         return "block"
     return attention_route(T, hd)
-
-
-def mha_block_smem_bytes(T, D):
-    """The largest of the three forward launches' shared memory (the
-    attention's K, V and mask rows fit under 2*T*D + T floats for any head
-    count)."""
-    return (2 * D + 1) * T * 4
 
 
 # frames a tile of the backward's per-frame launches, and query rows a CTA
@@ -1024,6 +1020,93 @@ def mha_bwd_plan(B, T, D, n_heads):
                       -(-T // q_tile), _mha_attention_bytes(T, q_tile, hd))
 
 
+# frames a tile of the forward's per-frame launches, rows of a weight slice
+# (a fraction of D) and query rows a CTA of its attention launch: the
+# fastest of the plans vslnet_torch/bench/mha_plans.py --forward times at
+# T = 128 (PERF.md)
+MHA_FWD_FRAMES = 8
+MHA_FWD_SLICE = 4  # slices of D / 4 rows
+MHA_FWD_QTILE = 32
+
+
+class MHAFwdPlan(NamedTuple):
+    """One call of the MHA block forward: the per-frame launches on
+    `tiles` = ceil(T / frames) tiles a row, the weights streamed in slices
+    of `slice_rows` rows, `smem_frames` bytes a CTA (the larger launch);
+    the attention on `q_tiles` = ceil(T / q_tile) CTAs a (row, head),
+    `smem_attention` bytes each."""
+    frames: int
+    tiles: int
+    slice_rows: int
+    smem_frames: int
+    q_tile: int
+    q_tiles: int
+    smem_attention: int
+
+
+def _mha_fwd_frames_bytes(frames, sk, D):
+    """csrc/mha_block.cu fwd_qkv_tile_floats (the larger per-frame launch:
+    fwd_out_tile_floats is 2 sk D + 3 frames D)."""
+    return 4 * (6 * sk * D + 4 * frames * D)
+
+
+def _mha_fwd_attention_bytes(T, q_tile, hd):
+    """csrc/mha_block.cu fwd_attn_tile_floats."""
+    return 4 * (2 * T * (hd + 1) + q_tile * (hd + 1) + q_tile * (T + 1) + T
+                + q_tile)
+
+
+@functools.lru_cache(maxsize=256)
+def _mha_fwd_sizes(T, D, hd):
+    """(frames, slice rows, query rows) of mha_fwd_plan at [T, D] and head
+    dim hd, or None where no tile fits: tiles of MHA_FWD_FRAMES frames,
+    weight slices of D / MHA_FWD_SLICE rows (a multiple of 4 dividing D),
+    halved (then the frames) until a tile's shared memory fits; query
+    tiles of MHA_FWD_QTILE rows, halved while they do not fit."""
+    frames = min(T, MHA_FWD_FRAMES)
+    sk = D // MHA_FWD_SLICE
+    if sk % 4 or D % sk:
+        sk = 4
+    while _mha_fwd_frames_bytes(frames, sk, D) > MAX_SMEM_BYTES:
+        if sk % 8 == 0:
+            sk //= 2
+        elif frames > 1:
+            frames = -(-frames // 2)
+        else:
+            return None
+    q_tile = min(T, MHA_FWD_QTILE)
+    while _mha_fwd_attention_bytes(T, q_tile, hd) > MAX_SMEM_BYTES:
+        if q_tile == 1:
+            return None
+        q_tile = -(-q_tile // 2)
+    return frames, sk, q_tile
+
+
+def mha_fwd_plan(B, T, D, n_heads):
+    """The MHA block forward's launch plan for B rows of [T, D] and n_heads
+    heads (_mha_fwd_sizes), the frames a tile cut to ceil(B T / N_SMS) so
+    that short rows still fill the SMs (the query stream: 2 frames at B =
+    16, T = 12). The per-frame launches keep two weight slices and the
+    tile's rows (LN1 out and its [frames, 3D] product; the residual, LN2
+    out and the dense product); the attention keeps a head's k and v, its
+    query tile's q and [q_tile, T + 1] scores. Raises on what the kernels
+    cannot take."""
+    hd = _head_dim("mha_fwd_plan", D, n_heads)
+    if B < 1 or T < 1:
+        raise ValueError("mha_fwd_plan: needs B, T >= 1, got B=%d, T=%d"
+                         % (B, T))
+    sizes = _mha_fwd_sizes(T, D, hd)
+    if sizes is None:
+        raise ValueError("mha_fwd_plan: T=%d, D=%d, head dim %d: no tile "
+                         "fits the %d bytes of shared memory a block has"
+                         % (T, D, hd, MAX_SMEM_BYTES))
+    frames, sk, q_tile = sizes
+    frames = min(frames, -(-B * T // N_SMS))
+    return MHAFwdPlan(frames, -(-T // frames), sk,
+                      _mha_fwd_frames_bytes(frames, sk, D), q_tile,
+                      -(-T // q_tile), _mha_fwd_attention_bytes(T, q_tile, hd))
+
+
 def _mha_shapes(name, x, n_heads, smem, mask, gam, beta, wqkv, wd, bqkv=None,
                 bd=None):
     B, T, D = x.shape
@@ -1047,20 +1130,25 @@ def _mha_shapes(name, x, n_heads, smem, mask, gam, beta, wqkv, wd, bqkv=None,
 
 def launch_mha_block_fwd(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
                          seeds=None, drop_rate=0.0):
-    """The forward kernels: (out, qkv [B, T, 3D], att [B, T, D]), the last
-    two being what the backward reads back. CUDA tensors only."""
+    """The forward kernels on mha_fwd_plan's tiles: (out, qkv [B, T, 3D],
+    att [B, T, D]), the last two being what the backward reads back. CUDA
+    tensors only."""
     name = "mha_block_fwd"
     _require_cuda(name, x, mask, gam, beta, wqkv, bqkv, wd, bd)
-    B, T, D = _mha_shapes(name, x, n_heads, mha_block_smem_bytes(*x.shape[1:]),
-                          mask, gam, beta, wqkv, wd, bqkv, bd)
+    B, T, D = _mha_shapes(name, x, n_heads, 0, mask, gam, beta, wqkv, wd,
+                          bqkv, bd)
+    plan = mha_fwd_plan(B, T, D, n_heads)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    # the per-frame launches copy the weights by 16-byte cp.async
+    wqkv, wd = _aligned16(wqkv, wd)
     qkv = _empty(x.device, B, T, 3 * D)
     att = torch.empty_like(x)
     out = torch.empty_like(x)
     _launch(name, x.data_ptr(), mask.data_ptr(), gam.data_ptr(),
             beta.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wd.data_ptr(),
             bd.data_ptr(), sp, thresh, scale, qkv.data_ptr(), att.data_ptr(),
-            out.data_ptr(), B, T, D, n_heads)
+            out.data_ptr(), B, T, D, n_heads, plan.frames, plan.slice_rows,
+            plan.q_tile)
     return out, qkv, att
 
 
@@ -1145,11 +1233,60 @@ def fused_mha_block(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
 
 # --- 3b. multi-head attention at any T -----------------------------------------
 # Replaces vslnet_tpu/ops/pallas_kernels.py:_make_mha_fwd_kernel and
-# _make_mha_bwd_kernel (whole-T; csrc/mha_block.cu's attention launches,
-# one block a (row, head)), _make_flash_fwd_kernel and
-# _make_flash_bwd_kernel (csrc/flash_mha.cu), via fused_mha and its VJP.
-# attention_route picks one route for both directions. Bound by their
-# per-thread key loops (an exp, a hash and 2 * hd FMAs a pair).
+# _make_mha_bwd_kernel (whole-T; csrc/mha_block.cu: the forward on the MHA
+# block forward's attention body, the backward one thread a query row),
+# _make_flash_fwd_kernel and _make_flash_bwd_kernel (csrc/flash_mha.cu),
+# via fused_mha and its VJP. attention_route picks one route for both
+# directions. The whole-T backward and the flash forward are bound by
+# their per-thread key loops (an exp, a hash and 2 * hd FMAs a pair); the
+# flash backward runs on flash_bwd_plan, one pass over key-tile CTAs with
+# its products register-tiled out of shared memory.
+
+# keys a CTA of the flash backward at head dims up to 32 (64 above: the
+# kernel keeps 2 keys x 8 dims of dK and dV a thread in registers, for at
+# most 512 threads; 128 beat 64 at path L, PERF.md; csrc/flash_mha.cu
+# bwd_key_tile), and query rows a streamed tile (kBwdQ)
+FLASH_KEY_TILE = 128
+FLASH_QTILE = 64
+
+
+class FlashBwdPlan(NamedTuple):
+    """One call of the flash backward: `key_tiles` = ceil(T / key_tile)
+    CTAs a (row, head), each streaming `q_tiles` = ceil(T / q_tile) query
+    tiles, `smem_bytes` each; the key tiles' dQ partials in a workspace of
+    `workspace_bytes`, summed in key-tile order."""
+    key_tile: int
+    key_tiles: int
+    q_tile: int
+    q_tiles: int
+    smem_bytes: int
+    workspace_bytes: int
+
+
+def _flash_bwd_bytes(key_tile, hd):
+    """csrc/flash_mha.cu flash_bwd_floats."""
+    return 4 * (2 * key_tile * (hd + 1) + key_tile * hd + 4 * FLASH_QTILE * hd
+                + 4 * FLASH_QTILE + key_tile + 2 * FLASH_QTILE * (key_tile + 1)
+                + 8192)
+
+
+def flash_bwd_plan(B, T, D, n_heads):
+    """The flash backward's launch plan for B rows of [T, D] and n_heads
+    heads: key tiles of FLASH_KEY_TILE keys (half that at head dim 64).
+    Each CTA keeps a key tile's k and v, two buffers of a query tile's q,
+    g, lse and delta, the tile's drop(P) and dS [q_tile, key_tile + 1] and
+    its dQ sums over key groups (139 KB at head dim 16). Raises on what the
+    kernels cannot take."""
+    hd = _head_dim("flash_bwd_plan", D, n_heads)
+    if B < 1 or T < 1:
+        raise ValueError("flash_bwd_plan: needs B, T >= 1, got B=%d, T=%d"
+                         % (B, T))
+    key_tile = FLASH_KEY_TILE if hd * FLASH_KEY_TILE <= 4096 else \
+        FLASH_KEY_TILE // 2
+    key_tiles = -(-T // key_tile)
+    return FlashBwdPlan(key_tile, key_tiles, FLASH_QTILE, -(-T // FLASH_QTILE),
+                        _flash_bwd_bytes(key_tile, hd),
+                        4 * key_tiles * B * T * D)
 
 
 def flash_attention_plain(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
@@ -1169,19 +1306,26 @@ def _attention_shapes(name, q, k, v, mask, n_heads, *more):
     return B, T, D
 
 
+# query rows a CTA of the whole-T forward (the MHA block forward's
+# attention body): the fastest at path M's [16, 192, 128] in
+# vslnet_torch/bench/mha_plans.py --forward (PERF.md)
+MHA_WHOLE_QTILE = 32
+
+
 def launch_mha_fwd(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
     """The whole-T forward kernel: out [B, T, D]. CUDA tensors only."""
     name = "mha_fwd"
     _require_cuda(name, q, k, v, mask)
     B, T, D = _attention_shapes(name, q, k, v, mask, n_heads)
-    smem = (2 * T * (D // n_heads) + T) * 4  # K and V of a head, the mask
+    q_tile = min(T, MHA_WHOLE_QTILE)
+    smem = _mha_fwd_attention_bytes(T, q_tile, D // n_heads)
     if smem > MAX_SMEM_BYTES:
         raise ValueError("%s: T=%d needs %d bytes of shared memory, above the "
                          "%d a block has" % (name, T, smem, MAX_SMEM_BYTES))
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     out = torch.empty_like(q)
     _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            sp, thresh, scale, out.data_ptr(), B, T, D, n_heads)
+            sp, thresh, scale, out.data_ptr(), B, T, D, n_heads, q_tile)
     return out
 
 
@@ -1220,19 +1364,27 @@ def launch_flash_mha_fwd(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
 
 def launch_flash_mha_bwd(q, k, v, mask, n_heads, seeds, drop_rate, out, lse,
                          g):
-    """The flash backward kernels (P recomputed from lse): (dq, dk, dv).
-    CUDA tensors only."""
+    """The flash backward kernels on flash_bwd_plan (P recomputed from lse):
+    (dq, dk, dv). CUDA tensors only."""
     name = "flash_mha_bwd"
     _require_cuda(name, q, k, v, mask, out, lse, g)
     B, T, D = _attention_shapes(name, q, k, v, mask, n_heads, out, g)
     _check(name, lse, (B, n_heads, T))
+    plan = flash_bwd_plan(B, T, D, n_heads)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta = _empty(q.device, B, n_heads, T)
+    # delta [B, H, T] (g . out per query), then the key tiles' dQ partials
+    # [key_tiles, B, T, D]
+    # (16-byte aligned: the kernel writes them as float4s)
+    nd = -(-B * n_heads * T // 4) * 4
+    work = _empty(q.device, nd + plan.workspace_bytes // 4)
+    dqw = work[nd:]
+    # the query tiles land by 16-byte cp.async
+    q, g = _aligned16(q, g)
     _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             sp, thresh, scale, out.data_ptr(), lse.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B,
-            T, D, n_heads)
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(),
+            dqw.data_ptr(), B, T, D, n_heads)
     return dq, dk, dv
 
 
