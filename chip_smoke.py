@@ -24,8 +24,9 @@ Phases, each printing one JSON line:
               the conv block's forward and the MHA block's forward and
               backward also give equal bits on two equal calls.
               The cluster and tiled kernels carry their launch plans; the
-              conv block's forward and backward must beat the T-tiled
-              kernels at the same shape, the MHA block's forward and
+              conv block's forward, and its forward and backward together
+              (the pair conv_route picks), must beat the T-tiled kernels at
+              the same shape by device time, the MHA block's forward and
               backward those of the unfused block (its PyTorch ops around
               the whole-T attention kernels), each timed in the same run.
               Those rows give beside ms (CUDA events around back-to-back
@@ -56,9 +57,12 @@ Phases, each printing one JSON line:
               (forward, backward) and the T-tiled conv block (forward,
               backward) against their plain versions at the paths' shapes
               (output, every gradient, dropout zero pattern; SDPA as the
-              attention yardstick; the flash backward gives equal bits on
-              two equal calls, carries its plan and device time by kernel
-              and must beat SDPA's backward); then path M (rnn,
+              attention yardstick; the flash forward and backward and the
+              tiled conv backward give equal bits on two equal calls and
+              carry their plans and device time by kernel, the tiled
+              backward's dropout and ReLU zero pattern is the plain
+              version's, and the flash backward must beat SDPA's
+              backward); then path M (rnn,
               max_pos_len 192, batch 16) and path L (transformer,
               max_pos_len 1024, batch 8): a served batch against
               use_pallas=off, one train step against off, then 3 (M) or
@@ -509,8 +513,27 @@ def kernel_phase(dev, max_w):
                  20)
     # the T-tiled backward at the same shape, from its forward's xs
     _, xs = K.launch_conv_block_fwd_tiled(*conv_args, seeds, DROP)
-    tiled_ms = cuda_ms(lambda: K.launch_conv_block_bwd_tiled(
-        conv_args[0], xs, *conv_args[1:], seeds, DROP, g), 20)
+
+    def tiled_bwd():
+        return K.launch_conv_block_bwd_tiled(conv_args[0], xs, *conv_args[1:],
+                                             seeds, DROP, g)
+    tiled_ms = cuda_ms(tiled_bwd, 20)
+    parts = by_kernel(lambda: K.launch_conv_block_bwd(*conv_args, seeds, DROP,
+                                                      g))
+    tiled_parts = by_kernel(tiled_bwd)
+
+    # conv_route takes the whole-row kernels or the tiled ones as a pair, so
+    # a training call's device time, forward and backward, decides it
+    def block_pair():
+        K.launch_conv_block_fwd(*conv_args, seeds, DROP)
+        return K.launch_conv_block_bwd(*conv_args, seeds, DROP, g)
+
+    def tiled_pair():
+        _, xs_ = K.launch_conv_block_fwd_tiled(*conv_args, seeds, DROP)
+        return K.launch_conv_block_bwd_tiled(conv_args[0], xs_, *conv_args[1:],
+                                             seeds, DROP, g)
+    pair_ms = sum(by_kernel(block_pair).values())
+    tiled_pair_ms = sum(by_kernel(tiled_pair).values())
     gq = g[:, :max_w].contiguous()
     record("conv_block_bwd", "vslnet_torch/csrc/conv_block.cu",
            "vslnet_tpu/ops/pallas_kernels.py:1039", max(abs_err, q_abs), TOL, ms,
@@ -523,11 +546,18 @@ def kernel_phase(dev, max_w):
            query_T=max_w, query_checked_err=q_err,
            plan=K.conv_plan(B, T, D, KS, L)._asdict(),
            query_plan=K.conv_plan(B, max_w, D, KS, L)._asdict(),
-           tiled_ms=tiled_ms,
+           tiled_ms=tiled_ms, device_ms=sum(parts.values()), by_kernel=parts,
+           tiled_device_ms=sum(tiled_parts.values()),
+           tiled_by_kernel=tiled_parts,
+           tiled_plan=K.conv_tiled_bwd_plan(B, T, D, KS, L)._asdict(),
+           route=K.conv_route(T, D, KS, L), pair_device_ms=pair_ms,
+           tiled_pair_device_ms=tiled_pair_ms,
            query_ms=cuda_ms(lambda: K.launch_conv_block_bwd(
                *conv_q_args, seeds, DROP, gq), 20))
-    check(ms < tiled_ms, "conv_block_bwd: %g ms, not below the tiled "
-          "backward's %g" % (ms, tiled_ms))
+    check(K.conv_route(T, D, KS, L) == "block" and pair_ms < tiled_pair_ms,
+          "conv_route: the whole-row forward and backward take %g ms of "
+          "device time at [%d, %d, %d], not below the T-tiled pair's %g"
+          % (pair_ms, B, T, D, tiled_pair_ms))
 
     # 10. MHA block backward, at T and at max_w (one fully masked row)
     def mha_pair(a, sd):
@@ -661,8 +691,9 @@ def charades_like_dataset():
 
 
 def profile_device(run, wall_ms):
-    """Device time by kernel over one call of run() (torch.profiler), and
-    the share of the unprofiled wall time wall_ms the card sits idle."""
+    """Device time by kernel over one call of run() (torch.profiler), the
+    part of it that is host-to-device copies, and the share of the
+    unprofiled wall time wall_ms the card sits idle."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -676,7 +707,9 @@ def profile_device(run, wall_ms):
                    if e.device_type == DeviceType.CUDA),
                   key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    return {"device_ms": device_ms, "wall_ms": wall_ms,
+    copy_ms = sum(r[1] for r in rows if r[0].startswith("Memcpy HtoD"))
+    return {"device_ms": device_ms, "htod_copy_ms": copy_ms,
+            "device_ms_without_copies": device_ms - copy_ms, "wall_ms": wall_ms,
             "device_idle_share": 1.0 - device_ms / wall_ms,
             "device_launches": sum(r[2] for r in rows),
             "top": [[k[:70], ms, n] for k, ms, n in rows[:12]]}
@@ -1046,6 +1079,21 @@ def long_kernel_rows(dev):
         io = B * T * D
         lse_io = B * heads * T if flash else 0
         shape = {"shape": [B, T, D], "heads": heads, "path": path}
+        if flash:
+            # no atomics: two equal calls, equal bits; the plan, and the
+            # device time of a call's kernels (torch.profiler), at drop 0
+            # (serving) and 0.2 (training)
+            twice = all(torch.equal(a, b) for a, b in zip(
+                launch_fwd(q, k, v, mask, heads, seeds, DROP),
+                launch_fwd(q, k, v, mask, heads, seeds, DROP)))
+            check(twice, "%s: two equal calls differ" % fname)
+            parts = by_kernel(lambda: launch_fwd(q, k, v, mask, heads))
+            drop_parts = by_kernel(lambda: launch_fwd(q, k, v, mask, heads,
+                                                      seeds, DROP))
+            extra.update(equal_bits_twice=twice,
+                         plan=K.flash_fwd_plan(B, T, D, heads)._asdict(),
+                         device_ms=sum(parts.values()), by_kernel=parts,
+                         dropout_device_ms=sum(drop_parts.values()))
         rows.append(kernel_row(
             fname, source, rep_fwd, err, TOL,
             cuda_ms(lambda: launch_fwd(q, k, v, mask, heads), 20),
@@ -1147,18 +1195,47 @@ def long_kernel_rows(dev):
     _, xs = K.launch_conv_block_fwd_tiled(*args, seeds, DROP)
     leaves = [a.clone().requires_grad_() for a in args]
     out_p = K.conv_block_plain(*leaves, seeds, DROP)
+
+    def tiled_bwd():
+        return K.launch_conv_block_bwd_tiled(args[0], xs, *args[1:], seeds,
+                                             DROP, g)
+
+    # no atomics: two equal calls, equal bits
+    twice = all(torch.equal(a, b) for a, b in zip(tiled_bwd(), tiled_bwd()))
+    check(twice, "conv_block_bwd_tiled: two equal calls differ")
+    # the backward's masks: for one layer and a g that is 1 on frame t of
+    # row 0 only, dbp = keep(t, o) [p(t, o) > 0] / (1 - rate) is 0 exactly
+    # where the plain version's autograd has it 0 (frames at tile edges)
+    one = [args[0]] + [w[:1].contiguous() for w in args[1:]]
+    _, xs1 = K.launch_conv_block_fwd_tiled(*one, seeds, DROP)
+    frames = K.conv_tiled_bwd_plan(B, T, D, KS, 1).frames
+    bwd_zeros = []
+    for t_ in (0, frames - 1, frames, T // 2, T - 1):
+        g1 = torch.zeros_like(g)
+        g1[0, t_] = 1.0
+        dbp = K.launch_conv_block_bwd_tiled(one[0], xs1, *one[1:], seeds,
+                                            DROP, g1)[5]
+        one_l = [a.clone().requires_grad_() for a in one]
+        ref = torch.autograd.grad(K.conv_block_plain(*one_l, seeds, DROP),
+                                  one_l[5], g1)[0]
+        bwd_zeros.append(torch.equal(dbp == 0, ref == 0))
+    check(all(bwd_zeros), "conv_block_bwd_tiled: the dropout zero pattern "
+          "differs")
+    parts = by_kernel(tiled_bwd)
     rows.append(kernel_row(
         "conv_block_bwd_tiled", "vslnet_torch/csrc/conv_block.cu",
-        tpu + "1039", max(b_errs), TOL,
-        cuda_ms(lambda: K.launch_conv_block_bwd_tiled(
-            args[0], xs, *args[1:], seeds, DROP, g), 20),
+        tpu + "1039", max(b_errs), TOL, cuda_ms(tiled_bwd, 20),
         cuda_ms(lambda: torch.autograd.grad(out_p, leaves, g,
                                             retain_graph=True), 20),
         # the forward's products for the ReLU masks, then the data and
         # weight products
         L * 6 * B * T * D * (D + KS),
         4 * (3 * B * T * D + 2 * weights + B),
-        checked_err=max(g_errs), drop_rate=DROP, **shape))
+        checked_err=max(g_errs), drop_rate=DROP, equal_bits_twice=twice,
+        dropout_zero_pattern_equal=all(bwd_zeros),
+        plan=K.conv_tiled_bwd_plan(B, T, D, KS, L)._asdict(),
+        M_plan=K.conv_tiled_bwd_plan(*shape["M_shape"], KS, L)._asdict(),
+        device_ms=sum(parts.values()), by_kernel=parts, **shape))
     return rows
 
 

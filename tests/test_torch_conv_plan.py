@@ -154,3 +154,110 @@ def test_conv_plans_bench_copies_match_the_kernel():
         tile = conv_plans.with_tile(src, rows, unroll)
         assert "constexpr int kGemmRows = %d;" % rows in tile
         assert "constexpr int kGemmUnroll = %d;" % unroll in tile
+
+
+# --- the T-tiled backward's plan (conv_tiled_bwd_plan) -----------------------
+
+
+@pytest.mark.parametrize("D", [16, 128, 512])
+@pytest.mark.parametrize("T", [1, 7, 12, 32, 64, 128, 146, 192, 1000, 1024])
+def test_conv_tiled_bwd_plan_covers_every_frame_once_with_its_halo(T, D):
+    """Every length the card tests and the paths run: the tiles cover every
+    frame of a row once, none empty; a tile's reach (2 (K - 1) frames of
+    LayerNorm around its frames, 0 outside [0, T)) is what its shared
+    memory holds; the plan fits a block, its weight slices divide D, and
+    its product items take one round of the CTA's threads where the
+    product rows it is built for allow."""
+    for B in (1, 4, 8, 16, 33):
+        plan = kernels.conv_tiled_bwd_plan(B, T, D, K, L)
+        assert plan.smem <= kernels.MAX_SMEM_BYTES, plan
+        assert plan.smem == kernels._conv_tiled_bwd_smem_bytes(
+            plan.frames, D, K, plan.slice)
+        assert plan.frames in {min(T, f) for f in kernels.CONV_TILED_FRAMES}
+        assert plan.tiles == -(-T // plan.frames) and plan.ctas == B * plan.tiles
+        frames = [t for r in range(plan.tiles)
+                  for t in range(r * plan.frames, min(T, (r + 1) * plan.frames))]
+        assert frames == list(range(T))                    # each once, in order
+        assert (plan.tiles - 1) * plan.frames < T          # none empty
+        assert D % plan.slice == 0 and plan.slice % 4 == 0, plan
+        assert plan.product_rows in kernels.CONV_TILED_ROWS
+        items = -(-(plan.frames + K - 1) // plan.product_rows) * (D // 4)
+        fits = [r for r in kernels.CONV_TILED_ROWS
+                if -(-(plan.frames + K - 1) // r) * (D // 4)
+                <= kernels.CONV_TILED_THREADS]
+        assert plan.product_rows == (fits[0] if fits else
+                                     kernels.CONV_TILED_ROWS[-1]), plan
+        assert items <= kernels.CONV_TILED_THREADS or not fits
+
+
+@pytest.mark.parametrize("B,T,plan", [
+    (8, 1024, (64, 16, 128, 212736, 128, 6)),
+    (16, 192, (24, 8, 128, 130656, 128, 4)),
+    (16, 128, (16, 8, 128, 114240, 128, 4)),
+    (4, 1000, (32, 32, 128, 147072, 128, 4))])
+def test_conv_tiled_bwd_plan_at_the_paths(B, T, plan):
+    """Path L's [8, 1024, 128]: 128 CTAs of 64 frames, one wave, wp whole
+    in 213 KB, products of 6 rows an item (70 rows in 384 items, one
+    round); path M's [16, 192, 128]: 128 CTAs of 24 frames; the main
+    path's shape, where conv_route keeps the whole-row kernels: 128 of
+    16."""
+    assert tuple(kernels.conv_tiled_bwd_plan(B, T, 128, K, L)) == plan
+
+
+def test_conv_tiled_bwd_plan_slices_wide_rows():
+    """Where wp does not fit beside a tile, it streams in the largest slices
+    of its rows that do: D = 512 in 16-row slices at 8 frames a tile."""
+    plan = kernels.conv_tiled_bwd_plan(2, 300, 512, K, L)
+    assert (plan.frames, plan.slice) == (8, 16)
+    assert kernels.conv_tiled_bwd_plan(2, 300, 128, K, L).slice == 128
+
+
+@pytest.mark.parametrize("B,T,D,Kk,Ll", [(0, 1024, 128, 7, 4),
+                                         (8, 0, 128, 7, 4),
+                                         (8, 1024, 30, 7, 4),
+                                         (8, 1024, 128, 0, 4),
+                                         (8, 1024, 128, 7, 0),
+                                         (8, 1024, 2, 7, 4),
+                                         (8, 1024, 1024, 7, 4)])
+def test_conv_tiled_bwd_plan_refuses(B, T, D, Kk, Ll):
+    with pytest.raises(ValueError, match="conv_tiled_bwd_plan"):
+        kernels.conv_tiled_bwd_plan(B, T, D, Kk, Ll)
+
+
+@pytest.mark.parametrize("D", [128, 512, 800, 1024])
+def test_conv_block_tiled_smem_bytes_is_the_forwards(D):
+    """The tiled forward's shared-memory gate is its own tile's (a halo of
+    LN rows and the depthwise output over 32 frames), no longer the old
+    backward launches'; its wrapper also asks conv_tiled_bwd_plan, so a
+    shape the forward takes is one the backward takes: D = 1024 neither."""
+    fwd = kernels.conv_block_tiled_smem_bytes(D, K)
+    assert fwd == (2 * kernels.CONV_TILE + K - 1) * D * 4
+    fits = fwd <= kernels.MAX_SMEM_BYTES
+    assert fits == (D <= 800)
+    if fits:
+        kernels.conv_tiled_bwd_plan(2, 300, D, K, L)
+
+
+def test_conv_tiled_bench_copies_match_the_kernel():
+    """vslnet_torch/bench/conv_plans.py --tiled times the plans of
+    tiled_bwd_plans (conv_tiled_bwd_plan's among them) and builds copies of
+    csrc/conv_block.cu: with another thread count, whose constant it finds
+    once in the shipped kernel, and with a clock stamp at each barrier and
+    phase comment of the tiled kernel, each keyed by a line of the shipped
+    source that holds one."""
+    for B, T in ((8, 1024), (16, 192), (16, 128)):
+        plans = conv_plans.tiled_bwd_plans(B, T, 128, K)
+        assert kernels.conv_tiled_bwd_plan(B, T, 128, K, L) in plans
+    src = (kernels.CSRC / "conv_block.cu").read_text()
+    assert "constexpr int kTiledThreads = %d;" % kernels.CONV_TILED_THREADS in src
+    assert conv_plans.TILED_THREADS[0] == kernels.CONV_TILED_THREADS
+    for n in conv_plans.TILED_THREADS[1:]:
+        assert "constexpr int kTiledThreads = %d;" % n in \
+            conv_plans.with_tiled_threads(src, n)
+    lines = src.split("\n")
+    prof, stamped = conv_plans.instrumented_tiled(src)
+    assert stamped == sorted(set(stamped)) and len(stamped) > 5
+    assert prof.count("+= now - plast") == len(stamped)
+    assert all("__syncthreads();" in lines[n - 1] or
+               lines[n - 1].startswith("  // ") for n in stamped)
+    assert 'extern "C" int tprof_conv_block_bwd_tiled' in prof

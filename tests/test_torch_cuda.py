@@ -402,6 +402,55 @@ FLASH_PLANS = {(210, 16): 2, (256, 16): 2, (1000, 16): 8, (1024, 16): 8,
                (210, 64): 4, (256, 64): 4, (1000, 64): 16, (1024, 64): 16}
 
 
+# The flash forward's plan (flash_fwd_plan: query rows a thread, query
+# tiles) at [4, T, 128]: 2 rows a thread (query tiles of 128) up to head
+# dim 16, 1 (tiles of 64) above; T = 210 and 1000 leave a ragged last query
+# tile and key tile.
+FLASH_FWD_PLANS = {(210, 8): (2, 2), (1000, 16): (2, 8), (1024, 16): (2, 8),
+                   (210, 32): (1, 4), (1024, 32): (1, 16), (1000, 64): (1, 16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("T,hd", list(FLASH_FWD_PLANS))
+def test_cuda_flash_fwd_matches_plain(cuda, T, hd, rate):
+    """The flash forward at [4, T, 128], ragged key lengths and one fully
+    masked row: out and lse within 1e-4 of flash_attention_plain, equal
+    bits on two equal calls, and at rate 0.2 the dropout's zero pattern of
+    the plain version; then the flash backward's gradients from this lse
+    within 1e-4 of autograd of `attention`."""
+    B, D = 4, 128
+    heads = D // hd
+    plan = kernels.flash_fwd_plan(B, T, D, heads)
+    assert (plan.rows, plan.q_tiles) == FLASH_FWD_PLANS[T, hd]
+    rng = np.random.default_rng(25)
+    lens = [T, T // 2 + 3, 1, 0]
+    q, k, v, mask = [_t(a).to(cuda) for a in _attn_inputs(rng, B, T, D, lens)]
+    seeds = _t(_seeds(rng, B)).to(cuda)
+    sd = (seeds, rate) if rate else (None, 0.0)
+    out, lse = kernels.launch_flash_mha_fwd(q, k, v, mask, heads, *sd)
+    out2, lse2 = kernels.launch_flash_mha_fwd(q, k, v, mask, heads, *sd)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ref, lse_ref = kernels.flash_attention_plain(q, k, v, mask, heads, *sd)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    if rate:
+        probe = [_t(a).to(cuda) for a in _attention_probe(
+            rng, B, T, D, heads, [T, T - 7, T // 3, T])]
+        out_p, _ = kernels.launch_flash_mha_fwd(*probe, heads, seeds, rate)
+        ref_p, _ = kernels.flash_attention_plain(*probe, heads, seeds, rate)
+        assert torch.equal(out_p == 0, ref_p == 0)
+    g = _t(rng.standard_normal((B, T, D)).astype(np.float32)).to(cuda)
+    grads = kernels.launch_flash_mha_bwd(q, k, v, mask, heads, *sd, out, lse,
+                                         g)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    grads_ref = torch.autograd.grad(
+        kernels.attention(*leaves, mask, heads, *sd), leaves, g)
+    for name, a, b in zip("qkv", grads, grads_ref):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg="d" + name)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,hd", list(FLASH_PLANS))
 def test_cuda_flash_bwd_matches_plain(cuda, T, hd):
@@ -621,14 +670,14 @@ def test_cuda_fused_mha_matches_plain(cuda, T, route, rate):
         assert 0.1 < dropped < 0.3, dropped
 
 
-def _conv_inputs_off_kink(rng, B, T, D):
+def _conv_inputs_off_kink(rng, B, T, D, K=7):
     """_conv_inputs with biases of +-1 and a pointwise product ten times
     smaller: every pre-activation lies ~1 from the ReLU's kink. Where one
     lies within ~1e-6 of it (about one in 10^6 at _conv_inputs' scales),
     fp32 sums in another order may flip its ReLU between the kernel and
     cuBLAS, and the gradients of the frames around it differ by ~0.1; the
     seeded inputs of T = 1000 and 1024 have such an element."""
-    x, gam, beta, dw, wp, bp = _conv_inputs(rng, B, T, D)
+    x, gam, beta, dw, wp, bp = _conv_inputs(rng, B, T, D, K=K)
     bp = np.where(rng.random(bp.shape) < 0.5, -1.0, 1.0).astype(np.float32)
     return x, gam, beta, dw, (0.1 * wp).astype(np.float32), bp
 
@@ -669,6 +718,65 @@ def test_cuda_conv_block_tiled_matches_plain(cuda, T, rate):
             # the same arithmetic in the same order as the whole-row kernel
             assert torch.equal(kernels.FusedConvBlockTiled.apply(
                 *args, seeds, rate), whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [3, 5])
+def test_cuda_conv_block_tiled_other_kernel_sizes(cuda, K):
+    """Depthwise kernels other than the model's 7 taps take the tiled
+    backward's loops of taps in place of its register windows: every
+    gradient within 1e-3 of the plain version's at T = 200, drop_rate
+    0.2."""
+    rng = np.random.default_rng(27)
+    B, T, D = 2, 200, 128
+    args = [_t(a).to(cuda) for a in _conv_inputs_off_kink(rng, B, T, D, K=K)]
+    seeds = _t(_seeds(rng, B)).to(cuda)
+    _check_grads(lambda *a: kernels.FusedConvBlockTiled.apply(*a, seeds, 0.2),
+                 lambda *a: kernels.conv_block_plain(*a, seeds=seeds,
+                                                     drop_rate=0.2),
+                 args, 6, ["x", "gam", "beta", "dw", "wp", "bp"], 1e-3)
+
+
+# The tiled backward's plan (conv_tiled_bwd_plan: frames a tile, tiles)
+# at [4, T, 128] and path M's and L's batches.
+CONV_TILED_PLANS = {(4, 32): (8, 4), (4, 1000): (32, 32), (16, 192): (24, 8),
+                    (8, 1024): (64, 16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", list(CONV_TILED_PLANS))
+def test_cuda_conv_block_bwd_tiled_bits_and_masks(cuda, B, T):
+    """The tiled backward on its plan at drop_rate 0.2: equal bits on two
+    equal calls; and, for one layer and a g that is 1 on frame t of row 0
+    and 0 elsewhere, dbp = keep(t, o) * [p(t, o) > 0] * scale is 0 exactly where
+    the plain version's autograd has it 0 (frames at and beside the tiles'
+    edges, where a tile's halo holds a neighbour's frames)."""
+    rng = np.random.default_rng(26)
+    D = 128
+    plan = kernels.conv_tiled_bwd_plan(B, T, D, 7, 4)
+    assert (plan.frames, plan.tiles) == CONV_TILED_PLANS[B, T]
+    args = [_t(a).to(cuda) for a in _conv_inputs_off_kink(rng, B, T, D)]
+    seeds = _t(_seeds(rng, B)).to(cuda)
+    g = _t(rng.standard_normal((B, T, D)).astype(np.float32)).to(cuda)
+    _, xs = kernels.launch_conv_block_fwd_tiled(*args, seeds, 0.2)
+
+    def run(a, xs_, g_):
+        return kernels.launch_conv_block_bwd_tiled(a[0], xs_, *a[1:], seeds,
+                                                   0.2, g_)
+    first = [t.clone() for t in run(args, xs, g)]
+    for a, b in zip(first, run(args, xs, g)):
+        assert torch.equal(a, b)
+    one = [args[0]] + [w[:1].contiguous() for w in args[1:]]
+    _, xs1 = kernels.launch_conv_block_fwd_tiled(*one, seeds, 0.2)
+    F = plan.frames
+    for t in sorted({0, min(F - 1, T - 1), min(F, T - 1), T - 1, T // 2}):
+        g1 = torch.zeros_like(g)
+        g1[0, t] = 1.0
+        dbp = run(one, xs1, g1)[5]
+        leaves = [a.clone().requires_grad_() for a in one]
+        ref = torch.autograd.grad(kernels.conv_block_plain(
+            *leaves, seeds=seeds, drop_rate=0.2), leaves[5], g1)[0]
+        assert torch.equal(dbp == 0, ref == 0), t
 
 
 @pytest.mark.cuda

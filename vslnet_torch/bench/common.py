@@ -49,15 +49,26 @@ def card():
                           text=True).stdout.strip()
 
 
-def build_copy(name, src):
-    """src, a changed copy of a csrc/*.cu source, built with the package's
-    nvcc flags into vslnet_torch/_build/bench/lib<name>.so and loaded."""
+def build_copies(sources):
+    """{name: src}, changed copies of csrc/*.cu sources, each built with the
+    package's nvcc flags into vslnet_torch/_build/bench/lib<name>.so, one
+    nvcc each, all started together: {name: the loaded library}."""
     out_dir = K.BUILD_DIR / "bench"
     out_dir.mkdir(parents=True, exist_ok=True)
-    path = out_dir / ("%s.cu" % name)
-    path.write_text(src)
-    lib_path = out_dir / ("lib%s.so" % name)
-    subprocess.run([K._nvcc(), *[f for f in K.NVCC_FLAGS if f not in ("-Xptxas", "-v")],
-                    "-shared", "-I", str(K.CSRC), "-o", str(lib_path), str(path)],
-                   check=True)
-    return ctypes.CDLL(str(lib_path))
+    procs = {}
+    for name, src in sources.items():
+        path = out_dir / ("%s.cu" % name)
+        path.write_text(src)
+        lib_path = out_dir / ("lib%s.so" % name)
+        procs[name] = (lib_path, subprocess.Popen(
+            [K._nvcc(), *[f for f in K.NVCC_FLAGS if f not in ("-Xptxas", "-v")],
+             "-shared", "-I", str(K.CSRC), "-o", str(lib_path), str(path)]))
+    for name, (_, proc) in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError("nvcc failed on the bench copy %s" % name)
+    return {name: ctypes.CDLL(str(lib_path)) for name, (lib_path, _) in procs.items()}
+
+
+def build_copy(name, src):
+    """build_copies of one source: its loaded library."""
+    return build_copies({name: src})[name]

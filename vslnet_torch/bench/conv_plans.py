@@ -31,6 +31,19 @@ longest whole-row T) and 12 (the query stream):
     a clock stamp after each, keyed by the barrier's line in conv_block.cu.
 Prints one JSON line a row with the card's name and power limit. The
 shipped kernel carries no instrumentation.
+
+    python3 -m vslnet_torch.bench.conv_plans --tiled [--by-kernel]
+
+The T-tiled backward (one launch a layer on conv_tiled_bwd_plan) at path
+L's [8, 1024, 128], path M's [16, 192, 128] and the main path's [16, 128,
+128], drop_rate 0.2: `launch_conv_block_bwd_tiled`'s device time by kernel
+(torch.profiler) and the call's time (CUDA events), beside the whole-row
+backward's at T = 128; then every plan of `tiled_bwd_plans` (each frame
+count of CONV_TILED_FRAMES with its weight slice) through the kernel
+library (`tiled_bwd_runner`): device time, events, and the largest
+difference from the default plan's gradients. With --by-kernel only the
+wrapper's rows, which an older tree of the port also runs (put it on
+PYTHONPATH), so that a change's breakdown can be set beside its parent's.
 """
 import ctypes
 import json
@@ -80,6 +93,201 @@ def fwd_runner(args, seeds, rate, plan):
                   out.data_ptr(), B, T, D, L, k, plan.n, plan.frames)
         return out
     return run
+
+
+def tiled_bwd_plans(B, T, D, k):
+    """The tiled backward's plans this script times at [B, T, D] and k taps:
+    each frame count of CONV_TILED_FRAMES (cut to T) with its weight slice,
+    where one fits, as conv_tiled_bwd_plan builds them."""
+    plans = []
+    for frames in sorted({min(T, f) for f in K.CONV_TILED_FRAMES}):
+        sk = K._conv_tiled_slice(frames, D, k)
+        if sk is not None:
+            tiles = -(-T // frames)
+            plans.append(K.ConvTiledBwdPlan(
+                frames, tiles, sk, K._conv_tiled_bwd_smem_bytes(frames, D, k, sk),
+                B * tiles, K._conv_tiled_rows(frames, D, k)))
+    return plans
+
+
+def tiled_bwd_runner(args, xs, seeds, rate, g, plan, fn=None, waves=None):
+    """A call of the tiled backward on `plan` through fn (an entry point of
+    vsl_conv_block_bwd_tiled's signature; the kernel library's by default),
+    at args = (x, gam, beta, dw, wp, bp) (16-byte aligned), the forward's
+    xs, per-row seeds and g, with the workspaces launch_conv_block_bwd_tiled
+    allocates, dwp's split-K blocks filling the SMs `waves` times (the
+    wrapper's CONV_TILED_WGRAD_WAVES by default): returns
+    (dx, dsmall [L, 3 + K, D], dwp)."""
+    import torch
+
+    x, gam, beta, dw, wp, bp = args
+    (B, T, D), (L, k, _) = x.shape, dw.shape
+    sp, thresh, scale = K._dropout_args("conv_plans", seeds, rate, B)
+    wpT = wp.transpose(1, 2).contiguous()
+    dx = torch.empty_like(x)
+    dsmall = x.new_empty(L, 3 + k, D)
+    dwp = x.new_empty(L, D, D)
+    d_ws, gp_ws = (x.new_empty(L, B, T, D) for _ in range(2))
+    g_ws = torch.empty_like(x)
+    part = x.new_empty(plan.ctas, L, 3 + k, D)
+    splits = K._wgrad_splits(L, D, D, B * T, waves or K.CONV_TILED_WGRAD_WAVES)
+    ws = x.new_empty(L * splits * D * D if splits > 1 else 1)
+    fn = fn or K._library().vsl_conv_block_bwd_tiled
+
+    def run():
+        code = fn(x.data_ptr(), xs.data_ptr(), gam.data_ptr(), beta.data_ptr(), dw.data_ptr(),
+                  wp.data_ptr(), wpT.data_ptr(), bp.data_ptr(), sp, thresh, scale,
+                  g.data_ptr(), dx.data_ptr(), dsmall.data_ptr(), dwp.data_ptr(),
+                  d_ws.data_ptr(), gp_ws.data_ptr(), g_ws.data_ptr(), part.data_ptr(),
+                  ws.data_ptr(), splits, B, T, D, L, k, plan.frames, plan.slice,
+                  plan.product_rows, torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError("conv_block_bwd_tiled launch failed: %d" % code)
+        return dx, dsmall, dwp
+    return run
+
+
+# threads a CTA of the tiled backward: the kernel's own first
+# (csrc/conv_block.cu kTiledThreads)
+TILED_THREADS = [512, 384, 640]
+
+
+def with_tiled_threads(src, threads):
+    """csrc/conv_block.cu with the tiled backward's threads a CTA set to
+    `threads`."""
+    line = "constexpr int kTiledThreads = %d;"
+    if src.count(line % TILED_THREADS[0]) != 1:
+        raise RuntimeError("not found once in conv_block.cu: %r" % (line % TILED_THREADS[0]))
+    return src.replace(line % TILED_THREADS[0], line % threads)
+
+
+def instrumented_tiled(src):
+    """(csrc/conv_block.cu with a clock stamp, thread 0 of the CTA of tile 1
+    of row 0, at each block barrier of conv_layer_bwd_tiled_kernel and at the
+    first line of each comment that opens a phase, its entry points renamed
+    tprof_, the conv_block.cu line of each stamp)."""
+    lines = src.split("\n")
+    orig = list(lines)
+    head = "conv_layer_bwd_tiled_kernel(const float* __restrict__ xin"
+    first = next(i for i, s in enumerate(lines) if s.startswith(head))
+    last = lines.index("}", first)
+    stamp = (" { if (threadIdx.x == 0 && blockIdx.x == 1 && blockIdx.y == 0) { long long "
+             "now = clock64(); g_prof[%d] += now - plast; plast = now; } }")
+    at = []
+    for i in range(first, last):
+        code = lines[i].split("//")[0]
+        opens = orig[i].startswith("  // ") and not orig[i - 1].startswith("  //")
+        if "__syncthreads();" in code or opens:
+            lines[i] = code.rstrip() + stamp % len(at)
+            at.append(i + 1)
+    body_open = next(i for i in range(first, last) if lines[i].endswith(") {"))
+    lines[body_open] += "\n  long long plast = clock64();"
+    src = "\n".join(lines).replace(
+        '#include "hash.cuh"\n', '#include "hash.cuh"\n'
+        "__device__ unsigned long long g_prof[64];\n", 1)
+    return renamed(src, "tprof") + r'''
+extern "C" int tprof_read(unsigned long long* h) {
+  const int err = (int)cudaMemcpyFromSymbol(h, g_prof, sizeof(g_prof));
+  unsigned long long z[64] = {0};
+  return err ? err : (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));
+}
+''', at
+
+
+def tiled_main(argv):
+    """The --tiled rows (module docstring)."""
+    import torch
+
+    smi = card()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    if "--by-kernel" not in argv:
+        from vslnet_torch.bench.common import build_copies  # absent from older trees
+
+        src = (K.CSRC / "conv_block.cu").read_text()
+        prof_src, stamped = instrumented_tiled(src)
+        tags = {n: "tiled%d" % n for n in TILED_THREADS[1:]}
+        libs = build_copies({"tiled_prof": prof_src,
+                             **{tag: renamed(with_tiled_threads(src, n), tag)
+                                for n, tag in tags.items()}})
+        thread_fns = {n: getattr(libs[tag], tag + "_conv_block_bwd_tiled")
+                      for n, tag in tags.items()}
+        prof = libs["tiled_prof"]
+        fns = [*thread_fns.values(), prof.tprof_conv_block_bwd_tiled]
+        for fn in fns:
+            fn.argtypes = K._SIGNATURES["vsl_conv_block_bwd_tiled"]
+            fn.restype = ctypes.c_int
+        prof.tprof_read.argtypes = [ctypes.c_void_p]
+        prof.tprof_read.restype = ctypes.c_int
+    for B, T in ((8, 1024), (16, 192), (16, 128)):
+        def emit(**row):
+            print(json.dumps({"bench": "conv_plans", "card": smi, "shape": [B, T, D],
+                              "drop_rate": 0.2, **row}), flush=True)
+
+        # biases of +-1 and a smaller pointwise product keep every
+        # pre-activation ~1 from the ReLU's kink (tests/test_torch_cuda.py)
+        args = [t(rng.standard_normal((B, T, D))), t(1 + 0.1 * rng.standard_normal((L, D))),
+                t(0.1 * rng.standard_normal((L, D))),
+                t(rng.standard_normal((L, KS, D)) / math.sqrt(KS)),
+                t(0.1 * rng.standard_normal((L, D, D)) / math.sqrt(D)),
+                t(np.where(rng.random((L, D)) < 0.5, -1.0, 1.0))]
+        seeds = t(rng.integers(0, 1 << 23, (B, 1)))
+        g = t(rng.standard_normal((B, T, D)))
+        _, xs = K.launch_conv_block_fwd_tiled(*args, seeds, 0.2)
+
+        def call():
+            return K.launch_conv_block_bwd_tiled(args[0], xs, *args[1:], seeds, 0.2, g)
+        parts = by_kernel(call)
+        row = {"call_ms": cuda_ms(call), "device_ms": sum(parts.values()), "by_kernel": parts}
+        if T == 128:
+            def whole():
+                return K.launch_conv_block_bwd(*args, seeds, 0.2, g)
+            whole_parts = by_kernel(whole)
+            row.update(whole_row_ms=cuda_ms(whole),
+                       whole_row_device_ms=sum(whole_parts.values()),
+                       whole_row_by_kernel=whole_parts)
+        emit(kernel="tiled backward", **row)
+        if "--by-kernel" in argv:
+            continue
+        default = K.conv_tiled_bwd_plan(B, T, D, KS, L)
+        dx0, dgam, dbeta, ddw, dwp0, dbp = call()
+        ref = (dx0, torch.cat([dgam[:, None], dbeta[:, None], dbp[:, None], ddw], 1), dwp0)
+
+        def timed(run, **row):
+            parts = by_kernel(run)
+            diff = max(float((a - b).abs().max()) for a, b in zip(run(), ref))
+            emit(kernel="tiled backward", ms=cuda_ms(run), device_ms=sum(parts.values()),
+                 by_kernel=parts, max_abs_diff_from_default=diff, **row)
+        for plan in tiled_bwd_plans(B, T, D, KS):
+            timed(tiled_bwd_runner(args, xs, seeds, 0.2, g, plan), plan=plan._asdict(),
+                  default=plan == default)
+        for waves in (1, 2, 8):
+            timed(tiled_bwd_runner(args, xs, seeds, 0.2, g, default, waves=waves),
+                  plan=default._asdict(), wgrad_waves=waves)
+        for rows in K.CONV_TILED_ROWS:
+            plan = default._replace(product_rows=rows)
+            timed(tiled_bwd_runner(args, xs, seeds, 0.2, g, plan), plan=plan._asdict())
+            for n, fn in thread_fns.items():
+                timed(tiled_bwd_runner(args, xs, seeds, 0.2, g, plan, fn=fn),
+                      plan=plan._asdict(), threads=n)
+        run = tiled_bwd_runner(args, xs, seeds, 0.2, g, default, fn=prof.tprof_conv_block_bwd_tiled)
+        run()
+        torch.cuda.synchronize()
+        stamps = (ctypes.c_ulonglong * 64)()
+        prof.tprof_read(stamps)
+        reps = 5
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        prof.tprof_read(stamps)
+        cycles = {"conv_block.cu:%d" % line: stamps[k] / reps for k, line in enumerate(stamped)}
+        emit(kernel="tiled backward", plan=default._asdict(), cta="tile 1 of row 0",
+             cycles_to_each_stamp_over_the_layers=cycles, cycles_total=sum(cycles.values()))
+    return 0
 
 
 def renamed(src, tag):
@@ -149,13 +357,15 @@ extern "C" int prof_clusters(int N, int smem, int fwd_frames) {
 ''', at
 
 
-def main():
+def main(argv):
     import torch
 
     if not torch.cuda.is_available():
         print("conv_plans: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    if "--tiled" in argv:
+        return tiled_main(argv)
     smi = card()
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -276,4 +486,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

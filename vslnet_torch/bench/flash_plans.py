@@ -24,6 +24,16 @@ T/2..T and one fully masked row:
   stamp's line in flash_mha.cu.
 Prints one JSON line a row with the card's name and power limit. The
 shipped kernel carries no instrumentation.
+
+    python3 -m vslnet_torch.bench.flash_plans --forward [--by-kernel]
+
+The flash forward (#13) at path L's shape, ragged key lengths and one fully
+masked row: `launch_flash_mha_fwd` at drop_rate 0 (serving) and 0.2
+(training), each call's device time by kernel and its time by CUDA events,
+beside SDPA's forward (drop 0, device time and events); with every key
+valid; then, unless --by-kernel, each of `fwd_rows` (query rows a
+thread) through the kernel library (`fwd_runner`), with the largest
+difference of out and lse from the default plan's.
 """
 import ctypes
 import json
@@ -114,6 +124,119 @@ def runner(bwd, fn):
     return run
 
 
+def fwd_rows(hd):
+    """The query rows a thread the forward is built for at head dim hd
+    (csrc/flash_mha.cu vsl_flash_mha_fwd: 1, and 2 up to head dim 32)."""
+    return (1, 2) if hd <= 32 else (1,)
+
+
+def fwd_runner(q, k, v, mask, heads, seeds, rate, rows, fn=None):
+    """A call of the forward kernel through fn (an entry point of
+    vsl_flash_mha_fwd's signature; the kernel library's by default) with
+    `rows` query rows a thread: returns (out, lse)."""
+    import torch
+
+    B, T, D = q.shape
+    sp, thresh, scale = K._dropout_args("flash_plans", seeds, rate, B)
+    out = torch.empty_like(q)
+    lse = q.new_empty(B, heads, T)
+    fn = fn or K._library().vsl_flash_mha_fwd
+
+    def run():
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), sp,
+                  thresh, scale, out.data_ptr(), lse.data_ptr(), B, T, D, heads,
+                  rows, torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError("flash_plans: forward launch failed (%d)" % code)
+        return out, lse
+    return run
+
+
+# (query slots a CTA, keys a step of the online softmax, thread groups
+# that split a key tile) of the forward: the kernel's own first
+# (csrc/flash_mha.cu kFwdThreads, kFwdBlock, kFwdGroups)
+FWD_TILES = [(64, 8, 2), (64, 8, 1), (64, 16, 2), (64, 8, 4), (128, 8, 2), (32, 8, 2)]
+
+
+def with_fwd_tile(src, threads, block, groups):
+    """csrc/flash_mha.cu with the forward's query slots, key block and
+    thread groups set to (threads, block, groups), its entry points renamed
+    fwd<threads>_<block>_<groups>_."""
+    for name, old, new in zip(("kFwdThreads", "kFwdBlock", "kFwdGroups"),
+                              FWD_TILES[0], (threads, block, groups)):
+        line = "constexpr int %s = %d;" % (name, old)
+        if src.count(line) != 1:
+            raise RuntimeError("not found once in flash_mha.cu: %r" % line)
+        src = src.replace(line, "constexpr int %s = %d;" % (name, new))
+    return src.replace('extern "C" int vsl_',
+                       'extern "C" int fwd%d_%d_%d_' % (threads, block, groups))
+
+
+def sdpa_forward_ms(q, k, v, mask, heads):
+    """SDPA's forward on the same heads and the additive mask at drop 0:
+    (CUDA events, device time)."""
+    import torch
+    import torch.nn.functional as F
+
+    B, T, D = q.shape
+
+    def split(x):
+        return x.view(B, T, heads, D // heads).transpose(1, 2).contiguous()
+
+    qh, kh, vh = (split(x) for x in (q, k, v))
+    bias = ((1.0 - mask) * -1e30).view(B, 1, 1, T)
+
+    def run():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+    return cuda_ms(run), sum(by_kernel(run).values())
+
+
+def forward_main(argv, emit, rng, dev):
+    """The --forward rows (module docstring)."""
+    q, k, v, mask, seeds, _, _, _ = inputs(rng, dev, B, T, D, HEADS, RATE)
+    sdpa_ms, sdpa_device_ms = sdpa_forward_ms(q, k, v, mask, HEADS)
+    for rate, sd in ((0.0, None), (RATE, seeds)):
+        def call():
+            return K.launch_flash_mha_fwd(q, k, v, mask, HEADS, sd, rate)
+        parts = by_kernel(call)
+        emit(kernel="forward", shape=[B, T, D], heads=HEADS, drop_rate=rate,
+             call_ms=cuda_ms(call), device_ms=sum(parts.values()),
+             by_kernel=parts, sdpa_ms=sdpa_ms, sdpa_device_ms=sdpa_device_ms)
+    full = inputs(rng, dev, B, T, D, HEADS, RATE, ragged=False)
+    parts = by_kernel(lambda: K.launch_flash_mha_fwd(*full[:4], HEADS))
+    emit(kernel="forward", shape=[B, T, D], mask="every key valid",
+         drop_rate=0.0, device_ms=sum(parts.values()), by_kernel=parts)
+    if "--by-kernel" in argv:
+        return 0
+    plan = K.flash_fwd_plan(B, T, D, HEADS)
+    from vslnet_torch.bench.common import build_copies  # absent from older trees
+
+    src = (K.CSRC / "flash_mha.cu").read_text()
+    fns = {None: None}
+    libs = build_copies({"fwd%d_%d_%d" % tile: with_fwd_tile(src, *tile)
+                         for tile in FWD_TILES[1:]})
+    for tile in FWD_TILES[1:]:
+        tag = "fwd%d_%d_%d" % tile
+        fn = getattr(libs[tag], tag + "_flash_mha_fwd")
+        fn.argtypes = K._SIGNATURES["vsl_flash_mha_fwd"]
+        fn.restype = ctypes.c_int
+        fns[tile] = fn
+    for rate, sd in ((0.0, None), (RATE, seeds)):
+        ref = [a.clone() for a in K.launch_flash_mha_fwd(q, k, v, mask, HEADS, sd, rate)]
+        for tile, fn in fns.items():
+            for rows in fwd_rows(D // HEADS):
+                run = fwd_runner(q, k, v, mask, HEADS, sd, rate, rows, fn)
+                diff = max(float((a - b).abs().max())
+                           for a, b in zip(run(), ref))
+                emit(kernel="forward", shape=[B, T, D], drop_rate=rate,
+                     rows=rows, slots_block_groups=tile or FWD_TILES[0],
+                     default=rows == plan.rows and tile is None,
+                     ms=cuda_ms(run), device_ms=sum(by_kernel(run).values()),
+                     max_abs_diff_from_default=diff)
+    return 0
+
+
 def sdpa_backward_ms(q, k, v, mask, heads):
     """SDPA's backward on the same heads and the additive mask at drop 0,
     forward + backward minus forward: (CUDA events, device time)."""
@@ -155,6 +278,8 @@ def main(argv):
         print(json.dumps({"bench": "flash_plans", "card": smi, **row}),
               flush=True)
 
+    if "--forward" in argv:
+        return forward_main(argv, emit, rng, dev)
     q, k, v, mask, seeds, g, out, lse = inputs(rng, dev, B, T, D, HEADS, RATE)
     bwd = [q, k, v, mask, HEADS, seeds, RATE, out, lse, g]
 

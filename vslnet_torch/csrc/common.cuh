@@ -209,10 +209,12 @@ __device__ void gemm_rows(const float* A, int T, int K, const float* __restrict_
 // the lanes of a warp take neighbouring column quads (conflict-free float4
 // loads of W, broadcast loads of A), and each W float4 feeds R rows; the k
 // loop is unrolled U times. Each output is one fmaf chain over k in order,
-// as gemm_rows sums it.
-template <int R, int U, typename Epi>
-__device__ void smem_gemm(const float* A, int lda, int rows, int K, const float* W, int ldw,
-                          int ncols, Epi epi) {
+// as gemm_rows sums it, starting from init(t, o) (a float4 of columns
+// o..o+3): a product over the rows of W cut into slices continues each
+// chain from the slice before, so the sum is the one chain of the whole.
+template <int R, int U, typename Init, typename Epi>
+__device__ void smem_gemm_from(const float* A, int lda, int rows, int K, const float* W, int ldw,
+                               int ncols, Init init, Epi epi) {
   const int N4 = ncols / 4, K4 = K / 4, lda4 = lda / 4, ldw4 = ldw / 4;
   const int items = (rows + R - 1) / R * N4;
   const float4* A4 = reinterpret_cast<const float4*>(A);
@@ -220,11 +222,13 @@ __device__ void smem_gemm(const float* A, int lda, int rows, int K, const float*
   for (int it = threadIdx.x; it < items; it += blockDim.x) {
     const int c4 = it % N4, t0 = it / N4 * R;
     float4 acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
     int ta[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) ta[r] = min(t0 + r, rows - 1) * lda4;  // ragged edge: never stored
+    for (int r = 0; r < R; ++r) {
+      const int t = min(t0 + r, rows - 1);  // ragged edge: never stored
+      acc[r] = init(t, 4 * c4);
+      ta[r] = t * lda4;
+    }
 #pragma unroll U
     for (int k4 = 0; k4 < K4; ++k4) {
       const float4 w0 = W4[(4 * k4 + 0) * ldw4 + c4], w1 = W4[(4 * k4 + 1) * ldw4 + c4];
@@ -254,6 +258,14 @@ __device__ void smem_gemm(const float* A, int lda, int rows, int K, const float*
     for (int r = 0; r < R; ++r)
       if (t0 + r < rows) epi(t0 + r, 4 * c4, acc[r]);
   }
+}
+
+// smem_gemm_from with every chain starting from 0.
+template <int R, int U, typename Epi>
+__device__ void smem_gemm(const float* A, int lda, int rows, int K, const float* W, int ldw,
+                          int ncols, Epi epi) {
+  smem_gemm_from<R, U>(A, lda, rows, K, W, ldw, ncols,
+                       [](int, int) { return make_float4(0.f, 0.f, 0.f, 0.f); }, epi);
 }
 
 // dst <- src, n floats (n % 4 == 0, both 16-byte aligned; src global), by

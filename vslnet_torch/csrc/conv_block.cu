@@ -77,7 +77,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRows = 16;
-constexpr int kGnPer = 4;  // tiled launch B: g_n elements a thread holds, so D <= kGnPer * kThreads
 
 struct ConvParams {
   const float* gam;   // [L, D]
@@ -392,7 +391,7 @@ ConvParams make_params(const float* gam, const float* beta, const float* dw, con
 // --- T-tiled kernels ------------------------------------------------------------
 // Above T = 145 at D = 128 a row's tiles do not fit a block (the backward's
 // 3*T*D + T + 16*D floats). These kernels run one layer per launch on a
-// grid of (T-tiles of kTile frames, B rows). A tile reads its frames plus a
+// grid of (T-tiles, B rows), the forward's of kTile frames. A tile reads its frames plus a
 // halo of the depthwise reach, (K - 1) / 2 frames before and K / 2 after,
 // zero padded only at the sequence ends; every dropout coordinate is the
 // frame's index t in the row. The forward writes each layer's output to
@@ -401,20 +400,36 @@ ConvParams make_params(const float* gam, const float* beta, const float* dw, con
 // arithmetic is the whole-row kernel's, in the same order, so both give
 // equal bits.
 //
-// The backward walks the layers in reverse, two launches a layer:
-//   A. per tile: LN and the depthwise output d over the tile (from the
-//      halo), the pre-ReLU recomputed, g_p = [p > 0] * drop(G), dbp, and
-//      g_d = g_p . wp^T, written for every frame;
-//   B. per tile: g_n = the depthwise transpose of g_d over the halo,
-//      ddw = sum_t n(t + j - pad) * g_d(t), the LN backward, G += dx_ln in
-//      place (a tile reads and writes only its own frames of G).
-// d and g_p go to [L, B, T, D] workspaces for dwp's split-K product;
-// dgam, dbeta, dbp and ddw to per-(row, tile) partials summed in a fixed
-// order. No atomics.
+// The backward walks the layers in reverse, one launch a layer on the plan
+// of ops/kernels.py conv_tiled_bwd_plan (tiles of F frames, wp streamed in
+// slices of SK rows; SK = D at D = 128), no atomics. A CTA takes the F own
+// frames [t0, t0 + F) of one row and everything their gradient needs, so
+// that nothing but G crosses a tile's edge:
+//   1. x_l over the own frames and 2 (K - 1) more and the taps land by
+//      cp.async, wp (its first slice) behind the LayerNorm, which runs out
+//      of shared memory: xh and 1/sigma of the own frames, then n_l in
+//      place (the forward's layer_norm_rows, row for row, 0 outside
+//      [0, T));
+//   2. over the E = F + K - 1 frames [t0 - (K - 1 - pad), t0 + F + pad):
+//      d = depthwise(n_l) (the forward's chain of taps), the pre-ReLU
+//      p = d . wp + bp (smem_gemm, one fmaf chain over k in order: the
+//      tiled forward's gemm_rows sum, so p's sign is the forward's) and in
+//      its epilogue g_p = [p > 0] * drop(G_in), 0 outside [0, T);
+//   3. wp^T into the same buffer behind dbp; g_d = g_p . wp^T over E;
+//   4. G_in's own rows into the weight buffer by cp.async behind g_n = the
+//      depthwise transpose of g_d over the own frames and ddw; dgam, dbeta,
+//      and the LN backward: G_out = G_in + dx_ln.
+// G_in is read over E (the neighbours' frames too), so each layer writes
+// G_out into the other of two buffers (dx and a workspace, dx last).
+// d and g_p of the own frames go to [L, B, T, D] workspaces for dwp's
+// split-K product; dgam, dbeta, dbp and ddw to per-(row, tile) partials
+// summed in a fixed order.
 //
-// What bounds them: the pointwise products (2*T*D*D FLOPs a layer, three
-// in the backward), now on B * T / kTile blocks (256 at B = 8, T = 1024);
-// bytes are each layer's [B, T, D] input and output through L2/HBM.
+// What bounds them: the pointwise products (2*T*D*D FLOPs a layer, the
+// forward's once and the backward's three times, the tiled backward's two
+// over E / F of the frames), register-tiled out of shared memory at
+// R x 4 a thread; bytes are each layer's [B, T, D] input and G
+// through L2/HBM.
 
 constexpr int kTile = 32;
 
@@ -467,119 +482,258 @@ conv_layer_fwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l, 
                         });
 }
 
-// Per-(row, tile) partials part [B * tiles, L, 3 + K, D], as the whole-row
-// backward's per-row ones: dgam, dbeta, dbp, then ddw [K, D].
-__global__ void __launch_bounds__(kThreads)
-conv_layer_bwd_a_kernel(const float* __restrict__ xin, ConvParams p, int l,
-                        const float* __restrict__ wpT, vsl::Dropout drop,
-                        const float* __restrict__ G, float* __restrict__ d_l,
-                        float* __restrict__ gp_l, float* __restrict__ gd,
-                        float* __restrict__ part) {
-  extern __shared__ float4 smem4[];
-  const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2;
-  const int b = blockIdx.y, t0 = blockIdx.x * kTile, nt = min(kTile, T - t0);
-  float* N = reinterpret_cast<float*>(smem4);  // [nt + K - 1, D]
-  float* Dw = N + (size_t)(kTile + K - 1) * D;   // [nt, D]
-  float* GP = Dw + (size_t)kTile * D;            // [nt, D]
-  const size_t row = (size_t)b * T * D, tile = row + (size_t)t0 * D;
-  const uint32_t seed = drop.seed(b), salt = vsl::site_salt(0x100u + l);
-  float* pr = part + ((size_t)(b * gridDim.x + blockIdx.x) * p.L + l) * (3 + K) * D;
-  halo_layer_norm(xin + row, N, p.gam + (size_t)l * D, p.beta + (size_t)l * D, t0 - pad,
-                  nt + K - 1, T, D);
-  __syncthreads();
-  depthwise_tile(N, p.dw + (size_t)l * K * D, nt, D, K, [&](int i, float v) {
-    Dw[i] = v;
-    d_l[tile + i] = v;
-  });
-  __syncthreads();
-  const float* bpl = p.bp + (size_t)l * D;
-  vsl::gemm_rows<kRows>(Dw, nt, D, p.wp + (size_t)l * D * D, D, 0, D,
-                        [&](int t, int o, float acc) {
-                          const size_t i = (size_t)t * D + o;
-                          const float gp = acc + __ldg(bpl + o) > 0.f
-                                               ? drop.apply(G[tile + i], seed, salt, t0 + t, o)
-                                               : 0.f;
-                          GP[i] = gp;
-                          gp_l[tile + i] = gp;
-                        });
-  __syncthreads();
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    float s = 0.f;
-    for (int t = 0; t < nt; ++t) s += GP[(size_t)t * D + c];
-    pr[2 * D + c] = s;  // dbp
+// The tiled backward's CTA: kTiledThreads threads (one CTA an SM at the
+// plan's shared memory), product tiles of R rows x 4 columns (the plan's
+// product_rows: 4, or 6 where 4 would leave a second round of items),
+// the k loop unrolled kTiledUnroll times: the fastest of the tiles
+// vslnet_torch/bench/conv_plans.py --tiled times at paths L and M and at
+// T = 128 (PERF.md).
+constexpr int kTiledThreads = 512;
+constexpr int kTiledUnroll = 4;
+
+// out[e][c] = sum over j < K of win[e + j][c] * taps[j][c] for e < rows
+// (kRev: win[e + K - 1 - j][c]), each one fmaf chain over j in order, so
+// the depthwise output is the forward's bit for bit. A thread takes a
+// column and a run of rows, its taps and the last K rows of its column in
+// registers: one shared load an output where the loop of taps has 2 K.
+template <int K, bool kRev>
+__device__ void taps_sliding(const float* win, const float* taps, int rows, int D, float* out) {
+  const int parts = max(1, static_cast<int>(blockDim.x) / D);  // threads a column
+  const int per = (rows + parts - 1) / parts;
+  for (int i = threadIdx.x; i < D * parts; i += blockDim.x) {
+    const int c = i % D, e0 = i / D * per, e1 = min(rows, e0 + per);
+    float w[K], n[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) w[j] = taps[j * D + c];
+#pragma unroll
+    for (int j = 0; j + 1 < K; ++j) n[j] = e0 + j < rows + K - 1 ? win[(e0 + j) * D + c] : 0.f;
+    for (int e = e0; e < e1; ++e) {
+      n[K - 1] = win[(e + K - 1) * D + c];
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < K; ++j) acc = fmaf(kRev ? n[K - 1 - j] : n[j], w[j], acc);
+      out[e * D + c] = acc;
+#pragma unroll
+      for (int j = 0; j + 1 < K; ++j) n[j] = n[j + 1];
+    }
   }
-  vsl::gemm_rows<kRows>(GP, nt, D, wpT + (size_t)l * D * D, D, 0, D,
-                        [&](int t, int o, float acc) { gd[tile + (size_t)t * D + o] = acc; });
 }
 
-__global__ void __launch_bounds__(kThreads)
-conv_layer_bwd_b_kernel(const float* __restrict__ xin, ConvParams p, int l,
-                        const float* __restrict__ gd, float* __restrict__ G,
-                        float* __restrict__ part) {
+// LayerNorm of the window rows [lo, lo + rows) of W [.][D] in place, n =
+// the forward's layer_norm_rows (the same sums and expressions, so the
+// same bits), and for the window rows [own, own + nf) also xh [nf][D] and
+// inv [nf] as ln_normalize_rows gives them: one warp a row, its
+// statistics once.
+__device__ void ln_window_rows(float* W, int lo, int rows, int own, int nf,
+                               const float* __restrict__ gam, const float* __restrict__ beta,
+                               float* xh, float* inv, int D) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int w = lo + warp; w < lo + rows; w += nwarps) {
+    float* row = W + w * D;
+    float s = 0.f;
+    for (int c = lane; c < D; c += 32) s += row[c];
+    const float mean = vsl::warp_sum(s) / D;
+    float v = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float d = row[c] - mean;
+      v += d * d;
+    }
+    const float r = rsqrtf(vsl::warp_sum(v) / D + vsl::kLnEps);
+    const int t = w - own;
+    if (t >= 0 && t < nf) {
+      for (int c = lane; c < D; c += 32) xh[t * D + c] = (row[c] - mean) * r;
+      if (lane == 0) inv[t] = r;
+    }
+    for (int c = lane; c < D; c += 32)
+      row[c] = (row[c] - mean) * r * __ldg(gam + c) + __ldg(beta + c);
+  }
+}
+
+// The tiled backward's shared memory for F frames a tile, K taps and
+// weight slices of SK rows, in floats (ops/kernels.py conv_tiled_bwd_plan
+// reports it; the launch uses this one):
+//   N   [F + 2 (K - 1)][D]  n_l over the own frames and both reaches
+//   A   [F + K - 1][D]      d, then g_d, over E
+//   P   [F + K - 1][D]      g_p over E, then g_n over the own frames
+//   XH  [F][D]              xh of the own frames
+//   W   [SK][D], or [2][SK][D] where SK < D (slices double-buffered)
+//   DW  [K][D]              the layer's taps
+//   inv [F4]
+struct TiledBwdLayout {
+  size_t N, E, F, W, F4;
+  __host__ __device__ TiledBwdLayout(int F_, int D, int K, int SK)
+      : N((size_t)(F_ + 2 * (K - 1)) * D), E((size_t)(F_ + K - 1) * D), F((size_t)F_ * D),
+        W((SK < D ? 2 : 1) * (size_t)SK * D), F4(((size_t)F_ + 3) / 4 * 4) {}
+  __host__ __device__ size_t floats(int D, int K) const {
+    return N + 2 * E + F + W + (size_t)K * D + F4;
+  }
+};
+
+// C = A . Wg over rows rows of A [rows][D] and Wg [D][D] in global memory,
+// streamed in slices of SK rows through Wb (slice 0 already issued by the
+// caller as the last commit group; two buffers where SK < D), each fmaf
+// chain continued across the slices (smem_gemm_from), the last slice's
+// sums handed to epi(t, o, float4). Ends with a barrier.
+template <int R, typename Epi>
+__device__ void sliced_product(const float* A, int rows, int D, const float* __restrict__ Wg,
+                               float* Wb, int SK, float* C, Epi epi) {
+  const int S = D / SK;
+  for (int s = 0; s < S; ++s) {
+    if (s + 1 < S) {
+      vsl::cp_async_floats(Wb + (size_t)((s + 1) & 1) * SK * D, Wg + (size_t)(s + 1) * SK * D,
+                           SK * D);
+      vsl::cp_async_wait<1>();
+    } else {
+      vsl::cp_async_wait<0>();
+    }
+    __syncthreads();  // slice s landed for every thread; C's last slice written
+    const bool last = s + 1 == S;
+    vsl::smem_gemm_from<R, kTiledUnroll>(
+        A + s * SK, D, rows, SK, Wb + (size_t)(s & 1) * SK * D, D, D,
+        [&](int t, int o) {
+          return s ? *reinterpret_cast<const float4*>(C + (size_t)t * D + o)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        },
+        [&](int t, int o, float4 acc) {
+          if (last)
+            epi(t, o, acc);
+          else
+            *reinterpret_cast<float4*>(C + (size_t)t * D + o) = acc;
+        });
+    __syncthreads();  // slice s read before its buffer takes slice s + 2; C written
+  }
+}
+
+// One layer of the tiled backward for the tile [t0, t0 + F) of row b:
+// G_in -> G_out, d and g_p of the own frames into d_l and gp_l, per-(row,
+// tile) partials part [B * tiles, L, 3 + K, D] (dgam, dbeta, dbp, ddw [K,
+// D]) as the whole-row backward's per-CTA ones.
+template <int R>
+__global__ void __launch_bounds__(kTiledThreads, 1)
+conv_layer_bwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l,
+                            const float* __restrict__ wpT, vsl::Dropout drop,
+                            const float* __restrict__ Gin, float* __restrict__ Gout,
+                            float* __restrict__ d_l, float* __restrict__ gp_l,
+                            float* __restrict__ part, int F, int SK) {
   extern __shared__ float4 smem4[];
-  const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2;
-  const int b = blockIdx.y, t0 = blockIdx.x * kTile, nt = min(kTile, T - t0);
-  const int rows = nt + K - 1;
-  const int h0 = t0 - pad;           // first frame of the LN halo
-  const int g0 = t0 - (K - 1 - pad);  // first frame of the g_d halo
-  float* XH = reinterpret_cast<float*>(smem4);  // [rows, D] xh of the LN halo
-  float* GD = XH + (size_t)(kTile + K - 1) * D;  // [rows, D] g_d, zero outside [0, T)
-  float* inv = GD + (size_t)(kTile + K - 1) * D; // [rows]
+  const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2, gl = K - 1 - pad;
+  const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0);
+  const int ne = nf + K - 1;  // E: frames [t0 - gl, t0 + nf + pad)
+  const int e0 = t0 - gl;
+  const TiledBwdLayout lay(F, D, K, SK);
+  float* N = reinterpret_cast<float*>(smem4);
+  float* A = N + lay.N;
+  float* P = A + lay.E;
+  float* XH = P + lay.E;
+  float* W = XH + lay.F;
+  float* DW = W + lay.W;
+  float* inv = DW + (size_t)K * D;
   const size_t row = (size_t)b * T * D;
   const float* gam = p.gam + (size_t)l * D;
-  const float* beta = p.beta + (size_t)l * D;
-  const float* dwl = p.dw + (size_t)l * K * D;
+  const float* bpl = p.bp + (size_t)l * D;
   float* pr = part + ((size_t)(b * gridDim.x + blockIdx.x) * p.L + l) * (3 + K) * D;
-  const int lo = max(h0, 0), hi = min(h0 + rows, T);
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-    const int t = g0 + i / D;
-    GD[i] = (t >= 0 && t < T) ? gd[row + (size_t)t * D + i % D] : 0.f;
+  const uint32_t seed = drop.seed(b), salt = vsl::site_salt(0x100u + l);
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  // 1. the taps, x_l over the window [t0 - (K - 1), t0 + nf + K - 1) (0
+  // outside [0, T)) and wp's first slice by cp.async; the slice lands
+  // behind the LayerNorms, which run out of shared memory
+  const int h0 = t0 - (K - 1), lo = max(h0, 0), hi = min(t0 + nf + K - 1, T);
+  vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
+  for (int i = tid; i < (nf + 2 * (K - 1)) * D / 4; i += nt) {
+    const int t = h0 + 4 * i / D;
+    if (t >= lo && t < hi)
+      vsl::cp_async_float4(N + 4 * i, xin + row + (size_t)h0 * D + 4 * i);
+    else
+      reinterpret_cast<float4*>(N)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  vsl::ln_normalize_rows(xin + row + (size_t)lo * D, XH + (size_t)(lo - h0) * D, inv + (lo - h0),
-                         hi - lo, D);
+  vsl::cp_async_commit();
+  vsl::cp_async_floats(W, p.wp + (size_t)l * D * D, SK * D);
+  vsl::cp_async_wait<1>();  // the taps and x_l (wp's slice may be in flight)
   __syncthreads();
-  // ddw[j, c] = sum over the tile's t of n(t + j - pad, c) * g_d(t, c)
-  for (int i = threadIdx.x; i < K * D; i += blockDim.x) {
+  // n_l in place, xh and inv of the own rows
+  ln_window_rows(N, lo - h0, hi - lo, K - 1, nf, gam, p.beta + (size_t)l * D, XH, inv, D);
+  __syncthreads();
+  // 2. d over E, in the forward's order of taps: A[e] = sum_j N[e + j] dw[j]
+  if (K == 7) {
+    taps_sliding<7, false>(N, DW, ne, D, A);
+  } else {
+    for (int i = tid; i < ne * D; i += nt) {
+      const float* n = N + i;  // row e + j of column c is n[j * D]
+      const float* w = DW + i % D;
+      float acc = 0.f;
+      for (int j = 0; j < K; ++j) acc = fmaf(n[j * D], w[j * D], acc);
+      A[i] = acc;
+    }
+  }
+  // (sliced_product's first barrier orders A's writes before its reads)
+  // p = d . wp + bp, and g_p = [p > 0] * drop(G_in) into P, 0 outside [0, T)
+  sliced_product<R>(A, ne, D, p.wp + (size_t)l * D * D, W, SK, P, [&](int e, int o, float4 acc) {
+    const int t = e0 + e;
+    const bool in = t >= 0 && t < T;
+    // one float4 load of G_in and of bp, whatever the masks say
+    const float4 g4 = *reinterpret_cast<const float4*>(Gin + row + (size_t)(in ? t : 0) * D + o);
+    const float4 b4 = __ldg(reinterpret_cast<const float4*>(bpl + o));
+    const float a[4] = {acc.x, acc.y, acc.z, acc.w}, gi[4] = {g4.x, g4.y, g4.z, g4.w};
+    const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+    float gp[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      gp[q] = in && a[q] + bb[q] > 0.f ? drop.apply(gi[q], seed, salt, t, o + q) : 0.f;
+    const float4 gp4 = make_float4(gp[0], gp[1], gp[2], gp[3]);
+    *reinterpret_cast<float4*>(P + (size_t)e * D + o) = gp4;
+    if (e >= gl && e < gl + nf)
+      *reinterpret_cast<float4*>(gp_l + row + (size_t)t * D + o) = gp4;
+  });
+  // 3. wp^T's first slice lands behind dbp and d's own rows to d_l
+  vsl::cp_async_floats(W, wpT + (size_t)l * D * D, SK * D);
+  for (int i = tid; i < nf * D; i += nt) d_l[row + (size_t)t0 * D + i] = A[(size_t)gl * D + i];
+  for (int c = tid; c < D; c += nt) {
+    float s = 0.f;
+    for (int t = 0; t < nf; ++t) s += P[(size_t)(gl + t) * D + c];
+    pr[2 * D + c] = s;  // dbp
+  }
+  // g_d = g_p . wp^T into A (0 outside [0, T), where g_p is)
+  sliced_product<R>(P, ne, D, wpT + (size_t)l * D * D, W, SK, A, [&](int e, int o, float4 acc) {
+    *reinterpret_cast<float4*>(A + (size_t)e * D + o) = acc;
+  });
+  // 4. G_in's own rows into the free weight buffer where they fit, landing
+  // behind g_n and ddw; g_n(t0 + r) = sum_j g_d(t0 + r + pad - j) dw[j]
+  // into P's first rows
+  const bool staged = (size_t)nf * D <= lay.W;
+  if (staged) vsl::cp_async_floats(W, Gin + row + (size_t)t0 * D, nf * D);
+  if (K == 7) {
+    taps_sliding<7, true>(A, DW, nf, D, P);
+  } else {
+    for (int i = tid; i < nf * D; i += nt) {
+      const float* gd = A + (K - 1) * D + i;  // row r + K - 1 - j of column c is gd[-j * D]
+      const float* w = DW + i % D;
+      float v = 0.f;
+      for (int j = 0; j < K; ++j) v = fmaf(gd[-j * D], w[j * D], v);
+      P[i] = v;
+    }
+  }
+  __syncthreads();
+  // ddw[j, c] = sum over the own frames of n(t + j - pad, c) * g_d(t, c)
+  for (int i = tid; i < K * D; i += nt) {
     const int j = i / D, c = i - j * D;
     float s = 0.f;
-    for (int r = 0; r < nt; ++r) {
-      const int tt = t0 + r + j - pad;
-      if (tt >= 0 && tt < T)
-        s = fmaf(XH[(size_t)(tt - h0) * D + c] * __ldg(gam + c) + __ldg(beta + c),
-                 GD[(size_t)(t0 + r - g0) * D + c], s);
-    }
+    for (int r = 0; r < nf; ++r)
+      s = fmaf(N[(size_t)(r + j + gl) * D + c], A[(size_t)(r + gl) * D + c], s);
     pr[3 * D + i] = s;
   }
-  // g_n(t0 + r, c) = sum_j g_d(t0 + r + pad - j, c) * dw[j, c], which reads
-  // GD's rows r .. r + K - 1, into GD's row r in place: chunks of rows in
-  // increasing order, each computed into registers before any of it is
-  // written
-  const int chunk = kGnPer * kThreads / D;
-  for (int r0 = 0; r0 < nt; r0 += chunk) {
-    const int n = min(chunk, nt - r0) * D;
-    float v[kGnPer];
-#pragma unroll
-    for (int q = 0; q < kGnPer; ++q) {
-      const int i = threadIdx.x + q * kThreads, r = r0 + i / D, c = i % D;
-      v[q] = 0.f;
-      if (i < n)
-        for (int j = 0; j < K; ++j)
-          v[q] = fmaf(GD[(size_t)(r + K - 1 - j) * D + c], __ldg(dwl + (size_t)j * D + c), v[q]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kGnPer; ++q) {
-      const int i = threadIdx.x + q * kThreads;
-      if (i < n) GD[(size_t)r0 * D + i] = v[q];
-    }
+  // the LN backward over the own frames (dgam, dbeta), G_out = G_in + dx_ln
+  if (staged) {
+    vsl::cp_async_wait<0>();
     __syncthreads();
   }
-  // the LN backward over the tile's own frames (dgam, dbeta), G += dx_ln
-  vsl::ln_backward_rows(GD, XH + (size_t)(t0 - h0) * D, inv + (t0 - h0), gam, nt, D, pr, pr + D,
-                        [&](int r, int c, float v) { G[row + (size_t)(t0 + r) * D + c] += v; });
+  vsl::ln_backward_rows(P, XH, inv, gam, nf, D, pr, pr + D, [&](int r, int c, float v) {
+    const size_t i = (size_t)r * D + c;
+    Gout[row + (size_t)t0 * D + i] = (staged ? W[i] : Gin[row + (size_t)t0 * D + i]) + v;
+  });
 }
 
-int tiles(int T) { return (T + kTile - 1) / kTile; }
+int tiles(int T, int F) { return (T + F - 1) / F; }
 
 }  // namespace
 
@@ -650,52 +804,50 @@ extern "C" int vsl_conv_block_fwd_tiled(const float* x, const float* gam, const 
   for (int l = 0; l < L; ++l) {
     const float* in = l == 0 ? x : xs + (l - 1) * layer;
     float* o = l == L - 1 ? out : xs + l * layer;
-    conv_layer_fwd_tiled_kernel<<<dim3(tiles(T), B), kThreads, smem, stream>>>(in, p, l, drop, o);
+    conv_layer_fwd_tiled_kernel<<<dim3(tiles(T, kTile), B), kThreads, smem, stream>>>(in, p, l, drop, o);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
 
-// The T-tiled backward from the forward's xs: dx (which carries the
-// running gradient G, starting from g), dsmall [L, 3 + K, D] and dwp as the
-// whole-row backward's. Workspaces: d_ws, gp_ws [L, B, T, D]; gd_ws [B, T,
-// D]; part [B * tiles, L, 3 + K, D]; gemm_ws [L, splits, D, D].
+// The T-tiled backward from the forward's xs on conv_tiled_bwd_plan's tiles
+// of F frames, weight slices of SK rows and product tiles of R rows (4 or
+// 6): dx, dsmall [L, 3 + K, D] and
+// dwp as the whole-row backward's. Workspaces: d_ws, gp_ws [L, B, T, D];
+// g_ws [B, T, D] (the running gradient's second buffer); part [B *
+// ceil(T / F), L, 3 + K, D]; gemm_ws [L, splits, D, D].
 extern "C" int vsl_conv_block_bwd_tiled(const float* x, const float* xs, const float* gam,
                                         const float* beta, const float* dw, const float* wp,
                                         const float* wpT, const float* bp, const float* seeds,
                                         unsigned thresh, float scale, const float* g, float* dx,
                                         float* dsmall, float* dwp, float* d_ws, float* gp_ws,
-                                        float* gd_ws, float* part, float* gemm_ws, int splits,
-                                        int B, int T, int D, int L, int K, void* stream_) {
+                                        float* g_ws, float* part, float* gemm_ws, int splits,
+                                        int B, int T, int D, int L, int K, int F, int SK,
+                                        int R, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (D > kGnPer * kThreads) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem_a = ((3 * kTile + K - 1) * D) * static_cast<int>(sizeof(float));
-  const int smem_b =
-      (2 * (kTile + K - 1) * D + kTile + K - 1) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(conv_layer_bwd_a_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(conv_layer_bwd_b_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_b);
+  if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || SK < 4 || SK % 4 ||
+      D % SK || (R != 4 && R != 6))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = R == 4 ? conv_layer_bwd_tiled_kernel<4> : conv_layer_bwd_tiled_kernel<6>;
+  const size_t smem = TiledBwdLayout(F, D, K, SK).floats(D, K) * sizeof(float);
+  cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t layer = (size_t)B * T * D;
-  err = cudaMemcpyAsync(dx, g, layer * sizeof(float), cudaMemcpyDeviceToDevice, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const ConvParams p = make_params(gam, beta, dw, wp, bp, T, D, L, K);
   const vsl::Dropout drop{seeds, thresh, scale};
-  const dim3 grid(tiles(T), B);
+  const dim3 grid(tiles(T, F), B);
   for (int l = L - 1; l >= 0; --l) {
     const float* in = l == 0 ? x : xs + (l - 1) * layer;
-    conv_layer_bwd_a_kernel<<<grid, kThreads, smem_a, stream>>>(
-        in, p, l, wpT, drop, dx, d_ws + l * layer, gp_ws + l * layer, gd_ws, part);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    conv_layer_bwd_b_kernel<<<grid, kThreads, smem_b, stream>>>(in, p, l, gd_ws, dx, part);
+    // layer l writes dx (l even) or g_ws (l odd) and reads what layer l + 1 wrote
+    const float* Gin = l == L - 1 ? g : ((l + 1) & 1 ? g_ws : dx);
+    float* Gout = l & 1 ? g_ws : dx;
+    kernel<<<grid, kTiledThreads, smem, stream>>>(
+        in, p, l, wpT, drop, Gin, Gout, d_ws + l * layer, gp_ws + l * layer, part, F, SK);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  err = vsl::sum_partials(part, dsmall, 1, B * tiles(T), L * (3 + K) * D, stream);
+  err = vsl::sum_partials(part, dsmall, 1, B * tiles(T, F), L * (3 + K) * D, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(vsl::wgrad(d_ws, gp_ws, dwp, gemm_ws, L, D, D, B * T, splits, stream));
 }

@@ -8,11 +8,25 @@
 // its [T, T] tile (hash.cuh head_salt), so both routes drop the same
 // elements; no [T, T] tile exists anywhere.
 //
-// Forward: grid (query tiles of kRows, heads, B), one thread a query row.
-// K and V of a head stream through shared memory kStage keys at a time;
-// each thread keeps its running max m, sum l and P.V accumulator (an
-// online softmax, rescaled when the max grows) and writes out and
-// lse = m + log(l) per (row, head, query) into lse [B, H, T].
+// Forward: one pass a (query tile, head, row) CTA on the plan of
+// ops/kernels.py flash_fwd_plan: kFwdThreads query slots, each keeping RQ
+// query rows (2 up to head dim 16, else 1; TQ = RQ * kFwdThreads queries a
+// CTA) pre-scaled in registers, in each of kFwdGroups thread groups. The
+// head's K and V stream through two shared buffers of kFwdKeys keys by
+// cp.async, the next tile landing while the current one is worked on;
+// each group takes its share of a tile's keys (so that an SM holds twice
+// the warps a slot a thread would give it), and at the end the groups'
+// partial softmaxes (m, l, P.V) merge in group order. 64 slots in 2 groups
+// beat 128 in 1 or 2 and 64 in 4 at path L (vslnet_torch/bench/
+// flash_plans.py --forward, PERF.md). A thread takes its
+// keys in blocks of kFwdBlock: the block's scores, each head_score's chain of sums, from K
+// rows read as float4 broadcasts (one load feeds RQ * 4 FMAs); then the
+// online softmax once a block and row (the block's max, one exp to rescale
+// l and the P.V accumulator); then per key one exp, at drop > 0 one hash
+// (the hash's row term once a row, its column term once a key), and
+// drop(P).V from V rows read as float4 broadcasts. No branch depends on the
+// data. It writes out and lse = m + log(l) per (row, head, query) into
+// lse [B, H, T].
 //
 // Backward: one pass over (row, head, key tile) CTAs on the plan of
 // ops/kernels.py flash_bwd_plan (key tile TK = bwd_key_tile), no atomics:
@@ -43,8 +57,9 @@
 // exp(s - lse), since lse = -1e30 + log(T) rounds to -1e30 and would give
 // p = 1 (the TPU kernel's backward does that; it is not copied).
 //
-// What bounds them: the forward's per-thread key loops, 2*HD FMAs, an exp
-// and a hash per (query, key) pair; the backward's five products, 10*HD
+// What bounds them: the forward's 2*HD FMAs, an exp and (drop > 0) a
+// hash's mix per (query, key) pair, on the FMA and ALU pipes (its K and V
+// loads are broadcasts, one per RQ * 4 FMAs); the backward's five products, 10*HD
 // FLOPs a pair, out of shared memory, with one exp and one hash a pair;
 // bytes are q, k, v (and g, out) read once a tile, the outputs written
 // once.
@@ -53,11 +68,6 @@
 
 namespace {
 
-constexpr int kRows = 128;      // the forward's queries a block, one a thread
-constexpr int kStage = 64;      // the forward's keys staged at a time
-
-using vsl::head_score;
-
 // True on every thread if any key of the row is valid (mask != 0).
 __device__ bool row_has_key(const float* mrow, int T) {
   int any = 0;
@@ -65,74 +75,204 @@ __device__ bool row_has_key(const float* mrow, int T) {
   return __syncthreads_or(any) != 0;
 }
 
-// Stages keys [j0, j0 + nk) of head h: Ks, Vs [nk, HD], neg [nk]. Returns,
-// on every thread, whether any staged key is valid; ends with a barrier.
-template <int HD>
-__device__ bool stage_keys(const float* k, const float* v, const float* mrow, size_t base, int D,
-                           int j0, int nk, float* Ks, float* Vs, float* neg) {
-  for (int i = threadIdx.x; i < nk * HD; i += blockDim.x) {
-    const int jj = i / HD, d = i - jj * HD;
-    Ks[i] = k[base + (size_t)(j0 + jj) * D + d];
-    Vs[i] = v[base + (size_t)(j0 + jj) * D + d];
-  }
-  int live = 0;
-  for (int jj = threadIdx.x; jj < nk; jj += blockDim.x) {
-    const float m = mrow[j0 + jj];
-    neg[jj] = (1.f - m) * vsl::kMaskValue;
-    live |= m != 0.f;
-  }
-  return __syncthreads_or(live) != 0;
+constexpr int kFwdThreads = 64;   // the forward's query slots a CTA
+constexpr int kFwdGroups = 2;     // thread groups that split a key tile: threads = slots x groups
+constexpr int kFwdKeys = 64;      // keys a streamed tile
+constexpr int kFwdBlock = 8;      // keys a step of the online softmax
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The forward's shared memory at head dim hd and rq query rows a thread,
+// in floats: two buffers of a key tile's K, V [kFwdKeys][hd] and key mask
+// [kFwdKeys]; after the keys, the same memory holds the groups' partial
+// m, l and P.V [kFwdGroups - 1][rq][hd + 2][kFwdThreads] for the merge
+// (ops/kernels.py flash_fwd_plan reports it).
+__host__ __device__ inline size_t flash_fwd_floats(int hd, int rq) {
+  const size_t keys = 2 * (2 * (size_t)kFwdKeys * hd + kFwdKeys);
+  const size_t merge = (size_t)(kFwdGroups - 1) * rq * (hd + 2) * kFwdThreads;
+  return keys > merge ? keys : merge;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kRows)
+template <int HD, int RQ, bool kDrop>
+__global__ void __launch_bounds__(kFwdThreads * kFwdGroups)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ mask, vsl::Dropout drop,
                  float* __restrict__ out, float* __restrict__ lse, int T, int D, float scale) {
-  __shared__ float Ks[kStage * HD], Vs[kStage * HD], neg[kStage];
-  const int b = blockIdx.z, h = blockIdx.y, H = gridDim.y;
-  const int t = blockIdx.x * kRows + threadIdx.x;
-  const bool active = t < T;
+  constexpr int TQ = RQ * kFwdThreads, TK = kFwdKeys, CK = kFwdBlock, H4 = HD / 4;
+  constexpr int NT = kFwdThreads * kFwdGroups, GK = TK / kFwdGroups;  // keys a group a tile
+  constexpr int BUF = 2 * TK * HD + TK;  // one buffer's floats
+  static_assert(HD % 4 == 0 && GK % CK == 0, "tile sizes");
+  extern __shared__ float4 smem4[];
+  float* buf = reinterpret_cast<float*>(smem4);
+  const int b = blockIdx.z, h = blockIdx.y, H = gridDim.y, tid = threadIdx.x;
+  const int slot = tid % kFwdThreads, grp = tid / kFwdThreads;  // query slot, key group
+  const int t0 = blockIdx.x * TQ, n = (T + TK - 1) / TK;
   const float* mrow = mask + (size_t)b * T;
   const size_t base = (size_t)b * T * D + h * HD;
   const uint32_t seed = drop.seed(b), salt = vsl::head_salt(h);
   const bool has_key = row_has_key(mrow, T);
-  float qr[HD], acc[HD];
+  // key tile i into buffer i & 1, one commit group; keys past T are zero
+  // with mask -1, so their scores lie near -2e30 and their p is 0 beside
+  // any real key's
+  auto issue = [&](int i) {
+    float* Ks = buf + (i & 1) * BUF;
+    float* Vs = Ks + TK * HD;
+    float* Ms = Vs + TK * HD;
+    const int j0 = i * TK, nk = min(TK, T - j0);
+    for (int e = tid; e < TK * H4; e += NT) {
+      const int jj = e / H4, c4 = e - jj * H4;
+      if (jj < nk) {
+        const size_t src = base + (size_t)(j0 + jj) * D + 4 * c4;
+        vsl::cp_async_float4(Ks + 4 * e, k + src);
+        vsl::cp_async_float4(Vs + 4 * e, v + src);
+      } else {
+        reinterpret_cast<float4*>(Ks)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+        reinterpret_cast<float4*>(Vs)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    for (int jj = tid; jj < TK; jj += NT) {
+      if (jj < nk)
+        vsl::cp_async_float(Ms + jj, mrow + j0 + jj);
+      else
+        Ms[jj] = -1.f;
+    }
+    vsl::cp_async_commit();
+  };
+  float qr[RQ][HD], acc[RQ][HD], m[RQ], l[RQ];
+  uint32_t hr[RQ];
 #pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] = active ? q[base + (size_t)t * D + d] * scale : 0.f;
-    acc[d] = 0.f;
+  for (int r = 0; r < RQ; ++r) {
+    const int t = t0 + r * kFwdThreads + slot;
+    const float4* q4 = reinterpret_cast<const float4*>(q + base + (size_t)min(t, T - 1) * D);
+#pragma unroll
+    for (int c4 = 0; c4 < H4; ++c4) {
+      const float4 x = q4[c4];
+      qr[r][4 * c4 + 0] = x.x * scale;
+      qr[r][4 * c4 + 1] = x.y * scale;
+      qr[r][4 * c4 + 2] = x.z * scale;
+      qr[r][4 * c4 + 3] = x.w * scale;
+    }
+#pragma unroll
+    for (int d = 0; d < HD; ++d) acc[r][d] = 0.f;
+    m[r] = -FLT_MAX;
+    l[r] = 0.f;
+    hr[r] = vsl::hash_row(t);
   }
-  float m = -FLT_MAX, l = 0.f;
-  for (int j0 = 0; j0 < T; j0 += kStage) {
-    const int nk = min(kStage, T - j0);
-    const bool live = stage_keys<HD>(k, v, mrow, base, D, j0, nk, Ks, Vs, neg);
-    if (active && (live || !has_key)) {
-      for (int jj = 0; jj < nk; ++jj) {
-        const float s = head_score<HD>(qr, Ks + jj * HD, neg[jj]);
-        if (s > m) {  // the max grows: rescale what was summed
-          const float a = expf(m - s);
-          l *= a;
+  issue(0);
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) {
+      issue(i + 1);
+      vsl::cp_async_wait<1>();
+    } else {
+      vsl::cp_async_wait<0>();
+    }
+    const int j0 = i * TK, nk = min(TK, T - j0);
+    int live = 0;
+    for (int jj = tid; jj < nk; jj += NT) live |= mrow[j0 + jj] != 0.f;
+    // tile i landed for every thread; a tile of masked keys on a row with a
+    // valid key adds exp(-1e30 - m) = 0 exactly, and is skipped
+    if (__syncthreads_or(live) || !has_key) {
+      const float* Ks = buf + (i & 1) * BUF;
+      const float4* K4 = reinterpret_cast<const float4*>(Ks);
+      const float4* V4 = reinterpret_cast<const float4*>(Ks + TK * HD);
+      const float* Ms = Ks + 2 * TK * HD;
+      // this group's keys of the tile, [grp GK, (grp + 1) GK)
+      for (int c0 = grp * GK; c0 < min(nk, (grp + 1) * GK); c0 += CK) {
+        float s[RQ][CK];
 #pragma unroll
-          for (int d = 0; d < HD; ++d) acc[d] *= a;
-          m = s;
+        for (int r = 0; r < RQ; ++r)
+#pragma unroll
+          for (int c = 0; c < CK; ++c) s[r][c] = 0.f;
+#pragma unroll
+        for (int k4 = 0; k4 < H4; ++k4) {
+#pragma unroll
+          for (int c = 0; c < CK; ++c) {
+            const float4 kk = K4[(c0 + c) * H4 + k4];
+#pragma unroll
+            for (int r = 0; r < RQ; ++r) {
+              s[r][c] = fmaf(qr[r][4 * k4 + 0], kk.x, s[r][c]);
+              s[r][c] = fmaf(qr[r][4 * k4 + 1], kk.y, s[r][c]);
+              s[r][c] = fmaf(qr[r][4 * k4 + 2], kk.z, s[r][c]);
+              s[r][c] = fmaf(qr[r][4 * k4 + 3], kk.w, s[r][c]);
+            }
+          }
         }
-        const float p = expf(s - m);
-        l += p;
-        if (drop.keep(seed, salt, t, j0 + jj)) {
+        // + the key mask's -1e30 terms; the block's max; one rescale a row
 #pragma unroll
-          for (int d = 0; d < HD; ++d) acc[d] = fmaf(p, Vs[jj * HD + d], acc[d]);
+        for (int r = 0; r < RQ; ++r) {
+          float mx = m[r];
+#pragma unroll
+          for (int c = 0; c < CK; ++c) {
+            s[r][c] += (1.f - Ms[c0 + c]) * vsl::kMaskValue;
+            mx = fmaxf(mx, s[r][c]);
+          }
+          const float f = exp2f((m[r] - mx) * kLog2e);
+          m[r] = mx;
+          l[r] *= f;
+#pragma unroll
+          for (int d = 0; d < HD; ++d) acc[r][d] *= f;
+        }
+#pragma unroll
+        for (int c = 0; c < CK; ++c) {
+          float p[RQ];
+          const uint32_t hc = kDrop ? vsl::hash_col(j0 + c0 + c, seed, salt) : 0u;
+#pragma unroll
+          for (int r = 0; r < RQ; ++r) {
+            p[r] = exp2f((s[r][c] - m[r]) * kLog2e);
+            l[r] += p[r];
+            if (kDrop) p[r] = vsl::hash_mix(hr[r] ^ hc) >= drop.thresh ? p[r] : 0.f;
+          }
+#pragma unroll
+          for (int d4 = 0; d4 < H4; ++d4) {
+            const float4 vv = V4[(c0 + c) * H4 + d4];
+#pragma unroll
+            for (int r = 0; r < RQ; ++r) {
+              acc[r][4 * d4 + 0] = fmaf(p[r], vv.x, acc[r][4 * d4 + 0]);
+              acc[r][4 * d4 + 1] = fmaf(p[r], vv.y, acc[r][4 * d4 + 1]);
+              acc[r][4 * d4 + 2] = fmaf(p[r], vv.z, acc[r][4 * d4 + 2]);
+              acc[r][4 * d4 + 3] = fmaf(p[r], vv.w, acc[r][4 * d4 + 3]);
+            }
+          }
         }
       }
     }
-    __syncthreads();
+    __syncthreads();  // buffer i & 1 read before it takes tile i + 2
   }
-  if (!active) return;
-  const float inv = (drop.on() ? drop.scale : 1.f) / l;
-  float* o = out + ((size_t)b * T + t) * D + h * HD;
+  // the key groups' partial softmaxes merged in group order: groups 1..
+  // hand m, l and P.V to group 0 through the free buffers
+  float* part = buf;
+  if (grp > 0) {
 #pragma unroll
-  for (int d = 0; d < HD; ++d) o[d] = acc[d] * inv;
-  lse[((size_t)b * H + h) * T + t] = m + logf(l);
+    for (int r = 0; r < RQ; ++r) {
+      float* pr = part + ((size_t)((grp - 1) * RQ + r) * (HD + 2)) * kFwdThreads + slot;
+      pr[0] = m[r];
+      pr[kFwdThreads] = l[r];
+#pragma unroll
+      for (int d = 0; d < HD; ++d) pr[(2 + d) * kFwdThreads] = acc[r][d];
+    }
+  }
+  __syncthreads();
+  if (grp > 0) return;
+#pragma unroll
+  for (int r = 0; r < RQ; ++r) {
+    for (int g = 1; g < kFwdGroups; ++g) {
+      const float* pr = part + ((size_t)((g - 1) * RQ + r) * (HD + 2)) * kFwdThreads + slot;
+      const float mg = pr[0], mx = fmaxf(m[r], mg);
+      const float f = exp2f((m[r] - mx) * kLog2e), fg = exp2f((mg - mx) * kLog2e);
+      m[r] = mx;
+      l[r] = l[r] * f + pr[kFwdThreads] * fg;
+#pragma unroll
+      for (int d = 0; d < HD; ++d) acc[r][d] = acc[r][d] * f + pr[(2 + d) * kFwdThreads] * fg;
+    }
+    const int t = t0 + r * kFwdThreads + slot;
+    if (t >= T) continue;
+    const float inv = (kDrop ? drop.scale : 1.f) / l[r];
+    float4* o4 = reinterpret_cast<float4*>(out + ((size_t)b * T + t) * D + h * HD);
+#pragma unroll
+    for (int c4 = 0; c4 < H4; ++c4)
+      o4[c4] = make_float4(acc[r][4 * c4] * inv, acc[r][4 * c4 + 1] * inv,
+                           acc[r][4 * c4 + 2] * inv, acc[r][4 * c4 + 3] * inv);
+    lse[((size_t)b * H + h) * T + t] = m[r] + logf(l[r]);
+  }
 }
 
 // delta [B, H, T] = g . out per (row, head, query), one thread each, the
@@ -154,7 +294,6 @@ __global__ void flash_bwd_delta_kernel(const float* __restrict__ out, const floa
 constexpr int kBwdThreads = 512;  // the backward's threads a CTA: 16 warps an SM
 constexpr int kBwdQ = 64;         // queries a streamed tile
 constexpr int kDqFloats = 8192;   // phase 3's partials over key groups
-constexpr float kLog2e = 1.4426950408889634f;
 // keys a CTA: 128, or 64 at head dim 64, where a CTA's 512 threads hold
 // dK and dV at 2 keys x 8 dims a thread (ops/kernels.py FLASH_KEY_TILE)
 constexpr int bwd_key_tile(int hd) { return hd * 128 <= 4096 ? 128 : 64; }
@@ -460,22 +599,37 @@ __global__ void flash_dq_sum_kernel(const float* __restrict__ dqw, float* __rest
   dq[i] = s * scale;
 }
 
-dim3 grid_of(int B, int T, int n_heads) { return dim3((T + kRows - 1) / kRows, n_heads, B); }
-
 }  // namespace
 
-// out [B, T, D], lse [B, H, T].
+// out [B, T, D], lse [B, H, T], on flash_fwd_plan's `rows` query rows a
+// thread (1, or up to head dim 32 also 2).
 extern "C" int vsl_flash_mha_fwd(const float* q, const float* k, const float* v,
                                  const float* mask, const float* seeds, unsigned thresh,
                                  float scale, float* out, float* lse, int B, int T, int D,
-                                 int n_heads, void* stream_) {
+                                 int n_heads, int rows, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (B < 1 || T < 1 || n_heads < 1 || D % n_heads || (rows != 1 && rows != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   const vsl::Dropout drop{seeds, thresh, scale};
   return static_cast<int>(vsl::by_head_dim(D / n_heads, [&](auto hd) {
     constexpr int HD = decltype(hd)::value;
-    flash_fwd_kernel<HD><<<grid_of(B, T, n_heads), kRows, 0, stream>>>(
-        q, k, v, mask, drop, out, lse, T, D, vsl::head_scale(HD));
-    return cudaGetLastError();
+    auto launch = [&](auto kernel, int rq) {
+      const size_t smem = flash_fwd_floats(HD, rq) * sizeof(float);
+      cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(kernel), smem);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((T + rq * kFwdThreads - 1) / (rq * kFwdThreads), n_heads, B);
+      kernel<<<grid, kFwdThreads * kFwdGroups, smem, stream>>>(q, k, v, mask, drop, out, lse,
+                                                               T, D, vsl::head_scale(HD));
+      return cudaGetLastError();
+    };
+    if (rows == 1)
+      return seeds ? launch(flash_fwd_kernel<HD, 1, true>, 1)
+                   : launch(flash_fwd_kernel<HD, 1, false>, 1);
+    if constexpr (HD <= 32) {
+      return seeds ? launch(flash_fwd_kernel<HD, 2, true>, 2)
+                   : launch(flash_fwd_kernel<HD, 2, false>, 2);
+    }
+    return cudaErrorInvalidValue;
   }));
 }
 

@@ -14,16 +14,25 @@
 
 namespace vsl {
 
-__device__ __forceinline__ uint32_t counter_hash(uint32_t i, uint32_t j, uint32_t seed,
-                                                 uint32_t salt_term) {
-  uint32_t x = (i * 0x9E3779B9u) ^ (j * 0x85EBCA6Bu);
-  x ^= seed * 2654435761u + salt_term;
+// The hash in three terms: counter_hash(i, j) = hash_mix(hash_row(i) ^
+// hash_col(j, seed, salt_term)), so a loop over a tile computes the row and
+// column terms once each and the mix once a (i, j).
+__device__ __forceinline__ uint32_t hash_row(uint32_t i) { return i * 0x9E3779B9u; }
+__device__ __forceinline__ uint32_t hash_col(uint32_t j, uint32_t seed, uint32_t salt_term) {
+  return (j * 0x85EBCA6Bu) ^ (seed * 2654435761u + salt_term);
+}
+__device__ __forceinline__ uint32_t hash_mix(uint32_t x) {
   x ^= x >> 16;
   x *= 0x85EBCA6Bu;
   x ^= x >> 13;
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return x;
+}
+
+__device__ __forceinline__ uint32_t counter_hash(uint32_t i, uint32_t j, uint32_t seed,
+                                                 uint32_t salt_term) {
+  return hash_mix(hash_row(i) ^ hash_col(j, seed, salt_term));
 }
 
 // Salt term of a block site: 0x100 + layer in the conv block, 0x200-0x203

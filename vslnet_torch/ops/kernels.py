@@ -97,10 +97,10 @@ _SIGNATURES = {
     "vsl_highlight_gate_fwd": [_P] * 6 + [_I] * 2 + [_P],
     "vsl_span_decode": [_P] * 4 + [_I] * 2 + [_P],
     "vsl_conv_block_fwd_tiled": [_P] * 7 + _DROP + [_P] * 2 + [_I] * 5 + [_P],
-    "vsl_conv_block_bwd_tiled": [_P] * 9 + _DROP + [_P] * 9 + [_I] * 6 + [_P],
+    "vsl_conv_block_bwd_tiled": [_P] * 9 + _DROP + [_P] * 9 + [_I] * 9 + [_P],
     "vsl_mha_fwd": [_P] * 5 + _DROP + [_P] + [_I] * 5 + [_P],
     "vsl_mha_bwd": [_P] * 5 + _DROP + [_P] * 4 + [_I] * 4 + [_P],
-    "vsl_flash_mha_fwd": [_P] * 5 + _DROP + [_P] * 2 + [_I] * 4 + [_P],
+    "vsl_flash_mha_fwd": [_P] * 5 + _DROP + [_P] * 2 + [_I] * 5 + [_P],
     "vsl_flash_mha_bwd": [_P] * 5 + _DROP + [_P] * 8 + [_I] * 4 + [_P],
 }
 
@@ -233,11 +233,12 @@ def _dropout_args(name, seeds, drop_rate, B):
     return seeds.data_ptr(), drop_threshold(drop_rate), 1.0 / (1.0 - drop_rate)
 
 
-def _wgrad_splits(Z, M, N, K):
+def _wgrad_splits(Z, M, N, K, waves=1):
     """Chunks of the K rows of a split-K weight product (common.cuh wgrad):
-    enough 64 x 64-tile blocks to fill the SMs, at least 64 rows a chunk."""
+    enough 64 x 64-tile blocks to fill the SMs `waves` times, at least 64
+    rows a chunk."""
     tiles = Z * -(-M // 64) * -(-N // 64)
-    return max(1, min(-(-N_SMS // tiles), K // 64))
+    return max(1, min(-(-waves * N_SMS // tiles), K // 64))
 
 
 def _empty(device, *shape):
@@ -753,11 +754,24 @@ def fused_conv_block(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
 
 # --- 2b. conv block at any T ---------------------------------------------------
 # The same function as section 2, T-tiled (csrc/conv_block.cu, the tiled
-# kernels): one launch a layer over (T-tiles of CONV_TILE frames, rows),
-# each tile LayerNorming a halo of the depthwise reach. Taken where a
-# row's backward does not fit a block (T > 145 at D = 128).
+# kernels): one launch a layer over (T-tiles, rows). The forward's tiles of
+# CONV_TILE frames each LayerNorm a halo of the depthwise reach; the
+# backward's, on conv_tiled_bwd_plan, each recompute the depthwise output,
+# the pre-ReLU and g_d over the reach as well, so that a layer is one
+# launch. Taken where a row's backward does not fit a block (T > 145 at
+# D = 128).
 
-CONV_TILE = 32  # frames of a tile (csrc/conv_block.cu kTile)
+CONV_TILE = 32  # frames of a forward tile (csrc/conv_block.cu kTile)
+# the backward's threads a CTA (csrc/conv_block.cu kTiledThreads), the rows
+# of its product tile it is built for, and the frames a tile its plan
+# chooses from
+CONV_TILED_THREADS = 512
+CONV_TILED_ROWS = (4, 6)
+CONV_TILED_FRAMES = (8, 16, 24, 32, 40, 48, 56, 64)
+# the blocks of its split-K dwp product fill the SMs this many times: its
+# 64 x 64 tiles wait on their loads, and 4 waves beat 1 and 2 at paths L
+# and M (vslnet_torch/bench/conv_plans.py --tiled, PERF.md)
+CONV_TILED_WGRAD_WAVES = 4
 
 
 def conv_route(T, D, K, L):
@@ -773,22 +787,101 @@ def conv_route(T, D, K, L):
 
 
 def conv_block_tiled_smem_bytes(D, K):
-    """The largest of the tiled launches' shared memory: backward launch A's
-    halo of LN rows and two [CONV_TILE, D] tiles, or launch B's two halos
-    and the inverse deviations."""
-    halo = CONV_TILE + K - 1
-    return max((2 * CONV_TILE + halo) * D, 2 * halo * D + halo) * 4
+    """The tiled forward's shared memory: a halo of LN rows and the depthwise
+    output over a tile of CONV_TILE frames."""
+    return (2 * CONV_TILE + K - 1) * D * 4
+
+
+def _conv_tiled_bwd_smem_bytes(frames, D, K, sk):
+    """csrc/conv_block.cu TiledBwdLayout's bytes for `frames` frames a tile
+    and weight slices of `sk` rows."""
+    return 4 * ((frames + 2 * (K - 1)) * D + 2 * (frames + K - 1) * D
+                + frames * D + (1 if sk == D else 2) * sk * D + K * D
+                + -(-frames // 4) * 4)
+
+
+class ConvTiledBwdPlan(NamedTuple):
+    """One call of the tiled conv backward: each of L launches on `ctas` =
+    B * `tiles` CTAs of CONV_TILED_THREADS threads, a CTA taking `frames`
+    frames of a row (tiles = ceil(T / frames)) and `smem` bytes, wp and
+    wp^T streamed in slices of `slice` rows (D / slice slices), its
+    products in items of `product_rows` rows x 4 columns."""
+    frames: int
+    tiles: int
+    slice: int
+    smem: int
+    ctas: int
+    product_rows: int
+
+
+def _conv_tiled_rows(frames, D, K):
+    """The product tile's rows for a tile of `frames` frames: the fewest of
+    CONV_TILED_ROWS whose items over its frames + K - 1 rows fit one round
+    of the CTA's threads, else the most."""
+    for rows in CONV_TILED_ROWS:
+        if -(-(frames + K - 1) // rows) * (D // 4) <= CONV_TILED_THREADS:
+            return rows
+    return CONV_TILED_ROWS[-1]
+
+
+def _conv_tiled_slice(frames, D, K):
+    """The largest slice of wp's rows (a multiple of 4 dividing D, all of D
+    first) with which `frames` frames fit a block, or None."""
+    for sk in range(D, 3, -4):
+        if D % sk == 0 and \
+                _conv_tiled_bwd_smem_bytes(frames, D, K, sk) <= MAX_SMEM_BYTES:
+            return sk
+    return None
+
+
+@functools.lru_cache(maxsize=256)
+def conv_tiled_bwd_plan(B, T, D, K, L):
+    """The tiled backward's launch plan for B rows of [T, D] and a depthwise
+    kernel of K taps over L layers. A tile of F frames runs its passes
+    over F + K - 1 rows on one CTA an SM, so its time goes as ceil((F + K -
+    1) / 4), times the waves of B * ceil(T / F) CTAs over the card's SMs:
+    the plan takes the F of CONV_TILED_FRAMES (cut to T) that needs the
+    least, the larger F on a tie, with wp whole in shared memory where it
+    fits and else in the largest slices that do, and the product rows of
+    _conv_tiled_rows. At path L's [8, 1024, 128]: 128 CTAs of 64 frames
+    (one wave, 213 KB each), products of 6 rows an item; at path M's [16,
+    192, 128], 128 of 24. Raises on what the kernel cannot take."""
+    if B < 1 or T < 1 or K < 1 or L < 1 or D < 4 or D % 4:
+        raise ValueError("conv_tiled_bwd_plan: needs B, T, K, L >= 1 and D %% "
+                         "4 == 0, got B=%d, T=%d, D=%d, K=%d, L=%d"
+                         % (B, T, D, K, L))
+    best = None
+    for frames in sorted({min(T, f) for f in CONV_TILED_FRAMES}):
+        sk = _conv_tiled_slice(frames, D, K)
+        if sk is None:
+            continue
+        tiles = -(-T // frames)
+        cost = -(-B * tiles // N_SMS) * -(-(frames + K - 1) // 4)
+        if best is None or cost <= best[0]:
+            best = (cost, ConvTiledBwdPlan(
+                frames, tiles, sk,
+                _conv_tiled_bwd_smem_bytes(frames, D, K, sk), B * tiles,
+                _conv_tiled_rows(frames, D, K)))
+    if best is None:
+        raise ValueError("conv_tiled_bwd_plan: D=%d needs %d bytes of shared "
+                         "memory a tile of %d frames, above the %d a block "
+                         "has" % (D, _conv_tiled_bwd_smem_bytes(
+                             min(T, CONV_TILED_FRAMES[0]), D, K, 4),
+                             min(T, CONV_TILED_FRAMES[0]), MAX_SMEM_BYTES))
+    return best[1]
 
 
 def launch_conv_block_fwd_tiled(x, gam, beta, dw, wp, bp, seeds=None,
                                 drop_rate=0.0):
     """The tiled forward kernels: (out, xs [L - 1, B, T, D], the inputs of
-    layers 1..L-1, which the tiled backward reads). CUDA tensors only."""
+    layers 1..L-1, which the tiled backward reads). CUDA tensors only;
+    raises where the tiled backward's plan does not fit either."""
     name = "conv_block_fwd_tiled"
     _require_cuda(name, x, gam, beta, dw, wp, bp)
     B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp,
                                  conv_block_tiled_smem_bytes(x.shape[2],
                                                              dw.shape[1]))
+    conv_tiled_bwd_plan(B, T, D, K, L)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     out = torch.empty_like(x)
     xs = _empty(x.device, max(L - 1, 1), B, T, D)
@@ -800,33 +893,35 @@ def launch_conv_block_fwd_tiled(x, gam, beta, dw, wp, bp, seeds=None,
 
 def launch_conv_block_bwd_tiled(x, xs, gam, beta, dw, wp, bp, seeds,
                                 drop_rate, g):
-    """The tiled backward kernels from the forward's xs: (dx, dgam, dbeta,
-    ddw, dwp, dbp), the weight gradients summed over the batch. CUDA tensors
-    only."""
+    """The tiled backward kernels on conv_tiled_bwd_plan, from the forward's
+    xs: (dx, dgam, dbeta, ddw, dwp, dbp), the weight gradients summed over
+    the batch. CUDA tensors only."""
     name = "conv_block_bwd_tiled"
     _require_cuda(name, x, xs, gam, beta, dw, wp, bp, g)
-    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp,
-                                 conv_block_tiled_smem_bytes(x.shape[2],
-                                                             dw.shape[1]))
+    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0)
+    plan = conv_tiled_bwd_plan(B, T, D, K, L)
     _check(name, xs, (max(L - 1, 1), B, T, D))
     _check(name, g, (B, T, D))
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     dev = x.device
+    # x, g, the taps and the weights land by 16-byte cp.async, g and bp are
+    # read as float4s
+    x, g, dw, wp, bp = _aligned16(x, g, dw, wp, bp)
     wpT = wp.transpose(1, 2).contiguous()
     dx = torch.empty_like(x)
     dsmall = _empty(dev, L, 3 + K, D)
     dwp = _empty(dev, L, D, D)
     d_ws, gp_ws = (_empty(dev, L, B, T, D) for _ in range(2))
-    gd_ws = _empty(dev, B, T, D)
-    part = _empty(dev, B * -(-T // CONV_TILE), L, 3 + K, D)
-    splits = _wgrad_splits(L, D, D, B * T)
+    g_ws = _empty(dev, B, T, D)
+    part = _empty(dev, plan.ctas, L, 3 + K, D)
+    splits = _wgrad_splits(L, D, D, B * T, CONV_TILED_WGRAD_WAVES)
     ws = _empty(dev, L * splits * D * D if splits > 1 else 1)
     _launch(name, x.data_ptr(), xs.data_ptr(), gam.data_ptr(),
             beta.data_ptr(), dw.data_ptr(), wp.data_ptr(), wpT.data_ptr(),
             bp.data_ptr(), sp, thresh, scale, g.data_ptr(), dx.data_ptr(),
             dsmall.data_ptr(), dwp.data_ptr(), d_ws.data_ptr(),
-            gp_ws.data_ptr(), gd_ws.data_ptr(), part.data_ptr(), ws.data_ptr(),
-            splits, B, T, D, L, K)
+            gp_ws.data_ptr(), g_ws.data_ptr(), part.data_ptr(), ws.data_ptr(),
+            splits, B, T, D, L, K, plan.frames, plan.slice, plan.product_rows)
     return dx, dsmall[:, 0], dsmall[:, 1], dsmall[:, 3:], dwp, dsmall[:, 2]
 
 
@@ -1237,10 +1332,12 @@ def fused_mha_block(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
 # block forward's attention body, the backward one thread a query row),
 # _make_flash_fwd_kernel and _make_flash_bwd_kernel (csrc/flash_mha.cu),
 # via fused_mha and its VJP. attention_route picks one route for both
-# directions. The whole-T backward and the flash forward are bound by
-# their per-thread key loops (an exp, a hash and 2 * hd FMAs a pair); the
-# flash backward runs on flash_bwd_plan, one pass over key-tile CTAs with
-# its products register-tiled out of shared memory.
+# directions. The whole-T backward is bound by its per-thread key loops
+# (an exp, a hash and 2 * hd FMAs a pair); the flash forward runs on
+# flash_fwd_plan, several query rows a thread against key tiles streamed
+# through shared memory; the flash backward on flash_bwd_plan, one pass
+# over key-tile CTAs with its products register-tiled out of shared
+# memory.
 
 # keys a CTA of the flash backward at head dims up to 32 (64 above: the
 # kernel keeps 2 keys x 8 dims of dK and dV a thread in registers, for at
@@ -1287,6 +1384,57 @@ def flash_bwd_plan(B, T, D, n_heads):
     return FlashBwdPlan(key_tile, key_tiles, FLASH_QTILE, -(-T // FLASH_QTILE),
                         _flash_bwd_bytes(key_tile, hd),
                         4 * key_tiles * B * T * D)
+
+
+# the flash forward's query slots a CTA, thread groups that split a key
+# tile, keys a streamed tile and keys a step of its online softmax
+# (csrc/flash_mha.cu kFwdThreads, kFwdGroups, kFwdKeys, kFwdBlock)
+FLASH_FWD_THREADS = 64
+FLASH_FWD_GROUPS = 2
+FLASH_FWD_KEYS = 64
+FLASH_FWD_BLOCK = 8
+
+
+class FlashFwdPlan(NamedTuple):
+    """One call of the flash forward: `ctas` = q_tiles * n_heads * B CTAs
+    of `threads` threads in `groups` groups, each thread keeping `rows`
+    query rows, so a CTA takes `q_tile` = rows * threads / groups queries
+    (q_tiles = ceil(T / q_tile)) and streams the head's `key_tiles` =
+    ceil(T / key_tile) key tiles through two buffers, each group taking
+    its share of a tile in steps of `key_block` keys; `smem_bytes` holds
+    the buffers, then the groups' partial softmaxes."""
+    rows: int
+    threads: int
+    groups: int
+    q_tile: int
+    q_tiles: int
+    key_tile: int
+    key_tiles: int
+    key_block: int
+    smem_bytes: int
+    ctas: int
+
+
+def flash_fwd_plan(B, T, D, n_heads):
+    """The flash forward's launch plan for B rows of [T, D] and n_heads
+    heads: 2 query rows a thread up to head dim 16 (a thread's q and P.V
+    accumulator of both rows in registers), 1 above; key tiles of
+    FLASH_FWD_KEYS, split between FLASH_FWD_GROUPS groups of threads. Path
+    L's [8, 1024, 128] in 8 heads of 16: 512 CTAs of 128 threads and 128
+    queries, 16 key tiles each. Raises on what the kernel cannot take."""
+    hd = _head_dim("flash_fwd_plan", D, n_heads)
+    if B < 1 or T < 1:
+        raise ValueError("flash_fwd_plan: needs B, T >= 1, got B=%d, T=%d"
+                         % (B, T))
+    rows = 2 if hd <= 16 else 1
+    q_tile = rows * FLASH_FWD_THREADS
+    q_tiles = -(-T // q_tile)
+    smem = 4 * max(2 * (2 * FLASH_FWD_KEYS * hd + FLASH_FWD_KEYS),
+                   (FLASH_FWD_GROUPS - 1) * rows * (hd + 2) * FLASH_FWD_THREADS)
+    return FlashFwdPlan(rows, FLASH_FWD_THREADS * FLASH_FWD_GROUPS,
+                        FLASH_FWD_GROUPS, q_tile, q_tiles, FLASH_FWD_KEYS,
+                        -(-T // FLASH_FWD_KEYS), FLASH_FWD_BLOCK, smem,
+                        q_tiles * n_heads * B)
 
 
 def flash_attention_plain(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
@@ -1348,17 +1496,20 @@ def launch_mha_bwd(q, k, v, mask, n_heads, seeds, drop_rate, g):
 
 
 def launch_flash_mha_fwd(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
-    """The flash forward kernel: (out [B, T, D], lse [B, H, T]). CUDA
-    tensors only."""
+    """The flash forward kernel on flash_fwd_plan: (out [B, T, D], lse [B,
+    H, T]). CUDA tensors only."""
     name = "flash_mha_fwd"
     _require_cuda(name, q, k, v, mask)
     B, T, D = _attention_shapes(name, q, k, v, mask, n_heads)
+    plan = flash_fwd_plan(B, T, D, n_heads)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    # q, k and v are read by 16-byte loads and cp.async
+    q, k, v = _aligned16(q, k, v)
     out = torch.empty_like(q)
     lse = _empty(q.device, B, n_heads, T)
     _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             sp, thresh, scale, out.data_ptr(), lse.data_ptr(), B, T, D,
-            n_heads)
+            n_heads, plan.rows)
     return out, lse
 
 
