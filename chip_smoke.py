@@ -21,13 +21,18 @@ Phases, each printing one JSON line:
               training shapes (T = 128 and the query stream's T = max_w,
               drop_rate 0.2, one fully masked query row): the forward, every
               gradient of sum(out * g), and the dropout's zero pattern;
-              the conv block's forward and the MHA block's forward and
-              backward also give equal bits on two equal calls.
-              The cluster and tiled kernels carry their launch plans; the
-              conv block's forward, and its forward and backward together
-              (the pair conv_route picks), must beat the T-tiled kernels at
-              the same shape by device time, the MHA block's forward and
-              backward those of the unfused block (its PyTorch ops around
+              the conv block's forward (also the T-tiled forward's bits)
+              and the MHA block's forward and backward also give equal
+              bits on two equal calls. CQA runs on its plan at the served
+              shape, at path L's [8, 1024] and with 64 words there (masked
+              tiles and rows, a padded query), with equal bits twice; the
+              highlight gate and span decode also at path L's shape.
+              The cluster and tiled kernels carry their launch plans;
+              conv_route must send the conv block at [16, 128, 128] to the
+              faster of the whole-row and the T-tiled kernels by device
+              time, the forward alone when serving and forward with
+              backward when training; the MHA block's forward and backward
+              must beat those of the unfused block (its PyTorch ops around
               the whole-T attention kernels), each timed in the same run.
               Those rows give beside ms (CUDA events around back-to-back
               calls, as every row, which time the wrapper's host work
@@ -58,8 +63,9 @@ Phases, each printing one JSON line:
               backward) against their plain versions at the paths' shapes
               (output, every gradient, dropout zero pattern; SDPA as the
               attention yardstick; the flash forward and backward and the
-              tiled conv backward give equal bits on two equal calls and
-              carry their plans and device time by kernel, the tiled
+              tiled conv forward and backward give equal bits on two equal
+              calls and carry their plans and device time by kernel (the
+              tiled forward at both paths, with its bound), the tiled
               backward's dropout and ReLU zero pattern is the plain
               version's, and the flash backward must beat SDPA's
               backward); then path M (rnn,
@@ -162,6 +168,34 @@ def autograd_pair(fn, plain, args, n_grad, g):
               + [scaled_err(a, b) for a, b in zip(grads, grads_ref)])
     finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
     return abs_err, err, finite
+
+
+def tiled_bwd_zeros(args, seeds):
+    """The T-tiled backward's masks at conv block inputs args [B, T, D]: for
+    their first layer and a g that is 1 on frame t of row 0 only, dbp =
+    keep(t, o) [p(t, o) > 0] / (1 - rate) is 0 exactly where the plain
+    version's autograd has it 0, at frames on the plan's tile edges: one
+    bool a frame."""
+    import torch
+
+    from vslnet_torch.ops import kernels as K
+
+    B, T, D = args[0].shape
+    KS = args[3].shape[1]
+    one = [args[0]] + [w[:1].contiguous() for w in args[1:]]
+    _, xs1 = K.launch_conv_block_fwd_tiled(*one, seeds, DROP)
+    frames = K.conv_tiled_bwd_plan(B, T, D, KS, 1).frames
+    zeros = []
+    for t_ in (0, frames - 1, frames, T // 2, T - 1):
+        g1 = torch.zeros_like(args[0])
+        g1[0, t_] = 1.0
+        dbp = K.launch_conv_block_bwd_tiled(one[0], xs1, *one[1:], seeds,
+                                            DROP, g1)[5]
+        one_l = [a.clone().requires_grad_() for a in one]
+        ref = torch.autograd.grad(K.conv_block_plain(*one_l, seeds, DROP),
+                                  one_l[5], g1)[0]
+        zeros.append(torch.equal(dbp == 0, ref == 0))
+    return zeros
 
 
 def check(cond, msg):
@@ -269,56 +303,68 @@ def kernel_phase(dev, max_w):
                 t(rng.standard_normal((L, D, D)) / math.sqrt(D)),
                 t(0.1 * rng.standard_normal((L, D)))]
 
+    # the whole-row kernel itself (launch_conv_block_fwd) at T and at max_w
+    fwd = K.launch_conv_block_fwd
     q_args = conv_inputs(max_w)
-    q_err = max_err(K.fused_conv_block(*q_args), K.conv_block_plain(*q_args))
+    q_err = max_err(fwd(*q_args), K.conv_block_plain(*q_args))
     args = conv_inputs(T)
-    err = max_err(K.fused_conv_block(*args), K.conv_block_plain(*args))
+    err = max_err(fwd(*args), K.conv_block_plain(*args))
     # with dropout (the training forward), at T and at max_w
     seeds = seeds_for(B)
     drop = {"seeds": seeds, "drop_rate": DROP}
-    d_err = max(max_err(K.fused_conv_block(*a, **drop),
-                        K.conv_block_plain(*a, **drop)) for a in (args, q_args))
+    d_err = max(max_err(fwd(*a, **drop), K.conv_block_plain(*a, **drop))
+                for a in (args, q_args))
     # one layer: out - x is 0 exactly where its mask (or the ReLU) drops
     one = [args[0]] + [w[:1].contiguous() for w in args[1:]]
-    zeros_equal = torch.equal(K.fused_conv_block(*one, **drop) == args[0],
+    zeros_equal = torch.equal(fwd(*one, **drop) == args[0],
                               K.conv_block_plain(*one, **drop) == args[0])
     check(zeros_equal, "conv_block_fwd: the dropout zero pattern differs")
-    # no atomics, a fixed order of every sum: two equal calls, equal bits
-    twice = torch.equal(K.launch_conv_block_fwd(*args, **drop),
-                        K.launch_conv_block_fwd(*args, **drop))
+    # no atomics, a fixed order of every sum: two equal calls, equal bits;
+    # the T-tiled forward does the same arithmetic in the same order
+    twice = torch.equal(fwd(*args, **drop), fwd(*args, **drop))
     check(twice, "conv_block_fwd: two equal calls differ")
-    # the cluster forward against the T-tiled one at the same shape, in
-    # this run, by CUDA events around back-to-back calls and by the device
-    # time of a call's kernels (torch.profiler): the kernel must be the
-    # faster by device time (events time the host once it outlasts the
-    # kernel)
-    parts = by_kernel(lambda: K.launch_conv_block_fwd(*args))
+    tiled_bits = torch.equal(fwd(*args, **drop),
+                             K.launch_conv_block_fwd_tiled(*args, **drop)[0])
+    check(tiled_bits, "conv_block_fwd: the tiled forward's bits differ")
+    # the cluster forward against the T-tiled one at the same shape and at
+    # max_w, in this run, by CUDA events around back-to-back calls and by
+    # the device time of a call's kernels (torch.profiler): conv_route must
+    # send a forward alone (serving) to the faster by device time (events
+    # time the host once it outlasts the kernel)
+    parts = by_kernel(lambda: fwd(*args))
     tiled_parts = by_kernel(lambda: K.launch_conv_block_fwd_tiled(*args))
     device_ms = sum(parts.values())
     tiled_device_ms = sum(tiled_parts.values())
-    ms = cuda_ms(lambda: K.fused_conv_block(*args), 50)
-    tiled_ms = cuda_ms(lambda: K.launch_conv_block_fwd_tiled(*args), 50)
+    q_device_ms = sum(by_kernel(lambda: fwd(*q_args)).values())
+    q_tiled_device_ms = sum(by_kernel(
+        lambda: K.launch_conv_block_fwd_tiled(*q_args)).values())
+    route = K.conv_route(T, D, KS, L)
     record("conv_block_fwd", "vslnet_torch/csrc/conv_block.cu",
            "vslnet_tpu/ops/pallas_kernels.py:1019", max(err, q_err, d_err), TOL,
-           ms, cuda_ms(lambda: K.conv_block_plain(*args), 50),
+           cuda_ms(lambda: fwd(*args), 50),
+           cuda_ms(lambda: K.conv_block_plain(*args), 50),
            L * 2 * B * T * D * (D + KS),
            4 * (2 * B * T * D + L * (3 * D + KS * D + D * D)),
            shape=[B, T, D], query_T=max_w, query_max_abs_err=q_err,
            dropout_max_abs_err=d_err, dropout_zero_pattern_equal=zeros_equal,
-           equal_bits_twice=twice,
-           dropout_ms=cuda_ms(lambda: K.fused_conv_block(*args, **drop), 50),
+           equal_bits_twice=twice, tiled_equal_bits=tiled_bits,
+           dropout_ms=cuda_ms(lambda: fwd(*args, **drop), 50),
            dropout_plain_ms=cuda_ms(
                lambda: K.conv_block_plain(*args, **drop), 50),
            plan=K.conv_fwd_plan(B, T, D, KS, L)._asdict(),
            query_plan=K.conv_fwd_plan(B, max_w, D, KS, L)._asdict(),
-           device_ms=device_ms, by_kernel=parts, tiled_ms=tiled_ms,
+           device_ms=device_ms, by_kernel=parts,
+           tiled_ms=cuda_ms(lambda: K.launch_conv_block_fwd_tiled(*args), 50),
            tiled_device_ms=tiled_device_ms, tiled_by_kernel=tiled_parts,
-           query_ms=cuda_ms(lambda: K.launch_conv_block_fwd(*q_args), 50),
-           query_device_ms=sum(by_kernel(
-               lambda: K.launch_conv_block_fwd(*q_args)).values()))
-    check(device_ms < tiled_device_ms, "conv_block_fwd: %g ms of device "
-          "time, not below the tiled forward's %g" % (device_ms,
-                                                      tiled_device_ms))
+           tiled_plan=K.conv_tiled_fwd_plan(B, T, D, KS, L)._asdict(),
+           query_ms=cuda_ms(lambda: fwd(*q_args), 50),
+           query_device_ms=q_device_ms,
+           query_tiled_device_ms=q_tiled_device_ms, route_serve=route,
+           query_route_serve=K.conv_route(max_w, D, KS, L))
+    check(route == ("tiled" if tiled_device_ms < device_ms else "block"),
+          "conv_route: serving at [%d, %d, %d] takes the %s forward, but the "
+          "whole-row one takes %g ms of device time and the tiled one %g"
+          % (B, T, D, route, device_ms, tiled_device_ms))
     conv_args, conv_q_args = args, q_args
 
     # 3. MHA block [B, T, D] and at the query length, one row fully masked
@@ -400,27 +446,66 @@ def kernel_phase(dev, max_w):
           % (device_ms, unfused_device_ms))
     mha_args, mha_q_args = args, q_args
 
-    # 4. context-query attention: video [B, T, D], query [B, max_w, D],
-    # ragged lengths and one padded query (every word masked)
+    # 4. context-query attention on cqa_plan at the served shape: video [B,
+    # T, D], query [B, max_w, D], ragged lengths and one padded query (every
+    # word masked); at path L's [8, 1024] (rows past whole tiles, one row
+    # with every frame masked, a padded query); and at W = 64 there, which
+    # the one-block-a-row kernel refused. Each within TOL of the plain
+    # version, equal bits on two calls, its device time (torch.profiler)
+    # and its bound at every shape it is timed at
+    def cqa_inputs(B_, T_, W_, v_lens, q_lens):
+        return [t(rng.standard_normal((B_, T_, D))),
+                t(rng.standard_normal((B_, W_, D))),
+                t(np.arange(T_)[None, :] < np.asarray(v_lens)[:, None]),
+                t(np.arange(W_)[None, :] < np.asarray(q_lens)[:, None]),
+                *[t(rng.standard_normal(D) / math.sqrt(D)) for _ in range(3)]]
+
+    def cqa_work(B_, T_, W_):
+        """FLOPs (scores, both softmaxes, v2q, Sv^T.v, Sq.A, the products)
+        and bytes (v, q, masks and weights read, the concat written)."""
+        return (B_ * (8 * T_ * W_ * D + 5 * T_ * D + 2 * W_ * D + 18 * T_ * W_),
+                4 * (B_ * T_ * D + B_ * W_ * D + B_ * T_ + B_ * W_ + 3 * D
+                     + B_ * T_ * 4 * D))
+
+    def cqa_case(a, what):
+        out = K.fused_cqa_concat(*a)
+        check(bool(torch.isfinite(out).all()),
+              "cqa_concat_fwd: non-finite output at %s" % what)
+        twice = torch.equal(out, K.fused_cqa_concat(*a))
+        check(twice, "cqa_concat_fwd: two equal calls differ at %s" % what)
+        parts = by_kernel(lambda: K.fused_cqa_concat(*a))
+        B_, T_, _ = a[0].shape
+        W_ = a[1].shape[1]
+        return {"shape": [B_, T_, W_, D],
+                "plan": K.cqa_plan(B_, T_, W_, D)._asdict(),
+                "max_abs_err": max_err(out, K.cqa_plain(*a)[0]),
+                "device_ms": sum(parts.values()), "by_kernel": parts,
+                "bound_ms": bound(*cqa_work(B_, T_, W_))[0]}
+
     W = max_w
     q_lens = list(rng.integers(1, W + 1, B - 1)) + [0]
-    args = [t(rng.standard_normal((B, T, D))), t(rng.standard_normal((B, W, D))),
-            t(np.arange(T)[None, :] < lens[:, None]),
-            t(np.arange(W)[None, :] < np.asarray(q_lens)[:, None]),
-            *[t(rng.standard_normal(D) / math.sqrt(D)) for _ in range(3)]]
-    out = K.fused_cqa_concat(*args)
-    check(bool(torch.isfinite(out).all()),
-          "cqa_concat_fwd: non-finite output on a padded query")
-    err = max_err(out, K.cqa_plain(*args)[0])
+    args = cqa_inputs(B, T, W, lens, q_lens)
+    served = cqa_case(args, "the served shape")
+    BL, TL = LONG_PATHS["L"]["batch_size"], LONG_PATHS["L"]["max_pos_len"]
+    l_vlens = [TL, 0, 70] + list(rng.integers(TL // 2, TL + 1, BL - 3))
+    l_args = cqa_inputs(BL, TL, W, l_vlens,
+                        [W, 3, 0] + list(rng.integers(1, W + 1, BL - 3)))
+    path_l = cqa_case(l_args, "path L")
+    long_q = cqa_case(cqa_inputs(
+        BL, TL, 64, l_vlens, [64, 3, 0] + list(rng.integers(1, 65, BL - 3))),
+        "W = 64 at path L")
     record("cqa_concat_fwd", "vslnet_torch/csrc/cqa.cu",
-           "vslnet_tpu/ops/pallas_kernels.py:102", err, TOL,
+           "vslnet_tpu/ops/pallas_kernels.py:102",
+           max(c["max_abs_err"] for c in (served, path_l, long_q)), TOL,
            cuda_ms(lambda: K.fused_cqa_concat(*args), 50),
-           cuda_ms(lambda: K.cqa_plain(*args), 50),
-           # scores, both softmaxes, v2q, Sv^T.v, Sq.(Sv^T.v), the products
-           B * (8 * T * W * D + 5 * T * D + 2 * W * D + 18 * T * W),
-           4 * (B * T * D + B * W * D + B * T + B * W + 3 * D
-                + B * T * 4 * D),
-           shape=[B, T, W, D])
+           cuda_ms(lambda: K.cqa_plain(*args), 50), *cqa_work(B, T, W),
+           shape=[B, T, W, D], plan=served["plan"],
+           device_ms=served["device_ms"], by_kernel=served["by_kernel"],
+           equal_bits_twice=True,
+           path_L={**path_l, "ms": cuda_ms(lambda: K.fused_cqa_concat(*l_args),
+                                           50),
+                   "plain_ms": cuda_ms(lambda: K.cqa_plain(*l_args), 5)},
+           long_query=long_q)
 
     # 5. highlight gate [B, T, D], ragged lengths
     args = [t(rng.standard_normal((B, T, D))),
@@ -436,12 +521,25 @@ def kernel_phase(dev, max_w):
         scores = K.highlight_plain(*args)[1]
         return args[0] * scores[:, :, None], scores
 
+    # also at path L's [8, 1024, D], where it runs once a served batch
+    l_args = [t(rng.standard_normal((BL, TL, D))), *args[1:3],
+              t(np.arange(TL)[None, :] < np.asarray(l_vlens)[:, None])]
+    l_err = max(max_err(a, b) for a, b in zip(
+        K.fused_highlight_gate(*l_args),
+        (l_args[0] * K.highlight_plain(*l_args)[1][:, :, None],
+         K.highlight_plain(*l_args)[1])))
     record("highlight_gate_fwd", "vslnet_torch/csrc/highlight_gate.cu",
-           "vslnet_tpu/ops/pallas_kernels.py:180", err, TOL,
+           "vslnet_tpu/ops/pallas_kernels.py:180", max(err, l_err), TOL,
            cuda_ms(lambda: K.fused_highlight_gate(*args), 100),
            cuda_ms(highlight_plain_gate, 100),
            B * T * (3 * D + 4), 4 * (2 * B * T * D + 2 * B * T + D + 1),
-           shape=[B, T, D])
+           shape=[B, T, D], path_L={
+               "shape": [BL, TL, D], "max_abs_err": l_err,
+               "ms": cuda_ms(lambda: K.fused_highlight_gate(*l_args), 100),
+               "device_ms": sum(by_kernel(
+                   lambda: K.fused_highlight_gate(*l_args)).values()),
+               "bound_ms": bound(BL * TL * (3 * D + 4), 4 * (
+                   2 * BL * TL * D + 2 * BL * TL + D + 1))[0]})
 
     # 6. span decode [B, T] of masked logits; exact indices
     mask = t(np.arange(T)[None, :] < lens[:, None])
@@ -450,11 +548,22 @@ def kernel_phase(dev, max_w):
     s, e = K.fused_span_decode(sl, el)
     s_ref, e_ref = K.span_decode_plain(sl, el)
     index_err = max(max_err(s, s_ref), max_err(e, e_ref))
+    # also at path L's [8, 1024]
+    l_mask = l_args[3]
+    sl_l = t(rng.standard_normal((BL, TL)) * 3) * l_mask + (1 - l_mask) * -1e30
+    el_l = t(rng.standard_normal((BL, TL)) * 3) * l_mask + (1 - l_mask) * -1e30
+    l_err = max(max_err(a, b) for a, b in zip(
+        K.fused_span_decode(sl_l, el_l), K.span_decode_plain(sl_l, el_l)))
     record("span_decode", "vslnet_torch/csrc/span_decode.cu",
-           "vslnet_tpu/ops/pallas_kernels.py:57", index_err, 0.0,
+           "vslnet_tpu/ops/pallas_kernels.py:57", max(index_err, l_err), 0.0,
            cuda_ms(lambda: K.fused_span_decode(sl, el), 100),
            cuda_ms(lambda: K.span_decode_plain(sl, el), 100),
-           10 * B * T, 4 * (2 * B * T + 2 * B), shape=[B, T])
+           10 * B * T, 4 * (2 * B * T + 2 * B), shape=[B, T], path_L={
+               "shape": [BL, TL], "max_abs_err": l_err,
+               "ms": cuda_ms(lambda: K.fused_span_decode(sl_l, el_l), 100),
+               "device_ms": sum(by_kernel(
+                   lambda: K.fused_span_decode(sl_l, el_l)).values()),
+               "bound_ms": bound(10 * BL * TL, 4 * (2 * BL * TL + 2 * BL))[0]})
 
     # --- the training kernels: forward and every gradient of sum(out * g)
     # against the plain version's autograd, then each kernel timed alone
@@ -495,11 +604,12 @@ def kernel_phase(dev, max_w):
     check(ms < ms_lib_fb - ms_lib_f, "lstm_recurrence_bwd: %g ms, not below "
           "cuDNN's backward %g" % (ms, ms_lib_fb - ms_lib_f))
 
-    # 9. conv block backward, at T and at max_w, drop_rate 0.2
+    # 9. conv block backward (the whole-row kernels' autograd Function), at
+    # T and at max_w, drop_rate 0.2
     def conv_pair(a, sd):
         g = t(rng.standard_normal(tuple(a[0].shape)))
         kw = {"seeds": sd, "drop_rate": DROP}
-        return autograd_pair(lambda *x: K.fused_conv_block(*x, **kw),
+        return autograd_pair(lambda *x: K.FusedConvBlock.apply(*x, sd, DROP),
                              lambda *x: K.conv_block_plain(*x, **kw),
                              a, 6, g), g
 
@@ -507,6 +617,17 @@ def kernel_phase(dev, max_w):
     seeds = seeds_for(B)
     (abs_err, err, finite), g = conv_pair(conv_args, seeds)
     check(finite and q_fin, "conv block: non-finite gradient")
+    # the T-tiled pair, which conv_route may take for training at this shape
+    # (the main path's video conv block), on the same inputs and g, and its
+    # backward's masks here
+    t_abs, t_err, t_fin = autograd_pair(
+        lambda *x: K.FusedConvBlockTiled.apply(*x, seeds, DROP),
+        lambda *x: K.conv_block_plain(*x, seeds=seeds, drop_rate=DROP),
+        conv_args, 6, g)
+    check(t_fin, "conv block, tiled pair: non-finite output or gradient")
+    t_zeros = tiled_bwd_zeros(conv_args, seeds)
+    check(all(t_zeros), "conv_block_bwd: the tiled backward's dropout zero "
+          "pattern differs")
     leaves = [a.clone().requires_grad_() for a in conv_args]
     out_p = K.conv_block_plain(*leaves, seeds=seeds, drop_rate=DROP)
     ms = cuda_ms(lambda: K.launch_conv_block_bwd(*conv_args, seeds, DROP, g),
@@ -522,8 +643,8 @@ def kernel_phase(dev, max_w):
                                                       g))
     tiled_parts = by_kernel(tiled_bwd)
 
-    # conv_route takes the whole-row kernels or the tiled ones as a pair, so
-    # a training call's device time, forward and backward, decides it
+    # a training call's route takes the whole-row kernels or the tiled ones
+    # as a pair, so their device time, forward and backward, decides it
     def block_pair():
         K.launch_conv_block_fwd(*conv_args, seeds, DROP)
         return K.launch_conv_block_bwd(*conv_args, seeds, DROP, g)
@@ -534,30 +655,34 @@ def kernel_phase(dev, max_w):
                                              seeds, DROP, g)
     pair_ms = sum(by_kernel(block_pair).values())
     tiled_pair_ms = sum(by_kernel(tiled_pair).values())
+    route = K.conv_route(T, D, KS, L, grad=True)
     gq = g[:, :max_w].contiguous()
     record("conv_block_bwd", "vslnet_torch/csrc/conv_block.cu",
-           "vslnet_tpu/ops/pallas_kernels.py:1039", max(abs_err, q_abs), TOL, ms,
+           "vslnet_tpu/ops/pallas_kernels.py:1039", max(abs_err, q_abs, t_abs),
+           TOL, ms,
            cuda_ms(lambda: torch.autograd.grad(out_p, leaves, g,
                                                retain_graph=True), 20),
            # the forward replayed, then the data and weight products
            L * 6 * B * T * D * (D + KS),
            4 * (4 * B * T * D + 2 * L * (3 * D + KS * D + D * D) + B),
-           checked_err=max(err, q_err), shape=[B, T, D], drop_rate=DROP,
-           query_T=max_w, query_checked_err=q_err,
+           checked_err=max(err, q_err, t_err), shape=[B, T, D], drop_rate=DROP,
+           query_T=max_w, query_checked_err=q_err, tiled_max_abs_err=t_abs,
+           tiled_checked_err=t_err, tiled_dropout_zero_pattern_equal=all(t_zeros),
            plan=K.conv_plan(B, T, D, KS, L)._asdict(),
            query_plan=K.conv_plan(B, max_w, D, KS, L)._asdict(),
            tiled_ms=tiled_ms, device_ms=sum(parts.values()), by_kernel=parts,
            tiled_device_ms=sum(tiled_parts.values()),
            tiled_by_kernel=tiled_parts,
            tiled_plan=K.conv_tiled_bwd_plan(B, T, D, KS, L)._asdict(),
-           route=K.conv_route(T, D, KS, L), pair_device_ms=pair_ms,
+           route_train=route, pair_device_ms=pair_ms,
            tiled_pair_device_ms=tiled_pair_ms,
+           query_route_train=K.conv_route(max_w, D, KS, L, grad=True),
            query_ms=cuda_ms(lambda: K.launch_conv_block_bwd(
                *conv_q_args, seeds, DROP, gq), 20))
-    check(K.conv_route(T, D, KS, L) == "block" and pair_ms < tiled_pair_ms,
-          "conv_route: the whole-row forward and backward take %g ms of "
-          "device time at [%d, %d, %d], not below the T-tiled pair's %g"
-          % (pair_ms, B, T, D, tiled_pair_ms))
+    check(route == ("tiled" if tiled_pair_ms < pair_ms else "block"),
+          "conv_route: training at [%d, %d, %d] takes the %s pair, but the "
+          "whole-row forward and backward take %g ms of device time and the "
+          "tiled pair %g" % (B, T, D, route, pair_ms, tiled_pair_ms))
 
     # 10. MHA block backward, at T and at max_w (one fully masked row)
     def mha_pair(a, sd):
@@ -793,11 +918,15 @@ def slice_phase(dataset, feats, splits):
         probs = [sp.get("prob", 1.0) for sp in spans]
         check(probs == sorted(probs, reverse=True), rep)
     # 4 forwards: 1 (single) + 2 (20 requests) + 1 (top_k); the top_k
-    # decode is plain torch.topk, so 3 span decodes
+    # decode is plain torch.topk, so 3 span decodes; each forward's two
+    # conv blocks (the video's T and the query's max_w) take the kernels
+    # conv_route gives a call without a gradient
     expected = {name: 0 for name in K.LAUNCHES}  # no training kernel
-    expected.update({"lstm_recurrence_fwd": 8, "conv_block_fwd": 8,
-                     "mha_block_fwd": 8, "cqa_concat_fwd": 4,
-                     "highlight_gate_fwd": 4, "span_decode": 3})
+    expected.update({"lstm_recurrence_fwd": 8, "mha_block_fwd": 8,
+                     "cqa_concat_fwd": 4, "highlight_gate_fwd": 4,
+                     "span_decode": 3})
+    for n, kind in conv_launches(cfg.max_pos_len, loc.max_w, False).items():
+        expected[n] = 4 * kind
     check(launches == expected,
           "launch counts %s, expected %s" % (launches, expected))
 
@@ -849,7 +978,25 @@ def slice_phase(dataset, feats, splits):
 
 TRAIN_KERNELS = ("lstm_recurrence_fwd_res", "lstm_recurrence_bwd",
                  "conv_block_fwd", "conv_block_bwd", "mha_block_fwd",
-                 "mha_block_bwd")
+                 "mha_block_bwd", "conv_block_fwd_tiled",
+                 "conv_block_bwd_tiled")
+
+
+def conv_launches(T, max_w, grad):
+    """{kernel: launches} of one forward's (and with grad its backward's)
+    two conv blocks, the video's T and the query's max_w, as conv_route
+    sends them (the model's 7 taps and 4 layers)."""
+    from vslnet_torch.ops import kernels as K
+
+    out = {}
+    for t in (T, max_w):
+        tiled = K.conv_route(t, 128, 7, 4, grad) == "tiled"
+        names = ["conv_block_fwd" + ("_tiled" if tiled else "")]
+        if grad:
+            names.append("conv_block_bwd" + ("_tiled" if tiled else ""))
+        for n in names:
+            out[n] = out.get(n, 0) + 1
+    return out
 
 
 def train_config(dataset, use_pallas, predictor="rnn", max_pos_len=128,
@@ -936,11 +1083,17 @@ def train_phase(dataset, feats):
     step_vs_off(tk, to, "rnn T=128")
     _, off_times = timed_steps(to, 3)
 
-    # 2. the main path: TRAIN_STEPS steps with the kernels, launches counted
+    # 2. the main path: TRAIN_STEPS steps with the kernels, launches counted;
+    # a step's two conv blocks take the pair conv_route gives a call with a
+    # gradient
     K.reset_launches()
     losses, times = timed_steps(tk, TRAIN_STEPS)
     launches = dict(K.LAUNCHES)
-    expected = {name: 2 * TRAIN_STEPS if name in TRAIN_KERNELS else 0
+    per_step = {"lstm_recurrence_fwd_res": 2, "lstm_recurrence_bwd": 2,
+                "mha_block_fwd": 2, "mha_block_bwd": 2,
+                **conv_launches(tk.configs.max_pos_len,
+                                tk.train_loader.split.word_ids.shape[1], True)}
+    expected = {name: TRAIN_STEPS * per_step.get(name, 0)
                 for name in K.LAUNCHES}
     step_ms = float(np.mean(times[2:]))
     emit({"phase": "train", "steps": TRAIN_STEPS, "losses": losses,
@@ -1160,11 +1313,12 @@ def long_kernel_rows(dev):
                 t(0.1 * rng.standard_normal((L, D, D)) / math.sqrt(D)),
                 t(np.where(rng.random((L, D)) < 0.5, -1.0, 1.0))]
 
-    f_errs, b_errs, g_errs, zeros = [], [], [], []
+    f_errs, b_errs, g_errs, zeros, path_args = [], [], [], [], {}
     for path in ("M", "L"):
         B, T = (LONG_PATHS[path][k] for k in ("batch_size", "max_pos_len"))
         check(K.conv_route(T, D, KS, L) == "tiled", "conv route at T=%d" % T)
         args, seeds = conv_inputs(B, T), seeds_for(B)
+        path_args[path] = args, seeds
         f_errs += [max_err(K.fused_conv_block(*args, *sd),
                            K.conv_block_plain(*args, *sd))
                    for sd in ((None, 0.0), (seeds, DROP))]
@@ -1183,15 +1337,38 @@ def long_kernel_rows(dev):
     shape = {"shape": [B, T, D], "path": "L", "M_shape": [
         LONG_PATHS["M"]["batch_size"], LONG_PATHS["M"]["max_pos_len"], D]}
     weights = L * (3 * D + KS * D + D * D)
+
+    def fwd_work(B_, T_):
+        return L * 2 * B_ * T_ * D * (D + KS), 4 * (2 * B_ * T_ * D + weights)
+
+    # the tiled forward on its plan at both paths: equal bits (out and xs)
+    # on two equal calls, the device time of a call's kernels
+    # (torch.profiler), events and the bound
+    by_path = {}
+    for path, (a, sd) in path_args.items():
+        B_, T_ = a[0].shape[:2]
+        first = K.launch_conv_block_fwd_tiled(*a, sd, DROP)
+        twice = all(torch.equal(x, y) for x, y in zip(
+            first, K.launch_conv_block_fwd_tiled(*a, sd, DROP)))
+        check(twice, "conv_block_fwd_tiled: two equal calls differ at path %s"
+              % path)
+        parts = by_kernel(lambda: K.launch_conv_block_fwd_tiled(*a))
+        by_path[path] = {
+            "plan": K.conv_tiled_fwd_plan(B_, T_, D, KS, L)._asdict(),
+            "ms": cuda_ms(lambda: K.launch_conv_block_fwd_tiled(*a), 20),
+            "device_ms": sum(parts.values()), "by_kernel": parts,
+            "bound_ms": bound(*fwd_work(B_, T_))[0],
+            "equal_bits_twice": twice}
     rows.append(kernel_row(
         "conv_block_fwd_tiled", "vslnet_torch/csrc/conv_block.cu",
-        tpu + "1019", max(f_errs), TOL,
-        cuda_ms(lambda: K.launch_conv_block_fwd_tiled(*args), 20),
-        cuda_ms(lambda: K.conv_block_plain(*args), 20),
-        L * 2 * B * T * D * (D + KS), 4 * (2 * B * T * D + weights),
+        tpu + "1019", max(f_errs), TOL, by_path["L"]["ms"],
+        cuda_ms(lambda: K.conv_block_plain(*args), 20), *fwd_work(B, T),
         dropout_zero_pattern_equal=all(zeros),
         dropout_ms=cuda_ms(lambda: K.launch_conv_block_fwd_tiled(
-            *args, seeds, DROP), 20), **shape))
+            *args, seeds, DROP), 20),
+        plan=by_path["L"]["plan"], device_ms=by_path["L"]["device_ms"],
+        by_kernel=by_path["L"]["by_kernel"], equal_bits_twice=True,
+        M=by_path["M"], **shape))
     _, xs = K.launch_conv_block_fwd_tiled(*args, seeds, DROP)
     leaves = [a.clone().requires_grad_() for a in args]
     out_p = K.conv_block_plain(*leaves, seeds, DROP)
@@ -1203,22 +1380,7 @@ def long_kernel_rows(dev):
     # no atomics: two equal calls, equal bits
     twice = all(torch.equal(a, b) for a, b in zip(tiled_bwd(), tiled_bwd()))
     check(twice, "conv_block_bwd_tiled: two equal calls differ")
-    # the backward's masks: for one layer and a g that is 1 on frame t of
-    # row 0 only, dbp = keep(t, o) [p(t, o) > 0] / (1 - rate) is 0 exactly
-    # where the plain version's autograd has it 0 (frames at tile edges)
-    one = [args[0]] + [w[:1].contiguous() for w in args[1:]]
-    _, xs1 = K.launch_conv_block_fwd_tiled(*one, seeds, DROP)
-    frames = K.conv_tiled_bwd_plan(B, T, D, KS, 1).frames
-    bwd_zeros = []
-    for t_ in (0, frames - 1, frames, T // 2, T - 1):
-        g1 = torch.zeros_like(g)
-        g1[0, t_] = 1.0
-        dbp = K.launch_conv_block_bwd_tiled(one[0], xs1, *one[1:], seeds,
-                                            DROP, g1)[5]
-        one_l = [a.clone().requires_grad_() for a in one]
-        ref = torch.autograd.grad(K.conv_block_plain(*one_l, seeds, DROP),
-                                  one_l[5], g1)[0]
-        bwd_zeros.append(torch.equal(dbp == 0, ref == 0))
+    bwd_zeros = tiled_bwd_zeros(args, seeds)
     check(all(bwd_zeros), "conv_block_bwd_tiled: the dropout zero pattern "
           "differs")
     parts = by_kernel(tiled_bwd)
@@ -1406,7 +1568,13 @@ def main():
         row["launches_train_step"] = train_launches[name] / TRAIN_STEPS
         check(row["launches"] > 0,
               "%s never launched on its main path" % name)
-    rows += long_t_phase(dev)
+    long_rows = long_t_phase(dev)
+    for row in long_rows:
+        # the tiled conv kernels also run on the main path where conv_route
+        # sends its rows
+        row["launches_main"] = {"serve": launches[row["name"]],
+                                "train": train_launches[row["name"]]}
+    rows += long_rows
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

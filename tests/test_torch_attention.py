@@ -113,16 +113,30 @@ def test_mha_route(T, D, heads, route):
         assert kernels.attention_route(T, D // heads) == route
 
 
-@pytest.mark.parametrize("T,route", [(12, "block"), (128, "block"),
-                                     (145, "block"), (146, "tiled"),
+@pytest.mark.parametrize("T,route", [(12, "block"), (128, "tiled"),
+                                     (145, "tiled"), (146, "tiled"),
                                      (192, "tiled"), (1024, "tiled")])
 def test_conv_route(T, route):
+    """The conv block's route on the card when serving (no gradient): the
+    whole-row forward below T = 24, where it beats the tiled forward, the
+    tiled one above (measured at D = 128, B = 1 to 16: at [16, 128, 128]
+    0.029 ms of device time against 0.046); training takes the pair that
+    wins, the whole-row kernels below T = 48."""
     assert kernels.conv_route(T, 128, 7, 4) == route
+    for t, r in ((12, "block"), (23, "block"), (24, "tiled"), (47, "tiled")):
+        assert kernels.conv_route(t, 128, 7, 4) == r
+    for t, r in ((12, "block"), (24, "block"), (47, "block"), (48, "tiled"),
+                 (128, "tiled")):
+        assert kernels.conv_route(t, 128, 7, 4, grad=True) == r
 
 
 # Each route's answer, one letter a T of ROUTE_TS, as the port gave them
 # before the MHA block backward and the conv block forward became cluster
-# kernels; their new launch plans must leave every answer as it was
+# kernels; their new launch plans must leave every answer as it was. The
+# conv route's changed once the tiled forward beat the whole-row one from
+# T = 24 (serving; training from 48). Those crossovers were measured on the
+# card at D = 128 only: the answers at D = 16 and 160 follow from the same
+# constants and were not measured at those widths
 ROUTE_TS = [1, 12, 64, 128, 145, 146, 192, 209, 210, 224, 225, 1024]
 MHA_ROUTES = {(16, 2): "bbbbbbbbbfff", (64, 8): "bbbbbbbbbfff",
               (128, 2): "bbbbffffffff", (128, 4): "bbbbbwffffff",
@@ -130,7 +144,7 @@ MHA_ROUTES = {(16, 2): "bbbbbbbbbfff", (64, 8): "bbbbbbbbbfff",
               (1024, 16): "bbwwffffffff"}
 ATTENTION_ROUTES = {8: "wwwwwwwwwfff", 16: "wwwwwwwwffff", 32: "wwwwwwffffff",
                     64: "wwwwffffffff"}
-CONV_ROUTES = {16: "bbbbbbbbbbbb", 128: "bbbbbttttttt", 160: "bbbttttttttt",
+CONV_ROUTES = {16: "bbtttttttttt", 128: "bbtttttttttt", 160: "bbtttttttttt",
                256: "tttttttttttt"}
 
 

@@ -1,10 +1,12 @@
 """The conv block's launch plans (ops/kernels.py conv_plan for the
-backward, conv_fwd_plan for the forward), on the CPU: for the served and
-trained lengths and both widths the tests use, a plan's CTAs cover every
-frame of every row exactly once, each CTA's depthwise halo, cut to [0,
-T), lies in CTAs of its own cluster, and the plan fits a block's shared
-memory and a cluster of at most 8. Shapes the kernels cannot take raise. How the kernel indexes within those ranges is
-held to the plain version by the card tests (tests/test_torch_cuda.py)."""
+backward, conv_fwd_plan for the forward, conv_tiled_bwd_plan and
+conv_tiled_fwd_plan for the T-tiled kernels), on the CPU: for the served
+and trained lengths and the widths the tests use, a plan's CTAs cover
+every frame of every row exactly once, each cluster CTA's depthwise halo,
+cut to [0, T), lies in CTAs of its own cluster, and the plan fits a
+block's shared memory and a cluster of at most 8. Shapes the kernels
+cannot take raise. How the kernels index within those ranges is held to
+the plain version by the card tests (tests/test_torch_cuda.py)."""
 import pytest
 
 from vslnet_torch.bench import conv_plans
@@ -112,14 +114,17 @@ def test_conv_plan_at_the_main_path_and_the_query_stream():
     assert kernels._conv_smem_bytes(25, 128, K, L) > kernels.MAX_SMEM_BYTES
 
 
-@pytest.mark.parametrize("T,D", [(128, 16), (145, 128), (12, 128), (1, 16),
-                                 (88, 160)])
+@pytest.mark.parametrize("T,D", [(47, 16), (40, 128), (12, 128), (1, 16),
+                                 (23, 160)])
 def test_conv_route_block_means_the_plan_fits(T, D):
     """conv_route sends a shape to the whole-row kernels only where the
-    backward's plan takes it, and above it to the tiled ones."""
-    assert kernels.conv_route(T, D, K, L) == "block"
+    backward's plan takes it (and the row is short: below 24 frames when
+    serving, 48 when training), and above it to the tiled ones."""
+    assert kernels.conv_route(T, D, K, L, grad=True) == "block"
+    assert kernels.conv_route(T, D, K, L) == (
+        "block" if T < kernels.CONV_TILED_FWD_T else "tiled")
     kernels.conv_plan(16, T, D, K, L)
-    assert kernels.conv_route(T + 1200, D, K, L) == "tiled"
+    assert kernels.conv_route(T + 1200, D, K, L, grad=True) == "tiled"
 
 
 @pytest.mark.parametrize("B,T,D,Kk", [(0, 128, 128, 7), (16, 0, 128, 7),
@@ -226,21 +231,101 @@ def test_conv_tiled_bwd_plan_refuses(B, T, D, Kk, Ll):
 
 @pytest.mark.parametrize("D", [128, 512, 800, 1024])
 def test_conv_block_tiled_smem_bytes_is_the_forwards(D):
-    """The tiled forward's shared-memory gate is its own tile's (a halo of
-    LN rows and the depthwise output over 32 frames), no longer the old
-    backward launches'; its wrapper also asks conv_tiled_bwd_plan, so a
-    shape the forward takes is one the backward takes: D = 1024 neither."""
-    fwd = kernels.conv_block_tiled_smem_bytes(D, K)
-    assert fwd == (2 * kernels.CONV_TILE + K - 1) * D * 4
-    fits = fwd <= kernels.MAX_SMEM_BYTES
-    assert fits == (D <= 800)
-    if fits:
+    """The tiled forward's shared-memory gate is its own plan's
+    (TiledFwdLayout: the x window over a tile and its depthwise reach, the
+    depthwise output, wp whole or in slices, the taps); its wrapper also
+    asks conv_tiled_bwd_plan, so a shape the forward takes is one the
+    backward takes: D = 1024 not."""
+    plan = kernels.conv_tiled_fwd_plan(2, 300, D, K, L)
+    assert plan.smem == kernels._conv_tiled_fwd_smem_bytes(
+        plan.frames, D, K, plan.slice) <= kernels.MAX_SMEM_BYTES
+    if D <= 800:
         kernels.conv_tiled_bwd_plan(2, 300, D, K, L)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            kernels.conv_tiled_bwd_plan(2, 300, D, K, L)
+
+
+# --- the T-tiled forward's plan (conv_tiled_fwd_plan) ------------------------
+
+
+@pytest.mark.parametrize("Kk", [3, 5, 7])
+@pytest.mark.parametrize("D", [16, 128, 512])
+@pytest.mark.parametrize("T", [1, 7, 12, 32, 64, 128, 146, 192, 1000, 1024])
+def test_conv_tiled_fwd_plan_covers_every_frame_once(T, D, Kk):
+    """Every length the card tests and the paths run, at the model's 7 taps
+    and at 3 and 5: the tiles cover every frame of a row once, none empty;
+    the plan fits a block (its bytes are TiledFwdLayout's), its weight
+    slices divide D, and its product tile is the most rows whose items
+    still number a quarter of the CTA's threads."""
+    for B in (1, 4, 8, 16, 33):
+        plan = kernels.conv_tiled_fwd_plan(B, T, D, Kk, L)
+        assert plan.smem <= kernels.MAX_SMEM_BYTES, plan
+        assert plan.smem == kernels._conv_tiled_fwd_smem_bytes(
+            plan.frames, D, Kk, plan.slice)
+        assert plan.frames in {min(T, f) for f in kernels.CONV_TILED_FRAMES}
+        assert plan.tiles == -(-T // plan.frames) and plan.ctas == B * plan.tiles
+        frames = [t for r in range(plan.tiles)
+                  for t in range(r * plan.frames, min(T, (r + 1) * plan.frames))]
+        assert frames == list(range(T))
+        assert (plan.tiles - 1) * plan.frames < T
+        assert D % plan.slice == 0 and plan.slice % 4 == 0, plan
+        full = [r for r in kernels.CONV_TILED_FWD_ROWS
+                if -(-plan.frames // r) * (D // 4)
+                >= kernels.CONV_TILED_THREADS // 4]
+        assert plan.product_rows == (full[-1] if full else
+                                     kernels.CONV_TILED_FWD_ROWS[0]), plan
+
+
+@pytest.mark.parametrize("B,T,Kk,plan", [
+    (8, 1024, 7, (64, 16, 128, 137728, 128, 4)),
+    (16, 192, 7, (24, 8, 128, 96768, 128, 4)),
+    (16, 128, 7, (16, 8, 128, 88576, 128, 4)),
+    (4, 1000, 7, (32, 32, 128, 104960, 128, 4)),
+    (4, 146, 7, (8, 19, 128, 80384, 76, 2)),
+    (8, 1024, 3, (64, 16, 128, 133632, 128, 4)),
+    (8, 1024, 5, (64, 16, 128, 135680, 128, 4))])
+def test_conv_tiled_fwd_plan_at_the_paths(B, T, Kk, plan):
+    """Path L's [8, 1024, 128]: 128 CTAs of 64 frames, one wave, wp whole
+    in 138 KB, products of 4 rows an item (64 rows in 512 items, one
+    round); path M's [16, 192, 128]: 128 of 24; the main path's shape 128
+    of 16; T = 1000 at B = 4, a ragged last tile of 8 frames; T = 146 at B
+    = 4, 76 CTAs of 8 frames (the last 2) with 2-row items; 3 and 5 taps at path L."""
+    got = kernels.conv_tiled_fwd_plan(B, T, 128, Kk, L)
+    assert tuple(got) == plan
+    assert T - (got.tiles - 1) * got.frames == {1000: 8, 146: 2}.get(T, got.frames)
+
+
+def test_conv_tiled_fwd_plan_slices_wide_rows():
+    """Where wp does not fit beside a tile, it streams in the largest slices
+    of its rows that do, with a buffer of the product's sums between them:
+    D = 512 in 32-row slices at 8 frames a tile, D = 800 in 16."""
+    plan = kernels.conv_tiled_fwd_plan(2, 300, 512, K, L)
+    assert (plan.frames, plan.slice) == (8, 32)
+    assert kernels.conv_tiled_fwd_plan(2, 300, 800, K, L).slice == 16
+    assert kernels.conv_tiled_fwd_plan(2, 300, 128, K, L).slice == 128
+
+
+@pytest.mark.parametrize("B,T,D,Kk,Ll", [(0, 1024, 128, 7, 4),
+                                         (8, 0, 128, 7, 4),
+                                         (8, 1024, 30, 7, 4),
+                                         (8, 1024, 128, 0, 4),
+                                         (8, 1024, 128, 7, 0),
+                                         (8, 1024, 2, 7, 4),
+                                         (8, 1024, 1296, 7, 4)])
+def test_conv_tiled_fwd_plan_refuses(B, T, D, Kk, Ll):
+    """Bad shapes, and a D whose tile of 8 frames needs more shared memory
+    than a block has even with wp in slices of 4 rows (D = 1296: 233,280
+    bytes)."""
+    with pytest.raises(ValueError, match="conv_tiled_fwd_plan"):
+        kernels.conv_tiled_fwd_plan(B, T, D, Kk, Ll)
+    assert kernels._conv_tiled_fwd_smem_bytes(8, 1296, 7, 4) == 233280
 
 
 def test_conv_tiled_bench_copies_match_the_kernel():
     """vslnet_torch/bench/conv_plans.py --tiled times the plans of
-    tiled_bwd_plans (conv_tiled_bwd_plan's among them) and builds copies of
+    tiled_bwd_plans and tiled_fwd_plans (the plans' own among them: every
+    frame count, and for the forward each product tile) and builds copies of
     csrc/conv_block.cu: with another thread count, whose constant it finds
     once in the shipped kernel, and with a clock stamp at each barrier and
     phase comment of the tiled kernel, each keyed by a line of the shipped
@@ -248,6 +333,10 @@ def test_conv_tiled_bench_copies_match_the_kernel():
     for B, T in ((8, 1024), (16, 192), (16, 128)):
         plans = conv_plans.tiled_bwd_plans(B, T, 128, K)
         assert kernels.conv_tiled_bwd_plan(B, T, 128, K, L) in plans
+        fwd = conv_plans.tiled_fwd_plans(B, T, 128, K)
+        assert kernels.conv_tiled_fwd_plan(B, T, 128, K, L) in fwd
+        assert len(fwd) == len(set(fwd)) == 2 * len(
+            {min(T, f) for f in kernels.CONV_TILED_FRAMES})
     src = (kernels.CSRC / "conv_block.cu").read_text()
     assert "constexpr int kTiledThreads = %d;" % kernels.CONV_TILED_THREADS in src
     assert conv_plans.TILED_THREADS[0] == kernels.CONV_TILED_THREADS
@@ -261,3 +350,12 @@ def test_conv_tiled_bench_copies_match_the_kernel():
     assert all("__syncthreads();" in lines[n - 1] or
                lines[n - 1].startswith("  // ") for n in stamped)
     assert 'extern "C" int tprof_conv_block_bwd_tiled' in prof
+    # the forward's stamps: its barriers, its phase comments and its last
+    # statement (the product's epilogue)
+    prof, stamped = conv_plans.instrumented_tiled(src, "fwd")
+    assert stamped == sorted(set(stamped)) and len(stamped) >= 5
+    assert prof.count("+= now - plast") == len(stamped)
+    assert all("__syncthreads();" in lines[n - 1] or
+               lines[n - 1].startswith("  // ") for n in stamped[:-1])
+    assert lines[stamped[-1]] == "}" and "conv_layer_fwd_tiled_kernel(" in "\n".join(
+        lines[stamped[0] - 30:stamped[0]])

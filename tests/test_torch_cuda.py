@@ -203,6 +203,35 @@ def test_cuda_cqa_concat_matches_plain(cuda, B, T, W, D):
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
 
 
+# CQA on cqa_plan beyond the served shape: path L's [8, 1024] with W = 12
+# (16 CTAs of 64 frames a row) and 64 words; a ragged last tile (T = 1000:
+# 33 CTAs of 31 frames, the last 8); W = 200 at T = 128, which the
+# one-block-a-row kernel refused (64 CTAs of 2 frames). Row lengths put
+# whole tiles past a row's end, one row has every frame masked and one
+# query every word (a padded query).
+CQA_LONG = {(8, 1024, 12, 128): (16, 64), (8, 1024, 64, 128): (16, 64),
+            (4, 1000, 40, 128): (33, 31), (2, 128, 200, 128): (64, 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,W,D", list(CQA_LONG))
+def test_cuda_cqa_concat_long_rows_and_queries(cuda, B, T, W, D):
+    """Within 1e-4 of the plain version with masked tiles, a masked row
+    and a padded query; two calls give equal bits."""
+    rng = np.random.default_rng(31)
+    plan = kernels.cqa_plan(B, T, W, D)
+    assert (plan.n, plan.frames) == CQA_LONG[B, T, W, D]
+    v_lens = [T, 0, 70] + list(rng.integers(1, T + 1, size=max(0, B - 3)))
+    q_lens = [W, 3, 0] + list(rng.integers(1, W + 1, size=max(0, B - 3)))
+    args = [_t(a).to(cuda) for a in _cqa_inputs(
+        rng, B, T, W, D, v_lens[:B], q_lens[:B])]
+    out, ref = _cuda_pair(kernels.fused_cqa_concat,
+                          lambda *a: kernels.cqa_plain(*a)[0], args)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    assert torch.equal(kernels.fused_cqa_concat(*args), out)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,D", [(16, 128, 128), (3, 10, 16)])
 def test_cuda_highlight_gate_matches_plain(cuda, B, T, D):
@@ -603,8 +632,10 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                                            [300, 3])]
     with pytest.raises(ValueError, match="head dim"):
         kernels.fused_mha(q, k, v, mask, 2)
-    cqa = [_t(a).to(cuda) for a in _cqa_inputs(rng, 2, 128, 200, 128,
-                                                [128, 3], [200, 5])]
+    # cqa_plan takes W up to 203 words at T = 1024, D = 128 (64 CTAs of 16
+    # frames a row); 210 needs more shared memory than a block has
+    cqa = [_t(a).to(cuda) for a in _cqa_inputs(rng, 2, 1024, 210, 128,
+                                                [1024, 3], [210, 5])]
     with pytest.raises(ValueError, match="shared memory"):
         kernels.fused_cqa_concat(*cqa)
 
@@ -718,6 +749,40 @@ def test_cuda_conv_block_tiled_matches_plain(cuda, T, rate):
             # the same arithmetic in the same order as the whole-row kernel
             assert torch.equal(kernels.FusedConvBlockTiled.apply(
                 *args, seeds, rate), whole)
+
+
+# The tiled forward's plan (conv_tiled_fwd_plan: frames a tile, tiles,
+# product rows) at [4, T, 128] and path M's and L's batches.
+CONV_TILED_FWD_PLANS = {(4, 146): (8, 19, 2), (16, 192): (24, 8, 4),
+                        (4, 1000): (32, 32, 4), (8, 1024): (64, 16, 4),
+                        (16, 128): (16, 8, 4), (4, 64): (8, 8, 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", list(CONV_TILED_FWD_PLANS))
+def test_cuda_conv_block_fwd_tiled_bits(cuda, B, T):
+    """The tiled forward on its plan, at drop_rate 0 and 0.2: equal bits on
+    two equal calls, the same bits on every frame count and product tile
+    vslnet_torch/bench/conv_plans.py --tiled times (each output is the
+    same chain of sums), and at T <= 145 the whole-row forward's bits."""
+    from vslnet_torch.bench import conv_plans
+
+    rng = np.random.default_rng(32)
+    D = 128
+    plan = kernels.conv_tiled_fwd_plan(B, T, D, 7, 4)
+    assert (plan.frames, plan.tiles, plan.product_rows) == \
+        CONV_TILED_FWD_PLANS[B, T]
+    args = [_t(a).to(cuda) for a in _conv_inputs(rng, B, T, D)]
+    seeds = _t(_seeds(rng, B)).to(cuda)
+    for sd in ((None, 0.0), (seeds, 0.2)):
+        out, xs = kernels.launch_conv_block_fwd_tiled(*args, *sd)
+        again = kernels.launch_conv_block_fwd_tiled(*args, *sd)
+        assert torch.equal(out, again[0]) and torch.equal(xs, again[1])
+        for other in conv_plans.tiled_fwd_plans(B, T, D, 7):
+            assert torch.equal(conv_plans.tiled_fwd_runner(
+                args, *sd, other)()[0], out), other
+        if T <= 145:
+            assert torch.equal(kernels.launch_conv_block_fwd(*args, *sd), out)
 
 
 @pytest.mark.cuda

@@ -34,9 +34,18 @@ shipped kernel carries no instrumentation.
 
     python3 -m vslnet_torch.bench.conv_plans --tiled [--by-kernel]
 
-The T-tiled backward (one launch a layer on conv_tiled_bwd_plan) at path
-L's [8, 1024, 128], path M's [16, 192, 128] and the main path's [16, 128,
-128], drop_rate 0.2: `launch_conv_block_bwd_tiled`'s device time by kernel
+The T-tiled forward and backward (one launch a layer on
+conv_tiled_fwd_plan and conv_tiled_bwd_plan) at path L's [8, 1024, 128],
+path M's [16, 192, 128] and the main path's [16, 128, 128]. The forward
+at drop_rate 0 and 0.2: `launch_conv_block_fwd_tiled`'s device time by
+kernel (torch.profiler) and the call's time (CUDA events), beside the
+whole-row forward's at T = 128; then every plan of `tiled_fwd_plans` (each
+frame count of CONV_TILED_FRAMES with each product tile) through the
+kernel library (`tiled_fwd_runner`): device time, events and whether its
+output is the default plan's bit for bit, and the cycles a call between
+its barriers and phases (thread 0 of tile 1 of row 0, summed over the
+layers) from a stamped copy. The backward at drop_rate 0.2:
+`launch_conv_block_bwd_tiled`'s device time by kernel
 (torch.profiler) and the call's time (CUDA events), beside the whole-row
 backward's at T = 128; then every plan of `tiled_bwd_plans` (each frame
 count of CONV_TILED_FRAMES with its weight slice) through the kernel
@@ -44,6 +53,14 @@ library (`tiled_bwd_runner`): device time, events, and the largest
 difference from the default plan's gradients. With --by-kernel only the
 wrapper's rows, which an older tree of the port also runs (put it on
 PYTHONPATH), so that a change's breakdown can be set beside its parent's.
+
+    python3 -m vslnet_torch.bench.conv_plans --route
+
+Where conv_route should send a shape: at B = 16, 8, 4 and 1 rows and
+T = 12 to 145 (where the whole-row kernels fit), D = 128, the device time
+(torch.profiler) of the whole-row and the tiled forward at drop_rate 0
+(serving) and of each pair, forward and backward, at 0.2 (training),
+beside what conv_route answers for each.
 """
 import ctypes
 import json
@@ -92,6 +109,48 @@ def fwd_runner(args, seeds, rate, plan):
                   dw.data_ptr(), wp.data_ptr(), bp.data_ptr(), sp, thresh, scale,
                   out.data_ptr(), B, T, D, L, k, plan.n, plan.frames)
         return out
+    return run
+
+
+def tiled_fwd_plans(B, T, D, k):
+    """The tiled forward's plans this script times at [B, T, D] and k taps:
+    each frame count of CONV_TILED_FRAMES (cut to T) with its weight slice
+    and each product tile of CONV_TILED_FWD_ROWS, where one fits, as
+    conv_tiled_fwd_plan builds them."""
+    plans = []
+    for frames in sorted({min(T, f) for f in K.CONV_TILED_FRAMES}):
+        sk = K._conv_tiled_fwd_slice(frames, D, k)
+        if sk is not None:
+            tiles = -(-T // frames)
+            for rows in K.CONV_TILED_FWD_ROWS:
+                plans.append(K.ConvTiledFwdPlan(
+                    frames, tiles, sk, K._conv_tiled_fwd_smem_bytes(frames, D, k, sk),
+                    B * tiles, rows))
+    return plans
+
+
+def tiled_fwd_runner(args, seeds, rate, plan, fn=None):
+    """A call of the tiled forward on `plan` through fn (an entry point of
+    vsl_conv_block_fwd_tiled's signature; the kernel library's by default),
+    at args = (x, gam, beta, dw, wp, bp) (16-byte aligned) and per-row
+    seeds: returns (out, xs)."""
+    import torch
+
+    x, gam, beta, dw, wp, bp = args
+    (B, T, D), (L, k, _) = x.shape, dw.shape
+    sp, thresh, scale = K._dropout_args("conv_plans", seeds, rate, B)
+    out = torch.empty_like(x)
+    xs = x.new_empty(max(L - 1, 1), B, T, D)
+    fn = fn or K._library().vsl_conv_block_fwd_tiled
+
+    def run():
+        code = fn(x.data_ptr(), gam.data_ptr(), beta.data_ptr(), dw.data_ptr(),
+                  wp.data_ptr(), bp.data_ptr(), sp, thresh, scale, xs.data_ptr(),
+                  out.data_ptr(), B, T, D, L, k, plan.frames, plan.slice, plan.product_rows,
+                  torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError("conv_block_fwd_tiled launch failed: %d" % code)
+        return out, xs
     return run
 
 
@@ -161,14 +220,15 @@ def with_tiled_threads(src, threads):
     return src.replace(line % TILED_THREADS[0], line % threads)
 
 
-def instrumented_tiled(src):
+def instrumented_tiled(src, kernel="bwd"):
     """(csrc/conv_block.cu with a clock stamp, thread 0 of the CTA of tile 1
-    of row 0, at each block barrier of conv_layer_bwd_tiled_kernel and at the
-    first line of each comment that opens a phase, its entry points renamed
-    tprof_, the conv_block.cu line of each stamp)."""
+    of row 0, at each block barrier of conv_layer_<kernel>_tiled_kernel and
+    at the first line of each comment that opens a phase, and for the
+    forward after its last statement, its entry points renamed tprof_, the
+    conv_block.cu line of each stamp)."""
     lines = src.split("\n")
     orig = list(lines)
-    head = "conv_layer_bwd_tiled_kernel(const float* __restrict__ xin"
+    head = "conv_layer_%s_tiled_kernel(const float* __restrict__ xin" % kernel
     first = next(i for i, s in enumerate(lines) if s.startswith(head))
     last = lines.index("}", first)
     stamp = (" { if (threadIdx.x == 0 && blockIdx.x == 1 && blockIdx.y == 0) { long long "
@@ -177,7 +237,7 @@ def instrumented_tiled(src):
     for i in range(first, last):
         code = lines[i].split("//")[0]
         opens = orig[i].startswith("  // ") and not orig[i - 1].startswith("  //")
-        if "__syncthreads();" in code or opens:
+        if "__syncthreads();" in code or opens or (kernel == "fwd" and i == last - 1):
             lines[i] = code.rstrip() + stamp % len(at)
             at.append(i + 1)
     body_open = next(i for i in range(first, last) if lines[i].endswith(") {"))
@@ -192,6 +252,22 @@ extern "C" int tprof_read(unsigned long long* h) {
   return err ? err : (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));
 }
 ''', at
+
+
+def stamp_cycles(run, read, stamped, reps=5):
+    """{conv_block.cu:line: cycles a call} of a stamped copy's run, read by
+    its tprof_read, over reps calls after one."""
+    import torch
+
+    stamps = (ctypes.c_ulonglong * 64)()
+    run()
+    torch.cuda.synchronize()
+    read(stamps)
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    read(stamps)
+    return {"conv_block.cu:%d" % line: stamps[k] / reps for k, line in enumerate(stamped)}
 
 
 def tiled_main(argv):
@@ -210,10 +286,16 @@ def tiled_main(argv):
 
         src = (K.CSRC / "conv_block.cu").read_text()
         prof_src, stamped = instrumented_tiled(src)
+        fwd_prof_src, fwd_stamped = instrumented_tiled(src, "fwd")
         tags = {n: "tiled%d" % n for n in TILED_THREADS[1:]}
-        libs = build_copies({"tiled_prof": prof_src,
+        libs = build_copies({"tiled_prof": prof_src, "tiled_fwd_prof": fwd_prof_src,
                              **{tag: renamed(with_tiled_threads(src, n), tag)
                                 for n, tag in tags.items()}})
+        fwd_prof = libs["tiled_fwd_prof"]
+        fwd_prof.tprof_conv_block_fwd_tiled.argtypes = K._SIGNATURES["vsl_conv_block_fwd_tiled"]
+        fwd_prof.tprof_conv_block_fwd_tiled.restype = ctypes.c_int
+        fwd_prof.tprof_read.argtypes = [ctypes.c_void_p]
+        fwd_prof.tprof_read.restype = ctypes.c_int
         thread_fns = {n: getattr(libs[tag], tag + "_conv_block_bwd_tiled")
                       for n, tag in tags.items()}
         prof = libs["tiled_prof"]
@@ -237,6 +319,39 @@ def tiled_main(argv):
                 t(np.where(rng.random((L, D)) < 0.5, -1.0, 1.0))]
         seeds = t(rng.integers(0, 1 << 23, (B, 1)))
         g = t(rng.standard_normal((B, T, D)))
+        # the forward: the wrapper's call by kernel (at T = 128 beside the
+        # whole-row forward's), then every plan of tiled_fwd_plans
+        for rate in (0.0, 0.2):
+            def fwd():
+                return K.launch_conv_block_fwd_tiled(*args, seeds, rate)
+            parts = by_kernel(fwd)
+            row = {"call_ms": cuda_ms(fwd), "device_ms": sum(parts.values()),
+                   "by_kernel": parts}
+            if T == 128:
+                def whole():
+                    return K.launch_conv_block_fwd(*args, seeds, rate)
+                whole_parts = by_kernel(whole)
+                row.update(whole_row_ms=cuda_ms(whole),
+                           whole_row_device_ms=sum(whole_parts.values()),
+                           whole_row_by_kernel=whole_parts)
+            emit(kernel="tiled forward", fwd_drop_rate=rate, **row)
+            if "--by-kernel" in argv:
+                continue
+            default = K.conv_tiled_fwd_plan(B, T, D, KS, L)
+            ref = fwd()[0].clone()
+            for plan in tiled_fwd_plans(B, T, D, KS):
+                run = tiled_fwd_runner(args, seeds, rate, plan)
+                parts = by_kernel(run)
+                emit(kernel="tiled forward", fwd_drop_rate=rate, plan=plan._asdict(),
+                     default=plan == default, ms=cuda_ms(run),
+                     device_ms=sum(parts.values()),
+                     equal_to_default=bool(torch.equal(run()[0], ref)))
+            run = tiled_fwd_runner(args, seeds, rate, default,
+                                   fn=fwd_prof.tprof_conv_block_fwd_tiled)
+            emit(kernel="tiled forward", fwd_drop_rate=rate, plan=default._asdict(),
+                 cta="tile 1 of row 0",
+                 cycles_to_each_stamp_over_the_layers=stamp_cycles(
+                     run, fwd_prof.tprof_read, fwd_stamped))
         _, xs = K.launch_conv_block_fwd_tiled(*args, seeds, 0.2)
 
         def call():
@@ -275,16 +390,7 @@ def tiled_main(argv):
                 timed(tiled_bwd_runner(args, xs, seeds, 0.2, g, plan, fn=fn),
                       plan=plan._asdict(), threads=n)
         run = tiled_bwd_runner(args, xs, seeds, 0.2, g, default, fn=prof.tprof_conv_block_bwd_tiled)
-        run()
-        torch.cuda.synchronize()
-        stamps = (ctypes.c_ulonglong * 64)()
-        prof.tprof_read(stamps)
-        reps = 5
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
-        prof.tprof_read(stamps)
-        cycles = {"conv_block.cu:%d" % line: stamps[k] / reps for k, line in enumerate(stamped)}
+        cycles = stamp_cycles(run, prof.tprof_read, stamped)
         emit(kernel="tiled backward", plan=default._asdict(), cta="tile 1 of row 0",
              cycles_to_each_stamp_over_the_layers=cycles, cycles_total=sum(cycles.values()))
     return 0
@@ -357,6 +463,49 @@ extern "C" int prof_clusters(int N, int smem, int fwd_frames) {
 ''', at
 
 
+ROUTE_BS = (16, 8, 4, 1)
+ROUTE_TS = (12, 24, 32, 48, 64, 96, 128, 145)
+
+
+def route_main():
+    """The --route rows (module docstring)."""
+    import torch
+
+    smi = card()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    for B in ROUTE_BS:
+        for T in ROUTE_TS:
+            args = [t(rng.standard_normal((B, T, D))), t(1 + 0.1 * rng.standard_normal((L, D))),
+                    t(0.1 * rng.standard_normal((L, D))),
+                    t(rng.standard_normal((L, KS, D)) / math.sqrt(KS)),
+                    t(0.1 * rng.standard_normal((L, D, D)) / math.sqrt(D)),
+                    t(np.where(rng.random((L, D)) < 0.5, -1.0, 1.0))]
+            seeds = t(rng.integers(0, 1 << 23, (B, 1)))
+            g = t(rng.standard_normal((B, T, D)))
+
+            def block_pair():
+                K.launch_conv_block_fwd(*args, seeds, 0.2)
+                return K.launch_conv_block_bwd(*args, seeds, 0.2, g)
+
+            def tiled_pair():
+                _, xs = K.launch_conv_block_fwd_tiled(*args, seeds, 0.2)
+                return K.launch_conv_block_bwd_tiled(args[0], xs, *args[1:], seeds, 0.2, g)
+            ms = {name: sum(by_kernel(fn).values()) for name, fn in (
+                ("block_fwd", lambda: K.launch_conv_block_fwd(*args)),
+                ("tiled_fwd", lambda: K.launch_conv_block_fwd_tiled(*args)),
+                ("block_pair", block_pair), ("tiled_pair", tiled_pair))}
+            print(json.dumps({"bench": "conv_plans", "card": smi, "shape": [B, T, D],
+                              "device_ms": ms, "route_serve": K.conv_route(T, D, KS, L),
+                              "route_train": K.conv_route(T, D, KS, L, grad=True)}),
+                  flush=True)
+    return 0
+
+
 def main(argv):
     import torch
 
@@ -366,6 +515,8 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     if "--tiled" in argv:
         return tiled_main(argv)
+    if "--route" in argv:
+        return route_main()
     smi = card()
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)

@@ -163,45 +163,6 @@ __device__ void ln_backward_rows(const float* gn, const float* xh, const float* 
   }
 }
 
-// acc(t, o) = sum_k A[t, k] * W[k, o] for rows t < T and columns o in
-// [c0, c1), handed to epi(t, o, acc). A [T, K] lies in shared or global
-// memory, 16-byte aligned, with K % 4 == 0; W is row-major in global memory
-// with leading dim ldw.
-// A work item is one column and kRows consecutive rows: the lanes of a warp
-// take neighbouring columns, so each W load is coalesced and each A load is
-// one broadcast float4, and one W value feeds kRows multiply-adds.
-template <int kRows, typename Epi>
-__device__ void gemm_rows(const float* A, int T, int K, const float* __restrict__ W, int ldw,
-                          int c0, int c1, Epi epi) {
-  const int ncol = c1 - c0;
-  const int items = ncol * ((T + kRows - 1) / kRows);
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int o = c0 + it % ncol;
-    const int t0 = (it / ncol) * kRows;
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int k = 0; k < K; k += 4) {
-      const float w0 = __ldg(W + (size_t)(k + 0) * ldw + o);
-      const float w1 = __ldg(W + (size_t)(k + 1) * ldw + o);
-      const float w2 = __ldg(W + (size_t)(k + 2) * ldw + o);
-      const float w3 = __ldg(W + (size_t)(k + 3) * ldw + o);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int t = min(t0 + r, T - 1);  // ragged edge: compute, never store
-        const float4 a = *reinterpret_cast<const float4*>(A + (size_t)t * K + k);
-        acc[r] = fmaf(a.x, w0, acc[r]);
-        acc[r] = fmaf(a.y, w1, acc[r]);
-        acc[r] = fmaf(a.z, w2, acc[r]);
-        acc[r] = fmaf(a.w, w3, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (t0 + r < T) epi(t0 + r, o, acc[r]);
-  }
-}
-
 // C[t, o] = sum_k A[t, k] * W[k, o] for t < rows and o < ncols, A [rows,
 // K] (row stride lda) and W [K, ncols] (row stride ldw) in shared memory,
 // handed to epi(t, o, float4 of columns o..o+3). K, ncols, lda and ldw are
@@ -209,9 +170,9 @@ __device__ void gemm_rows(const float* A, int T, int K, const float* __restrict_
 // the lanes of a warp take neighbouring column quads (conflict-free float4
 // loads of W, broadcast loads of A), and each W float4 feeds R rows; the k
 // loop is unrolled U times. Each output is one fmaf chain over k in order,
-// as gemm_rows sums it, starting from init(t, o) (a float4 of columns
-// o..o+3): a product over the rows of W cut into slices continues each
-// chain from the slice before, so the sum is the one chain of the whole.
+// starting from init(t, o) (a float4 of columns o..o+3): a product over
+// the rows of W cut into slices continues each chain from the slice
+// before, so the sum is the one chain of the whole.
 template <int R, int U, typename Init, typename Epi>
 __device__ void smem_gemm_from(const float* A, int lda, int rows, int K, const float* W, int ldw,
                                int ncols, Init init, Epi epi) {

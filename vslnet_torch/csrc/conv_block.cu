@@ -76,7 +76,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 16;
 
 struct ConvParams {
   const float* gam;   // [L, D]
@@ -389,16 +388,30 @@ ConvParams make_params(const float* gam, const float* beta, const float* dw, con
 }
 
 // --- T-tiled kernels ------------------------------------------------------------
-// Above T = 145 at D = 128 a row's tiles do not fit a block (the backward's
-// 3*T*D + T + 16*D floats). These kernels run one layer per launch on a
-// grid of (T-tiles, B rows), the forward's of kTile frames. A tile reads its frames plus a
-// halo of the depthwise reach, (K - 1) / 2 frames before and K / 2 after,
-// zero padded only at the sequence ends; every dropout coordinate is the
-// frame's index t in the row. The forward writes each layer's output to
-// device memory (the inputs of layers 1..L-1 go to the workspace xs, which
-// the backward reads back instead of replaying the forward). The forward's
-// arithmetic is the whole-row kernel's, in the same order, so both give
-// equal bits.
+// Above T = 145 at D = 128 a row's tiles do not fit a cluster's shared
+// memory (the whole-row backward keeps every layer's residuals). These
+// kernels run one layer a launch on a grid of (T-tiles, B rows), tiles of
+// F frames; every dropout coordinate is the frame's index t in the row.
+// The forward writes each layer's output to device memory (the inputs of
+// layers 1..L-1 go to the workspace xs, which the backward reads back
+// instead of replaying the forward).
+//
+// The forward, on the plan of ops/kernels.py conv_tiled_fwd_plan (tiles of
+// F frames, product items of R rows), a CTA taking the F own frames [t0,
+// t0 + F) of one row:
+//   1. x_l over the own frames and the depthwise reach, (K - 1) / 2 frames
+//      before and K / 2 after (0 outside [0, T)), and the taps land by
+//      cp.async, wp (its first slice) behind the LayerNorm, which runs
+//      in place out of shared memory, a row in registers, two rows a warp
+//      at a time (the whole-row forward's sums and expressions);
+//   2. d = depthwise(n_l) over the own frames, a register window of taps
+//      along each column (taps_rows, the taps in order);
+//   3. p = d . wp (smem_gemm_from: one fmaf chain over k in order, wp whole
+//      in shared memory, or streamed in slices of SK rows where it does not
+//      fit), and in its epilogue + bp, the ReLU, the dropout (salt 0x100 +
+//      l) and the residual, x_(l+1) = x_l + drop(relu(p + bp)), float4s.
+// That is the whole-row forward's arithmetic in the same order, so the two
+// give equal bits, and the backward below replays [p > 0] bit for bit.
 //
 // The backward walks the layers in reverse, one launch a layer on the plan
 // of ops/kernels.py conv_tiled_bwd_plan (tiles of F frames, wp streamed in
@@ -413,8 +426,8 @@ ConvParams make_params(const float* gam, const float* beta, const float* dw, con
 //   2. over the E = F + K - 1 frames [t0 - (K - 1 - pad), t0 + F + pad):
 //      d = depthwise(n_l) (the forward's chain of taps), the pre-ReLU
 //      p = d . wp + bp (smem_gemm, one fmaf chain over k in order: the
-//      tiled forward's gemm_rows sum, so p's sign is the forward's) and in
-//      its epilogue g_p = [p > 0] * drop(G_in), 0 outside [0, T);
+//      forward's sum, so p's sign is the forward's) and in its epilogue
+//      g_p = [p > 0] * drop(G_in), 0 outside [0, T);
 //   3. wp^T into the same buffer behind dbp; g_d = g_p . wp^T over E;
 //   4. G_in's own rows into the weight buffer by cp.async behind g_n = the
 //      depthwise transpose of g_d over the own frames and ddw; dgam, dbeta,
@@ -426,68 +439,16 @@ ConvParams make_params(const float* gam, const float* beta, const float* dw, con
 // summed in a fixed order.
 //
 // What bounds them: the pointwise products (2*T*D*D FLOPs a layer, the
-// forward's once and the backward's three times, the tiled backward's two
-// over E / F of the frames), register-tiled out of shared memory at
-// R x 4 a thread; bytes are each layer's [B, T, D] input and G
-// through L2/HBM.
+// forward's once, the tiled backward's two over E / F of the frames and
+// dwp's), register-tiled out of shared memory at R x 4 a thread; bytes are
+// each layer's [B, T, D] input and output (and G) through L2/HBM.
 
-constexpr int kTile = 32;
-
-// LN of the frames [h0, h0 + rows) of one row (xr [T, D]) into N [rows, D],
-// zero for frames outside [0, T).
-__device__ void halo_layer_norm(const float* xr, float* N, const float* gam, const float* beta,
-                                int h0, int rows, int T, int D) {
-  const int lo = max(h0, 0), hi = min(h0 + rows, T);
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-    const int t = h0 + i / D;
-    if (t < 0 || t >= T) N[i] = 0.f;
-  }
-  if (hi > lo)
-    vsl::layer_norm_rows(xr + (size_t)lo * D, N + (size_t)(lo - h0) * D, gam, beta, hi - lo, D);
-}
-
-// Dw[r, c] = sum_j N[r + j, c] * dw[j, c] for the nt frames of the tile.
-template <typename Out>
-__device__ void depthwise_tile(const float* N, const float* __restrict__ dwl, int nt, int D,
-                               int K, Out out) {
-  for (int i = threadIdx.x; i < nt * D; i += blockDim.x) {
-    const int r = i / D, c = i - r * D;
-    float acc = 0.f;
-    for (int j = 0; j < K; ++j) acc = fmaf(N[(size_t)(r + j) * D + c], __ldg(dwl + (size_t)j * D + c), acc);
-    out(i, acc);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-conv_layer_fwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l, vsl::Dropout drop,
-                            float* __restrict__ xout) {
-  extern __shared__ float4 smem4[];
-  const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2;
-  const int b = blockIdx.y, t0 = blockIdx.x * kTile, nt = min(kTile, T - t0);
-  float* N = reinterpret_cast<float*>(smem4);  // [nt + K - 1, D]
-  float* Dw = N + (size_t)(kTile + K - 1) * D;   // [nt, D]
-  const size_t row = (size_t)b * T * D;
-  const uint32_t seed = drop.seed(b), salt = vsl::site_salt(0x100u + l);
-  halo_layer_norm(xin + row, N, p.gam + (size_t)l * D, p.beta + (size_t)l * D, t0 - pad,
-                  nt + K - 1, T, D);
-  __syncthreads();
-  depthwise_tile(N, p.dw + (size_t)l * K * D, nt, D, K, [&](int i, float v) { Dw[i] = v; });
-  __syncthreads();
-  const float* bpl = p.bp + (size_t)l * D;
-  vsl::gemm_rows<kRows>(Dw, nt, D, p.wp + (size_t)l * D * D, D, 0, D,
-                        [&](int t, int o, float acc) {
-                          const size_t i = row + (size_t)(t0 + t) * D + o;
-                          xout[i] = xin[i] + drop.apply(fmaxf(acc + __ldg(bpl + o), 0.f), seed,
-                                                        salt, t0 + t, o);
-                        });
-}
-
-// The tiled backward's CTA: kTiledThreads threads (one CTA an SM at the
-// plan's shared memory), product tiles of R rows x 4 columns (the plan's
-// product_rows: 4, or 6 where 4 would leave a second round of items),
-// the k loop unrolled kTiledUnroll times: the fastest of the tiles
-// vslnet_torch/bench/conv_plans.py --tiled times at paths L and M and at
-// T = 128 (PERF.md).
+// The tiled kernels' CTA: kTiledThreads threads (one CTA an SM at the
+// plans' shared memory), product tiles of R rows x 4 columns (the plans'
+// product_rows: the backward's 4, or 6 where 4 would leave a second round
+// of items; the forward's 2 or 4), the k loop unrolled kTiledUnroll times:
+// the fastest of the tiles vslnet_torch/bench/conv_plans.py --tiled times
+// at paths L and M and at T = 128 (PERF.md).
 constexpr int kTiledThreads = 512;
 constexpr int kTiledUnroll = 4;
 
@@ -516,6 +477,79 @@ __device__ void taps_sliding(const float* win, const float* taps, int rows, int 
 #pragma unroll
       for (int j = 0; j + 1 < K; ++j) n[j] = n[j + 1];
     }
+  }
+}
+
+// out[e][c] = sum over j < K of win[e + j][c] * taps[j][c] for e < rows
+// (kRev: win[e + K - 1 - j][c]), each one fmaf chain over j in order: the
+// register window of taps_sliding at the model's K = 7, a loop of taps at
+// any other K.
+template <bool kRev>
+__device__ void taps_rows(const float* win, const float* taps, int rows, int D, int K, float* out) {
+  if (K == 7) {
+    taps_sliding<7, kRev>(win, taps, rows, D, out);
+    return;
+  }
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+    const float* n = win + i;  // row e + j of column c is n[j * D]
+    const float* w = taps + i % D;
+    float acc = 0.f;
+    for (int j = 0; j < K; ++j) acc = fmaf(n[(kRev ? K - 1 - j : j) * D], w[j * D], acc);
+    out[i] = acc;
+  }
+}
+
+// vsl::layer_norm_rows of the rows [0, rows) of X [.][D] in place, for D
+// <= 32 kC: the same sums and expressions, so the same bits, with a row's
+// values, gam and beta in registers (one shared load and one store an
+// element) and two rows a warp at a time, so that their reductions
+// overlap.
+template <int kC>
+__device__ void ln_rows_in_registers(float* X, const float* __restrict__ gam,
+                                     const float* __restrict__ beta, int rows, int D) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  float g[kC], bt[kC];
+#pragma unroll
+  for (int i = 0; i < kC; ++i) {
+    const int c = min(lane + 32 * i, D - 1);
+    g[i] = __ldg(gam + c);
+    bt[i] = __ldg(beta + c);
+  }
+  for (int r0 = 2 * warp; r0 < rows; r0 += 2 * nwarps) {
+    float* x[2] = {X + (size_t)r0 * D, X + (size_t)min(r0 + 1, rows - 1) * D};
+    float v[2][kC], mean[2], inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < kC; ++i)
+        if (lane + 32 * i < D) {
+          v[h][i] = x[h][lane + 32 * i];
+          s += v[h][i];
+        }
+      mean[h] = s;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) mean[h] = vsl::warp_sum(mean[h]) / D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < kC; ++i)
+        if (lane + 32 * i < D) {
+          const float d = v[h][i] - mean[h];
+          s += d * d;
+        }
+      inv[h] = s;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) inv[h] = rsqrtf(vsl::warp_sum(inv[h]) / D + vsl::kLnEps);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < kC; ++i)
+        if (lane + 32 * i < D)
+          x[h][lane + 32 * i] = (v[h][i] - mean[h]) * inv[h] * g[i] + bt[i];
   }
 }
 
@@ -604,6 +638,85 @@ __device__ void sliced_product(const float* A, int rows, int D, const float* __r
   }
 }
 
+// The tiled forward's shared memory for F frames a tile, K taps and weight
+// slices of SK rows, in floats (ops/kernels.py conv_tiled_fwd_plan reports
+// it; the launch uses this one):
+//   X   [F + K - 1][D]  x_l over the own frames and the depthwise reach,
+//                       then n_l in place
+//   A   [F][D]          d over the own frames
+//   C   [F][D]          the product's sums between slices, where SK < D
+//   W   [SK][D], or [2][SK][D] where SK < D (slices double-buffered)
+//   DW  [K][D]          the layer's taps
+struct TiledFwdLayout {
+  size_t X, A, C, W;
+  __host__ __device__ TiledFwdLayout(int F, int D, int K, int SK)
+      : X((size_t)(F + K - 1) * D), A((size_t)F * D), C(SK < D ? (size_t)F * D : 0),
+        W((SK < D ? 2 : 1) * (size_t)SK * D) {}
+  __host__ __device__ size_t floats(int D, int K) const { return X + A + C + W + (size_t)K * D; }
+};
+
+// One layer of the tiled forward for the tile [t0, t0 + F) of row b: xout =
+// xin + drop(relu(depthwise(LN(xin)) . wp + bp)) over the own frames.
+template <int R>
+__global__ void __launch_bounds__(kTiledThreads, 1)
+conv_layer_fwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l, vsl::Dropout drop,
+                            float* __restrict__ xout, int F, int SK) {
+  extern __shared__ float4 smem4[];
+  const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2;
+  const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0);
+  const TiledFwdLayout lay(F, D, K, SK);
+  float* X = reinterpret_cast<float*>(smem4);
+  float* A = X + lay.X;
+  float* C = A + lay.A;
+  float* W = C + lay.C;
+  float* DW = W + lay.W;
+  const size_t row = (size_t)b * T * D;
+  const float* bpl = p.bp + (size_t)l * D;
+  const uint32_t seed = drop.seed(b), salt = vsl::site_salt(0x100u + l);
+
+  // 1. the taps and x_l over [t0 - pad, t0 + nf + K - 1 - pad) (0 outside
+  // [0, T)) by cp.async, then wp's first slice, which lands behind the
+  // LayerNorm; n_l in place over the frames in [0, T)
+  const int h0 = t0 - pad, lo = max(h0, 0), hi = min(h0 + nf + K - 1, T);
+  vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
+  for (int i = threadIdx.x; i < (nf + K - 1) * D / 4; i += blockDim.x) {
+    const int t = h0 + 4 * i / D;
+    if (t >= lo && t < hi)
+      vsl::cp_async_float4(X + 4 * i, xin + row + (size_t)h0 * D + 4 * i);
+    else
+      reinterpret_cast<float4*>(X)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  vsl::cp_async_commit();
+  vsl::cp_async_floats(W, p.wp + (size_t)l * D * D, SK * D);
+  vsl::cp_async_wait<1>();  // the taps and x_l (wp's slice may be in flight)
+  __syncthreads();
+  float* own = X + (size_t)(lo - h0) * D;
+  const float* gam = p.gam + (size_t)l * D;
+  const float* beta = p.beta + (size_t)l * D;
+  if (D <= 128)
+    ln_rows_in_registers<4>(own, gam, beta, hi - lo, D);
+  else  // wider rows than the model's: the same sums out of shared memory
+    vsl::layer_norm_rows(own, own, gam, beta, hi - lo, D);
+  __syncthreads();
+  // 2. d over the own frames: A[r] = sum_j n(t0 + r + j - pad) dw[j]
+  taps_rows<false>(X, DW, nf, D, K, A);
+  // 3. (sliced_product's first barrier orders A's writes before its reads)
+  // x_(l+1) = x_l + drop(relu(d . wp + bp)), one float4 of x_l, of bp and
+  // of the output an epilogue
+  sliced_product<R>(A, nf, D, p.wp + (size_t)l * D * D, W, SK, C, [&](int r, int o, float4 acc) {
+    const size_t i = row + (size_t)(t0 + r) * D + o;
+    const float4 x4 = __ldg(reinterpret_cast<const float4*>(xin + i));
+    const float4 b4 = __ldg(reinterpret_cast<const float4*>(bpl + o));
+    const float a[4] = {acc.x, acc.y, acc.z, acc.w}, bb[4] = {b4.x, b4.y, b4.z, b4.w};
+    float y[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      y[q] = drop.apply(fmaxf(a[q] + bb[q], 0.f), seed, salt, t0 + r, o + q);
+    *reinterpret_cast<float4*>(xout + i) =
+        make_float4(x4.x + y[0], x4.y + y[1], x4.z + y[2], x4.w + y[3]);
+  });
+}
+
 // One layer of the tiled backward for the tile [t0, t0 + F) of row b:
 // G_in -> G_out, d and g_p of the own frames into d_l and gp_l, per-(row,
 // tile) partials part [B * tiles, L, 3 + K, D] (dgam, dbeta, dbp, ddw [K,
@@ -655,17 +768,7 @@ conv_layer_bwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l,
   ln_window_rows(N, lo - h0, hi - lo, K - 1, nf, gam, p.beta + (size_t)l * D, XH, inv, D);
   __syncthreads();
   // 2. d over E, in the forward's order of taps: A[e] = sum_j N[e + j] dw[j]
-  if (K == 7) {
-    taps_sliding<7, false>(N, DW, ne, D, A);
-  } else {
-    for (int i = tid; i < ne * D; i += nt) {
-      const float* n = N + i;  // row e + j of column c is n[j * D]
-      const float* w = DW + i % D;
-      float acc = 0.f;
-      for (int j = 0; j < K; ++j) acc = fmaf(n[j * D], w[j * D], acc);
-      A[i] = acc;
-    }
-  }
+  taps_rows<false>(N, DW, ne, D, K, A);
   // (sliced_product's first barrier orders A's writes before its reads)
   // p = d . wp + bp, and g_p = [p > 0] * drop(G_in) into P, 0 outside [0, T)
   sliced_product<R>(A, ne, D, p.wp + (size_t)l * D * D, W, SK, P, [&](int e, int o, float4 acc) {
@@ -702,17 +805,7 @@ conv_layer_bwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l,
   // into P's first rows
   const bool staged = (size_t)nf * D <= lay.W;
   if (staged) vsl::cp_async_floats(W, Gin + row + (size_t)t0 * D, nf * D);
-  if (K == 7) {
-    taps_sliding<7, true>(A, DW, nf, D, P);
-  } else {
-    for (int i = tid; i < nf * D; i += nt) {
-      const float* gd = A + (K - 1) * D + i;  // row r + K - 1 - j of column c is gd[-j * D]
-      const float* w = DW + i % D;
-      float v = 0.f;
-      for (int j = 0; j < K; ++j) v = fmaf(gd[-j * D], w[j * D], v);
-      P[i] = v;
-    }
-  }
+  taps_rows<true>(A, DW, nf, D, K, P);
   __syncthreads();
   // ddw[j, c] = sum over the own frames of n(t + j - pad, c) * g_d(t, c)
   for (int i = tid; i < K * D; i += nt) {
@@ -786,25 +879,31 @@ extern "C" int vsl_conv_block_bwd(const float* x, const float* gam, const float*
   return static_cast<int>(vsl::wgrad(d_ws, gp_ws, dwp, gemm_ws, L, D, D, B * T, splits, stream));
 }
 
-// The T-tiled forward, L launches: layer l reads `l == 0 ? x : xs[l - 1]`
-// and writes `l == L - 1 ? out : xs[l]`; xs [L - 1, B, T, D].
+// The T-tiled forward on conv_tiled_fwd_plan's tiles of F frames, weight
+// slices of SK rows and product tiles of R rows (2 or 4), L launches: layer
+// l reads `l == 0 ? x : xs[l - 1]` and writes `l == L - 1 ? out : xs[l]`;
+// xs [L - 1, B, T, D].
 extern "C" int vsl_conv_block_fwd_tiled(const float* x, const float* gam, const float* beta,
                                         const float* dw, const float* wp, const float* bp,
                                         const float* seeds, unsigned thresh, float scale,
                                         float* xs, float* out, int B, int T, int D, int L, int K,
-                                        void* stream_) {
+                                        int F, int SK, int R, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int smem = ((2 * kTile + K - 1) * D) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(conv_layer_fwd_tiled_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || SK < 4 || SK % 4 ||
+      D % SK || (R != 2 && R != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = R == 2 ? conv_layer_fwd_tiled_kernel<2> : conv_layer_fwd_tiled_kernel<4>;
+  const size_t smem = TiledFwdLayout(F, D, K, SK).floats(D, K) * sizeof(float);
+  cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const ConvParams p = make_params(gam, beta, dw, wp, bp, T, D, L, K);
   const vsl::Dropout drop{seeds, thresh, scale};
   const size_t layer = (size_t)B * T * D;
+  const dim3 grid(tiles(T, F), B);
   for (int l = 0; l < L; ++l) {
     const float* in = l == 0 ? x : xs + (l - 1) * layer;
     float* o = l == L - 1 ? out : xs + l * layer;
-    conv_layer_fwd_tiled_kernel<<<dim3(tiles(T, kTile), B), kThreads, smem, stream>>>(in, p, l, drop, o);
+    kernel<<<grid, kTiledThreads, smem, stream>>>(in, p, l, drop, o, F, SK);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

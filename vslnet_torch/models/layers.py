@@ -15,8 +15,9 @@ LSTMEncoder call the kernel wrappers of ops/kernels.py when built with
 otherwise. A wrapper launches its CUDA kernel for tensors on the card and
 runs the plain version for tensors on the CPU, so the choice of device is
 made at each call, never when the module is built; on the card the conv
-and MHA block wrappers also pick their kernels from the shape (T above
-145 at hidden 128 takes the tiled conv block and fused_mha's whole-T or
+and MHA block wrappers also pick their kernels from the shape (the conv
+block takes its tiled kernels from T = 24 when serving, 48 when training,
+by measurement; T above 145 at hidden 128 takes fused_mha's whole-T or
 flash kernels; ops/kernels.py conv_route, mha_route). As in the JAX package,
 CQAttention's kernel path returns no score and HighlightLayer's no logits,
 and both take their kernels only when deterministic: here, in eval mode.

@@ -14,12 +14,13 @@ the CPU through torch's autograd of the plain versions. The `launch_*`
 functions are the kernels alone, for CUDA tensors only: the autograd
 Functions call them, and chip_smoke.py times them.
 
-Which kernels a block takes on the card depends on its shape alone, by
-the port's own shared-memory gates (`conv_route`, `mha_route`,
-`attention_route`): the whole-row conv and MHA block kernels up to T = 145
-at D = 128, above that the T-tiled conv block and the MHA block's PyTorch
-ops around `fused_mha`, whose whole-T kernels take T up to 209 at head dim
-16 and its flash kernels any longer T.
+Which kernels a block takes on the card depends on its shape, by the
+port's own gates (`conv_route`, `mha_route`, `attention_route`): the
+whole-row conv block kernels for rows shorter than the measured crossovers
+(24 frames when serving, 48 when training) and the T-tiled ones above;
+the MHA block kernels up to T = 145 at D = 128, above that the block's
+PyTorch ops around `fused_mha`, whose whole-T kernels take T up to 209 at
+head dim 16 and its flash kernels any longer T.
 
 The kernels (csrc/*.cu, sm_90a, fp32) are compiled with nvcc into one
 shared library with a plain C interface, one nvcc process per source, all
@@ -93,10 +94,10 @@ _SIGNATURES = {
     "vsl_conv_block_bwd": [_P] * 8 + _DROP + [_P] * 8 + [_I] * 8 + [_P],
     "vsl_mha_block_fwd": [_P] * 9 + _DROP + [_P] * 3 + [_I] * 7 + [_P],
     "vsl_mha_block_bwd": [_P] * 7 + _DROP + [_P] * 15 + [_I] * 8 + [_P],
-    "vsl_cqa_concat_fwd": [_P] * 8 + [_I] * 4 + [_P],
+    "vsl_cqa_concat_fwd": [_P] * 10 + [_I] * 6 + [_P],
     "vsl_highlight_gate_fwd": [_P] * 6 + [_I] * 2 + [_P],
     "vsl_span_decode": [_P] * 4 + [_I] * 2 + [_P],
-    "vsl_conv_block_fwd_tiled": [_P] * 7 + _DROP + [_P] * 2 + [_I] * 5 + [_P],
+    "vsl_conv_block_fwd_tiled": [_P] * 7 + _DROP + [_P] * 2 + [_I] * 8 + [_P],
     "vsl_conv_block_bwd_tiled": [_P] * 9 + _DROP + [_P] * 9 + [_I] * 9 + [_P],
     "vsl_mha_fwd": [_P] * 5 + _DROP + [_P] + [_I] * 5 + [_P],
     "vsl_mha_bwd": [_P] * 5 + _DROP + [_P] * 4 + [_I] * 4 + [_P],
@@ -740,33 +741,35 @@ class FusedConvBlock(torch.autograd.Function):
 
 def fused_conv_block(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
     """On the card: the whole-row kernels or the T-tiled ones, as
-    conv_route says (forward and backward alike). On the CPU: the plain
+    conv_route says for a call that takes a gradient (training) or not
+    (serving); the backward is its forward's route's. On the CPU: the plain
     version."""
     name = "conv_block_fwd"
     tensors = [x, gam, beta, dw, wp, bp] + ([] if seeds is None else [seeds])
     if not _on_cuda(name, *tensors):
         return conv_block_plain(x, gam, beta, dw, wp, bp, seeds, drop_rate)
     L, K, _ = dw.shape
-    fn = FusedConvBlock if conv_route(*x.shape[1:], K, L) == "block" else \
-        FusedConvBlockTiled
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    fn = FusedConvBlock if conv_route(*x.shape[1:], K, L, grad) == "block" \
+        else FusedConvBlockTiled
     return fn.apply(x, gam, beta, dw, wp, bp, seeds, float(drop_rate))
 
 
 # --- 2b. conv block at any T ---------------------------------------------------
 # The same function as section 2, T-tiled (csrc/conv_block.cu, the tiled
-# kernels): one launch a layer over (T-tiles, rows). The forward's tiles of
-# CONV_TILE frames each LayerNorm a halo of the depthwise reach; the
-# backward's, on conv_tiled_bwd_plan, each recompute the depthwise output,
-# the pre-ReLU and g_d over the reach as well, so that a layer is one
-# launch. Taken where a row's backward does not fit a block (T > 145 at
-# D = 128).
+# kernels): one launch a layer over (T-tiles, rows). The forward's tiles, on
+# conv_tiled_fwd_plan, each LayerNorm their frames and the depthwise reach
+# out of shared memory; the backward's, on conv_tiled_bwd_plan, each
+# recompute the depthwise output, the pre-ReLU and g_d over the reach as
+# well, so that a layer is one launch. Taken where a row's backward does not
+# fit a block (T > 145 at D = 128).
 
-CONV_TILE = 32  # frames of a forward tile (csrc/conv_block.cu kTile)
-# the backward's threads a CTA (csrc/conv_block.cu kTiledThreads), the rows
-# of its product tile it is built for, and the frames a tile its plan
-# chooses from
+# the tiled kernels' threads a CTA (csrc/conv_block.cu kTiledThreads), the
+# rows of the backward's and the forward's product tiles they are built
+# for, and the frames a tile their plans choose from
 CONV_TILED_THREADS = 512
 CONV_TILED_ROWS = (4, 6)
+CONV_TILED_FWD_ROWS = (2, 4)
 CONV_TILED_FRAMES = (8, 16, 24, 32, 40, 48, 56, 64)
 # the blocks of its split-K dwp product fill the SMs this many times: its
 # 64 x 64 tiles wait on their loads, and 4 waves beat 1 and 2 at paths L
@@ -774,22 +777,27 @@ CONV_TILED_FRAMES = (8, 16, 24, 32, 40, 48, 56, 64)
 CONV_TILED_WGRAD_WAVES = 4
 
 
-def conv_route(T, D, K, L):
-    """"block" (the whole-row forward, the backward a cluster a row) up to
-    the route's T limit, where conv_plan's CTAs also fit; else "tiled". The
-    T limit is the one the whole-row backward had when it was one block a
-    row, kept so that every shape takes the route it took then: three
+# the shortest T at which the tiled kernels beat the whole-row ones on the
+# card: the forward alone from T = 24 (serving), forward and backward
+# together from T = 48 (training), at D = 128 and B = 1 to 16
+# (vslnet_torch/bench/conv_plans.py --route, PERF.md); below, the
+# whole-row kernels' one launch beats the tiled kernels' L
+CONV_TILED_FWD_T = 24
+CONV_TILED_PAIR_T = 48
+
+
+def conv_route(T, D, K, L, grad=False):
+    """"block" (the whole-row forward, the backward a cluster a row) for
+    rows shorter than CONV_TILED_FWD_T frames, or CONV_TILED_PAIR_T where a
+    backward follows (grad), and where the whole-row kernels fit: the
+    route's T limit and conv_plan's CTAs; else "tiled". The T limit is the
+    one the whole-row backward had when it was one block a row: three
     [T, D] rows, T inverse deviations and 16 D floats of LN reductions in a
     block's shared memory (T <= 145 at D = 128)."""
     t_limit = (3 * T * D + T + 16 * D) * 4 <= MAX_SMEM_BYTES
     plan_fits = _conv_plan_sizes(T, D, K, L)[2] <= MAX_SMEM_BYTES
-    return "block" if t_limit and plan_fits else "tiled"
-
-
-def conv_block_tiled_smem_bytes(D, K):
-    """The tiled forward's shared memory: a halo of LN rows and the depthwise
-    output over a tile of CONV_TILE frames."""
-    return (2 * CONV_TILE + K - 1) * D * 4
+    short = T < (CONV_TILED_PAIR_T if grad else CONV_TILED_FWD_T)
+    return "block" if t_limit and plan_fits and short else "tiled"
 
 
 def _conv_tiled_bwd_smem_bytes(frames, D, K, sk):
@@ -815,23 +823,28 @@ class ConvTiledBwdPlan(NamedTuple):
 
 
 def _conv_tiled_rows(frames, D, K):
-    """The product tile's rows for a tile of `frames` frames: the fewest of
-    CONV_TILED_ROWS whose items over its frames + K - 1 rows fit one round
-    of the CTA's threads, else the most."""
+    """The backward's product tile's rows for a tile of `frames` frames: the
+    fewest of CONV_TILED_ROWS whose items over its frames + K - 1 rows fit
+    one round of the CTA's threads, else the most."""
     for rows in CONV_TILED_ROWS:
         if -(-(frames + K - 1) // rows) * (D // 4) <= CONV_TILED_THREADS:
             return rows
     return CONV_TILED_ROWS[-1]
 
 
-def _conv_tiled_slice(frames, D, K):
+def _largest_slice(D, fits):
     """The largest slice of wp's rows (a multiple of 4 dividing D, all of D
-    first) with which `frames` frames fit a block, or None."""
+    first) for which fits(slice) holds, or None."""
     for sk in range(D, 3, -4):
-        if D % sk == 0 and \
-                _conv_tiled_bwd_smem_bytes(frames, D, K, sk) <= MAX_SMEM_BYTES:
+        if D % sk == 0 and fits(sk):
             return sk
     return None
+
+
+def _conv_tiled_slice(frames, D, K):
+    """The backward's wp slice with which `frames` frames fit a block."""
+    return _largest_slice(D, lambda sk: _conv_tiled_bwd_smem_bytes(
+        frames, D, K, sk) <= MAX_SMEM_BYTES)
 
 
 @functools.lru_cache(maxsize=256)
@@ -871,23 +884,105 @@ def conv_tiled_bwd_plan(B, T, D, K, L):
     return best[1]
 
 
+def _conv_tiled_fwd_smem_bytes(frames, D, K, sk):
+    """csrc/conv_block.cu TiledFwdLayout's bytes for `frames` frames a tile
+    and weight slices of `sk` rows."""
+    return 4 * ((frames + K - 1) * D + frames * D
+                + (frames * D if sk < D else 0)
+                + (1 if sk == D else 2) * sk * D + K * D)
+
+
+def _conv_tiled_fwd_slice(frames, D, K):
+    """The forward's wp slice with which `frames` frames fit a block."""
+    return _largest_slice(D, lambda sk: _conv_tiled_fwd_smem_bytes(
+        frames, D, K, sk) <= MAX_SMEM_BYTES)
+
+
+def _conv_tiled_fwd_rows(frames, D):
+    """The forward's product rows for a tile of `frames` frames: the most
+    of CONV_TILED_FWD_ROWS whose items (rows x 4 columns) still number a
+    quarter of the CTA's threads, else the fewest. At D = 128: 4 rows from
+    16 frames up, 2 at 8 (vslnet_torch/bench/conv_plans.py --tiled: 4 rows
+    beat 2 by 3-20% at 16-64 frames, and 8 rows, 2 beat 4 by 16% at 8)."""
+    for rows in reversed(CONV_TILED_FWD_ROWS):
+        if -(-frames // rows) * (D // 4) >= CONV_TILED_THREADS // 4:
+            return rows
+    return CONV_TILED_FWD_ROWS[0]
+
+
+class ConvTiledFwdPlan(NamedTuple):
+    """One call of the tiled conv forward: each of L launches on `ctas` = B
+    * `tiles` CTAs of CONV_TILED_THREADS threads, a CTA taking `frames`
+    frames of a row (tiles = ceil(T / frames)) and `smem` bytes, wp in
+    slices of `slice` rows (D / slice slices), its product in items of
+    `product_rows` rows x 4 columns."""
+    frames: int
+    tiles: int
+    slice: int
+    smem: int
+    ctas: int
+    product_rows: int
+
+
+@functools.lru_cache(maxsize=256)
+def conv_tiled_fwd_plan(B, T, D, K, L):
+    """The tiled forward's launch plan for B rows of [T, D] and a depthwise
+    kernel of K taps over L layers. A tile of F frames LayerNorms F + K - 1
+    rows and runs its depthwise pass and product over F on one CTA an SM,
+    so its time goes as F + K - 1, times the waves of B * ceil(T / F) CTAs
+    over the card's SMs: the plan takes the F of CONV_TILED_FRAMES (cut to
+    T) that needs the least, the larger F on a tie, with wp whole in shared
+    memory where it fits and else in the largest slices that do, and the
+    product rows of _conv_tiled_fwd_rows. At path L's [8, 1024, 128]: 128
+    CTAs of 64 frames (one wave, 138 KB each), products of 4 rows an item;
+    at path M's [16, 192, 128], 128 of 24. Raises on what the kernel
+    cannot take."""
+    if B < 1 or T < 1 or K < 1 or L < 1 or D < 4 or D % 4:
+        raise ValueError("conv_tiled_fwd_plan: needs B, T, K, L >= 1 and D %% "
+                         "4 == 0, got B=%d, T=%d, D=%d, K=%d, L=%d"
+                         % (B, T, D, K, L))
+    best = None
+    for frames in sorted({min(T, f) for f in CONV_TILED_FRAMES}):
+        sk = _conv_tiled_fwd_slice(frames, D, K)
+        if sk is None:
+            continue
+        tiles = -(-T // frames)
+        cost = -(-B * tiles // N_SMS) * (frames + K - 1)
+        if best is None or cost <= best[0]:
+            best = (cost, ConvTiledFwdPlan(
+                frames, tiles, sk,
+                _conv_tiled_fwd_smem_bytes(frames, D, K, sk), B * tiles,
+                _conv_tiled_fwd_rows(frames, D)))
+    if best is None:
+        frames = min(T, CONV_TILED_FRAMES[0])
+        raise ValueError("conv_tiled_fwd_plan: D=%d needs %d bytes of shared "
+                         "memory a tile of %d frames, above the %d a block "
+                         "has" % (D, _conv_tiled_fwd_smem_bytes(frames, D, K, 4),
+                                  frames, MAX_SMEM_BYTES))
+    return best[1]
+
+
 def launch_conv_block_fwd_tiled(x, gam, beta, dw, wp, bp, seeds=None,
                                 drop_rate=0.0):
-    """The tiled forward kernels: (out, xs [L - 1, B, T, D], the inputs of
-    layers 1..L-1, which the tiled backward reads). CUDA tensors only;
-    raises where the tiled backward's plan does not fit either."""
+    """The tiled forward kernels on conv_tiled_fwd_plan: (out, xs [L - 1, B,
+    T, D], the inputs of layers 1..L-1, which the tiled backward reads).
+    CUDA tensors only; raises where the tiled backward's plan does not fit
+    either."""
     name = "conv_block_fwd_tiled"
     _require_cuda(name, x, gam, beta, dw, wp, bp)
-    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp,
-                                 conv_block_tiled_smem_bytes(x.shape[2],
-                                                             dw.shape[1]))
+    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0)
+    plan = conv_tiled_fwd_plan(B, T, D, K, L)
     conv_tiled_bwd_plan(B, T, D, K, L)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    # x, the taps and the weights land by 16-byte cp.async, x and bp are
+    # read as float4s
+    x, dw, wp, bp = _aligned16(x, dw, wp, bp)
     out = torch.empty_like(x)
     xs = _empty(x.device, max(L - 1, 1), B, T, D)
     _launch(name, x.data_ptr(), gam.data_ptr(), beta.data_ptr(), dw.data_ptr(),
             wp.data_ptr(), bp.data_ptr(), sp, thresh, scale, xs.data_ptr(),
-            out.data_ptr(), B, T, D, L, K)
+            out.data_ptr(), B, T, D, L, K, plan.frames, plan.slice,
+            plan.product_rows)
     return out, xs
 
 
@@ -1635,9 +1730,11 @@ def fused_span_decode(start_logits, end_logits):
 
 # --- 5. context-query attention ----------------------------------------------
 # Replaces vslnet_tpu/ops/pallas_kernels.py:_cqa_kernel (via
-# fused_cqa_concat). Kernel: csrc/cqa.cu. Bound by its B blocks (one a
-# batch row) more than by its bytes, which are mostly the [B, T, 4d]
-# output; the score matrices and Sv^T.v stay in shared memory.
+# fused_cqa_concat). Kernel: csrc/cqa.cu on cqa_plan, CTAs a batch row each
+# taking a tile of frames: the column softmax over T split as a
+# flash-attention row is (per-tile maxima, sums and partial Sv^T.v, then
+# combined in tile order). Bound by its bytes, mostly the [B, T, 4d]
+# output.
 
 
 def cqa_plain(video, query, v_mask, q_mask, w4v, w4q, w4mul):
@@ -1664,32 +1761,95 @@ def cqa_from_score(score, video, query, v_mask, q_mask):
     return torch.cat([video, v2q, video * v2q, video * q2v], dim=-1)
 
 
-def cqa_smem_bytes(T, W, D):
-    return (2 * T * W + 2 * W * D + W) * 4
+# the most CTAs a row cqa_plan takes
+CQA_CTAS = 64
+CQA_THREADS = 512  # csrc/cqa.cu kThreads
+
+
+def _cqa_smem_bytes(frames, W, D):
+    """csrc/cqa.cu CqaLayout's bytes for `frames` frames a CTA and a query
+    of W words: v [frames, D], q and the partial A [W, D] each, the column
+    maxima and sums and q.w4q [W] each, S [frames, W] and v.w4v
+    [frames]."""
+    return 4 * (frames * D + 2 * W * D + 3 * W + frames * W + frames)
+
+
+def cqa_part_floats(W, D):
+    """A CTA's partials in the workspace between the two launches: A [W,
+    D], the column maxima and sums [W] each, rounded up to 16 bytes."""
+    return -(-(W * D + 2 * W) // 4) * 4
+
+
+def cqa_max_words(frames, D):
+    """The longest query whose CTA of `frames` frames fits a block."""
+    return (MAX_SMEM_BYTES // 4 - frames * D - frames) // (2 * D + 3 + frames)
+
+
+class CQAPlan(NamedTuple):
+    """One call of the CQA kernel: `n` CTAs a batch row, CTA r taking the
+    frames [r * frames, min(T, (r + 1) * frames)); `smem` bytes a CTA,
+    `ctas` = B * n."""
+    n: int
+    frames: int
+    smem: int
+    ctas: int
+
+
+def cqa_plan(B, T, W, D):
+    """The CQA kernel's launch plan for B rows of T frames and W words of
+    width D: two launches (on the card they beat one launch of a cluster a
+    row at the paths' shapes, PERF.md) on enough CTAs a row that the B rows
+    fill the card's SMs once (16 of 64 frames at path L's [8, 1024]; 8 of
+    16 at the served [16, 128]), none of them empty, or more CTAs, up to
+    CQA_CTAS, where the frames' shared memory does not fit: v [frames, D]
+    and S [frames, W] beside q and A [W, D] cap W at 154 words at D = 128
+    and 64 frames, 185 at 32, 203 at 16 (cqa_max_words). Raises beyond the
+    limit at CQA_CTAS CTAs a row, naming it, and on what the kernel cannot
+    take."""
+    if B < 1 or T < 1 or W < 1 or D < 4 or D % 4:
+        raise ValueError("cqa_plan: needs B, T, W >= 1 and D %% 4 == 0, got "
+                         "B=%d, T=%d, W=%d, D=%d" % (B, T, W, D))
+    top = min(CQA_CTAS, T)
+    for n in range(max(1, min(top, N_SMS // B)), top + 1):
+        frames = -(-T // n)
+        smem = _cqa_smem_bytes(frames, W, D)
+        if smem <= MAX_SMEM_BYTES:
+            break
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            "cqa_plan: a query of W=%d words at T=%d, D=%d needs %d bytes of "
+            "shared memory a CTA of %d frames, above the %d a block has: W "
+            "up to %d fits" % (W, T, D, smem, frames, MAX_SMEM_BYTES,
+                               cqa_max_words(frames, D)))
+    n = -(-T // frames)  # no empty CTA
+    return CQAPlan(n, frames, smem, B * n)
 
 
 def fused_cqa_concat(video, query, v_mask, q_mask, w4v, w4q, w4mul):
-    """[B, T, 4d] CQA concat (no score: the kernel never writes it out)."""
+    """[B, T, 4d] CQA concat (no score: the kernel never writes it out), on
+    cqa_plan, which raises for a query too long for it."""
     name = "cqa_concat_fwd"
     if not _on_cuda(name, video, query, v_mask, q_mask, w4v, w4q, w4mul):
         return cqa_plain(video, query, v_mask, q_mask, w4v, w4q, w4mul)[0]
     B, T, D = video.shape
     W = query.shape[1]
-    if cqa_smem_bytes(T, W, D) > MAX_SMEM_BYTES:
-        raise ValueError("%s: T=%d, W=%d, D=%d needs %d bytes of shared "
-                         "memory, above the %d a block has" % (
-                             name, T, W, D, cqa_smem_bytes(T, W, D),
-                             MAX_SMEM_BYTES))
+    plan = cqa_plan(B, T, W, D)
     _check(name, video, (B, T, D))
     _check(name, query, (B, W, D))
     _check(name, v_mask, (B, T))
     _check(name, q_mask, (B, W))
     for w in (w4v, w4q, w4mul):
         _check(name, w, (D,))
-    out = torch.empty(B, T, 4 * D, device=video.device, dtype=torch.float32)
+    # q lands by 16-byte cp.async, v is read as float4s
+    video, query = _aligned16(video, query)
+    dev = video.device
+    out = _empty(dev, B, T, 4 * D)
+    parts = _empty(dev, plan.ctas * cqa_part_floats(W, D))
+    sq = _empty(dev, B * T * W)
     _launch(name, video.data_ptr(), query.data_ptr(), v_mask.data_ptr(),
             q_mask.data_ptr(), w4v.data_ptr(), w4q.data_ptr(),
-            w4mul.data_ptr(), out.data_ptr(), B, T, W, D)
+            w4mul.data_ptr(), out.data_ptr(), parts.data_ptr(), sq.data_ptr(),
+            B, T, W, D, plan.n, plan.frames)
     return out
 
 
