@@ -20,13 +20,17 @@ Phases, each printing one JSON line:
               two block forwards with dropout are held the same way at the
               training shapes (T = 128 and the query stream's T = max_w,
               drop_rate 0.2, one fully masked query row): the forward, every
-              gradient of sum(out * g), and the dropout's zero pattern;
+              gradient of sum(out * g), and the dropout's zero pattern
+              (the conv block's on plain draws, g 0 on the frames whose
+              gradient passes a pre-ReLU within KINK of 0, counted);
               the conv block's forward (also the T-tiled forward's bits)
               and the MHA block's forward and backward also give equal
               bits on two equal calls. CQA runs on its plan at the served
               shape, at path L's [8, 1024] and with 64 words there (masked
               tiles and rows, a padded query), with equal bits twice; the
-              highlight gate and span decode also at path L's shape.
+              highlight gate and span decode also at path L's shape (the
+              span decode there also with ties planted across its
+              chunks, threads and warps, decoded to the planted frames).
               The cluster and tiled kernels carry their launch plans;
               conv_route must send the conv block at [16, 128, 128] to the
               faster of the whole-row and the T-tiled kernels by device
@@ -62,18 +66,20 @@ Phases, each printing one JSON line:
               (forward, backward) and the T-tiled conv block (forward,
               backward) against their plain versions at the paths' shapes
               (output, every gradient, dropout zero pattern; SDPA as the
-              attention yardstick; the flash forward and backward and the
-              tiled conv forward and backward give equal bits on two equal
-              calls and carry their plans and device time by kernel (the
-              tiled forward at both paths, with its bound), the tiled
-              backward's dropout and ReLU zero pattern is the plain
-              version's, and the flash backward must beat SDPA's
-              backward); then path M (rnn,
+              attention yardstick; the flash forward and backward, the
+              whole-T backward and the tiled conv forward and backward
+              give equal bits on two equal calls and carry their plans and
+              device time by kernel (the tiled forward at both paths, with
+              its bound), the tiled backward's dropout and ReLU zero
+              pattern is the plain version's, and the flash and whole-T
+              backwards must beat SDPA's backward by events, the whole-T
+              one also by device time); then path M (rnn,
               max_pos_len 192, batch 16) and path L (transformer,
               max_pos_len 1024, batch 8): a served batch against
               use_pallas=off, one train step against off, then 3 (M) or
               10 (L) steps with the kernels (on L the loss must fall),
-              with their launches, step times and, on L, profiles.
+              with their launches, step times and profiles (a served
+              batch and a step each).
 Then the "kernels" line, and last {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.
 """
@@ -170,6 +176,43 @@ def autograd_pair(fn, plain, args, n_grad, g):
     return abs_err, err, finite
 
 
+# a pre-ReLU this close to 0 may take either side in fp32 sums of another
+# order: a hundred times the ~1e-6 at which such flips were seen
+KINK = 1e-4
+
+
+def kink_frames(args, seeds, rate):
+    """The frames [B, T] (bool) of conv block inputs args through which a
+    gradient reaches a pre-ReLU within KINK of 0: the plain forward in
+    fp64, a layer-l pre-activation at frame t reaching the block's output
+    at frames t +- (L - 1 - l) * (k // 2) through the later layers' taps.
+    Where fp32 sums in another order than cuBLAS's put such a pre-ReLU on
+    the other side, the mask [p > 0] moves the gradients around it by
+    ~0.1 in the kernels and the plain version alike; a g of 0 on these
+    frames gives that mask no weight in any gradient, and leaves the
+    others' masks as drawn, varying by frame."""
+    import torch
+    import torch.nn.functional as F
+
+    from vslnet_torch.ops import kernels as K
+
+    x, gam, beta, dw, wp, bp = (a.double() for a in args)
+    L, k, D = dw.shape
+    near = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
+    for l in range(L):
+        c = x - x.mean(-1, keepdim=True)
+        h = c * torch.rsqrt(c.square().mean(-1, keepdim=True) + 1e-6)
+        h = F.pad((h * gam[l] + beta[l]).transpose(1, 2),
+                  ((k - 1) // 2, k // 2))
+        p = F.conv1d(h, dw[l].t().unsqueeze(1), groups=D).transpose(1, 2)
+        p = p @ wp[l] + bp[l]
+        reach = (L - 1 - l) * (k // 2)
+        near |= F.max_pool1d((p.abs() < KINK).any(-1)[:, None].double(),
+                             2 * reach + 1, 1, reach)[:, 0] > 0
+        x = x + K.site_dropout(torch.relu(p), seeds, 0x100 + l, rate)
+    return near
+
+
 def tiled_bwd_zeros(args, seeds):
     """The T-tiled backward's masks at conv block inputs args [B, T, D]: for
     their first layer and a g that is 1 on frame t of row 0 only, dbp =
@@ -253,6 +296,9 @@ def kernel_phase(dev, max_w):
     import torch
 
     from vslnet_torch.bench.common import by_kernel
+    from vslnet_torch.bench.span_ties import (SPAN_TIES_1024,
+                                             span_tie_logits,
+                                             span_ties_expected)
     from vslnet_torch.ops import kernels as K
 
     rng = np.random.default_rng(SEED)
@@ -533,7 +579,8 @@ def kernel_phase(dev, max_w):
            cuda_ms(lambda: K.fused_highlight_gate(*args), 100),
            cuda_ms(highlight_plain_gate, 100),
            B * T * (3 * D + 4), 4 * (2 * B * T * D + 2 * B * T + D + 1),
-           shape=[B, T, D], path_L={
+           shape=[B, T, D], device_ms=sum(by_kernel(
+               lambda: K.fused_highlight_gate(*args)).values()), path_L={
                "shape": [BL, TL, D], "max_abs_err": l_err,
                "ms": cuda_ms(lambda: K.fused_highlight_gate(*l_args), 100),
                "device_ms": sum(by_kernel(
@@ -548,18 +595,33 @@ def kernel_phase(dev, max_w):
     s, e = K.fused_span_decode(sl, el)
     s_ref, e_ref = K.span_decode_plain(sl, el)
     index_err = max(max_err(s, s_ref), max_err(e, e_ref))
-    # also at path L's [8, 1024]
+    # also at path L's [8, 1024], and there with planted ties across the
+    # kernel's chunks (4 frames a thread), threads and warps (128 frames)
     l_mask = l_args[3]
     sl_l = t(rng.standard_normal((BL, TL)) * 3) * l_mask + (1 - l_mask) * -1e30
     el_l = t(rng.standard_normal((BL, TL)) * 3) * l_mask + (1 - l_mask) * -1e30
     l_err = max(max_err(a, b) for a, b in zip(
         K.fused_span_decode(sl_l, el_l), K.span_decode_plain(sl_l, el_l)))
+    sl_t, el_t = (t(a) for a in span_tie_logits(rng, TL, SPAN_TIES_1024))
+    tied = K.fused_span_decode(sl_t, el_t)
+    tied_err = max(max_err(a, b) for a, b in zip(
+        tied, K.span_decode_plain(sl_t, el_t)))
+    decoded = list(zip(*(x.tolist() for x in tied)))
+    planted = span_ties_expected(SPAN_TIES_1024)
+    check(all(w is None or d == w for d, w in zip(decoded, planted)),
+          "span_decode: the tied rows decode to %s, not %s"
+          % (decoded, planted))
     record("span_decode", "vslnet_torch/csrc/span_decode.cu",
-           "vslnet_tpu/ops/pallas_kernels.py:57", max(index_err, l_err), 0.0,
+           "vslnet_tpu/ops/pallas_kernels.py:57",
+           max(index_err, l_err, tied_err), 0.0,
            cuda_ms(lambda: K.fused_span_decode(sl, el), 100),
            cuda_ms(lambda: K.span_decode_plain(sl, el), 100),
-           10 * B * T, 4 * (2 * B * T + 2 * B), shape=[B, T], path_L={
+           10 * B * T, 4 * (2 * B * T + 2 * B), shape=[B, T],
+           device_ms=sum(by_kernel(
+               lambda: K.fused_span_decode(sl, el)).values()),
+           path_L={
                "shape": [BL, TL], "max_abs_err": l_err,
+               "tied_max_abs_err": tied_err,
                "ms": cuda_ms(lambda: K.fused_span_decode(sl_l, el_l), 100),
                "device_ms": sum(by_kernel(
                    lambda: K.fused_span_decode(sl_l, el_l)).values()),
@@ -606,16 +668,18 @@ def kernel_phase(dev, max_w):
 
     # 9. conv block backward (the whole-row kernels' autograd Function), at
     # T and at max_w, drop_rate 0.2
+    # on plain draws, g 0 on the frames next to a pre-ReLU at the kink
     def conv_pair(a, sd):
-        g = t(rng.standard_normal(tuple(a[0].shape)))
+        near = kink_frames(a, sd, DROP)
+        g = t(rng.standard_normal(tuple(a[0].shape))) * ~near[..., None]
         kw = {"seeds": sd, "drop_rate": DROP}
         return autograd_pair(lambda *x: K.FusedConvBlock.apply(*x, sd, DROP),
                              lambda *x: K.conv_block_plain(*x, **kw),
-                             a, 6, g), g
+                             a, 6, g), g, int(near.sum())
 
-    (q_abs, q_err, q_fin), _ = conv_pair(conv_q_args, seeds_for(B))
+    (q_abs, q_err, q_fin), _, q_kinks = conv_pair(conv_q_args, seeds_for(B))
     seeds = seeds_for(B)
-    (abs_err, err, finite), g = conv_pair(conv_args, seeds)
+    (abs_err, err, finite), g, kinks = conv_pair(conv_args, seeds)
     check(finite and q_fin, "conv block: non-finite gradient")
     # the T-tiled pair, which conv_route may take for training at this shape
     # (the main path's video conv block), on the same inputs and g, and its
@@ -668,6 +732,8 @@ def kernel_phase(dev, max_w):
            checked_err=max(err, q_err, t_err), shape=[B, T, D], drop_rate=DROP,
            query_T=max_w, query_checked_err=q_err, tiled_max_abs_err=t_abs,
            tiled_checked_err=t_err, tiled_dropout_zero_pattern_equal=all(t_zeros),
+           kink_frames_left_out=[kinks, B * T],
+           query_kink_frames_left_out=[q_kinks, B * max_w],
            plan=K.conv_plan(B, T, D, KS, L)._asdict(),
            query_plan=K.conv_plan(B, max_w, D, KS, L)._asdict(),
            tiled_ms=tiled_ms, device_ms=sum(parts.values()), by_kernel=parts,
@@ -765,32 +831,6 @@ def kernel_phase(dev, max_w):
 # --- phase 4 -------------------------------------------------------------------
 
 
-def flax_layout_weights(model, glove, seed):
-    """Seeded numpy weights for every tensor of `model`, nested as the JAX
-    package's {"params": ..., "frozen": ...} tree."""
-    rng = np.random.default_rng(seed)
-    tree = {"params": {}, "frozen": {}}
-    for key, value in model.state_dict().items():
-        shape = tuple(value.shape)
-        leaf = key.rsplit(".", 1)[-1]
-        if key == "word_embeddings.word_vectors":
-            arr = glove
-        elif leaf == "scale":
-            arr = 1.0 + 0.1 * rng.standard_normal(shape)
-        elif leaf == "bias" or leaf.startswith("bias_"):
-            arr = 0.1 * rng.standard_normal(shape)
-        else:
-            fan_in = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
-            arr = rng.standard_normal(shape) / math.sqrt(fan_in)
-        node = tree["frozen" if key == "word_embeddings.word_vectors"
-                    else "params"]
-        *path, last = key.split(".")
-        for p in path:
-            node = node.setdefault(p, {})
-        node[last] = np.asarray(arr, np.float32)
-    return tree
-
-
 def post(url, obj):
     req = urllib.request.Request(
         url, data=json.dumps(obj).encode("utf-8"), method="POST",
@@ -815,50 +855,10 @@ def charades_like_dataset():
     return dataset, feats, splits
 
 
-def profile_device(run, wall_ms):
-    """Device time by kernel over one call of run() (torch.profiler), the
-    part of it that is host-to-device copies, and the share of the
-    unprofiled wall time wall_ms the card sits idle."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
-                  key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in rows)
-    copy_ms = sum(r[1] for r in rows if r[0].startswith("Memcpy HtoD"))
-    return {"device_ms": device_ms, "htod_copy_ms": copy_ms,
-            "device_ms_without_copies": device_ms - copy_ms, "wall_ms": wall_ms,
-            "device_idle_share": 1.0 - device_ms / wall_ms,
-            "device_launches": sum(r[2] for r in rows),
-            "top": [[k[:70], ms, n] for k, ms, n in rows[:12]]}
-
-
-def build_localizer(cfg, dataset, splits):
-    """A Localizer over cfg's VSLNet with seeded weights in the flax
-    layout, loaded through convert_flax."""
-    from vslnet_torch.convert_flax import load_flax_variables
-    from vslnet_torch.data.loader import static_caps
-    from vslnet_torch.models.vslnet import build_model
-    from vslnet_torch.serve import Localizer
-
-    model = build_model(cfg, dataset["word_vector"].shape)
-    load_flax_variables(model, flax_layout_weights(
-        model, dataset["word_vector"], SEED))
-    max_w, max_c = static_caps(splits, cfg)
-    return Localizer(model, cfg, dataset["word_dict"], dataset["char_dict"],
-                     max_w, max_c)
-
-
 def slice_phase(dataset, feats, splits):
     import torch
 
+    from vslnet_torch.bench.paths import build_localizer, profile_device
     from vslnet_torch.config import Config
     from vslnet_torch.ops import kernels as K
     from vslnet_torch.server import durations_from_dataset, make_server
@@ -869,7 +869,7 @@ def slice_phase(dataset, feats, splits):
                      word_dim=300, char_dim=50, batch_size=16,
                      char_size=dataset["n_chars"], use_pallas=use_pallas,
                      seed=SEED)
-        return build_localizer(cfg, dataset, splits), cfg
+        return build_localizer(cfg, dataset, splits, SEED), cfg
 
     loc, cfg = localizer("auto")
     loc_off, _ = localizer("off")
@@ -999,24 +999,6 @@ def conv_launches(T, max_w, grad):
     return out
 
 
-def train_config(dataset, use_pallas, predictor="rnn", max_pos_len=128,
-                 batch_size=16):
-    """The reference's default run (main.py flags): rnn predictor, hidden
-    128, 8 heads, T 128, batch 16, drop_rate 0.2, bert_adamw at lr 1e-4
-    with linear decay over 100 epochs, clip 1.0, l2 3e-7, lambda 5; the
-    long_t phase changes the predictor, T and the batch."""
-    from vslnet_torch.config import Config
-
-    return Config(task="charades", predictor=predictor, hidden_size=128,
-                  num_heads=8, max_pos_len=max_pos_len,
-                  video_feature_dim=1024, word_dim=300, char_dim=50,
-                  batch_size=batch_size, drop_rate=DROP,
-                  optimizer="bert_adamw", init_lr=1e-4, lr_schedule="linear",
-                  clip_norm=1.0, l2_decay=3e-7, highlight_lambda=5.0,
-                  epochs=100, char_size=dataset["n_chars"],
-                  use_pallas=use_pallas, seed=SEED)
-
-
 def timed_steps(trainer, n):
     """n train steps, each ended by a synchronise: (losses, ms per step)."""
     import torch
@@ -1076,9 +1058,11 @@ def step_vs_off(tk, to, of):
 
 
 def train_phase(dataset, feats):
+    from vslnet_torch.bench.paths import profile_device, train_config
     from vslnet_torch.ops import kernels as K
 
-    tk, to = trainers(lambda up: train_config(dataset, up), dataset, feats)
+    tk, to = trainers(lambda up: train_config(dataset, up, SEED), dataset,
+                      feats)
     # 1. one step each: same weights, batch and generator seed
     step_vs_off(tk, to, "rnn T=128")
     _, off_times = timed_steps(to, 3)
@@ -1171,7 +1155,9 @@ def long_kernel_rows(dev):
     def sdpa_ms(q, k, v, mask):
         """F.scaled_dot_product_attention on the same heads and the additive
         mask at drop 0: (forward ms, backward ms = forward+backward minus
-        forward). A yardstick; the port never calls it."""
+        forward, forward+backward ms, by CUDA events; the device time of
+        the backward's kernels, torch.profiler). A yardstick; the port
+        never calls it."""
         B, T, _ = q.shape
 
         def split(x):
@@ -1191,7 +1177,10 @@ def long_kernel_rows(dev):
 
         f = cuda_ms(fwd, 20)
         fb = cuda_ms(fwd_bwd, 20)
-        return f, fb - f, fb
+        out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+        b_device = sum(by_kernel(lambda: torch.autograd.grad(
+            out, (qh, kh, vh), g, retain_graph=True)).values())
+        return f, fb - f, fb, b_device
 
     def attention_rows(path, fname, bname, rep_fwd, rep_bwd, source,
                        launch_fwd, launch_bwd, flash):
@@ -1226,7 +1215,7 @@ def long_kernel_rows(dev):
             lambda q, k, v: K.attention(q, k, v, mask, heads, seeds, DROP),
             [q, k, v], 3, g)
         check(finite, "%s: non-finite output or gradient" % fname)
-        lib_f, lib_b, lib_fb = sdpa_ms(q, k, v, mask)
+        lib_f, lib_b, lib_fb, lib_b_device = sdpa_ms(q, k, v, mask)
         # only the valid keys need scores and P.V (all T on the masked row)
         keys = sum(n if n else T for n in lens)
         io = B * T * D
@@ -1259,37 +1248,41 @@ def long_kernel_rows(dev):
             **extra, **shape))
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         out_p = K.attention(*leaves, mask, heads, seeds, DROP)
+        # what each backward reads of its forward: out and lse (flash), out
         saved = (K.launch_flash_mha_fwd(q, k, v, mask, heads, seeds, DROP)
-                 if flash else ())
+                 if flash else (K.launch_mha_fwd(q, k, v, mask, heads, seeds,
+                                                 DROP),))
 
         def bwd():
             return launch_bwd(q, k, v, mask, heads, seeds, DROP, *saved, g)
 
-        extra = {}
-        if flash:
-            # no atomics: two equal calls, equal bits; the plan, and the
-            # device time of a call's kernels (torch.profiler)
-            twice = all(torch.equal(a, b) for a, b in zip(bwd(), bwd()))
-            check(twice, "%s: two equal calls differ" % bname)
-            parts = by_kernel(bwd)
-            extra = {"equal_bits_twice": twice,
-                     "plan": K.flash_bwd_plan(B, T, D, heads)._asdict(),
-                     "device_ms": sum(parts.values()), "by_kernel": parts}
+        # no atomics: two equal calls, equal bits; the plan, and the device
+        # time of a call's kernels (torch.profiler)
+        twice = all(torch.equal(a, b) for a, b in zip(bwd(), bwd()))
+        check(twice, "%s: two equal calls differ" % bname)
+        parts = by_kernel(bwd)
+        plan = (K.flash_bwd_plan if flash else K.mha_whole_bwd_plan)(
+            B, T, D, heads)
+        extra = {"equal_bits_twice": twice, "plan": plan._asdict(),
+                 "device_ms": sum(parts.values()), "by_kernel": parts}
         ms = cuda_ms(bwd, 20)
         rows.append(kernel_row(
             bname, source, rep_bwd, abs_err, TOL, ms,
             cuda_ms(lambda: torch.autograd.grad(out_p, leaves, g,
                                                 retain_graph=True), 5),
             # scores recomputed, dP, dV, dQ and dK over the valid keys;
-            # q, k, v, g (flash: out, lse), mask and seeds read, dq, dk,
+            # q, k, v, g, out (flash: and lse), mask and seeds read, dq, dk,
             # dv written
-            10 * T * keys * D,
-            4 * (7 * io + B * T + B + (io + lse_io if flash else 0)),
+            10 * T * keys * D, 4 * (8 * io + B * T + B + lse_io),
             library_ms=lib_b, checked_err=g_err, library_fwd_bwd_ms=lib_fb,
-            drop_rate=DROP, **extra, **shape))
-        if flash:
-            check(ms < lib_b, "%s: %g ms, not below SDPA's backward %g"
-                  % (bname, ms, lib_b))
+            library_device_ms=lib_b_device, drop_rate=DROP, **extra,
+            **shape))
+        check(ms < lib_b, "%s: %g ms, not below SDPA's backward %g"
+              % (bname, ms, lib_b))
+        if not flash:
+            check(extra["device_ms"] < lib_b_device, "%s: %g ms of device "
+                  "time, not below SDPA's backward's %g" % (
+                      bname, extra["device_ms"], lib_b_device))
 
     tpu = "vslnet_tpu/ops/pallas_kernels.py:"
     attention_rows("M", "mha_fwd", "mha_bwd", tpu + "696", tpu + "716",
@@ -1408,6 +1401,8 @@ def long_path(path):
     {run: launches}."""
     import torch
 
+    from vslnet_torch.bench.paths import (build_localizer, profile_device,
+                                          train_config)
     from vslnet_torch.data.synthetic import synthetic_dataset
     from vslnet_torch.ops import kernels as K
 
@@ -1422,11 +1417,12 @@ def long_path(path):
     splits = [dataset["train_set"], dataset["test_set"]]
 
     def configs(use_pallas):
-        return train_config(dataset, use_pallas, cfg["predictor"], T, B)
+        return train_config(dataset, use_pallas, SEED, cfg["predictor"], T,
+                            B)
 
     # serving: one batch of B requests
-    loc = build_localizer(configs("auto"), dataset, splits)
-    loc_off = build_localizer(configs("off"), dataset, splits)
+    loc = build_localizer(configs("auto"), dataset, splits, SEED)
+    loc_off = build_localizer(configs("off"), dataset, splits, SEED)
     triples = [(feats[r["vid"]], r["duration"], " ".join(r["words"]))
                for r in dataset["test_set"][:B]]
     loc.localize_batch(triples)  # warm-up
@@ -1462,9 +1458,8 @@ def long_path(path):
           "max_w": loc.max_w})
     check(finite and logit_err <= LOGIT_ATOL and same_spans,
           "path %s: the served batch disagrees with use_pallas=off" % path)
-    if path == "L":
-        emit({"phase": "profile", "of": "path L served batch of 8",
-              **profile_device(lambda: loc.localize_batch(triples), ms_k)})
+    emit({"phase": "profile", "of": "path %s served batch of %d" % (path, B),
+          **profile_device(lambda: loc.localize_batch(triples), ms_k)})
     del loc, loc_off, out_k, out_p
 
     # training: one step against off, then the path's steps
@@ -1485,8 +1480,8 @@ def long_path(path):
     if path == "L":
         check(float(np.mean(losses[-5:])) < losses[0],
               "path L: the loss did not fall: %s" % losses)
-        emit({"phase": "profile", "of": "path L train step",
-              **profile_device(tk.step, step_ms)})
+    emit({"phase": "profile", "of": "path %s train step" % path,
+          **profile_device(tk.step, step_ms)})
 
     # every launch where the path's model says, per served batch and step
     heavy = 3 if cfg["predictor"] == "transformer" else 1  # T-long encoders

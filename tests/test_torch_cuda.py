@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from vslnet_torch.bench.span_ties import (SPAN_TIES_128, SPAN_TIES_1024,
+                                         span_tie_logits, span_ties_expected)
 from vslnet_torch.ops import kernels
 
 torch.set_num_threads(1)
@@ -100,7 +102,9 @@ def _span_cases():
     tied_e[0, :] = 0.0          # every end tied
     tied_s[1, [3, 9]] = 9.0     # two tied best starts
     tied_e[1, [9, 12]] = 9.0    # two tied best ends
-    return [(sl, el), (tied_s, tied_e)]
+    return [(sl, el), (tied_s, tied_e),
+            span_tie_logits(rng, 128, SPAN_TIES_128),
+            span_tie_logits(rng, 1024, SPAN_TIES_1024)]
 
 
 # seconds a card test may take: the cluster kernels wait on mbarriers, and
@@ -250,12 +254,17 @@ def test_cuda_highlight_gate_matches_plain(cuda, B, T, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [0, 1], ids=["tie_free", "tied"])
+@pytest.mark.parametrize("case", [0, 1, 2, 3], ids=[
+    "tie_free", "tied", "ties_16x128", "ties_8x1024"])
 def test_cuda_span_decode_matches_plain(cuda, case):
     args = [_t(a).to(cuda) for a in _span_cases()[case]]
     (s, e), (s_ref, e_ref) = _cuda_pair(kernels.fused_span_decode,
                                         kernels.span_decode_plain, args)
     assert torch.equal(s, s_ref) and torch.equal(e, e_ref)
+    if case >= 2:
+        rows = SPAN_TIES_128 if case == 2 else SPAN_TIES_1024
+        for r, want in enumerate(span_ties_expected(rows)):
+            assert want is None or (int(s[r]), int(e[r])) == want, r
 
 
 def _grads(fn, args, n_grad, g):
@@ -512,14 +521,27 @@ def test_cuda_flash_bwd_matches_plain(cuda, T, hd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["conv_block_bwd", "lstm_recurrence_bwd",
-                                    "conv_block_fwd", "mha_block_bwd"])
+                                    "conv_block_fwd", "mha_block_bwd",
+                                    "mha_bwd"])
 def test_cuda_backward_kernels_give_equal_bits_twice(cuda, kernel):
     """No atomics, a fixed order of every sum: two equal calls of each
     backward (and of the conv block's cluster forward) give equal bits, at
-    the main path's shape and drop_rate 0.2."""
+    the main path's shape (the whole-T backward at path M's [16, 192, 128])
+    and drop_rate 0.2."""
     rng = np.random.default_rng(20)
     B, T, D = 16, 128, 128
-    if kernel.startswith("conv_block"):
+    if kernel == "mha_bwd":
+        T = 192
+        lens = list(rng.integers(T // 2, T + 1, size=B - 1)) + [0]
+        q, k, v, mask = [_t(a).to(cuda) for a in _attn_inputs(rng, B, T, D,
+                                                               lens)]
+        seeds = _t(_seeds(rng, B)).to(cuda)
+        g = _t(rng.standard_normal((B, T, D)).astype(np.float32)).to(cuda)
+        out = kernels.launch_mha_fwd(q, k, v, mask, 8, seeds, 0.2)
+
+        def run():
+            return kernels.launch_mha_bwd(q, k, v, mask, 8, seeds, 0.2, out, g)
+    elif kernel.startswith("conv_block"):
         args = [_t(a).to(cuda) for a in _conv_inputs(rng, B, T, D)]
         seeds = _t(_seeds(rng, B)).to(cuda)
         g = _t(rng.standard_normal((B, T, D)).astype(np.float32)).to(cuda)
@@ -591,6 +613,32 @@ def test_cuda_block_plans_agree(cuda, T):
     ref = kernels.launch_mha_block_fwd(*fwd, 8, seeds, 0.2)
     for plan in mha_plans.fwd_plans(B, T, D, 8):
         for a, b in zip(mha_plans.fwd_runner(fwd, 8, seeds, 0.2, plan)(), ref):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
+                                       msg=str(plan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [192, 209])
+def test_cuda_whole_bwd_plans_agree(cuda, T):
+    """Every query tile the bench script times for the whole-T backward,
+    through the kernel library, gives the wrapper's plan's gradients within
+    1e-4, at drop_rate 0.2 with ragged key lengths and one fully masked row
+    (path M's T and the route's top T at head dim 16)."""
+    from vslnet_torch.bench import mha_plans
+
+    rng = np.random.default_rng(26)
+    B, D, heads = 16, 128, 8
+    lens = list(rng.integers(1, T + 1, size=B - 1)) + [0]
+    q, k, v, mask = [_t(a).to(cuda) for a in _attn_inputs(rng, B, T, D, lens)]
+    seeds = _t(_seeds(rng, B)).to(cuda)
+    g = _t(rng.standard_normal((B, T, D)).astype(np.float32)).to(cuda)
+    out = kernels.launch_mha_fwd(q, k, v, mask, heads, seeds, 0.2)
+    bwd = [q, k, v, mask, heads, seeds, 0.2, out, g]
+    ref = kernels.launch_mha_bwd(*bwd)
+    plans = mha_plans.whole_t_plans(B, T, D, heads)
+    assert len(plans) > 1
+    for plan in plans:
+        for a, b in zip(mha_plans.whole_t_runner(bwd, plan)(), ref):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
                                        msg=str(plan))
 
@@ -699,6 +747,42 @@ def test_cuda_fused_mha_matches_plain(cuda, T, route, rate):
         assert torch.equal(out == 0, ref == 0)
         dropped = float((out[0] == 0).float().mean())
         assert 0.1 < dropped < 0.3, dropped
+
+
+# The whole route's top T at each head dim of D = 128 (attention_route; the
+# whole-T backward's plan, mha_whole_bwd_plan, in query tiles of q_tile
+# rows): 223 at head dim 8, 183 at 32, 143 at 64.
+WHOLE_TOP_T = {8: 223, 32: 183, 64: 143}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("hd", sorted(WHOLE_TOP_T))
+def test_cuda_fused_mha_whole_route_top_t(cuda, hd, rate):
+    """fused_mha at the longest T that attention_route sends to the whole-T
+    kernels, at head dims 8, 32 and 64: output and dq, dk, dv within 1e-4
+    of `attention` and its autograd, ragged lengths and one fully masked
+    row, only the whole-T forward launched, and one T more goes to
+    flash."""
+    T, B, D = WHOLE_TOP_T[hd], 4, 128
+    heads = D // hd
+    assert kernels.attention_route(T, hd) == "whole"
+    assert kernels.attention_route(T + 1, hd) == "flash"
+    rng = np.random.default_rng(27)
+    lens = [T, T // 2 + 3, 1, 0]
+    q, k, v, mask = [_t(a).to(cuda) for a in _attn_inputs(rng, B, T, D, lens)]
+    seeds = _t(_seeds(rng, B)).to(cuda)
+
+    def run(fn):
+        return lambda q, k, v: fn(q, k, v, mask, heads, seeds=seeds,
+                                  drop_rate=rate)
+
+    _check_grads(run(kernels.fused_mha), run(kernels.attention), [q, k, v], 3,
+                 ["q", "k", "v"], 1e-4)
+    kernels.reset_launches()
+    with torch.no_grad():
+        run(kernels.fused_mha)(q, k, v)
+    assert {n for n, c in kernels.LAUNCHES.items() if c} == {"mha_fwd"}
 
 
 def _conv_inputs_off_kink(rng, B, T, D, K=7):

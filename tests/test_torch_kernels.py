@@ -12,6 +12,7 @@ from vslnet_tpu.ops import pallas_kernels as pk
 from test_torch_cuda import (
     _conv_inputs, _cqa_inputs, _highlight_inputs, _lstm_inputs, _mha_inputs,
     _seeds, _span_cases, _t)
+from vslnet_torch.bench.span_ties import span_tie_logits, span_ties_expected
 from vslnet_torch.models import layers, losses
 from vslnet_torch.ops import kernels
 
@@ -97,6 +98,21 @@ def test_span_decode_plain_matches_pallas_exactly(case):
     np.testing.assert_array_equal(e2.numpy(), np.asarray(e_ref))
     if case == 1:
         assert (s[0], e[0]) == (0, 0) and (s[1], e[1]) == (3, 9)
+
+
+def test_span_decode_plain_matches_pallas_at_path_l_length():
+    """[4, 1024], path L's T: ties planted at frames 31/32 and 255/256 (and
+    255/256, 511/512), a fully masked row and a best start and end at the
+    last valid frame. span_decode_plain gives the Pallas kernel's indices
+    (interpret mode), which are the planted answers."""
+    rows = [(1024, (31, 32), (255, 256)), (0, (), ()),
+            (1024, (255, 256), (511, 512)), (600, (599,), (599,))]
+    sl, el = span_tie_logits(np.random.default_rng(4), 1024, rows)
+    s_ref, e_ref = pk.fused_span_decode(jnp.asarray(sl), jnp.asarray(el))
+    s, e = kernels.span_decode_plain(_t(sl), _t(el))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_ref))
+    np.testing.assert_array_equal(e.numpy(), np.asarray(e_ref))
+    assert list(zip(s.tolist(), e.tolist())) == span_ties_expected(rows)
 
 
 def test_decode_span_topk_matches_jax():

@@ -1,12 +1,15 @@
 """The MHA block's launch plans (ops/kernels.py mha_bwd_plan and
-mha_fwd_plan), on the CPU: the per-frame launches' tiles cover every frame
-of every row exactly once and the attention's query tiles every query row
-once (the backward's in a cluster of at most 8); every plan fits a block's
-shared memory, at the lengths the tests use and at every shape that
-mha_route sends to the block kernels; the plans of the main path and the
-query stream are the ones PERF.md records; shapes the kernels cannot take
-raise. How the kernels index within those ranges is held to the plain
-version by the card tests (tests/test_torch_cuda.py)."""
+mha_fwd_plan) and the whole-T backward's (mha_whole_bwd_plan, on the block
+backward's cluster attention body), on the CPU: the per-frame launches'
+tiles cover every frame of every row exactly once and the attention's
+query tiles every query row once (the backwards' in a cluster of at most
+8); every plan fits a block's shared memory, at the lengths the tests use,
+at every shape that mha_route sends to the block kernels and at every
+shape that attention_route sends to the whole-T kernels; the plans of the
+main path, path M and the query stream are the ones PERF.md records;
+shapes the kernels cannot take raise. How the kernels index within those
+ranges is held to the plain version by the card tests
+(tests/test_torch_cuda.py)."""
 import pytest
 
 from vslnet_torch.bench import mha_plans
@@ -150,3 +153,82 @@ def test_mha_fwd_plan_at_the_main_path_and_the_query_stream():
 def test_mha_fwd_plan_refuses(B, T, D, heads):
     with pytest.raises(ValueError, match="mha_fwd_plan"):
         kernels.mha_fwd_plan(B, T, D, heads)
+
+
+def _check_whole_bwd_plan(T, plan):
+    assert plan.smem <= kernels.MAX_SMEM_BYTES, plan
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 512, plan
+    assert 1 <= plan.q_tiles <= kernels.MHA_CLUSTER, plan
+    rows = [t for r in range(plan.q_tiles)
+            for t in range(r * plan.q_tile, min(T, (r + 1) * plan.q_tile))]
+    assert sorted(rows) == list(range(T)), plan    # each query row once
+    assert (plan.q_tiles - 1) * plan.q_tile < T, plan  # no tile empty
+
+
+# the longest T that attention_route sends to the whole-T kernels, by head
+# dim: the T limit of the first whole-T backward, which the route keeps
+WHOLE_T_LIMITS = {8: 223, 16: 209, 32: 183, 64: 143}
+
+
+@pytest.mark.parametrize("hd", sorted(WHOLE_T_LIMITS))
+def test_mha_whole_bwd_plan_fits_every_shape_of_the_whole_route(hd):
+    """Every T that attention_route sends to "whole" at this head dim gets
+    a whole-T backward plan: a cluster of at most 8 CTAs a (row, head) that
+    fits shared memory and covers every query row once; so do the plans the
+    bench script times. The route's T limit is the one it had."""
+    whole = [T for T in range(1, 400)
+             if kernels.attention_route(T, hd) == "whole"]
+    assert whole == list(range(1, WHOLE_T_LIMITS[hd] + 1))
+    for D in (hd, 128):
+        for T in whole:
+            _check_whole_bwd_plan(T, kernels.mha_whole_bwd_plan(16, T, D,
+                                                                D // hd))
+        for T in (1, 12, 143, 146, 192, WHOLE_T_LIMITS[hd]):
+            if T > WHOLE_T_LIMITS[hd]:
+                continue
+            plans = mha_plans.whole_t_plans(16, T, D, D // hd)
+            assert plans
+            for plan in plans:
+                _check_whole_bwd_plan(T, plan)
+
+
+def test_mha_whole_bwd_plan_at_path_m():
+    """Path M's [16, 192, 128], 8 heads of 16: query tiles of
+    MHA_WHOLE_BWD_QTILE = 96 rows (2 CTAs a (row, head), 256 CTAs of
+    MHA_WHOLE_BWD_THREADS threads); the top T at head dim 64 halves them to
+    48 to fit."""
+    plan = kernels.mha_whole_bwd_plan(16, 192, 128, 8)
+    assert (plan.q_tile, plan.q_tiles) == (96, 2)
+    assert (plan.q_tile, plan.threads) == (kernels.MHA_WHOLE_BWD_QTILE,
+                                           kernels.MHA_WHOLE_BWD_THREADS)
+    plan = kernels.mha_whole_bwd_plan(16, 143, 128, 2)
+    assert (plan.q_tile, plan.q_tiles) == (48, 3)
+
+
+@pytest.mark.parametrize("B,T,D,heads", [(0, 192, 128, 8), (16, 0, 128, 8),
+                                         (16, 192, 24, 2), (16, 192, 128, 1),
+                                         (16, 1024, 128, 8),
+                                         (16, 600, 128, 16)])
+def test_mha_whole_bwd_plan_refuses(B, T, D, heads):
+    """Empty shapes, head dims no kernel takes, and lengths whose query
+    tiles of at least T / 8 rows do not fit (path L's 1024 at head dim 16,
+    600 at head dim 8)."""
+    with pytest.raises(ValueError, match="mha_whole_bwd_plan"):
+        kernels.mha_whole_bwd_plan(B, T, D, heads)
+
+
+def test_whole_t_bench_stamps_the_cluster_body():
+    """The bench's stamped copy of csrc/mha_block.cu (mha_plans.py
+    --whole-t): a clock stamp at each block and cluster barrier of
+    attn_bwd_cluster_kernel and where its dP and dK products start, keyed
+    by lines of the shipped source, with the entry points renamed."""
+    src = (kernels.CSRC / "mha_block.cu").read_text()
+    prof, stamped = mha_plans.instrumented(src)
+    lines = src.split("\n")
+    assert stamped == sorted(set(stamped)) and len(stamped) == 8
+    assert prof.count("+= now - plast") == len(stamped)
+    assert [sum(m in lines[n - 1] for n in stamped) for m in (
+        "__syncthreads();", "cluster.sync();", "// dS = P", "// this CTA's dK")
+    ] == [4, 2, 1, 1]
+    assert 'extern "C" int prof_mha_bwd(' in prof
+    assert 'extern "C" int vsl_' not in prof

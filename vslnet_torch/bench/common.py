@@ -1,6 +1,7 @@
 """What the card-only scripts of vslnet_torch/bench share: CUDA-event
-timing, time by kernel, the card's name and power limit, and building a
-changed copy of a kernel source into a library of its own."""
+timing, time by kernel, the card's name and power limit, a copy of a kernel
+source with clock stamps, and building a changed copy of a kernel source
+into a library of its own."""
 import ctypes
 import subprocess
 
@@ -47,6 +48,36 @@ def card():
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
+
+
+def instrumented(src, kernel, stamps):
+    """(src, a csrc/*.cu source, with a clock stamp, thread 0 of CTA 0, at
+    each line of the kernel `kernel` that holds one of `stamps`, its entry
+    points renamed prof_ and prof_read(h) added, which copies the 64
+    counters to h and zeroes them; the source line of each stamp)."""
+    lines = src.split("\n")
+    first = next(i for i, ln in enumerate(lines) if ln.startswith(kernel + "("))
+    last = lines.index("}", first)
+    stamp = (" { if (threadIdx.x == 0 && blockIdx.x == 0) { long long now = "
+             "clock64(); g_prof[%d] += now - plast; plast = now; } }")
+    at = []
+    for i in range(first, last):
+        if any(m in lines[i] for m in stamps):
+            lines[i] = lines[i].split("//")[0].rstrip() + stamp % len(at)
+            at.append(i + 1)
+    body_open = next(i for i in range(first, last) if lines[i].endswith(") {"))
+    lines[body_open] += "\n  long long plast = clock64();"
+    src = "\n".join(lines).replace(
+        '#include "hash.cuh"\n', '#include "hash.cuh"\n'
+        "__device__ unsigned long long g_prof[64];\n", 1)
+    src = src.replace('extern "C" int vsl_', 'extern "C" int prof_')
+    return src + r'''
+extern "C" int prof_read(unsigned long long* h) {
+  const int err = (int)cudaMemcpyFromSymbol(h, g_prof, sizeof(g_prof));
+  unsigned long long z[64] = {0};
+  return err ? err : (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));
+}
+''', at
 
 
 def build_copies(sources):

@@ -41,6 +41,7 @@ import sys
 
 import numpy as np
 
+from vslnet_torch.bench import common
 from vslnet_torch.bench.common import build_copy, by_kernel, card, cuda_ms
 from vslnet_torch.ops import kernels as K
 
@@ -72,30 +73,7 @@ def instrumented(src):
     """(csrc/flash_mha.cu with a clock stamp, thread 0 of CTA 0, at each of
     STAMPS in flash_bwd_kernel and its entry points renamed prof_, the
     flash_mha.cu line of each stamp)."""
-    lines = src.split("\n")
-    first = next(i for i, ln in enumerate(lines)
-                 if ln.startswith("flash_bwd_kernel(const float* __restrict__ q"))
-    last = lines.index("}", first)
-    stamp = (" { if (threadIdx.x == 0 && blockIdx.x == 0) { long long now = "
-             "clock64(); g_prof[%d] += now - plast; plast = now; } }")
-    at = []
-    for i in range(first, last):
-        if any(m in lines[i] for m in STAMPS):
-            lines[i] = lines[i].split("//")[0].rstrip() + stamp % len(at)
-            at.append(i + 1)
-    body_open = next(i for i in range(first, last) if lines[i].endswith(") {"))
-    lines[body_open] += "\n  long long plast = clock64();"
-    src = "\n".join(lines).replace(
-        '#include "hash.cuh"\n', '#include "hash.cuh"\n'
-        "__device__ unsigned long long g_prof[64];\n", 1)
-    src = src.replace('extern "C" int vsl_', 'extern "C" int prof_')
-    return src + r'''
-extern "C" int prof_read(unsigned long long* h) {
-  const int err = (int)cudaMemcpyFromSymbol(h, g_prof, sizeof(g_prof));
-  unsigned long long z[64] = {0};
-  return err ? err : (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));
-}
-''', at
+    return common.instrumented(src, "flash_bwd_kernel", STAMPS)
 
 
 def runner(bwd, fn):

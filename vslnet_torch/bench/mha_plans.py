@@ -4,7 +4,8 @@ call spends its time by kernel, and the time of each plan.
 
     python3 -m vslnet_torch.bench.mha_plans              # the backward
     python3 -m vslnet_torch.bench.mha_plans --forward    # the forward
-    python3 -m vslnet_torch.bench.mha_plans [--forward] --by-kernel
+    python3 -m vslnet_torch.bench.mha_plans --whole-t    # whole-T backward
+    python3 -m vslnet_torch.bench.mha_plans [--forward|--whole-t] --by-kernel
 
 At [16, T, 128], 8 heads, ragged key lengths and one fully masked row, for
 T = 128 (the main path) and 12 (the query stream).
@@ -30,18 +31,36 @@ The forward (--forward), at drop_rate 0 (served) and 0.2 (trained):
   time by kernel and the largest difference from mha_fwd_plan's output;
 - the whole-T forward (fused_mha's route on path M) at [16, 192, 128] on
   query tiles of FWD_QTILES rows, beside `attention`.
+The whole-T backward (--whole-t), fused_mha's route on path M, at [16, 192,
+128] and drop_rate 0.2:
+- the backward of `fused_mha` alone (autograd through a retained graph,
+  which an older tree's wrapper runs the same way), by kernel and by CUDA
+  events;
+- every plan of WHOLE_BWD_QTILES query rows and WHOLE_BWD_THREADS threads
+  a CTA that fits (`whole_t_plans`), through the kernel library
+  (`whole_t_runner`): device time by kernel, CUDA events and the largest
+  difference from the gradients of `attention`;
+- the default plan's cycles between the attention body's barriers (and
+  to where its dP and dK products start), thread 0 of CTA 0, from a copy
+  of mha_block.cu with clock stamps built into
+  vslnet_torch/_build/bench/, keyed by the stamp's line in mha_block.cu.
 With --by-kernel only the default calls and the unfused block, which an
 older tree of the port with the same wrappers also runs (put it on
-PYTHONPATH), so that a change's breakdown can be set beside its parent's.
+PYTHONPATH), so that a change's breakdown can be set beside its parent's;
+the backward rows carry the sha1 of their gradients (`grads_sha1`), so that
+their bits can be set beside the parent's too.
 Prints one JSON line a row with the card's name and power limit.
 """
+import ctypes
+import hashlib
 import json
 import math
 import sys
 
 import numpy as np
 
-from vslnet_torch.bench.common import by_kernel, card, cuda_ms
+from vslnet_torch.bench import common
+from vslnet_torch.bench.common import build_copy, by_kernel, card, cuda_ms
 from vslnet_torch.ops import kernels as K
 
 B, D, HEADS, RATE = 16, 128, 8, 0.2
@@ -50,6 +69,12 @@ QTILES = [8, 16, 32, 64, 128]
 FWD_FRAMES = [2, 4, 8, 16, 32]
 FWD_SLICES = [16, 8, 4, 2]  # slices of D / n rows
 FWD_QTILES = [8, 16, 32, 64, 128]
+WHOLE_BWD_QTILES = [16, 24, 32, 48, 64, 96]
+WHOLE_BWD_THREADS = [256, 512]
+# where the stamped copy takes a clock in attn_bwd_cluster_kernel: after
+# each block and cluster barrier, and where its dP and dK products start
+STAMPS = ("__syncthreads();", "cluster.sync();", "// dS = P * (drop(G.V^T)",
+          "// this CTA's dK")
 
 
 def inputs(rng, dev, T):
@@ -207,6 +232,121 @@ def whole_t_forward(emit, rng, dev):
                  by_kernel=parts, max_abs_diff_from_attention=diff)
 
 
+def whole_t_plans(B, T, D, heads):
+    """The whole-T backward's plans this script times at [B, T, D]: query
+    tiles of WHOLE_BWD_QTILES rows, each raised to T / MHA_CLUSTER (a (row,
+    head) is one cluster) and cut to T, in CTAs of WHOLE_BWD_THREADS
+    threads, where they fit, each once."""
+    hd, out = D // heads, []
+    for q_tile in WHOLE_BWD_QTILES:
+        for threads in WHOLE_BWD_THREADS:
+            q = min(T, max(q_tile, -(-T // K.MHA_CLUSTER)))
+            plan = K.MHAWholeBwdPlan(q, -(-T // q), threads,
+                                     K._mha_attention_bytes(T, q, hd))
+            if plan.smem <= K.MAX_SMEM_BYTES and plan not in out:
+                out.append(plan)
+    return out
+
+
+def digest(tensors):
+    """sha1 of the tensors' bytes: equal digests, equal bits (a parent
+    tree's call beside this one's)."""
+    return hashlib.sha1(b"".join(t.detach().cpu().numpy().tobytes()
+                                 for t in tensors)).hexdigest()
+
+
+def instrumented(src):
+    """(csrc/mha_block.cu with a clock stamp, thread 0 of CTA 0, at each of
+    STAMPS in attn_bwd_cluster_kernel and its entry points renamed prof_,
+    the mha_block.cu line of each stamp)."""
+    return common.instrumented(src, "attn_bwd_cluster_kernel", STAMPS)
+
+
+def whole_t_runner(bwd, plan, lib=None):
+    """A call of the whole-T backward kernel through the kernel library (or
+    the stamped copy `lib`) on `plan`, at bwd = [q, k, v, mask, heads,
+    seeds, rate, out, g]: returns (dq, dk, dv)."""
+    import torch
+
+    q, k, v, mask, heads, seeds, rate, out, g = bwd
+    B, T, D = q.shape
+    sp, thresh, scale = K._dropout_args("mha_plans", seeds, rate, B)
+    grads = [torch.empty_like(q) for _ in range(3)]
+    ptrs = [a.data_ptr() for a in (q, k, v, mask)]
+    outs = [a.data_ptr() for a in (out, g, *grads)]
+
+    def run():
+        if lib is None:
+            K._launch("mha_bwd", *ptrs, sp, thresh, scale, *outs, B, T, D,
+                      heads, plan.q_tile, plan.threads)
+        else:
+            stream = torch.cuda.current_stream().cuda_stream
+            assert lib.prof_mha_bwd(*ptrs, sp, thresh, scale, *outs, B, T, D,
+                                    heads, plan.q_tile, plan.threads,
+                                    stream) == 0
+        return grads
+    return run
+
+
+def whole_t_backward(emit, rng, dev, only_by_kernel):
+    """The whole-T backward at [16, 192, 128], drop 0.2: fused_mha's
+    backward by kernel and CUDA events; then (unless only_by_kernel) each
+    of whole_t_plans through the kernel library, beside the gradients of
+    `attention`."""
+    import torch
+
+    T = 192
+    _, mask, *_, seeds, g = inputs(rng, dev, T)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, T, D)).astype(
+        np.float32)).to(dev) for _ in range(3))
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    out = K.fused_mha(*leaves, mask, HEADS, seeds, RATE)
+
+    def call():
+        return torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+    parts = by_kernel(call)
+    emit(direction="whole_t_backward", shape=[B, T, D], heads=HEADS,
+         drop_rate=RATE, call_ms=cuda_ms(call), device_ms=sum(parts.values()),
+         by_kernel=parts, grads_sha1=digest(call()))
+    if only_by_kernel:
+        return
+    ref = torch.autograd.grad(K.attention(*leaves, mask, HEADS, seeds, RATE),
+                              leaves, g)
+    default = K.mha_whole_bwd_plan(B, T, D, HEADS)
+    bwd = [q, k, v, mask, HEADS, seeds, RATE,
+           K.launch_mha_fwd(q, k, v, mask, HEADS, seeds, RATE), g]
+    for plan in whole_t_plans(B, T, D, HEADS):
+        run = whole_t_runner(bwd, plan)
+        diff = max(float((a - b).abs().max()) for a, b in zip(run(), ref))
+        parts = by_kernel(run)
+        emit(direction="whole_t_backward", shape=[B, T, D], drop_rate=RATE,
+             plan=plan._asdict(), default=plan == default,
+             call_ms=cuda_ms(run), device_ms=sum(parts.values()),
+             by_kernel=parts, max_abs_diff_from_attention=diff)
+    src, stamped = instrumented((K.CSRC / "mha_block.cu").read_text())
+    lib = build_copy("mha_prof", src)
+    lib.prof_mha_bwd.argtypes = K._SIGNATURES["vsl_mha_bwd"]
+    lib.prof_mha_bwd.restype = ctypes.c_int
+    lib.prof_read.argtypes = [ctypes.c_void_p]
+    lib.prof_read.restype = ctypes.c_int
+    run = whole_t_runner(bwd, default, lib)
+    run()
+    torch.cuda.synchronize()
+    stamps = (ctypes.c_ulonglong * 64)()
+    lib.prof_read(stamps)
+    reps = 5
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    lib.prof_read(stamps)
+    cycles = {"mha_block.cu:%d" % line: stamps[k] / reps
+              for k, line in enumerate(stamped)}
+    emit(direction="whole_t_backward", shape=[B, T, D], drop_rate=RATE,
+         plan=default._asdict(), cycles_to_each_stamp=cycles,
+         cycles_total=sum(cycles.values()))
+
+
 def forward(emit, rng, dev, only_by_kernel):
     if not only_by_kernel:
         whole_t_forward(emit, rng, dev)
@@ -274,6 +414,9 @@ def main(argv):
     if "--forward" in argv:
         forward(emit, rng, dev, only_by_kernel)
         return 0
+    if "--whole-t" in argv:
+        whole_t_backward(emit, rng, dev, only_by_kernel)
+        return 0
     for T in (128, 12):
         x, mask, gam, beta, wqkv, bqkv, wd, bd, seeds, g = args = inputs(
             rng, dev, T)
@@ -288,7 +431,7 @@ def main(argv):
         unfused_ms, unfused_device_ms = unfused_backward_ms(*args)
         emit(shape=[B, T, D], heads=HEADS, drop_rate=RATE, call_ms=cuda_ms(call),
              device_ms=sum(parts.values()), by_kernel=parts, unfused_ms=unfused_ms,
-             unfused_device_ms=unfused_device_ms)
+             unfused_device_ms=unfused_device_ms, grads_sha1=digest(call()))
         if only_by_kernel:
             continue
         default = K.mha_bwd_plan(B, T, D, HEADS)

@@ -70,16 +70,10 @@ __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-
 // 1 / sqrt(hd), the attention kernels' query scale, rounded to fp32 once.
 inline float head_scale(int hd) { return static_cast<float>(1.0 / sqrt(static_cast<double>(hd))); }
 
-// s(t, j) = q_t . k_j + neg_j for one attention head, q pre-scaled; the
-// same order of sums wherever it is formed (fmaf is symmetric in q and k),
-// so a backward recomputes the forward's scores bit for bit.
-template <int HD>
-__device__ __forceinline__ float head_score(const float* q, const float* k, float neg) {
-  float s = 0.f;
-#pragma unroll
-  for (int d = 0; d < HD; ++d) s = fmaf(q[d], k[d], s);
-  return s + neg;
-}
+// The attention kernels' scores, s(t, j) = q_t . k_j + neg_j for one head,
+// q pre-scaled, are one fmaf chain over d = 0..hd-1 from 0, then + neg_j:
+// the same order of sums wherever they are formed (fmaf is symmetric in q
+// and k), so a backward recomputes the forward's scores bit for bit.
 
 // LayerNorm over the last dim of src [T, D] into dst [T, D] (either may be
 // shared or global memory): one warp per row, fp32 statistics, population

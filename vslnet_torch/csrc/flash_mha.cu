@@ -19,7 +19,7 @@
 // partial softmaxes (m, l, P.V) merge in group order. 64 slots in 2 groups
 // beat 128 in 1 or 2 and 64 in 4 at path L (vslnet_torch/bench/
 // flash_plans.py --forward, PERF.md). A thread takes its
-// keys in blocks of kFwdBlock: the block's scores, each head_score's chain of sums, from K
+// keys in blocks of kFwdBlock: the block's scores, each in common.cuh's score order, from K
 // rows read as float4 broadcasts (one load feeds RQ * 4 FMAs); then the
 // online softmax once a block and row (the block's max, one exp to rescale
 // l and the P.V accumulator); then per key one exp, at drop > 0 one hash
@@ -315,7 +315,7 @@ __host__ __device__ inline size_t flash_bwd_floats(int TK, int hd) {
 // out of shared memory with register tiles whose sizes are compile-time:
 //   1. S = (Q * scale).K^T and G.V^T, fused: 8 query rows x 2 keys a
 //      thread (its keys on neighbouring lanes, its rows' q and g read as
-//      float4 broadcasts), an fmaf chain over d in order (head_score's);
+//      float4 broadcasts), an fmaf chain over d in order (common.cuh);
 //      then P = 2^((s - lse) log2 e), the keep bit (one exp and one hash a
 //      (t, j)), drop(P) and dS = P * (drop(dP) - delta) into shared
 //      memory, without a branch (the epilogue, not the FMAs, bounds this

@@ -28,9 +28,9 @@
 //      slice's product register-tiled out of shared memory; + bqkv.
 //   2. attention on CTAs of (query tile, head, row), no cluster: K_h and
 //      V_h of the row in shared memory, S = (Q * scale).K^T + mask as a
-//      register-tiled product into a [TQ, T + 1] tile (head_score's sum,
-//      bit for bit), max and sum by warp reductions over each row, the keep
-//      bit hashed once a (t, j) while exp(s - max) is written back,
+//      register-tiled product into a [TQ, T + 1] tile (common.cuh's order
+//      of the score's sums), max and sum by warp reductions over each row,
+//      the keep bit hashed once a (t, j) while exp(s - max) is written back,
 //      drop(P).V register-tiled, scaled by the drop scale over the sum.
 //   3. residual + LN2 + dense + residual on the grid of launch 1: R =
 //      drop_0x201(att) + x, Z = drop_0x202(LN2(R)), Z.Wd streamed as in 1,
@@ -47,7 +47,8 @@
 //      shared memory), g_res and g_att.
 //   2. attention backward, a thread-block cluster of ceil(T / TQ) CTAs a
 //      (row, head), CTA r taking the query rows [r TQ, (r + 1) TQ) against
-//      all keys: S = Q.K^T as a register-tiled product into shared memory,
+//      all keys (the head's rows by 16-byte loads, several in flight a
+//      thread): S = Q.K^T as a register-tiled product into shared memory,
 //      P and drop(P) by warp reductions over each row, the keep bits hashed
 //      once a (t, j), D_t = g_att_t . att_t from the saved output
 //      (att = drop(P).V, so this is sum_j dP * P without a pass over the
@@ -69,11 +70,11 @@
 // (and g), the weights and the saved qkv and att, and a write of the
 // output (dx and the weight gradients).
 //
-// The whole-T fused_mha kernels (vsl_mha_fwd, vsl_mha_bwd at the end): the
-// forward runs the block forward's attention body on q, k, v [B, T, D];
-// the backward keeps the port's first body, one thread a query row
-// (attention_bwd_kernel), bound by its per-thread key loops on B * n_heads
-// blocks. Both take q, k, v and the outputs through base pointers and row
+// The whole-T fused_mha kernels (vsl_mha_fwd, vsl_mha_bwd at the end) run
+// the block's attention bodies on q, k, v [B, T, D]: the forward the block
+// forward's (launch 2 of the forward), the backward the block backward's
+// cluster (launch 2 of the backward), with D_t from the forward's output.
+// Both bodies take q, k, v and their outputs through base pointers and row
 // strides.
 #include <cooperative_groups.h>
 
@@ -86,13 +87,13 @@ namespace {
 
 constexpr int kThreads = 256;
 
-using vsl::head_score;
-
 // --- backward ------------------------------------------------------------------
 // Per-tile partials part [B * tiles, 8D]: dgam [2D], dbeta [2D], dbqkv [3D],
 // dbd [D].
 
 constexpr int kGemmRows = 2;  // the per-frame launches' product tile (both directions)
+constexpr int kMaxCluster = 8;        // query tiles a (row, head) in the attention backward
+constexpr int kMaxAttnThreads = 512;  // threads a CTA of the attention backward, at most
 
 // The per-frame launches' shared memory for F frames a tile and weight
 // slices of SK rows, in floats: launch 1 the slices [2][SK][D], GD, XH, GZ
@@ -291,14 +292,19 @@ __host__ __device__ inline size_t attn_tile_floats(int T, int TQ, int hd) {
 
 // 2. the attention backward of one (row, head, query tile), in clusters of
 // ceil(T / TQ) CTAs a (row, head) along x, CTA r taking the query rows
-// [r TQ, min(T, (r + 1) TQ)). Reads q, k, v from qkv [B, T, 3D], the saved
-// attention output att and its gradient g_att [B, T, D]; writes dq, dk, dv
-// into dqkv [B, T, 3D].
+// [r TQ, min(T, (r + 1) TQ)). Reads q, k and v through base pointers and
+// one row stride ld (the block's packed qkv [B, T, 3D]: ld = 3D, k = qkv +
+// D, v = qkv + 2D; the whole-T route's [B, T, D] tensors: ld = D), the
+// saved attention output att and its gradient g_att [B, T, D]; writes dq,
+// dk and dv through base pointers and one row stride ldd (into dqkv, or
+// three [B, T, D] tensors).
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_cluster_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+__global__ void __launch_bounds__(kMaxAttnThreads)
+attn_bwd_cluster_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
+                        const float* __restrict__ vp, int ld, const float* __restrict__ mask,
                         vsl::Dropout drop, const float* __restrict__ att,
-                        const float* __restrict__ gatt, float* __restrict__ dqkv, int T, int D,
+                        const float* __restrict__ gatt, float* __restrict__ dqp,
+                        float* __restrict__ dkp, float* __restrict__ dvp, int ldd, int T, int D,
                         int n_heads, int TQ, float scale) {
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -318,22 +324,37 @@ attn_bwd_cluster_kernel(const float* __restrict__ qkv, const float* __restrict__
   float* neg = Dt + TQ;
   float* dKp = neg + T;
   float* dVp = dKp + (size_t)T * HD;
-  const int ld3 = 3 * D;
-  const float* qb = qkv + (size_t)b * T * ld3 + h * HD;  // q; k at + D, v at + 2D
-  const size_t gb = (size_t)b * T * D + h * HD;           // att and g_att
-  float* db = dqkv + (size_t)b * T * ld3 + h * HD;
+  const size_t ib = (size_t)b * T * ld + h * HD;  // q, k and v of the head
+  const size_t gb = (size_t)b * T * D + h * HD;   // att and g_att
+  const size_t ob = (size_t)b * T * ldd + h * HD;  // dq, dk and dv
   const uint32_t seed = drop.seed(b), salt = vsl::head_salt(h);
   const int tid = threadIdx.x, nth = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nth >> 5;
-  for (int i = tid; i < T * HD; i += nth) {
-    const int j = i / HD, d = i - j * HD;
-    Ks[j * LD + d] = qb[(size_t)j * ld3 + D + d];
-    Vs[j * LD + d] = qb[(size_t)j * ld3 + 2 * D + d];
+  // K_h, V_h and the tile's q * scale and g_att by 16-byte loads, several
+  // in flight a thread (every row of a head starts on 16 bytes: ld, D and
+  // h * HD are multiples of 4, the bases 16-byte aligned)
+  constexpr int HD4 = HD / 4;
+  const auto load4 = [](const float* src) { return *reinterpret_cast<const float4*>(src); };
+  const auto store4 = [](float* dst, float4 v, float f) {
+    dst[0] = v.x * f;
+    dst[1] = v.y * f;
+    dst[2] = v.z * f;
+    dst[3] = v.w * f;
+  };
+#pragma unroll 4
+  for (int i = tid; i < T * HD4; i += nth) {
+    const int j = i / HD4, d = (i - j * HD4) * 4;
+    const float4 kv = load4(kp + ib + (size_t)j * ld + d), vv = load4(vp + ib + (size_t)j * ld + d);
+    store4(Ks + j * LD + d, kv, 1.f);
+    store4(Vs + j * LD + d, vv, 1.f);
   }
-  for (int i = tid; i < nt * HD; i += nth) {
-    const int t = i / HD, d = i - t * HD;
-    Qs[t * LD + d] = qb[(size_t)(t0 + t) * ld3 + d] * scale;
-    Gs[t * LD + d] = gatt[gb + (size_t)(t0 + t) * D + d];
+#pragma unroll 2
+  for (int i = tid; i < nt * HD4; i += nth) {
+    const int t = i / HD4, d = (i - t * HD4) * 4;
+    const float4 qv = load4(qp + ib + (size_t)(t0 + t) * ld + d);
+    const float4 gv = load4(gatt + gb + (size_t)(t0 + t) * D + d);
+    store4(Qs + t * LD + d, qv, scale);
+    store4(Gs + t * LD + d, gv, 1.f);
   }
   for (int j = tid; j < T; j += nth) neg[j] = (1.f - mask[(size_t)b * T + j]) * vsl::kMaskValue;
   // D_t = sum_j P dP = g_att_t . att_t, since att = drop(P).V
@@ -342,11 +363,17 @@ attn_bwd_cluster_kernel(const float* __restrict__ qkv, const float* __restrict__
     const float* at = att + gb + (size_t)(t0 + t) * D;
     float s = 0.f;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) s = fmaf(gt[d], at[d], s);
+    for (int d = 0; d < HD; d += 4) {
+      const float4 g4 = load4(gt + d), a4 = load4(at + d);
+      s = fmaf(g4.x, a4.x, s);
+      s = fmaf(g4.y, a4.y, s);
+      s = fmaf(g4.z, a4.z, s);
+      s = fmaf(g4.w, a4.w, s);
+    }
     Dt[t] = s;
   }
   __syncthreads();
-  // S = (q * scale).k^T + neg, the forward's scores bit for bit (head_score)
+  // S = (q * scale).k^T + neg, the forward's scores bit for bit
   tile_product<4, 4>(
       nt, T, HD, [&](int m, int k) { return Qs[m * LD + k]; },
       [&](int k, int n) { return Ks[n * LD + k]; },
@@ -390,151 +417,66 @@ attn_bwd_cluster_kernel(const float* __restrict__ qkv, const float* __restrict__
         *sp = *sp * (dpd - Dt[t]);
       });
   __syncthreads();
-  // dQ = scale * dS.K; this CTA's dK = dS^T . (q * scale) over its query rows
-  tile_product<2, 2>(
-      nt, HD, T, [&](int t, int j) { return SP[(size_t)t * lds + j]; },
-      [&](int j, int d) { return Ks[j * LD + d]; },
-      [&](int t, int d, float v) { db[(size_t)(t0 + t) * ld3 + d] = v * scale; });
+  // dQ = scale * dS.K, in items of 2 x 2, or of 1 x 2 where those take no
+  // more rounds of the CTA's threads (each element is one chain over the
+  // keys either way)
+  const auto ds_tj = [&](int t, int j) { return SP[(size_t)t * lds + j]; };
+  const auto k_jd = [&](int j, int d) { return Ks[j * LD + d]; };
+  const auto dq_out = [&](int t, int d, float v) {
+    dqp[ob + (size_t)(t0 + t) * ldd + d] = v * scale;
+  };
+  const int rounds22 = ((nt + 1) / 2 * (HD / 2) + nth - 1) / nth;
+  if (rounds22 < (nt * (HD / 2) + nth - 1) / nth)
+    tile_product<2, 2>(nt, HD, T, ds_tj, k_jd, dq_out);
+  else
+    tile_product<1, 2>(nt, HD, T, ds_tj, k_jd, dq_out);
+  // this CTA's dK = dS^T . (q * scale) over its query rows
   tile_product<4, 2>(
       T, HD, nt, [&](int j, int t) { return SP[(size_t)t * lds + j]; },
       [&](int t, int d) { return Qs[t * LD + d]; },
       [&](int j, int d, float v) { dKp[j * HD + d] = v; });
   cluster.sync();  // every CTA's partials
-  // dK, dV of the key rows [t0, t0 + nt): the cluster's partials in rank order
+  // dK, dV of the key rows [t0, t0 + nt): the cluster's partials, all read
+  // before they are summed in rank order
   for (int i = tid; i < nt * HD; i += nth) {
     const int j = t0 + i / HD, d = i % HD;
-    float sk = 0.f, sv = 0.f;
-    for (int q = 0; q < nq; ++q) {
-      sk += cluster.map_shared_rank(dKp, q)[j * HD + d];
-      sv += cluster.map_shared_rank(dVp, q)[j * HD + d];
+    float pk[kMaxCluster], pv[kMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      if (q < nq) {
+        pk[q] = cluster.map_shared_rank(dKp, q)[j * HD + d];
+        pv[q] = cluster.map_shared_rank(dVp, q)[j * HD + d];
+      }
     }
-    db[(size_t)j * ld3 + D + d] = sk;
-    db[(size_t)j * ld3 + 2 * D + d] = sv;
+    float sk = 0.f, sv = 0.f;
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      if (q < nq) {
+        sk += pk[q];
+        sv += pv[q];
+      }
+    }
+    dkp[ob + (size_t)j * ldd + d] = sk;
+    dvp[ob + (size_t)j * ldd + d] = sv;
   }
   cluster.sync();  // no CTA leaves while another may read its partials
 }
 
-// The whole-T attention backward (fused_mha's, vsl_mha_bwd) for one (row,
-// head). Phase A, a thread per query row t: m, l and D_t = sum_j dp * p,
-// then ds = p * (dp - D_t) into DS and dq = scale * ds . k. Phase B, a
-// thread per key column j: P recomputed, dv = sum_t drop(p) * g_t and dk =
-// sum_t ds * q_t * scale.
+// The attention backward (attn_bwd_cluster_kernel) of B rows and n_heads
+// heads on query tiles of TQ rows: one cluster of ceil(T / TQ) CTAs of
+// `threads` threads a (row, head).
 template <int HD>
-__global__ void attention_bwd_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
-                                     const float* __restrict__ vp, int ld,
-                                     const float* __restrict__ mask, vsl::Dropout drop,
-                                     const float* __restrict__ gatt, int ldg,
-                                     float* __restrict__ dqp, float* __restrict__ dkp,
-                                     float* __restrict__ dvp, int ldd, int T, float scale) {
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [T, HD], q * scale
-  float* Ks = Qs + (size_t)T * HD;               // [T, HD]
-  float* Vs = Ks + (size_t)T * HD;               // [T, HD]
-  float* Gs = Vs + (size_t)T * HD;               // [T, HD], g_att of the head
-  float* neg = Gs + (size_t)T * HD;              // [T]
-  float* ms = neg + T;                           // [T] row max
-  float* ls = ms + T;                            // [T] 1 / row sum
-  float* DS = ls + T;                            // [T, T + 1]
-  const int lds = T + 1;  // DS row stride
-  const int b = blockIdx.x, h = blockIdx.y;
-  const size_t base = (size_t)b * T * ld + h * HD;
-  const size_t gbase = (size_t)b * T * ldg + h * HD;
-  const size_t dbase = (size_t)b * T * ldd + h * HD;
-  const uint32_t seed = drop.seed(b), salt = vsl::head_salt(h);
-  const float dscale = drop.on() ? drop.scale : 1.f;
-  for (int i = threadIdx.x; i < T * HD; i += blockDim.x) {
-    const int j = i / HD, d = i - j * HD;
-    Qs[i] = qp[base + (size_t)j * ld + d] * scale;
-    Ks[i] = kp[base + (size_t)j * ld + d];
-    Vs[i] = vp[base + (size_t)j * ld + d];
-    Gs[i] = gatt[gbase + (size_t)j * ldg + d];
-  }
-  for (int j = threadIdx.x; j < T; j += blockDim.x)
-    neg[j] = (1.f - mask[(size_t)b * T + j]) * vsl::kMaskValue;
-  __syncthreads();
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    float q[HD], gv[HD], dq[HD];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      q[d] = Qs[t * HD + d];
-      gv[d] = Gs[t * HD + d];
-      dq[d] = 0.f;
-    }
-    float m = -FLT_MAX;
-    for (int j = 0; j < T; ++j) m = fmaxf(m, head_score<HD>(q, Ks + j * HD, neg[j]));
-    float l = 0.f, edp = 0.f;
-    for (int j = 0; j < T; ++j) {
-      const float e = expf(head_score<HD>(q, Ks + j * HD, neg[j]) - m);
-      l += e;
-      if (drop.keep(seed, salt, t, j)) {
-        float dpd = 0.f;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) dpd = fmaf(gv[d], Vs[j * HD + d], dpd);
-        edp = fmaf(e, dpd * dscale, edp);
-      }
-    }
-    const float linv = 1.f / l;
-    const float Dt = edp * linv;
-    for (int j = 0; j < T; ++j) {
-      const float p = expf(head_score<HD>(q, Ks + j * HD, neg[j]) - m) * linv;
-      float dp = 0.f;
-      if (drop.keep(seed, salt, t, j)) {
-#pragma unroll
-        for (int d = 0; d < HD; ++d) dp = fmaf(gv[d], Vs[j * HD + d], dp);
-        dp *= dscale;
-      }
-      const float ds = p * (dp - Dt);
-      DS[(size_t)t * lds + j] = ds;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) dq[d] = fmaf(ds, Ks[j * HD + d], dq[d]);
-    }
-    ms[t] = m;
-    ls[t] = linv;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) dqp[dbase + (size_t)t * ldd + d] = dq[d] * scale;
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < T; j += blockDim.x) {
-    float k[HD], dk[HD], dv[HD];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      k[d] = Ks[j * HD + d];
-      dk[d] = 0.f;
-      dv[d] = 0.f;
-    }
-    for (int t = 0; t < T; ++t) {
-      const float* qt = Qs + t * HD;
-      if (drop.keep(seed, salt, t, j)) {
-        const float pd = expf(head_score<HD>(k, qt, neg[j]) - ms[t]) * ls[t] * dscale;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) dv[d] = fmaf(pd, Gs[t * HD + d], dv[d]);
-      }
-      const float ds = DS[(size_t)t * lds + j];
-#pragma unroll
-      for (int d = 0; d < HD; ++d) dk[d] = fmaf(ds, qt[d], dk[d]);
-    }
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      dkp[dbase + (size_t)j * ldd + d] = dk[d];
-      dvp[dbase + (size_t)j * ldd + d] = dv[d];
-    }
-  }
-}
-
-template <int HD>
-cudaError_t launch_attention_bwd(const float* q, const float* k, const float* v, int ld,
-                                 const float* mask, vsl::Dropout drop, const float* gatt, int ldg,
-                                 float* dq, float* dk, float* dv, int ldd, int B, int T,
-                                 int n_heads, cudaStream_t stream) {
-  const int threads = min(kThreads, (T + 31) / 32 * 32);
-  const size_t smem = ((size_t)4 * T * HD + 3 * T + (size_t)T * (T + 1)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  attention_bwd_kernel<HD><<<dim3(B, n_heads), threads, smem, stream>>>(
-      q, k, v, ld, mask, drop, gatt, ldg, dq, dk, dv, ldd, T, vsl::head_scale(HD));
-  return cudaGetLastError();
+cudaError_t launch_attention_bwd_tiles(const float* q, const float* k, const float* v, int ld,
+                                       const float* mask, vsl::Dropout drop, const float* att,
+                                       const float* gatt, float* dq, float* dk, float* dv,
+                                       int ldd, int B, int T, int D, int n_heads, int TQ,
+                                       int threads, cudaStream_t stream) {
+  const int nq = (T + TQ - 1) / TQ;
+  const size_t smem = attn_tile_floats(T, TQ, HD) * sizeof(float);
+  const cudaError_t err = vsl::launch_cluster(
+      attn_bwd_cluster_kernel<HD>, B * n_heads * nq, nq, threads, smem, stream, q, k, v, ld,
+      mask, drop, att, gatt, dq, dk, dv, ldd, T, D, n_heads, TQ, vsl::head_scale(HD));
+  return err == cudaSuccess ? cudaGetLastError() : err;
 }
 
 // --- forward, on mha_fwd_plan ---------------------------------------------------
@@ -616,7 +558,7 @@ attn_fwd_tile_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
   }
   for (int j = tid; j < T; j += nth) neg[j] = (1.f - mask[(size_t)b * T + j]) * vsl::kMaskValue;
   __syncthreads();
-  // S = (q * scale).k^T + neg, head_score's chain of sums
+  // S = (q * scale).k^T + neg, the score order of common.cuh
   tile_product<4, 4>(
       nt, T, HD, [&](int m, int k) { return Qs[m * LD + k]; },
       [&](int k, int n) { return Ks[n * LD + k]; },
@@ -751,7 +693,7 @@ extern "C" int vsl_mha_block_bwd(const float* x, const float* mask, const float*
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const int nq = TQ > 0 ? (T + TQ - 1) / TQ : 0;
   if (B < 1 || T < 1 || D < 4 || D % 4 || n_heads < 1 || D % n_heads || F < 1 || SK < 4 ||
-      SK % 4 || D % SK || nq < 1 || nq > 8)
+      SK % 4 || D % SK || nq < 1 || nq > kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   const vsl::Dropout drop{seeds, thresh, scale};
   const dim3 grid((T + F - 1) / F, B);
@@ -765,12 +707,9 @@ extern "C" int vsl_mha_block_bwd(const float* x, const float* mask, const float*
   if (err != cudaSuccess) return static_cast<int>(err);
 
   err = vsl::by_head_dim(D / n_heads, [&](auto hd) {
-    constexpr int HD = decltype(hd)::value;
-    const size_t smem2 = attn_tile_floats(T, TQ, HD) * sizeof(float);
-    cudaError_t e = vsl::launch_cluster(attn_bwd_cluster_kernel<HD>, B * n_heads * nq, nq,
-                                        kThreads, smem2, stream, qkv, mask, drop, att, gatt_ws,
-                                        dqkv, T, D, n_heads, TQ, vsl::head_scale(HD));
-    return e == cudaSuccess ? cudaGetLastError() : e;
+    return launch_attention_bwd_tiles<decltype(hd)::value>(
+        qkv, qkv + D, qkv + 2 * D, 3 * D, mask, drop, att, gatt_ws, dqkv, dqkv + D, dqkv + 2 * D,
+        3 * D, B, T, D, n_heads, TQ, kThreads, stream);
   });
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -793,9 +732,10 @@ extern "C" int vsl_mha_block_bwd(const float* x, const float* mask, const float*
 // TPU kernels _make_mha_fwd_kernel and _make_mha_bwd_kernel, over unsplit
 // q, k, v [B, T, D], key mask [B, T] and per-row seeds. The forward runs
 // the block forward's attention on query tiles of TQ rows (ops/kernels.py
-// MHA_WHOLE_QTILE). The backward keeps a head's dS [T, T + 1] in shared
-// memory, so it takes T up to 209 at head dim 16 (ops/kernels.py
-// attention_route); longer T goes to flash_mha.cu.
+// MHA_WHOLE_QTILE); the backward the block backward's cluster of query
+// tiles of TQ rows (ceil(T / TQ) <= 8) in CTAs of `threads` threads
+// (ops/kernels.py mha_whole_bwd_plan), with D_t = g . out from the
+// forward's output out.
 extern "C" int vsl_mha_fwd(const float* q, const float* k, const float* v, const float* mask,
                            const float* seeds, unsigned thresh, float scale, float* out, int B,
                            int T, int D, int n_heads, int TQ, void* stream_) {
@@ -809,13 +749,18 @@ extern "C" int vsl_mha_fwd(const float* q, const float* k, const float* v, const
 }
 
 extern "C" int vsl_mha_bwd(const float* q, const float* k, const float* v, const float* mask,
-                           const float* seeds, unsigned thresh, float scale, const float* g,
-                           float* dq, float* dk, float* dv, int B, int T, int D, int n_heads,
-                           void* stream_) {
+                           const float* seeds, unsigned thresh, float scale, const float* out,
+                           const float* g, float* dq, float* dk, float* dv, int B, int T, int D,
+                           int n_heads, int TQ, int threads, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const int nq = TQ > 0 ? (T + TQ - 1) / TQ : 0;
+  if (B < 1 || T < 1 || n_heads < 1 || D % n_heads || nq < 1 || nq > kMaxCluster ||
+      threads < 32 || threads % 32 || threads > kMaxAttnThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
   const vsl::Dropout drop{seeds, thresh, scale};
   return static_cast<int>(vsl::by_head_dim(D / n_heads, [&](auto hd) {
-    return launch_attention_bwd<decltype(hd)::value>(q, k, v, D, mask, drop, g, D, dq, dk, dv, D,
-                                                     B, T, n_heads, stream);
+    return launch_attention_bwd_tiles<decltype(hd)::value>(q, k, v, D, mask, drop, out, g, dq,
+                                                           dk, dv, D, B, T, D, n_heads, TQ,
+                                                           threads, stream);
   }));
 }

@@ -100,7 +100,7 @@ _SIGNATURES = {
     "vsl_conv_block_fwd_tiled": [_P] * 7 + _DROP + [_P] * 2 + [_I] * 8 + [_P],
     "vsl_conv_block_bwd_tiled": [_P] * 9 + _DROP + [_P] * 9 + [_I] * 9 + [_P],
     "vsl_mha_fwd": [_P] * 5 + _DROP + [_P] + [_I] * 5 + [_P],
-    "vsl_mha_bwd": [_P] * 5 + _DROP + [_P] * 4 + [_I] * 4 + [_P],
+    "vsl_mha_bwd": [_P] * 5 + _DROP + [_P] * 5 + [_I] * 6 + [_P],
     "vsl_flash_mha_fwd": [_P] * 5 + _DROP + [_P] * 2 + [_I] * 5 + [_P],
     "vsl_flash_mha_bwd": [_P] * 5 + _DROP + [_P] * 8 + [_I] * 4 + [_P],
 }
@@ -1087,19 +1087,17 @@ def mha_block_unfused(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
 MHA_HEAD_DIMS = (8, 16, 32, 64)
 
 
-def attention_bwd_smem_bytes(T, hd):
-    """The whole-T attention backward's shared memory: q, k, v, g of a head,
-    the mask, row maxima and sums, and dS [T, T + 1]."""
-    return (4 * T * hd + 3 * T + T * (T + 1)) * 4
-
-
 def attention_route(T, hd):
-    """fused_mha's kernels: "whole" (one block a (row, head), the whole
-    [T, T] tile of dS in shared memory: T <= 209 at head dim 16) where the
-    backward fits, else "flash". Forward and backward read the same gate,
-    so one call never mixes the routes' residuals."""
-    return "whole" if attention_bwd_smem_bytes(T, hd) <= MAX_SMEM_BYTES \
-        else "flash"
+    """fused_mha's kernels: "whole" (the whole-T kernels, on the MHA block's
+    attention bodies) up to the route's T limit, else "flash". The T limit
+    is the one the whole-T backward had when it ran one block a (row, head):
+    a head's q, k, v and g, three [T] rows and dS [T, T + 1] in a block's
+    shared memory (T <= 223, 209, 183, 143 at head dims 8, 16, 32, 64),
+    kept so that every shape takes the route it took then; its cluster
+    (mha_whole_bwd_plan) fits every shape under it. Forward and backward
+    read the same gate, so one call never mixes the routes' residuals."""
+    t_limit = (4 * T * hd + 3 * T + T * (T + 1)) * 4 <= MAX_SMEM_BYTES
+    return "whole" if t_limit else "flash"
 
 
 def _head_dim(name, D, n_heads):
@@ -1178,14 +1176,22 @@ def _mha_bwd_sizes(T, D, hd):
             frames = -(-frames // 2)
         else:
             return None
+    q_tile = _mha_cluster_q_tile(T, hd, MHA_QTILE)
+    return None if q_tile is None else (frames, sk, q_tile)
+
+
+def _mha_cluster_q_tile(T, hd, q_tile):
+    """Query rows a CTA of the cluster attention backward at T keys and head
+    dim hd: q_tile, at least T / MHA_CLUSTER (a (row, head) is one cluster),
+    halved while its shared memory does not fit; None where none fits."""
     least = -(-T // MHA_CLUSTER)
-    q_tile = min(T, max(MHA_QTILE, least))
+    q_tile = min(T, max(q_tile, least))
     while (_mha_attention_bytes(T, q_tile, hd) > MAX_SMEM_BYTES
            and -(-q_tile // 2) >= least and q_tile > 1):
         q_tile = -(-q_tile // 2)
     if _mha_attention_bytes(T, q_tile, hd) > MAX_SMEM_BYTES:
         return None
-    return frames, sk, q_tile
+    return q_tile
 
 
 def mha_bwd_plan(B, T, D, n_heads):
@@ -1208,6 +1214,43 @@ def mha_bwd_plan(B, T, D, n_heads):
     return MHABwdPlan(frames, -(-T // frames), sk,
                       _mha_frames_bytes(frames, sk, D), q_tile,
                       -(-T // q_tile), _mha_attention_bytes(T, q_tile, hd))
+
+
+# query rows and threads a CTA of the whole-T backward (the MHA block
+# backward's cluster attention body, which the block backward runs with
+# 256 threads): the fastest at path M's [16, 192, 128] in
+# vslnet_torch/bench/mha_plans.py --whole-t (PERF.md)
+MHA_WHOLE_BWD_QTILE = 96
+MHA_WHOLE_BWD_THREADS = 512
+
+
+class MHAWholeBwdPlan(NamedTuple):
+    """One call of the whole-T backward: clusters of `q_tiles` = ceil(T /
+    q_tile) CTAs of `threads` threads a (row, head), `smem` bytes each."""
+    q_tile: int
+    q_tiles: int
+    threads: int
+    smem: int
+
+
+def mha_whole_bwd_plan(B, T, D, n_heads):
+    """The whole-T backward's launch plan for B rows of [T, D] and n_heads
+    heads: query tiles of MHA_WHOLE_BWD_QTILE rows, at least T /
+    MHA_CLUSTER, halved while they do not fit (_mha_cluster_q_tile). A CTA
+    keeps the head's k and v, its query tile's q and g, the tile's [q_tile,
+    T + 1] scores and keep bits and its dK, dV partials. Raises on what the
+    kernel cannot take."""
+    hd = _head_dim("mha_whole_bwd_plan", D, n_heads)
+    if B < 1 or T < 1:
+        raise ValueError("mha_whole_bwd_plan: needs B, T >= 1, got B=%d, T=%d"
+                         % (B, T))
+    q_tile = _mha_cluster_q_tile(T, hd, MHA_WHOLE_BWD_QTILE)
+    if q_tile is None:
+        raise ValueError("mha_whole_bwd_plan: T=%d, head dim %d: no query "
+                         "tile fits the %d bytes of shared memory a block has"
+                         % (T, hd, MAX_SMEM_BYTES))
+    return MHAWholeBwdPlan(q_tile, -(-T // q_tile), MHA_WHOLE_BWD_THREADS,
+                           _mha_attention_bytes(T, q_tile, hd))
 
 
 # frames a tile of the forward's per-frame launches, rows of a weight slice
@@ -1424,15 +1467,15 @@ def fused_mha_block(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
 # --- 3b. multi-head attention at any T -----------------------------------------
 # Replaces vslnet_tpu/ops/pallas_kernels.py:_make_mha_fwd_kernel and
 # _make_mha_bwd_kernel (whole-T; csrc/mha_block.cu: the forward on the MHA
-# block forward's attention body, the backward one thread a query row),
-# _make_flash_fwd_kernel and _make_flash_bwd_kernel (csrc/flash_mha.cu),
-# via fused_mha and its VJP. attention_route picks one route for both
-# directions. The whole-T backward is bound by its per-thread key loops
-# (an exp, a hash and 2 * hd FMAs a pair); the flash forward runs on
-# flash_fwd_plan, several query rows a thread against key tiles streamed
-# through shared memory; the flash backward on flash_bwd_plan, one pass
-# over key-tile CTAs with its products register-tiled out of shared
-# memory.
+# block forward's attention body, the backward on the block backward's
+# cluster of query tiles, mha_whole_bwd_plan), _make_flash_fwd_kernel and
+# _make_flash_bwd_kernel (csrc/flash_mha.cu), via fused_mha and its VJP.
+# attention_route picks one route for both directions. The whole-T
+# kernels' products run register-tiled out of shared memory; the flash
+# forward runs on flash_fwd_plan, several query rows a thread against key
+# tiles streamed through shared memory; the flash backward on
+# flash_bwd_plan, one pass over key-tile CTAs with its products
+# register-tiled out of shared memory.
 
 # keys a CTA of the flash backward at head dims up to 32 (64 above: the
 # kernel keeps 2 keys x 8 dims of dK and dV a thread in registers, for at
@@ -1572,21 +1615,22 @@ def launch_mha_fwd(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
     return out
 
 
-def launch_mha_bwd(q, k, v, mask, n_heads, seeds, drop_rate, g):
-    """The whole-T backward kernel (P recomputed): (dq, dk, dv). CUDA
-    tensors only."""
+def launch_mha_bwd(q, k, v, mask, n_heads, seeds, drop_rate, out, g):
+    """The whole-T backward kernel on mha_whole_bwd_plan (P recomputed, D_t
+    = g . out from the forward's output): (dq, dk, dv). CUDA tensors
+    only."""
     name = "mha_bwd"
-    _require_cuda(name, q, k, v, mask, g)
-    B, T, D = _attention_shapes(name, q, k, v, mask, n_heads, g)
-    if attention_route(T, D // n_heads) != "whole":
-        raise ValueError("%s: T=%d needs %d bytes of shared memory, above the "
-                         "%d a block has" % (name, T, attention_bwd_smem_bytes(
-                             T, D // n_heads), MAX_SMEM_BYTES))
+    _require_cuda(name, q, k, v, mask, out, g)
+    B, T, D = _attention_shapes(name, q, k, v, mask, n_heads, out, g)
+    plan = mha_whole_bwd_plan(B, T, D, n_heads)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    # the kernel reads a head's rows by 16-byte loads
+    q, k, v, out, g = _aligned16(q, k, v, out, g)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            sp, thresh, scale, g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, T, D, n_heads)
+            sp, thresh, scale, out.data_ptr(), g.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, T, D, n_heads, plan.q_tile,
+            plan.threads)
     return dq, dk, dv
 
 
@@ -1635,20 +1679,21 @@ def launch_flash_mha_bwd(q, k, v, mask, n_heads, seeds, drop_rate, out, lse,
 
 
 class FusedMHA(torch.autograd.Function):
-    """fused_mha's whole-T route: forward kernel, backward kernel."""
+    """fused_mha's whole-T route: forward kernel, backward kernel, which
+    reads the forward's output."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, n_heads, seeds, drop_rate):
         out = launch_mha_fwd(q, k, v, mask, n_heads, seeds, drop_rate)
-        ctx.save_for_backward(q, k, v, mask, seeds)
+        ctx.save_for_backward(q, k, v, mask, seeds, out)
         ctx.n_heads, ctx.drop_rate = n_heads, drop_rate
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, mask, seeds = ctx.saved_tensors
+        q, k, v, mask, seeds, out = ctx.saved_tensors
         return (*launch_mha_bwd(q, k, v, mask, ctx.n_heads, seeds,
-                                ctx.drop_rate, g.contiguous()),
+                                ctx.drop_rate, out, g.contiguous()),
                 None, None, None, None)
 
 
@@ -1690,7 +1735,12 @@ def fused_mha(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
 # Replaces vslnet_tpu/ops/pallas_kernels.py:_span_decode_kernel (via
 # fused_span_decode). Kernel: csrc/span_decode.cu. Launch-bound; one block
 # per row, and the [T, T] banded product is replaced by exact prefix and
-# suffix maxima.
+# suffix maxima, taken by block scans over chunks of the row held in
+# registers.
+
+# the longest row the wrapper takes (the kernel's registers hold 6144
+# frames): the limit it has always had, so that it refuses what it refused
+SPAN_DECODE_MAX_T = 6128
 
 
 def banded_outer(start_logits, end_logits):
@@ -1719,8 +1769,9 @@ def fused_span_decode(start_logits, end_logits):
     B, T = start_logits.shape
     _check(name, start_logits, (B, T))
     _check(name, end_logits, (B, T))
-    if (2 * T + 32) * 4 > 48 * 1024:  # the default dynamic shared memory
-        raise ValueError("%s: T=%d does not fit shared memory" % (name, T))
+    if T > SPAN_DECODE_MAX_T:
+        raise ValueError("%s: T=%d is above the %d frames the kernel takes"
+                         % (name, T, SPAN_DECODE_MAX_T))
     s_idx = torch.empty(B, device=start_logits.device, dtype=torch.int32)
     e_idx = torch.empty_like(s_idx)
     _launch(name, start_logits.data_ptr(), end_logits.data_ptr(),
