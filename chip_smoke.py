@@ -85,8 +85,13 @@ Any failure raises and exits non-zero before the last line.
 """
 import json
 import math
+import os
+import re
+import signal
+import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -113,6 +118,7 @@ GRAD_ATOL = 1e-6
 DROP = 0.2          # the training phase's drop_rate (the reference's)
 TRAIN_STEPS = 20
 SEED = 0
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def emit(obj):
@@ -1520,6 +1526,343 @@ def long_t_phase(dev):
     return rows
 
 
+# --- phase 7 -------------------------------------------------------------------
+# The reference's default run through the command line (python -m
+# vslnet_torch) on a seeded miniature data root in Charades-STA's format:
+# the copies of a step and of a served batch by torch.profiler; train,
+# resume, test, predict and serve, each a process of its own that writes
+# its kernel launches when it exits; then the shapes where a kernel does
+# not fit (C5) against use_pallas=off.
+
+CLI_DATA = {"n_train": 96, "n_test": 32, "n_videos": 48, "clips": (100, 300)}
+CLI_KERNELS = ("lstm_recurrence_fwd", "lstm_recurrence_fwd_res",
+               "lstm_recurrence_bwd", "conv_block_fwd", "conv_block_bwd",
+               "conv_block_fwd_tiled", "conv_block_bwd_tiled",
+               "mha_block_fwd", "mha_block_bwd", "cqa_concat_fwd",
+               "highlight_gate_fwd", "span_decode")
+HTOD_STEP_MAX_BYTES = 1024
+# modules -> the kernels that show they took the kernel route
+MODULE_KERNELS = {
+    "lstm": ("lstm_recurrence_fwd", "lstm_recurrence_fwd_res"),
+    "conv": ("conv_block_fwd", "conv_block_fwd_tiled"),
+    "mha": ("mha_block_fwd", "mha_fwd", "flash_mha_fwd"),
+    "cqa": ("cqa_concat_fwd",), "highlight": ("highlight_gate_fwd",),
+    "span_decode": ("span_decode",)}
+
+
+def cli_args(root, work, *extra):
+    """The reference's default run (`--task charades --predictor rnn`: T
+    128, batch 16, hidden 128, 8 heads, 1024-d video, 300-d GloVe) on the
+    data root, 2 epochs."""
+    return ["--task", "charades", "--predictor", "rnn",
+            "--data_root", root, "--save_dir", os.path.join(work, "datasets"),
+            "--model_dir", os.path.join(work, "ckpt"), "--epochs", "2",
+            "--period", "2", "--log_to_tensorboard", "false",
+            "--seed", str(SEED)] + list(extra)
+
+
+# runs the package as `python -m vslnet_torch` does (runpy, as __main__),
+# and writes the process's kernel launch counts to argv[1] when it exits
+CLI_LAUNCHER = (
+    "import atexit, json, runpy, sys\n"
+    "from vslnet_torch.ops import kernels\n"
+    "out = sys.argv.pop(1)\n"
+    "atexit.register(lambda: json.dump(kernels.LAUNCHES, open(out, 'w')))\n"
+    "runpy.run_module('vslnet_torch', run_name='__main__', alter_sys=True)\n")
+
+
+def cli_proc(name, args, work, launches, **kw):
+    """`python -m vslnet_torch args` from the repo root, its kernel launch
+    counts written to work/launches_<name>.json (read into `launches` by
+    cli_launches)."""
+    launches[name] = os.path.join(work, "launches_%s.json" % name)
+    return [sys.executable, "-c", CLI_LAUNCHER, launches[name]] + args, dict(
+        cwd=REPO_ROOT, text=True, **kw)
+
+
+def cli_run(name, args, work, launches, timeout=600):
+    cmd, kw = cli_proc(name, args, work, launches)
+    res = subprocess.run(cmd, capture_output=True, timeout=timeout, **kw)
+    check(res.returncode == 0, "python -m vslnet_torch %s failed (%d):\n%s"
+          % (" ".join(args[-6:]), res.returncode, res.stderr[-4000:]))
+    return res.stdout
+
+
+def scores_at(text, step):
+    """(R1@0.3, R1@0.5, R1@0.7, mIoU) of eval_results.txt's last block of
+    `step`."""
+    lines = text.splitlines()
+    heads = [i for i, ln in enumerate(lines)
+             if ln.startswith("Epoch") and ln.endswith("Step %d:" % step)]
+    check(bool(heads), "no evaluation of step %d in eval_results.txt" % step)
+    return [float(x) for x in re.findall(r": ([0-9.]+)",
+                                         lines[heads[-1] + 1])]
+
+
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def serve_run(root, work, launches, requests):
+    """--mode serve on a free port: wait for its `serving` line, POST the
+    requests, stop it with SIGINT. Returns the replies."""
+    port = free_port()
+    cmd, kw = cli_proc("serve", cli_args(root, work, "--mode", "serve",
+                                         "--port", str(port)), work,
+                       launches, stdout=subprocess.PIPE,
+                       stderr=subprocess.PIPE)
+    proc = subprocess.Popen(cmd, **kw)
+    try:
+        line = ""
+        deadline = time.time() + 300
+        while '"serving"' not in line:
+            check(proc.poll() is None and time.time() < deadline,
+                  "the server did not start: %s" % (proc.poll(),))
+            line = proc.stdout.readline()
+        base = "http://127.0.0.1:%d/localize" % port
+        replies = [post(base, req) for req in requests]
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            _, err = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+    check(proc.returncode == 0, "the server exited %d: %s"
+          % (proc.returncode, err[-2000:]))
+    return replies
+
+
+def cli_launches(files):
+    """{run: {kernel: launches}} from each process's launch file."""
+    out = {}
+    for name, path in files.items():
+        with open(path, encoding="utf-8") as f:
+            out[name] = json.load(f)
+    return out
+
+
+def copies_phase(root, work):
+    """A step and a served batch of the CLI's configuration in this process,
+    on the data root's caches (built here, then read by the CLI's runs):
+    the data layout and the bytes each copies host to device, by
+    torch.profiler. It runs before the CLI's processes: after other
+    processes had used the card, the profiler here kept no record of some
+    copies."""
+    import torch
+
+    from vslnet_torch.bench.paths import profile_device
+    from vslnet_torch.cli import load_or_build_feature_bank
+    from vslnet_torch.config import build_parser, namespace_to_config
+    from vslnet_torch.data.datasets import gen_or_load_dataset
+    from vslnet_torch.serve import Localizer
+    from vslnet_torch.server import durations_from_dataset
+    from vslnet_torch.train.runner import Trainer
+
+    cfg = namespace_to_config(build_parser().parse_args(
+        cli_args(root, work, "--mode", "train")))
+    dataset = gen_or_load_dataset(cfg)
+    cfg.char_size = dataset["n_chars"]
+    bank = load_or_build_feature_bank(cfg)
+    trainer = Trainer(cfg, dataset, bank)
+    for _ in range(2):
+        trainer.step()
+    torch.cuda.synchronize()
+    # three steps in one window: the profiler has once kept no record of a
+    # lone step's 64-byte copy
+    steps = profile_device(lambda: [trainer.step() for _ in range(3)],
+                           float("nan"))
+    per_step = steps["htod_bytes"] / 3
+    emit({"phase": "cli_copies", "of": "train step",
+          "layout": trainer.batch_layout, "htod_bytes_per_step": per_step,
+          "htod_copies_3_steps": steps["htod_copies"],
+          "htod_copy_ms_per_step": steps["htod_copy_ms"] / 3,
+          "device_ms_per_step": steps["device_ms"] / 3,
+          "max_bytes": HTOD_STEP_MAX_BYTES})
+    check(trainer.batch_layout == "idxs"
+          and 0 < per_step <= HTOD_STEP_MAX_BYTES,
+          "a step copies %s bytes to the device (%s)" % (
+              per_step, steps["htod_copies"]))
+    loc = Localizer.from_trainer(trainer, dataset["word_dict"],
+                                 dataset["char_dict"])
+    durations = durations_from_dataset(dataset)
+    triples = [(bank[r["vid"]], durations[r["vid"]], " ".join(r["words"]))
+               for r in dataset["test_set"][:cfg.batch_size]]
+    loc.localize_batch(triples)
+    served = profile_device(lambda: loc.localize_batch(triples), float("nan"))
+    kinds = served["htod_copies"]
+    # three batches staged back to back, without a wait between (the third
+    # refills the first's buffers), against pageable copies of the same
+    chunks = [[(bank[r["vid"]], durations[r["vid"]], " ".join(r["words"]))
+               for r in dataset["test_set"][i:i + 8]] for i in (0, 8, 16)]
+    staged = [loc.make_batch(c)[0] for c in chunks]
+    same = True
+    for chunk, got in zip(chunks, staged):
+        arrays = [np.zeros(shape, str(dtype)[6:])
+                  for shape, dtype in loc.batch_specs()]
+        loc.fill_batch(arrays, chunk)
+        same &= all(torch.equal(g, torch.from_numpy(a).cuda())
+                    for g, a in zip(got, arrays))
+    emit({"phase": "cli_copies", "of": "served batch of 16",
+          "htod_bytes": served["htod_bytes"], "htod_copies": kinds,
+          "htod_copy_ms": served["htod_copy_ms"],
+          "device_ms": served["device_ms"],
+          "back_to_back_equal_pageable": same})
+    check(bool(kinds) and all("Pinned" in k for k in kinds),
+          "the served batch's copies are not from pinned memory: %s" % kinds)
+    check(same, "batches staged back to back disagree with pageable copies")
+
+
+def c5_phase(dataset, feats, splits):
+    """The shapes where a kernel does not fit: a forward and a train step at
+    hidden 512 (rnn: the LSTM beyond its 256) and at hidden 192 in 8 heads
+    (head dim 24: no MHA kernel) against use_pallas=off, each module's
+    route read from the launches; and the span decode at [2, 6144]."""
+    import dataclasses
+
+    import torch
+
+    from vslnet_torch.bench.paths import train_config
+    from vslnet_torch.ops import kernels as K
+    from vslnet_torch.train.runner import materialize
+
+    for hidden, heads in ((512, 8), (192, 8)):
+        of = "rnn hidden %d, %d heads" % (hidden, heads)
+        tk, to = trainers(lambda up: dataclasses.replace(
+            train_config(dataset, up, SEED), hidden_size=hidden,
+            num_heads=heads), dataset, feats)
+        _, b = next(tk.test_loader.test_iter())
+        b = materialize({k: torch.from_numpy(v).cuda() for k, v in b.items()},
+                        tk.bank, tk.eval_splits["test"], False)
+        args = (b["word_ids"], b["char_ids"], b["vfeats"], b["v_len"])
+        K.reset_launches()
+        with torch.no_grad():
+            out_k = tk.model.eval()(*args)
+            s_k = K.span_decode(out_k["start_logits"], out_k["end_logits"])
+        fwd = dict(K.LAUNCHES)
+        with torch.no_grad():
+            out_p = to.model.eval()(*args)
+        tk.model.train()
+        to.model.train()
+        logit_err = max(max_err(out_k[k], out_p[k]) for k in
+                        ("start_logits", "end_logits", "highlight_scores"))
+        same = all(torch.equal(a, c) for a, c in zip(s_k, K.span_decode_plain(
+            out_p["start_logits"], out_p["end_logits"])))
+        K.reset_launches()
+        step_vs_off(tk, to, "C5 " + of)
+        train = dict(K.LAUNCHES)
+
+        def routes(launches):
+            return {m: "kernel" if any(launches[n] for n in names) else
+                    "plain" for m, names in MODULE_KERNELS.items()}
+
+        max_w = tk.max_w
+        want = {"lstm": K.lstm_kernel_fits(16, hidden),
+                "conv": K.conv_kernel_fits(128, hidden, 7, 4),
+                "mha": K.mha_kernel_fits(128, hidden, heads),
+                "cqa": K.cqa_kernel_fits(128, max_w, hidden),
+                "highlight": True, "span_decode": True}
+        want = {m: "kernel" if v else "plain" for m, v in want.items()}
+        emit({"phase": "c5", "of": of, "routes_forward": routes(fwd),
+              "routes_train": routes(train), "expected_forward": want,
+              "max_logit_err_vs_off": logit_err, "logit_atol": LOGIT_ATOL,
+              "spans_equal_vs_off": same})
+        check(routes(fwd) == want, "%s: routes %s, expected %s"
+              % (of, routes(fwd), want))
+        check(logit_err <= LOGIT_ATOL and same,
+              "%s: the forward disagrees with use_pallas=off" % of)
+        del tk, to
+    rng = np.random.default_rng(SEED)
+    sl, el = (torch.from_numpy(rng.standard_normal((2, 6144)).astype(
+        np.float32)).cuda() for _ in range(2))
+    K.reset_launches()
+    got = K.span_decode(sl, el)
+    ref = K.span_decode_plain(sl, el)
+    equal = all(torch.equal(a, c) for a, c in zip(got, ref))
+    emit({"phase": "c5", "of": "span decode [2, 6144]",
+          "kernel_launches": K.LAUNCHES["span_decode"], "equal": equal,
+          "indices": [t.tolist() for t in got]})
+    check(equal and K.LAUNCHES["span_decode"] == 0,
+          "the span decode at T = 6144 must take the plain version")
+
+
+def cli_phase(dataset, feats, splits):
+    """The `cli` phase; returns the CLI runs' summed kernel launches."""
+    from vslnet_torch.bench.data_root import write_charades_root
+
+    with tempfile.TemporaryDirectory() as work:
+        root = os.path.join(work, "data")
+        durations = write_charades_root(
+            root, CLI_DATA["n_train"], CLI_DATA["n_test"],
+            CLI_DATA["n_videos"], 1024, CLI_DATA["clips"], SEED,
+            extra_vids=("VID_EXTRA",))
+        copies_phase(root, work)
+        files = {}
+        t0 = time.perf_counter()
+        cli_run("train", cli_args(root, work, "--mode", "train"),
+                            work, files)
+        out_resume = cli_run("resume", cli_args(
+            root, work, "--mode", "train", "--resume", "true", "--epochs",
+            "3"), work, files)
+        model_dir = os.path.join(work, "ckpt", "vslnet_charades_new_128_rnn",
+                                 "model")
+        results = open(os.path.join(model_dir, "eval_results.txt")).read()
+        ckpts = sorted(int(f[11:-3]) for f in os.listdir(model_dir)
+                       if f.startswith("checkpoint_"))
+        m = re.search(r"resumed from step (\d+)", out_resume)
+        steps = [int(x) for x in re.findall(r"Step +(\d+) \| loss",
+                                            out_resume)]
+        last = 3 * -(-CLI_DATA["n_train"] // 16)  # 3 epochs of batch 16
+        check(bool(m) and bool(ckpts) and steps and steps[-1] == last,
+              "resume: %s, checkpoints %s, steps %s" % (m, ckpts, steps))
+        out_test = cli_run("test", cli_args(root, work, "--mode", "test"),
+                           work, files)
+        test = [float(x) for x in re.findall(r":\t([0-9.]+)", out_test)]
+        best = scores_at(results, ckpts[-1])
+        check(test == best, "--mode test gave %s, the restored checkpoint's "
+              "evaluation %s" % (test, best))
+        queries = os.path.join(work, "queries.jsonl")
+        vids = sorted(durations)[:20]
+        with open(queries, "w") as f:
+            for i, v in enumerate(vids):
+                f.write(json.dumps({"vid": v, "query": "a person opens the "
+                                    "door" if i % 2 else "someone sits on "
+                                    "the couch"}) + "\n")
+        preds = os.path.join(work, "predictions.jsonl")
+        cli_run("predict", cli_args(root, work, "--mode", "predict",
+                                    "--queries_file", queries,
+                                    "--predictions_out", preds), work, files)
+        lines = [json.loads(ln) for ln in open(preds)]
+        check(len(lines) == len(vids) and all(
+            0.0 <= p["start"] <= p["end"] <= durations[p["vid"]] + 1e-3
+            for p in lines), "predict: %s" % lines[:3])
+        requests = [{"vid": vids[0], "query": "a person opens the door"},
+                    [{"vid": v, "query": "someone closes the book"}
+                     for v in vids[:18]],
+                    {"vid": "VID_EXTRA", "query": "someone laughs",
+                     "duration": 33.0, "top_k": 3}]
+        replies = serve_run(root, work, files, requests)
+        check(len(replies[1]) == len(requests[1])
+              and len(replies[2]["spans"]) == 3,
+              "serve: %s" % replies[2])
+        runs = cli_launches(files)
+        cli_s = time.perf_counter() - t0
+    total = {name: sum(r[name] for r in runs.values()) for name in runs["train"]}
+    emit({"phase": "cli", "seconds": cli_s, "data": dict(
+        CLI_DATA, records=CLI_DATA["n_train"] + CLI_DATA["n_test"]),
+        "resumed_from": int(m.group(1)), "checkpoints": ckpts,
+        "test": test, "predictions": len(lines), "http_200": len(replies),
+        "launches": runs})
+    for name in total:
+        check((total[name] > 0) == (name in CLI_KERNELS),
+              "cli: %s launched %d times" % (name, total[name]))
+    c5_phase(dataset, feats, splits)
+    return total
+
+
 def main():
     import torch
 
@@ -1570,6 +1913,12 @@ def main():
         row["launches_main"] = {"serve": launches[row["name"]],
                                 "train": train_launches[row["name"]]}
     rows += long_rows
+    cli_counts = cli_phase(dataset, feats, splits)
+    for row in rows:
+        # and on the command line's runs (train, resume, test, predict,
+        # serve), each a process of its own
+        row["launches_cli"] = cli_counts[row["name"]]
+        row["launches"] += row["launches_cli"]
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

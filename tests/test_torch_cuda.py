@@ -947,3 +947,133 @@ def test_cuda_mha_block_routes_beyond_the_block_kernels(cuda, T, route):
     _check_grads(run(kernels.fused_mha_block), run(kernels.mha_block_plain),
                  [x, *w], 7, ["x", "gam", "beta", "wqkv", "bqkv", "wd", "bd"],
                  1e-3)
+
+
+# --- the device bank, pinned staging and the shapes beyond the kernels -------
+
+def _card_data(hidden, heads, **kw):
+    """A synthetic set and the rnn config at `hidden` and `heads` (T 128,
+    batch 16, 1024-d video), with the kernels (auto) or without (off)."""
+    from vslnet_torch.config import Config
+    from vslnet_torch.data.synthetic import synthetic_dataset
+
+    dataset, feats = synthetic_dataset(
+        n_train=40, n_test=16, n_videos=12, n_words=200, n_chars=30,
+        max_pos_len=128, video_feature_dim=1024, word_dim=300, seed=7)
+
+    def cfg(use_pallas, **more):
+        return Config(hidden_size=hidden, num_heads=heads, batch_size=16,
+                      char_size=dataset["n_chars"], use_pallas=use_pallas,
+                      drop_rate=0.2, seed=3, **dict(kw, **more))
+    return dataset, feats, cfg
+
+
+@pytest.mark.cuda
+def test_cuda_idxs_step_equals_vfeats_step(cuda):
+    """Two full batches: the device-resident layout's steps (ids copied,
+    every field gathered on the card) give the host layout's bits. cuDNN
+    runs its deterministic algorithms here: the char CNN's weight gradient
+    otherwise varies in its last bits from call to call."""
+    from vslnet_torch.train.runner import Trainer
+
+    dataset, feats, cfg = _card_data(128, 8)
+    a = Trainer(cfg("auto"), dataset, feats)
+    b = Trainer(cfg("auto", device_bank="off"), dataset, feats)
+    assert (a.batch_layout, b.batch_layout) == ("idxs", "vfeats")
+    b.model.load_state_dict(a.model.state_dict())
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(2):
+            la, ha = a.step()
+            lb, hb = b.step()
+            assert torch.equal(la, lb) and torch.equal(ha, hb)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for (n, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), n
+
+
+@pytest.mark.cuda
+def test_cuda_pinned_staging_equals_pageable_copies(cuda):
+    """Batches staged back to back without a wait (the third refills the
+    first's pinned buffers) hold what pageable copies hold, and decode the
+    same spans, top-1 and top-k."""
+    from vslnet_torch.bench.paths import build_localizer
+    from vslnet_torch.models.losses import decode_span_topk
+
+    dataset, feats, cfg = _card_data(128, 8)
+    loc = build_localizer(cfg("auto"), dataset,
+                          [dataset["train_set"], dataset["test_set"]], 0)
+    recs = dataset["train_set"]
+    chunks = [[(feats[r["vid"]], r["duration"], " ".join(r["words"]))
+               for r in recs[i:i + 16]] for i in (0, 16, 24)]
+    staged = [loc.make_batch(c)[0] for c in chunks]
+    with torch.inference_mode():
+        for chunk, got in zip(chunks, staged):
+            arrays = [np.zeros(shape, str(dtype)[6:])
+                      for shape, dtype in loc.batch_specs()]
+            loc.fill_batch(arrays, chunk)
+            ref = [torch.from_numpy(x).cuda() for x in arrays]
+            assert all(torch.equal(g, r) for g, r in zip(got, ref))
+            out_g, out_r = loc.model(*got), loc.model(*ref)
+            for fn in (loc.decode, lambda s, e: decode_span_topk(s, e, 3)):
+                for x, y in zip(fn(out_g["start_logits"], out_g["end_logits"]),
+                                fn(out_r["start_logits"], out_r["end_logits"])):
+                    assert torch.equal(x, y)
+    spans = loc.localize_batch(chunks[0] + chunks[1])
+    assert spans[:16] == loc.localize_batch(chunks[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,heads", [(512, 8), (192, 8)])
+def test_cuda_shapes_beyond_the_kernels_equal_off(cuda, hidden, heads):
+    """hidden 512 (the LSTM beyond H = 256) and hidden 192 in 8 heads
+    (head dim 24): the modules whose kernels do not take the shape run
+    their plain versions, the rest their kernels; a forward and a train
+    step equal use_pallas=off (logits within 1e-3, the loss within 1e-4
+    relative, each gradient within 1e-3 of its largest entry plus 1e-6)."""
+    from vslnet_torch.train.runner import Trainer, materialize
+
+    dataset, feats, cfg = _card_data(hidden, heads)
+    tk = Trainer(cfg("auto"), dataset, feats)
+    to = Trainer(cfg("off"), dataset, feats)
+    _, b = next(tk.test_loader.test_iter())
+    b = materialize({k: torch.from_numpy(v).cuda() for k, v in b.items()},
+                    tk.bank, tk.eval_splits["test"], False)
+    args = (b["word_ids"], b["char_ids"], b["vfeats"], b["v_len"])
+    kernels.reset_launches()
+    with torch.no_grad():
+        out_k = tk.model.eval()(*args)
+        out_o = to.model.eval()(*args)
+    lstm = kernels.LAUNCHES["lstm_recurrence_fwd"]
+    mha = kernels.LAUNCHES["mha_block_fwd"] + kernels.LAUNCHES["mha_fwd"]
+    assert (lstm > 0) == kernels.lstm_kernel_fits(16, hidden)
+    assert (mha > 0) == kernels.mha_kernel_fits(128, hidden, heads)
+    assert kernels.LAUNCHES["cqa_concat_fwd"] == 1
+    for key in ("start_logits", "end_logits", "highlight_scores"):
+        assert float((out_k[key] - out_o[key]).abs().max()) <= 1e-3, key
+    tk.model.train()
+    to.model.train()
+    lk, _ = tk.step()
+    lo, _ = to.step()
+    assert abs(float(lk) - float(lo)) <= 1e-4 * abs(float(lo))
+    named = dict(to.model.named_parameters())
+    for n, p in tk.model.named_parameters():
+        ref = named[n].grad
+        err = float((p.grad - ref).abs().max())
+        assert err <= 1e-3 * float(ref.abs().max()) + 1e-6, n
+
+
+@pytest.mark.cuda
+def test_cuda_span_decode_beyond_its_kernel_takes_the_plain_version(cuda):
+    rng = np.random.default_rng(11)
+    s, e = (torch.from_numpy(rng.standard_normal((2, 6144)).astype(
+        np.float32)).cuda() for _ in range(2))
+    kernels.reset_launches()
+    got = kernels.span_decode(s, e)
+    assert kernels.LAUNCHES["span_decode"] == 0
+    for x, y in zip(got, kernels.span_decode_plain(s, e)):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="6128"):
+        kernels.fused_span_decode(s, e)

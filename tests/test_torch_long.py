@@ -122,7 +122,8 @@ def test_train_step_at_t192_matches_jax():
         max_word_chars=5, min_video_len=T // 2, seed=4)
     kw = dict(hidden_size=32, num_heads=2, max_pos_len=T, video_feature_dim=10,
               word_dim=8, char_dim=4, batch_size=4, seed=3, drop_rate=0.0,
-              init_lr=1e-3, num_train_steps=10, predictor="transformer")
+              init_lr=1e-3, num_train_steps=10, predictor="transformer",
+              device_bank="off")  # host batches, which the JAX step takes
     jcfg = JaxConfig(**kw, use_pallas="off", char_size=dataset["n_chars"])
     trainer = Trainer(Config(**kw), dataset, feats, device="cpu")
     split = trainer.train_loader.split

@@ -22,6 +22,7 @@ from vslnet_torch.data.loader import TrainLoader, VideoBank, static_caps
 from vslnet_torch.data.synthetic import synthetic_dataset
 from vslnet_torch.models import losses
 from vslnet_torch.train import optim
+from vslnet_torch.train.checkpoints import CheckpointManager
 from vslnet_torch.train.runner import Trainer, to_device
 
 torch.set_num_threads(1)
@@ -169,7 +170,9 @@ def test_train_loader_batches_equal_jax():
 
 def test_train_step_matches_jax_over_3_steps_at_drop_rate_0():
     dataset, feats = _dataset()
-    kw = dict(SMALL, drop_rate=0.0, init_lr=1e-3, num_train_steps=10)
+    # the host-built "vfeats" batches, which the JAX step takes as they are
+    kw = dict(SMALL, drop_rate=0.0, init_lr=1e-3, num_train_steps=10,
+              device_bank="off")
     jcfg = JaxConfig(**kw, use_pallas="off", char_size=dataset["n_chars"])
     trainer = Trainer(Config(**kw), dataset, feats, device="cpu")
     max_w, max_c = trainer.train_loader.split.word_ids.shape[1], \
@@ -210,17 +213,12 @@ def test_trainer_needs_a_device_and_supported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(Config(**SMALL), dataset, feats)
-    for field, value in (("ema_decay", 0.9), ("grad_accum", 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(Config(**SMALL, **{field: value}), dataset, feats,
-                    device="cpu")
     with pytest.raises(ValueError, match="optimizer"):
         Trainer(Config(**SMALL, optimizer="sgd"), dataset, feats,
                 device="cpu")
 
 
 @pytest.mark.parametrize("field,value", [
-    ("nan_guard", True), ("patience", 2), ("eval_split", "val"),
     ("t7_checkpoint", "model.t7"), ("tf_checkpoint", "model.ckpt")])
 def test_trainer_raises_on_training_flags_it_ignores(field, value):
     """Each flag the JAX Runner acts on and the port lacks, set away from
@@ -240,3 +238,206 @@ def test_twenty_steps_with_dropout_lower_the_loss():
     assert np.mean(losses_[-5:]) < losses_[0], losses_
     r1_3, r1_5, r1_7, miou, _, _ = trainer.evaluate()
     assert 0.0 <= r1_7 <= r1_5 <= r1_3 <= 100.0 and 0.0 <= miou <= 100.0
+
+
+def _pair(dataset, feats, **extra):
+    """A port Trainer and the JAX train step of the same config, both from
+    the JAX package's initial weights: (trainer, params, frozen, tx,
+    opt_state, step_fn)."""
+    kw = dict(SMALL, drop_rate=0.0, init_lr=1e-3, num_train_steps=10, **extra)
+    jcfg = JaxConfig(**kw, use_pallas="off", char_size=dataset["n_chars"])
+    trainer = Trainer(Config(**kw), dataset, feats, device="cpu")
+    jmodel = jax_build_model(jcfg, dataset["word_vector"].shape)
+    params, frozen = init_model(jmodel, jcfg, dataset["word_vector"],
+                                jax.random.PRNGKey(0), max_w=trainer.max_w,
+                                max_c=trainer.max_c)
+    load_flax_variables(trainer.model, jax.tree.map(
+        np.asarray, {"params": params, "frozen": frozen}))
+    if trainer.optimizer.ema is not None:  # the EMA starts at the weights
+        for e, p in zip(trainer.optimizer.ema, trainer.optimizer.params):
+            e.copy_(p.detach())
+    tx, _ = jax_optim.make_optimizer(jcfg)
+    return (trainer, params, frozen, tx, tx.init(params),
+            make_train_step(jmodel, tx, jcfg))
+
+
+def _assert_params_equal(trainer, params, atol=2e-5, tree=None):
+    """3-10 Adam steps of size ~lr = 1e-3 from equal weights; the gradients
+    differ by fp32 summation order: 2e-5 absolute, as the 3-step test."""
+    state = dict(trainer.model.named_parameters()) if tree is None else tree
+    for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+        name = ".".join(p.key for p in path)
+        np.testing.assert_allclose(state[name].detach().numpy(),
+                                   np.asarray(leaf), atol=atol, err_msg=name)
+
+
+def test_idxs_layout_step_matches_jax_idxs_step_over_3_steps():
+    """The device-resident layout on both sides: the port's step gathers
+    its batch from the split arrays and bank it keeps on the device, the
+    JAX step from its own (`_materialize`)."""
+    dataset, feats = _dataset()
+    trainer, params, frozen, tx, opt_state, step_fn = _pair(dataset, feats)
+    assert trainer.batch_layout == "idxs" and trainer.bank is not None
+    split = {k: jnp.asarray(v) for k, v in
+             trainer.train_loader.split.host_arrays().items()}
+    bank = jnp.asarray(trainer.train_loader.split.bank.bank)
+    rng = jax.random.PRNGKey(0)
+    for step, (_, batch) in enumerate(trainer.train_loader.batch_iter()):
+        assert set(batch) == {"idxs"} and batch["idxs"].nbytes == 16
+        params, opt_state, metrics = step_fn(
+            params, frozen, opt_state, {"idxs": jnp.asarray(batch["idxs"])},
+            rng, step, bank=bank, split=split)
+        loss, hl = trainer.step(to_device(batch, "cpu"))
+        np.testing.assert_allclose(float(loss), float(metrics["loss"]),
+                                   rtol=1e-4)
+        np.testing.assert_allclose(float(hl), float(metrics["highlight_loss"]),
+                                   rtol=1e-4)
+    assert step == 2 and batch["idxs"].tolist()[-2:] == [-1, -1]
+    _assert_params_equal(trainer, params)
+
+
+def _nan_batches(trainer, n, bad):
+    """n host batches over the shuffled epochs, features NaN at steps
+    `bad`."""
+    out = []
+    while len(out) < n:
+        for _, b in trainer.train_loader.batch_iter():
+            if len(out) in bad:
+                b["vfeats"] = np.full_like(b["vfeats"], np.nan)
+            out.append(b)
+    return out[:n]
+
+
+def test_nan_guard_over_10_steps_matches_jax():
+    """10 steps with nan_guard on, two of them on NaN features: both
+    packages skip exactly those, and the rest equal the JAX steps; a
+    healthy step is bit-identical to nan_guard off."""
+    dataset, feats = _dataset()
+    trainer, params, frozen, tx, opt_state, step_fn = _pair(
+        dataset, feats, nan_guard=True, device_bank="off")
+    plain = Trainer(Config(**dict(SMALL, drop_rate=0.0, init_lr=1e-3,
+                                  num_train_steps=10, device_bank="off")),
+                    dataset, feats, device="cpu")
+    plain.model.load_state_dict(trainer.model.state_dict())
+    rng = jax.random.PRNGKey(0)
+    skips = 0
+    for step, batch in enumerate(_nan_batches(trainer, 10, (3, 7))):
+        params, opt_state, metrics = step_fn(
+            params, frozen, opt_state, jax.tree.map(jnp.asarray, batch), rng,
+            step)
+        skips += int(metrics["nan_skips"])
+        loss, _ = trainer.step(to_device(batch, "cpu"))
+        if step in (3, 7):
+            assert not np.isfinite(float(loss))
+            continue
+        np.testing.assert_allclose(float(loss), float(metrics["loss"]),
+                                   rtol=1e-4)
+        if step < 3:
+            plain.step(to_device(batch, "cpu"))
+            for (n, p), q in zip(trainer.model.named_parameters(),
+                                 plain.model.parameters()):
+                assert torch.equal(p, q), n
+    assert skips == 2 and trainer.nan_skips == 2
+    assert trainer.optimizer.count == 8
+    _assert_params_equal(trainer, params)
+
+
+def test_ema_matches_jax_and_evaluation_uses_it():
+    dataset, feats = _dataset()
+    trainer, params, frozen, tx, opt_state, step_fn = _pair(
+        dataset, feats, ema_decay=0.9, device_bank="off")
+    rng = jax.random.PRNGKey(0)
+    for step, (_, batch) in enumerate(trainer.train_loader.batch_iter()):
+        params, opt_state, _ = step_fn(params, frozen, opt_state,
+                                       jax.tree.map(jnp.asarray, batch), rng,
+                                       step)
+        trainer.step(to_device(batch, "cpu"))
+    _assert_params_equal(trainer, params)
+    ema = dict(zip(trainer.optimizer.names, trainer.optimizer.ema))
+    _assert_params_equal(trainer, jax_optim.extract_ema(opt_state), tree=ema)
+    live = [p.detach().clone() for p in trainer.optimizer.params]
+    with trainer.eval_weights() as model:
+        for n, p in model.named_parameters():
+            assert torch.equal(p, ema[n]), n
+    for p, q in zip(trainer.optimizer.params, live):
+        assert torch.equal(p, q)
+
+
+def test_grad_accum_2_matches_jax_multisteps():
+    """grad_accum=2: a running mean of two micro-gradients, one update each
+    second step, the schedule over ceil(10 / 2) updates."""
+    dataset, feats = _dataset()
+    trainer, params, frozen, tx, opt_state, step_fn = _pair(
+        dataset, feats, grad_accum=2, device_bank="off")
+    rng = jax.random.PRNGKey(0)
+    before = {n: p.detach().clone()
+              for n, p in trainer.model.named_parameters()}
+    batches = [b for _ in range(2) for _, b in
+               trainer.train_loader.batch_iter()][:4]
+    for step, batch in enumerate(batches):
+        params, opt_state, metrics = step_fn(
+            params, frozen, opt_state, jax.tree.map(jnp.asarray, batch), rng,
+            step)
+        loss, _ = trainer.step(to_device(batch, "cpu"))
+        np.testing.assert_allclose(float(loss), float(metrics["loss"]),
+                                   rtol=1e-4)
+        if step == 0:  # no update yet
+            for n, p in trainer.model.named_parameters():
+                assert torch.equal(p, before[n]), n
+    assert trainer.optimizer.count == 2 and trainer.optimizer.mini_step == 0
+    _assert_params_equal(trainer, params)
+
+
+def _jax_runner(tmp_path, dataset, feats, **kw):
+    from vslnet_tpu.parallel.mesh import make_mesh
+    from vslnet_tpu.train.runner import Runner
+
+    cfg = JaxConfig(**dict(SMALL, **kw), use_pallas="off",
+                    model_dir=str(tmp_path / "jax"), log_to_tensorboard=False)
+    return Runner(cfg, dataset, feats, mesh=make_mesh(1))
+
+
+@pytest.mark.parametrize("flag", ["nan_guard", "patience", "eval_split"])
+def test_trainer_acts_on_flag_like_jax(tmp_path, flag):
+    """Each training flag the port once refused, acted on as the JAX
+    Runner acts on it: nan_guard skips a non-finite step and counts it;
+    patience stops after that many evaluations without a new best R1@0.7
+    (at lr 0 every evaluation ties the first); eval_split picks the split
+    that --mode test scores."""
+    dataset, feats = synthetic_dataset(
+        n_train=8, n_test=6, n_val=5, n_videos=5, n_words=40, n_chars=15,
+        max_pos_len=16, video_feature_dim=10, word_dim=8, max_query_words=6,
+        max_word_chars=5, min_video_len=4, seed=1)
+    kw = {"nan_guard": dict(nan_guard=True, device_bank="off"),
+          "patience": dict(patience=2, eval_period=1, epochs=4, init_lr=0.0),
+          "eval_split": dict(eval_split="val")}[flag]
+    runner = _jax_runner(tmp_path, dataset, feats, **kw)
+    cfg = Config(**SMALL, **kw, model_dir=str(tmp_path / "port"),
+                 log_to_tensorboard=False)
+    trainer = Trainer(cfg, dataset, feats, device="cpu")
+    load_flax_variables(trainer.model, jax.tree.map(
+        np.asarray, {"params": runner.params, "frozen": runner.frozen}))
+    if flag == "nan_guard":
+        _, batch = next(trainer.train_loader.batch_iter())
+        batch["vfeats"][0, 0, 0] = np.nan
+        before = [p.detach().clone() for p in trainer.model.parameters()]
+        params, _, m = runner.train_step(
+            runner.params, runner.frozen, runner.opt_state,
+            jax.tree.map(jnp.asarray, batch), runner.rng, 0)
+        trainer.step(to_device(batch, "cpu"))
+        assert int(m["nan_skips"]) == 1 == trainer.nan_skips
+        assert all(torch.equal(p, q) for p, q in
+                   zip(trainer.model.parameters(), before))
+        _assert_params_equal(trainer, params, atol=0.0)
+    elif flag == "patience":
+        ref = runner.train(verbose=False)
+        got = trainer.run(verbose=False)
+        assert ref["stopped_early"] and got["stopped_early"]
+        assert got["global_step"] == ref["global_step"] == 3
+    else:
+        ref = runner.evaluate(mode="val")[:4]
+        trainer.save_checkpoint(CheckpointManager(trainer.model_dir), -1.0)
+        got = trainer.test(verbose=False)
+        # the same decoded spans: equal scores up to the float sums
+        np.testing.assert_allclose(got, ref, atol=1e-9)
+        assert got == tuple(trainer.evaluate("val")[:4])

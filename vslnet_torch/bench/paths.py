@@ -16,13 +16,15 @@ the reference's default run), M (rnn, T = 192, batch 16) and L
 each path, after two warm-ups: a served batch (Localizer.localize_batch)
 and a train step (Trainer.step), the wall ms of three each (synchronised),
 then one of each through torch.profiler: device ms, its host-to-device
-copies, device ms without them, the card's idle share, its launches and
+copies (time, kinds and bytes), device ms without them, the card's idle share, its launches and
 the top kernels. Prints one JSON line a run with the card's name and power
 limit.
 """
 import json
 import math
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -91,10 +93,29 @@ def train_config(dataset, use_pallas, seed, predictor="rnn", max_pos_len=128,
                   use_pallas=use_pallas, seed=seed)
 
 
+def htod_copies(prof):
+    """{copy kind: [copies, bytes]} of a torch.profiler run's host-to-device
+    copies, read from its trace's gpu_memcpy events ("Memcpy HtoD
+    (Pageable -> Device)", "... (Pinned -> Device)")."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path, encoding="utf-8") as f:
+            events = json.load(f).get("traceEvents", [])
+    out = {}
+    for ev in events:
+        if ev.get("cat") == "gpu_memcpy" and "HtoD" in ev.get("name", ""):
+            kind = out.setdefault(ev["name"], [0, 0])
+            kind[0] += 1
+            kind[1] += int(ev.get("args", {}).get("bytes", 0))
+    return out
+
+
 def profile_device(run, wall_ms):
     """Device time by kernel over one call of run() (torch.profiler), the
-    part of it that is host-to-device copies, and the share of the
-    unprofiled wall time wall_ms the card sits idle."""
+    part of it that is host-to-device copies (their time, kinds and
+    bytes), and the share of the unprofiled wall time wall_ms the card
+    sits idle."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -109,7 +130,10 @@ def profile_device(run, wall_ms):
                   key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     copy_ms = sum(r[1] for r in rows if r[0].startswith("Memcpy HtoD"))
+    copies = htod_copies(prof)
     return {"device_ms": device_ms, "htod_copy_ms": copy_ms,
+            "htod_bytes": sum(b for _, b in copies.values()),
+            "htod_copies": copies,
             "device_ms_without_copies": device_ms - copy_ms, "wall_ms": wall_ms,
             "device_idle_share": 1.0 - device_ms / wall_ms,
             "device_launches": sum(r[2] for r in rows),
@@ -159,6 +183,12 @@ def main(seed=0):
             print(json.dumps({"bench": "paths", "card": smi, "path": path,
                               "run": run, "T": T, "batch": B,
                               "predictor": predictor,
+                              # a tree before the device bank: "vfeats"
+                              # batches and pageable staging
+                              "train_layout": getattr(trainer, "batch_layout",
+                                                      "vfeats"),
+                              "serve_staging": ("pinned" if hasattr(
+                                  loc, "_staging") else "pageable"),
                               **profile_device(fn, wall_ms(fn))}),
                   flush=True)
         del loc, trainer

@@ -1,6 +1,10 @@
-"""Visual-feature downsampling, behaviour-pinned to the JAX package's
+"""Visual features, behaviour-pinned to the JAX package's
 `vslnet_tpu/data/features.py` (and through it to the reference's
-util/data_util.py): label indices depend on the exact bucket edges."""
+util/data_util.py:44-73): every `<vid>.npy` of a directory loaded and
+downsampled, where label indices depend on the exact bucket edges."""
+import glob
+import os
+
 import numpy as np
 
 
@@ -19,3 +23,14 @@ def visual_feature_sampling(visual_feature, max_num_clips):
         visual_feature[a:max(b, a + 1)].mean(axis=0)
         for a, b in zip(edges[:-1], edges[1:])
     ])
+
+
+def load_video_features(root, max_position_length):
+    """Every `<vid>.npy` under `root`, in sorted file order, as {vid:
+    float32 [n, D] downsampled to at most max_position_length rows}."""
+    video_features = {}
+    for filename in sorted(glob.glob(os.path.join(root, "*.npy"))):
+        video_id = os.path.basename(filename).split(".")[0]
+        video_features[video_id] = visual_feature_sampling(
+            np.load(filename).astype(np.float32), max_position_length)
+    return video_features

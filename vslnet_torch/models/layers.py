@@ -11,8 +11,11 @@ layouts.
 
 ConvBlock, MultiHeadAttentionBlock, CQAttention, HighlightLayer and
 LSTMEncoder call the kernel wrappers of ops/kernels.py when built with
-`use_kernels` (every `use_pallas` but off), and the kernels' plain versions
-otherwise. A wrapper launches its CUDA kernel for tensors on the card and
+`use_kernels` (every `use_pallas` but off) and where the wrapper's
+predicate takes the shape (`conv_kernel_fits`, `mha_kernel_fits`,
+`cqa_kernel_fits`, `lstm_kernel_fits`), and the kernels' plain versions
+otherwise, as the JAX package runs XLA beyond its Pallas kernels' `*_fits`
+predicates. A wrapper launches its CUDA kernel for tensors on the card and
 runs the plain version for tensors on the CPU, so the choice of device is
 made at each call, never when the module is built; on the card the conv
 and MHA block wrappers also pick their kernels from the shape (the conv
@@ -208,10 +211,13 @@ class ConvBlock(nn.Module):
     def forward(self, x, drop_rate=0.0, generator=None):
         rate = drop_rate if self.training else 0.0
         seeds = draw_seeds(generator, x.shape[0], rate)
-        if self.use_kernels:
-            return kernels.fused_conv_block(x.contiguous(), *self.stacked_params(),
+        params = self.stacked_params()
+        L, K, D = params[2].shape
+        if self.use_kernels and kernels.conv_kernel_fits(
+                x.shape[1], D, K, L, kernels.grad_wanted(x, *params)):
+            return kernels.fused_conv_block(x.contiguous(), *params,
                                             seeds=seeds, drop_rate=rate)
-        return kernels.conv_block_plain(x, *self.stacked_params(), seeds=seeds,
+        return kernels.conv_block_plain(x, *params, seeds=seeds,
                                         drop_rate=rate)
 
 
@@ -263,7 +269,8 @@ class MultiHeadAttentionBlock(nn.Module):
                 self.dense.kernel, self.dense.bias, self.num_heads)
         kw = {"seeds": draw_seeds(generator, x.shape[0], rate),
               "drop_rate": rate}
-        if self.use_kernels:
+        if self.use_kernels and kernels.mha_kernel_fits(
+                x.shape[1], x.shape[2], self.num_heads):
             return kernels.fused_mha_block(x.contiguous(), *args, **kw)
         return kernels.mha_block_plain(x, *args, **kw)
 
@@ -308,7 +315,8 @@ class CQAttention(nn.Module):
         q_mask = q_mask.to(torch.float32)
         weights = (self.linear_kernel4arg0[:, 0], self.linear_kernel4arg1[:, 0],
                    self.linear_kernel4mul[0, 0])
-        if self.use_kernels and not self.training:
+        if self.use_kernels and not self.training and kernels.cqa_kernel_fits(
+                video.shape[1], query.shape[1], video.shape[2]):
             out = kernels.fused_cqa_concat(video.contiguous(),
                                            query.contiguous(), v_mask, q_mask,
                                            *weights)
@@ -376,7 +384,7 @@ class LSTMEncoder(nn.Module):
         xs = (x @ k_x + self.bias).transpose(0, 1).contiguous()  # [T, B, 4H]
         pos = torch.arange(T, device=x.device)
         valid = (pos[:, None] < seq_len[None, :]).to(torch.float32)  # [T, B]
-        if self.use_kernels:
+        if self.use_kernels and kernels.lstm_kernel_fits(B, k_h.shape[0]):
             ys = kernels.fused_lstm_recurrence(xs, k_h.contiguous(), valid)
         else:
             ys = kernels.lstm_recurrence_plain(xs, k_h, valid)

@@ -5,7 +5,12 @@ ops/pallas_kernels.py.
 Each wrapper below takes the plain version for tensors on the CPU (the
 tests) and launches its kernel for tensors on a CUDA device; there it
 raises on anything the kernel does not take and never falls back. The
-plain versions also serve the model under `use_pallas=off`. The LSTM
+plain versions also serve the model under `use_pallas=off`, and beyond
+each wrapper's predicate (`lstm_kernel_fits`, `conv_kernel_fits`,
+`mha_kernel_fits`, `cqa_kernel_fits`, `span_decode_kernel_fits`: pure
+functions of the shape, read from the plans), where the modules, serve.py
+and train/runner.py call them instead of the wrapper, as the JAX package
+gates each Pallas kernel on its `*_fits` predicate. The LSTM
 recurrence, the conv block, the MHA block and attention have backward
 kernels too: on the card their wrappers go through a
 `torch.autograd.Function` (`FusedLSTMRecurrence`, `FusedConvBlock`,
@@ -389,6 +394,9 @@ class LSTMPlan(NamedTuple):
     smem_bwd: int
 
 
+LSTM_MAX_H = 256  # the widest hidden size csrc/lstm.cu is built for
+
+
 def lstm_plan(B, H):
     """The forward kernels' launch plan for B rows of hidden size H:
     clusters of up to LSTM_CLUSTER CTAs, 2 rows a cluster (fewer for B = 1,
@@ -400,9 +408,9 @@ def lstm_plan(B, H):
     4 ceil(H/4)]. `smem_bwd` is csrc/lstm.cu's BwdLayout: two mbarriers;
     the 4H floats of k_h's U rows, each gate's H padded to whole float4s and
     a row to an odd number of float4s; the dgates [2, bt, 4 ceil(H/4) * 4]."""
-    if not 1 <= H <= 256 or B < 1:
-        raise ValueError("lstm_plan: needs 1 <= H <= 256 and B >= 1, got "
-                         "B=%d, H=%d" % (B, H))
+    if not 1 <= H <= LSTM_MAX_H or B < 1:
+        raise ValueError("lstm_plan: needs 1 <= H <= %d and B >= 1, got "
+                         "B=%d, H=%d" % (LSTM_MAX_H, B, H))
     units = -(-H // min(LSTM_CLUSTER, H))
     n = -(-H // units)  # no CTA without a unit
     fits = [r for r in LSTM_ROWS[1:] if -(-B // r) * n <= N_SMS]
@@ -749,7 +757,7 @@ def fused_conv_block(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
     if not _on_cuda(name, *tensors):
         return conv_block_plain(x, gam, beta, dw, wp, bp, seeds, drop_rate)
     L, K, _ = dw.shape
-    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    grad = grad_wanted(*tensors)
     fn = FusedConvBlock if conv_route(*x.shape[1:], K, L, grad) == "block" \
         else FusedConvBlockTiled
     return fn.apply(x, gam, beta, dw, wp, bp, seeds, float(drop_rate))
@@ -1932,3 +1940,93 @@ def fused_highlight_gate(x, w, b, v_mask):
     _launch(name, x.data_ptr(), w.data_ptr(), b.data_ptr(), v_mask.data_ptr(),
             gated.data_ptr(), scores.data_ptr(), B * T, D)
     return gated, scores
+
+
+# --- 7. where the kernels take a shape --------------------------------------------
+# One predicate a wrapper, a pure function of the shape read from the
+# port's own plans (never from the TPU's VMEM budgets): true where the
+# wrapper's kernels take the shape on the card. The modules, serve.py and
+# train/runner.py call a wrapper only where its predicate holds and run its
+# plain version beyond it, as the JAX package runs XLA beyond its `*_fits`
+# predicates; the wrappers keep refusing what their kernels cannot take.
+# The highlight gate takes every shape.
+
+
+def grad_wanted(*tensors):
+    """True where a call on `tensors` records a gradient (training)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
+
+
+def _plans_take(*calls):
+    """True where every (plan, *shape) of `calls` plans its shape: the plans
+    raise ValueError on what their kernels cannot take."""
+    try:
+        for plan, *shape in calls:
+            plan(*shape)
+    except ValueError:
+        return False
+    return True
+
+
+@functools.lru_cache(maxsize=256)
+def lstm_kernel_fits(B, H):
+    """csrc/lstm.cu takes B rows of hidden size H (lstm_plan: H up to
+    LSTM_MAX_H)."""
+    return _plans_take((lstm_plan, B, H))
+
+
+@functools.lru_cache(maxsize=256)
+def conv_kernel_fits(T, D, K, L, grad=False):
+    """The conv block kernels that conv_route picks for [T, D], K taps and L
+    layers (with `grad`, the pair a training call takes) fit their plans:
+    the whole-row forward's and backward's, or the tiled forward's and
+    backward's (the tiled forward also plans its backward)."""
+    if min(T, K, L) < 1 or D < 4 or D % 4:
+        return False
+    if conv_route(T, D, K, L, grad) == "block":
+        return _plans_take((conv_fwd_plan, 1, T, D, K, L),
+                           (conv_plan, 1, T, D, K, L))
+    return _plans_take((conv_tiled_fwd_plan, 1, T, D, K, L),
+                       (conv_tiled_bwd_plan, 1, T, D, K, L))
+
+
+@functools.lru_cache(maxsize=256)
+def mha_kernel_fits(T, D, n_heads):
+    """fused_mha_block's kernels take [T, D] in n_heads heads: a head dim of
+    MHA_HEAD_DIMS, then the route's plans: the block kernels' (mha_route
+    checks them), the whole-T forward's shared memory and
+    mha_whole_bwd_plan, or the flash plans' shared memory."""
+    if n_heads < 1 or D % n_heads or D // n_heads not in MHA_HEAD_DIMS:
+        return False
+    hd = D // n_heads
+    route = mha_route(T, D, n_heads)
+    if route == "block":
+        return True
+    if route == "whole":
+        return (_mha_fwd_attention_bytes(T, min(T, MHA_WHOLE_QTILE), hd)
+                <= MAX_SMEM_BYTES
+                and _plans_take((mha_whole_bwd_plan, 1, T, D, n_heads)))
+    return (flash_fwd_plan(1, T, D, n_heads).smem_bytes <= MAX_SMEM_BYTES
+            and flash_bwd_plan(1, T, D, n_heads).smem_bytes <= MAX_SMEM_BYTES)
+
+
+@functools.lru_cache(maxsize=256)
+def cqa_kernel_fits(T, W, D):
+    """csrc/cqa.cu takes T frames and a query of W words of width D
+    (cqa_plan: W up to cqa_max_words at its tiles)."""
+    return _plans_take((cqa_plan, 1, T, W, D))
+
+
+def span_decode_kernel_fits(T):
+    """csrc/span_decode.cu takes rows of T frames (up to
+    SPAN_DECODE_MAX_T)."""
+    return 1 <= T <= SPAN_DECODE_MAX_T
+
+
+def span_decode(start_logits, end_logits, use_kernels=True):
+    """Top-1 (start_idx, end_idx) a row: the kernel's wrapper where
+    use_kernels and span_decode_kernel_fits hold, else its plain version."""
+    if use_kernels and span_decode_kernel_fits(start_logits.shape[1]):
+        return fused_span_decode(start_logits, end_logits)
+    return span_decode_plain(start_logits, end_logits)
