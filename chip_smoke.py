@@ -61,6 +61,23 @@ Phases, each printing one JSON line:
               20 steps with the kernels, counting their launches (the loss
               must fall), the step time both ways, one profiled step, and an
               evaluation of the test split (R1@{0.3,0.5,0.7}, mIoU).
+  5b. bf16    precision=bf16: the four bf16 kernels (the LSTM recurrence
+              at [128, 16, 512], the conv block whole-row at the query
+              stream's [16, max_w, 128] and T-tiled at [16, 128, 128], the
+              MHA block at [16, 128, 128] and max_w) against their bf16
+              twins on the card (BF16_LSTM_TOL, BF16_TOL; and
+              BF16_LSTM_MEAN_TOL, BF16_SHARE_TOL, which the fp32 function
+              must fail), equal bits on
+              two equal calls, their time by CUDA events and by
+              torch.profiler, the twin's time, the bound at the bf16
+              peak (cuDNN's bf16 nn.LSTM beside #1); then the slice
+              phase's model at bf16 with the same seeded weights: the
+              slice phase's HTTP requests, their launches equal to the
+              fp32 run's kernel by kernel with the four under their bf16
+              entries, the logits against the composition of the twins,
+              use_pallas=off at bf16 and the fp32 model (BF16_MODEL_TOL),
+              the share of spans equal to the fp32 model's, a served
+              batch profiled beside the fp32 one.
   6. long_t   beyond T = 145, where the whole-row conv and MHA block
               kernels do not fit: the whole-T and flash attention kernels
               (forward, backward) and the T-tiled conv block (forward,
@@ -80,6 +97,10 @@ Phases, each printing one JSON line:
               10 (L) steps with the kernels (on L the loss must fall),
               with their launches, step times and profiles (a served
               batch and a step each).
+  7. cli      `python -m vslnet_torch` on a seeded Charades-format data
+              root in processes of their own: train, resume, test (also
+              at --precision bf16 on the same model directory), predict,
+              serve; the copy rows before them and the C5 shapes after.
 Then the "kernels" line, and last {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.
 """
@@ -125,8 +146,8 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -281,11 +302,12 @@ def plan_fields(plan):
 
 
 def kernel_row(name, source, replaces, err, tol, ms, plain_ms, flops, nbytes,
-               library_ms=None, checked_err=None, **extra):
+               library_ms=None, checked_err=None, peak_flops=PEAK_FP32_FLOPS,
+               **extra):
     """One kernel's row, emitted and held to tol. checked_err, where given,
     is what is held to tol (scaled_err for gradients); err is always the
-    raw max abs error."""
-    bound_ms, bound_by = bound(flops, nbytes)
+    raw max abs error. The bound takes the FLOPs over peak_flops."""
+    bound_ms, bound_by = bound(flops, nbytes, peak_flops)
     checked = err if checked_err is None else checked_err
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "max_abs_err": err, "tol": tol,
@@ -1106,6 +1128,353 @@ def train_phase(dataset, feats):
     return launches
 
 
+# --- the bf16 phase -----------------------------------------------------------
+
+# H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet, 700 W): the
+# bf16 rows' bound takes their FLOPs over it and counts their bf16
+# activations at 2 bytes
+PEAK_BF16_FLOPS = 989e12
+# a bf16 kernel against its bf16 twin on the card: the same roundings,
+# fp32 sums in another order, so a value on a bf16 rounding boundary can
+# round the other way in one of them. The LSTM's fp32 output within
+# BF16_LSTM_TOL (a flip of bf16(h) moves a gate by up to 2^-9 and carries
+# down the chain); the blocks' bf16 outputs within two bf16 ulps of their
+# largest value (BF16_TOL, relative, as scaled_err). Those bounds hold a
+# kernel that left out its bf16 rounding points too, so each row is also
+# held to a check that tells the bf16 function from the fp32 one: the
+# LSTM's mean absolute error over its valid outputs within
+# BF16_LSTM_MEAN_TOL, the share of the blocks' bf16 outputs that differ
+# from the twin's within BF16_SHARE_TOL. Flips are rare, so these stay
+# small; the fp32 function (its output rounded to bf16 only where the
+# kernel's output is bf16) is the control, and must fail them. The
+# readings on both sides are in PERF.md.
+BF16_LSTM_TOL = 5e-3
+BF16_TOL = 2.0 ** -7
+BF16_LSTM_MEAN_TOL = 2e-5
+BF16_SHARE_TOL = 0.05
+# the bf16 served model's start and end logits and highlight scores
+# (masked logits excluded) against: the composition of the bf16 twins on
+# the card (the same function: flips only, carried through the model);
+# use_pallas=off at bf16 (the JAX package's XLA path at bf16, another
+# function: bf16 residuals and LSTM state); the fp32 model. The fp32
+# model's logits must fail the twins' limit, as the control of the check
+# that the served model computes the kernels' bf16 function.
+BF16_MODEL_TOL = {"twins": 0.05, "off": 0.5, "fp32": 0.5}
+BF16_NAMES = ("lstm_recurrence_fwd", "conv_block_fwd", "conv_block_fwd_tiled",
+              "mha_block_fwd")
+
+
+def share_differing(out, ref):
+    """The share of a bf16 output's elements that differ from ref rounded
+    to bf16."""
+    return float((out != ref.to(out.dtype)).float().mean())
+
+
+def bf16_function_check(name, key, value, control, tol):
+    """Holds a bf16 kernel's reading `value` against its twin to tol, and
+    the control's (the fp32 function's, against the same twin) beyond it;
+    returns both for the kernel's row."""
+    check(value <= tol, "%s: %s %g > %g against its bf16 twin"
+          % (name, key, value, tol))
+    check(control > tol, "%s: the fp32 function's %s %g is within %g, so "
+          "the check does not tell it from the bf16 function"
+          % (name, key, control, tol))
+    return {key: value, key + "_control": control, key + "_tol": tol}
+
+
+def bf16_kernel_rows(dev, max_w):
+    """The four bf16 kernels at the served shapes against their bf16 twins
+    on the card: error, equal bits on two equal calls, time by CUDA events
+    and by torch.profiler, the twin's time and the bound."""
+    import torch
+
+    from vslnet_torch.bench.common import by_kernel
+    from vslnet_torch.ops import kernels as K
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(SEED + 12)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    B, T, D, H, L, KS, heads = 16, 128, 128, 128, 4, 7, 8
+    rows = []
+
+    def record(name, source, line, err, tol, fn, plain, flops, nbytes,
+               **extra):
+        out = fn()
+        twice = torch.equal(out, fn())
+        check(twice, "%s: two equal calls differ" % name)
+        parts = by_kernel(fn)
+        rows.append(kernel_row(
+            name, source, "vslnet_tpu/ops/pallas_kernels.py:%d" % line, err,
+            tol, cuda_ms(fn, 50), cuda_ms(plain, 3 if "lstm" in name else 50),
+            flops, nbytes, peak_flops=PEAK_BF16_FLOPS, equal_bits_twice=twice,
+            device_ms=sum(parts.values()), by_kernel=parts, **extra))
+
+    # 1. the LSTM recurrence, x_proj [T, B, 4H] and k_h in bf16
+    lens = np.concatenate([[T, 1], rng.integers(1, T + 1, B - 2)])
+    x_proj = t(rng.standard_normal((T, B, 4 * H))).to(bf)
+    k_h = t(rng.standard_normal((H, 4 * H)) / math.sqrt(H)).to(bf)
+    valid = t(np.arange(T)[:, None] < lens[None, :])
+    lstm_args = (x_proj, k_h, valid)
+    out = K.fused_lstm_recurrence(*lstm_args)
+    torch.cuda.synchronize()
+    ref = K.lstm_recurrence_plain(*lstm_args)
+    ref32 = K.lstm_recurrence_plain(x_proj.float(), k_h.float(), valid)
+    err = max_err(out, ref)
+    fp32_err = max_err(out, ref32)
+
+    def mean_err(a):
+        return float((a - ref).abs()[valid.bool()].mean())
+
+    mean_check = bf16_function_check(
+        "lstm_recurrence_fwd_bf16", "mean_abs_err", mean_err(out),
+        mean_err(ref32), BF16_LSTM_MEAN_TOL)
+    lstm = lstm_yardstick(x_proj.float(), k_h.float()).to(bf)
+    lstm.flatten_parameters()  # one contiguous bf16 weight buffer for cuDNN
+    with torch.no_grad():
+        lib_err = float((lstm(x_proj)[0].float() - out).abs()[valid.bool()]
+                        .max())
+        ms_lib = cuda_ms(lambda: lstm(x_proj), 20)
+    record("lstm_recurrence_fwd_bf16", "vslnet_torch/csrc/lstm.cu", 241, err,
+           BF16_LSTM_TOL, lambda: K.fused_lstm_recurrence(*lstm_args),
+           lambda: K.lstm_recurrence_plain(*lstm_args),
+           2 * int(lens.sum()) * H * 4 * H,
+           2 * (T * B * 4 * H + H * 4 * H) + 4 * (T * B + T * B * H),
+           library_ms=ms_lib, library="cuDNN nn.LSTM in bf16",
+           library_max_abs_err_valid=lib_err, shape=[T, B, 4 * H],
+           err_vs_fp32_function=fp32_err, plan=plan_fields(K.lstm_plan(B, H)),
+           **mean_check)
+
+    # 2. the conv block: the whole-row kernel at the query stream's [B,
+    # max_w, D], the T-tiled one at the video's [B, T, D]
+    def conv_inputs(T_):
+        return [t(rng.standard_normal((B, T_, D))).to(bf),
+                t(1 + 0.1 * rng.standard_normal((L, D))),
+                t(0.1 * rng.standard_normal((L, D))),
+                t(rng.standard_normal((L, KS, D)) / math.sqrt(KS)),
+                t(rng.standard_normal((L, D, D)) / math.sqrt(D)),
+                t(0.1 * rng.standard_normal((L, D)))]
+
+    def conv_flops(T_):
+        return L * 2 * B * T_ * D * (D + KS)
+
+    def conv_bytes(T_):
+        return 2 * 2 * B * T_ * D + 4 * L * (3 * D + KS * D + D * D)
+
+    for name, T_ in (("conv_block_fwd_bf16", max_w),
+                     ("conv_block_fwd_tiled_bf16", T)):
+        args = conv_inputs(T_)
+        whole = K.launch_conv_block_fwd(*args)
+        tiled = K.launch_conv_block_fwd_tiled(*args)[0]
+        ref = K.conv_block_plain(*args)
+        if "tiled" in name:
+            got, fn = tiled, lambda a=args: K.launch_conv_block_fwd_tiled(*a)[0]
+        else:
+            got, fn = whole, lambda a=args: K.launch_conv_block_fwd(*a)
+        check(torch.equal(whole, tiled), "%s: the whole-row and tiled bf16 "
+              "forwards differ" % name)
+        ref32 = K.conv_block_plain(args[0].float(), *args[1:])
+        share_check = bf16_function_check(
+            name, "share_differing", share_differing(got, ref),
+            share_differing(ref32.to(bf), ref), BF16_SHARE_TOL)
+        record(name, "vslnet_torch/csrc/conv_block.cu", 1019,
+               max_err(got, ref), BF16_TOL,
+               fn, lambda a=args: K.conv_block_plain(*a), conv_flops(T_),
+               conv_bytes(T_), checked_err=scaled_err(got, ref),
+               shape=[B, T_, D], route_serve=K.conv_route(T_, D, KS, L),
+               whole_tiled_equal_bits=True,
+               err_vs_fp32_function=scaled_err(got, ref32), **share_check)
+
+    # 3. the MHA block at the video's [B, T, D] and the query's [B, max_w, D]
+    def mha_inputs(T_):
+        lens_ = np.concatenate([[T_, 0], rng.integers(1, T_ + 1, B - 2)])
+        return lens_, [t(rng.standard_normal((B, T_, D))).to(bf),
+                       t(np.arange(T_)[None, :] < lens_[:, None]),
+                       t(1 + 0.1 * rng.standard_normal((2, D))),
+                       t(0.1 * rng.standard_normal((2, D))),
+                       t(rng.standard_normal((D, 3 * D)) / math.sqrt(D)),
+                       t(0.1 * rng.standard_normal(3 * D)),
+                       t(rng.standard_normal((D, D)) / math.sqrt(D)),
+                       t(0.1 * rng.standard_normal(D))]
+
+    mlens, args = mha_inputs(T)
+    _, q_args = mha_inputs(max_w)
+    out = K.fused_mha_block(*args, heads)
+    ref = K.mha_block_plain(*args, heads)
+    q_out = K.fused_mha_block(*q_args, heads)
+    q_ref = K.mha_block_plain(*q_args, heads)
+    ref32 = K.mha_block_plain(args[0].float(), *args[1:], heads)
+    q_ref32 = K.mha_block_plain(q_args[0].float(), *q_args[1:], heads)
+    check(bool(torch.isfinite(out.float()).all()), "mha_block_fwd_bf16: "
+          "not finite")
+    share_check = bf16_function_check(
+        "mha_block_fwd_bf16", "share_differing",
+        max(share_differing(out, ref), share_differing(q_out, q_ref)),
+        min(share_differing(ref32.to(bf), ref),
+            share_differing(q_ref32.to(bf), q_ref)), BF16_SHARE_TOL)
+    keys = int(np.maximum(mlens, T * (mlens == 0)).sum())  # all for masked
+    record("mha_block_fwd_bf16", "vslnet_torch/csrc/mha_block.cu", 1736,
+           max(max_err(out, ref), max_err(q_out, q_ref)), BF16_TOL,
+           lambda: K.fused_mha_block(*args, heads),
+           lambda: K.mha_block_plain(*args, heads),
+           2 * B * T * D * 3 * D + 4 * T * keys * D + 2 * B * T * D * D,
+           2 * 2 * B * T * D + 4 * (B * T + 4 * D + 4 * D * D + 4 * D),
+           checked_err=max(scaled_err(out, ref), scaled_err(q_out, q_ref)),
+           shape=[B, T, D], heads=heads, query_T=max_w,
+           err_vs_fp32_function=scaled_err(out, ref32), **share_check,
+           query_ms=cuda_ms(lambda: K.fused_mha_block(*q_args, heads), 50),
+           query_device_ms=sum(by_kernel(
+               lambda: K.fused_mha_block(*q_args, heads)).values()))
+    return rows
+
+
+class TwinsOnTheCard:
+    """The kernel wrappers the model calls replaced, for a reference
+    forward on the card, by their plain versions (at bf16, the bf16 twins):
+    the modules look the wrappers up in ops/kernels.py at each call."""
+
+    def __enter__(self):
+        from vslnet_torch.ops import kernels as K
+
+        def gate(x, w, b, m):
+            scores = K.highlight_plain(x, w, b, m)[1]
+            return x * scores[:, :, None], scores
+
+        self.saved = {n: getattr(K, n) for n in (
+            "fused_lstm_recurrence", "fused_conv_block", "fused_mha_block",
+            "fused_cqa_concat", "fused_highlight_gate")}
+        K.fused_lstm_recurrence = K.lstm_recurrence_plain
+        K.fused_conv_block = K.conv_block_plain
+        K.fused_mha_block = K.mha_block_plain
+        K.fused_cqa_concat = lambda *a: K.cqa_plain(*a)[0]
+        K.fused_highlight_gate = gate
+        return self
+
+    def __exit__(self, *exc):
+        from vslnet_torch.ops import kernels as K
+
+        for n, f in self.saved.items():
+            setattr(K, n, f)
+
+
+def bf16_phase(dataset, feats, splits, fp32_launches):
+    """The full-width T=128 rnn model at precision=bf16 with the slice
+    phase's seeded weights: HTTP requests (the slice phase's) through
+    Localizer and make_server, their launches kernel by kernel equal to the
+    fp32 run's with the four bf16 kernels under their bf16 entries; the
+    served logits against the twins' composition, use_pallas=off at bf16
+    and the fp32 model; spans against the fp32 model's; a served batch
+    profiled beside the fp32 batch. Returns the HTTP run's launches."""
+    import torch
+
+    from vslnet_torch.bench.paths import build_localizer, profile_device
+    from vslnet_torch.config import Config
+    from vslnet_torch.ops import kernels as K
+    from vslnet_torch.server import durations_from_dataset, make_server
+
+    def localizer(precision, use_pallas):
+        cfg = Config(task="charades", predictor="rnn", hidden_size=128,
+                     num_heads=8, max_pos_len=128, video_feature_dim=1024,
+                     word_dim=300, char_dim=50, batch_size=16,
+                     char_size=dataset["n_chars"], use_pallas=use_pallas,
+                     precision=precision, seed=SEED)
+        return build_localizer(cfg, dataset, splits, SEED)
+
+    loc = localizer("bf16", "auto")
+    loc_off = localizer("bf16", "off")
+    loc32 = localizer("fp32", "auto")
+    check(loc.model.dtype == torch.bfloat16 and loc.use_kernels,
+          "precision=bf16, use_pallas=auto: a bf16 model with the kernels")
+
+    durations = durations_from_dataset(dataset)
+    durations["long_video"] = 300.0
+    recs = dataset["test_set"]
+    single = {"vid": recs[0]["vid"], "query": " ".join(recs[0]["words"])}
+    many = [{"vid": r["vid"], "query": " ".join(r["words"])}
+            for r in recs[:16 + 4]]
+    many[1]["vid"] = "long_video"
+    topk = [{"vid": r["vid"], "query": " ".join(r["words"]), "top_k": 3}
+            for r in recs[20:23]]
+    server = make_server(loc, feats, durations, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://127.0.0.1:%d/localize" % server.server_address[1]
+    try:
+        K.reset_launches()
+        replies = [post(base, single)] + post(base, many) + post(base, topk)
+        launches = dict(K.LAUNCHES)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "server thread did not stop")
+    for req, rep in zip([single] + many + topk, replies):
+        spans = rep["spans"] if "top_k" in req else [rep]
+        check(len(spans) == req.get("top_k", 1) and all(
+            0.0 <= sp["start"] <= sp["end"] <= durations[req["vid"]] + 1e-3
+            for sp in spans), "bf16 reply out of range: %s" % rep)
+    # the fp32 run's launches, the four kernels with a bf16 form under their
+    # bf16 entries: a plain fall-back or a kernel of the wrong precision
+    # fails here
+    expected = dict(fp32_launches)
+    for n in BF16_NAMES:
+        expected[n + "_bf16"], expected[n] = fp32_launches[n], 0
+    check(launches == expected, "bf16 launches %s, expected %s"
+          % (launches, expected))
+
+    triples = [(feats[r["vid"]], durations[r["vid"]], r["query"])
+               for r in many[:16]]
+    batch, _ = loc.make_batch(triples)
+    keys = ("start_logits", "end_logits", "highlight_scores")
+    with torch.inference_mode():
+        out = loc.model(*batch)
+        K.reset_launches()
+        with TwinsOnTheCard():
+            refs = {"twins": loc.model(*batch)}
+        check(not any(K.LAUNCHES.values()), "the twins launched a kernel")
+        refs["off"] = loc_off.model(*batch)
+        refs["fp32"] = loc32.model(*batch)
+    valid = out["v_mask"].bool()
+
+    def model_err(a, b):
+        return max(float((a[k].double() - b[k].double()).abs()[valid].max())
+                   for k in keys)
+
+    errs = {ref_name: model_err(out, ref) for ref_name, ref in refs.items()}
+    control = model_err(refs["fp32"], refs["twins"])
+    finite = all(bool(torch.isfinite(out[k][valid]).all()) for k in keys)
+    spans16 = loc.localize_batch(triples)
+    spans32 = loc32.localize_batch(triples)
+    same = sum(a == b for a, b in zip(spans16, spans32)) / len(spans16)
+
+    def batch_ms(lo):
+        def run():
+            lo.localize_batch(triples)
+            torch.cuda.synchronize()
+        run()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run()
+        return (time.perf_counter() - t0) / 5 * 1e3
+
+    ms16, ms32 = batch_ms(loc), batch_ms(loc32)
+    emit({"phase": "bf16", "requests": len(replies), "launches": launches,
+          "max_err": errs, "tol": BF16_MODEL_TOL, "finite": finite,
+          "fp32_model_err_vs_twins": control,
+          "spans_equal_share_vs_fp32": same, "batch16_ms_bf16": ms16,
+          "batch16_ms_fp32": ms32, "batch16_ms_bf16_off": batch_ms(loc_off)})
+    prof16 = profile_device(lambda: loc.localize_batch(triples), ms16)
+    prof32 = profile_device(lambda: loc32.localize_batch(triples), ms32)
+    emit({"phase": "profile", "of": "served batch of 16 at bf16",
+          "fp32_device_ms_without_copies": prof32["device_ms_without_copies"],
+          **prof16})
+    check(finite and all(errs[k] <= BF16_MODEL_TOL[k] for k in errs),
+          "the bf16 served model disagrees: %s > %s" % (errs, BF16_MODEL_TOL))
+    check(control > BF16_MODEL_TOL["twins"], "the fp32 model is within %g "
+          "of the bf16 twins (%g): the check does not tell the functions "
+          "apart" % (BF16_MODEL_TOL["twins"], control))
+    return launches
+
+
 # --- phase 6 -------------------------------------------------------------------
 # Beyond T = 145, where the whole-row conv and MHA block kernels do not fit
 # a block: path M (the rnn predictor at max_pos_len 192, batch 16; its
@@ -1539,7 +1908,8 @@ CLI_KERNELS = ("lstm_recurrence_fwd", "lstm_recurrence_fwd_res",
                "lstm_recurrence_bwd", "conv_block_fwd", "conv_block_bwd",
                "conv_block_fwd_tiled", "conv_block_bwd_tiled",
                "mha_block_fwd", "mha_block_bwd", "cqa_concat_fwd",
-               "highlight_gate_fwd", "span_decode")
+               "highlight_gate_fwd", "span_decode") + tuple(
+                   n + "_bf16" for n in BF16_NAMES)  # the bf16 test run
 HTOD_STEP_MAX_BYTES = 1024
 # modules -> the kernels that show they took the kernel route
 MODULE_KERNELS = {
@@ -1824,6 +2194,13 @@ def cli_phase(dataset, feats, splits):
         best = scores_at(results, ckpts[-1])
         check(test == best, "--mode test gave %s, the restored checkpoint's "
               "evaluation %s" % (test, best))
+        # the same model directory tested at bf16: configs.json reloaded,
+        # --precision applied over it, the fp32 checkpoint served at bf16
+        out_test16 = cli_run("test_bf16", cli_args(
+            root, work, "--mode", "test", "--precision", "bf16"), work, files)
+        test16 = [float(x) for x in re.findall(r":\t([0-9.]+)", out_test16)]
+        check(len(test16) == 4 and all(0.0 <= v <= 100.0 for v in test16),
+              "--mode test --precision bf16 gave %s" % test16)
         queries = os.path.join(work, "queries.jsonl")
         vids = sorted(durations)[:20]
         with open(queries, "w") as f:
@@ -1854,11 +2231,16 @@ def cli_phase(dataset, feats, splits):
     emit({"phase": "cli", "seconds": cli_s, "data": dict(
         CLI_DATA, records=CLI_DATA["n_train"] + CLI_DATA["n_test"]),
         "resumed_from": int(m.group(1)), "checkpoints": ckpts,
-        "test": test, "predictions": len(lines), "http_200": len(replies),
+        "test": test, "test_bf16": test16, "predictions": len(lines),
+        "http_200": len(replies),
         "launches": runs})
     for name in total:
         check((total[name] > 0) == (name in CLI_KERNELS),
               "cli: %s launched %d times" % (name, total[name]))
+    for name in BF16_NAMES:  # the bf16 run took the bf16 kernels only
+        check(runs["test_bf16"][name + "_bf16"] > 0
+              and runs["test_bf16"][name] == 0,
+              "cli: the bf16 test run launched %s" % runs["test_bf16"])
     c5_phase(dataset, feats, splits)
     return total
 
@@ -1906,13 +2288,20 @@ def main():
         row["launches_train_step"] = train_launches[name] / TRAIN_STEPS
         check(row["launches"] > 0,
               "%s never launched on its main path" % name)
+    bf16_rows = bf16_kernel_rows(dev, max_w)
+    bf16_launches = bf16_phase(dataset, feats, splits, launches)
+    for row in bf16_rows:
+        row["launches"] = bf16_launches[row["name"]]
+        row["launches_path"] = "serve_bf16"
+        check(row["launches"] > 0,
+              "%s never launched on the bf16 served path" % row["name"])
     long_rows = long_t_phase(dev)
     for row in long_rows:
         # the tiled conv kernels also run on the main path where conv_route
         # sends its rows
         row["launches_main"] = {"serve": launches[row["name"]],
                                 "train": train_launches[row["name"]]}
-    rows += long_rows
+    rows += long_rows + bf16_rows
     cli_counts = cli_phase(dataset, feats, splits)
     for row in rows:
         # and on the command line's runs (train, resume, test, predict,

@@ -112,6 +112,19 @@ def test_test_and_predict_from_the_saved_dir(data_root, trained, capsys):
     assert lines[0] == pred and lines[1]["end"] <= 40.0 + 1e-6
 
 
+def test_test_and_predict_at_bf16_from_an_fp32_model(data_root, trained,
+                                                     capsys):
+    """--precision bf16 over the reloaded configs.json: the fp32 weights
+    serve at bf16 (the parameters are fp32 at either precision)."""
+    _run(data_root, trained, "--mode", "test", "--precision", "bf16")
+    out = capsys.readouterr().out
+    assert "Rank@1, IoU=0.7" in out and "mean IoU" in out
+    _run(data_root, trained, "--mode", "predict", "--precision", "bf16",
+         "--vid", "VID001", "--query", "a person opens the door")
+    pred = _last_json(capsys)
+    assert pred["vid"] == "VID001" and 0.0 <= pred["start"] <= pred["end"]
+
+
 def test_resume_continues_and_appends(data_root, tmp_path, capsys):
     _run(data_root, tmp_path, "--mode", "train", "--eval_period", "1")
     results = tmp_path.joinpath(*MODEL) / "eval_results.txt"
@@ -171,7 +184,8 @@ def test_predict_errors_and_duration(data_root, trained, capsys):
 @pytest.mark.parametrize("flags,item", [
     (("--mode", "export"), "A8"), (("--text_encoder", "bert"), "A10"),
     (("--t7_checkpoint", "m.t7"), "A11"), (("--tf_checkpoint", "m"), "A11"),
-    (("--dp_size", "2"), "A9"), (("--ring_attention", "on"), "A9")])
+    (("--dp_size", "2"), "A9"), (("--ring_attention", "on"), "A9"),
+    (("--precision", "bf16"), "B4b")])
 def test_unported_options_name_their_roadmap_item(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         _run(tmp_path / "d", tmp_path, *flags)

@@ -153,7 +153,7 @@ def test_conv_plans_bench_copies_match_the_kernel():
     assert 'extern "C" int prof_clusters' in prof
     # the occupancy helper names both cluster kernels as the source does
     assert "conv_block_bwd_cluster_kernel(const float*" in src
-    assert "conv_block_fwd_cluster_kernel(const float*" in src
+    assert "conv_block_fwd_cluster_kernel(const XT*" in src
     assert "conv_block_fwd_cluster_kernel<2>" in src
     for rows, unroll in conv_plans.PRODUCT_TILES[1:]:
         tile = conv_plans.with_tile(src, rows, unroll)

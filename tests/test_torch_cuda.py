@@ -1077,3 +1077,135 @@ def test_cuda_span_decode_beyond_its_kernel_takes_the_plain_version(cuda):
         assert torch.equal(x, y)
     with pytest.raises(ValueError, match="6128"):
         kernels.fused_span_decode(s, e)
+
+
+# --- bf16 (precision=bf16): the bf16 kernels against their bf16 twins --------
+# The twins compute each kernel's bf16 function in PyTorch on the card:
+# the same roundings, fp32 sums in another order (cuBLAS against the
+# kernels' fmaf chains), so a value that lies on a bf16 rounding boundary
+# can round the other way in one of them (on 0.1-0.8% of the blocks'
+# outputs at the served shapes, one H100 80GB HBM3 at 700 W).
+# BF16_LSTM_TOL is absolute on the LSTM's fp32 output (a flip of bf16(h)
+# moves a gate by up to 2^-9 and carries down the chain: 3e-4 to 5e-4
+# measured at [128, 16, 512] on that card); BF16_TOL is relative to the
+# largest output, two bf16 ulps, for the bf16 outputs of the blocks (one
+# ulp measured). A kernel that left out its bf16 rounding points would
+# pass those, so each test also holds a reading that tells the bf16
+# function from the fp32 one: the LSTM's mean absolute error over its
+# valid outputs (BF16_LSTM_MEAN_TOL), the share of the blocks' bf16
+# outputs that differ from the twin's (BF16_SHARE_TOL). The fp32 function,
+# rounded to bf16 only where the output is bf16, is the control: it must
+# fail them.
+BF16 = torch.bfloat16
+BF16_LSTM_TOL = 5e-3
+BF16_TOL = 2.0 ** -7
+BF16_LSTM_MEAN_TOL = 2e-5
+BF16_SHARE_TOL = 0.05
+
+
+def _scaled(out, ref):
+    return float((out.double() - ref.double()).abs().max()
+                 / max(1.0, float(ref.double().abs().max())))
+
+
+def _share(out, ref):
+    return float((out != ref.to(out.dtype)).float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(128, 16, 128), (20, 5, 100), (12, 4, 8),
+                                   (192, 16, 128)])
+def test_cuda_lstm_bf16_matches_twin(cuda, T, B, H):
+    rng = np.random.default_rng(31)
+    x_proj, k_h, valid = _lstm_inputs(rng, T, B, H,
+                                      rng.integers(1, T + 1, size=B))
+    args = [_t(x_proj).to(cuda, BF16), _t(k_h).to(cuda, BF16),
+            _t(valid).to(cuda)]
+    before = kernels.LAUNCHES["lstm_recurrence_fwd_bf16"]
+    out, ref = _cuda_pair(kernels.fused_lstm_recurrence,
+                          kernels.lstm_recurrence_plain, args)
+    assert kernels.LAUNCHES["lstm_recurrence_fwd_bf16"] == before + 1
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, atol=BF16_LSTM_TOL, rtol=0)
+    ref32 = kernels.lstm_recurrence_plain(args[0].float(), args[1].float(),
+                                          args[2])
+
+    def mean_err(a):
+        return float((a - ref).abs()[args[2].bool()].mean())
+
+    assert mean_err(out) <= BF16_LSTM_MEAN_TOL < mean_err(ref32)
+    assert torch.equal(out, kernels.fused_lstm_recurrence(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("B,T,D", [(16, 128, 128), (16, 12, 128), (2, 13, 16),
+                                   (16, 30, 128)])
+def test_cuda_conv_block_bf16_matches_twin(cuda, B, T, D, rate):
+    """Both forms, whole-row and T-tiled, against the twin; they do the
+    same arithmetic in the same order, so their bits are equal."""
+    rng = np.random.default_rng(32)
+    x, *w = _conv_inputs(rng, B, T, D)
+    args = [_t(x).to(cuda, BF16)] + [_t(a).to(cuda) for a in w]
+    drop = ({"seeds": _t(_seeds(rng, B)).to(cuda), "drop_rate": rate}
+            if rate else {})
+    ref = kernels.conv_block_plain(*args, **drop)
+    before = dict(kernels.LAUNCHES)
+    whole = kernels.launch_conv_block_fwd(*args, **drop)
+    tiled, xs = kernels.launch_conv_block_fwd_tiled(*args, **drop)
+    torch.cuda.synchronize()
+    for name in ("conv_block_fwd_bf16", "conv_block_fwd_tiled_bf16"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+    assert whole.dtype == BF16 and xs.dtype == torch.float32
+    assert _scaled(whole, ref) <= BF16_TOL
+    ref32 = kernels.conv_block_plain(args[0].float(), *args[1:], **drop)
+    assert _share(whole, ref) <= BF16_SHARE_TOL < _share(ref32.to(BF16), ref)
+    assert torch.equal(whole, tiled)
+    assert torch.equal(whole, kernels.launch_conv_block_fwd(*args, **drop))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("B,T,D,heads", [(16, 128, 128, 8), (16, 12, 128, 8),
+                                         (3, 10, 16, 2), (4, 40, 128, 4),
+                                         (2, 64, 128, 2)])
+def test_cuda_mha_block_bf16_matches_twin(cuda, B, T, D, heads, rate):
+    """Head dims 16, 8 (q * scale rounds), 32 and 64; a fully masked row."""
+    rng = np.random.default_rng(33)
+    lens = list(rng.integers(1, T + 1, size=B - 1)) + [0]
+    x, *w = _mha_inputs(rng, B, T, D, lens)
+    args = [_t(x).to(cuda, BF16)] + [_t(a).to(cuda) for a in w]
+    drop = ({"seeds": _t(_seeds(rng, B)).to(cuda), "drop_rate": rate}
+            if rate else {})
+    before = kernels.LAUNCHES["mha_block_fwd_bf16"]
+    out = kernels.fused_mha_block(*args, heads, **drop)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mha_block_fwd_bf16"] == before + 1
+    ref = kernels.mha_block_plain(*args, heads, **drop)
+    assert out.dtype == BF16 and torch.isfinite(out.float()).all()
+    assert _scaled(out, ref) <= BF16_TOL
+    ref32 = kernels.mha_block_plain(args[0].float(), *args[1:], heads, **drop)
+    assert _share(out, ref) <= BF16_SHARE_TOL < _share(ref32.to(BF16), ref)
+    assert torch.equal(out, kernels.fused_mha_block(*args, heads, **drop))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_wrappers_refuse_gradients_and_long_routes(cuda):
+    rng = np.random.default_rng(34)
+    x_proj, k_h, valid = (_t(a).to(cuda) for a in
+                          _lstm_inputs(rng, 4, 2, 8, [4, 2]))
+    x_proj = x_proj.to(BF16).requires_grad_()
+    with pytest.raises(NotImplementedError, match="B4b"):
+        kernels.fused_lstm_recurrence(x_proj, k_h.to(BF16), valid)
+    x, *w = (_t(a).to(cuda) for a in _conv_inputs(rng, 2, 13, 16))
+    with pytest.raises(NotImplementedError, match="B4b"):
+        kernels.fused_conv_block(x.to(BF16), *(a.requires_grad_() for a in w))
+    x, *w = (_t(a).to(cuda) for a in _mha_inputs(rng, 2, 10, 16, [10, 3]))
+    with pytest.raises(NotImplementedError, match="B4b"):
+        kernels.fused_mha_block(x.to(BF16).requires_grad_(), *w, 2)
+    x, *w = (_t(a).to(cuda) for a in _mha_inputs(rng, 1, 200, 128, [200]))
+    with pytest.raises(NotImplementedError, match="B4c"):
+        kernels.fused_mha_block(x.to(BF16), *w, 8)
+    with pytest.raises(TypeError):  # fp32 x_proj with a bf16 k_h
+        kernels.fused_lstm_recurrence(x_proj.detach().float(), k_h.to(BF16),
+                                      valid)

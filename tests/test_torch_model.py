@@ -8,6 +8,7 @@ import torch
 
 from vslnet_tpu.models.losses import decode_span as jax_decode_span
 from vslnet_tpu.models.vslnet import VSLNet as JaxVSLNet
+from vslnet_torch.cli import refuse_unported
 from vslnet_torch.config import Config, use_kernels
 from vslnet_torch.convert_flax import flax_to_torch, load_flax_variables
 from vslnet_torch.data.vocab import UNK
@@ -110,10 +111,25 @@ def test_entry_points_need_a_device_and_supported_options():
                       lambda: make_server(loc, {}, {}, port=0)):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 entry()
-    for field, value in (("precision", "bf16"), ("text_encoder", "bert")):
-        bad = Config(**{**configs.__dict__, field: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(bad, (30, 8), device="cpu")
+    bad = Config(**{**configs.__dict__, "text_encoder": "bert"})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(bad, (30, 8), device="cpu")
+    # precision=bf16 builds and serves; it refuses training (ROADMAP.md
+    # B4b) and, with the kernels, the MHA block's routes above the block
+    # kernels' T limit (B4c), which have no bf16 kernels yet
+    bf16 = Config(**{**configs.__dict__, "precision": "bf16"})
+    assert build_model(bf16, (30, 8), device="cpu").dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="B4b"):
+        refuse_unported(Config(**{**bf16.__dict__, "mode": "train"}))
+    long_t = 240
+    assert kernels.mha_route(long_t, 16, 2) != "block"
+    model = build_model(Config(**{**bf16.__dict__, "max_pos_len": long_t,
+                                  "num_heads": 2}), (30, 8), device="cpu")
+    word_ids, char_ids, _, _ = _batch(0)
+    vfeats = torch.zeros(B, long_t, 10)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="B4c"):
+        model(torch.from_numpy(word_ids), torch.from_numpy(char_ids), vfeats,
+              torch.full((B,), long_t))
 
 
 def test_use_kernels():

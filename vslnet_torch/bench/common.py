@@ -28,7 +28,8 @@ def cuda_ms(fn, reps=20, warmup=3):
 
 def by_kernel(fn, reps=10):
     """{kernel name, cut to 60 characters: device ms a call of fn}, from
-    torch.profiler over reps calls after one."""
+    torch.profiler over reps calls after one; the kernels whose names agree
+    in those characters (instantiations of one template) summed."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -39,8 +40,12 @@ def by_kernel(fn, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key[:60]: e.device_time_total / 1e3 / reps
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            out[e.key[:60]] = (out.get(e.key[:60], 0.0)
+                               + e.device_time_total / 1e3 / reps)
+    return out
 
 
 def card():

@@ -228,7 +228,7 @@ def instrumented_tiled(src, kernel="bwd"):
     conv_block.cu line of each stamp)."""
     lines = src.split("\n")
     orig = list(lines)
-    head = "conv_layer_%s_tiled_kernel(const float* __restrict__ xin" % kernel
+    head = "conv_layer_%s_tiled_kernel(const " % kernel
     first = next(i for i, s in enumerate(lines) if s.startswith(head))
     last = lines.index("}", first)
     stamp = (" { if (threadIdx.x == 0 && blockIdx.x == 1 && blockIdx.y == 0) { long long "

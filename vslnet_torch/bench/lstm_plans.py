@@ -63,12 +63,12 @@ def instrumented(src):
            "plast = 0, pt0 = 0, pt1 = 0;\n  if (tid == 0 && blockIdx.x == 0) {\n"
            "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pt0));\n"
            "    plast = clock64();\n  }\n")
-    insert("    float nx[4] = {0.f, 0.f, 0.f, 0.f}, nv = 0.f;\n", stamp(0, "    "))
+    insert("    decltype(ld_early(xp)) nx[4] = {0, 0, 0, 0};\n", stamp(0, "    "))
     insert("    for (int off = S >> 1; off > 0; off >>= 1)\n#pragma unroll\n"
            "      for (int g = 0;", stamp(1, "    "))
     insert("      if (t + 1 < T) {", stamp(2, "      "))
     insert("      const size_t o = (size_t)t * B + row;\n", stamp(3, "      "))
-    insert("#pragma unroll\n    for (int g = 0; g < 4; ++g) x[g] = nx[g];\n",
+    insert("#pragma unroll\n    for (int g = 0; g < 4; ++g) x[g] = widen(nx[g]);\n",
            stamp(4, "    "))
     insert("    v = nv;\n  }\n", "  if (tid == 0 && blockIdx.x == 0) {\n"
            "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pt1));\n"

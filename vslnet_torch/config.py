@@ -9,7 +9,8 @@ compatibility and ignored here.
 
 `use_kernels` takes the place of the JAX package's `pallas_flags`: it
 decides whether the model calls the hand-written kernels' wrappers or
-their plain PyTorch versions.
+their plain PyTorch versions. `precision_dtype` resolves `precision` into
+the model's compute dtype.
 """
 import argparse
 import dataclasses
@@ -57,7 +58,9 @@ class Config:
     glove_path: Optional[str] = None
     max_words: Optional[int] = None    # static query-word cap (None: from data)
     max_chars: Optional[int] = None    # static word-char cap (None: from data)
-    precision: str = "fp32"            # [fp32 | bf16]; only fp32 is ported
+    precision: str = "fp32"            # [fp32 | bf16]; bf16 serves and
+    #   evaluates; bf16 training (ROADMAP.md B4b) and bf16 above T = 145
+    #   with the kernels (B4c) raise NotImplementedError
     use_pallas: str = "auto"           # [auto | on | off] hand-written
     #   kernels: auto and on launch the CUDA kernels on a CUDA device; off
     #   runs the plain PyTorch versions everywhere (see use_kernels)
@@ -134,6 +137,19 @@ def resolve_device(device=None):
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions of the kernels on the CPU")
     return torch.device("cuda")
+
+
+PRECISIONS = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def precision_dtype(configs):
+    """The compute dtype of `configs.precision`: fp32 -> torch.float32,
+    bf16 -> torch.bfloat16; ValueError on anything else."""
+    p = str(getattr(configs, "precision", "fp32")).lower()
+    if p not in PRECISIONS:
+        raise ValueError("precision must be fp32 or bf16, got %r"
+                         % (configs.precision,))
+    return PRECISIONS[p]
 
 
 def use_kernels(configs):

@@ -1,6 +1,8 @@
-// Device helpers shared by the kernels of vslnet_torch (fp32 throughout).
+// Device helpers shared by the kernels of vslnet_torch: fp32 arithmetic
+// throughout, activations stored in fp32 or, by the bf16 kernels, in bf16.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -13,6 +15,7 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 namespace vsl {
@@ -67,6 +70,37 @@ __device__ float block_reduce(float v, float* red) {
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
+// --- bf16 storage -----------------------------------------------------------
+// The bf16 kernels load bf16 activations, work in fp32 and round to bf16 at
+// the JAX kernels' points (round to nearest even, as XLA's astype): a
+// product of two rounded values is exact in fp32, so an fmaf chain over
+// rounded operands is "bf16 inputs, fp32 accumulation".
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_float(float v) {
+  if constexpr (std::is_same<T, float>::value)
+    return v;
+  else
+    return __float2bfloat16(v);
+}
+// p[0, n) rounded to bf16 in place, by the block's threads (no barrier).
+__device__ __forceinline__ void round_bf16(float* p, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = bf16_round(p[i]);
+}
+// The value a host-side fp32 constant takes in bf16 (round to nearest
+// even; finite values), as the JAX kernels' `dtype(scale)`.
+inline float bf16_round_host(float f) {
+  uint32_t u;
+  memcpy(&u, &f, sizeof(u));
+  u = (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
+  memcpy(&f, &u, sizeof(f));
+  return f;
+}
+
 // 1 / sqrt(hd), the attention kernels' query scale, rounded to fp32 once.
 inline float head_scale(int hd) { return static_cast<float>(1.0 / sqrt(static_cast<double>(hd))); }
 
@@ -76,25 +110,29 @@ inline float head_scale(int hd) { return static_cast<float>(1.0 / sqrt(static_ca
 // and k), so a backward recomputes the forward's scores bit for bit.
 
 // LayerNorm over the last dim of src [T, D] into dst [T, D] (either may be
-// shared or global memory): one warp per row, fp32 statistics, population
-// variance, eps 1e-6. blockDim.x must be a multiple of 32.
-inline __device__ void layer_norm_rows(const float* src, float* dst, const float* __restrict__ gam,
-                                const float* __restrict__ beta, int T, int D) {
+// shared or global memory; src fp32 or bf16): one warp per row, fp32
+// statistics, population variance, eps 1e-6; with kRound the output
+// rounded to bf16. blockDim.x must be a multiple of 32.
+template <bool kRound = false, typename Src = float>
+inline __device__ void layer_norm_rows(const Src* src, float* dst, const float* __restrict__ gam,
+                                       const float* __restrict__ beta, int T, int D) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   for (int t = warp; t < T; t += nwarps) {
-    const float* row = src + (size_t)t * D;
+    const Src* row = src + (size_t)t * D;
     float s = 0.f;
-    for (int c = lane; c < D; c += 32) s += row[c];
+    for (int c = lane; c < D; c += 32) s += to_float(row[c]);
     const float mean = warp_sum(s) / D;
     float v = 0.f;
     for (int c = lane; c < D; c += 32) {
-      const float d = row[c] - mean;
+      const float d = to_float(row[c]) - mean;
       v += d * d;
     }
     const float inv = rsqrtf(warp_sum(v) / D + kLnEps);
-    for (int c = lane; c < D; c += 32)
-      dst[(size_t)t * D + c] = (row[c] - mean) * inv * __ldg(gam + c) + __ldg(beta + c);
+    for (int c = lane; c < D; c += 32) {
+      const float n = (to_float(row[c]) - mean) * inv * __ldg(gam + c) + __ldg(beta + c);
+      dst[(size_t)t * D + c] = kRound ? bf16_round(n) : n;
+    }
   }
 }
 

@@ -64,6 +64,18 @@
 // These whole-row kernels take T up to 145 at D = 128 (the backward's
 // shared memory); the T-tiled kernels further down take any T, one layer
 // a launch (ops/kernels.py conv_route picks between them).
+//
+// bf16 (vsl_conv_block_fwd_bf16, vsl_conv_block_fwd_tiled_bf16): the TPU
+// forward at bf16 (pallas_kernels.py:985-1034) takes x in bf16 and the
+// weights in fp32, keeps the residual stream fp32 across all L layers,
+// rounds n = LN(x) to bf16 before the fp32 depthwise, rounds d and wp to
+// bf16 for the pointwise product (fp32 accumulation), and rounds the
+// output to bf16 once, after the last layer. The same forwards, templated:
+// x widened as it is loaded, n rounded as the LayerNorm stores it, d as
+// the depthwise stores it, wp in shared memory once it has landed, the
+// output narrowed as it is stored. The tiled forward's inter-layer stream
+// xs stays fp32, as the TPU kernel's stream does; only the first layer
+// reads bf16 and only the last writes it. Bound as the fp32 forwards are.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -164,7 +176,8 @@ __device__ void fill_halo(cg::cluster_group& cluster, float* buf, int lo, int c0
 // out[t][c] = sum_j win[t + j][c] * taps[j][c] for the nf own frames: the
 // depthwise product over a window (taps in order, as the plain version
 // adds them) or its transpose (taps reversed).
-template <bool kReversed>
+// kRound: each output rounded to bf16 as it is stored.
+template <bool kReversed, bool kRound = false>
 __device__ void window_taps(const float* win, const float* taps, int nf, int D, int K, float* out) {
   for (int i = threadIdx.x; i < nf * D; i += blockDim.x) {
     const int t = i / D, c = i - t * D;
@@ -173,17 +186,19 @@ __device__ void window_taps(const float* win, const float* taps, int nf, int D, 
     for (int j = 0; j < K; ++j)
       acc = fmaf(win[(size_t)(t + j) * D + c], taps[(size_t)(kReversed ? K - 1 - j : j) * D + c],
                  acc);
-    out[i] = acc;
+    out[i] = kRound ? vsl::bf16_round(acc) : acc;
   }
 }
 
 // The forward's product tile: R rows x 4 columns (R = 3 above 16 frames a
 // CTA, so that the main path's 22 are 256 items, one a thread; else 2),
-// the k loop unrolled 4 times.
-template <int R>
+// the k loop unrolled 4 times. XT: the storage type of x and out (float,
+// or __nv_bfloat16 for the bf16 forward).
+template <int R, typename XT = float>
 __global__ void __launch_bounds__(kThreads)
-conv_block_fwd_cluster_kernel(const float* __restrict__ x, ConvParams p, vsl::Dropout drop,
-                              float* __restrict__ out, int F) {
+conv_block_fwd_cluster_kernel(const XT* __restrict__ x, ConvParams p, vsl::Dropout drop,
+                              XT* __restrict__ out, int F) {
+  constexpr bool kBf16 = !std::is_same<XT, float>::value;
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2;
@@ -200,21 +215,25 @@ conv_block_fwd_cluster_kernel(const float* __restrict__ x, ConvParams p, vsl::Dr
   const size_t own = ((size_t)b * T + c0) * D;
   const uint32_t seed = drop.seed(b);
   const int nel = nf * D;
-  for (int i = threadIdx.x; i < nel; i += blockDim.x) X[i] = x[own + i];
+  for (int i = threadIdx.x; i < nel; i += blockDim.x) X[i] = vsl::to_float(x[own + i]);
   for (int l = 0; l < p.L; ++l) {
     float* NWl = NW + (l & 1) * lay.HD;
     __syncthreads();  // X written; W, DW and P read by the layer before
     vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
     vsl::cp_async_floats(W, p.wp + (size_t)l * D * D, D * D);  // lands behind the LN and depthwise
-    vsl::layer_norm_rows(X, NWl + (size_t)pad * D, p.gam + (size_t)l * D,
-                         p.beta + (size_t)l * D, nf, D);
+    vsl::layer_norm_rows<kBf16>(X, NWl + (size_t)pad * D, p.gam + (size_t)l * D,
+                                p.beta + (size_t)l * D, nf, D);
     cluster.sync();  // every CTA's n_l, before the halo reads
     fill_halo(cluster, NWl, pad, c0, nf, F, T, D, K);
     vsl::cp_async_wait<1>();
     __syncthreads();
-    window_taps<false>(NWl, DW, nf, D, K, P);  // P[t] = sum_j n(t + j - pad) dw[j]
+    window_taps<false, kBf16>(NWl, DW, nf, D, K, P);  // P[t] = sum_j n(t + j - pad) dw[j]
     vsl::cp_async_wait<0>();
     __syncthreads();
+    if (kBf16) {  // wp rounded in place for the product
+      vsl::round_bf16(W, D * D);
+      __syncthreads();
+    }
     const float* bpl = p.bp + (size_t)l * D;
     const uint32_t salt = vsl::site_salt(0x100u + l);
     vsl::smem_gemm<R, 4>(P, D, nf, D, W, D, D, [&](int t, int o, float4 acc) {
@@ -226,7 +245,7 @@ conv_block_fwd_cluster_kernel(const float* __restrict__ x, ConvParams p, vsl::Dr
     });
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < nel; i += blockDim.x) out[own + i] = X[i];
+  for (int i = threadIdx.x; i < nel; i += blockDim.x) out[own + i] = vsl::from_float<XT>(X[i]);
   cluster.sync();  // no CTA leaves while a neighbour may read its window
 }
 
@@ -457,7 +476,8 @@ constexpr int kTiledUnroll = 4;
 // the depthwise output is the forward's bit for bit. A thread takes a
 // column and a run of rows, its taps and the last K rows of its column in
 // registers: one shared load an output where the loop of taps has 2 K.
-template <int K, bool kRev>
+// kRound: each output rounded to bf16 as it is stored.
+template <int K, bool kRev, bool kRound = false>
 __device__ void taps_sliding(const float* win, const float* taps, int rows, int D, float* out) {
   const int parts = max(1, static_cast<int>(blockDim.x) / D);  // threads a column
   const int per = (rows + parts - 1) / parts;
@@ -473,7 +493,7 @@ __device__ void taps_sliding(const float* win, const float* taps, int rows, int 
       float acc = 0.f;
 #pragma unroll
       for (int j = 0; j < K; ++j) acc = fmaf(kRev ? n[K - 1 - j] : n[j], w[j], acc);
-      out[e * D + c] = acc;
+      out[e * D + c] = kRound ? vsl::bf16_round(acc) : acc;
 #pragma unroll
       for (int j = 0; j + 1 < K; ++j) n[j] = n[j + 1];
     }
@@ -484,10 +504,10 @@ __device__ void taps_sliding(const float* win, const float* taps, int rows, int 
 // (kRev: win[e + K - 1 - j][c]), each one fmaf chain over j in order: the
 // register window of taps_sliding at the model's K = 7, a loop of taps at
 // any other K.
-template <bool kRev>
+template <bool kRev, bool kRound = false>
 __device__ void taps_rows(const float* win, const float* taps, int rows, int D, int K, float* out) {
   if (K == 7) {
-    taps_sliding<7, kRev>(win, taps, rows, D, out);
+    taps_sliding<7, kRev, kRound>(win, taps, rows, D, out);
     return;
   }
   for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
@@ -495,7 +515,7 @@ __device__ void taps_rows(const float* win, const float* taps, int rows, int D, 
     const float* w = taps + i % D;
     float acc = 0.f;
     for (int j = 0; j < K; ++j) acc = fmaf(n[(kRev ? K - 1 - j : j) * D], w[j * D], acc);
-    out[i] = acc;
+    out[i] = kRound ? vsl::bf16_round(acc) : acc;
   }
 }
 
@@ -503,8 +523,8 @@ __device__ void taps_rows(const float* win, const float* taps, int rows, int D, 
 // <= 32 kC: the same sums and expressions, so the same bits, with a row's
 // values, gam and beta in registers (one shared load and one store an
 // element) and two rows a warp at a time, so that their reductions
-// overlap.
-template <int kC>
+// overlap. kRound: the output rounded to bf16 as it is stored.
+template <int kC, bool kRound = false>
 __device__ void ln_rows_in_registers(float* X, const float* __restrict__ gam,
                                      const float* __restrict__ beta, int rows, int D) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
@@ -548,8 +568,10 @@ __device__ void ln_rows_in_registers(float* X, const float* __restrict__ gam,
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int i = 0; i < kC; ++i)
-        if (lane + 32 * i < D)
-          x[h][lane + 32 * i] = (v[h][i] - mean[h]) * inv[h] * g[i] + bt[i];
+        if (lane + 32 * i < D) {
+          const float n = (v[h][i] - mean[h]) * inv[h] * g[i] + bt[i];
+          x[h][lane + 32 * i] = kRound ? vsl::bf16_round(n) : n;
+        }
   }
 }
 
@@ -607,8 +629,9 @@ struct TiledBwdLayout {
 // streamed in slices of SK rows through Wb (slice 0 already issued by the
 // caller as the last commit group; two buffers where SK < D), each fmaf
 // chain continued across the slices (smem_gemm_from), the last slice's
-// sums handed to epi(t, o, float4). Ends with a barrier.
-template <int R, typename Epi>
+// sums handed to epi(t, o, float4); kRound: each slice rounded to bf16 in
+// place once it has landed. Ends with a barrier.
+template <int R, bool kRound = false, typename Epi>
 __device__ void sliced_product(const float* A, int rows, int D, const float* __restrict__ Wg,
                                float* Wb, int SK, float* C, Epi epi) {
   const int S = D / SK;
@@ -621,6 +644,10 @@ __device__ void sliced_product(const float* A, int rows, int D, const float* __r
       vsl::cp_async_wait<0>();
     }
     __syncthreads();  // slice s landed for every thread; C's last slice written
+    if (kRound) {
+      vsl::round_bf16(Wb + (size_t)(s & 1) * SK * D, SK * D);
+      __syncthreads();
+    }
     const bool last = s + 1 == S;
     vsl::smem_gemm_from<R, kTiledUnroll>(
         A + s * SK, D, rows, SK, Wb + (size_t)(s & 1) * SK * D, D, D,
@@ -657,10 +684,12 @@ struct TiledFwdLayout {
 
 // One layer of the tiled forward for the tile [t0, t0 + F) of row b: xout =
 // xin + drop(relu(depthwise(LN(xin)) . wp + bp)) over the own frames.
-template <int R>
+// kBf16: the bf16 forward's roundings; XIn, XOut: the storage types of the
+// layer's input and output (bf16 for x and out, fp32 for xs).
+template <int R, bool kBf16 = false, typename XIn = float, typename XOut = float>
 __global__ void __launch_bounds__(kTiledThreads, 1)
-conv_layer_fwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l, vsl::Dropout drop,
-                            float* __restrict__ xout, int F, int SK) {
+conv_layer_fwd_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l, vsl::Dropout drop,
+                            XOut* __restrict__ xout, int F, int SK) {
   extern __shared__ float4 smem4[];
   const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2;
   const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0);
@@ -679,12 +708,19 @@ conv_layer_fwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l, 
   // LayerNorm; n_l in place over the frames in [0, T)
   const int h0 = t0 - pad, lo = max(h0, 0), hi = min(h0 + nf + K - 1, T);
   vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
-  for (int i = threadIdx.x; i < (nf + K - 1) * D / 4; i += blockDim.x) {
-    const int t = h0 + 4 * i / D;
-    if (t >= lo && t < hi)
-      vsl::cp_async_float4(X + 4 * i, xin + row + (size_t)h0 * D + 4 * i);
-    else
-      reinterpret_cast<float4*>(X)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (std::is_same<XIn, float>::value) {
+    for (int i = threadIdx.x; i < (nf + K - 1) * D / 4; i += blockDim.x) {
+      const int t = h0 + 4 * i / D;
+      if (t >= lo && t < hi)
+        vsl::cp_async_float4(X + 4 * i, xin + row + (size_t)h0 * D + 4 * i);
+      else
+        reinterpret_cast<float4*>(X)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {  // bf16 x, widened by plain loads
+    for (int i = threadIdx.x; i < (nf + K - 1) * D; i += blockDim.x) {
+      const int t = h0 + i / D;
+      X[i] = t >= lo && t < hi ? vsl::to_float(xin[row + (size_t)h0 * D + i]) : 0.f;
+    }
   }
   vsl::cp_async_commit();
   vsl::cp_async_floats(W, p.wp + (size_t)l * D * D, SK * D);
@@ -694,26 +730,39 @@ conv_layer_fwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l, 
   const float* gam = p.gam + (size_t)l * D;
   const float* beta = p.beta + (size_t)l * D;
   if (D <= 128)
-    ln_rows_in_registers<4>(own, gam, beta, hi - lo, D);
+    ln_rows_in_registers<4, kBf16>(own, gam, beta, hi - lo, D);
   else  // wider rows than the model's: the same sums out of shared memory
-    vsl::layer_norm_rows(own, own, gam, beta, hi - lo, D);
+    vsl::layer_norm_rows<kBf16>(own, own, gam, beta, hi - lo, D);
   __syncthreads();
   // 2. d over the own frames: A[r] = sum_j n(t0 + r + j - pad) dw[j]
-  taps_rows<false>(X, DW, nf, D, K, A);
+  taps_rows<false, kBf16>(X, DW, nf, D, K, A);
   // 3. (sliced_product's first barrier orders A's writes before its reads)
   // x_(l+1) = x_l + drop(relu(d . wp + bp)), one float4 of x_l, of bp and
   // of the output an epilogue
-  sliced_product<R>(A, nf, D, p.wp + (size_t)l * D * D, W, SK, C, [&](int r, int o, float4 acc) {
+  sliced_product<R, kBf16>(A, nf, D, p.wp + (size_t)l * D * D, W, SK, C, [&](int r, int o,
+                                                                             float4 acc) {
     const size_t i = row + (size_t)(t0 + r) * D + o;
-    const float4 x4 = __ldg(reinterpret_cast<const float4*>(xin + i));
+    float4 x4;
+    if constexpr (std::is_same<XIn, float>::value)
+      x4 = __ldg(reinterpret_cast<const float4*>(xin + i));
+    else
+      x4 = make_float4(vsl::to_float(xin[i]), vsl::to_float(xin[i + 1]),
+                       vsl::to_float(xin[i + 2]), vsl::to_float(xin[i + 3]));
     const float4 b4 = __ldg(reinterpret_cast<const float4*>(bpl + o));
     const float a[4] = {acc.x, acc.y, acc.z, acc.w}, bb[4] = {b4.x, b4.y, b4.z, b4.w};
     float y[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q)
       y[q] = drop.apply(fmaxf(a[q] + bb[q], 0.f), seed, salt, t0 + r, o + q);
-    *reinterpret_cast<float4*>(xout + i) =
-        make_float4(x4.x + y[0], x4.y + y[1], x4.z + y[2], x4.w + y[3]);
+    if constexpr (std::is_same<XOut, float>::value) {
+      *reinterpret_cast<float4*>(xout + i) =
+          make_float4(x4.x + y[0], x4.y + y[1], x4.z + y[2], x4.w + y[3]);
+    } else {
+      xout[i] = vsl::from_float<XOut>(x4.x + y[0]);
+      xout[i + 1] = vsl::from_float<XOut>(x4.y + y[1]);
+      xout[i + 2] = vsl::from_float<XOut>(x4.z + y[2]);
+      xout[i + 3] = vsl::from_float<XOut>(x4.w + y[3]);
+    }
   });
 }
 
@@ -851,6 +900,31 @@ extern "C" int vsl_conv_block_fwd(const float* x, const float* gam, const float*
   return static_cast<int>(err);
 }
 
+// The bf16 forward on the same plan: x and out [B, T, D] in bf16, the
+// weights fp32.
+extern "C" int vsl_conv_block_fwd_bf16(const void* x, const float* gam, const float* beta,
+                                       const float* dw, const float* wp, const float* bp,
+                                       const float* seeds, unsigned thresh, float scale,
+                                       void* out, int B, int T, int D, int L, int K, int N, int F,
+                                       void* stream) {
+  if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || N < 1 || N > 8 ||
+      N != (T + F - 1) / F)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* ob = static_cast<bf16*>(out);
+  const size_t smem = FwdLayout(F, D, K).floats(D, K) * sizeof(float);
+  const ConvParams p = make_params(gam, beta, dw, wp, bp, T, D, L, K);
+  const vsl::Dropout drop{seeds, thresh, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = F <= 16 ? vsl::launch_cluster(conv_block_fwd_cluster_kernel<2, bf16>, B * N,
+                                                  N, kThreads, smem, s, xb, p, drop, ob, F)
+                            : vsl::launch_cluster(conv_block_fwd_cluster_kernel<3, bf16>, B * N,
+                                                  N, kThreads, smem, s, xb, p, drop, ob, F);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
+}
+
 // The backward on conv_plan's N CTAs a row, F frames a CTA (N = ceil(T /
 // F) <= 8). dsmall [L, 3 + K, D]: dgam, dbeta, dbp, ddw; dwp [L, D, D].
 // Workspaces: d_ws, gp_ws [L, B, T, D]; part [B * N, L, 3 + K, D];
@@ -908,6 +982,59 @@ extern "C" int vsl_conv_block_fwd_tiled(const float* x, const float* gam, const 
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+namespace {
+
+// One layer of the bf16 tiled forward, its kernel picked by the layer's
+// input and output types.
+template <int R, typename XIn, typename XOut>
+cudaError_t tiled_bf16_layer(const XIn* in, const ConvParams& p, int l, const vsl::Dropout& drop,
+                             XOut* o, int B, int F, int SK, size_t smem, cudaStream_t stream) {
+  auto kernel = conv_layer_fwd_tiled_kernel<R, true, XIn, XOut>;
+  const cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(tiles(p.T, F), B), kTiledThreads, smem, stream>>>(in, p, l, drop, o, F, SK);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t tiled_bf16_forward(const __nv_bfloat16* x, const ConvParams& p,
+                               const vsl::Dropout& drop, float* xs, __nv_bfloat16* out, int B,
+                               int F, int SK, size_t smem, cudaStream_t stream) {
+  const size_t layer = (size_t)B * p.T * p.D;
+  const int L = p.L;
+  cudaError_t err = L == 1 ? tiled_bf16_layer<R>(x, p, 0, drop, out, B, F, SK, smem, stream)
+                           : tiled_bf16_layer<R>(x, p, 0, drop, xs, B, F, SK, smem, stream);
+  for (int l = 1; l < L && err == cudaSuccess; ++l) {
+    const float* in = xs + (l - 1) * layer;
+    err = l == L - 1 ? tiled_bf16_layer<R>(in, p, l, drop, out, B, F, SK, smem, stream)
+                     : tiled_bf16_layer<R>(in, p, l, drop, xs + l * layer, B, F, SK, smem, stream);
+  }
+  return err;
+}
+
+}  // namespace
+
+// The bf16 T-tiled forward on the same plan: x and out [B, T, D] in bf16,
+// the stream between the layers, xs [L - 1, B, T, D], in fp32.
+extern "C" int vsl_conv_block_fwd_tiled_bf16(const void* x, const float* gam, const float* beta,
+                                             const float* dw, const float* wp, const float* bp,
+                                             const float* seeds, unsigned thresh, float scale,
+                                             float* xs, void* out, int B, int T, int D, int L,
+                                             int K, int F, int SK, int R, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || SK < 4 || SK % 4 ||
+      D % SK || (R != 2 && R != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = TiledFwdLayout(F, D, K, SK).floats(D, K) * sizeof(float);
+  const ConvParams p = make_params(gam, beta, dw, wp, bp, T, D, L, K);
+  const vsl::Dropout drop{seeds, thresh, scale};
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+  return static_cast<int>(
+      R == 2 ? tiled_bf16_forward<2>(xb, p, drop, xs, ob, B, F, SK, smem, stream)
+             : tiled_bf16_forward<4>(xb, p, drop, xs, ob, B, F, SK, smem, stream));
 }
 
 // The T-tiled backward from the forward's xs on conv_tiled_bwd_plan's tiles

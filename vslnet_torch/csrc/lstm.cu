@@ -77,6 +77,17 @@
 // gradients, exchange latency), not bytes or FLOPs; the one-block-per-row
 // backward this replaces re-read k_h^T's 256 KB from L2 every step on B
 // SMs.
+//
+// bf16 (vsl_lstm_recurrence_fwd_bf16, the lean forward only): the TPU
+// kernel at bf16 takes x_proj and k_h in bf16 and forms gates = f32(x_proj)
+// + dot(bf16(h), k_h) with fp32 accumulation; the gate math, c and the
+// carried h stay fp32 and the output is fp32 (pallas_kernels.py:250-269).
+// The same kernel, templated on the storage type: k_h widened into the
+// same fp32 shared-memory layout, x_proj widened as it is loaded, and the
+// h each CTA sends round the cluster rounded to bf16 (exact in fp32, so
+// the dot is unchanged), while the thread that owns a (row, unit) carries
+// its fp32 h in a register for the padding steps. Its bytes are half the
+// fp32 kernel's x_proj; the chain of steps bounds it all the same.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -153,6 +164,17 @@ __device__ __forceinline__ float ld_early(const float* p) {
   asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
   return v;
 }
+// A bf16 is loaded as its bits and widened where it is used (widen), not
+// beside the load, where the widening would wait out the load's latency.
+__device__ __forceinline__ unsigned short ld_early(const __nv_bfloat16* p) {
+  unsigned short v;
+  asm volatile("ld.global.nc.u16 %0, [%1];\n" : "=h"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(unsigned short v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);  // bf16 -> fp32 is exact
+}
 // v into the cluster address `addr`; its 4 bytes complete the transaction
 // count of the mbarrier at the cluster address `bar` (in the same CTA).
 __device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
@@ -161,9 +183,11 @@ __device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
                : "memory");
 }
 
-template <bool kResiduals, int kBt>
+// XT: the storage type of x_proj and k_h (float, or __nv_bfloat16 for the
+// bf16 lean forward).
+template <bool kResiduals, int kBt, typename XT = float>
 __global__ void __launch_bounds__(512)
-lstm_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ kh,
+lstm_fwd_cluster_kernel(const XT* __restrict__ xp, const XT* __restrict__ kh,
                         const float* __restrict__ valid, float* __restrict__ out,
                         float* __restrict__ acts, float* __restrict__ th,
                         float* __restrict__ c_prev, float* __restrict__ h_prev, int T, int B,
@@ -188,7 +212,7 @@ lstm_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ 
   for (int i = tid; i < C4 * KS; i += nt) {
     const int k = i / C4, lc = i - k * C4;
     const int g = lc / U, u = u0 + lc - g * U;
-    khf[(size_t)lc * KS + k] = (k < H && u < H) ? kh[(size_t)k * G + g * H + u] : 0.f;
+    khf[(size_t)lc * KS + k] = (k < H && u < H) ? vsl::to_float(kh[(size_t)k * G + g * H + u]) : 0.f;
   }
   for (int i = tid; i < 2 * kBt * Hp; i += nt) hbuf[i] = 0.f;
   if (tid == 0) {
@@ -209,10 +233,11 @@ lstm_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ 
   const int unit = u0 + lu, row = row0 + ls;
   const bool column = lu < U;
   const bool own = column && unit < H && ls < kBt && row < B;
-  float c = 0.f, x[4] = {0.f, 0.f, 0.f, 0.f}, v = 0.f;
+  constexpr bool kBf16 = !std::is_same<XT, float>::value;
+  float c = 0.f, hreg = 0.f, x[4] = {0.f, 0.f, 0.f, 0.f}, v = 0.f;
   if (own && T > 0) {
 #pragma unroll
-    for (int g = 0; g < 4; ++g) x[g] = xp[(size_t)row * G + g * H + unit];
+    for (int g = 0; g < 4; ++g) x[g] = vsl::to_float(xp[(size_t)row * G + g * H + unit]);
     v = valid[row];
   }
   const float4* wcol = khs + (size_t)lu * L.KS4;
@@ -228,7 +253,8 @@ lstm_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ 
       phase ^= 1u << p;
       if (tid == 0) mbar_expect(smem_u32(full + p), h_bytes);  // for h_(t+2)
     }
-    float nx[4] = {0.f, 0.f, 0.f, 0.f}, nv = 0.f;
+    decltype(ld_early(xp)) nx[4] = {0, 0, 0, 0};
+    float nv = 0.f;
     if (own && t + 1 < T) {  // off the chain: the next step's inputs
       const size_t o = (size_t)(t + 1) * B + row;
 #pragma unroll
@@ -284,13 +310,16 @@ lstm_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ 
       const float cn = cp * f + ig * gg;
       const float tc = tanhf(cn);
       c = v * cn + (1.f - v) * cp;
-      const float hp = hc[ls * Hp + unit];
+      // bf16: the buffers hold h rounded for the product, the carried h is hreg
+      const float hp = kBf16 ? hreg : hc[ls * Hp + unit];
       const float ho = v * (tc * og);
+      if (kBf16) hreg = ho + (1.f - v) * hp;
       if (t + 1 < T) {  // h_(t+1) into every CTA of the cluster
         const float hnew = ho + (1.f - v) * hp;
+        const float hs = kBf16 ? vsl::bf16_round(hnew) : hnew;
         const uint32_t dst = smem_u32(hn + ls * Hp + unit);
         const uint32_t bar = smem_u32(full + (p ^ 1));
-        for (int r = 0; r < N; ++r) st_async(cluster_u32(dst, r), hnew, cluster_u32(bar, r));
+        for (int r = 0; r < N; ++r) st_async(cluster_u32(dst, r), hs, cluster_u32(bar, r));
       }
       const size_t o = (size_t)t * B + row;
       out[o * H + unit] = ho;
@@ -305,7 +334,7 @@ lstm_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ 
       }
     }
 #pragma unroll
-    for (int g = 0; g < 4; ++g) x[g] = nx[g];
+    for (int g = 0; g < 4; ++g) x[g] = widen(nx[g]);
     v = nv;
   }
 }
@@ -482,13 +511,13 @@ int by_rows(int B, int H, int N, int Bt, int S, int threads, F launch) {
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <bool kResiduals>
-int launch_fwd_plan(const float* xp, const float* kh, const float* valid, float* out, float* acts,
+template <bool kResiduals, typename XT = float>
+int launch_fwd_plan(const XT* xp, const XT* kh, const float* valid, float* out, float* acts,
                     float* th, float* c_prev, float* h_prev, int T, int B, int H, int N, int Bt,
                     int S, int threads, void* stream) {
   return by_rows(B, H, N, Bt, S, threads, [&](auto rows) {
     constexpr int kBt = decltype(rows)::value;
-    return vsl::launch_cluster(lstm_fwd_cluster_kernel<kResiduals, kBt>, (B + kBt - 1) / kBt * N,
+    return vsl::launch_cluster(lstm_fwd_cluster_kernel<kResiduals, kBt, XT>, (B + kBt - 1) / kBt * N,
                                N, threads, FwdLayout(H, N).smem_bytes(kBt),
                                static_cast<cudaStream_t>(stream), xp, kh, valid, out, acts, th,
                                c_prev, h_prev, T, B, H, S);
@@ -503,6 +532,16 @@ extern "C" int vsl_lstm_recurrence_fwd(const float* xp, const float* kh, const f
                                        int threads, void* stream) {
   return launch_fwd_plan<false>(xp, kh, valid, out, nullptr, nullptr, nullptr, nullptr, T, B, H,
                                 N, Bt, S, threads, stream);
+}
+
+// The bf16 lean forward: x_proj [T, B, 4H] and k_h [H, 4H] in bf16, valid
+// and the output fp32, on the same plan.
+extern "C" int vsl_lstm_recurrence_fwd_bf16(const void* xp, const void* kh, const float* valid,
+                                            float* out, int T, int B, int H, int N, int Bt, int S,
+                                            int threads, void* stream) {
+  return launch_fwd_plan<false>(static_cast<const __nv_bfloat16*>(xp),
+                                static_cast<const __nv_bfloat16*>(kh), valid, out, nullptr,
+                                nullptr, nullptr, nullptr, T, B, H, N, Bt, S, threads, stream);
 }
 
 extern "C" int vsl_lstm_recurrence_fwd_res(const float* xp, const float* kh, const float* valid,

@@ -76,6 +76,21 @@
 // cluster (launch 2 of the backward), with D_t from the forward's output.
 // Both bodies take q, k, v and their outputs through base pointers and row
 // strides.
+//
+// bf16 (vsl_mha_block_fwd_bf16): the TPU forward at bf16
+// (_mha_block_fwd_math, pallas_kernels.py:1689-1746) takes x in bf16 and
+// the weights in fp32: y = bf16(drop(LN1(x))), qkv = y.bf16(Wqkv) with
+// fp32 accumulation + bqkv, then q, k and v rounded to bf16; scores
+// bf16(q_h * scale).k_h with scale = bf16(1/sqrt(hd)) and fp32
+// accumulation, the fp32 mask and softmax, bf16(drop(p)).v_h with fp32
+// accumulation; the fp32 residual; z = bf16(drop(LN2(res))),
+// z.bf16(Wd) + bd; the output rounded to bf16. The same three launches,
+// templated: x widened as it is loaded, the weight slices rounded in shared
+// memory once they have landed, y, q, k, v, the scaled q and z rounded
+// where the TPU kernel rounds them, the probabilities normalised before
+// they are rounded (so att takes no scale after the product), the output
+// narrowed as it is stored. qkv and att stay fp32 buffers (qkv holding
+// rounded values). Bound as the fp32 forward is.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -112,6 +127,8 @@ __host__ __device__ inline size_t qkv_tile_floats(int F, int SK, int D) {
 // added to C in slice order. The caller has issued the first slice into
 // buf as the last cp.async group; every thread calls this, and it ends
 // with a block barrier.
+// kRound: each slice rounded to bf16 in place once it has landed.
+template <bool kRound = false>
 __device__ void streamed_gemm(const float* A, int lda, int rows, int K, const float* __restrict__ Wg,
                               int ncols, float* buf, int SK, float* C) {
   const int S = K / SK;
@@ -124,6 +141,10 @@ __device__ void streamed_gemm(const float* A, int lda, int rows, int K, const fl
       vsl::cp_async_wait<0>();
     }
     __syncthreads();  // slice s landed for every thread; C's last slice written
+    if (kRound) {
+      vsl::round_bf16(buf + (size_t)(s & 1) * SK * ncols, SK * ncols);
+      __syncthreads();
+    }
     vsl::smem_gemm<kGemmRows, 4>(
         A + s * SK, lda, rows, SK, buf + (size_t)(s & 1) * SK * ncols, ncols, ncols,
         [&](int t, int o, float4 acc) {
@@ -498,8 +519,11 @@ __host__ __device__ inline size_t fwd_attn_tile_floats(int T, int TQ, int hd) {
 }
 
 // 1. qkv = drop200(LN1(x)).Wqkv + bqkv for one tile of F frames of one row.
+// XT: the storage type of x (float, or __nv_bfloat16 with the bf16
+// forward's roundings).
+template <typename XT = float>
 __global__ void __launch_bounds__(kThreads)
-fwd_qkv_tile_kernel(const float* __restrict__ x, const float* __restrict__ gam,
+fwd_qkv_tile_kernel(const XT* __restrict__ x, const float* __restrict__ gam,
                     const float* __restrict__ beta, const float* __restrict__ wqkv,
                     const float* __restrict__ bqkv, vsl::Dropout drop, float* __restrict__ qkv,
                     int T, int D, int F, int SK) {
@@ -512,22 +536,32 @@ fwd_qkv_tile_kernel(const float* __restrict__ x, const float* __restrict__ gam,
   vsl::cp_async_floats(buf, wqkv, SK * 3 * D);  // lands behind the LN
   vsl::layer_norm_rows(x + tile, Y, gam, beta, nf, D);
   __syncthreads();
+  constexpr bool kBf16 = !std::is_same<XT, float>::value;
   if (drop.on()) {
     const uint32_t seed = drop.seed(b), s200 = vsl::site_salt(0x200u);
     for (int i = threadIdx.x; i < nel; i += blockDim.x)
       Y[i] = drop.apply(Y[i], seed, s200, t0 + i / D, i % D);
     __syncthreads();
   }
-  streamed_gemm(Y, D, nf, D, wqkv, 3 * D, buf, SK, C);
+  if (kBf16) {  // y_t = bf16(y), after the dropout
+    vsl::round_bf16(Y, nel);
+    __syncthreads();
+  }
+  streamed_gemm<kBf16>(Y, D, nf, D, wqkv, 3 * D, buf, SK, C);
   float* q = qkv + 3 * tile;
-  for (int i = threadIdx.x; i < 3 * nel; i += blockDim.x) q[i] = C[i] + __ldg(bqkv + i % (3 * D));
+  for (int i = threadIdx.x; i < 3 * nel; i += blockDim.x) {
+    const float v = C[i] + __ldg(bqkv + i % (3 * D));
+    q[i] = kBf16 ? vsl::bf16_round(v) : v;
+  }
 }
 
 // 2. the attention of one (query tile, head, row): att from q, k and v,
 // read through base pointers and one row stride ld as the whole-T kernels
 // read them (the block's packed qkv [B, T, 3D]: ld = 3D, k = qkv + D, v =
-// qkv + 2D), the output with row stride ldo.
-template <int HD>
+// qkv + 2D), the output with row stride ldo. kBf16: q * scale rounded to
+// bf16 (scale already bf16), the probabilities normalised, dropped and
+// rounded to bf16 before the product.
+template <int HD, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_tile_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
                      const float* __restrict__ vp, int ld, const float* __restrict__ mask,
@@ -554,7 +588,8 @@ attn_fwd_tile_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
   }
   for (int i = tid; i < nt * HD; i += nth) {
     const int t = i / HD, d = i - t * HD;
-    Qs[t * LD + d] = qp[hb + (size_t)(t0 + t) * ld + d] * scale;
+    const float qs = qp[hb + (size_t)(t0 + t) * ld + d] * scale;
+    Qs[t * LD + d] = kBf16 ? vsl::bf16_round(qs) : qs;
   }
   for (int j = tid; j < T; j += nth) neg[j] = (1.f - mask[(size_t)b * T + j]) * vsl::kMaskValue;
   __syncthreads();
@@ -573,13 +608,25 @@ attn_fwd_tile_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
     for (int j = lane; j < T; j += 32) mx = fmaxf(mx, row[j]);
     mx = vsl::warp_max(mx);
     float l = 0.f;
-    for (int j = lane; j < T; j += 32) {
-      const float e = expf(row[j] - mx);
-      l += e;
-      row[j] = drop.keep(seed, salt, t0 + t, j) ? e : 0.f;
+    if (kBf16) {  // p = e / l, dropped, rounded; a lane rewrites its own keys
+      for (int j = lane; j < T; j += 32) {
+        const float e = expf(row[j] - mx);
+        l += e;
+        row[j] = e;
+      }
+      l = vsl::warp_sum(l);
+      for (int j = lane; j < T; j += 32)
+        row[j] = drop.keep(seed, salt, t0 + t, j) ? vsl::bf16_round(drop.kept(row[j] / l)) : 0.f;
+      if (lane == 0) rs[t] = 1.f;
+    } else {
+      for (int j = lane; j < T; j += 32) {
+        const float e = expf(row[j] - mx);
+        l += e;
+        row[j] = drop.keep(seed, salt, t0 + t, j) ? e : 0.f;
+      }
+      l = vsl::warp_sum(l);
+      if (lane == 0) rs[t] = dscale / l;
     }
-    l = vsl::warp_sum(l);
-    if (lane == 0) rs[t] = dscale / l;
   }
   __syncthreads();
   // att = drop(P).V: the kept exps . V, times the drop scale over the sum
@@ -590,25 +637,29 @@ attn_fwd_tile_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
       [&](int t, int d, float v) { ob[(size_t)t * ldo + d] = v * rs[t]; });
 }
 
-template <int HD>
+template <int HD, bool kBf16 = false>
 cudaError_t launch_attention_tiles(const float* q, const float* k, const float* v, int ld,
                                    const float* mask, vsl::Dropout drop, float* att, int ldo,
                                    int B, int T, int n_heads, int TQ, cudaStream_t stream) {
+  auto kernel = attn_fwd_tile_kernel<HD, kBf16>;
   const size_t smem = fwd_attn_tile_floats(T, TQ, HD) * sizeof(float);
-  cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(attn_fwd_tile_kernel<HD>), smem);
+  cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
-  attn_fwd_tile_kernel<HD><<<dim3((T + TQ - 1) / TQ, n_heads, B), kThreads, smem, stream>>>(
-      q, k, v, ld, mask, drop, att, ldo, T, TQ, vsl::head_scale(HD));
+  const float scale = kBf16 ? vsl::bf16_round_host(vsl::head_scale(HD)) : vsl::head_scale(HD);
+  kernel<<<dim3((T + TQ - 1) / TQ, n_heads, B), kThreads, smem, stream>>>(
+      q, k, v, ld, mask, drop, att, ldo, T, TQ, scale);
   return cudaGetLastError();
 }
 
 // 3. out = drop203(drop202(LN2(R)).Wd + bd) + R, R = drop201(att) + x, for
-// one tile of F frames of one row.
+// one tile of F frames of one row. XT: the storage type of x and out.
+template <typename XT = float>
 __global__ void __launch_bounds__(kThreads)
-fwd_out_tile_kernel(const float* __restrict__ x, const float* __restrict__ att,
+fwd_out_tile_kernel(const XT* __restrict__ x, const float* __restrict__ att,
                     const float* __restrict__ gam, const float* __restrict__ beta,
                     const float* __restrict__ wd, const float* __restrict__ bd, vsl::Dropout drop,
-                    float* __restrict__ out, int T, int D, int F, int SK) {
+                    XT* __restrict__ out, int T, int D, int F, int SK) {
+  constexpr bool kBf16 = !std::is_same<XT, float>::value;
   extern __shared__ float4 smem4[];
   const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0), nel = nf * D;
   const size_t FD = (size_t)F * D;
@@ -622,7 +673,7 @@ fwd_out_tile_kernel(const float* __restrict__ x, const float* __restrict__ att,
                  s203 = vsl::site_salt(0x203u);
   vsl::cp_async_floats(buf, wd, SK * D);  // lands behind the residual and the LN
   for (int i = threadIdx.x; i < nel; i += blockDim.x)
-    R[i] = drop.apply(att[tile + i], seed, s201, t0 + i / D, i % D) + x[tile + i];
+    R[i] = drop.apply(att[tile + i], seed, s201, t0 + i / D, i % D) + vsl::to_float(x[tile + i]);
   __syncthreads();
   vsl::layer_norm_rows(R, Z, gam, beta, nf, D);
   __syncthreads();
@@ -631,10 +682,15 @@ fwd_out_tile_kernel(const float* __restrict__ x, const float* __restrict__ att,
       Z[i] = drop.apply(Z[i], seed, s202, t0 + i / D, i % D);
     __syncthreads();
   }
-  streamed_gemm(Z, D, nf, D, wd, D, buf, SK, O);
+  if (kBf16) {  // z_t = bf16(z), after the dropout
+    vsl::round_bf16(Z, nel);
+    __syncthreads();
+  }
+  streamed_gemm<kBf16>(Z, D, nf, D, wd, D, buf, SK, O);
   for (int i = threadIdx.x; i < nel; i += blockDim.x) {
     const int c = i % D;
-    out[tile + i] = drop.apply(O[i] + __ldg(bd + c), seed, s203, t0 + i / D, c) + R[i];
+    out[tile + i] = vsl::from_float<XT>(
+        drop.apply(O[i] + __ldg(bd + c), seed, s203, t0 + i / D, c) + R[i]);
   }
 }
 
@@ -655,10 +711,11 @@ extern "C" int vsl_mha_block_fwd(const float* x, const float* mask, const float*
   const vsl::Dropout drop{seeds, thresh, scale};
   const dim3 grid((T + F - 1) / F, B);
   const int smem1 = static_cast<int>(fwd_qkv_tile_floats(F, SK, D) * sizeof(float));
-  cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(fwd_qkv_tile_kernel), smem1);
+  cudaError_t err =
+      vsl::opt_in_smem(reinterpret_cast<const void*>(fwd_qkv_tile_kernel<float>), smem1);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fwd_qkv_tile_kernel<<<grid, kThreads, smem1, stream>>>(x, gam, beta, wqkv, bqkv, drop, qkv, T,
-                                                         D, F, SK);
+  fwd_qkv_tile_kernel<float><<<grid, kThreads, smem1, stream>>>(x, gam, beta, wqkv, bqkv, drop,
+                                                                qkv, T, D, F, SK);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -669,10 +726,51 @@ extern "C" int vsl_mha_block_fwd(const float* x, const float* mask, const float*
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int smem3 = static_cast<int>(fwd_out_tile_floats(F, SK, D) * sizeof(float));
-  err = vsl::opt_in_smem(reinterpret_cast<const void*>(fwd_out_tile_kernel), smem3);
+  err = vsl::opt_in_smem(reinterpret_cast<const void*>(fwd_out_tile_kernel<float>), smem3);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fwd_out_tile_kernel<<<grid, kThreads, smem3, stream>>>(x, att, gam + D, beta + D, wd, bd, drop,
-                                                         out, T, D, F, SK);
+  fwd_out_tile_kernel<float><<<grid, kThreads, smem3, stream>>>(x, att, gam + D, beta + D, wd, bd,
+                                                                drop, out, T, D, F, SK);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 forward on the same plan: x and out [B, T, D] in bf16, mask and
+// the weights fp32; qkv [B, T, 3D] (bf16-rounded values) and att [B, T, D]
+// fp32.
+extern "C" int vsl_mha_block_fwd_bf16(const void* x_, const float* mask, const float* gam,
+                                      const float* beta, const float* wqkv, const float* bqkv,
+                                      const float* wd, const float* bd, const float* seeds,
+                                      unsigned thresh, float scale, float* qkv, float* att,
+                                      void* out_, int B, int T, int D, int n_heads, int F, int SK,
+                                      int TQ, void* stream_) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (B < 1 || T < 1 || D < 4 || D % 4 || n_heads < 1 || D % n_heads || F < 1 || SK < 4 ||
+      SK % 4 || D % SK || TQ < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* x = static_cast<const bf16*>(x_);
+  bf16* out = static_cast<bf16*>(out_);
+  const vsl::Dropout drop{seeds, thresh, scale};
+  const dim3 grid((T + F - 1) / F, B);
+  const int smem1 = static_cast<int>(fwd_qkv_tile_floats(F, SK, D) * sizeof(float));
+  cudaError_t err =
+      vsl::opt_in_smem(reinterpret_cast<const void*>(fwd_qkv_tile_kernel<bf16>), smem1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fwd_qkv_tile_kernel<bf16><<<grid, kThreads, smem1, stream>>>(x, gam, beta, wqkv, bqkv, drop,
+                                                               qkv, T, D, F, SK);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  err = vsl::by_head_dim(D / n_heads, [&](auto hd) {
+    return launch_attention_tiles<decltype(hd)::value, true>(
+        qkv, qkv + D, qkv + 2 * D, 3 * D, mask, drop, att, D, B, T, n_heads, TQ, stream);
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int smem3 = static_cast<int>(fwd_out_tile_floats(F, SK, D) * sizeof(float));
+  err = vsl::opt_in_smem(reinterpret_cast<const void*>(fwd_out_tile_kernel<bf16>), smem3);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fwd_out_tile_kernel<bf16><<<grid, kThreads, smem3, stream>>>(x, att, gam + D, beta + D, wd, bd,
+                                                               drop, out, T, D, F, SK);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,6 +25,16 @@ flash kernels; ops/kernels.py conv_route, mha_route). As in the JAX package,
 CQAttention's kernel path returns no score and HighlightLayer's no logits,
 and both take their kernels only when deterministic: here, in eval mode.
 
+Each module computes in its `dtype` (float32, or bfloat16 under
+precision=bf16) with the JAX package's casts, one for one: parameters stay
+float32 and are cast where they are used, LayerNorm statistics, masked
+softmaxes and masked logits stay float32. Where a module takes its kernel,
+it computes the kernel's function at that dtype (the kernels' wrappers
+and their plain versions); elsewhere (use_pallas=off, beyond a predicate)
+its bf16 path is the JAX package's XLA path at bf16, a different
+function: the conv block, the MHA block and the LSTM there hold bf16
+residuals and state where the kernels hold float32.
+
 Dropout (training mode, drop_rate > 0) follows the JAX package's sites.
 Where the JAX package uses flax's nn.Dropout (embeddings, video features,
 the CQA score inputs), `dropout` draws its mask from an explicit
@@ -58,6 +68,9 @@ def _param(*shape):
     return nn.Parameter(torch.zeros(*shape))
 
 
+FP32 = torch.float32
+
+
 def dropout(x, rate, generator):
     """Inverted dropout with its mask drawn from `generator` (on x's
     device); x itself at rate 0."""
@@ -77,29 +90,36 @@ def draw_seeds(generator, batch, rate):
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, dim, epsilon=1e-6):
+    """float32 statistics, the output cast to dtype."""
+
+    def __init__(self, dim, epsilon=1e-6, dtype=FP32):
         super().__init__()
         self.epsilon = epsilon
+        self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = _param(dim)
 
     def forward(self, x):
-        return kernels.layer_norm(x, self.scale, self.bias, self.epsilon)
+        return kernels.layer_norm(x, self.scale, self.bias,
+                                  self.epsilon).to(self.dtype)
 
 
 class Conv1D(nn.Module):
-    """Kernel-size-1 conv == position-wise linear; kernel [in, out]."""
+    """Kernel-size-1 conv == position-wise linear; kernel [in, out]; the
+    product and the bias in dtype."""
 
-    def __init__(self, in_dim, dim, use_bias=False, activation=None):
+    def __init__(self, in_dim, dim, use_bias=False, activation=None,
+                 dtype=FP32):
         super().__init__()
         self.kernel = _param(in_dim, dim)
         self.bias = _param(dim) if use_bias else None
         self.activation = activation
+        self.dtype = dtype
 
     def forward(self, x):
-        y = x @ self.kernel
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
         if self.bias is not None:
-            y = y + self.bias
+            y = y + self.bias.to(self.dtype)
         if self.activation is not None:
             y = self.activation(y)
         return y
@@ -110,16 +130,17 @@ class WordEmbedding(nn.Module):
     fixed zero PAD row; table order [zero, unk, glove] matches PAD=0,
     UNK=1."""
 
-    def __init__(self, vectors_shape):
+    def __init__(self, vectors_shape, dtype=FP32):
         super().__init__()
         n, dim = vectors_shape
+        self.dtype = dtype
         self.register_buffer("word_vectors", torch.zeros(n, dim))
         self.unk = _param(1, dim)
 
     def forward(self, word_ids, drop_rate=0.0, generator=None):
         table = torch.cat([self.unk.new_zeros(1, self.unk.shape[1]), self.unk,
                            self.word_vectors])
-        return dropout(F.embedding(word_ids.long(), table),
+        return dropout(F.embedding(word_ids.long(), table).to(self.dtype),
                        drop_rate if self.training else 0.0, generator)
 
 
@@ -128,8 +149,9 @@ class CharEmbedding(nn.Module):
     widths 1-4 with 10/20/30/40 channels, ReLU, max over the chars."""
 
     def __init__(self, char_size, dim, kernels_=(1, 2, 3, 4),
-                 filters=(10, 20, 30, 40)):
+                 filters=(10, 20, 30, 40), dtype=FP32):
         super().__init__()
+        self.dtype = dtype
         self.kernel_sizes = tuple(kernels_)
         self.char_table = _param(char_size - 1, dim)
         for i, (k, ch) in enumerate(zip(kernels_, filters)):
@@ -143,19 +165,25 @@ class CharEmbedding(nn.Module):
                            self.char_table])
         x = dropout(F.embedding(char_ids.long(), table),
                     drop_rate if self.training else 0.0, generator)
-        x = x.reshape(B * W, C, -1)
+        x = x.to(self.dtype).reshape(B * W, C, -1)
         x = x.transpose(1, 2)  # [B*W, dim, C]
         outs = []
         for i in range(len(self.kernel_sizes)):
             weight = getattr(self, "filter_%d" % i)[0].permute(2, 1, 0)
-            y = F.conv1d(x, weight, getattr(self, "bias_%d" % i))
+            bias = getattr(self, "bias_%d" % i)
+            if self.dtype == FP32:
+                y = F.conv1d(x, weight, bias)
+            else:  # the conv in dtype, then its bias in dtype, as flax
+                y = (F.conv1d(x, weight.to(self.dtype))
+                     + bias.to(self.dtype)[:, None])
             outs.append(torch.relu(y).amax(dim=2).reshape(B, W, -1))
         return torch.cat(outs, dim=-1)
 
 
 class PositionalEmbedding(nn.Module):
-    def __init__(self, max_position_length, dim):
+    def __init__(self, max_position_length, dim, dtype=FP32):
         super().__init__()
+        self.dtype = dtype
         self.position_embeddings = _param(max_position_length, dim)
 
     def forward(self, x):
@@ -163,7 +191,7 @@ class PositionalEmbedding(nn.Module):
         if T > self.position_embeddings.shape[0]:
             raise ValueError("sequence length %d exceeds max_pos_len %d"
                              % (T, self.position_embeddings.shape[0]))
-        return x + self.position_embeddings[:T]
+        return x + self.position_embeddings[:T].to(self.dtype)
 
 
 class DepthwiseSeparableConv(nn.Module):
@@ -188,10 +216,12 @@ class ConvBlock(nn.Module):
     """num_layers x {pre-LN -> depthwise-separable conv -> dropout ->
     +residual}."""
 
-    def __init__(self, kernel_size, dim, num_layers, use_kernels=False):
+    def __init__(self, kernel_size, dim, num_layers, use_kernels=False,
+                 dtype=FP32):
         super().__init__()
         self.num_layers = num_layers
         self.use_kernels = use_kernels
+        self.dtype = dtype
         for l in range(num_layers):
             self.add_module("layer_norm_%d" % l, LayerNorm(dim))
             self.add_module("depthwise_conv_layers_%d" % l,
@@ -218,22 +248,26 @@ class ConvBlock(nn.Module):
             return kernels.fused_conv_block(x.contiguous(), *params,
                                             seeds=seeds, drop_rate=rate)
         return kernels.conv_block_plain(x, *params, seeds=seeds,
-                                        drop_rate=rate)
+                                        drop_rate=rate,
+                                        residual_dtype=self.dtype)
 
 
 class MultiHeadAttention(nn.Module):
     """QKV conv1d projections with bias, 1/sqrt(head) scaling, additive
-    -1e30 key mask, fp32 softmax, head merge. No output projection."""
+    -1e30 key mask, fp32 softmax, head merge. No output projection. At
+    bf16, the XLA path's casts: q times the scale in bf16, fp32 scores and
+    softmax, the probabilities cast to bf16 for the product."""
 
-    def __init__(self, dim, num_heads):
+    def __init__(self, dim, num_heads, dtype=FP32):
         super().__init__()
         if dim % num_heads:
             raise ValueError("The hidden size (%d) is not a multiple of the "
                              "attention heads (%d)" % (dim, num_heads))
         self.num_heads = num_heads
-        self.query = Conv1D(dim, dim, use_bias=True)
-        self.key = Conv1D(dim, dim, use_bias=True)
-        self.value = Conv1D(dim, dim, use_bias=True)
+        self.dtype = dtype
+        self.query = Conv1D(dim, dim, use_bias=True, dtype=dtype)
+        self.key = Conv1D(dim, dim, use_bias=True, dtype=dtype)
+        self.value = Conv1D(dim, dim, use_bias=True, dtype=dtype)
 
     def qkv_params(self):
         """wqkv [D, 3D] = [Wq | Wk | Wv] and bqkv [3D]."""
@@ -243,7 +277,7 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x, mask):
         return kernels.attention(self.query(x), self.key(x), self.value(x),
-                                 mask, self.num_heads)
+                                 mask, self.num_heads, dtype=self.dtype)
 
 
 class MultiHeadAttentionBlock(nn.Module):
@@ -251,14 +285,15 @@ class MultiHeadAttentionBlock(nn.Module):
     res = drop(MHA(drop(LN1(x)))) + x;  out = drop(dense(drop(LN2(res)))) +
     res, and on the attention probabilities."""
 
-    def __init__(self, dim, num_heads, use_kernels=False):
+    def __init__(self, dim, num_heads, use_kernels=False, dtype=FP32):
         super().__init__()
         self.use_kernels = use_kernels
         self.num_heads = num_heads
-        self.layer_norm_1 = LayerNorm(dim)
-        self.multihead_attention = MultiHeadAttention(dim, num_heads)
-        self.layer_norm_2 = LayerNorm(dim)
-        self.dense = Conv1D(dim, dim, use_bias=True)
+        self.dtype = dtype
+        self.layer_norm_1 = LayerNorm(dim, dtype=dtype)
+        self.multihead_attention = MultiHeadAttention(dim, num_heads, dtype)
+        self.layer_norm_2 = LayerNorm(dim, dtype=dtype)
+        self.dense = Conv1D(dim, dim, use_bias=True, dtype=dtype)
 
     def forward(self, x, mask, drop_rate=0.0, generator=None):
         gam = torch.stack([self.layer_norm_1.scale, self.layer_norm_2.scale])
@@ -272,7 +307,8 @@ class MultiHeadAttentionBlock(nn.Module):
         if self.use_kernels and kernels.mha_kernel_fits(
                 x.shape[1], x.shape[2], self.num_heads):
             return kernels.fused_mha_block(x.contiguous(), *args, **kw)
-        return kernels.mha_block_plain(x, *args, **kw)
+        return kernels.mha_block_plain(x, *args, **kw,
+                                       residual_dtype=self.dtype)
 
 
 class FeatureEncoder(nn.Module):
@@ -280,13 +316,13 @@ class FeatureEncoder(nn.Module):
     and the query stream (shared weights)."""
 
     def __init__(self, hidden_size, num_heads, max_position_length,
-                 use_kernels=False):
+                 use_kernels=False, dtype=FP32):
         super().__init__()
-        self.positional_embedding = PositionalEmbedding(max_position_length,
-                                                        hidden_size)
-        self.conv_block = ConvBlock(7, hidden_size, 4, use_kernels)
+        self.positional_embedding = PositionalEmbedding(
+            max_position_length, hidden_size, dtype)
+        self.conv_block = ConvBlock(7, hidden_size, 4, use_kernels, dtype)
         self.multihead_attention_block = MultiHeadAttentionBlock(
-            hidden_size, num_heads, use_kernels)
+            hidden_size, num_heads, use_kernels, dtype)
 
     def forward(self, x, mask, drop_rate=0.0, generator=None):
         x = self.conv_block(self.positional_embedding(x), drop_rate, generator)
@@ -301,13 +337,14 @@ class CQAttention(nn.Module):
     package takes it only when deterministic) returns no score. In
     training the score's inputs are dropped."""
 
-    def __init__(self, dim, out_bias=False, use_kernels=False):
+    def __init__(self, dim, out_bias=False, use_kernels=False, dtype=FP32):
         super().__init__()
         self.use_kernels = use_kernels
+        self.dtype = dtype
         self.linear_kernel4arg0 = _param(dim, 1)
         self.linear_kernel4arg1 = _param(dim, 1)
         self.linear_kernel4mul = _param(1, 1, dim)
-        self.dense = Conv1D(4 * dim, dim, use_bias=out_bias)
+        self.dense = Conv1D(4 * dim, dim, use_bias=out_bias, dtype=dtype)
 
     def forward(self, video, query, v_mask, q_mask, drop_rate=0.0,
                 generator=None):
@@ -317,10 +354,11 @@ class CQAttention(nn.Module):
                    self.linear_kernel4mul[0, 0])
         if self.use_kernels and not self.training and kernels.cqa_kernel_fits(
                 video.shape[1], query.shape[1], video.shape[2]):
-            out = kernels.fused_cqa_concat(video.contiguous(),
-                                           query.contiguous(), v_mask, q_mask,
-                                           *weights)
-            return self.dense(out), None
+            # the kernel is float32 at any dtype, as the JAX wrapper casts
+            out = kernels.fused_cqa_concat(video.float().contiguous(),
+                                           query.float().contiguous(), v_mask,
+                                           q_mask, *weights)
+            return self.dense(out.to(self.dtype)), None
         rate = drop_rate if self.training else 0.0
         score = kernels.trilinear_score(dropout(video, rate, generator),
                                         dropout(query, rate, generator),
@@ -332,15 +370,20 @@ class CQAttention(nn.Module):
 class CQConcat(nn.Module):
     """Attention-pooled query, tiled over T, concat, conv1d."""
 
-    def __init__(self, dim):
+    def __init__(self, dim, dtype=FP32):
         super().__init__()
+        self.dtype = dtype
         self.weight = _param(dim, 1)
-        self.dense = Conv1D(2 * dim, dim, use_bias=True)
+        self.dense = Conv1D(2 * dim, dim, use_bias=True, dtype=dtype)
 
     def forward(self, x, qfeats, q_mask):
-        logits = mask_logits(qfeats @ self.weight, q_mask[:, :, None])
-        alphas = torch.softmax(logits, dim=1)                    # [B, W, 1]
-        pooled = (qfeats * alphas).sum(dim=1)                    # [B, d]
+        logits = mask_logits(qfeats @ self.weight.to(self.dtype),
+                             q_mask[:, :, None])
+        alphas = torch.softmax(logits, dim=1).to(self.dtype)     # [B, W, 1]
+        if self.dtype == FP32:
+            pooled = (qfeats * alphas).sum(dim=1)                # [B, d]
+        else:  # a product in dtype, as flax's einsum
+            pooled = (alphas.transpose(1, 2) @ qfeats)[:, 0]
         tiled = pooled[:, None, :].expand(-1, x.shape[1], -1)
         return self.dense(torch.cat([x, tiled], dim=-1))
 
@@ -350,18 +393,22 @@ class HighlightLayer(nn.Module):
     kernel path (eval mode only: training needs the logits) fuses the
     feature gate x * scores and returns (None, scores, gated x)."""
 
-    def __init__(self, dim, use_kernels=False):
+    def __init__(self, dim, use_kernels=False, dtype=FP32):
         super().__init__()
         self.use_kernels = use_kernels
-        self.dense = Conv1D(dim, 1, use_bias=True)
+        self.dtype = dtype
+        self.dense = Conv1D(dim, 1, use_bias=True, dtype=dtype)
 
     def forward(self, x, v_mask):
-        args = (self.dense.kernel[:, 0], self.dense.bias,
-                v_mask.to(torch.float32))
+        w, b = self.dense.kernel[:, 0], self.dense.bias
+        v_mask = v_mask.to(torch.float32)
         if self.use_kernels and not self.training:
-            gated, scores = kernels.fused_highlight_gate(x.contiguous(), *args)
-            return None, scores, gated
-        logits, scores = kernels.highlight_plain(x, *args)
+            # the kernel is float32 at any dtype, as the JAX wrapper casts
+            gated, scores = kernels.fused_highlight_gate(
+                x.float().contiguous(), w, b, v_mask)
+            return None, scores, gated.to(self.dtype)
+        logits, scores = kernels.highlight_plain(x, w.to(self.dtype),
+                                                 b.to(self.dtype), v_mask)
         return logits, scores, None
 
 
@@ -371,24 +418,29 @@ class LSTMEncoder(nn.Module):
     seq_len (tf.nn.dynamic_rnn). The input projection for all steps is one
     matmul; the recurrence is the kernel (or its plain version)."""
 
-    def __init__(self, in_dim, dim, use_kernels=False):
+    def __init__(self, in_dim, dim, use_kernels=False, dtype=FP32):
         super().__init__()
         self.in_dim = in_dim
         self.use_kernels = use_kernels
+        self.dtype = dtype
         self.kernel = _param(in_dim + dim, 4 * dim)
         self.bias = _param(4 * dim)
 
     def forward(self, x, seq_len):
         B, T, _ = x.shape
-        k_x, k_h = self.kernel[:self.in_dim], self.kernel[self.in_dim:]
-        xs = (x @ k_x + self.bias).transpose(0, 1).contiguous()  # [T, B, 4H]
+        dt = self.dtype
+        k_x = self.kernel[:self.in_dim].to(dt)
+        k_h = self.kernel[self.in_dim:].to(dt)
+        # [T, B, 4H]
+        xs = (x @ k_x + self.bias.to(dt)).transpose(0, 1).contiguous()
         pos = torch.arange(T, device=x.device)
         valid = (pos[:, None] < seq_len[None, :]).to(torch.float32)  # [T, B]
         if self.use_kernels and kernels.lstm_kernel_fits(B, k_h.shape[0]):
             ys = kernels.fused_lstm_recurrence(xs, k_h.contiguous(), valid)
         else:
-            ys = kernels.lstm_recurrence_plain(xs, k_h, valid)
-        return ys.transpose(0, 1)
+            ys = kernels.lstm_recurrence_plain(xs, k_h, valid, state_dtype=dt)
+        # the kernel's output is float32 at any dtype, cast as flax does
+        return ys.transpose(0, 1).to(dt)
 
 
 class ConditionedPredictor(nn.Module):
@@ -397,24 +449,29 @@ class ConditionedPredictor(nn.Module):
     concat with the input -> ReLU conv -> 1-logit conv -> mask."""
 
     def __init__(self, hidden_size, num_heads, max_position_length,
-                 mode="rnn", use_kernels=False):
+                 mode="rnn", use_kernels=False, dtype=FP32):
         super().__init__()
         if mode not in ("rnn", "transformer"):
             raise ValueError("predictor must be rnn or transformer, got %r"
                              % (mode,))
         self.mode = mode
         if mode == "rnn":
-            self.start_rnn = LSTMEncoder(hidden_size, hidden_size, use_kernels)
-            self.end_rnn = LSTMEncoder(hidden_size, hidden_size, use_kernels)
+            self.start_rnn = LSTMEncoder(hidden_size, hidden_size, use_kernels,
+                                         dtype)
+            self.end_rnn = LSTMEncoder(hidden_size, hidden_size, use_kernels,
+                                       dtype)
         else:
             self.feature_encoder = FeatureEncoder(
-                hidden_size, num_heads, max_position_length, use_kernels)
-            self.s_layer_norm = LayerNorm(hidden_size)
-            self.e_layer_norm = LayerNorm(hidden_size)
-        self.start_hidden = Conv1D(2 * hidden_size, hidden_size, True, torch.relu)
-        self.end_hidden = Conv1D(2 * hidden_size, hidden_size, True, torch.relu)
-        self.start_dense = Conv1D(hidden_size, 1, use_bias=True)
-        self.end_dense = Conv1D(hidden_size, 1, use_bias=True)
+                hidden_size, num_heads, max_position_length, use_kernels,
+                dtype)
+            self.s_layer_norm = LayerNorm(hidden_size, dtype=dtype)
+            self.e_layer_norm = LayerNorm(hidden_size, dtype=dtype)
+        self.start_hidden = Conv1D(2 * hidden_size, hidden_size, True,
+                                   torch.relu, dtype)
+        self.end_hidden = Conv1D(2 * hidden_size, hidden_size, True,
+                                 torch.relu, dtype)
+        self.start_dense = Conv1D(hidden_size, 1, use_bias=True, dtype=dtype)
+        self.end_dense = Conv1D(hidden_size, 1, use_bias=True, dtype=dtype)
 
     def forward(self, x, seq_len, v_mask, drop_rate=0.0, generator=None):
         if self.mode == "rnn":

@@ -11,11 +11,15 @@
 Training mode with drop_rate > 0 is the JAX package's
 `deterministic=False`: dropout at its sites, every mask drawn from the
 caller's torch.Generator (models/layers.py). Eval mode is serving.
+
+`dtype` is the compute dtype of the JAX package's VSLNet: float32, or
+bfloat16 (precision=bf16), with float32 parameters cast where they are
+used; the logits and highlight scores come out float32 either way.
 """
 import torch
 from torch import nn
 
-from vslnet_torch.config import resolve_device, use_kernels
+from vslnet_torch.config import precision_dtype, resolve_device, use_kernels
 from vslnet_torch.models.layers import (
     CharEmbedding,
     ConditionedPredictor,
@@ -35,22 +39,25 @@ class VSLNet(nn.Module):
     def __init__(self, hidden_size=128, char_size=100, char_dim=50,
                  video_feature_dim=1024, num_heads=8, max_pos_len=128,
                  predictor="rnn", word_vectors_shape=(100, 300), cqa_bias=False,
-                 use_kernels=False):
+                 use_kernels=False, dtype=torch.float32):
         super().__init__()
-        self.word_embeddings = WordEmbedding(word_vectors_shape)
-        self.char_embeddings = CharEmbedding(char_size, char_dim)
-        self.video_conv1d = Conv1D(video_feature_dim, hidden_size, use_bias=True)
+        self.dtype = dtype
+        self.word_embeddings = WordEmbedding(word_vectors_shape, dtype)
+        self.char_embeddings = CharEmbedding(char_size, char_dim, dtype=dtype)
+        self.video_conv1d = Conv1D(video_feature_dim, hidden_size,
+                                   use_bias=True, dtype=dtype)
         self.query_conv1d = Conv1D(
             word_vectors_shape[1] + self.char_embeddings.out_dim, hidden_size,
-            use_bias=True)
+            use_bias=True, dtype=dtype)
         self.feature_encoder = FeatureEncoder(
-            hidden_size, num_heads, max_pos_len, use_kernels)
+            hidden_size, num_heads, max_pos_len, use_kernels, dtype)
         self.video_query_attention = CQAttention(hidden_size, cqa_bias,
-                                                 use_kernels)
-        self.context_query_concat = CQConcat(hidden_size)
-        self.highlighting_layer = HighlightLayer(hidden_size, use_kernels)
+                                                 use_kernels, dtype)
+        self.context_query_concat = CQConcat(hidden_size, dtype)
+        self.highlighting_layer = HighlightLayer(hidden_size, use_kernels,
+                                                 dtype)
         self.conditioned_predictor = ConditionedPredictor(
-            hidden_size, num_heads, max_pos_len, predictor, use_kernels)
+            hidden_size, num_heads, max_pos_len, predictor, use_kernels, dtype)
 
     def forward(self, word_ids, char_ids, vfeats, v_len, drop_rate=0.0,
                 generator=None):
@@ -65,7 +72,7 @@ class VSLNet(nn.Module):
         q_mask = (word_ids != 0).to(torch.int32)
         query = torch.cat([self.word_embeddings(word_ids, *drop),
                            self.char_embeddings(char_ids, *drop)], dim=-1)
-        video = self.video_conv1d(dropout(vfeats.to(torch.float32), *drop))
+        video = self.video_conv1d(dropout(vfeats.to(self.dtype), *drop))
         query = self.query_conv1d(query)
         video = self.feature_encoder(video, v_mask, *drop)
         query = self.feature_encoder(query, q_mask, *drop)
@@ -73,7 +80,8 @@ class VSLNet(nn.Module):
                                                      q_mask, *drop)
         feats = self.context_query_concat(feats, query, q_mask)
         h_logits, h_scores, gated = self.highlighting_layer(feats, v_mask)
-        feats = feats * h_scores[:, :, None] if gated is None else gated
+        feats = (feats * h_scores[:, :, None].to(self.dtype) if gated is None
+                 else gated)
         start_logits, end_logits = self.conditioned_predictor(
             feats, v_len, v_mask, *drop)
         return {
@@ -104,13 +112,11 @@ def init_weights(model, seed):
 
 def build_model(configs, word_vectors_shape, device=None):
     """The VSLNet of `configs` on `device` (default: the CUDA card; raises
-    without one), seeded from configs.seed, in eval mode. The kernels are
-    used unless configs.use_pallas is off (see config.use_kernels)."""
+    without one), seeded from configs.seed, in eval mode, computing in
+    configs.precision's dtype (float32 parameters either way). The kernels
+    are used unless configs.use_pallas is off (see config.use_kernels)."""
     device = resolve_device(device)
-    if configs.precision != "fp32":
-        raise NotImplementedError(
-            "precision=%s: only fp32 is ported; bf16 kernels are queued in "
-            "ROADMAP.md" % configs.precision)
+    dtype = precision_dtype(configs)
     if configs.text_encoder != "glove":
         raise NotImplementedError(
             "text_encoder=%s: only glove is ported; BERT is queued in "
@@ -129,6 +135,7 @@ def build_model(configs, word_vectors_shape, device=None):
         word_vectors_shape=tuple(word_vectors_shape),
         cqa_bias=bool(configs.cqa_bias),
         use_kernels=use_kernels(configs),
+        dtype=dtype,
     )
     init_weights(model, configs.seed)
     return model.to(device).eval()

@@ -27,7 +27,18 @@ the MHA block kernels up to T = 145 at D = 128, above that the block's
 PyTorch ops around `fused_mha`, whose whole-T kernels take T up to 209 at
 head dim 16 and its flash kernels any longer T.
 
-The kernels (csrc/*.cu, sm_90a, fp32) are compiled with nvcc into one
+bf16 (`precision=bf16`): the LSTM recurrence, the conv block forward (both
+forms) and the MHA block forward have bf16 kernels, the TPU kernels'
+functions at bf16 (bf16 activations, fp32 weights rounded where the TPU
+kernel rounds them, fp32 accumulation; `_BF16_KERNELS`). Their wrappers
+take the activation's dtype, launch the bf16 entry point for bf16 tensors
+(counted under its own name) and refuse a gradient (bf16 training is
+ROADMAP.md B4b); the MHA block refuses the routes above T = 145 at bf16
+on any device (B4c). Their plain versions compute the same bf16
+functions. The other kernels are fp32 at any precision, as the JAX
+package's wrappers cast around them.
+
+The kernels (csrc/*.cu, sm_90a) are compiled with nvcc into one
 shared library with a plain C interface, one nvcc process per source, all
 started together, at the first launch (or by `build_library`), into
 vslnet_torch/_build/, and bound with ctypes. Nothing is built at import.
@@ -74,7 +85,13 @@ LAUNCHES = {"lstm_recurrence_fwd": 0, "lstm_recurrence_fwd_res": 0,
             "mha_block_fwd": 0, "mha_block_bwd": 0, "cqa_concat_fwd": 0,
             "highlight_gate_fwd": 0, "span_decode": 0,
             "conv_block_fwd_tiled": 0, "conv_block_bwd_tiled": 0,
-            "mha_fwd": 0, "mha_bwd": 0, "flash_mha_fwd": 0, "flash_mha_bwd": 0}
+            "mha_fwd": 0, "mha_bwd": 0, "flash_mha_fwd": 0, "flash_mha_bwd": 0,
+            "lstm_recurrence_fwd_bf16": 0, "conv_block_fwd_bf16": 0,
+            "conv_block_fwd_tiled_bf16": 0, "mha_block_fwd_bf16": 0}
+# the kernels with a bf16 entry point: a wrapper given bf16 activations
+# launches `<name>_bf16`
+_BF16_KERNELS = ("lstm_recurrence_fwd", "conv_block_fwd",
+                 "conv_block_fwd_tiled", "mha_block_fwd")
 
 
 def reset_launches():
@@ -109,6 +126,8 @@ _SIGNATURES = {
     "vsl_flash_mha_fwd": [_P] * 5 + _DROP + [_P] * 2 + [_I] * 5 + [_P],
     "vsl_flash_mha_bwd": [_P] * 5 + _DROP + [_P] * 8 + [_I] * 4 + [_P],
 }
+_SIGNATURES.update({"vsl_%s_bf16" % n: _SIGNATURES["vsl_" + n]
+                    for n in _BF16_KERNELS})
 
 
 def _nvcc():
@@ -215,9 +234,9 @@ def _require_cuda(name, *tensors):
         raise ValueError("%s: the kernel takes CUDA tensors only" % name)
 
 
-def _check(name, t, shape):
-    if t.dtype != torch.float32:
-        raise TypeError("%s: expected float32, got %s" % (name, t.dtype))
+def _check(name, t, shape, dtype=torch.float32):
+    if t.dtype != dtype:
+        raise TypeError("%s: expected %s, got %s" % (name, dtype, t.dtype))
     if tuple(t.shape) != tuple(shape):
         raise ValueError("%s: expected shape %s, got %s"
                          % (name, tuple(shape), tuple(t.shape)))
@@ -249,6 +268,28 @@ def _wgrad_splits(Z, M, N, K, waves=1):
 
 def _empty(device, *shape):
     return torch.empty(*shape, device=device, dtype=torch.float32)
+
+
+def _act_dtype(name, x):
+    """The activation dtype a wrapper takes: float32, or bfloat16 where the
+    kernel has a bf16 entry point."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("%s: expected float32 or bfloat16, got %s"
+                        % (name, x.dtype))
+    return x.dtype
+
+
+def _entry(name, dtype):
+    """The kernel's entry point (and launch count) for activations of
+    `dtype`."""
+    return name + "_bf16" if dtype == torch.bfloat16 else name
+
+
+def _refuse_bf16_grad(name, grad):
+    if grad:
+        raise NotImplementedError(
+            "%s: no bf16 backward kernel yet; bf16 training is ROADMAP.md "
+            "B4b" % name)
 
 
 # --- counter-hash dropout --------------------------------------------------------
@@ -322,16 +363,22 @@ def layer_norm(x, scale, bias, eps=1e-6):
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
+def depthwise(x, dw):
+    """x [B, T, D] convolved along T by the taps dw [k, D], one filter a
+    channel, with SAME zero padding."""
+    k, D = dw.shape
+    xt = F.pad(x.transpose(1, 2), ((k - 1) // 2, k // 2))
+    return F.conv1d(xt, dw.t().unsqueeze(1), groups=D).transpose(1, 2)
+
+
 def depthwise_separable(x, dw, wp, bp):
     """relu(pointwise(depthwise(x)) + bp): x [B, T, D], dw [k, D] along T
     with SAME zero padding, wp [D, D], bp [D]."""
-    k, D = dw.shape
-    xt = F.pad(x.transpose(1, 2), ((k - 1) // 2, k // 2))
-    y = F.conv1d(xt, dw.t().unsqueeze(1), groups=D).transpose(1, 2)
-    return torch.relu(y @ wp + bp)
+    return torch.relu(depthwise(x, dw) @ wp + bp)
 
 
-def _attention_scores(q, k, v, mask, n_heads, seeds, drop_rate):
+def _attention_scores(q, k, v, mask, n_heads, seeds, drop_rate,
+                      dtype=torch.float32):
     """(out [B, T, D], the masked scores s [B, H, T, T]) of `attention`."""
     B, T, D = q.shape
     hd = D // n_heads
@@ -339,7 +386,12 @@ def _attention_scores(q, k, v, mask, n_heads, seeds, drop_rate):
     def split(t):
         return t.reshape(B, T, n_heads, hd).transpose(1, 2)
 
-    s = (split(q) * (1.0 / math.sqrt(float(hd)))) @ split(k).transpose(-1, -2)
+    def rnd(t):  # a rounding point at dtype, held in q's dtype
+        return t.to(dtype).to(q.dtype)
+
+    scale = float(torch.tensor(1.0 / math.sqrt(float(hd)),
+                               dtype=torch.float64).to(dtype))
+    s = rnd(split(q) * scale).float() @ split(k).float().transpose(-1, -2)
     s = s + (1.0 - mask.to(torch.float32)).reshape(B, 1, 1, T) * -1e30
     p = torch.softmax(s, dim=-1)
     if drop_rate > 0.0:
@@ -348,15 +400,22 @@ def _attention_scores(q, k, v, mask, n_heads, seeds, drop_rate):
         bits = torch.stack([mha_hash_bits(seeds, h, T)
                             for h in range(n_heads)], dim=1)
         p = _drop_bits(p, bits, drop_rate)
-    return (p @ split(v)).transpose(1, 2).reshape(B, T, D), s
+    return (rnd(p) @ split(v)).transpose(1, 2).reshape(B, T, D), s
 
 
-def attention(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
+def attention(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0,
+              dtype=torch.float32):
     """Multi-head attention without an output projection: q, k, v [B, T, D],
     key mask [B, T] added as (1 - m) * -1e30, fp32 softmax, then each
     head's probabilities dropped by its counter hash (at (t, j) of the
-    head's [T, T] tile)."""
-    return _attention_scores(q, k, v, mask, n_heads, seeds, drop_rate)[0]
+    head's [T, T] tile). At dtype bf16 (q, k, v holding bf16 values), the
+    JAX package's casts (pallas_kernels.py:662, 1697): q_h times the scale,
+    both bf16, rounded to bf16; fp32 scores and softmax; the probabilities
+    rounded to bf16 for their product with v_h. The products sum in q's
+    dtype: float32 for the bf16 MHA block kernel's function, bf16 for the
+    XLA path's."""
+    return _attention_scores(q, k, v, mask, n_heads, seeds, drop_rate,
+                             dtype)[0]
 
 
 # --- 1. LSTM recurrence --------------------------------------------------------
@@ -425,18 +484,25 @@ def lstm_plan(B, H):
     return LSTMPlan(n, bt, units, splits, threads, smem, -(-B // bt), smem_bwd)
 
 
-def lstm_recurrence_plain(x_proj, k_h, valid):
+def lstm_recurrence_plain(x_proj, k_h, valid, state_dtype=torch.float32):
     """[T, B, 4H] pre-projected inputs, [H, 4H] recurrent kernel, [T, B]
-    validity -> [T, B, H]; TF gates [i, j, f, o], forget bias 1, state
-    frozen and output zeroed where valid is 0. Its gradient is torch's
-    autograd through the loop."""
+    validity -> [T, B, H] in state_dtype; TF gates [i, j, f, o], forget
+    bias 1, state frozen and output zeroed where valid is 0. Its gradient
+    is torch's autograd through the loop. The gate math and the carried c
+    and h are in state_dtype, and h is rounded to k_h's dtype for its
+    product: with bf16 x_proj and k_h, float32 gives the bf16 kernel's
+    function (pallas_kernels.py:241-269 at bf16: bf16(h) . k_h with fp32
+    accumulation, fp32 gates, state and output) and bf16 the JAX package's
+    lax.scan (vslnet_tpu/models/layers.py LSTMEncoder: all of it bf16)."""
     T, B, G = x_proj.shape
     H = G // 4
+    act = k_h.dtype
+    x_proj, k_h, valid = (t.to(state_dtype) for t in (x_proj, k_h, valid))
     h = x_proj.new_zeros(B, H)
     c = x_proj.new_zeros(B, H)
     outs = []
     for t in range(T):
-        gates = x_proj[t] + h @ k_h
+        gates = x_proj[t] + h.to(act).to(state_dtype) @ k_h
         i, j, f, o = gates.split(H, dim=-1)
         v = valid[t][:, None]
         new_c = c * torch.sigmoid(f + 1.0) + torch.sigmoid(i) * torch.tanh(j)
@@ -448,25 +514,27 @@ def lstm_recurrence_plain(x_proj, k_h, valid):
     return torch.stack(outs)
 
 
-def _lstm_shapes(name, x_proj, k_h, valid):
+def _lstm_shapes(name, x_proj, k_h, valid, dtype=torch.float32):
     """(T, B, H, the plan's ints for csrc/lstm.cu): the forward's shapes
-    checked, then planned."""
+    checked (x_proj and k_h in `dtype`), then planned."""
     T, B, G = x_proj.shape
     H = G // 4
     if G != 4 * H or not 1 <= H <= 256 or B < 1:
         raise ValueError("%s: needs x_proj [T, B, 4H] with B >= 1 and H <= "
                          "256, got %s" % (name, tuple(x_proj.shape)))
-    _check(name, x_proj, (T, B, 4 * H))
-    _check(name, k_h, (H, 4 * H))
+    _check(name, x_proj, (T, B, 4 * H), dtype)
+    _check(name, k_h, (H, 4 * H), dtype)
     _check(name, valid, (T, B))
     plan = lstm_plan(B, H)
     return T, B, H, (plan.n, plan.bt, plan.splits, plan.threads)
 
 
 def launch_lstm_fwd(x_proj, k_h, valid):
-    """The lean forward kernel (no residuals): CUDA tensors only."""
-    name = "lstm_recurrence_fwd"
-    T, B, H, plan = _lstm_shapes(name, x_proj, k_h, valid)
+    """The lean forward kernel (no residuals), its bf16 entry point for bf16
+    x_proj and k_h; the output is float32 either way. CUDA tensors only."""
+    dtype = _act_dtype("lstm_recurrence_fwd", x_proj)
+    name = _entry("lstm_recurrence_fwd", dtype)
+    T, B, H, plan = _lstm_shapes(name, x_proj, k_h, valid, dtype)
     _require_cuda(name, x_proj, k_h, valid)
     out = _empty(x_proj.device, T, B, H)
     _launch(name, x_proj.data_ptr(), k_h.data_ptr(), valid.data_ptr(),
@@ -535,11 +603,14 @@ class FusedLSTMRecurrence(torch.autograd.Function):
 
 def fused_lstm_recurrence(x_proj, k_h, valid):
     """On the card: the lean kernel where no gradient is needed, else
-    FusedLSTMRecurrence. On the CPU: the plain version."""
+    FusedLSTMRecurrence (fp32 only). On the CPU: the plain version."""
     name = "lstm_recurrence_fwd"
     if not _on_cuda(name, x_proj, k_h, valid):
         return lstm_recurrence_plain(x_proj, k_h, valid)
-    if torch.is_grad_enabled() and (x_proj.requires_grad or k_h.requires_grad):
+    grad = grad_wanted(x_proj, k_h)
+    if _act_dtype(name, x_proj) == torch.bfloat16:
+        _refuse_bf16_grad(name, grad)
+    elif grad:
         return FusedLSTMRecurrence.apply(x_proj, k_h, valid)
     return launch_lstm_fwd(x_proj, k_h, valid)
 
@@ -556,15 +627,29 @@ def fused_lstm_recurrence(x_proj, k_h, valid):
 # walk back.
 
 
-def conv_block_plain(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
+def conv_block_plain(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0,
+                     residual_dtype=torch.float32):
     """L x {x + drop(relu(pointwise(depthwise(LN(x))) + bp))}: x [B, T, D],
     gam/beta/bp [L, D], dw [L, k, D], wp [L, D, D]; layer l's dropout is the
-    counter hash with salt 0x100 + l and the row seeds [B, 1]."""
+    counter hash with salt 0x100 + l and the row seeds [B, 1]. The residual
+    stream and each stage are in residual_dtype, with LN(x) and the
+    pointwise product's inputs rounded to x's dtype: with bf16 x, float32
+    gives the bf16 kernels' function (pallas_kernels.py:985-1034 at bf16:
+    an fp32 residual stream, n = LN(x) rounded to bf16, the fp32
+    depthwise, bf16(d) . bf16(wp) with fp32 accumulation, the output
+    rounded to bf16 once) and bf16 the JAX package's XLA path (every stage
+    and the residual bf16)."""
+    act, dt = x.dtype, residual_dtype
+
+    def rnd(t):  # a rounding point at x's dtype, held in residual_dtype
+        return t.to(act).to(dt)
+
+    x = x.to(dt)
     for l in range(gam.shape[0]):
-        r = depthwise_separable(layer_norm(x, gam[l], beta[l]), dw[l], wp[l],
-                                bp[l])
+        d = depthwise(rnd(layer_norm(x, gam[l], beta[l])), dw[l].to(dt))
+        r = torch.relu(rnd(d) @ rnd(wp[l]) + bp[l].to(dt))
         x = x + site_dropout(r, seeds, 0x100 + l, drop_rate)
-    return x
+    return x.to(act)
 
 
 CONV_CLUSTER = 8  # the most CTAs a row: the most every sm_90 part schedules
@@ -664,7 +749,7 @@ def conv_fwd_plan(B, T, D, K, L):
     return ConvPlan(n, frames, smem, B * n)
 
 
-def _conv_shapes(name, x, gam, beta, dw, wp, bp, smem):
+def _conv_shapes(name, x, gam, beta, dw, wp, bp, smem, dtype=torch.float32):
     B, T, D = x.shape
     L, K, _ = dw.shape
     if D % 4:
@@ -673,7 +758,7 @@ def _conv_shapes(name, x, gam, beta, dw, wp, bp, smem):
         raise ValueError("%s: T=%d, D=%d needs %d bytes of shared memory, "
                          "above the %d a block has" % (name, T, D, smem,
                                                        MAX_SMEM_BYTES))
-    _check(name, x, (B, T, D))
+    _check(name, x, (B, T, D), dtype)
     for t in (gam, beta, bp):
         _check(name, t, (L, D))
     _check(name, dw, (L, K, D))
@@ -688,10 +773,11 @@ def _aligned16(*tensors):
 
 
 def launch_conv_block_fwd(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
-    """The forward kernel on conv_fwd_plan's CTAs: CUDA tensors only."""
-    name = "conv_block_fwd"
+    """The forward kernel on conv_fwd_plan's CTAs, its bf16 entry point for
+    bf16 x (out in x's dtype): CUDA tensors only."""
+    name = _entry("conv_block_fwd", _act_dtype("conv_block_fwd", x))
     _require_cuda(name, x, gam, beta, dw, wp, bp)
-    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0)
+    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0, x.dtype)
     plan = conv_fwd_plan(B, T, D, K, L)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     dw, wp = _aligned16(dw, wp)
@@ -750,16 +836,21 @@ class FusedConvBlock(torch.autograd.Function):
 def fused_conv_block(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
     """On the card: the whole-row kernels or the T-tiled ones, as
     conv_route says for a call that takes a gradient (training) or not
-    (serving); the backward is its forward's route's. On the CPU: the plain
-    version."""
+    (serving); the backward is its forward's route's. bf16 x takes the bf16
+    forwards, without a gradient. On the CPU: the plain version."""
     name = "conv_block_fwd"
     tensors = [x, gam, beta, dw, wp, bp] + ([] if seeds is None else [seeds])
     if not _on_cuda(name, *tensors):
         return conv_block_plain(x, gam, beta, dw, wp, bp, seeds, drop_rate)
     L, K, _ = dw.shape
     grad = grad_wanted(*tensors)
-    fn = FusedConvBlock if conv_route(*x.shape[1:], K, L, grad) == "block" \
-        else FusedConvBlockTiled
+    block = conv_route(*x.shape[1:], K, L, grad) == "block"
+    if _act_dtype(name, x) == torch.bfloat16:
+        _refuse_bf16_grad(name, grad)
+        args = (x, gam, beta, dw, wp, bp, seeds, float(drop_rate))
+        return (launch_conv_block_fwd(*args) if block
+                else launch_conv_block_fwd_tiled(*args)[0])
+    fn = FusedConvBlock if block else FusedConvBlockTiled
     return fn.apply(x, gam, beta, dw, wp, bp, seeds, float(drop_rate))
 
 
@@ -973,12 +1064,14 @@ def conv_tiled_fwd_plan(B, T, D, K, L):
 def launch_conv_block_fwd_tiled(x, gam, beta, dw, wp, bp, seeds=None,
                                 drop_rate=0.0):
     """The tiled forward kernels on conv_tiled_fwd_plan: (out, xs [L - 1, B,
-    T, D], the inputs of layers 1..L-1, which the tiled backward reads).
-    CUDA tensors only; raises where the tiled backward's plan does not fit
-    either."""
+    T, D], the inputs of layers 1..L-1, which the tiled backward reads),
+    the bf16 entry point for bf16 x (out in x's dtype, xs float32 either
+    way). CUDA tensors only; raises where the tiled backward's plan does
+    not fit either."""
     name = "conv_block_fwd_tiled"
+    name = _entry(name, _act_dtype(name, x))
     _require_cuda(name, x, gam, beta, dw, wp, bp)
-    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0)
+    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0, x.dtype)
     plan = conv_tiled_fwd_plan(B, T, D, K, L)
     conv_tiled_bwd_plan(B, T, D, K, L)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
@@ -1061,24 +1154,42 @@ class FusedConvBlockTiled(torch.autograd.Function):
 
 
 def _mha_block(attend, x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
-               seeds, drop_rate):
+               seeds, drop_rate, residual_dtype=torch.float32):
+    act, dt = x.dtype, residual_dtype
     D = x.shape[-1]
-    y = site_dropout(layer_norm(x, gam[0], beta[0]), seeds, 0x200, drop_rate)
-    q, k, v = (t.contiguous() for t in (y @ wqkv + bqkv).split(D, dim=-1))
+
+    def rnd(t):  # a rounding point at x's dtype, held in residual_dtype
+        return t.to(act).to(dt)
+
+    x = x.to(dt)
+    y = site_dropout(layer_norm(x, gam[0], beta[0]).to(dt), seeds, 0x200,
+                     drop_rate)
+    qkv = rnd(rnd(y) @ rnd(wqkv) + bqkv.to(dt))
+    q, k, v = (t.contiguous() for t in qkv.split(D, dim=-1))
     att = attend(q, k, v, mask, n_heads, seeds, drop_rate)
     res = site_dropout(att, seeds, 0x201, drop_rate) + x
-    z = site_dropout(layer_norm(res, gam[1], beta[1]), seeds, 0x202, drop_rate)
-    return site_dropout(z @ wd + bd, seeds, 0x203, drop_rate) + res
+    z = site_dropout(layer_norm(res, gam[1], beta[1]).to(dt), seeds, 0x202,
+                     drop_rate)
+    out = site_dropout(rnd(z) @ rnd(wd) + bd.to(dt), seeds, 0x203,
+                       drop_rate) + res
+    return out.to(act)
 
 
 def mha_block_plain(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
-                    seeds=None, drop_rate=0.0):
+                    seeds=None, drop_rate=0.0, residual_dtype=torch.float32):
     """Pre-LN attention block: x [B, T, D], key mask [B, T], gam/beta [2, D]
     (LN1, LN2), wqkv [D, 3D], bqkv [3D], wd [D, D], bd [D]; counter-hash
     dropout at sites 0x200 (LN1 out), the probabilities, 0x201 (attention
-    out), 0x202 (LN2 out) and 0x203 (dense out)."""
-    return _mha_block(attention, x, mask, gam, beta, wqkv, bqkv, wd, bd,
-                      n_heads, seeds, drop_rate)
+    out), 0x202 (LN2 out) and 0x203 (dense out). The residuals and each
+    stage are in residual_dtype, with y, q, k, v, z and the weights
+    rounded to x's dtype for their products: with bf16 x, float32 gives the
+    bf16 kernel's function (pallas_kernels.py:1689-1746 at bf16: fp32
+    LayerNorms and residuals, fp32 accumulation, `attention` at bf16, the
+    output rounded to bf16) and bf16 the JAX package's XLA path (bf16
+    residuals)."""
+    return _mha_block(functools.partial(attention, dtype=x.dtype), x, mask,
+                      gam, beta, wqkv, bqkv, wd, bd, n_heads, seeds,
+                      drop_rate, residual_dtype)
 
 
 def mha_block_unfused(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
@@ -1349,14 +1460,14 @@ def mha_fwd_plan(B, T, D, n_heads):
 
 
 def _mha_shapes(name, x, n_heads, smem, mask, gam, beta, wqkv, wd, bqkv=None,
-                bd=None):
+                bd=None, dtype=torch.float32):
     B, T, D = x.shape
     _head_dim(name, D, n_heads)
     if smem > MAX_SMEM_BYTES:
         raise ValueError("%s: T=%d, D=%d needs %d bytes of shared memory, "
                          "above the %d a block has" % (name, T, D, smem,
                                                        MAX_SMEM_BYTES))
-    _check(name, x, (B, T, D))
+    _check(name, x, (B, T, D), dtype)
     _check(name, mask, (B, T))
     _check(name, gam, (2, D))
     _check(name, beta, (2, D))
@@ -1372,18 +1483,19 @@ def _mha_shapes(name, x, n_heads, smem, mask, gam, beta, wqkv, wd, bqkv=None,
 def launch_mha_block_fwd(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
                          seeds=None, drop_rate=0.0):
     """The forward kernels on mha_fwd_plan's tiles: (out, qkv [B, T, 3D],
-    att [B, T, D]), the last two being what the backward reads back. CUDA
-    tensors only."""
-    name = "mha_block_fwd"
+    att [B, T, D]), the last two being what the backward reads back; the
+    bf16 entry point for bf16 x (out in x's dtype, qkv holding bf16 values
+    and att float32). CUDA tensors only."""
+    name = _entry("mha_block_fwd", _act_dtype("mha_block_fwd", x))
     _require_cuda(name, x, mask, gam, beta, wqkv, bqkv, wd, bd)
     B, T, D = _mha_shapes(name, x, n_heads, 0, mask, gam, beta, wqkv, wd,
-                          bqkv, bd)
+                          bqkv, bd, x.dtype)
     plan = mha_fwd_plan(B, T, D, n_heads)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     # the per-frame launches copy the weights by 16-byte cp.async
     wqkv, wd = _aligned16(wqkv, wd)
     qkv = _empty(x.device, B, T, 3 * D)
-    att = torch.empty_like(x)
+    att = _empty(x.device, B, T, D)
     out = torch.empty_like(x)
     _launch(name, x.data_ptr(), mask.data_ptr(), gam.data_ptr(),
             beta.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wd.data_ptr(),
@@ -1458,15 +1570,25 @@ class FusedMHABlock(torch.autograd.Function):
 def fused_mha_block(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
                     seeds=None, drop_rate=0.0):
     """On the card: the block kernels where mha_route says "block", else
-    mha_block_unfused (fused_mha's whole-T or flash kernels). On the CPU:
-    the plain version."""
+    mha_block_unfused (fused_mha's whole-T or flash kernels). bf16 x takes
+    the bf16 block forward, without a gradient, and raises on any device
+    where mha_route leaves the block kernels (no bf16 whole-T or flash
+    kernels yet). On the CPU: the plain version."""
     name = "mha_block_fwd"
     tensors = [x, mask, gam, beta, wqkv, bqkv, wd, bd]
     if seeds is not None:
         tensors.append(seeds)
     args = (x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads, seeds)
+    bf16 = _act_dtype(name, x) == torch.bfloat16
+    if bf16 and mha_route(x.shape[1], x.shape[2], n_heads) != "block":
+        raise NotImplementedError(
+            "%s: T=%d takes the whole-T or flash attention kernels, which "
+            "have no bf16 form yet (ROADMAP.md B4c)" % (name, x.shape[1]))
     if not _on_cuda(name, *tensors):
         return mha_block_plain(*args, drop_rate)
+    if bf16:
+        _refuse_bf16_grad(name, grad_wanted(*tensors))
+        return launch_mha_block_fwd(*args, float(drop_rate))[0]
     if mha_route(x.shape[1], x.shape[2], n_heads) == "block":
         return FusedMHABlock.apply(*args, float(drop_rate))
     return mha_block_unfused(*args, float(drop_rate))
@@ -1805,16 +1927,28 @@ def cqa_plain(video, query, v_mask, q_mask, w4v, w4q, w4mul):
 
 
 def trilinear_score(video, query, w4v, w4q, w4mul):
-    """[B, T, W] score v.w4v + (q.w4q)^T + (v * w4mul).q^T."""
+    """[B, T, W] score v.w4v + (q.w4q)^T + (v * w4mul).q^T; for bf16 video
+    and query, the JAX package's CQAttention at bf16: the two vector
+    products in bf16, the third on bf16 operands with fp32 accumulation,
+    summed in fp32."""
+    if video.dtype == torch.bfloat16:
+        dt = video.dtype
+        return ((video @ w4v.to(dt)).float()[:, :, None]
+                + (query @ w4q.to(dt)).float()[:, None, :]
+                + (video * w4mul.to(dt)).float()
+                @ query.float().transpose(1, 2))
     return ((video @ w4v)[:, :, None] + (query @ w4q)[:, None, :]
             + (video * w4mul) @ query.transpose(1, 2))
 
 
 def cqa_from_score(score, video, query, v_mask, q_mask):
     """The [B, T, 4d] concat from a trilinear score (which training forms
-    from dropped inputs): masked row and column softmaxes, v2q, q2v."""
-    score_q = torch.softmax(mask_logits(score, q_mask[:, None, :]), dim=-1)
-    score_v = torch.softmax(mask_logits(score, v_mask[:, :, None]), dim=1)
+    from dropped inputs): masked row and column softmaxes (float32, cast to
+    video's dtype), v2q, q2v."""
+    score_q = torch.softmax(mask_logits(score, q_mask[:, None, :]),
+                            dim=-1).to(video.dtype)
+    score_v = torch.softmax(mask_logits(score, v_mask[:, :, None]),
+                            dim=1).to(video.dtype)
     v2q = score_q @ query
     q2v = score_q @ (score_v.transpose(1, 2) @ video)
     return torch.cat([video, v2q, video * v2q, video * q2v], dim=-1)
