@@ -78,6 +78,28 @@ Phases, each printing one JSON line:
               use_pallas=off at bf16 and the fp32 model (BF16_MODEL_TOL),
               the share of spans equal to the fp32 model's, a served
               batch profiled beside the fp32 one.
+  5c. bf16_train  precision=bf16 training: the five bf16 training entry
+              points (the LSTM forward with residuals and its backward at
+              [128, 16, 512], the conv block backward whole-row at [16,
+              max_w, 128] and T-tiled at [16, 128, 128], the MHA block
+              backward at [16, 128, 128] and max_w; drop 0 and 0.2)
+              against their plain twins on the card
+              (vslnet_torch/bench/bf16_vjp.py: the share of a bf16 output
+              that differs, overall and within one frame or row, one
+              element's error over its magnitude, a weight gradient's
+              mean error over its mean magnitude, each within its limit,
+              while the fp32 kernel's gradient and torch's autograd of
+              the bf16 forward twin must exceed the share's), equal bits
+              twice, their time by CUDA events and
+              by torch.profiler, the twin's time, the bound at the bf16
+              peak, cuDNN's bf16 nn.LSTM beside the LSTM's; then the
+              train phase's model at bf16: one step against the bf16
+              twins' composition (forward and backward; the fp32
+              model's step must fail that bound) and against
+              use_pallas=off at bf16, 20 steps whose launches equal the
+              fp32 train phase's kernel by kernel under the bf16 entries,
+              the loss falling, a step profiled at fp32, bf16, bf16,
+              fp32 in turns.
   6. long_t   beyond T = 145, where the whole-row conv and MHA block
               kernels do not fit: the whole-T and flash attention kernels
               (forward, backward) and the T-tiled conv block (forward,
@@ -100,7 +122,9 @@ Phases, each printing one JSON line:
   7. cli      `python -m vslnet_torch` on a seeded Charades-format data
               root in processes of their own: train, resume, test (also
               at --precision bf16 on the same model directory), predict,
-              serve; the copy rows before them and the C5 shapes after.
+              serve; --mode train --precision bf16 in a model directory of
+              its own, its resume and its test; the copy rows before them
+              and the C5 shapes after.
 Then the "kernels" line, and last {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.
 """
@@ -1118,14 +1142,14 @@ def train_phase(dataset, feats):
     check(bool(np.isfinite(losses).all()), "non-finite training loss")
     check(float(np.mean(losses[-5:])) < losses[0],
           "the loss did not fall: %s" % losses)
-    emit({"phase": "profile", "of": "train step",
-          **profile_device(tk.step, step_ms)})
+    profile = profile_device(tk.step, step_ms)
+    emit({"phase": "profile", "of": "train step", **profile})
 
     # 3. evaluation of the test split (reported, not judged)
     r1_3, r1_5, r1_7, miou, _, _ = tk.evaluate()
     emit({"phase": "evaluate", "records": len(dataset["test_set"]),
           "R1@0.3": r1_3, "R1@0.5": r1_5, "R1@0.7": r1_7, "mIoU": miou})
-    return launches
+    return launches, profile, tk
 
 
 # --- the bf16 phase -----------------------------------------------------------
@@ -1330,7 +1354,13 @@ def bf16_kernel_rows(dev, max_w):
 class TwinsOnTheCard:
     """The kernel wrappers the model calls replaced, for a reference
     forward on the card, by their plain versions (at bf16, the bf16 twins):
-    the modules look the wrappers up in ops/kernels.py at each call."""
+    the modules look the wrappers up in ops/kernels.py at each call. With
+    train, the LSTM and the blocks go through the plain twins' autograd
+    Functions, whose backwards are the bf16 backward twins (a train step's
+    reference)."""
+
+    def __init__(self, train=False):
+        self.train = train
 
     def __enter__(self):
         from vslnet_torch.ops import kernels as K
@@ -1347,6 +1377,20 @@ class TwinsOnTheCard:
         K.fused_mha_block = K.mha_block_plain
         K.fused_cqa_concat = lambda *a: K.cqa_plain(*a)[0]
         K.fused_highlight_gate = gate
+        if self.train:
+            K.fused_lstm_recurrence = K.PlainLSTMRecurrence.apply
+
+            def conv(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
+                return K.PlainConvBlock.apply(x, gam, beta, dw, wp, bp, seeds,
+                                              float(drop_rate))
+
+            def mha(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
+                    seeds=None, drop_rate=0.0):
+                return K.PlainMHABlock.apply(x, mask, gam, beta, wqkv, bqkv,
+                                             wd, bd, n_heads, seeds,
+                                             float(drop_rate))
+
+            K.fused_conv_block, K.fused_mha_block = conv, mha
         return self
 
     def __exit__(self, *exc):
@@ -1474,6 +1518,285 @@ def bf16_phase(dataset, feats, splits, fp32_launches):
           "apart" % (BF16_MODEL_TOL["twins"], control))
     return launches
 
+
+# --- the bf16 training phase --------------------------------------------------
+
+# the kernels a bf16 train step launches in their bf16 entries, by the fp32
+# names whose launches they take over
+BF16_TRAIN_NAMES = BF16_NAMES[1:] + (
+    "lstm_recurrence_fwd_res", "lstm_recurrence_bwd", "conv_block_bwd",
+    "conv_block_bwd_tiled", "mha_block_bwd")
+# a bf16 train step with the kernels against the same step through the
+# bf16 twins' composition on the card (forward and backward: the same
+# function, each bf16 flip carried down two 128-step LSTM chains and
+# four blocks): the loss within BF16_STEP_LOSS_RTOL, each parameter's
+# gradient within BF16_STEP_GRAD of its largest entry plus BF16_STEP_ATOL
+# of the model's largest gradient entry (for the sums that cancel to
+# near 0: the heads' biases, the key bias); against use_pallas=off at
+# bf16 (the XLA path's function, bf16 residuals and state: another
+# function) within BF16_STEP_OFF of the largest entry, plus the same.
+# The fp32 model's step from the same weights must fail the first bound
+# (one H100: the kernels 0.24 of it, the fp32 step 1.64). The step through
+# torch's autograd of the bf16 forward twins is reported, not held: it
+# shares the twins' forward bit for bit, and the kernels' forward flips
+# carried down the chains move the kernels' step farther from the twins'
+# (0.24) than its other rounding points move it (0.063), so only the
+# kernel rows, on shared inputs, tell that impostor apart.
+BF16_STEP_LOSS_RTOL = 1e-2
+BF16_STEP_GRAD = 0.1
+BF16_STEP_OFF = 0.5
+BF16_STEP_ATOL = 5e-3
+
+
+def bf16_train_kernel_rows(dev, max_w):
+    """The five bf16 training entry points at the training shapes against
+    their plain twins on the card (bench/bf16_vjp.py's readings, with both
+    controls), equal bits twice, time by CUDA events and by torch.profiler,
+    the fp32 kernel's on the same inputs (fp32_ms, fp32_device_ms), the
+    twin's time and the bound at the bf16 peak; cuDNN's bf16 nn.LSTM
+    beside the LSTM's."""
+    import torch
+
+    from vslnet_torch.bench import bf16_vjp as V
+    from vslnet_torch.bench.common import by_kernel
+    from vslnet_torch.ops import kernels as K
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(SEED + 13)
+    B, T, D, H, L, KS, heads = 16, 128, 128, 128, 4, 7, 8
+    rows = []
+
+    def timed_row(name, source, line, err, tol, fn, plain, flops, nbytes,
+                  **extra):
+        parts = by_kernel(fn)
+        rows.append(kernel_row(
+            name, "vslnet_torch/csrc/" + source,
+            "vslnet_tpu/ops/pallas_kernels.py:%d" % line, err, tol,
+            cuda_ms(fn, 20), cuda_ms(plain, 3 if "lstm" in name else 10),
+            flops, nbytes, peak_flops=PEAK_BF16_FLOPS,
+            device_ms=sum(parts.values()), by_kernel=parts, **extra))
+
+    def vjp_rows(name, source, line, cases, flops, nbytes, **extra):
+        """One row of the cases of one entry point (drop 0 and 0.2, and
+        the shapes given): each case's readings (bench/bf16_vjp.py: share,
+        slice_share, mean_rel, elem), the worst reading over its limit
+        held to 1, the first case timed."""
+        readings, worst, raw = [], (0.0, "", ""), 0.0
+        for case in cases:
+            r = V.read(case)
+            ok, why = V.verdict(case, r)
+            check(ok, why)
+            kern, twin = case.kernel(), case.twin()
+            raw = max(raw, max(max_err(a, b) for a, b in zip(kern, twin)))
+            worst = max(worst, V.worst(case, r))
+            readings.append({"shape": list(case.shape), **r})
+        first = cases[0]
+        timed_row(name, source, line, raw, 1.0, first.kernel, first.twin, flops,
+                  nbytes, fp32_ms=cuda_ms(first.fp32, 20),
+                  fp32_device_ms=sum(by_kernel(first.fp32).values()),
+                  checked_err_is="the worst reading over its limit",
+                  checked_err=worst[0], worst_reading=list(worst[1:]),
+                  limits=V.limits(first), cases=readings, equal_bits_twice=all(
+                      r["equal_bits_twice"] for r in readings), **extra)
+
+    # 1. the LSTM forward with residuals (#7) and its backward (#8), x_proj
+    # [T, B, 4H] and k_h in bf16
+    lens = np.concatenate([[T, 1], rng.integers(1, T + 1, B - 2)])
+    x_proj = torch.from_numpy(rng.standard_normal((T, B, 4 * H)).astype(
+        np.float32)).to(dev, bf)
+    k_h = torch.from_numpy((rng.standard_normal((H, 4 * H)) / math.sqrt(H))
+                           .astype(np.float32)).to(dev, bf)
+    valid = torch.from_numpy((np.arange(T)[:, None] < lens[None, :]).astype(
+        np.float32)).to(dev)
+    args = (x_proj, k_h, valid)
+    args32 = (x_proj.float(), k_h.float(), valid)
+    got = K.launch_lstm_fwd_res(*args)
+    again = K.launch_lstm_fwd_res(*args)
+    twice = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(twice, "lstm_recurrence_fwd_res_bf16: two equal calls differ")
+    ref = K.lstm_recurrence_plain(*args, residuals=True)
+    ref32 = K.lstm_recurrence_plain(x_proj.float(), k_h.float(), valid,
+                                    residuals=True)
+
+    def mean_err(a):
+        return float((a - ref[0]).abs()[valid.bool()].mean())
+
+    mean_check = bf16_function_check(
+        "lstm_recurrence_fwd_res_bf16", "mean_abs_err", mean_err(got[0]),
+        mean_err(ref32[0]), BF16_LSTM_MEAN_TOL)
+    lstm = lstm_yardstick(x_proj.float(), k_h.float()).to(bf)
+    lstm.flatten_parameters()
+    xl = x_proj.detach().clone().requires_grad_()
+    with torch.no_grad():
+        ms_lib_fwd = cuda_ms(lambda: lstm(x_proj), 20)
+    dy = torch.randn(T, B, H, device=dev, dtype=bf)
+    ms_lib_both = cuda_ms(lambda: torch.autograd.grad(
+        lstm(xl)[0], [xl] + list(lstm.parameters()), dy), 20)
+    n_valid = int(lens.sum())
+    timed_row("lstm_recurrence_fwd_res_bf16", "lstm.cu", 276,
+              max(max_err(a, b) for a, b in zip(got, ref)), BF16_LSTM_TOL,
+              lambda: K.launch_lstm_fwd_res(*args),
+              lambda: K.lstm_recurrence_plain(*args, residuals=True),
+              2 * n_valid * H * 4 * H,
+              2 * (T * B * 4 * H + H * 4 * H) + 4 * (T * B + 8 * T * B * H),
+              library_ms=ms_lib_fwd, library="cuDNN nn.LSTM in bf16, forward",
+              fp32_ms=cuda_ms(lambda: K.launch_lstm_fwd_res(*args32), 20),
+              fp32_device_ms=sum(by_kernel(
+                  lambda: K.launch_lstm_fwd_res(*args32)).values()),
+              shape=[T, B, 4 * H], equal_bits_twice=twice,
+              err_vs_fp32_function=max_err(got[0], ref32[0]), **mean_check)
+    vjp_rows("lstm_recurrence_bwd_bf16", "lstm.cu", 316,
+             [V.lstm_case(dev, rng, T, B, H)],
+             4 * n_valid * H * 4 * H,
+             4 * (T * B + 8 * T * B * H) + 2 * (2 * H * 4 * H
+                                                 + T * B * 4 * H),
+             library_ms=ms_lib_both - ms_lib_fwd,
+             library="cuDNN nn.LSTM in bf16, forward+backward - forward")
+
+    # 2. the conv block backward (#9): whole-row at the query stream's [B,
+    # max_w, D], T-tiled at the video's [B, T, D]; drop 0 and 0.2
+    def conv_work(T_, tiled):
+        flops = L * 2 * B * T_ * D * (3 * D + 3 * KS)
+        nbytes = (3 * 2 * B * T_ * D + 2 * 4 * L * (3 * D + KS * D + D * D)
+                  + (4 * (L - 1) * B * T_ * D if tiled else 0))
+        return flops, nbytes
+
+    for name, T_, tiled, line in (("conv_block_bwd_bf16", max_w, False, 1039),
+                                  ("conv_block_bwd_tiled_bf16", T, True,
+                                   1039)):
+        vjp_rows(name, "conv_block.cu", line,
+                 [V.conv_case(dev, rng, B, T_, D, rate, tiled)
+                              for rate in (DROP, 0.0)],
+                 *conv_work(T_, tiled), shape=[B, T_, D],
+                 route_train=K.conv_route(T_, D, KS, L, True))
+
+    # 3. the MHA block backward (#10) at [B, T, D] and [B, max_w, D], 8
+    # heads, a fully masked row; drop 0 and 0.2
+    cases = [V.mha_case(dev, rng, B, T_, D, heads, rate)
+             for T_ in (T, max_w) for rate in (DROP, 0.0)]
+    keys = T * T * (B - 1) // 2 + T * T  # about half the keys, one row all
+    vjp_rows("mha_block_bwd_bf16", "mha_block.cu", 1762, cases,
+             16 * B * T * D * D + 10 * keys * D,
+             2 * 3 * B * T * D + 4 * (4 * B * T * D + B * T)
+             + 2 * 4 * (4 * D * D + 8 * D),
+             shape=[B, T, D], heads=heads, query_T=max_w,
+             plan=K.mha_bwd_plan(B, T, D, heads)._asdict())
+    return rows
+
+
+def bf16_train_phase(dataset, feats, fp32_launches, fp32_trainer):
+    """precision=bf16 training of the full-width rnn model: one step with
+    the kernels against the bf16 twins' composition and against
+    use_pallas=off at bf16, from the same weights, batch and generator
+    seed; then TRAIN_STEPS steps with the kernels, their launches equal
+    kernel by kernel to the fp32 train phase's with the kernels that have
+    a bf16 form under their bf16 entries, the loss finite and falling; a
+    step profiled at fp32 (the train phase's trainer), bf16, bf16, fp32
+    in turns (a mostly idle card runs a step at clocks that vary between
+    runs). Returns the steps' launches."""
+    import torch
+
+    from vslnet_torch.bench.paths import profile_device, train_config
+    from vslnet_torch.ops import kernels as K
+    from vslnet_torch.train.runner import Trainer
+
+    def cfg(up):
+        return train_config(dataset, up, SEED, precision="bf16")
+
+    tk, to = trainers(cfg, dataset, feats)
+    tt = Trainer(cfg("auto"), dataset, feats)
+    # the controls, from the same weights, batch and generator seed: the
+    # fp32 model's step, which must fail the bound against the twins, and
+    # the step through torch's autograd of the bf16 forward twins
+    # (reported; BF16_STEP_GRAD's comment)
+    tf = Trainer(train_config(dataset, "auto", SEED), dataset, feats)
+    ta = Trainer(cfg("auto"), dataset, feats)
+    check(tk.model.dtype == torch.bfloat16, "a bf16 model")
+    named_k = dict(tk.model.named_parameters())
+    check(all(torch.equal(p, named_k[n]) for n, p in
+              tf.model.named_parameters()),
+          "the fp32 control must start from the bf16 model's weights")
+    del named_k
+    loss_k, _ = tk.step()
+    K.reset_launches()
+    with TwinsOnTheCard(train=True):
+        loss_t, _ = tt.step()
+    with TwinsOnTheCard():
+        loss_a, _ = ta.step()
+    check(not any(K.LAUNCHES.values()), "the twins launched a kernel")
+    loss_o, _ = to.step()
+    loss_f, _ = tf.step()
+
+    def grads(t):
+        return {n: p.grad for n, p in t.model.named_parameters()}
+
+    def against(got, refs, tol):
+        """Every leaf's max error over tol of its largest entry plus
+        BF16_STEP_ATOL of the model's largest gradient entry: the worst
+        ratio and its leaf, and the median over leaves of the mean error
+        over the mean magnitude."""
+        atol = BF16_STEP_ATOL * max(float(g.abs().max())
+                                    for g in refs.values())
+        ratios = {n: max_err(g, refs[n]) / (tol * float(refs[n].abs().max())
+                                           + atol) for n, g in got.items()}
+        means = [float((g.double() - refs[n].double()).abs().mean()
+                       / refs[n].double().abs().mean().clamp_min(1e-30))
+                 for n, g in got.items()]
+        n = max(ratios, key=ratios.get)
+        return {"worst": [ratios[n], n],
+                "median_mean_rel": float(np.median(means))}
+
+    twins = grads(tt)
+    errs = {"twins": against(grads(tk), twins, BF16_STEP_GRAD),
+            "off": against(grads(tk), grads(to), BF16_STEP_OFF),
+            "control_fp32": against(grads(tf), twins, BF16_STEP_GRAD),
+            "control_autograd": against(grads(ta), twins, BF16_STEP_GRAD)}
+    loss_rel = {k: abs(float(loss_k) - float(v)) / abs(float(v))
+                for k, v in (("twins", loss_t), ("off", loss_o))}
+    emit({"phase": "bf16_train_step", "loss_kernels": float(loss_k),
+          "loss_twins": float(loss_t), "loss_off": float(loss_o),
+          "loss_control_fp32": float(loss_f),
+          "loss_control_autograd": float(loss_a),
+          "loss_rel_err": loss_rel, "loss_rtol": BF16_STEP_LOSS_RTOL,
+          "grad_tol": {"twins": BF16_STEP_GRAD, "off": BF16_STEP_OFF},
+          "grad_atol_of_largest": BF16_STEP_ATOL, "grads": errs})
+    check(loss_rel["twins"] <= BF16_STEP_LOSS_RTOL
+          and errs["twins"]["worst"][0] <= 1.0
+          and errs["off"]["worst"][0] <= 1.0,
+          "a bf16 train step disagrees: %s %s" % (loss_rel, errs))
+    check(errs["control_fp32"]["worst"][0] > 1.0,
+          "the fp32 step is within the bound against the twins (%s): the "
+          "step's check does not tell it from the bf16 VJPs"
+          % errs["control_fp32"])
+    del tt, ta, tf, to, twins
+
+    K.reset_launches()
+    losses, times = timed_steps(tk, TRAIN_STEPS)
+    launches = dict(K.LAUNCHES)
+    expected = dict(fp32_launches)
+    for n in BF16_TRAIN_NAMES:
+        expected[n + "_bf16"], expected[n] = expected[n], 0
+    step_ms = float(np.mean(times[2:]))
+    emit({"phase": "bf16_train", "steps": TRAIN_STEPS, "losses": losses,
+          "launches": launches, "step_ms_kernels": step_ms,
+          "step_ms_each": times})
+    check(launches == expected, "bf16 train launch counts %s, expected %s"
+          % (launches, expected))
+    check(bool(np.isfinite(losses).all()), "non-finite bf16 training loss")
+    check(float(np.mean(losses[-5:])) < losses[0],
+          "the bf16 loss did not fall: %s" % losses)
+    turns = [profile_device(t.step, step_ms)
+             for t in (fp32_trainer, tk, tk, fp32_trainer)]
+
+    def without_copies(i):
+        return turns[i]["device_ms_without_copies"]
+
+    emit({"phase": "profile", "of": "train step at bf16",
+          "device_ms_without_copies_turns": {
+              "fp32": [without_copies(0), without_copies(3)],
+              "bf16": [without_copies(1), without_copies(2)]},
+          "fp32_device_launches": turns[0]["device_launches"], **turns[1]})
+    return launches
 
 # --- phase 6 -------------------------------------------------------------------
 # Beyond T = 145, where the whole-row conv and MHA block kernels do not fit
@@ -1909,7 +2232,8 @@ CLI_KERNELS = ("lstm_recurrence_fwd", "lstm_recurrence_fwd_res",
                "conv_block_fwd_tiled", "conv_block_bwd_tiled",
                "mha_block_fwd", "mha_block_bwd", "cqa_concat_fwd",
                "highlight_gate_fwd", "span_decode") + tuple(
-                   n + "_bf16" for n in BF16_NAMES)  # the bf16 test run
+                   n + "_bf16" for n in BF16_NAMES + BF16_TRAIN_NAMES[3:])
+# (the bf16 runs: train, resume and test)
 HTOD_STEP_MAX_BYTES = 1024
 # modules -> the kernels that show they took the kernel route
 MODULE_KERNELS = {
@@ -2201,6 +2525,41 @@ def cli_phase(dataset, feats, splits):
         test16 = [float(x) for x in re.findall(r":\t([0-9.]+)", out_test16)]
         check(len(test16) == 4 and all(0.0 <= v <= 100.0 for v in test16),
               "--mode test --precision bf16 gave %s" % test16)
+        # bf16 training in a model directory of its own: an epoch, a resume
+        # to the second, then the test of its best checkpoint at bf16
+        bf16_dir = ["--model_dir", os.path.join(work, "ckpt_bf16"),
+                    "--precision", "bf16"]
+        cli_run("train_bf16", cli_args(root, work, "--mode", "train",
+                                       "--epochs", "1", *bf16_dir),
+                work, files)
+        out_resume16 = cli_run("resume_bf16", cli_args(
+            root, work, "--mode", "train", "--resume", "true", "--epochs",
+            "2", *bf16_dir), work, files)
+        dir16 = os.path.join(work, "ckpt_bf16", "vslnet_charades_new_128_rnn",
+                             "model")
+        saved16 = json.load(open(os.path.join(dir16, "configs.json")))
+        ckpts16 = sorted(int(f[11:-3]) for f in os.listdir(dir16)
+                         if f.startswith("checkpoint_"))
+        m16 = re.search(r"resumed from step (\d+)", out_resume16)
+        steps16 = [int(x) for x in re.findall(r"Step +(\d+) \| loss",
+                                              out_resume16)]
+        losses16 = [float(x) for x in re.findall(r"\| loss ([0-9.eE+-]+)",
+                                                 out_resume16)]
+        check(saved16["precision"] == "bf16" and bool(m16) and bool(ckpts16)
+              and steps16 and steps16[-1] == last * 2 // 3
+              and bool(np.isfinite(losses16).all()),
+              "bf16 resume: configs %s, %s, checkpoints %s, steps %s, "
+              "losses %s" % (saved16.get("precision"), m16, ckpts16, steps16,
+                             losses16))
+        out_train16_test = cli_run("test_bf16_trained", cli_args(
+            root, work, "--mode", "test", *bf16_dir), work, files)
+        test16_trained = [float(x) for x in re.findall(
+            r":\t([0-9.]+)", out_train16_test)]
+        best16 = scores_at(open(os.path.join(dir16, "eval_results.txt"))
+                           .read(), ckpts16[-1])
+        check(test16_trained == best16, "--mode test at bf16 gave %s, the "
+              "restored bf16 checkpoint's evaluation %s"
+              % (test16_trained, best16))
         queries = os.path.join(work, "queries.jsonl")
         vids = sorted(durations)[:20]
         with open(queries, "w") as f:
@@ -2231,7 +2590,12 @@ def cli_phase(dataset, feats, splits):
     emit({"phase": "cli", "seconds": cli_s, "data": dict(
         CLI_DATA, records=CLI_DATA["n_train"] + CLI_DATA["n_test"]),
         "resumed_from": int(m.group(1)), "checkpoints": ckpts,
-        "test": test, "test_bf16": test16, "predictions": len(lines),
+        "test": test, "test_bf16": test16,
+        "bf16_trained": {"resumed_from": int(m16.group(1)),
+                         "checkpoints": ckpts16, "losses": losses16,
+                         "test": dict(zip(("R1@0.3", "R1@0.5", "R1@0.7",
+                                           "mIoU"), test16_trained))},
+        "predictions": len(lines),
         "http_200": len(replies),
         "launches": runs})
     for name in total:
@@ -2241,6 +2605,10 @@ def cli_phase(dataset, feats, splits):
         check(runs["test_bf16"][name + "_bf16"] > 0
               and runs["test_bf16"][name] == 0,
               "cli: the bf16 test run launched %s" % runs["test_bf16"])
+    for run in ("train_bf16", "resume_bf16"):  # and so did bf16 training
+        check(all(runs[run][n + "_bf16"] > 0 and runs[run][n] == 0
+                  for n in BF16_TRAIN_NAMES),
+              "cli: the %s run launched %s" % (run, runs[run]))
     c5_phase(dataset, feats, splits)
     return total
 
@@ -2277,7 +2645,7 @@ def main():
     max_w, _ = static_caps(splits, Config())
     rows = kernel_phase(dev, max_w)
     launches = slice_phase(dataset, feats, splits)
-    train_launches = train_phase(dataset, feats)
+    train_launches, _, fp32_trainer = train_phase(dataset, feats)
     for row in rows:
         # each kernel's launches on the path that runs it: serving for the
         # forward kernels, training for the residual forward and backwards
@@ -2295,13 +2663,23 @@ def main():
         row["launches_path"] = "serve_bf16"
         check(row["launches"] > 0,
               "%s never launched on the bf16 served path" % row["name"])
+    bf16_train_rows = bf16_train_kernel_rows(dev, max_w)
+    bf16_train_launches = bf16_train_phase(dataset, feats, train_launches,
+                                           fp32_trainer)
+    del fp32_trainer
+    for row in bf16_train_rows:
+        row["launches"] = bf16_train_launches[row["name"]]
+        row["launches_path"] = "train_bf16"
+        row["launches_train_step"] = row["launches"] / TRAIN_STEPS
+        check(row["launches"] > 0,
+              "%s never launched on the bf16 training path" % row["name"])
     long_rows = long_t_phase(dev)
     for row in long_rows:
         # the tiled conv kernels also run on the main path where conv_route
         # sends its rows
         row["launches_main"] = {"serve": launches[row["name"]],
                                 "train": train_launches[row["name"]]}
-    rows += long_rows + bf16_rows
+    rows += long_rows + bf16_rows + bf16_train_rows
     cli_counts = cli_phase(dataset, feats, splits)
     for row in rows:
         # and on the command line's runs (train, resume, test, predict,

@@ -7,8 +7,8 @@ points), held here as the port's plain twins against the Pallas kernels in
 interpret mode; and the XLA path's (use_pallas=off and beyond the kernels'
 predicates: bf16 residuals and state), held as the modules' bf16 paths
 against the flax modules. Then the whole VSLNet both ways at two head
-dims, and what bf16 refuses (training, ROADMAP.md B4b; the MHA block's
-routes above T = 145, B4c).
+dims; bf16 training on the CPU; and what bf16 refuses (the MHA block's
+routes above T = 145, ROADMAP.md B4c).
 
 Tolerances: torch's and JAX's CPU bf16 products both sum in fp32 and round
 once, but in other orders, so a value near a bf16 rounding boundary can
@@ -17,6 +17,10 @@ through what follows. Each check also holds the port's error against
 JAX's bf16 to at most JAX's own bf16-against-fp32 error on the same
 inputs, as tests/test_pallas.py does for the LSTM kernel.
 """
+import glob
+import json
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -305,19 +309,48 @@ def test_precision_resolves_to_a_dtype_and_bf16_serves_on_the_cpu():
 
 
 def test_bf16_training_refuses_on_any_device():
+    """bf16 training (once refused, ROADMAP.md B4b) runs on the CPU through
+    every entry: Trainer.step, run and train, at fp32 parameters, through
+    the plain twins' autograd Functions (no launch); evaluation at bf16;
+    and the CLI's refusals name no bf16 mode."""
     dataset, feats = synthetic_dataset(
         n_train=8, n_test=4, n_videos=4, n_words=40, n_chars=12,
         max_pos_len=T, video_feature_dim=10, word_dim=8, min_video_len=4,
         seed=0)
-    trainer = Trainer(_small_config(), dataset, feats, device="cpu")
-    for run in (trainer.step, trainer.run, lambda: trainer.train(1)):
-        with pytest.raises(NotImplementedError, match="B4b"):
-            run()
+    trainer = Trainer(_small_config(num_train_steps=2, epochs=1,
+                                    log_to_tensorboard=False), dataset,
+                      feats, device="cpu")
+    kernels.reset_launches()
+    loss, hl = trainer.step()
+    assert np.isfinite(float(loss)) and np.isfinite(float(hl))
+    assert np.isfinite(trainer.train(1)).all()
+    assert {p.dtype for p in trainer.model.parameters()} == {torch.float32}
+    assert not any(kernels.LAUNCHES.values())  # the CPU runs the twins
     r1i3, _, _, miou, *_ = trainer.evaluate()  # evaluation runs at bf16
     assert 0.0 <= r1i3 <= 100.0 and 0.0 <= miou <= 100.0
-    with pytest.raises(NotImplementedError, match="B4b"):
-        cli.refuse_unported(_small_config(mode="train"))
+    cli.refuse_unported(_small_config(mode="train"))
     cli.refuse_unported(_small_config(mode="test"))
+
+
+def test_bf16_trainer_run_writes_a_bf16_model_dir(tmp_path):
+    """Trainer.run at bf16: its steps, the evaluations, a checkpoint of
+    fp32 parameters and configs.json recording the precision."""
+    dataset, feats = synthetic_dataset(
+        n_train=8, n_test=4, n_videos=4, n_words=40, n_chars=12,
+        max_pos_len=T, video_feature_dim=10, word_dim=8, min_video_len=4,
+        seed=0)
+    trainer = Trainer(_small_config(epochs=1, model_dir=str(tmp_path),
+                                    log_to_tensorboard=False), dataset,
+                      feats, device="cpu")
+    summary = trainer.run(verbose=False)
+    assert trainer.global_step == trainer.num_train_batches == 2, summary
+    saved = json.loads(open(os.path.join(trainer.model_dir,
+                                         "configs.json")).read())
+    assert saved["precision"] == "bf16"
+    ckpt = torch.load(sorted(glob.glob(os.path.join(
+        trainer.model_dir, "checkpoint_*.pt")))[-1], weights_only=False)
+    assert {t.dtype for t in ckpt["model"].values()
+            if t.is_floating_point()} == {torch.float32}
 
 
 @pytest.mark.parametrize("T_", [146, 300])  # the whole-T and flash routes

@@ -1,0 +1,62 @@
+"""vslnet_torch/bench/bf16_vjp.py's readings and verdict on the CPU, with
+the plain backward twins standing in for the bf16 kernels: the sound case
+reads 0 and passes, both controls exceed the share limit, and each fault
+planted in one frame or one row of the activation gradient is refused.
+The card tests hold the kernels themselves (tests/test_torch_cuda.py)."""
+import numpy as np
+import pytest
+import torch
+
+from vslnet_torch.bench import bf16_vjp as V
+from vslnet_torch.ops import kernels as K
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def twins_as_kernels(monkeypatch):
+    monkeypatch.setattr(K, "launch_lstm_fwd_res", lambda x, k, v: (
+        K.lstm_recurrence_plain(x, k, v, residuals=True)))
+    monkeypatch.setattr(K, "launch_lstm_bwd", K.lstm_recurrence_bwd_plain)
+    monkeypatch.setattr(K, "launch_conv_block_bwd", K.conv_block_bwd_plain)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+
+
+def _case(kind):
+    rng = np.random.default_rng(13)
+    if kind == "lstm":
+        return V.lstm_case("cpu", rng, 12, 4, 8)
+    return V.conv_case("cpu", rng, 4, 13, 32, 0.2)
+
+
+@pytest.mark.parametrize("kind", ["lstm", "conv"])
+def test_sound_case_reads_zero_and_controls_fail(twins_as_kernels, kind):
+    case = _case(kind)
+    r = V.read(case)
+    assert V.verdict(case, r) == (True, "")
+    assert all(v == 0 for ms in r["kernel"].values() for v in ms.values())
+    first = case.names[0]
+    assert set(r["kernel"][first]) == {"share", "slice_share", "elem"}
+    for control in ("fp32", "autograd"):
+        assert r[control][first]["share"] > V.limit(case, first, "share")
+
+
+@pytest.mark.parametrize("kind,fault", [
+    ("lstm", "row_zero"), ("lstm", "row_scaled"), ("lstm", "one_element"),
+    ("conv", "last_frame_fp32"), ("conv", "row_zero"),
+    ("conv", "row_scaled"), ("conv", "one_element")])
+def test_planted_fault_is_refused(twins_as_kernels, kind, fault):
+    """A fault in one frame or one row: a small share of the whole tensor
+    (the LSTM's length-1 row is 1 of the valid positions, the last frame 1
+    of 13), caught by the slice share or the element bound."""
+    case = _case(kind)
+    bad = V.planted(case, fault)
+    r = V.read(bad)
+    ok, why = V.verdict(bad, r)
+    assert not ok and "beyond the limits" in why, why
+    first = r["kernel"][case.names[0]]
+    if fault != "one_element":  # a frame or a row: its slice
+        assert first["slice_share"] > V.limit(case, case.names[0],
+                                               "slice_share")
+    if fault != "last_frame_fp32":  # a value 1/16 off or 0: the element
+        assert first["elem"] > V.limit(case, case.names[0], "elem")

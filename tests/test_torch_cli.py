@@ -184,11 +184,27 @@ def test_predict_errors_and_duration(data_root, trained, capsys):
 @pytest.mark.parametrize("flags,item", [
     (("--mode", "export"), "A8"), (("--text_encoder", "bert"), "A10"),
     (("--t7_checkpoint", "m.t7"), "A11"), (("--tf_checkpoint", "m"), "A11"),
-    (("--dp_size", "2"), "A9"), (("--ring_attention", "on"), "A9"),
-    (("--precision", "bf16"), "B4b")])
+    (("--dp_size", "2"), "A9"), (("--ring_attention", "on"), "A9")])
 def test_unported_options_name_their_roadmap_item(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         _run(tmp_path / "d", tmp_path, *flags)
+
+
+def test_train_resume_and_test_at_bf16(data_root, tmp_path, capsys):
+    """--mode train --precision bf16 (once refused, ROADMAP.md B4b): an
+    epoch, a resume to the second, then --mode test on the saved
+    directory, which configs.json keeps at bf16."""
+    _run(data_root, tmp_path, "--mode", "train", "--precision", "bf16")
+    _run(data_root, tmp_path, "--mode", "train", "--resume", "true",
+         "--epochs", "2", "--precision", "bf16")
+    out = capsys.readouterr().out
+    assert "resumed from step" in out
+    saved = json.loads((tmp_path.joinpath(*MODEL) / "configs.json")
+                       .read_text())
+    assert saved["precision"] == "bf16" and saved["epochs"] == 2
+    _run(data_root, tmp_path, "--mode", "test")
+    out = capsys.readouterr().out
+    assert "Rank@1, IoU=0.7" in out and "mean IoU" in out
 
 
 def test_module_entry_point_and_card_default(tmp_path):

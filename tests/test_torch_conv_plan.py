@@ -152,7 +152,8 @@ def test_conv_plans_bench_copies_match_the_kernel():
     assert "cluster.sync();" in lines[stamped[-1] - 1]  # the exit barrier
     assert 'extern "C" int prof_clusters' in prof
     # the occupancy helper names both cluster kernels as the source does
-    assert "conv_block_bwd_cluster_kernel(const float*" in src
+    # (their fp32 instantiations)
+    assert "conv_block_bwd_cluster_kernel(const XT*" in src
     assert "conv_block_fwd_cluster_kernel(const XT*" in src
     assert "conv_block_fwd_cluster_kernel<2>" in src
     for rows, unroll in conv_plans.PRODUCT_TILES[1:]:

@@ -1191,21 +1191,111 @@ def test_cuda_mha_block_bf16_matches_twin(cuda, B, T, D, heads, rate):
 
 @pytest.mark.cuda
 def test_cuda_bf16_wrappers_refuse_gradients_and_long_routes(cuda):
+    """A gradient at bf16 takes the bf16 training kernels each way (once
+    refused); the MHA block's routes above T = 145 still raise (B4c), and a
+    mix of fp32 and bf16 is refused."""
     rng = np.random.default_rng(34)
     x_proj, k_h, valid = (_t(a).to(cuda) for a in
                           _lstm_inputs(rng, 4, 2, 8, [4, 2]))
     x_proj = x_proj.to(BF16).requires_grad_()
-    with pytest.raises(NotImplementedError, match="B4b"):
-        kernels.fused_lstm_recurrence(x_proj, k_h.to(BF16), valid)
+    kernels.reset_launches()
+    kernels.fused_lstm_recurrence(x_proj, k_h.to(BF16), valid).sum().backward()
+    assert x_proj.grad.dtype == BF16
     x, *w = (_t(a).to(cuda) for a in _conv_inputs(rng, 2, 13, 16))
-    with pytest.raises(NotImplementedError, match="B4b"):
-        kernels.fused_conv_block(x.to(BF16), *(a.requires_grad_() for a in w))
+    kernels.fused_conv_block(x.to(BF16), *(a.requires_grad_() for a in w)
+                             ).float().sum().backward()
     x, *w = (_t(a).to(cuda) for a in _mha_inputs(rng, 2, 10, 16, [10, 3]))
-    with pytest.raises(NotImplementedError, match="B4b"):
-        kernels.fused_mha_block(x.to(BF16).requires_grad_(), *w, 2)
+    xb = x.to(BF16).requires_grad_()
+    kernels.fused_mha_block(xb, *w, 2).float().sum().backward()
+    torch.cuda.synchronize()
+    assert {n: v for n, v in kernels.LAUNCHES.items() if v} == {
+        "lstm_recurrence_fwd_res_bf16": 1, "lstm_recurrence_bwd_bf16": 1,
+        "conv_block_fwd_bf16": 1, "conv_block_bwd_bf16": 1,
+        "mha_block_fwd_bf16": 1, "mha_block_bwd_bf16": 1}
+    assert xb.grad.dtype == BF16 and torch.isfinite(xb.grad.float()).all()
     x, *w = (_t(a).to(cuda) for a in _mha_inputs(rng, 1, 200, 128, [200]))
     with pytest.raises(NotImplementedError, match="B4c"):
         kernels.fused_mha_block(x.to(BF16), *w, 8)
     with pytest.raises(TypeError):  # fp32 x_proj with a bf16 k_h
         kernels.fused_lstm_recurrence(x_proj.detach().float(), k_h.to(BF16),
                                       valid)
+
+
+# --- bf16 training: the backward kernels against their plain twins -----------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(128, 16, 128), (30, 5, 100), (12, 4, 8),
+                                   (192, 16, 128)])
+def test_cuda_lstm_fwd_res_bf16_matches_twin(cuda, T, B, H):
+    """#7 at bf16: the five fp32 outputs against the twin's, the output's
+    mean error within BF16_LSTM_MEAN_TOL where the fp32 function's is
+    beyond it, equal bits twice, one launch of the bf16 entry."""
+    rng = np.random.default_rng(35)
+    x_proj, k_h, valid = _lstm_inputs(rng, T, B, H,
+                                      rng.integers(1, T + 1, size=B))
+    args = [_t(x_proj).to(cuda, BF16), _t(k_h).to(cuda, BF16),
+            _t(valid).to(cuda)]
+    kernels.reset_launches()
+    got = kernels.launch_lstm_fwd_res(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lstm_recurrence_fwd_res_bf16"] == 1
+    ref = kernels.lstm_recurrence_plain(*args, residuals=True)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, atol=BF16_LSTM_TOL, rtol=0)
+    ref32 = kernels.lstm_recurrence_plain(args[0].float(), args[1].float(),
+                                          args[2])
+
+    def mean_err(a):
+        return float((a - ref[0]).abs()[args[2].bool()].mean())
+
+    assert mean_err(got[0]) <= BF16_LSTM_MEAN_TOL < mean_err(ref32)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, kernels.launch_lstm_fwd_res(*args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lstm", "conv", "conv_tiled", "mha"])
+def test_cuda_bf16_backward_matches_twin(cuda, kind):
+    """#8, #9 (both forms) and #10 at bf16 against their plain backward
+    twins (the JAX package's VJPs written out): the share of a bf16 output
+    that differs within SHARE_TOL, a weight gradient's mean error over its
+    mean magnitude within MEAN_TOL, both controls (the fp32 kernel's
+    gradient on the same bf16-valued inputs, torch's autograd of the bf16
+    forward twin) beyond them, equal bits twice, each call counted under
+    the bf16 entry."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    for case in V.card_cases(cuda, kind):
+        kernels.reset_launches()
+        case.kernel()
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[case.name] == 1, (case.shape, case.name)
+        assert kernels.LAUNCHES[case.name[:-5]] == 0
+        reading = V.read(case)
+        ok, why = V.verdict(case, reading)
+        assert ok, (case.shape, why, reading)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,fault", [
+    ("lstm", "row_zero"), ("lstm", "row_scaled"), ("lstm", "one_element"),
+    *((kind, fault) for kind in ("conv", "conv_tiled", "mha")
+      for fault in ("last_frame_fp32", "row_zero", "row_scaled",
+                    "one_element"))])
+def test_cuda_bf16_backward_refuses_a_planted_fault(cuda, kind, fault):
+    """A fault confined to one frame or one row of a bf16 backward's
+    activation gradient, planted in the kernel's outputs at the main
+    path's shape (bench/bf16_vjp.py FAULTS: the last frame of every row
+    without the bf16 roundings, as a tile edge might compute it; the short
+    row, the LSTM's of length 1 or the MHA block's fully masked one,
+    skipped or 1/16 too large; its largest element 1/16 too large), is
+    refused by `verdict`, which passes the same case without it."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    case = V.card_cases(cuda, kind)[0]
+    assert V.verdict(case, V.read(case))[0]
+    bad = V.planted(case, fault)
+    ok, why = V.verdict(bad, V.read(bad))
+    assert not ok and "beyond the limits" in why, why

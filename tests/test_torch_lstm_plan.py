@@ -83,6 +83,6 @@ def test_phase_profile_instruments_the_shipped_kernel():
     prof = lstm_plans.instrumented(src)
     assert prof.count("pacc[") == 2 + len(lstm_plans.PHASES)
     assert 'extern "C" int vsl_' not in prof
-    # the three forwards' (fp32 lean, bf16 lean, with residuals), the
-    # backward's and prof_read
-    assert prof.count('extern "C" int prof_') == 5
+    # the four forwards' (lean and with residuals, fp32 and bf16), the two
+    # backwards' and prof_read
+    assert prof.count('extern "C" int prof_') == 7

@@ -114,13 +114,21 @@ def test_entry_points_need_a_device_and_supported_options():
     bad = Config(**{**configs.__dict__, "text_encoder": "bert"})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(bad, (30, 8), device="cpu")
-    # precision=bf16 builds and serves; it refuses training (ROADMAP.md
-    # B4b) and, with the kernels, the MHA block's routes above the block
-    # kernels' T limit (B4c), which have no bf16 kernels yet
+    # precision=bf16 builds, serves and trains (the CLI refuses no bf16
+    # mode; a gradient reaches the fp32 parameters through the twins); with
+    # the kernels it refuses the MHA block's routes above the block
+    # kernels' T limit (ROADMAP.md B4c), which have no bf16 kernels yet
     bf16 = Config(**{**configs.__dict__, "precision": "bf16"})
-    assert build_model(bf16, (30, 8), device="cpu").dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="B4b"):
-        refuse_unported(Config(**{**bf16.__dict__, "mode": "train"}))
+    model16 = build_model(bf16, (30, 8), device="cpu")
+    assert model16.dtype == torch.bfloat16
+    refuse_unported(Config(**{**bf16.__dict__, "mode": "train"}))
+    word_ids, char_ids, vfeats, v_len = _batch(0)
+    out = model16(*(torch.from_numpy(a) for a in (word_ids, char_ids, vfeats,
+                                                  v_len)))
+    out["start_logits"].masked_fill(~out["v_mask"].bool(), 0.0).sum().backward()
+    grads = [p.grad for p in model16.parameters() if p.grad is not None]
+    assert grads and all(g.dtype == torch.float32 and torch.isfinite(g).all()
+                         for g in grads)
     long_t = 240
     assert kernels.mha_route(long_t, 16, 2) != "block"
     model = build_model(Config(**{**bf16.__dict__, "max_pos_len": long_t,

@@ -1,0 +1,444 @@
+"""The bf16 backward kernels held to their plain backward twins on the card,
+shared by chip_smoke.py's bf16 training rows and the card tests
+(tests/test_torch_cuda.py). Run as a script on the card, it prints the
+readings of the card tests' cases and the planted faults' verdicts:
+`python3 -m vslnet_torch.bench.bf16_vjp`.
+
+A bf16 backward's function is the JAX package's custom VJP at bf16, which
+rounds at its own points. Two impostors come close to it: the fp32 kernel's
+gradient on the same bf16-valued inputs, and torch's autograd of the bf16
+forward twin (the CPU's gradient before the backward twins were written).
+A max-error bound does not tell them apart, and a share taken over a whole
+tensor does not see a fault confined to a frame or a row, so each output is
+read several ways against the twin, over its counted elements (the LSTM's
+valid positions; every element of the others):
+
+- share: of a bf16 output's elements that differ from the twin's (dx,
+  dx_proj, dk_h);
+- slice_share: the largest such share within one frame or one row of a
+  bf16 activation gradient (dx [B, T, D], dx_proj [T, B, 4H]);
+- mean_rel: an fp32 output's mean absolute error over its mean magnitude
+  (the weight gradients);
+- elem: the largest error of one element over that element's magnitude,
+  floored at the output's mean magnitude, in units of 2^-8 (a bf16 ulp is
+  2^-8 to 2^-7 of its value).
+
+Each reading of the kernel must lie within its limit, and each impostor
+must exceed the share limit on the first output (the activation's
+gradient).
+
+    case = conv_case(dev, rng, B, T, D, rate, tiled=False)
+    reading = read(case)   # {"kernel": {name: {metric: x}}, "fp32": ...}
+    ok, why = verdict(case, reading)
+    ok, why = verdict(planted(case, "last_frame_fp32"), ...)  # refused
+"""
+import json
+import math
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from vslnet_torch.ops import kernels as K
+
+# a kernel against its twin on the same inputs: fp32 sums in other orders,
+# so a value on a bf16 rounding boundary may round the other way, and the
+# flip carries through what follows (0-0.4% of the blocks' dx on the card);
+# both impostors differ from the twin on 10-60% of a bf16 output ...
+SHARE_TOL = 0.02
+# ... and within one frame or one row of it (a frame of the blocks' dx at
+# [16, T, 128] is 2,048 elements: the kernels read up to 1.2%, a last
+# frame computed as control (a) does 10%, the controls 14-31%; the MHA
+# block's and the LSTM's own limits below) ...
+SLICE_TOL = 0.05
+# ... and on an fp32 weight gradient by 1.4e-3 and more over its mean
+# magnitude, where the kernel's sums in another order read below 4e-5
+MEAN_TOL = 2e-4
+# one element's error over its magnitude (floored at the mean), in units
+# of 2^-8: a flip is one bf16 ulp, at most 2 units, and the kernels read
+# up to 2.9 (a weight gradient sums flipped bf16(g_p)); an element 1/16
+# off reads 15-17
+ELEM_TOL = 8.0
+ELEM_UNIT = 2.0 ** -8
+# The LSTM's reverse chain carries each flip of bf16(dgates) into the
+# steps before it, and dk_h sums T * B such dgates: at T = 128 the kernel
+# and the twin each differ from the twin summed in fp64 (the same
+# roundings) on 1.5% of dx_proj and 16% of dk_h, the impostors on 11-16%
+# and 42-50% (PERF.md). Over dx_proj's valid positions the kernels read
+# up to 2.7%, 10% in one frame or row; the impostors 21-28%, 27-33%. The
+# LSTM's limits, by (output, reading)
+LSTM_LIMITS = {("dx_proj", "share"): 0.05, ("dk_h", "share"): 0.3,
+               ("dx_proj", "slice_share"): 0.2}
+# a flip in a head's q, k or v row carries through the frame's dx: up to
+# 3.9% of a frame of 256 elements at [2, 64, 128], 2 heads; the controls
+# 47-79%, a last frame computed as control (a) does 41%
+MHA_LIMITS = {("dx", "slice_share"): 0.15}
+BF16 = torch.bfloat16
+
+
+class Case(NamedTuple):
+    """One bf16 backward at one shape: `name` is the kernel's launch name;
+    `names` its outputs in order, `bf16` those stored in bf16; `kernel`,
+    `fp32` and `autograd` each return the outputs (the bf16 kernel's,
+    control (a)'s and control (b)'s); the plain backward twin's are
+    plain(*args). `counted` maps an output to the bool mask (broadcast to
+    it) of the elements its readings count, `axes` a bf16 activation
+    gradient to its (frame, row) axes, `short_row` is the row the faults
+    plant in (the LSTM's row of length 1, the MHA block's fully masked
+    row)."""
+    name: str
+    names: tuple
+    bf16: tuple
+    kernel: Callable
+    plain: Callable
+    args: tuple
+    fp32: Callable
+    autograd: Callable
+    shape: tuple
+    limits: dict = {}
+    counted: dict = {}
+    axes: dict = {}
+    short_row: int = -1
+
+    def twin(self):
+        return self.plain(*self.args)
+
+
+def _t(dev, a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+
+def share(diff, keep):
+    """The share of the counted elements (keep) where diff is set."""
+    return float((diff & keep).sum()) / max(int(keep.sum()), 1)
+
+
+def slice_share(diff, keep, axis):
+    """The largest share of differing elements among the counted ones of
+    one slice along axis (slices that count none left out)."""
+    other = tuple(a for a in range(diff.dim()) if a != axis)
+    n = keep.sum(dim=other).double()
+    d = (diff & keep).sum(dim=other).double()
+    return float((d[n > 0] / n[n > 0]).max()) if bool((n > 0).any()) else 0.0
+
+
+def mean_rel(out, ref, keep):
+    """Mean absolute error over ref's mean magnitude."""
+    ref = ref.double()[keep]
+    return float((out.double()[keep] - ref).abs().mean()
+                 / ref.abs().mean().clamp_min(1e-30))
+
+
+def elem(out, ref, keep):
+    """The largest |out - ref| over max(|ref|, mean |ref|), in ELEM_UNITs."""
+    ref = ref.double()[keep]
+    mag = ref.abs()
+    floor = mag.mean().clamp_min(1e-30)
+    return float(((out.double()[keep] - ref).abs()
+                  / torch.maximum(mag, floor)).max()) / ELEM_UNIT
+
+
+def reading(case, outs, ref):
+    """{output name: {reading: value}} against ref, by the output's dtype
+    in the kernel."""
+    r = {}
+    for n, o, t in zip(case.names, outs, ref):
+        keep = case.counted.get(n)
+        keep = (torch.ones(t.shape, dtype=torch.bool, device=t.device)
+                if keep is None else keep.bool().expand(t.shape))
+        if n in case.bf16:
+            diff = o.to(BF16) != t.to(BF16)
+            r[n] = {"share": share(diff, keep),
+                    "elem": elem(o.to(BF16), t, keep)}
+            if n in case.axes:
+                r[n]["slice_share"] = max(slice_share(diff, keep, a)
+                                          for a in case.axes[n])
+        else:
+            r[n] = {"mean_rel": mean_rel(o, t, keep), "elem": elem(o, t, keep)}
+    return r
+
+
+def read(case):
+    """The kernel's, control (a)'s and control (b)'s readings against the
+    twin, and the kernel's bits on two equal calls."""
+    ref = [t.detach() for t in case.twin()]
+    first = [t.clone() for t in case.kernel()]
+    again = case.kernel()
+    torch.cuda.synchronize()
+    out = {"kernel": reading(case, first, ref)}
+    for control in ("fp32", "autograd"):
+        out[control] = reading(case, getattr(case, control)(), ref)
+    out["equal_bits_twice"] = all(torch.equal(a, b)
+                                  for a, b in zip(first, again))
+    out["finite"] = all(bool(torch.isfinite(t.float()).all()) for t in first)
+    out["dtypes"] = [str(t.dtype).replace("torch.", "") for t in first]
+    return out
+
+
+def limit(case, name, metric):
+    if (name, metric) in case.limits:
+        return case.limits[name, metric]
+    if metric == "elem":
+        return ELEM_TOL
+    return {"share": SHARE_TOL, "slice_share": SLICE_TOL,
+            "mean_rel": MEAN_TOL}[metric]
+
+
+def limits(case):
+    """{output: {reading: limit}} of the case."""
+    return {n: {m: limit(case, n, m) for m in ("share", "slice_share", "elem")
+                if m != "slice_share" or n in case.axes}
+            if n in case.bf16 else
+            {m: limit(case, n, m) for m in ("mean_rel", "elem")}
+            for n in case.names}
+
+
+def worst(case, r):
+    """(the largest of the kernel's readings over its limit, output,
+    reading)."""
+    return max((v / limit(case, n, m), n, m)
+               for n, ms in r["kernel"].items() for m, v in ms.items())
+
+
+def verdict(case, r):
+    """(ok, reason): every kernel reading within its limit, both controls
+    beyond the share limit on the first output, equal bits twice, finite
+    outputs."""
+    bad = {(n, m): v for n, ms in r["kernel"].items() for m, v in ms.items()
+           if not v <= limit(case, n, m)}
+    if bad:
+        return False, "%s: %s beyond the limits %s" % (
+            case.name, bad, {k: limit(case, *k) for k in bad})
+    first = case.names[0]
+    for control in ("fp32", "autograd"):
+        got, lim = r[control][first]["share"], limit(case, first, "share")
+        if not got > lim:
+            return False, "%s: control %s reads %g on %s, within %g: the " \
+                "check does not tell it from the bf16 VJP" % (
+                    case.name, control, got, first, lim)
+    if not r["equal_bits_twice"]:
+        return False, "%s: two equal calls differ" % case.name
+    if not r["finite"]:
+        return False, "%s: not finite" % case.name
+    return True, ""
+
+
+# --- faults planted in a kernel's activation gradient, which verdict must
+# refuse (the card tests and tests/test_torch_bf16_vjp.py) ------------------
+
+
+def _last_frame_fp32(case, outs):
+    """The last frame of every row as control (a) computes it: a tile
+    edge that leaves out the bf16 rounding points."""
+    frame = case.axes[case.names[0]][0]
+    idx = [slice(None)] * outs[0].dim()
+    idx[frame] = -1
+    outs[0][tuple(idx)] = case.fp32()[0][tuple(idx)].to(outs[0].dtype)
+
+
+def _row(case, t):
+    """The index of case.short_row in t, the activation gradient."""
+    idx = [slice(None)] * t.dim()
+    idx[case.axes[case.names[0]][1]] = case.short_row
+    return tuple(idx)
+
+
+def _row_zero(case, outs):
+    """The short row skipped (its gradient left 0)."""
+    outs[0][_row(case, outs[0])] = 0
+
+
+def _row_scaled(case, outs):
+    """The short row 1/16 too large."""
+    outs[0][_row(case, outs[0])] *= 1.0625
+
+
+def _one_element(case, outs):
+    """The largest element of the short row 1/16 too large."""
+    idx = _row(case, outs[0])
+    flat = outs[0][idx].reshape(-1)
+    flat[flat.float().abs().argmax()] *= 1.0625
+    outs[0][idx] = flat.reshape(outs[0][idx].shape)
+
+
+FAULTS = {"last_frame_fp32": _last_frame_fp32, "row_zero": _row_zero,
+          "row_scaled": _row_scaled, "one_element": _one_element}
+
+
+def planted(case, fault):
+    """The case with FAULTS[fault] planted in a copy of its kernel's
+    outputs."""
+    def kernel():
+        outs = [t.clone() for t in case.kernel()]
+        FAULTS[fault](case, outs)
+        return outs
+
+    return case._replace(kernel=kernel)
+
+
+def _autograd(fn, inputs, n_grad, g):
+    """torch's autograd of fn at its inputs: the gradients of the first
+    n_grad w.r.t. the cotangent g."""
+    leaves = [a.detach().requires_grad_() if i < n_grad else a
+              for i, a in enumerate(inputs)]
+    return list(torch.autograd.grad(fn(*leaves), leaves[:n_grad], g))
+
+
+# --- the cases -----------------------------------------------------------------
+
+
+def lstm_case(dev, rng, T, B, H):
+    """#8 at bf16 on the residuals of #7 at bf16 (x_proj [T, B, 4H], k_h
+    [H, 4H] in bf16, ragged lengths, one row of length 1)."""
+    lens = np.concatenate([[T, 1], rng.integers(1, T + 1, B - 2)])[:B]
+    x_proj = _t(dev, rng.standard_normal((T, B, 4 * H))).to(BF16)
+    k_h = _t(dev, rng.standard_normal((H, 4 * H)) / math.sqrt(H)).to(BF16)
+    valid = _t(dev, np.arange(T)[:, None] < lens[None, :])
+    dy = _t(dev, rng.standard_normal((T, B, H)))
+    res = K.launch_lstm_fwd_res(x_proj, k_h, valid)[1:]
+    res32 = K.launch_lstm_fwd_res(x_proj.float(), k_h.float(), valid)[1:]
+    return Case(
+        "lstm_recurrence_bwd_bf16", ("dx_proj", "dk_h"), ("dx_proj", "dk_h"),
+        lambda: K.launch_lstm_bwd(dy, *res, valid, k_h),
+        K.lstm_recurrence_bwd_plain, (dy, *res, valid, k_h),
+        lambda: K.launch_lstm_bwd(dy, *res32, valid, k_h.float()),
+        lambda: _autograd(K.lstm_recurrence_plain, [x_proj, k_h, valid], 2,
+                          dy),
+        (T, B, 4 * H), LSTM_LIMITS, counted={"dx_proj": valid[..., None]},
+        axes={"dx_proj": (0, 1)}, short_row=1)
+
+
+def conv_inputs(dev, rng, B, T, D, L=4, KS=7):
+    """x [B, T, D] in bf16 and the layers' fp32 weights, with biases of +-1
+    and a pointwise product ten times smaller, so that every pre-ReLU lies
+    ~1 from the kink: one within ~1e-6 of it may take the other side in
+    sums of another order and move the gradients around it by ~0.1."""
+    return [_t(dev, rng.standard_normal((B, T, D))).to(BF16),
+            _t(dev, 1 + 0.1 * rng.standard_normal((L, D))),
+            _t(dev, 0.1 * rng.standard_normal((L, D))),
+            _t(dev, rng.standard_normal((L, KS, D)) / math.sqrt(KS)),
+            _t(dev, 0.1 * rng.standard_normal((L, D, D)) / math.sqrt(D)),
+            _t(dev, np.where(rng.random((L, D)) < 0.5, -1.0, 1.0))]
+
+
+CONV_NAMES = ("dx", "dgam", "dbeta", "ddw", "dwp", "dbp")
+
+
+def conv_case(dev, rng, B, T, D, rate, tiled=False):
+    """#9 at bf16, whole-row or T-tiled (on its forward's xs), drop rate
+    `rate` with per-row seeds."""
+    args = conv_inputs(dev, rng, B, T, D)
+    seeds = _t(dev, rng.integers(0, 1 << 23, (B, 1))) if rate else None
+    g = _t(dev, rng.standard_normal((B, T, D))).to(BF16)
+    args32 = [args[0].float()] + args[1:]
+    xs = {a[0].dtype: K.launch_conv_block_fwd_tiled(*a, seeds, rate)[1]
+          for a in (args, args32)} if tiled else None
+
+    def kernel(a, g_):
+        if tiled:
+            return K.launch_conv_block_bwd_tiled(a[0], xs[a[0].dtype], *a[1:],
+                                                 seeds, rate, g_)
+        return K.launch_conv_block_bwd(*a, seeds, rate, g_)
+
+    return Case(
+        "conv_block_bwd_tiled_bf16" if tiled else "conv_block_bwd_bf16",
+        CONV_NAMES, ("dx",), lambda: kernel(args, g),
+        K.conv_block_bwd_plain, (*args, seeds, rate, g),
+        lambda: kernel(args32, g.float()),
+        lambda: _autograd(lambda *a: K.conv_block_plain(*a, seeds, rate),
+                          args, 6, g),
+        (B, T, D), axes={"dx": (1, 0)}, short_row=B - 1)
+
+
+MHA_NAMES = ("dx", "dgam", "dbeta", "dwqkv", "dbqkv", "dwd", "dbd")
+
+
+def mha_case(dev, rng, B, T, D, heads, rate):
+    """#10 at bf16 on the bf16 forward's qkv and att (the twin on the same
+    ones: a flip in the forward's bf16 q, k or v, where its sums ran in
+    another order, would carry through every frame the attention mixes):
+    x [B, T, D] in bf16, ragged key masks with one row fully masked, drop
+    rate `rate`."""
+    lens = np.concatenate([rng.integers(1, T + 1, B - 1), [0]])
+    x = _t(dev, rng.standard_normal((B, T, D))).to(BF16)
+    mask = _t(dev, np.arange(T)[None, :] < lens[:, None])
+    gam, beta = (_t(dev, 1 + 0.1 * rng.standard_normal((2, D))),
+                 _t(dev, 0.1 * rng.standard_normal((2, D))))
+    wqkv = _t(dev, rng.standard_normal((D, 3 * D)) / math.sqrt(D))
+    bqkv = _t(dev, 0.1 * rng.standard_normal(3 * D))
+    wd = _t(dev, rng.standard_normal((D, D)) / math.sqrt(D))
+    bd = _t(dev, 0.1 * rng.standard_normal(D))
+    seeds = _t(dev, rng.integers(0, 1 << 23, (B, 1))) if rate else None
+    g = _t(dev, rng.standard_normal((B, T, D))).to(BF16)
+
+    saved = {x_.dtype: K.launch_mha_block_fwd(x_, mask, gam, beta, wqkv, bqkv,
+                                              wd, bd, heads, seeds, rate)[1:]
+             for x_ in (x, x.float())}
+
+    def kernel(x_, g_):
+        return K.launch_mha_block_bwd(x_, mask, gam, beta, wqkv, wd, heads,
+                                      seeds, rate, *saved[x_.dtype], g_)
+
+    def plain(x_, *w):
+        return K.mha_block_plain(x_, mask, *w, heads, seeds, rate)
+
+    return Case(
+        "mha_block_bwd_bf16", MHA_NAMES, ("dx",), lambda: kernel(x, g),
+        K.mha_block_bwd_plain,
+        (x, mask, gam, beta, wqkv, bqkv, wd, bd, heads, seeds, rate, g,
+         *saved[x.dtype]),
+        lambda: kernel(x.float(), g.float()),
+        lambda: _autograd(plain, [x, gam, beta, wqkv, bqkv, wd, bd], 7, g),
+        (B, T, D, heads), MHA_LIMITS, axes={"dx": (1, 0)}, short_row=B - 1)
+
+
+KINDS = ("lstm", "conv", "conv_tiled", "mha")
+
+
+def card_cases(dev, kind):
+    """The card tests' cases of one bf16 backward (KINDS), the main path's
+    shape first: T = 12 (the query stream), T = 30, head dim 8, a fully
+    masked row (every MHA case), drop 0 and 0.2."""
+    rng = np.random.default_rng(36)
+    if kind == "lstm":
+        return [lstm_case(dev, rng, T, B, H) for T, B, H in
+                [(128, 16, 128), (12, 4, 8), (30, 5, 100)]]
+    if kind in ("conv", "conv_tiled"):
+        return [conv_case(dev, rng, B, T, D, rate, kind == "conv_tiled")
+                for B, T, D in [(16, 128, 128), (16, 12, 128), (2, 13, 16),
+                                (4, 30, 128)] for rate in (0.0, 0.2)]
+    return [mha_case(dev, rng, B, T, D, heads, rate)
+            for B, T, D, heads in [(16, 128, 128, 8), (16, 12, 128, 8),
+                                   (3, 10, 16, 2), (4, 40, 128, 4),
+                                   (2, 64, 128, 2), (4, 30, 128, 8)]
+            for rate in (0.0, 0.2)]
+
+
+def main():
+    """One JSON line a case of card_cases: its readings, verdict and, for
+    the main path's shape, each planted fault's verdict and reading."""
+    from vslnet_torch.bench.common import card
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(json.dumps({"card": card()}), flush=True)
+    for kind in KINDS:
+        for i, case in enumerate(card_cases(dev, kind)):
+            r = read(case)
+            row = {"kind": kind, "shape": list(case.shape),
+                   "verdict": verdict(case, r), "limits": limits(case), **r}
+            if i == 0:
+                row["faults"] = {}
+                for fault in FAULTS:
+                    if kind == "lstm" and fault == "last_frame_fp32":
+                        continue  # control (a)'s last frame is the twin's
+                    bad = planted(case, fault)
+                    rb = read(bad)
+                    row["faults"][fault] = {
+                        "verdict": verdict(bad, rb),
+                        "reading": rb["kernel"][case.names[0]]}
+            print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -416,7 +416,7 @@ def instrumented(src):
     cluster kernel and a helper that reports how many clusters fit, the
     conv_block.cu line of each stamp's barrier)."""
     lines = src.split("\n")
-    head = "conv_block_bwd_cluster_kernel(const float* __restrict__ x"
+    head = "conv_block_bwd_cluster_kernel(const XT* __restrict__ x"
     first = next(i for i, s in enumerate(lines) if s.startswith(head))
     last = lines.index("}", first)
     stamp = (" { if (threadIdx.x == 0 && blockIdx.x == 0) { long long now = "
@@ -440,7 +440,7 @@ extern "C" int prof_read(unsigned long long* h) {
 }
 extern "C" int prof_clusters(int N, int smem, int fwd_frames) {
   // the backward's kernel, or the forward's for fwd_frames frames a CTA
-  const void* fn = fwd_frames == 0 ? (const void*)conv_block_bwd_cluster_kernel
+  const void* fn = fwd_frames == 0 ? (const void*)conv_block_bwd_cluster_kernel<float>
                    : fwd_frames <= 16 ? (const void*)conv_block_fwd_cluster_kernel<2>
                                       : (const void*)conv_block_fwd_cluster_kernel<3>;
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

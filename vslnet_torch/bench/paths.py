@@ -76,11 +76,12 @@ def build_localizer(cfg, dataset, splits, seed):
 
 
 def train_config(dataset, use_pallas, seed, predictor="rnn", max_pos_len=128,
-                 batch_size=16):
+                 batch_size=16, precision="fp32"):
     """The reference's default run (main.py flags): rnn predictor, hidden
     128, 8 heads, T 128, batch 16, drop_rate 0.2, bert_adamw at lr 1e-4
     with linear decay over 100 epochs, clip 1.0, l2 3e-7, lambda 5; the
-    longer paths change the predictor, T and the batch."""
+    longer paths change the predictor, T and the batch, the bf16 phase the
+    precision."""
     from vslnet_torch.config import Config
 
     return Config(task="charades", predictor=predictor, hidden_size=128,
@@ -90,7 +91,7 @@ def train_config(dataset, use_pallas, seed, predictor="rnn", max_pos_len=128,
                   optimizer="bert_adamw", init_lr=1e-4, lr_schedule="linear",
                   clip_norm=1.0, l2_decay=3e-7, highlight_lambda=5.0,
                   epochs=100, char_size=dataset["n_chars"],
-                  use_pallas=use_pallas, seed=seed)
+                  use_pallas=use_pallas, seed=seed, precision=precision)
 
 
 def htod_copies(prof):

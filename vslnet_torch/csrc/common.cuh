@@ -136,24 +136,25 @@ inline __device__ void layer_norm_rows(const Src* src, float* dst, const float* 
   }
 }
 
-// The LayerNorm statistics of src [T, D] (shared or global): xh [T, D] =
-// (x - mean) * inv and inv [T], as the JAX package's _ln_fwd. xh may alias
-// src. One warp per row.
-inline __device__ void ln_normalize_rows(const float* src, float* xh, float* inv, int T, int D) {
+// The LayerNorm statistics of src [T, D] (shared or global; fp32 or bf16):
+// xh [T, D] = (x - mean) * inv and inv [T], as the JAX package's _ln_fwd.
+// xh may alias src. One warp per row.
+template <typename Src = float>
+inline __device__ void ln_normalize_rows(const Src* src, float* xh, float* inv, int T, int D) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   for (int t = warp; t < T; t += nwarps) {
-    const float* row = src + (size_t)t * D;
+    const Src* row = src + (size_t)t * D;
     float s = 0.f;
-    for (int c = lane; c < D; c += 32) s += row[c];
+    for (int c = lane; c < D; c += 32) s += to_float(row[c]);
     const float mean = warp_sum(s) / D;
     float v = 0.f;
     for (int c = lane; c < D; c += 32) {
-      const float d = row[c] - mean;
+      const float d = to_float(row[c]) - mean;
       v += d * d;
     }
     const float r = rsqrtf(warp_sum(v) / D + kLnEps);
-    for (int c = lane; c < D; c += 32) xh[(size_t)t * D + c] = (row[c] - mean) * r;
+    for (int c = lane; c < D; c += 32) xh[(size_t)t * D + c] = (to_float(row[c]) - mean) * r;
     if (lane == 0) inv[t] = r;
   }
 }
@@ -303,22 +304,25 @@ __device__ __forceinline__ void cp_async_wait() {
 // revisited output blocks; here the K rows are cut into S contiguous
 // chunks, one block per (64 x 64 tile, z, chunk) writes its partial to
 // P[z][s] [M, N], and sum_partials_kernel adds the S partials in a fixed
-// order. No atomics: two equal calls give equal bits.
+// order. No atomics: two equal calls give equal bits. B may be stored in
+// bf16; with kRound both operands are rounded to bf16 as they are loaded
+// (the bf16 kernels' "bf16 inputs, fp32 accumulation").
 
 namespace {  // internal linkage: every .cu that includes this gets its own
 
 constexpr int kWgTile = 64;
 constexpr int kWgDepth = 16;
 
+template <bool kRound, typename TB>
 __global__ void __launch_bounds__(256)
-wgrad_partial_kernel(const float* __restrict__ A, const float* __restrict__ B,
+wgrad_partial_kernel(const float* __restrict__ A, const TB* __restrict__ B,
                      float* __restrict__ P, int M, int N, int K, int S, int chunk) {
   __shared__ __align__(16) float As[kWgDepth][kWgTile];
   __shared__ __align__(16) float Bs[kWgDepth][kWgTile];
   const int z = blockIdx.z / S, s = blockIdx.z - z * S;
   const int m0 = blockIdx.y * kWgTile, n0 = blockIdx.x * kWgTile;
   const float* Az = A + (size_t)z * K * M;
-  const float* Bz = B + (size_t)z * K * N;
+  const TB* Bz = B + (size_t)z * K * N;
   const int k_begin = s * chunk, k_end = min(K, k_begin + chunk);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   float acc[4][4];
@@ -330,13 +334,14 @@ wgrad_partial_kernel(const float* __restrict__ A, const float* __restrict__ B,
   // multiplies the current one
   constexpr int kLoads = kWgDepth * kWgTile / 256;
   float ra[kLoads], rb[kLoads];
+  const auto in = [](float v) { return kRound ? bf16_round(v) : v; };
   auto fetch = [&](int k0) {
 #pragma unroll
     for (int q = 0; q < kLoads; ++q) {
       const int i = threadIdx.x + q * 256, kk = i / kWgTile, c = i - kk * kWgTile;
       const int k = k0 + kk;
-      ra[q] = (k < k_end && m0 + c < M) ? Az[(size_t)k * M + m0 + c] : 0.f;
-      rb[q] = (k < k_end && n0 + c < N) ? Bz[(size_t)k * N + n0 + c] : 0.f;
+      ra[q] = (k < k_end && m0 + c < M) ? in(Az[(size_t)k * M + m0 + c]) : 0.f;
+      rb[q] = (k < k_end && n0 + c < N) ? in(to_float(Bz[(size_t)k * N + n0 + c])) : 0.f;
     }
   };
   fetch(k_begin);
@@ -406,15 +411,30 @@ cudaError_t sum_partials(const float* P, float* C, int Z, int S, int n,
 
 // C = A^T . B as above, with S chunks of K and the partials in P [Z, S, M,
 // N] (unused when S == 1: the single partial is C itself).
-cudaError_t wgrad(const float* A, const float* B, float* C, float* P, int Z, int M, int N,
-                         int K, int S, cudaStream_t stream) {
+template <bool kRound = false, typename TB = float>
+cudaError_t wgrad(const float* A, const TB* B, float* C, float* P, int Z, int M, int N, int K,
+                  int S, cudaStream_t stream) {
   if (S < 1) return cudaErrorInvalidValue;
   const int chunk = ((K + S - 1) / S + kWgDepth - 1) / kWgDepth * kWgDepth;
   dim3 grid((N + kWgTile - 1) / kWgTile, (M + kWgTile - 1) / kWgTile, Z * S);
-  wgrad_partial_kernel<<<grid, 256, 0, stream>>>(A, B, S == 1 ? C : P, M, N, K, S, chunk);
+  wgrad_partial_kernel<kRound, TB><<<grid, 256, 0, stream>>>(A, B, S == 1 ? C : P, M, N, K, S,
+                                                            chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return err;
   return sum_partials(P, C, Z, S, M * N, stream);
+}
+
+__global__ void narrow_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst,
+                                   int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) dst[i] = __float2bfloat16(src[i]);
+}
+
+// dst[0, n) = src rounded to bf16: a float32 sum's last rounding, as the
+// JAX package's `astype` of a float32 output.
+cudaError_t narrow_bf16(const float* src, __nv_bfloat16* dst, int n, cudaStream_t stream) {
+  narrow_bf16_kernel<<<(n + 255) / 256, 256, 0, stream>>>(src, dst, n);
+  return cudaGetLastError();
 }
 
 // --- launches of thread-block clusters ---------------------------------------

@@ -76,6 +76,22 @@
 // output narrowed as it is stored. The tiled forward's inter-layer stream
 // xs stays fp32, as the TPU kernel's stream does; only the first layer
 // reads bf16 and only the last writes it. Bound as the fp32 forwards are.
+//
+// bf16 backwards (vsl_conv_block_bwd_bf16, vsl_conv_block_bwd_tiled_bf16):
+// the TPU backward at bf16 (pallas_kernels.py:1039-1114, the custom VJP at
+// 1320-1339) takes x and g in bf16 and keeps the running gradient G fp32
+// between the layers. Its replay is the bf16 forward's; then per layer g_p
+// = [p > 0] drop(G) is fp32 and dbp sums it UNROUNDED, while dwp = sum
+// bf16(d)^T . bf16(g_p) and g_d = bf16(g_p) . bf16(wp)^T take it rounded;
+// g_n, ddw, the LayerNorm backward and G stay fp32, and ddw pairs g_d with
+// the UNROUNDED n (the forward's depthwise read bf16(n)); dx = bf16(G)
+// once, after layer 0. The same backwards, templated: the n windows keep
+// the unrounded n and the depthwise replay rounds each value as it reads
+// it (kRoundIn), dbp is summed before g_p is rounded in place, wp and wp^T
+// are rounded in shared memory once they have landed, d and g_p reach the
+// dwp workspaces rounded (so the split-K product takes them as they are).
+// The tiled backward passes G between its launches in two fp32 buffers, so
+// that only layer 0 writes the bf16 dx. Bound as the fp32 backwards are.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -176,16 +192,20 @@ __device__ void fill_halo(cg::cluster_group& cluster, float* buf, int lo, int c0
 // out[t][c] = sum_j win[t + j][c] * taps[j][c] for the nf own frames: the
 // depthwise product over a window (taps in order, as the plain version
 // adds them) or its transpose (taps reversed).
-// kRound: each output rounded to bf16 as it is stored.
-template <bool kReversed, bool kRound = false>
+// kRound: each output rounded to bf16 as it is stored; kRoundIn: each
+// window value rounded to bf16 as it is read (the bf16 backward's replay,
+// whose window holds the unrounded n that its ddw needs).
+template <bool kReversed, bool kRound = false, bool kRoundIn = false>
 __device__ void window_taps(const float* win, const float* taps, int nf, int D, int K, float* out) {
   for (int i = threadIdx.x; i < nf * D; i += blockDim.x) {
     const int t = i / D, c = i - t * D;
     float acc = 0.f;
 #pragma unroll 7
-    for (int j = 0; j < K; ++j)
-      acc = fmaf(win[(size_t)(t + j) * D + c], taps[(size_t)(kReversed ? K - 1 - j : j) * D + c],
-                 acc);
+    for (int j = 0; j < K; ++j) {
+      const float w = win[(size_t)(t + j) * D + c];
+      acc = fmaf(kRoundIn ? vsl::bf16_round(w) : w,
+                 taps[(size_t)(kReversed ? K - 1 - j : j) * D + c], acc);
+    }
     out[i] = kRound ? vsl::bf16_round(acc) : acc;
   }
 }
@@ -250,12 +270,18 @@ conv_block_fwd_cluster_kernel(const XT* __restrict__ x, ConvParams p, vsl::Dropo
 }
 
 // Per-CTA partials part [B * N, L, 3 + K, D]: dgam, dbeta, dbp, then ddw [K, D].
+// XT: the storage type of x, g and dx (float, or __nv_bfloat16 for the bf16
+// backward: the replay rounds as the bf16 forward does, from the unrounded
+// n; g_p and wp^T are rounded for g_d, after dbp; d and g_p go to the
+// workspaces rounded, dwp's operands; dx is rounded once, at the end).
+template <typename XT = float>
 __global__ void __launch_bounds__(kThreads)
-conv_block_bwd_cluster_kernel(const float* __restrict__ x, ConvParams p,
+conv_block_bwd_cluster_kernel(const XT* __restrict__ x, ConvParams p,
                               const float* __restrict__ wpT, vsl::Dropout drop,
-                              const float* __restrict__ g, float* __restrict__ dx,
+                              const XT* __restrict__ g, XT* __restrict__ dx,
                               float* __restrict__ d_ws, float* __restrict__ gp_ws,
                               float* __restrict__ part, int F) {
+  constexpr bool kBf16 = !std::is_same<XT, float>::value;
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int T = p.T, D = p.D, K = p.K, L = p.L, pad = (K - 1) / 2, gl = K - 1 - pad;
@@ -283,7 +309,7 @@ conv_block_bwd_cluster_kernel(const float* __restrict__ x, ConvParams p,
 
   // 1. forward replay: each layer's input, n_l window and masks stay in
   // place; d = depthwise(n_l) goes to d_ws for dwp
-  for (int i = tid; i < nel; i += nt) X[i] = x[own + i];
+  for (int i = tid; i < nel; i += nt) X[i] = vsl::to_float(x[own + i]);
   for (int l = 0; l < L; ++l) {
     float* Xl = X + l * FD;
     float* NWl = NW + l * HD;
@@ -297,10 +323,15 @@ conv_block_bwd_cluster_kernel(const float* __restrict__ x, ConvParams p,
     fill_halo(cluster, NWl, pad, c0, nf, F, T, D, K);
     vsl::cp_async_wait<1>();
     __syncthreads();
-    window_taps<false>(NWl, DW, nf, D, K, P);  // P[t] = sum_j n(t + j - pad) dw[j]
+    // P[t] = sum_j n(t + j - pad) dw[j]; bf16: sum_j bf16(n) dw[j], rounded
+    window_taps<false, kBf16, kBf16>(NWl, DW, nf, D, K, P);
     for (int i = tid; i < nel; i += nt) d_ws[l * layer + own + i] = P[i];  // own writes: no barrier
     vsl::cp_async_wait<0>();
     __syncthreads();
+    if (kBf16) {  // wp rounded in place for the product
+      vsl::round_bf16(W, D * D);
+      __syncthreads();
+    }
     const float* bpl = p.bp + (size_t)l * D;
     const uint32_t salt = vsl::site_salt(0x100u + l);
     const bool next = l + 1 < L;
@@ -321,7 +352,7 @@ conv_block_bwd_cluster_kernel(const float* __restrict__ x, ConvParams p,
   }
 
   // 2. backward, layer by layer
-  for (int i = tid; i < nel; i += nt) G[i] = g[own + i];
+  for (int i = tid; i < nel; i += nt) G[i] = vsl::to_float(g[own + i]);
   for (int l = L - 1; l >= 0; --l) {
     const float* Xl = X + l * FD;
     const float* NWl = NW + l * HD;
@@ -340,14 +371,20 @@ conv_block_bwd_cluster_kernel(const float* __restrict__ x, ConvParams p,
       const uint32_t m = Ml[t * D4 + (c >> 2)] >> (c & 3);
       const float gp = (m & 17u) == 17u ? drop.kept(G[i]) : 0.f;
       P[i] = gp;
-      gp_ws[l * layer + own + i] = gp;
+      gp_ws[l * layer + own + i] = kBf16 ? vsl::bf16_round(gp) : gp;
     }
     vsl::cp_async_wait<0>();
     __syncthreads();
-    for (int c = tid; c < D; c += nt) {  // dbp
+    for (int c = tid; c < D; c += nt) {  // dbp, of the unrounded g_p
       float s = 0.f;
       for (int t = 0; t < nf; ++t) s += P[(size_t)t * D + c];
       pr[2 * D + c] = s;
+    }
+    if (kBf16) {  // g_p and wp^T rounded in place for g_d
+      __syncthreads();
+      vsl::round_bf16(P, nel);
+      vsl::round_bf16(W, D * D);
+      __syncthreads();
     }
     // g_d = g_p . wp^T
     vsl::smem_gemm<kGemmRows, kGemmUnroll>(P, D, nf, D, W, D, D, [&](int t, int o, float4 acc) {
@@ -397,7 +434,7 @@ conv_block_bwd_cluster_kernel(const float* __restrict__ x, ConvParams p,
     }
   }
   __syncthreads();
-  for (int i = tid; i < nel; i += nt) dx[own + i] = G[i];
+  for (int i = tid; i < nel; i += nt) dx[own + i] = vsl::from_float<XT>(G[i]);
   cluster.sync();  // no CTA leaves while a neighbour may read its windows
 }
 
@@ -476,9 +513,11 @@ constexpr int kTiledUnroll = 4;
 // the depthwise output is the forward's bit for bit. A thread takes a
 // column and a run of rows, its taps and the last K rows of its column in
 // registers: one shared load an output where the loop of taps has 2 K.
-// kRound: each output rounded to bf16 as it is stored.
-template <int K, bool kRev, bool kRound = false>
+// kRound: each output rounded to bf16 as it is stored; kRoundIn: each
+// window value rounded to bf16 as it is read.
+template <int K, bool kRev, bool kRound = false, bool kRoundIn = false>
 __device__ void taps_sliding(const float* win, const float* taps, int rows, int D, float* out) {
+  const auto in = [](float v) { return kRoundIn ? vsl::bf16_round(v) : v; };
   const int parts = max(1, static_cast<int>(blockDim.x) / D);  // threads a column
   const int per = (rows + parts - 1) / parts;
   for (int i = threadIdx.x; i < D * parts; i += blockDim.x) {
@@ -487,9 +526,9 @@ __device__ void taps_sliding(const float* win, const float* taps, int rows, int 
 #pragma unroll
     for (int j = 0; j < K; ++j) w[j] = taps[j * D + c];
 #pragma unroll
-    for (int j = 0; j + 1 < K; ++j) n[j] = e0 + j < rows + K - 1 ? win[(e0 + j) * D + c] : 0.f;
+    for (int j = 0; j + 1 < K; ++j) n[j] = e0 + j < rows + K - 1 ? in(win[(e0 + j) * D + c]) : 0.f;
     for (int e = e0; e < e1; ++e) {
-      n[K - 1] = win[(e + K - 1) * D + c];
+      n[K - 1] = in(win[(e + K - 1) * D + c]);
       float acc = 0.f;
 #pragma unroll
       for (int j = 0; j < K; ++j) acc = fmaf(kRev ? n[K - 1 - j] : n[j], w[j], acc);
@@ -504,17 +543,20 @@ __device__ void taps_sliding(const float* win, const float* taps, int rows, int 
 // (kRev: win[e + K - 1 - j][c]), each one fmaf chain over j in order: the
 // register window of taps_sliding at the model's K = 7, a loop of taps at
 // any other K.
-template <bool kRev, bool kRound = false>
+template <bool kRev, bool kRound = false, bool kRoundIn = false>
 __device__ void taps_rows(const float* win, const float* taps, int rows, int D, int K, float* out) {
   if (K == 7) {
-    taps_sliding<7, kRev, kRound>(win, taps, rows, D, out);
+    taps_sliding<7, kRev, kRound, kRoundIn>(win, taps, rows, D, out);
     return;
   }
   for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
     const float* n = win + i;  // row e + j of column c is n[j * D]
     const float* w = taps + i % D;
     float acc = 0.f;
-    for (int j = 0; j < K; ++j) acc = fmaf(n[(kRev ? K - 1 - j : j) * D], w[j * D], acc);
+    for (int j = 0; j < K; ++j) {
+      const float v = n[(kRev ? K - 1 - j : j) * D];
+      acc = fmaf(kRoundIn ? vsl::bf16_round(v) : v, w[j * D], acc);
+    }
     out[i] = kRound ? vsl::bf16_round(acc) : acc;
   }
 }
@@ -769,14 +811,20 @@ conv_layer_fwd_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l, vs
 // One layer of the tiled backward for the tile [t0, t0 + F) of row b:
 // G_in -> G_out, d and g_p of the own frames into d_l and gp_l, per-(row,
 // tile) partials part [B * tiles, L, 3 + K, D] (dgam, dbeta, dbp, ddw [K,
-// D]) as the whole-row backward's per-CTA ones.
-template <int R>
+// D]) as the whole-row backward's per-CTA ones. kBf16: the bf16 backward's
+// roundings (the whole-row kernel's: d from bf16(n), rounded; wp, and g_p
+// after dbp, rounded for the products; d and g_p stored rounded); XIn, GIn,
+// GOut: the storage types of the layer's input, G_in and G_out (bf16 for x,
+// g and dx, fp32 for xs and the stream between the layers).
+template <int R, bool kBf16 = false, typename XIn = float, typename GIn = float,
+          typename GOut = float>
 __global__ void __launch_bounds__(kTiledThreads, 1)
-conv_layer_bwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l,
+conv_layer_bwd_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l,
                             const float* __restrict__ wpT, vsl::Dropout drop,
-                            const float* __restrict__ Gin, float* __restrict__ Gout,
+                            const GIn* __restrict__ Gin, GOut* __restrict__ Gout,
                             float* __restrict__ d_l, float* __restrict__ gp_l,
                             float* __restrict__ part, int F, int SK) {
+  constexpr bool kFloatG = std::is_same<GIn, float>::value;
   extern __shared__ float4 smem4[];
   const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2, gl = K - 1 - pad;
   const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0);
@@ -802,12 +850,19 @@ conv_layer_bwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l,
   // behind the LayerNorms, which run out of shared memory
   const int h0 = t0 - (K - 1), lo = max(h0, 0), hi = min(t0 + nf + K - 1, T);
   vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
-  for (int i = tid; i < (nf + 2 * (K - 1)) * D / 4; i += nt) {
-    const int t = h0 + 4 * i / D;
-    if (t >= lo && t < hi)
-      vsl::cp_async_float4(N + 4 * i, xin + row + (size_t)h0 * D + 4 * i);
-    else
-      reinterpret_cast<float4*>(N)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (std::is_same<XIn, float>::value) {
+    for (int i = tid; i < (nf + 2 * (K - 1)) * D / 4; i += nt) {
+      const int t = h0 + 4 * i / D;
+      if (t >= lo && t < hi)
+        vsl::cp_async_float4(N + 4 * i, xin + row + (size_t)h0 * D + 4 * i);
+      else
+        reinterpret_cast<float4*>(N)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {  // bf16 x, widened by plain loads
+    for (int i = tid; i < (nf + 2 * (K - 1)) * D; i += nt) {
+      const int t = h0 + i / D;
+      N[i] = t >= lo && t < hi ? vsl::to_float(xin[row + (size_t)h0 * D + i]) : 0.f;
+    }
   }
   vsl::cp_async_commit();
   vsl::cp_async_floats(W, p.wp + (size_t)l * D * D, SK * D);
@@ -817,14 +872,22 @@ conv_layer_bwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l,
   ln_window_rows(N, lo - h0, hi - lo, K - 1, nf, gam, p.beta + (size_t)l * D, XH, inv, D);
   __syncthreads();
   // 2. d over E, in the forward's order of taps: A[e] = sum_j N[e + j] dw[j]
-  taps_rows<false>(N, DW, ne, D, K, A);
+  // (bf16: of bf16(N), rounded; N keeps the unrounded n for ddw)
+  taps_rows<false, kBf16, kBf16>(N, DW, ne, D, K, A);
   // (sliced_product's first barrier orders A's writes before its reads)
   // p = d . wp + bp, and g_p = [p > 0] * drop(G_in) into P, 0 outside [0, T)
-  sliced_product<R>(A, ne, D, p.wp + (size_t)l * D * D, W, SK, P, [&](int e, int o, float4 acc) {
+  sliced_product<R, kBf16>(A, ne, D, p.wp + (size_t)l * D * D, W, SK, P, [&](int e, int o,
+                                                                            float4 acc) {
     const int t = e0 + e;
     const bool in = t >= 0 && t < T;
     // one float4 load of G_in and of bp, whatever the masks say
-    const float4 g4 = *reinterpret_cast<const float4*>(Gin + row + (size_t)(in ? t : 0) * D + o);
+    float4 g4;
+    const size_t go = row + (size_t)(in ? t : 0) * D + o;
+    if constexpr (kFloatG)
+      g4 = *reinterpret_cast<const float4*>(Gin + go);
+    else
+      g4 = make_float4(vsl::to_float(Gin[go]), vsl::to_float(Gin[go + 1]),
+                       vsl::to_float(Gin[go + 2]), vsl::to_float(Gin[go + 3]));
     const float4 b4 = __ldg(reinterpret_cast<const float4*>(bpl + o));
     const float a[4] = {acc.x, acc.y, acc.z, acc.w}, gi[4] = {g4.x, g4.y, g4.z, g4.w};
     const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
@@ -834,8 +897,11 @@ conv_layer_bwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l,
       gp[q] = in && a[q] + bb[q] > 0.f ? drop.apply(gi[q], seed, salt, t, o + q) : 0.f;
     const float4 gp4 = make_float4(gp[0], gp[1], gp[2], gp[3]);
     *reinterpret_cast<float4*>(P + (size_t)e * D + o) = gp4;
-    if (e >= gl && e < gl + nf)
-      *reinterpret_cast<float4*>(gp_l + row + (size_t)t * D + o) = gp4;
+    if (e >= gl && e < gl + nf)  // dwp's operand: bf16(g_p) at bf16
+      *reinterpret_cast<float4*>(gp_l + row + (size_t)t * D + o) =
+          kBf16 ? make_float4(vsl::bf16_round(gp[0]), vsl::bf16_round(gp[1]),
+                              vsl::bf16_round(gp[2]), vsl::bf16_round(gp[3]))
+                : gp4;
   });
   // 3. wp^T's first slice lands behind dbp and d's own rows to d_l
   vsl::cp_async_floats(W, wpT + (size_t)l * D * D, SK * D);
@@ -843,17 +909,23 @@ conv_layer_bwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l,
   for (int c = tid; c < D; c += nt) {
     float s = 0.f;
     for (int t = 0; t < nf; ++t) s += P[(size_t)(gl + t) * D + c];
-    pr[2 * D + c] = s;  // dbp
+    pr[2 * D + c] = s;  // dbp, of the unrounded g_p
+  }
+  if (kBf16) {  // g_p rounded in place for g_d (sliced_product's barrier orders it)
+    __syncthreads();
+    vsl::round_bf16(P, ne * D);
   }
   // g_d = g_p . wp^T into A (0 outside [0, T), where g_p is)
-  sliced_product<R>(P, ne, D, wpT + (size_t)l * D * D, W, SK, A, [&](int e, int o, float4 acc) {
+  sliced_product<R, kBf16>(P, ne, D, wpT + (size_t)l * D * D, W, SK, A, [&](int e, int o,
+                                                                           float4 acc) {
     *reinterpret_cast<float4*>(A + (size_t)e * D + o) = acc;
   });
-  // 4. G_in's own rows into the free weight buffer where they fit, landing
-  // behind g_n and ddw; g_n(t0 + r) = sum_j g_d(t0 + r + pad - j) dw[j]
-  // into P's first rows
-  const bool staged = (size_t)nf * D <= lay.W;
-  if (staged) vsl::cp_async_floats(W, Gin + row + (size_t)t0 * D, nf * D);
+  // 4. G_in's own rows into the free weight buffer where they fit (fp32
+  // G_in), landing behind g_n and ddw; g_n(t0 + r) = sum_j g_d(t0 + r + pad
+  // - j) dw[j] into P's first rows
+  const bool staged = kFloatG && (size_t)nf * D <= lay.W;
+  if constexpr (kFloatG)
+    if (staged) vsl::cp_async_floats(W, Gin + row + (size_t)t0 * D, nf * D);
   taps_rows<true>(A, DW, nf, D, K, P);
   __syncthreads();
   // ddw[j, c] = sum over the own frames of n(t + j - pad, c) * g_d(t, c)
@@ -871,7 +943,8 @@ conv_layer_bwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l,
   }
   vsl::ln_backward_rows(P, XH, inv, gam, nf, D, pr, pr + D, [&](int r, int c, float v) {
     const size_t i = (size_t)r * D + c;
-    Gout[row + (size_t)t0 * D + i] = (staged ? W[i] : Gin[row + (size_t)t0 * D + i]) + v;
+    Gout[row + (size_t)t0 * D + i] =
+        vsl::from_float<GOut>((staged ? W[i] : vsl::to_float(Gin[row + (size_t)t0 * D + i])) + v);
   });
 }
 
@@ -925,6 +998,29 @@ extern "C" int vsl_conv_block_fwd_bf16(const void* x, const float* gam, const fl
   return static_cast<int>(err);
 }
 
+namespace {
+
+// The whole-row backward's launch, the partials' sum and dwp.
+template <typename XT>
+cudaError_t block_backward(const XT* x, const ConvParams& p, const float* wpT,
+                           const vsl::Dropout& drop, const XT* g, XT* dx, float* dsmall,
+                           float* dwp, float* d_ws, float* gp_ws, float* part, float* gemm_ws,
+                           int splits, int B, int N, int F, cudaStream_t stream) {
+  const int T = p.T, D = p.D, L = p.L, K = p.K;
+  const size_t smem = BwdLayout(F, D, L, K).floats(D, L, K) * sizeof(float);
+  cudaError_t err = vsl::launch_cluster(conv_block_bwd_cluster_kernel<XT>, B * N, N, kThreads,
+                                        smem, stream, x, p, wpT, drop, g, dx, d_ws, gp_ws, part,
+                                        F);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = vsl::sum_partials(part, dsmall, 1, B * N, L * (3 + K) * D, stream);
+  if (err != cudaSuccess) return err;
+  // dwp[l] = d_l^T . g_p,l over the B*T rows of layer l
+  return vsl::wgrad(d_ws, gp_ws, dwp, gemm_ws, L, D, D, B * T, splits, stream);
+}
+
+}  // namespace
+
 // The backward on conv_plan's N CTAs a row, F frames a CTA (N = ceil(T /
 // F) <= 8). dsmall [L, 3 + K, D]: dgam, dbeta, dbp, ddw; dwp [L, D, D].
 // Workspaces: d_ws, gp_ws [L, B, T, D]; part [B * N, L, 3 + K, D];
@@ -940,17 +1036,29 @@ extern "C" int vsl_conv_block_bwd(const float* x, const float* gam, const float*
   if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || N < 1 || N > 8 ||
       N != (T + F - 1) / F)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = BwdLayout(F, D, L, K).floats(D, L, K) * sizeof(float);
-  cudaError_t err = vsl::launch_cluster(
-      conv_block_bwd_cluster_kernel, B * N, N, kThreads, smem, stream, x,
-      make_params(gam, beta, dw, wp, bp, T, D, L, K), wpT, vsl::Dropout{seeds, thresh, scale}, g,
-      dx, d_ws, gp_ws, part, F);
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = vsl::sum_partials(part, dsmall, 1, B * N, L * (3 + K) * D, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // dwp[l] = d_l^T . g_p,l over the B*T rows of layer l
-  return static_cast<int>(vsl::wgrad(d_ws, gp_ws, dwp, gemm_ws, L, D, D, B * T, splits, stream));
+  return static_cast<int>(block_backward(x, make_params(gam, beta, dw, wp, bp, T, D, L, K), wpT,
+                                         vsl::Dropout{seeds, thresh, scale}, g, dx, dsmall, dwp,
+                                         d_ws, gp_ws, part, gemm_ws, splits, B, N, F, stream));
+}
+
+// The bf16 backward on the same plan (#9 at bf16): x, g and dx [B, T, D] in
+// bf16, the weights and their gradients fp32.
+extern "C" int vsl_conv_block_bwd_bf16(const void* x, const float* gam, const float* beta,
+                                       const float* dw, const float* wp, const float* wpT,
+                                       const float* bp, const float* seeds, unsigned thresh,
+                                       float scale, const void* g, void* dx, float* dsmall,
+                                       float* dwp, float* d_ws, float* gp_ws, float* part,
+                                       float* gemm_ws, int splits, int B, int T, int D, int L,
+                                       int K, int N, int F, void* stream_) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || N < 1 || N > 8 ||
+      N != (T + F - 1) / F)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(block_backward(
+      static_cast<const bf16*>(x), make_params(gam, beta, dw, wp, bp, T, D, L, K), wpT,
+      vsl::Dropout{seeds, thresh, scale}, static_cast<const bf16*>(g), static_cast<bf16*>(dx),
+      dsmall, dwp, d_ws, gp_ws, part, gemm_ws, splits, B, N, F, stream));
 }
 
 // The T-tiled forward on conv_tiled_fwd_plan's tiles of F frames, weight
@@ -1073,6 +1181,92 @@ extern "C" int vsl_conv_block_bwd_tiled(const float* x, const float* xs, const f
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  err = vsl::sum_partials(part, dsmall, 1, B * tiles(T, F), L * (3 + K) * D, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(vsl::wgrad(d_ws, gp_ws, dwp, gemm_ws, L, D, D, B * T, splits, stream));
+}
+
+namespace {
+
+// One layer of the bf16 tiled backward, its kernel picked by the storage
+// types of its input, G_in and G_out.
+template <int R, typename XIn, typename GIn, typename GOut>
+cudaError_t tiled_bf16_bwd_layer(const XIn* in, const ConvParams& p, int l, const float* wpT,
+                                 const vsl::Dropout& drop, const GIn* Gin, GOut* Gout,
+                                 float* d_l, float* gp_l, float* part, int B, int F, int SK,
+                                 size_t smem, cudaStream_t stream) {
+  auto kernel = conv_layer_bwd_tiled_kernel<R, true, XIn, GIn, GOut>;
+  const cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(tiles(p.T, F), B), kTiledThreads, smem, stream>>>(in, p, l, wpT, drop, Gin, Gout,
+                                                                  d_l, gp_l, part, F, SK);
+  return cudaGetLastError();
+}
+
+// The layers in reverse: layer L - 1 reads the bf16 g, layer 0 reads the bf16
+// x and writes the bf16 dx; the stream between them runs through the fp32
+// buffers g_ws[0] and g_ws[1] in turns (layer l writes g_ws[l & 1]).
+template <int R>
+cudaError_t tiled_bf16_backward(const __nv_bfloat16* x, const float* xs, const ConvParams& p,
+                                const float* wpT, const vsl::Dropout& drop,
+                                const __nv_bfloat16* g, __nv_bfloat16* dx, float* d_ws,
+                                float* gp_ws, float* g_ws, float* part, int B, int F, int SK,
+                                size_t smem, cudaStream_t stream) {
+  const size_t layer = (size_t)B * p.T * p.D;
+  const int L = p.L;
+  cudaError_t err = cudaSuccess;
+  for (int l = L - 1; l >= 0 && err == cudaSuccess; --l) {
+    float* d_l = d_ws + l * layer;
+    float* gp_l = gp_ws + l * layer;
+    const float* gin = g_ws + ((l + 1) & 1) * layer;
+    float* gout = g_ws + (l & 1) * layer;
+    const float* in = l > 0 ? xs + (l - 1) * layer : xs;
+    if (l == 0 && L == 1)
+      err = tiled_bf16_bwd_layer<R>(x, p, l, wpT, drop, g, dx, d_l, gp_l, part, B, F, SK, smem,
+                                    stream);
+    else if (l == 0)
+      err = tiled_bf16_bwd_layer<R>(x, p, l, wpT, drop, gin, dx, d_l, gp_l, part, B, F, SK, smem,
+                                    stream);
+    else if (l == L - 1)
+      err = tiled_bf16_bwd_layer<R>(in, p, l, wpT, drop, g, gout, d_l, gp_l, part, B, F, SK,
+                                    smem, stream);
+    else
+      err = tiled_bf16_bwd_layer<R>(in, p, l, wpT, drop, gin, gout, d_l, gp_l, part, B, F, SK,
+                                    smem, stream);
+  }
+  return err;
+}
+
+}  // namespace
+
+// The bf16 T-tiled backward on the same plan (#9 at bf16, tiled): x, g and
+// dx [B, T, D] in bf16; xs [L - 1, B, T, D], the stream between the layers
+// g_ws [2, B, T, D] and the weight gradients fp32.
+extern "C" int vsl_conv_block_bwd_tiled_bf16(const void* x, const float* xs, const float* gam,
+                                             const float* beta, const float* dw, const float* wp,
+                                             const float* wpT, const float* bp,
+                                             const float* seeds, unsigned thresh, float scale,
+                                             const void* g, void* dx, float* dsmall, float* dwp,
+                                             float* d_ws, float* gp_ws, float* g_ws, float* part,
+                                             float* gemm_ws, int splits, int B, int T, int D,
+                                             int L, int K, int F, int SK, int R, void* stream_) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || SK < 4 || SK % 4 ||
+      D % SK || (R != 4 && R != 6))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = TiledBwdLayout(F, D, K, SK).floats(D, K) * sizeof(float);
+  const ConvParams p = make_params(gam, beta, dw, wp, bp, T, D, L, K);
+  const vsl::Dropout drop{seeds, thresh, scale};
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* gb = static_cast<const bf16*>(g);
+  bf16* dxb = static_cast<bf16*>(dx);
+  cudaError_t err =
+      R == 4 ? tiled_bf16_backward<4>(xb, xs, p, wpT, drop, gb, dxb, d_ws, gp_ws, g_ws, part, B,
+                                      F, SK, smem, stream)
+             : tiled_bf16_backward<6>(xb, xs, p, wpT, drop, gb, dxb, d_ws, gp_ws, g_ws, part, B,
+                                      F, SK, smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   err = vsl::sum_partials(part, dsmall, 1, B * tiles(T, F), L * (3 + K) * D, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(vsl::wgrad(d_ws, gp_ws, dwp, gemm_ws, L, D, D, B * T, splits, stream));

@@ -78,7 +78,7 @@
 // backward this replaces re-read k_h^T's 256 KB from L2 every step on B
 // SMs.
 //
-// bf16 (vsl_lstm_recurrence_fwd_bf16, the lean forward only): the TPU
+// bf16 (vsl_lstm_recurrence_fwd_bf16, _fwd_res_bf16 and _bwd_bf16): the TPU
 // kernel at bf16 takes x_proj and k_h in bf16 and forms gates = f32(x_proj)
 // + dot(bf16(h), k_h) with fp32 accumulation; the gate math, c and the
 // carried h stay fp32 and the output is fp32 (pallas_kernels.py:250-269).
@@ -86,8 +86,16 @@
 // same fp32 shared-memory layout, x_proj widened as it is loaded, and the
 // h each CTA sends round the cluster rounded to bf16 (exact in fp32, so
 // the dot is unchanged), while the thread that owns a (row, unit) carries
-// its fp32 h in a register for the padding steps. Its bytes are half the
-// fp32 kernel's x_proj; the chain of steps bounds it all the same.
+// its fp32 h in a register for the padding steps, the h_prev it writes
+// with residuals. Its bytes are half the fp32 kernel's x_proj; the chain
+// of steps bounds it all the same. The backward at bf16 (_lstm_bwd_kernel
+// and _fused_lstm_bwd, pallas_kernels.py:316-375, 550-557) keeps the gate
+// backward, dh and dc fp32 and rounds each step's dgates once, where they
+// leave the thread: the dh product of the step before reads them rounded
+// (dh += bf16(dgates) . k_h^T), dx_proj is written as those bf16 values
+// (the TPU's dxp.astype(bf16)), and dk_h = sum bf16(h_prev)^T . dgates is
+// the split-K product with its operands rounded as they load, rounded to
+// bf16 once summed.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -339,12 +347,16 @@ lstm_fwd_cluster_kernel(const XT* __restrict__ xp, const XT* __restrict__ kh,
   }
 }
 
-template <int kBt>
+// XT: the storage type of k_h and dx_proj (float, or __nv_bfloat16 for the
+// bf16 backward: each step's dgates rounded to bf16 before they are sent
+// round the cluster and written).
+template <int kBt, typename XT = float>
 __global__ void __launch_bounds__(512)
 lstm_bwd_cluster_kernel(const float* __restrict__ dy, const float* __restrict__ acts,
                         const float* __restrict__ th, const float* __restrict__ c_prev,
-                        const float* __restrict__ valid, const float* __restrict__ kh,
-                        float* __restrict__ dxp, int T, int B, int H, int S) {
+                        const float* __restrict__ valid, const XT* __restrict__ kh,
+                        XT* __restrict__ dxp, int T, int B, int H, int S) {
+  constexpr bool kBf16 = !std::is_same<XT, float>::value;
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int N = static_cast<int>(cluster.num_blocks());
@@ -366,7 +378,7 @@ lstm_bwd_cluster_kernel(const float* __restrict__ dy, const float* __restrict__ 
     const int u = i / KS, k = i - u * KS;
     const int g = k / Hp, kk = k - g * Hp;
     const int j = u0 + u;
-    khf[i] = (g < 4 && kk < H && j < H) ? kh[(size_t)j * G + g * H + kk] : 0.f;
+    khf[i] = (g < 4 && kk < H && j < H) ? vsl::to_float(kh[(size_t)j * G + g * H + kk]) : 0.f;
   }
   float* dgf = reinterpret_cast<float*>(dgb);
   for (int i = tid; i < 2 * kBt * Q * 4; i += nt) dgf[i] = 0.f;
@@ -453,6 +465,9 @@ lstm_bwd_cluster_kernel(const float* __restrict__ dy, const float* __restrict__ 
       dg[2] = d_f * f * (1.f - f);
       dg[3] = d_o * og * (1.f - og);
       dc = dc_pass + dc_t * f;
+      if (kBf16)  // bf16(dgates): dx_proj, dk_h's operand and the dh product's
+#pragma unroll
+        for (int g = 0; g < 4; ++g) dg[g] = vsl::bf16_round(dg[g]);
     }
     // item i of the group's 4*kBt results is gate i & 3 of row i >> 2, held
     // by lane i >> 2; lane ls writes and sends items ls, ls + S, ...
@@ -467,7 +482,7 @@ lstm_bwd_cluster_kernel(const float* __restrict__ dy, const float* __restrict__ 
       }
       const int rb = i >> 2, r = row0 + rb, g = i & 3;
       if (column && i < 4 * kBt && r < B) {
-        dxp[((size_t)t * B + r) * G + g * H + unit] = val;
+        dxp[((size_t)t * B + r) * G + g * H + unit] = vsl::from_float<XT>(val);
         if (t > 0) {  // dg_t into every CTA of the cluster
           const uint32_t dst = smem_u32(reinterpret_cast<float*>(dn4 + (size_t)rb * Q) + g * Hp + unit);
           const uint32_t bar = smem_u32(full + (p ^ 1));
@@ -552,6 +567,36 @@ extern "C" int vsl_lstm_recurrence_fwd_res(const float* xp, const float* kh, con
                                threads, stream);
 }
 
+// The bf16 forward with residuals (#7 at bf16): x_proj and k_h in bf16, the
+// five outputs fp32, as the TPU kernel writes them (h_prev is the carried
+// fp32 h, which the backward rounds for dk_h).
+extern "C" int vsl_lstm_recurrence_fwd_res_bf16(const void* xp, const void* kh,
+                                                const float* valid, float* out, float* acts,
+                                                float* th, float* c_prev, float* h_prev, int T,
+                                                int B, int H, int N, int Bt, int S, int threads,
+                                                void* stream) {
+  return launch_fwd_plan<true>(static_cast<const __nv_bfloat16*>(xp),
+                               static_cast<const __nv_bfloat16*>(kh), valid, out, acts, th,
+                               c_prev, h_prev, T, B, H, N, Bt, S, threads, stream);
+}
+
+namespace {
+
+// The reverse recurrence on the plan (N, Bt, S, threads).
+template <typename XT>
+int launch_bwd_plan(const float* dy, const float* acts, const float* th, const float* c_prev,
+                    const float* valid, const XT* kh, XT* dxp, int T, int B, int H, int N, int Bt,
+                    int S, int threads, cudaStream_t stream) {
+  return by_rows(B, H, N, Bt, S, threads, [&](auto rows) {
+    constexpr int kBt = decltype(rows)::value;
+    return vsl::launch_cluster(lstm_bwd_cluster_kernel<kBt, XT>, (B + kBt - 1) / kBt * N, N,
+                               threads, BwdLayout(H, N).smem_bytes(kBt), stream, dy, acts, th,
+                               c_prev, valid, kh, dxp, T, B, H, S);
+  });
+}
+
+}  // namespace
+
 // The reverse recurrence on the same plan, then dkh = sum over the T*B rows
 // of h_prev^T . dxp; gemm_ws [splits, H, 4H] (unused when splits == 1).
 extern "C" int vsl_lstm_recurrence_bwd(const float* dy, const float* acts, const float* th,
@@ -560,12 +605,30 @@ extern "C" int vsl_lstm_recurrence_bwd(const float* dy, const float* acts, const
                                        float* dkh, float* gemm_ws, int splits, int T, int B,
                                        int H, int N, int Bt, int S, int threads, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int err = by_rows(B, H, N, Bt, S, threads, [&](auto rows) {
-    constexpr int kBt = decltype(rows)::value;
-    return vsl::launch_cluster(lstm_bwd_cluster_kernel<kBt>, (B + kBt - 1) / kBt * N, N,
-                               threads, BwdLayout(H, N).smem_bytes(kBt), stream, dy, acts, th,
-                               c_prev, valid, kh, dxp, T, B, H, S);
-  });
+  const int err = launch_bwd_plan(dy, acts, th, c_prev, valid, kh, dxp, T, B, H, N, Bt, S,
+                                  threads, stream);
   if (err != 0) return err;
   return static_cast<int>(vsl::wgrad(h_prev, dxp, dkh, gemm_ws, 1, H, 4 * H, T * B, splits, stream));
+}
+
+// The bf16 backward (#8 at bf16, with _fused_lstm_bwd's casts): k_h, dx_proj
+// and dk_h in bf16, dy and the residuals fp32. dx_proj = bf16(dgates); dk_h
+// = sum bf16(h_prev)^T . bf16(dgates) in fp32 into dkh32 [H, 4H], then
+// rounded to bf16.
+extern "C" int vsl_lstm_recurrence_bwd_bf16(const float* dy, const float* acts, const float* th,
+                                            const float* c_prev, const float* h_prev,
+                                            const float* valid, const void* kh_, void* dxp_,
+                                            void* dkh_, float* dkh32, float* gemm_ws, int splits,
+                                            int T, int B, int H, int N, int Bt, int S,
+                                            int threads, void* stream_) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  bf16* dxp = static_cast<bf16*>(dxp_);
+  const int err = launch_bwd_plan(dy, acts, th, c_prev, valid, static_cast<const bf16*>(kh_), dxp,
+                                  T, B, H, N, Bt, S, threads, stream);
+  if (err != 0) return err;
+  cudaError_t e = vsl::wgrad<true>(h_prev, static_cast<const bf16*>(dxp), dkh32, gemm_ws, 1, H,
+                                   4 * H, T * B, splits, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(vsl::narrow_bf16(dkh32, static_cast<bf16*>(dkh_), H * 4 * H, stream));
 }

@@ -91,6 +91,22 @@
 // they are rounded (so att takes no scale after the product), the output
 // narrowed as it is stored. qkv and att stay fp32 buffers (qkv holding
 // rounded values). Bound as the fp32 forward is.
+//
+// bf16 (vsl_mha_block_bwd_bf16): the TPU backward at bf16
+// (_make_mha_block_bwd_kernel, pallas_kernels.py:1762-1858), from the bf16
+// forward's qkv and att. Its custom VJP rounds at its own points: each
+// bias gradient sums the UNROUNDED gradient (dbd of g_dpre, dbqkv of dqkv),
+// and the product beside it takes the rounded one (dwd = bf16(z)^T .
+// bf16(g_dpre), g_z = bf16(g_dpre) . bf16(Wd)^T; dwqkv = bf16(y)^T .
+// bf16(dqkv), g_y = bf16(dqkv) . bf16(Wqkv)^T), so each launch takes the
+// sum first and rounds its tile in place after it; z, g_dpre, y and dqkv
+// reach the weight products rounded. The LayerNorm backwards, g_res, g_att
+// and the stream between the launches stay fp32. The attention body
+// (attn_bwd_cluster_kernel<HD, true>): bf16(g_att_h), dV = bf16(drop(P))^T
+// . gh, dS = P (dP - sum_j dP P) in fp32, dQ = (bf16(dS) . k_h) * scale,
+// dK = bf16(dS)^T . bf16(q_h * scale), scale = bf16(1/sqrt(hd)); #12 runs
+// the fp32 instantiation of the same template, whose code is unchanged.
+// dx = bf16(g_res + the LN1 path). Bound as the fp32 backward is.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -165,14 +181,18 @@ __device__ void streamed_gemm(const float* A, int lda, int rows, int K, const fl
 // 1. out = drop203(z.Wd + bd) + res: g_dpre = drop203(g) (and dbd); g_z =
 // g_dpre . Wd^T; z = drop202(LN2(res)): the LN2 backward (dgam2, dbeta2);
 // g_res = g + the LN2 path; g_att = drop201(g_res). One tile of F frames
-// of one row; writes z and g_dpre (for dwd), g_res and g_att.
+// of one row; writes z and g_dpre (for dwd), g_res and g_att. XT: the
+// storage type of x and g (bf16: z and g_dpre rounded where they are
+// stored, g_dpre and Wd^T rounded for g_z after dbd).
+template <typename XT = float>
 __global__ void __launch_bounds__(kThreads)
-bwd_out_tile_kernel(const float* __restrict__ x, const float* __restrict__ att,
+bwd_out_tile_kernel(const XT* __restrict__ x, const float* __restrict__ att,
                     const float* __restrict__ gam, const float* __restrict__ beta,
-                    const float* __restrict__ wdT, vsl::Dropout drop, const float* __restrict__ g,
+                    const float* __restrict__ wdT, vsl::Dropout drop, const XT* __restrict__ g,
                     float* __restrict__ z_ws, float* __restrict__ gdpre_ws,
                     float* __restrict__ gres_ws, float* __restrict__ gatt_ws,
                     float* __restrict__ part, int T, int D, int F, int SK) {
+  constexpr bool kBf16 = !std::is_same<XT, float>::value;
   extern __shared__ float4 smem4[];
   const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0), nel = nf * D;
   const size_t FD = (size_t)F * D;
@@ -189,29 +209,34 @@ bwd_out_tile_kernel(const float* __restrict__ x, const float* __restrict__ att,
   vsl::cp_async_floats(buf, wdT, SK * D);  // lands behind the loads and the LN
   for (int i = threadIdx.x; i < nel; i += blockDim.x) {
     const int t = t0 + i / D, c = i % D;
-    const float gd = drop.apply(g[tile + i], seed, s203, t, c);
+    const float gd = drop.apply(vsl::to_float(g[tile + i]), seed, s203, t, c);
     GD[i] = gd;
-    gdpre_ws[tile + i] = gd;
-    XH[i] = drop.apply(att[tile + i], seed, s201, t, c) + x[tile + i];
+    gdpre_ws[tile + i] = kBf16 ? vsl::bf16_round(gd) : gd;
+    XH[i] = drop.apply(att[tile + i], seed, s201, t, c) + vsl::to_float(x[tile + i]);
   }
   __syncthreads();
   vsl::ln_normalize_rows(XH, XH, inv, nf, D);
   for (int c = threadIdx.x; c < D; c += blockDim.x) {
     float s = 0.f;
     for (int t = 0; t < nf; ++t) s += GD[(size_t)t * D + c];
-    pr[7 * D + c] = s;  // dbd
+    pr[7 * D + c] = s;  // dbd, of the unrounded g_dpre
   }
-  streamed_gemm(GD, D, nf, D, wdT, D, buf, SK, GZ);  // g_z = g_dpre . Wd^T
+  if (kBf16) {  // g_dpre rounded in place (streamed_gemm's barrier orders it)
+    __syncthreads();
+    vsl::round_bf16(GD, nel);
+  }
+  streamed_gemm<kBf16>(GD, D, nf, D, wdT, D, buf, SK, GZ);  // g_z = g_dpre . Wd^T
   for (int i = threadIdx.x; i < nel; i += blockDim.x) {
     const int t = t0 + i / D, c = i % D;
     GZ[i] = drop.apply(GZ[i], seed, s202, t, c);
-    z_ws[tile + i] = drop.apply(XH[i] * __ldg(gam + c) + __ldg(beta + c), seed, s202, t, c);
+    const float z = drop.apply(XH[i] * __ldg(gam + c) + __ldg(beta + c), seed, s202, t, c);
+    z_ws[tile + i] = kBf16 ? vsl::bf16_round(z) : z;
   }
   __syncthreads();
   vsl::ln_backward_rows(  // dgam, dbeta of LN2
       GZ, XH, inv, gam, nf, D, pr + D, pr + 3 * D, [&](int t, int c, float v) {
         const size_t i = tile + (size_t)t * D + c;
-        const float gr = g[i] + v;
+        const float gr = vsl::to_float(g[i]) + v;
         gres_ws[i] = gr;
         gatt_ws[i] = drop.apply(gr, seed, s201, t0 + t, c);
       });
@@ -219,13 +244,18 @@ bwd_out_tile_kernel(const float* __restrict__ x, const float* __restrict__ att,
 
 // 3. qkv = y.Wqkv + bqkv, y = drop200(LN1(x)): dbqkv, g_y = dqkv . Wqkv^T,
 // the LN1 backward (dgam1, dbeta1), dx = g_res + the LN1 path. One tile of
-// F frames of one row; writes y (for dwqkv) and dx.
+// F frames of one row; writes y (for dwqkv) and dx. XT: the storage type
+// of x and dx (bf16: after dbqkv the tile's dqkv is rounded in place and
+// written back over its rows, dwqkv's operand, Wqkv^T is rounded for g_y,
+// y is stored rounded).
+template <typename XT = float>
 __global__ void __launch_bounds__(kThreads)
-bwd_qkv_tile_kernel(const float* __restrict__ x, const float* __restrict__ gam,
+bwd_qkv_tile_kernel(const XT* __restrict__ x, const float* __restrict__ gam,
                     const float* __restrict__ beta, const float* __restrict__ wqkvT,
-                    vsl::Dropout drop, const float* __restrict__ dqkv,
+                    vsl::Dropout drop, float* __restrict__ dqkv,
                     const float* __restrict__ gres_ws, float* __restrict__ y_ws,
-                    float* __restrict__ dx, float* __restrict__ part, int T, int D, int F, int SK) {
+                    XT* __restrict__ dx, float* __restrict__ part, int T, int D, int F, int SK) {
+  constexpr bool kBf16 = !std::is_same<XT, float>::value;
   extern __shared__ float4 smem4[];
   const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0), nel = nf * D;
   const size_t FD = (size_t)F * D;
@@ -244,19 +274,28 @@ bwd_qkv_tile_kernel(const float* __restrict__ x, const float* __restrict__ gam,
   for (int c = threadIdx.x; c < 3 * D; c += blockDim.x) {
     float s = 0.f;
     for (int t = 0; t < nf; ++t) s += DQ[(size_t)t * 3 * D + c];
-    pr[4 * D + c] = s;  // dbqkv
+    pr[4 * D + c] = s;  // dbqkv, of the unrounded dqkv
   }
-  streamed_gemm(DQ, 3 * D, nf, 3 * D, wqkvT, D, buf, SK, GY);  // g_y = dqkv . Wqkv^T
+  if (kBf16) {  // bf16(dqkv), in place and over the tile's rows of dqkv
+    __syncthreads();
+    for (int i = threadIdx.x; i < 3 * nel; i += blockDim.x) {
+      const float v = vsl::bf16_round(DQ[i]);
+      DQ[i] = v;
+      dqkv[3 * tile + i] = v;
+    }
+  }
+  streamed_gemm<kBf16>(DQ, 3 * D, nf, 3 * D, wqkvT, D, buf, SK, GY);  // g_y = dqkv . Wqkv^T
   for (int i = threadIdx.x; i < nel; i += blockDim.x) {
     const int t = t0 + i / D, c = i % D;
     GY[i] = drop.apply(GY[i], seed, s200, t, c);
-    y_ws[tile + i] = drop.apply(XH[i] * __ldg(gam + c) + __ldg(beta + c), seed, s200, t, c);
+    const float y = drop.apply(XH[i] * __ldg(gam + c) + __ldg(beta + c), seed, s200, t, c);
+    y_ws[tile + i] = kBf16 ? vsl::bf16_round(y) : y;
   }
   __syncthreads();
   vsl::ln_backward_rows(  // dgam, dbeta of LN1
       GY, XH, inv, gam, nf, D, pr, pr + 2 * D, [&](int t, int c, float v) {
         const size_t i = tile + (size_t)t * D + c;
-        dx[i] = gres_ws[i] + v;
+        dx[i] = vsl::from_float<XT>(gres_ws[i] + v);
       });
 }
 
@@ -318,8 +357,11 @@ __host__ __device__ inline size_t attn_tile_floats(int T, int TQ, int hd) {
 // D, v = qkv + 2D; the whole-T route's [B, T, D] tensors: ld = D), the
 // saved attention output att and its gradient g_att [B, T, D]; writes dq,
 // dk and dv through base pointers and one row stride ldd (into dqkv, or
-// three [B, T, D] tensors).
-template <int HD>
+// three [B, T, D] tensors). kBf16: #10's attention at bf16 (scale already
+// bf16): q * scale and g_att rounded to bf16 as they land, drop(P) rounded
+// for dV, and dS = P (dP - sum_j dP P) with the sum taken over the keys
+// (not from att, whose product rounded drop(P)), rounded for dQ and dK.
+template <int HD, bool kBf16 = false>
 __global__ void __launch_bounds__(kMaxAttnThreads)
 attn_bwd_cluster_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
                         const float* __restrict__ vp, int ld, const float* __restrict__ mask,
@@ -357,16 +399,17 @@ attn_bwd_cluster_kernel(const float* __restrict__ qp, const float* __restrict__ 
   constexpr int HD4 = HD / 4;
   const auto load4 = [](const float* src) { return *reinterpret_cast<const float4*>(src); };
   const auto store4 = [](float* dst, float4 v, float f) {
-    dst[0] = v.x * f;
-    dst[1] = v.y * f;
-    dst[2] = v.z * f;
-    dst[3] = v.w * f;
+    const auto rnd = [](float a) { return kBf16 ? vsl::bf16_round(a) : a; };
+    dst[0] = rnd(v.x * f);
+    dst[1] = rnd(v.y * f);
+    dst[2] = rnd(v.z * f);
+    dst[3] = rnd(v.w * f);
   };
 #pragma unroll 4
   for (int i = tid; i < T * HD4; i += nth) {
     const int j = i / HD4, d = (i - j * HD4) * 4;
     const float4 kv = load4(kp + ib + (size_t)j * ld + d), vv = load4(vp + ib + (size_t)j * ld + d);
-    store4(Ks + j * LD + d, kv, 1.f);
+    store4(Ks + j * LD + d, kv, 1.f);  // bf16 values already at bf16
     store4(Vs + j * LD + d, vv, 1.f);
   }
 #pragma unroll 2
@@ -378,8 +421,9 @@ attn_bwd_cluster_kernel(const float* __restrict__ qp, const float* __restrict__ 
     store4(Gs + t * LD + d, gv, 1.f);
   }
   for (int j = tid; j < T; j += nth) neg[j] = (1.f - mask[(size_t)b * T + j]) * vsl::kMaskValue;
-  // D_t = sum_j P dP = g_att_t . att_t, since att = drop(P).V
-  for (int t = tid; t < nt; t += nth) {
+  // D_t = sum_j P dP = g_att_t . att_t, since att = drop(P).V (at bf16 it
+  // is summed over the keys below)
+  for (int t = tid; t < nt && !kBf16; t += nth) {
     const float* gt = gatt + gb + (size_t)(t0 + t) * D;
     const float* at = att + gb + (size_t)(t0 + t) * D;
     float s = 0.f;
@@ -423,20 +467,46 @@ attn_bwd_cluster_kernel(const float* __restrict__ qp, const float* __restrict__ 
   __syncthreads();
   // this CTA's dV = drop(P)^T . G over its query rows
   tile_product<4, 2>(
-      T, HD, nt, [&](int j, int t) { return PD[(size_t)t * lds + j]; },
+      T, HD, nt,
+      [&](int j, int t) {
+        const float pd = PD[(size_t)t * lds + j];
+        return kBf16 ? vsl::bf16_round(pd) : pd;
+      },
       [&](int t, int d) { return Gs[t * LD + d]; },
       [&](int j, int d, float v) { dVp[j * HD + d] = v; });
-  // dS = P * (drop(G.V^T) - D_t), in place: each element has one owner.
-  // Where P > 0, drop(P) > 0 exactly where the key is kept; where P = 0,
-  // dS = 0 whatever the keep.
-  tile_product<4, 4>(
-      nt, T, HD, [&](int m, int k) { return Gs[m * LD + k]; },
-      [&](int k, int n) { return Vs[n * LD + k]; },
-      [&](int t, int j, float dp) {
-        float* sp = SP + (size_t)t * lds + j;
-        const float dpd = PD[(size_t)t * lds + j] != 0.f ? drop.kept(dp) : 0.f;
-        *sp = *sp * (dpd - Dt[t]);
-      });
+  if constexpr (!kBf16) {
+    // dS = P * (drop(G.V^T) - D_t), in place: each element has one owner.
+    // Where P > 0, drop(P) > 0 exactly where the key is kept; where P = 0,
+    // dS = 0 whatever the keep.
+    tile_product<4, 4>(
+        nt, T, HD, [&](int m, int k) { return Gs[m * LD + k]; },
+        [&](int k, int n) { return Vs[n * LD + k]; },
+        [&](int t, int j, float dp) {
+          float* sp = SP + (size_t)t * lds + j;
+          const float dpd = PD[(size_t)t * lds + j] != 0.f ? drop.kept(dp) : 0.f;
+          *sp = *sp * (dpd - Dt[t]);
+        });
+  } else {
+    __syncthreads();  // drop(P) read by dV before dP takes its place
+    // dP = drop(G.V^T) into PD, in place
+    tile_product<4, 4>(
+        nt, T, HD, [&](int m, int k) { return Gs[m * LD + k]; },
+        [&](int k, int n) { return Vs[n * LD + k]; },
+        [&](int t, int j, float dp) {
+          float* pd = PD + (size_t)t * lds + j;
+          *pd = *pd != 0.f ? drop.kept(dp) : 0.f;
+        });
+    __syncthreads();
+    // one warp a query row: D_t = sum_j dP P, then dS = bf16(P (dP - D_t))
+    for (int t = warp; t < nt; t += nwarps) {
+      float* row = SP + (size_t)t * lds;
+      const float* dprow = PD + (size_t)t * lds;
+      float s = 0.f;
+      for (int j = lane; j < T; j += 32) s = fmaf(dprow[j], row[j], s);
+      s = vsl::warp_sum(s);
+      for (int j = lane; j < T; j += 32) row[j] = vsl::bf16_round(row[j] * (dprow[j] - s));
+    }
+  }
   __syncthreads();
   // dQ = scale * dS.K, in items of 2 x 2, or of 1 x 2 where those take no
   // more rounds of the CTA's threads (each element is one chain over the
@@ -486,7 +556,8 @@ attn_bwd_cluster_kernel(const float* __restrict__ qp, const float* __restrict__ 
 // The attention backward (attn_bwd_cluster_kernel) of B rows and n_heads
 // heads on query tiles of TQ rows: one cluster of ceil(T / TQ) CTAs of
 // `threads` threads a (row, head).
-template <int HD>
+// kBf16: the bf16 body, with the scale rounded to bf16.
+template <int HD, bool kBf16 = false>
 cudaError_t launch_attention_bwd_tiles(const float* q, const float* k, const float* v, int ld,
                                        const float* mask, vsl::Dropout drop, const float* att,
                                        const float* gatt, float* dq, float* dk, float* dv,
@@ -494,9 +565,10 @@ cudaError_t launch_attention_bwd_tiles(const float* q, const float* k, const flo
                                        int threads, cudaStream_t stream) {
   const int nq = (T + TQ - 1) / TQ;
   const size_t smem = attn_tile_floats(T, TQ, HD) * sizeof(float);
+  const float scale = kBf16 ? vsl::bf16_round_host(vsl::head_scale(HD)) : vsl::head_scale(HD);
   const cudaError_t err = vsl::launch_cluster(
-      attn_bwd_cluster_kernel<HD>, B * n_heads * nq, nq, threads, smem, stream, q, k, v, ld,
-      mask, drop, att, gatt, dq, dk, dv, ldd, T, D, n_heads, TQ, vsl::head_scale(HD));
+      attn_bwd_cluster_kernel<HD, kBf16>, B * n_heads * nq, nq, threads, smem, stream, q, k, v,
+      ld, mask, drop, att, gatt, dq, dk, dv, ldd, T, D, n_heads, TQ, scale);
   return err == cudaSuccess ? cudaGetLastError() : err;
 }
 
@@ -774,6 +846,60 @@ extern "C" int vsl_mha_block_fwd_bf16(const void* x_, const float* mask, const f
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+// The block backward's three launches, the partials' sum and the weight
+// products; XT the storage type of x, g and dx.
+template <typename XT>
+cudaError_t block_backward(const XT* x, const float* mask, const float* gam, const float* beta,
+                           const float* wqkvT, const float* wdT, vsl::Dropout drop,
+                           const float* qkv, const float* att, const XT* g, XT* dx,
+                           float* dsmall, float* dwqkv, float* dwd, float* z_ws, float* gdpre_ws,
+                           float* gres_ws, float* gatt_ws, float* y_ws, float* dqkv, float* part,
+                           float* gemm_ws, int splits, int B, int T, int D, int n_heads, int F,
+                           int SK, int TQ, cudaStream_t stream) {
+  constexpr bool kBf16 = !std::is_same<XT, float>::value;
+  const dim3 grid((T + F - 1) / F, B);
+  const int smem1 = static_cast<int>(out_tile_floats(F, SK, D) * sizeof(float));
+  cudaError_t err =
+      vsl::opt_in_smem(reinterpret_cast<const void*>(bwd_out_tile_kernel<XT>), smem1);
+  if (err != cudaSuccess) return err;
+  bwd_out_tile_kernel<XT><<<grid, kThreads, smem1, stream>>>(
+      x, att, gam + D, beta + D, wdT, drop, g, z_ws, gdpre_ws, gres_ws, gatt_ws, part, T, D, F,
+      SK);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = vsl::by_head_dim(D / n_heads, [&](auto hd) {
+    return launch_attention_bwd_tiles<decltype(hd)::value, kBf16>(
+        qkv, qkv + D, qkv + 2 * D, 3 * D, mask, drop, att, gatt_ws, dqkv, dqkv + D, dqkv + 2 * D,
+        3 * D, B, T, D, n_heads, TQ, kThreads, stream);
+  });
+  if (err != cudaSuccess) return err;
+
+  const int smem3 = static_cast<int>(qkv_tile_floats(F, SK, D) * sizeof(float));
+  err = vsl::opt_in_smem(reinterpret_cast<const void*>(bwd_qkv_tile_kernel<XT>), smem3);
+  if (err != cudaSuccess) return err;
+  bwd_qkv_tile_kernel<XT><<<grid, kThreads, smem3, stream>>>(x, gam, beta, wqkvT, drop, dqkv,
+                                                             gres_ws, y_ws, dx, part, T, D, F, SK);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = vsl::sum_partials(part, dsmall, 1, B * grid.x, 8 * D, stream);
+  if (err != cudaSuccess) return err;
+  err = vsl::wgrad(z_ws, gdpre_ws, dwd, gemm_ws, 1, D, D, B * T, splits, stream);
+  if (err != cudaSuccess) return err;
+  return vsl::wgrad(y_ws, dqkv, dwqkv, gemm_ws, 1, D, 3 * D, B * T, splits, stream);
+}
+
+bool bwd_plan_ok(int B, int T, int D, int n_heads, int F, int SK, int TQ) {
+  const int nq = TQ > 0 ? (T + TQ - 1) / TQ : 0;
+  return !(B < 1 || T < 1 || D < 4 || D % 4 || n_heads < 1 || D % n_heads || F < 1 || SK < 4 ||
+           SK % 4 || D % SK || nq < 1 || nq > kMaxCluster);
+}
+
+}  // namespace
+
 // dsmall [8D]: dgam [2, D], dbeta [2, D], dbqkv [3D], dbd [D]; dwqkv
 // [D, 3D]; dwd [D, D]. Plan: tiles of F frames, weight slices of SK rows
 // (D % SK == 0, SK % 4 == 0), query tiles of TQ rows (ceil(T / TQ) <= 8).
@@ -788,42 +914,32 @@ extern "C" int vsl_mha_block_bwd(const float* x, const float* mask, const float*
                                  float* dqkv, float* part, float* gemm_ws, int splits, int B,
                                  int T, int D, int n_heads, int F, int SK, int TQ,
                                  void* stream_) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int nq = TQ > 0 ? (T + TQ - 1) / TQ : 0;
-  if (B < 1 || T < 1 || D < 4 || D % 4 || n_heads < 1 || D % n_heads || F < 1 || SK < 4 ||
-      SK % 4 || D % SK || nq < 1 || nq > kMaxCluster)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const vsl::Dropout drop{seeds, thresh, scale};
-  const dim3 grid((T + F - 1) / F, B);
-  const int smem1 = static_cast<int>(out_tile_floats(F, SK, D) * sizeof(float));
-  cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(bwd_out_tile_kernel), smem1);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_out_tile_kernel<<<grid, kThreads, smem1, stream>>>(x, att, gam + D, beta + D, wdT, drop, g,
-                                                         z_ws, gdpre_ws, gres_ws, gatt_ws, part,
-                                                         T, D, F, SK);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!bwd_plan_ok(B, T, D, n_heads, F, SK, TQ)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(block_backward(
+      x, mask, gam, beta, wqkvT, wdT, vsl::Dropout{seeds, thresh, scale}, qkv, att, g, dx, dsmall,
+      dwqkv, dwd, z_ws, gdpre_ws, gres_ws, gatt_ws, y_ws, dqkv, part, gemm_ws, splits, B, T, D,
+      n_heads, F, SK, TQ, static_cast<cudaStream_t>(stream_)));
+}
 
-  err = vsl::by_head_dim(D / n_heads, [&](auto hd) {
-    return launch_attention_bwd_tiles<decltype(hd)::value>(
-        qkv, qkv + D, qkv + 2 * D, 3 * D, mask, drop, att, gatt_ws, dqkv, dqkv + D, dqkv + 2 * D,
-        3 * D, B, T, D, n_heads, TQ, kThreads, stream);
-  });
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int smem3 = static_cast<int>(qkv_tile_floats(F, SK, D) * sizeof(float));
-  err = vsl::opt_in_smem(reinterpret_cast<const void*>(bwd_qkv_tile_kernel), smem3);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_qkv_tile_kernel<<<grid, kThreads, smem3, stream>>>(x, gam, beta, wqkvT, drop, dqkv, gres_ws,
-                                                         y_ws, dx, part, T, D, F, SK);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  err = vsl::sum_partials(part, dsmall, 1, B * grid.x, 8 * D, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = vsl::wgrad(z_ws, gdpre_ws, dwd, gemm_ws, 1, D, D, B * T, splits, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(vsl::wgrad(y_ws, dqkv, dwqkv, gemm_ws, 1, D, 3 * D, B * T, splits, stream));
+// The bf16 backward on the same plan (#10 at bf16): x, g and dx [B, T, D]
+// in bf16; qkv (bf16-rounded values), att, the workspaces and the weight
+// gradients fp32.
+extern "C" int vsl_mha_block_bwd_bf16(const void* x, const float* mask, const float* gam,
+                                      const float* beta, const float* wqkvT, const float* wdT,
+                                      const float* seeds, unsigned thresh, float scale,
+                                      const float* qkv, const float* att, const void* g, void* dx,
+                                      float* dsmall, float* dwqkv, float* dwd, float* z_ws,
+                                      float* gdpre_ws, float* gres_ws, float* gatt_ws,
+                                      float* y_ws, float* dqkv, float* part, float* gemm_ws,
+                                      int splits, int B, int T, int D, int n_heads, int F, int SK,
+                                      int TQ, void* stream_) {
+  using bf16 = __nv_bfloat16;
+  if (!bwd_plan_ok(B, T, D, n_heads, F, SK, TQ)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(block_backward(
+      static_cast<const bf16*>(x), mask, gam, beta, wqkvT, wdT, vsl::Dropout{seeds, thresh, scale},
+      qkv, att, static_cast<const bf16*>(g), static_cast<bf16*>(dx), dsmall, dwqkv, dwd, z_ws,
+      gdpre_ws, gres_ws, gatt_ws, y_ws, dqkv, part, gemm_ws, splits, B, T, D, n_heads, F, SK, TQ,
+      static_cast<cudaStream_t>(stream_)));
 }
 
 // Whole-T multi-head attention (fused_mha's small-T route), replacing the

@@ -15,7 +15,8 @@ recurrence, the conv block, the MHA block and attention have backward
 kernels too: on the card their wrappers go through a
 `torch.autograd.Function` (`FusedLSTMRecurrence`, `FusedConvBlock`,
 `FusedConvBlockTiled`, `FusedMHABlock`, `FusedMHA`, `FusedFlashMHA`), on
-the CPU through torch's autograd of the plain versions. The `launch_*`
+the CPU through torch's autograd of the plain versions (at bf16 through
+their plain twins' Functions, below). The `launch_*`
 functions are the kernels alone, for CUDA tensors only: the autograd
 Functions call them, and chip_smoke.py times them.
 
@@ -27,16 +28,22 @@ the MHA block kernels up to T = 145 at D = 128, above that the block's
 PyTorch ops around `fused_mha`, whose whole-T kernels take T up to 209 at
 head dim 16 and its flash kernels any longer T.
 
-bf16 (`precision=bf16`): the LSTM recurrence, the conv block forward (both
-forms) and the MHA block forward have bf16 kernels, the TPU kernels'
-functions at bf16 (bf16 activations, fp32 weights rounded where the TPU
-kernel rounds them, fp32 accumulation; `_BF16_KERNELS`). Their wrappers
-take the activation's dtype, launch the bf16 entry point for bf16 tensors
-(counted under its own name) and refuse a gradient (bf16 training is
-ROADMAP.md B4b); the MHA block refuses the routes above T = 145 at bf16
-on any device (B4c). Their plain versions compute the same bf16
-functions. The other kernels are fp32 at any precision, as the JAX
-package's wrappers cast around them.
+bf16 (`precision=bf16`): the LSTM recurrence, the conv block (both forms)
+and the MHA block have bf16 kernels each way, the TPU kernels' functions at
+bf16 (bf16 activations, fp32 weights rounded where the TPU kernel rounds
+them, fp32 accumulation; `_BF16_KERNELS`). Their wrappers take the
+activation's dtype and launch the bf16 entry point for bf16 tensors
+(counted under its own name); the MHA block refuses the routes above T =
+145 at bf16 on any device (ROADMAP.md B4c). Their plain versions compute
+the same bf16 functions. The backward's bf16 function is the JAX
+package's custom VJP, which rounds at its own points, not at the
+transposes of the forward's casts, so torch's autograd of the forward
+twin is another function: the backward twins `lstm_recurrence_bwd_plain`,
+`conv_block_bwd_plain` and `mha_block_bwd_plain` write the VJPs out, and
+on the CPU a bf16 gradient runs them through `PlainLSTMRecurrence`,
+`PlainConvBlock` and `PlainMHABlock` (an fp32 gradient keeps torch's
+autograd of the forward twins). The other kernels are fp32 at any
+precision, as the JAX package's wrappers cast around them.
 
 The kernels (csrc/*.cu, sm_90a) are compiled with nvcc into one
 shared library with a plain C interface, one nvcc process per source, all
@@ -87,11 +94,16 @@ LAUNCHES = {"lstm_recurrence_fwd": 0, "lstm_recurrence_fwd_res": 0,
             "conv_block_fwd_tiled": 0, "conv_block_bwd_tiled": 0,
             "mha_fwd": 0, "mha_bwd": 0, "flash_mha_fwd": 0, "flash_mha_bwd": 0,
             "lstm_recurrence_fwd_bf16": 0, "conv_block_fwd_bf16": 0,
-            "conv_block_fwd_tiled_bf16": 0, "mha_block_fwd_bf16": 0}
+            "conv_block_fwd_tiled_bf16": 0, "mha_block_fwd_bf16": 0,
+            "lstm_recurrence_fwd_res_bf16": 0, "lstm_recurrence_bwd_bf16": 0,
+            "conv_block_bwd_bf16": 0, "conv_block_bwd_tiled_bf16": 0,
+            "mha_block_bwd_bf16": 0}
 # the kernels with a bf16 entry point: a wrapper given bf16 activations
 # launches `<name>_bf16`
 _BF16_KERNELS = ("lstm_recurrence_fwd", "conv_block_fwd",
-                 "conv_block_fwd_tiled", "mha_block_fwd")
+                 "conv_block_fwd_tiled", "mha_block_fwd",
+                 "lstm_recurrence_fwd_res", "lstm_recurrence_bwd",
+                 "conv_block_bwd", "conv_block_bwd_tiled", "mha_block_bwd")
 
 
 def reset_launches():
@@ -128,6 +140,8 @@ _SIGNATURES = {
 }
 _SIGNATURES.update({"vsl_%s_bf16" % n: _SIGNATURES["vsl_" + n]
                     for n in _BF16_KERNELS})
+# the bf16 LSTM backward also takes a float32 workspace for dk_h's sums
+_SIGNATURES["vsl_lstm_recurrence_bwd_bf16"] = [_P] * 11 + [_I] * 8 + [_P]
 
 
 def _nvcc():
@@ -283,13 +297,6 @@ def _entry(name, dtype):
     """The kernel's entry point (and launch count) for activations of
     `dtype`."""
     return name + "_bf16" if dtype == torch.bfloat16 else name
-
-
-def _refuse_bf16_grad(name, grad):
-    if grad:
-        raise NotImplementedError(
-            "%s: no bf16 backward kernel yet; bf16 training is ROADMAP.md "
-            "B4b" % name)
 
 
 # --- counter-hash dropout --------------------------------------------------------
@@ -484,7 +491,8 @@ def lstm_plan(B, H):
     return LSTMPlan(n, bt, units, splits, threads, smem, -(-B // bt), smem_bwd)
 
 
-def lstm_recurrence_plain(x_proj, k_h, valid, state_dtype=torch.float32):
+def lstm_recurrence_plain(x_proj, k_h, valid, state_dtype=torch.float32,
+                          residuals=False):
     """[T, B, 4H] pre-projected inputs, [H, 4H] recurrent kernel, [T, B]
     validity -> [T, B, H] in state_dtype; TF gates [i, j, f, o], forget
     bias 1, state frozen and output zeroed where valid is 0. Its gradient
@@ -493,25 +501,76 @@ def lstm_recurrence_plain(x_proj, k_h, valid, state_dtype=torch.float32):
     product: with bf16 x_proj and k_h, float32 gives the bf16 kernel's
     function (pallas_kernels.py:241-269 at bf16: bf16(h) . k_h with fp32
     accumulation, fp32 gates, state and output) and bf16 the JAX package's
-    lax.scan (vslnet_tpu/models/layers.py LSTMEncoder: all of it bf16)."""
+    lax.scan (vslnet_tpu/models/layers.py LSTMEncoder: all of it bf16).
+    With residuals, (out, acts [T, B, 4H], tanh(c~), c_prev, h_prev [T, B,
+    H]): the residual forward's outputs (`_lstm_fwd_kernel`), what
+    lstm_recurrence_bwd_plain reads."""
     T, B, G = x_proj.shape
     H = G // 4
     act = k_h.dtype
     x_proj, k_h, valid = (t.to(state_dtype) for t in (x_proj, k_h, valid))
     h = x_proj.new_zeros(B, H)
     c = x_proj.new_zeros(B, H)
-    outs = []
+    outs, res = [], []
     for t in range(T):
         gates = x_proj[t] + h.to(act).to(state_dtype) @ k_h
         i, j, f, o = gates.split(H, dim=-1)
         v = valid[t][:, None]
-        new_c = c * torch.sigmoid(f + 1.0) + torch.sigmoid(i) * torch.tanh(j)
-        new_h = torch.tanh(new_c) * torch.sigmoid(o)
+        ig, jg, fg, og = (torch.sigmoid(i), torch.tanh(j),
+                          torch.sigmoid(f + 1.0), torch.sigmoid(o))
+        new_c = c * fg + ig * jg
+        th = torch.tanh(new_c)
+        new_h = th * og
+        if residuals:
+            res.append((torch.cat([ig, jg, fg, og], dim=-1), th, c, h))
         c = v * new_c + (1.0 - v) * c
         out = v * new_h
         h = out + (1.0 - v) * h
         outs.append(out)
+    if residuals:
+        return (torch.stack(outs), *(torch.stack(r) for r in zip(*res)))
     return torch.stack(outs)
+
+
+def lstm_recurrence_bwd_plain(dy, acts, th, c_prev, h_prev, valid, k_h):
+    """The reverse recurrence, written out as `_lstm_bwd_kernel` and
+    `_fused_lstm_bwd` compute it (pallas_kernels.py:316-375, 550-557):
+    dy [T, B, H] and the residual forward's float32 outputs -> (dx_proj
+    [T, B, 4H], dk_h [H, 4H]) in k_h's dtype. The gate backward, dh and dc
+    are float32; at bf16 the dgates are rounded for their products, dh +=
+    bf16(dgates) . k_h^T and dk_h = sum_t bf16(h_prev)^T . bf16(dgates)
+    (fp32 sums), and dx_proj (the fp32 dgates) and dk_h are rounded to
+    bf16 at the end. At float32 it is the fp32 kernel's function."""
+    T, B, H = dy.shape
+    act, f32 = k_h.dtype, torch.float32
+
+    def rnd(t):  # a rounding point at k_h's dtype, held in float32
+        return t.to(act).to(f32)
+
+    kh = k_h.to(f32)
+    dy, acts, th, c_prev, h_prev, valid = (
+        t.to(f32) for t in (dy, acts, th, c_prev, h_prev, valid))
+    dh = dy.new_zeros(B, H)
+    dc = dy.new_zeros(B, H)
+    dkh = kh.new_zeros(H, 4 * H)
+    dxp = [None] * T
+    for t in range(T - 1, -1, -1):
+        v = valid[t][:, None]
+        i, g, f, o = acts[t].split(H, dim=-1)
+        dh_t = v * (dy[t] + dh)
+        dh_pass = (1.0 - v) * dh
+        dc_t = v * dc + dh_t * o * (1.0 - th[t] * th[t])
+        dc_pass = (1.0 - v) * dc
+        dgates = torch.cat([(dc_t * g) * i * (1.0 - i),
+                            (dc_t * i) * (1.0 - g * g),
+                            (dc_t * c_prev[t]) * f * (1.0 - f),
+                            (dh_t * th[t]) * o * (1.0 - o)], dim=-1)
+        dxp[t] = dgates
+        dg = rnd(dgates)
+        dh = dh_pass + dg @ kh.t()
+        dc = dc_pass + dc_t * f
+        dkh = dkh + rnd(h_prev[t]).t() @ dg
+    return torch.stack(dxp).to(act), dkh.to(act)
 
 
 def _lstm_shapes(name, x_proj, k_h, valid, dtype=torch.float32):
@@ -544,9 +603,11 @@ def launch_lstm_fwd(x_proj, k_h, valid):
 
 def launch_lstm_fwd_res(x_proj, k_h, valid):
     """The forward kernel with residuals: (out, acts [T, B, 4H], tanh(c~),
-    c_prev, h_prev [T, B, H]). CUDA tensors only."""
-    name = "lstm_recurrence_fwd_res"
-    T, B, H, plan = _lstm_shapes(name, x_proj, k_h, valid)
+    c_prev, h_prev [T, B, H]), its bf16 entry point for bf16 x_proj and
+    k_h; the outputs are float32 either way. CUDA tensors only."""
+    dtype = _act_dtype("lstm_recurrence_fwd_res", x_proj)
+    name = _entry("lstm_recurrence_fwd_res", dtype)
+    T, B, H, plan = _lstm_shapes(name, x_proj, k_h, valid, dtype)
     _require_cuda(name, x_proj, k_h, valid)
     dev = x_proj.device
     out, th, c_prev, h_prev = (_empty(dev, T, B, H) for _ in range(4))
@@ -558,34 +619,41 @@ def launch_lstm_fwd_res(x_proj, k_h, valid):
 
 
 def launch_lstm_bwd(dy, acts, th, c_prev, h_prev, valid, k_h):
-    """The reverse recurrence and dk_h: (dx_proj [T, B, 4H], dk_h [H, 4H]).
-    CUDA tensors only."""
-    name = "lstm_recurrence_bwd"
+    """The reverse recurrence and dk_h: (dx_proj [T, B, 4H], dk_h [H, 4H])
+    in k_h's dtype, the bf16 entry point for bf16 k_h (dy and the residuals
+    float32 either way). CUDA tensors only."""
+    dtype = _act_dtype("lstm_recurrence_bwd", k_h)
+    name = _entry("lstm_recurrence_bwd", dtype)
     _require_cuda(name, dy, acts, th, c_prev, h_prev, valid, k_h)
     T, B, H = dy.shape
     for t, shape in ((dy, (T, B, H)), (acts, (T, B, 4 * H)), (th, (T, B, H)),
-                     (c_prev, (T, B, H)), (h_prev, (T, B, H)), (valid, (T, B)),
-                     (k_h, (H, 4 * H))):
+                     (c_prev, (T, B, H)), (h_prev, (T, B, H)), (valid, (T, B))):
         _check(name, t, shape)
+    _check(name, k_h, (H, 4 * H), dtype)
     if not 1 <= H <= 256 or B < 1:
         raise ValueError("%s: needs dy [T, B, H] with B >= 1 and H <= 256, "
                          "got %s" % (name, tuple(dy.shape)))
     plan = lstm_plan(B, H)
     dev = dy.device
-    dxp = _empty(dev, T, B, 4 * H)
-    dkh = _empty(dev, H, 4 * H)
+    dxp = torch.empty(T, B, 4 * H, device=dev, dtype=dtype)
+    dkh = torch.empty(H, 4 * H, device=dev, dtype=dtype)
     splits = _wgrad_splits(1, H, 4 * H, T * B)
     ws = _empty(dev, splits * H * 4 * H if splits > 1 else 1)
+    # at bf16 dk_h is summed in float32, then rounded
+    dkh32 = [_empty(dev, H, 4 * H).data_ptr()] if dtype == torch.bfloat16 \
+        else []
     _launch(name, dy.data_ptr(), acts.data_ptr(), th.data_ptr(),
             c_prev.data_ptr(), h_prev.data_ptr(), valid.data_ptr(),
-            k_h.data_ptr(), dxp.data_ptr(), dkh.data_ptr(), ws.data_ptr(),
-            splits, T, B, H, plan.n, plan.bt, plan.splits, plan.threads)
+            k_h.data_ptr(), dxp.data_ptr(), dkh.data_ptr(), *dkh32,
+            ws.data_ptr(), splits, T, B, H, plan.n, plan.bt, plan.splits,
+            plan.threads)
     return dxp, dkh
 
 
 class FusedLSTMRecurrence(torch.autograd.Function):
     """The recurrence on the card: the residual forward kernel, then the
-    reverse kernel in backward (`fused_lstm_recurrence`'s VJP)."""
+    reverse kernel in backward (`fused_lstm_recurrence`'s VJP); at either
+    dtype."""
 
     @staticmethod
     def forward(ctx, x_proj, k_h, valid):
@@ -601,16 +669,36 @@ class FusedLSTMRecurrence(torch.autograd.Function):
         return dxp, dkh, None
 
 
+class PlainLSTMRecurrence(torch.autograd.Function):
+    """FusedLSTMRecurrence's plain twin: the forward twin with residuals,
+    then lstm_recurrence_bwd_plain, the JAX package's VJP written out (at
+    bf16 not torch's autograd of the forward twin, which rounds elsewhere).
+    What the CPU runs for a bf16 gradient."""
+
+    @staticmethod
+    def forward(ctx, x_proj, k_h, valid):
+        out, *res = lstm_recurrence_plain(x_proj, k_h, valid, residuals=True)
+        ctx.save_for_backward(*res, valid, k_h)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*lstm_recurrence_bwd_plain(dy, *ctx.saved_tensors), None)
+
+
 def fused_lstm_recurrence(x_proj, k_h, valid):
     """On the card: the lean kernel where no gradient is needed, else
-    FusedLSTMRecurrence (fp32 only). On the CPU: the plain version."""
+    FusedLSTMRecurrence, at the activations' dtype. On the CPU: the plain
+    version, through PlainLSTMRecurrence for a bf16 gradient (torch's
+    autograd of the plain version at fp32)."""
     name = "lstm_recurrence_fwd"
-    if not _on_cuda(name, x_proj, k_h, valid):
-        return lstm_recurrence_plain(x_proj, k_h, valid)
     grad = grad_wanted(x_proj, k_h)
-    if _act_dtype(name, x_proj) == torch.bfloat16:
-        _refuse_bf16_grad(name, grad)
-    elif grad:
+    if not _on_cuda(name, x_proj, k_h, valid):
+        if grad and x_proj.dtype == torch.bfloat16:
+            return PlainLSTMRecurrence.apply(x_proj, k_h, valid)
+        return lstm_recurrence_plain(x_proj, k_h, valid)
+    _act_dtype(name, x_proj)
+    if grad:
         return FusedLSTMRecurrence.apply(x_proj, k_h, valid)
     return launch_lstm_fwd(x_proj, k_h, valid)
 
@@ -650,6 +738,97 @@ def conv_block_plain(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0,
         r = torch.relu(rnd(d) @ rnd(wp[l]) + bp[l].to(dt))
         x = x + site_dropout(r, seeds, 0x100 + l, drop_rate)
     return x.to(act)
+
+
+def _ln_stats(x):
+    """(xh, inv) of the JAX package's _ln_fwd: x - mean times inv =
+    rsqrt(population variance + 1e-6), over the last dim."""
+    mean = x.mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt((x - mean).square().mean(dim=-1, keepdim=True) + 1e-6)
+    return (x - mean) * inv, inv
+
+
+def _ln_bwd(gn, gam, xh, inv):
+    """The JAX package's _ln_bwd over [B, T, D]: (dx, dgam, dbeta), the
+    parameter gradients summed over rows and positions."""
+    dxh = gn * gam
+    dx = inv * (dxh - dxh.mean(dim=-1, keepdim=True)
+                - xh * (dxh * xh).mean(dim=-1, keepdim=True))
+    return dx, (gn * xh).sum(dim=(0, 1)), gn.sum(dim=(0, 1))
+
+
+def depthwise_t(g, dw):
+    """The transpose of `depthwise` in its input: g [B, T, D] -> [B, T, D],
+    out[t] = sum_j g[t + pad - j] dw[j], pad = (k - 1) // 2."""
+    k, D = dw.shape
+    gt = F.pad(g.transpose(1, 2), (k // 2, (k - 1) // 2))
+    return F.conv1d(gt, dw.flip(0).t().unsqueeze(1), groups=D).transpose(1, 2)
+
+
+def conv_block_bwd_plain(x, gam, beta, dw, wp, bp, seeds, drop_rate, g):
+    """The conv block's backward, written out as
+    `_make_conv_block_bwd_kernel` computes it (pallas_kernels.py:1039-1114):
+    a float32 replay of conv_block_plain (rounded at x's dtype), then for
+    each layer in reverse, with the running gradient G float32 (g in x's
+    dtype): g_p = [p > 0] drop(G), dbp = sum g_p (unrounded), dwp = sum
+    bf16(d)^T . bf16(g_p), g_d = bf16(g_p) . bf16(wp)^T, the fp32 depthwise
+    transpose g_n and ddw from the UNROUNDED LayerNorm output n (the
+    forward's depthwise read bf16(n)), the fp32 LayerNorm backward, G +=
+    dx_ln; dx = G rounded to x's dtype once, after layer 0. -> (dx, dgam,
+    dbeta [L, D], ddw [L, k, D], dwp [L, D, D], dbp [L, D]), the weight
+    gradients float32. At float32 it is the fp32 kernel's function."""
+    act, f32 = x.dtype, torch.float32
+
+    def rnd(t):  # a rounding point at x's dtype, held in float32
+        return t.to(act).to(f32)
+
+    L, K, D = dw.shape
+    pad = (K - 1) // 2
+    xl = x.to(f32)
+    saved = []
+    for l in range(L):
+        xh, inv = _ln_stats(xl)
+        n = xh * gam[l] + beta[l]
+        d = rnd(depthwise(rnd(n), dw[l]))
+        p = d @ rnd(wp[l]) + bp[l]
+        saved.append((n, xh, inv, d, p))
+        xl = xl + site_dropout(torch.relu(p), seeds, 0x100 + l, drop_rate)
+    G = g.to(f32)
+    grads = []
+    for l in range(L - 1, -1, -1):
+        n, xh, inv, d, p = saved[l]
+        g_p = torch.where(p > 0.0, site_dropout(G, seeds, 0x100 + l,
+                                                drop_rate), 0.0)
+        gp_t = rnd(g_p)
+        dwp = d.reshape(-1, D).t() @ gp_t.reshape(-1, D)
+        g_d = gp_t @ rnd(wp[l]).t()
+        n_p = F.pad(n, (0, 0, pad, K - 1 - pad))
+        T = n.shape[1]
+        ddw = torch.stack([(n_p[:, j:j + T] * g_d).sum(dim=(0, 1))
+                           for j in range(K)])
+        dx_ln, dgam, dbeta = _ln_bwd(depthwise_t(g_d, dw[l]), gam[l], xh, inv)
+        G = G + dx_ln
+        grads.append((dgam, dbeta, ddw, dwp, g_p.sum(dim=(0, 1))))
+    dgam, dbeta, ddw, dwp, dbp = (torch.stack(t[::-1]) for t in zip(*grads))
+    return G.to(act), dgam, dbeta, ddw, dwp, dbp
+
+
+class PlainConvBlock(torch.autograd.Function):
+    """FusedConvBlock's plain twin: conv_block_plain, then
+    conv_block_bwd_plain (at bf16 not torch's autograd of the forward twin,
+    which rounds elsewhere). What the CPU runs for a bf16 gradient."""
+
+    @staticmethod
+    def forward(ctx, x, gam, beta, dw, wp, bp, seeds, drop_rate):
+        ctx.save_for_backward(x, gam, beta, dw, wp, bp, seeds)
+        ctx.drop_rate = drop_rate
+        return conv_block_plain(x, gam, beta, dw, wp, bp, seeds, drop_rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gam, beta, dw, wp, bp, seeds = ctx.saved_tensors
+        return (*conv_block_bwd_plain(x, gam, beta, dw, wp, bp, seeds,
+                                      ctx.drop_rate, g), None, None)
 
 
 CONV_CLUSTER = 8  # the most CTAs a row: the most every sm_90 part schedules
@@ -790,12 +969,14 @@ def launch_conv_block_fwd(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
 
 def launch_conv_block_bwd(x, gam, beta, dw, wp, bp, seeds, drop_rate, g):
     """The backward kernel: (dx, dgam, dbeta, ddw, dwp, dbp), the weight
-    gradients summed over the batch. CUDA tensors only."""
-    name = "conv_block_bwd"
+    gradients summed over the batch; the bf16 entry point for bf16 x (g and
+    dx in x's dtype, the weight gradients float32 either way). CUDA tensors
+    only."""
+    name = _entry("conv_block_bwd", _act_dtype("conv_block_bwd", x))
     _require_cuda(name, x, gam, beta, dw, wp, bp, g)
-    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0)
+    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0, x.dtype)
     plan = conv_plan(B, T, D, K, L)
-    _check(name, g, (B, T, D))
+    _check(name, g, (B, T, D), x.dtype)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     dev = x.device
     dw, wp = _aligned16(dw, wp)
@@ -836,22 +1017,22 @@ class FusedConvBlock(torch.autograd.Function):
 def fused_conv_block(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
     """On the card: the whole-row kernels or the T-tiled ones, as
     conv_route says for a call that takes a gradient (training) or not
-    (serving); the backward is its forward's route's. bf16 x takes the bf16
-    forwards, without a gradient. On the CPU: the plain version."""
+    (serving), at x's dtype; the backward is its forward's route's. On the
+    CPU: the plain version, through PlainConvBlock for a bf16 gradient."""
     name = "conv_block_fwd"
     tensors = [x, gam, beta, dw, wp, bp] + ([] if seeds is None else [seeds])
+    grad = grad_wanted(*tensors)
+    args = (x, gam, beta, dw, wp, bp, seeds, float(drop_rate))
     if not _on_cuda(name, *tensors):
+        if grad and x.dtype == torch.bfloat16:
+            return PlainConvBlock.apply(*args)
         return conv_block_plain(x, gam, beta, dw, wp, bp, seeds, drop_rate)
     L, K, _ = dw.shape
-    grad = grad_wanted(*tensors)
     block = conv_route(*x.shape[1:], K, L, grad) == "block"
-    if _act_dtype(name, x) == torch.bfloat16:
-        _refuse_bf16_grad(name, grad)
-        args = (x, gam, beta, dw, wp, bp, seeds, float(drop_rate))
+    if not grad:
         return (launch_conv_block_fwd(*args) if block
                 else launch_conv_block_fwd_tiled(*args)[0])
-    fn = FusedConvBlock if block else FusedConvBlockTiled
-    return fn.apply(x, gam, beta, dw, wp, bp, seeds, float(drop_rate))
+    return (FusedConvBlock if block else FusedConvBlockTiled).apply(*args)
 
 
 # --- 2b. conv block at any T ---------------------------------------------------
@@ -1091,13 +1272,16 @@ def launch_conv_block_bwd_tiled(x, xs, gam, beta, dw, wp, bp, seeds,
                                 drop_rate, g):
     """The tiled backward kernels on conv_tiled_bwd_plan, from the forward's
     xs: (dx, dgam, dbeta, ddw, dwp, dbp), the weight gradients summed over
-    the batch. CUDA tensors only."""
+    the batch; the bf16 entry point for bf16 x (g and dx in x's dtype, xs,
+    the gradient between the layers and the weight gradients float32).
+    CUDA tensors only."""
     name = "conv_block_bwd_tiled"
+    name = _entry(name, _act_dtype(name, x))
     _require_cuda(name, x, xs, gam, beta, dw, wp, bp, g)
-    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0)
+    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0, x.dtype)
     plan = conv_tiled_bwd_plan(B, T, D, K, L)
     _check(name, xs, (max(L - 1, 1), B, T, D))
-    _check(name, g, (B, T, D))
+    _check(name, g, (B, T, D), x.dtype)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     dev = x.device
     # x, g, the taps and the weights land by 16-byte cp.async, g and bp are
@@ -1108,7 +1292,9 @@ def launch_conv_block_bwd_tiled(x, xs, gam, beta, dw, wp, bp, seeds,
     dsmall = _empty(dev, L, 3 + K, D)
     dwp = _empty(dev, L, D, D)
     d_ws, gp_ws = (_empty(dev, L, B, T, D) for _ in range(2))
-    g_ws = _empty(dev, B, T, D)
+    # the running gradient between the layers: dx and g_ws in turns at fp32;
+    # at bf16 two float32 buffers, dx only layer 0's output
+    g_ws = _empty(dev, 2 if x.dtype == torch.bfloat16 else 1, B, T, D)
     part = _empty(dev, plan.ctas, L, 3 + K, D)
     splits = _wgrad_splits(L, D, D, B * T, CONV_TILED_WGRAD_WAVES)
     ws = _empty(dev, L * splits * D * D if splits > 1 else 1)
@@ -1190,6 +1376,111 @@ def mha_block_plain(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
     return _mha_block(functools.partial(attention, dtype=x.dtype), x, mask,
                       gam, beta, wqkv, bqkv, wd, bd, n_heads, seeds,
                       drop_rate, residual_dtype)
+
+
+def mha_block_bwd_plain(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
+                        seeds, drop_rate, g, qkv=None, att=None):
+    """The MHA block's backward, written out as `_make_mha_block_bwd_kernel`
+    computes it (pallas_kernels.py:1762-1858): a float32 replay of
+    mha_block_plain (rounded at x's dtype), then, the gradients float32
+    unless said (g in x's dtype): g_dpre = drop203(g), dbd = sum g_dpre
+    (unrounded), dwd = sum bf16(z)^T . bf16(g_dpre), g_z = bf16(g_dpre) .
+    bf16(wd)^T; the LN2 backward, g_res, g_att = drop201(g_res); per head
+    gh = bf16(g_att_h), dv = bf16(drop(p))^T . gh, dp = drop(gh . v_h^T),
+    ds = p (dp - sum_j dp p), dq = (bf16(ds) . k_h) * scale, dk =
+    bf16(ds)^T . bf16(q_h * scale); dbqkv = sum dqkv (unrounded), dwqkv =
+    sum bf16(y)^T . bf16(dqkv), g_y = bf16(dqkv) . bf16(wqkv)^T; the LN1
+    backward; dx = g_res + g_x_ln rounded to x's dtype. -> (dx, dgam,
+    dbeta [2, D], dwqkv [D, 3D], dbqkv [3D], dwd [D, D], dbd [D]). At
+    float32 it is the fp32 kernel's function. With qkv [B, T, 3D] and att
+    [B, T, D], the forward's saved values (launch_mha_block_fwd's), it
+    takes them instead of its replay's, as the backward kernels do."""
+    act, f32 = x.dtype, torch.float32
+
+    def rnd(t):  # a rounding point at x's dtype, held in float32
+        return t.to(act).to(f32)
+
+    B, T, D = x.shape
+    hd = D // n_heads
+    scale = float(torch.tensor(1.0 / math.sqrt(float(hd)),
+                               dtype=torch.float64).to(act))
+    x32 = x.to(f32)
+    xh1, inv1 = _ln_stats(x32)
+    y_t = rnd(site_dropout(xh1 * gam[0] + beta[0], seeds, 0x200, drop_rate))
+    if qkv is None:
+        qkv = rnd(y_t @ rnd(wqkv) + bqkv)
+    qkv = qkv.to(f32)
+    neg = ((1.0 - mask.to(f32)) * -1e30).reshape(B, 1, T)
+    heads = []
+    for h in range(n_heads):
+        q_h, k_h, v_h = (qkv[:, :, i * D + h * hd:i * D + (h + 1) * hd]
+                         for i in range(3))
+        qs = rnd(q_h * scale)
+        p = torch.softmax(qs @ k_h.transpose(1, 2) + neg, dim=-1)
+        keep = (mha_hash_bits(seeds, h, T) >= drop_threshold(drop_rate)
+                if drop_rate > 0.0 else None)
+        heads.append((q_h, k_h, v_h, qs, p, keep))
+
+    def drop_p(a, keep):  # the probabilities' dropout, by the head's bits
+        return a if keep is None else torch.where(
+            keep, a * (1.0 / (1.0 - drop_rate)), 0.0)
+
+    if att is None:
+        att = torch.cat([rnd(drop_p(p, keep)) @ v_h
+                         for _, _, v_h, _, p, keep in heads], dim=-1)
+    res = site_dropout(att.to(f32), seeds, 0x201, drop_rate) + x32
+    xh2, inv2 = _ln_stats(res)
+    z_t = rnd(site_dropout(xh2 * gam[1] + beta[1], seeds, 0x202, drop_rate))
+
+    g = g.to(f32)
+    g_dpre = site_dropout(g, seeds, 0x203, drop_rate)
+    gd_t = rnd(g_dpre)
+    dwd = z_t.reshape(-1, D).t() @ gd_t.reshape(-1, D)
+    g_z = gd_t @ rnd(wd).t()
+    g_res_ln, dgam2, dbeta2 = _ln_bwd(
+        site_dropout(g_z, seeds, 0x202, drop_rate), gam[1], xh2, inv2)
+    g_res = g + g_res_ln
+    g_att = site_dropout(g_res, seeds, 0x201, drop_rate)
+    dq, dk, dv = [], [], []
+    for h, (q_h, k_h, v_h, qs, p, keep) in enumerate(heads):
+        gh = rnd(g_att[:, :, h * hd:(h + 1) * hd])
+        dv.append(rnd(drop_p(p, keep)).transpose(1, 2) @ gh)
+        dp = drop_p(gh @ v_h.transpose(1, 2), keep)
+        ds_t = rnd(p * (dp - (dp * p).sum(dim=-1, keepdim=True)))
+        dq.append((ds_t @ k_h) * scale)
+        dk.append(ds_t.transpose(1, 2) @ qs)
+    dqkv = torch.cat(dq + dk + dv, dim=-1)
+    dqkv_t = rnd(dqkv)
+    dwqkv = y_t.reshape(-1, D).t() @ dqkv_t.reshape(-1, 3 * D)
+    g_y = dqkv_t @ rnd(wqkv).t()
+    g_x_ln, dgam1, dbeta1 = _ln_bwd(
+        site_dropout(g_y, seeds, 0x200, drop_rate), gam[0], xh1, inv1)
+    return ((g_res + g_x_ln).to(act), torch.stack([dgam1, dgam2]),
+            torch.stack([dbeta1, dbeta2]), dwqkv, dqkv.sum(dim=(0, 1)), dwd,
+            g_dpre.sum(dim=(0, 1)))
+
+
+class PlainMHABlock(torch.autograd.Function):
+    """FusedMHABlock's plain twin: mha_block_plain, then mha_block_bwd_plain
+    (at bf16 not torch's autograd of the forward twin, which rounds
+    elsewhere). What the CPU runs for a bf16 gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads, seeds,
+                drop_rate):
+        ctx.save_for_backward(x, mask, gam, beta, wqkv, bqkv, wd, bd, seeds)
+        ctx.n_heads, ctx.drop_rate = n_heads, drop_rate
+        return mha_block_plain(x, mask, gam, beta, wqkv, bqkv, wd, bd,
+                               n_heads, seeds, drop_rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mask, gam, beta, wqkv, bqkv, wd, bd, seeds = ctx.saved_tensors
+        dx, dgam, dbeta, dwqkv, dbqkv, dwd, dbd = mha_block_bwd_plain(
+            x, mask, gam, beta, wqkv, bqkv, wd, bd, ctx.n_heads, seeds,
+            ctx.drop_rate, g)
+        return (dx, None, dgam, dbeta, dwqkv, dbqkv, dwd, dbd, None, None,
+                None)
 
 
 def mha_block_unfused(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
@@ -1508,13 +1799,16 @@ def launch_mha_block_fwd(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
 def launch_mha_block_bwd(x, mask, gam, beta, wqkv, wd, n_heads, seeds,
                          drop_rate, qkv, att, g):
     """The backward kernels on mha_bwd_plan's tiles: (dx, dgam, dbeta,
-    dwqkv, dbqkv, dwd, dbd), the weight gradients summed over the batch.
-    CUDA tensors only."""
-    name = "mha_block_bwd"
+    dwqkv, dbqkv, dwd, dbd), the weight gradients summed over the batch;
+    the bf16 entry point for bf16 x (g and dx in x's dtype; qkv, att and
+    the weight gradients float32 either way). CUDA tensors only."""
+    name = _entry("mha_block_bwd", _act_dtype("mha_block_bwd", x))
     _require_cuda(name, x, mask, gam, beta, wqkv, wd, qkv, att, g)
-    B, T, D = _mha_shapes(name, x, n_heads, 0, mask, gam, beta, wqkv, wd)
-    for t, shape in ((qkv, (B, T, 3 * D)), (att, (B, T, D)), (g, (B, T, D))):
+    B, T, D = _mha_shapes(name, x, n_heads, 0, mask, gam, beta, wqkv, wd,
+                          dtype=x.dtype)
+    for t, shape in ((qkv, (B, T, 3 * D)), (att, (B, T, D))):
         _check(name, t, shape)
+    _check(name, g, (B, T, D), x.dtype)
     plan = mha_bwd_plan(B, T, D, n_heads)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     dev = x.device
@@ -1571,9 +1865,9 @@ def fused_mha_block(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
                     seeds=None, drop_rate=0.0):
     """On the card: the block kernels where mha_route says "block", else
     mha_block_unfused (fused_mha's whole-T or flash kernels). bf16 x takes
-    the bf16 block forward, without a gradient, and raises on any device
-    where mha_route leaves the block kernels (no bf16 whole-T or flash
-    kernels yet). On the CPU: the plain version."""
+    the bf16 block kernels, and raises on any device where mha_route leaves
+    them (no bf16 whole-T or flash kernels yet). On the CPU: the plain
+    version, through PlainMHABlock for a bf16 gradient."""
     name = "mha_block_fwd"
     tensors = [x, mask, gam, beta, wqkv, bqkv, wd, bd]
     if seeds is not None:
@@ -1585,10 +1879,9 @@ def fused_mha_block(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
             "%s: T=%d takes the whole-T or flash attention kernels, which "
             "have no bf16 form yet (ROADMAP.md B4c)" % (name, x.shape[1]))
     if not _on_cuda(name, *tensors):
+        if bf16 and grad_wanted(*tensors):
+            return PlainMHABlock.apply(*args, float(drop_rate))
         return mha_block_plain(*args, drop_rate)
-    if bf16:
-        _refuse_bf16_grad(name, grad_wanted(*tensors))
-        return launch_mha_block_fwd(*args, float(drop_rate))[0]
     if mha_route(x.shape[1], x.shape[2], n_heads) == "block":
         return FusedMHABlock.apply(*args, float(drop_rate))
     return mha_block_unfused(*args, float(drop_rate))

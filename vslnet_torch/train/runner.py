@@ -27,8 +27,9 @@ the weights, optimizer state, dropout generator, step and best R1@0.7
 and runs the remaining steps; the loader's shuffle starts afresh, as the
 JAX package's resumed run does. Steps run one a dispatch (fused_steps is
 not ported). The Trainer raises on the checkpoint imports the port lacks
-(`UNPORTED_FLAGS`). At precision=bf16 it evaluates and tests, and `step`
-and `run` raise: bf16 training is ROADMAP.md B4b.
+(`UNPORTED_FLAGS`). At precision=bf16 it trains (the bf16 kernels each way
+on the card, their plain twins on the CPU), evaluates and tests; the
+parameters, the optimizer state and the checkpoints stay float32.
 """
 import contextlib
 import os
@@ -40,7 +41,6 @@ import numpy as np
 import torch
 
 from vslnet_torch.config import (
-    precision_dtype,
     resolve_device,
     save_config,
     use_kernels,
@@ -218,16 +218,9 @@ class Trainer:
             _, batch = next(self._epoch)
         return to_device(batch, self.device)
 
-    def refuse_bf16_training(self):
-        if precision_dtype(self.configs) == torch.bfloat16:
-            raise NotImplementedError(
-                "precision=bf16: training has no bf16 kernels yet (ROADMAP.md "
-                "B4b); bf16 serves, evaluates and tests")
-
     def step(self, batch=None):
         """One train step (on `batch`, or the loader's next); returns the
         device tensors (loss, highlight loss)."""
-        self.refuse_bf16_training()
         batch = self.next_batch() if batch is None else batch
         batch = materialize(batch, self.bank, self.train_split, True)
         loss, hl, applied = train_step(self.model, self.optimizer, batch,
@@ -315,7 +308,6 @@ class Trainer:
         and each epoch's end) into eval_results.txt and the MetricsWriter,
         a checkpoint at each new best R1@0.7, patience and the SIGTERM
         save. Returns the JAX Runner's summary dict."""
-        self.refuse_bf16_training()
         configs = self.configs
         os.makedirs(self.model_dir, exist_ok=True)
         save_config(configs, self.model_dir)
