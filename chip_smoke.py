@@ -119,15 +119,30 @@ Phases, each printing one JSON line:
               10 (L) steps with the kernels (on L the loss must fall),
               with their launches, step times and profiles (a served
               batch and a step each).
+  6b. bf16_long  precision=bf16 beyond T = 145: the bf16 whole-T (#11b,
+              #12b) and flash (#13b, #14b) kernels against their twins at
+              path M's and path L's shapes (the forwards' share of bf16
+              outputs that differ, which the fp32 function and the other
+              route's twin must fail; the backwards' bench/bf16_vjp.py
+              readings and controls), timed beside the fp32 kernel on the
+              same inputs and SDPA in bf16; then paths M and L at bf16: a
+              served batch against the twins' composition on the card
+              (use_pallas=off at bf16 and the fp32 model reported), one
+              train step against it, 3 (M) or 10 (L) steps (on L the loss
+              must fall), launches per path, a served batch and a step
+              profiled at fp32, bf16, bf16, fp32 in turns.
   7. cli      `python -m vslnet_torch` on a seeded Charades-format data
               root in processes of their own: train, resume, test (also
               at --precision bf16 on the same model directory), predict,
               serve; --mode train --precision bf16 in a model directory of
-              its own, its resume and its test; the copy rows before them
-              and the C5 shapes after.
+              its own, its resume and its test; an epoch of the
+              transformer at --max_pos_len 1024 --precision bf16 (the
+              flash kernels) and its test; the copy rows before them and
+              the C5 shapes after.
 Then the "kernels" line, and last {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.
 """
+import functools
 import json
 import math
 import os
@@ -1284,6 +1299,21 @@ def bf16_kernel_rows(dev, max_w):
     def conv_bytes(T_):
         return 2 * 2 * B * T_ * D + 4 * L * (3 * D + KS * D + D * D)
 
+    # the tiled forward also at path L's [8, 1024, 128], where #2c first
+    # runs, beside the fp32 tiled forward on the same inputs
+    args_l = [t(rng.standard_normal((8, 1024, D))).to(bf)] + conv_inputs(1)[1:]
+    ref_l = K.conv_block_plain(*args_l)
+    path_l = {"shape": [8, 1024, D], "device_ms": sum(by_kernel(
+        lambda: K.launch_conv_block_fwd_tiled(*args_l)).values()),
+        "fp32_device_ms": sum(by_kernel(lambda: K.launch_conv_block_fwd_tiled(
+            args_l[0].float(), *args_l[1:])).values()),
+        **bf16_function_check(
+            "conv_block_fwd_tiled_bf16 at path L", "share_differing",
+            share_differing(K.launch_conv_block_fwd_tiled(*args_l)[0],
+                            ref_l),
+            share_differing(K.conv_block_plain(args_l[0].float(),
+                                               *args_l[1:]).to(bf), ref_l),
+            BF16_SHARE_TOL)}
     for name, T_ in (("conv_block_fwd_bf16", max_w),
                      ("conv_block_fwd_tiled_bf16", T)):
         args = conv_inputs(T_)
@@ -1306,6 +1336,7 @@ def bf16_kernel_rows(dev, max_w):
                conv_bytes(T_), checked_err=scaled_err(got, ref),
                shape=[B, T_, D], route_serve=K.conv_route(T_, D, KS, L),
                whole_tiled_equal_bits=True,
+               **({"path_L": path_l} if "tiled" in name else {}),
                err_vs_fp32_function=scaled_err(got, ref32), **share_check)
 
     # 3. the MHA block at the video's [B, T, D] and the query's [B, max_w, D]
@@ -1353,14 +1384,17 @@ def bf16_kernel_rows(dev, max_w):
 
 class TwinsOnTheCard:
     """The kernel wrappers the model calls replaced, for a reference
-    forward on the card, by their plain versions (at bf16, the bf16 twins):
-    the modules look the wrappers up in ops/kernels.py at each call. With
-    train, the LSTM and the blocks go through the plain twins' autograd
-    Functions, whose backwards are the bf16 backward twins (a train step's
-    reference)."""
+    forward on the card, by their plain versions (at bf16, the bf16 twins;
+    the MHA block as the CPU runs it, kernels.mha_block_twin): the modules
+    look the wrappers up in ops/kernels.py at each call. With train, the
+    LSTM and the blocks go through the plain twins' autograd Functions,
+    whose backwards are the bf16 backward twins (a train step's
+    reference); attention at bf16 always does. The wrappers named in
+    `keep` stay the kernels."""
 
-    def __init__(self, train=False):
+    def __init__(self, train=False, keep=()):
         self.train = train
+        self.keep = keep
 
     def __enter__(self):
         from vslnet_torch.ops import kernels as K
@@ -1371,26 +1405,26 @@ class TwinsOnTheCard:
 
         self.saved = {n: getattr(K, n) for n in (
             "fused_lstm_recurrence", "fused_conv_block", "fused_mha_block",
-            "fused_cqa_concat", "fused_highlight_gate")}
+            "fused_cqa_concat", "fused_highlight_gate", "fused_mha")}
         K.fused_lstm_recurrence = K.lstm_recurrence_plain
         K.fused_conv_block = K.conv_block_plain
-        K.fused_mha_block = K.mha_block_plain
         K.fused_cqa_concat = lambda *a: K.cqa_plain(*a)[0]
         K.fused_highlight_gate = gate
-        if self.train:
+        # attention at any T: the twin of the route's kernels (at bf16 with
+        # their VJPs for a gradient), which mha_block_unfused looks up
+        K.fused_mha = K.mha_twin
+        train = self.train
+        K.fused_mha_block = functools.partial(K.mha_block_twin, vjp=train)
+        if train:
             K.fused_lstm_recurrence = K.PlainLSTMRecurrence.apply
 
             def conv(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
                 return K.PlainConvBlock.apply(x, gam, beta, dw, wp, bp, seeds,
                                               float(drop_rate))
 
-            def mha(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
-                    seeds=None, drop_rate=0.0):
-                return K.PlainMHABlock.apply(x, mask, gam, beta, wqkv, bqkv,
-                                             wd, bd, n_heads, seeds,
-                                             float(drop_rate))
-
-            K.fused_conv_block, K.fused_mha_block = conv, mha
+            K.fused_conv_block = conv
+        for n in self.keep:
+            setattr(K, n, self.saved[n])
         return self
 
     def __exit__(self, *exc):
@@ -1548,6 +1582,54 @@ BF16_STEP_OFF = 0.5
 BF16_STEP_ATOL = 5e-3
 
 
+def bf16_timed_row(rows, name, source, line, err, tol, fn, plain, flops,
+                   nbytes, plain_iters=None, **extra):
+    """A bf16 kernel's row (kernel_row, the bound at the bf16 peak): fn
+    timed by CUDA events and by torch.profiler, its twin plain by events
+    (plain_iters calls; 3 for the LSTM's Python loop, else 10)."""
+    from vslnet_torch.bench.common import by_kernel
+
+    parts = by_kernel(fn)
+    if plain_iters is None:
+        plain_iters = 3 if "lstm" in name else 10
+    rows.append(kernel_row(
+        name, "vslnet_torch/csrc/" + source,
+        "vslnet_tpu/ops/pallas_kernels.py:%d" % line, err, tol,
+        cuda_ms(fn, 20), cuda_ms(plain, plain_iters), flops, nbytes,
+        peak_flops=PEAK_BF16_FLOPS, device_ms=sum(parts.values()),
+        by_kernel=parts, **extra))
+
+
+def bf16_vjp_row(rows, name, source, line, cases, flops, nbytes, **extra):
+    """One row of the cases of one bf16 backward entry point (drop 0 and
+    0.2, and the shapes given): each case's readings (bench/bf16_vjp.py:
+    share, slice_share, mean_rel, elem) and its controls', the worst
+    reading over its limit held to 1, the first case timed beside the fp32
+    kernel on the same inputs."""
+    from vslnet_torch.bench import bf16_vjp as V
+    from vslnet_torch.bench.common import by_kernel
+
+    readings, worst, raw = [], (0.0, "", ""), 0.0
+    for case in cases:
+        r = V.read(case)
+        ok, why = V.verdict(case, r)
+        check(ok, why)
+        kern, twin = case.kernel(), case.twin()
+        raw = max(raw, max(max_err(a, b) for a, b in zip(kern, twin)))
+        worst = max(worst, V.worst(case, r))
+        readings.append({"shape": list(case.shape), **r})
+    first = cases[0]
+    bf16_timed_row(rows, name, source, line, raw, 1.0, first.kernel,
+                   first.twin, flops, nbytes,
+                   fp32_ms=cuda_ms(first.fp32, 20),
+                   fp32_device_ms=sum(by_kernel(first.fp32).values()),
+                   checked_err_is="the worst reading over its limit",
+                   checked_err=worst[0], worst_reading=list(worst[1:]),
+                   limits=V.limits(first), cases=readings,
+                   equal_bits_twice=all(r["equal_bits_twice"]
+                                        for r in readings), **extra)
+
+
 def bf16_train_kernel_rows(dev, max_w):
     """The five bf16 training entry points at the training shapes against
     their plain twins on the card (bench/bf16_vjp.py's readings, with both
@@ -1566,38 +1648,11 @@ def bf16_train_kernel_rows(dev, max_w):
     B, T, D, H, L, KS, heads = 16, 128, 128, 128, 4, 7, 8
     rows = []
 
-    def timed_row(name, source, line, err, tol, fn, plain, flops, nbytes,
-                  **extra):
-        parts = by_kernel(fn)
-        rows.append(kernel_row(
-            name, "vslnet_torch/csrc/" + source,
-            "vslnet_tpu/ops/pallas_kernels.py:%d" % line, err, tol,
-            cuda_ms(fn, 20), cuda_ms(plain, 3 if "lstm" in name else 10),
-            flops, nbytes, peak_flops=PEAK_BF16_FLOPS,
-            device_ms=sum(parts.values()), by_kernel=parts, **extra))
+    def timed_row(*args, **extra):
+        bf16_timed_row(rows, *args, **extra)
 
-    def vjp_rows(name, source, line, cases, flops, nbytes, **extra):
-        """One row of the cases of one entry point (drop 0 and 0.2, and
-        the shapes given): each case's readings (bench/bf16_vjp.py: share,
-        slice_share, mean_rel, elem), the worst reading over its limit
-        held to 1, the first case timed."""
-        readings, worst, raw = [], (0.0, "", ""), 0.0
-        for case in cases:
-            r = V.read(case)
-            ok, why = V.verdict(case, r)
-            check(ok, why)
-            kern, twin = case.kernel(), case.twin()
-            raw = max(raw, max(max_err(a, b) for a, b in zip(kern, twin)))
-            worst = max(worst, V.worst(case, r))
-            readings.append({"shape": list(case.shape), **r})
-        first = cases[0]
-        timed_row(name, source, line, raw, 1.0, first.kernel, first.twin, flops,
-                  nbytes, fp32_ms=cuda_ms(first.fp32, 20),
-                  fp32_device_ms=sum(by_kernel(first.fp32).values()),
-                  checked_err_is="the worst reading over its limit",
-                  checked_err=worst[0], worst_reading=list(worst[1:]),
-                  limits=V.limits(first), cases=readings, equal_bits_twice=all(
-                      r["equal_bits_twice"] for r in readings), **extra)
+    def vjp_rows(*args, **extra):
+        bf16_vjp_row(rows, *args, **extra)
 
     # 1. the LSTM forward with residuals (#7) and its backward (#8), x_proj
     # [T, B, 4H] and k_h in bf16
@@ -1664,11 +1719,19 @@ def bf16_train_kernel_rows(dev, max_w):
     for name, T_, tiled, line in (("conv_block_bwd_bf16", max_w, False, 1039),
                                   ("conv_block_bwd_tiled_bf16", T, True,
                                    1039)):
-        vjp_rows(name, "conv_block.cu", line,
-                 [V.conv_case(dev, rng, B, T_, D, rate, tiled)
-                              for rate in (DROP, 0.0)],
-                 *conv_work(T_, tiled), shape=[B, T_, D],
-                 route_train=K.conv_route(T_, D, KS, L, True))
+        cases = [V.conv_case(dev, rng, B, T_, D, rate, tiled)
+                 for rate in (DROP, 0.0)]
+        extra = {}
+        if tiled:  # also at path L's [8, 1024, 128], where #9c first runs
+            cases.append(V.conv_case(dev, rng, 8, 1024, D, DROP, True))
+            parts = by_kernel(cases[-1].kernel)
+            extra["path_L"] = {
+                "shape": [8, 1024, D], "device_ms": sum(parts.values()),
+                "fp32_device_ms": sum(by_kernel(cases[-1].fp32).values()),
+                "by_kernel": parts}
+        vjp_rows(name, "conv_block.cu", line, cases, *conv_work(T_, tiled),
+                 shape=[B, T_, D], route_train=K.conv_route(T_, D, KS, L, True),
+                 **extra)
 
     # 3. the MHA block backward (#10) at [B, T, D] and [B, max_w, D], 8
     # heads, a fully masked row; drop 0 and 0.2
@@ -1682,6 +1745,23 @@ def bf16_train_kernel_rows(dev, max_w):
              shape=[B, T, D], heads=heads, query_T=max_w,
              plan=K.mha_bwd_plan(B, T, D, heads)._asdict())
     return rows
+
+
+def step_grads_against(trainer, refs, tol):
+    """A train step's gradients (trainer's parameters') against refs
+    {name: gradient}: every leaf's max error over tol of its largest entry
+    plus BF16_STEP_ATOL of the refs' largest entry; the worst ratio and its
+    leaf, and the median over leaves of the mean error over the mean
+    magnitude."""
+    got = {n: p.grad for n, p in trainer.model.named_parameters()}
+    atol = BF16_STEP_ATOL * max(float(g.abs().max()) for g in refs.values())
+    ratios = {n: max_err(g, refs[n]) / (tol * float(refs[n].abs().max())
+                                       + atol) for n, g in got.items()}
+    means = [float((g.double() - refs[n].double()).abs().mean()
+                   / refs[n].double().abs().mean().clamp_min(1e-30))
+             for n, g in got.items()]
+    n = max(ratios, key=ratios.get)
+    return {"worst": [ratios[n], n], "median_mean_rel": float(np.median(means))}
 
 
 def bf16_train_phase(dataset, feats, fp32_launches, fp32_trainer):
@@ -1730,27 +1810,12 @@ def bf16_train_phase(dataset, feats, fp32_launches, fp32_trainer):
     def grads(t):
         return {n: p.grad for n, p in t.model.named_parameters()}
 
-    def against(got, refs, tol):
-        """Every leaf's max error over tol of its largest entry plus
-        BF16_STEP_ATOL of the model's largest gradient entry: the worst
-        ratio and its leaf, and the median over leaves of the mean error
-        over the mean magnitude."""
-        atol = BF16_STEP_ATOL * max(float(g.abs().max())
-                                    for g in refs.values())
-        ratios = {n: max_err(g, refs[n]) / (tol * float(refs[n].abs().max())
-                                           + atol) for n, g in got.items()}
-        means = [float((g.double() - refs[n].double()).abs().mean()
-                       / refs[n].double().abs().mean().clamp_min(1e-30))
-                 for n, g in got.items()]
-        n = max(ratios, key=ratios.get)
-        return {"worst": [ratios[n], n],
-                "median_mean_rel": float(np.median(means))}
-
     twins = grads(tt)
-    errs = {"twins": against(grads(tk), twins, BF16_STEP_GRAD),
-            "off": against(grads(tk), grads(to), BF16_STEP_OFF),
-            "control_fp32": against(grads(tf), twins, BF16_STEP_GRAD),
-            "control_autograd": against(grads(ta), twins, BF16_STEP_GRAD)}
+    errs = {"twins": step_grads_against(tk, twins, BF16_STEP_GRAD),
+            "off": step_grads_against(tk, grads(to), BF16_STEP_OFF),
+            "control_fp32": step_grads_against(tf, twins, BF16_STEP_GRAD),
+            "control_autograd": step_grads_against(ta, twins,
+                                                   BF16_STEP_GRAD)}
     loss_rel = {k: abs(float(loss_k) - float(v)) / abs(float(v))
                 for k, v in (("twins", loss_t), ("off", loss_o))}
     emit({"phase": "bf16_train_step", "loss_kernels": float(loss_k),
@@ -1787,15 +1852,8 @@ def bf16_train_phase(dataset, feats, fp32_launches, fp32_trainer):
           "the bf16 loss did not fall: %s" % losses)
     turns = [profile_device(t.step, step_ms)
              for t in (fp32_trainer, tk, tk, fp32_trainer)]
-
-    def without_copies(i):
-        return turns[i]["device_ms_without_copies"]
-
     emit({"phase": "profile", "of": "train step at bf16",
-          "device_ms_without_copies_turns": {
-              "fp32": [without_copies(0), without_copies(3)],
-              "bf16": [without_copies(1), without_copies(2)]},
-          "fp32_device_launches": turns[0]["device_launches"], **turns[1]})
+          **turns_fields(turns), **turns[1]})
     return launches
 
 # --- phase 6 -------------------------------------------------------------------
@@ -1830,6 +1888,42 @@ def attention_probe(rng, q, heads):
     return v
 
 
+def sdpa_yardstick(q, k, v, mask, heads):
+    """F.scaled_dot_product_attention on the same heads and the additive
+    mask (in q's dtype) at drop 0: (forward ms, backward ms =
+    forward+backward minus forward, forward+backward ms, by CUDA events;
+    the device time of the backward's kernels, torch.profiler). A
+    yardstick; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from vslnet_torch.bench.common import by_kernel
+
+    B, T, D = q.shape
+
+    def split(x):
+        return x.view(B, T, heads, D // heads).transpose(1, 2).contiguous()
+
+    qh, kh, vh = (split(x).requires_grad_() for x in (q, k, v))
+    bias = ((1.0 - mask) * -1e30).view(B, 1, 1, T).to(q.dtype)
+    g = torch.randn_like(qh)
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+        torch.autograd.grad(out, (qh, kh, vh), g)
+
+    f = cuda_ms(fwd, 20)
+    fb = cuda_ms(fwd_bwd, 20)
+    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+    b_device = sum(by_kernel(lambda: torch.autograd.grad(
+        out, (qh, kh, vh), g, retain_graph=True)).values())
+    return f, fb - f, fb, b_device
+
+
 def long_kernel_rows(dev):
     """The whole-T and flash attention kernels and the tiled conv block
     against their plain versions at the long paths' shapes (random inputs,
@@ -1837,7 +1931,6 @@ def long_kernel_rows(dev):
     every gradient of sum(out * g) and the dropout zero pattern; times
     beside the plain versions and, for attention, SDPA's."""
     import torch
-    import torch.nn.functional as F
 
     from vslnet_torch.bench.common import by_kernel
     from vslnet_torch.ops import kernels as K
@@ -1849,36 +1942,6 @@ def long_kernel_rows(dev):
 
     def seeds_for(n):
         return t(rng.integers(0, 1 << 23, (n, 1)))
-
-    def sdpa_ms(q, k, v, mask):
-        """F.scaled_dot_product_attention on the same heads and the additive
-        mask at drop 0: (forward ms, backward ms = forward+backward minus
-        forward, forward+backward ms, by CUDA events; the device time of
-        the backward's kernels, torch.profiler). A yardstick; the port
-        never calls it."""
-        B, T, _ = q.shape
-
-        def split(x):
-            return x.view(B, T, heads, D // heads).transpose(1, 2).contiguous()
-
-        qh, kh, vh = (split(x).requires_grad_() for x in (q, k, v))
-        bias = ((1.0 - mask) * -1e30).view(B, 1, 1, T)
-        g = torch.randn_like(qh)
-
-        def fwd():
-            with torch.no_grad():
-                F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
-
-        def fwd_bwd():
-            out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
-            torch.autograd.grad(out, (qh, kh, vh), g)
-
-        f = cuda_ms(fwd, 20)
-        fb = cuda_ms(fwd_bwd, 20)
-        out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
-        b_device = sum(by_kernel(lambda: torch.autograd.grad(
-            out, (qh, kh, vh), g, retain_graph=True)).values())
-        return f, fb - f, fb, b_device
 
     def attention_rows(path, fname, bname, rep_fwd, rep_bwd, source,
                        launch_fwd, launch_bwd, flash):
@@ -1913,7 +1976,8 @@ def long_kernel_rows(dev):
             lambda q, k, v: K.attention(q, k, v, mask, heads, seeds, DROP),
             [q, k, v], 3, g)
         check(finite, "%s: non-finite output or gradient" % fname)
-        lib_f, lib_b, lib_fb, lib_b_device = sdpa_ms(q, k, v, mask)
+        lib_f, lib_b, lib_fb, lib_b_device = sdpa_yardstick(q, k, v, mask,
+                                                            heads)
         # only the valid keys need scores and P.V (all T on the masked row)
         keys = sum(n if n else T for n in lens)
         io = B * T * D
@@ -2182,20 +2246,8 @@ def long_path(path):
           **profile_device(tk.step, step_ms)})
 
     # every launch where the path's model says, per served batch and step
-    heavy = 3 if cfg["predictor"] == "transformer" else 1  # T-long encoders
-    attn_f, attn_b = (("flash_mha_fwd", "flash_mha_bwd") if path == "L"
-                      else ("mha_fwd", "mha_bwd"))
-    lstm = 2 if cfg["predictor"] == "rnn" else 0
-    serve = {"conv_block_fwd_tiled": heavy, attn_f: heavy,
-             "conv_block_fwd": 1, "mha_block_fwd": 1, "cqa_concat_fwd": 1,
-             "highlight_gate_fwd": 1, "span_decode": 1,
-             "lstm_recurrence_fwd": lstm}
-    step = {"conv_block_fwd_tiled": heavy, "conv_block_bwd_tiled": heavy,
-            attn_f: heavy, attn_b: heavy, "conv_block_fwd": 1,
-            "conv_block_bwd": 1, "mha_block_fwd": 1, "mha_block_bwd": 1,
-            "lstm_recurrence_fwd_res": lstm, "lstm_recurrence_bwd": lstm}
-    for run, want in (("serve", serve), ("train", {k: n * v for k, v in
-                                                   step.items()})):
+    for run, want in (("serve", long_launches(path, 0, False)),
+                      ("train", long_launches(path, n, False))):
         expected = {name: want.get(name, 0) for name in K.LAUNCHES}
         check(runs[run] == expected, "path %s %s launch counts %s, expected "
               "%s" % (path, run, runs[run], expected))
@@ -2218,6 +2270,494 @@ def long_t_phase(dev):
     return rows
 
 
+# --- phase 6b -----------------------------------------------------------------
+# precision=bf16 beyond T = 145: the bf16 whole-T (#11b, #12b) and flash
+# (#13b, #14b) kernels against their twins at path M's and path L's shapes,
+# then both paths at bf16: a served batch and a train step against the
+# twins' composition on the card, path L's 10 steps, launches and profiles
+# in turns with fp32.
+
+# the bf16 long phase's steps a path (path L's loss must fall)
+BF16_LONG_STEPS = {"M": 3, "L": 10}
+# the paths whose bf16 step is held against the twins around the conv
+# block's kernels: on path L the step through all the twins departs by
+# flips across the conv blocks' ReLU kinks (PERF.md, Findings), which
+# conv_block_readings counts and whose kernels it holds on their own inputs
+BF16_LONG_AROUND_CONV = ("L",)
+# where each bf16 long-T kernel runs: the other path never launches it
+BF16_LONG_KERNELS = {"mha_fwd_bf16": "M", "mha_bwd_bf16": "M",
+                     "flash_mha_fwd_bf16": "L", "flash_mha_bwd_bf16": "L"}
+
+
+def bf16_long_kernel_rows(dev):
+    """#11b and #12b at path M's [16, 192, 128], #13b and #14b at path L's
+    [8, 1024, 128] (8 heads, the paths' ragged lengths T/2..T and one fully
+    masked row) against their twins on the card. The forwards at drop 0
+    and 0.2: the share of bf16 outputs that differ from the twin within
+    BF16_SHARE_TOL, where the fp32 function's and the other route's twin's
+    must be beyond it (the flash forward rounds exp(s - m) against each
+    1024-key window's max, the whole-T forward the normalised p), the flash
+    lse, equal bits twice. The backwards: bench/bf16_vjp.py's readings and
+    controls (the fp32 kernel, autograd of the forward twin, the other
+    route's backward twin; for #14b at head dim 8 its twin with #13b's
+    bf16 scale). Times: events and device time of the kernel and of the
+    fp32 kernel on the same inputs, the twin's, SDPA's in bf16, the bound
+    at the bf16 peak."""
+    import torch
+
+    from vslnet_torch.bench import bf16_vjp as V
+    from vslnet_torch.bench.common import by_kernel
+    from vslnet_torch.ops import kernels as K
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(SEED + 14)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    D, heads = 128, 8
+    rows = []
+    tpu = "vslnet_tpu/ops/pallas_kernels.py:"
+    for path, flash in (("M", False), ("L", True)):
+        B, T = (LONG_PATHS[path][k] for k in ("batch_size", "max_pos_len"))
+        check(K.attention_route(T, D // heads) == ("flash" if flash else
+                                                    "whole"), "route")
+        lens = list(rng.integers(T // 2, T + 1, B - 1)) + [0]
+        q, k, v = (t(rng.standard_normal((B, T, D))).to(bf) for _ in range(3))
+        mask = t(np.arange(T)[None, :] < np.asarray(lens)[:, None])
+        seeds = t(rng.integers(0, 1 << 23, (B, 1)))
+        whole_twin = K.whole_attention_plain
+
+        def flash_twin(*a):
+            return K.flash_attention_plain(*a)[0]
+
+        if flash:
+            fname, bname, line_f, line_b = ("flash_mha_fwd_bf16",
+                                            "flash_mha_bwd_bf16", 1395, 1454)
+            source = "flash_mha.cu"
+            twin, other = flash_twin, whole_twin
+
+            def fwd(*a):
+                return K.launch_flash_mha_fwd(*a)[0]
+        else:
+            fname, bname, line_f, line_b = ("mha_fwd_bf16", "mha_bwd_bf16",
+                                            696, 716)
+            source = "mha_block.cu"
+            twin, other, fwd = whole_twin, flash_twin, K.launch_mha_fwd
+        errs, raw, shares, ctl32, ctl_other, twice = [], [], [], [], [], True
+        for sd in ((None, 0.0), (seeds, DROP)):
+            args = (q, k, v, mask, heads, *sd)
+            out, ref = fwd(*args), twin(*args)
+            twice &= torch.equal(out, fwd(*args))
+            errs.append(scaled_err(out, ref))
+            raw.append(max_err(out, ref))
+            shares.append(share_differing(out, ref))
+            ref32 = K.attention(q.float(), k.float(), v.float(), mask, heads,
+                                *sd)
+            ctl32.append(share_differing(ref32.to(bf), ref))
+            ctl_other.append(share_differing(other(*args), ref))
+            check(bool(torch.isfinite(out.float()).all()), "%s: not finite"
+                  % fname)
+        check(twice, "%s: two equal calls differ" % fname)
+        share_check = bf16_function_check(fname, "share_differing",
+                                          max(shares), min(ctl32),
+                                          BF16_SHARE_TOL)
+        check(min(ctl_other) > BF16_SHARE_TOL, "%s: the other route's twin "
+              "differs on %g of the outputs, within %g: the check does not "
+              "tell the routes' functions apart" % (fname, min(ctl_other),
+                                                     BF16_SHARE_TOL))
+        extra = {}
+        if flash:
+            lse = K.launch_flash_mha_fwd(q, k, v, mask, heads, seeds, DROP)[1]
+            lse_ref = K.flash_attention_plain(q, k, v, mask, heads, seeds,
+                                              DROP)[1]
+            extra["lse_max_abs_err"] = max_err(lse, lse_ref)
+            check(extra["lse_max_abs_err"] <= 1e-3, "%s: lse %g from the "
+                  "twin's" % (fname, extra["lse_max_abs_err"]))
+        q32, k32, v32 = (x.float() for x in (q, k, v))
+
+        def fwd32():
+            return (K.launch_flash_mha_fwd if flash else K.launch_mha_fwd)(
+                q32, k32, v32, mask, heads)
+
+        lib_f, lib_b, lib_fb, lib_b_device = sdpa_yardstick(q, k, v, mask,
+                                                            heads)
+        keys = sum(n if n else T for n in lens)
+        io = B * T * D
+        lse_io = B * heads * T if flash else 0
+        shape = {"shape": [B, T, D], "heads": heads, "path": path}
+        bf16_timed_row(
+            rows, fname, source, line_f, max(raw), BF16_TOL,
+            lambda: fwd(q, k, v, mask, heads), lambda: twin(q, k, v, mask,
+                                                            heads),
+            # q, k, v (bf16) and the mask read, out (bf16; and lse) written
+            4 * T * keys * D, 2 * 4 * io + 4 * (B * T + lse_io),
+            plain_iters=5, checked_err=max(errs), library_ms=lib_f,
+            library="SDPA in bf16, additive mask", equal_bits_twice=twice,
+            fp32_ms=cuda_ms(fwd32, 20),
+            fp32_device_ms=sum(by_kernel(fwd32).values()),
+            dropout_device_ms=sum(by_kernel(lambda: fwd(
+                q, k, v, mask, heads, seeds, DROP)).values()),
+            other_route_share=min(ctl_other), **share_check, **extra,
+            **shape)
+        cases = [V.attention_case(dev, rng, B, T, D, heads, rate, flash)
+                 for rate in (DROP, 0.0)]
+        if flash:  # head dim 8: the forward's bf16 scale is another one
+            cases.append(V.attention_case(dev, rng, 2, 300, 64, 8, DROP,
+                                          True))
+        bf16_vjp_row(
+            rows, bname, source, line_b, cases,
+            # scores recomputed, dP, dV, dQ and dK over the valid keys; q,
+            # k, v, g (bf16; flash: and out for delta, and lse), mask and
+            # seeds read, dq, dk, dv (bf16) written
+            10 * T * keys * D,
+            2 * (8 if flash else 7) * io + 4 * (B * T + B + lse_io),
+            library_ms=lib_b, library="SDPA in bf16, forward+backward - "
+            "forward", library_fwd_bwd_ms=lib_fb,
+            library_device_ms=lib_b_device, drop_rate=DROP,
+            plan=(K.flash_bwd_plan if flash else K.mha_whole_bwd_plan)(
+                B, T, D, heads)._asdict(), **shape)
+    for row in rows:
+        row["replaces"] = tpu + row["replaces"].rsplit(":", 1)[1]
+    return rows
+
+
+def model_err(out, ref, valid):
+    """The largest error of the start and end logits and highlight scores
+    over the valid frames."""
+    return max(float((out[k].double() - ref[k].double()).abs()[valid].max())
+               for k in ("start_logits", "end_logits", "highlight_scores"))
+
+
+def long_launches(path, steps, bf16):
+    """{kernel: launches} of a served batch (steps 0) or of `steps` train
+    steps on a long path: its T-long encoders' tiled conv blocks and
+    attention (3 on the transformer path L, 1 on the rnn path M), the query
+    stream's whole-row conv block and MHA block kernels, the LSTM's (rnn),
+    CQA, the highlight gate and the span decode; the kernels with a bf16
+    form under their bf16 entries at bf16."""
+    cfg = LONG_PATHS[path]
+    heavy = 3 if cfg["predictor"] == "transformer" else 1
+    attn = "flash_mha" if path == "L" else "mha"
+    lstm = 2 if cfg["predictor"] == "rnn" else 0
+    if not steps:
+        want = {"conv_block_fwd_tiled": heavy, attn + "_fwd": heavy,
+                "conv_block_fwd": 1, "mha_block_fwd": 1,
+                "cqa_concat_fwd": 1, "highlight_gate_fwd": 1,
+                "span_decode": 1, "lstm_recurrence_fwd": lstm}
+    else:
+        want = {k: steps * n for k, n in {
+            "conv_block_fwd_tiled": heavy, "conv_block_bwd_tiled": heavy,
+            attn + "_fwd": heavy, attn + "_bwd": heavy, "conv_block_fwd": 1,
+            "conv_block_bwd": 1, "mha_block_fwd": 1, "mha_block_bwd": 1,
+            "lstm_recurrence_fwd_res": lstm,
+            "lstm_recurrence_bwd": lstm}.items()}
+    if bf16:
+        from vslnet_torch.ops import kernels as K
+
+        want = {(k + "_bf16" if k in K._BF16_KERNELS else k): n
+                for k, n in want.items()}
+    return want
+
+
+def bf16_long_path(path):
+    """One long path at precision=bf16 with long_path's data and seeded
+    weights: a served batch against the twins' composition on the card
+    (held), use_pallas=off at bf16 and the fp32 model (reported), spans in
+    range, its launches; one train step against the twins' composition
+    (the fp32 model's step reported as the control), then the path's
+    steps (path L's loss must fall); a served batch and a step profiled at
+    fp32, bf16, bf16, fp32 in turns. Returns {run: launches}."""
+    import torch
+
+    from vslnet_torch.bench.paths import (build_localizer, profile_device,
+                                          train_config, wall_ms)
+    from vslnet_torch.data.synthetic import synthetic_dataset
+    from vslnet_torch.ops import kernels as K
+    from vslnet_torch.train.runner import Trainer
+
+    cfg = LONG_PATHS[path]
+    B, T = cfg["batch_size"], cfg["max_pos_len"]
+    dataset, feats = synthetic_dataset(
+        n_train=64, n_test=B, n_videos=8, n_words=1000, n_chars=40,
+        max_pos_len=T, video_feature_dim=1024, word_dim=300,
+        min_video_len=T // 2, seed=SEED)
+    splits = [dataset["train_set"], dataset["test_set"]]
+
+    def configs(use_pallas, precision="bf16"):
+        return train_config(dataset, use_pallas, SEED, cfg["predictor"], T,
+                            B, precision=precision)
+
+    loc = build_localizer(configs("auto"), dataset, splits, SEED)
+    loc_off = build_localizer(configs("off"), dataset, splits, SEED)
+    loc32 = build_localizer(configs("auto", "fp32"), dataset, splits, SEED)
+    check(loc.model.dtype == torch.bfloat16 and loc.use_kernels,
+          "a bf16 model with the kernels")
+    triples = [(feats[r["vid"]], r["duration"], " ".join(r["words"]))
+               for r in dataset["test_set"][:B]]
+    loc.localize_batch(triples)  # warm-ups
+    loc32.localize_batch(triples)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    spans = loc.localize_batch(triples)
+    torch.cuda.synchronize()
+    runs = {"serve": dict(K.LAUNCHES)}
+    batch, _ = loc.make_batch(triples)
+    with torch.inference_mode():
+        out = loc.model(*batch)
+        K.reset_launches()
+        with TwinsOnTheCard():
+            refs = {"twins": loc.model(*batch)}
+            if K.mha_route(T, 128, 8) == "whole":
+                # the JAX package's route at path M's T: its block kernel,
+                # whose bf16 function (fp32 residuals, the attention output
+                # unrounded) the port's unfused block is not; a reading
+                K.fused_mha_block = K.mha_block_plain
+                block_function = loc.model(*batch)
+        check(not any(K.LAUNCHES.values()), "the twins launched a kernel")
+        refs["off"] = loc_off.model(*batch)
+        refs["fp32"] = loc32.model(*batch)
+    valid = out["v_mask"].bool()
+    errs = {name: model_err(out, ref, valid) for name, ref in refs.items()}
+    if K.mha_route(T, 128, 8) == "whole":
+        errs["block_kernel_function"] = model_err(out, block_function, valid)
+    finite = all(bool(torch.isfinite(out[k][valid]).all())
+                 for k in ("start_logits", "end_logits", "highlight_scores"))
+    in_range = all(0.0 <= a <= b <= r["duration"] + 1e-3 for (a, b), r in
+                   zip(spans, dataset["test_set"][:B]))
+    emit({"phase": "bf16_long_serve", "path": path, "T": T, "batch": B,
+          "predictor": cfg["predictor"], "launches": runs["serve"],
+          "max_err": errs, "tol_twins": BF16_MODEL_TOL["twins"],
+          "finite": finite, "spans_in_range": in_range,
+          "fp32_model_err_vs_twins": model_err(refs["fp32"], refs["twins"],
+                                               valid),
+          "batch_ms_bf16": wall_ms(lambda: loc.localize_batch(triples)),
+          "batch_ms_fp32": wall_ms(lambda: loc32.localize_batch(triples))})
+    check(finite and in_range and errs["twins"] <= BF16_MODEL_TOL["twins"],
+          "path %s: the bf16 served batch disagrees with the twins' "
+          "composition: %s" % (path, errs))
+    ms = wall_ms(lambda: loc.localize_batch(triples))
+    turns = [profile_device(lambda lo=lo: lo.localize_batch(triples), ms)
+             for lo in (loc32, loc, loc, loc32)]
+    emit({"phase": "profile", "of": "path %s served batch of %d at bf16"
+          % (path, B), **turns_fields(turns), **turns[1]})
+    del loc, loc_off, loc32, out, refs
+
+    tk = Trainer(configs("auto"), dataset, feats)
+    tt = Trainer(configs("auto"), dataset, feats)
+    tf = Trainer(configs("auto", "fp32"), dataset, feats)
+    with ConvBlockCalls(T, kernels=True) as kernel_calls:
+        loss_k, _ = tk.step()
+    K.reset_launches()
+    with TwinsOnTheCard(train=True), ConvBlockCalls(T, False) as twin_calls:
+        loss_t, _ = tt.step()
+    check(not any(K.LAUNCHES.values()), "the twins launched a kernel")
+    loss_f, _ = tf.step()
+    twins = {n: p.grad for n, p in tt.model.named_parameters()}
+    grads = {"twins": step_grads_against(tk, twins, BF16_STEP_GRAD)}
+    loss_rel = abs(float(loss_k) - float(loss_t)) / abs(float(loss_t))
+    held, losses = "twins", {"loss_twins": float(loss_t)}
+    if path in BF16_LONG_AROUND_CONV:
+        # the rest of the path against its twins: the same step with the
+        # conv block's kernels in the reference too
+        tc = Trainer(configs("auto"), dataset, feats)
+        with TwinsOnTheCard(train=True, keep=("fused_conv_block",)):
+            loss_c, _ = tc.step()
+        held = "twins_around_conv"
+        grads[held] = step_grads_against(
+            tk, {n: p.grad for n, p in tc.model.named_parameters()},
+            BF16_STEP_GRAD)
+        losses["loss_twins_around_conv"] = float(loss_c)
+        loss_rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
+        del tc
+    grads["control_fp32"] = step_grads_against(tf, twins, BF16_STEP_GRAD) \
+        if held == "twins" else step_grads_against(
+            tf, {n: p.grad for n, p in tk.model.named_parameters()},
+            BF16_STEP_GRAD)
+    blocks = conv_block_readings(kernel_calls.calls, twin_calls.calls)
+    emit({"phase": "bf16_long_train_step", "path": path, "held": held,
+          "loss_kernels": float(loss_k), **losses,
+          "loss_control_fp32": float(loss_f), "loss_rel_err": loss_rel,
+          "loss_rtol": BF16_STEP_LOSS_RTOL, "grad_tol": BF16_STEP_GRAD,
+          "grad_atol_of_largest": BF16_STEP_ATOL, "grads": grads,
+          "conv_blocks": blocks})
+    check(loss_rel <= BF16_STEP_LOSS_RTOL and grads[held]["worst"][0] <= 1,
+          "path %s: a bf16 train step disagrees with the %s: %s %s"
+          % (path, held, loss_rel, grads))
+    check(grads["control_fp32"]["worst"][0] > 1,
+          "path %s: the fp32 step is within the bound of the bf16 step's "
+          "reference (%s): the check does not tell them apart"
+          % (path, grads["control_fp32"]))
+    check(len(blocks) == len(kernel_calls.calls)
+          == long_launches(path, 1, False)["conv_block_bwd_tiled"]
+          and all(b["own_inputs"]["worst"][0] <= 1 for b in blocks),
+          "path %s: a T-long conv block's kernels disagree with its twin "
+          "on the step's own inputs: %s" % (path, blocks))
+    del tt, twins, kernel_calls, twin_calls
+    n = BF16_LONG_STEPS[path]
+    K.reset_launches()
+    losses, times = timed_steps(tk, n)
+    runs["train"] = dict(K.LAUNCHES)
+    step_ms = float(np.mean(times[1:]))
+    emit({"phase": "bf16_long_train", "path": path, "steps": n,
+          "losses": losses, "launches": runs["train"],
+          "step_ms_kernels": step_ms, "step_ms_each": times})
+    check(bool(np.isfinite(losses).all()), "non-finite bf16 training loss")
+    if path == "L":
+        check(float(np.mean(losses[-5:])) < losses[0],
+              "path L at bf16: the loss did not fall: %s" % losses)
+    turns = [profile_device(tr.step, step_ms) for tr in (tf, tk, tk, tf)]
+    emit({"phase": "profile", "of": "path %s train step at bf16" % path,
+          **turns_fields(turns), **turns[1]})
+    for run, want in (("serve", long_launches(path, 0, True)),
+                      ("train", long_launches(path, n, True))):
+        expected = {name: want.get(name, 0) for name in K.LAUNCHES}
+        check(runs[run] == expected, "path %s bf16 %s launch counts %s, "
+              "expected %s" % (path, run, runs[run], expected))
+    return runs
+
+
+class ConvBlockCalls:
+    """The T-long conv blocks of a train step, recorded: with kernels, the
+    tiled wrappers' calls (the inputs, the weights as they were, the layer
+    inputs the forward kept, the backward's g and gradients); else
+    fused_conv_block's calls at T (inputs and weights; entered inside
+    TwinsOnTheCard, so its twin's)."""
+
+    def __init__(self, T, kernels):
+        self.T, self.kernels, self.calls = T, kernels, []
+
+    def record(self, x, gam, beta, dw, wp, bp, seeds, drop_rate, **kept):
+        self.calls.append({"args": (x.detach(), *(
+            w.detach().clone() for w in (gam, beta, dw, wp, bp)), seeds,
+            float(drop_rate)), **kept})
+
+    def __enter__(self):
+        from vslnet_torch.ops import kernels as K
+
+        names = ("launch_conv_block_fwd_tiled", "launch_conv_block_bwd_tiled"
+                 ) if self.kernels else ("fused_conv_block",)
+        self.saved = {n: getattr(K, n) for n in names}
+        if not self.kernels:
+            block = self.saved["fused_conv_block"]
+
+            def twin(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
+                if x.shape[1] == self.T:
+                    self.record(x, gam, beta, dw, wp, bp, seeds, drop_rate)
+                return block(x, gam, beta, dw, wp, bp, seeds, drop_rate)
+
+            K.fused_conv_block = twin
+            return self
+        fwd, bwd = self.saved.values()
+
+        def forward(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
+            out, xs = fwd(x, gam, beta, dw, wp, bp, seeds, drop_rate)
+            self.record(x, gam, beta, dw, wp, bp, seeds, drop_rate, xs=xs)
+            return out, xs
+
+        def backward(x, xs, gam, beta, dw, wp, bp, seeds, drop_rate, g):
+            grads = bwd(x, xs, gam, beta, dw, wp, bp, seeds, drop_rate, g)
+            call, = [c for c in self.calls
+                     if c["xs"].data_ptr() == xs.data_ptr()]
+            call["g"], call["grads"] = g, grads
+            return grads
+
+        K.launch_conv_block_fwd_tiled = forward
+        K.launch_conv_block_bwd_tiled = backward
+        return self
+
+    def __exit__(self, *exc):
+        from vslnet_torch.ops import kernels as K
+
+        for n, f in self.saved.items():
+            setattr(K, n, f)
+
+
+CONV_GRADS = ("dx", "dgam", "dbeta", "ddw", "dwp", "dbp")
+
+
+def conv_block_readings(kernel_calls, twin_calls):
+    """For each T-long conv block of a train step (kernel_calls and
+    twin_calls from ConvBlockCalls, in forward order): its kernels'
+    gradients against the backward twin on the same inputs, g and weights
+    (the step's bound: each output's max error over BF16_STEP_GRAD of its
+    largest entry plus BF16_STEP_ATOL of the largest of all six); and a
+    direct count of the pre-ReLUs, per layer, whose sign differs between
+    the kernel step and the twin step: each from its own run's layer
+    inputs (the kernels' from the x and xs the tiled forward kept, the
+    twins' from their replay) by one formula, conv_layer_replay; beside it
+    the count between the kernels' layer inputs and the twin's replay of
+    the kernels' own x (the flips the kernels' arithmetic makes on one
+    input), and the largest |pre-ReLU| of a flip over the layer's
+    standard deviation."""
+    import torch
+
+    from vslnet_torch.ops import kernels as K
+
+    out = []
+    for kc, tc in zip(kernel_calls, twin_calls):
+        x, gam, beta, dw, wp, bp, seeds, rate = kc["args"]
+        ref = K.conv_block_bwd_plain(x, gam, beta, dw, wp, bp, seeds, rate,
+                                     kc["g"])
+        atol = BF16_STEP_ATOL * max(float(r.abs().max()) for r in ref)
+        ratios = {n: max_err(g, r) / (BF16_STEP_GRAD * float(r.abs().max())
+                                      + atol)
+                  for n, g, r in zip(CONV_GRADS, kc["grads"], ref)}
+        worst = max(ratios, key=ratios.get)
+        L = gam.shape[0]
+        layer_in = [x.float()] + list(kc["xs"][:L - 1])
+        pk = [K.conv_layer_replay(xl, gam[l], beta[l], dw[l], wp[l], bp[l],
+                                  x.dtype)[4] for l, xl in enumerate(layer_in)]
+        pt = [s[4] for s in K.conv_block_replay(*tc["args"])]
+        po = [s[4] for s in K.conv_block_replay(*kc["args"])]
+
+        def flips(a, b):
+            return [int(((u > 0) != (v > 0)).sum()) for u, v in zip(a, b)]
+
+        def near_kink(a, b):
+            return [float((v.abs()[(u > 0) != (v > 0)].max() / v.std())
+                          if bool(((u > 0) != (v > 0)).any()) else 0.0)
+                    for u, v in zip(a, b)]
+
+        out.append({"shape": list(x.shape), "own_inputs": {
+            "worst": [ratios[worst], worst], "ratios": ratios},
+            "pre_relus_a_layer": pk[0].numel(),
+            "flips_vs_twin_step": flips(pk, pt),
+            "flip_abs_over_std_vs_twin_step": near_kink(pk, pt),
+            "flips_on_own_x": flips(pk, po),
+            "input_max_abs_diff_vs_twin_step": max_err(x, tc["args"][0])})
+        del ref, pk, pt, po
+        torch.cuda.empty_cache()
+    return out
+
+
+def turns_fields(turns):
+    """The device ms without copies and the launches of profiles taken at
+    fp32, bf16, bf16, fp32 in turns."""
+    return {"device_ms_without_copies_turns": {
+        "fp32": [turns[0]["device_ms_without_copies"],
+                 turns[3]["device_ms_without_copies"]],
+        "bf16": [turns[1]["device_ms_without_copies"],
+                 turns[2]["device_ms_without_copies"]]},
+        "fp32_device_launches": turns[0]["device_launches"]}
+
+
+def bf16_long_phase(dev):
+    """The bf16 long-T rows, then both paths at bf16; each row's launches
+    are its path's (a bf16 whole-T launch on path L or a flash one on path
+    M fails the run)."""
+    rows = bf16_long_kernel_rows(dev)
+    runs = {path: bf16_long_path(path) for path in LONG_PATHS}
+    for row in rows:
+        by_run = {"%s_%s" % (p, r): c[row["name"]]
+                  for p, pr in runs.items() for r, c in pr.items()}
+        row["launches"] = sum(by_run.values())
+        row["launches_by_run"] = by_run
+        row["launches_path"] = "bf16_long " + BF16_LONG_KERNELS[row["name"]]
+        for p in LONG_PATHS:
+            ran = any(by_run["%s_%s" % (p, r)] for r in runs[p])
+            check(ran == (p in BF16_LONG_KERNELS[row["name"]]),
+                  "%s launched on path %s: %s" % (row["name"], p, by_run))
+    return rows, runs
+
+
 # --- phase 7 -------------------------------------------------------------------
 # The reference's default run through the command line (python -m
 # vslnet_torch) on a seeded miniature data root in Charades-STA's format:
@@ -2232,8 +2772,10 @@ CLI_KERNELS = ("lstm_recurrence_fwd", "lstm_recurrence_fwd_res",
                "conv_block_fwd_tiled", "conv_block_bwd_tiled",
                "mha_block_fwd", "mha_block_bwd", "cqa_concat_fwd",
                "highlight_gate_fwd", "span_decode") + tuple(
-                   n + "_bf16" for n in BF16_NAMES + BF16_TRAIN_NAMES[3:])
-# (the bf16 runs: train, resume and test)
+                   n + "_bf16" for n in BF16_NAMES + BF16_TRAIN_NAMES[3:]) + (
+                       "flash_mha_fwd_bf16", "flash_mha_bwd_bf16")
+# (the bf16 runs: train, resume and test; the flash kernels in the bf16
+# run at max_pos_len 1024)
 HTOD_STEP_MAX_BYTES = 1024
 # modules -> the kernels that show they took the kernel route
 MODULE_KERNELS = {
@@ -2553,6 +3095,21 @@ def cli_phase(dataset, feats, splits):
                              losses16))
         out_train16_test = cli_run("test_bf16_trained", cli_args(
             root, work, "--mode", "test", *bf16_dir), work, files)
+        # bf16 above T = 145: the JAX bench's long_context row (transformer
+        # predictor, max_pos_len 1024) trained for an epoch at bf16 in a
+        # model directory of its own, then its test
+        long_dir = ["--model_dir", os.path.join(work, "ckpt_long"),
+                    "--precision", "bf16", "--predictor", "transformer",
+                    "--max_pos_len", "1024"]
+        cli_run("train_bf16_long", cli_args(root, work, "--mode", "train",
+                                            "--epochs", "1", *long_dir),
+                work, files)
+        out_long = cli_run("test_bf16_long", cli_args(
+            root, work, "--mode", "test", *long_dir), work, files)
+        test_long = [float(x) for x in re.findall(r":\t([0-9.]+)", out_long)]
+        check(len(test_long) == 4 and all(0.0 <= v <= 100.0
+                                          for v in test_long),
+              "--mode test at bf16, max_pos_len 1024 gave %s" % test_long)
         test16_trained = [float(x) for x in re.findall(
             r":\t([0-9.]+)", out_train16_test)]
         best16 = scores_at(open(os.path.join(dir16, "eval_results.txt"))
@@ -2595,6 +3152,7 @@ def cli_phase(dataset, feats, splits):
                          "checkpoints": ckpts16, "losses": losses16,
                          "test": dict(zip(("R1@0.3", "R1@0.5", "R1@0.7",
                                            "mIoU"), test16_trained))},
+        "test_bf16_long": test_long,
         "predictions": len(lines),
         "http_200": len(replies),
         "launches": runs})
@@ -2608,6 +3166,13 @@ def cli_phase(dataset, feats, splits):
     for run in ("train_bf16", "resume_bf16"):  # and so did bf16 training
         check(all(runs[run][n + "_bf16"] > 0 and runs[run][n] == 0
                   for n in BF16_TRAIN_NAMES),
+              "cli: the %s run launched %s" % (run, runs[run]))
+    for run in ("train_bf16_long", "test_bf16_long"):  # the flash kernels
+        want = ("flash_mha_fwd", "flash_mha_bwd") if "train" in run else (
+            "flash_mha_fwd",)
+        check(all(runs[run][n + "_bf16"] > 0 and runs[run][n] == 0
+                  for n in want + ("conv_block_fwd_tiled",))
+              and runs[run]["mha_fwd_bf16"] == 0,
               "cli: the %s run launched %s" % (run, runs[run]))
     c5_phase(dataset, feats, splits)
     return total
@@ -2632,6 +3197,11 @@ def main():
           "nvidia_smi": smi.stdout.strip(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):  # the seconds each phase took
+        marks.append((name, time.perf_counter()))
+
     path, seconds, log = K.build_library()
     emit({"phase": "build", "seconds": seconds, "library": str(path),
           "ptxas": [ln.strip() for ln in log.splitlines()
@@ -2643,9 +3213,13 @@ def main():
     dataset, feats, splits = charades_like_dataset()
     # the query stream's length on the served path
     max_w, _ = static_caps(splits, Config())
+    mark("build")
     rows = kernel_phase(dev, max_w)
+    mark("kernels")
     launches = slice_phase(dataset, feats, splits)
+    mark("slice")
     train_launches, _, fp32_trainer = train_phase(dataset, feats)
+    mark("train")
     for row in rows:
         # each kernel's launches on the path that runs it: serving for the
         # forward kernels, training for the residual forward and backwards
@@ -2658,6 +3232,7 @@ def main():
               "%s never launched on its main path" % name)
     bf16_rows = bf16_kernel_rows(dev, max_w)
     bf16_launches = bf16_phase(dataset, feats, splits, launches)
+    mark("bf16")
     for row in bf16_rows:
         row["launches"] = bf16_launches[row["name"]]
         row["launches_path"] = "serve_bf16"
@@ -2667,6 +3242,7 @@ def main():
     bf16_train_launches = bf16_train_phase(dataset, feats, train_launches,
                                            fp32_trainer)
     del fp32_trainer
+    mark("bf16_train")
     for row in bf16_train_rows:
         row["launches"] = bf16_train_launches[row["name"]]
         row["launches_path"] = "train_bf16"
@@ -2674,13 +3250,20 @@ def main():
         check(row["launches"] > 0,
               "%s never launched on the bf16 training path" % row["name"])
     long_rows = long_t_phase(dev)
+    mark("long_t")
+    bf16_long_rows, _ = bf16_long_phase(dev)
+    mark("bf16_long")
     for row in long_rows:
         # the tiled conv kernels also run on the main path where conv_route
         # sends its rows
         row["launches_main"] = {"serve": launches[row["name"]],
                                 "train": train_launches[row["name"]]}
-    rows += long_rows + bf16_rows + bf16_train_rows
+    rows += long_rows + bf16_rows + bf16_train_rows + bf16_long_rows
     cli_counts = cli_phase(dataset, feats, splits)
+    mark("cli")
+    emit({"phase": "seconds", **{name: t - marks[i][1] for i, (name, t)
+                                in enumerate(marks[1:])},
+          "total": marks[-1][1] - marks[0][1]})
     for row in rows:
         # and on the command line's runs (train, resume, test, predict,
         # serve), each a process of its own

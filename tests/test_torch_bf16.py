@@ -7,8 +7,8 @@ points), held here as the port's plain twins against the Pallas kernels in
 interpret mode; and the XLA path's (use_pallas=off and beyond the kernels'
 predicates: bf16 residuals and state), held as the modules' bf16 paths
 against the flax modules. Then the whole VSLNet both ways at two head
-dims; bf16 training on the CPU; and what bf16 refuses (the MHA block's
-routes above T = 145, ROADMAP.md B4c).
+dims; bf16 training on the CPU; and the MHA block's routes above T = 145
+at bf16 (tests/test_torch_bf16_long.py holds them against JAX).
 
 Tolerances: torch's and JAX's CPU bf16 products both sum in fp32 and round
 once, but in other orders, so a value near a bf16 rounding boundary can
@@ -355,11 +355,22 @@ def test_bf16_trainer_run_writes_a_bf16_model_dir(tmp_path):
 
 @pytest.mark.parametrize("T_", [146, 300])  # the whole-T and flash routes
 def test_bf16_mha_block_refuses_the_long_routes_on_any_device(T_):
+    """The MHA block at bf16 on the routes above the block kernels (once
+    refused, ROADMAP.md B4c): on the CPU the unfused block at bf16 (bf16
+    residuals) around the twin of the route's bf16 attention kernel, equal
+    bit for bit to that composition, without a launch."""
     rng = np.random.default_rng(3)
     x, mask, *w = _mha_inputs(rng, 1, T_, 128, [T_])
-    assert kernels.mha_route(T_, 128, 8) != "block"
-    with pytest.raises(NotImplementedError, match="B4c"):
-        kernels.fused_mha_block(_t(x).to(BF16), _t(mask), *map(_t, w), 8)
+    route = kernels.mha_route(T_, 128, 8)
+    assert route == ("whole" if T_ == 146 else "flash")
+    twin = (kernels.whole_attention_plain if route == "whole" else
+            lambda *a: kernels.flash_attention_plain(*a)[0])
+    args = (_t(x).to(BF16), _t(mask), *map(_t, w), 8)
+    kernels.reset_launches()
+    out = kernels.fused_mha_block(*args)
+    assert out.dtype == BF16 and not any(kernels.LAUNCHES.values())
+    assert torch.equal(out, kernels._mha_block(twin, *args, None, 0.0,
+                                               residual_dtype=BF16))
     # the model's off path (use_pallas=off) computes it at bf16
     block = P.MultiHeadAttentionBlock(128, 8, use_kernels=False, dtype=BF16)
     with torch.no_grad():

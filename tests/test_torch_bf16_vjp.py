@@ -19,6 +19,11 @@ def twins_as_kernels(monkeypatch):
         K.lstm_recurrence_plain(x, k, v, residuals=True)))
     monkeypatch.setattr(K, "launch_lstm_bwd", K.lstm_recurrence_bwd_plain)
     monkeypatch.setattr(K, "launch_conv_block_bwd", K.conv_block_bwd_plain)
+    monkeypatch.setattr(K, "launch_mha_fwd", K.whole_attention_plain)
+    monkeypatch.setattr(K, "launch_mha_bwd", lambda *a: K.attention_bwd_plain(
+        *a[:7], a[8]))
+    monkeypatch.setattr(K, "launch_flash_mha_fwd", K.flash_attention_plain)
+    monkeypatch.setattr(K, "launch_flash_mha_bwd", K.flash_attention_bwd_plain)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
 
 
@@ -26,10 +31,13 @@ def _case(kind):
     rng = np.random.default_rng(13)
     if kind == "lstm":
         return V.lstm_case("cpu", rng, 12, 4, 8)
+    if kind in ("mha_whole", "flash"):  # head dim 8: #14b's scale control
+        return V.attention_case("cpu", rng, 3, 40, 16, 2, 0.2,
+                                kind == "flash")
     return V.conv_case("cpu", rng, 4, 13, 32, 0.2)
 
 
-@pytest.mark.parametrize("kind", ["lstm", "conv"])
+@pytest.mark.parametrize("kind", ["lstm", "conv", "mha_whole", "flash"])
 def test_sound_case_reads_zero_and_controls_fail(twins_as_kernels, kind):
     case = _case(kind)
     r = V.read(case)
@@ -37,14 +45,20 @@ def test_sound_case_reads_zero_and_controls_fail(twins_as_kernels, kind):
     assert all(v == 0 for ms in r["kernel"].values() for v in ms.values())
     first = case.names[0]
     assert set(r["kernel"][first]) == {"share", "slice_share", "elem"}
-    for control in ("fp32", "autograd"):
+    for control in ("fp32", "autograd", *case.controls):
         assert r[control][first]["share"] > V.limit(case, first, "share")
+    assert set(case.controls) == {"lstm": set(), "conv": set(),
+                                  "mha_whole": {"flash"},
+                                  "flash": {"whole", "bf16_scale"}}[kind]
 
 
 @pytest.mark.parametrize("kind,fault", [
     ("lstm", "row_zero"), ("lstm", "row_scaled"), ("lstm", "one_element"),
     ("conv", "last_frame_fp32"), ("conv", "row_zero"),
-    ("conv", "row_scaled"), ("conv", "one_element")])
+    ("conv", "row_scaled"), ("conv", "one_element"),
+    *((kind, fault) for kind in ("mha_whole", "flash")
+      for fault in ("last_frame_fp32", "row_zero", "row_scaled",
+                    "one_element"))])
 def test_planted_fault_is_refused(twins_as_kernels, kind, fault):
     """A fault in one frame or one row: a small share of the whole tensor
     (the LSTM's length-1 row is 1 of the valid positions, the last frame 1

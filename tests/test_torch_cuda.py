@@ -1192,8 +1192,9 @@ def test_cuda_mha_block_bf16_matches_twin(cuda, B, T, D, heads, rate):
 @pytest.mark.cuda
 def test_cuda_bf16_wrappers_refuse_gradients_and_long_routes(cuda):
     """A gradient at bf16 takes the bf16 training kernels each way (once
-    refused); the MHA block's routes above T = 145 still raise (B4c), and a
-    mix of fp32 and bf16 is refused."""
+    refused); the MHA block's routes above T = 145 take the bf16 whole-T
+    and flash kernels each way (once refused, B4c); a mix of fp32 and bf16
+    is refused."""
     rng = np.random.default_rng(34)
     x_proj, k_h, valid = (_t(a).to(cuda) for a in
                           _lstm_inputs(rng, 4, 2, 8, [4, 2]))
@@ -1213,12 +1214,65 @@ def test_cuda_bf16_wrappers_refuse_gradients_and_long_routes(cuda):
         "conv_block_fwd_bf16": 1, "conv_block_bwd_bf16": 1,
         "mha_block_fwd_bf16": 1, "mha_block_bwd_bf16": 1}
     assert xb.grad.dtype == BF16 and torch.isfinite(xb.grad.float()).all()
-    x, *w = (_t(a).to(cuda) for a in _mha_inputs(rng, 1, 200, 128, [200]))
-    with pytest.raises(NotImplementedError, match="B4c"):
-        kernels.fused_mha_block(x.to(BF16), *w, 8)
+    for T, entry in ((200, "mha"), (300, "flash_mha")):
+        x, *w = (_t(a).to(cuda) for a in _mha_inputs(rng, 2, T, 128,
+                                                        [T, 9]))
+        xb = x.to(BF16).requires_grad_()
+        kernels.reset_launches()
+        out = kernels.fused_mha_block(xb, *w, 8)
+        out.float().sum().backward()
+        torch.cuda.synchronize()
+        assert {n: v for n, v in kernels.LAUNCHES.items() if v} == {
+            entry + "_fwd_bf16": 1, entry + "_bwd_bf16": 1}
+        assert out.dtype == BF16 and xb.grad.dtype == BF16
+        assert torch.isfinite(xb.grad.float()).all()
     with pytest.raises(TypeError):  # fp32 x_proj with a bf16 k_h
         kernels.fused_lstm_recurrence(x_proj.detach().float(), k_h.to(BF16),
                                       valid)
+
+
+ATTENTION_BF16_SHAPES = [(16, 192, 128, 8, "whole"), (4, 146, 128, 4, "whole"),
+                         (2, 200, 64, 8, "whole"), (8, 1024, 128, 8, "flash"),
+                         (2, 1152, 64, 8, "flash"), (2, 300, 64, 8, "flash"),
+                         (2, 210, 128, 2, "flash")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("B,T,D,heads,route", ATTENTION_BF16_SHAPES)
+def test_cuda_attention_bf16_fwd_matches_twin(cuda, B, T, D, heads, route,
+                                              rate):
+    """#11b (whole-T) and #13b (flash) through fused_mha at bf16 against
+    their twins: paths M's and L's shapes, head dims 8-64, T = 1152 (the
+    flash forward's second 1024-key window), ragged keys and a fully
+    masked row; the share of bf16 outputs that differ within
+    BF16_SHARE_TOL where the fp32 function's and the other route's twin's
+    are beyond it; the flash lse; equal bits twice, one launch of the bf16
+    entry."""
+    rng = np.random.default_rng(37)
+    lens = list(rng.integers(1, T + 1, size=B - 1)) + [0]
+    q, k, v, mask = (_t(a).to(cuda) for a in _attn_inputs(rng, B, T, D, lens))
+    args = [q.to(BF16), k.to(BF16), v.to(BF16), mask, heads]
+    drop = ({"seeds": _t(_seeds(rng, B)).to(cuda), "drop_rate": rate}
+            if rate else {})
+    assert kernels.attention_route(T, D // heads) == route
+    name = "mha_fwd_bf16" if route == "whole" else "flash_mha_fwd_bf16"
+    kernels.reset_launches()
+    out = kernels.fused_mha(*args, **drop)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {name: 1}
+    whole = kernels.whole_attention_plain(*args, **drop)
+    flash, lse_ref = kernels.flash_attention_plain(*args, **drop)
+    ref, other = (whole, flash) if route == "whole" else (flash, whole)
+    assert out.dtype == BF16 and torch.isfinite(out.float()).all()
+    assert _scaled(out, ref) <= BF16_TOL
+    ref32 = kernels.attention(q, k, v, mask, heads, **drop)
+    assert _share(out, ref) <= BF16_SHARE_TOL < min(
+        _share(ref32.to(BF16), ref), _share(other, ref))
+    assert torch.equal(out, kernels.fused_mha(*args, **drop))
+    if route == "flash":
+        _, lse = kernels.launch_flash_mha_fwd(*args, **drop)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
 
 
 # --- bf16 training: the backward kernels against their plain twins -----------
@@ -1256,10 +1310,11 @@ def test_cuda_lstm_fwd_res_bf16_matches_twin(cuda, T, B, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["lstm", "conv", "conv_tiled", "mha"])
+@pytest.mark.parametrize("kind", ["lstm", "conv", "conv_tiled", "mha",
+                                  "mha_whole", "flash"])
 def test_cuda_bf16_backward_matches_twin(cuda, kind):
-    """#8, #9 (both forms) and #10 at bf16 against their plain backward
-    twins (the JAX package's VJPs written out): the share of a bf16 output
+    """#8, #9 (both forms), #10, #12 and #14 at bf16 against their plain
+    backward twins (the JAX package's VJPs written out): the share of a bf16 output
     that differs within SHARE_TOL, a weight gradient's mean error over its
     mean magnitude within MEAN_TOL, both controls (the fp32 kernel's
     gradient on the same bf16-valued inputs, torch's autograd of the bf16
@@ -1281,7 +1336,8 @@ def test_cuda_bf16_backward_matches_twin(cuda, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,fault", [
     ("lstm", "row_zero"), ("lstm", "row_scaled"), ("lstm", "one_element"),
-    *((kind, fault) for kind in ("conv", "conv_tiled", "mha")
+    *((kind, fault) for kind in ("conv", "conv_tiled", "mha", "mha_whole",
+                                 "flash")
       for fault in ("last_frame_fp32", "row_zero", "row_scaled",
                     "one_element"))])
 def test_cuda_bf16_backward_refuses_a_planted_fault(cuda, kind, fault):

@@ -25,7 +25,9 @@ valid positions; every element of the others):
 
 Each reading of the kernel must lie within its limit, and each impostor
 must exceed the share limit on the first output (the activation's
-gradient).
+gradient). The attention backwards (#12b whole-T, #14b flash) have more
+impostors: the other route's backward twin, and for #14b at head dim 8
+its own twin with the forward's bf16 query scale (ROADMAP.md C6).
 
     case = conv_case(dev, rng, B, T, D, rate, tiled=False)
     reading = read(case)   # {"kernel": {name: {metric: x}}, "fp32": ...}
@@ -99,6 +101,7 @@ class Case(NamedTuple):
     counted: dict = {}
     axes: dict = {}
     short_row: int = -1
+    controls: dict = {}  # more impostors: name -> their outputs
 
     def twin(self):
         return self.plain(*self.args)
@@ -168,6 +171,8 @@ def read(case):
     out = {"kernel": reading(case, first, ref)}
     for control in ("fp32", "autograd"):
         out[control] = reading(case, getattr(case, control)(), ref)
+    for control, fn in case.controls.items():
+        out[control] = reading(case, fn(), ref)
     out["equal_bits_twice"] = all(torch.equal(a, b)
                                   for a, b in zip(first, again))
     out["finite"] = all(bool(torch.isfinite(t.float()).all()) for t in first)
@@ -210,7 +215,7 @@ def verdict(case, r):
         return False, "%s: %s beyond the limits %s" % (
             case.name, bad, {k: limit(case, *k) for k in bad})
     first = case.names[0]
-    for control in ("fp32", "autograd"):
+    for control in ("fp32", "autograd", *case.controls):
         got, lim = r[control][first]["share"], limit(case, first, "share")
         if not got > lim:
             return False, "%s: control %s reads %g on %s, within %g: the " \
@@ -392,14 +397,80 @@ def mha_case(dev, rng, B, T, D, heads, rate):
         (B, T, D, heads), MHA_LIMITS, axes={"dx": (1, 0)}, short_row=B - 1)
 
 
-KINDS = ("lstm", "conv", "conv_tiled", "mha")
+ATTN_NAMES = ("dq", "dk", "dv")
+
+
+def attention_case(dev, rng, B, T, D, heads, rate, flash):
+    """#12b (whole-T) or #14b (flash) at bf16 on its bf16 forward's out
+    (and lse): q, k, v and g [B, T, D] in bf16, ragged key masks with one
+    row fully masked, drop rate `rate`. Beside the two controls, the other
+    route's backward twin and, for #14b at a head dim whose scale bf16
+    rounds (8, 32), its twin with the forward's bf16 scale."""
+    f32 = torch.float32
+    lens = np.concatenate([rng.integers(1, T + 1, B - 1), [0]])
+    q, k, v = (_t(dev, rng.standard_normal((B, T, D))).to(BF16)
+               for _ in range(3))
+    mask = _t(dev, np.arange(T)[None, :] < lens[:, None])
+    seeds = _t(dev, rng.integers(0, 1 << 23, (B, 1))) if rate else None
+    g = _t(dev, rng.standard_normal((B, T, D))).to(BF16)
+    qkv = {dt: [t.to(dt) for t in (q, k, v)] for dt in (BF16, f32)}
+    if flash:
+        saved = {dt: K.launch_flash_mha_fwd(*a, mask, heads, seeds, rate)
+                 for dt, a in qkv.items()}
+
+        def kernel(dt):
+            return K.launch_flash_mha_bwd(*qkv[dt], mask, heads, seeds, rate,
+                                          *saved[dt], g.to(dt))
+
+        def fwd_twin(*a):
+            return K.flash_attention_plain(*a, mask, heads, seeds, rate)[0]
+
+        plain, args = K.flash_attention_bwd_plain, (
+            q, k, v, mask, heads, seeds, rate, *saved[BF16], g)
+        controls = {"whole": lambda: K.attention_bwd_plain(
+            q, k, v, mask, heads, seeds, rate, g)}
+        if K._head_scale(D // heads, BF16) != K._head_scale(D // heads, f32):
+            controls["bf16_scale"] = lambda: K.flash_attention_bwd_plain(
+                *args, scale_dtype=BF16)
+    else:
+        saved = {dt: K.launch_mha_fwd(*a, mask, heads, seeds, rate)
+                 for dt, a in qkv.items()}
+
+        def kernel(dt):
+            return K.launch_mha_bwd(*qkv[dt], mask, heads, seeds, rate,
+                                    saved[dt], g.to(dt))
+
+        def fwd_twin(*a):
+            return K.whole_attention_plain(*a, mask, heads, seeds, rate)
+
+        plain, args = K.attention_bwd_plain, (q, k, v, mask, heads, seeds,
+                                              rate, g)
+        out, lse = K.flash_attention_plain(q, k, v, mask, heads, seeds, rate)
+        controls = {"flash": lambda: K.flash_attention_bwd_plain(
+            q, k, v, mask, heads, seeds, rate, out, lse, g)}
+    return Case(
+        "flash_mha_bwd_bf16" if flash else "mha_bwd_bf16", ATTN_NAMES,
+        ATTN_NAMES, lambda: kernel(BF16), plain, args, lambda: kernel(f32),
+        lambda: _autograd(fwd_twin, [q, k, v], 3, g), (B, T, D, heads),
+        axes={"dq": (1, 0)}, short_row=B - 1, controls=controls)
+
+
+KINDS = ("lstm", "conv", "conv_tiled", "mha", "mha_whole", "flash")
 
 
 def card_cases(dev, kind):
     """The card tests' cases of one bf16 backward (KINDS), the main path's
-    shape first: T = 12 (the query stream), T = 30, head dim 8, a fully
-    masked row (every MHA case), drop 0 and 0.2."""
+    shape first (the whole-T backward's path M, the flash backward's path
+    L): T = 12 (the query stream), T = 30, head dim 8, a fully masked row
+    (every MHA and attention case), drop 0 and 0.2."""
     rng = np.random.default_rng(36)
+    if kind in ("mha_whole", "flash"):
+        shapes = ([(16, 192, 128, 8), (4, 146, 128, 4), (2, 200, 64, 8),
+                   (2, 100, 128, 2)] if kind == "mha_whole" else
+                  [(8, 1024, 128, 8), (2, 300, 64, 8), (2, 256, 128, 4),
+                   (2, 210, 128, 2), (2, 1152, 64, 8)])
+        return [attention_case(dev, rng, *shape, rate, kind == "flash")
+                for shape in shapes for rate in (0.0, 0.2)]
     if kind == "lstm":
         return [lstm_case(dev, rng, T, B, H) for T, B, H in
                 [(128, 16, 128), (12, 4, 8), (30, 5, 100)]]

@@ -5,7 +5,7 @@ at a path's predictor, T and batch, and the device time of one call by
 kernel. Run alone, it profiles a served batch and a train step on each
 path, without the host-to-device copies:
 
-    python3 -m vslnet_torch.bench.paths
+    python3 -m vslnet_torch.bench.paths [--precision bf16]
     PYTHONPATH=<another tree> python3 vslnet_torch/bench/paths.py
 
 The second form runs this file on another tree's package (an older tree of
@@ -18,8 +18,10 @@ and a train step (Trainer.step), the wall ms of three each (synchronised),
 then one of each through torch.profiler: device ms, its host-to-device
 copies (time, kinds and bytes), device ms without them, the card's idle share, its launches and
 the top kernels. Prints one JSON line a run with the card's name and power
-limit.
+limit. --precision bf16 runs the paths at precision=bf16 (beyond T = 145
+the bf16 whole-T and flash kernels); a tree without bf16 refuses it.
 """
+import argparse
 import json
 import math
 import os
@@ -151,8 +153,13 @@ def wall_ms(run, n=3):
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def main(seed=0):
+def main(argv=None, seed=0):
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--precision", choices=("fp32", "bf16"),
+                        default="fp32")
+    args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("paths: no CUDA device", file=sys.stderr)
@@ -170,7 +177,9 @@ def main(seed=0):
             max_pos_len=T, video_feature_dim=1024, word_dim=300,
             min_video_len=T // 2, seed=seed)
         splits = [dataset["train_set"], dataset["test_set"]]
-        cfg = train_config(dataset, "auto", seed, predictor, T, B)
+        cfg = train_config(dataset, "auto", seed, predictor, T, B,
+                           **({"precision": args.precision}
+                              if args.precision != "fp32" else {}))
         loc = build_localizer(cfg, dataset, splits, seed)
         triples = [(feats[r["vid"]], r["duration"], " ".join(r["words"]))
                    for r in dataset["test_set"][:B]]
@@ -183,6 +192,7 @@ def main(seed=0):
             torch.cuda.synchronize()
             print(json.dumps({"bench": "paths", "card": smi, "path": path,
                               "run": run, "T": T, "batch": B,
+                              "precision": args.precision,
                               "predictor": predictor,
                               # a tree before the device bank: "vfeats"
                               # batches and pageable staging

@@ -17,16 +17,14 @@ The dataset is cached as a pickle and the packed video bank as
 package's formats. --mode test, predict and serve reload the model
 directory's configs.json and apply the flags given explicitly over it.
 
---precision bf16 trains, resumes, tests and predicts (the parameters and
-checkpoints are fp32 at either precision, so a checkpoint trained at one
-precision serves or resumes at the other).
+--precision bf16 trains, resumes, tests and predicts at any max_pos_len
+(the parameters and checkpoints are fp32 at either precision, so a
+checkpoint trained at one precision serves or resumes at the other).
 
 Not ported, each raising NotImplementedError with its ROADMAP.md item:
 --mode export (A8), --text_encoder bert (A10), --t7_checkpoint and
 --tf_checkpoint (A11), --dp_size/--sp_size/--tp_size and ring attention
-(A9), and at bf16 the MHA block above T = 145 with the kernels on (B4c,
-raised by the model). fused_steps
-runs one step a dispatch (A3).
+(A9). fused_steps runs one step a dispatch (A3).
 """
 import json
 import os

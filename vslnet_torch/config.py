@@ -59,8 +59,7 @@ class Config:
     max_words: Optional[int] = None    # static query-word cap (None: from data)
     max_chars: Optional[int] = None    # static word-char cap (None: from data)
     precision: str = "fp32"            # [fp32 | bf16]; bf16 trains,
-    #   serves and evaluates; bf16 above T = 145 with the kernels
-    #   (ROADMAP.md B4c) raises NotImplementedError
+    #   serves and evaluates at any max_pos_len
     use_pallas: str = "auto"           # [auto | on | off] hand-written
     #   kernels: auto and on launch the CUDA kernels on a CUDA device; off
     #   runs the plain PyTorch versions everywhere (see use_kernels)

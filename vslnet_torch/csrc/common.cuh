@@ -87,6 +87,17 @@ __device__ __forceinline__ T from_float(float v) {
   else
     return __float2bfloat16(v);
 }
+// p[0, 4) as a float4: one 16-byte load of fp32 (16-byte aligned), one
+// 8-byte load of bf16 (8-byte aligned), widened.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 // p[0, n) rounded to bf16 in place, by the block's threads (no barrier).
 __device__ __forceinline__ void round_bf16(float* p, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = bf16_round(p[i]);

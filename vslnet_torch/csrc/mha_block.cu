@@ -75,7 +75,9 @@
 // forward's (launch 2 of the forward), the backward the block backward's
 // cluster (launch 2 of the backward), with D_t from the forward's output.
 // Both bodies take q, k, v and their outputs through base pointers and row
-// strides.
+// strides, and are templated on the storage types of their inputs and
+// outputs: vsl_mha_fwd_bf16 and vsl_mha_bwd_bf16 (#11b, #12b) run the
+// bodies' kBf16 forms on bf16 q, k, v and g, with bf16 outputs.
 //
 // bf16 (vsl_mha_block_fwd_bf16): the TPU forward at bf16
 // (_mha_block_fwd_math, pallas_kernels.py:1689-1746) takes x in bf16 and
@@ -361,13 +363,15 @@ __host__ __device__ inline size_t attn_tile_floats(int T, int TQ, int hd) {
 // bf16): q * scale and g_att rounded to bf16 as they land, drop(P) rounded
 // for dV, and dS = P (dP - sum_j dP P) with the sum taken over the keys
 // (not from att, whose product rounded drop(P)), rounded for dQ and dK.
-template <int HD, bool kBf16 = false>
+// IT: the storage type of q, k, v, att and g_att; OT: that of dq, dk and
+// dv (#12b: both bf16, the outputs rounded once as they are stored).
+template <int HD, bool kBf16 = false, typename IT = float, typename OT = float>
 __global__ void __launch_bounds__(kMaxAttnThreads)
-attn_bwd_cluster_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
-                        const float* __restrict__ vp, int ld, const float* __restrict__ mask,
-                        vsl::Dropout drop, const float* __restrict__ att,
-                        const float* __restrict__ gatt, float* __restrict__ dqp,
-                        float* __restrict__ dkp, float* __restrict__ dvp, int ldd, int T, int D,
+attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
+                        const IT* __restrict__ vp, int ld, const float* __restrict__ mask,
+                        vsl::Dropout drop, const IT* __restrict__ att,
+                        const IT* __restrict__ gatt, OT* __restrict__ dqp,
+                        OT* __restrict__ dkp, OT* __restrict__ dvp, int ldd, int T, int D,
                         int n_heads, int TQ, float scale) {
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -393,11 +397,11 @@ attn_bwd_cluster_kernel(const float* __restrict__ qp, const float* __restrict__ 
   const uint32_t seed = drop.seed(b), salt = vsl::head_salt(h);
   const int tid = threadIdx.x, nth = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nth >> 5;
-  // K_h, V_h and the tile's q * scale and g_att by 16-byte loads, several
-  // in flight a thread (every row of a head starts on 16 bytes: ld, D and
-  // h * HD are multiples of 4, the bases 16-byte aligned)
+  // K_h, V_h and the tile's q * scale and g_att by 16-byte loads (8-byte at
+  // bf16), several in flight a thread (every row of a head starts on 16
+  // bytes: ld, D and h * HD are multiples of 4, the bases 16-byte aligned)
   constexpr int HD4 = HD / 4;
-  const auto load4 = [](const float* src) { return *reinterpret_cast<const float4*>(src); };
+  using vsl::load4;
   const auto store4 = [](float* dst, float4 v, float f) {
     const auto rnd = [](float a) { return kBf16 ? vsl::bf16_round(a) : a; };
     dst[0] = rnd(v.x * f);
@@ -424,8 +428,8 @@ attn_bwd_cluster_kernel(const float* __restrict__ qp, const float* __restrict__ 
   // D_t = sum_j P dP = g_att_t . att_t, since att = drop(P).V (at bf16 it
   // is summed over the keys below)
   for (int t = tid; t < nt && !kBf16; t += nth) {
-    const float* gt = gatt + gb + (size_t)(t0 + t) * D;
-    const float* at = att + gb + (size_t)(t0 + t) * D;
+    const IT* gt = gatt + gb + (size_t)(t0 + t) * D;
+    const IT* at = att + gb + (size_t)(t0 + t) * D;
     float s = 0.f;
 #pragma unroll
     for (int d = 0; d < HD; d += 4) {
@@ -514,7 +518,7 @@ attn_bwd_cluster_kernel(const float* __restrict__ qp, const float* __restrict__ 
   const auto ds_tj = [&](int t, int j) { return SP[(size_t)t * lds + j]; };
   const auto k_jd = [&](int j, int d) { return Ks[j * LD + d]; };
   const auto dq_out = [&](int t, int d, float v) {
-    dqp[ob + (size_t)(t0 + t) * ldd + d] = v * scale;
+    dqp[ob + (size_t)(t0 + t) * ldd + d] = vsl::from_float<OT>(v * scale);
   };
   const int rounds22 = ((nt + 1) / 2 * (HD / 2) + nth - 1) / nth;
   if (rounds22 < (nt * (HD / 2) + nth - 1) / nth)
@@ -547,8 +551,8 @@ attn_bwd_cluster_kernel(const float* __restrict__ qp, const float* __restrict__ 
         sv += pv[q];
       }
     }
-    dkp[ob + (size_t)j * ldd + d] = sk;
-    dvp[ob + (size_t)j * ldd + d] = sv;
+    dkp[ob + (size_t)j * ldd + d] = vsl::from_float<OT>(sk);
+    dvp[ob + (size_t)j * ldd + d] = vsl::from_float<OT>(sv);
   }
   cluster.sync();  // no CTA leaves while another may read its partials
 }
@@ -557,17 +561,17 @@ attn_bwd_cluster_kernel(const float* __restrict__ qp, const float* __restrict__ 
 // heads on query tiles of TQ rows: one cluster of ceil(T / TQ) CTAs of
 // `threads` threads a (row, head).
 // kBf16: the bf16 body, with the scale rounded to bf16.
-template <int HD, bool kBf16 = false>
-cudaError_t launch_attention_bwd_tiles(const float* q, const float* k, const float* v, int ld,
-                                       const float* mask, vsl::Dropout drop, const float* att,
-                                       const float* gatt, float* dq, float* dk, float* dv,
+template <int HD, bool kBf16 = false, typename IT = float, typename OT = float>
+cudaError_t launch_attention_bwd_tiles(const IT* q, const IT* k, const IT* v, int ld,
+                                       const float* mask, vsl::Dropout drop, const IT* att,
+                                       const IT* gatt, OT* dq, OT* dk, OT* dv,
                                        int ldd, int B, int T, int D, int n_heads, int TQ,
                                        int threads, cudaStream_t stream) {
   const int nq = (T + TQ - 1) / TQ;
   const size_t smem = attn_tile_floats(T, TQ, HD) * sizeof(float);
   const float scale = kBf16 ? vsl::bf16_round_host(vsl::head_scale(HD)) : vsl::head_scale(HD);
   const cudaError_t err = vsl::launch_cluster(
-      attn_bwd_cluster_kernel<HD, kBf16>, B * n_heads * nq, nq, threads, smem, stream, q, k, v,
+      attn_bwd_cluster_kernel<HD, kBf16, IT, OT>, B * n_heads * nq, nq, threads, smem, stream, q, k, v,
       ld, mask, drop, att, gatt, dq, dk, dv, ldd, T, D, n_heads, TQ, scale);
   return err == cudaSuccess ? cudaGetLastError() : err;
 }
@@ -632,12 +636,14 @@ fwd_qkv_tile_kernel(const XT* __restrict__ x, const float* __restrict__ gam,
 // read them (the block's packed qkv [B, T, 3D]: ld = 3D, k = qkv + D, v =
 // qkv + 2D), the output with row stride ldo. kBf16: q * scale rounded to
 // bf16 (scale already bf16), the probabilities normalised, dropped and
-// rounded to bf16 before the product.
-template <int HD, bool kBf16 = false>
+// rounded to bf16 before the product. IT: the storage type of q, k and v;
+// OT: that of the output (#11b: both bf16, the output rounded once as it
+// is stored).
+template <int HD, bool kBf16 = false, typename IT = float, typename OT = float>
 __global__ void __launch_bounds__(kThreads)
-attn_fwd_tile_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
-                     const float* __restrict__ vp, int ld, const float* __restrict__ mask,
-                     vsl::Dropout drop, float* __restrict__ att, int ldo, int T, int TQ,
+attn_fwd_tile_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
+                     const IT* __restrict__ vp, int ld, const float* __restrict__ mask,
+                     vsl::Dropout drop, OT* __restrict__ att, int ldo, int T, int TQ,
                      float scale) {
   extern __shared__ float4 smem4[];
   const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * TQ, nt = min(TQ, T - t0);
@@ -655,12 +661,12 @@ attn_fwd_tile_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
   const int lane = tid & 31, warp = tid >> 5, nwarps = nth >> 5;
   for (int i = tid; i < T * HD; i += nth) {
     const int j = i / HD, d = i - j * HD;
-    Ks[j * LD + d] = kp[hb + (size_t)j * ld + d];
-    Vs[j * LD + d] = vp[hb + (size_t)j * ld + d];
+    Ks[j * LD + d] = vsl::to_float(kp[hb + (size_t)j * ld + d]);
+    Vs[j * LD + d] = vsl::to_float(vp[hb + (size_t)j * ld + d]);
   }
   for (int i = tid; i < nt * HD; i += nth) {
     const int t = i / HD, d = i - t * HD;
-    const float qs = qp[hb + (size_t)(t0 + t) * ld + d] * scale;
+    const float qs = vsl::to_float(qp[hb + (size_t)(t0 + t) * ld + d]) * scale;
     Qs[t * LD + d] = kBf16 ? vsl::bf16_round(qs) : qs;
   }
   for (int j = tid; j < T; j += nth) neg[j] = (1.f - mask[(size_t)b * T + j]) * vsl::kMaskValue;
@@ -702,18 +708,18 @@ attn_fwd_tile_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
   }
   __syncthreads();
   // att = drop(P).V: the kept exps . V, times the drop scale over the sum
-  float* ob = att + ((size_t)b * T + t0) * ldo + h * HD;
+  OT* ob = att + ((size_t)b * T + t0) * ldo + h * HD;
   tile_product<2, 2>(
       nt, HD, T, [&](int t, int j) { return S[(size_t)t * lds + j]; },
       [&](int j, int d) { return Vs[j * LD + d]; },
-      [&](int t, int d, float v) { ob[(size_t)t * ldo + d] = v * rs[t]; });
+      [&](int t, int d, float v) { ob[(size_t)t * ldo + d] = vsl::from_float<OT>(v * rs[t]); });
 }
 
-template <int HD, bool kBf16 = false>
-cudaError_t launch_attention_tiles(const float* q, const float* k, const float* v, int ld,
-                                   const float* mask, vsl::Dropout drop, float* att, int ldo,
+template <int HD, bool kBf16 = false, typename IT = float, typename OT = float>
+cudaError_t launch_attention_tiles(const IT* q, const IT* k, const IT* v, int ld,
+                                   const float* mask, vsl::Dropout drop, OT* att, int ldo,
                                    int B, int T, int n_heads, int TQ, cudaStream_t stream) {
-  auto kernel = attn_fwd_tile_kernel<HD, kBf16>;
+  auto kernel = attn_fwd_tile_kernel<HD, kBf16, IT, OT>;
   const size_t smem = fwd_attn_tile_floats(T, TQ, HD) * sizeof(float);
   cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
@@ -962,19 +968,66 @@ extern "C" int vsl_mha_fwd(const float* q, const float* k, const float* v, const
   }));
 }
 
+namespace {
+
+bool whole_bwd_ok(int B, int T, int D, int n_heads, int TQ, int threads) {
+  const int nq = TQ > 0 ? (T + TQ - 1) / TQ : 0;
+  return !(B < 1 || T < 1 || n_heads < 1 || D % n_heads || nq < 1 || nq > kMaxCluster ||
+           threads < 32 || threads % 32 || threads > kMaxAttnThreads);
+}
+
+}  // namespace
+
 extern "C" int vsl_mha_bwd(const float* q, const float* k, const float* v, const float* mask,
                            const float* seeds, unsigned thresh, float scale, const float* out,
                            const float* g, float* dq, float* dk, float* dv, int B, int T, int D,
                            int n_heads, int TQ, int threads, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int nq = TQ > 0 ? (T + TQ - 1) / TQ : 0;
-  if (B < 1 || T < 1 || n_heads < 1 || D % n_heads || nq < 1 || nq > kMaxCluster ||
-      threads < 32 || threads % 32 || threads > kMaxAttnThreads)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!whole_bwd_ok(B, T, D, n_heads, TQ, threads)) return static_cast<int>(cudaErrorInvalidValue);
   const vsl::Dropout drop{seeds, thresh, scale};
   return static_cast<int>(vsl::by_head_dim(D / n_heads, [&](auto hd) {
     return launch_attention_bwd_tiles<decltype(hd)::value>(q, k, v, D, mask, drop, out, g, dq,
                                                            dk, dv, D, B, T, D, n_heads, TQ,
                                                            threads, stream);
+  }));
+}
+
+// The whole-T kernels at bf16 (#11b, #12b; the TPU kernels
+// _make_mha_fwd_kernel and _make_mha_bwd_kernel at dtype bf16): q, k, v,
+// out, g, dq, dk and dv [B, T, D] in bf16, on the same plans. The forward
+// is #3b's attention body (bf16(q_h * bf16 scale), fp32 scores and
+// softmax, bf16(drop(p)) . v_h summed in fp32) with its output rounded to
+// bf16; the backward #10b's (dV = bf16(drop(P))^T . g, dS = P (dP - sum_j
+// dP P) from the keys, dQ = (bf16(dS) . k_h) * bf16 scale, dK = bf16(dS)^T .
+// bf16(q_h * scale)) with dq, dk and dv rounded to bf16 once, as stored;
+// out is not read.
+extern "C" int vsl_mha_fwd_bf16(const void* q, const void* k, const void* v, const float* mask,
+                                const float* seeds, unsigned thresh, float scale, void* out,
+                                int B, int T, int D, int n_heads, int TQ, void* stream_) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (TQ < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const vsl::Dropout drop{seeds, thresh, scale};
+  return static_cast<int>(vsl::by_head_dim(D / n_heads, [&](auto hd) {
+    return launch_attention_tiles<decltype(hd)::value, true>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), D,
+        mask, drop, static_cast<bf16*>(out), D, B, T, n_heads, TQ, stream);
+  }));
+}
+
+extern "C" int vsl_mha_bwd_bf16(const void* q, const void* k, const void* v, const float* mask,
+                                const float* seeds, unsigned thresh, float scale, const void* out,
+                                const void* g, void* dq, void* dk, void* dv, int B, int T, int D,
+                                int n_heads, int TQ, int threads, void* stream_) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (!whole_bwd_ok(B, T, D, n_heads, TQ, threads)) return static_cast<int>(cudaErrorInvalidValue);
+  const vsl::Dropout drop{seeds, thresh, scale};
+  return static_cast<int>(vsl::by_head_dim(D / n_heads, [&](auto hd) {
+    return launch_attention_bwd_tiles<decltype(hd)::value, true>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), D,
+        mask, drop, static_cast<const bf16*>(out), static_cast<const bf16*>(g),
+        static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), D, B, T, D,
+        n_heads, TQ, threads, stream);
   }));
 }

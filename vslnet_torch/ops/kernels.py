@@ -28,22 +28,25 @@ the MHA block kernels up to T = 145 at D = 128, above that the block's
 PyTorch ops around `fused_mha`, whose whole-T kernels take T up to 209 at
 head dim 16 and its flash kernels any longer T.
 
-bf16 (`precision=bf16`): the LSTM recurrence, the conv block (both forms)
-and the MHA block have bf16 kernels each way, the TPU kernels' functions at
-bf16 (bf16 activations, fp32 weights rounded where the TPU kernel rounds
-them, fp32 accumulation; `_BF16_KERNELS`). Their wrappers take the
-activation's dtype and launch the bf16 entry point for bf16 tensors
-(counted under its own name); the MHA block refuses the routes above T =
-145 at bf16 on any device (ROADMAP.md B4c). Their plain versions compute
-the same bf16 functions. The backward's bf16 function is the JAX
-package's custom VJP, which rounds at its own points, not at the
-transposes of the forward's casts, so torch's autograd of the forward
-twin is another function: the backward twins `lstm_recurrence_bwd_plain`,
-`conv_block_bwd_plain` and `mha_block_bwd_plain` write the VJPs out, and
-on the CPU a bf16 gradient runs them through `PlainLSTMRecurrence`,
-`PlainConvBlock` and `PlainMHABlock` (an fp32 gradient keeps torch's
-autograd of the forward twins). The other kernels are fp32 at any
-precision, as the JAX package's wrappers cast around them.
+bf16 (`precision=bf16`): the LSTM recurrence, the conv block (both forms),
+the MHA block and attention at any T (whole-T and flash) have bf16 kernels
+each way, the TPU kernels' functions at bf16 (bf16 activations, fp32
+weights rounded where the TPU kernel rounds them, fp32 accumulation;
+`_BF16_KERNELS`). Their wrappers take the activation's dtype and launch
+the bf16 entry point for bf16 tensors (counted under its own name); above
+the block kernels' T the MHA block at bf16 is the JAX package's unfused
+block at bf16 (bf16 residuals) around `fused_mha`'s bf16 kernels. Their
+plain versions compute the same bf16 functions. The backward's bf16
+function is the JAX package's custom VJP, which rounds at its own points,
+not at the transposes of the forward's casts, so torch's autograd of the
+forward twin is another function: the backward twins
+`lstm_recurrence_bwd_plain`, `conv_block_bwd_plain`, `mha_block_bwd_plain`,
+`attention_bwd_plain` and `flash_attention_bwd_plain` write the VJPs out,
+and on the CPU a bf16 gradient runs them through `PlainLSTMRecurrence`,
+`PlainConvBlock`, `PlainMHABlock`, `PlainMHA` and `PlainFlashMHA` (an fp32
+gradient keeps torch's autograd of the forward twins). The other kernels
+are fp32 at any precision, as the JAX package's wrappers cast around
+them.
 
 The kernels (csrc/*.cu, sm_90a) are compiled with nvcc into one
 shared library with a plain C interface, one nvcc process per source, all
@@ -97,13 +100,15 @@ LAUNCHES = {"lstm_recurrence_fwd": 0, "lstm_recurrence_fwd_res": 0,
             "conv_block_fwd_tiled_bf16": 0, "mha_block_fwd_bf16": 0,
             "lstm_recurrence_fwd_res_bf16": 0, "lstm_recurrence_bwd_bf16": 0,
             "conv_block_bwd_bf16": 0, "conv_block_bwd_tiled_bf16": 0,
-            "mha_block_bwd_bf16": 0}
+            "mha_block_bwd_bf16": 0, "mha_fwd_bf16": 0, "mha_bwd_bf16": 0,
+            "flash_mha_fwd_bf16": 0, "flash_mha_bwd_bf16": 0}
 # the kernels with a bf16 entry point: a wrapper given bf16 activations
 # launches `<name>_bf16`
 _BF16_KERNELS = ("lstm_recurrence_fwd", "conv_block_fwd",
                  "conv_block_fwd_tiled", "mha_block_fwd",
                  "lstm_recurrence_fwd_res", "lstm_recurrence_bwd",
-                 "conv_block_bwd", "conv_block_bwd_tiled", "mha_block_bwd")
+                 "conv_block_bwd", "conv_block_bwd_tiled", "mha_block_bwd",
+                 "mha_fwd", "mha_bwd", "flash_mha_fwd", "flash_mha_bwd")
 
 
 def reset_launches():
@@ -420,7 +425,7 @@ def attention(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0,
     both bf16, rounded to bf16; fp32 scores and softmax; the probabilities
     rounded to bf16 for their product with v_h. The products sum in q's
     dtype: float32 for the bf16 MHA block kernel's function, bf16 for the
-    XLA path's."""
+    XLA path's (whole_attention_plain: float32 sums and a bf16 output)."""
     return _attention_scores(q, k, v, mask, n_heads, seeds, drop_rate,
                              dtype)[0]
 
@@ -765,6 +770,32 @@ def depthwise_t(g, dw):
     return F.conv1d(gt, dw.flip(0).t().unsqueeze(1), groups=D).transpose(1, 2)
 
 
+def conv_layer_replay(xl, gam, beta, dw, wp, bp, act):
+    """One layer of the conv block's float32 replay from its float32 input
+    xl, rounded at act as the kernels round: (n, xh, inv, d, p), p the
+    pre-ReLU."""
+    def rnd(t):
+        return t.to(act).to(torch.float32)
+
+    xh, inv = _ln_stats(xl)
+    n = xh * gam + beta
+    d = rnd(depthwise(rnd(n), dw))
+    return n, xh, inv, d, d @ rnd(wp) + bp
+
+
+def conv_block_replay(x, gam, beta, dw, wp, bp, seeds, drop_rate):
+    """conv_block_bwd_plain's float32 replay of conv_block_plain (rounded at
+    x's dtype): each layer's conv_layer_replay, in order."""
+    xl = x.to(torch.float32)
+    saved = []
+    for l in range(gam.shape[0]):
+        saved.append(conv_layer_replay(xl, gam[l], beta[l], dw[l], wp[l],
+                                       bp[l], x.dtype))
+        xl = xl + site_dropout(torch.relu(saved[-1][4]), seeds, 0x100 + l,
+                               drop_rate)
+    return saved
+
+
 def conv_block_bwd_plain(x, gam, beta, dw, wp, bp, seeds, drop_rate, g):
     """The conv block's backward, written out as
     `_make_conv_block_bwd_kernel` computes it (pallas_kernels.py:1039-1114):
@@ -784,15 +815,7 @@ def conv_block_bwd_plain(x, gam, beta, dw, wp, bp, seeds, drop_rate, g):
 
     L, K, D = dw.shape
     pad = (K - 1) // 2
-    xl = x.to(f32)
-    saved = []
-    for l in range(L):
-        xh, inv = _ln_stats(xl)
-        n = xh * gam[l] + beta[l]
-        d = rnd(depthwise(rnd(n), dw[l]))
-        p = d @ rnd(wp[l]) + bp[l]
-        saved.append((n, xh, inv, d, p))
-        xl = xl + site_dropout(torch.relu(p), seeds, 0x100 + l, drop_rate)
+    saved = conv_block_replay(x, gam, beta, dw, wp, bp, seeds, drop_rate)
     G = g.to(f32)
     grads = []
     for l in range(L - 1, -1, -1):
@@ -1489,9 +1512,11 @@ def mha_block_unfused(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
     or "flash"): mha_block_plain's PyTorch LayerNorms, projections,
     residuals and site dropouts (the same per-row seeds, so the same
     masks) around fused_mha, as the JAX package's unfused block keeps them
-    in XLA around its fused_mha."""
+    in XLA around its fused_mha (layers.py:466-475): the residuals and
+    each stage in x's dtype, so at bf16 the XLA path's bf16 block around
+    fused_mha's bf16 kernels."""
     return _mha_block(fused_mha, x, mask, gam, beta, wqkv, bqkv, wd, bd,
-                      n_heads, seeds, drop_rate)
+                      n_heads, seeds, drop_rate, residual_dtype=x.dtype)
 
 
 MHA_HEAD_DIMS = (8, 16, 32, 64)
@@ -1861,27 +1886,40 @@ class FusedMHABlock(torch.autograd.Function):
                 None)
 
 
+def mha_block_twin(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
+                   seeds=None, drop_rate=0.0, vjp=None):
+    """fused_mha_block's plain version at x's dtype, what the CPU runs: at
+    bf16 beyond the block route mha_block_unfused, whose fused_mha runs
+    the twins of the route's bf16 kernels (the function the card computes
+    there, not the block kernel's); else mha_block_plain, through
+    PlainMHABlock (the backward twin) where vjp, by default where bf16 x
+    or a weight wants a gradient."""
+    args = (x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads, seeds)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and mha_route(x.shape[1], x.shape[2], n_heads) != "block":
+        return mha_block_unfused(*args, float(drop_rate))
+    if vjp is None:
+        vjp = bf16 and grad_wanted(x, gam, beta, wqkv, bqkv, wd, bd)
+    if vjp:
+        return PlainMHABlock.apply(*args, float(drop_rate))
+    return mha_block_plain(*args, drop_rate)
+
+
 def fused_mha_block(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
                     seeds=None, drop_rate=0.0):
     """On the card: the block kernels where mha_route says "block", else
-    mha_block_unfused (fused_mha's whole-T or flash kernels). bf16 x takes
-    the bf16 block kernels, and raises on any device where mha_route leaves
-    them (no bf16 whole-T or flash kernels yet). On the CPU: the plain
-    version, through PlainMHABlock for a bf16 gradient."""
+    mha_block_unfused (fused_mha's whole-T or flash kernels), at x's dtype:
+    bf16 x takes the bf16 block kernels, or beyond them the unfused block
+    at bf16 around the bf16 whole-T or flash kernels. On the CPU:
+    mha_block_twin."""
     name = "mha_block_fwd"
     tensors = [x, mask, gam, beta, wqkv, bqkv, wd, bd]
     if seeds is not None:
         tensors.append(seeds)
     args = (x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads, seeds)
-    bf16 = _act_dtype(name, x) == torch.bfloat16
-    if bf16 and mha_route(x.shape[1], x.shape[2], n_heads) != "block":
-        raise NotImplementedError(
-            "%s: T=%d takes the whole-T or flash attention kernels, which "
-            "have no bf16 form yet (ROADMAP.md B4c)" % (name, x.shape[1]))
+    _act_dtype(name, x)
     if not _on_cuda(name, *tensors):
-        if bf16 and grad_wanted(*tensors):
-            return PlainMHABlock.apply(*args, float(drop_rate))
-        return mha_block_plain(*args, drop_rate)
+        return mha_block_twin(*args, drop_rate)
     if mha_route(x.shape[1], x.shape[2], n_heads) == "block":
         return FusedMHABlock.apply(*args, float(drop_rate))
     return mha_block_unfused(*args, float(drop_rate))
@@ -1898,7 +1936,9 @@ def fused_mha_block(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
 # forward runs on flash_fwd_plan, several query rows a thread against key
 # tiles streamed through shared memory; the flash backward on
 # flash_bwd_plan, one pass over key-tile CTAs with its products
-# register-tiled out of shared memory.
+# register-tiled out of shared memory. At bf16 (q, k, v bf16) each kernel
+# computes the TPU kernel's function at bf16 (#11b-#14b); the plain twins
+# below write those functions out, and their backwards the custom VJPs.
 
 # keys a CTA of the flash backward at head dims up to 32 (64 above: the
 # kernel keeps 2 keys x 8 dims of dK and dV a thread in registers, for at
@@ -1998,19 +2038,208 @@ def flash_fwd_plan(B, T, D, n_heads):
                         q_tiles * n_heads * B)
 
 
+# keys a tile of the TPU flash kernels' online softmax (pallas_kernels.py
+# _FLASH_TK): at bf16 the flash forward rounds exp(s - m) against the
+# running max of such windows
+FLASH_WINDOW = 1024
+
+
+def _heads(t, n_heads):
+    """[B, T, D] -> [B, H, T, D / H] in float32."""
+    B, T, D = t.shape
+    return t.to(torch.float32).reshape(B, T, n_heads, D // n_heads).transpose(
+        1, 2)
+
+
+def _merge_heads(t, dtype):
+    B, H, T, hd = t.shape
+    return t.transpose(1, 2).reshape(B, T, H * hd).to(dtype)
+
+
+def _head_scale(hd, dtype):
+    """1 / sqrt(hd) rounded to dtype (the TPU kernels' `dtype(scale)`), as
+    a Python float."""
+    return float(torch.tensor(1.0 / math.sqrt(float(hd)),
+                              dtype=torch.float64).to(dtype))
+
+
+def _keep_bits(seeds, drop_rate, n_heads, T):
+    """[B, H, T, T] bool: the heads' keep masks, or None at drop 0."""
+    if not drop_rate > 0.0:
+        return None
+    if seeds is None:
+        raise ValueError("drop_rate > 0 needs per-row seeds [B, 1]")
+    bits = torch.stack([mha_hash_bits(seeds, h, T) for h in range(n_heads)],
+                       dim=1)
+    return bits >= drop_threshold(drop_rate)
+
+
+def _drop_keep(a, keep, drop_rate):
+    return a if keep is None else torch.where(
+        keep, a * (1.0 / (1.0 - drop_rate)), 0.0)
+
+
 def flash_attention_plain(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
-    """(out, lse [B, H, T]): attention's output and the logsumexp over the
-    keys of each head's masked, scaled scores (what the flash forward
-    saves)."""
-    out, s = _attention_scores(q, k, v, mask, n_heads, seeds, drop_rate)
-    return out, torch.logsumexp(s, dim=-1)
+    """(out, lse [B, H, T]) in q's dtype and float32. At float32,
+    attention's output and the logsumexp over the keys of each head's
+    masked, scaled scores (what the flash forward saves). For bf16 q, k, v,
+    the flash forward kernel's function at bf16 (#13b,
+    pallas_kernels.py:1395-1451), which is not attention's: qs =
+    bf16(q_h * bf16 scale), fp32 scores; for each key window of
+    FLASH_WINDOW keys in turn, m <- max(m, the window's row max), p =
+    exp(s - m) unnormalised, l <- l alpha + sum p (fp32, unrounded), acc
+    <- acc alpha + bf16(drop(p)) . v_h (fp32 sums); out = bf16(acc / l),
+    lse = m + log l."""
+    if q.dtype != torch.bfloat16:
+        out, s = _attention_scores(q, k, v, mask, n_heads, seeds, drop_rate)
+        return out, torch.logsumexp(s, dim=-1)
+    act, f32 = q.dtype, torch.float32
+    B, T, D = q.shape
+    scale = _head_scale(D // n_heads, act)
+    qs = (_heads(q, n_heads) * scale).to(act).to(f32)
+    s = qs @ _heads(k, n_heads).transpose(-1, -2) + (
+        (1.0 - mask.to(f32)) * -1e30).reshape(B, 1, 1, T)
+    vh = _heads(v, n_heads)
+    keep = _keep_bits(seeds, drop_rate, n_heads, T)
+    m = torch.full((B, n_heads, T, 1), -math.inf, dtype=f32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qs)
+    for j0 in range(0, T, FLASH_WINDOW):
+        win = slice(j0, j0 + FLASH_WINDOW)
+        sw = s[..., win]
+        m_new = torch.maximum(m, sw.amax(dim=-1, keepdim=True))
+        p = torch.exp(sw - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        p = _drop_keep(p, None if keep is None else keep[..., win], drop_rate)
+        acc = acc * alpha + p.to(act).to(f32) @ vh[:, :, win]
+        m = m_new
+    return _merge_heads(acc / l, act), (m + torch.log(l))[..., 0]
+
+
+def attention_bwd_plain(q, k, v, mask, n_heads, seeds, drop_rate, g):
+    """The whole-T backward, written out as `_make_mha_bwd_kernel` computes
+    it (pallas_kernels.py:716-756) at q's dtype: per head, qs = q_h * scale
+    (both in q's dtype, rounded there), p recomputed (fp32 scores and
+    softmax), dv = bf16(drop(p))^T . g_h, dp = drop(g_h . v_h^T), ds = p
+    (dp - sum_j dp p), dq = (bf16(ds) . k_h) * scale, dk = bf16(ds)^T . qs,
+    the products' sums fp32, then dq, dk and dv rounded to q's dtype (bf16
+    roundings at bf16, none at float32: there the fp32 kernel's function).
+    -> (dq, dk, dv) [B, T, D]."""
+    act, f32 = q.dtype, torch.float32
+
+    def rnd(t):  # a rounding point at q's dtype, held in float32
+        return t.to(act).to(f32)
+
+    B, T, D = q.shape
+    scale = _head_scale(D // n_heads, act)
+    qs = rnd(_heads(q, n_heads) * scale)
+    kh, vh, gh = (_heads(t, n_heads) for t in (k, v, g))
+    p = torch.softmax(qs @ kh.transpose(-1, -2) + (
+        (1.0 - mask.to(f32)) * -1e30).reshape(B, 1, 1, T), dim=-1)
+    keep = _keep_bits(seeds, drop_rate, n_heads, T)
+    dv = rnd(_drop_keep(p, keep, drop_rate)).transpose(-1, -2) @ gh
+    dp = _drop_keep(gh @ vh.transpose(-1, -2), keep, drop_rate)
+    ds = rnd(p * (dp - (dp * p).sum(dim=-1, keepdim=True)))
+    return (_merge_heads((ds @ kh) * scale, act),
+            _merge_heads(ds.transpose(-1, -2) @ qs, act),
+            _merge_heads(dv, act))
+
+
+def flash_attention_bwd_plain(q, k, v, mask, n_heads, seeds, drop_rate, out,
+                              lse, g, scale_dtype=torch.float32):
+    """The flash backward, written out as `_make_flash_bwd_kernel` and
+    `_fused_mha_bwd` compute it (pallas_kernels.py:1454-1529, 894-898) at
+    q's dtype, from the forward's out and lse [B, H, T]: per head, qs =
+    q_h * scale rounded to q's dtype with the scale FLOAT32 (:1460; at head
+    dims 8 and 32 not the forward's bf16 scale, ROADMAP.md C6; scale_dtype
+    bf16 takes the forward's, which the checks use as a control), delta = sum
+    g_h out_h (fp32), p = exp(qs . k_h^T + mask - lse), or 1 / T on a row
+    with no valid key (as the port's kernels take it; the TPU kernel's p is
+    1 there, ROADMAP.md C3), dv = bf16(drop(p))^T . g_h, ds = bf16(p
+    (drop(g_h . v_h^T) - delta)), dq = (ds . k_h) * scale, dk = ds^T . qs,
+    the sums fp32 over every query, then dq, dk and dv rounded to q's dtype
+    once. -> (dq, dk, dv) [B, T, D]."""
+    act, f32 = q.dtype, torch.float32
+
+    def rnd(t):  # a rounding point at q's dtype, held in float32
+        return t.to(act).to(f32)
+
+    B, T, D = q.shape
+    scale = _head_scale(D // n_heads, scale_dtype)
+    qs = rnd(_heads(q, n_heads) * scale)
+    kh, vh, gh = (_heads(t, n_heads) for t in (k, v, g))
+    delta = (gh * _heads(out, n_heads)).sum(dim=-1, keepdim=True)
+    p = torch.exp(qs @ kh.transpose(-1, -2) + (
+        (1.0 - mask.to(f32)) * -1e30).reshape(B, 1, 1, T) - lse[..., None])
+    has_key = (mask.to(f32) != 0).any(dim=-1).reshape(B, 1, 1, 1)
+    p = torch.where(has_key, p, 1.0 / T)
+    keep = _keep_bits(seeds, drop_rate, n_heads, T)
+    dv = rnd(_drop_keep(p, keep, drop_rate)).transpose(-1, -2) @ gh
+    dp = _drop_keep(gh @ vh.transpose(-1, -2), keep, drop_rate)
+    ds = rnd(p * (dp - delta))
+    return (_merge_heads((ds @ kh) * scale, act),
+            _merge_heads(ds.transpose(-1, -2) @ qs, act),
+            _merge_heads(dv, act))
+
+
+def whole_attention_plain(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
+    """The whole-T forward kernel's function at q's dtype (#11 at float32:
+    `attention`; #11b at bf16, pallas_kernels.py:696-713: `attention`'s
+    bf16 casts with float32 sums, the output rounded to bf16 once)."""
+    f32 = torch.float32
+    return _attention_scores(q.to(f32), k.to(f32), v.to(f32), mask, n_heads,
+                             seeds, drop_rate, q.dtype)[0].to(q.dtype)
+
+
+class PlainMHA(torch.autograd.Function):
+    """FusedMHA's plain twin: whole_attention_plain, then
+    attention_bwd_plain, the JAX package's VJP written out (at bf16 not
+    torch's autograd of the forward twin, which rounds elsewhere). What the
+    CPU runs for a bf16 gradient on the whole-T route."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, n_heads, seeds, drop_rate):
+        ctx.save_for_backward(q, k, v, mask, seeds)
+        ctx.n_heads, ctx.drop_rate = n_heads, drop_rate
+        return whole_attention_plain(q, k, v, mask, n_heads, seeds, drop_rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, seeds = ctx.saved_tensors
+        return (*attention_bwd_plain(q, k, v, mask, ctx.n_heads, seeds,
+                                     ctx.drop_rate, g), None, None, None, None)
+
+
+class PlainFlashMHA(torch.autograd.Function):
+    """FusedFlashMHA's plain twin: flash_attention_plain, which keeps lse,
+    then flash_attention_bwd_plain. What the CPU runs for a bf16 gradient
+    on the flash route."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, n_heads, seeds, drop_rate):
+        out, lse = flash_attention_plain(q, k, v, mask, n_heads, seeds,
+                                         drop_rate)
+        ctx.save_for_backward(q, k, v, mask, seeds, out, lse)
+        ctx.n_heads, ctx.drop_rate = n_heads, drop_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, seeds, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd_plain(q, k, v, mask, ctx.n_heads, seeds,
+                                           ctx.drop_rate, out, lse, g),
+                None, None, None, None)
 
 
 def _attention_shapes(name, q, k, v, mask, n_heads, *more):
+    """(B, T, D): q, k, v and `more` [B, T, D] in q's dtype (float32 or
+    bfloat16), the mask [B, T] float32, a head dim a kernel takes."""
+    dtype = _act_dtype(name, q)
     B, T, D = q.shape
     _head_dim(name, D, n_heads)
     for t in (q, k, v, *more):
-        _check(name, t, (B, T, D))
+        _check(name, t, (B, T, D), dtype)
     _check(name, mask, (B, T))
     return B, T, D
 
@@ -2022,8 +2251,9 @@ MHA_WHOLE_QTILE = 32
 
 
 def launch_mha_fwd(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
-    """The whole-T forward kernel: out [B, T, D]. CUDA tensors only."""
-    name = "mha_fwd"
+    """The whole-T forward kernel: out [B, T, D] in q's dtype, the bf16
+    entry point (#11b) for bf16 q, k, v. CUDA tensors only."""
+    name = _entry("mha_fwd", _act_dtype("mha_fwd", q))
     _require_cuda(name, q, k, v, mask)
     B, T, D = _attention_shapes(name, q, k, v, mask, n_heads)
     q_tile = min(T, MHA_WHOLE_QTILE)
@@ -2040,9 +2270,10 @@ def launch_mha_fwd(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
 
 def launch_mha_bwd(q, k, v, mask, n_heads, seeds, drop_rate, out, g):
     """The whole-T backward kernel on mha_whole_bwd_plan (P recomputed, D_t
-    = g . out from the forward's output): (dq, dk, dv). CUDA tensors
-    only."""
-    name = "mha_bwd"
+    = g . out from the forward's output; at bf16 the bf16 entry point,
+    #12b, which sums D_t over the keys and does not read out): (dq, dk,
+    dv) in q's dtype. CUDA tensors only."""
+    name = _entry("mha_bwd", _act_dtype("mha_bwd", q))
     _require_cuda(name, q, k, v, mask, out, g)
     B, T, D = _attention_shapes(name, q, k, v, mask, n_heads, out, g)
     plan = mha_whole_bwd_plan(B, T, D, n_heads)
@@ -2058,9 +2289,10 @@ def launch_mha_bwd(q, k, v, mask, n_heads, seeds, drop_rate, out, g):
 
 
 def launch_flash_mha_fwd(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
-    """The flash forward kernel on flash_fwd_plan: (out [B, T, D], lse [B,
-    H, T]). CUDA tensors only."""
-    name = "flash_mha_fwd"
+    """The flash forward kernel on flash_fwd_plan: (out [B, T, D] in q's
+    dtype, lse [B, H, T] float32), the bf16 entry point (#13b) for bf16 q,
+    k, v. CUDA tensors only."""
+    name = _entry("flash_mha_fwd", _act_dtype("flash_mha_fwd", q))
     _require_cuda(name, q, k, v, mask)
     B, T, D = _attention_shapes(name, q, k, v, mask, n_heads)
     plan = flash_fwd_plan(B, T, D, n_heads)
@@ -2078,8 +2310,10 @@ def launch_flash_mha_fwd(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
 def launch_flash_mha_bwd(q, k, v, mask, n_heads, seeds, drop_rate, out, lse,
                          g):
     """The flash backward kernels on flash_bwd_plan (P recomputed from lse):
-    (dq, dk, dv). CUDA tensors only."""
-    name = "flash_mha_bwd"
+    (dq, dk, dv) in q's dtype, the bf16 entry point (#14b) for bf16 q, k,
+    v, out and g (lse, delta and the dQ partials float32 either way). CUDA
+    tensors only."""
+    name = _entry("flash_mha_bwd", _act_dtype("flash_mha_bwd", q))
     _require_cuda(name, q, k, v, mask, out, lse, g)
     B, T, D = _attention_shapes(name, q, k, v, mask, n_heads, out, g)
     _check(name, lse, (B, n_heads, T))
@@ -2103,7 +2337,7 @@ def launch_flash_mha_bwd(q, k, v, mask, n_heads, seeds, drop_rate, out, lse,
 
 class FusedMHA(torch.autograd.Function):
     """fused_mha's whole-T route: forward kernel, backward kernel, which
-    reads the forward's output."""
+    reads the forward's output; at either dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, n_heads, seeds, drop_rate):
@@ -2122,7 +2356,7 @@ class FusedMHA(torch.autograd.Function):
 
 class FusedFlashMHA(torch.autograd.Function):
     """fused_mha's flash route: the forward kernel, which keeps lse, then
-    the backward kernels."""
+    the backward kernels; at either dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, n_heads, seeds, drop_rate):
@@ -2141,13 +2375,33 @@ class FusedFlashMHA(torch.autograd.Function):
                 None, None, None, None)
 
 
+def mha_twin(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
+    """fused_mha's plain version at q's dtype, what the CPU runs: at
+    float32 `attention` (the two routes' one fp32 function); at bf16 the
+    twin of attention_route's bf16 kernels (whole_attention_plain or
+    flash_attention_plain, which differ), through PlainMHA or
+    PlainFlashMHA for a gradient."""
+    if q.dtype != torch.bfloat16:
+        return attention(q, k, v, mask, n_heads, seeds, drop_rate)
+    whole = attention_route(q.shape[1], _head_dim(
+        "mha_twin", q.shape[2], n_heads)) == "whole"
+    if grad_wanted(q, k, v):
+        return (PlainMHA if whole else PlainFlashMHA).apply(
+            q, k, v, mask, n_heads, seeds, float(drop_rate))
+    if whole:
+        return whole_attention_plain(q, k, v, mask, n_heads, seeds, drop_rate)
+    return flash_attention_plain(q, k, v, mask, n_heads, seeds, drop_rate)[0]
+
+
 def fused_mha(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
-    """`attention` on the card through the whole-T or the flash kernels, as
-    attention_route says; on the CPU, `attention` itself."""
+    """Attention through the whole-T or the flash kernels, as
+    attention_route says, at q's dtype: on the card the kernels (bf16 q, k,
+    v: #11b-#14b); on the CPU mha_twin."""
     name = "mha_fwd"
     tensors = [q, k, v, mask] + ([] if seeds is None else [seeds])
     if not _on_cuda(name, *tensors):
-        return attention(q, k, v, mask, n_heads, seeds, drop_rate)
+        return mha_twin(q, k, v, mask, n_heads, seeds, drop_rate)
+    _act_dtype(name, q)
     hd = _head_dim(name, q.shape[2], n_heads)
     fn = FusedMHA if attention_route(q.shape[1], hd) == "whole" else \
         FusedFlashMHA
