@@ -125,7 +125,9 @@ Phases, each printing one JSON line:
               outputs that differ, which the fp32 function and the other
               route's twin must fail; the backwards' bench/bf16_vjp.py
               readings and controls), timed beside the fp32 kernel on the
-              same inputs and SDPA in bf16; then paths M and L at bf16: a
+              same inputs and SDPA in bf16 (#13b, on the tensor cores,
+              must take less device time than SDPA's forward); then
+              paths M and L at bf16: a
               served batch against the twins' composition on the card
               (use_pallas=off at bf16 and the fp32 model reported), one
               train step against it, 3 (M) or 10 (L) steps (on L the loss
@@ -1892,8 +1894,8 @@ def sdpa_yardstick(q, k, v, mask, heads):
     """F.scaled_dot_product_attention on the same heads and the additive
     mask (in q's dtype) at drop 0: (forward ms, backward ms =
     forward+backward minus forward, forward+backward ms, by CUDA events;
-    the device time of the backward's kernels, torch.profiler). A
-    yardstick; the port never calls it."""
+    the device time of the backward's kernels, of the forward's kernels,
+    torch.profiler). A yardstick; the port never calls it."""
     import torch
     import torch.nn.functional as F
 
@@ -1921,7 +1923,7 @@ def sdpa_yardstick(q, k, v, mask, heads):
     out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
     b_device = sum(by_kernel(lambda: torch.autograd.grad(
         out, (qh, kh, vh), g, retain_graph=True)).values())
-    return f, fb - f, fb, b_device
+    return f, fb - f, fb, b_device, sum(by_kernel(fwd).values())
 
 
 def long_kernel_rows(dev):
@@ -1976,8 +1978,8 @@ def long_kernel_rows(dev):
             lambda q, k, v: K.attention(q, k, v, mask, heads, seeds, DROP),
             [q, k, v], 3, g)
         check(finite, "%s: non-finite output or gradient" % fname)
-        lib_f, lib_b, lib_fb, lib_b_device = sdpa_yardstick(q, k, v, mask,
-                                                            heads)
+        lib_f, lib_b, lib_fb, lib_b_device, _ = sdpa_yardstick(q, k, v, mask,
+                                                               heads)
         # only the valid keys need scores and P.V (all T on the masked row)
         keys = sum(n if n else T for n in lens)
         io = B * T * D
@@ -2279,11 +2281,19 @@ def long_t_phase(dev):
 
 # the bf16 long phase's steps a path (path L's loss must fall)
 BF16_LONG_STEPS = {"M": 3, "L": 10}
-# the paths whose bf16 step is held against the twins around the conv
-# block's kernels: on path L the step through all the twins departs by
-# flips across the conv blocks' ReLU kinks (PERF.md, Findings), which
-# conv_block_readings counts and whose kernels it holds on their own inputs
-BF16_LONG_AROUND_CONV = ("L",)
+# the paths whose bf16 step is held against the twins around kernels that
+# round on their own, by the wrappers kept as kernels in the reference: on
+# path L the step through all the twins departs by flips across the conv
+# blocks' ReLU kinks (PERF.md, Findings), which conv_block_readings
+# counts and whose kernels it holds on their own inputs; the flash kernels
+# (#13b, #14b, on the tensor cores) sum in another order than
+# their twins' cuBLAS products, and their flips cross the same kinks (the
+# step around the conv blocks alone read 2.33 of its bound, the fp32 step
+# 2.30: PERF.md, Findings), so the reference keeps them too and
+# flash_readings holds them on the step's own inputs. The step around the
+# conv blocks alone is reported.
+BF16_LONG_AROUND = {"L": (("fused_conv_block",),
+                          ("fused_conv_block", "fused_mha"))}
 # where each bf16 long-T kernel runs: the other path never launches it
 BF16_LONG_KERNELS = {"mha_fwd_bf16": "M", "mha_bwd_bf16": "M",
                      "flash_mha_fwd_bf16": "L", "flash_mha_bwd_bf16": "L"}
@@ -2302,7 +2312,9 @@ def bf16_long_kernel_rows(dev):
     route's backward twin; for #14b at head dim 8 its twin with #13b's
     bf16 scale). Times: events and device time of the kernel and of the
     fp32 kernel on the same inputs, the twin's, SDPA's in bf16, the bound
-    at the bf16 peak."""
+    at the bf16 peak; #13b (on the tensor cores) must take less
+    device time than SDPA's forward in bf16. The flash rows carry their
+    plans (flash_fwd_bf16_plan, flash_bwd_bf16_plan)."""
     import torch
 
     from vslnet_torch.bench import bf16_vjp as V
@@ -2377,8 +2389,8 @@ def bf16_long_kernel_rows(dev):
             return (K.launch_flash_mha_fwd if flash else K.launch_mha_fwd)(
                 q32, k32, v32, mask, heads)
 
-        lib_f, lib_b, lib_fb, lib_b_device = sdpa_yardstick(q, k, v, mask,
-                                                            heads)
+        lib_f, lib_b, lib_fb, lib_b_device, lib_f_device = sdpa_yardstick(
+            q, k, v, mask, heads)
         keys = sum(n if n else T for n in lens)
         io = B * T * D
         lse_io = B * heads * T if flash else 0
@@ -2391,12 +2403,18 @@ def bf16_long_kernel_rows(dev):
             4 * T * keys * D, 2 * 4 * io + 4 * (B * T + lse_io),
             plain_iters=5, checked_err=max(errs), library_ms=lib_f,
             library="SDPA in bf16, additive mask", equal_bits_twice=twice,
+            library_device_ms=lib_f_device,
             fp32_ms=cuda_ms(fwd32, 20),
             fp32_device_ms=sum(by_kernel(fwd32).values()),
             dropout_device_ms=sum(by_kernel(lambda: fwd(
                 q, k, v, mask, heads, seeds, DROP)).values()),
             other_route_share=min(ctl_other), **share_check, **extra,
-            **shape)
+            **({"plan": K.flash_fwd_bf16_plan(B, T, D, heads)._asdict()}
+               if flash else {}), **shape)
+        if flash:  # #13b on the tensor cores: below SDPA's forward in bf16
+            check(rows[-1]["device_ms"] < lib_f_device, "%s: %g ms of device "
+                  "time, not below SDPA's %g" % (fname, rows[-1]["device_ms"],
+                                                 lib_f_device))
         cases = [V.attention_case(dev, rng, B, T, D, heads, rate, flash)
                  for rate in (DROP, 0.0)]
         if flash:  # head dim 8: the forward's bf16 scale is another one
@@ -2412,7 +2430,7 @@ def bf16_long_kernel_rows(dev):
             library_ms=lib_b, library="SDPA in bf16, forward+backward - "
             "forward", library_fwd_bwd_ms=lib_fb,
             library_device_ms=lib_b_device, drop_rate=DROP,
-            plan=(K.flash_bwd_plan if flash else K.mha_whole_bwd_plan)(
+            plan=(K.flash_bwd_bf16_plan if flash else K.mha_whole_bwd_plan)(
                 B, T, D, heads)._asdict(), **shape)
     for row in rows:
         row["replaces"] = tpu + row["replaces"].rsplit(":", 1)[1]
@@ -2543,7 +2561,8 @@ def bf16_long_path(path):
     tk = Trainer(configs("auto"), dataset, feats)
     tt = Trainer(configs("auto"), dataset, feats)
     tf = Trainer(configs("auto", "fp32"), dataset, feats)
-    with ConvBlockCalls(T, kernels=True) as kernel_calls:
+    with ConvBlockCalls(T, kernels=True) as kernel_calls, \
+            FlashCalls() as flash_calls:
         loss_k, _ = tk.step()
     K.reset_launches()
     with TwinsOnTheCard(train=True), ConvBlockCalls(T, False) as twin_calls:
@@ -2554,17 +2573,18 @@ def bf16_long_path(path):
     grads = {"twins": step_grads_against(tk, twins, BF16_STEP_GRAD)}
     loss_rel = abs(float(loss_k) - float(loss_t)) / abs(float(loss_t))
     held, losses = "twins", {"loss_twins": float(loss_t)}
-    if path in BF16_LONG_AROUND_CONV:
+    for keep in BF16_LONG_AROUND.get(path, ()):
         # the rest of the path against its twins: the same step with the
-        # conv block's kernels in the reference too
+        # kept wrappers' kernels in the reference too; the last is held
         tc = Trainer(configs("auto"), dataset, feats)
-        with TwinsOnTheCard(train=True, keep=("fused_conv_block",)):
+        with TwinsOnTheCard(train=True, keep=keep):
             loss_c, _ = tc.step()
-        held = "twins_around_conv"
+        held = "twins_around_" + "_and_".join(
+            {"fused_conv_block": "conv", "fused_mha": "flash"}[k] for k in keep)
         grads[held] = step_grads_against(
             tk, {n: p.grad for n, p in tc.model.named_parameters()},
             BF16_STEP_GRAD)
-        losses["loss_twins_around_conv"] = float(loss_c)
+        losses["loss_" + held] = float(loss_c)
         loss_rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
         del tc
     grads["control_fp32"] = step_grads_against(tf, twins, BF16_STEP_GRAD) \
@@ -2572,12 +2592,13 @@ def bf16_long_path(path):
             tf, {n: p.grad for n, p in tk.model.named_parameters()},
             BF16_STEP_GRAD)
     blocks = conv_block_readings(kernel_calls.calls, twin_calls.calls)
+    attention = flash_readings(flash_calls)
     emit({"phase": "bf16_long_train_step", "path": path, "held": held,
           "loss_kernels": float(loss_k), **losses,
           "loss_control_fp32": float(loss_f), "loss_rel_err": loss_rel,
           "loss_rtol": BF16_STEP_LOSS_RTOL, "grad_tol": BF16_STEP_GRAD,
           "grad_atol_of_largest": BF16_STEP_ATOL, "grads": grads,
-          "conv_blocks": blocks})
+          "conv_blocks": blocks, "flash_calls": attention})
     check(loss_rel <= BF16_STEP_LOSS_RTOL and grads[held]["worst"][0] <= 1,
           "path %s: a bf16 train step disagrees with the %s: %s %s"
           % (path, held, loss_rel, grads))
@@ -2590,7 +2611,14 @@ def bf16_long_path(path):
           and all(b["own_inputs"]["worst"][0] <= 1 for b in blocks),
           "path %s: a T-long conv block's kernels disagree with its twin "
           "on the step's own inputs: %s" % (path, blocks))
-    del tt, twins, kernel_calls, twin_calls
+    flash = long_launches(path, 1, False).get("flash_mha_bwd", 0)
+    check(len(attention) == flash and all(
+        a["forward"]["share_differing"] <= BF16_SHARE_TOL
+        and a["forward"]["lse_max_abs_err"] <= 1e-3
+        and a["backward"]["worst"][0] <= 1 for a in attention),
+        "path %s: a flash attention call's kernels disagree with their "
+        "twins on the step's own inputs: %s" % (path, attention))
+    del tt, twins, kernel_calls, twin_calls, flash_calls
     n = BF16_LONG_STEPS[path]
     K.reset_launches()
     losses, times = timed_steps(tk, n)
@@ -2668,6 +2696,83 @@ class ConvBlockCalls:
 
         for n, f in self.saved.items():
             setattr(K, n, f)
+
+
+class FlashCalls:
+    """The flash attention calls of a train step with the kernels,
+    recorded: each forward's inputs, out and lse, and its backward's g and
+    gradients (launch_flash_mha_fwd and launch_flash_mha_bwd wrapped)."""
+
+    def __enter__(self):
+        from vslnet_torch.ops import kernels as K
+
+        self.calls = []
+        self.saved = {n: getattr(K, n) for n in ("launch_flash_mha_fwd",
+                                                 "launch_flash_mha_bwd")}
+        fwd, bwd = self.saved.values()
+
+        def forward(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
+            out, lse = fwd(q, k, v, mask, n_heads, seeds, drop_rate)
+            self.calls.append({"args": (q.detach(), k.detach(), v.detach(),
+                                        mask, n_heads, seeds,
+                                        float(drop_rate)),
+                               "out": out.detach(), "lse": lse})
+            return out, lse
+
+        def backward(q, k, v, mask, n_heads, seeds, drop_rate, out, lse, g):
+            grads = bwd(q, k, v, mask, n_heads, seeds, drop_rate, out, lse, g)
+            call, = [c for c in self.calls if c["lse"].data_ptr()
+                     == lse.data_ptr()]
+            call["g"], call["grads"] = g, grads
+            return grads
+
+        K.launch_flash_mha_fwd = forward
+        K.launch_flash_mha_bwd = backward
+        return self
+
+    def __exit__(self, *exc):
+        from vslnet_torch.ops import kernels as K
+
+        for n, f in self.saved.items():
+            setattr(K, n, f)
+
+
+def flash_readings(flash_calls):
+    """For each flash attention call of a train step (FlashCalls): the
+    forward kernel's out against flash_attention_plain on the same inputs
+    (the share of bf16 outputs that differ, held to BF16_SHARE_TOL as the
+    kernel rows are; lse's largest error, to 1e-3), and its backward's
+    gradients against flash_attention_bwd_plain on the same inputs, out,
+    lse and g (the step's bound, as conv_block_readings holds the conv
+    blocks: each output's max error over BF16_STEP_GRAD of its largest
+    entry plus BF16_STEP_ATOL of the largest of all three; and the share
+    of each that differs)."""
+    from vslnet_torch.ops import kernels as K
+
+    out = []
+    for c in flash_calls.calls:
+        if "grads" not in c:
+            continue
+        q, k, v, mask, heads, seeds, rate = c["args"]
+        ref, lse_ref = K.flash_attention_plain(q, k, v, mask, heads, seeds,
+                                               rate)
+        refs = K.flash_attention_bwd_plain(q, k, v, mask, heads, seeds, rate,
+                                           c["out"], c["lse"], c["g"])
+        atol = BF16_STEP_ATOL * max(float(r.abs().max()) for r in refs)
+        ratios = {n: max_err(g, r) / (BF16_STEP_GRAD * float(r.abs().max())
+                                      + atol)
+                  for n, g, r in zip(("dq", "dk", "dv"), c["grads"], refs)}
+        worst = max(ratios, key=ratios.get)
+        out.append({"shape": list(q.shape), "heads": heads, "drop_rate": rate,
+                    "forward": {
+                        "share_differing": share_differing(c["out"], ref),
+                        "lse_max_abs_err": max_err(c["lse"], lse_ref)},
+                    "backward": {"worst": [ratios[worst], worst],
+                                 "ratios": ratios, "share_differing": {
+                                     n: share_differing(g, r) for n, g, r in
+                                     zip(("dq", "dk", "dv"), c["grads"],
+                                         refs)}}})
+    return out
 
 
 CONV_GRADS = ("dx", "dgam", "dbeta", "ddw", "dwp", "dbp")

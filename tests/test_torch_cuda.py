@@ -1275,6 +1275,75 @@ def test_cuda_attention_bf16_fwd_matches_twin(cuda, B, T, D, heads, route,
         torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
 
 
+# The bf16 flash pair on the tensor cores (#13b, #14b; flash_fwd_bf16_plan,
+# flash_bwd_bf16_plan) through their launch wrappers at [B, T, 128], every
+# head dim, T from below the flash route (100) past the first 1024-key
+# window (1152) to three windows (2100), drop 0 and 0.2, ragged keys and a
+# fully masked row, against their twins under the limits above.
+FLASH_BF16_T = [100, 300, 1000, 1024, 1152, 2100]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
+@pytest.mark.parametrize("T", FLASH_BF16_T)
+def test_cuda_flash_bf16_fwd_matches_twin(cuda, T, hd, rate):
+    """#13b at [3, T, 128] (a ragged row, a full one, a fully masked one)
+    against flash_attention_plain at bf16: within BF16_TOL, the share of
+    differing outputs within BF16_SHARE_TOL where the fp32 function's is
+    beyond it, lse within 1e-4, equal bits on two equal calls, one launch
+    of the bf16 entry."""
+    rng = np.random.default_rng(41)
+    B, D = 3, 128
+    heads = D // hd
+    lens = [int(rng.integers(1, T + 1)), T, 0]
+    q, k, v, mask = (_t(a).to(cuda) for a in _attn_inputs(rng, B, T, D, lens))
+    args = [q.to(BF16), k.to(BF16), v.to(BF16), mask, heads]
+    drop = ({"seeds": _t(_seeds(rng, B)).to(cuda), "drop_rate": rate}
+            if rate else {})
+    kernels.reset_launches()
+    out, lse = kernels.launch_flash_mha_fwd(*args, **drop)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {
+        "flash_mha_fwd_bf16": 1}
+    ref, lse_ref = kernels.flash_attention_plain(*args, **drop)
+    assert out.dtype == BF16 and torch.isfinite(out.float()).all()
+    assert _scaled(out, ref) <= BF16_TOL
+    ref32 = kernels.attention(q, k, v, mask, heads, **drop)
+    assert _share(out, ref) <= BF16_SHARE_TOL < _share(ref32.to(BF16), ref)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    again = kernels.launch_flash_mha_fwd(*args, **drop)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
+@pytest.mark.parametrize("T", FLASH_BF16_T)
+def test_cuda_flash_bf16_bwd_matches_twin(cuda, T, hd, rate):
+    """#14b at path L's batch, [8, T, 128] (ragged rows and a fully masked
+    one), from #13b's out and lse against flash_attention_bwd_plain at
+    bf16: bench/bf16_vjp.py's readings within their limits, its controls
+    beyond them, equal bits on two equal calls, one launch of the bf16
+    entry. At B = 2 a frame of dq holds 256 elements, and from T = 1000 at
+    head dims 32 and 64 the twin itself, held to an fp64 evaluation of the
+    same function, reads up to 10% of such a frame flipped (PERF.md,
+    Findings): the frame reading there measures the twin's fp32
+    rounding."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    rng = np.random.default_rng(42)
+    case = V.attention_case(cuda, rng, 8, T, 128, 128 // hd, rate, True)
+    kernels.reset_launches()
+    case.kernel()
+    torch.cuda.synchronize()
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {
+        "flash_mha_bwd_bf16": 1}
+    reading = V.read(case)
+    ok, why = V.verdict(case, reading)
+    assert ok, (why, reading["kernel"])
+
+
 # --- bf16 training: the backward kernels against their plain twins -----------
 
 

@@ -45,6 +45,28 @@ def test_mha_kernel_fits_head_dims_and_routes(hd, T):
     assert all(_takes(p, 16, T, D, 8) for p in plans)
 
 
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
+@pytest.mark.parametrize("T", [224, 256, 300, 1000, 1024, 1025, 1152, 2100,
+                               4096, 8192])
+def test_mha_kernel_fits_reads_the_bf16_flash_plans(monkeypatch, hd, T):
+    """On the flash route mha_kernel_fits holds where the fp32 and the bf16
+    flash plans all fit a block, which is every T at every head dim (no
+    shape it took before the bf16 plans drops out); a bf16 plan that did
+    not fit would make it refuse the shape."""
+    D = 8 * hd
+    assert K.attention_route(T, hd) == "flash"
+    K.mha_kernel_fits.cache_clear()
+    assert K.mha_kernel_fits(T, D, 8)
+    for name in ("flash_fwd_bf16_plan", "flash_bwd_bf16_plan"):
+        real = getattr(K, name)
+        monkeypatch.setattr(K, name, lambda *a, real=real: real(*a)._replace(
+            smem_bytes=K.MAX_SMEM_BYTES + 1))
+        K.mha_kernel_fits.cache_clear()
+        assert not K.mha_kernel_fits(T, D, 8), name
+        monkeypatch.setattr(K, name, real)
+    K.mha_kernel_fits.cache_clear()
+
+
 @pytest.mark.parametrize("D", [128, 512, 800, 1024, 130])
 @pytest.mark.parametrize("grad", [False, True])
 def test_conv_kernel_fits_its_route_s_plans(D, grad):

@@ -34,6 +34,19 @@ beside SDPA's forward (drop 0, device time and events); with every key
 valid; then, unless --by-kernel, each of `fwd_rows` (query rows a
 thread) through the kernel library (`fwd_runner`), with the largest
 difference of out and lse from the default plan's.
+
+    python3 -m vslnet_torch.bench.flash_plans --bf16 [--by-kernel]
+
+The bf16 flash pair (#13b, #14b, tensor cores) at path L's shape in bf16,
+ragged key lengths and one fully masked row: the forward at drop_rate 0
+(serving) and 0.2 (training) and the backward at 0.2 and 0, each call's
+device time by kernel and its CUDA events, beside SDPA's in bf16 (the
+additive mask in bf16, drop 0, device time and events); with
+--by-kernel only these, which an older tree with the same wrappers also
+runs. Otherwise also the kernels at 4 warps a CTA (key tiles of 64 in
+the backward) from a copy of csrc/flash_mha.cu (BF16_WARPS,
+`with_bf16_warps`, `bf16_runners`), with the largest difference of the
+outputs from the kernels' own.
 """
 import ctypes
 import json
@@ -215,6 +228,127 @@ def forward_main(argv, emit, rng, dev):
     return 0
 
 
+# (warps a CTA of the bf16 forward, of the bf16 backward): the kernels'
+# own first (csrc/flash_mha.cu kTcFwdWarps, kTcBwdWarps), then copies
+BF16_WARPS = [(8, 8), (4, 4)]
+
+
+def with_bf16_warps(src, fwd, bwd):
+    """csrc/flash_mha.cu with the bf16 kernels' warps a CTA set to (fwd,
+    bwd), its entry points renamed w<fwd>_<bwd>_."""
+    for name, old, new in zip(("kTcFwdWarps", "kTcBwdWarps"), BF16_WARPS[0],
+                              (fwd, bwd)):
+        line = "constexpr int %s = %d;" % (name, old)
+        if src.count(line) != 1:
+            raise RuntimeError("not found once in flash_mha.cu: %r" % line)
+        src = src.replace(line, "constexpr int %s = %d;" % (name, new))
+    return src.replace('extern "C" int vsl_', 'extern "C" int w%d_%d_' % (fwd, bwd))
+
+
+def bf16_runners(q, k, v, mask, heads, seeds, rate, g, lib, tag, key_tile):
+    """(forward, backward): calls of the bf16 kernels through the entry
+    points `<tag>flash_mha_fwd_bf16` and `<tag>flash_mha_bwd_bf16` of lib,
+    whose backward takes key tiles of key_tile keys, the forward returning
+    (out, lse), the backward (dq, dk, dv) from the kernel library's
+    forward's out and lse."""
+    import torch
+
+    B, T, D = q.shape
+    fns = []
+    for kind in ("fwd", "bwd"):
+        fn = getattr(lib, "%sflash_mha_%s_bf16" % (tag, kind))
+        fn.argtypes = K._SIGNATURES["vsl_flash_mha_%s_bf16" % kind]
+        fn.restype = ctypes.c_int
+        fns.append(fn)
+    sp, thresh, scale = K._dropout_args("flash_plans", seeds, rate, B)
+    out = torch.empty_like(q)
+    lse = q.new_empty(B, heads, T, dtype=torch.float32)
+    saved = K.launch_flash_mha_fwd(q, k, v, mask, heads, seeds, rate)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    nd = -(-B * heads * T // 4) * 4
+    work = q.new_empty(nd + -(-T // key_tile) * B * T * D,
+                       dtype=torch.float32)
+
+    def fwd():
+        code = fns[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      mask.data_ptr(), sp, thresh, scale, out.data_ptr(),
+                      lse.data_ptr(), B, T, D, heads,
+                      torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError("flash_plans: bf16 forward failed (%d)" % code)
+        return out, lse
+
+    def bwd():
+        code = fns[1](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      mask.data_ptr(), sp, thresh, scale, saved[0].data_ptr(),
+                      saved[1].data_ptr(), g.data_ptr(), dq.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr(), work.data_ptr(),
+                      work[nd:].data_ptr(), B, T, D, heads,
+                      torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError("flash_plans: bf16 backward failed (%d)" % code)
+        return dq, dk, dv
+    return fwd, bwd
+
+
+def bf16_main(argv, emit, rng, dev):
+    """The --bf16 rows (module docstring)."""
+    import torch
+
+    bf = torch.bfloat16
+    q, k, v, mask, seeds, g, _, _ = inputs(rng, dev, B, T, D, HEADS, RATE)
+    q, k, v, g = (x.to(bf) for x in (q, k, v, g))
+    sdpa_f = sdpa_forward_ms(q, k, v, mask.to(bf), HEADS)
+    sdpa_b = sdpa_backward_ms(q, k, v, mask.to(bf), HEADS)
+    for rate, sd in ((0.0, None), (RATE, seeds)):
+        def fwd():
+            return K.launch_flash_mha_fwd(q, k, v, mask, HEADS, sd, rate)
+        parts = by_kernel(fwd)
+        emit(kernel="forward_bf16", shape=[B, T, D], heads=HEADS,
+             drop_rate=rate, call_ms=cuda_ms(fwd),
+             device_ms=sum(parts.values()), by_kernel=parts,
+             sdpa_ms=sdpa_f[0], sdpa_device_ms=sdpa_f[1])
+    for rate, sd in ((RATE, seeds), (0.0, None)):
+        out, lse = K.launch_flash_mha_fwd(q, k, v, mask, HEADS, sd, rate)
+
+        def bwd():
+            return K.launch_flash_mha_bwd(q, k, v, mask, HEADS, sd, rate, out,
+                                          lse, g)
+        parts = by_kernel(bwd)
+        emit(kernel="backward_bf16", shape=[B, T, D], heads=HEADS,
+             drop_rate=rate, call_ms=cuda_ms(bwd),
+             device_ms=sum(parts.values()), by_kernel=parts,
+             sdpa_ms=sdpa_b[0], sdpa_device_ms=sdpa_b[1])
+    if "--by-kernel" in argv:
+        return 0
+    from vslnet_torch.bench.common import build_copies  # absent from older trees
+
+    src = (K.CSRC / "flash_mha.cu").read_text()
+    libs = {BF16_WARPS[0]: (K._library(), "vsl_")}
+    copies = build_copies({"w%d_%d" % w: with_bf16_warps(src, *w)
+                           for w in BF16_WARPS[1:]})
+    for w in BF16_WARPS[1:]:
+        libs[w] = (copies["w%d_%d" % w], "w%d_%d_" % w)
+    for rate, sd in ((0.0, None), (RATE, seeds)):
+        ref_f = [a.clone() for a in K.launch_flash_mha_fwd(q, k, v, mask,
+                                                          HEADS, sd, rate)]
+        ref_b = [a.clone() for a in K.launch_flash_mha_bwd(
+            q, k, v, mask, HEADS, sd, rate, *ref_f, g)]
+        for w, (lib, tag) in libs.items():
+            fwd, bwd = bf16_runners(q, k, v, mask, HEADS, sd, rate, g, lib,
+                                    tag, 16 * w[1])
+            for kernel, run, ref, warps in (("forward_bf16", fwd, ref_f, w[0]),
+                                            ("backward_bf16", bwd, ref_b,
+                                             w[1])):
+                diff = max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(run(), ref))
+                emit(kernel=kernel, shape=[B, T, D], drop_rate=rate,
+                     warps=warps, default=w == BF16_WARPS[0],
+                     ms=cuda_ms(run), device_ms=sum(by_kernel(run).values()),
+                     max_abs_diff_from_default=diff)
+    return 0
+
+
 def sdpa_backward_ms(q, k, v, mask, heads):
     """SDPA's backward on the same heads and the additive mask at drop 0,
     forward + backward minus forward: (CUDA events, device time)."""
@@ -258,6 +392,8 @@ def main(argv):
 
     if "--forward" in argv:
         return forward_main(argv, emit, rng, dev)
+    if "--bf16" in argv:
+        return bf16_main(argv, emit, rng, dev)
     q, k, v, mask, seeds, g, out, lse = inputs(rng, dev, B, T, D, HEADS, RATE)
     bwd = [q, k, v, mask, HEADS, seeds, RATE, out, lse, g]
 

@@ -22,6 +22,16 @@ threads a CTA), at T = 128 and path M's T = 192:
 Prints one JSON line a plan with the card's name and power limit, then the
 host's µs a call of launch_lstm_fwd under the default plan. The shipped
 kernel carries no instrumentation.
+
+    python3 -m vslnet_torch.bench.lstm_plans --bf16
+
+The bf16 LSTM kernels through their wrappers at B = 16, H = 128, T = 128
+and path M's T = 192 (a full row, a row of 1, the rest ragged): the lean
+forward (#1b, serving), the forward with residuals (#7b) and the backward
+(#8b, from #7b's residuals), each call's device time (torch.profiler) and
+CUDA events, beside the fp32 kernels on the same inputs, with the bound
+at 3.35 TB/s of the bytes chip_smoke.py's rows count (bf16 x_proj, k_h,
+dx_proj, dk_h; fp32 states and residuals). One JSON line a kernel and T.
 """
 import ctypes
 import json
@@ -88,13 +98,62 @@ def build_instrumented():
     return lib
 
 
-def main():
+def bf16_main(smi, dev):
+    """The --bf16 rows (module docstring)."""
+    import torch
+
+    from vslnet_torch.bench.common import by_kernel
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(0)
+    B, H = 16, 128
+    k_h = torch.from_numpy((rng.standard_normal((H, 4 * H)) / math.sqrt(H))
+                           .astype(np.float32)).to(dev)
+    for T in (128, 192):
+        lens = np.concatenate([[T, 1], rng.integers(1, T + 1, B - 2)])
+        x_proj = torch.from_numpy(rng.standard_normal((T, B, 4 * H)).astype(
+            np.float32)).to(dev)
+        valid = torch.from_numpy((np.arange(T)[:, None] < lens[None, :])
+                                 .astype(np.float32)).to(dev)
+        dy = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+            np.float32)).to(dev)
+        io, w, st = T * B * 4 * H, H * 4 * H, T * B * H
+        calls = {}
+        for dt in (bf, torch.float32):  # the fp32 kernels on the bf16 values
+            xp, kh = x_proj.to(bf).to(dt), k_h.to(bf).to(dt)
+            res = K.launch_lstm_fwd_res(xp, kh, valid)
+            calls[dt] = {
+                "lstm_recurrence_fwd": (
+                    lambda xp=xp, kh=kh: K.launch_lstm_fwd(xp, kh, valid),
+                    2 * (io + w) + 4 * (T * B + st)),
+                "lstm_recurrence_fwd_res": (
+                    lambda xp=xp, kh=kh: K.launch_lstm_fwd_res(xp, kh, valid),
+                    2 * (io + w) + 4 * (T * B + 8 * st)),
+                "lstm_recurrence_bwd": (
+                    lambda kh=kh, res=res: K.launch_lstm_bwd(
+                        dy, res[1], res[2], res[3], res[4], valid, kh),
+                    4 * (T * B + 8 * st) + 2 * (2 * w + io))}
+        for name, (fn, nbytes) in calls[bf].items():
+            fn32 = calls[torch.float32][name][0]
+            print(json.dumps({
+                "bench": "lstm_plans", "card": smi, "kernel": name + "_bf16",
+                "shape": [T, B, 4 * H],
+                "device_ms": sum(by_kernel(fn).values()), "ms": cuda_ms(fn),
+                "fp32_device_ms": sum(by_kernel(fn32).values()),
+                "bound_ms": nbytes / 3.35e12 * 1e3, "bound_by": "bytes"}),
+                flush=True)
+    return 0
+
+
+def main(argv=()):
     import torch
 
     if not torch.cuda.is_available():
         print("lstm_plans: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    if "--bf16" in argv:
+        return bf16_main(card(), torch.device("cuda"))
     prof = build_instrumented()
     smi = card()
     rng = np.random.default_rng(0)
@@ -166,4 +225,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -147,6 +147,8 @@ _SIGNATURES.update({"vsl_%s_bf16" % n: _SIGNATURES["vsl_" + n]
                     for n in _BF16_KERNELS})
 # the bf16 LSTM backward also takes a float32 workspace for dk_h's sums
 _SIGNATURES["vsl_lstm_recurrence_bwd_bf16"] = [_P] * 11 + [_I] * 8 + [_P]
+# the bf16 flash forward takes no query rows a thread
+_SIGNATURES["vsl_flash_mha_fwd_bf16"] = [_P] * 5 + _DROP + [_P] * 2 + [_I] * 4 + [_P]
 
 
 def _nvcc():
@@ -1937,8 +1939,10 @@ def fused_mha_block(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
 # tiles streamed through shared memory; the flash backward on
 # flash_bwd_plan, one pass over key-tile CTAs with its products
 # register-tiled out of shared memory. At bf16 (q, k, v bf16) each kernel
-# computes the TPU kernel's function at bf16 (#11b-#14b); the plain twins
-# below write those functions out, and their backwards the custom VJPs.
+# computes the TPU kernel's function at bf16 (#11b-#14b); the bf16 flash
+# kernels are kernels of their own, on the tensor cores
+# (flash_fwd_bf16_plan, flash_bwd_bf16_plan). The plain twins below write
+# those functions out, and their backwards the custom VJPs.
 
 # keys a CTA of the flash backward at head dims up to 32 (64 above: the
 # kernel keeps 2 keys x 8 dims of dK and dV a thread in registers, for at
@@ -2042,6 +2046,96 @@ def flash_fwd_plan(B, T, D, n_heads):
 # _FLASH_TK): at bf16 the flash forward rounds exp(s - m) against the
 # running max of such windows
 FLASH_WINDOW = 1024
+
+# The bf16 flash kernels (#13b, #14b) run their products on the tensor
+# cores (csrc/mma.cuh): a warp keeps 16 rows of one operand as mma
+# fragments. The forward: 16 queries a warp, FLASH_FWD_BF16_WARPS warps a
+# CTA, key tiles of FLASH_FWD_BF16_KEYS streamed through two buffers
+# (csrc/flash_mha.cu kTcFwdWarps, kTcKeys); the backward: 16 keys a warp,
+# FLASH_BWD_BF16_WARPS warps a CTA (its key tile), query tiles of
+# FLASH_BWD_BF16_QTILE streamed (kTcBwdWarps, kTcQ).
+FLASH_FWD_BF16_WARPS = 8
+FLASH_FWD_BF16_KEYS = 128
+FLASH_BWD_BF16_WARPS = 8
+FLASH_BWD_BF16_QTILE = 64
+
+
+def _tc_stride(n):
+    """The row stride, in bf16 values, of a shared tile of rows of n values
+    (csrc/mma.cuh tc_stride): an odd number of 16-byte chunks."""
+    return n if (n // 8) % 2 else n + 8
+
+
+class FlashFwdBf16Plan(NamedTuple):
+    """One call of the bf16 flash forward: `ctas` = q_tiles * n_heads * B
+    CTAs of `warps` warps, 16 queries a warp (`q_tile` a CTA); each streams
+    the head's `key_tiles` key tiles of `key_tile` keys twice a window of
+    `window` keys (the row max, then P.V) through two buffers of
+    `smem_bytes` together."""
+    warps: int
+    q_tile: int
+    q_tiles: int
+    key_tile: int
+    key_tiles: int
+    window: int
+    smem_bytes: int
+    ctas: int
+
+
+def flash_fwd_bf16_plan(B, T, D, n_heads):
+    """The bf16 flash forward's launch plan for B rows of [T, D] and
+    n_heads heads (csrc/flash_mha.cu flash_fwd_bf16_kernel). Path L's [8,
+    1024, 128] in 8 heads of 16: 512 CTAs of 8 warps and 128 queries, 8
+    key tiles of 128 each, 25 KB. Raises on what the kernel cannot
+    take."""
+    hd = _head_dim("flash_fwd_bf16_plan", D, n_heads)
+    if B < 1 or T < 1:
+        raise ValueError("flash_fwd_bf16_plan: needs B, T >= 1, got B=%d, "
+                         "T=%d" % (B, T))
+    warps = FLASH_FWD_BF16_WARPS
+    q_tile = 16 * warps
+    q_tiles = -(-T // q_tile)
+    keys = FLASH_FWD_BF16_KEYS
+    smem = 2 * (2 * keys * _tc_stride(hd) * 2 + keys * 4)
+    return FlashFwdBf16Plan(warps, q_tile, q_tiles, keys, -(-T // keys),
+                            FLASH_WINDOW, smem, q_tiles * n_heads * B)
+
+
+class FlashBwdBf16Plan(NamedTuple):
+    """One call of the bf16 flash backward: `key_tiles` CTAs a (row,
+    head) of `warps` warps, 16 keys a warp (`key_tile` a CTA), each
+    streaming `q_tiles` query tiles of `q_tile`, `smem_bytes` each, `ctas`
+    in all; the key tiles' dQ partials in a workspace of
+    `workspace_bytes`, summed in key-tile order."""
+    warps: int
+    key_tile: int
+    key_tiles: int
+    q_tile: int
+    q_tiles: int
+    smem_bytes: int
+    ctas: int
+    workspace_bytes: int
+
+
+def flash_bwd_bf16_plan(B, T, D, n_heads):
+    """The bf16 flash backward's launch plan for B rows of [T, D] and
+    n_heads heads (csrc/flash_mha.cu flash_bwd_bf16_kernel): the key tile's
+    K, two buffers of a query tile's qs and G (bf16), lse and delta, and
+    its dS^T (bf16). Path L's [8, 1024, 128] in 8 heads of 16: 512 CTAs of
+    8 warps and 128 keys, 16 query tiles of 64 each, 37 KB, a dQ workspace
+    of 8 partials (32 MiB). Raises on what the kernels cannot take."""
+    hd = _head_dim("flash_bwd_bf16_plan", D, n_heads)
+    if B < 1 or T < 1:
+        raise ValueError("flash_bwd_bf16_plan: needs B, T >= 1, got B=%d, "
+                         "T=%d" % (B, T))
+    warps = FLASH_BWD_BF16_WARPS
+    key_tile, q_tile = 16 * warps, FLASH_BWD_BF16_QTILE
+    key_tiles = -(-T // key_tile)
+    smem = (2 * (key_tile * _tc_stride(hd) + 4 * q_tile * _tc_stride(hd))
+            + 16 * q_tile + 2 * key_tile * _tc_stride(q_tile))
+    return FlashBwdBf16Plan(warps, key_tile, key_tiles, q_tile,
+                            -(-T // q_tile), smem, key_tiles * n_heads * B,
+                            4 * key_tiles * B * T * D)
 
 
 def _heads(t, n_heads):
@@ -2290,12 +2384,14 @@ def launch_mha_bwd(q, k, v, mask, n_heads, seeds, drop_rate, out, g):
 
 def launch_flash_mha_fwd(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
     """The flash forward kernel on flash_fwd_plan: (out [B, T, D] in q's
-    dtype, lse [B, H, T] float32), the bf16 entry point (#13b) for bf16 q,
-    k, v. CUDA tensors only."""
+    dtype, lse [B, H, T] float32); for bf16 q, k, v the bf16 entry point
+    (#13b, tensor cores) on flash_fwd_bf16_plan. CUDA tensors only."""
     name = _entry("flash_mha_fwd", _act_dtype("flash_mha_fwd", q))
     _require_cuda(name, q, k, v, mask)
     B, T, D = _attention_shapes(name, q, k, v, mask, n_heads)
-    plan = flash_fwd_plan(B, T, D, n_heads)
+    # the fp32 kernel takes its plan's query rows a thread
+    rows = ([] if q.dtype == torch.bfloat16 else
+            [flash_fwd_plan(B, T, D, n_heads).rows])
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     # q, k and v are read by 16-byte loads and cp.async
     q, k, v = _aligned16(q, k, v)
@@ -2303,21 +2399,22 @@ def launch_flash_mha_fwd(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0):
     lse = _empty(q.device, B, n_heads, T)
     _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             sp, thresh, scale, out.data_ptr(), lse.data_ptr(), B, T, D,
-            n_heads, plan.rows)
+            n_heads, *rows)
     return out, lse
 
 
 def launch_flash_mha_bwd(q, k, v, mask, n_heads, seeds, drop_rate, out, lse,
                          g):
     """The flash backward kernels on flash_bwd_plan (P recomputed from lse):
-    (dq, dk, dv) in q's dtype, the bf16 entry point (#14b) for bf16 q, k,
-    v, out and g (lse, delta and the dQ partials float32 either way). CUDA
-    tensors only."""
+    (dq, dk, dv) in q's dtype; for bf16 q, k, v, out and g the bf16 entry
+    point (#14b, tensor cores) on flash_bwd_bf16_plan (lse, delta and the
+    dQ partials float32 either way). CUDA tensors only."""
     name = _entry("flash_mha_bwd", _act_dtype("flash_mha_bwd", q))
     _require_cuda(name, q, k, v, mask, out, lse, g)
     B, T, D = _attention_shapes(name, q, k, v, mask, n_heads, out, g)
     _check(name, lse, (B, n_heads, T))
-    plan = flash_bwd_plan(B, T, D, n_heads)
+    plan = (flash_bwd_bf16_plan if q.dtype == torch.bfloat16 else
+            flash_bwd_plan)(B, T, D, n_heads)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     # delta [B, H, T] (g . out per query), then the key tiles' dQ partials
@@ -2326,8 +2423,8 @@ def launch_flash_mha_bwd(q, k, v, mask, n_heads, seeds, drop_rate, out, lse,
     nd = -(-B * n_heads * T // 4) * 4
     work = _empty(q.device, nd + plan.workspace_bytes // 4)
     dqw = work[nd:]
-    # the query tiles land by 16-byte cp.async
-    q, g = _aligned16(q, g)
+    # the query (and bf16: key) tiles land by 16-byte cp.async
+    q, k, g = _aligned16(q, k, g)
     _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             sp, thresh, scale, out.data_ptr(), lse.data_ptr(), g.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(),
@@ -2677,7 +2774,8 @@ def mha_kernel_fits(T, D, n_heads):
     """fused_mha_block's kernels take [T, D] in n_heads heads: a head dim of
     MHA_HEAD_DIMS, then the route's plans: the block kernels' (mha_route
     checks them), the whole-T forward's shared memory and
-    mha_whole_bwd_plan, or the flash plans' shared memory."""
+    mha_whole_bwd_plan, or the flash plans' shared memory (fp32 and
+    bf16)."""
     if n_heads < 1 or D % n_heads or D // n_heads not in MHA_HEAD_DIMS:
         return False
     hd = D // n_heads
@@ -2688,8 +2786,9 @@ def mha_kernel_fits(T, D, n_heads):
         return (_mha_fwd_attention_bytes(T, min(T, MHA_WHOLE_QTILE), hd)
                 <= MAX_SMEM_BYTES
                 and _plans_take((mha_whole_bwd_plan, 1, T, D, n_heads)))
-    return (flash_fwd_plan(1, T, D, n_heads).smem_bytes <= MAX_SMEM_BYTES
-            and flash_bwd_plan(1, T, D, n_heads).smem_bytes <= MAX_SMEM_BYTES)
+    return all(plan(1, T, D, n_heads).smem_bytes <= MAX_SMEM_BYTES
+               for plan in (flash_fwd_plan, flash_bwd_plan,
+                            flash_fwd_bf16_plan, flash_bwd_bf16_plan))
 
 
 @functools.lru_cache(maxsize=256)
