@@ -1702,20 +1702,36 @@ def bf16_train_kernel_rows(dev, max_w):
                   lambda: K.launch_lstm_fwd_res(*args32)).values()),
               shape=[T, B, 4 * H], equal_bits_twice=twice,
               err_vs_fp32_function=max_err(got[0], ref32[0]), **mean_check)
+
+    def lstm_bwd_work(T_, n_valid_):
+        return (4 * n_valid_ * H * 4 * H,
+                4 * (T_ * B + 8 * T_ * B * H) + 2 * (2 * H * 4 * H + T_ * B * 4 * H))
+
+    # the tensor-core backward also at path M's T = 192: its device
+    # time and bound, and its outputs against an fp64 evaluation of the
+    # function, no further from it than the twin plus the twin limits
+    lstm_128 = V.lstm_case(dev, rng, T, B, H)
+    lstm_m = V.lstm_case(dev, rng, 192, B, H)
+    parts = by_kernel(lstm_m.kernel)
+    fp64_m = V.fp64_readings(lstm_m, K.lstm_recurrence_bwd_plain)
+    check(*V.fp64_verdict(lstm_m, V.read(lstm_m), fp64_m))
     vjp_rows("lstm_recurrence_bwd_bf16", "lstm.cu", 316,
-             [V.lstm_case(dev, rng, T, B, H)],
-             4 * n_valid * H * 4 * H,
-             4 * (T * B + 8 * T * B * H) + 2 * (2 * H * 4 * H
-                                                 + T * B * 4 * H),
+             [lstm_128], *lstm_bwd_work(T, n_valid),
              library_ms=ms_lib_both - ms_lib_fwd,
-             library="cuDNN nn.LSTM in bf16, forward+backward - forward")
+             library="cuDNN nn.LSTM in bf16, forward+backward - forward",
+             plan=K.lstm_bwd_bf16_plan(B, H)._asdict(),
+             path_M={"shape": [192, B, 4 * H], "device_ms": sum(parts.values()),
+                     "by_kernel": parts, "fp64": fp64_m,
+                     "bound_ms": bound(*lstm_bwd_work(
+                         192, int(lstm_m.counted["dx_proj"].sum())),
+                         PEAK_BF16_FLOPS)[0]})
 
     # 2. the conv block backward (#9): whole-row at the query stream's [B,
     # max_w, D], T-tiled at the video's [B, T, D]; drop 0 and 0.2
-    def conv_work(T_, tiled):
-        flops = L * 2 * B * T_ * D * (3 * D + 3 * KS)
-        nbytes = (3 * 2 * B * T_ * D + 2 * 4 * L * (3 * D + KS * D + D * D)
-                  + (4 * (L - 1) * B * T_ * D if tiled else 0))
+    def conv_work(T_, tiled, B_=B):
+        flops = L * 2 * B_ * T_ * D * (3 * D + 3 * KS)
+        nbytes = (3 * 2 * B_ * T_ * D + 2 * 4 * L * (3 * D + KS * D + D * D)
+                  + (4 * (L - 1) * B_ * T_ * D if tiled else 0))
         return flops, nbytes
 
     for name, T_, tiled, line in (("conv_block_bwd_bf16", max_w, False, 1039),
@@ -1724,13 +1740,18 @@ def bf16_train_kernel_rows(dev, max_w):
         cases = [V.conv_case(dev, rng, B, T_, D, rate, tiled)
                  for rate in (DROP, 0.0)]
         extra = {}
-        if tiled:  # also at path L's [8, 1024, 128], where #9c first runs
-            cases.append(V.conv_case(dev, rng, 8, 1024, D, DROP, True))
-            parts = by_kernel(cases[-1].kernel)
-            extra["path_L"] = {
-                "shape": [8, 1024, D], "device_ms": sum(parts.values()),
-                "fp32_device_ms": sum(by_kernel(cases[-1].fp32).values()),
-                "by_kernel": parts}
+        if tiled:  # also at path M's [16, 192, 128] and path L's [8, 1024,
+            # 128], the tensor-core kernel's plan, device time and bound
+            extra["plan"] = K.conv_tiled_bwd_bf16_plan(B, T_, D, KS, L)._asdict()
+            for path, (B_, T_p) in (("L", (8, 1024)), ("M", (16, 192))):
+                cases.append(V.conv_case(dev, rng, B_, T_p, D, DROP, True))
+                parts = by_kernel(cases[-1].kernel)
+                extra["path_" + path] = {
+                    "shape": [B_, T_p, D], "device_ms": sum(parts.values()),
+                    "fp32_device_ms": sum(by_kernel(cases[-1].fp32).values()),
+                    "by_kernel": parts,
+                    "plan": K.conv_tiled_bwd_bf16_plan(B_, T_p, D, KS, L)._asdict(),
+                    "bound_ms": bound(*conv_work(T_p, True, B_), PEAK_BF16_FLOPS)[0]}
         vjp_rows(name, "conv_block.cu", line, cases, *conv_work(T_, tiled),
                  shape=[B, T_, D], route_train=K.conv_route(T_, D, KS, L, True),
                  **extra)
@@ -2676,12 +2697,14 @@ class ConvBlockCalls:
         fwd, bwd = self.saved.values()
 
         def forward(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
-            out, xs = fwd(x, gam, beta, dw, wp, bp, seeds, drop_rate)
+            out, xs, *mask = fwd(x, gam, beta, dw, wp, bp, seeds, drop_rate)
             self.record(x, gam, beta, dw, wp, bp, seeds, drop_rate, xs=xs)
-            return out, xs
+            return (out, xs, *mask)
 
-        def backward(x, xs, gam, beta, dw, wp, bp, seeds, drop_rate, g):
-            grads = bwd(x, xs, gam, beta, dw, wp, bp, seeds, drop_rate, g)
+        def backward(x, xs, gam, beta, dw, wp, bp, seeds, drop_rate, g,
+                     mask=None):
+            grads = bwd(x, xs, gam, beta, dw, wp, bp, seeds, drop_rate, g,
+                        mask)
             call, = [c for c in self.calls
                      if c["xs"].data_ptr() == xs.data_ptr()]
             call["g"], call["grads"] = g, grads

@@ -74,3 +74,19 @@ def test_planted_fault_is_refused(twins_as_kernels, kind, fault):
                                                "slice_share")
     if fault != "last_frame_fp32":  # a value 1/16 off or 0: the element
         assert first["elem"] > V.limit(case, case.names[0], "elem")
+
+
+def test_fp64_verdict_passes_the_twin_and_refuses_the_controls(twins_as_kernels):
+    """bf16_vjp.fp64_verdict (#8b at path M's T = 192 on the card): the
+    twin as the kernel sits where the twin does from the fp64 evaluation
+    and passes; each control, taken as the kernel, lies beyond the twin's
+    distance plus the twin limit and is refused."""
+    case = _case("lstm")
+    fp64 = V.fp64_readings(case, K.lstm_recurrence_bwd_plain)
+    assert fp64["kernel"] == fp64["twin"]
+    assert V.fp64_verdict(case, V.read(case), fp64) == (True, "")
+    for control in ("fp32", "autograd"):
+        bad = case._replace(kernel=getattr(case, control))
+        ok, why = V.fp64_verdict(bad, V.read(bad), V.fp64_readings(
+            bad, K.lstm_recurrence_bwd_plain))
+        assert not ok and "from fp64" in why, why

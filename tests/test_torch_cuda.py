@@ -1152,11 +1152,12 @@ def test_cuda_conv_block_bf16_matches_twin(cuda, B, T, D, rate):
     ref = kernels.conv_block_plain(*args, **drop)
     before = dict(kernels.LAUNCHES)
     whole = kernels.launch_conv_block_fwd(*args, **drop)
-    tiled, xs = kernels.launch_conv_block_fwd_tiled(*args, **drop)
+    tiled, xs, mask = kernels.launch_conv_block_fwd_tiled(*args, **drop)
     torch.cuda.synchronize()
     for name in ("conv_block_fwd_bf16", "conv_block_fwd_tiled_bf16"):
         assert kernels.LAUNCHES[name] == before[name] + 1
     assert whole.dtype == BF16 and xs.dtype == torch.float32
+    assert mask.dtype == torch.uint8 and mask.shape == (4, B, T, D // 4)
     assert _scaled(whole, ref) <= BF16_TOL
     ref32 = kernels.conv_block_plain(args[0].float(), *args[1:], **drop)
     assert _share(whole, ref) <= BF16_SHARE_TOL < _share(ref32.to(BF16), ref)
@@ -1424,3 +1425,80 @@ def test_cuda_bf16_backward_refuses_a_planted_fault(cuda, kind, fault):
     bad = V.planted(case, fault)
     ok, why = V.verdict(bad, V.read(bad))
     assert not ok and "beyond the limits" in why, why
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,rate", [
+    ("lstm", (192, 16, 128), 0.0),
+    ("conv_tiled", (16, 192, 128), 0.0), ("conv_tiled", (16, 192, 128), 0.2),
+    ("conv_tiled", (8, 1024, 128), 0.0), ("conv_tiled", (8, 1024, 128), 0.2)])
+def test_cuda_bf16_backward_at_the_long_paths(cuda, kind, shape, rate):
+    """#8b at path M's [192, 16, 4H = 512] and #9c at path M's [16, 192,
+    128] and path L's [8, 1024, 128], the tensor-core backwards at the
+    shapes the long paths train at, each call counted under the bf16
+    entry. #9c is held as the card cases are (bf16_vjp's verdict against
+    the plain backward twin, its limits); #8b at T = 192 against an fp64
+    evaluation of the same function, no further from it than
+    twin plus the twin limits (bf16_vjp's fp64_verdict: there the twin's
+    own distance from fp64 nears the twin limits)."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    rng = np.random.default_rng(38)
+    case = (V.lstm_case(cuda, rng, *shape) if kind == "lstm"
+            else V.conv_case(cuda, rng, *shape, rate, True))
+    kernels.reset_launches()
+    case.kernel()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[case.name] == 1
+    assert kernels.LAUNCHES[case.name[:-5]] == 0
+    reading = V.read(case)
+    if kind == "lstm":
+        fp64 = V.fp64_readings(case, kernels.lstm_recurrence_bwd_plain)
+        ok, why = V.fp64_verdict(case, reading, fp64)
+        assert ok, (why, fp64)
+    else:
+        ok, why = V.verdict(case, reading)
+        assert ok, (why, reading)
+
+
+# a pre-ReLU whose sign may differ between the tiled forward and a cuBLAS
+# replay on the same layer input: the two sum the LayerNorm, the depthwise
+# product and the pointwise product in other orders, so a value on a bf16
+# rounding boundary of n or d may round the other way in one of them and
+# move p by a bf16 ulp of a term; within MASK_KINK of the product's
+# magnitude, sum |bf16(d)| . |bf16(wp)| + |bp| (two bf16 ulps), and in at
+# most MASK_FLIPS of the pre-ReLUs
+MASK_KINK = 2.0 ** -7
+MASK_FLIPS = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(16, 128), (16, 192), (8, 1024), (2, 13)])
+def test_cuda_conv_block_fwd_tiled_bf16_mask_bits(cuda, B, T):
+    """#2c's ReLU mask, which the bf16 tiled backward reads in place of its
+    replay, against the twin's [p > 0] computed on the forward's own layer
+    inputs (x, then xs): every bit that differs sits at a pre-ReLU within
+    MASK_KINK of the product's magnitude from 0, and they are counted and
+    few (plain draws, drop 0.2). Equal calls give equal bits."""
+    rng = np.random.default_rng(39)
+    D, L = 128, 4
+    x, *w = _conv_inputs(rng, B, T, D)
+    args = [_t(x).to(cuda, BF16)] + [_t(a).to(cuda) for a in w]
+    seeds = _t(_seeds(rng, B)).to(cuda)
+    out, xs, mask = kernels.launch_conv_block_fwd_tiled(*args, seeds, 0.2)
+    again = kernels.launch_conv_block_fwd_tiled(*args, seeds, 0.2)
+    assert all(torch.equal(a, b) for a, b in zip((out, xs, mask), again))
+    bits = ((mask[..., None] >> torch.arange(4, device=cuda, dtype=torch.uint8)) & 1
+            ).reshape(L, B, T, D).bool()
+    _, gam, beta, dw, wp, bp = args
+    differ, worst = 0, 0.0
+    for l, xl in enumerate([args[0].float()] + list(xs[:L - 1])):
+        n, _, _, d, p = kernels.conv_layer_replay(xl, gam[l], beta[l], dw[l],
+                                                  wp[l], bp[l], BF16)
+        scale = d.abs() @ wp[l].to(BF16).float().abs() + bp[l].abs()
+        flips = bits[l] != (p > 0)
+        if bool(flips.any()):
+            worst = max(worst, float((p.abs() / scale)[flips].max()))
+        differ += int(flips.sum())
+    assert worst <= MASK_KINK and differ <= MASK_FLIPS * L * B * T * D, \
+        (differ, worst)

@@ -54,6 +54,18 @@ difference from the default plan's gradients. With --by-kernel only the
 wrapper's rows, which an older tree of the port also runs (put it on
 PYTHONPATH), so that a change's breakdown can be set beside its parent's.
 
+    python3 -m vslnet_torch.bench.conv_plans --tiled --bf16
+
+The bf16 T-tiled backward (#9c) at path L's [8, 1024, 128], path M's [16,
+192, 128] and the main path's [16, 128, 128], drop_rate 0.2: the call's
+device time by kernel (torch.profiler: the layers, the partials' sum,
+the dwp product and its sum, the wrapper's own copies), its time by CUDA
+events, and the cycles a call between the layer kernel's barriers and
+phases (thread 0 of tile 1 of row 0, summed over the layers) from a
+stamped copy of conv_block.cu standing in for the kernel library while
+the wrapper launches it: the tensor-core kernel where conv_block.cu has
+it, else the parent's (run an older tree by path with it on PYTHONPATH).
+
     python3 -m vslnet_torch.bench.conv_plans --route
 
 Where conv_route should send a shape: at B = 16, 8, 4 and 1 rows and
@@ -396,6 +408,73 @@ def tiled_main(argv):
     return 0
 
 
+class _Renamed:
+    """A stamped library's entry points under the kernel library's names
+    (vsl_ -> tag_), so that the wrappers launch them."""
+
+    def __init__(self, lib, tag):
+        self.lib, self.tag = lib, tag
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name.replace("vsl_", self.tag + "_", 1))
+
+
+def tiled_bf16_main():
+    """The --tiled --bf16 rows (module docstring)."""
+    import torch
+
+    smi = card()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    src = (K.CSRC / "conv_block.cu").read_text()
+    kernel = "bwd_tc" if "conv_layer_bwd_tc_tiled_kernel(const " in src else "bwd"
+    prof_src, stamped = instrumented_tiled(src, kernel)
+    prof = build_copy("tiled_bf16_prof", prof_src)
+    for name in ("conv_block_fwd_tiled_bf16", "conv_block_bwd_tiled_bf16"):
+        fn = getattr(prof, "tprof_" + name)
+        fn.argtypes = K._SIGNATURES["vsl_" + name]
+        fn.restype = ctypes.c_int
+    prof.tprof_read.argtypes = [ctypes.c_void_p]
+    prof.tprof_read.restype = ctypes.c_int
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    for B, T in ((8, 1024), (16, 192), (16, 128)):
+        args = [t(rng.standard_normal((B, T, D))).to(torch.bfloat16),
+                t(1 + 0.1 * rng.standard_normal((L, D))),
+                t(0.1 * rng.standard_normal((L, D))),
+                t(rng.standard_normal((L, KS, D)) / math.sqrt(KS)),
+                t(0.1 * rng.standard_normal((L, D, D)) / math.sqrt(D)),
+                t(np.where(rng.random((L, D)) < 0.5, -1.0, 1.0))]
+        seeds = t(rng.integers(0, 1 << 23, (B, 1)))
+        g = t(rng.standard_normal((B, T, D))).to(torch.bfloat16)
+        saved = K.launch_conv_block_fwd_tiled(*args, seeds, 0.2)[1:]
+
+        def call():
+            return K.launch_conv_block_bwd_tiled(args[0], saved[0], *args[1:], seeds, 0.2, g,
+                                                 *saved[1:])
+        parts = by_kernel(call)
+        plan = getattr(K, "conv_tiled_bwd_bf16_plan", K.conv_tiled_bwd_plan)(B, T, D, KS, L)
+        row = {"bench": "conv_plans", "card": smi, "kernel": "tiled backward bf16",
+               "shape": [B, T, D], "drop_rate": 0.2, "plan": plan._asdict(),
+               "device_ms": sum(parts.values()), "by_kernel": parts, "ms": cuda_ms(call)}
+        want = [x.clone() for x in call()]
+        lib = K._library()
+        K._LIB = _Renamed(prof, "tprof")  # the stamped copy, through the wrapper
+        try:
+            cycles = stamp_cycles(call, prof.tprof_read, stamped)
+            got = call()
+            torch.cuda.synchronize()
+        finally:
+            K._LIB = lib
+        row.update(cta="tile 1 of row 0", cycles_to_each_stamp_over_the_layers=cycles,
+                   cycles_total=sum(cycles.values()),
+                   stamped_equal_bits=all(torch.equal(a, b) for a, b in zip(want, got)))
+        print(json.dumps(row), flush=True)
+    return 0
+
+
 def renamed(src, tag):
     """src with its entry points renamed vsl_ -> <tag>_."""
     return src.replace('extern "C" int vsl_', 'extern "C" int %s_' % tag)
@@ -513,6 +592,8 @@ def main(argv):
         print("conv_plans: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    if "--tiled" in argv and "--bf16" in argv:
+        return tiled_bf16_main()
     if "--tiled" in argv:
         return tiled_main(argv)
     if "--route" in argv:

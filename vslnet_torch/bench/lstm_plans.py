@@ -32,6 +32,18 @@ forward (#1b, serving), the forward with residuals (#7b) and the backward
 CUDA events, beside the fp32 kernels on the same inputs, with the bound
 at 3.35 TB/s of the bytes chip_smoke.py's rows count (bf16 x_proj, k_h,
 dx_proj, dk_h; fp32 states and residuals). One JSON line a kernel and T.
+
+    python3 -m vslnet_torch.bench.lstm_plans --bwd
+
+The bf16 backward (#8b) at B = 16, H = 128, T = 128 and 192: the call's
+device time by kernel (the chain, the dk_h product, its partials' sum,
+the rounding), and the cycles a step by phase from a copy of csrc/lstm.cu
+with clock stamps (thread 0 of CTA 0, the (unit 0, row 0) thread, summed
+over the steps), built as the library it replaces for the call: the
+tensor-core kernel's phases (BWD_TC_PHASES) where lstm.cu has it, else
+the parent's fp32-FMA kernel's (BWD_PHASES), so that an older tree on
+PYTHONPATH, run by path (`PYTHONPATH=<parent> python3
+vslnet_torch/bench/lstm_plans.py --bwd`), gives its own.
 """
 import ctypes
 import json
@@ -98,6 +110,135 @@ def build_instrumented():
     return lib
 
 
+# the bf16 backward's step phases: stamps inserted before each anchor of
+# the kernel's step loop, the phase named the one the stamp ends
+BWD_TC_KERNEL = "lstm_bwd_tc_kernel(const float* __restrict__ dy"
+BWD_TC_PHASES = [
+    ("wait", "    float nx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};\n"
+             "    if (own && t > 0) load(t - 1, nx);"),
+    ("loads", "    float dot = 0.f;\n    if (s > 0) {\n"),
+    ("mma", "      // the products' sums in a fixed tree"),
+    ("tree", "#pragma unroll\n      for (int mt = 0; mt < MT; ++mt) {\n"
+             "        float* pw = part"),
+    ("partials+barrier", "      if (own)\n#pragma unroll\n        for (int w = 0; w < W; ++w)"),
+    ("sum", "    if (own) {\n      const float v = in[7]"),
+    ("gates+dx_proj+stage", "    if (t > 0) {  // this CTA's chunks of dg_t"),
+    ("barrier+sends", "#pragma unroll\n    for (int k = 0; k < 8; ++k) in[k] = nx[k];\n  }\n"),
+]
+BWD_KERNEL = "lstm_bwd_cluster_kernel(const float* __restrict__ dy"
+BWD_PHASES = [
+    ("wait", "    float nx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};\n"
+             "    if (own && t > 0) load(t - 1, nx);"),
+    ("loads", "    float acc[kBt];\n"),
+    ("dot", "    for (int off = S >> 1; off > 0; off >>= 1)\n"),
+    ("butterfly", "    float dg[4] = {0.f, 0.f, 0.f, 0.f};\n    if (own) {\n"),
+    ("gates", "    // item i of the group's 4*kBt results"),
+    ("shares+dx_proj+sends",
+     "#pragma unroll\n    for (int k = 0; k < 8; ++k) in[k] = nx[k];\n  }\n"),
+]
+BWD_LOOP = "  uint32_t phase = 0;  // bit p: the parity of full[p]'s next phase\n\n  for (int s = 0;"
+
+
+def bwd_phases(src):
+    """(kernel head, phases) of the bf16 backward in lstm.cu's source."""
+    return (BWD_TC_KERNEL, BWD_TC_PHASES) if BWD_TC_KERNEL in src else (BWD_KERNEL, BWD_PHASES)
+
+
+def instrumented_bwd(src):
+    """(csrc/lstm.cu with clock stamps in the step loop of the bf16
+    backward's kernel, before each phase's anchor (thread 0 of CTA 0, the
+    first step's wait skipped) and its ns between the loop's ends by
+    %globaltimer into g_prof[8], its entry points kept; the phase names).
+    Raises where an anchor is not found once in the kernel."""
+    head, phases = bwd_phases(src)
+    start = src.index(head)
+    end = src.index("\n}\n", start) + 3
+    body = src[start:end]
+
+    def insert(anchor, text, after=False):
+        nonlocal body
+        if body.count(anchor) != 1:
+            raise RuntimeError("anchor not found once in lstm.cu's %s: %r"
+                               % (head.split("(")[0], anchor))
+        body = body.replace(anchor, anchor + text if after else text + anchor)
+
+    for k, (_, anchor) in enumerate(phases):
+        insert(anchor, "    if (tid == 0 && blockIdx.x == 0) { unsigned long long now = "
+               "clock64(); if (%d > 0 || s > 0) pacc[%d] += now - plast; plast = now; }\n"
+               % (k, k))
+    insert(BWD_LOOP, "  unsigned long long pacc[8] = {0, 0, 0, 0, 0, 0, 0, 0}, plast = 0, pt0 = 0;\n"
+           "  if (tid == 0 && blockIdx.x == 0) {\n"
+           "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pt0));\n"
+           "    plast = clock64();\n  }\n")
+    body = body[:-2] + ("  if (tid == 0 && blockIdx.x == 0) {\n    unsigned long long pt1;\n"
+                        "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pt1));\n"
+                        "    for (int k = 0; k < 8; ++k) g_prof[k] = pacc[k];\n"
+                        "    g_prof[8] = pt1 - pt0;\n  }\n}\n")
+    src = src[:start] + body + src[end:]
+    src = src.replace('#include "common.cuh"\n', '#include "common.cuh"\n'
+                      "__device__ unsigned long long g_prof[9];\n", 1)
+    return src + ('\nextern "C" int prof_read(unsigned long long* h) {\n'
+                  '  return (int)cudaMemcpyFromSymbol(h, g_prof, sizeof(g_prof));\n}\n'), \
+        [name for name, _ in phases]
+
+
+def bwd_main(smi, dev):
+    """The --bwd rows (module docstring): the stamped copy stands in for the
+    kernel library while the wrapper launches it."""
+    import torch
+
+    from vslnet_torch.bench.common import by_kernel
+
+    src, names = instrumented_bwd((K.CSRC / "lstm.cu").read_text())
+    prof = build_copy("lstm_bwd_prof", src)
+    entry = prof.vsl_lstm_recurrence_bwd_bf16
+    entry.argtypes = K._SIGNATURES["vsl_lstm_recurrence_bwd_bf16"]
+    entry.restype = ctypes.c_int
+    prof.prof_read.argtypes = [ctypes.c_void_p]
+    prof.prof_read.restype = ctypes.c_int
+    bf = torch.bfloat16
+    rng = np.random.default_rng(0)
+    B, H = 16, 128
+    k_h = torch.from_numpy((rng.standard_normal((H, 4 * H)) / math.sqrt(H))
+                           .astype(np.float32)).to(dev).to(bf)
+    plan = getattr(K, "lstm_bwd_bf16_plan", K.lstm_plan)(B, H)
+    for T in (128, 192):
+        lens = np.concatenate([[T, 1], rng.integers(1, T + 1, B - 2)])
+        x_proj = torch.from_numpy(rng.standard_normal((T, B, 4 * H)).astype(
+            np.float32)).to(dev).to(bf)
+        valid = torch.from_numpy((np.arange(T)[:, None] < lens[None, :])
+                                 .astype(np.float32)).to(dev)
+        dy = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+            np.float32)).to(dev)
+        res = K.launch_lstm_fwd_res(x_proj, k_h, valid)[1:]
+
+        def call():
+            return K.launch_lstm_bwd(dy, *res, valid, k_h)
+        parts = by_kernel(call)
+        row = {"bench": "lstm_plans", "card": smi, "kernel": "lstm_recurrence_bwd_bf16",
+               "shape": [T, B, 4 * H], "plan": plan._asdict(),
+               "device_ms": sum(parts.values()), "by_kernel": parts, "ms": cuda_ms(call)}
+        lib = K._library()
+        K._LIB = prof  # the stamped copy, through the wrapper
+        try:
+            want = [t.clone() for t in call()]
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        finally:
+            K._LIB = lib
+        stamps = (ctypes.c_ulonglong * 9)()
+        if prof.prof_read(stamps):
+            raise RuntimeError("reading the stamps failed")
+        row["cycles_per_step"] = {n: stamps[k] / (T - 1 if k == 0 else T)
+                                  for k, n in enumerate(names)}
+        row["prof_ns_per_step"] = stamps[8] / T
+        row["sm_ghz"] = sum(stamps[k] for k in range(len(names))) / stamps[8]
+        row["stamped_equal_bits"] = all(torch.equal(a, b) for a, b in zip(want, call()))
+        print(json.dumps(row), flush=True)
+    return 0
+
+
 def bf16_main(smi, dev):
     """The --bf16 rows (module docstring)."""
     import torch
@@ -154,6 +295,8 @@ def main(argv=()):
     torch.backends.cuda.matmul.allow_tf32 = False
     if "--bf16" in argv:
         return bf16_main(card(), torch.device("cuda"))
+    if "--bwd" in argv:
+        return bwd_main(card(), torch.device("cuda"))
     prof = build_instrumented()
     smi = card()
     rng = np.random.default_rng(0)

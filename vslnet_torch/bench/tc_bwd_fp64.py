@@ -1,0 +1,158 @@
+#!/usr/bin/env python3
+"""The bf16 LSTM backward (#8b) and the bf16 T-tiled conv backward (#9c),
+each beside its twin, held to an fp64 evaluation of the same function, on
+the card:
+
+    python3 -m vslnet_torch.bench.tc_bwd_fp64
+    PYTHONPATH=<older tree> python3 vslnet_torch/bench/tc_bwd_fp64.py
+
+The twins (`lstm_recurrence_bwd_plain`, `conv_block_bwd_plain`) compute
+the JAX package's bf16 VJPs in fp32 with cuBLAS's sums; with
+work=float64 the same functions keep their bf16 rounding points (#8b: the
+dgates, h_prev; #9c: n, d, wp, g_p) and hold every other value in float64.
+The fp64 functions are this file's tree's twins, loaded from its own
+ops/kernels.py, whatever tree on PYTHONPATH the kernels come from, so that
+a parent and a change are read against one evaluation. For each case of
+bench/bf16_vjp.py's card_cases ("lstm", "conv_tiled") and the long paths'
+shapes (#8b at path M's [192, 16, 128]; #9c at path M's [16, 192, 128]
+and path L's [8, 1024, 128]), drop 0 and 0.2 for #9c, it prints
+bf16_vjp's readings (a bf16 output's share of differing values and its
+worst frame or row; an fp32 output's mean error over its mean magnitude)
+of the kernel against the twin, the kernel against fp64 and the twin
+against fp64, and bf16_vjp's verdict. One JSON line a case, with the
+card's name and power limit.
+
+    python3 -m vslnet_torch.bench.tc_bwd_fp64 --seeds 8 [--k8]
+
+Only #8b at T = 128 and 192 ([T, 16, 512]), over 8 draws (seeds 100-107):
+its chain makes one draw's shares vary by a third.
+
+    python3 -m vslnet_torch.bench.tc_bwd_fp64 --k8
+
+Adds to each #8b row the readings of a copy of csrc/lstm.cu whose step
+product runs each k16 step as two m16n8k8 mma (8 products summed inside
+the tensor core, not 16) added in fp32 (`kernel_k8`), built into
+vslnet_torch/_build/bench/ and launched through the wrapper.
+"""
+import ctypes
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+
+LONG = {"lstm": [(192, 16, 128)], "conv_tiled": [(16, 192, 128), (8, 1024, 128)]}
+
+
+def fp64_twins():
+    """This tree's ops/kernels.py, loaded on its own: its twins take
+    work=float64 (an older tree's may not)."""
+    path = Path(__file__).resolve().parents[1] / "ops" / "kernels.py"
+    spec = importlib.util.spec_from_file_location("tc_bwd_fp64_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+K16_STEP = "          vsl::mma16(c[ks][mt], a[mt][ks], b[0], b[1]);\n"
+K8_STEP = ("          {\n            float h[4] = {0.f, 0.f, 0.f, 0.f};\n"
+           "            vsl::mma8(c[ks][mt], a[mt][ks][0], a[mt][ks][1], b[0]);\n"
+           "            vsl::mma8(h, a[mt][ks][2], a[mt][ks][3], b[1]);\n"
+           "            for (int e = 0; e < 4; ++e) c[ks][mt][e] += h[e];\n          }\n")
+
+
+def k8_library():
+    """The kernel library with the bf16 LSTM backward taken from a copy of
+    lstm.cu whose step product is two m16n8k8 mma a k16 step."""
+    from vslnet_torch.bench.common import build_copy
+    from vslnet_torch.ops import kernels as K
+
+    src = (K.CSRC / "lstm.cu").read_text()
+    if src.count(K16_STEP) != 1:
+        raise RuntimeError("the k16 step is not found once in lstm.cu")
+    copy = build_copy("lstm_k8", src.replace(K16_STEP, K8_STEP).replace(
+        'extern "C" int vsl_', 'extern "C" int k8_'))
+    fn = copy.k8_lstm_recurrence_bwd_bf16
+    fn.argtypes = K._SIGNATURES["vsl_lstm_recurrence_bwd_bf16"]
+    fn.restype = ctypes.c_int
+    main = K._library()
+
+    class Lib:
+        def __getattr__(self, name):
+            if name == "vsl_lstm_recurrence_bwd_bf16":
+                return fn
+            return getattr(main, name)
+    return Lib()
+
+
+def cases(dev, seeds=0):
+    """(kind, case) of the card cases and the long paths' shapes; with
+    `seeds`, #8b at T = 128 and 192 over that many draws instead."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    if seeds:
+        for seed in range(100, 100 + seeds):
+            for T in (128, 192):
+                yield "lstm", V.lstm_case(dev, np.random.default_rng(seed), T, 16, 128)
+        return
+    for kind in ("lstm", "conv_tiled"):
+        for case in V.card_cases(dev, kind):
+            yield kind, case
+        rng = np.random.default_rng(37)
+        for shape in LONG[kind]:
+            if kind == "lstm":
+                yield kind, V.lstm_case(dev, rng, *shape)
+            else:
+                for rate in (0.0, 0.2):
+                    yield kind, V.conv_case(dev, rng, *shape, rate, True)
+
+
+def main():
+    import torch
+
+    from vslnet_torch.bench import bf16_vjp as V
+    from vslnet_torch.bench.common import card
+
+    if not torch.cuda.is_available():
+        print("tc_bwd_fp64: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = card()
+    twins = fp64_twins()
+    fp64 = {"lstm": twins.lstm_recurrence_bwd_plain, "conv_tiled": twins.conv_block_bwd_plain}
+    argv = sys.argv[1:]
+    k8 = k8_library() if "--k8" in argv else None
+    seeds = int(argv[argv.index("--seeds") + 1]) if "--seeds" in argv else 0
+    for kind, case in cases(dev, seeds):
+        kern = [t.clone() for t in case.kernel()]
+        twin = [t.detach() for t in case.twin()]
+        ref = [t.detach() for t in fp64[kind](*case.args, work=torch.float64)]
+        ok, why = V.verdict(case, V.read(case))
+        row = {"bench": "tc_bwd_fp64", "card": smi, "kernel": case.name,
+               "shape": list(case.shape), "verdict": ok, "why": why}
+        if kind == "conv_tiled":
+            row["drop_rate"] = case.args[7]
+        k_t, k_f, t_f = (V.reading(case, a, b) for a, b in
+                         ((kern, twin), (kern, ref), (twin, ref)))
+        for n in case.names:
+            row[n] = {"kernel_vs_twin": k_t[n], "kernel_vs_fp64": k_f[n],
+                      "twin_vs_fp64": t_f[n]}
+        if k8 is not None and kind == "lstm":
+            from vslnet_torch.ops import kernels as K
+
+            main, K._LIB = K._LIB, k8
+            try:
+                got = [t.clone() for t in case.kernel()]
+            finally:
+                K._LIB = main
+            r_t, r_f = V.reading(case, got, twin), V.reading(case, got, ref)
+            for n in case.names:
+                row[n].update(kernel_k8_vs_twin=r_t[n], kernel_k8_vs_fp64=r_f[n])
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -316,15 +316,15 @@ __device__ __forceinline__ void cp_async_wait() {
 // chunks, one block per (64 x 64 tile, z, chunk) writes its partial to
 // P[z][s] [M, N], and sum_partials_kernel adds the S partials in a fixed
 // order. No atomics: two equal calls give equal bits. B may be stored in
-// bf16; with kRound both operands are rounded to bf16 as they are loaded
-// (the bf16 kernels' "bf16 inputs, fp32 accumulation").
+// bf16 (widened as it loads). The bf16 LSTM and tiled conv backwards take
+// mma.cuh's wgrad_tc instead.
 
 namespace {  // internal linkage: every .cu that includes this gets its own
 
 constexpr int kWgTile = 64;
 constexpr int kWgDepth = 16;
 
-template <bool kRound, typename TB>
+template <typename TB>
 __global__ void __launch_bounds__(256)
 wgrad_partial_kernel(const float* __restrict__ A, const TB* __restrict__ B,
                      float* __restrict__ P, int M, int N, int K, int S, int chunk) {
@@ -345,14 +345,13 @@ wgrad_partial_kernel(const float* __restrict__ A, const TB* __restrict__ B,
   // multiplies the current one
   constexpr int kLoads = kWgDepth * kWgTile / 256;
   float ra[kLoads], rb[kLoads];
-  const auto in = [](float v) { return kRound ? bf16_round(v) : v; };
   auto fetch = [&](int k0) {
 #pragma unroll
     for (int q = 0; q < kLoads; ++q) {
       const int i = threadIdx.x + q * 256, kk = i / kWgTile, c = i - kk * kWgTile;
       const int k = k0 + kk;
-      ra[q] = (k < k_end && m0 + c < M) ? in(Az[(size_t)k * M + m0 + c]) : 0.f;
-      rb[q] = (k < k_end && n0 + c < N) ? in(to_float(Bz[(size_t)k * N + n0 + c])) : 0.f;
+      ra[q] = (k < k_end && m0 + c < M) ? Az[(size_t)k * M + m0 + c] : 0.f;
+      rb[q] = (k < k_end && n0 + c < N) ? to_float(Bz[(size_t)k * N + n0 + c]) : 0.f;
     }
   };
   fetch(k_begin);
@@ -422,14 +421,13 @@ cudaError_t sum_partials(const float* P, float* C, int Z, int S, int n,
 
 // C = A^T . B as above, with S chunks of K and the partials in P [Z, S, M,
 // N] (unused when S == 1: the single partial is C itself).
-template <bool kRound = false, typename TB = float>
+template <typename TB = float>
 cudaError_t wgrad(const float* A, const TB* B, float* C, float* P, int Z, int M, int N, int K,
                   int S, cudaStream_t stream) {
   if (S < 1) return cudaErrorInvalidValue;
   const int chunk = ((K + S - 1) / S + kWgDepth - 1) / kWgDepth * kWgDepth;
   dim3 grid((N + kWgTile - 1) / kWgTile, (M + kWgTile - 1) / kWgTile, Z * S);
-  wgrad_partial_kernel<kRound, TB><<<grid, 256, 0, stream>>>(A, B, S == 1 ? C : P, M, N, K, S,
-                                                            chunk);
+  wgrad_partial_kernel<TB><<<grid, 256, 0, stream>>>(A, B, S == 1 ? C : P, M, N, K, S, chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return err;
   return sum_partials(P, C, Z, S, M * N, stream);

@@ -85,19 +85,22 @@
 // bf16(d)^T . bf16(g_p) and g_d = bf16(g_p) . bf16(wp)^T take it rounded;
 // g_n, ddw, the LayerNorm backward and G stay fp32, and ddw pairs g_d with
 // the UNROUNDED n (the forward's depthwise read bf16(n)); dx = bf16(G)
-// once, after layer 0. The same backwards, templated: the n windows keep
-// the unrounded n and the depthwise replay rounds each value as it reads
-// it (kRoundIn), dbp is summed before g_p is rounded in place, wp and wp^T
-// are rounded in shared memory once they have landed, d and g_p reach the
-// dwp workspaces rounded (so the split-K product takes them as they are).
-// The tiled backward passes G between its launches in two fp32 buffers, so
-// that only layer 0 writes the bf16 dx. Bound as the fp32 backwards are.
+// once, after layer 0. The whole-row backward, templated: the n windows
+// keep the unrounded n and the depthwise replay rounds each value as it
+// reads it (kRoundIn), dbp is summed before g_p is rounded in place, wp
+// and wp^T are rounded in shared memory once they have landed, d and g_p
+// reach the dwp workspaces rounded (so the split-K product takes them as
+// they are); bound as the fp32 backward is. The tiled backward at bf16 is
+// a kernel of its own on the tensor cores (conv_layer_bwd_tc_tiled_kernel,
+// further down): it reads the ReLU mask the bf16 tiled forward wrote in
+// place of replaying p, and runs g_d and dwp as mma.sync products.
 #include <cooperative_groups.h>
 
 #include <cstdint>
 
 #include "common.cuh"
 #include "hash.cuh"
+#include "mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -514,9 +517,11 @@ constexpr int kTiledUnroll = 4;
 // column and a run of rows, its taps and the last K rows of its column in
 // registers: one shared load an output where the loop of taps has 2 K.
 // kRound: each output rounded to bf16 as it is stored; kRoundIn: each
-// window value rounded to bf16 as it is read.
-template <int K, bool kRev, bool kRound = false, bool kRoundIn = false>
-__device__ void taps_sliding(const float* win, const float* taps, int rows, int D, float* out) {
+// window value rounded to bf16 as it is read; Out: the output's storage
+// type (bf16 for the bf16 backward's d, which goes straight to dwp's
+// workspace).
+template <int K, bool kRev, bool kRound = false, bool kRoundIn = false, typename Out = float>
+__device__ void taps_sliding(const float* win, const float* taps, int rows, int D, Out* out) {
   const auto in = [](float v) { return kRoundIn ? vsl::bf16_round(v) : v; };
   const int parts = max(1, static_cast<int>(blockDim.x) / D);  // threads a column
   const int per = (rows + parts - 1) / parts;
@@ -532,7 +537,7 @@ __device__ void taps_sliding(const float* win, const float* taps, int rows, int 
       float acc = 0.f;
 #pragma unroll
       for (int j = 0; j < K; ++j) acc = fmaf(kRev ? n[K - 1 - j] : n[j], w[j], acc);
-      out[e * D + c] = kRound ? vsl::bf16_round(acc) : acc;
+      out[e * D + c] = vsl::from_float<Out>(kRound ? vsl::bf16_round(acc) : acc);
 #pragma unroll
       for (int j = 0; j + 1 < K; ++j) n[j] = n[j + 1];
     }
@@ -543,10 +548,10 @@ __device__ void taps_sliding(const float* win, const float* taps, int rows, int 
 // (kRev: win[e + K - 1 - j][c]), each one fmaf chain over j in order: the
 // register window of taps_sliding at the model's K = 7, a loop of taps at
 // any other K.
-template <bool kRev, bool kRound = false, bool kRoundIn = false>
-__device__ void taps_rows(const float* win, const float* taps, int rows, int D, int K, float* out) {
+template <bool kRev, bool kRound = false, bool kRoundIn = false, typename Out = float>
+__device__ void taps_rows(const float* win, const float* taps, int rows, int D, int K, Out* out) {
   if (K == 7) {
-    taps_sliding<7, kRev, kRound, kRoundIn>(win, taps, rows, D, out);
+    taps_sliding<7, kRev, kRound, kRoundIn, Out>(win, taps, rows, D, out);
     return;
   }
   for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
@@ -557,7 +562,7 @@ __device__ void taps_rows(const float* win, const float* taps, int rows, int D, 
       const float v = n[(kRev ? K - 1 - j : j) * D];
       acc = fmaf(kRoundIn ? vsl::bf16_round(v) : v, w[j * D], acc);
     }
-    out[i] = kRound ? vsl::bf16_round(acc) : acc;
+    out[i] = vsl::from_float<Out>(kRound ? vsl::bf16_round(acc) : acc);
   }
 }
 
@@ -726,12 +731,14 @@ struct TiledFwdLayout {
 
 // One layer of the tiled forward for the tile [t0, t0 + F) of row b: xout =
 // xin + drop(relu(depthwise(LN(xin)) . wp + bp)) over the own frames.
-// kBf16: the bf16 forward's roundings; XIn, XOut: the storage types of the
-// layer's input and output (bf16 for x and out, fp32 for xs).
+// kBf16: the bf16 forward's roundings, and the layer's ReLU mask [p > 0]
+// into mask [B, T, D / 4], a byte a 4 columns (bit q: column 4 c + q), for
+// the bf16 tiled backward; XIn, XOut: the storage types of the layer's
+// input and output (bf16 for x and out, fp32 for xs).
 template <int R, bool kBf16 = false, typename XIn = float, typename XOut = float>
 __global__ void __launch_bounds__(kTiledThreads, 1)
 conv_layer_fwd_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l, vsl::Dropout drop,
-                            XOut* __restrict__ xout, int F, int SK) {
+                            XOut* __restrict__ xout, uint8_t* __restrict__ mask, int F, int SK) {
   extern __shared__ float4 smem4[];
   const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2;
   const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0);
@@ -796,6 +803,12 @@ conv_layer_fwd_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l, vs
 #pragma unroll
     for (int q = 0; q < 4; ++q)
       y[q] = drop.apply(fmaxf(a[q] + bb[q], 0.f), seed, salt, t0 + r, o + q);
+    if constexpr (kBf16) {  // the backward's [p > 0], as it tested it
+      uint32_t bits = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) bits |= (a[q] + bb[q] > 0.f ? 1u : 0u) << q;
+      mask[((size_t)b * T + t0 + r) * (D / 4) + o / 4] = static_cast<uint8_t>(bits);
+    }
     if constexpr (std::is_same<XOut, float>::value) {
       *reinterpret_cast<float4*>(xout + i) =
           make_float4(x4.x + y[0], x4.y + y[1], x4.z + y[2], x4.w + y[3]);
@@ -811,20 +824,15 @@ conv_layer_fwd_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l, vs
 // One layer of the tiled backward for the tile [t0, t0 + F) of row b:
 // G_in -> G_out, d and g_p of the own frames into d_l and gp_l, per-(row,
 // tile) partials part [B * tiles, L, 3 + K, D] (dgam, dbeta, dbp, ddw [K,
-// D]) as the whole-row backward's per-CTA ones. kBf16: the bf16 backward's
-// roundings (the whole-row kernel's: d from bf16(n), rounded; wp, and g_p
-// after dbp, rounded for the products; d and g_p stored rounded); XIn, GIn,
-// GOut: the storage types of the layer's input, G_in and G_out (bf16 for x,
-// g and dx, fp32 for xs and the stream between the layers).
-template <int R, bool kBf16 = false, typename XIn = float, typename GIn = float,
-          typename GOut = float>
+// D]) as the whole-row backward's per-CTA ones. (The bf16 tiled backward is
+// a kernel of its own further down.)
+template <int R>
 __global__ void __launch_bounds__(kTiledThreads, 1)
-conv_layer_bwd_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l,
+conv_layer_bwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l,
                             const float* __restrict__ wpT, vsl::Dropout drop,
-                            const GIn* __restrict__ Gin, GOut* __restrict__ Gout,
+                            const float* __restrict__ Gin, float* __restrict__ Gout,
                             float* __restrict__ d_l, float* __restrict__ gp_l,
                             float* __restrict__ part, int F, int SK) {
-  constexpr bool kFloatG = std::is_same<GIn, float>::value;
   extern __shared__ float4 smem4[];
   const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2, gl = K - 1 - pad;
   const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0);
@@ -850,19 +858,12 @@ conv_layer_bwd_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l,
   // behind the LayerNorms, which run out of shared memory
   const int h0 = t0 - (K - 1), lo = max(h0, 0), hi = min(t0 + nf + K - 1, T);
   vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
-  if constexpr (std::is_same<XIn, float>::value) {
-    for (int i = tid; i < (nf + 2 * (K - 1)) * D / 4; i += nt) {
-      const int t = h0 + 4 * i / D;
-      if (t >= lo && t < hi)
-        vsl::cp_async_float4(N + 4 * i, xin + row + (size_t)h0 * D + 4 * i);
-      else
-        reinterpret_cast<float4*>(N)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  } else {  // bf16 x, widened by plain loads
-    for (int i = tid; i < (nf + 2 * (K - 1)) * D; i += nt) {
-      const int t = h0 + i / D;
-      N[i] = t >= lo && t < hi ? vsl::to_float(xin[row + (size_t)h0 * D + i]) : 0.f;
-    }
+  for (int i = tid; i < (nf + 2 * (K - 1)) * D / 4; i += nt) {
+    const int t = h0 + 4 * i / D;
+    if (t >= lo && t < hi)
+      vsl::cp_async_float4(N + 4 * i, xin + row + (size_t)h0 * D + 4 * i);
+    else
+      reinterpret_cast<float4*>(N)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   vsl::cp_async_commit();
   vsl::cp_async_floats(W, p.wp + (size_t)l * D * D, SK * D);
@@ -872,22 +873,16 @@ conv_layer_bwd_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l,
   ln_window_rows(N, lo - h0, hi - lo, K - 1, nf, gam, p.beta + (size_t)l * D, XH, inv, D);
   __syncthreads();
   // 2. d over E, in the forward's order of taps: A[e] = sum_j N[e + j] dw[j]
-  // (bf16: of bf16(N), rounded; N keeps the unrounded n for ddw)
-  taps_rows<false, kBf16, kBf16>(N, DW, ne, D, K, A);
+  taps_rows<false>(N, DW, ne, D, K, A);
   // (sliced_product's first barrier orders A's writes before its reads)
   // p = d . wp + bp, and g_p = [p > 0] * drop(G_in) into P, 0 outside [0, T)
-  sliced_product<R, kBf16>(A, ne, D, p.wp + (size_t)l * D * D, W, SK, P, [&](int e, int o,
-                                                                            float4 acc) {
+  sliced_product<R>(A, ne, D, p.wp + (size_t)l * D * D, W, SK, P, [&](int e, int o,
+                                                                     float4 acc) {
     const int t = e0 + e;
     const bool in = t >= 0 && t < T;
     // one float4 load of G_in and of bp, whatever the masks say
-    float4 g4;
     const size_t go = row + (size_t)(in ? t : 0) * D + o;
-    if constexpr (kFloatG)
-      g4 = *reinterpret_cast<const float4*>(Gin + go);
-    else
-      g4 = make_float4(vsl::to_float(Gin[go]), vsl::to_float(Gin[go + 1]),
-                       vsl::to_float(Gin[go + 2]), vsl::to_float(Gin[go + 3]));
+    const float4 g4 = *reinterpret_cast<const float4*>(Gin + go);
     const float4 b4 = __ldg(reinterpret_cast<const float4*>(bpl + o));
     const float a[4] = {acc.x, acc.y, acc.z, acc.w}, gi[4] = {g4.x, g4.y, g4.z, g4.w};
     const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
@@ -897,11 +892,8 @@ conv_layer_bwd_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l,
       gp[q] = in && a[q] + bb[q] > 0.f ? drop.apply(gi[q], seed, salt, t, o + q) : 0.f;
     const float4 gp4 = make_float4(gp[0], gp[1], gp[2], gp[3]);
     *reinterpret_cast<float4*>(P + (size_t)e * D + o) = gp4;
-    if (e >= gl && e < gl + nf)  // dwp's operand: bf16(g_p) at bf16
-      *reinterpret_cast<float4*>(gp_l + row + (size_t)t * D + o) =
-          kBf16 ? make_float4(vsl::bf16_round(gp[0]), vsl::bf16_round(gp[1]),
-                              vsl::bf16_round(gp[2]), vsl::bf16_round(gp[3]))
-                : gp4;
+    if (e >= gl && e < gl + nf)  // dwp's operand
+      *reinterpret_cast<float4*>(gp_l + row + (size_t)t * D + o) = gp4;
   });
   // 3. wp^T's first slice lands behind dbp and d's own rows to d_l
   vsl::cp_async_floats(W, wpT + (size_t)l * D * D, SK * D);
@@ -911,21 +903,16 @@ conv_layer_bwd_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l,
     for (int t = 0; t < nf; ++t) s += P[(size_t)(gl + t) * D + c];
     pr[2 * D + c] = s;  // dbp, of the unrounded g_p
   }
-  if (kBf16) {  // g_p rounded in place for g_d (sliced_product's barrier orders it)
-    __syncthreads();
-    vsl::round_bf16(P, ne * D);
-  }
   // g_d = g_p . wp^T into A (0 outside [0, T), where g_p is)
-  sliced_product<R, kBf16>(P, ne, D, wpT + (size_t)l * D * D, W, SK, A, [&](int e, int o,
+  sliced_product<R>(P, ne, D, wpT + (size_t)l * D * D, W, SK, A, [&](int e, int o,
                                                                            float4 acc) {
     *reinterpret_cast<float4*>(A + (size_t)e * D + o) = acc;
   });
-  // 4. G_in's own rows into the free weight buffer where they fit (fp32
-  // G_in), landing behind g_n and ddw; g_n(t0 + r) = sum_j g_d(t0 + r + pad
-  // - j) dw[j] into P's first rows
-  const bool staged = kFloatG && (size_t)nf * D <= lay.W;
-  if constexpr (kFloatG)
-    if (staged) vsl::cp_async_floats(W, Gin + row + (size_t)t0 * D, nf * D);
+  // 4. G_in's own rows into the free weight buffer where they fit, landing
+  // behind g_n and ddw; g_n(t0 + r) = sum_j g_d(t0 + r + pad - j) dw[j]
+  // into P's first rows
+  const bool staged = (size_t)nf * D <= lay.W;
+  if (staged) vsl::cp_async_floats(W, Gin + row + (size_t)t0 * D, nf * D);
   taps_rows<true>(A, DW, nf, D, K, P);
   __syncthreads();
   // ddw[j, c] = sum over the own frames of n(t + j - pad, c) * g_d(t, c)
@@ -943,8 +930,7 @@ conv_layer_bwd_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l,
   }
   vsl::ln_backward_rows(P, XH, inv, gam, nf, D, pr, pr + D, [&](int r, int c, float v) {
     const size_t i = (size_t)r * D + c;
-    Gout[row + (size_t)t0 * D + i] =
-        vsl::from_float<GOut>((staged ? W[i] : vsl::to_float(Gin[row + (size_t)t0 * D + i])) + v);
+    Gout[row + (size_t)t0 * D + i] = (staged ? W[i] : Gin[row + (size_t)t0 * D + i]) + v;
   });
 }
 
@@ -1085,7 +1071,7 @@ extern "C" int vsl_conv_block_fwd_tiled(const float* x, const float* gam, const 
   for (int l = 0; l < L; ++l) {
     const float* in = l == 0 ? x : xs + (l - 1) * layer;
     float* o = l == L - 1 ? out : xs + l * layer;
-    kernel<<<grid, kTiledThreads, smem, stream>>>(in, p, l, drop, o, F, SK);
+    kernel<<<grid, kTiledThreads, smem, stream>>>(in, p, l, drop, o, nullptr, F, SK);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -1098,26 +1084,31 @@ namespace {
 // input and output types.
 template <int R, typename XIn, typename XOut>
 cudaError_t tiled_bf16_layer(const XIn* in, const ConvParams& p, int l, const vsl::Dropout& drop,
-                             XOut* o, int B, int F, int SK, size_t smem, cudaStream_t stream) {
+                             XOut* o, uint8_t* mask, int B, int F, int SK, size_t smem,
+                             cudaStream_t stream) {
   auto kernel = conv_layer_fwd_tiled_kernel<R, true, XIn, XOut>;
   const cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(tiles(p.T, F), B), kTiledThreads, smem, stream>>>(in, p, l, drop, o, F, SK);
+  kernel<<<dim3(tiles(p.T, F), B), kTiledThreads, smem, stream>>>(
+      in, p, l, drop, o, mask + (size_t)l * B * p.T * (p.D / 4), F, SK);
   return cudaGetLastError();
 }
 
 template <int R>
 cudaError_t tiled_bf16_forward(const __nv_bfloat16* x, const ConvParams& p,
-                               const vsl::Dropout& drop, float* xs, __nv_bfloat16* out, int B,
-                               int F, int SK, size_t smem, cudaStream_t stream) {
+                               const vsl::Dropout& drop, float* xs, uint8_t* mask,
+                               __nv_bfloat16* out, int B, int F, int SK, size_t smem,
+                               cudaStream_t stream) {
   const size_t layer = (size_t)B * p.T * p.D;
   const int L = p.L;
-  cudaError_t err = L == 1 ? tiled_bf16_layer<R>(x, p, 0, drop, out, B, F, SK, smem, stream)
-                           : tiled_bf16_layer<R>(x, p, 0, drop, xs, B, F, SK, smem, stream);
+  cudaError_t err = L == 1
+                        ? tiled_bf16_layer<R>(x, p, 0, drop, out, mask, B, F, SK, smem, stream)
+                        : tiled_bf16_layer<R>(x, p, 0, drop, xs, mask, B, F, SK, smem, stream);
   for (int l = 1; l < L && err == cudaSuccess; ++l) {
     const float* in = xs + (l - 1) * layer;
-    err = l == L - 1 ? tiled_bf16_layer<R>(in, p, l, drop, out, B, F, SK, smem, stream)
-                     : tiled_bf16_layer<R>(in, p, l, drop, xs + l * layer, B, F, SK, smem, stream);
+    err = l == L - 1
+              ? tiled_bf16_layer<R>(in, p, l, drop, out, mask, B, F, SK, smem, stream)
+              : tiled_bf16_layer<R>(in, p, l, drop, xs + l * layer, mask, B, F, SK, smem, stream);
   }
   return err;
 }
@@ -1125,12 +1116,14 @@ cudaError_t tiled_bf16_forward(const __nv_bfloat16* x, const ConvParams& p,
 }  // namespace
 
 // The bf16 T-tiled forward on the same plan: x and out [B, T, D] in bf16,
-// the stream between the layers, xs [L - 1, B, T, D], in fp32.
+// the stream between the layers, xs [L - 1, B, T, D], in fp32, and each
+// layer's ReLU mask, mask [L, B, T, D / 4] bytes, for the bf16 backward.
 extern "C" int vsl_conv_block_fwd_tiled_bf16(const void* x, const float* gam, const float* beta,
                                              const float* dw, const float* wp, const float* bp,
                                              const float* seeds, unsigned thresh, float scale,
-                                             float* xs, void* out, int B, int T, int D, int L,
-                                             int K, int F, int SK, int R, void* stream_) {
+                                             float* xs, void* mask, void* out, int B, int T,
+                                             int D, int L, int K, int F, int SK, int R,
+                                             void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || SK < 4 || SK % 4 ||
       D % SK || (R != 2 && R != 4))
@@ -1141,8 +1134,10 @@ extern "C" int vsl_conv_block_fwd_tiled_bf16(const void* x, const float* gam, co
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
   return static_cast<int>(
-      R == 2 ? tiled_bf16_forward<2>(xb, p, drop, xs, ob, B, F, SK, smem, stream)
-             : tiled_bf16_forward<4>(xb, p, drop, xs, ob, B, F, SK, smem, stream));
+      R == 2 ? tiled_bf16_forward<2>(xb, p, drop, xs, static_cast<uint8_t*>(mask), ob, B, F, SK,
+                                     smem, stream)
+             : tiled_bf16_forward<4>(xb, p, drop, xs, static_cast<uint8_t*>(mask), ob, B, F, SK,
+                                     smem, stream));
 }
 
 // The T-tiled backward from the forward's xs on conv_tiled_bwd_plan's tiles
@@ -1188,86 +1183,317 @@ extern "C" int vsl_conv_block_bwd_tiled(const float* x, const float* xs, const f
 
 namespace {
 
-// One layer of the bf16 tiled backward, its kernel picked by the storage
-// types of its input, G_in and G_out.
-template <int R, typename XIn, typename GIn, typename GOut>
-cudaError_t tiled_bf16_bwd_layer(const XIn* in, const ConvParams& p, int l, const float* wpT,
-                                 const vsl::Dropout& drop, const GIn* Gin, GOut* Gout,
-                                 float* d_l, float* gp_l, float* part, int B, int F, int SK,
-                                 size_t smem, cudaStream_t stream) {
-  auto kernel = conv_layer_bwd_tiled_kernel<R, true, XIn, GIn, GOut>;
-  const cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(kernel), smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(tiles(p.T, F), B), kTiledThreads, smem, stream>>>(in, p, l, wpT, drop, Gin, Gout,
-                                                                  d_l, gp_l, part, F, SK);
-  return cudaGetLastError();
+// --- the bf16 T-tiled backward on the tensor cores (#9 at bf16, tiled) -----
+// One launch a layer on ops/kernels.py conv_tiled_bwd_bf16_plan (tiles of F
+// frames, wp's rows in slices of SN), no atomics, the layers in reverse. A
+// CTA takes the F own frames [t0, t0 + F) of one row and everything their
+// gradient needs, so that nothing but G crosses a tile's edge:
+//   1. the taps, x_l over the own frames and the depthwise reach [t0 - pad,
+//      t0 + nf + K - 1 - pad) (0 outside [0, T)) and bf16(wp)'s rows (the
+//      wrapper rounds wp once a call) by cp.async; n_l in place (the
+//      forward's layer_norm_rows, row for row), xh and inv of the own rows;
+//   2. d = depthwise(bf16(n_l)) over the own frames, rounded, straight to
+//      dwp's bf16 workspace; over E = F + K - 1 frames [t0 - (K - 1 - pad),
+//      t0 + nf + pad): g_p = [p > 0] drop(G_in), the sign read from the mask
+//      bits the bf16 forward wrote (the same test on the same sums: the
+//      fp32 replay of p = d . wp + bp is gone), 0 outside [0, T); fp32 into
+//      GD, bf16 into GP (ldmatrix rows at tc_stride) and the own rows to
+//      dwp's bf16 workspace; dbp sums the unrounded g_p of the own rows;
+//   3. g_d [E, D] = bf16(g_p) . bf16(wp)^T on mma.sync m16n8k16, bf16
+//      operands, fp32 sums: A fragments from GP, B from wp's rows as they
+//      are (no transpose), each warp a (16 frames, 16 columns) item at a
+//      time, each k16 product added to the item's sums by fp32 adds, into
+//      GD; four k16 products at a time, each group's into sums of its own,
+//      added in a fixed order at the end;
+//   4. ddw (the unrounded n against g_d), then g_n = the depthwise
+//      transpose of g_d over the own frames into N's first rows, then the
+//      LayerNorm backward (dgam, dbeta) and G_out = G_in + dx_ln.
+// dwp = sum bf16(d)^T . bf16(g_p) is then mma.cuh's wgrad_tc over the bf16
+// workspaces; dgam, dbeta, dbp and ddw are per-(row, tile) partials summed in
+// a fixed order. What bounds it: the LayerNorm, depthwise and gradient
+// passes out of shared memory and the block barriers between them; its one
+// product is ~1/15 of the fp32 kernel's two.
+constexpr int kTcTiledThreads = 512;  // (kernels.py CONV_TILED_THREADS)
+
+// Its shared memory for F frames a tile, K taps and wp slices of SN rows
+// (ops/kernels.py conv_tiled_bwd_bf16_plan reports it; the launch uses this
+// one), Dk = D rounded up to 64 (whole groups of 4 k16 steps), E = F + K -
+// 1 rounded up to 16 for Ep:
+//   N   [E][D] float     n_l over the own frames and the reach; then g_n
+//   XH  [F][D] float     xh of the own frames
+//   GD  [E][D] float     g_p over E, then g_d
+//   DW  [K][D] float     the layer's taps
+//   inv [F4] float
+//   GP  [Ep][GST] bf16   bf16(g_p) over E, 0 in its padding
+//   W   [SN][GST] bf16   bf16(wp)'s rows of the slice, 0 past D
+struct TcTiledBwdLayout {
+  size_t N, XH, DW, F4, GP, W;
+  int Dk, GST, Ep;
+  __host__ __device__ TcTiledBwdLayout(int F, int D, int K, int SN)
+      : N((size_t)(F + K - 1) * D), XH((size_t)F * D), DW((size_t)K * D),
+        F4(((size_t)F + 3) / 4 * 4), Dk((D + 63) / 64 * 64), GST(vsl::tc_stride((D + 63) / 64 * 64)),
+        Ep((F + K - 1 + 15) / 16 * 16) {
+    GP = (size_t)Ep * GST;
+    W = (size_t)SN * GST;
+  }
+  __host__ __device__ size_t bytes() const { return 4 * (2 * N + XH + DW + F4) + 2 * (GP + W); }
+};
+
+// One layer of the bf16 tiled backward for the tile [t0, t0 + F) of row b:
+// G_in -> G_out, bf16 d and g_p of the own frames into d_l and gp_l,
+// per-(row, tile) partials part [B * tiles, L, 3 + K, D] (dgam, dbeta, dbp,
+// ddw [K, D]); mask_l [B, T, D / 4] the forward's [p > 0] bits of layer l.
+// XIn, GIn, GOut: the storage types of the layer's input, G_in and G_out
+// (bf16 for x, g and dx, fp32 for xs and the stream between the layers).
+template <typename XIn, typename GIn, typename GOut>
+__global__ void __launch_bounds__(kTcTiledThreads, 1)
+conv_layer_bwd_tc_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l,
+                               const __nv_bfloat16* __restrict__ wpb,
+                               const uint8_t* __restrict__ mask_l, vsl::Dropout drop,
+                               const GIn* __restrict__ Gin, GOut* __restrict__ Gout,
+                               __nv_bfloat16* __restrict__ d_l, __nv_bfloat16* __restrict__ gp_l,
+                               float* __restrict__ part, int F, int SN) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ float4 smem4[];
+  const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2, gl = K - 1 - pad, D4 = D / 4;
+  const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0);
+  const int ne = nf + K - 1;  // E: frames [t0 - gl, t0 + nf + pad)
+  const int e0 = t0 - gl;
+  const TcTiledBwdLayout lay(F, D, K, SN);
+  float* N = reinterpret_cast<float*>(smem4);
+  float* XH = N + lay.N;
+  float* GD = XH + lay.XH;
+  float* DW = GD + lay.N;
+  float* inv = DW + lay.DW;
+  bf16* GP = reinterpret_cast<bf16*>(inv + lay.F4);
+  bf16* W = GP + lay.GP;
+  const int GST = lay.GST, Dk = lay.Dk;
+  const size_t row = (size_t)b * T * D;
+  const float* gam = p.gam + (size_t)l * D;
+  const bf16* wl = wpb + (size_t)l * D * D;
+  float* pr = part + ((size_t)(b * gridDim.x + blockIdx.x) * p.L + l) * (3 + K) * D;
+  const uint32_t seed = drop.seed(b), salt = vsl::site_salt(0x100u + l);
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = nt >> 5;
+
+  // 1. the taps and x_l over [t0 - pad, t0 + nf + K - 1 - pad) by cp.async
+  // (bf16 x by plain loads), then wp's first slice (8-byte copies of its
+  // rows); the slice lands behind the LayerNorm
+  const int h0 = t0 - pad, lo = max(h0, 0), hi = min(h0 + nf + K - 1, T);
+  vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
+  if constexpr (std::is_same<XIn, float>::value) {
+    for (int i = tid; i < ne * D4; i += nt) {
+      const int t = h0 + i / D4;
+      if (t >= lo && t < hi)
+        vsl::cp_async_float4(N + 4 * i, xin + row + (size_t)h0 * D + 4 * i);
+      else
+        reinterpret_cast<float4*>(N)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int i = tid; i < ne * D; i += nt) {
+      const int t = h0 + i / D;
+      N[i] = t >= lo && t < hi ? vsl::to_float(xin[row + (size_t)h0 * D + i]) : 0.f;
+    }
+  }
+  vsl::cp_async_commit();
+  const auto load_slice = [&](int c0) {
+    for (int i = tid; i < SN * D4; i += nt) {
+      const int r = i / D4, q = i - r * D4;
+      if (c0 + r < D) {
+        const uint32_t dst = vsl::smem_addr(W + (size_t)r * GST + 4 * q);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+                     "l"(wl + (size_t)(c0 + r) * D + 4 * q)
+                     : "memory");
+      }
+    }
+    vsl::cp_async_commit();
+  };
+  load_slice(0);
+  // the products' padding: GP's rows past E and columns past D, W's
+  // columns past D (never written by a copy)
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int i = tid; i < lay.Ep * (Dk - D); i += nt) {
+    const int r = i / (Dk - D);
+    GP[(size_t)r * GST + D + i - r * (Dk - D)] = zero;
+  }
+  for (int i = tid; i < (lay.Ep - ne) * D; i += nt) GP[(size_t)(ne + i / D) * GST + i % D] = zero;
+  for (int i = tid; i < SN * (Dk - D); i += nt) {
+    const int r = i / (Dk - D);
+    W[(size_t)r * GST + D + i - r * (Dk - D)] = zero;
+  }
+  vsl::cp_async_wait<1>();  // the taps and x_l (wp's slice may be in flight)
+  __syncthreads();
+  // n_l in place, xh and inv of the own rows
+  ln_window_rows(N, lo - h0, hi - lo, pad, nf, gam, p.beta + (size_t)l * D, XH, inv, D);
+  __syncthreads();
+
+  // 2. d over the own frames (of bf16(n), rounded) into dwp's workspace
+  taps_rows<false, true, true>(N, DW, nf, D, K, d_l + row + (size_t)t0 * D);
+  // g_p over E: 4 columns an item, one load of G_in and one mask byte
+  for (int i = tid; i < ne * D4; i += nt) {
+    const int e = i / D4, o = 4 * (i - e * D4), t = e0 + e;
+    const bool in = t >= 0 && t < T;
+    const size_t go = row + (size_t)(in ? t : 0) * D + o;
+    const float4 g4 = vsl::load4(Gin + go);
+    const uint32_t m = in ? mask_l[go / 4] : 0u;
+    const float gi[4] = {g4.x, g4.y, g4.z, g4.w};
+    float gp[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      gp[q] = (m >> q) & 1u ? drop.apply(gi[q], seed, salt, t, o + q) : 0.f;
+    *reinterpret_cast<float4*>(GD + (size_t)e * D + o) = make_float4(gp[0], gp[1], gp[2], gp[3]);
+    uint2 pk;
+    pk.x = vsl::pack_bf16(gp[0], gp[1]);
+    pk.y = vsl::pack_bf16(gp[2], gp[3]);
+    *reinterpret_cast<uint2*>(GP + (size_t)e * GST + o) = pk;
+    if (e >= gl && e < gl + nf) *reinterpret_cast<uint2*>(gp_l + go) = pk;
+  }
+  __syncthreads();
+  for (int c = tid; c < D; c += nt) {
+    float s = 0.f;
+    for (int t = 0; t < nf; ++t) s += GD[(size_t)(gl + t) * D + c];
+    pr[2 * D + c] = s;  // dbp, of the unrounded g_p
+  }
+
+  // 3. g_d = bf16(g_p) . bf16(wp)^T into GD, slice by slice of wp's rows
+  const int mtiles = lay.Ep / 16, nblocks = SN / 16;
+  for (int c0 = 0; c0 < Dk; c0 += SN) {
+    if (c0 > 0) load_slice(c0);
+    vsl::cp_async_wait<0>();
+    __syncthreads();  // the slice landed; dbp (or the last slice) read GD's g_p
+    for (int item = warp; item < mtiles * nblocks; item += nwarps) {
+      const int m0 = 16 * (item / nblocks), n0 = 16 * (item % nblocks);
+      float acc[4][2][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[q][e / 4][e % 4] = 0.f;
+      for (int k = 0; k < Dk; k += 64) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k0 = k + 16 * q;
+          uint32_t a[4], bw[4];
+          vsl::ldsm_x4(a, GP + (size_t)(m0 + (lane & 15)) * GST + k0 + (lane >> 4) * 8);
+          vsl::ldsm_x4(bw, W + (size_t)(n0 + (lane & 7) + ((lane >> 4) << 3)) * GST + k0 +
+                               ((lane >> 3) & 1) * 8);
+          float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+          vsl::mma16(c[0], a, bw[0], bw[1]);
+          vsl::mma16(c[1], a, bw[2], bw[3]);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[q][e / 4][e % 4] += c[e / 4][e % 4];
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        acc[0][e / 4][e % 4] = (acc[0][e / 4][e % 4] + acc[1][e / 4][e % 4]) +
+                               (acc[2][e / 4][e % 4] + acc[3][e / 4][e % 4]);
+      const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int r = m0 + g + 8 * e2, col = c0 + n0 + 8 * h + 2 * tq;
+          if (r < ne && col < D)  // D % 4 == 0: col < D holds for col + 1 too
+            *reinterpret_cast<float2*>(GD + (size_t)r * D + col) =
+                make_float2(acc[0][h][2 * e2], acc[0][h][2 * e2 + 1]);
+        }
+    }
+    __syncthreads();  // GD's g_d written; the slice read before the next lands
+  }
+
+  // 4. ddw[j, c] = sum over the own frames of n(t + j - pad, c) * g_d(t, c)
+  for (int i = tid; i < K * D; i += nt) {
+    const int j = i / D, c = i - j * D;
+    float s = 0.f;
+    for (int r = 0; r < nf; ++r)
+      s = fmaf(N[(size_t)(r + j) * D + c], GD[(size_t)(r + gl) * D + c], s);
+    pr[3 * D + i] = s;
+  }
+  __syncthreads();
+  // g_n(t0 + r) = sum_j g_d(t0 + r + pad - j) dw[j] into N's first rows
+  taps_rows<true>(GD, DW, nf, D, K, N);
+  __syncthreads();
+  // the LN backward over the own frames (dgam, dbeta), G_out = G_in + dx_ln
+  vsl::ln_backward_rows(N, XH, inv, gam, nf, D, pr, pr + D, [&](int r, int c, float v) {
+    const size_t i = row + (size_t)(t0 + r) * D + c;
+    Gout[i] = vsl::from_float<GOut>(vsl::to_float(Gin[i]) + v);
+  });
 }
 
-// The layers in reverse: layer L - 1 reads the bf16 g, layer 0 reads the bf16
-// x and writes the bf16 dx; the stream between them runs through the fp32
-// buffers g_ws[0] and g_ws[1] in turns (layer l writes g_ws[l & 1]).
-template <int R>
-cudaError_t tiled_bf16_backward(const __nv_bfloat16* x, const float* xs, const ConvParams& p,
-                                const float* wpT, const vsl::Dropout& drop,
-                                const __nv_bfloat16* g, __nv_bfloat16* dx, float* d_ws,
-                                float* gp_ws, float* g_ws, float* part, int B, int F, int SK,
-                                size_t smem, cudaStream_t stream) {
-  const size_t layer = (size_t)B * p.T * p.D;
-  const int L = p.L;
-  cudaError_t err = cudaSuccess;
-  for (int l = L - 1; l >= 0 && err == cudaSuccess; --l) {
-    float* d_l = d_ws + l * layer;
-    float* gp_l = gp_ws + l * layer;
-    const float* gin = g_ws + ((l + 1) & 1) * layer;
-    float* gout = g_ws + (l & 1) * layer;
-    const float* in = l > 0 ? xs + (l - 1) * layer : xs;
-    if (l == 0 && L == 1)
-      err = tiled_bf16_bwd_layer<R>(x, p, l, wpT, drop, g, dx, d_l, gp_l, part, B, F, SK, smem,
-                                    stream);
-    else if (l == 0)
-      err = tiled_bf16_bwd_layer<R>(x, p, l, wpT, drop, gin, dx, d_l, gp_l, part, B, F, SK, smem,
-                                    stream);
-    else if (l == L - 1)
-      err = tiled_bf16_bwd_layer<R>(in, p, l, wpT, drop, g, gout, d_l, gp_l, part, B, F, SK,
-                                    smem, stream);
-    else
-      err = tiled_bf16_bwd_layer<R>(in, p, l, wpT, drop, gin, gout, d_l, gp_l, part, B, F, SK,
-                                    smem, stream);
-  }
-  return err;
+// One layer of the bf16 tiled backward, its kernel picked by the storage
+// types of its input, G_in and G_out.
+template <typename XIn, typename GIn, typename GOut>
+cudaError_t tc_tiled_bwd_layer(const XIn* in, const ConvParams& p, int l,
+                               const __nv_bfloat16* wpb, const uint8_t* mask,
+                               const vsl::Dropout& drop, const GIn* Gin, GOut* Gout,
+                               __nv_bfloat16* d_l, __nv_bfloat16* gp_l, float* part, int B, int F,
+                               int SN, size_t smem, cudaStream_t stream) {
+  auto kernel = conv_layer_bwd_tc_tiled_kernel<XIn, GIn, GOut>;
+  const cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(tiles(p.T, F), B), kTcTiledThreads, smem, stream>>>(
+      in, p, l, wpb, mask + (size_t)l * B * p.T * (p.D / 4), drop, Gin, Gout, d_l, gp_l, part, F,
+      SN);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// The bf16 T-tiled backward on the same plan (#9 at bf16, tiled): x, g and
-// dx [B, T, D] in bf16; xs [L - 1, B, T, D], the stream between the layers
-// g_ws [2, B, T, D] and the weight gradients fp32.
-extern "C" int vsl_conv_block_bwd_tiled_bf16(const void* x, const float* xs, const float* gam,
-                                             const float* beta, const float* dw, const float* wp,
-                                             const float* wpT, const float* bp,
+// The bf16 T-tiled backward (#9 at bf16, tiled) on conv_tiled_bwd_bf16_plan's
+// tiles of F frames and wp slices of SN rows: x, g and dx [B, T, D] in bf16;
+// xs [L - 1, B, T, D] and mask [L, B, T, D / 4] from the bf16 tiled forward;
+// wpb = bf16(wp) [L, D, D]; the weight gradients fp32, dsmall [L, 3 + K, D]
+// and dwp [L, D, D]. Workspaces: d_ws, gp_ws [L, B, T, D] bf16, the stream
+// between the layers g_ws [2, B, T, D] fp32 (layer l writes g_ws[l & 1],
+// only layer 0 the bf16 dx), part [B * ceil(T / F), L, 3 + K, D], gemm_ws
+// [L, splits, D, D].
+extern "C" int vsl_conv_block_bwd_tiled_bf16(const void* x, const float* xs, const void* mask,
+                                             const float* gam, const float* beta,
+                                             const float* dw, const void* wpb_, const float* bp,
                                              const float* seeds, unsigned thresh, float scale,
                                              const void* g, void* dx, float* dsmall, float* dwp,
-                                             float* d_ws, float* gp_ws, float* g_ws, float* part,
+                                             void* d_ws_, void* gp_ws_, float* g_ws, float* part,
                                              float* gemm_ws, int splits, int B, int T, int D,
-                                             int L, int K, int F, int SK, int R, void* stream_) {
+                                             int L, int K, int F, int SN, void* stream_) {
   using bf16 = __nv_bfloat16;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || SK < 4 || SK % 4 ||
-      D % SK || (R != 4 && R != 6))
+  if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || SN < 16 || SN % 16 ||
+      ((D + 63) / 64 * 64) % SN)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = TiledBwdLayout(F, D, K, SK).floats(D, K) * sizeof(float);
-  const ConvParams p = make_params(gam, beta, dw, wp, bp, T, D, L, K);
+  const size_t smem = TcTiledBwdLayout(F, D, K, SN).bytes();
+  const ConvParams p = make_params(gam, beta, dw, nullptr, bp, T, D, L, K);
   const vsl::Dropout drop{seeds, thresh, scale};
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* gb = static_cast<const bf16*>(g);
+  const bf16* wpb = static_cast<const bf16*>(wpb_);
+  const uint8_t* mk = static_cast<const uint8_t*>(mask);
   bf16* dxb = static_cast<bf16*>(dx);
-  cudaError_t err =
-      R == 4 ? tiled_bf16_backward<4>(xb, xs, p, wpT, drop, gb, dxb, d_ws, gp_ws, g_ws, part, B,
-                                      F, SK, smem, stream)
-             : tiled_bf16_backward<6>(xb, xs, p, wpT, drop, gb, dxb, d_ws, gp_ws, g_ws, part, B,
-                                      F, SK, smem, stream);
+  bf16* d_ws = static_cast<bf16*>(d_ws_);
+  bf16* gp_ws = static_cast<bf16*>(gp_ws_);
+  const size_t layer = (size_t)B * T * D;
+  cudaError_t err = cudaSuccess;
+  for (int l = L - 1; l >= 0 && err == cudaSuccess; --l) {
+    bf16* d_l = d_ws + l * layer;
+    bf16* gp_l = gp_ws + l * layer;
+    const float* gin = g_ws + ((l + 1) & 1) * layer;
+    float* gout = g_ws + (l & 1) * layer;
+    const float* in = l > 0 ? xs + (l - 1) * layer : xs;
+    if (l == 0 && L == 1)
+      err = tc_tiled_bwd_layer(xb, p, l, wpb, mk, drop, gb, dxb, d_l, gp_l, part, B, F, SN, smem,
+                               stream);
+    else if (l == 0)
+      err = tc_tiled_bwd_layer(xb, p, l, wpb, mk, drop, gin, dxb, d_l, gp_l, part, B, F, SN, smem,
+                               stream);
+    else if (l == L - 1)
+      err = tc_tiled_bwd_layer(in, p, l, wpb, mk, drop, gb, gout, d_l, gp_l, part, B, F, SN, smem,
+                               stream);
+    else
+      err = tc_tiled_bwd_layer(in, p, l, wpb, mk, drop, gin, gout, d_l, gp_l, part, B, F, SN,
+                               smem, stream);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   err = vsl::sum_partials(part, dsmall, 1, B * tiles(T, F), L * (3 + K) * D, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(vsl::wgrad(d_ws, gp_ws, dwp, gemm_ws, L, D, D, B * T, splits, stream));
+  return static_cast<int>(vsl::wgrad_tc(static_cast<const bf16*>(d_ws), gp_ws, dwp, gemm_ws, L, D,
+                                        D, B * T, splits, stream));
 }

@@ -94,13 +94,15 @@
 // leave the thread: the dh product of the step before reads them rounded
 // (dh += bf16(dgates) . k_h^T), dx_proj is written as those bf16 values
 // (the TPU's dxp.astype(bf16)), and dk_h = sum bf16(h_prev)^T . dgates is
-// the split-K product with its operands rounded as they load, rounded to
-// bf16 once summed.
+// a split-K product with h_prev rounded as it loads, rounded to bf16 once
+// summed. Both products are mma.sync with bf16 operands and fp32 sums, in
+// a kernel of its own (lstm_bwd_tc_kernel, further down).
 #include <cooperative_groups.h>
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -347,16 +349,12 @@ lstm_fwd_cluster_kernel(const XT* __restrict__ xp, const XT* __restrict__ kh,
   }
 }
 
-// XT: the storage type of k_h and dx_proj (float, or __nv_bfloat16 for the
-// bf16 backward: each step's dgates rounded to bf16 before they are sent
-// round the cluster and written).
-template <int kBt, typename XT = float>
+template <int kBt>
 __global__ void __launch_bounds__(512)
 lstm_bwd_cluster_kernel(const float* __restrict__ dy, const float* __restrict__ acts,
                         const float* __restrict__ th, const float* __restrict__ c_prev,
-                        const float* __restrict__ valid, const XT* __restrict__ kh,
-                        XT* __restrict__ dxp, int T, int B, int H, int S) {
-  constexpr bool kBf16 = !std::is_same<XT, float>::value;
+                        const float* __restrict__ valid, const float* __restrict__ kh,
+                        float* __restrict__ dxp, int T, int B, int H, int S) {
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int N = static_cast<int>(cluster.num_blocks());
@@ -378,7 +376,7 @@ lstm_bwd_cluster_kernel(const float* __restrict__ dy, const float* __restrict__ 
     const int u = i / KS, k = i - u * KS;
     const int g = k / Hp, kk = k - g * Hp;
     const int j = u0 + u;
-    khf[i] = (g < 4 && kk < H && j < H) ? vsl::to_float(kh[(size_t)j * G + g * H + kk]) : 0.f;
+    khf[i] = (g < 4 && kk < H && j < H) ? kh[(size_t)j * G + g * H + kk] : 0.f;
   }
   float* dgf = reinterpret_cast<float*>(dgb);
   for (int i = tid; i < 2 * kBt * Q * 4; i += nt) dgf[i] = 0.f;
@@ -465,9 +463,6 @@ lstm_bwd_cluster_kernel(const float* __restrict__ dy, const float* __restrict__ 
       dg[2] = d_f * f * (1.f - f);
       dg[3] = d_o * og * (1.f - og);
       dc = dc_pass + dc_t * f;
-      if (kBf16)  // bf16(dgates): dx_proj, dk_h's operand and the dh product's
-#pragma unroll
-        for (int g = 0; g < 4; ++g) dg[g] = vsl::bf16_round(dg[g]);
     }
     // item i of the group's 4*kBt results is gate i & 3 of row i >> 2, held
     // by lane i >> 2; lane ls writes and sends items ls, ls + S, ...
@@ -482,7 +477,7 @@ lstm_bwd_cluster_kernel(const float* __restrict__ dy, const float* __restrict__ 
       }
       const int rb = i >> 2, r = row0 + rb, g = i & 3;
       if (column && i < 4 * kBt && r < B) {
-        dxp[((size_t)t * B + r) * G + g * H + unit] = vsl::from_float<XT>(val);
+        dxp[((size_t)t * B + r) * G + g * H + unit] = val;
         if (t > 0) {  // dg_t into every CTA of the cluster
           const uint32_t dst = smem_u32(reinterpret_cast<float*>(dn4 + (size_t)rb * Q) + g * Hp + unit);
           const uint32_t bar = smem_u32(full + (p ^ 1));
@@ -580,23 +575,6 @@ extern "C" int vsl_lstm_recurrence_fwd_res_bf16(const void* xp, const void* kh,
                                c_prev, h_prev, T, B, H, N, Bt, S, threads, stream);
 }
 
-namespace {
-
-// The reverse recurrence on the plan (N, Bt, S, threads).
-template <typename XT>
-int launch_bwd_plan(const float* dy, const float* acts, const float* th, const float* c_prev,
-                    const float* valid, const XT* kh, XT* dxp, int T, int B, int H, int N, int Bt,
-                    int S, int threads, cudaStream_t stream) {
-  return by_rows(B, H, N, Bt, S, threads, [&](auto rows) {
-    constexpr int kBt = decltype(rows)::value;
-    return vsl::launch_cluster(lstm_bwd_cluster_kernel<kBt, XT>, (B + kBt - 1) / kBt * N, N,
-                               threads, BwdLayout(H, N).smem_bytes(kBt), stream, dy, acts, th,
-                               c_prev, valid, kh, dxp, T, B, H, S);
-  });
-}
-
-}  // namespace
-
 // The reverse recurrence on the same plan, then dkh = sum over the T*B rows
 // of h_prev^T . dxp; gemm_ws [splits, H, 4H] (unused when splits == 1).
 extern "C" int vsl_lstm_recurrence_bwd(const float* dy, const float* acts, const float* th,
@@ -605,30 +583,284 @@ extern "C" int vsl_lstm_recurrence_bwd(const float* dy, const float* acts, const
                                        float* dkh, float* gemm_ws, int splits, int T, int B,
                                        int H, int N, int Bt, int S, int threads, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int err = launch_bwd_plan(dy, acts, th, c_prev, valid, kh, dxp, T, B, H, N, Bt, S,
-                                  threads, stream);
+  const int err = by_rows(B, H, N, Bt, S, threads, [&](auto rows) {
+    constexpr int kBt = decltype(rows)::value;
+    return vsl::launch_cluster(lstm_bwd_cluster_kernel<kBt>, (B + kBt - 1) / kBt * N, N, threads,
+                               BwdLayout(H, N).smem_bytes(kBt), stream, dy, acts, th, c_prev,
+                               valid, kh, dxp, T, B, H, S);
+  });
   if (err != 0) return err;
   return static_cast<int>(vsl::wgrad(h_prev, dxp, dkh, gemm_ws, 1, H, 4 * H, T * B, splits, stream));
 }
 
-// The bf16 backward (#8 at bf16, with _fused_lstm_bwd's casts): k_h, dx_proj
-// and dk_h in bf16, dy and the residuals fp32. dx_proj = bf16(dgates); dk_h
-// = sum bf16(h_prev)^T . bf16(dgates) in fp32 into dkh32 [H, 4H], then
-// rounded to bf16.
+namespace {
+
+// --- the bf16 backward on the tensor cores (#8 at bf16) ----------------------
+// A kernel of its own on ops/kernels.py lstm_bwd_bf16_plan: clusters of N
+// CTAs and Bt rows, as the fp32 backward, CTA r owning the units [r U, r U
+// + U) with U a multiple of 8, so that the gates' padded width Hp = N U
+// holds every CTA's units in 16-byte chunks of 8 units' bf16 dgates. W = 4
+// MT warps a CTA, MT = ceil(U / 16) m16 tiles of units.
+// - Before the first step each warp takes its slice of K = 4 Hp, kTcBwdKSteps
+//   k16 steps (0 past K), of the k_h rows of the CTA's units as bf16 mma A
+//   fragments [16 MT, 16 kTcBwdKSteps] and keeps them in registers for the
+//   whole launch (32 registers a thread at H = 128).
+// - The dgates of the step before sit in shared memory as bf16 rows [8][16
+//   W kTcBwdKSteps] (the cluster's rows, N padded to 8; gate g of unit j at
+//   g Hp + j; rows at tc_stride), double-buffered by parity: half the fp32
+//   kernel's bytes.
+// - A step: dh^T [U, Bt] = k_h_own . bf16(dgates)^T, each warp's k16 steps
+//   one independent mma each (B fragments by ldmatrix), the products added
+//   by fp32 adds in a fixed tree; the W partials go to shared memory, one
+//   block barrier, and the thread of (unit, row) adds them in warp order
+//   (equal calls, equal bits), does that cell's gate gradients with the
+//   fp32 kernel's expressions, writes its bf16 dx_proj and its bf16 dgates
+//   into its own CTA's next buffer. A second barrier, then the CTA's
+//   threads copy its chunks of that buffer to every other CTA of the
+//   cluster, one 16-byte st.async each, into the mbarrier-counted buffer.
+//   No butterfly, no lane-b select, no shuffles.
+// - The barriers also guard the buffers: a CTA's threads write its next
+//   buffer and send only after every warp of it has read the step's
+//   dgates (the first barrier), and the partials are read before the
+//   second, which every thread passes before the next step writes them.
+//   The remote copies of a step land in other CTAs' chunks than the ones
+//   the receiver writes itself, and, as in the fp32 kernel, only after
+//   the receiver has sent the step before, so after it has read the
+//   buffer they overwrite.
+// - dk_h = sum bf16(h_prev)^T . bf16(dgates) is then mma.cuh's split-K
+//   product on the tensor cores (wgrad_tc), summed in fp32 and rounded once.
+// What bounds it: the chain of T dependent steps (exchange latency, the
+// warps' mma, two block barriers, the gate gradients), not bytes or FLOPs.
+constexpr int kTcBwdKSteps = 8;  // k16 steps a warp (kernels.py LSTM_TC_KSTEPS)
+
+// The tensor-core backward's shared memory for MT m16 tiles of units
+// (ops/kernels.py lstm_bwd_bf16_plan reports its size; the launch uses this
+// one):
+//   full [2] mbarrier: the dgates of the step before have arrived, by parity
+//   dgb  [2][8][KST] bf16: the dgates of the cluster's rows, KST =
+//        tc_stride(16 W kTcBwdKSteps), 0 past the rows, units and gates
+//   part [W][16 MT][8] float: the warps' partial dh^T
+template <int MT>
+struct TcBwdLayout {
+  static constexpr int W = 4 * MT;
+  static constexpr int KST = vsl::tc_stride(16 * W * kTcBwdKSteps);
+  static constexpr size_t kBytes = 16 + 2 * 8 * (size_t)KST * 2 + (size_t)W * MT * 16 * 8 * 4;
+};
+
+// 16 bytes into the cluster address `addr`, completing 16 bytes of the
+// mbarrier at the cluster address `bar`.
+__device__ __forceinline__ void st_async_v4(uint32_t addr, const uint4& v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+template <int MT>
+__global__ void __launch_bounds__(128 * MT)
+lstm_bwd_tc_kernel(const float* __restrict__ dy, const float* __restrict__ acts,
+                   const float* __restrict__ th, const float* __restrict__ c_prev,
+                   const float* __restrict__ valid, const __nv_bfloat16* __restrict__ kh,
+                   __nv_bfloat16* __restrict__ dxp, int T, int B, int H, int U, int Bt) {
+  using Lay = TcBwdLayout<MT>;
+  constexpr int W = Lay::W, KST = Lay::KST;
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int N = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int Hp = N * U, u0 = rank * U, G = 4 * H;
+  const int row0 = static_cast<int>(blockIdx.x) / N * Bt, rows = min(Bt, B - row0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, tq = lane & 3;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem4);
+  __nv_bfloat16* dgb = reinterpret_cast<__nv_bfloat16*>(smem4 + 1);
+  float* part = reinterpret_cast<float*>(dgb + 2 * 8 * KST);
+  // a step's dgates arrive from every other CTA: 4 U bf16 for each valid row
+  const uint32_t dg_bytes = 8u * U * rows * (N - 1);
+  // the 16-byte chunks a CTA sends a step: (row, gate, 8 units) to each
+  // other CTA
+  const int chunks = U / 8, sends = rows * 4 * chunks * (N - 1);
+
+  for (int i = tid; i < 8 * KST; i += blockDim.x) reinterpret_cast<uint32_t*>(dgb)[i] = 0u;
+  // the A fragments of this warp's K slice: rows m of the CTA's units, k =
+  // gate * Hp + column; 0 past U, H and K
+  const int kw = warp * kTcBwdKSteps * 16;
+  const auto kh_pair = [&](int m, int k) {
+    uint32_t out = 0;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int gk = (k + e) / Hp, c = k + e - gk * Hp, j = u0 + m;
+      if (m < U && j < H && gk < 4 && c < H)
+        out |= static_cast<uint32_t>(__bfloat16_as_ushort(kh[(size_t)j * G + gk * H + c])) << (16 * e);
+    }
+    return out;
+  };
+  uint32_t a[MT][kTcBwdKSteps][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < kTcBwdKSteps; ++ks) {
+      const int k0 = kw + 16 * ks + 2 * tq, m = 16 * mt + g;
+      a[mt][ks][0] = kh_pair(m, k0);
+      a[mt][ks][1] = kh_pair(m + 8, k0);
+      a[mt][ks][2] = kh_pair(m, k0 + 8);
+      a[mt][ks][3] = kh_pair(m + 8, k0 + 8);
+    }
+  if (tid == 0) {
+    for (int p = 0; p < 2; ++p) {
+      mbar_init(smem_u32(full + p));
+      mbar_expect(smem_u32(full + p), dg_bytes);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();  // every CTA's buffers and mbarriers are set before any remote store
+
+  // the (unit, row) of this thread's gate gradients
+  const int gu = tid % U, gr = tid / U;
+  const int unit = u0 + gu, row = row0 + gr;
+  const bool own = tid < U * Bt && gr < rows && unit < H;
+  float dc = 0.f, dh_pass = 0.f;
+  float in[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // dy, i, g, f, o, tc, c_prev, v
+  auto load = [&](int t, float* v) {
+    const size_t o = (size_t)t * B + row;
+    const float* src[8] = {dy + o * H + unit, acts + o * G + unit, acts + o * G + H + unit,
+                           acts + o * G + 2 * H + unit, acts + o * G + 3 * H + unit,
+                           th + o * H + unit, c_prev + o * H + unit, valid + o};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = ld_early(src[k]);
+  };
+  if (own && T > 0) load(T - 1, in);
+  uint32_t phase = 0;  // bit p: the parity of full[p]'s next phase
+
+  for (int s = 0; s < T; ++s) {
+    const int t = T - 1 - s, p = s & 1;
+    const __nv_bfloat16* dgc = dgb + (size_t)p * 8 * KST;  // dgates of step t + 1
+    __nv_bfloat16* dgn = dgb + (size_t)(p ^ 1) * 8 * KST;
+    if (s > 0) {  // stored by every other CTA at step t + 1
+      mbar_wait(smem_u32(full + p), (phase >> p) & 1u);
+      phase ^= 1u << p;
+      if (tid == 0) mbar_expect(smem_u32(full + p), dg_bytes);  // for step t - 1's
+    }
+    float nx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (own && t > 0) load(t - 1, nx);  // off the chain: the next step's inputs
+    float dot = 0.f;
+    if (s > 0) {
+      float c[kTcBwdKSteps][MT][4];
+#pragma unroll
+      for (int ks = 0; ks < kTcBwdKSteps; ++ks) {
+        uint32_t b[2];
+        vsl::ldsm_x2(b, dgc + (lane & 7) * KST + kw + 16 * ks + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[ks][mt][e] = 0.f;
+          vsl::mma16(c[ks][mt], a[mt][ks], b[0], b[1]);
+        }
+      }
+      // the products' sums in a fixed tree: ((0 + 1) + (2 + 3)) + ...
+#pragma unroll
+      for (int w = 1; w < kTcBwdKSteps; w *= 2)
+#pragma unroll
+        for (int ks = 0; ks + w < kTcBwdKSteps; ks += 2 * w)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) c[ks][mt][e] += c[ks + w][mt][e];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float* pw = part + ((size_t)(warp * MT + mt) * 16 + g) * 8 + 2 * tq;
+        pw[0] = c[0][mt][0];
+        pw[1] = c[0][mt][1];
+        pw[64] = c[0][mt][2];
+        pw[65] = c[0][mt][3];
+      }
+      __syncthreads();
+      if (own)
+#pragma unroll
+        for (int w = 0; w < W; ++w) dot += part[((size_t)w * MT * 16 + gu) * 8 + gr];
+    }
+    if (own) {
+      const float v = in[7], ig = in[1], gg = in[2], f = in[3], og = in[4], tc = in[5];
+      const float dh = dh_pass + dot;
+      const float dh_t = v * (in[0] + dh);
+      dh_pass = (1.f - v) * dh;
+      const float dc_t = v * dc + dh_t * og * (1.f - tc * tc);
+      const float dc_pass = (1.f - v) * dc;
+      const float d_o = dh_t * tc;
+      const float d_f = dc_t * in[6];
+      const float d_i = dc_t * gg;
+      const float d_g = dc_t * ig;
+      float dg[4];
+      dg[0] = d_i * ig * (1.f - ig);
+      dg[1] = d_g * (1.f - gg * gg);
+      dg[2] = d_f * f * (1.f - f);
+      dg[3] = d_o * og * (1.f - og);
+      dc = dc_pass + dc_t * f;
+      // bf16(dgates): dx_proj, dk_h's operand and the dh product's
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const __nv_bfloat16 v16 = __float2bfloat16(dg[k]);
+        dxp[((size_t)t * B + row) * G + k * H + unit] = v16;
+        if (t > 0) dgn[(size_t)gr * KST + k * Hp + unit] = v16;
+      }
+    }
+    if (t > 0) {  // this CTA's chunks of dg_t into every other CTA
+      __syncthreads();
+      const uint32_t bar = smem_u32(full + (p ^ 1));
+      for (int i = tid; i < sends; i += blockDim.x) {
+        const int ch = i % chunks, rgc = i / chunks, k = rgc % 4, rc = rgc / 4;
+        const int r = rc % rows, other = rc / rows, dst = other < rank ? other : other + 1;
+        const __nv_bfloat16* src = dgn + (size_t)r * KST + k * Hp + u0 + 8 * ch;
+        st_async_v4(cluster_u32(smem_u32(src), dst), *reinterpret_cast<const uint4*>(src),
+                    cluster_u32(bar, dst));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) in[k] = nx[k];
+  }
+}
+
+// The tensor-core backward's plan (lstm_bwd_bf16_plan) must fit its layout
+// for H: U a multiple of 8 up to 32 (two m16 tiles), every CTA owns a unit,
+// 128 threads a 16 units, a thread for each (unit, row), K = 4 N U within
+// the warps' kTcBwdKSteps k16 steps.
+cudaError_t check_tc_plan(int H, int N, int Bt, int U, int threads) {
+  if (H < 1 || N < 1 || N > kMaxCluster || U < 8 || U % 8 || U > 32 || Bt < 1 || Bt > 8 ||
+      (N - 1) * U >= H || N * U < H || threads != 128 * ((U + 15) / 16) || U * Bt > threads ||
+      4 * N * U > threads / 32 * 16 * kTcBwdKSteps)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// The bf16 backward (#8 at bf16, with _fused_lstm_bwd's casts) on
+// lstm_bwd_bf16_plan (N, Bt, U, threads): k_h, dx_proj and dk_h in bf16, dy
+// and the residuals fp32. dx_proj = bf16(dgates); dk_h = sum bf16(h_prev)^T
+// . bf16(dgates) in fp32 into dkh32 [H, 4H] (wgrad_tc; gemm_ws [splits, H,
+// 4H]), then rounded to bf16.
 extern "C" int vsl_lstm_recurrence_bwd_bf16(const float* dy, const float* acts, const float* th,
                                             const float* c_prev, const float* h_prev,
                                             const float* valid, const void* kh_, void* dxp_,
                                             void* dkh_, float* dkh32, float* gemm_ws, int splits,
-                                            int T, int B, int H, int N, int Bt, int S,
+                                            int T, int B, int H, int N, int Bt, int U,
                                             int threads, void* stream_) {
   using bf16 = __nv_bfloat16;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = check_tc_plan(H, N, Bt, U, threads);
+  if (e != cudaSuccess) return static_cast<int>(e);
   bf16* dxp = static_cast<bf16*>(dxp_);
-  const int err = launch_bwd_plan(dy, acts, th, c_prev, valid, static_cast<const bf16*>(kh_), dxp,
-                                  T, B, H, N, Bt, S, threads, stream);
-  if (err != 0) return err;
-  cudaError_t e = vsl::wgrad<true>(h_prev, static_cast<const bf16*>(dxp), dkh32, gemm_ws, 1, H,
-                                   4 * H, T * B, splits, stream);
+  e = U > 16 ? vsl::launch_cluster(lstm_bwd_tc_kernel<2>, (B + Bt - 1) / Bt * N, N, threads,
+                                   TcBwdLayout<2>::kBytes, stream, dy, acts, th, c_prev, valid,
+                                   static_cast<const bf16*>(kh_), dxp, T, B, H, U, Bt)
+             : vsl::launch_cluster(lstm_bwd_tc_kernel<1>, (B + Bt - 1) / Bt * N, N, threads,
+                                   TcBwdLayout<1>::kBytes, stream, dy, acts, th, c_prev, valid,
+                                   static_cast<const bf16*>(kh_), dxp, T, B, H, U, Bt);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = vsl::wgrad_tc(h_prev, static_cast<const bf16*>(dxp), dkh32, gemm_ws, 1, H, 4 * H, T * B,
+                    splits, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(vsl::narrow_bf16(dkh32, static_cast<bf16*>(dkh_), H * 4 * H, stream));
 }

@@ -21,6 +21,8 @@
 
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace vsl {
 
 // The row stride, in bf16 values, of a shared tile of rows of n values (n
@@ -193,6 +195,154 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c)[2][4])
   a[1] = pack_bf16(c[0][2], c[0][3]);
   a[2] = pack_bf16(c[1][0], c[1][1]);
   a[3] = pack_bf16(c[1][2], c[1][3]);
+}
+
+// --- bf16 weight gradients on the tensor cores -------------------------------
+// C[z] = A[z]^T . B[z] for z < Z, as common.cuh wgrad computes it (A[z] [K,
+// M], B[z] [K, N] row-major, K every (row, position) of the batch, C[z] [M,
+// N] fp32), for the bf16 backwards whose TPU kernels sum bf16 operands in
+// fp32: A is rounded to bf16 as it is loaded (it may be stored in fp32), B
+// is stored in bf16. The K rows are cut into S contiguous chunks, one block
+// per (64 x 64 tile, z, chunk) writes its partial to P[z][s] [M, N] and
+// sum_partials adds them in a fixed order: no atomics, equal calls give
+// equal bits. A block is 8 warps; warp w takes the tile's rows [16 (w % 4),
+// + 16) and columns [32 (w / 4), + 32), 32 rows of K a stage through shared
+// memory (ldmatrix.trans of both operands), the next stage's loads in
+// flight while the block multiplies the current one: 16-byte loads of 8
+// values where M and N are multiples of 8 (kVec), else one value a load.
+// Each k16 product starts from zero and is added to the sums by fp32 adds
+// (mma_ab's kAdd): over the thousands of rows of K the tensor cores' own
+// accumulation drifts further from fp32.
+constexpr int kTcWgTile = 64;
+constexpr int kTcWgDepth = 32;
+constexpr int kTcWgThreads = 256;
+constexpr int kTcWgStride = tc_stride(kTcWgTile);
+
+namespace {  // internal linkage: every .cu that includes this gets its own
+
+// 8 neighbouring values of a row of `n` at p + c (c + 8 <= n or none), as
+// 8 bf16 in a uint4; 0 where `on` is false.
+__device__ __forceinline__ uint4 load8_bf16(const float* p, bool on) {
+  if (!on) return make_uint4(0u, 0u, 0u, 0u);
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
+                    pack_bf16(b.z, b.w));
+}
+__device__ __forceinline__ uint4 load8_bf16(const __nv_bfloat16* p, bool on) {
+  return on ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
+}
+
+template <typename TA, bool kVec>
+__global__ void __launch_bounds__(kTcWgThreads)
+wgrad_tc_partial_kernel(const TA* __restrict__ A, const __nv_bfloat16* __restrict__ B,
+                        float* __restrict__ P, int M, int N, int K, int S, int chunk) {
+  __shared__ __align__(16) __nv_bfloat16 As[kTcWgDepth][kTcWgStride];
+  __shared__ __align__(16) __nv_bfloat16 Bs[kTcWgDepth][kTcWgStride];
+  const int z = blockIdx.z / S, s = blockIdx.z - z * S;
+  const int m0 = blockIdx.y * kTcWgTile, n0 = blockIdx.x * kTcWgTile;
+  const TA* Az = A + (size_t)z * K * M;
+  const __nv_bfloat16* Bz = B + (size_t)z * K * N;
+  const int k_begin = s * chunk, k_end = min(K, k_begin + chunk);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = 16 * (warp & 3), wn = 32 * (warp >> 2);
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  // this thread's share of the next stage, loaded while the block
+  // multiplies the current one: a chunk of 8 values of each operand
+  // (kVec), else 8 single values
+  constexpr int kLoads = kTcWgDepth * kTcWgTile / kTcWgThreads;
+  uint4 va, vb;
+  __nv_bfloat16 ra[kLoads], rb[kLoads];
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  const int vk = threadIdx.x >> 3, vc = (threadIdx.x & 7) * 8;
+  auto fetch = [&](int k0) {
+    if constexpr (kVec) {
+      const int k = k0 + vk;
+      va = load8_bf16(Az + (size_t)k * M + m0 + vc, k < k_end && m0 + vc < M);
+      vb = load8_bf16(Bz + (size_t)k * N + n0 + vc, k < k_end && n0 + vc < N);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q) {
+        const int i = threadIdx.x + q * kTcWgThreads, kk = i / kTcWgTile;
+        const int c = i - kk * kTcWgTile, k = k0 + kk;
+        ra[q] = (k < k_end && m0 + c < M) ? __float2bfloat16(to_float(Az[(size_t)k * M + m0 + c]))
+                                          : zero;
+        rb[q] = (k < k_end && n0 + c < N) ? Bz[(size_t)k * N + n0 + c] : zero;
+      }
+    }
+  };
+  fetch(k_begin);
+  for (int k0 = k_begin; k0 < k_end; k0 += kTcWgDepth) {
+    if constexpr (kVec) {
+      *reinterpret_cast<uint4*>(&As[vk][vc]) = va;
+      *reinterpret_cast<uint4*>(&Bs[vk][vc]) = vb;
+    } else {
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q) {
+        const int i = threadIdx.x + q * kTcWgThreads, kk = i / kTcWgTile;
+        As[kk][i - kk * kTcWgTile] = ra[q];
+        Bs[kk][i - kk * kTcWgTile] = rb[q];
+      }
+    }
+    __syncthreads();
+    if (k0 + kTcWgDepth < k_end) fetch(k0 + kTcWgDepth);
+#pragma unroll
+    for (int ks = 0; ks < kTcWgDepth / 16; ++ks) {
+      // A^T's fragment [16 rows of M x 16 of K]: matrix i of ldmatrix.trans
+      // is K rows 16 ks + 8 (i >> 1).., M columns wm + 8 (i & 1)
+      const int i = lane >> 3;
+      uint32_t a[4];
+      ldsm_x4_trans(a, &As[16 * ks + (lane & 7) + ((i >> 1) << 3)][wm + ((i & 1) << 3)]);
+      float t[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, &Bs[16 * ks + (lane & 15)][wn + 8 * (j + (lane >> 4))]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[j][e] = t[j + 1][e] = 0.f;
+        mma16(t[j], a, b[0], b[1]);
+        mma16(t[j + 1], a, b[2], b[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += t[j][e];
+    }
+    __syncthreads();
+  }
+  float* Pz = P + ((size_t)z * S + s) * M * N;
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = m0 + wm + g + (e >> 1) * 8, n = n0 + wn + 8 * j + 2 * tq + (e & 1);
+      if (m < M && n < N) Pz[(size_t)m * N + n] = acc[j][e];
+    }
+}
+
+}  // namespace
+
+// C = A^T . B as above, with S chunks of K and the partials in P [Z, S, M,
+// N] (unused when S == 1: the single partial is C itself).
+template <typename TA>
+cudaError_t wgrad_tc(const TA* A, const __nv_bfloat16* B, float* C, float* P, int Z, int M,
+                     int N, int K, int S, cudaStream_t stream) {
+  if (S < 1) return cudaErrorInvalidValue;
+  const int chunk = ((K + S - 1) / S + kTcWgDepth - 1) / kTcWgDepth * kTcWgDepth;
+  dim3 grid((N + kTcWgTile - 1) / kTcWgTile, (M + kTcWgTile - 1) / kTcWgTile, Z * S);
+  float* out = S == 1 ? C : P;
+  if (M % 8 == 0 && N % 8 == 0)
+    wgrad_tc_partial_kernel<TA, true><<<grid, kTcWgThreads, 0, stream>>>(A, B, out, M, N, K, S, chunk);
+  else
+    wgrad_tc_partial_kernel<TA, false><<<grid, kTcWgThreads, 0, stream>>>(A, B, out, M, N, K, S, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return err;
+  return sum_partials(P, C, Z, S, M * N, stream);
 }
 
 }  // namespace vsl

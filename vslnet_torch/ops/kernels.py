@@ -147,6 +147,11 @@ _SIGNATURES.update({"vsl_%s_bf16" % n: _SIGNATURES["vsl_" + n]
                     for n in _BF16_KERNELS})
 # the bf16 LSTM backward also takes a float32 workspace for dk_h's sums
 _SIGNATURES["vsl_lstm_recurrence_bwd_bf16"] = [_P] * 11 + [_I] * 8 + [_P]
+# the bf16 tiled conv forward also writes the ReLU mask; its backward takes
+# that mask, bf16(wp) in place of wp and wp^T, and wp's slice for the
+# product tile
+_SIGNATURES["vsl_conv_block_fwd_tiled_bf16"] = [_P] * 7 + _DROP + [_P] * 3 + [_I] * 8 + [_P]
+_SIGNATURES["vsl_conv_block_bwd_tiled_bf16"] = [_P] * 9 + _DROP + [_P] * 9 + [_I] * 8 + [_P]
 # the bf16 flash forward takes no query rows a thread
 _SIGNATURES["vsl_flash_mha_fwd_bf16"] = [_P] * 5 + _DROP + [_P] * 2 + [_I] * 4 + [_P]
 
@@ -498,6 +503,47 @@ def lstm_plan(B, H):
     return LSTMPlan(n, bt, units, splits, threads, smem, -(-B // bt), smem_bwd)
 
 
+# the k16 steps of K a warp of the bf16 backward takes (csrc/lstm.cu
+# kTcBwdKSteps): its k_h fragments live in registers
+LSTM_TC_KSTEPS = 8
+
+
+class LSTMBwdBf16Plan(NamedTuple):
+    """One launch of the bf16 backward on the tensor cores (csrc/lstm.cu
+    lstm_bwd_tc_kernel): clusters of `n` CTAs, each owning `units` hidden
+    units (a multiple of 8; the gates padded to n * units) of `bt` batch
+    rows, `threads` a CTA (4 warps a 16 units, each warp LSTM_TC_KSTEPS
+    k16 steps of K = 4 n units), `smem` bytes of dynamic shared memory
+    (csrc/lstm.cu TcBwdLayout), `clusters` = ceil(B / bt)."""
+    n: int
+    bt: int
+    units: int
+    threads: int
+    smem: int
+    clusters: int
+
+
+def lstm_bwd_bf16_plan(B, H):
+    """The bf16 backward's plan for B rows of hidden size H: lstm_plan's
+    clusters and rows, with the units a CTA rounded up to a multiple of 8
+    (a CTA's share of a gate's bf16 dgates is whole 16-byte chunks) and the
+    cluster cut to the CTAs that hold a unit. Shared memory: two
+    mbarriers, the dgates [2, 8, 16 warps LSTM_TC_KSTEPS] bf16 at
+    _tc_stride, the warps' partials [warps, 16 ceil(units / 16), 8]
+    float."""
+    if not 1 <= H <= LSTM_MAX_H or B < 1:
+        raise ValueError("lstm_bwd_bf16_plan: needs 1 <= H <= %d and B >= 1, "
+                         "got B=%d, H=%d" % (LSTM_MAX_H, B, H))
+    units = -(-H // min(LSTM_CLUSTER, H) // 8) * 8
+    n = -(-H // units)
+    bt = lstm_plan(B, H).bt
+    m_tiles = -(-units // 16)
+    warps = 4 * m_tiles
+    smem = (16 + 2 * 8 * _tc_stride(16 * warps * LSTM_TC_KSTEPS) * 2
+            + warps * m_tiles * 16 * 8 * 4)
+    return LSTMBwdBf16Plan(n, bt, units, 32 * warps, smem, -(-B // bt))
+
+
 def lstm_recurrence_plain(x_proj, k_h, valid, state_dtype=torch.float32,
                           residuals=False):
     """[T, B, 4H] pre-projected inputs, [H, 4H] recurrent kernel, [T, B]
@@ -539,7 +585,8 @@ def lstm_recurrence_plain(x_proj, k_h, valid, state_dtype=torch.float32,
     return torch.stack(outs)
 
 
-def lstm_recurrence_bwd_plain(dy, acts, th, c_prev, h_prev, valid, k_h):
+def lstm_recurrence_bwd_plain(dy, acts, th, c_prev, h_prev, valid, k_h,
+                              work=torch.float32):
     """The reverse recurrence, written out as `_lstm_bwd_kernel` and
     `_fused_lstm_bwd` compute it (pallas_kernels.py:316-375, 550-557):
     dy [T, B, H] and the residual forward's float32 outputs -> (dx_proj
@@ -547,11 +594,14 @@ def lstm_recurrence_bwd_plain(dy, acts, th, c_prev, h_prev, valid, k_h):
     are float32; at bf16 the dgates are rounded for their products, dh +=
     bf16(dgates) . k_h^T and dk_h = sum_t bf16(h_prev)^T . bf16(dgates)
     (fp32 sums), and dx_proj (the fp32 dgates) and dk_h are rounded to
-    bf16 at the end. At float32 it is the fp32 kernel's function."""
+    bf16 at the end. At float32 it is the fp32 kernel's function. `work`
+    float64 evaluates the same function, its rounding points kept, with
+    every other value in float64 and the outputs left in float64
+    (bench/tc_bwd_fp64.py)."""
     T, B, H = dy.shape
-    act, f32 = k_h.dtype, torch.float32
+    act, f32 = k_h.dtype, work
 
-    def rnd(t):  # a rounding point at k_h's dtype, held in float32
+    def rnd(t):  # a rounding point at k_h's dtype, held in `work`
         return t.to(act).to(f32)
 
     kh = k_h.to(f32)
@@ -577,6 +627,8 @@ def lstm_recurrence_bwd_plain(dy, acts, th, c_prev, h_prev, valid, k_h):
         dh = dh_pass + dg @ kh.t()
         dc = dc_pass + dc_t * f
         dkh = dkh + rnd(h_prev[t]).t() @ dg
+    if work != torch.float32:
+        return torch.stack(dxp), dkh
     return torch.stack(dxp).to(act), dkh.to(act)
 
 
@@ -640,11 +692,18 @@ def launch_lstm_bwd(dy, acts, th, c_prev, h_prev, valid, k_h):
     if not 1 <= H <= 256 or B < 1:
         raise ValueError("%s: needs dy [T, B, H] with B >= 1 and H <= 256, "
                          "got %s" % (name, tuple(dy.shape)))
-    plan = lstm_plan(B, H)
+    if dtype == torch.bfloat16:
+        p = lstm_bwd_bf16_plan(B, H)
+        plan = (p.n, p.bt, p.units, p.threads)
+    else:
+        p = lstm_plan(B, H)
+        plan = (p.n, p.bt, p.splits, p.threads)
     dev = dy.device
     dxp = torch.empty(T, B, 4 * H, device=dev, dtype=dtype)
     dkh = torch.empty(H, 4 * H, device=dev, dtype=dtype)
-    splits = _wgrad_splits(1, H, 4 * H, T * B)
+    # the tensor-core dk_h product (bf16) in blocks that fill the SMs twice
+    splits = _wgrad_splits(1, H, 4 * H, T * B,
+                           2 if dtype == torch.bfloat16 else 1)
     ws = _empty(dev, splits * H * 4 * H if splits > 1 else 1)
     # at bf16 dk_h is summed in float32, then rounded
     dkh32 = [_empty(dev, H, 4 * H).data_ptr()] if dtype == torch.bfloat16 \
@@ -652,8 +711,7 @@ def launch_lstm_bwd(dy, acts, th, c_prev, h_prev, valid, k_h):
     _launch(name, dy.data_ptr(), acts.data_ptr(), th.data_ptr(),
             c_prev.data_ptr(), h_prev.data_ptr(), valid.data_ptr(),
             k_h.data_ptr(), dxp.data_ptr(), dkh.data_ptr(), *dkh32,
-            ws.data_ptr(), splits, T, B, H, plan.n, plan.bt, plan.splits,
-            plan.threads)
+            ws.data_ptr(), splits, T, B, H, *plan)
     return dxp, dkh
 
 
@@ -773,22 +831,26 @@ def depthwise_t(g, dw):
 
 
 def conv_layer_replay(xl, gam, beta, dw, wp, bp, act):
-    """One layer of the conv block's float32 replay from its float32 input
-    xl, rounded at act as the kernels round: (n, xh, inv, d, p), p the
-    pre-ReLU."""
-    def rnd(t):
-        return t.to(act).to(torch.float32)
+    """One layer of the conv block's replay from its input xl (float32, or
+    float64 for an fp64 evaluation), rounded at act as the kernels round:
+    (n, xh, inv, d, p), p the pre-ReLU."""
+    work = xl.dtype
 
+    def rnd(t):
+        return t.to(act).to(work)
+
+    gam, beta, dw, wp, bp = (w.to(work) for w in (gam, beta, dw, wp, bp))
     xh, inv = _ln_stats(xl)
     n = xh * gam + beta
     d = rnd(depthwise(rnd(n), dw))
     return n, xh, inv, d, d @ rnd(wp) + bp
 
 
-def conv_block_replay(x, gam, beta, dw, wp, bp, seeds, drop_rate):
-    """conv_block_bwd_plain's float32 replay of conv_block_plain (rounded at
-    x's dtype): each layer's conv_layer_replay, in order."""
-    xl = x.to(torch.float32)
+def conv_block_replay(x, gam, beta, dw, wp, bp, seeds, drop_rate,
+                      work=torch.float32):
+    """conv_block_bwd_plain's replay of conv_block_plain in `work` (rounded
+    at x's dtype): each layer's conv_layer_replay, in order."""
+    xl = x.to(work)
     saved = []
     for l in range(gam.shape[0]):
         saved.append(conv_layer_replay(xl, gam[l], beta[l], dw[l], wp[l],
@@ -798,7 +860,8 @@ def conv_block_replay(x, gam, beta, dw, wp, bp, seeds, drop_rate):
     return saved
 
 
-def conv_block_bwd_plain(x, gam, beta, dw, wp, bp, seeds, drop_rate, g):
+def conv_block_bwd_plain(x, gam, beta, dw, wp, bp, seeds, drop_rate, g,
+                         work=torch.float32):
     """The conv block's backward, written out as
     `_make_conv_block_bwd_kernel` computes it (pallas_kernels.py:1039-1114):
     a float32 replay of conv_block_plain (rounded at x's dtype), then for
@@ -809,15 +872,20 @@ def conv_block_bwd_plain(x, gam, beta, dw, wp, bp, seeds, drop_rate, g):
     forward's depthwise read bf16(n)), the fp32 LayerNorm backward, G +=
     dx_ln; dx = G rounded to x's dtype once, after layer 0. -> (dx, dgam,
     dbeta [L, D], ddw [L, k, D], dwp [L, D, D], dbp [L, D]), the weight
-    gradients float32. At float32 it is the fp32 kernel's function."""
-    act, f32 = x.dtype, torch.float32
+    gradients float32. At float32 it is the fp32 kernel's function. `work`
+    float64 evaluates the same function, its rounding points kept, with
+    every other value in float64 and the outputs left in float64
+    (bench/tc_bwd_fp64.py)."""
+    act, f32 = x.dtype, work
 
-    def rnd(t):  # a rounding point at x's dtype, held in float32
+    def rnd(t):  # a rounding point at x's dtype, held in `work`
         return t.to(act).to(f32)
 
     L, K, D = dw.shape
     pad = (K - 1) // 2
-    saved = conv_block_replay(x, gam, beta, dw, wp, bp, seeds, drop_rate)
+    saved = conv_block_replay(x, gam, beta, dw, wp, bp, seeds, drop_rate,
+                              f32)
+    wp, dw, gam = wp.to(f32), dw.to(f32), gam.to(f32)
     G = g.to(f32)
     grads = []
     for l in range(L - 1, -1, -1):
@@ -835,7 +903,7 @@ def conv_block_bwd_plain(x, gam, beta, dw, wp, bp, seeds, drop_rate, g):
         G = G + dx_ln
         grads.append((dgam, dbeta, ddw, dwp, g_p.sum(dim=(0, 1))))
     dgam, dbeta, ddw, dwp, dbp = (torch.stack(t[::-1]) for t in zip(*grads))
-    return G.to(act), dgam, dbeta, ddw, dwp, dbp
+    return G.to(act) if work == torch.float32 else G, dgam, dbeta, ddw, dwp, dbp
 
 
 class PlainConvBlock(torch.autograd.Function):
@@ -1189,6 +1257,64 @@ def conv_tiled_bwd_plan(B, T, D, K, L):
     return best[1]
 
 
+def _conv_tiled_bwd_bf16_smem_bytes(frames, D, K, sn):
+    """csrc/conv_block.cu TcTiledBwdLayout's bytes for `frames` frames a
+    tile and slices of `sn` of bf16(wp)'s rows."""
+    dk = -(-D // 64) * 64
+    e = frames + K - 1
+    return (4 * (2 * e * D + frames * D + K * D + -(-frames // 4) * 4)
+            + 2 * (-(-e // 16) * 16 + sn) * _tc_stride(dk))
+
+
+class ConvTiledBwdBf16Plan(NamedTuple):
+    """One call of the bf16 tiled conv backward on the tensor cores: each of
+    L launches on `ctas` = B * `tiles` CTAs of CONV_TILED_THREADS threads, a
+    CTA taking `frames` frames of a row (tiles = ceil(T / frames)) and
+    `smem` bytes, bf16(wp)'s rows in slices of `slice` (a multiple of 16
+    dividing D rounded up to 64)."""
+    frames: int
+    tiles: int
+    slice: int
+    smem: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=256)
+def conv_tiled_bwd_bf16_plan(B, T, D, K, L):
+    """The bf16 tiled backward's launch plan, chosen as conv_tiled_bwd_plan
+    chooses its tiles (the F of CONV_TILED_FRAMES, cut to T, of the fewest
+    waves times ceil((F + K - 1) / 4), the larger F on a tie) with wp's rows
+    whole in shared memory where they fit, else in the largest slices that
+    do. At path L's [8, 1024, 128]: 128 CTAs of 64 frames (~161 KB each);
+    at path M's [16, 192, 128], 128 of 24. Raises on what the kernel cannot
+    take."""
+    if B < 1 or T < 1 or K < 1 or L < 1 or D < 4 or D % 4:
+        raise ValueError("conv_tiled_bwd_bf16_plan: needs B, T, K, L >= 1 and "
+                         "D %% 4 == 0, got B=%d, T=%d, D=%d, K=%d, L=%d"
+                         % (B, T, D, K, L))
+    dk = -(-D // 64) * 64
+    best = None
+    for frames in sorted({min(T, f) for f in CONV_TILED_FRAMES}):
+        sn = next((sn for sn in range(dk, 15, -16) if dk % sn == 0
+                   and _conv_tiled_bwd_bf16_smem_bytes(frames, D, K, sn)
+                   <= MAX_SMEM_BYTES), None)
+        if sn is None:
+            continue
+        tiles = -(-T // frames)
+        cost = -(-B * tiles // N_SMS) * -(-(frames + K - 1) // 4)
+        if best is None or cost <= best[0]:
+            best = (cost, ConvTiledBwdBf16Plan(
+                frames, tiles, sn,
+                _conv_tiled_bwd_bf16_smem_bytes(frames, D, K, sn), B * tiles))
+    if best is None:
+        frames = min(T, CONV_TILED_FRAMES[0])
+        raise ValueError("conv_tiled_bwd_bf16_plan: D=%d needs %d bytes of "
+                         "shared memory a tile of %d frames, above the %d a "
+                         "block has" % (D, _conv_tiled_bwd_bf16_smem_bytes(
+                             frames, D, K, 16), frames, MAX_SMEM_BYTES))
+    return best[1]
+
+
 def _conv_tiled_fwd_smem_bytes(frames, D, K, sk):
     """csrc/conv_block.cu TiledFwdLayout's bytes for `frames` frames a tile
     and weight slices of `sk` rows."""
@@ -1272,36 +1398,44 @@ def launch_conv_block_fwd_tiled(x, gam, beta, dw, wp, bp, seeds=None,
     """The tiled forward kernels on conv_tiled_fwd_plan: (out, xs [L - 1, B,
     T, D], the inputs of layers 1..L-1, which the tiled backward reads),
     the bf16 entry point for bf16 x (out in x's dtype, xs float32 either
-    way). CUDA tensors only; raises where the tiled backward's plan does
-    not fit either."""
+    way), which also returns each layer's ReLU mask [p > 0] for the bf16
+    backward: (out, xs, mask [L, B, T, D / 4] uint8, bit q of byte c the
+    column 4 c + q). CUDA tensors only; raises where the tiled backward's
+    plan does not fit either."""
     name = "conv_block_fwd_tiled"
-    name = _entry(name, _act_dtype(name, x))
+    bf16 = _act_dtype(name, x) == torch.bfloat16
+    name = _entry(name, x.dtype)
     _require_cuda(name, x, gam, beta, dw, wp, bp)
     B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0, x.dtype)
     plan = conv_tiled_fwd_plan(B, T, D, K, L)
-    conv_tiled_bwd_plan(B, T, D, K, L)
+    (conv_tiled_bwd_bf16_plan if bf16 else conv_tiled_bwd_plan)(B, T, D, K, L)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     # x, the taps and the weights land by 16-byte cp.async, x and bp are
     # read as float4s
     x, dw, wp, bp = _aligned16(x, dw, wp, bp)
     out = torch.empty_like(x)
     xs = _empty(x.device, max(L - 1, 1), B, T, D)
+    mask = (torch.empty(L, B, T, D // 4, device=x.device, dtype=torch.uint8)
+            if bf16 else None)
     _launch(name, x.data_ptr(), gam.data_ptr(), beta.data_ptr(), dw.data_ptr(),
             wp.data_ptr(), bp.data_ptr(), sp, thresh, scale, xs.data_ptr(),
-            out.data_ptr(), B, T, D, L, K, plan.frames, plan.slice,
-            plan.product_rows)
-    return out, xs
+            *([mask.data_ptr()] if bf16 else []), out.data_ptr(), B, T, D, L,
+            K, plan.frames, plan.slice, plan.product_rows)
+    return (out, xs, mask) if bf16 else (out, xs)
 
 
 def launch_conv_block_bwd_tiled(x, xs, gam, beta, dw, wp, bp, seeds,
-                                drop_rate, g):
+                                drop_rate, g, mask=None):
     """The tiled backward kernels on conv_tiled_bwd_plan, from the forward's
     xs: (dx, dgam, dbeta, ddw, dwp, dbp), the weight gradients summed over
-    the batch; the bf16 entry point for bf16 x (g and dx in x's dtype, xs,
+    the batch; for bf16 x the bf16 entry point on conv_tiled_bwd_bf16_plan,
+    which also takes the forward's ReLU `mask` (g and dx in x's dtype, xs,
     the gradient between the layers and the weight gradients float32).
     CUDA tensors only."""
     name = "conv_block_bwd_tiled"
-    name = _entry(name, _act_dtype(name, x))
+    if _act_dtype(name, x) == torch.bfloat16:
+        return _launch_conv_block_bwd_tiled_bf16(x, xs, mask, gam, beta, dw,
+                                                 wp, bp, seeds, drop_rate, g)
     _require_cuda(name, x, xs, gam, beta, dw, wp, bp, g)
     B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0, x.dtype)
     plan = conv_tiled_bwd_plan(B, T, D, K, L)
@@ -1317,9 +1451,8 @@ def launch_conv_block_bwd_tiled(x, xs, gam, beta, dw, wp, bp, seeds,
     dsmall = _empty(dev, L, 3 + K, D)
     dwp = _empty(dev, L, D, D)
     d_ws, gp_ws = (_empty(dev, L, B, T, D) for _ in range(2))
-    # the running gradient between the layers: dx and g_ws in turns at fp32;
-    # at bf16 two float32 buffers, dx only layer 0's output
-    g_ws = _empty(dev, 2 if x.dtype == torch.bfloat16 else 1, B, T, D)
+    # the running gradient between the layers: dx and g_ws in turns
+    g_ws = _empty(dev, 1, B, T, D)
     part = _empty(dev, plan.ctas, L, 3 + K, D)
     splits = _wgrad_splits(L, D, D, B * T, CONV_TILED_WGRAD_WAVES)
     ws = _empty(dev, L * splits * D * D if splits > 1 else 1)
@@ -1332,23 +1465,64 @@ def launch_conv_block_bwd_tiled(x, xs, gam, beta, dw, wp, bp, seeds,
     return dx, dsmall[:, 0], dsmall[:, 1], dsmall[:, 3:], dwp, dsmall[:, 2]
 
 
+def _launch_conv_block_bwd_tiled_bf16(x, xs, mask, gam, beta, dw, wp, bp,
+                                      seeds, drop_rate, g):
+    """launch_conv_block_bwd_tiled for bf16 x: the tensor-core kernels
+    (csrc/conv_block.cu conv_layer_bwd_tc_tiled_kernel) on
+    conv_tiled_bwd_bf16_plan, reading the forward's ReLU mask."""
+    name = "conv_block_bwd_tiled_bf16"
+    if mask is None:
+        raise ValueError("%s: needs the bf16 tiled forward's ReLU mask" % name)
+    _require_cuda(name, x, xs, mask, gam, beta, dw, wp, bp, g)
+    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0, x.dtype)
+    plan = conv_tiled_bwd_bf16_plan(B, T, D, K, L)
+    _check(name, xs, (max(L - 1, 1), B, T, D))
+    _check(name, mask, (L, B, T, D // 4), torch.uint8)
+    _check(name, g, (B, T, D), x.dtype)
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    dev = x.device
+    # x, g, xs and the taps are read as float4s (or 8 bytes of bf16) and by
+    # cp.async; bf16(wp), the function's rounding of wp, by 8-byte cp.async
+    x, g, dw, bp = _aligned16(x, g, dw, bp)
+    wpb = wp.to(torch.bfloat16).contiguous()
+    dx = torch.empty_like(x)
+    dsmall = _empty(dev, L, 3 + K, D)
+    dwp = _empty(dev, L, D, D)
+    # dwp's operands bf16(d) and bf16(g_p), and the running gradient between
+    # the layers in two float32 buffers, dx only layer 0's output
+    d_ws, gp_ws = (torch.empty(L, B, T, D, device=dev, dtype=torch.bfloat16)
+                   for _ in range(2))
+    g_ws = _empty(dev, 2, B, T, D)
+    part = _empty(dev, plan.ctas, L, 3 + K, D)
+    splits = _wgrad_splits(L, D, D, B * T, CONV_TILED_WGRAD_WAVES)
+    ws = _empty(dev, L * splits * D * D if splits > 1 else 1)
+    _launch(name, x.data_ptr(), xs.data_ptr(), mask.data_ptr(), gam.data_ptr(),
+            beta.data_ptr(), dw.data_ptr(), wpb.data_ptr(), bp.data_ptr(), sp,
+            thresh, scale, g.data_ptr(), dx.data_ptr(), dsmall.data_ptr(),
+            dwp.data_ptr(), d_ws.data_ptr(), gp_ws.data_ptr(), g_ws.data_ptr(),
+            part.data_ptr(), ws.data_ptr(), splits, B, T, D, L, K, plan.frames,
+            plan.slice)
+    return dx, dsmall[:, 0], dsmall[:, 1], dsmall[:, 3:], dwp, dsmall[:, 2]
+
+
 class FusedConvBlockTiled(torch.autograd.Function):
     """The conv block on the card at any T: the tiled forward kernels, which
     keep each layer's input, then the tiled backward kernels."""
 
     @staticmethod
     def forward(ctx, x, gam, beta, dw, wp, bp, seeds, drop_rate):
-        out, xs = launch_conv_block_fwd_tiled(x, gam, beta, dw, wp, bp, seeds,
-                                              drop_rate)
-        ctx.save_for_backward(x, xs, gam, beta, dw, wp, bp, seeds)
+        out, xs, *mask = launch_conv_block_fwd_tiled(x, gam, beta, dw, wp, bp,
+                                                     seeds, drop_rate)
+        ctx.save_for_backward(x, xs, gam, beta, dw, wp, bp, seeds, *mask)
         ctx.drop_rate = drop_rate
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, xs, gam, beta, dw, wp, bp, seeds = ctx.saved_tensors
+        x, xs, gam, beta, dw, wp, bp, seeds, *mask = ctx.saved_tensors
         grads = launch_conv_block_bwd_tiled(x, xs, gam, beta, dw, wp, bp, seeds,
-                                            ctx.drop_rate, g.contiguous())
+                                            ctx.drop_rate, g.contiguous(),
+                                            *mask)
         return (*grads, None, None)
 
 
@@ -2749,9 +2923,9 @@ def _plans_take(*calls):
 
 @functools.lru_cache(maxsize=256)
 def lstm_kernel_fits(B, H):
-    """csrc/lstm.cu takes B rows of hidden size H (lstm_plan: H up to
-    LSTM_MAX_H)."""
-    return _plans_take((lstm_plan, B, H))
+    """csrc/lstm.cu takes B rows of hidden size H (lstm_plan and
+    lstm_bwd_bf16_plan: H up to LSTM_MAX_H)."""
+    return _plans_take((lstm_plan, B, H), (lstm_bwd_bf16_plan, B, H))
 
 
 @functools.lru_cache(maxsize=256)
@@ -2766,7 +2940,8 @@ def conv_kernel_fits(T, D, K, L, grad=False):
         return _plans_take((conv_fwd_plan, 1, T, D, K, L),
                            (conv_plan, 1, T, D, K, L))
     return _plans_take((conv_tiled_fwd_plan, 1, T, D, K, L),
-                       (conv_tiled_bwd_plan, 1, T, D, K, L))
+                       (conv_tiled_bwd_plan, 1, T, D, K, L),
+                       (conv_tiled_bwd_bf16_plan, 1, T, D, K, L))
 
 
 @functools.lru_cache(maxsize=256)
