@@ -1502,3 +1502,131 @@ def test_cuda_conv_block_fwd_tiled_bf16_mask_bits(cuda, B, T):
         differ += int(flips.sum())
     assert worst <= MASK_KINK and differ <= MASK_FLIPS * L * B * T * D, \
         (differ, worst)
+
+
+# --- the wide bf16 kernels (#2c, #9c at D = 896 and 1024; #3b, #10b at head
+# dim 128): the JAX bench's `saturated` configuration, hidden 1024 in 8
+# heads of 128 at B = 256, and smaller ragged shapes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("B,T,D", [(256, 128, 1024), (32, 24, 1024),
+                                   (2, 13, 896)])
+def test_cuda_conv_block_wide_bf16_matches_twin(cuda, B, T, D, rate):
+    """The wide forward through fused_conv_block (conv_route "wide") and
+    its wrapper against the twin: BF16_TOL of the largest output, the share
+    of differing bf16 outputs within BF16_SHARE_TOL where the fp32
+    function's exceeds it, its ReLU mask against the twin's [p > 0] on the
+    forward's own layer inputs (a differing bit only at a pre-ReLU within
+    MASK_KINK of the product's magnitude, at most MASK_FLIPS of them),
+    equal bits twice."""
+    rng = np.random.default_rng(40)
+    L = 4
+    x, *w = _conv_inputs(rng, B, T, D)
+    args = [_t(x).to(cuda, BF16)] + [_t(a).to(cuda) for a in w]
+    drop = ({"seeds": _t(_seeds(rng, B)).to(cuda), "drop_rate": rate}
+            if rate else {})
+    assert kernels.conv_route(T, D, 7, L, False, BF16) == "wide"
+    kernels.reset_launches()
+    out = kernels.fused_conv_block(*args, **drop)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv_block_fwd_wide_bf16"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    ref = kernels.conv_block_plain(*args, **drop)
+    assert out.dtype == BF16 and _scaled(out, ref) <= BF16_TOL
+    ref32 = kernels.conv_block_plain(args[0].float(), *args[1:], **drop)
+    assert _share(out, ref) <= BF16_SHARE_TOL < _share(ref32.to(BF16), ref)
+    got, xs, mask = kernels.launch_conv_block_fwd_wide(*args, **drop)
+    assert torch.equal(got, out) and mask.shape == (L, B, T, D // 4)
+    bits = ((mask[..., None] >> torch.arange(4, device=cuda, dtype=torch.uint8))
+            & 1).reshape(L, B, T, D).bool()
+    _, gam, beta, dw, wp, bp = args
+    for l, xl in enumerate([args[0].float()] + list(xs[:L - 1])):
+        _, _, _, d, p = kernels.conv_layer_replay(xl, gam[l], beta[l], dw[l],
+                                                  wp[l], bp[l], BF16)
+        scale = d.abs() @ wp[l].to(BF16).float().abs() + bp[l].abs()
+        flips = bits[l] != (p > 0)
+        assert int(flips.sum()) <= MASK_FLIPS * flips.numel() + 1
+        if bool(flips.any()):
+            assert float((p.abs() / scale)[flips].max()) <= MASK_KINK
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("B,T,D,heads", [(256, 128, 1024, 8),
+                                         (32, 24, 1024, 8), (3, 10, 256, 2),
+                                         (2, 128, 256, 2)])
+def test_cuda_mha_block_wide_bf16_matches_twin(cuda, B, T, D, heads, rate):
+    """The wide forward (head dim 128) through fused_mha_block against the
+    twin, as test_cuda_mha_block_bf16_matches_twin holds the bf16 block
+    kernels, with a fully masked row; its qkv and att within a bf16 ulp of
+    the twin's replay (qkv holds bf16 values)."""
+    rng = np.random.default_rng(41)
+    lens = list(rng.integers(1, T + 1, size=B - 1)) + [0]
+    x, *w = _mha_inputs(rng, B, T, D, lens)
+    args = [_t(x).to(cuda, BF16)] + [_t(a).to(cuda) for a in w]
+    drop = ({"seeds": _t(_seeds(rng, B)).to(cuda), "drop_rate": rate}
+            if rate else {})
+    assert kernels.mha_route(T, D, heads, BF16) == "block"
+    kernels.reset_launches()
+    out = kernels.fused_mha_block(*args, heads, **drop)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mha_block_fwd_wide_bf16"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    ref = kernels.mha_block_plain(*args, heads, **drop)
+    assert out.dtype == BF16 and torch.isfinite(out.float()).all()
+    assert _scaled(out, ref) <= BF16_TOL
+    ref32 = kernels.mha_block_plain(args[0].float(), *args[1:], heads, **drop)
+    assert _share(out, ref) <= BF16_SHARE_TOL < _share(ref32.to(BF16), ref)
+    got, qkv, att = kernels.launch_mha_block_fwd(*args, heads, **drop)
+    assert torch.equal(got, out)
+    assert torch.equal(qkv, qkv.to(BF16).float())
+    x32, mask, gam, beta, wqkv, bqkv = (args[0].float(), *args[1:6])
+    y = kernels.site_dropout(kernels.layer_norm(x32, gam[0], beta[0]),
+                             drop.get("seeds"), 0x200, rate)
+    qkv_ref = y.to(BF16).float() @ wqkv.to(BF16).float() + bqkv
+    assert _scaled(qkv, qkv_ref) <= BF16_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["conv_wide", "mha_wide"])
+def test_cuda_bf16_wide_backward_matches_twin(cuda, kind):
+    """#9c and #10b at the wide widths against their plain backward twins,
+    held as test_cuda_bf16_backward_matches_twin holds the other bf16
+    backwards (bf16_vjp's verdict: its limits, both controls beyond them,
+    equal bits twice), each call counted under its wide entry; at
+    `saturated`'s shape each planted fault is refused."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    for i, case in enumerate(V.card_cases(cuda, kind)):
+        kernels.reset_launches()
+        case.kernel()
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[case.name] == 1, (case.shape, case.name)
+        assert sum(kernels.LAUNCHES.values()) == 1, case.shape
+        reading = V.read(case)
+        ok, why = V.verdict(case, reading)
+        assert ok, (case.shape, why, reading)
+        if i == 0:
+            for fault in V.FAULTS:
+                bad = V.planted(case, fault)
+                ok, why = V.verdict(bad, V.read(bad))
+                assert not ok and "beyond the limits" in why, (fault, why)
+
+
+@pytest.mark.cuda
+def test_cuda_wide_wrappers_refuse_fp32_and_the_narrow_widths(cuda):
+    """The wide entry points take bf16 only; the fp32 modules keep D = 1024
+    and head dim 128 on the plain versions (the predicates say no)."""
+    rng = np.random.default_rng(42)
+    x, *w = _conv_inputs(rng, 2, 16, 1024)
+    args = [_t(x).to(cuda)] + [_t(a).to(cuda) for a in w]
+    with pytest.raises(TypeError, match="bf16"):
+        kernels.launch_conv_block_fwd_wide(*args)
+    assert not kernels.conv_kernel_fits(16, 1024, 7, 4)
+    x, *w = _mha_inputs(rng, 2, 16, 256, [16, 3])
+    args = [_t(x).to(cuda)] + [_t(a).to(cuda) for a in w]
+    with pytest.raises(TypeError, match="bf16"):
+        kernels.launch_mha_block_fwd(*args, 2)
+    assert not kernels.mha_kernel_fits(16, 256, 2)

@@ -364,9 +364,12 @@ def conv_inputs(dev, rng, B, T, D, L=4, KS=7):
 CONV_NAMES = ("dx", "dgam", "dbeta", "ddw", "dwp", "dbp")
 
 
-def conv_case(dev, rng, B, T, D, rate, tiled=False):
-    """#9 at bf16, whole-row or T-tiled (on its forward's xs), drop rate
-    `rate` with per-row seeds."""
+def conv_case(dev, rng, B, T, D, rate, tiled=False, wide=False):
+    """#9 at bf16, whole-row or T-tiled (on its forward's xs), or the wide
+    form (#9c at D = 896 and 1024, on the wide forward's xs and mask), drop
+    rate `rate` with per-row seeds. No fp32 kernel takes the wide widths:
+    there control (a) is the fp32 function computed by the plain
+    backward."""
     args = conv_inputs(dev, rng, B, T, D)
     seeds = _t(dev, rng.integers(0, 1 << 23, (B, 1))) if rate else None
     g = _t(dev, rng.standard_normal((B, T, D))).to(BF16)
@@ -374,17 +377,26 @@ def conv_case(dev, rng, B, T, D, rate, tiled=False):
     # the forward's xs (and at bf16 its ReLU mask), by activation dtype
     saved = {a[0].dtype: K.launch_conv_block_fwd_tiled(*a, seeds, rate)[1:]
              for a in (args, args32)} if tiled else None
+    if wide:
+        saved = {BF16: K.launch_conv_block_fwd_wide(*args, seeds, rate)[1:]}
 
     def kernel(a, g_):
+        if wide and a[0].dtype != BF16:
+            return K.conv_block_bwd_plain(*a, seeds, rate, g_)
+        if wide:
+            xs, mask = saved[BF16]
+            return K.launch_conv_block_bwd_wide(a[0], xs, *a[1:], seeds, rate,
+                                                g_, mask)
         if tiled:
             xs, *mask = saved[a[0].dtype]
             return K.launch_conv_block_bwd_tiled(a[0], xs, *a[1:], seeds, rate,
                                                  g_, *mask)
         return K.launch_conv_block_bwd(*a, seeds, rate, g_)
 
+    name = ("conv_block_bwd_wide_bf16" if wide else "conv_block_bwd_tiled_bf16"
+            if tiled else "conv_block_bwd_bf16")
     return Case(
-        "conv_block_bwd_tiled_bf16" if tiled else "conv_block_bwd_bf16",
-        CONV_NAMES, ("dx",), lambda: kernel(args, g),
+        name, CONV_NAMES, ("dx",), lambda: kernel(args, g),
         K.conv_block_bwd_plain, (*args, seeds, rate, g),
         lambda: kernel(args32, g.float()),
         lambda: _autograd(lambda *a: K.conv_block_plain(*a, seeds, rate),
@@ -400,7 +412,9 @@ def mha_case(dev, rng, B, T, D, heads, rate):
     ones: a flip in the forward's bf16 q, k or v, where its sums ran in
     another order, would carry through every frame the attention mixes):
     x [B, T, D] in bf16, ragged key masks with one row fully masked, drop
-    rate `rate`."""
+    rate `rate`. At head dim 128 (the wide kernels) no fp32 kernel takes
+    the shape: there control (a) is the fp32 function computed by the
+    plain backward."""
     lens = np.concatenate([rng.integers(1, T + 1, B - 1), [0]])
     x = _t(dev, rng.standard_normal((B, T, D))).to(BF16)
     mask = _t(dev, np.arange(T)[None, :] < lens[:, None])
@@ -413,11 +427,15 @@ def mha_case(dev, rng, B, T, D, heads, rate):
     seeds = _t(dev, rng.integers(0, 1 << 23, (B, 1))) if rate else None
     g = _t(dev, rng.standard_normal((B, T, D))).to(BF16)
 
+    wide = K._wide_head_dim(D, heads)
     saved = {x_.dtype: K.launch_mha_block_fwd(x_, mask, gam, beta, wqkv, bqkv,
                                               wd, bd, heads, seeds, rate)[1:]
-             for x_ in (x, x.float())}
+             for x_ in ((x,) if wide else (x, x.float()))}
 
     def kernel(x_, g_):
+        if x_.dtype not in saved:
+            return K.mha_block_bwd_plain(x_, mask, gam, beta, wqkv, bqkv, wd,
+                                         bd, heads, seeds, rate, g_)
         return K.launch_mha_block_bwd(x_, mask, gam, beta, wqkv, wd, heads,
                                       seeds, rate, *saved[x_.dtype], g_)
 
@@ -425,7 +443,8 @@ def mha_case(dev, rng, B, T, D, heads, rate):
         return K.mha_block_plain(x_, mask, *w, heads, seeds, rate)
 
     return Case(
-        "mha_block_bwd_bf16", MHA_NAMES, ("dx",), lambda: kernel(x, g),
+        "mha_block_bwd_wide_bf16" if wide else "mha_block_bwd_bf16", MHA_NAMES,
+        ("dx",), lambda: kernel(x, g),
         K.mha_block_bwd_plain,
         (x, mask, gam, beta, wqkv, bqkv, wd, bd, heads, seeds, rate, g,
          *saved[x.dtype]),
@@ -492,14 +511,16 @@ def attention_case(dev, rng, B, T, D, heads, rate, flash):
         axes={"dq": (1, 0)}, short_row=B - 1, controls=controls)
 
 
-KINDS = ("lstm", "conv", "conv_tiled", "mha", "mha_whole", "flash")
+KINDS = ("lstm", "conv", "conv_tiled", "mha", "mha_whole", "flash",
+         "conv_wide", "mha_wide")
 
 
 def card_cases(dev, kind):
     """The card tests' cases of one bf16 backward (KINDS), the main path's
     shape first (the whole-T backward's path M, the flash backward's path
-    L): T = 12 (the query stream), T = 30, head dim 8, a fully masked row
-    (every MHA and attention case), drop 0 and 0.2."""
+    L, the wide kernels' `saturated`): T = 12 (the query stream), T = 30,
+    head dim 8, a fully masked row (every MHA and attention case), drop 0
+    and 0.2."""
     rng = np.random.default_rng(36)
     if kind in ("mha_whole", "flash"):
         shapes = ([(16, 192, 128, 8), (4, 146, 128, 4), (2, 200, 64, 8),
@@ -515,6 +536,15 @@ def card_cases(dev, kind):
         return [conv_case(dev, rng, B, T, D, rate, kind == "conv_tiled")
                 for B, T, D in [(16, 128, 128), (16, 12, 128), (2, 13, 16),
                                 (4, 30, 128)] for rate in (0.0, 0.2)]
+    if kind == "conv_wide":  # `saturated`'s video and query streams
+        return [conv_case(dev, rng, B, T, D, rate, wide=True)
+                for B, T, D in [(256, 128, 1024), (32, 24, 1024),
+                                (2, 13, 896)] for rate in (0.0, 0.2)]
+    if kind == "mha_wide":
+        return [mha_case(dev, rng, B, T, D, heads, rate)
+                for B, T, D, heads in [(256, 128, 1024, 8), (32, 24, 1024, 8),
+                                       (3, 10, 256, 2), (2, 128, 256, 2)]
+                for rate in (0.0, 0.2)]
     return [mha_case(dev, rng, B, T, D, heads, rate)
             for B, T, D, heads in [(16, 128, 128, 8), (16, 12, 128, 8),
                                    (3, 10, 16, 2), (4, 40, 128, 4),

@@ -19,7 +19,10 @@ then one of each through torch.profiler: device ms, its host-to-device
 copies (time, kinds and bytes), device ms without them, the card's idle share, its launches and
 the top kernels. Prints one JSON line a run with the card's name and power
 limit. --precision bf16 runs the paths at precision=bf16 (beyond T = 145
-the bf16 whole-T and flash kernels); a tree without bf16 refuses it.
+the bf16 whole-T and flash kernels) and adds the JAX bench's `saturated`
+configuration (the transformer at hidden 1024 in 8 heads of 128, T = 128,
+batch 256: the wide conv and MHA block kernels; bench.py's dataset); a
+tree without bf16 refuses it.
 """
 import argparse
 import json
@@ -33,6 +36,11 @@ import numpy as np
 
 PATHS = {"T128": ("rnn", 128, 16), "M": ("rnn", 192, 16),
          "L": ("transformer", 1024, 8)}
+# the JAX bench's `saturated` configuration (bench.py bench_saturated):
+# the transformer predictor at hidden 1024 in 8 heads of 128, batch 256,
+# T 128, 1024-d video features, always at bf16
+SATURATED = ("transformer", 128, 256)
+SATURATED_WIDTH = {"hidden_size": 1024, "num_heads": 8}
 
 
 def flax_layout_weights(model, glove, seed):
@@ -94,6 +102,36 @@ def train_config(dataset, use_pallas, seed, predictor="rnn", max_pos_len=128,
                   clip_norm=1.0, l2_decay=3e-7, highlight_lambda=5.0,
                   epochs=100, char_size=dataset["n_chars"],
                   use_pallas=use_pallas, seed=seed, precision=precision)
+
+
+def saturated_data(seed):
+    """bench.py bench_saturated's synthetic dataset: 1024 training and 16
+    test queries over 16 videos of 64..128 clips."""
+    from vslnet_torch.data.synthetic import synthetic_dataset
+
+    return synthetic_dataset(
+        n_train=1024, n_test=16, n_videos=16, n_words=1000, n_chars=40,
+        max_pos_len=128, video_feature_dim=1024, word_dim=300,
+        min_video_len=64, seed=seed)
+
+
+def saturated_config(dataset, use_pallas, seed, precision="bf16"):
+    """train_config at the `saturated` configuration's predictor, T, batch
+    and widths."""
+    import dataclasses
+
+    predictor, T, B = SATURATED
+    return dataclasses.replace(
+        train_config(dataset, use_pallas, seed, predictor, T, B, precision),
+        **SATURATED_WIDTH)
+
+
+def saturated_requests(dataset, feats, B):
+    """B served requests (video features, duration, query) over the test
+    split's queries in turn."""
+    recs = dataset["test_set"]
+    return [(feats[r["vid"]], r["duration"], " ".join(r["words"]))
+            for r in (recs[i % len(recs)] for i in range(B))]
 
 
 def htod_copies(prof):
@@ -171,18 +209,24 @@ def main(argv=None, seed=0):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = card()
-    for path, (predictor, T, B) in PATHS.items():
-        dataset, feats = synthetic_dataset(
-            n_train=64, n_test=B, n_videos=8, n_words=1000, n_chars=40,
-            max_pos_len=T, video_feature_dim=1024, word_dim=300,
-            min_video_len=T // 2, seed=seed)
+    paths = dict(PATHS)
+    if args.precision == "bf16":
+        paths["saturated"] = SATURATED
+    for path, (predictor, T, B) in paths.items():
+        if path == "saturated":
+            dataset, feats = saturated_data(seed)
+            cfg = saturated_config(dataset, "auto", seed)
+        else:
+            dataset, feats = synthetic_dataset(
+                n_train=64, n_test=B, n_videos=8, n_words=1000, n_chars=40,
+                max_pos_len=T, video_feature_dim=1024, word_dim=300,
+                min_video_len=T // 2, seed=seed)
+            cfg = train_config(dataset, "auto", seed, predictor, T, B,
+                               **({"precision": args.precision}
+                                  if args.precision != "fp32" else {}))
         splits = [dataset["train_set"], dataset["test_set"]]
-        cfg = train_config(dataset, "auto", seed, predictor, T, B,
-                           **({"precision": args.precision}
-                              if args.precision != "fp32" else {}))
         loc = build_localizer(cfg, dataset, splits, seed)
-        triples = [(feats[r["vid"]], r["duration"], " ".join(r["words"]))
-                   for r in dataset["test_set"][:B]]
+        triples = saturated_requests(dataset, feats, B)
         trainer = Trainer(cfg, dataset, feats)
         runs = {"serve": lambda: loc.localize_batch(triples),
                 "train": trainer.step}

@@ -23,6 +23,12 @@ namespace vsl {
 constexpr float kMaskValue = -1e30f;  // the reference's additive key mask
 constexpr float kLnEps = 1e-6f;       // LayerNorm epsilon of the reference
 
+// The wide blocks' per-frame kernels (conv_block.cu, mha_block.cu): a CTA
+// of kWideThreads walks a strip of frames in sub-tiles of kWideFrames
+// (ops/kernels.py WIDE_THREADS, WIDE_FRAMES).
+constexpr int kWideThreads = 512;
+constexpr int kWideFrames = 8;
+
 // f(std::integral_constant<int, HD>) for the attention kernels' head dims
 // (ops/kernels.py MHA_HEAD_DIMS); cudaErrorInvalidValue for any other.
 template <typename F>
@@ -485,6 +491,17 @@ inline cudaError_t ready_to_launch(const void* fn, const cudaLaunchConfig_t& cfg
   if (clusters < 1) return cudaErrorInvalidConfiguration;  // the plan cannot be scheduled
   ready.insert(key);
   return cudaSuccess;
+}
+
+// kernel<<<grid, threads, smem, stream>>>(args...) after the opt-in to
+// smem bytes of dynamic shared memory.
+template <typename... Params, typename... Args>
+cudaError_t launch_opted(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
+                         cudaStream_t stream, Args... args) {
+  const cudaError_t err = opt_in_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 // kernel<<<ctas, threads, smem, stream>>>(args...) in clusters of N CTAs

@@ -1497,3 +1497,342 @@ extern "C" int vsl_conv_block_bwd_tiled_bf16(const void* x, const float* xs, con
   return static_cast<int>(vsl::wgrad_tc(static_cast<const bf16*>(d_ws), gp_ws, dwp, gemm_ws, L, D,
                                         D, B * T, splits, stream));
 }
+
+namespace {
+
+// --- the bf16 conv block at the widths the tiled kernels do not take --------
+// #2c and #9c at D = 896 and 1024 (ops/kernels.py conv_wide_plan; the JAX
+// bench's `saturated` configuration runs hidden 1024). The tiled kernels
+// keep a tile's rows and wp's slices in shared memory and run each layer's
+// pointwise product per tile: at D = 1024 the bf16 backward needs 242 KB a
+// tile of 8 frames, and a product of so few frames would re-read the 2 MB
+// of bf16(wp) once a tile. So each layer is split at its product:
+//   - the per-frame work on CTAs of strips of S frames a row (ops/kernels.py
+//     conv_wide_plan: enough strips to fill the card twice), walked in
+//     sub-tiles of kWideFrames frames with their depthwise reach, the
+//     column sums (dbp, dgam, dbeta, ddw) carried over the strip in shared
+//     memory, one thread a column, and written once a strip;
+//   - the product [B T, D] x [D, D] over every frame at once on mma.cuh's
+//     tc_gemm, the layer's epilogue fused into it.
+// Forward, a layer: (1) conv_wide_prologue_kernel: n = bf16(LN(x_l)) over
+// the sub-tile and its reach, d = bf16(depthwise(n)) into a bf16 workspace;
+// (2) tc_gemm d . bf16(wp) (the wrapper rounds wp once a call) with
+// ConvWideFwdEpi: p = . + bp, the ReLU mask [p > 0] the backward reads
+// (bits of 4 columns a byte, two lanes' pairs joined by a shuffle),
+// x_(l+1) = x_l + drop(relu(p)), fp32 between the layers.
+// Backward, layers in reverse: (1) the prologue again for bf16(d) (dwp's
+// operand) and g_p = [p > 0] drop(G_in) from the mask, bf16(g_p) to dwp's
+// workspace, dbp summing the unrounded g_p; (2) tc_gemm g_d = bf16(g_p) .
+// bf16(wp)^T (wp's rows as they are stored) into an fp32 workspace; (3)
+// conv_wide_bwd_kernel: n_l and xh again over the sub-tile and its reach,
+// ddw from the UNROUNDED n against g_d, g_n the depthwise transpose of
+// g_d, the LayerNorm backward (dgam, dbeta), G_out = G_in + dx_ln. Then
+// dwp = sum bf16(d)^T . bf16(g_p) on wgrad_tc and the partials summed in a
+// fixed order. The function, rounding for rounding, is the tiled bf16
+// kernels'; no atomics.
+// What bounds them: the products, 2 B T D^2 FLOPs a layer forward and two
+// such backward plus dwp's, on the tensor cores (at `saturated`, 69 GFLOP
+// a product); the per-frame passes move each layer's [B, T, D] rows a few
+// times (x, G, g_d, the bf16 workspaces).
+using vsl::kWideFrames;
+using vsl::kWideThreads;
+
+// Shared memory in floats (ops/kernels.py conv_wide_plan reports both; the
+// launches use these), F = kWideFrames:
+//   prologue: X [F + K - 1][D] x_l then n over the reach, DW [K][D], dbp [D]
+//   backward: N [F + K - 1][D] n over the reach, then g_n; XH [F][D];
+//             GD [F + K - 1][D] g_d over E; DW [K][D]; ACC [K + 2][D]
+//             (dgam, dbeta, ddw over the strip); SCR [2][D]; inv [F]
+__host__ __device__ inline size_t wide_prologue_floats(int D, int K) {
+  return (size_t)(kWideFrames + 2 * K) * D;
+}
+__host__ __device__ inline size_t wide_bwd_floats(int D, int K) {
+  return (size_t)(2 * (kWideFrames + K - 1) + kWideFrames + 2 * K + 4) * D + kWideFrames;
+}
+
+// Layer l's per-frame work before its product for the strip [s0, s0 + S)
+// of row b: d = bf16(depthwise(bf16(LN(x_l)))) into d_l [B, T, D]; with
+// kBwd also g_p = [p > 0] drop(G_in) from mask_l [B, T, D / 4], bf16(g_p)
+// into gp_l and dbp (the unrounded g_p's column sums over the strip) into
+// the strip's partials part [B * strips, L, 3 + K, D].
+template <bool kBwd, typename XIn, typename GIn>
+__global__ void __launch_bounds__(kWideThreads, 1)
+conv_wide_prologue_kernel(const XIn* __restrict__ xin, ConvParams p, int l, int S,
+                          __nv_bfloat16* __restrict__ d_l, const uint8_t* __restrict__ mask_l,
+                          vsl::Dropout drop, const GIn* __restrict__ Gin,
+                          __nv_bfloat16* __restrict__ gp_l, float* __restrict__ part) {
+  extern __shared__ float4 smem4[];
+  const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2;
+  const int b = blockIdx.y, s0 = blockIdx.x * S, s1 = min(T, s0 + S);
+  float* X = reinterpret_cast<float*>(smem4);
+  float* DW = X + (size_t)(kWideFrames + K - 1) * D;
+  float* dbp = DW + (size_t)K * D;
+  const size_t row = (size_t)b * T * D;
+  const float* gam = p.gam + (size_t)l * D;
+  const float* beta = p.beta + (size_t)l * D;
+  const uint32_t seed = drop.seed(b), salt = vsl::site_salt(0x100u + l);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
+  for (int c = tid; c < D && kBwd; c += nt) dbp[c] = 0.f;
+  for (int t0 = s0; t0 < s1; t0 += kWideFrames) {
+    const int nf = min(kWideFrames, s1 - t0);
+    // x_l over [t0 - pad, t0 + nf + K - 1 - pad), 0 outside [0, T)
+    const int h0 = t0 - pad, lo = max(h0, 0), hi = min(h0 + nf + K - 1, T);
+    for (int i = tid; i < (nf + K - 1) * D; i += nt) {
+      const int t = h0 + i / D;
+      X[i] = t >= lo && t < hi ? vsl::to_float(xin[row + (size_t)h0 * D + i]) : 0.f;
+    }
+    vsl::cp_async_wait<0>();
+    __syncthreads();
+    float* own = X + (size_t)(lo - h0) * D;
+    vsl::layer_norm_rows<true>(own, own, gam, beta, hi - lo, D);
+    __syncthreads();
+    taps_rows<false, true>(X, DW, nf, D, K, d_l + row + (size_t)t0 * D);
+    if constexpr (kBwd) {
+      for (int c = tid; c < D; c += nt) {
+        float s = dbp[c];
+        for (int r = 0; r < nf; ++r) {
+          const size_t i = row + (size_t)(t0 + r) * D + c;
+          const float gp = (mask_l[i / 4] >> (c & 3)) & 1u
+                               ? drop.apply(vsl::to_float(Gin[i]), seed, salt, t0 + r, c)
+                               : 0.f;
+          s += gp;
+          gp_l[i] = __float2bfloat16(gp);
+        }
+        dbp[c] = s;
+      }
+    }
+    __syncthreads();  // X read before the next sub-tile's rows land
+  }
+  if constexpr (kBwd) {
+    float* pr = part + ((size_t)(b * gridDim.x + blockIdx.x) * p.L + l) * (3 + K) * D;
+    for (int c = tid; c < D; c += nt) pr[2 * D + c] = dbp[c];
+  }
+}
+
+// The forward product's epilogue for layer l: x_(l+1) = x_l +
+// drop(relu(d . wp + bp)) at frame m = b T + t, and the ReLU mask.
+template <typename XIn, typename XOut>
+struct ConvWideFwdEpi {
+  const XIn* xin;
+  XOut* xout;
+  uint8_t* mask;    // layer l's [B, T, D / 4]
+  const float* bp;  // layer l's [D]
+  vsl::Dropout drop;
+  uint32_t salt;
+  int M, T, D;
+  __device__ void operator()(int m, int n, float v0, float v1) const {
+    const float p0 = v0 + __ldg(bp + n), p1 = v1 + __ldg(bp + n + 1);
+    // columns 4c..4c+3 are lanes 4g + 2h and 4g + 2h + 1's pairs (n % 4 = 0, 2)
+    uint32_t bits = ((p0 > 0.f ? 1u : 0u) | (p1 > 0.f ? 2u : 0u)) << (n & 2);
+    bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
+    if (m >= M) return;
+    const size_t i = (size_t)m * D + n;
+    if ((n & 2) == 0) mask[i / 4] = static_cast<uint8_t>(bits);
+    const int b = m / T, t = m - b * T;
+    const uint32_t seed = drop.seed(b);
+    const float y0 = drop.apply(fmaxf(p0, 0.f), seed, salt, t, n);
+    const float y1 = drop.apply(fmaxf(p1, 0.f), seed, salt, t, n + 1);
+    xout[i] = vsl::from_float<XOut>(vsl::to_float(xin[i]) + y0);
+    xout[i + 1] = vsl::from_float<XOut>(vsl::to_float(xin[i + 1]) + y1);
+  }
+};
+
+// Layer l's per-frame work after g_d for the strip [s0, s0 + S) of row b:
+// ddw, g_n, the LayerNorm backward (dgam, dbeta), G_out = G_in + dx_ln;
+// gd [B, T, D] the layer's g_d (0 outside [0, T), where g_p is).
+template <typename XIn, typename GIn, typename GOut>
+__global__ void __launch_bounds__(kWideThreads, 1)
+conv_wide_bwd_kernel(const XIn* __restrict__ xin, ConvParams p, int l, int S,
+                     const float* __restrict__ gd, const GIn* __restrict__ Gin,
+                     GOut* __restrict__ Gout, float* __restrict__ part) {
+  extern __shared__ float4 smem4[];
+  const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2, gl = K - 1 - pad;
+  const int b = blockIdx.y, s0 = blockIdx.x * S, s1 = min(T, s0 + S);
+  const size_t E = (size_t)(kWideFrames + K - 1) * D;
+  float* N = reinterpret_cast<float*>(smem4);
+  float* XH = N + E;
+  float* GD = XH + (size_t)kWideFrames * D;
+  float* DW = GD + E;
+  float* ACC = DW + (size_t)K * D;  // dgam, dbeta, ddw [K][D]
+  float* SCR = ACC + (size_t)(K + 2) * D;
+  float* inv = SCR + 2 * (size_t)D;
+  const size_t row = (size_t)b * T * D;
+  const float* gam = p.gam + (size_t)l * D;
+  const float* beta = p.beta + (size_t)l * D;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
+  for (int i = tid; i < (K + 2) * D; i += nt) ACC[i] = 0.f;
+  for (int t0 = s0; t0 < s1; t0 += kWideFrames) {
+    const int nf = min(kWideFrames, s1 - t0), ne = nf + K - 1;
+    const int h0 = t0 - pad, lo = max(h0, 0), hi = min(h0 + ne, T);
+    const int e0 = t0 - gl;
+    for (int i = tid; i < ne * D; i += nt) {
+      const int th = h0 + i / D, te = e0 + i / D;
+      N[i] = th >= lo && th < hi ? vsl::to_float(xin[row + (size_t)h0 * D + i]) : 0.f;
+      GD[i] = te >= 0 && te < T ? gd[row + (size_t)e0 * D + i] : 0.f;
+    }
+    vsl::cp_async_wait<0>();
+    __syncthreads();
+    // n_l in place, xh and inv of the own rows
+    ln_window_rows(N, lo - h0, hi - lo, pad, nf, gam, beta, XH, inv, D);
+    __syncthreads();
+    // ddw[j, c] += sum over the own frames of n(t + j - pad, c) * g_d(t, c)
+    for (int i = tid; i < K * D; i += nt) {
+      const int j = i / D, c = i - j * D;
+      float s = 0.f;
+      for (int r = 0; r < nf; ++r)
+        s = fmaf(N[(size_t)(r + j) * D + c], GD[(size_t)(r + gl) * D + c], s);
+      ACC[2 * D + i] += s;
+    }
+    __syncthreads();
+    // g_n(t0 + r) = sum_j g_d(t0 + r + pad - j) dw[j] into N's first rows
+    taps_rows<true>(GD, DW, nf, D, K, N);
+    __syncthreads();
+    vsl::ln_backward_rows(N, XH, inv, gam, nf, D, SCR, SCR + D, [&](int r, int c, float v) {
+      const size_t i = row + (size_t)(t0 + r) * D + c;
+      Gout[i] = vsl::from_float<GOut>(vsl::to_float(Gin[i]) + v);
+    });
+    // the sub-tile's dgam, dbeta: written above by this thread for its columns
+    for (int c = tid; c < D; c += nt) {
+      ACC[c] += SCR[c];
+      ACC[D + c] += SCR[D + c];
+    }
+    __syncthreads();  // N, XH and GD read before the next sub-tile's rows land
+  }
+  float* pr = part + ((size_t)(b * gridDim.x + blockIdx.x) * p.L + l) * (3 + K) * D;
+  for (int c = tid; c < D; c += nt) {
+    pr[c] = ACC[c];
+    pr[D + c] = ACC[D + c];
+  }
+  for (int i = tid; i < K * D; i += nt) pr[3 * D + i] = ACC[2 * D + i];
+}
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// f(Tag<bf16>) where bf16, else f(Tag<float>).
+template <typename F>
+cudaError_t by_type(bool bf16, F f) {
+  return bf16 ? f(Tag<__nv_bfloat16>{}) : f(Tag<float>{});
+}
+
+bool wide_ok(int B, int T, int D, int L, int K, int S) {
+  return B >= 1 && T >= 1 && L >= 1 && K >= 1 && D % vsl::kTcGemmN == 0 && S >= 1 &&
+         S % kWideFrames == 0 &&
+         wide_bwd_floats(D, K) * sizeof(float) <= 232448;
+}
+
+}  // namespace
+
+// #2c at the wide widths (conv_wide_plan's strips of S frames): x and out
+// [B, T, D] bf16, wpb = bf16(wp) [L, D, D], xs [L - 1, B, T, D] fp32 and
+// mask [L, B, T, D / 4] as the tiled bf16 forward writes them; d_ws [B, T,
+// D] bf16, the product's operand, reused by every layer.
+extern "C" int vsl_conv_block_fwd_wide_bf16(const void* x, const float* gam, const float* beta,
+                                            const float* dw, const void* wpb, const float* bp,
+                                            const float* seeds, unsigned thresh, float scale,
+                                            float* xs, void* mask, void* out, void* d_ws, int B,
+                                            int T, int D, int L, int K, int S, void* stream_) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (!wide_ok(B, T, D, L, K, S)) return static_cast<int>(cudaErrorInvalidValue);
+  const ConvParams p = make_params(gam, beta, dw, nullptr, bp, T, D, L, K);
+  const vsl::Dropout drop{seeds, thresh, scale};
+  const size_t layer = (size_t)B * T * D;
+  const int M = B * T;
+  bf16* d = static_cast<bf16*>(d_ws);
+  const bf16* wb = static_cast<const bf16*>(wpb);
+  uint8_t* mk = static_cast<uint8_t*>(mask);
+  const dim3 grid((T + S - 1) / S, B);
+  const size_t smem = wide_prologue_floats(D, K) * sizeof(float);
+  cudaError_t err = cudaSuccess;
+  for (int l = 0; l < L && err == cudaSuccess; ++l) {
+    const void* in = l == 0 ? x : static_cast<const void*>(xs + (l - 1) * layer);
+    void* o = l == L - 1 ? out : static_cast<void*>(xs + l * layer);
+    err = by_type(l == 0, [&](auto it) {
+      using XIn = typename decltype(it)::type;
+      const XIn* xin = static_cast<const XIn*>(in);
+      cudaError_t e = vsl::launch_opted(conv_wide_prologue_kernel<false, XIn, float>, grid,
+                                        kWideThreads, smem, stream, xin, p, l, S, d, nullptr,
+                                        drop, nullptr, nullptr, nullptr);
+      if (e != cudaSuccess) return e;
+      return by_type(l == L - 1, [&](auto ot) {
+        using XOut = typename decltype(ot)::type;
+        const ConvWideFwdEpi<XIn, XOut> epi{xin, static_cast<XOut*>(o),
+                                            mk + l * layer / 4, bp + (size_t)l * D, drop,
+                                            vsl::site_salt(0x100u + l), M, T, D};
+        return vsl::tc_gemm<false>(d, wb + (size_t)l * D * D, M, D, D, D, D, epi, stream);
+      });
+    });
+  }
+  return static_cast<int>(err);
+}
+
+// #9c at the wide widths, from the wide forward's xs and mask: x, g and dx
+// [B, T, D] bf16; wpb = bf16(wp) [L, D, D]; dsmall [L, 3 + K, D] (dgam,
+// dbeta, dbp, ddw) and dwp [L, D, D] fp32. Workspaces: d_ws, gp_ws [L, B,
+// T, D] bf16 (dwp's operands), gd_ws [B, T, D] fp32 (a layer's g_d), g_ws
+// [2, B, T, D] fp32 (the stream between the layers, as the tiled bf16
+// backward's), part [B * ceil(T / S), L, 3 + K, D], gemm_ws [L, splits, D,
+// D].
+extern "C" int vsl_conv_block_bwd_wide_bf16(const void* x, const float* xs, const void* mask,
+                                            const float* gam, const float* beta,
+                                            const float* dw, const void* wpb, const float* bp,
+                                            const float* seeds, unsigned thresh, float scale,
+                                            const void* g, void* dx, float* dsmall, float* dwp,
+                                            void* d_ws, void* gp_ws, float* gd_ws, float* g_ws,
+                                            float* part, float* gemm_ws, int splits, int B,
+                                            int T, int D, int L, int K, int S, void* stream_) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (!wide_ok(B, T, D, L, K, S)) return static_cast<int>(cudaErrorInvalidValue);
+  const ConvParams p = make_params(gam, beta, dw, nullptr, bp, T, D, L, K);
+  const vsl::Dropout drop{seeds, thresh, scale};
+  const size_t layer = (size_t)B * T * D;
+  const int M = B * T;
+  const bf16* wb = static_cast<const bf16*>(wpb);
+  const uint8_t* mk = static_cast<const uint8_t*>(mask);
+  bf16* d_all = static_cast<bf16*>(d_ws);
+  bf16* gp_all = static_cast<bf16*>(gp_ws);
+  const dim3 grid((T + S - 1) / S, B);
+  const size_t smem1 = wide_prologue_floats(D, K) * sizeof(float);
+  const size_t smem3 = wide_bwd_floats(D, K) * sizeof(float);
+  cudaError_t err = cudaSuccess;
+  for (int l = L - 1; l >= 0 && err == cudaSuccess; --l) {
+    const void* in = l == 0 ? x : static_cast<const void*>(xs + (l - 1) * layer);
+    const void* gin = l == L - 1 ? g : static_cast<const void*>(g_ws + ((l + 1) & 1) * layer);
+    void* gout = l == 0 ? dx : static_cast<void*>(g_ws + (l & 1) * layer);
+    bf16* d_l = d_all + l * layer;
+    bf16* gp_l = gp_all + l * layer;
+    err = by_type(l == 0, [&](auto it) {
+      using XIn = typename decltype(it)::type;
+      return by_type(l == L - 1, [&](auto gt) {
+        using GIn = typename decltype(gt)::type;
+        const XIn* xin = static_cast<const XIn*>(in);
+        const GIn* gi = static_cast<const GIn*>(gin);
+        cudaError_t e = vsl::launch_opted(conv_wide_prologue_kernel<true, XIn, GIn>, grid,
+                                          kWideThreads, smem1, stream, xin, p, l, S, d_l,
+                                          mk + l * layer / 4, drop, gi, gp_l, part);
+        if (e == cudaSuccess)
+          e = vsl::tc_gemm<true>(gp_l, wb + (size_t)l * D * D, M, D, D, D, D,
+                                 vsl::TcStoreRows{gd_ws, M, D}, stream);
+        if (e != cudaSuccess) return e;
+        return by_type(l == 0, [&](auto ot) {
+          using GOut = typename decltype(ot)::type;
+          return vsl::launch_opted(conv_wide_bwd_kernel<XIn, GIn, GOut>, grid, kWideThreads,
+                                   smem3, stream, xin, p, l, S,
+                                   static_cast<const float*>(gd_ws), gi,
+                                   static_cast<GOut*>(gout), part);
+        });
+      });
+    });
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = vsl::sum_partials(part, dsmall, 1, B * grid.x, L * (3 + K) * D, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(vsl::wgrad_tc(static_cast<const bf16*>(d_ws), gp_all, dwp, gemm_ws, L,
+                                        D, D, B * T, splits, stream));
+}

@@ -113,6 +113,7 @@
 
 #include "common.cuh"
 #include "hash.cuh"
+#include "mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -352,6 +353,22 @@ __host__ __device__ inline size_t attn_tile_floats(int T, int TQ, int hd) {
          T + 2 * (size_t)T * hd;
 }
 
+// Its bytes; with `half` (the bf16 body at head dim 128, kHalfRows) Ks,
+// Vs, Qs and Gs are bf16 rows of hd + 2 (ops/kernels.py
+// _mha_wide_attention_bytes).
+__host__ __device__ inline size_t attn_tile_bytes(int T, int TQ, int hd, bool half) {
+  if (!half) return attn_tile_floats(T, TQ, hd) * sizeof(float);
+  return 2 * (2 * (size_t)T * (hd + 2) + 2 * (size_t)TQ * (hd + 2)) +
+         4 * (2 * (size_t)TQ * (T + 1) + TQ + T + 2 * (size_t)T * hd);
+}
+
+// The bf16 body holds k, v, q * scale and g_att, all bf16 values, as bf16
+// at head dim 128: the fp32 rows and the cluster's dK, dV partials would
+// not fit a block's shared memory at T = 128 (297 KB at query tiles of
+// 16); bf16 rows of 130 values (65 words, an odd stride) do (223 KB).
+template <int HD, bool kBf16>
+constexpr bool kHalfRows = kBf16 && HD >= 128;
+
 // 2. the attention backward of one (row, head, query tile), in clusters of
 // ceil(T / TQ) CTAs a (row, head) along x, CTA r taking the query rows
 // [r TQ, min(T, (r + 1) TQ)). Reads q, k and v through base pointers and
@@ -379,13 +396,15 @@ attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
   const int r = static_cast<int>(cluster.block_rank());
   const int bh = static_cast<int>(blockIdx.x) / nq, b = bh / n_heads, h = bh - b * n_heads;
   const int t0 = r * TQ, nt = min(TQ, T - t0);
-  constexpr int LD = HD + 1;
+  constexpr bool kHalf = kHalfRows<HD, kBf16>;
+  using ST = std::conditional_t<kHalf, __nv_bfloat16, float>;  // Ks, Vs, Qs, Gs
+  constexpr int LD = kHalf ? HD + 2 : HD + 1;
   const int lds = T + 1;
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + (size_t)T * LD;
-  float* Qs = Vs + (size_t)T * LD;
-  float* Gs = Qs + (size_t)TQ * LD;
-  float* SP = Gs + (size_t)TQ * LD;
+  ST* Ks = reinterpret_cast<ST*>(smem4);
+  ST* Vs = Ks + (size_t)T * LD;
+  ST* Qs = Vs + (size_t)T * LD;
+  ST* Gs = Qs + (size_t)TQ * LD;
+  float* SP = reinterpret_cast<float*>(Gs + (size_t)TQ * LD);
   float* PD = SP + (size_t)TQ * lds;
   float* Dt = PD + (size_t)TQ * lds;
   float* neg = Dt + TQ;
@@ -402,13 +421,14 @@ attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
   // bytes: ld, D and h * HD are multiples of 4, the bases 16-byte aligned)
   constexpr int HD4 = HD / 4;
   using vsl::load4;
-  const auto store4 = [](float* dst, float4 v, float f) {
-    const auto rnd = [](float a) { return kBf16 ? vsl::bf16_round(a) : a; };
+  const auto store4 = [](ST* dst, float4 v, float f) {
+    const auto rnd = [](float a) { return vsl::from_float<ST>(kBf16 ? vsl::bf16_round(a) : a); };
     dst[0] = rnd(v.x * f);
     dst[1] = rnd(v.y * f);
     dst[2] = rnd(v.z * f);
     dst[3] = rnd(v.w * f);
   };
+  using vsl::to_float;
 #pragma unroll 4
   for (int i = tid; i < T * HD4; i += nth) {
     const int j = i / HD4, d = (i - j * HD4) * 4;
@@ -444,8 +464,8 @@ attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
   __syncthreads();
   // S = (q * scale).k^T + neg, the forward's scores bit for bit
   tile_product<4, 4>(
-      nt, T, HD, [&](int m, int k) { return Qs[m * LD + k]; },
-      [&](int k, int n) { return Ks[n * LD + k]; },
+      nt, T, HD, [&](int m, int k) { return to_float(Qs[m * LD + k]); },
+      [&](int k, int n) { return to_float(Ks[n * LD + k]); },
       [&](int m, int n, float v) { SP[(size_t)m * lds + n] = v + neg[n]; });
   __syncthreads();
   // P and drop(P), one warp a query row, the keep bits hashed once a (t, j)
@@ -476,15 +496,15 @@ attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
         const float pd = PD[(size_t)t * lds + j];
         return kBf16 ? vsl::bf16_round(pd) : pd;
       },
-      [&](int t, int d) { return Gs[t * LD + d]; },
+      [&](int t, int d) { return to_float(Gs[t * LD + d]); },
       [&](int j, int d, float v) { dVp[j * HD + d] = v; });
   if constexpr (!kBf16) {
     // dS = P * (drop(G.V^T) - D_t), in place: each element has one owner.
     // Where P > 0, drop(P) > 0 exactly where the key is kept; where P = 0,
     // dS = 0 whatever the keep.
     tile_product<4, 4>(
-        nt, T, HD, [&](int m, int k) { return Gs[m * LD + k]; },
-        [&](int k, int n) { return Vs[n * LD + k]; },
+        nt, T, HD, [&](int m, int k) { return to_float(Gs[m * LD + k]); },
+        [&](int k, int n) { return to_float(Vs[n * LD + k]); },
         [&](int t, int j, float dp) {
           float* sp = SP + (size_t)t * lds + j;
           const float dpd = PD[(size_t)t * lds + j] != 0.f ? drop.kept(dp) : 0.f;
@@ -494,8 +514,8 @@ attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
     __syncthreads();  // drop(P) read by dV before dP takes its place
     // dP = drop(G.V^T) into PD, in place
     tile_product<4, 4>(
-        nt, T, HD, [&](int m, int k) { return Gs[m * LD + k]; },
-        [&](int k, int n) { return Vs[n * LD + k]; },
+        nt, T, HD, [&](int m, int k) { return to_float(Gs[m * LD + k]); },
+        [&](int k, int n) { return to_float(Vs[n * LD + k]); },
         [&](int t, int j, float dp) {
           float* pd = PD + (size_t)t * lds + j;
           *pd = *pd != 0.f ? drop.kept(dp) : 0.f;
@@ -516,7 +536,7 @@ attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
   // more rounds of the CTA's threads (each element is one chain over the
   // keys either way)
   const auto ds_tj = [&](int t, int j) { return SP[(size_t)t * lds + j]; };
-  const auto k_jd = [&](int j, int d) { return Ks[j * LD + d]; };
+  const auto k_jd = [&](int j, int d) { return to_float(Ks[j * LD + d]); };
   const auto dq_out = [&](int t, int d, float v) {
     dqp[ob + (size_t)(t0 + t) * ldd + d] = vsl::from_float<OT>(v * scale);
   };
@@ -528,7 +548,7 @@ attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
   // this CTA's dK = dS^T . (q * scale) over its query rows
   tile_product<4, 2>(
       T, HD, nt, [&](int j, int t) { return SP[(size_t)t * lds + j]; },
-      [&](int t, int d) { return Qs[t * LD + d]; },
+      [&](int t, int d) { return to_float(Qs[t * LD + d]); },
       [&](int j, int d, float v) { dKp[j * HD + d] = v; });
   cluster.sync();  // every CTA's partials
   // dK, dV of the key rows [t0, t0 + nt): the cluster's partials, all read
@@ -568,7 +588,7 @@ cudaError_t launch_attention_bwd_tiles(const IT* q, const IT* k, const IT* v, in
                                        int ldd, int B, int T, int D, int n_heads, int TQ,
                                        int threads, cudaStream_t stream) {
   const int nq = (T + TQ - 1) / TQ;
-  const size_t smem = attn_tile_floats(T, TQ, HD) * sizeof(float);
+  const size_t smem = attn_tile_bytes(T, TQ, HD, kHalfRows<HD, kBf16>);
   const float scale = kBf16 ? vsl::bf16_round_host(vsl::head_scale(HD)) : vsl::head_scale(HD);
   const cudaError_t err = vsl::launch_cluster(
       attn_bwd_cluster_kernel<HD, kBf16, IT, OT>, B * n_heads * nq, nq, threads, smem, stream, q, k, v,
@@ -1030,4 +1050,320 @@ extern "C" int vsl_mha_bwd_bf16(const void* q, const void* k, const void* v, con
         static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), D, B, T, D,
         n_heads, TQ, threads, stream);
   }));
+}
+
+namespace {
+
+// --- the bf16 block at head dim 128 (wide) ------------------------------------
+// #3b and #10b at the JAX bench's `saturated` widths (D = 1024 in 8 heads of
+// 128; ops/kernels.py mha_wide_plan). The per-frame launches above keep a
+// tile's rows and two weight slices in shared memory: at D = 1024 they fit
+// 8 frames only with slices of <= 8 rows, and each of B T / 8 CTAs would
+// re-read the 6 MB of bf16 weights. So the per-frame launches split at
+// their products: the LayerNorms, dropouts, residuals and column sums run
+// on warps a frame (the forward) or on strips of S frames a row walked in
+// sub-tiles of kWideFrames frames (the backward), and the four products
+// [B T, D] x [D, 3D], [B T, D] x [D, D] and their transposes run over
+// every frame at once on mma.cuh's tc_gemm, the bias, rounding, dropout
+// and residual epilogues fused into them. The attention is the block's own
+// bodies at HD = 128 (attn_fwd_tile_kernel, attn_bwd_cluster_kernel with
+// kHalfRows). The function, with each rounding point, is the bf16 block's
+// (vsl_mha_block_fwd_bf16 / _bwd_bf16 above): y, q, k, v, bf16(q scale),
+// drop(p), z rounded; the bias gradients of the unrounded gradients, the
+// products and dwd, dwqkv of the rounded ones; qkv and att as the bf16
+// forward saves them. What bounds them: the products, 2 B T D 4D FLOPs
+// forward and twice that backward plus the weight gradients, on the
+// tensor cores, and the attention's 4 T^2 hd FLOPs a (row, head) forward
+// (10 backward), fp32 products out of shared memory.
+using vsl::kWideFrames;
+using vsl::kWideThreads;
+constexpr int kLnRows = 8;         // frames a CTA of the forward's LayerNorm launch, one a warp
+
+// The backward's per-frame launches' shared memory in floats: XH, G [F][D],
+// ACC, SCR [2][D], inv [F] (ops/kernels.py mha_wide_plan reports it).
+__host__ __device__ inline size_t wide_tile_floats(int D) {
+  return (size_t)(2 * kWideFrames + 4) * D + kWideFrames;
+}
+
+// Out [B T, D] = bf16(drop_site(LN(src))) with src = x (kRes false: LN1,
+// site 0x200) or drop201(att) + x (kRes: LN2, site 0x202), one warp a
+// frame, its row staged in shared memory (kLnRows rows of D floats): the
+// LayerNorm of layer_norm_rows, so y and z are the per-frame launches'.
+template <typename XT, bool kRes>
+__global__ void __launch_bounds__(32 * kLnRows)
+wide_ln_kernel(const XT* __restrict__ x, const float* __restrict__ att,
+               const float* __restrict__ gam, const float* __restrict__ beta, vsl::Dropout drop,
+               __nv_bfloat16* __restrict__ out, int M, int T, int D) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m = blockIdx.x * kLnRows + warp;
+  if (m >= M) return;  // no block barrier below
+  float* r = reinterpret_cast<float*>(smem4) + (size_t)warp * D;
+  const int b = m / T, t = m - b * T;
+  const uint32_t seed = drop.seed(b);
+  const size_t o = (size_t)m * D;
+  float s = 0.f;
+  for (int c = lane; c < D; c += 32) {
+    float v = vsl::to_float(x[o + c]);
+    if (kRes) v = drop.apply(att[o + c], seed, vsl::site_salt(0x201u), t, c) + v;
+    r[c] = v;
+    s += v;
+  }
+  const float mean = vsl::warp_sum(s) / D;
+  float var = 0.f;
+  for (int c = lane; c < D; c += 32) {
+    const float d = r[c] - mean;
+    var += d * d;
+  }
+  const float inv = rsqrtf(vsl::warp_sum(var) / D + vsl::kLnEps);
+  const uint32_t salt = vsl::site_salt(kRes ? 0x202u : 0x200u);
+  for (int c = lane; c < D; c += 32) {
+    const float n = (r[c] - mean) * inv * __ldg(gam + c) + __ldg(beta + c);
+    out[o + c] = __float2bfloat16(drop.apply(n, seed, salt, t, c));
+  }
+}
+
+// qkv = bf16(y . bf16(Wqkv) + bqkv), the fp32 buffer the backward reads.
+struct QkvEpi {
+  float* qkv;
+  const float* bqkv;
+  int M, N;
+  __device__ void operator()(int m, int n, float v0, float v1) const {
+    if (m >= M) return;
+    *reinterpret_cast<float2*>(qkv + (size_t)m * N + n) = make_float2(
+        vsl::bf16_round(v0 + __ldg(bqkv + n)), vsl::bf16_round(v1 + __ldg(bqkv + n + 1)));
+  }
+};
+
+// out = drop203(z . bf16(Wd) + bd) + R, R = drop201(att) + x.
+template <typename XT>
+struct DenseEpi {
+  const XT* x;
+  const float* att;
+  const float* bd;
+  XT* out;
+  vsl::Dropout drop;
+  int M, T, D;
+  __device__ void operator()(int m, int n, float v0, float v1) const {
+    if (m >= M) return;
+    const int b = m / T, t = m - b * T;
+    const uint32_t seed = drop.seed(b);
+    const uint32_t s201 = vsl::site_salt(0x201u), s203 = vsl::site_salt(0x203u);
+    const size_t i = (size_t)m * D + n;
+    const float v[2] = {v0, v1};
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float res = drop.apply(att[i + q], seed, s201, t, n + q) + vsl::to_float(x[i + q]);
+      const float o = drop.apply(v[q] + __ldg(bd + n + q), seed, s203, t, n + q);
+      out[i + q] = vsl::from_float<XT>(o + res);
+    }
+  }
+};
+
+// out [B T, N] = bf16(v), v = drop_site(src) (site 0: none), and the column
+// sums of the unrounded v over the strip [s0, s0 + S) of row b into part's
+// slot [off, off + N) of [B * strips, 8D]: g_dpre and dbd (src g, site
+// 0x203), dqkv's rounding and dbqkv (src dqkv, no site).
+template <typename ST>
+__global__ void __launch_bounds__(kWideThreads)
+wide_round_sums_kernel(const ST* __restrict__ src, vsl::Dropout drop, uint32_t site,
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ part, int off, int T,
+                       int D, int N, int S) {
+  const int b = blockIdx.y, s0 = blockIdx.x * S, s1 = min(T, s0 + S);
+  const uint32_t seed = drop.seed(b), salt = vsl::site_salt(site);
+  float* pr = part + ((size_t)b * gridDim.x + blockIdx.x) * 8 * D + off;
+  for (int c = threadIdx.x; c < N; c += blockDim.x) {
+    float s = 0.f;
+    for (int t = s0; t < s1; ++t) {
+      const size_t i = ((size_t)b * T + t) * N + c;
+      float v = vsl::to_float(src[i]);
+      if (site) v = drop.apply(v, seed, salt, t, c);
+      s += v;
+      out[i] = __float2bfloat16(v);
+    }
+    pr[c] = s;
+  }
+}
+
+// 1. after g_z = bf16(g_dpre) . bf16(Wd)^T (gz [B T, D]): the LN2 backward
+// (dgam2, dbeta2 over the strip), g_res = g + the LN2 path, g_att =
+// drop201(g_res), z = bf16(drop202(LN2(res))) for dwd; a strip of S frames
+// of row b in sub-tiles of kWideFrames. 3. (kQkv) after g_y = bf16(dqkv) .
+// bf16(Wqkv)^T (gz holds g_y): the LN1 backward (dgam1, dbeta1), dx =
+// bf16(g_res + the LN1 path), y = bf16(drop200(LN1(x))) for dwqkv.
+template <typename XT, bool kQkv>
+__global__ void __launch_bounds__(kWideThreads, 1)
+wide_ln_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ att,
+                   const float* __restrict__ gam, const float* __restrict__ beta,
+                   vsl::Dropout drop, const XT* __restrict__ g, const float* __restrict__ gz,
+                   float* __restrict__ gres, float* __restrict__ gatt,
+                   __nv_bfloat16* __restrict__ zy, XT* __restrict__ dx,
+                   float* __restrict__ part, int T, int D, int S) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.y, s0 = blockIdx.x * S, s1 = min(T, s0 + S);
+  const size_t FD = (size_t)kWideFrames * D;
+  float* XH = reinterpret_cast<float*>(smem4);
+  float* G = XH + FD;
+  float* ACC = G + FD;  // dgam, dbeta of the strip
+  float* SCR = ACC + 2 * (size_t)D;
+  float* inv = SCR + 2 * (size_t)D;
+  const uint32_t seed = drop.seed(b);
+  const uint32_t s200 = vsl::site_salt(0x200u), s201 = vsl::site_salt(0x201u),
+                 s202 = vsl::site_salt(0x202u);
+  const uint32_t sln = kQkv ? s200 : s202;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int c = tid; c < 2 * D; c += nt) ACC[c] = 0.f;
+  for (int t0 = s0; t0 < s1; t0 += kWideFrames) {
+    const int nf = min(kWideFrames, s1 - t0), nel = nf * D;
+    const size_t tile = ((size_t)b * T + t0) * D;
+    if constexpr (kQkv) {
+      vsl::ln_normalize_rows(x + tile, XH, inv, nf, D);
+    } else {
+      for (int i = tid; i < nel; i += nt)
+        XH[i] = drop.apply(att[tile + i], seed, s201, t0 + i / D, i % D) +
+                vsl::to_float(x[tile + i]);
+      __syncthreads();
+      vsl::ln_normalize_rows(XH, XH, inv, nf, D);
+    }
+    for (int i = tid; i < nel; i += nt)
+      G[i] = drop.apply(gz[tile + i], seed, sln, t0 + i / D, i % D);
+    __syncthreads();
+    for (int i = tid; i < nel; i += nt) {
+      const int c = i % D;
+      const float n = XH[i] * __ldg(gam + c) + __ldg(beta + c);
+      const float v = drop.apply(n, seed, sln, t0 + i / D, c);
+      zy[tile + i] = __float2bfloat16(v);
+    }
+    vsl::ln_backward_rows(G, XH, inv, gam, nf, D, SCR, SCR + D, [&](int t, int c, float v) {
+      const size_t i = tile + (size_t)t * D + c;
+      if constexpr (kQkv) {
+        dx[i] = vsl::from_float<XT>(gres[i] + v);
+      } else {
+        const float gr = vsl::to_float(g[i]) + v;
+        gres[i] = gr;
+        gatt[i] = drop.apply(gr, seed, s201, t0 + t, c);
+      }
+    });
+    for (int c = tid; c < D; c += nt) {  // this thread's columns of SCR
+      ACC[c] += SCR[c];
+      ACC[D + c] += SCR[D + c];
+    }
+    __syncthreads();  // XH and G read before the next sub-tile's rows land
+  }
+  float* pr = part + ((size_t)b * gridDim.x + blockIdx.x) * 8 * D;
+  for (int c = tid; c < D; c += nt) {  // dgam [2D], dbeta [2D]: LN1 first
+    pr[(kQkv ? 0 : D) + c] = ACC[c];
+    pr[(kQkv ? 2 * D : 3 * D) + c] = ACC[D + c];
+  }
+}
+
+bool wide_ok(int B, int T, int D, int n_heads, int S, int TQ) {
+  return B >= 1 && T >= 1 && n_heads >= 1 && D == 128 * n_heads && D % vsl::kTcGemmN == 0 &&
+         S >= 1 && S % kWideFrames == 0 && TQ >= 1 && (T + TQ - 1) / TQ <= kMaxCluster;
+}
+
+}  // namespace
+
+// #3b at head dim 128 (mha_wide_plan): x and out [B, T, D] bf16; wqkvb =
+// bf16(Wqkv) [D, 3D], wdb = bf16(Wd) [D, D]; qkv [B, T, 3D] (bf16-rounded
+// values) and att [B, T, D] fp32 as the bf16 forward saves them; y_ws [B,
+// T, D] bf16, the products' operand (y, then z). TQ: the attention's query
+// tile.
+extern "C" int vsl_mha_block_fwd_wide_bf16(const void* x_, const float* mask, const float* gam,
+                                           const float* beta, const void* wqkvb,
+                                           const float* bqkv, const void* wdb, const float* bd,
+                                           const float* seeds, unsigned thresh, float scale,
+                                           float* qkv, float* att, void* out_, void* y_ws, int B,
+                                           int T, int D, int n_heads, int TQ, void* stream_) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (!wide_ok(B, T, D, n_heads, kWideFrames, TQ)) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* x = static_cast<const bf16*>(x_);
+  bf16* out = static_cast<bf16*>(out_);
+  bf16* y = static_cast<bf16*>(y_ws);
+  const vsl::Dropout drop{seeds, thresh, scale};
+  const int M = B * T;
+  const dim3 ln_grid((M + kLnRows - 1) / kLnRows);
+  const size_t ln_smem = (size_t)kLnRows * D * sizeof(float);
+  cudaError_t err = vsl::launch_opted(wide_ln_kernel<bf16, false>, ln_grid, 32 * kLnRows,
+                                      ln_smem, stream, x, static_cast<const float*>(nullptr), gam,
+                                      beta, drop, y, M, T, D);
+  if (err == cudaSuccess)
+    err = vsl::tc_gemm<false>(y, static_cast<const bf16*>(wqkvb), M, 3 * D, D, D, 3 * D,
+                              QkvEpi{qkv, bqkv, M, 3 * D}, stream);
+  if (err == cudaSuccess)
+    err = launch_attention_tiles<128, true>(qkv, qkv + D, qkv + 2 * D, 3 * D, mask, drop, att, D,
+                                            B, T, n_heads, TQ, stream);
+  if (err == cudaSuccess)
+    err = vsl::launch_opted(wide_ln_kernel<bf16, true>, ln_grid, 32 * kLnRows, ln_smem, stream,
+                            x, static_cast<const float*>(att), gam + D, beta + D, drop, y, M, T,
+                            D);
+  if (err == cudaSuccess)
+    err = vsl::tc_gemm<false>(y, static_cast<const bf16*>(wdb), M, D, D, D, D,
+                              DenseEpi<bf16>{x, att, bd, out, drop, M, T, D}, stream);
+  return static_cast<int>(err);
+}
+
+// #10b at head dim 128, from the wide forward's qkv and att: x, g and dx
+// [B, T, D] bf16; wqkvb, wdb as the forward's; dsmall [8D] (dgam [2, D],
+// dbeta [2, D], dbqkv [3D], dbd [D]), dwqkv [D, 3D], dwd [D, D] fp32.
+// Workspaces: gdt, z, y [B, T, D] bf16 (bf16(g_dpre), and dwd's and
+// dwqkv's operands); gz [B, T, D] fp32 (g_z, then g_y); gres, gatt [B, T,
+// D] fp32; dqkv [B, T, 3D] fp32 and dqkvt its bf16 rounding; part [B *
+// ceil(T / S), 8D]; gemm_ws [splits, D, 3D]. Strips of S frames, query
+// tiles of TQ rows (ceil(T / TQ) <= 8).
+extern "C" int vsl_mha_block_bwd_wide_bf16(
+    const void* x_, const float* mask, const float* gam, const float* beta, const void* wqkvb,
+    const void* wdb, const float* seeds, unsigned thresh, float scale, const float* qkv,
+    const float* att, const void* g_, void* dx_, float* dsmall, float* dwqkv, float* dwd,
+    void* gdt_, float* gz, void* z_, float* gres, float* gatt, float* dqkv, void* dqkvt_,
+    void* y_, float* part, float* gemm_ws, int splits, int B, int T, int D, int n_heads, int S,
+    int TQ, void* stream_) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (!wide_ok(B, T, D, n_heads, S, TQ)) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* x = static_cast<const bf16*>(x_);
+  const bf16* g = static_cast<const bf16*>(g_);
+  bf16* dx = static_cast<bf16*>(dx_);
+  bf16 *gdt = static_cast<bf16*>(gdt_), *z = static_cast<bf16*>(z_), *y = static_cast<bf16*>(y_);
+  bf16* dqkvt = static_cast<bf16*>(dqkvt_);
+  const vsl::Dropout drop{seeds, thresh, scale};
+  const int M = B * T;
+  const dim3 grid((T + S - 1) / S, B);
+  const size_t smem = wide_tile_floats(D) * sizeof(float);
+  // 1. g_dpre = drop203(g) rounded, dbd; g_z; the LN2 backward
+  cudaError_t err = vsl::launch_opted(wide_round_sums_kernel<bf16>, grid, kWideThreads, 0,
+                                      stream, g, drop, 0x203u, gdt, part, 7 * D, T, D, D, S);
+  if (err == cudaSuccess)
+    err = vsl::tc_gemm<true>(gdt, static_cast<const bf16*>(wdb), M, D, D, D, D,
+                             vsl::TcStoreRows{gz, M, D}, stream);
+  if (err == cudaSuccess)
+    err = vsl::launch_opted(wide_ln_bwd_kernel<bf16, false>, grid, kWideThreads, smem, stream,
+                            x, att, gam + D, beta + D, drop, g, static_cast<const float*>(gz),
+                            gres, gatt, z, static_cast<bf16*>(nullptr), part, T, D, S);
+  // 2. the attention backward into dqkv
+  if (err == cudaSuccess)
+    err = launch_attention_bwd_tiles<128, true>(qkv, qkv + D, qkv + 2 * D, 3 * D, mask, drop, att,
+                                                static_cast<const float*>(gatt), dqkv, dqkv + D,
+                                                dqkv + 2 * D, 3 * D, B, T, D, n_heads, TQ,
+                                                kThreads, stream);
+  // 3. dqkv rounded, dbqkv; g_y; the LN1 backward
+  if (err == cudaSuccess)
+    err = vsl::launch_opted(wide_round_sums_kernel<float>, grid, kWideThreads, 0, stream,
+                            static_cast<const float*>(dqkv), drop, 0u, dqkvt, part, 4 * D, T, D,
+                            3 * D, S);
+  if (err == cudaSuccess)
+    err = vsl::tc_gemm<true>(dqkvt, static_cast<const bf16*>(wqkvb), M, D, 3 * D, 3 * D, 3 * D,
+                             vsl::TcStoreRows{gz, M, D}, stream);
+  if (err == cudaSuccess)
+    err = vsl::launch_opted(wide_ln_bwd_kernel<bf16, true>, grid, kWideThreads, smem, stream, x,
+                            att, gam, beta, drop, g, static_cast<const float*>(gz), gres, gatt,
+                            y, dx, part, T, D, S);
+  if (err == cudaSuccess) err = vsl::sum_partials(part, dsmall, 1, B * grid.x, 8 * D, stream);
+  if (err == cudaSuccess)
+    err = vsl::wgrad_tc(static_cast<const bf16*>(z), gdt, dwd, gemm_ws, 1, D, D, M, splits, stream);
+  if (err == cudaSuccess)
+    err = vsl::wgrad_tc(static_cast<const bf16*>(y), dqkvt, dwqkv, gemm_ws, 1, D, 3 * D, M, splits,
+                        stream);
+  return static_cast<int>(err);
 }

@@ -345,4 +345,167 @@ cudaError_t wgrad_tc(const TA* A, const __nv_bfloat16* B, float* C, float* P, in
   return sum_partials(P, C, Z, S, M * N, stream);
 }
 
+// --- bf16 products of the wide block kernels on the tensor cores ------------
+// C = A . B for A [M, K] bf16 row-major (row stride lda) and B [K, N] bf16
+// row-major (row stride ldb), or with kBT B^T given as [N, K] row-major (a
+// product with a weight's transpose, W [N, K] read as it is stored), bf16
+// operands and fp32 sums: the TPU kernels' `jnp.dot` of bf16 values with
+// preferred_element_type fp32. A block takes a 128 x 128 tile of C with 8
+// warps of 64 x 32 (4 x 4 fragments each), K in steps of 32 through a ring
+// of kTcGemmStages stages that 16-byte cp.async fills (rows of A past M
+// read as zeros); each k16 product starts from zero and is added to the
+// sums by fp32 adds (mma_ab's kAdd). Each pair of neighbouring outputs
+// goes to epi(m, n, c_mn, c_m(n+1)) (n even), for every row m of the tile,
+// m >= M included, so that an epilogue's lanes stay converged for a warp
+// shuffle: epi ignores m >= M. Needs N % 128 == 0, K % 32 == 0, lda and
+// ldb multiples of 8, A and B 16-byte aligned (tc_gemm_ok).
+constexpr int kTcGemmM = 128;
+constexpr int kTcGemmN = 128;
+constexpr int kTcGemmK = 32;
+constexpr int kTcGemmStages = 3;
+constexpr int kTcGemmThreads = 256;
+constexpr int kTcGemmKStride = tc_stride(kTcGemmK);   // rows of 32 k values
+constexpr int kTcGemmNStride = tc_stride(kTcGemmN);   // rows of 128 n values
+
+// The ring's bytes: a stage holds A's [128][32] and B's [32][128] (or with
+// kBT [128][32]) at the strides above.
+template <bool kBT>
+constexpr size_t tc_gemm_smem_bytes() {
+  return (size_t)kTcGemmStages * 2 *
+         (kTcGemmM * kTcGemmKStride + (kBT ? kTcGemmN * kTcGemmKStride
+                                           : kTcGemmK * kTcGemmNStride));
+}
+
+inline bool tc_gemm_ok(int M, int N, int K, int lda, int ldb) {
+  return M >= 1 && N >= kTcGemmN && N % kTcGemmN == 0 && K >= kTcGemmK && K % kTcGemmK == 0 &&
+         lda % 8 == 0 && ldb % 8 == 0;
+}
+
+namespace {  // internal linkage: every .cu that includes this gets its own
+
+// 16 bytes from src to shared dst by cp.async, zeros where !on (src not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool on) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(on ? 16 : 0)
+               : "memory");
+}
+
+template <bool kBT, typename Epi>
+__global__ void __launch_bounds__(kTcGemmThreads)
+tc_gemm_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B, int M,
+               int K, int lda, int ldb, Epi epi) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ float4 smem4[];
+  constexpr int kAElems = kTcGemmM * kTcGemmKStride;
+  constexpr int kBElems = kBT ? kTcGemmN * kTcGemmKStride : kTcGemmK * kTcGemmNStride;
+  bf16* As = reinterpret_cast<bf16*>(smem4);
+  bf16* Bs = As + kTcGemmStages * kAElems;
+  const int m0 = blockIdx.y * kTcGemmM, n0 = blockIdx.x * kTcGemmN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = 64 * (warp >> 2), wn = 32 * (warp & 3);
+  // a stage: 512 chunks of 16 bytes of each operand, two a thread
+  const auto load = [&](int kt, int slot) {
+    const int k0 = kt * kTcGemmK;
+    bf16* as = As + slot * kAElems;
+    bf16* bs = Bs + slot * kBElems;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = tid + h * kTcGemmThreads;
+      const int r = i >> 2, c = (i & 3) * 8;  // A: row r of 128, chunk c of 32
+      const int m = m0 + r;
+      cp_async16(as + r * kTcGemmKStride + c, A + (size_t)min(m, M - 1) * lda + k0 + c, m < M);
+      if constexpr (kBT) {  // B^T rows: n r, k chunk c
+        cp_async16(bs + r * kTcGemmKStride + c, B + (size_t)(n0 + r) * ldb + k0 + c, true);
+      } else {  // B rows: k i / 16, n chunk (i % 16) * 8
+        const int kr = i >> 4, nc = (i & 15) * 8;
+        cp_async16(bs + kr * kTcGemmNStride + nc, B + (size_t)(k0 + kr) * ldb + n0 + nc, true);
+      }
+    }
+  };
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int KT = K / kTcGemmK;
+#pragma unroll
+  for (int s = 0; s + 1 < kTcGemmStages; ++s) {
+    if (s < KT) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kTcGemmStages - 2>();
+    __syncthreads();  // stage kt landed for every thread; stage kt - 1 read by every warp
+    const int next = kt + kTcGemmStages - 1;
+    if (next < KT) load(next, next % kTcGemmStages);
+    cp_async_commit();
+    const bf16* as = As + (kt % kTcGemmStages) * kAElems;
+    const bf16* bs = Bs + (kt % kTcGemmStages) * kBElems;
+#pragma unroll
+    for (int ks = 0; ks < kTcGemmK / 16; ++ks) {
+      uint32_t a[4][4], b[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldsm_x4(a[i],
+                as + (wm + 16 * i + (lane & 15)) * kTcGemmKStride + 16 * ks + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        uint32_t r[4];
+        if constexpr (kBT)
+          ldsm_x4(r, bs + (wn + 8 * j + (lane & 7) + ((lane >> 4) << 3)) * kTcGemmKStride +
+                         16 * ks + ((lane >> 3) & 1) * 8);
+        else
+          ldsm_x4_trans(r, bs + (16 * ks + (lane & 15)) * kTcGemmNStride + wn +
+                               8 * (j + (lane >> 4)));
+        b[j][0] = r[0];
+        b[j][1] = r[1];
+        b[j + 1][0] = r[2];
+        b[j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
+          mma16(t, a[i], b[j][0], b[j][1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
+        }
+    }
+  }
+  cp_async_wait<0>();
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        epi(m0 + wm + 16 * i + g + 8 * h, n0 + wn + 8 * j + 2 * tq, acc[i][j][2 * h],
+            acc[i][j][2 * h + 1]);
+}
+
+}  // namespace
+
+// tc_gemm's epilogue that stores C's rows below M as they are, fp32.
+struct TcStoreRows {
+  float* out;
+  int M, N;
+  __device__ void operator()(int m, int n, float v0, float v1) const {
+    if (m < M) *reinterpret_cast<float2*>(out + (size_t)m * N + n) = make_float2(v0, v1);
+  }
+};
+
+// The launch of tc_gemm_kernel over C [M, N].
+template <bool kBT, typename Epi>
+cudaError_t tc_gemm(const __nv_bfloat16* A, const __nv_bfloat16* B, int M, int N, int K, int lda,
+                    int ldb, Epi epi, cudaStream_t stream) {
+  if (!tc_gemm_ok(M, N, K, lda, ldb)) return cudaErrorInvalidValue;
+  return launch_opted(tc_gemm_kernel<kBT, Epi>, dim3(N / kTcGemmN, (M + kTcGemmM - 1) / kTcGemmM),
+                      kTcGemmThreads, tc_gemm_smem_bytes<kBT>(), stream, A, B, M, K, lda, ldb,
+                      epi);
+}
+
 }  // namespace vsl

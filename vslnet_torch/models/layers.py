@@ -244,7 +244,7 @@ class ConvBlock(nn.Module):
         params = self.stacked_params()
         L, K, D = params[2].shape
         if self.use_kernels and kernels.conv_kernel_fits(
-                x.shape[1], D, K, L, kernels.grad_wanted(x, *params)):
+                x.shape[1], D, K, L, kernels.grad_wanted(x, *params), x.dtype):
             return kernels.fused_conv_block(x.contiguous(), *params,
                                             seeds=seeds, drop_rate=rate)
         return kernels.conv_block_plain(x, *params, seeds=seeds,
@@ -305,7 +305,8 @@ class MultiHeadAttentionBlock(nn.Module):
         kw = {"seeds": draw_seeds(generator, x.shape[0], rate),
               "drop_rate": rate}
         if self.use_kernels and kernels.mha_kernel_fits(
-                x.shape[1], x.shape[2], self.num_heads):
+                x.shape[1], x.shape[2], self.num_heads, x.dtype,
+                kernels.grad_wanted(x, *args[1:7])):
             return kernels.fused_mha_block(x.contiguous(), *args, **kw)
         return kernels.mha_block_plain(x, *args, **kw,
                                        residual_dtype=self.dtype)

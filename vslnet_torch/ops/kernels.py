@@ -14,7 +14,8 @@ gates each Pallas kernel on its `*_fits` predicate. The LSTM
 recurrence, the conv block, the MHA block and attention have backward
 kernels too: on the card their wrappers go through a
 `torch.autograd.Function` (`FusedLSTMRecurrence`, `FusedConvBlock`,
-`FusedConvBlockTiled`, `FusedMHABlock`, `FusedMHA`, `FusedFlashMHA`), on
+`FusedConvBlockTiled`, `FusedConvBlockWide`, `FusedMHABlock`, `FusedMHA`,
+`FusedFlashMHA`), on
 the CPU through torch's autograd of the plain versions (at bf16 through
 their plain twins' Functions, below). The `launch_*`
 functions are the kernels alone, for CUDA tensors only: the autograd
@@ -26,7 +27,12 @@ whole-row conv block kernels for rows shorter than the measured crossovers
 (24 frames when serving, 48 when training) and the T-tiled ones above;
 the MHA block kernels up to T = 145 at D = 128, above that the block's
 PyTorch ops around `fused_mha`, whose whole-T kernels take T up to 209 at
-head dim 16 and its flash kernels any longer T.
+head dim 16 and its flash kernels any longer T. At bf16 the conv block at
+D = 896 and 1024 and the MHA block at head dim 128 (the JAX bench's
+`saturated` widths), which no earlier kernel took, take the wide kernels
+(sections 2c and 3c: each layer split at its products, which run over
+every frame at once on the tensor cores); at fp32 those shapes stay on
+the plain versions.
 
 bf16 (`precision=bf16`): the LSTM recurrence, the conv block (both forms),
 the MHA block and attention at any T (whole-T and flash) have bf16 kernels
@@ -101,7 +107,9 @@ LAUNCHES = {"lstm_recurrence_fwd": 0, "lstm_recurrence_fwd_res": 0,
             "lstm_recurrence_fwd_res_bf16": 0, "lstm_recurrence_bwd_bf16": 0,
             "conv_block_bwd_bf16": 0, "conv_block_bwd_tiled_bf16": 0,
             "mha_block_bwd_bf16": 0, "mha_fwd_bf16": 0, "mha_bwd_bf16": 0,
-            "flash_mha_fwd_bf16": 0, "flash_mha_bwd_bf16": 0}
+            "flash_mha_fwd_bf16": 0, "flash_mha_bwd_bf16": 0,
+            "conv_block_fwd_wide_bf16": 0, "conv_block_bwd_wide_bf16": 0,
+            "mha_block_fwd_wide_bf16": 0, "mha_block_bwd_wide_bf16": 0}
 # the kernels with a bf16 entry point: a wrapper given bf16 activations
 # launches `<name>_bf16`
 _BF16_KERNELS = ("lstm_recurrence_fwd", "conv_block_fwd",
@@ -154,6 +162,14 @@ _SIGNATURES["vsl_conv_block_fwd_tiled_bf16"] = [_P] * 7 + _DROP + [_P] * 3 + [_I
 _SIGNATURES["vsl_conv_block_bwd_tiled_bf16"] = [_P] * 9 + _DROP + [_P] * 9 + [_I] * 8 + [_P]
 # the bf16 flash forward takes no query rows a thread
 _SIGNATURES["vsl_flash_mha_fwd_bf16"] = [_P] * 5 + _DROP + [_P] * 2 + [_I] * 4 + [_P]
+# the wide forms of #2c, #9c, #3b and #10b (bf16 only; bf16 weights in
+# place of the fp32 ones, and the workspaces of their split products)
+_SIGNATURES.update({
+    "vsl_conv_block_fwd_wide_bf16": [_P] * 7 + _DROP + [_P] * 4 + [_I] * 6 + [_P],
+    "vsl_conv_block_bwd_wide_bf16": [_P] * 9 + _DROP + [_P] * 10 + [_I] * 7 + [_P],
+    "vsl_mha_block_fwd_wide_bf16": [_P] * 9 + _DROP + [_P] * 4 + [_I] * 5 + [_P],
+    "vsl_mha_block_bwd_wide_bf16": [_P] * 7 + _DROP + [_P] * 17 + [_I] * 7 + [_P],
+})
 
 
 def _nvcc():
@@ -1121,11 +1137,14 @@ def fused_conv_block(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
             return PlainConvBlock.apply(*args)
         return conv_block_plain(x, gam, beta, dw, wp, bp, seeds, drop_rate)
     L, K, _ = dw.shape
-    block = conv_route(*x.shape[1:], K, L, grad) == "block"
+    route = conv_route(*x.shape[1:], K, L, grad, x.dtype)
     if not grad:
-        return (launch_conv_block_fwd(*args) if block
-                else launch_conv_block_fwd_tiled(*args)[0])
-    return (FusedConvBlock if block else FusedConvBlockTiled).apply(*args)
+        return {"block": launch_conv_block_fwd,
+                "tiled": lambda *a: launch_conv_block_fwd_tiled(*a)[0],
+                "wide": lambda *a: launch_conv_block_fwd_wide(*a)[0]}[route](
+                    *args)
+    return {"block": FusedConvBlock, "tiled": FusedConvBlockTiled,
+            "wide": FusedConvBlockWide}[route].apply(*args)
 
 
 # --- 2b. conv block at any T ---------------------------------------------------
@@ -1159,14 +1178,19 @@ CONV_TILED_FWD_T = 24
 CONV_TILED_PAIR_T = 48
 
 
-def conv_route(T, D, K, L, grad=False):
+def conv_route(T, D, K, L, grad=False, dtype=torch.float32):
     """"block" (the whole-row forward, the backward a cluster a row) for
     rows shorter than CONV_TILED_FWD_T frames, or CONV_TILED_PAIR_T where a
     backward follows (grad), and where the whole-row kernels fit: the
     route's T limit and conv_plan's CTAs; else "tiled". The T limit is the
     one the whole-row backward had when it was one block a row: three
     [T, D] rows, T inverse deviations and 16 D floats of LN reductions in a
-    block's shared memory (T <= 145 at D = 128)."""
+    block's shared memory (T <= 145 at D = 128). At bf16 a shape that
+    neither of those pairs takes goes "wide" where conv_wide_plan takes it
+    (D = 896 and 1024); every shape they take keeps its route."""
+    if (dtype == torch.bfloat16 and not _conv_pair_fits(T, D, K, L, grad)
+            and _plans_take((conv_wide_plan, 1, T, D, K, L))):
+        return "wide"
     t_limit = (3 * T * D + T + 16 * D) * 4 <= MAX_SMEM_BYTES
     plan_fits = _conv_plan_sizes(T, D, K, L)[2] <= MAX_SMEM_BYTES
     short = T < (CONV_TILED_PAIR_T if grad else CONV_TILED_FWD_T)
@@ -1526,6 +1550,158 @@ class FusedConvBlockTiled(torch.autograd.Function):
         return (*grads, None, None)
 
 
+# --- 2c. the bf16 conv block at the widths the tiled kernels do not take ------
+# #2c and #9c at D = 896 and 1024 (the JAX bench's `saturated` hidden 1024;
+# csrc/conv_block.cu, the wide kernels): a layer a few launches, its
+# per-frame work on CTAs of strips of frames and its products [B T, D] x
+# [D, D] over every frame at once on the tensor cores (mma.cuh tc_gemm).
+# The same function as the tiled bf16 pair, the same (out, xs, mask).
+
+# frames a sub-tile of the wide kernels' strips and threads a strip's CTA
+# (csrc/common.cuh kWideFrames, kWideThreads; the conv and MHA blocks');
+# the products' tiles of 128 columns (mma.cuh kTcGemmN) want D % 128 == 0
+WIDE_FRAMES = 8
+WIDE_THREADS = 512
+TC_GEMM_N = 128
+
+
+def _require_bf16(name, x):
+    if x.dtype != torch.bfloat16:
+        raise TypeError("%s: takes bf16 x only, got %s" % (name, x.dtype))
+
+
+def _wide_strip(B, T):
+    """Frames a strip's CTA walks: whole sub-tiles, as many as leave B *
+    ceil(T / strip) CTAs to fill the card twice (one CTA an SM)."""
+    subtiles = -(-T // WIDE_FRAMES)
+    return WIDE_FRAMES * max(1, min(subtiles, subtiles * B // (2 * N_SMS)))
+
+
+def _conv_wide_prologue_bytes(D, K):
+    """csrc/conv_block.cu wide_prologue_floats, in bytes."""
+    return 4 * (WIDE_FRAMES + 2 * K) * D
+
+
+def _conv_wide_bwd_bytes(D, K):
+    """csrc/conv_block.cu wide_bwd_floats, in bytes."""
+    return 4 * ((2 * (WIDE_FRAMES + K - 1) + WIDE_FRAMES + 2 * K + 4) * D
+                + WIDE_FRAMES)
+
+
+class ConvWidePlan(NamedTuple):
+    """One call of the wide conv kernels: each layer's per-frame launches on
+    `ctas` = B * `strips` CTAs of WIDE_THREADS threads, a CTA walking
+    `strip` frames of a row (strips = ceil(T / strip)) in sub-tiles of
+    WIDE_FRAMES, `smem_prologue` and `smem_bwd` bytes; the products on
+    mma.cuh's tiles of 128 x 128."""
+    strip: int
+    strips: int
+    ctas: int
+    smem_prologue: int
+    smem_bwd: int
+
+
+@functools.lru_cache(maxsize=256)
+def conv_wide_plan(B, T, D, K, L):
+    """The wide kernels' plan for B rows of [T, D], K taps and L layers: at
+    `saturated`'s [256, 128, 1024], strips of 120 frames (512 CTAs), 88 KB
+    and 216 KB of shared memory. Raises where D is not a multiple of 128 or
+    a sub-tile's backward does not fit a block (D above 1024 at K = 7)."""
+    if B < 1 or T < 1 or K < 1 or L < 1 or D < TC_GEMM_N or D % TC_GEMM_N:
+        raise ValueError("conv_wide_plan: needs B, T, K, L >= 1 and D a "
+                         "multiple of %d, got B=%d, T=%d, D=%d, K=%d, L=%d"
+                         % (TC_GEMM_N, B, T, D, K, L))
+    smem = _conv_wide_bwd_bytes(D, K)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError("conv_wide_plan: D=%d, K=%d needs %d bytes of shared "
+                         "memory a sub-tile, above the %d a block has"
+                         % (D, K, smem, MAX_SMEM_BYTES))
+    strip = _wide_strip(B, T)
+    strips = -(-T // strip)
+    return ConvWidePlan(strip, strips, B * strips,
+                        _conv_wide_prologue_bytes(D, K), smem)
+
+
+def launch_conv_block_fwd_wide(x, gam, beta, dw, wp, bp, seeds=None,
+                               drop_rate=0.0):
+    """The wide forward on conv_wide_plan: (out, xs, mask) as
+    launch_conv_block_fwd_tiled gives them at bf16. bf16 CUDA tensors
+    only."""
+    name = "conv_block_fwd_wide_bf16"
+    _require_bf16(name, x)
+    _require_cuda(name, x, gam, beta, dw, wp, bp)
+    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0, x.dtype)
+    plan = conv_wide_plan(B, T, D, K, L)
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    # the products read bf16(wp), the function's rounding of wp, by cp.async
+    wpb = wp.to(torch.bfloat16).contiguous()
+    out = torch.empty_like(x)
+    xs = _empty(x.device, max(L - 1, 1), B, T, D)
+    mask = torch.empty(L, B, T, D // 4, device=x.device, dtype=torch.uint8)
+    d_ws = torch.empty(B, T, D, device=x.device, dtype=torch.bfloat16)
+    _launch(name, x.data_ptr(), gam.data_ptr(), beta.data_ptr(), dw.data_ptr(),
+            wpb.data_ptr(), bp.data_ptr(), sp, thresh, scale, xs.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), d_ws.data_ptr(), B, T, D, L, K,
+            plan.strip)
+    return out, xs, mask
+
+
+def launch_conv_block_bwd_wide(x, xs, gam, beta, dw, wp, bp, seeds, drop_rate,
+                               g, mask):
+    """The wide backward on conv_wide_plan from the wide forward's xs and
+    mask: (dx, dgam, dbeta, ddw, dwp, dbp) as launch_conv_block_bwd_tiled
+    gives them at bf16. bf16 CUDA tensors only."""
+    name = "conv_block_bwd_wide_bf16"
+    _require_bf16(name, x)
+    _require_cuda(name, x, xs, mask, gam, beta, dw, wp, bp, g)
+    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0, x.dtype)
+    plan = conv_wide_plan(B, T, D, K, L)
+    _check(name, xs, (max(L - 1, 1), B, T, D))
+    _check(name, mask, (L, B, T, D // 4), torch.uint8)
+    _check(name, g, (B, T, D), x.dtype)
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    dev = x.device
+    wpb = wp.to(torch.bfloat16).contiguous()
+    dx = torch.empty_like(x)
+    dsmall = _empty(dev, L, 3 + K, D)
+    dwp = _empty(dev, L, D, D)
+    d_ws, gp_ws = (torch.empty(L, B, T, D, device=dev, dtype=torch.bfloat16)
+                   for _ in range(2))
+    gd_ws = _empty(dev, B, T, D)
+    g_ws = _empty(dev, 2, B, T, D)
+    part = _empty(dev, plan.ctas, L, 3 + K, D)
+    splits = _wgrad_splits(L, D, D, B * T, CONV_TILED_WGRAD_WAVES)
+    ws = _empty(dev, L * splits * D * D if splits > 1 else 1)
+    _launch(name, x.data_ptr(), xs.data_ptr(), mask.data_ptr(), gam.data_ptr(),
+            beta.data_ptr(), dw.data_ptr(), wpb.data_ptr(), bp.data_ptr(), sp,
+            thresh, scale, g.data_ptr(), dx.data_ptr(), dsmall.data_ptr(),
+            dwp.data_ptr(), d_ws.data_ptr(), gp_ws.data_ptr(), gd_ws.data_ptr(),
+            g_ws.data_ptr(), part.data_ptr(), ws.data_ptr(), splits, B, T, D, L,
+            K, plan.strip)
+    return dx, dsmall[:, 0], dsmall[:, 1], dsmall[:, 3:], dwp, dsmall[:, 2]
+
+
+class FusedConvBlockWide(torch.autograd.Function):
+    """The bf16 conv block on the card at the wide widths: the wide forward,
+    which keeps each layer's input and ReLU mask, then the wide
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, gam, beta, dw, wp, bp, seeds, drop_rate):
+        out, xs, mask = launch_conv_block_fwd_wide(x, gam, beta, dw, wp, bp,
+                                                   seeds, drop_rate)
+        ctx.save_for_backward(x, xs, gam, beta, dw, wp, bp, seeds, mask)
+        ctx.drop_rate = drop_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, xs, gam, beta, dw, wp, bp, seeds, mask = ctx.saved_tensors
+        grads = launch_conv_block_bwd_wide(x, xs, gam, beta, dw, wp, bp, seeds,
+                                           ctx.drop_rate, g.contiguous(), mask)
+        return (*grads, None, None)
+
+
 # --- 3. MHA block --------------------------------------------------------------
 # Replaces vslnet_tpu/ops/pallas_kernels.py:_make_mha_block_fwd_kernel and
 # _make_mha_block_bwd_kernel (via fused_mha_block). Kernels:
@@ -1718,17 +1894,23 @@ def _head_dim(name, D, n_heads):
     return D // n_heads
 
 
-def mha_route(T, D, n_heads):
+def mha_route(T, D, n_heads, dtype=torch.float32):
     """The MHA block's kernels on the card: "block" (the fused block
     kernels) up to the route's T limit, where mha_fwd_plan's and
     mha_bwd_plan's tiles also fit; else the unfused block around fused_mha's
-    `attention_route`. The T limit is the one the block backward had when
+    `attention_route`. At bf16 and a head dim of MHA_WIDE_HEAD_DIMS, which
+    no earlier kernel took, "block" (the wide block kernels) wherever
+    mha_wide_plan takes the shape, with no T limit of its own. The T limit is the one the block backward had when
     it ran one block a row, kept so that every shape takes the route it
     took then: three [T, D] rows, T inverse deviations and 16 D floats of
     LN reductions, or a head's q, k, v and g, three [T] rows and dS [T, T +
     1], in a block's shared memory (T <= 145 at D = 128). The forward of
     that time, one block a row holding (2 D + 1) T floats, lies inside the
-    limit. Raises for a head dim no kernel takes."""
+    limit. Raises for a head dim no kernel takes at `dtype`."""
+    if dtype == torch.bfloat16 and _wide_head_dim(D, n_heads):
+        if _plans_take((mha_wide_plan, 1, T, D, n_heads)):
+            return "block"
+        return attention_route(T, D // n_heads)
     hd = _head_dim("mha_route", D, n_heads)
     t_limit = (max(3 * T * D + T + 16 * D, 4 * T * hd + 3 * T + T * (T + 1))
                * 4 <= MAX_SMEM_BYTES)
@@ -1951,10 +2133,156 @@ def mha_fwd_plan(B, T, D, n_heads):
                       -(-T // q_tile), _mha_fwd_attention_bytes(T, q_tile, hd))
 
 
+# --- 3c. the bf16 MHA block at head dim 128 --------------------------------------
+# #3b and #10b at the JAX bench's `saturated` widths (D = 1024 in 8 heads of
+# 128; csrc/mha_block.cu, the wide kernels): the per-frame launches split
+# at their products, which run [B T, D] x [D, 3D] and [B T, D] x [D, D] (and
+# their transposes) over every frame at once on the tensor cores (mma.cuh
+# tc_gemm); the attention is the block's own bodies at head dim 128, the
+# backward's holding k, v, q and g_att as bf16 rows. bf16 only: at fp32
+# head dim 128 stays on the plain version.
+MHA_WIDE_HEAD_DIMS = (128,)
+
+
+def _wide_head_dim(D, n_heads):
+    return (n_heads >= 1 and D % n_heads == 0 and D % TC_GEMM_N == 0
+            and D // n_heads in MHA_WIDE_HEAD_DIMS)
+
+
+def _mha_wide_attention_bytes(T, q_tile, hd):
+    """csrc/mha_block.cu attn_tile_bytes with bf16 rows (kHalfRows)."""
+    return (2 * (2 * T * (hd + 2) + 2 * q_tile * (hd + 2))
+            + 4 * (2 * q_tile * (T + 1) + q_tile + T + 2 * T * hd))
+
+
+def _mha_wide_frames_bytes(D):
+    """csrc/mha_block.cu wide_tile_floats, in bytes."""
+    return 4 * ((2 * WIDE_FRAMES + 4) * D + WIDE_FRAMES)
+
+
+class MHAWidePlan(NamedTuple):
+    """One call of the wide block kernels: the backward's per-frame launches
+    on `ctas` = B * `strips` CTAs of WIDE_THREADS threads walking
+    `strip` frames of a row, `smem_frames` bytes each; the forward's
+    attention on query tiles of `q_tile` rows (`smem_attention` bytes a
+    CTA), the backward's on clusters of ceil(T / `bwd_q_tile`) CTAs a (row,
+    head), `smem_bwd_attention` bytes each."""
+    strip: int
+    strips: int
+    ctas: int
+    smem_frames: int
+    q_tile: int
+    smem_attention: int
+    bwd_q_tile: int
+    smem_bwd_attention: int
+
+
+@functools.lru_cache(maxsize=256)
+def mha_wide_plan(B, T, D, n_heads):
+    """The wide block kernels' plan for B rows of [T, D] in n_heads heads of
+    MHA_WIDE_HEAD_DIMS: the forward's query tiles of MHA_FWD_QTILE rows,
+    halved while they do not fit; the backward's of MHA_QTILE rows, at
+    least T / MHA_CLUSTER, halved while they do not fit; strips as
+    conv_wide_plan's. Raises on what the kernels cannot take (T above 129
+    at head dim 128)."""
+    if not _wide_head_dim(D, n_heads):
+        raise ValueError("mha_wide_plan: head dim D/n_heads must be one of %s "
+                         "with D a multiple of %d, got D=%d heads=%d"
+                         % (MHA_WIDE_HEAD_DIMS, TC_GEMM_N, D, n_heads))
+    if B < 1 or T < 1:
+        raise ValueError("mha_wide_plan: needs B, T >= 1, got B=%d, T=%d"
+                         % (B, T))
+    hd = D // n_heads
+    q_tile = min(T, MHA_FWD_QTILE)
+    while _mha_fwd_attention_bytes(T, q_tile, hd) > MAX_SMEM_BYTES:
+        if q_tile == 1:
+            raise ValueError("mha_wide_plan: T=%d: no query tile of the "
+                             "forward fits" % T)
+        q_tile = -(-q_tile // 2)
+    least = -(-T // MHA_CLUSTER)
+    bwd_q = min(T, max(MHA_QTILE, least))
+    while (_mha_wide_attention_bytes(T, bwd_q, hd) > MAX_SMEM_BYTES
+           and -(-bwd_q // 2) >= least and bwd_q > 1):
+        bwd_q = -(-bwd_q // 2)
+    if _mha_wide_attention_bytes(T, bwd_q, hd) > MAX_SMEM_BYTES:
+        raise ValueError("mha_wide_plan: T=%d, head dim %d: no query tile of "
+                         "the backward fits the %d bytes of shared memory a "
+                         "block has" % (T, hd, MAX_SMEM_BYTES))
+    strip = _wide_strip(B, T)
+    strips = -(-T // strip)
+    return MHAWidePlan(strip, strips, B * strips, _mha_wide_frames_bytes(D),
+                       q_tile, _mha_fwd_attention_bytes(T, q_tile, hd), bwd_q,
+                       _mha_wide_attention_bytes(T, bwd_q, hd))
+
+
+def _launch_mha_block_fwd_wide(x, mask, gam, beta, wqkv, bqkv, wd, bd,
+                               n_heads, seeds, drop_rate):
+    """launch_mha_block_fwd at head dim 128: the wide kernels on
+    mha_wide_plan, (out, qkv, att) as the bf16 block forward gives them."""
+    name = "mha_block_fwd_wide_bf16"
+    _require_bf16(name, x)
+    _require_cuda(name, x, mask, gam, beta, wqkv, bqkv, wd, bd)
+    B, T, D = _mha_shapes(name, x, n_heads, 0, mask, gam, beta, wqkv, wd,
+                          bqkv, bd, x.dtype)
+    plan = mha_wide_plan(B, T, D, n_heads)
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    # the products read bf16(Wqkv) and bf16(Wd), the function's roundings
+    wqkvb, wdb = (w.to(torch.bfloat16).contiguous() for w in (wqkv, wd))
+    qkv = _empty(x.device, B, T, 3 * D)
+    att = _empty(x.device, B, T, D)
+    out = torch.empty_like(x)
+    y_ws = torch.empty_like(x)
+    _launch(name, x.data_ptr(), mask.data_ptr(), gam.data_ptr(),
+            beta.data_ptr(), wqkvb.data_ptr(), bqkv.data_ptr(), wdb.data_ptr(),
+            bd.data_ptr(), sp, thresh, scale, qkv.data_ptr(), att.data_ptr(),
+            out.data_ptr(), y_ws.data_ptr(), B, T, D, n_heads, plan.q_tile)
+    return out, qkv, att
+
+
+def _launch_mha_block_bwd_wide(x, mask, gam, beta, wqkv, wd, n_heads, seeds,
+                               drop_rate, qkv, att, g):
+    """launch_mha_block_bwd at head dim 128: the wide kernels on
+    mha_wide_plan, the bf16 block backward's gradients."""
+    name = "mha_block_bwd_wide_bf16"
+    _require_bf16(name, x)
+    _require_cuda(name, x, mask, gam, beta, wqkv, wd, qkv, att, g)
+    B, T, D = _mha_shapes(name, x, n_heads, 0, mask, gam, beta, wqkv, wd,
+                          dtype=x.dtype)
+    for t, shape in ((qkv, (B, T, 3 * D)), (att, (B, T, D))):
+        _check(name, t, shape)
+    _check(name, g, (B, T, D), x.dtype)
+    plan = mha_wide_plan(B, T, D, n_heads)
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    dev = x.device
+    wqkvb, wdb = (w.to(torch.bfloat16).contiguous() for w in (wqkv, wd))
+    dx = torch.empty_like(x)
+    dsmall = _empty(dev, 8 * D)
+    dwqkv = _empty(dev, D, 3 * D)
+    dwd = _empty(dev, D, D)
+    gdt, z, y = (torch.empty_like(x) for _ in range(3))
+    gz, gres, gatt = (_empty(dev, B, T, D) for _ in range(3))
+    dqkv = _empty(dev, B, T, 3 * D)
+    dqkvt = torch.empty(B, T, 3 * D, device=dev, dtype=torch.bfloat16)
+    part = _empty(dev, plan.ctas, 8 * D)
+    splits = _wgrad_splits(1, D, 3 * D, B * T)
+    ws = _empty(dev, splits * D * 3 * D if splits > 1 else 1)
+    _launch(name, x.data_ptr(), mask.data_ptr(), gam.data_ptr(),
+            beta.data_ptr(), wqkvb.data_ptr(), wdb.data_ptr(), sp, thresh,
+            scale, qkv.data_ptr(), att.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            dsmall.data_ptr(), dwqkv.data_ptr(), dwd.data_ptr(),
+            gdt.data_ptr(), gz.data_ptr(), z.data_ptr(), gres.data_ptr(),
+            gatt.data_ptr(), dqkv.data_ptr(), dqkvt.data_ptr(), y.data_ptr(),
+            part.data_ptr(), ws.data_ptr(), splits, B, T, D, n_heads,
+            plan.strip, plan.bwd_q_tile)
+    return (dx, dsmall[:2 * D].view(2, D), dsmall[2 * D:4 * D].view(2, D),
+            dwqkv, dsmall[4 * D:7 * D], dwd, dsmall[7 * D:])
+
+
 def _mha_shapes(name, x, n_heads, smem, mask, gam, beta, wqkv, wd, bqkv=None,
                 bd=None, dtype=torch.float32):
     B, T, D = x.shape
-    _head_dim(name, D, n_heads)
+    if not _wide_head_dim(D, n_heads):
+        _head_dim(name, D, n_heads)
     if smem > MAX_SMEM_BYTES:
         raise ValueError("%s: T=%d, D=%d needs %d bytes of shared memory, "
                          "above the %d a block has" % (name, T, D, smem,
@@ -1977,7 +2305,11 @@ def launch_mha_block_fwd(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
     """The forward kernels on mha_fwd_plan's tiles: (out, qkv [B, T, 3D],
     att [B, T, D]), the last two being what the backward reads back; the
     bf16 entry point for bf16 x (out in x's dtype, qkv holding bf16 values
-    and att float32). CUDA tensors only."""
+    and att float32), the wide kernels at head dim 128. CUDA tensors
+    only."""
+    if _wide_head_dim(x.shape[-1], n_heads):
+        return _launch_mha_block_fwd_wide(x, mask, gam, beta, wqkv, bqkv, wd,
+                                          bd, n_heads, seeds, drop_rate)
     name = _entry("mha_block_fwd", _act_dtype("mha_block_fwd", x))
     _require_cuda(name, x, mask, gam, beta, wqkv, bqkv, wd, bd)
     B, T, D = _mha_shapes(name, x, n_heads, 0, mask, gam, beta, wqkv, wd,
@@ -2002,7 +2334,12 @@ def launch_mha_block_bwd(x, mask, gam, beta, wqkv, wd, n_heads, seeds,
     """The backward kernels on mha_bwd_plan's tiles: (dx, dgam, dbeta,
     dwqkv, dbqkv, dwd, dbd), the weight gradients summed over the batch;
     the bf16 entry point for bf16 x (g and dx in x's dtype; qkv, att and
-    the weight gradients float32 either way). CUDA tensors only."""
+    the weight gradients float32 either way), the wide kernels at head dim
+    128. CUDA tensors only."""
+    if _wide_head_dim(x.shape[-1], n_heads):
+        return _launch_mha_block_bwd_wide(x, mask, gam, beta, wqkv, wd,
+                                          n_heads, seeds, drop_rate, qkv, att,
+                                          g)
     name = _entry("mha_block_bwd", _act_dtype("mha_block_bwd", x))
     _require_cuda(name, x, mask, gam, beta, wqkv, wd, qkv, att, g)
     B, T, D = _mha_shapes(name, x, n_heads, 0, mask, gam, beta, wqkv, wd,
@@ -2072,7 +2409,7 @@ def mha_block_twin(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
     or a weight wants a gradient."""
     args = (x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads, seeds)
     bf16 = x.dtype == torch.bfloat16
-    if bf16 and mha_route(x.shape[1], x.shape[2], n_heads) != "block":
+    if bf16 and mha_route(x.shape[1], x.shape[2], n_heads, x.dtype) != "block":
         return mha_block_unfused(*args, float(drop_rate))
     if vjp is None:
         vjp = bf16 and grad_wanted(x, gam, beta, wqkv, bqkv, wd, bd)
@@ -2096,7 +2433,7 @@ def fused_mha_block(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
     _act_dtype(name, x)
     if not _on_cuda(name, *tensors):
         return mha_block_twin(*args, drop_rate)
-    if mha_route(x.shape[1], x.shape[2], n_heads) == "block":
+    if mha_route(x.shape[1], x.shape[2], n_heads, x.dtype) == "block":
         return FusedMHABlock.apply(*args, float(drop_rate))
     return mha_block_unfused(*args, float(drop_rate))
 
@@ -2929,11 +3266,20 @@ def lstm_kernel_fits(B, H):
 
 
 @functools.lru_cache(maxsize=256)
-def conv_kernel_fits(T, D, K, L, grad=False):
+def conv_kernel_fits(T, D, K, L, grad=False, dtype=torch.float32):
     """The conv block kernels that conv_route picks for [T, D], K taps and L
-    layers (with `grad`, the pair a training call takes) fit their plans:
-    the whole-row forward's and backward's, or the tiled forward's and
-    backward's (the tiled forward also plans its backward)."""
+    layers (with `grad`, the pair a training call takes) at activations of
+    `dtype` fit their plans: the whole-row forward's and backward's, or the
+    tiled forward's and backward's (the tiled forward also plans its
+    backward), or at bf16 beyond them the wide pair's conv_wide_plan."""
+    return (_conv_pair_fits(T, D, K, L, grad)
+            or conv_route(T, D, K, L, grad, dtype) == "wide")
+
+
+@functools.lru_cache(maxsize=256)
+def _conv_pair_fits(T, D, K, L, grad=False):
+    """conv_kernel_fits of the whole-row and tiled pairs, which take fp32
+    and bf16 alike."""
     if min(T, K, L) < 1 or D < 4 or D % 4:
         return False
     if conv_route(T, D, K, L, grad) == "block":
@@ -2945,12 +3291,18 @@ def conv_kernel_fits(T, D, K, L, grad=False):
 
 
 @functools.lru_cache(maxsize=256)
-def mha_kernel_fits(T, D, n_heads):
-    """fused_mha_block's kernels take [T, D] in n_heads heads: a head dim of
-    MHA_HEAD_DIMS, then the route's plans: the block kernels' (mha_route
-    checks them), the whole-T forward's shared memory and
-    mha_whole_bwd_plan, or the flash plans' shared memory (fp32 and
-    bf16)."""
+def mha_kernel_fits(T, D, n_heads, dtype=torch.float32, grad=False):
+    """fused_mha_block's kernels take [T, D] in n_heads heads at
+    activations of `dtype`: a head dim of MHA_HEAD_DIMS, then the route's
+    plans: the block kernels' (mha_route checks them), the whole-T
+    forward's shared memory and mha_whole_bwd_plan, or the flash plans'
+    shared memory (fp32 and bf16); at bf16 also a head dim of
+    MHA_WIDE_HEAD_DIMS where mha_wide_plan takes the shape. Every route
+    plans both directions, so `grad` (a training call) changes no
+    answer."""
+    if _wide_head_dim(D, n_heads):
+        return (dtype == torch.bfloat16
+                and _plans_take((mha_wide_plan, 1, T, D, n_heads)))
     if n_heads < 1 or D % n_heads or D // n_heads not in MHA_HEAD_DIMS:
         return False
     hd = D // n_heads
