@@ -1615,12 +1615,16 @@ def bf16_timed_row(rows, name, source, line, err, tol, fn, plain, flops,
         by_kernel=parts, **extra))
 
 
-def bf16_vjp_row(rows, name, source, line, cases, flops, nbytes, **extra):
+def bf16_vjp_row(rows, name, source, line, cases, flops, nbytes, fp64=None,
+                 **extra):
     """One row of the cases of one bf16 backward entry point (drop 0 and
     0.2, and the shapes given): each case's readings (bench/bf16_vjp.py:
     share, slice_share, mean_rel, elem) and its controls', the worst
     reading over its limit held to 1, the first case timed beside the fp32
-    kernel on the same inputs."""
+    kernel on the same inputs. With fp64 (the twin's function, taking
+    work=float64) each case is also held by bf16_vjp.fp64_verdict: its bf16
+    outputs no further from the fp64 evaluation than the twin's plus the
+    twin limits."""
     from vslnet_torch.bench import bf16_vjp as V
     from vslnet_torch.bench.common import by_kernel
 
@@ -1633,6 +1637,11 @@ def bf16_vjp_row(rows, name, source, line, cases, flops, nbytes, **extra):
         raw = max(raw, max(max_err(a, b) for a, b in zip(kern, twin)))
         worst = max(worst, V.worst(case, r))
         readings.append({"shape": list(case.shape), **r})
+        if fp64 is not None:
+            f = V.fp64_readings(case, fp64)
+            ok, why = V.fp64_verdict(case, r, f)
+            check(ok, why)
+            readings[-1]["fp64"] = f
     first = cases[0]
     bf16_timed_row(rows, name, source, line, raw, 1.0, first.kernel,
                    first.twin, flops, nbytes,
@@ -3349,6 +3358,29 @@ SATURATED_STEPS = 3
 SATURATED_TWINS_SHARE = 0.5
 
 
+def sdpa_bwd_yardstick(dev, B, T, heads, D):
+    """F.scaled_dot_product_attention's backward in bf16 at [B, heads, T, D
+    / heads], no mask, drop 0: the library yardstick of #10b wide's
+    attention part (ms by CUDA events, device ms by torch.profiler). The
+    port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from vslnet_torch.bench.common import by_kernel
+
+    q, k, v = (torch.randn(B, heads, T, D // heads, device=dev,
+                           dtype=torch.bfloat16, requires_grad=True)
+               for _ in range(3))
+    out = F.scaled_dot_product_attention(q, k, v)
+    g = torch.randn_like(out)
+
+    def bwd():
+        torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+
+    return {"shape": [B, heads, T, D // heads], "ms": cuda_ms(bwd, 20),
+            "device_ms": sum(by_kernel(bwd).values())}
+
+
 def saturated_kernel_rows(dev, max_w):
     """The four wide kernels at `saturated`'s shapes against their bf16
     twins: the forwards by BF16_TOL and the share of differing bf16
@@ -3360,6 +3392,7 @@ def saturated_kernel_rows(dev, max_w):
     import torch
 
     from vslnet_torch.bench import bf16_vjp as V
+    from vslnet_torch.bench.common import kernel_counts
     from vslnet_torch.ops import kernels as K
 
     bf = torch.bfloat16
@@ -3438,7 +3471,19 @@ def saturated_kernel_rows(dev, max_w):
              for T_, rate in ((T, DROP), (T, 0.0), (max_w, DROP))]
     bf16_vjp_row(rows, "conv_block_bwd_wide_bf16", "conv_block.cu", 1039,
                  cases, *conv_bwd_work(T), shape=[B, T, D], query_T=max_w,
-                 plan=K.conv_wide_plan(B, T, D, KS, L)._asdict())
+                 plan=K.conv_wide_plan(B, T, D, KS, L)._asdict(),
+                 kernel_launches=kernel_counts(cases[0].kernel, 10))
+    # its per-frame work: one d launch for every layer and a pass a layer
+    # (after the earlier phases' processes torch.profiler drops some
+    # records: a count can read low, never high)
+    passes = {k: n for k, n in rows[-1]["kernel_launches"].items()
+              if "conv_wide_" in k}
+    kinds = {k.split("::")[-1].split("<")[0] for k in passes}
+    check("conv_wide_pass_kernel" in kinds
+          and kinds <= {"conv_wide_d_kernel", "conv_wide_pass_kernel"}
+          and sum(passes.values()) <= L + 1,
+          "conv_block_bwd_wide_bf16: per-frame launches %s, expected the d "
+          "launch and %d passes" % (passes, L))
     del cases
 
     # 3. #3b wide: [B, T, D] in 8 heads of 128, ragged key masks with one
@@ -3498,8 +3543,16 @@ def saturated_kernel_rows(dev, max_w):
     mask = cases[0].args[1]
     keys = int(T * mask.sum())
     bf16_vjp_row(rows, "mha_block_bwd_wide_bf16", "mha_block.cu", 1762,
-                 cases, *mha_bwd_work(T, keys), shape=[B, T, D], heads=heads,
-                 query_T=max_w, plan=K.mha_wide_plan(B, T, D, heads)._asdict())
+                 cases, *mha_bwd_work(T, keys), fp64=K.mha_block_bwd_plain,
+                 shape=[B, T, D], heads=heads, query_T=max_w,
+                 plan=K.mha_wide_plan(B, T, D, heads)._asdict(),
+                 attention_library=sdpa_bwd_yardstick(dev, B, T, heads, D),
+                 kernel_launches=kernel_counts(cases[0].kernel, 10))
+    # its attention: the tensor-core kernel, no cluster kernel at head dim 128
+    names = list(rows[-1]["kernel_launches"])
+    check(any("attn_bwd_wide_kernel" in k for k in names)
+          and not any("attn_bwd_cluster_kernel" in k for k in names),
+          "mha_block_bwd_wide_bf16: attention kernels %s" % names)
     del cases
     torch.cuda.empty_cache()
     return rows

@@ -1615,6 +1615,63 @@ def test_cuda_bf16_wide_backward_matches_twin(cuda, kind):
                 assert not ok and "beyond the limits" in why, (fault, why)
 
 
+def _wide_case(dev, kind, B, T, rate, seed=44):
+    from vslnet_torch.bench import bf16_vjp as V
+
+    rng = np.random.default_rng(seed)
+    if kind == "conv_wide":
+        return V.conv_case(dev, rng, B, T, 1024, rate, wide=True)
+    return V.mha_case(dev, rng, B, T, 1024, 8, rate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("T", [128, 12, 5, 127])
+@pytest.mark.parametrize("kind", ["conv_wide", "mha_wide"])
+def test_cuda_wide_backwards_at_ragged_T(cuda, kind, T, rate):
+    """#9c wide's passes and #10b wide's tensor-core attention at D = 1024
+    (8 heads of 128) and T = 128, 12 (the query stream), 5 and 127 (a
+    ragged last key tile, one fewer query than the warps hold), ragged key
+    masks with a fully masked row: bf16_vjp's verdict against the twin
+    (its limits, both controls beyond them, equal bits twice), one launch
+    of the wide entry a call."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    case = _wide_case(cuda, kind, 8, T, rate)
+    kernels.reset_launches()
+    first = [t.clone() for t in case.kernel()]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[case.name] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    assert all(torch.equal(a, b) for a, b in zip(first, case.kernel()))
+    reading = V.read(case)
+    ok, why = V.verdict(case, reading)
+    assert ok, (kind, T, rate, why, reading["kernel"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["keep_bit_flipped", "ds_unrounded",
+                                   "dbqkv_partial_dropped",
+                                   "halo_frame_skipped"])
+def test_cuda_wide_backwards_refuse_planted_faults(cuda, fault):
+    """Faults planted in the redesigned kernels (a flipped keep bit, dS
+    unrounded for dQ and dK, a dropped dbqkv partial, a skipped halo frame
+    of a strip: bench/bf16_vjp.py WIDE_FAULTS) are refused by the verdict
+    that passes the kernels, at B = 8, T = 128 (16 strips a row in the
+    conv passes, so that strips have halos), drop 0.2."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    kind = "conv_wide" if fault == "halo_frame_skipped" else "mha_wide"
+    case = _wide_case(cuda, kind, 8, 128, 0.2)
+    if kind == "conv_wide":
+        assert kernels.conv_wide_plan(8, 128, 1024, 7, 4).bwd_strips > 1
+    ok, why = V.verdict(case, V.read(case))
+    assert ok, why
+    bad = V.wide_fault(case, fault)
+    ok, why = V.verdict(bad, V.read(bad))
+    assert not ok and "beyond the limits" in why, (fault, why)
+
+
 @pytest.mark.cuda
 def test_cuda_wide_wrappers_refuse_fp32_and_the_narrow_widths(cuda):
     """The wide entry points take bf16 only; the fp32 modules keep D = 1024

@@ -1,0 +1,303 @@
+"""The wide bf16 backwards' launch geometry on the CPU (no card, no JAX):
+#9c wide's per-frame passes (csrc/conv_block.cu conv_wide_d_kernel,
+conv_wide_pass_kernel on conv_wide_plan's bwd_strip) and #10b wide's
+tensor-core attention backward (attn_bwd_wide_kernel on mha_wide_plan's
+attn_tiles).
+
+The passes' schedules are replayed here frame by frame as the kernels'
+index arithmetic has them (a thread's ring slots, the batch each frame
+lands in, the batch each own frame is worked in), so that every frame of
+every row is some strip's own frame exactly once, and every ring slot a
+frame is read from still holds that frame, landed in an earlier or the
+same batch and not yet overwritten by the batch in flight. The attention's
+product items are replayed the same way: every (row, column) of dQ, dK
+and dV is one warp's, once.
+"""
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from vslnet_torch.ops import kernels
+
+CSRC = kernels.CSRC
+
+
+def _constant(source, name):
+    text = (CSRC / source).read_text()
+    return int(re.search(r"constexpr int %s = (\d+);" % name, text).group(1))
+
+
+# `saturated`'s video and query streams (T = 128, 12, 24), B = 1, ragged T,
+# both wide widths
+SHAPES = [(256, 128, 1024), (256, 12, 1024), (256, 24, 896), (1, 16, 1024),
+          (1, 12, 896), (3, 5, 1024), (16, 127, 896), (2, 1000, 1024),
+          (16, 130, 1024)]
+
+
+def _pass_schedule(s0, s1, K, F, kind):
+    """The batches of F frames of one CTA of a pass over its strip [s0,
+    s1), as conv_wide_pass_kernel (kind "pass": a = s0 - gl) and
+    conv_wide_d_kernel ("d": a = s0 - pad) index them: (a, [(k, e, t)]) for batch i, frame e =
+    a + i F + k landing in ring slot (e - a) % R, own frame t = e - gl
+    (worked where s0 <= t < s1) with its G_in in slot (i F + k) % 2F."""
+    pad = (K - 1) // 2
+    gl = K - 1 - pad
+    a = s0 - (gl if kind == "pass" else pad)
+    nb = -(-((s1 - s0) + (2 * gl if kind == "pass" else K - 1)) // F)
+    return a, [[(k, a + i * F + k, a + i * F + k - gl) for k in range(F)]
+               for i in range(nb)]
+
+
+@pytest.mark.parametrize("kind", ["pass", "d"])
+@pytest.mark.parametrize("B,T,D", SHAPES)
+def test_conv_wide_bwd_passes_cover_every_frame_once(B, T, D, kind):
+    """Each pass's strips own every frame of a row once, and each own
+    frame's reach (x_l or n over [t - pad, t + gl], g_d over [t - gl, t +
+    pad]) and G_in are read from ring slots that hold them: landed in this
+    or an earlier batch, not overwritten by the batch in flight (issued
+    before the current batch's reads). The pass reads an own frame's
+    inverse deviation from thread 0's ring: it landed in an earlier
+    batch."""
+    K = 7
+    F = kernels.WIDE_BWD_FRAMES if kind == "pass" else kernels.WIDE_D_FRAMES
+    gl = K - 1 - (K - 1) // 2
+    plan = kernels.conv_wide_plan(B, T, D, K, 4)
+    R = kernels._wide_bwd_ring(K, F)
+    owned = np.zeros(T, int)
+    for s in range(plan.bwd_strips):
+        s0, s1 = s * plan.bwd_strip, min(T, (s + 1) * plan.bwd_strip)
+        a, batches = _pass_schedule(s0, s1, K, F, kind)
+        ring, gring, landed = {}, {}, {}
+        for i, batch in enumerate(batches):
+            for j in (i, i + 1):  # batch i landed, batch i + 1 in flight
+                for k, e, t in batches[j] if j < len(batches) else []:
+                    ring[(e - a) % R] = e
+                    landed.setdefault(e, j)
+                    gring[(j * F + k) % (2 * F)] = t
+            for k, e, t in batch:
+                if not s0 <= t < s1:
+                    continue
+                owned[t] += 1
+                for f in range(t - gl, t + gl + 1):
+                    assert ring[(f - a) % R] == f, (s, i, t, f)
+                    assert landed[f] <= i, (s, i, t, f)
+                assert gring[(i * F + k) % (2 * F)] == t
+                if kind == "pass":
+                    assert landed[t] < i, (s, i, t)  # its statistics
+    assert (owned == 1).all(), owned
+
+
+@pytest.mark.parametrize("B,T", [(256, 128), (256, 12), (1, 16), (3, 5),
+                                 (16, 127)])
+def test_mha_wide_ln_passes_cover_every_frame_once(B, T):
+    """mha_block.cu wide_ln_pass_kernel: its strips cover every frame of a
+    row once; frame e lands in slot (e - s0) % 3F in batch (e - s0) // F,
+    its statistics are taken that batch and its backward the next, when
+    its slots (x then xh, gz, g, att or g_res) still hold it: the batch in
+    flight (issued first) writes the slots of two batches before."""
+    F = kernels.WIDE_LN_FRAMES
+    m = kernels.mha_wide_plan(B, T, 1024, 8)
+    assert _constant("mha_block.cu", "kWideLnFrames") == F
+    owned = np.zeros(T, int)
+    for s in range(m.strips):
+        s0, s1 = s * m.strip, min(T, (s + 1) * m.strip)
+        nb = -(-(s1 - s0) // F)
+        ring = {}
+        for i in range(nb + 1):
+            for j in (i, i + 1):  # batch i landed, batch i + 1 in flight
+                for e in range(s0 + j * F, min(s1, s0 + j * F + F)) if j < nb else []:
+                    ring[(e - s0) % (3 * F)] = e
+            for t in range(s0 + (i - 1) * F, s0 + i * F) if i else []:
+                if t < s1:
+                    owned[t] += 1
+                    assert ring[(t - s0) % (3 * F)] == t, (s, i, t)
+    assert (owned == 1).all()
+    assert m.smem_frames == kernels._mha_wide_ln_bytes(1024)
+    assert 2 * (m.smem_frames + 1024) <= 233472  # two CTAs an SM
+
+
+def test_conv_wide_pass_ring_is_the_reach_and_two_batches():
+    """The rings hold an own frame's reach on both sides and two batches
+    (the one in use, the one in flight), as few frames as that takes; an
+    own frame's statistics land a batch before it is worked (F <= gl)."""
+    K, F = 7, kernels.WIDE_BWD_FRAMES
+    gl = K - 1 - (K - 1) // 2
+    assert kernels._wide_bwd_ring(K) == 2 * F + 2 * gl == 10
+    assert F <= gl
+    assert _constant("conv_block.cu", "kWideBwdFrames") == F
+    FD = kernels.WIDE_D_FRAMES
+    assert _constant("conv_block.cu", "kWideDFrames") == FD
+    assert kernels._wide_bwd_ring(K, FD) == 2 * FD + K - 1 == 14
+    assert _constant("conv_block.cu", "kWideBwdK") == kernels.WIDE_BWD_K
+    text = (CSRC / "conv_block.cu").read_text()
+    bounds = re.findall(r"__launch_bounds__\(kWideBwdMaxThreads, (\d+)\)",
+                        text)
+    assert bounds and set(map(int, bounds)) == {kernels.WIDE_BWD_CTAS_PER_SM}
+    assert _constant("conv_block.cu", "kWideBwdMaxThreads") * 4 == 1024
+
+
+@pytest.mark.parametrize("D", [896, 1024])
+def test_conv_wide_bwd_plans_fit_two_ctas_an_sm(D):
+    """Both passes fit a block's shared memory and two of them an SM's
+    (228 KB less 1 KB a block), so that a strip's loads overlap the other
+    CTA's work; at `saturated` one CTA a row, 256 of the card's 264
+    slots."""
+    p = kernels.conv_wide_plan(256, 128, D, 7, 4)
+    per_sm = 233472
+    for smem in (p.smem_d, p.smem_pass):
+        assert smem <= kernels.MAX_SMEM_BYTES
+        assert kernels.WIDE_BWD_CTAS_PER_SM * (smem + 1024) <= per_sm
+    assert (p.bwd_strip, p.bwd_strips, p.bwd_ctas) == (128, 1, 256)
+    assert p.bwd_ctas <= kernels.WIDE_BWD_CTAS_PER_SM * kernels.N_SMS
+    if D == 1024:
+        assert (p.smem_d, p.smem_pass) == (90368, 98728)
+
+
+@pytest.mark.parametrize("B,T", [(256, 128), (256, 12), (1, 16), (3, 5),
+                                 (16, 130), (2, 1000)])
+def test_conv_wide_bwd_strips_are_balanced(B, T):
+    """A row's strips differ by at most one frame's worth of the ceiling
+    (T = 128: one strip; the forward's strips within a sub-tile)."""
+    p = kernels.conv_wide_plan(B, T, 1024, 7, 4)
+    sizes = [min(T, (s + 1) * p.bwd_strip) - s * p.bwd_strip
+             for s in range(p.bwd_strips)]
+    assert sum(sizes) == T and min(sizes) >= 1
+    assert max(sizes) - min(sizes) <= max(1, p.bwd_strips)
+    f = [min(T, (s + 1) * p.strip) - s * p.strip for s in range(p.strips)]
+    assert sum(f) == T and max(f) - min(f) <= kernels.WIDE_FRAMES
+
+
+@pytest.mark.parametrize("args", [(1, 16, 1000, 7, 4), (1, 16, 1152, 7, 4),
+                                  (1, 16, 1024, 5, 4), (1, 16, 896, 3, 4),
+                                  (2, 12, 2048, 7, 4)])
+def test_conv_wide_plan_refuses_what_the_passes_do_not_take(args):
+    """D not a multiple of 128, D above 1024 (4 columns a thread of 256) or
+    taps other than the model's 7: conv_wide_plan raises, so conv_route
+    does not answer "wide" there."""
+    with pytest.raises(ValueError, match="conv_wide_plan"):
+        kernels.conv_wide_plan(*args)
+    B, T, D, K, L = args
+    assert kernels.conv_route(T, D, K, L, True, torch.bfloat16) != "wide"
+
+
+@pytest.mark.parametrize("T", [1, 5, 12, 16, 17, 24, 33, 64, 100, 127, 128])
+@pytest.mark.parametrize("B,D", [(256, 1024), (1, 1024), (2, 896)])
+def test_mha_wide_attention_items_cover_each_head_once(B, T, D):
+    """attn_bwd_wide_kernel: one CTA a (row, head), T within its 16 NK keys
+    (the fewest of the instances), its 8 warps' product items (row tile,
+    16 NK columns) covering each of dQ, dK, dV's [16 NK, 128] once; the
+    scores' warps (the first NK) covering the queries once."""
+    heads = D // 128
+    m = kernels.mha_wide_plan(B, T, D, heads)
+    nk = m.attn_tiles
+    assert nk in kernels.MHA_WIDE_ATTN_TILES and 16 * nk >= T
+    assert nk == 1 or 16 * (nk // 2) < T
+    assert m.attn_ctas == B * heads
+    assert m.smem_attn_bwd == kernels._mha_wide_attn_bwd_bytes(nk)
+    assert m.smem_attn_bwd <= kernels.MAX_SMEM_BYTES
+    warps = kernels.MHA_WIDE_ATTN_WARPS
+    cover = np.zeros((16 * nk, 128), int)
+    cw = 16 * nk
+    for w in range(warps):
+        rt, c0 = w % nk, (w // nk) * cw
+        cover[16 * rt:16 * rt + 16, c0:c0 + cw] += 1
+    assert (cover == 1).all()
+    queries = np.zeros(16 * nk, int)
+    for w in range(min(nk, warps)):
+        queries[16 * w:16 * w + 16] += 1
+    assert (queries == 1).all()
+
+
+@pytest.mark.parametrize("T", [129, 130, 192, 1024])
+def test_mha_wide_plan_refuses_beyond_128_keys(T):
+    """Head dim 128's attention backward holds at most 16 * 8 keys (a warp
+    a 16 queries); above that the plan raises, and the route is not the
+    block's (ROADMAP B5e)."""
+    with pytest.raises(ValueError, match="mha_wide_plan"):
+        kernels.mha_wide_plan(2, T, 1024, 8)
+    assert not kernels.mha_kernel_fits(T, 1024, 8, torch.bfloat16, True)
+
+
+def test_mha_wide_attention_constants_mirror_the_kernel():
+    """The warps, head dim and instances of attn_bwd_wide_kernel are the
+    plan's; no cluster instance at head dim 128 is left."""
+    assert _constant("mha_block.cu", "kAttnWideWarps") == \
+        kernels.MHA_WIDE_ATTN_WARPS
+    assert _constant("mha_block.cu", "kAttnWideHd") == 128
+    text = (CSRC / "mha_block.cu").read_text()
+    cases = sorted(int(n) for n in re.findall(
+        r"case (\d+): return go\(attn_bwd_wide_kernel<\1>, \1\);", text))
+    assert tuple(cases) == kernels.MHA_WIDE_ATTN_TILES
+    assert "attn_bwd_cluster_kernel<128" not in text
+    assert "launch_attention_bwd_tiles<128" not in text
+    assert "kHalfRows" not in text
+
+
+def _kernel_order_dbqkv(dqkv, heads, tiles):
+    """dbqkv as attn_bwd_wide_kernel sums it: per (row, head) and column, a
+    16-row tile's two rows a lane (g, g + 8) added, then the 8 lane pairs
+    by the butterfly's xor 4, 8, 16, then the tiles in order; then the rows
+    in order (sum_partials over strip 0, the others 0)."""
+    B, T, D3 = dqkv.shape
+    x = torch.zeros(B, 16 * tiles, D3, dtype=torch.float32)
+    x[:, :T] = dqkv
+    x = x.reshape(B, tiles, 2, 8, D3)             # tile, half, g
+    s = x[:, :, 0] + x[:, :, 1]                   # rows g and g + 8
+    for off in (1, 2, 4):                         # xor 4, 8, 16 over g
+        idx = torch.arange(8) ^ off
+        s = s + s[:, :, idx]
+    s = s[:, :, 0]                                # [B, tiles, D3]
+    row = s[:, 0].clone()
+    for r in range(1, tiles):
+        row = row + s[:, r]
+    out = row[0].clone()
+    for b in range(1, B):
+        out = out + row[b]
+    return out
+
+
+def _strip_order_dbqkv(dqkv, strip):
+    """dbqkv summed strip by strip, as a launch over strips of frames would
+    sum it: per (row, strip) and column the strip's frames in order, then
+    the (row, strip) partials in order."""
+    B, T, D3 = dqkv.shape
+    out = torch.zeros(D3)
+    for b in range(B):
+        for s0 in range(0, T, strip):
+            acc = torch.zeros(D3)
+            for t in range(s0, min(T, s0 + strip)):
+                acc = acc + dqkv[b, t]
+            out = out + acc
+    return out
+
+
+@pytest.mark.parametrize("B,T,rate", [(3, 128, 0.0), (4, 12, 0.2),
+                                      (2, 127, 0.2)])
+def test_dbqkv_in_the_fused_order_matches_the_strips(B, T, rate):
+    """The twin's dq, dk, dv (the whole-T attention twin at fp32, one head
+    of 128 and two) summed per row in the fused epilogue's order equal
+    their sums in the per-strip order of the launch it replaces, and the
+    plain sum, within fp32 noise (1e-5 of the summed magnitudes)."""
+    rng = np.random.default_rng(7)
+    D, heads = 256, 2
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((B, T, D)).astype(
+        np.float32)) for _ in range(4))
+    lens = np.concatenate([rng.integers(1, T + 1, B - 1), [T]])
+    mask = torch.from_numpy((np.arange(T)[None] < lens[:, None]).astype(
+        np.float32))
+    seeds = (torch.from_numpy(rng.integers(0, 1 << 23, (B, 1)).astype(
+        np.float32)) if rate else None)
+    dq, dk, dv = kernels.attention_bwd_plain(q, k, v, mask, heads, seeds, rate,
+                                             g)
+    dqkv = torch.cat([dq, dk, dv], dim=-1)
+    tiles = kernels.mha_wide_plan(B, T, 128 * heads, heads).attn_tiles
+    fused = _kernel_order_dbqkv(dqkv, heads, tiles)
+    strips = _strip_order_dbqkv(dqkv, kernels.mha_wide_plan(
+        B, T, 128 * heads, heads).strip)
+    plain = dqkv.double().sum(dim=(0, 1))
+    scale = dqkv.abs().double().sum(dim=(0, 1)) + 1e-30
+    assert float(((fused.double() - strips.double()).abs() / scale).max()) < 1e-5
+    assert float(((fused.double() - plain).abs() / scale).max()) < 1e-5
+    assert not torch.equal(fused, torch.zeros_like(fused))

@@ -34,6 +34,7 @@ its own twin with the forward's bf16 query scale (ROADMAP.md C6).
     ok, why = verdict(case, reading)
     ok, why = verdict(planted(case, "last_frame_fp32"), ...)  # refused
 """
+import ctypes
 import json
 import math
 from typing import Callable, NamedTuple
@@ -313,6 +314,73 @@ def planted(case, fault):
         FAULTS[fault](case, outs)
         return outs
 
+    return case._replace(kernel=kernel)
+
+
+# --- faults planted in the wide backwards themselves (#9c wide, #10b wide),
+# which verdict must refuse (the card tests): three in a copy of the
+# kernel's source (the entry points renamed, built into
+# vslnet_torch/_build/bench/ and swapped in for the wrapper's call), one an
+# impostor function. Each anchor must be found once.
+WIDE_FAULT_EDITS = {
+    # one keep bit of every (row, head)'s probabilities flipped: (t, j) = (0, 1)
+    "keep_bit_flipped": (
+        "mha_block.cu", "mha_block_bwd_wide_bf16",
+        "const bool kp = t < T && j < T && drop.keep(seed, salt, t, j);",
+        "const bool kp = t < T && j < T && (drop.keep(seed, salt, t, j) != "
+        "(t == 0 && j == 1));"),
+    # dbqkv's last row tile of each (row, head) left out of its sum
+    "dbqkv_partial_dropped": (
+        "mha_block.cu", "mha_block_bwd_wide_bf16",
+        "for (int r = 0; r < NK; ++r) s += colp[(which * NK + r) * HD + c];",
+        "for (int r = 0; r + 1 < NK; ++r) s += colp[(which * NK + r) * HD + c];"),
+    # the pass's first frame past a strip (its reach) read as zeros
+    "halo_frame_skipped": (
+        "conv_block.cu", "conv_block_bwd_wide_bf16",
+        "const bool on = w.loads(e), own = w.owned(t);",
+        "const bool on = w.loads(e) && e != w.s1, own = w.owned(t);"),
+}
+WIDE_FAULTS = (*WIDE_FAULT_EDITS, "ds_unrounded")
+
+
+def _fault_library(fault):
+    """The kernel library with the entry point of WIDE_FAULT_EDITS[fault]
+    taken from a changed copy of its source."""
+    from vslnet_torch.bench.common import build_copy
+
+    source, entry, old, new = WIDE_FAULT_EDITS[fault]
+    src = (K.CSRC / source).read_text()
+    if src.count(old) != 1:
+        raise RuntimeError("%s: the anchor is not found once in %s"
+                           % (fault, source))
+    copy = build_copy("fault_" + fault, src.replace(old, new).replace(
+        'extern "C" int vsl_', 'extern "C" int fault_'))
+    fn = getattr(copy, "fault_" + entry)
+    fn.argtypes = K._SIGNATURES["vsl_" + entry]
+    fn.restype = ctypes.c_int
+    main = K._library()
+
+    class Lib:
+        def __getattr__(self, name):
+            return fn if name == "vsl_" + entry else getattr(main, name)
+    return Lib()
+
+
+def wide_fault(case, fault):
+    """The wide backward's case with WIDE_FAULTS[fault] planted: its kernel
+    from a changed copy of the source, or (ds_unrounded) the MHA block's
+    twin with dS left unrounded for dQ and dK."""
+    if fault == "ds_unrounded":
+        return case._replace(kernel=lambda: K.mha_block_bwd_plain(
+            *case.args, round_ds=False))
+    lib = _fault_library(fault)
+
+    def kernel():
+        main, K._LIB = K._LIB, lib
+        try:
+            return [t.clone() for t in case.kernel()]
+        finally:
+            K._LIB = main
     return case._replace(kernel=kernel)
 
 

@@ -1,5 +1,5 @@
 """What the card-only scripts of vslnet_torch/bench share: CUDA-event
-timing, time by kernel, the card's name and power limit, a copy of a kernel
+timing, time and launches by kernel, the card's name and power limit, a copy of a kernel
 source with clock stamps, and building a changed copy of a kernel source
 into a library of its own."""
 import ctypes
@@ -45,6 +45,26 @@ def by_kernel(fn, reps=10):
         if e.device_type == DeviceType.CUDA:
             out[e.key[:60]] = (out.get(e.key[:60], 0.0)
                                + e.device_time_total / 1e3 / reps)
+    return out
+
+
+def kernel_counts(fn, reps=3):
+    """{kernel name, cut to 60 characters: launches a call of fn}, from
+    torch.profiler over reps calls after one (by_kernel's names)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            out[e.key[:60]] = out.get(e.key[:60], 0) + e.count / reps
     return out
 
 

@@ -22,7 +22,8 @@ limit. --precision bf16 runs the paths at precision=bf16 (beyond T = 145
 the bf16 whole-T and flash kernels) and adds the JAX bench's `saturated`
 configuration (the transformer at hidden 1024 in 8 heads of 128, T = 128,
 batch 256: the wide conv and MHA block kernels; bench.py's dataset); a
-tree without bf16 refuses it.
+tree without bf16 refuses it. --paths saturated (or T128,M,L, comma
+separated) runs only those.
 """
 import argparse
 import json
@@ -197,6 +198,8 @@ def main(argv=None, seed=0):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--precision", choices=("fp32", "bf16"),
                         default="fp32")
+    parser.add_argument("--paths", default="",
+                        help="comma-separated paths to run (default: all)")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -212,6 +215,8 @@ def main(argv=None, seed=0):
     paths = dict(PATHS)
     if args.precision == "bf16":
         paths["saturated"] = SATURATED
+    if args.paths:
+        paths = {p: paths[p] for p in args.paths.split(",")}
     for path, (predictor, T, B) in paths.items():
         if path == "saturated":
             dataset, feats = saturated_data(seed)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The bf16 LSTM backward (#8b) and the bf16 T-tiled conv backward (#9c),
-each beside its twin, held to an fp64 evaluation of the same function, on
-the card:
+"""The bf16 LSTM backward (#8b), the bf16 T-tiled conv backward (#9c) and,
+with --wide, the wide bf16 backwards (#9c wide, #10b wide), each beside
+its twin, held to an fp64 evaluation of the same function, on the card:
 
     python3 -m vslnet_torch.bench.tc_bwd_fp64
     PYTHONPATH=<older tree> python3 vslnet_torch/bench/tc_bwd_fp64.py
@@ -33,6 +33,14 @@ Adds to each #8b row the readings of a copy of csrc/lstm.cu whose step
 product runs each k16 step as two m16n8k8 mma (8 products summed inside
 the tensor core, not 16) added in fp32 (`kernel_k8`), built into
 vslnet_torch/_build/bench/ and launched through the wrapper.
+
+    python3 -m vslnet_torch.bench.tc_bwd_fp64 --wide
+
+Only the wide bf16 backwards at `saturated`'s widths, bf16_vjp's card
+cases ("conv_wide", "mha_wide": [256, 128, 1024] first, drop 0 and 0.2):
+#9c wide's dx and dwp, #10b wide's dx (through which its attention's dq,
+dk and dv show) and dwqkv, each of them and every other output read
+against conv_block_bwd_plain and mha_block_bwd_plain at work=float64.
 """
 import ctypes
 import importlib.util
@@ -86,11 +94,20 @@ def k8_library():
     return Lib()
 
 
-def cases(dev, seeds=0):
+WIDE = ("conv_wide", "mha_wide")
+
+
+def cases(dev, seeds=0, wide=False):
     """(kind, case) of the card cases and the long paths' shapes; with
-    `seeds`, #8b at T = 128 and 192 over that many draws instead."""
+    `seeds`, #8b at T = 128 and 192 over that many draws instead; with
+    `wide`, the wide kernels' card cases instead."""
     from vslnet_torch.bench import bf16_vjp as V
 
+    if wide:
+        for kind in WIDE:
+            for case in V.card_cases(dev, kind):
+                yield kind, case
+        return
     if seeds:
         for seed in range(100, 100 + seeds):
             for T in (128, 192):
@@ -121,19 +138,22 @@ def main():
     dev = torch.device("cuda")
     smi = card()
     twins = fp64_twins()
-    fp64 = {"lstm": twins.lstm_recurrence_bwd_plain, "conv_tiled": twins.conv_block_bwd_plain}
+    fp64 = {"lstm": twins.lstm_recurrence_bwd_plain, "conv_tiled": twins.conv_block_bwd_plain,
+            "conv_wide": twins.conv_block_bwd_plain, "mha_wide": twins.mha_block_bwd_plain}
     argv = sys.argv[1:]
     k8 = k8_library() if "--k8" in argv else None
     seeds = int(argv[argv.index("--seeds") + 1]) if "--seeds" in argv else 0
-    for kind, case in cases(dev, seeds):
+    for kind, case in cases(dev, seeds, "--wide" in argv):
         kern = [t.clone() for t in case.kernel()]
         twin = [t.detach() for t in case.twin()]
         ref = [t.detach() for t in fp64[kind](*case.args, work=torch.float64)]
         ok, why = V.verdict(case, V.read(case))
         row = {"bench": "tc_bwd_fp64", "card": smi, "kernel": case.name,
                "shape": list(case.shape), "verdict": ok, "why": why}
-        if kind == "conv_tiled":
+        if kind in ("conv_tiled", "conv_wide"):
             row["drop_rate"] = case.args[7]
+        elif kind == "mha_wide":
+            row["drop_rate"] = case.args[10]
         k_t, k_f, t_f = (V.reading(case, a, b) for a, b in
                          ((kern, twin), (kern, ref), (twin, ref)))
         for n in case.names:

@@ -23,9 +23,10 @@ namespace vsl {
 constexpr float kMaskValue = -1e30f;  // the reference's additive key mask
 constexpr float kLnEps = 1e-6f;       // LayerNorm epsilon of the reference
 
-// The wide blocks' per-frame kernels (conv_block.cu, mha_block.cu): a CTA
-// of kWideThreads walks a strip of frames in sub-tiles of kWideFrames
-// (ops/kernels.py WIDE_THREADS, WIDE_FRAMES).
+// The wide conv forward's per-frame kernel (conv_block.cu): a CTA of
+// kWideThreads walks a strip of frames in sub-tiles of kWideFrames; the
+// wide MHA backward's g_dpre launch takes kWideThreads too (ops/kernels.py
+// WIDE_THREADS, WIDE_FRAMES).
 constexpr int kWideThreads = 512;
 constexpr int kWideFrames = 8;
 
@@ -312,6 +313,76 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int G>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(G) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (8) bytes from src to shared dst by cp.async, zeros where !on (src
+// not read); the caller commits the group.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool on) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(on ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool on) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(on ? 8 : 0)
+               : "memory");
+}
+
+// --- streams of frames a column at a time ------------------------------------
+// The wide blocks' backward passes (conv_block.cu conv_wide_d_kernel,
+// conv_wide_pass_kernel; mha_block.cu wide_ln_pass_kernel): each thread
+// keeps 4 columns of every frame of a strip, in rings of shared memory
+// only it reads, a row's sums taken by block_sums.
+
+// v[k] summed over the block's threads for k < N, in a fixed order: each
+// warp's by shuffles, then the warps' in order from red [warps][N] (a
+// buffer no thread reads again before the next barrier after this one).
+template <int N>
+__device__ __forceinline__ void block_sums(float (&v)[N], float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = warp_sum(v[k]);
+  if (lane == 0)
+#pragma unroll
+    for (int k = 0; k < N; ++k) red[warp * N + k] = v[k];
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    float s = 0.f;
+    for (int w = 0; w < nw; ++w) s += red[w * N + k];
+    v[k] = s;
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ float4 fma4(float4 a, float4 b, float4 c) {
+  return make_float4(fmaf(a.x, b.x, c.x), fmaf(a.y, b.y, c.y), fmaf(a.z, b.z, c.z),
+                     fmaf(a.w, b.w, c.w));
+}
+__device__ __forceinline__ float sum4(float4 v) { return ((v.x + v.y) + v.z) + v.w; }
+// a thread's 4 values of a ring slot: fp32, or 4 bf16 in its first 8 bytes
+__device__ __forceinline__ float4 slot4(const float* p, bool bf16) {
+  return bf16 ? load4(reinterpret_cast<const __nv_bfloat16*>(p)) : ld4(p);
+}
+// a thread's 4 values at o of a [B, T, D] stream (bf16 or fp32) into its
+// ring slot dst by cp.async, zeros where !on
+__device__ __forceinline__ void cp_row4(float* dst, const void* src, size_t o, bool bf16,
+                                        bool on) {
+  if (bf16)
+    cp_async8(dst, static_cast<const __nv_bfloat16*>(src) + o, on);
+  else
+    cp_async16(dst, static_cast<const float*>(src) + o, on);
+}
+// bf16 of 4 values, stored as 8 bytes
+__device__ __forceinline__ void st4_bf16(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&a), *reinterpret_cast<const uint32_t*>(&b));
 }
 
 // --- weight gradients summed over the batch --------------------------------

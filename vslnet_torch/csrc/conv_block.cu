@@ -1507,11 +1507,11 @@ namespace {
 // pointwise product per tile: at D = 1024 the bf16 backward needs 242 KB a
 // tile of 8 frames, and a product of so few frames would re-read the 2 MB
 // of bf16(wp) once a tile. So each layer is split at its product:
-//   - the per-frame work on CTAs of strips of S frames a row (ops/kernels.py
-//     conv_wide_plan: enough strips to fill the card twice), walked in
-//     sub-tiles of kWideFrames frames with their depthwise reach, the
-//     column sums (dbp, dgam, dbeta, ddw) carried over the strip in shared
-//     memory, one thread a column, and written once a strip;
+//   - the per-frame work on CTAs of strips of frames a row (ops/kernels.py
+//     conv_wide_plan), the forward's walked in sub-tiles of kWideFrames
+//     frames with their depthwise reach, the backward's streamed a frame
+//     at a time (below), the column sums (dbp, dgam, dbeta, ddw) carried
+//     over the strip and written once a strip;
 //   - the product [B T, D] x [D, D] over every frame at once on mma.cuh's
 //     tc_gemm, the layer's epilogue fused into it.
 // Forward, a layer: (1) conv_wide_prologue_kernel: n = bf16(LN(x_l)) over
@@ -1520,16 +1520,31 @@ namespace {
 // ConvWideFwdEpi: p = . + bp, the ReLU mask [p > 0] the backward reads
 // (bits of 4 columns a byte, two lanes' pairs joined by a shuffle),
 // x_(l+1) = x_l + drop(relu(p)), fp32 between the layers.
-// Backward, layers in reverse: (1) the prologue again for bf16(d) (dwp's
-// operand) and g_p = [p > 0] drop(G_in) from the mask, bf16(g_p) to dwp's
-// workspace, dbp summing the unrounded g_p; (2) tc_gemm g_d = bf16(g_p) .
+// Backward, layers in reverse, L + 1 per-frame launches beside the
+// products: (1) conv_wide_d_kernel, once for all layers: d_l =
+// bf16(depthwise(bf16(LN_l(x_l)))) (dwp's operand) and, for the top layer,
+// g_p = [p > 0] drop(g) from the mask, bf16(g_p) to dwp's workspace, dbp
+// summing the unrounded g_p; (2) per layer, tc_gemm g_d = bf16(g_p) .
 // bf16(wp)^T (wp's rows as they are stored) into an fp32 workspace; (3)
-// conv_wide_bwd_kernel: n_l and xh again over the sub-tile and its reach,
-// ddw from the UNROUNDED n against g_d, g_n the depthwise transpose of
-// g_d, the LayerNorm backward (dgam, dbeta), G_out = G_in + dx_ln. Then
-// dwp = sum bf16(d)^T . bf16(g_p) on wgrad_tc and the partials summed in a
-// fixed order. The function, rounding for rounding, is the tiled bf16
-// kernels'; no atomics.
+// conv_wide_pass_kernel: ddw from the UNROUNDED n_l against g_d, g_n the
+// depthwise transpose of g_d, the LayerNorm backward (dgam, dbeta), G_out =
+// G_in + dx_ln and, below the top layer, the next layer down's g_p =
+// [p > 0] drop(G_out) from the same frames' G_out, its bf16 copy and dbp
+// (its prologue, fused into the pass above it). Then dwp = sum bf16(d)^T .
+// bf16(g_p) on wgrad_tc and the partials summed in a fixed order. The
+// function, rounding for rounding, is the tiled bf16 kernels'; no atomics.
+// The backward's passes take a CTA of D / 4 threads a strip of S frames of
+// a row (conv_wide_plan's bwd_strip: one CTA a row at `saturated`), four
+// columns a thread. A column's frames stream through rings of shared
+// memory that only its own thread reads, kWideBwdFrames frames a batch by
+// cp.async, the next batch in flight while the thread works on the current
+// one: x_l (then xh, or n) and g_d over the depthwise reach, G_in over the
+// own frames; its taps, dw, ddw, dgam, dbeta and dbp sums stay in
+// registers. The rows' sums (each new frame's LayerNorm mean and
+// variance, each own frame's two LN backward means) are block sums in a
+// fixed order (a warp's by shuffles, then the warps' in order), two
+// barriers a batch. ~97 KB of shared memory a CTA at D = 1024, so two CTAs
+// share an SM. Each frame's statistics are taken once a pass.
 // What bounds them: the products, 2 B T D^2 FLOPs a layer forward and two
 // such backward plus dwp's, on the tensor cores (at `saturated`, 69 GFLOP
 // a product); the per-frame passes move each layer's [B, T, D] rows a few
@@ -1537,43 +1552,29 @@ namespace {
 using vsl::kWideFrames;
 using vsl::kWideThreads;
 
-// Shared memory in floats (ops/kernels.py conv_wide_plan reports both; the
-// launches use these), F = kWideFrames:
-//   prologue: X [F + K - 1][D] x_l then n over the reach, DW [K][D], dbp [D]
-//   backward: N [F + K - 1][D] n over the reach, then g_n; XH [F][D];
-//             GD [F + K - 1][D] g_d over E; DW [K][D]; ACC [K + 2][D]
-//             (dgam, dbeta, ddw over the strip); SCR [2][D]; inv [F]
+// The forward prologue's shared memory in floats (ops/kernels.py
+// conv_wide_plan reports it; the launch uses this), F = kWideFrames: X [F +
+// K - 1][D] x_l then n over the reach, DW [K][D].
 __host__ __device__ inline size_t wide_prologue_floats(int D, int K) {
-  return (size_t)(kWideFrames + 2 * K) * D;
-}
-__host__ __device__ inline size_t wide_bwd_floats(int D, int K) {
-  return (size_t)(2 * (kWideFrames + K - 1) + kWideFrames + 2 * K + 4) * D + kWideFrames;
+  return (size_t)(kWideFrames + 2 * K - 1) * D;
 }
 
 // Layer l's per-frame work before its product for the strip [s0, s0 + S)
-// of row b: d = bf16(depthwise(bf16(LN(x_l)))) into d_l [B, T, D]; with
-// kBwd also g_p = [p > 0] drop(G_in) from mask_l [B, T, D / 4], bf16(g_p)
-// into gp_l and dbp (the unrounded g_p's column sums over the strip) into
-// the strip's partials part [B * strips, L, 3 + K, D].
-template <bool kBwd, typename XIn, typename GIn>
+// of row b: d = bf16(depthwise(bf16(LN(x_l)))) into d_l [B, T, D].
+template <typename XIn>
 __global__ void __launch_bounds__(kWideThreads, 1)
 conv_wide_prologue_kernel(const XIn* __restrict__ xin, ConvParams p, int l, int S,
-                          __nv_bfloat16* __restrict__ d_l, const uint8_t* __restrict__ mask_l,
-                          vsl::Dropout drop, const GIn* __restrict__ Gin,
-                          __nv_bfloat16* __restrict__ gp_l, float* __restrict__ part) {
+                          __nv_bfloat16* __restrict__ d_l) {
   extern __shared__ float4 smem4[];
   const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2;
   const int b = blockIdx.y, s0 = blockIdx.x * S, s1 = min(T, s0 + S);
   float* X = reinterpret_cast<float*>(smem4);
   float* DW = X + (size_t)(kWideFrames + K - 1) * D;
-  float* dbp = DW + (size_t)K * D;
   const size_t row = (size_t)b * T * D;
   const float* gam = p.gam + (size_t)l * D;
   const float* beta = p.beta + (size_t)l * D;
-  const uint32_t seed = drop.seed(b), salt = vsl::site_salt(0x100u + l);
   const int tid = threadIdx.x, nt = blockDim.x;
   vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
-  for (int c = tid; c < D && kBwd; c += nt) dbp[c] = 0.f;
   for (int t0 = s0; t0 < s1; t0 += kWideFrames) {
     const int nf = min(kWideFrames, s1 - t0);
     // x_l over [t0 - pad, t0 + nf + K - 1 - pad), 0 outside [0, T)
@@ -1588,25 +1589,7 @@ conv_wide_prologue_kernel(const XIn* __restrict__ xin, ConvParams p, int l, int 
     vsl::layer_norm_rows<true>(own, own, gam, beta, hi - lo, D);
     __syncthreads();
     taps_rows<false, true>(X, DW, nf, D, K, d_l + row + (size_t)t0 * D);
-    if constexpr (kBwd) {
-      for (int c = tid; c < D; c += nt) {
-        float s = dbp[c];
-        for (int r = 0; r < nf; ++r) {
-          const size_t i = row + (size_t)(t0 + r) * D + c;
-          const float gp = (mask_l[i / 4] >> (c & 3)) & 1u
-                               ? drop.apply(vsl::to_float(Gin[i]), seed, salt, t0 + r, c)
-                               : 0.f;
-          s += gp;
-          gp_l[i] = __float2bfloat16(gp);
-        }
-        dbp[c] = s;
-      }
-    }
     __syncthreads();  // X read before the next sub-tile's rows land
-  }
-  if constexpr (kBwd) {
-    float* pr = part + ((size_t)(b * gridDim.x + blockIdx.x) * p.L + l) * (3 + K) * D;
-    for (int c = tid; c < D; c += nt) pr[2 * D + c] = dbp[c];
   }
 }
 
@@ -1638,74 +1621,346 @@ struct ConvWideFwdEpi {
   }
 };
 
-// Layer l's per-frame work after g_d for the strip [s0, s0 + S) of row b:
-// ddw, g_n, the LayerNorm backward (dgam, dbeta), G_out = G_in + dx_ln;
-// gd [B, T, D] the layer's g_d (0 outside [0, T), where g_p is).
-template <typename XIn, typename GIn, typename GOut>
-__global__ void __launch_bounds__(kWideThreads, 1)
-conv_wide_bwd_kernel(const XIn* __restrict__ xin, ConvParams p, int l, int S,
-                     const float* __restrict__ gd, const GIn* __restrict__ Gin,
-                     GOut* __restrict__ Gout, float* __restrict__ part) {
+// --- the backward's per-frame passes ----------------------------------------
+// Frames a batch of the pass's and the d launch's streams (ops/kernels.py
+// WIDE_BWD_FRAMES, WIDE_D_FRAMES) and the taps they are built for (the
+// model's; conv_wide_plan refuses others).
+constexpr int kWideBwdFrames = 2;
+constexpr int kWideDFrames = 4;
+constexpr int kWideBwdK = 7;
+constexpr int kWideBwdMaxThreads = 256;  // D / 4 at D = 1024
+
+// Frames a ring of batches of F holds: an own frame's reach on either side
+// (K - 1 - pad frames, pad = (K - 1) / 2) twice, the batch in use and the
+// one in flight.
+__host__ __device__ constexpr int wide_bwd_ring(int K, int F) {
+  return 2 * F + 2 * (K - 1 - (K - 1) / 2);
+}
+
+// Their shared memory in bytes (ops/kernels.py _conv_wide_pass_bytes,
+// _conv_wide_d_bytes), D / 128 warps: the pass X, GD [R][D], GI [2F][D],
+// inv [R] and two reductions [D / 128][3F] (F = kWideBwdFrames); the d
+// launch X [R][D], GI [2F][D] and two reductions [D / 128][F] (F =
+// kWideDFrames); R = wide_bwd_ring(K, F).
+__host__ __device__ inline size_t wide_pass_bytes(int D, int K) {
+  const int F = kWideBwdFrames, R = wide_bwd_ring(K, F);
+  return 4 * ((2 * (size_t)R + 2 * F) * D + R + 2 * (size_t)(D / 128) * 3 * F);
+}
+__host__ __device__ inline size_t wide_d_bytes(int D, int K) {
+  const int F = kWideDFrames, R = wide_bwd_ring(K, F);
+  return 4 * (((size_t)R + 2 * F) * D + 2 * (size_t)(D / 128) * F);
+}
+
+using vsl::block_sums;
+using vsl::cp_async8;
+using vsl::cp_row4;
+using vsl::fma4;
+using vsl::ld4;
+using vsl::slot4;
+using vsl::st4;
+using vsl::sum4;
+
+// g_p = [p > 0] drop(v) of 4 columns (mask bits 0-3) at (t, c..c+3) of
+// layer `salt`'s site, bf16(g_p) stored at gp, the unrounded g_p added to s
+__device__ __forceinline__ void put_gp(float4 v, uint32_t bits, const vsl::Dropout& drop,
+                                       uint32_t seed, uint32_t salt, int t, int c,
+                                       __nv_bfloat16* gp, float4& s) {
+  const float in[4] = {v.x, v.y, v.z, v.w};
+  float o[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    o[q] = (bits >> q) & 1u ? drop.apply(in[q], seed, salt, t, c + q) : 0.f;
+  *reinterpret_cast<uint2*>(gp) =
+      make_uint2(vsl::pack_bf16(o[0], o[1]), vsl::pack_bf16(o[2], o[3]));
+  s = make_float4(s.x + o[0], s.y + o[1], s.z + o[2], s.w + o[3]);
+}
+
+// A thread's view of a pass's stream over the strip [s0, s1) of row b: its
+// frames e = a + i F + k (batch i, k < F) land in ring slot (e - a) % R,
+// its own frame t = e - gl of batch i (its reach has landed) is worked in
+// it, its G_in in slot (i F + k) % 2F of a ring of two batches.
+template <int K, int F_>
+struct WideStream {
+  static constexpr int F = F_, PAD = (K - 1) / 2, GL = K - 1 - PAD, R = wide_bwd_ring(K, F);
+  int a, nb, s0, s1, T;
+  __device__ int own(int i, int k) const { return a + i * F + k - GL; }
+  __device__ bool owned(int t) const { return t >= s0 && t < s1; }
+  __device__ int slot(int e) const { return (e - a) % R; }
+  // the frames to load: inside [0, T), none past the strip's last reach
+  __device__ bool loads(int e) const { return e >= 0 && e < T && e < s1 + GL; }
+};
+
+// (1) d_l for every layer l = blockIdx.z over the strip [s0, s0 + S) of row
+// b = blockIdx.y, and for the top layer its g_p from g and mask_top with
+// dbp into its slot of part [B * strips, L, 3 + K, D]. x_l: x (bf16) for
+// layer 0, else xs[l - 1] (fp32). A thread's columns [4 tid, 4 tid + 4):
+// its frames e = s0 - pad + i F + k stream into the ring X (n once the
+// frame's statistics are known), own frame t = e - (K - 1 - pad) once its
+// reach has landed.
+template <int K>
+__global__ void __launch_bounds__(kWideBwdMaxThreads, 2)
+conv_wide_d_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ xs, ConvParams p,
+                   int S, __nv_bfloat16* __restrict__ d_all, const uint8_t* __restrict__ mask_top,
+                   vsl::Dropout drop, const __nv_bfloat16* __restrict__ g,
+                   __nv_bfloat16* __restrict__ gp_top, float* __restrict__ part) {
+  using W = WideStream<K, kWideDFrames>;
+  constexpr int F = W::F, PAD = W::PAD, R = W::R;
   extern __shared__ float4 smem4[];
-  const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2, gl = K - 1 - pad;
+  const int T = p.T, D = p.D, l = blockIdx.z, tid = threadIdx.x, c = 4 * tid;
+  const int nw = blockDim.x >> 5;
   const int b = blockIdx.y, s0 = blockIdx.x * S, s1 = min(T, s0 + S);
-  const size_t E = (size_t)(kWideFrames + K - 1) * D;
-  float* N = reinterpret_cast<float*>(smem4);
-  float* XH = N + E;
-  float* GD = XH + (size_t)kWideFrames * D;
-  float* DW = GD + E;
-  float* ACC = DW + (size_t)K * D;  // dgam, dbeta, ddw [K][D]
-  float* SCR = ACC + (size_t)(K + 2) * D;
-  float* inv = SCR + 2 * (size_t)D;
+  const W w{s0 - PAD, (s1 - s0 + K - 1 + F - 1) / F, s0, s1, T};
+  const bool top = l == p.L - 1, xb = l == 0;
+  const size_t layer = (size_t)gridDim.y * T * D, row = (size_t)b * T * D;
+  const void* xin =
+      xb ? static_cast<const void*>(x) : static_cast<const void*>(xs + (l - 1) * layer);
+  float* X = reinterpret_cast<float*>(smem4);  // [R][D]
+  float* GI = X + (size_t)R * D;               // [2F][D]
+  float* RED = GI + (size_t)2 * F * D;         // [2][nw][F]
+  const float4 gam = ld4(p.gam + (size_t)l * D + c), beta = ld4(p.beta + (size_t)l * D + c);
+  float4 dw[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) dw[j] = ld4(p.dw + ((size_t)l * K + j) * D + c);
+  const uint32_t seed = drop.seed(b), salt = vsl::site_salt(0x100u + l);
+  float4 sp = make_float4(0.f, 0.f, 0.f, 0.f);
+  // batch i's frames into the ring, the top layer's G_in of its own frames
+  // into GI (one commit group); their mask bytes, frame k in byte k
+  const auto issue = [&](int i) {
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const int e = w.a + i * F + k, t = w.own(i, k);
+      const bool on = w.loads(e), own = top && w.owned(t);
+      cp_row4(X + (size_t)w.slot(e) * D + c, xin, row + (size_t)(on ? e : 0) * D + c, xb, on);
+      if (top)
+        cp_async8(GI + (size_t)((i * F + k) % (2 * F)) * D + c,
+                  g + row + (size_t)(own ? t : 0) * D + c, own);
+    }
+    vsl::cp_async_commit();
+  };
+  const auto bits_of = [&](int i) {
+    uint32_t m = 0;
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const int t = w.own(i, k);
+      if (top && w.owned(t)) m |= (uint32_t)mask_top[(row + (size_t)t * D) / 4 + tid] << (8 * k);
+    }
+    return m;
+  };
+  issue(0);
+  uint32_t bits = bits_of(0);
+  for (int i = 0; i < w.nb; ++i) {
+    uint32_t next = 0;
+    if (i + 1 < w.nb) {
+      issue(i + 1);
+      next = bits_of(i + 1);
+      vsl::cp_async_wait<1>();
+    } else {
+      vsl::cp_async_wait<0>();
+    }
+    // the new frames' statistics, then n = bf16(LN(x)) in place (0 outside [0, T))
+    float4 xn[F];
+    float r1[F], r2[F];
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      xn[k] = slot4(X + (size_t)w.slot(w.a + i * F + k) * D + c, xb);
+      r1[k] = sum4(xn[k]);
+    }
+    block_sums<F>(r1, RED);
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const float mean = r1[k] / D;
+      xn[k] = make_float4(xn[k].x - mean, xn[k].y - mean, xn[k].z - mean, xn[k].w - mean);
+      r2[k] = ((xn[k].x * xn[k].x + xn[k].y * xn[k].y) + xn[k].z * xn[k].z) + xn[k].w * xn[k].w;
+    }
+    block_sums<F>(r2, RED + nw * F);
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const int e = w.a + i * F + k;
+      const float inv = rsqrtf(r2[k] / D + vsl::kLnEps);
+      float4 n = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e >= 0 && e < T)
+        n = make_float4(vsl::bf16_round(xn[k].x * inv * gam.x + beta.x),
+                        vsl::bf16_round(xn[k].y * inv * gam.y + beta.y),
+                        vsl::bf16_round(xn[k].z * inv * gam.z + beta.z),
+                        vsl::bf16_round(xn[k].w * inv * gam.w + beta.w));
+      st4(X + (size_t)w.slot(e) * D + c, n);
+    }
+    // the own frames: d = bf16(sum_j n(t + j - pad) dw[j]), the top layer's g_p
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const int t = w.own(i, k);
+      if (!w.owned(t)) continue;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < K; ++j) acc = fma4(ld4(X + (size_t)w.slot(t + j - PAD) * D + c), dw[j], acc);
+      const size_t o = (size_t)l * layer + row + (size_t)t * D + c;
+      *reinterpret_cast<uint2*>(d_all + o) =
+          make_uint2(vsl::pack_bf16(acc.x, acc.y), vsl::pack_bf16(acc.z, acc.w));
+      if (top)
+        put_gp(slot4(GI + (size_t)((i * F + k) % (2 * F)) * D + c, true), (bits >> (8 * k)) & 0xFu,
+               drop, seed, salt, t, c, gp_top + row + (size_t)t * D + c, sp);
+    }
+    bits = next;
+  }
+  if (top) st4(part + ((size_t)(b * gridDim.x + blockIdx.x) * p.L + l) * (3 + K) * D + 2 * D + c, sp);
+}
+
+// (3) layer l's pass over the strip [s0, s0 + S) of row b after its g_d
+// (gd [B, T, D], 0 outside [0, T)): ddw, g_n, the LN backward (dgam,
+// dbeta), G_out = G_in + dx_ln; with mask_prev (l > 0) also layer l - 1's
+// g_p from G_out, bf16 into gp_prev, dbp into layer l - 1's slot. x_l and
+// G_in in bf16 (xb, gb: layer 0's x, the block's g) or fp32, G_out in bf16
+// (ob: layer 0's dx) or fp32. A thread's columns [4 tid, 4 tid + 4): its
+// frames e = s0 - gl + i F + k (gl = K - 1 - pad) stream into the rings X
+// (xh once the frame's statistics are known) and GD, own frame t = e - gl
+// (its reach landed) into GI; an own frame's inverse deviation is from an
+// earlier batch (F <= gl), kept in inv by thread 0.
+template <int K>
+__global__ void __launch_bounds__(kWideBwdMaxThreads, 2)
+conv_wide_pass_kernel(const void* __restrict__ xin, bool xb, ConvParams p, int l, int S,
+                      const float* __restrict__ gd, const void* __restrict__ gin, bool gb,
+                      void* __restrict__ gout, bool ob, const uint8_t* __restrict__ mask_prev,
+                      __nv_bfloat16* __restrict__ gp_prev, vsl::Dropout drop,
+                      float* __restrict__ part) {
+  using bf16 = __nv_bfloat16;
+  using W = WideStream<K, kWideBwdFrames>;
+  constexpr int F = W::F, PAD = W::PAD, GL = W::GL, R = W::R;
+  static_assert(F <= GL, "an own frame's statistics come from an earlier batch");
+  extern __shared__ float4 smem4[];
+  const int T = p.T, D = p.D, tid = threadIdx.x, c = 4 * tid;
+  const int nw = blockDim.x >> 5;
+  const int b = blockIdx.y, s0 = blockIdx.x * S, s1 = min(T, s0 + S);
+  const W w{s0 - GL, (s1 - s0 + 2 * GL + F - 1) / F, s0, s1, T};
   const size_t row = (size_t)b * T * D;
-  const float* gam = p.gam + (size_t)l * D;
-  const float* beta = p.beta + (size_t)l * D;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
-  for (int i = tid; i < (K + 2) * D; i += nt) ACC[i] = 0.f;
-  for (int t0 = s0; t0 < s1; t0 += kWideFrames) {
-    const int nf = min(kWideFrames, s1 - t0), ne = nf + K - 1;
-    const int h0 = t0 - pad, lo = max(h0, 0), hi = min(h0 + ne, T);
-    const int e0 = t0 - gl;
-    for (int i = tid; i < ne * D; i += nt) {
-      const int th = h0 + i / D, te = e0 + i / D;
-      N[i] = th >= lo && th < hi ? vsl::to_float(xin[row + (size_t)h0 * D + i]) : 0.f;
-      GD[i] = te >= 0 && te < T ? gd[row + (size_t)e0 * D + i] : 0.f;
+  float* X = reinterpret_cast<float*>(smem4);  // [R][D]
+  float* GD = X + (size_t)R * D;               // [R][D]
+  float* GI = GD + (size_t)R * D;              // [2F][D]
+  float* INV = GI + (size_t)2 * F * D;         // [R]
+  float* RED = INV + R;                        // [2][nw][3F]
+  const float4 gam = ld4(p.gam + (size_t)l * D + c), beta = ld4(p.beta + (size_t)l * D + c);
+  float4 dw[K], ddw[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    dw[j] = ld4(p.dw + ((size_t)l * K + j) * D + c);
+    ddw[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float4 sg = make_float4(0.f, 0.f, 0.f, 0.f), sb = sg, sp = sg;
+  const uint32_t seed = drop.seed(b), salt = vsl::site_salt(0x100u + l - 1);
+  const auto at = [&](float* ring, int e) { return ring + (size_t)w.slot(e) * D + c; };
+  const auto gi_at = [&](int i, int k) { return GI + (size_t)((i * F + k) % (2 * F)) * D + c; };
+  // batch i's frames into the rings, its own frames' G_in into GI (one
+  // commit group)
+  const auto issue = [&](int i) {
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const int e = w.a + i * F + k, t = w.own(i, k);
+      const bool on = w.loads(e), own = w.owned(t);
+      const size_t o = row + (size_t)(on ? e : 0) * D + c;
+      cp_row4(at(X, e), xin, o, xb, on);
+      vsl::cp_async16(at(GD, e), gd + o, on);
+      cp_row4(gi_at(i, k), gin, row + (size_t)(own ? t : 0) * D + c, gb, own);
     }
-    vsl::cp_async_wait<0>();
-    __syncthreads();
-    // n_l in place, xh and inv of the own rows
-    ln_window_rows(N, lo - h0, hi - lo, pad, nf, gam, beta, XH, inv, D);
-    __syncthreads();
-    // ddw[j, c] += sum over the own frames of n(t + j - pad, c) * g_d(t, c)
-    for (int i = tid; i < K * D; i += nt) {
-      const int j = i / D, c = i - j * D;
-      float s = 0.f;
-      for (int r = 0; r < nf; ++r)
-        s = fmaf(N[(size_t)(r + j) * D + c], GD[(size_t)(r + gl) * D + c], s);
-      ACC[2 * D + i] += s;
+    vsl::cp_async_commit();
+  };
+  const auto bits_of = [&](int i) {  // the own frames' mask bytes, frame k in byte k
+    uint32_t m = 0;
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const int t = w.own(i, k);
+      if (mask_prev && w.owned(t))
+        m |= (uint32_t)mask_prev[(row + (size_t)t * D) / 4 + tid] << (8 * k);
     }
-    __syncthreads();
-    // g_n(t0 + r) = sum_j g_d(t0 + r + pad - j) dw[j] into N's first rows
-    taps_rows<true>(GD, DW, nf, D, K, N);
-    __syncthreads();
-    vsl::ln_backward_rows(N, XH, inv, gam, nf, D, SCR, SCR + D, [&](int r, int c, float v) {
-      const size_t i = row + (size_t)(t0 + r) * D + c;
-      Gout[i] = vsl::from_float<GOut>(vsl::to_float(Gin[i]) + v);
-    });
-    // the sub-tile's dgam, dbeta: written above by this thread for its columns
-    for (int c = tid; c < D; c += nt) {
-      ACC[c] += SCR[c];
-      ACC[D + c] += SCR[D + c];
+    return m;
+  };
+  issue(0);
+  uint32_t bits = bits_of(0);
+  for (int i = 0; i < w.nb; ++i) {
+    uint32_t next = 0;
+    if (i + 1 < w.nb) {
+      issue(i + 1);
+      next = bits_of(i + 1);
+      vsl::cp_async_wait<1>();
+    } else {
+      vsl::cp_async_wait<0>();
     }
-    __syncthreads();  // N, XH and GD read before the next sub-tile's rows land
+    // round 1: the new frames' sums; the own frames' g_n(t) = sum_j g_d(t +
+    // pad - j) dw[j] and the LN backward's sums of dxh = g_n gam and dxh xh
+    float4 xn[F], gn[F];
+    float r1[3 * F], r2[F];
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const int t = w.own(i, k);
+      xn[k] = slot4(at(X, w.a + i * F + k), xb);
+      r1[k] = sum4(xn[k]);
+      r1[F + 2 * k] = r1[F + 2 * k + 1] = 0.f;
+      gn[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (!w.owned(t)) continue;
+#pragma unroll
+      for (int j = 0; j < K; ++j) gn[k] = fma4(ld4(at(GD, t + PAD - j)), dw[j], gn[k]);
+      const float4 xh = ld4(at(X, t));
+      const float4 dxh = make_float4(gn[k].x * gam.x, gn[k].y * gam.y, gn[k].z * gam.z,
+                                     gn[k].w * gam.w);
+      r1[F + 2 * k] = sum4(dxh);
+      r1[F + 2 * k + 1] = ((dxh.x * xh.x + dxh.y * xh.y) + dxh.z * xh.z) + dxh.w * xh.w;
+      sg = fma4(gn[k], xh, sg);
+      sb = make_float4(sb.x + gn[k].x, sb.y + gn[k].y, sb.z + gn[k].z, sb.w + gn[k].w);
+    }
+    block_sums<3 * F>(r1, RED);
+    // round 2: the new frames' variances; then xh in place
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const float mean = r1[k] / D;
+      xn[k] = make_float4(xn[k].x - mean, xn[k].y - mean, xn[k].z - mean, xn[k].w - mean);
+      r2[k] = ((xn[k].x * xn[k].x + xn[k].y * xn[k].y) + xn[k].z * xn[k].z) + xn[k].w * xn[k].w;
+    }
+    block_sums<F>(r2, RED + nw * 3 * F);
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const int e = w.a + i * F + k;
+      const float inv = rsqrtf(r2[k] / D + vsl::kLnEps);
+      st4(at(X, e), make_float4(xn[k].x * inv, xn[k].y * inv, xn[k].z * inv, xn[k].w * inv));
+      if (tid == 0) INV[w.slot(e)] = inv;
+    }
+    // the own frames: dx_ln, G_out, layer l - 1's g_p, ddw[j] += n(t + j -
+    // pad) g_d(t) with the unrounded n = xh gam + beta (0 outside [0, T))
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const int t = w.own(i, k);
+      if (!w.owned(t)) continue;
+      const float m1 = r1[F + 2 * k] / D, m2 = r1[F + 2 * k + 1] / D, inv = INV[w.slot(t)];
+      const float4 xh = ld4(at(X, t));
+      const float4 gi = slot4(gi_at(i, k), gb);
+      const float4 go =
+          make_float4(gi.x + inv * (gn[k].x * gam.x - m1 - xh.x * m2),
+                      gi.y + inv * (gn[k].y * gam.y - m1 - xh.y * m2),
+                      gi.z + inv * (gn[k].z * gam.z - m1 - xh.z * m2),
+                      gi.w + inv * (gn[k].w * gam.w - m1 - xh.w * m2));
+      const size_t o = row + (size_t)t * D + c;
+      if (ob)
+        *reinterpret_cast<uint2*>(static_cast<bf16*>(gout) + o) =
+            make_uint2(vsl::pack_bf16(go.x, go.y), vsl::pack_bf16(go.z, go.w));
+      else
+        st4(static_cast<float*>(gout) + o, go);
+      if (mask_prev) put_gp(go, (bits >> (8 * k)) & 0xFu, drop, seed, salt, t, c, gp_prev + o, sp);
+      const float4 g = ld4(at(GD, t));
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int e = t + j - PAD;
+        if (e < 0 || e >= T) continue;
+        const float4 h = ld4(at(X, e));
+        const float4 n = make_float4(h.x * gam.x + beta.x, h.y * gam.y + beta.y,
+                                     h.z * gam.z + beta.z, h.w * gam.w + beta.w);
+        ddw[j] = fma4(n, g, ddw[j]);
+      }
+    }
+    bits = next;
   }
   float* pr = part + ((size_t)(b * gridDim.x + blockIdx.x) * p.L + l) * (3 + K) * D;
-  for (int c = tid; c < D; c += nt) {
-    pr[c] = ACC[c];
-    pr[D + c] = ACC[D + c];
-  }
-  for (int i = tid; i < K * D; i += nt) pr[3 * D + i] = ACC[2 * D + i];
+  st4(pr + c, sg);
+  st4(pr + D + c, sb);
+#pragma unroll
+  for (int j = 0; j < K; ++j) st4(pr + (size_t)(3 + j) * D + c, ddw[j]);
+  if (mask_prev) st4(pr - (size_t)(3 + K) * D + 2 * D + c, sp);
 }
 
 template <typename T>
@@ -1721,8 +1976,13 @@ cudaError_t by_type(bool bf16, F f) {
 
 bool wide_ok(int B, int T, int D, int L, int K, int S) {
   return B >= 1 && T >= 1 && L >= 1 && K >= 1 && D % vsl::kTcGemmN == 0 && S >= 1 &&
-         S % kWideFrames == 0 &&
-         wide_bwd_floats(D, K) * sizeof(float) <= 232448;
+         S % kWideFrames == 0 && wide_prologue_floats(D, K) * sizeof(float) <= 232448;
+}
+
+// The backward's passes take the model's taps and 4 columns a thread.
+bool wide_bwd_ok(int B, int T, int D, int L, int K, int S) {
+  return B >= 1 && T >= 1 && L >= 1 && K == kWideBwdK && D % vsl::kTcGemmN == 0 &&
+         D / 4 <= kWideBwdMaxThreads && S >= 1 && wide_pass_bytes(D, K) <= 232448;
 }
 
 }  // namespace
@@ -1755,9 +2015,8 @@ extern "C" int vsl_conv_block_fwd_wide_bf16(const void* x, const float* gam, con
     err = by_type(l == 0, [&](auto it) {
       using XIn = typename decltype(it)::type;
       const XIn* xin = static_cast<const XIn*>(in);
-      cudaError_t e = vsl::launch_opted(conv_wide_prologue_kernel<false, XIn, float>, grid,
-                                        kWideThreads, smem, stream, xin, p, l, S, d, nullptr,
-                                        drop, nullptr, nullptr, nullptr);
+      cudaError_t e = vsl::launch_opted(conv_wide_prologue_kernel<XIn>, grid, kWideThreads,
+                                        smem, stream, xin, p, l, S, d);
       if (e != cudaSuccess) return e;
       return by_type(l == L - 1, [&](auto ot) {
         using XOut = typename decltype(ot)::type;
@@ -1777,7 +2036,7 @@ extern "C" int vsl_conv_block_fwd_wide_bf16(const void* x, const float* gam, con
 // T, D] bf16 (dwp's operands), gd_ws [B, T, D] fp32 (a layer's g_d), g_ws
 // [2, B, T, D] fp32 (the stream between the layers, as the tiled bf16
 // backward's), part [B * ceil(T / S), L, 3 + K, D], gemm_ws [L, splits, D,
-// D].
+// D]. The passes on strips of S frames (conv_wide_plan's bwd_strip).
 extern "C" int vsl_conv_block_bwd_wide_bf16(const void* x, const float* xs, const void* mask,
                                             const float* gam, const float* beta,
                                             const float* dw, const void* wpb, const float* bp,
@@ -1787,48 +2046,34 @@ extern "C" int vsl_conv_block_bwd_wide_bf16(const void* x, const float* xs, cons
                                             float* part, float* gemm_ws, int splits, int B,
                                             int T, int D, int L, int K, int S, void* stream_) {
   using bf16 = __nv_bfloat16;
+  constexpr int KW = kWideBwdK;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (!wide_ok(B, T, D, L, K, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!wide_bwd_ok(B, T, D, L, K, S)) return static_cast<int>(cudaErrorInvalidValue);
   const ConvParams p = make_params(gam, beta, dw, nullptr, bp, T, D, L, K);
   const vsl::Dropout drop{seeds, thresh, scale};
   const size_t layer = (size_t)B * T * D;
-  const int M = B * T;
+  const int M = B * T, threads = D / 4;
   const bf16* wb = static_cast<const bf16*>(wpb);
   const uint8_t* mk = static_cast<const uint8_t*>(mask);
   bf16* d_all = static_cast<bf16*>(d_ws);
   bf16* gp_all = static_cast<bf16*>(gp_ws);
   const dim3 grid((T + S - 1) / S, B);
-  const size_t smem1 = wide_prologue_floats(D, K) * sizeof(float);
-  const size_t smem3 = wide_bwd_floats(D, K) * sizeof(float);
-  cudaError_t err = cudaSuccess;
+  cudaError_t err = vsl::launch_opted(
+      conv_wide_d_kernel<KW>, dim3(grid.x, B, L), threads, wide_d_bytes(D, K), stream,
+      static_cast<const bf16*>(x), xs, p, S, d_all, mk + (L - 1) * layer / 4, drop,
+      static_cast<const bf16*>(g), gp_all + (L - 1) * layer, part);
   for (int l = L - 1; l >= 0 && err == cudaSuccess; --l) {
     const void* in = l == 0 ? x : static_cast<const void*>(xs + (l - 1) * layer);
     const void* gin = l == L - 1 ? g : static_cast<const void*>(g_ws + ((l + 1) & 1) * layer);
     void* gout = l == 0 ? dx : static_cast<void*>(g_ws + (l & 1) * layer);
-    bf16* d_l = d_all + l * layer;
-    bf16* gp_l = gp_all + l * layer;
-    err = by_type(l == 0, [&](auto it) {
-      using XIn = typename decltype(it)::type;
-      return by_type(l == L - 1, [&](auto gt) {
-        using GIn = typename decltype(gt)::type;
-        const XIn* xin = static_cast<const XIn*>(in);
-        const GIn* gi = static_cast<const GIn*>(gin);
-        cudaError_t e = vsl::launch_opted(conv_wide_prologue_kernel<true, XIn, GIn>, grid,
-                                          kWideThreads, smem1, stream, xin, p, l, S, d_l,
-                                          mk + l * layer / 4, drop, gi, gp_l, part);
-        if (e == cudaSuccess)
-          e = vsl::tc_gemm<true>(gp_l, wb + (size_t)l * D * D, M, D, D, D, D,
-                                 vsl::TcStoreRows{gd_ws, M, D}, stream);
-        if (e != cudaSuccess) return e;
-        return by_type(l == 0, [&](auto ot) {
-          using GOut = typename decltype(ot)::type;
-          return vsl::launch_opted(conv_wide_bwd_kernel<XIn, GIn, GOut>, grid, kWideThreads,
-                                   smem3, stream, xin, p, l, S,
-                                   static_cast<const float*>(gd_ws), gi,
-                                   static_cast<GOut*>(gout), part);
-        });
-      });
-    });
+    err = vsl::tc_gemm<true>(gp_all + l * layer, wb + (size_t)l * D * D, M, D, D, D, D,
+                             vsl::TcStoreRows{gd_ws, M, D}, stream);
+    if (err == cudaSuccess)
+      err = vsl::launch_opted(conv_wide_pass_kernel<KW>, grid, threads, wide_pass_bytes(D, K),
+                              stream, in, l == 0, p, l, S, static_cast<const float*>(gd_ws), gin,
+                              l == L - 1, gout, l == 0,
+                              l > 0 ? mk + (l - 1) * layer / 4 : nullptr,
+                              l > 0 ? gp_all + (l - 1) * layer : nullptr, drop, part);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   err = vsl::sum_partials(part, dsmall, 1, B * grid.x, L * (3 + K) * D, stream);

@@ -353,22 +353,6 @@ __host__ __device__ inline size_t attn_tile_floats(int T, int TQ, int hd) {
          T + 2 * (size_t)T * hd;
 }
 
-// Its bytes; with `half` (the bf16 body at head dim 128, kHalfRows) Ks,
-// Vs, Qs and Gs are bf16 rows of hd + 2 (ops/kernels.py
-// _mha_wide_attention_bytes).
-__host__ __device__ inline size_t attn_tile_bytes(int T, int TQ, int hd, bool half) {
-  if (!half) return attn_tile_floats(T, TQ, hd) * sizeof(float);
-  return 2 * (2 * (size_t)T * (hd + 2) + 2 * (size_t)TQ * (hd + 2)) +
-         4 * (2 * (size_t)TQ * (T + 1) + TQ + T + 2 * (size_t)T * hd);
-}
-
-// The bf16 body holds k, v, q * scale and g_att, all bf16 values, as bf16
-// at head dim 128: the fp32 rows and the cluster's dK, dV partials would
-// not fit a block's shared memory at T = 128 (297 KB at query tiles of
-// 16); bf16 rows of 130 values (65 words, an odd stride) do (223 KB).
-template <int HD, bool kBf16>
-constexpr bool kHalfRows = kBf16 && HD >= 128;
-
 // 2. the attention backward of one (row, head, query tile), in clusters of
 // ceil(T / TQ) CTAs a (row, head) along x, CTA r taking the query rows
 // [r TQ, min(T, (r + 1) TQ)). Reads q, k and v through base pointers and
@@ -396,15 +380,13 @@ attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
   const int r = static_cast<int>(cluster.block_rank());
   const int bh = static_cast<int>(blockIdx.x) / nq, b = bh / n_heads, h = bh - b * n_heads;
   const int t0 = r * TQ, nt = min(TQ, T - t0);
-  constexpr bool kHalf = kHalfRows<HD, kBf16>;
-  using ST = std::conditional_t<kHalf, __nv_bfloat16, float>;  // Ks, Vs, Qs, Gs
-  constexpr int LD = kHalf ? HD + 2 : HD + 1;
+  constexpr int LD = HD + 1;
   const int lds = T + 1;
-  ST* Ks = reinterpret_cast<ST*>(smem4);
-  ST* Vs = Ks + (size_t)T * LD;
-  ST* Qs = Vs + (size_t)T * LD;
-  ST* Gs = Qs + (size_t)TQ * LD;
-  float* SP = reinterpret_cast<float*>(Gs + (size_t)TQ * LD);
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + (size_t)T * LD;
+  float* Qs = Vs + (size_t)T * LD;
+  float* Gs = Qs + (size_t)TQ * LD;
+  float* SP = Gs + (size_t)TQ * LD;
   float* PD = SP + (size_t)TQ * lds;
   float* Dt = PD + (size_t)TQ * lds;
   float* neg = Dt + TQ;
@@ -421,14 +403,13 @@ attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
   // bytes: ld, D and h * HD are multiples of 4, the bases 16-byte aligned)
   constexpr int HD4 = HD / 4;
   using vsl::load4;
-  const auto store4 = [](ST* dst, float4 v, float f) {
-    const auto rnd = [](float a) { return vsl::from_float<ST>(kBf16 ? vsl::bf16_round(a) : a); };
+  const auto store4 = [](float* dst, float4 v, float f) {
+    const auto rnd = [](float a) { return kBf16 ? vsl::bf16_round(a) : a; };
     dst[0] = rnd(v.x * f);
     dst[1] = rnd(v.y * f);
     dst[2] = rnd(v.z * f);
     dst[3] = rnd(v.w * f);
   };
-  using vsl::to_float;
 #pragma unroll 4
   for (int i = tid; i < T * HD4; i += nth) {
     const int j = i / HD4, d = (i - j * HD4) * 4;
@@ -464,8 +445,8 @@ attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
   __syncthreads();
   // S = (q * scale).k^T + neg, the forward's scores bit for bit
   tile_product<4, 4>(
-      nt, T, HD, [&](int m, int k) { return to_float(Qs[m * LD + k]); },
-      [&](int k, int n) { return to_float(Ks[n * LD + k]); },
+      nt, T, HD, [&](int m, int k) { return Qs[m * LD + k]; },
+      [&](int k, int n) { return Ks[n * LD + k]; },
       [&](int m, int n, float v) { SP[(size_t)m * lds + n] = v + neg[n]; });
   __syncthreads();
   // P and drop(P), one warp a query row, the keep bits hashed once a (t, j)
@@ -496,15 +477,15 @@ attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
         const float pd = PD[(size_t)t * lds + j];
         return kBf16 ? vsl::bf16_round(pd) : pd;
       },
-      [&](int t, int d) { return to_float(Gs[t * LD + d]); },
+      [&](int t, int d) { return Gs[t * LD + d]; },
       [&](int j, int d, float v) { dVp[j * HD + d] = v; });
   if constexpr (!kBf16) {
     // dS = P * (drop(G.V^T) - D_t), in place: each element has one owner.
     // Where P > 0, drop(P) > 0 exactly where the key is kept; where P = 0,
     // dS = 0 whatever the keep.
     tile_product<4, 4>(
-        nt, T, HD, [&](int m, int k) { return to_float(Gs[m * LD + k]); },
-        [&](int k, int n) { return to_float(Vs[n * LD + k]); },
+        nt, T, HD, [&](int m, int k) { return Gs[m * LD + k]; },
+        [&](int k, int n) { return Vs[n * LD + k]; },
         [&](int t, int j, float dp) {
           float* sp = SP + (size_t)t * lds + j;
           const float dpd = PD[(size_t)t * lds + j] != 0.f ? drop.kept(dp) : 0.f;
@@ -514,8 +495,8 @@ attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
     __syncthreads();  // drop(P) read by dV before dP takes its place
     // dP = drop(G.V^T) into PD, in place
     tile_product<4, 4>(
-        nt, T, HD, [&](int m, int k) { return to_float(Gs[m * LD + k]); },
-        [&](int k, int n) { return to_float(Vs[n * LD + k]); },
+        nt, T, HD, [&](int m, int k) { return Gs[m * LD + k]; },
+        [&](int k, int n) { return Vs[n * LD + k]; },
         [&](int t, int j, float dp) {
           float* pd = PD + (size_t)t * lds + j;
           *pd = *pd != 0.f ? drop.kept(dp) : 0.f;
@@ -536,7 +517,7 @@ attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
   // more rounds of the CTA's threads (each element is one chain over the
   // keys either way)
   const auto ds_tj = [&](int t, int j) { return SP[(size_t)t * lds + j]; };
-  const auto k_jd = [&](int j, int d) { return to_float(Ks[j * LD + d]); };
+  const auto k_jd = [&](int j, int d) { return Ks[j * LD + d]; };
   const auto dq_out = [&](int t, int d, float v) {
     dqp[ob + (size_t)(t0 + t) * ldd + d] = vsl::from_float<OT>(v * scale);
   };
@@ -548,7 +529,7 @@ attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
   // this CTA's dK = dS^T . (q * scale) over its query rows
   tile_product<4, 2>(
       T, HD, nt, [&](int j, int t) { return SP[(size_t)t * lds + j]; },
-      [&](int t, int d) { return to_float(Qs[t * LD + d]); },
+      [&](int t, int d) { return Qs[t * LD + d]; },
       [&](int j, int d, float v) { dKp[j * HD + d] = v; });
   cluster.sync();  // every CTA's partials
   // dK, dV of the key rows [t0, t0 + nt): the cluster's partials, all read
@@ -588,7 +569,7 @@ cudaError_t launch_attention_bwd_tiles(const IT* q, const IT* k, const IT* v, in
                                        int ldd, int B, int T, int D, int n_heads, int TQ,
                                        int threads, cudaStream_t stream) {
   const int nq = (T + TQ - 1) / TQ;
-  const size_t smem = attn_tile_bytes(T, TQ, HD, kHalfRows<HD, kBf16>);
+  const size_t smem = attn_tile_floats(T, TQ, HD) * sizeof(float);
   const float scale = kBf16 ? vsl::bf16_round_host(vsl::head_scale(HD)) : vsl::head_scale(HD);
   const cudaError_t err = vsl::launch_cluster(
       attn_bwd_cluster_kernel<HD, kBf16, IT, OT>, B * n_heads * nq, nq, threads, smem, stream, q, k, v,
@@ -1061,29 +1042,23 @@ namespace {
 // 8 frames only with slices of <= 8 rows, and each of B T / 8 CTAs would
 // re-read the 6 MB of bf16 weights. So the per-frame launches split at
 // their products: the LayerNorms, dropouts, residuals and column sums run
-// on warps a frame (the forward) or on strips of S frames a row walked in
-// sub-tiles of kWideFrames frames (the backward), and the four products
-// [B T, D] x [D, 3D], [B T, D] x [D, D] and their transposes run over
-// every frame at once on mma.cuh's tc_gemm, the bias, rounding, dropout
-// and residual epilogues fused into them. The attention is the block's own
-// bodies at HD = 128 (attn_fwd_tile_kernel, attn_bwd_cluster_kernel with
-// kHalfRows). The function, with each rounding point, is the bf16 block's
+// on warps a frame (the forward) or on strips of S frames a row streamed a
+// few frames at a time (the backward, wide_ln_pass_kernel), and the four
+// products [B T, D] x [D, 3D], [B T, D] x [D, D] and their transposes run
+// over every frame at once on mma.cuh's tc_gemm, the bias, rounding,
+// dropout and residual epilogues fused into them. The forward's attention is the
+// block's own body at HD = 128 (attn_fwd_tile_kernel); the backward's is
+// a tensor-core kernel of its own (attn_bwd_wide_kernel below). The
+// function, with each rounding point, is the bf16 block's
 // (vsl_mha_block_fwd_bf16 / _bwd_bf16 above): y, q, k, v, bf16(q scale),
 // drop(p), z rounded; the bias gradients of the unrounded gradients, the
 // products and dwd, dwqkv of the rounded ones; qkv and att as the bf16
 // forward saves them. What bounds them: the products, 2 B T D 4D FLOPs
 // forward and twice that backward plus the weight gradients, on the
-// tensor cores, and the attention's 4 T^2 hd FLOPs a (row, head) forward
-// (10 backward), fp32 products out of shared memory.
-using vsl::kWideFrames;
+// tensor cores, and the attention's 4 T^2 hd FLOPs a (row, head) forward,
+// fp32 products out of shared memory (10 backward, on the tensor cores).
 using vsl::kWideThreads;
 constexpr int kLnRows = 8;         // frames a CTA of the forward's LayerNorm launch, one a warp
-
-// The backward's per-frame launches' shared memory in floats: XH, G [F][D],
-// ACC, SCR [2][D], inv [F] (ops/kernels.py mha_wide_plan reports it).
-__host__ __device__ inline size_t wide_tile_floats(int D) {
-  return (size_t)(2 * kWideFrames + 4) * D + kWideFrames;
-}
 
 // Out [B T, D] = bf16(drop_site(LN(src))) with src = x (kRes false: LN1,
 // site 0x200) or drop201(att) + x (kRes: LN2, site 0x202), one warp a
@@ -1160,26 +1135,23 @@ struct DenseEpi {
   }
 };
 
-// out [B T, N] = bf16(v), v = drop_site(src) (site 0: none), and the column
-// sums of the unrounded v over the strip [s0, s0 + S) of row b into part's
-// slot [off, off + N) of [B * strips, 8D]: g_dpre and dbd (src g, site
-// 0x203), dqkv's rounding and dbqkv (src dqkv, no site).
-template <typename ST>
+// g_dpre = drop203(g) rounded to bf16 into gdt [B T, D], and dbd, the
+// column sums of the unrounded g_dpre over the strip [s0, s0 + S) of row b,
+// into part's slot [7D, 8D) of [B * strips, 8D].
 __global__ void __launch_bounds__(kWideThreads)
-wide_round_sums_kernel(const ST* __restrict__ src, vsl::Dropout drop, uint32_t site,
-                       __nv_bfloat16* __restrict__ out, float* __restrict__ part, int off, int T,
-                       int D, int N, int S) {
+wide_gdpre_kernel(const __nv_bfloat16* __restrict__ g, vsl::Dropout drop,
+                  __nv_bfloat16* __restrict__ gdt, float* __restrict__ part, int T, int D,
+                  int S) {
   const int b = blockIdx.y, s0 = blockIdx.x * S, s1 = min(T, s0 + S);
-  const uint32_t seed = drop.seed(b), salt = vsl::site_salt(site);
-  float* pr = part + ((size_t)b * gridDim.x + blockIdx.x) * 8 * D + off;
-  for (int c = threadIdx.x; c < N; c += blockDim.x) {
+  const uint32_t seed = drop.seed(b), salt = vsl::site_salt(0x203u);
+  float* pr = part + ((size_t)b * gridDim.x + blockIdx.x) * 8 * D + 7 * D;
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
     float s = 0.f;
     for (int t = s0; t < s1; ++t) {
-      const size_t i = ((size_t)b * T + t) * N + c;
-      float v = vsl::to_float(src[i]);
-      if (site) v = drop.apply(v, seed, salt, t, c);
+      const size_t i = ((size_t)b * T + t) * D + c;
+      const float v = drop.apply(__bfloat162float(g[i]), seed, salt, t, c);
       s += v;
-      out[i] = __float2bfloat16(v);
+      gdt[i] = __float2bfloat16(v);
     }
     pr[c] = s;
   }
@@ -1187,79 +1159,467 @@ wide_round_sums_kernel(const ST* __restrict__ src, vsl::Dropout drop, uint32_t s
 
 // 1. after g_z = bf16(g_dpre) . bf16(Wd)^T (gz [B T, D]): the LN2 backward
 // (dgam2, dbeta2 over the strip), g_res = g + the LN2 path, g_att =
-// drop201(g_res), z = bf16(drop202(LN2(res))) for dwd; a strip of S frames
-// of row b in sub-tiles of kWideFrames. 3. (kQkv) after g_y = bf16(dqkv) .
-// bf16(Wqkv)^T (gz holds g_y): the LN1 backward (dgam1, dbeta1), dx =
-// bf16(g_res + the LN1 path), y = bf16(drop200(LN1(x))) for dwqkv.
-template <typename XT, bool kQkv>
-__global__ void __launch_bounds__(kWideThreads, 1)
-wide_ln_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ att,
-                   const float* __restrict__ gam, const float* __restrict__ beta,
-                   vsl::Dropout drop, const XT* __restrict__ g, const float* __restrict__ gz,
-                   float* __restrict__ gres, float* __restrict__ gatt,
-                   __nv_bfloat16* __restrict__ zy, XT* __restrict__ dx,
-                   float* __restrict__ part, int T, int D, int S) {
+// drop201(g_res), z = bf16(drop202(LN2(res))) for dwd. 3. (kQkv) after g_y
+// = bf16(dqkv) . bf16(Wqkv)^T (gz holds g_y): the LN1 backward (dgam1,
+// dbeta1), dx = bf16(g_res + the LN1 path), y = bf16(drop200(LN1(x))) for
+// dwqkv. A CTA of D / 4 threads streams the strip [s0, s0 + S) of row b
+// as conv_block.cu's backward passes do: each thread 4 columns of every
+// frame, kWideLnFrames frames a batch into rings of shared memory that
+// only it reads, by cp.async with the next batch in flight, the rows' sums
+// by vsl::block_sums; a frame's LayerNorm statistics in the batch it
+// lands, its backward (which needs them) a batch later. Rings of 3
+// batches: A (att, or with kQkv g_res), X (x, bf16 in the first 8 bytes of
+// a thread's 16, then xh), Z (gz), G (g; unused with kQkv).
+constexpr int kWideLnFrames = 2;
+constexpr int kWideLnMaxThreads = 256;  // D / 4 at D = 1024
+
+// Its shared memory in bytes (ops/kernels.py _mha_wide_ln_bytes): the four
+// rings [3 kWideLnFrames][D] and two reductions [D / 128][3 kWideLnFrames].
+__host__ __device__ inline size_t wide_ln_pass_bytes(int D) {
+  return 4 * (4 * 3 * (size_t)kWideLnFrames * D + 2 * (size_t)(D / 128) * 3 * kWideLnFrames);
+}
+
+template <bool kQkv>
+__global__ void __launch_bounds__(kWideLnMaxThreads, 2)
+wide_ln_pass_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ att,
+                    const float* __restrict__ gam, const float* __restrict__ beta,
+                    vsl::Dropout drop, const __nv_bfloat16* __restrict__ g,
+                    const float* __restrict__ gz, float* __restrict__ gres,
+                    float* __restrict__ gatt, __nv_bfloat16* __restrict__ zy,
+                    __nv_bfloat16* __restrict__ dx, float* __restrict__ part, int T, int D,
+                    int S) {
+  using vsl::ld4;
+  using vsl::st4;
+  using vsl::sum4;
+  constexpr int F = kWideLnFrames, RL = 3 * F;
   extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x, c = 4 * tid, nw = blockDim.x >> 5;
   const int b = blockIdx.y, s0 = blockIdx.x * S, s1 = min(T, s0 + S);
-  const size_t FD = (size_t)kWideFrames * D;
-  float* XH = reinterpret_cast<float*>(smem4);
-  float* G = XH + FD;
-  float* ACC = G + FD;  // dgam, dbeta of the strip
-  float* SCR = ACC + 2 * (size_t)D;
-  float* inv = SCR + 2 * (size_t)D;
+  const int nb = (s1 - s0 + F - 1) / F;
+  float* A = reinterpret_cast<float*>(smem4);  // [RL][D]
+  float* X = A + (size_t)RL * D;
+  float* Z = X + (size_t)RL * D;
+  float* G = Z + (size_t)RL * D;
+  float* RED = G + (size_t)RL * D;  // [2][nw][3F]
+  const size_t row = (size_t)b * T * D;
   const uint32_t seed = drop.seed(b);
-  const uint32_t s200 = vsl::site_salt(0x200u), s201 = vsl::site_salt(0x201u),
-                 s202 = vsl::site_salt(0x202u);
-  const uint32_t sln = kQkv ? s200 : s202;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int c = tid; c < 2 * D; c += nt) ACC[c] = 0.f;
-  for (int t0 = s0; t0 < s1; t0 += kWideFrames) {
-    const int nf = min(kWideFrames, s1 - t0), nel = nf * D;
-    const size_t tile = ((size_t)b * T + t0) * D;
-    if constexpr (kQkv) {
-      vsl::ln_normalize_rows(x + tile, XH, inv, nf, D);
-    } else {
-      for (int i = tid; i < nel; i += nt)
-        XH[i] = drop.apply(att[tile + i], seed, s201, t0 + i / D, i % D) +
-                vsl::to_float(x[tile + i]);
-      __syncthreads();
-      vsl::ln_normalize_rows(XH, XH, inv, nf, D);
-    }
-    for (int i = tid; i < nel; i += nt)
-      G[i] = drop.apply(gz[tile + i], seed, sln, t0 + i / D, i % D);
-    __syncthreads();
-    for (int i = tid; i < nel; i += nt) {
-      const int c = i % D;
-      const float n = XH[i] * __ldg(gam + c) + __ldg(beta + c);
-      const float v = drop.apply(n, seed, sln, t0 + i / D, c);
-      zy[tile + i] = __float2bfloat16(v);
-    }
-    vsl::ln_backward_rows(G, XH, inv, gam, nf, D, SCR, SCR + D, [&](int t, int c, float v) {
-      const size_t i = tile + (size_t)t * D + c;
-      if constexpr (kQkv) {
-        dx[i] = vsl::from_float<XT>(gres[i] + v);
+  const uint32_t s201 = vsl::site_salt(0x201u), sln = vsl::site_salt(kQkv ? 0x200u : 0x202u);
+  const float4 gm = ld4(gam + c), bt = ld4(beta + c);
+  const auto at = [&](float* ring, int e) { return ring + (size_t)((e - s0) % RL) * D + c; };
+  // batch i's frames (one commit group, empty past the last batch)
+  const auto issue = [&](int i) {
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const int e = s0 + i * F + k;
+      const bool on = i < nb && e < s1;
+      const size_t o = row + (size_t)(on ? e : s0) * D + c;
+      if (!on) continue;
+      vsl::cp_row4(at(X, e), x, o, true, true);
+      vsl::cp_row4(at(Z, e), gz, o, false, true);
+      if (kQkv) {
+        vsl::cp_row4(at(A, e), gres, o, false, true);
       } else {
-        const float gr = vsl::to_float(g[i]) + v;
-        gres[i] = gr;
-        gatt[i] = drop.apply(gr, seed, s201, t0 + t, c);
+        vsl::cp_row4(at(A, e), att, o, false, true);
+        vsl::cp_row4(at(G, e), g, o, true, true);
       }
-    });
-    for (int c = tid; c < D; c += nt) {  // this thread's columns of SCR
-      ACC[c] += SCR[c];
-      ACC[D + c] += SCR[D + c];
     }
-    __syncthreads();  // XH and G read before the next sub-tile's rows land
+    vsl::cp_async_commit();
+  };
+  const auto apply4 = [&](float4 v, uint32_t salt, int t) {
+    return make_float4(drop.apply(v.x, seed, salt, t, c), drop.apply(v.y, seed, salt, t, c + 1),
+                       drop.apply(v.z, seed, salt, t, c + 2),
+                       drop.apply(v.w, seed, salt, t, c + 3));
+  };
+  float4 sg = make_float4(0.f, 0.f, 0.f, 0.f), sb = sg;
+  float inv_prev[F];
+  issue(0);
+  for (int i = 0; i <= nb; ++i) {  // batch i's statistics, batch i - 1's backward
+    issue(i + 1);
+    vsl::cp_async_wait<1>();
+    // round 1: the new frames' LayerNorm input and its sums; the previous
+    // batch's G = drop(gz), dgam, dbeta and the sums of dxh = G gam, dxh xh
+    float4 v[F], gn[F];
+    float r1[3 * F], r2[F], inv[F];
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const int e = s0 + i * F + k, t = e - F;
+      v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < nb && e < s1) {
+        v[k] = vsl::slot4(at(X, e), true);
+        if (!kQkv) {
+          const float4 a = apply4(ld4(at(A, e)), s201, e);
+          v[k] = make_float4(a.x + v[k].x, a.y + v[k].y, a.z + v[k].z, a.w + v[k].w);
+        }
+      }
+      r1[k] = sum4(v[k]);
+      r1[F + 2 * k] = r1[F + 2 * k + 1] = 0.f;
+      gn[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i == 0 || t >= s1) continue;
+      gn[k] = apply4(ld4(at(Z, t)), sln, t);
+      const float4 xh = ld4(at(X, t));
+      const float4 dxh = make_float4(gn[k].x * gm.x, gn[k].y * gm.y, gn[k].z * gm.z,
+                                     gn[k].w * gm.w);
+      r1[F + 2 * k] = sum4(dxh);
+      r1[F + 2 * k + 1] = ((dxh.x * xh.x + dxh.y * xh.y) + dxh.z * xh.z) + dxh.w * xh.w;
+      sg = vsl::fma4(gn[k], xh, sg);
+      sb = make_float4(sb.x + gn[k].x, sb.y + gn[k].y, sb.z + gn[k].z, sb.w + gn[k].w);
+    }
+    vsl::block_sums<3 * F>(r1, RED);
+    // round 2: the new frames' variances; xh into X, the normalised output
+    // (z or y) rounded
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const float mean = r1[k] / D;
+      v[k] = make_float4(v[k].x - mean, v[k].y - mean, v[k].z - mean, v[k].w - mean);
+      r2[k] = ((v[k].x * v[k].x + v[k].y * v[k].y) + v[k].z * v[k].z) + v[k].w * v[k].w;
+    }
+    vsl::block_sums<F>(r2, RED + nw * 3 * F);
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const int e = s0 + i * F + k;
+      inv[k] = rsqrtf(r2[k] / D + vsl::kLnEps);
+      if (i == nb || e >= s1) continue;
+      const float4 xh = make_float4(v[k].x * inv[k], v[k].y * inv[k], v[k].z * inv[k],
+                                    v[k].w * inv[k]);
+      st4(at(X, e), xh);
+      const float4 n = make_float4(xh.x * gm.x + bt.x, xh.y * gm.y + bt.y, xh.z * gm.z + bt.z,
+                                   xh.w * gm.w + bt.w);
+      vsl::st4_bf16(zy + row + (size_t)e * D + c, apply4(n, sln, e));
+    }
+    // the previous batch's frames: dx_ln = inv (G gam - m1 - xh m2)
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const int t = s0 + i * F + k - F;
+      if (i == 0 || t >= s1) continue;
+      const float m1 = r1[F + 2 * k] / D, m2 = r1[F + 2 * k + 1] / D, r = inv_prev[k];
+      const float4 xh = ld4(at(X, t));
+      const float4 d = make_float4(r * (gn[k].x * gm.x - m1 - xh.x * m2),
+                                   r * (gn[k].y * gm.y - m1 - xh.y * m2),
+                                   r * (gn[k].z * gm.z - m1 - xh.z * m2),
+                                   r * (gn[k].w * gm.w - m1 - xh.w * m2));
+      const size_t o = row + (size_t)t * D + c;
+      if constexpr (kQkv) {
+        const float4 gr = ld4(at(A, t));
+        vsl::st4_bf16(dx + o, make_float4(gr.x + d.x, gr.y + d.y, gr.z + d.z, gr.w + d.w));
+      } else {
+        const float4 g4 = vsl::slot4(at(G, t), true);
+        const float4 gr = make_float4(g4.x + d.x, g4.y + d.y, g4.z + d.z, g4.w + d.w);
+        st4(gres + o, gr);
+        st4(gatt + o, apply4(gr, s201, t));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < F; ++k) inv_prev[k] = inv[k];
   }
   float* pr = part + ((size_t)b * gridDim.x + blockIdx.x) * 8 * D;
-  for (int c = tid; c < D; c += nt) {  // dgam [2D], dbeta [2D]: LN1 first
-    pr[(kQkv ? 0 : D) + c] = ACC[c];
-    pr[(kQkv ? 2 * D : 3 * D) + c] = ACC[D + c];
+  st4(pr + (kQkv ? 0 : D) + c, sg);  // dgam [2D], dbeta [2D]: LN1 first
+  st4(pr + (kQkv ? 2 * D : 3 * D) + c, sb);
+}
+
+// 2. (wide) the attention backward at head dim 128 on the tensor cores, one
+// CTA of kAttnWideWarps warps a (row, head), no cluster: T <= 16 NK keys
+// (NK tiles of 16, ops/kernels.py mha_wide_plan's attn_tiles) whole in
+// shared memory as bf16 rows at tc_stride(128): k, v, qs = bf16(q * scale)
+// and gh = bf16(g_att) (the function's roundings; qkv holds bf16 values),
+// rows past T zero. Warp w < NK takes the queries [16 w, 16 w + 16): S =
+// qs . k^T and dP = gh . v^T by mma.sync m16n8k16 (mma.cuh), then in the C
+// fragments, each row's sums over its four lanes in a fixed order: the
+// mask term, the row max, p = exp(s - max) * (1 / l), the keep bit at the
+// head's (t, j), bf16(drop(p)) into P [t][j], dP's dropout, D_t = sum_j dP
+// p and bf16(p (dP - D_t)) into dS [t][j], as attn_bwd_cluster_kernel's
+// kBf16 body has them. Then each warp takes (16 rows, 16 NK columns) of
+// the three products, over the keys or queries as k: dQ = bf16(dS) . k *
+// scale, dK = bf16(dS)^T . qs, dV = bf16(drop(P))^T . gh (ldmatrix.trans
+// for the transposed operands). Its epilogue writes bf16(dq), bf16(dk),
+// bf16(dv) straight into dqkvt [B, T, 3D] and sums the unrounded values
+// over the row's frames (the lanes' rows by shuffles, then the row tiles
+// in order) into strip 0's dbqkv partials of part [B * strips, 8D], zero
+// in the row's other strips. No atomics: two equal calls give equal bits.
+// What bounds it: its bytes, the fp32 q, k, v and g_att read once and
+// dqkvt written once (10 T^2 hd FLOPs a (row, head) take ~0.04 ms of the
+// tensor cores at `saturated`); one 221 KB CTA an SM loads, computes and
+// stores in turn.
+constexpr int kAttnWideWarps = 8;
+constexpr int kAttnWideHd = 128;
+
+// Its shared memory for NK tiles of 16 keys, in bytes (ops/kernels.py
+// _mha_wide_attn_bwd_bytes): k, v, qs, gh [16 NK][tc_stride(128)], P and
+// dS [16 NK][tc_stride(16 NK)] (bf16), the mask terms [16 NK] and the
+// column sums' row-tile partials [3][NK][128] (fp32).
+__host__ __device__ constexpr size_t attn_wide_bwd_bytes(int NK) {
+  return 2 * (4 * (size_t)16 * NK * vsl::tc_stride(kAttnWideHd) +
+              2 * (size_t)16 * NK * vsl::tc_stride(16 * NK)) +
+         4 * (16 * (size_t)NK + 3 * (size_t)NK * kAttnWideHd);
+}
+
+// acc[n] = A . B over k = 16 NK for a warp: A's rows [16 rt, + 16) from As
+// [.][lda] (kTA: A = As^T, As's columns), B's columns [c0, c0 + 16 NK) of
+// Bs [k][ldb]. The k16 products accumulate in the tensor cores: over these
+// few steps (8 at T = 128) their sums differ from fp32 adds no more than
+// another order of fp32 sums does (mma.cuh's kAdd, the fp32 adds that the
+// flash backward's 64-step chains need, cost this kernel a third of its
+// time).
+template <int NK, bool kTA>
+__device__ __forceinline__ void attn_wide_product(float (&acc)[2 * NK][4],
+                                                  const __nv_bfloat16* As, int lda,
+                                                  const __nv_bfloat16* Bs, int ldb, int rt, int c0) {
+  const int lane = threadIdx.x & 31, i = lane >> 3;
+#pragma unroll
+  for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < NK; ++ks) {
+    uint32_t a[4];
+    if constexpr (kTA)
+      vsl::ldsm_x4_trans(a, As + (16 * ks + (lane & 7) + ((i >> 1) << 3)) * lda + 16 * rt +
+                                ((i & 1) << 3));
+    else
+      vsl::ldsm_x4(a, As + (16 * rt + (lane & 15)) * lda + 16 * ks + (lane >> 4) * 8);
+#pragma unroll
+    for (int n = 0; n < 2 * NK; n += 2) {
+      uint32_t bb[4];
+      vsl::ldsm_x4_trans(bb, Bs + (16 * ks + (lane & 15)) * ldb + c0 + 8 * (n + (lane >> 4)));
+      vsl::mma16(acc[n], a, bb[0], bb[1]);
+      vsl::mma16(acc[n + 1], a, bb[2], bb[3]);
+    }
   }
 }
 
-bool wide_ok(int B, int T, int D, int n_heads, int S, int TQ) {
-  return B >= 1 && T >= 1 && n_heads >= 1 && D == 128 * n_heads && D % vsl::kTcGemmN == 0 &&
-         S >= 1 && S % kWideFrames == 0 && TQ >= 1 && (T + TQ - 1) / TQ <= kMaxCluster;
+// c[n] = A . B^T for a warp's 16 rows [r0, r0 + 16) of A [.][ld] against
+// the rows [k0, k0 + 16 NP) of Bt [.][ld] (B^T row-major), k = 128,
+// accumulated in the tensor cores as attn_wide_product's.
+template <int NP>
+__device__ __forceinline__ void attn_wide_scores(float (&c)[2 * NP][4], const __nv_bfloat16* A,
+                                                 const __nv_bfloat16* Bt, int ld, int r0,
+                                                 int k0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < 2 * NP; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kAttnWideHd / 16; ++ks) {
+    uint32_t a[4];
+    vsl::ldsm_x4(a, A + (r0 + (lane & 15)) * ld + 16 * ks + (lane >> 4) * 8);
+#pragma unroll
+    for (int n = 0; n < 2 * NP; n += 2) {
+      uint32_t bb[4];
+      vsl::ldsm_x4(bb, Bt + (k0 + 8 * n + (lane & 7) + ((lane >> 4) << 3)) * ld + 16 * ks +
+                           ((lane >> 3) & 1) * 8);
+      vsl::mma16(c[n], a, bb[0], bb[1]);
+      vsl::mma16(c[n + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+template <int NK>
+__global__ void __launch_bounds__(32 * kAttnWideWarps, 1)
+attn_bwd_wide_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+                     vsl::Dropout drop, const float* __restrict__ gatt,
+                     __nv_bfloat16* __restrict__ dqkvt, float* __restrict__ part, int T, int D,
+                     int n_heads, int strips, float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int HD = kAttnWideHd, TP = 16 * NK, SH = vsl::tc_stride(HD), SP = vsl::tc_stride(TP);
+  constexpr int NT = 32 * kAttnWideWarps, CW = 16 * NK;  // CW: a product item's columns
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);
+  bf16* Vs = Ks + TP * SH;
+  bf16* Qs = Vs + TP * SH;
+  bf16* Gs = Qs + TP * SH;
+  bf16* Ps = Gs + TP * SH;
+  bf16* DSs = Ps + TP * SP;
+  float* negk = reinterpret_cast<float*>(DSs + TP * SP);
+  float* colp = negk + TP;  // [3][NK][HD]
+  const int b = static_cast<int>(blockIdx.x) / n_heads, h = static_cast<int>(blockIdx.x) % n_heads;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g8 = lane >> 2, tq = lane & 3;
+  const size_t D3 = 3 * (size_t)D;
+  const float* qrow = qkv + (size_t)b * T * D3 + h * HD;
+  const float* grow = gatt + (size_t)b * T * D + h * HD;
+  // k, v, qs, gh by 16-byte loads in 2 NK rounds of the CTA's threads, up
+  // to 4 rounds' loads (16 a thread) issued before their stores
+  constexpr int kRounds = TP * (HD / 4) / NT, kBatch = kRounds < 4 ? kRounds : 4;
+#pragma unroll 1
+  for (int r0 = 0; r0 < kRounds; r0 += kBatch) {
+    float4 q4[kBatch], k4[kBatch], v4[kBatch], g4[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = (r0 + u) * NT + tid, j = i / (HD / 4), c = (i % (HD / 4)) * 4;
+      q4[u] = k4[u] = v4[u] = g4[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j < T) {
+        const float* r = qrow + (size_t)j * D3 + c;
+        q4[u] = *reinterpret_cast<const float4*>(r);
+        k4[u] = *reinterpret_cast<const float4*>(r + D);
+        v4[u] = *reinterpret_cast<const float4*>(r + 2 * D);
+        g4[u] = *reinterpret_cast<const float4*>(grow + (size_t)j * D + c);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = (r0 + u) * NT + tid, j = i / (HD / 4), c = (i % (HD / 4)) * 4;
+      const auto put = [&](bf16* dst, float4 v, float f) {
+        *reinterpret_cast<uint2*>(dst + j * SH + c) =
+            make_uint2(vsl::pack_bf16(v.x * f, v.y * f), vsl::pack_bf16(v.z * f, v.w * f));
+      };
+      put(Ks, k4[u], 1.f);  // bf16 values already
+      put(Vs, v4[u], 1.f);
+      put(Qs, q4[u], scale);
+      put(Gs, g4[u], 1.f);
+    }
+  }
+  for (int j = tid; j < TP; j += NT)
+    negk[j] = j < T ? (1.f - mask[(size_t)b * T + j]) * vsl::kMaskValue : 0.f;
+  __syncthreads();
+  if (warp < NK) {
+    const uint32_t seed = drop.seed(b), salt = vsl::head_salt(h);
+    const int r0 = 16 * warp;
+    float sc[2 * NK][4], dp[2 * NK][4];
+    attn_wide_scores<NK>(sc, Qs, Ks, SH, r0, 0);
+    attn_wide_scores<NK>(dp, Gs, Vs, SH, r0, 0);
+    // this lane's rows r0 + g8 (e < 2) and r0 + g8 + 8, columns 8 n + 2 tq + (e & 1)
+    float mx[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+    for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * n + 2 * tq + (e & 1);
+        sc[n][e] = j < T ? sc[n][e] + negk[j] : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+      }
+    float l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
+      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
+    }
+#pragma unroll
+    for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] = expf(sc[n][e] - mx[e >> 1]);  // 0 past T
+        l[e >> 1] += sc[n][e];
+      }
+    float dt[2] = {0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
+      l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
+      l[u] = 1.f / l[u];
+    }
+    // p, the keep bit once a (t, j), bf16(drop(p)) into P, dP's dropout
+#pragma unroll
+    for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int t = r0 + g8 + 8 * u;
+        float pd[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 2 * u + c, j = 8 * n + 2 * tq + c;
+          const float p = sc[n][e] * l[u];
+          sc[n][e] = p;
+          const bool kp = t < T && j < T && drop.keep(seed, salt, t, j);
+          pd[c] = kp ? drop.kept(p) : 0.f;
+          dp[n][e] = kp ? drop.kept(dp[n][e]) : 0.f;
+          dt[u] = fmaf(dp[n][e], p, dt[u]);
+        }
+        *reinterpret_cast<uint32_t*>(Ps + t * SP + 8 * n + 2 * tq) = vsl::pack_bf16(pd[0], pd[1]);
+      }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      dt[u] += __shfl_xor_sync(0xffffffffu, dt[u], 1);
+      dt[u] += __shfl_xor_sync(0xffffffffu, dt[u], 2);
+    }
+    // bf16(p (dP - D_t)) into dS, 0 on the rows past T
+#pragma unroll
+    for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int t = r0 + g8 + 8 * u;
+        const bool in = t < T;
+        *reinterpret_cast<uint32_t*>(DSs + t * SP + 8 * n + 2 * tq) =
+            vsl::pack_bf16(in ? sc[n][2 * u] * (dp[n][2 * u] - dt[u]) : 0.f,
+                           in ? sc[n][2 * u + 1] * (dp[n][2 * u + 1] - dt[u]) : 0.f);
+      }
+  }
+  __syncthreads();
+  // the three products, item (row tile rt, columns [c0, c0 + CW)) a warp:
+  // dQ rows are queries (k: keys), dK and dV rows keys (k: queries)
+  const int rt = warp % NK, c0 = (warp / NK) * CW;
+  bf16* orow = dqkvt + (size_t)b * T * D3 + h * HD;
+#pragma unroll 1
+  for (int which = 0; which < 3; ++which) {
+    float acc[2 * NK][4];
+    if (which == 0)
+      attn_wide_product<NK, false>(acc, DSs, SP, Ks, SH, rt, c0);
+    else if (which == 1)
+      attn_wide_product<NK, true>(acc, DSs, SP, Qs, SH, rt, c0);
+    else
+      attn_wide_product<NK, true>(acc, Ps, SP, Gs, SH, rt, c0);
+    const float f = which == 0 ? scale : 1.f;
+#pragma unroll
+    for (int n = 0; n < 2 * NK; ++n) {
+      float cs[2];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int t = 16 * rt + g8 + 8 * u;
+        if (t < T)
+          *reinterpret_cast<uint32_t*>(orow + (size_t)t * D3 + which * D + c0 + 8 * n + 2 * tq) =
+              vsl::pack_bf16(acc[n][2 * u], acc[n][2 * u + 1]);
+      }
+      // the unrounded sums over the tile's rows (those past T hold zeros:
+      // dS and drop(P) are 0 there)
+      cs[0] = acc[n][0] + acc[n][2];
+      cs[1] = acc[n][1] + acc[n][3];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) cs[u] += __shfl_xor_sync(0xffffffffu, cs[u], off);
+      if (g8 == 0)
+        *reinterpret_cast<float2*>(colp + (which * NK + rt) * HD + c0 + 8 * n + 2 * tq) =
+            make_float2(cs[0], cs[1]);
+    }
+  }
+  __syncthreads();
+  // dbqkv of the head's columns over the row, the row tiles in order
+  float* pr = part + (size_t)b * strips * 8 * D + 4 * D + h * HD;
+  for (int i = tid; i < 3 * HD; i += NT) {
+    const int which = i / HD, c = i % HD;
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < NK; ++r) s += colp[(which * NK + r) * HD + c];
+    pr[which * D + c] = s;
+    for (int st = 1; st < strips; ++st) pr[(size_t)st * 8 * D + which * D + c] = 0.f;
+  }
+}
+
+// The wide attention backward of B rows and n_heads heads at NK tiles of
+// 16 keys (T <= 16 NK; NK of 1, 2, 4, 8).
+cudaError_t launch_attn_bwd_wide(const float* qkv, const float* mask, vsl::Dropout drop,
+                                 const float* gatt, __nv_bfloat16* dqkvt, float* part, int B,
+                                 int T, int D, int n_heads, int strips, int NK,
+                                 cudaStream_t stream) {
+  if (T > 16 * NK || D != kAttnWideHd * n_heads) return cudaErrorInvalidValue;
+  const float scale = vsl::bf16_round_host(vsl::head_scale(kAttnWideHd));
+  const auto go = [&](auto kernel, int nk) {
+    return vsl::launch_opted(kernel, dim3(B * n_heads), 32 * kAttnWideWarps,
+                             attn_wide_bwd_bytes(nk), stream, qkv, mask, drop, gatt, dqkvt, part,
+                             T, D, n_heads, strips, scale);
+  };
+  switch (NK) {
+    case 1: return go(attn_bwd_wide_kernel<1>, 1);
+    case 2: return go(attn_bwd_wide_kernel<2>, 2);
+    case 4: return go(attn_bwd_wide_kernel<4>, 4);
+    case 8: return go(attn_bwd_wide_kernel<8>, 8);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool wide_ok(int B, int T, int D, int n_heads) {
+  return B >= 1 && T >= 1 && n_heads >= 1 && D == kAttnWideHd * n_heads &&
+         D % vsl::kTcGemmN == 0 && D / 4 <= kWideLnMaxThreads && T <= 16 * kAttnWideWarps;
 }
 
 }  // namespace
@@ -1277,7 +1637,8 @@ extern "C" int vsl_mha_block_fwd_wide_bf16(const void* x_, const float* mask, co
                                            int T, int D, int n_heads, int TQ, void* stream_) {
   using bf16 = __nv_bfloat16;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (!wide_ok(B, T, D, n_heads, kWideFrames, TQ)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!wide_ok(B, T, D, n_heads) || TQ < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bf16* x = static_cast<const bf16*>(x_);
   bf16* out = static_cast<bf16*>(out_);
   bf16* y = static_cast<bf16*>(y_ws);
@@ -1309,19 +1670,19 @@ extern "C" int vsl_mha_block_fwd_wide_bf16(const void* x_, const float* mask, co
 // dbeta [2, D], dbqkv [3D], dbd [D]), dwqkv [D, 3D], dwd [D, D] fp32.
 // Workspaces: gdt, z, y [B, T, D] bf16 (bf16(g_dpre), and dwd's and
 // dwqkv's operands); gz [B, T, D] fp32 (g_z, then g_y); gres, gatt [B, T,
-// D] fp32; dqkv [B, T, 3D] fp32 and dqkvt its bf16 rounding; part [B *
-// ceil(T / S), 8D]; gemm_ws [splits, D, 3D]. Strips of S frames, query
-// tiles of TQ rows (ceil(T / TQ) <= 8).
+// D] fp32; dqkvt [B, T, 3D] bf16 (bf16(dqkv), from the attention's
+// epilogue); part [B * ceil(T / S), 8D]; gemm_ws [splits, D, 3D]. Strips
+// of S frames; the attention on NK tiles of 16 keys (T <= 16 NK).
 extern "C" int vsl_mha_block_bwd_wide_bf16(
     const void* x_, const float* mask, const float* gam, const float* beta, const void* wqkvb,
     const void* wdb, const float* seeds, unsigned thresh, float scale, const float* qkv,
     const float* att, const void* g_, void* dx_, float* dsmall, float* dwqkv, float* dwd,
-    void* gdt_, float* gz, void* z_, float* gres, float* gatt, float* dqkv, void* dqkvt_,
-    void* y_, float* part, float* gemm_ws, int splits, int B, int T, int D, int n_heads, int S,
-    int TQ, void* stream_) {
+    void* gdt_, float* gz, void* z_, float* gres, float* gatt, void* dqkvt_, void* y_,
+    float* part, float* gemm_ws, int splits, int B, int T, int D, int n_heads, int S, int NK,
+    void* stream_) {
   using bf16 = __nv_bfloat16;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (!wide_ok(B, T, D, n_heads, S, TQ)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!wide_ok(B, T, D, n_heads) || S < 1) return static_cast<int>(cudaErrorInvalidValue);
   const bf16* x = static_cast<const bf16*>(x_);
   const bf16* g = static_cast<const bf16*>(g_);
   bf16* dx = static_cast<bf16*>(dx_);
@@ -1330,35 +1691,29 @@ extern "C" int vsl_mha_block_bwd_wide_bf16(
   const vsl::Dropout drop{seeds, thresh, scale};
   const int M = B * T;
   const dim3 grid((T + S - 1) / S, B);
-  const size_t smem = wide_tile_floats(D) * sizeof(float);
+  const size_t smem = wide_ln_pass_bytes(D);
   // 1. g_dpre = drop203(g) rounded, dbd; g_z; the LN2 backward
-  cudaError_t err = vsl::launch_opted(wide_round_sums_kernel<bf16>, grid, kWideThreads, 0,
-                                      stream, g, drop, 0x203u, gdt, part, 7 * D, T, D, D, S);
+  cudaError_t err = vsl::launch_opted(wide_gdpre_kernel, grid, kWideThreads, 0, stream, g, drop,
+                                      gdt, part, T, D, S);
   if (err == cudaSuccess)
     err = vsl::tc_gemm<true>(gdt, static_cast<const bf16*>(wdb), M, D, D, D, D,
                              vsl::TcStoreRows{gz, M, D}, stream);
   if (err == cudaSuccess)
-    err = vsl::launch_opted(wide_ln_bwd_kernel<bf16, false>, grid, kWideThreads, smem, stream,
-                            x, att, gam + D, beta + D, drop, g, static_cast<const float*>(gz),
-                            gres, gatt, z, static_cast<bf16*>(nullptr), part, T, D, S);
-  // 2. the attention backward into dqkv
+    err = vsl::launch_opted(wide_ln_pass_kernel<false>, grid, D / 4, smem, stream, x, att,
+                            gam + D, beta + D, drop, g, static_cast<const float*>(gz), gres,
+                            gatt, z, static_cast<bf16*>(nullptr), part, T, D, S);
+  // 2. the attention backward: bf16(dqkv) and dbqkv
   if (err == cudaSuccess)
-    err = launch_attention_bwd_tiles<128, true>(qkv, qkv + D, qkv + 2 * D, 3 * D, mask, drop, att,
-                                                static_cast<const float*>(gatt), dqkv, dqkv + D,
-                                                dqkv + 2 * D, 3 * D, B, T, D, n_heads, TQ,
-                                                kThreads, stream);
-  // 3. dqkv rounded, dbqkv; g_y; the LN1 backward
-  if (err == cudaSuccess)
-    err = vsl::launch_opted(wide_round_sums_kernel<float>, grid, kWideThreads, 0, stream,
-                            static_cast<const float*>(dqkv), drop, 0u, dqkvt, part, 4 * D, T, D,
-                            3 * D, S);
+    err = launch_attn_bwd_wide(qkv, mask, drop, gatt, dqkvt, part, B, T, D, n_heads,
+                               static_cast<int>(grid.x), NK, stream);
+  // 3. g_y; the LN1 backward
   if (err == cudaSuccess)
     err = vsl::tc_gemm<true>(dqkvt, static_cast<const bf16*>(wqkvb), M, D, 3 * D, 3 * D, 3 * D,
                              vsl::TcStoreRows{gz, M, D}, stream);
   if (err == cudaSuccess)
-    err = vsl::launch_opted(wide_ln_bwd_kernel<bf16, true>, grid, kWideThreads, smem, stream, x,
-                            att, gam, beta, drop, g, static_cast<const float*>(gz), gres, gatt,
-                            y, dx, part, T, D, S);
+    err = vsl::launch_opted(wide_ln_pass_kernel<true>, grid, D / 4, smem, stream, x, att, gam,
+                            beta, drop, g, static_cast<const float*>(gz), gres, gatt, y, dx, part,
+                            T, D, S);
   if (err == cudaSuccess) err = vsl::sum_partials(part, dsmall, 1, B * grid.x, 8 * D, stream);
   if (err == cudaSuccess)
     err = vsl::wgrad_tc(static_cast<const bf16*>(z), gdt, dwd, gemm_ws, 1, D, D, M, splits, stream);

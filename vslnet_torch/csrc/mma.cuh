@@ -35,10 +35,6 @@ __host__ __device__ constexpr int tc_stride(int n) { return (n / 8) % 2 ? n : n 
 template <int HD>
 constexpr int kSteps = HD >= 16 ? HD / 16 : 1;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Two fp32 values as one bf16x2 register, each rounded to nearest even;
 // lo in the low half (the lower column of a fragment).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -382,13 +378,6 @@ inline bool tc_gemm_ok(int M, int N, int K, int lda, int ldb) {
 }
 
 namespace {  // internal linkage: every .cu that includes this gets its own
-
-// 16 bytes from src to shared dst by cp.async, zeros where !on (src not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool on) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(on ? 16 : 0)
-               : "memory");
-}
 
 template <bool kBT, typename Epi>
 __global__ void __launch_bounds__(kTcGemmThreads)

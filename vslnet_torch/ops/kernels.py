@@ -168,7 +168,7 @@ _SIGNATURES.update({
     "vsl_conv_block_fwd_wide_bf16": [_P] * 7 + _DROP + [_P] * 4 + [_I] * 6 + [_P],
     "vsl_conv_block_bwd_wide_bf16": [_P] * 9 + _DROP + [_P] * 10 + [_I] * 7 + [_P],
     "vsl_mha_block_fwd_wide_bf16": [_P] * 9 + _DROP + [_P] * 4 + [_I] * 5 + [_P],
-    "vsl_mha_block_bwd_wide_bf16": [_P] * 7 + _DROP + [_P] * 17 + [_I] * 7 + [_P],
+    "vsl_mha_block_bwd_wide_bf16": [_P] * 7 + _DROP + [_P] * 16 + [_I] * 7 + [_P],
 })
 
 
@@ -1554,12 +1554,15 @@ class FusedConvBlockTiled(torch.autograd.Function):
 # #2c and #9c at D = 896 and 1024 (the JAX bench's `saturated` hidden 1024;
 # csrc/conv_block.cu, the wide kernels): a layer a few launches, its
 # per-frame work on CTAs of strips of frames and its products [B T, D] x
-# [D, D] over every frame at once on the tensor cores (mma.cuh tc_gemm).
+# [D, D] over every frame at once on the tensor cores (mma.cuh tc_gemm);
+# the backward's per-frame work one launch for every layer's d and one
+# pass a layer, frames streamed through per-thread rings of shared memory.
 # The same function as the tiled bf16 pair, the same (out, xs, mask).
 
-# frames a sub-tile of the wide kernels' strips and threads a strip's CTA
-# (csrc/common.cuh kWideFrames, kWideThreads; the conv and MHA blocks');
-# the products' tiles of 128 columns (mma.cuh kTcGemmN) want D % 128 == 0
+# frames a sub-tile of the forward's strips and threads a strip's CTA
+# (csrc/common.cuh kWideFrames, kWideThreads; the latter also the MHA
+# backward's g_dpre launch); the products' tiles of 128 columns (mma.cuh
+# kTcGemmN) want D % 128 == 0
 WIDE_FRAMES = 8
 WIDE_THREADS = 512
 TC_GEMM_N = 128
@@ -1571,55 +1574,106 @@ def _require_bf16(name, x):
 
 
 def _wide_strip(B, T):
-    """Frames a strip's CTA walks: whole sub-tiles, as many as leave B *
-    ceil(T / strip) CTAs to fill the card twice (one CTA an SM)."""
+    """Frames a strip's CTA walks: whole sub-tiles, as many strips a row as
+    leave B * strips CTAs to fill the card twice (one CTA an SM), the
+    row's frames shared out evenly (at `saturated`'s T = 128, two strips
+    of 64)."""
     subtiles = -(-T // WIDE_FRAMES)
-    return WIDE_FRAMES * max(1, min(subtiles, subtiles * B // (2 * N_SMS)))
+    most = WIDE_FRAMES * max(1, min(subtiles, subtiles * B // (2 * N_SMS)))
+    strips = -(-T // most)
+    return WIDE_FRAMES * -(-subtiles // strips)
 
 
 def _conv_wide_prologue_bytes(D, K):
     """csrc/conv_block.cu wide_prologue_floats, in bytes."""
-    return 4 * (WIDE_FRAMES + 2 * K) * D
+    return 4 * (WIDE_FRAMES + 2 * K - 1) * D
 
 
-def _conv_wide_bwd_bytes(D, K):
-    """csrc/conv_block.cu wide_bwd_floats, in bytes."""
-    return 4 * ((2 * (WIDE_FRAMES + K - 1) + WIDE_FRAMES + 2 * K + 4) * D
-                + WIDE_FRAMES)
+# the backward's passes (csrc/conv_block.cu conv_wide_d_kernel,
+# conv_wide_pass_kernel): frames a batch of the pass's and the d launch's
+# streams (kWideBwdFrames, kWideDFrames), the taps they are built for
+# (kWideBwdK, the model's), 4 columns a thread, two CTAs an SM (their
+# __launch_bounds__)
+WIDE_BWD_FRAMES = 2
+WIDE_D_FRAMES = 4
+WIDE_BWD_K = 7
+WIDE_BWD_CTAS_PER_SM = 2
+
+
+def _wide_bwd_ring(K, F=WIDE_BWD_FRAMES):
+    """csrc/conv_block.cu wide_bwd_ring: frames a ring of batches of F
+    holds."""
+    return 2 * F + 2 * (K - 1 - (K - 1) // 2)
+
+
+def _conv_wide_pass_bytes(D, K):
+    """csrc/conv_block.cu wide_pass_bytes."""
+    F = WIDE_BWD_FRAMES
+    R = _wide_bwd_ring(K, F)
+    return 4 * ((2 * R + 2 * F) * D + R + 2 * (D // 128) * 3 * F)
+
+
+def _conv_wide_d_bytes(D, K):
+    """csrc/conv_block.cu wide_d_bytes."""
+    F = WIDE_D_FRAMES
+    R = _wide_bwd_ring(K, F)
+    return 4 * ((R + 2 * F) * D + 2 * (D // 128) * F)
+
+
+def _wide_bwd_strip(B, T):
+    """Frames a backward pass's CTA streams: as many strips a row as let B *
+    strips CTAs fill the card's WIDE_BWD_CTAS_PER_SM slots an SM once (one
+    strip a row from B = 133 on: each strip's reach is loaded twice), strips
+    of at least 8 frames, a row's frames shared out evenly."""
+    slots = WIDE_BWD_CTAS_PER_SM * N_SMS
+    strips = max(1, min(-(-T // 8), slots // B))
+    return -(-T // strips)
 
 
 class ConvWidePlan(NamedTuple):
-    """One call of the wide conv kernels: each layer's per-frame launches on
-    `ctas` = B * `strips` CTAs of WIDE_THREADS threads, a CTA walking
+    """One call of the wide conv kernels: the forward's per-frame launches
+    on `ctas` = B * `strips` CTAs of WIDE_THREADS threads, a CTA walking
     `strip` frames of a row (strips = ceil(T / strip)) in sub-tiles of
-    WIDE_FRAMES, `smem_prologue` and `smem_bwd` bytes; the products on
-    mma.cuh's tiles of 128 x 128."""
+    WIDE_FRAMES, `smem_prologue` bytes; the backward's passes on `bwd_ctas`
+    = B * `bwd_strips` CTAs of `bwd_threads` = D / 4 threads (the d launch
+    that many for each layer), a CTA streaming `bwd_strip` frames, `smem_d`
+    and `smem_pass` bytes; the products on mma.cuh's tiles of 128 x
+    128."""
     strip: int
     strips: int
     ctas: int
     smem_prologue: int
-    smem_bwd: int
+    bwd_strip: int
+    bwd_strips: int
+    bwd_ctas: int
+    bwd_threads: int
+    smem_d: int
+    smem_pass: int
 
 
 @functools.lru_cache(maxsize=256)
 def conv_wide_plan(B, T, D, K, L):
     """The wide kernels' plan for B rows of [T, D], K taps and L layers: at
-    `saturated`'s [256, 128, 1024], strips of 120 frames (512 CTAs), 88 KB
-    and 216 KB of shared memory. Raises where D is not a multiple of 128 or
-    a sub-tile's backward does not fit a block (D above 1024 at K = 7)."""
+    `saturated`'s [256, 128, 1024], the forward's strips of 64 frames (512
+    CTAs), the backward's whole rows (256 CTAs, two an SM: 88 KB and 96 KB
+    of shared memory). Raises where D is not a multiple of 128, above 1024
+    (4 columns a thread of at most 256) or K is not the WIDE_BWD_K taps
+    the backward is built for."""
     if B < 1 or T < 1 or K < 1 or L < 1 or D < TC_GEMM_N or D % TC_GEMM_N:
         raise ValueError("conv_wide_plan: needs B, T, K, L >= 1 and D a "
                          "multiple of %d, got B=%d, T=%d, D=%d, K=%d, L=%d"
                          % (TC_GEMM_N, B, T, D, K, L))
-    smem = _conv_wide_bwd_bytes(D, K)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError("conv_wide_plan: D=%d, K=%d needs %d bytes of shared "
-                         "memory a sub-tile, above the %d a block has"
-                         % (D, K, smem, MAX_SMEM_BYTES))
+    if K != WIDE_BWD_K or D > 4 * 256:
+        raise ValueError("conv_wide_plan: the wide backward takes K=%d taps "
+                         "and D up to 1024, got D=%d, K=%d"
+                         % (WIDE_BWD_K, D, K))
     strip = _wide_strip(B, T)
-    strips = -(-T // strip)
-    return ConvWidePlan(strip, strips, B * strips,
-                        _conv_wide_prologue_bytes(D, K), smem)
+    bwd_strip = _wide_bwd_strip(B, T)
+    bwd_strips = -(-T // bwd_strip)
+    return ConvWidePlan(strip, -(-T // strip), B * -(-T // strip),
+                        _conv_wide_prologue_bytes(D, K), bwd_strip,
+                        bwd_strips, B * bwd_strips, D // 4,
+                        _conv_wide_d_bytes(D, K), _conv_wide_pass_bytes(D, K))
 
 
 def launch_conv_block_fwd_wide(x, gam, beta, dw, wp, bp, seeds=None,
@@ -1669,7 +1723,7 @@ def launch_conv_block_bwd_wide(x, xs, gam, beta, dw, wp, bp, seeds, drop_rate,
                    for _ in range(2))
     gd_ws = _empty(dev, B, T, D)
     g_ws = _empty(dev, 2, B, T, D)
-    part = _empty(dev, plan.ctas, L, 3 + K, D)
+    part = _empty(dev, plan.bwd_ctas, L, 3 + K, D)
     splits = _wgrad_splits(L, D, D, B * T, CONV_TILED_WGRAD_WAVES)
     ws = _empty(dev, L * splits * D * D if splits > 1 else 1)
     _launch(name, x.data_ptr(), xs.data_ptr(), mask.data_ptr(), gam.data_ptr(),
@@ -1677,7 +1731,7 @@ def launch_conv_block_bwd_wide(x, xs, gam, beta, dw, wp, bp, seeds, drop_rate,
             thresh, scale, g.data_ptr(), dx.data_ptr(), dsmall.data_ptr(),
             dwp.data_ptr(), d_ws.data_ptr(), gp_ws.data_ptr(), gd_ws.data_ptr(),
             g_ws.data_ptr(), part.data_ptr(), ws.data_ptr(), splits, B, T, D, L,
-            K, plan.strip)
+            K, plan.bwd_strip)
     return dx, dsmall[:, 0], dsmall[:, 1], dsmall[:, 3:], dwp, dsmall[:, 2]
 
 
@@ -1754,7 +1808,8 @@ def mha_block_plain(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
 
 
 def mha_block_bwd_plain(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
-                        seeds, drop_rate, g, qkv=None, att=None):
+                        seeds, drop_rate, g, qkv=None, att=None,
+                        work=torch.float32, round_ds=True):
     """The MHA block's backward, written out as `_make_mha_block_bwd_kernel`
     computes it (pallas_kernels.py:1762-1858): a float32 replay of
     mha_block_plain (rounded at x's dtype), then, the gradients float32
@@ -1769,10 +1824,14 @@ def mha_block_bwd_plain(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
     dbeta [2, D], dwqkv [D, 3D], dbqkv [3D], dwd [D, D], dbd [D]). At
     float32 it is the fp32 kernel's function. With qkv [B, T, 3D] and att
     [B, T, D], the forward's saved values (launch_mha_block_fwd's), it
-    takes them instead of its replay's, as the backward kernels do."""
-    act, f32 = x.dtype, torch.float32
+    takes them instead of its replay's, as the backward kernels do. `work`
+    float64 evaluates the same function, its rounding points kept, with
+    every other value in float64 and dx left in float64
+    (bench/tc_bwd_fp64.py). round_ds=False leaves ds unrounded for dq and
+    dk: an impostor the card checks must refuse (bench/bf16_vjp.py)."""
+    act, f32 = x.dtype, work
 
-    def rnd(t):  # a rounding point at x's dtype, held in float32
+    def rnd(t):  # a rounding point at x's dtype, held in `work`
         return t.to(act).to(f32)
 
     B, T, D = x.shape
@@ -1821,7 +1880,8 @@ def mha_block_bwd_plain(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
         gh = rnd(g_att[:, :, h * hd:(h + 1) * hd])
         dv.append(rnd(drop_p(p, keep)).transpose(1, 2) @ gh)
         dp = drop_p(gh @ v_h.transpose(1, 2), keep)
-        ds_t = rnd(p * (dp - (dp * p).sum(dim=-1, keepdim=True)))
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        ds_t = rnd(ds) if round_ds else ds
         dq.append((ds_t @ k_h) * scale)
         dk.append(ds_t.transpose(1, 2) @ qs)
     dqkv = torch.cat(dq + dk + dv, dim=-1)
@@ -1830,7 +1890,9 @@ def mha_block_bwd_plain(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
     g_y = dqkv_t @ rnd(wqkv).t()
     g_x_ln, dgam1, dbeta1 = _ln_bwd(
         site_dropout(g_y, seeds, 0x200, drop_rate), gam[0], xh1, inv1)
-    return ((g_res + g_x_ln).to(act), torch.stack([dgam1, dgam2]),
+    dx = g_res + g_x_ln
+    return (dx.to(act) if work == torch.float32 else dx,
+            torch.stack([dgam1, dgam2]),
             torch.stack([dbeta1, dbeta2]), dwqkv, dqkv.sum(dim=(0, 1)), dwd,
             g_dpre.sum(dim=(0, 1)))
 
@@ -2138,9 +2200,10 @@ def mha_fwd_plan(B, T, D, n_heads):
 # 128; csrc/mha_block.cu, the wide kernels): the per-frame launches split
 # at their products, which run [B T, D] x [D, 3D] and [B T, D] x [D, D] (and
 # their transposes) over every frame at once on the tensor cores (mma.cuh
-# tc_gemm); the attention is the block's own bodies at head dim 128, the
-# backward's holding k, v, q and g_att as bf16 rows. bf16 only: at fp32
-# head dim 128 stays on the plain version.
+# tc_gemm); the forward's attention is the block's own body at head dim
+# 128, the backward's a tensor-core kernel of its own, a CTA a (row, head)
+# with the head's k, v, q and g_att as bf16 rows (attn_bwd_wide_kernel).
+# bf16 only: at fp32 head dim 128 stays on the plain version.
 MHA_WIDE_HEAD_DIMS = (128,)
 
 
@@ -2149,42 +2212,56 @@ def _wide_head_dim(D, n_heads):
             and D // n_heads in MHA_WIDE_HEAD_DIMS)
 
 
-def _mha_wide_attention_bytes(T, q_tile, hd):
-    """csrc/mha_block.cu attn_tile_bytes with bf16 rows (kHalfRows)."""
-    return (2 * (2 * T * (hd + 2) + 2 * q_tile * (hd + 2))
-            + 4 * (2 * q_tile * (T + 1) + q_tile + T + 2 * T * hd))
+# the wide attention backward: warps a CTA (csrc/mha_block.cu
+# kAttnWideWarps), each taking 16 queries, so T <= 16 * 8 at head dim 128
+MHA_WIDE_ATTN_WARPS = 8
+MHA_WIDE_ATTN_TILES = (1, 2, 4, 8)  # the kernel's instances, tiles of 16 keys
 
 
-def _mha_wide_frames_bytes(D):
-    """csrc/mha_block.cu wide_tile_floats, in bytes."""
-    return 4 * ((2 * WIDE_FRAMES + 4) * D + WIDE_FRAMES)
+def _mha_wide_attn_bwd_bytes(tiles, hd=128):
+    """csrc/mha_block.cu attn_wide_bwd_bytes for `tiles` tiles of 16 keys."""
+    rows = 16 * tiles
+    return (2 * (4 * rows * _tc_stride(hd) + 2 * rows * _tc_stride(rows))
+            + 4 * (rows + 3 * tiles * hd))
+
+
+# frames a batch of the backward's LayerNorm passes (csrc/mha_block.cu
+# wide_ln_pass_kernel, kWideLnFrames), streamed as the conv backward's
+WIDE_LN_FRAMES = 2
+
+
+def _mha_wide_ln_bytes(D):
+    """csrc/mha_block.cu wide_ln_pass_bytes."""
+    return 4 * (4 * 3 * WIDE_LN_FRAMES * D + 2 * (D // 128) * 3 * WIDE_LN_FRAMES)
 
 
 class MHAWidePlan(NamedTuple):
-    """One call of the wide block kernels: the backward's per-frame launches
-    on `ctas` = B * `strips` CTAs of WIDE_THREADS threads walking
-    `strip` frames of a row, `smem_frames` bytes each; the forward's
+    """One call of the wide block kernels: the backward's LayerNorm passes
+    on `ctas` = B * `strips` CTAs of D / 4 threads streaming `strip`
+    frames of a row, `smem_frames` bytes each; the forward's
     attention on query tiles of `q_tile` rows (`smem_attention` bytes a
-    CTA), the backward's on clusters of ceil(T / `bwd_q_tile`) CTAs a (row,
-    head), `smem_bwd_attention` bytes each."""
+    CTA); the backward's on `attn_ctas` = B * heads CTAs of
+    MHA_WIDE_ATTN_WARPS warps, a (row, head) each, its T keys in
+    `attn_tiles` tiles of 16 (`smem_attn_bwd` bytes)."""
     strip: int
     strips: int
     ctas: int
     smem_frames: int
     q_tile: int
     smem_attention: int
-    bwd_q_tile: int
-    smem_bwd_attention: int
+    attn_tiles: int
+    attn_ctas: int
+    smem_attn_bwd: int
 
 
 @functools.lru_cache(maxsize=256)
 def mha_wide_plan(B, T, D, n_heads):
     """The wide block kernels' plan for B rows of [T, D] in n_heads heads of
     MHA_WIDE_HEAD_DIMS: the forward's query tiles of MHA_FWD_QTILE rows,
-    halved while they do not fit; the backward's of MHA_QTILE rows, at
-    least T / MHA_CLUSTER, halved while they do not fit; strips as
-    conv_wide_plan's. Raises on what the kernels cannot take (T above 129
-    at head dim 128)."""
+    halved while they do not fit; the backward's attention on the fewest
+    of MHA_WIDE_ATTN_TILES tiles of 16 keys that hold T; strips as
+    conv_wide_plan's backward's. Raises on what the kernels cannot take (T
+    above 16 * MHA_WIDE_ATTN_WARPS = 128 at head dim 128, D above 1024)."""
     if not _wide_head_dim(D, n_heads):
         raise ValueError("mha_wide_plan: head dim D/n_heads must be one of %s "
                          "with D a multiple of %d, got D=%d heads=%d"
@@ -2192,6 +2269,13 @@ def mha_wide_plan(B, T, D, n_heads):
     if B < 1 or T < 1:
         raise ValueError("mha_wide_plan: needs B, T >= 1, got B=%d, T=%d"
                          % (B, T))
+    if D > 4 * 256:
+        raise ValueError("mha_wide_plan: D=%d above the 1024 columns the "
+                         "LayerNorm passes take (4 a thread of 256)" % D)
+    if T > 16 * MHA_WIDE_ATTN_WARPS:
+        raise ValueError("mha_wide_plan: T=%d above the %d keys the attention "
+                         "backward at head dim 128 holds (a warp a 16 "
+                         "queries)" % (T, 16 * MHA_WIDE_ATTN_WARPS))
     hd = D // n_heads
     q_tile = min(T, MHA_FWD_QTILE)
     while _mha_fwd_attention_bytes(T, q_tile, hd) > MAX_SMEM_BYTES:
@@ -2199,20 +2283,12 @@ def mha_wide_plan(B, T, D, n_heads):
             raise ValueError("mha_wide_plan: T=%d: no query tile of the "
                              "forward fits" % T)
         q_tile = -(-q_tile // 2)
-    least = -(-T // MHA_CLUSTER)
-    bwd_q = min(T, max(MHA_QTILE, least))
-    while (_mha_wide_attention_bytes(T, bwd_q, hd) > MAX_SMEM_BYTES
-           and -(-bwd_q // 2) >= least and bwd_q > 1):
-        bwd_q = -(-bwd_q // 2)
-    if _mha_wide_attention_bytes(T, bwd_q, hd) > MAX_SMEM_BYTES:
-        raise ValueError("mha_wide_plan: T=%d, head dim %d: no query tile of "
-                         "the backward fits the %d bytes of shared memory a "
-                         "block has" % (T, hd, MAX_SMEM_BYTES))
-    strip = _wide_strip(B, T)
+    tiles = next(n for n in MHA_WIDE_ATTN_TILES if 16 * n >= T)
+    strip = _wide_bwd_strip(B, T)
     strips = -(-T // strip)
-    return MHAWidePlan(strip, strips, B * strips, _mha_wide_frames_bytes(D),
-                       q_tile, _mha_fwd_attention_bytes(T, q_tile, hd), bwd_q,
-                       _mha_wide_attention_bytes(T, bwd_q, hd))
+    return MHAWidePlan(strip, strips, B * strips, _mha_wide_ln_bytes(D),
+                       q_tile, _mha_fwd_attention_bytes(T, q_tile, hd), tiles,
+                       B * n_heads, _mha_wide_attn_bwd_bytes(tiles, hd))
 
 
 def _launch_mha_block_fwd_wide(x, mask, gam, beta, wqkv, bqkv, wd, bd,
@@ -2261,7 +2337,6 @@ def _launch_mha_block_bwd_wide(x, mask, gam, beta, wqkv, wd, n_heads, seeds,
     dwd = _empty(dev, D, D)
     gdt, z, y = (torch.empty_like(x) for _ in range(3))
     gz, gres, gatt = (_empty(dev, B, T, D) for _ in range(3))
-    dqkv = _empty(dev, B, T, 3 * D)
     dqkvt = torch.empty(B, T, 3 * D, device=dev, dtype=torch.bfloat16)
     part = _empty(dev, plan.ctas, 8 * D)
     splits = _wgrad_splits(1, D, 3 * D, B * T)
@@ -2271,9 +2346,9 @@ def _launch_mha_block_bwd_wide(x, mask, gam, beta, wqkv, wd, n_heads, seeds,
             scale, qkv.data_ptr(), att.data_ptr(), g.data_ptr(), dx.data_ptr(),
             dsmall.data_ptr(), dwqkv.data_ptr(), dwd.data_ptr(),
             gdt.data_ptr(), gz.data_ptr(), z.data_ptr(), gres.data_ptr(),
-            gatt.data_ptr(), dqkv.data_ptr(), dqkvt.data_ptr(), y.data_ptr(),
-            part.data_ptr(), ws.data_ptr(), splits, B, T, D, n_heads,
-            plan.strip, plan.bwd_q_tile)
+            gatt.data_ptr(), dqkvt.data_ptr(), y.data_ptr(), part.data_ptr(),
+            ws.data_ptr(), splits, B, T, D, n_heads, plan.strip,
+            plan.attn_tiles)
     return (dx, dsmall[:2 * D].view(2, D), dsmall[2 * D:4 * D].view(2, D),
             dwqkv, dsmall[4 * D:7 * D], dwd, dsmall[7 * D:])
 
