@@ -1598,13 +1598,17 @@ BF16_STEP_ATOL = 5e-3
 
 
 def bf16_timed_row(rows, name, source, line, err, tol, fn, plain, flops,
-                   nbytes, plain_iters=None, **extra):
+                   nbytes, plain_iters=None, parts_named=None, **extra):
     """A bf16 kernel's row (kernel_row, the bound at the bf16 peak): fn
     timed by CUDA events and by torch.profiler, its twin plain by events
-    (plain_iters calls; 3 for the LSTM's Python loop, else 10)."""
+    (plain_iters calls; 3 for the LSTM's Python loop, else 10).
+    parts_named {key: name}: the row's key takes the device ms of fn's
+    kernels whose names hold `name`."""
     from vslnet_torch.bench.common import by_kernel
 
     parts = by_kernel(fn)
+    named = {key: sum(ms for k, ms in parts.items() if sub in k)
+             for key, sub in (parts_named or {}).items()}
     if plain_iters is None:
         plain_iters = 3 if "lstm" in name else 10
     rows.append(kernel_row(
@@ -1612,7 +1616,7 @@ def bf16_timed_row(rows, name, source, line, err, tol, fn, plain, flops,
         "vslnet_tpu/ops/pallas_kernels.py:%d" % line, err, tol,
         cuda_ms(fn, 20), cuda_ms(plain, plain_iters), flops, nbytes,
         peak_flops=PEAK_BF16_FLOPS, device_ms=sum(parts.values()),
-        by_kernel=parts, **extra))
+        by_kernel=parts, **named, **extra))
 
 
 def bf16_vjp_row(rows, name, source, line, cases, flops, nbytes, fp64=None,
@@ -3381,6 +3385,34 @@ def sdpa_bwd_yardstick(dev, B, T, heads, D):
             "device_ms": sum(by_kernel(bwd).values())}
 
 
+def sdpa_fwd_yardstick(dev, B, T, heads, D):
+    """F.scaled_dot_product_attention in bf16 at [B, heads, T, D / heads],
+    no mask, drop 0: the library yardstick of #3b wide's attention part
+    (ms by CUDA events, device ms by torch.profiler). The port never calls
+    it."""
+    import torch
+    import torch.nn.functional as F
+
+    from vslnet_torch.bench.common import by_kernel
+
+    q, k, v = (torch.randn(B, heads, T, D // heads, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v)
+
+    return {"shape": [B, heads, T, D // heads], "ms": cuda_ms(fwd, 20),
+            "device_ms": sum(by_kernel(fwd).values())}
+
+
+# the wide forwards' kernels by name (torch.profiler): each forward's own,
+# and the ones they replace, which must not launch at `saturated`
+SATURATED_FWD_KERNELS = {"conv_block_fwd_wide_bf16": "conv_wide_d_kernel",
+                         "mha_block_fwd_wide_bf16": "attn_fwd_wide_kernel"}
+SATURATED_GONE_KERNELS = ("conv_wide_prologue_kernel", "attn_fwd_tile_kernel")
+
+
 def saturated_kernel_rows(dev, max_w):
     """The four wide kernels at `saturated`'s shapes against their bf16
     twins: the forwards by BF16_TOL and the share of differing bf16
@@ -3410,15 +3442,22 @@ def saturated_kernel_rows(dev, max_w):
                 3 * 2 * B * T_ * D + 4 * (L - 1) * B * T_ * D
                 + L * B * T_ * D // 4 + 2 * 4 * L * (D * D + (KS + 3) * D))
 
-    def mha_fwd_work(T_, keys):
+    def mha_fwd_work(T_, keys):  # qkv written in bf16, att in fp32
         return (8 * B * T_ * D * D + 4 * keys * D,
-                2 * 2 * B * T_ * D + 4 * 4 * B * T_ * D + 4 * B * T_
+                2 * 2 * B * T_ * D + (2 * 3 + 4) * B * T_ * D + 4 * B * T_
                 + 4 * (4 * D * D + 8 * D))
 
-    def mha_bwd_work(T_, keys):
+    def mha_bwd_work(T_, keys):  # qkv read in bf16, att in fp32
         return (16 * B * T_ * D * D + 10 * keys * D,
-                3 * 2 * B * T_ * D + 4 * (4 * B * T_ * D + B * T_)
-                + 2 * 4 * (4 * D * D + 8 * D))
+                3 * 2 * B * T_ * D + 2 * 3 * B * T_ * D
+                + 4 * (B * T_ * D + B * T_) + 2 * 4 * (4 * D * D + 8 * D))
+
+    def attn_fwd_work(T_, keys):  # qkv read in bf16, att written in fp32
+        return 4 * keys * D, 2 * 3 * B * T_ * D + 4 * B * T_ * D + 4 * B * T_
+
+    def prologue_work(T_):  # x_l read (bf16, then fp32), d written in bf16
+        return (2 * L * B * T_ * D * (KS + 4),
+                (2 + 4 * (L - 1) + 2 * L) * B * T_ * D + 4 * L * (KS + 2) * D)
 
     # 1. #2c wide: the video stream's [B, T, D], plain draws, drop 0.2
     checks = {}
@@ -3453,6 +3492,8 @@ def saturated_kernel_rows(dev, max_w):
         lambda: K.conv_block_plain(*args, seeds, DROP), *conv_fwd_work(T),
         shape=[B, T, D], equal_bits_twice=twice,
         plan=K.conv_wide_plan(B, T, D, KS, L)._asdict(),
+        parts_named={"prologue_device_ms": "conv_wide_d_kernel"},
+        prologue_bound_ms=bound(*prologue_work(T), PEAK_BF16_FLOPS)[0],
         route_serve=K.conv_route(T, D, KS, L, False, bf),
         route_train=K.conv_route(T, D, KS, L, True, bf),
         query_case={"shape": [B, max_w, D],
@@ -3463,6 +3504,7 @@ def saturated_kernel_rows(dev, max_w):
           and share_differing(q[2][0], q[3]) <= BF16_SHARE_TOL,
           "conv_block_fwd_wide_bf16 at [%d, %d, %d] disagrees with its twin"
           % (B, max_w, D))
+    saturated_fwd_names(rows[-1])
     del checks, args, got, ref, ref32, q
 
     # 2. #9c wide: bf16_vjp's cases at [B, T, D] (drop 0.2 and 0) and the
@@ -3522,6 +3564,22 @@ def saturated_kernel_rows(dev, max_w):
           and share_differing(q[3], q[4]) <= BF16_SHARE_TOL,
           "mha_block_fwd_wide_bf16 at [%d, %d, %d] disagrees with its twin"
           % (B, max_w, D))
+    # its attention against the twin on the kernel's own qkv (and fp64),
+    # drop 0.2 and 0, the impostors refused; SDPA's bf16 forward the
+    # attention part's library time
+    att_rng = np.random.default_rng(SEED + 19)
+    att_cases = [V.attention_fwd_case(dev, att_rng, B, T, D, heads, rate)
+                 for rate in (DROP, 0.0)]
+    att_readings = []
+    for case in att_cases:
+        r = V.attention_fwd_read(case)
+        for fp64 in (False, True):
+            ok, why = V.attention_fwd_verdict(r, fp64)
+            check(ok, why)
+        att_readings.append({"shape": list(case.shape), "rate": case.rate,
+                             **r})
+    del att_cases
+    sdpa = sdpa_fwd_yardstick(dev, B, T, heads, D)
     bf16_timed_row(
         rows, "mha_block_fwd_wide_bf16", "mha_block.cu", 1736,
         scaled_err(out, ref), BF16_TOL,
@@ -3529,11 +3587,18 @@ def saturated_kernel_rows(dev, max_w):
         lambda: K.mha_block_plain(*a, heads, seeds, DROP),
         *mha_fwd_work(T, keys), shape=[B, T, D], heads=heads,
         equal_bits_twice=twice, plan=K.mha_wide_plan(B, T, D, heads)._asdict(),
+        parts_named={"attention_device_ms": "attn_fwd_wide_kernel"},
+        attention_bound_ms=bound(*attn_fwd_work(T, keys), PEAK_BF16_FLOPS)[0],
+        attention_cases=att_readings, library_ms=sdpa["ms"],
+        library_device_ms=sdpa["device_ms"],
+        library="SDPA in bf16, forward, at %s, drop 0 (the attention part)"
+        % sdpa["shape"],
         route=K.mha_route(T, D, heads, bf),
         query_case={"shape": [B, max_w, D],
                     "scaled_err": scaled_err(q[3], q[4]),
                     "share_differing": share_differing(q[3], q[4]),
                     "equal_bits_twice": q[6]}, **share)
+    saturated_fwd_names(rows[-1])
     del results, a, out, ref, ref32, q
 
     # 4. #10b wide: bf16_vjp's cases at [B, T, D] (drop 0.2 and 0) and the
@@ -3556,6 +3621,16 @@ def saturated_kernel_rows(dev, max_w):
     del cases
     torch.cuda.empty_cache()
     return rows
+
+
+def saturated_fwd_names(row):
+    """A wide forward's row ran on its own per-frame or attention kernel
+    (by name: a whole run's profiler may drop records, §7 of PERF.md) and
+    not on the kernels it replaced."""
+    names = list(row["by_kernel"])
+    check(any(SATURATED_FWD_KERNELS[row["name"]] in k for k in names)
+          and not any(g in k for k in names for g in SATURATED_GONE_KERNELS),
+          "%s: kernels %s" % (row["name"], names))
 
 
 def saturated_path():
@@ -3674,6 +3749,7 @@ def saturated_path():
     emit({"phase": "profile", "of": "saturated served batch of %d at bf16, "
           "use_pallas=off in the fp32 turns" % B, **turns_fields(turns),
           **turns[1]})
+    check_gone(turns, "the served batch")
     del loc, loc_off, out, refs, batch
 
     tk, to = trainers(configs, dataset, feats)
@@ -3729,9 +3805,19 @@ def saturated_path():
     emit({"phase": "profile", "of": "saturated train step of %d at bf16, "
           "use_pallas=off in the fp32 turns" % B, **turns_fields(turns),
           **turns[1]})
+    check_gone(turns, "the train step")
     del tk, to, tt, grads_k, grads_o
     torch.cuda.empty_cache()
     return runs, max_w
+
+
+def check_gone(turns, what):
+    """No kernel that the wide forwards replaced launched in the profiled
+    kernel turns (by name)."""
+    names = [k for t in turns[1:3] for k in t["kernel_names"]]
+    check(not any(g in k for k in names for g in SATURATED_GONE_KERNELS),
+          "saturated: %s launched %s" % (what, [
+              k for k in names if any(g in k for g in SATURATED_GONE_KERNELS)]))
 
 
 def saturated_phase(dev):

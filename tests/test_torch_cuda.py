@@ -1560,8 +1560,8 @@ def test_cuda_conv_block_wide_bf16_matches_twin(cuda, B, T, D, rate):
 def test_cuda_mha_block_wide_bf16_matches_twin(cuda, B, T, D, heads, rate):
     """The wide forward (head dim 128) through fused_mha_block against the
     twin, as test_cuda_mha_block_bf16_matches_twin holds the bf16 block
-    kernels, with a fully masked row; its qkv and att within a bf16 ulp of
-    the twin's replay (qkv holds bf16 values)."""
+    kernels, with a fully masked row; its qkv, stored in bf16, within a
+    bf16 ulp of the twin's replay."""
     rng = np.random.default_rng(41)
     lens = list(rng.integers(1, T + 1, size=B - 1)) + [0]
     x, *w = _mha_inputs(rng, B, T, D, lens)
@@ -1581,12 +1581,12 @@ def test_cuda_mha_block_wide_bf16_matches_twin(cuda, B, T, D, heads, rate):
     assert _share(out, ref) <= BF16_SHARE_TOL < _share(ref32.to(BF16), ref)
     got, qkv, att = kernels.launch_mha_block_fwd(*args, heads, **drop)
     assert torch.equal(got, out)
-    assert torch.equal(qkv, qkv.to(BF16).float())
+    assert qkv.dtype == BF16 and att.dtype == torch.float32
     x32, mask, gam, beta, wqkv, bqkv = (args[0].float(), *args[1:6])
     y = kernels.site_dropout(kernels.layer_norm(x32, gam[0], beta[0]),
                              drop.get("seeds"), 0x200, rate)
     qkv_ref = y.to(BF16).float() @ wqkv.to(BF16).float() + bqkv
-    assert _scaled(qkv, qkv_ref) <= BF16_TOL
+    assert _scaled(qkv.float(), qkv_ref) <= BF16_TOL
 
 
 @pytest.mark.cuda
@@ -1664,12 +1664,148 @@ def test_cuda_wide_backwards_refuse_planted_faults(cuda, fault):
     kind = "conv_wide" if fault == "halo_frame_skipped" else "mha_wide"
     case = _wide_case(cuda, kind, 8, 128, 0.2)
     if kind == "conv_wide":
-        assert kernels.conv_wide_plan(8, 128, 1024, 7, 4).bwd_strips > 1
+        assert kernels.conv_wide_plan(8, 128, 1024, 7, 4).strips > 1
     ok, why = V.verdict(case, V.read(case))
     assert ok, why
     bad = V.wide_fault(case, fault)
     ok, why = V.verdict(bad, V.read(bad))
     assert not ok and "beyond the limits" in why, (fault, why)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("T", [128, 12, 16, 5])
+def test_cuda_wide_attention_fwd_matches_twin(cuda, T, rate):
+    """#3b wide's attention (attn_fwd_wide_kernel) at D = 1024 in 8 heads
+    of 128, T = 128, 12 (the query stream), 16 and 5 (a padded last key
+    tile), ragged key masks with a fully masked row: att against the twin
+    on the kernel's own bf16 qkv (bench/bf16_vjp.py attention_fwd_verdict:
+    SHARE_TOL and ELEM_TOL, the impostors with q * scale or p unrounded
+    beyond them, equal bits twice), one launch of the wide entry a call;
+    att no further from the fp64 evaluation than the twin's plus the same
+    limits."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    case = V.attention_fwd_case(cuda, np.random.default_rng(46), 8, T, 1024,
+                                8, rate)
+    kernels.reset_launches()
+    case.kernel()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mha_block_fwd_wide_bf16"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    r = V.attention_fwd_read(case)
+    for fp64 in (False, True):
+        ok, why = V.attention_fwd_verdict(r, fp64)
+        assert ok, (T, rate, why, r["kernel"], r["fp64"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["padded_key_in_l", "fwd_keep_bit_flipped",
+                                   "q_unrounded", "p_unrounded"])
+def test_cuda_wide_attention_fwd_refuses_planted_faults(cuda, fault):
+    """Faults planted in #3b wide's attention (a padded key counted in the
+    row's sum, a flipped keep bit: changed copies of mha_block.cu; q * scale
+    or p unrounded: impostor functions, bench/bf16_vjp.py WIDE_FWD_FAULTS)
+    are refused by the verdict that passes the kernel, at B = 8, T = 12
+    (a padded last key tile, the query stream's T), drop 0.2."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    case = V.attention_fwd_case(cuda, np.random.default_rng(47), 8, 12, 1024,
+                                8, 0.2)
+    ok, why = V.attention_fwd_verdict(V.attention_fwd_read(case))
+    assert ok, why
+    bad = V.attention_fwd_read(V.attention_fwd_fault(case, fault))
+    for fp64 in (False, True):
+        ok, why = V.attention_fwd_verdict(bad, fp64)
+        assert not ok and "beyond the limits" in why, (fault, fp64, why)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,rate", [(128, 0.2), (12, 0.2), (127, 0.0)])
+def test_cuda_wide_backward_from_bf16_qkv_keeps_its_bits(cuda, T, rate):
+    """#10b wide from the forward's bf16 qkv gives the bits it gave from the
+    fp32 qkv of the same values: every output equal to a copy of the
+    source that loads fp32 qkv as the backward did before qkv was stored
+    in bf16 (bench/bf16_vjp.py FP32_QKV_EDITS), on qkv.float()."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    case = V.mha_case(cuda, np.random.default_rng(48), 8, T, 1024, 8, rate)
+    qkv = case.args[12]
+    assert qkv.dtype == BF16
+    got = [t.clone() for t in case.kernel()]
+    ref = V.wide_bwd_from_fp32_qkv(case)
+    torch.cuda.synchronize()
+    assert len(got) == len(ref) == 7
+    for name, a, b in zip(V.MHA_NAMES, got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+def _wide_conv_ds(dev, x, gam, beta, dw, wp, bp, seeds, rate, g):
+    """Each layer's d = bf16(depthwise(bf16(LN_l(x_l)))) as the wide forward
+    makes it (layer l's from a forward of the first l + 1 layers, whose
+    workspace keeps its last layer's d) and as the wide backward's d launch
+    makes it ([L, B, T, D], its workspace), by the wrappers' own calls
+    with the workspaces kept."""
+    B, T, D = x.shape
+    L, KS = dw.shape[0], dw.shape[1]
+    sp, thresh, scale = kernels._dropout_args("d", seeds, rate, B)
+    wpb = wp.to(BF16).contiguous()
+    fwd = []
+    for l in range(L):
+        n = l + 1
+        w = [t[:n].contiguous() for t in (gam, beta, dw, wpb, bp)]
+        plan = kernels.conv_wide_plan(B, T, D, KS, n)
+        xs = kernels._empty(dev, max(n - 1, 1), B, T, D)
+        mask = torch.empty(n, B, T, D // 4, device=dev, dtype=torch.uint8)
+        out = torch.empty_like(x)
+        d_ws = torch.empty(B, T, D, device=dev, dtype=BF16)
+        kernels._launch("conv_block_fwd_wide_bf16", x.data_ptr(),
+                        *(t.data_ptr() for t in w), sp, thresh, scale,
+                        xs.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                        d_ws.data_ptr(), B, T, D, n, KS, plan.strip)
+        fwd.append(d_ws)
+    _, xs, mask = kernels.launch_conv_block_fwd_wide(x, gam, beta, dw, wp, bp,
+                                                     seeds, rate)
+    plan = kernels.conv_wide_plan(B, T, D, KS, L)
+    dx = torch.empty_like(x)
+    dsmall = kernels._empty(dev, L, 3 + KS, D)
+    dwp = kernels._empty(dev, L, D, D)
+    d_ws, gp_ws = (torch.empty(L, B, T, D, device=dev, dtype=BF16)
+                   for _ in range(2))
+    gd_ws = kernels._empty(dev, B, T, D)
+    g_ws = kernels._empty(dev, 2, B, T, D)
+    part = kernels._empty(dev, plan.ctas, L, 3 + KS, D)
+    ws = kernels._empty(dev, 1)
+    kernels._launch("conv_block_bwd_wide_bf16", x.data_ptr(), xs.data_ptr(),
+                    mask.data_ptr(), gam.data_ptr(), beta.data_ptr(),
+                    dw.data_ptr(), wpb.data_ptr(), bp.data_ptr(), sp, thresh,
+                    scale, g.data_ptr(), dx.data_ptr(), dsmall.data_ptr(),
+                    dwp.data_ptr(), d_ws.data_ptr(), gp_ws.data_ptr(),
+                    gd_ws.data_ptr(), g_ws.data_ptr(), part.data_ptr(),
+                    ws.data_ptr(), 1, B, T, D, L, KS, plan.strip)
+    torch.cuda.synchronize()
+    return fwd, d_ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,rate", [(16, 128, 0.2), (8, 12, 0.2),
+                                      (3, 130, 0.0)])
+def test_cuda_conv_wide_forward_d_equals_backward_d(cuda, B, T, rate):
+    """#2c wide makes each layer's d with the backward's d kernel: the
+    forward's d of every layer equals the backward d launch's bit for bit
+    (plain draws, D = 1024, 4 layers; B = 3, T = 130: 17 strips of 8
+    frames a row, each with its reach)."""
+    rng = np.random.default_rng(49)
+    x, *w = _conv_inputs(rng, B, T, 1024)
+    args = [_t(x).to(cuda, BF16)] + [_t(a).to(cuda) for a in w]
+    seeds = _t(_seeds(rng, B)).to(cuda) if rate else None
+    g = torch.randn(B, T, 1024, device=cuda).to(BF16)
+    fwd, bwd = _wide_conv_ds(cuda, *args, seeds, rate, g)
+    if T == 130:
+        assert kernels.conv_wide_plan(B, T, 1024, 7, 4).strips > 1
+    for l, d in enumerate(fwd):
+        assert torch.equal(d, bwd[l]), l
+        assert float(d.float().abs().sum()) > 0
 
 
 @pytest.mark.cuda

@@ -374,13 +374,13 @@ def _body(source, name):
 def test_wide_constants_and_layouts_mirror_the_kernels():
     """The Python plans' constants and byte counts are the kernels' own:
     the constants by name, the layouts by their expressions (every term of
-    csrc's wide_prologue_floats, wide_pass_bytes, wide_d_bytes,
-    wide_ln_pass_bytes and attn_wide_bwd_bytes)."""
+    csrc's wide_pass_bytes, wide_d_bytes, wide_ln_pass_bytes,
+    attn_wide_fwd_bytes and attn_wide_bwd_bytes)."""
     assert _constant("common.cuh", "kWideThreads") == kernels.WIDE_THREADS
-    assert _constant("common.cuh", "kWideFrames") == kernels.WIDE_FRAMES
     assert _constant("mma.cuh", "kTcGemmN") == kernels.TC_GEMM_N
-    assert "(kWideFrames + 2 * K - 1) * D" in _body("conv_block.cu",
-                                                     "wide_prologue_floats")
+    assert ("2 * (3 * (size_t)16 * NK * vsl::tc_stride(kAttnWideHd)) + "
+            "4 * (16 * (size_t)NK)") in _body("mha_block.cu",
+                                               "attn_wide_fwd_bytes")
     assert ("4 * ((2 * (size_t)R + 2 * F) * D + R + 2 * (size_t)(D / 128) * "
             "3 * F)") in _body("conv_block.cu", "wide_pass_bytes")
     assert "4 * (((size_t)R + 2 * F) * D + 2 * (size_t)(D / 128) * F)" in \
@@ -396,8 +396,8 @@ def test_wide_constants_and_layouts_mirror_the_kernels():
             "              2 * (size_t)16 * NK * vsl::tc_stride(16 * NK)) +\n"
             "         4 * (16 * (size_t)NK + 3 * (size_t)NK * kAttnWideHd)"
             ) in attn
-    F, K, D = kernels.WIDE_FRAMES, 7, 1024
-    assert kernels._conv_wide_prologue_bytes(D, K) == 4 * (F + 2 * K - 1) * D
+    K, D = 7, 1024
+    assert kernels._mha_wide_attn_fwd_bytes(8) == 2 * 3 * 128 * 136 + 4 * 128
     FB, FD = kernels.WIDE_BWD_FRAMES, kernels.WIDE_D_FRAMES
     R, RD = 2 * FB + 2 * 3, 2 * FD + 2 * 3
     assert kernels._wide_bwd_ring(K) == R
@@ -416,31 +416,30 @@ def test_wide_constants_and_layouts_mirror_the_kernels():
 @pytest.mark.parametrize("B,T", [(256, 128), (256, 24), (1, 16), (3, 5),
                                  (16, 130), (2, 1000)])
 def test_wide_plans_fit_and_cover_every_frame(B, T):
-    """Both wide plans fit a block's shared memory, their strips cover each
-    row's frames once (the forward's whole sub-tiles), and `saturated`'s
-    shapes get the plans the kernels were measured at."""
+    """Both wide plans fit a block's shared memory, their strips (one
+    geometry for the forward's and the backward's per-frame launches)
+    cover each row's frames once, and `saturated`'s shapes get the plans
+    the kernels were measured at."""
     for D in (896, 1024):
         p = kernels.conv_wide_plan(B, T, D, 7, 4)
-        assert max(p.smem_prologue, p.smem_d,
-                   p.smem_pass) <= kernels.MAX_SMEM_BYTES
-        assert p.strip % kernels.WIDE_FRAMES == 0
+        assert max(p.smem_d, p.smem_pass) <= kernels.MAX_SMEM_BYTES
         assert (p.strips - 1) * p.strip < T <= p.strips * p.strip
-        assert (p.bwd_strips - 1) * p.bwd_strip < T <= (p.bwd_strips
-                                                        * p.bwd_strip)
-        assert p.ctas == B * p.strips and p.bwd_ctas == B * p.bwd_strips
-        assert p.bwd_threads == D // 4
+        assert p.ctas == B * p.strips
+        assert p.threads == D // 4
     if T > 128:  # head dim 128's attention backward takes T <= 128
         with pytest.raises(ValueError, match="mha_wide_plan"):
             kernels.mha_wide_plan(B, T, 1024, 8)
         return
     m = kernels.mha_wide_plan(B, T, 1024, 8)
-    assert max(m.smem_frames, m.smem_attention,
+    assert max(m.smem_frames, m.smem_attn_fwd,
                m.smem_attn_bwd) <= kernels.MAX_SMEM_BYTES
     assert 16 * m.attn_tiles >= T and m.attn_ctas == 8 * B
     assert (m.strips - 1) * m.strip < T <= m.strips * m.strip
     if (B, T) == (256, 128):
-        assert (m.q_tile, m.attn_tiles, m.strip, m.ctas) == (32, 8, 128, 256)
-        assert m.smem_attn_bwd == 221696
+        assert (m.attn_tiles, m.strip, m.ctas) == (8, 128, 256)
+        assert (m.smem_attn_fwd, m.smem_attn_bwd) == (104960, 221696)
+        p = kernels.conv_wide_plan(B, T, 1024, 7, 4)
+        assert (p.strip, p.strips, p.ctas) == (128, 1, 256)
 
 
 @pytest.mark.parametrize("args", [(1, 16, 1000, 7, 4), (1, 16, 1152, 7, 4),

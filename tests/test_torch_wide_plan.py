@@ -1,17 +1,17 @@
-"""The wide bf16 backwards' launch geometry on the CPU (no card, no JAX):
-#9c wide's per-frame passes (csrc/conv_block.cu conv_wide_d_kernel,
-conv_wide_pass_kernel on conv_wide_plan's bwd_strip) and #10b wide's
-tensor-core attention backward (attn_bwd_wide_kernel on mha_wide_plan's
-attn_tiles).
+"""The wide bf16 kernels' launch geometry on the CPU (no card, no JAX):
+the per-frame streams of #2c wide and #9c wide (csrc/conv_block.cu
+conv_wide_d_kernel, conv_wide_pass_kernel on conv_wide_plan's strip) and
+the tensor-core attentions of #3b wide and #10b wide (attn_fwd_wide_kernel,
+attn_bwd_wide_kernel on mha_wide_plan's attn_tiles).
 
 The passes' schedules are replayed here frame by frame as the kernels'
 index arithmetic has them (a thread's ring slots, the batch each frame
 lands in, the batch each own frame is worked in), so that every frame of
 every row is some strip's own frame exactly once, and every ring slot a
 frame is read from still holds that frame, landed in an earlier or the
-same batch and not yet overwritten by the batch in flight. The attention's
-product items are replayed the same way: every (row, column) of dQ, dK
-and dV is one warp's, once.
+same batch and not yet overwritten by the batch in flight. The attentions'
+fragments are replayed the same way: every (row, column) of dQ, dK, dV
+and att is one warp's, once, and no padded key enters a row's sum.
 """
 import re
 
@@ -66,8 +66,8 @@ def test_conv_wide_bwd_passes_cover_every_frame_once(B, T, D, kind):
     plan = kernels.conv_wide_plan(B, T, D, K, 4)
     R = kernels._wide_bwd_ring(K, F)
     owned = np.zeros(T, int)
-    for s in range(plan.bwd_strips):
-        s0, s1 = s * plan.bwd_strip, min(T, (s + 1) * plan.bwd_strip)
+    for s in range(plan.strips):
+        s0, s1 = s * plan.strip, min(T, (s + 1) * plan.strip)
         a, batches = _pass_schedule(s0, s1, K, F, kind)
         ring, gring, landed = {}, {}, {}
         for i, batch in enumerate(batches):
@@ -149,8 +149,8 @@ def test_conv_wide_bwd_plans_fit_two_ctas_an_sm(D):
     for smem in (p.smem_d, p.smem_pass):
         assert smem <= kernels.MAX_SMEM_BYTES
         assert kernels.WIDE_BWD_CTAS_PER_SM * (smem + 1024) <= per_sm
-    assert (p.bwd_strip, p.bwd_strips, p.bwd_ctas) == (128, 1, 256)
-    assert p.bwd_ctas <= kernels.WIDE_BWD_CTAS_PER_SM * kernels.N_SMS
+    assert (p.strip, p.strips, p.ctas) == (128, 1, 256)
+    assert p.ctas <= kernels.WIDE_BWD_CTAS_PER_SM * kernels.N_SMS
     if D == 1024:
         assert (p.smem_d, p.smem_pass) == (90368, 98728)
 
@@ -159,14 +159,13 @@ def test_conv_wide_bwd_plans_fit_two_ctas_an_sm(D):
                                  (16, 130), (2, 1000)])
 def test_conv_wide_bwd_strips_are_balanced(B, T):
     """A row's strips differ by at most one frame's worth of the ceiling
-    (T = 128: one strip; the forward's strips within a sub-tile)."""
+    (T = 128: one strip); the forward's and the backward's per-frame
+    launches share them."""
     p = kernels.conv_wide_plan(B, T, 1024, 7, 4)
-    sizes = [min(T, (s + 1) * p.bwd_strip) - s * p.bwd_strip
-             for s in range(p.bwd_strips)]
+    sizes = [min(T, (s + 1) * p.strip) - s * p.strip
+             for s in range(p.strips)]
     assert sum(sizes) == T and min(sizes) >= 1
-    assert max(sizes) - min(sizes) <= max(1, p.bwd_strips)
-    f = [min(T, (s + 1) * p.strip) - s * p.strip for s in range(p.strips)]
-    assert sum(f) == T and max(f) - min(f) <= kernels.WIDE_FRAMES
+    assert max(sizes) - min(sizes) <= max(1, p.strips)
 
 
 @pytest.mark.parametrize("args", [(1, 16, 1000, 7, 4), (1, 16, 1152, 7, 4),
@@ -301,3 +300,164 @@ def test_dbqkv_in_the_fused_order_matches_the_strips(B, T, rate):
     assert float(((fused.double() - strips.double()).abs() / scale).max()) < 1e-5
     assert float(((fused.double() - plain).abs() / scale).max()) < 1e-5
     assert not torch.equal(fused, torch.zeros_like(fused))
+
+
+# --- the wide attention forward (attn_fwd_wide_kernel) -------------------------
+
+
+def _fwd_fragments(T, nk):
+    """attn_fwd_wide_kernel's stores of att for one (row, head), as its
+    warps and lanes index them: warp w < nk with 16 w < T takes the
+    queries r0 = 16 w + g8 + 8 u (lane = 4 g8 + tq), both halves c0 of
+    the head's 128 columns, n-tiles n of 8 columns, the pair c0 + 8 n + 2
+    tq + (0, 1); a query row past T is not stored."""
+    out = np.zeros((T, 128), int)
+    for w in range(kernels.MHA_WIDE_ATTN_WARPS):
+        if w >= nk or 16 * w >= T:
+            continue
+        for lane in range(32):
+            g8, tq = lane >> 2, lane & 3
+            for c0 in (0, 64):
+                for n in range(8):
+                    for u in range(2):
+                        t = 16 * w + g8 + 8 * u
+                        if t < T:
+                            out[t, c0 + 8 * n + 2 * tq:c0 + 8 * n + 2 * tq + 2] += 1
+    return out
+
+
+@pytest.mark.parametrize("T", [1, 5, 12, 16, 17, 24, 33, 64, 100, 127, 128])
+@pytest.mark.parametrize("B,D", [(256, 1024), (1, 1024), (2, 896)])
+def test_mha_wide_attention_fwd_stores_each_element_once(B, T, D):
+    """attn_fwd_wide_kernel: one CTA a (row, head), its T keys in the
+    backward's 16 NK, every (query, column) of att [T, 128] stored by one
+    lane of one warp, once; the CTA's shared memory fits two an SM."""
+    heads = D // 128
+    m = kernels.mha_wide_plan(B, T, D, heads)
+    assert m.attn_ctas == B * heads and 16 * m.attn_tiles >= T
+    assert (_fwd_fragments(T, m.attn_tiles) == 1).all()
+    assert m.smem_attn_fwd == kernels._mha_wide_attn_fwd_bytes(m.attn_tiles)
+    per_sm = 233472
+    assert (kernels.MHA_WIDE_ATTN_FWD_CTAS_PER_SM * (m.smem_attn_fwd + 1024)
+            <= per_sm)
+
+
+def _fwd_softmax(s, nk, pad_counted=False):
+    """attn_fwd_wide_kernel's p = e / l of one query row of scores s [T]
+    (the mask term added), in its order: keys past T (16 nk of them in
+    all) score -inf (pad_counted: the padded key's own score, 0, a planted
+    fault); lane tq's partial sums over its n-tiles n, keys 8 n + 2 tq +
+    (0, 1), then the four lanes by the butterfly xor 1, then xor 2."""
+    T = s.shape[0]
+    full = torch.full((16 * nk,), 0.0 if pad_counted else -float("inf"))
+    full[:T] = s
+    mx = full.max()
+    e = torch.exp(full - mx)
+    part = []
+    for tq in range(4):
+        acc = torch.zeros((), dtype=torch.float32)
+        for n in range(2 * nk):
+            for c in range(2):
+                acc = acc + e[8 * n + 2 * tq + c]
+        part.append(acc)
+    pair = [part[0] + part[1], part[2] + part[3]]
+    return (e / (pair[0] + pair[1]))[:T]
+
+
+@pytest.mark.parametrize("T", [1, 5, 12, 16, 17, 24, 100, 127, 128])
+def test_mha_wide_attention_fwd_sums_no_padded_key(T):
+    """No key past T enters a row's sum: in the kernel's order of the row's
+    max and sum, p equals the softmax over the T keys within fp32 noise; a
+    query whose keys are all masked takes exactly 1/T (the -1e30 terms),
+    not 1/(16 NK); counting the padded keys (a planted fault) moves p
+    wherever 16 NK > T. Each lane's keys, over a row's four lanes, are
+    the 16 NK keys once."""
+    nk = kernels.mha_wide_plan(1, T, 1024, 8).attn_tiles
+    keys = sorted(8 * n + 2 * tq + c for tq in range(4)
+                  for n in range(2 * nk) for c in range(2))
+    assert keys == list(range(16 * nk))
+    rng = np.random.default_rng(T)
+    s = torch.from_numpy(rng.standard_normal(T).astype(np.float32) * 3)
+    s[rng.random(T) < 0.3] += -1e30
+    s[0] = float(s[0]) if float(s[0]) > -1e29 else 0.5
+    p = _fwd_softmax(s, nk)
+    ref = torch.softmax(s, dim=0)
+    assert float((p - ref).abs().max()) <= 1e-6 * float(ref.max())
+    masked = _fwd_softmax(torch.full((T,), -1e30), nk)
+    assert torch.equal(masked, torch.full((T,), 1.0 / T))
+    if 16 * nk > T:
+        bad = _fwd_softmax(s, nk, pad_counted=True)
+        assert float((bad - ref).abs().max()) > 1e-5 * float(ref.max())
+        assert not torch.equal(_fwd_softmax(torch.full((T,), -1e30), nk,
+                                            pad_counted=True), masked)
+    text = (CSRC / "mha_block.cu").read_text()
+    body = text[text.index("attn_fwd_wide_kernel(const"):]
+    body = body[:body.index("\n}\n")]
+    assert "sc[n][e] = j >= T ? -INFINITY : sc[n][e] + negk[j];" in body
+    assert body.count("drop.keep(seed, salt, t, j)") == 1
+
+
+def test_mha_wide_attention_fwd_constants_mirror_the_kernel():
+    """attn_fwd_wide_kernel's warps, head dim, instances and CTAs an SM are
+    the plan's, its shared memory mha_wide_plan's smem_attn_fwd; the
+    scalar body's head-dim-128 instance is gone."""
+    assert _constant("mha_block.cu", "kAttnWideWarps") == \
+        kernels.MHA_WIDE_ATTN_WARPS
+    text = (CSRC / "mha_block.cu").read_text()
+    cases = sorted(int(n) for n in re.findall(
+        r"case (\d+): return go\(attn_fwd_wide_kernel<\1>, \1\);", text))
+    assert tuple(cases) == kernels.MHA_WIDE_ATTN_TILES
+    bounds = re.search(r"__launch_bounds__\(32 \* kAttnWideWarps, (\d+)\)\n"
+                       r"attn_fwd_wide_kernel", text)
+    assert bounds and int(bounds.group(1)) == \
+        kernels.MHA_WIDE_ATTN_FWD_CTAS_PER_SM
+    assert "launch_attention_tiles<128" not in text
+    assert "attn_fwd_tile_kernel<128" not in text
+    entry = text[text.index('extern "C" int vsl_mha_block_fwd_wide_bf16'):]
+    entry = entry[:entry.index("\n}\n")]
+    assert "launch_attn_fwd_wide(qkv, mask, drop, att, B, T, D, n_heads, NK," \
+        in entry
+    assert "launch_attention_tiles" not in entry
+    for nk in kernels.MHA_WIDE_ATTN_TILES:
+        assert kernels._mha_wide_attn_fwd_bytes(nk) == \
+            2 * 3 * 16 * nk * kernels._tc_stride(128) + 4 * 16 * nk
+
+
+@pytest.mark.parametrize("B,T,D", SHAPES)
+def test_conv_wide_fwd_d_stream_covers_every_frame_once_a_layer(B, T, D):
+    """#2c wide's per-frame work is the backward's d kernel, launched once
+    a layer on conv_wide_plan's strips (grid z 1, layer l): every frame of
+    every row is some strip's own frame once a layer, its reach read from
+    ring slots that hold it (conv_wide_d_kernel's schedule); the forward
+    entry launches nothing else before each product, and the streamed
+    prologue's predecessor is gone."""
+    K, L, F = 7, 4, kernels.WIDE_D_FRAMES
+    gl = K - 1 - (K - 1) // 2
+    R = kernels._wide_bwd_ring(K, F)
+    plan = kernels.conv_wide_plan(B, T, D, K, L)
+    for _ in range(L):
+        owned = np.zeros(T, int)
+        for s in range(plan.strips):
+            s0, s1 = s * plan.strip, min(T, (s + 1) * plan.strip)
+            a, batches = _pass_schedule(s0, s1, K, F, "d")
+            ring, landed = {}, {}
+            for i, batch in enumerate(batches):
+                for j in (i, i + 1):
+                    for _k, e, _t in batches[j] if j < len(batches) else []:
+                        ring[(e - a) % R] = e
+                        landed.setdefault(e, j)
+                for _k, e, t in batch:
+                    if s0 <= t < s1:
+                        owned[t] += 1
+                        for f in range(t - gl, t + gl + 1):
+                            assert ring[(f - a) % R] == f and landed[f] <= i
+        assert (owned == 1).all(), owned
+    text = (CSRC / "conv_block.cu").read_text()
+    assert "conv_wide_prologue_kernel" not in text
+    assert "wide_prologue_floats" not in text
+    entry = text[text.index('extern "C" int vsl_conv_block_fwd_wide_bf16'):]
+    entry = entry[:entry.index("\n}\n")]
+    assert entry.count("launch_opted(") == 1
+    assert ("launch_opted(conv_wide_d_kernel<kWideBwdK>, grid, D / 4, "
+            "wide_d_bytes(D, K), stream,") in entry
+    assert "xs, p, S, l, d, nullptr, drop, nullptr," in entry  # layer l, no g

@@ -339,31 +339,66 @@ WIDE_FAULT_EDITS = {
         "conv_block.cu", "conv_block_bwd_wide_bf16",
         "const bool on = w.loads(e), own = w.owned(t);",
         "const bool on = w.loads(e) && e != w.s1, own = w.owned(t);"),
+    # #3b wide's attention forward (attn_fwd_wide_kernel): a padded key's
+    # score (q . 0 = 0) counted in the row's max and sum ...
+    "padded_key_in_l": (
+        "mha_block.cu", "mha_block_fwd_wide_bf16",
+        "sc[n][e] = j >= T ? -INFINITY : sc[n][e] + negk[j];",
+        "sc[n][e] = j >= T ? sc[n][e] : sc[n][e] + negk[j];"),
+    # ... and one keep bit of every (row, head) flipped, (t, j) = (0, 1)
+    "fwd_keep_bit_flipped": (
+        "mha_block.cu", "mha_block_fwd_wide_bf16",
+        "const bool kept = t < T && j < T && drop.keep(seed, salt, t, j);",
+        "const bool kept = t < T && j < T && (drop.keep(seed, salt, t, j) != "
+        "(t == 0 && j == 1));"),
 }
-WIDE_FAULTS = (*WIDE_FAULT_EDITS, "ds_unrounded")
+WIDE_FAULTS = ("keep_bit_flipped", "dbqkv_partial_dropped",
+               "halo_frame_skipped", "ds_unrounded")
+# the forward's: two in the source, two impostor functions (the bf16
+# operands of the kernel's products cannot hold an unrounded q * scale or p)
+WIDE_FWD_FAULTS = ("padded_key_in_l", "fwd_keep_bit_flipped", "q_unrounded",
+                   "p_unrounded")
 
 
-def _fault_library(fault):
-    """The kernel library with the entry point of WIDE_FAULT_EDITS[fault]
-    taken from a changed copy of its source."""
+def _edited_library(name, source, entry, edits):
+    """The kernel library with the entry point vsl_<entry> taken from a copy
+    of csrc/<source> changed by edits [(old, new)], each old found once."""
     from vslnet_torch.bench.common import build_copy
 
-    source, entry, old, new = WIDE_FAULT_EDITS[fault]
     src = (K.CSRC / source).read_text()
-    if src.count(old) != 1:
-        raise RuntimeError("%s: the anchor is not found once in %s"
-                           % (fault, source))
-    copy = build_copy("fault_" + fault, src.replace(old, new).replace(
-        'extern "C" int vsl_', 'extern "C" int fault_'))
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError("%s: the anchor %r is not found once in %s"
+                               % (name, old, source))
+        src = src.replace(old, new)
+    copy = build_copy(name, src.replace('extern "C" int vsl_',
+                                        'extern "C" int fault_'))
     fn = getattr(copy, "fault_" + entry)
     fn.argtypes = K._SIGNATURES["vsl_" + entry]
     fn.restype = ctypes.c_int
     main = K._library()
 
     class Lib:
-        def __getattr__(self, name):
-            return fn if name == "vsl_" + entry else getattr(main, name)
+        def __getattr__(self, attr):
+            return fn if attr == "vsl_" + entry else getattr(main, attr)
     return Lib()
+
+
+def _fault_library(fault):
+    """The kernel library with the entry point of WIDE_FAULT_EDITS[fault]
+    taken from a changed copy of its source."""
+    source, entry, old, new = WIDE_FAULT_EDITS[fault]
+    return _edited_library("fault_" + fault, source, entry, [(old, new)])
+
+
+def _with_library(lib, fn):
+    """fn() with lib swapped in for the wrapper's calls, its outputs
+    cloned."""
+    main, K._LIB = K._LIB, lib
+    try:
+        return [t.clone() for t in fn()]
+    finally:
+        K._LIB = main
 
 
 def wide_fault(case, fault):
@@ -374,14 +409,93 @@ def wide_fault(case, fault):
         return case._replace(kernel=lambda: K.mha_block_bwd_plain(
             *case.args, round_ds=False))
     lib = _fault_library(fault)
+    return case._replace(kernel=lambda: _with_library(lib, case.kernel))
 
-    def kernel():
-        main, K._LIB = K._LIB, lib
-        try:
-            return [t.clone() for t in case.kernel()]
-        finally:
-            K._LIB = main
-    return case._replace(kernel=kernel)
+
+# The wide backward in its fp32-qkv form (fp32 rows holding bf16 values,
+# the forward's buffer before qkv was stored in bf16): a copy of
+# mha_block.cu whose attn_bwd_wide_kernel takes fp32 qkv and loads it as
+# that form did (FP32_QKV_LOAD, its text, in place of the kernel's loads
+# from FP32_QKV_FROM to FP32_QKV_TO), so that a card test can hold the
+# backward from the bf16 qkv to that form's bits on qkv.float().
+FP32_QKV_FROM = ("  const bf16* qrow = qkv + (size_t)b * T * D3 + h * HD;\n"
+                 "  const float* grow = gatt")
+FP32_QKV_TO = ("  for (int j = tid; j < TP; j += NT)\n"
+               "    negk[j] = j < T ? (1.f - mask[(size_t)b * T + j]) * "
+               "vsl::kMaskValue : 0.f;\n  __syncthreads();\n  if (warp < NK) {")
+FP32_QKV_LOAD = (
+    "  const float* qrow = qkv + (size_t)b * T * D3 + h * HD;\n"
+    "  const float* grow = gatt + (size_t)b * T * D + h * HD;\n"
+    "  // k, v, qs, gh by 16-byte loads in 2 NK rounds of the CTA's threads, up\n"
+    "  // to 4 rounds' loads (16 a thread) issued before their stores\n"
+    "  constexpr int kRounds = TP * (HD / 4) / NT, kBatch = kRounds < 4 ? kRounds : 4;\n"
+    "#pragma unroll 1\n"
+    "  for (int r0 = 0; r0 < kRounds; r0 += kBatch) {\n"
+    "    float4 q4[kBatch], k4[kBatch], v4[kBatch], g4[kBatch];\n"
+    "#pragma unroll\n"
+    "    for (int u = 0; u < kBatch; ++u) {\n"
+    "      const int i = (r0 + u) * NT + tid, j = i / (HD / 4), c = (i % (HD / 4)) * 4;\n"
+    "      q4[u] = k4[u] = v4[u] = g4[u] = make_float4(0.f, 0.f, 0.f, 0.f);\n"
+    "      if (j < T) {\n"
+    "        const float* r = qrow + (size_t)j * D3 + c;\n"
+    "        q4[u] = *reinterpret_cast<const float4*>(r);\n"
+    "        k4[u] = *reinterpret_cast<const float4*>(r + D);\n"
+    "        v4[u] = *reinterpret_cast<const float4*>(r + 2 * D);\n"
+    "        g4[u] = *reinterpret_cast<const float4*>(grow + (size_t)j * D + c);\n"
+    "      }\n"
+    "    }\n"
+    "#pragma unroll\n"
+    "    for (int u = 0; u < kBatch; ++u) {\n"
+    "      const int i = (r0 + u) * NT + tid, j = i / (HD / 4), c = (i % (HD / 4)) * 4;\n"
+    "      const auto put = [&](bf16* dst, float4 v, float f) {\n"
+    "        *reinterpret_cast<uint2*>(dst + j * SH + c) =\n"
+    "            make_uint2(vsl::pack_bf16(v.x * f, v.y * f), vsl::pack_bf16(v.z * f, v.w * f));\n"
+    "      };\n"
+    "      put(Ks, k4[u], 1.f);  // bf16 values already\n"
+    "      put(Vs, v4[u], 1.f);\n"
+    "      put(Qs, q4[u], scale);\n"
+    "      put(Gs, g4[u], 1.f);\n"
+    "    }\n"
+    "  }\n")
+FP32_QKV_EDITS = [
+    ("attn_bwd_wide_kernel(const __nv_bfloat16* __restrict__ qkv,",
+     "attn_bwd_wide_kernel(const float* __restrict__ qkv,"),
+    ("cudaError_t launch_attn_bwd_wide(const __nv_bfloat16* qkv,",
+     "cudaError_t launch_attn_bwd_wide(const float* qkv,"),
+    ("launch_attn_bwd_wide(static_cast<const bf16*>(qkv), mask,",
+     "launch_attn_bwd_wide(static_cast<const float*>(qkv), mask,"),
+]
+
+
+def fp32_qkv_edits():
+    """FP32_QKV_EDITS and the loads' replacement, found in the source."""
+    src = (K.CSRC / "mha_block.cu").read_text()
+    start = src.index(FP32_QKV_FROM)
+    return FP32_QKV_EDITS + [(src[start:src.index(FP32_QKV_TO, start)],
+                              FP32_QKV_LOAD)]
+
+
+def wide_bwd_from_fp32_qkv(case):
+    """#10b wide's outputs for case (mha_case at head dim 128) as its
+    fp32-qkv form computed them: the backward of a copy of mha_block.cu
+    that loads fp32 qkv (fp32_qkv_edits), on the case's saved qkv widened
+    to fp32."""
+    lib = _edited_library("fp32_qkv", "mha_block.cu", "mha_block_bwd_wide_bf16",
+                          fp32_qkv_edits())
+    x, mask, gam, beta, wqkv, bqkv, wd, bd, heads, seeds, rate, g, qkv, att = \
+        case.args
+    q32 = qkv.float()
+    check = K._check
+
+    def fp32_check(name, t, shape, dtype=torch.float32):
+        return check(name, t, shape, torch.float32 if t is q32 else dtype)
+
+    K._check = fp32_check
+    try:
+        return _with_library(lib, lambda: K.launch_mha_block_bwd(
+            x, mask, gam, beta, wqkv, wd, heads, seeds, rate, q32, att, g))
+    finally:
+        K._check = check
 
 
 def _autograd(fn, inputs, n_grad, g):
@@ -519,6 +633,160 @@ def mha_case(dev, rng, B, T, D, heads, rate):
         lambda: kernel(x.float(), g.float()),
         lambda: _autograd(plain, [x, gam, beta, wqkv, bqkv, wd, bd], 7, g),
         (B, T, D, heads), MHA_LIMITS, axes={"dx": (1, 0)}, short_row=B - 1)
+
+
+# --- #3b wide's attention forward (attn_fwd_wide_kernel), read as the
+# backwards are: att [B, T, D] is fp32, summed from bf16 operands, so it is
+# read against the twin (ops/kernels.py attention at bf16 on the kernel's
+# own qkv) element by element over the element's magnitude mag = sum_j
+# |bf16(drop(p))_tj| |v_jc|. Sums in another order move an element by fp32
+# noise (~2^-20 of mag); a bf16(p) that rounds the other way moves it by
+# one bf16 ulp of one term. Readings: `share`, of the elements off by more
+# than ATT_NOISE of mag, and `elem`, the largest error over max(mag, its
+# mean) in units of 2^-8, held to SHARE_TOL and ELEM_TOL; the impostors
+# with q * scale or p unrounded must read beyond SHARE_TOL.
+ATT_NOISE = 2.0 ** -12
+ATT_LIMITS = {"share": SHARE_TOL, "elem": ELEM_TOL}
+ATT_CONTROLS = {"q_unrounded": {"round_q": False},
+                "p_unrounded": {"round_p": False}}
+
+
+def attention_fwd_function(qkv, mask, heads, seeds, rate, work=torch.float32,
+                           round_q=True, round_p=True):
+    """The wide attention's function of qkv [B, T, 3D] (bf16 values) with
+    every other value in `work`, its rounding points kept: bf16(q * scale)
+    (scale = bf16(1/sqrt(hd))), p = softmax(qs . k^T + (1 - mask) * -1e30),
+    bf16(drop(p)) . v. round_q, round_p False leave one of them unrounded
+    (impostors the checks must refuse); work float64 evaluates the same
+    function in float64. -> (att [B, T, D], mag [B, T, D])."""
+    B, T, D3 = qkv.shape
+    D = D3 // 3
+    hd = D // heads
+
+    def split(t):
+        return t.reshape(B, T, heads, hd).transpose(1, 2)
+
+    def merge(t):
+        return t.transpose(1, 2).reshape(B, T, D)
+
+    q, k, v = (split(qkv[..., i * D:(i + 1) * D].to(work)) for i in range(3))
+    scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float64)
+                  .to(BF16))
+    qs = q * scale
+    if round_q:
+        qs = qs.to(BF16).to(work)
+    neg = ((1.0 - mask.to(work)) * -1e30).reshape(B, 1, 1, T)
+    p = torch.softmax(qs @ k.transpose(-1, -2) + neg, dim=-1)
+    if rate > 0.0:
+        bits = torch.stack([K.mha_hash_bits(seeds, h, T)
+                            for h in range(heads)], dim=1)
+        p = K._drop_bits(p, bits, rate)
+    if round_p:
+        p = p.to(BF16).to(work)
+    return merge(p @ v), merge(p @ v.abs())
+
+
+def _att_reading(att, ref, mag):
+    err = (att.double() - ref.double()).abs()
+    mag = mag.double()
+    floor = torch.clamp(mag, min=float(mag.mean()))
+    return {"share": float((err > ATT_NOISE * mag).double().mean()),
+            "elem": float((err / floor).max()) / ELEM_UNIT}
+
+
+class AttnFwdCase(NamedTuple):
+    """#3b wide's attention at one shape: kernel() returns the block
+    forward's (qkv, att); the twin reads the same qkv."""
+    kernel: Callable
+    mask: torch.Tensor
+    heads: int
+    seeds: object
+    rate: float
+    shape: tuple
+
+
+def attention_fwd_case(dev, rng, B, T, D, heads, rate):
+    """The wide block forward at head dim 128 on x [B, T, D] in bf16,
+    ragged key masks with the last row fully masked, drop rate `rate`."""
+    lens = np.concatenate([rng.integers(1, T + 1, B - 1), [0]])
+    x = _t(dev, rng.standard_normal((B, T, D))).to(BF16)
+    mask = _t(dev, np.arange(T)[None, :] < lens[:, None])
+    w = [_t(dev, 1 + 0.1 * rng.standard_normal((2, D))),
+         _t(dev, 0.1 * rng.standard_normal((2, D))),
+         _t(dev, rng.standard_normal((D, 3 * D)) / math.sqrt(D)),
+         _t(dev, 0.1 * rng.standard_normal(3 * D)),
+         _t(dev, rng.standard_normal((D, D)) / math.sqrt(D)),
+         _t(dev, 0.1 * rng.standard_normal(D))]
+    seeds = _t(dev, rng.integers(0, 1 << 23, (B, 1))) if rate else None
+    return AttnFwdCase(
+        lambda: K.launch_mha_block_fwd(x, mask, *w, heads, seeds, rate)[1:],
+        mask, heads, seeds, rate, (B, T, D, heads))
+
+
+def attention_fwd_read(case):
+    """The kernel's and the impostors' readings against the twin, each
+    against the fp64 evaluation (`fp64`: the kernel's and the twin's), the
+    kernel's bits on two equal calls."""
+    qkv, att = [t.clone() for t in case.kernel()]
+    qkv2, att2 = case.kernel()
+    torch.cuda.synchronize()
+    args = (case.mask, case.heads, case.seeds, case.rate)
+    D = qkv.shape[-1] // 3
+    q, k, v = (qkv[..., i * D:(i + 1) * D].float() for i in range(3))
+    twin = K.attention(q, k, v, case.mask, case.heads, case.seeds, case.rate,
+                       BF16)
+    _, mag = attention_fwd_function(qkv, *args)
+    out = {"kernel": _att_reading(att, twin, mag)}
+    for name, kw in ATT_CONTROLS.items():
+        out[name] = _att_reading(attention_fwd_function(qkv, *args, **kw)[0],
+                                 twin, mag)
+    f64, mag64 = attention_fwd_function(qkv, *args, work=torch.float64)
+    out["fp64"] = {"kernel": _att_reading(att, f64, mag64),
+                   "twin": _att_reading(twin, f64, mag64)}
+    out["equal_bits_twice"] = bool(torch.equal(att, att2)
+                                   and torch.equal(qkv, qkv2))
+    out["finite"] = bool(torch.isfinite(att).all())
+    out["dtypes"] = [str(qkv.dtype).replace("torch.", ""),
+                     str(att.dtype).replace("torch.", "")]
+    return out
+
+
+def attention_fwd_verdict(r, fp64=False):
+    """(ok, reason): the kernel's readings within ATT_LIMITS of the twin
+    (fp64: no further from the fp64 evaluation than the twin's plus the
+    limits), both impostors beyond the share limit, equal bits twice, a
+    finite att from a bf16 qkv."""
+    for m, lim in ATT_LIMITS.items():
+        got = r["fp64"]["kernel"][m] if fp64 else r["kernel"][m]
+        if fp64:
+            lim = r["fp64"]["twin"][m] + lim
+        if not got <= lim:
+            return False, "attn_fwd_wide: %s %g beyond the limits %g%s" % (
+                m, got, lim, " (from fp64)" if fp64 else "")
+    for name in ATT_CONTROLS:
+        if not r[name]["share"] > ATT_LIMITS["share"]:
+            return False, "attn_fwd_wide: control %s reads %g, within %g" % (
+                name, r[name]["share"], ATT_LIMITS["share"])
+    if not r["equal_bits_twice"]:
+        return False, "attn_fwd_wide: two equal calls differ"
+    if not r["finite"] or r["dtypes"] != ["bfloat16", "float32"]:
+        return False, "attn_fwd_wide: att not finite or dtypes %s" % r["dtypes"]
+    return True, ""
+
+
+def attention_fwd_fault(case, fault):
+    """The case with WIDE_FWD_FAULTS[fault] planted: the block forward from
+    a changed copy of mha_block.cu, or an impostor att (q * scale or p
+    unrounded) on the kernel's own qkv."""
+    if fault in ATT_CONTROLS:
+        def kernel():
+            qkv, _ = case.kernel()
+            return qkv, attention_fwd_function(
+                qkv, case.mask, case.heads, case.seeds, case.rate,
+                **ATT_CONTROLS[fault])[0]
+        return case._replace(kernel=kernel)
+    lib = _fault_library(fault)
+    return case._replace(kernel=lambda: _with_library(lib, case.kernel))
 
 
 ATTN_NAMES = ("dq", "dk", "dv")

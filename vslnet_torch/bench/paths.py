@@ -179,7 +179,8 @@ def profile_device(run, wall_ms):
             "device_ms_without_copies": device_ms - copy_ms, "wall_ms": wall_ms,
             "device_idle_share": 1.0 - device_ms / wall_ms,
             "device_launches": sum(r[2] for r in rows),
-            "top": [[k[:70], ms, n] for k, ms, n in rows[:12]]}
+            "top": [[k[:70], ms, n] for k, ms, n in rows[:12]],
+            "kernel_names": sorted({r[0][:70] for r in rows})}
 
 
 def wall_ms(run, n=3):

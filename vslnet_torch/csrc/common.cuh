@@ -23,12 +23,9 @@ namespace vsl {
 constexpr float kMaskValue = -1e30f;  // the reference's additive key mask
 constexpr float kLnEps = 1e-6f;       // LayerNorm epsilon of the reference
 
-// The wide conv forward's per-frame kernel (conv_block.cu): a CTA of
-// kWideThreads walks a strip of frames in sub-tiles of kWideFrames; the
-// wide MHA backward's g_dpre launch takes kWideThreads too (ops/kernels.py
-// WIDE_THREADS, WIDE_FRAMES).
+// Threads a CTA of the wide MHA backward's g_dpre launch (mha_block.cu
+// wide_gdpre_kernel; ops/kernels.py WIDE_THREADS).
 constexpr int kWideThreads = 512;
-constexpr int kWideFrames = 8;
 
 // f(std::integral_constant<int, HD>) for the attention kernels' head dims
 // (ops/kernels.py MHA_HEAD_DIMS); cudaErrorInvalidValue for any other.

@@ -1508,15 +1508,14 @@ namespace {
 // tile of 8 frames, and a product of so few frames would re-read the 2 MB
 // of bf16(wp) once a tile. So each layer is split at its product:
 //   - the per-frame work on CTAs of strips of frames a row (ops/kernels.py
-//     conv_wide_plan), the forward's walked in sub-tiles of kWideFrames
-//     frames with their depthwise reach, the backward's streamed a frame
-//     at a time (below), the column sums (dbp, dgam, dbeta, ddw) carried
-//     over the strip and written once a strip;
+//     conv_wide_plan), streamed a few frames at a time (below), the column
+//     sums (dbp, dgam, dbeta, ddw) carried over the strip and written once
+//     a strip;
 //   - the product [B T, D] x [D, D] over every frame at once on mma.cuh's
 //     tc_gemm, the layer's epilogue fused into it.
-// Forward, a layer: (1) conv_wide_prologue_kernel: n = bf16(LN(x_l)) over
-// the sub-tile and its reach, d = bf16(depthwise(n)) into a bf16 workspace;
-// (2) tc_gemm d . bf16(wp) (the wrapper rounds wp once a call) with
+// Forward, a layer: (1) conv_wide_d_kernel for layer l alone: d =
+// bf16(depthwise(bf16(LN(x_l)))) into a bf16 workspace, the backward's d
+// bit for bit; (2) tc_gemm d . bf16(wp) (the wrapper rounds wp once a call) with
 // ConvWideFwdEpi: p = . + bp, the ReLU mask [p > 0] the backward reads
 // (bits of 4 columns a byte, two lanes' pairs joined by a shuffle),
 // x_(l+1) = x_l + drop(relu(p)), fp32 between the layers.
@@ -1533,8 +1532,8 @@ namespace {
 // (its prologue, fused into the pass above it). Then dwp = sum bf16(d)^T .
 // bf16(g_p) on wgrad_tc and the partials summed in a fixed order. The
 // function, rounding for rounding, is the tiled bf16 kernels'; no atomics.
-// The backward's passes take a CTA of D / 4 threads a strip of S frames of
-// a row (conv_wide_plan's bwd_strip: one CTA a row at `saturated`), four
+// The per-frame launches take a CTA of D / 4 threads a strip of S frames of
+// a row (conv_wide_plan's strip: one CTA a row at `saturated`), four
 // columns a thread. A column's frames stream through rings of shared
 // memory that only its own thread reads, kWideBwdFrames frames a batch by
 // cp.async, the next batch in flight while the thread works on the current
@@ -1543,55 +1542,12 @@ namespace {
 // registers. The rows' sums (each new frame's LayerNorm mean and
 // variance, each own frame's two LN backward means) are block sums in a
 // fixed order (a warp's by shuffles, then the warps' in order), two
-// barriers a batch. ~97 KB of shared memory a CTA at D = 1024, so two CTAs
-// share an SM. Each frame's statistics are taken once a pass.
+// barriers a batch. 88-97 KB of shared memory a CTA at D = 1024, so two
+// CTAs share an SM. Each frame's statistics are taken once a launch.
 // What bounds them: the products, 2 B T D^2 FLOPs a layer forward and two
 // such backward plus dwp's, on the tensor cores (at `saturated`, 69 GFLOP
 // a product); the per-frame passes move each layer's [B, T, D] rows a few
 // times (x, G, g_d, the bf16 workspaces).
-using vsl::kWideFrames;
-using vsl::kWideThreads;
-
-// The forward prologue's shared memory in floats (ops/kernels.py
-// conv_wide_plan reports it; the launch uses this), F = kWideFrames: X [F +
-// K - 1][D] x_l then n over the reach, DW [K][D].
-__host__ __device__ inline size_t wide_prologue_floats(int D, int K) {
-  return (size_t)(kWideFrames + 2 * K - 1) * D;
-}
-
-// Layer l's per-frame work before its product for the strip [s0, s0 + S)
-// of row b: d = bf16(depthwise(bf16(LN(x_l)))) into d_l [B, T, D].
-template <typename XIn>
-__global__ void __launch_bounds__(kWideThreads, 1)
-conv_wide_prologue_kernel(const XIn* __restrict__ xin, ConvParams p, int l, int S,
-                          __nv_bfloat16* __restrict__ d_l) {
-  extern __shared__ float4 smem4[];
-  const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2;
-  const int b = blockIdx.y, s0 = blockIdx.x * S, s1 = min(T, s0 + S);
-  float* X = reinterpret_cast<float*>(smem4);
-  float* DW = X + (size_t)(kWideFrames + K - 1) * D;
-  const size_t row = (size_t)b * T * D;
-  const float* gam = p.gam + (size_t)l * D;
-  const float* beta = p.beta + (size_t)l * D;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
-  for (int t0 = s0; t0 < s1; t0 += kWideFrames) {
-    const int nf = min(kWideFrames, s1 - t0);
-    // x_l over [t0 - pad, t0 + nf + K - 1 - pad), 0 outside [0, T)
-    const int h0 = t0 - pad, lo = max(h0, 0), hi = min(h0 + nf + K - 1, T);
-    for (int i = tid; i < (nf + K - 1) * D; i += nt) {
-      const int t = h0 + i / D;
-      X[i] = t >= lo && t < hi ? vsl::to_float(xin[row + (size_t)h0 * D + i]) : 0.f;
-    }
-    vsl::cp_async_wait<0>();
-    __syncthreads();
-    float* own = X + (size_t)(lo - h0) * D;
-    vsl::layer_norm_rows<true>(own, own, gam, beta, hi - lo, D);
-    __syncthreads();
-    taps_rows<false, true>(X, DW, nf, D, K, d_l + row + (size_t)t0 * D);
-    __syncthreads();  // X read before the next sub-tile's rows land
-  }
-}
 
 // The forward product's epilogue for layer l: x_(l+1) = x_l +
 // drop(relu(d . wp + bp)) at frame m = b T + t, and the ReLU mask.
@@ -1690,27 +1646,32 @@ struct WideStream {
   __device__ bool loads(int e) const { return e >= 0 && e < T && e < s1 + GL; }
 };
 
-// (1) d_l for every layer l = blockIdx.z over the strip [s0, s0 + S) of row
-// b = blockIdx.y, and for the top layer its g_p from g and mask_top with
-// dbp into its slot of part [B * strips, L, 3 + K, D]. x_l: x (bf16) for
-// layer 0, else xs[l - 1] (fp32). A thread's columns [4 tid, 4 tid + 4):
-// its frames e = s0 - pad + i F + k stream into the ring X (n once the
+// d_l = bf16(depthwise(bf16(LN_l(x_l)))) for layer l = l0 + blockIdx.z
+// over the strip [s0, s0 + S) of row b = blockIdx.y into d_all's layer
+// blockIdx.z [B, T, D]: the forward's prologue of one layer (grid z 1, g
+// null) and the backward's (1), every layer at once, where with g the top
+// layer also takes its g_p from g and mask_top, with dbp into its slot of
+// part [B * strips, L, 3 + K, D]. One kernel makes d both ways, so the
+// backward's dwp reads the forward's operand bit for bit. x_l: x (bf16)
+// for layer 0, else xs[l - 1] (fp32). A thread's columns [4 tid, 4 tid +
+// 4): its frames e = s0 - pad + i F + k stream into the ring X (n once the
 // frame's statistics are known), own frame t = e - (K - 1 - pad) once its
 // reach has landed.
 template <int K>
 __global__ void __launch_bounds__(kWideBwdMaxThreads, 2)
 conv_wide_d_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ xs, ConvParams p,
-                   int S, __nv_bfloat16* __restrict__ d_all, const uint8_t* __restrict__ mask_top,
-                   vsl::Dropout drop, const __nv_bfloat16* __restrict__ g,
-                   __nv_bfloat16* __restrict__ gp_top, float* __restrict__ part) {
+                   int S, int l0, __nv_bfloat16* __restrict__ d_all,
+                   const uint8_t* __restrict__ mask_top, vsl::Dropout drop,
+                   const __nv_bfloat16* __restrict__ g, __nv_bfloat16* __restrict__ gp_top,
+                   float* __restrict__ part) {
   using W = WideStream<K, kWideDFrames>;
   constexpr int F = W::F, PAD = W::PAD, R = W::R;
   extern __shared__ float4 smem4[];
-  const int T = p.T, D = p.D, l = blockIdx.z, tid = threadIdx.x, c = 4 * tid;
+  const int T = p.T, D = p.D, l = l0 + blockIdx.z, tid = threadIdx.x, c = 4 * tid;
   const int nw = blockDim.x >> 5;
   const int b = blockIdx.y, s0 = blockIdx.x * S, s1 = min(T, s0 + S);
   const W w{s0 - PAD, (s1 - s0 + K - 1 + F - 1) / F, s0, s1, T};
-  const bool top = l == p.L - 1, xb = l == 0;
+  const bool top = g != nullptr && l == p.L - 1, xb = l == 0;
   const size_t layer = (size_t)gridDim.y * T * D, row = (size_t)b * T * D;
   const void* xin =
       xb ? static_cast<const void*>(x) : static_cast<const void*>(xs + (l - 1) * layer);
@@ -1793,7 +1754,7 @@ conv_wide_d_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict_
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int j = 0; j < K; ++j) acc = fma4(ld4(X + (size_t)w.slot(t + j - PAD) * D + c), dw[j], acc);
-      const size_t o = (size_t)l * layer + row + (size_t)t * D + c;
+      const size_t o = (size_t)blockIdx.z * layer + row + (size_t)t * D + c;
       *reinterpret_cast<uint2*>(d_all + o) =
           make_uint2(vsl::pack_bf16(acc.x, acc.y), vsl::pack_bf16(acc.z, acc.w));
       if (top)
@@ -1974,13 +1935,8 @@ cudaError_t by_type(bool bf16, F f) {
   return bf16 ? f(Tag<__nv_bfloat16>{}) : f(Tag<float>{});
 }
 
+// The per-frame launches take the model's taps and 4 columns a thread.
 bool wide_ok(int B, int T, int D, int L, int K, int S) {
-  return B >= 1 && T >= 1 && L >= 1 && K >= 1 && D % vsl::kTcGemmN == 0 && S >= 1 &&
-         S % kWideFrames == 0 && wide_prologue_floats(D, K) * sizeof(float) <= 232448;
-}
-
-// The backward's passes take the model's taps and 4 columns a thread.
-bool wide_bwd_ok(int B, int T, int D, int L, int K, int S) {
   return B >= 1 && T >= 1 && L >= 1 && K == kWideBwdK && D % vsl::kTcGemmN == 0 &&
          D / 4 <= kWideBwdMaxThreads && S >= 1 && wide_pass_bytes(D, K) <= 232448;
 }
@@ -1990,7 +1946,8 @@ bool wide_bwd_ok(int B, int T, int D, int L, int K, int S) {
 // #2c at the wide widths (conv_wide_plan's strips of S frames): x and out
 // [B, T, D] bf16, wpb = bf16(wp) [L, D, D], xs [L - 1, B, T, D] fp32 and
 // mask [L, B, T, D / 4] as the tiled bf16 forward writes them; d_ws [B, T,
-// D] bf16, the product's operand, reused by every layer.
+// D] bf16, the product's operand, reused by every layer. A layer: its d by
+// the backward's d kernel (grid z 1), then its product.
 extern "C" int vsl_conv_block_fwd_wide_bf16(const void* x, const float* gam, const float* beta,
                                             const float* dw, const void* wpb, const float* bp,
                                             const float* seeds, unsigned thresh, float scale,
@@ -2007,17 +1964,17 @@ extern "C" int vsl_conv_block_fwd_wide_bf16(const void* x, const float* gam, con
   const bf16* wb = static_cast<const bf16*>(wpb);
   uint8_t* mk = static_cast<uint8_t*>(mask);
   const dim3 grid((T + S - 1) / S, B);
-  const size_t smem = wide_prologue_floats(D, K) * sizeof(float);
   cudaError_t err = cudaSuccess;
   for (int l = 0; l < L && err == cudaSuccess; ++l) {
     const void* in = l == 0 ? x : static_cast<const void*>(xs + (l - 1) * layer);
     void* o = l == L - 1 ? out : static_cast<void*>(xs + l * layer);
+    err = vsl::launch_opted(conv_wide_d_kernel<kWideBwdK>, grid, D / 4, wide_d_bytes(D, K), stream,
+                            static_cast<const bf16*>(x), xs, p, S, l, d, nullptr, drop, nullptr,
+                            nullptr, nullptr);
+    if (err != cudaSuccess) break;
     err = by_type(l == 0, [&](auto it) {
       using XIn = typename decltype(it)::type;
       const XIn* xin = static_cast<const XIn*>(in);
-      cudaError_t e = vsl::launch_opted(conv_wide_prologue_kernel<XIn>, grid, kWideThreads,
-                                        smem, stream, xin, p, l, S, d);
-      if (e != cudaSuccess) return e;
       return by_type(l == L - 1, [&](auto ot) {
         using XOut = typename decltype(ot)::type;
         const ConvWideFwdEpi<XIn, XOut> epi{xin, static_cast<XOut*>(o),
@@ -2036,7 +1993,7 @@ extern "C" int vsl_conv_block_fwd_wide_bf16(const void* x, const float* gam, con
 // T, D] bf16 (dwp's operands), gd_ws [B, T, D] fp32 (a layer's g_d), g_ws
 // [2, B, T, D] fp32 (the stream between the layers, as the tiled bf16
 // backward's), part [B * ceil(T / S), L, 3 + K, D], gemm_ws [L, splits, D,
-// D]. The passes on strips of S frames (conv_wide_plan's bwd_strip).
+// D]. The passes on strips of S frames (conv_wide_plan's strip).
 extern "C" int vsl_conv_block_bwd_wide_bf16(const void* x, const float* xs, const void* mask,
                                             const float* gam, const float* beta,
                                             const float* dw, const void* wpb, const float* bp,
@@ -2048,7 +2005,7 @@ extern "C" int vsl_conv_block_bwd_wide_bf16(const void* x, const float* xs, cons
   using bf16 = __nv_bfloat16;
   constexpr int KW = kWideBwdK;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (!wide_bwd_ok(B, T, D, L, K, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!wide_ok(B, T, D, L, K, S)) return static_cast<int>(cudaErrorInvalidValue);
   const ConvParams p = make_params(gam, beta, dw, nullptr, bp, T, D, L, K);
   const vsl::Dropout drop{seeds, thresh, scale};
   const size_t layer = (size_t)B * T * D;
@@ -2060,7 +2017,7 @@ extern "C" int vsl_conv_block_bwd_wide_bf16(const void* x, const float* xs, cons
   const dim3 grid((T + S - 1) / S, B);
   cudaError_t err = vsl::launch_opted(
       conv_wide_d_kernel<KW>, dim3(grid.x, B, L), threads, wide_d_bytes(D, K), stream,
-      static_cast<const bf16*>(x), xs, p, S, d_all, mk + (L - 1) * layer / 4, drop,
+      static_cast<const bf16*>(x), xs, p, S, 0, d_all, mk + (L - 1) * layer / 4, drop,
       static_cast<const bf16*>(g), gp_all + (L - 1) * layer, part);
   for (int l = L - 1; l >= 0 && err == cudaSuccess; --l) {
     const void* in = l == 0 ? x : static_cast<const void*>(xs + (l - 1) * layer);

@@ -1046,17 +1046,16 @@ namespace {
 // few frames at a time (the backward, wide_ln_pass_kernel), and the four
 // products [B T, D] x [D, 3D], [B T, D] x [D, D] and their transposes run
 // over every frame at once on mma.cuh's tc_gemm, the bias, rounding,
-// dropout and residual epilogues fused into them. The forward's attention is the
-// block's own body at HD = 128 (attn_fwd_tile_kernel); the backward's is
-// a tensor-core kernel of its own (attn_bwd_wide_kernel below). The
-// function, with each rounding point, is the bf16 block's
-// (vsl_mha_block_fwd_bf16 / _bwd_bf16 above): y, q, k, v, bf16(q scale),
-// drop(p), z rounded; the bias gradients of the unrounded gradients, the
-// products and dwd, dwqkv of the rounded ones; qkv and att as the bf16
-// forward saves them. What bounds them: the products, 2 B T D 4D FLOPs
-// forward and twice that backward plus the weight gradients, on the
-// tensor cores, and the attention's 4 T^2 hd FLOPs a (row, head) forward,
-// fp32 products out of shared memory (10 backward, on the tensor cores).
+// dropout and residual epilogues fused into them. Both attentions are
+// tensor-core kernels of their own, a CTA a (row, head) (attn_fwd_wide_kernel,
+// attn_bwd_wide_kernel below). The function, with each rounding point, is
+// the bf16 block's (vsl_mha_block_fwd_bf16 / _bwd_bf16 above): y, q, k, v,
+// bf16(q scale), drop(p), z rounded; the bias gradients of the unrounded
+// gradients, the products and dwd, dwqkv of the rounded ones; att as the
+// bf16 forward saves it and qkv, whose values are bf16, stored as bf16.
+// What bounds them: the products, 2 B T D 4D FLOPs forward and twice that
+// backward plus the weight gradients, on the tensor cores, and the
+// attention's bytes (4 T^2 hd FLOPs a (row, head) forward, 10 backward).
 using vsl::kWideThreads;
 constexpr int kLnRows = 8;         // frames a CTA of the forward's LayerNorm launch, one a warp
 
@@ -1098,15 +1097,16 @@ wide_ln_kernel(const XT* __restrict__ x, const float* __restrict__ att,
   }
 }
 
-// qkv = bf16(y . bf16(Wqkv) + bqkv), the fp32 buffer the backward reads.
+// qkv = bf16(y . bf16(Wqkv) + bqkv), stored as bf16: the attention reads
+// it, and the backward as the forward's residual.
 struct QkvEpi {
-  float* qkv;
+  __nv_bfloat16* qkv;
   const float* bqkv;
   int M, N;
   __device__ void operator()(int m, int n, float v0, float v1) const {
     if (m >= M) return;
-    *reinterpret_cast<float2*>(qkv + (size_t)m * N + n) = make_float2(
-        vsl::bf16_round(v0 + __ldg(bqkv + n)), vsl::bf16_round(v1 + __ldg(bqkv + n + 1)));
+    *reinterpret_cast<uint32_t*>(qkv + (size_t)m * N + n) =
+        vsl::pack_bf16(v0 + __ldg(bqkv + n), v1 + __ldg(bqkv + n + 1));
   }
 };
 
@@ -1335,7 +1335,7 @@ wide_ln_pass_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
 // over the row's frames (the lanes' rows by shuffles, then the row tiles
 // in order) into strip 0's dbqkv partials of part [B * strips, 8D], zero
 // in the row's other strips. No atomics: two equal calls give equal bits.
-// What bounds it: its bytes, the fp32 q, k, v and g_att read once and
+// What bounds it: its bytes, the bf16 q, k, v and fp32 g_att read once and
 // dqkvt written once (10 T^2 hd FLOPs a (row, head) take ~0.04 ms of the
 // tensor cores at `saturated`); one 221 KB CTA an SM loads, computes and
 // stores in turn.
@@ -1415,7 +1415,7 @@ __device__ __forceinline__ void attn_wide_scores(float (&c)[2 * NP][4], const __
 
 template <int NK>
 __global__ void __launch_bounds__(32 * kAttnWideWarps, 1)
-attn_bwd_wide_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+attn_bwd_wide_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ mask,
                      vsl::Dropout drop, const float* __restrict__ gatt,
                      __nv_bfloat16* __restrict__ dqkvt, float* __restrict__ part, int T, int D,
                      int n_heads, int strips, float scale) {
@@ -1434,37 +1434,45 @@ attn_bwd_wide_kernel(const float* __restrict__ qkv, const float* __restrict__ ma
   const int b = static_cast<int>(blockIdx.x) / n_heads, h = static_cast<int>(blockIdx.x) % n_heads;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g8 = lane >> 2, tq = lane & 3;
   const size_t D3 = 3 * (size_t)D;
-  const float* qrow = qkv + (size_t)b * T * D3 + h * HD;
+  const bf16* qrow = qkv + (size_t)b * T * D3 + h * HD;
   const float* grow = gatt + (size_t)b * T * D + h * HD;
-  // k, v, qs, gh by 16-byte loads in 2 NK rounds of the CTA's threads, up
-  // to 4 rounds' loads (16 a thread) issued before their stores
-  constexpr int kRounds = TP * (HD / 4) / NT, kBatch = kRounds < 4 ? kRounds : 4;
+  // k, v, qs, gh 8 columns a thread a round by 16-byte loads (q, k and v
+  // bf16 as qkv holds them, g_att fp32) in NK rounds of the CTA's threads,
+  // up to 4 rounds' loads (20 a thread) issued before their stores
+  constexpr int CH = HD / 8, kRounds = TP * CH / NT, kBatch = kRounds < 4 ? kRounds : 4;
 #pragma unroll 1
   for (int r0 = 0; r0 < kRounds; r0 += kBatch) {
-    float4 q4[kBatch], k4[kBatch], v4[kBatch], g4[kBatch];
+    uint4 q8[kBatch], k8[kBatch], v8[kBatch];
+    float4 g8a[kBatch], g8b[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      const int i = (r0 + u) * NT + tid, j = i / (HD / 4), c = (i % (HD / 4)) * 4;
-      q4[u] = k4[u] = v4[u] = g4[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      const int i = (r0 + u) * NT + tid, j = i / CH, c = (i % CH) * 8;
+      q8[u] = k8[u] = v8[u] = make_uint4(0u, 0u, 0u, 0u);
+      g8a[u] = g8b[u] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (j < T) {
-        const float* r = qrow + (size_t)j * D3 + c;
-        q4[u] = *reinterpret_cast<const float4*>(r);
-        k4[u] = *reinterpret_cast<const float4*>(r + D);
-        v4[u] = *reinterpret_cast<const float4*>(r + 2 * D);
-        g4[u] = *reinterpret_cast<const float4*>(grow + (size_t)j * D + c);
+        const bf16* r = qrow + (size_t)j * D3 + c;
+        q8[u] = *reinterpret_cast<const uint4*>(r);
+        k8[u] = *reinterpret_cast<const uint4*>(r + D);
+        v8[u] = *reinterpret_cast<const uint4*>(r + 2 * D);
+        g8a[u] = *reinterpret_cast<const float4*>(grow + (size_t)j * D + c);
+        g8b[u] = *reinterpret_cast<const float4*>(grow + (size_t)j * D + c + 4);
       }
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      const int i = (r0 + u) * NT + tid, j = i / (HD / 4), c = (i % (HD / 4)) * 4;
-      const auto put = [&](bf16* dst, float4 v, float f) {
-        *reinterpret_cast<uint2*>(dst + j * SH + c) =
-            make_uint2(vsl::pack_bf16(v.x * f, v.y * f), vsl::pack_bf16(v.z * f, v.w * f));
-      };
-      put(Ks, k4[u], 1.f);  // bf16 values already
-      put(Vs, v4[u], 1.f);
-      put(Qs, q4[u], scale);
-      put(Gs, g4[u], 1.f);
+      const int i = (r0 + u) * NT + tid, j = i / CH, c = (i % CH) * 8;
+      uint32_t* w = reinterpret_cast<uint32_t*>(&q8[u]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {  // qs = bf16(q * scale)
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + k));
+        w[k] = vsl::pack_bf16(f.x * scale, f.y * scale);
+      }
+      *reinterpret_cast<uint4*>(Ks + j * SH + c) = k8[u];  // bf16 values as they are
+      *reinterpret_cast<uint4*>(Vs + j * SH + c) = v8[u];
+      *reinterpret_cast<uint4*>(Qs + j * SH + c) = q8[u];
+      *reinterpret_cast<uint4*>(Gs + j * SH + c) =
+          make_uint4(vsl::pack_bf16(g8a[u].x, g8a[u].y), vsl::pack_bf16(g8a[u].z, g8a[u].w),
+                     vsl::pack_bf16(g8b[u].x, g8b[u].y), vsl::pack_bf16(g8b[u].z, g8b[u].w));
     }
   }
   for (int j = tid; j < TP; j += NT)
@@ -1597,7 +1605,7 @@ attn_bwd_wide_kernel(const float* __restrict__ qkv, const float* __restrict__ ma
 
 // The wide attention backward of B rows and n_heads heads at NK tiles of
 // 16 keys (T <= 16 NK; NK of 1, 2, 4, 8).
-cudaError_t launch_attn_bwd_wide(const float* qkv, const float* mask, vsl::Dropout drop,
+cudaError_t launch_attn_bwd_wide(const __nv_bfloat16* qkv, const float* mask, vsl::Dropout drop,
                                  const float* gatt, __nv_bfloat16* dqkvt, float* part, int B,
                                  int T, int D, int n_heads, int strips, int NK,
                                  cudaStream_t stream) {
@@ -1617,6 +1625,188 @@ cudaError_t launch_attn_bwd_wide(const float* qkv, const float* mask, vsl::Dropo
   }
 }
 
+// 2. (wide) the attention forward at head dim 128 on the tensor cores, a
+// CTA of kAttnWideWarps warps a (row, head) as attn_bwd_wide_kernel's: T <=
+// 16 NK keys (mha_wide_plan's attn_tiles), k, v and qs = bf16(q * scale)
+// whole in shared memory as bf16 rows at tc_stride(128), rows past T zero:
+// every row by cp.async as qkv holds it (q scaled and rounded in place by
+// the thread that copied it), v in a commit group of its own that lands
+// while the scores are computed. Warp w < NK takes the
+// queries [16 w, 16 w + 16): S = qs . k^T by mma.sync m16n8k16 (the k16
+// steps accumulated in the tensor cores, as attn_wide_scores does), then
+// in the C fragments, each row's sums over its four lanes in a fixed
+// order: the mask term (a key past T scores -inf, so it adds nothing to
+// l, and a query whose keys are all masked takes p = 1/T, as the scalar
+// body's -1e30 terms give it), the row max, e = exp(s - max), l = sum e,
+// the keep bit hashed once a (t, j) at the head's salt, p = bf16(drop(e /
+// l)) packed from the C fragments straight into the A fragments of att =
+// p . v (m16n8k16, v's rows by ldmatrix.trans), stored fp32 [B, T, D].
+// The function, rounding for rounding, is the bf16 block's attention
+// (attn_fwd_tile_kernel<HD, true> at head dims 8-64). What bounds it: its
+// bytes, qkv read once in bf16 and att written once in fp32 (4 T^2 hd
+// FLOPs a (row, head) take ~0.02 ms of the tensor cores at `saturated`);
+// two ~103 KB CTAs share an SM, so one's loads overlap the other's work.
+// Its shared memory for NK tiles of 16 keys, in bytes (ops/kernels.py
+// _mha_wide_attn_fwd_bytes): k, v, qs [16 NK][tc_stride(128)] (bf16) and
+// the mask terms [16 NK] (fp32).
+__host__ __device__ constexpr size_t attn_wide_fwd_bytes(int NK) {
+  return 2 * (3 * (size_t)16 * NK * vsl::tc_stride(kAttnWideHd)) + 4 * (16 * (size_t)NK);
+}
+
+template <int NK>
+__global__ void __launch_bounds__(32 * kAttnWideWarps, 2)
+attn_fwd_wide_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ mask,
+                     vsl::Dropout drop, float* __restrict__ att, int T, int D, int n_heads,
+                     float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int HD = kAttnWideHd, TP = 16 * NK, SH = vsl::tc_stride(HD);
+  constexpr int NT = 32 * kAttnWideWarps, CH = HD / 8;  // CH: 16-byte chunks a row
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);
+  bf16* Vs = Ks + TP * SH;
+  bf16* Qs = Vs + TP * SH;
+  float* negk = reinterpret_cast<float*>(Qs + TP * SH);
+  const int b = static_cast<int>(blockIdx.x) / n_heads, h = static_cast<int>(blockIdx.x) % n_heads;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g8 = lane >> 2, tq = lane & 3;
+  const size_t D3 = 3 * (size_t)D;
+  const bf16* qrow = qkv + (size_t)b * T * D3 + h * HD;
+  // every row by cp.async as qkv holds it, rows past T zero: q and k in
+  // one commit group, v in a second that lands behind the scores
+  const auto copy = [&](bf16* dst, int part) {
+    for (int i = tid; i < TP * CH; i += NT) {
+      const int j = i / CH, c = (i % CH) * 8;
+      vsl::cp_async16(dst + j * SH + c, qrow + (size_t)(j < T ? j : 0) * D3 + part * D + c, j < T);
+    }
+  };
+  copy(Qs, 0);
+  copy(Ks, 1);
+  vsl::cp_async_commit();
+  copy(Vs, 2);
+  vsl::cp_async_commit();
+  for (int j = tid; j < TP; j += NT)
+    negk[j] = j < T ? (1.f - mask[(size_t)b * T + j]) * vsl::kMaskValue : 0.f;
+  vsl::cp_async_wait<1>();
+  for (int i = tid; i < TP * CH; i += NT) {  // qs = bf16(q * scale), the chunks this thread copied
+    uint4* p = reinterpret_cast<uint4*>(Qs + (i / CH) * SH + (i % CH) * 8);
+    uint4 u = *p;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + k));
+      w[k] = vsl::pack_bf16(f.x * scale, f.y * scale);
+    }
+    *p = u;
+  }
+  __syncthreads();
+  // warp w < NK takes the queries [16 w, 16 w + 16); the others only wait
+  // at the barrier before the product
+  const int r0 = 16 * warp;
+  const bool active = warp < NK && r0 < T;
+  const uint32_t seed = drop.seed(b), salt = vsl::head_salt(h);
+  uint32_t pa[NK][4];
+  if (active) {
+    float sc[2 * NK][4];
+    attn_wide_scores<NK>(sc, Qs, Ks, SH, r0, 0);
+    // this lane's rows r0 + g8 (e < 2) and r0 + g8 + 8, keys 8 n + 2 tq + (e & 1)
+    float mx[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+    for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * n + 2 * tq + (e & 1);
+        sc[n][e] = j >= T ? -INFINITY : sc[n][e] + negk[j];
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+      }
+    float l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
+      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
+    }
+#pragma unroll
+    for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] = expf(sc[n][e] - mx[e >> 1]);  // 0 past T
+        l[e >> 1] += sc[n][e];
+      }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
+      l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
+    }
+    // p = bf16(drop(e / l)), the keep bit once a (t, j), into the A
+    // fragments of key step ks: n = 2 ks (keys 16 ks + 2 tq, + 1) and 2 ks
+    // + 1 (+ 8), rows g8 and g8 + 8 (mma.cuh c_to_a's packing)
+#pragma unroll
+    for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int t = r0 + g8 + 8 * u;
+        float pd[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = 8 * n + 2 * tq + c;
+          const bool kept = t < T && j < T && drop.keep(seed, salt, t, j);
+          pd[c] = kept ? drop.kept(sc[n][2 * u + c] / l[u]) : 0.f;
+        }
+        pa[n >> 1][2 * (n & 1) + u] = vsl::pack_bf16(pd[0], pd[1]);
+      }
+  }
+  vsl::cp_async_wait<0>();
+  __syncthreads();  // v landed for every thread
+  if (!active) return;  // no barrier below
+  // att = p . v, a half of the head's 128 columns at a time
+  float* orow = att + (size_t)b * T * D + h * HD;
+#pragma unroll 1
+  for (int c0 = 0; c0 < HD; c0 += HD / 2) {
+    float acc[HD / 16][4];
+#pragma unroll
+    for (int n = 0; n < HD / 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < NK; ++ks)
+#pragma unroll
+      for (int n = 0; n < HD / 16; n += 2) {
+        uint32_t bb[4];
+        vsl::ldsm_x4_trans(bb, Vs + (16 * ks + (lane & 15)) * SH + c0 + 8 * (n + (lane >> 4)));
+        vsl::mma16(acc[n], pa[ks], bb[0], bb[1]);
+        vsl::mma16(acc[n + 1], pa[ks], bb[2], bb[3]);
+      }
+#pragma unroll
+    for (int n = 0; n < HD / 16; ++n)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int t = r0 + g8 + 8 * u;
+        if (t < T)
+          *reinterpret_cast<float2*>(orow + (size_t)t * D + c0 + 8 * n + 2 * tq) =
+              make_float2(acc[n][2 * u], acc[n][2 * u + 1]);
+      }
+  }
+}
+
+// The wide attention forward of B rows and n_heads heads at NK tiles of 16
+// keys (T <= 16 NK; NK of 1, 2, 4, 8).
+cudaError_t launch_attn_fwd_wide(const __nv_bfloat16* qkv, const float* mask, vsl::Dropout drop,
+                                 float* att, int B, int T, int D, int n_heads, int NK,
+                                 cudaStream_t stream) {
+  if (T > 16 * NK || D != kAttnWideHd * n_heads) return cudaErrorInvalidValue;
+  const float scale = vsl::bf16_round_host(vsl::head_scale(kAttnWideHd));
+  const auto go = [&](auto kernel, int nk) {
+    return vsl::launch_opted(kernel, dim3(B * n_heads), 32 * kAttnWideWarps,
+                             attn_wide_fwd_bytes(nk), stream, qkv, mask, drop, att, T, D,
+                             n_heads, scale);
+  };
+  switch (NK) {
+    case 1: return go(attn_fwd_wide_kernel<1>, 1);
+    case 2: return go(attn_fwd_wide_kernel<2>, 2);
+    case 4: return go(attn_fwd_wide_kernel<4>, 4);
+    case 8: return go(attn_fwd_wide_kernel<8>, 8);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 bool wide_ok(int B, int T, int D, int n_heads) {
   return B >= 1 && T >= 1 && n_heads >= 1 && D == kAttnWideHd * n_heads &&
          D % vsl::kTcGemmN == 0 && D / 4 <= kWideLnMaxThreads && T <= 16 * kAttnWideWarps;
@@ -1625,21 +1815,21 @@ bool wide_ok(int B, int T, int D, int n_heads) {
 }  // namespace
 
 // #3b at head dim 128 (mha_wide_plan): x and out [B, T, D] bf16; wqkvb =
-// bf16(Wqkv) [D, 3D], wdb = bf16(Wd) [D, D]; qkv [B, T, 3D] (bf16-rounded
-// values) and att [B, T, D] fp32 as the bf16 forward saves them; y_ws [B,
-// T, D] bf16, the products' operand (y, then z). TQ: the attention's query
-// tile.
+// bf16(Wqkv) [D, 3D], wdb = bf16(Wd) [D, D]; qkv [B, T, 3D] bf16 and att
+// [B, T, D] fp32, the backward's residuals; y_ws [B, T, D] bf16, the
+// products' operand (y, then z). The attention on NK tiles of 16 keys (T
+// <= 16 NK).
 extern "C" int vsl_mha_block_fwd_wide_bf16(const void* x_, const float* mask, const float* gam,
                                            const float* beta, const void* wqkvb,
                                            const float* bqkv, const void* wdb, const float* bd,
                                            const float* seeds, unsigned thresh, float scale,
-                                           float* qkv, float* att, void* out_, void* y_ws, int B,
-                                           int T, int D, int n_heads, int TQ, void* stream_) {
+                                           void* qkv_, float* att, void* out_, void* y_ws, int B,
+                                           int T, int D, int n_heads, int NK, void* stream_) {
   using bf16 = __nv_bfloat16;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (!wide_ok(B, T, D, n_heads) || TQ < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!wide_ok(B, T, D, n_heads)) return static_cast<int>(cudaErrorInvalidValue);
   const bf16* x = static_cast<const bf16*>(x_);
+  bf16* qkv = static_cast<bf16*>(qkv_);
   bf16* out = static_cast<bf16*>(out_);
   bf16* y = static_cast<bf16*>(y_ws);
   const vsl::Dropout drop{seeds, thresh, scale};
@@ -1653,8 +1843,7 @@ extern "C" int vsl_mha_block_fwd_wide_bf16(const void* x_, const float* mask, co
     err = vsl::tc_gemm<false>(y, static_cast<const bf16*>(wqkvb), M, 3 * D, D, D, 3 * D,
                               QkvEpi{qkv, bqkv, M, 3 * D}, stream);
   if (err == cudaSuccess)
-    err = launch_attention_tiles<128, true>(qkv, qkv + D, qkv + 2 * D, 3 * D, mask, drop, att, D,
-                                            B, T, n_heads, TQ, stream);
+    err = launch_attn_fwd_wide(qkv, mask, drop, att, B, T, D, n_heads, NK, stream);
   if (err == cudaSuccess)
     err = vsl::launch_opted(wide_ln_kernel<bf16, true>, ln_grid, 32 * kLnRows, ln_smem, stream,
                             x, static_cast<const float*>(att), gam + D, beta + D, drop, y, M, T,
@@ -1665,7 +1854,7 @@ extern "C" int vsl_mha_block_fwd_wide_bf16(const void* x_, const float* mask, co
   return static_cast<int>(err);
 }
 
-// #10b at head dim 128, from the wide forward's qkv and att: x, g and dx
+// #10b at head dim 128, from the wide forward's qkv (bf16) and att: x, g and dx
 // [B, T, D] bf16; wqkvb, wdb as the forward's; dsmall [8D] (dgam [2, D],
 // dbeta [2, D], dbqkv [3D], dbd [D]), dwqkv [D, 3D], dwd [D, D] fp32.
 // Workspaces: gdt, z, y [B, T, D] bf16 (bf16(g_dpre), and dwd's and
@@ -1675,7 +1864,7 @@ extern "C" int vsl_mha_block_fwd_wide_bf16(const void* x_, const float* mask, co
 // of S frames; the attention on NK tiles of 16 keys (T <= 16 NK).
 extern "C" int vsl_mha_block_bwd_wide_bf16(
     const void* x_, const float* mask, const float* gam, const float* beta, const void* wqkvb,
-    const void* wdb, const float* seeds, unsigned thresh, float scale, const float* qkv,
+    const void* wdb, const float* seeds, unsigned thresh, float scale, const void* qkv,
     const float* att, const void* g_, void* dx_, float* dsmall, float* dwqkv, float* dwd,
     void* gdt_, float* gz, void* z_, float* gres, float* gatt, void* dqkvt_, void* y_,
     float* part, float* gemm_ws, int splits, int B, int T, int D, int n_heads, int S, int NK,
@@ -1704,8 +1893,8 @@ extern "C" int vsl_mha_block_bwd_wide_bf16(
                             gatt, z, static_cast<bf16*>(nullptr), part, T, D, S);
   // 2. the attention backward: bf16(dqkv) and dbqkv
   if (err == cudaSuccess)
-    err = launch_attn_bwd_wide(qkv, mask, drop, gatt, dqkvt, part, B, T, D, n_heads,
-                               static_cast<int>(grid.x), NK, stream);
+    err = launch_attn_bwd_wide(static_cast<const bf16*>(qkv), mask, drop, gatt, dqkvt, part, B,
+                               T, D, n_heads, static_cast<int>(grid.x), NK, stream);
   // 3. g_y; the LN1 backward
   if (err == cudaSuccess)
     err = vsl::tc_gemm<true>(dqkvt, static_cast<const bf16*>(wqkvb), M, D, 3 * D, 3 * D, 3 * D,

@@ -1555,15 +1555,14 @@ class FusedConvBlockTiled(torch.autograd.Function):
 # csrc/conv_block.cu, the wide kernels): a layer a few launches, its
 # per-frame work on CTAs of strips of frames and its products [B T, D] x
 # [D, D] over every frame at once on the tensor cores (mma.cuh tc_gemm);
-# the backward's per-frame work one launch for every layer's d and one
-# pass a layer, frames streamed through per-thread rings of shared memory.
+# the per-frame work streamed through per-thread rings of shared memory:
+# forward, a d launch a layer; backward, one d launch for every layer and
+# one pass a layer.
 # The same function as the tiled bf16 pair, the same (out, xs, mask).
 
-# frames a sub-tile of the forward's strips and threads a strip's CTA
-# (csrc/common.cuh kWideFrames, kWideThreads; the latter also the MHA
-# backward's g_dpre launch); the products' tiles of 128 columns (mma.cuh
-# kTcGemmN) want D % 128 == 0
-WIDE_FRAMES = 8
+# threads a CTA of the MHA backward's g_dpre launch (csrc/common.cuh
+# kWideThreads); the products' tiles of 128 columns (mma.cuh kTcGemmN) want
+# D % 128 == 0
 WIDE_THREADS = 512
 TC_GEMM_N = 128
 
@@ -1573,24 +1572,9 @@ def _require_bf16(name, x):
         raise TypeError("%s: takes bf16 x only, got %s" % (name, x.dtype))
 
 
-def _wide_strip(B, T):
-    """Frames a strip's CTA walks: whole sub-tiles, as many strips a row as
-    leave B * strips CTAs to fill the card twice (one CTA an SM), the
-    row's frames shared out evenly (at `saturated`'s T = 128, two strips
-    of 64)."""
-    subtiles = -(-T // WIDE_FRAMES)
-    most = WIDE_FRAMES * max(1, min(subtiles, subtiles * B // (2 * N_SMS)))
-    strips = -(-T // most)
-    return WIDE_FRAMES * -(-subtiles // strips)
-
-
-def _conv_wide_prologue_bytes(D, K):
-    """csrc/conv_block.cu wide_prologue_floats, in bytes."""
-    return 4 * (WIDE_FRAMES + 2 * K - 1) * D
-
-
-# the backward's passes (csrc/conv_block.cu conv_wide_d_kernel,
-# conv_wide_pass_kernel): frames a batch of the pass's and the d launch's
+# the per-frame launches (csrc/conv_block.cu conv_wide_d_kernel, the
+# forward's and the backward's, and conv_wide_pass_kernel): frames a batch
+# of the pass's and the d launch's
 # streams (kWideBwdFrames, kWideDFrames), the taps they are built for
 # (kWideBwdK, the model's), 4 columns a thread, two CTAs an SM (their
 # __launch_bounds__)
@@ -1620,8 +1604,8 @@ def _conv_wide_d_bytes(D, K):
     return 4 * ((R + 2 * F) * D + 2 * (D // 128) * F)
 
 
-def _wide_bwd_strip(B, T):
-    """Frames a backward pass's CTA streams: as many strips a row as let B *
+def _wide_strip(B, T):
+    """Frames a per-frame launch's CTA streams: as many strips a row as let B *
     strips CTAs fill the card's WIDE_BWD_CTAS_PER_SM slots an SM once (one
     strip a row from B = 133 on: each strip's reach is loaded twice), strips
     of at least 8 frames, a row's frames shared out evenly."""
@@ -1631,22 +1615,16 @@ def _wide_bwd_strip(B, T):
 
 
 class ConvWidePlan(NamedTuple):
-    """One call of the wide conv kernels: the forward's per-frame launches
-    on `ctas` = B * `strips` CTAs of WIDE_THREADS threads, a CTA walking
-    `strip` frames of a row (strips = ceil(T / strip)) in sub-tiles of
-    WIDE_FRAMES, `smem_prologue` bytes; the backward's passes on `bwd_ctas`
-    = B * `bwd_strips` CTAs of `bwd_threads` = D / 4 threads (the d launch
-    that many for each layer), a CTA streaming `bwd_strip` frames, `smem_d`
-    and `smem_pass` bytes; the products on mma.cuh's tiles of 128 x
-    128."""
+    """One call of the wide conv kernels: each per-frame launch (the d
+    launch a layer forward, once for every layer backward, then a pass a
+    layer) on `ctas` = B * `strips` CTAs of `threads` = D / 4 threads (the
+    backward's d launch that many for each layer), a CTA streaming `strip`
+    frames of a row (strips = ceil(T / strip)), `smem_d` and `smem_pass`
+    bytes; the products on mma.cuh's tiles of 128 x 128."""
     strip: int
     strips: int
     ctas: int
-    smem_prologue: int
-    bwd_strip: int
-    bwd_strips: int
-    bwd_ctas: int
-    bwd_threads: int
+    threads: int
     smem_d: int
     smem_pass: int
 
@@ -1654,25 +1632,21 @@ class ConvWidePlan(NamedTuple):
 @functools.lru_cache(maxsize=256)
 def conv_wide_plan(B, T, D, K, L):
     """The wide kernels' plan for B rows of [T, D], K taps and L layers: at
-    `saturated`'s [256, 128, 1024], the forward's strips of 64 frames (512
-    CTAs), the backward's whole rows (256 CTAs, two an SM: 88 KB and 96 KB
-    of shared memory). Raises where D is not a multiple of 128, above 1024
-    (4 columns a thread of at most 256) or K is not the WIDE_BWD_K taps
-    the backward is built for."""
+    `saturated`'s [256, 128, 1024] whole rows (256 CTAs, two an SM: 88 KB
+    and 96 KB of shared memory). Raises where D is not a multiple of 128,
+    above 1024 (4 columns a thread of at most 256) or K is not the
+    WIDE_BWD_K taps the per-frame launches are built for."""
     if B < 1 or T < 1 or K < 1 or L < 1 or D < TC_GEMM_N or D % TC_GEMM_N:
         raise ValueError("conv_wide_plan: needs B, T, K, L >= 1 and D a "
                          "multiple of %d, got B=%d, T=%d, D=%d, K=%d, L=%d"
                          % (TC_GEMM_N, B, T, D, K, L))
     if K != WIDE_BWD_K or D > 4 * 256:
-        raise ValueError("conv_wide_plan: the wide backward takes K=%d taps "
+        raise ValueError("conv_wide_plan: the wide kernels take K=%d taps "
                          "and D up to 1024, got D=%d, K=%d"
                          % (WIDE_BWD_K, D, K))
     strip = _wide_strip(B, T)
-    bwd_strip = _wide_bwd_strip(B, T)
-    bwd_strips = -(-T // bwd_strip)
-    return ConvWidePlan(strip, -(-T // strip), B * -(-T // strip),
-                        _conv_wide_prologue_bytes(D, K), bwd_strip,
-                        bwd_strips, B * bwd_strips, D // 4,
+    strips = -(-T // strip)
+    return ConvWidePlan(strip, strips, B * strips, D // 4,
                         _conv_wide_d_bytes(D, K), _conv_wide_pass_bytes(D, K))
 
 
@@ -1723,7 +1697,7 @@ def launch_conv_block_bwd_wide(x, xs, gam, beta, dw, wp, bp, seeds, drop_rate,
                    for _ in range(2))
     gd_ws = _empty(dev, B, T, D)
     g_ws = _empty(dev, 2, B, T, D)
-    part = _empty(dev, plan.bwd_ctas, L, 3 + K, D)
+    part = _empty(dev, plan.ctas, L, 3 + K, D)
     splits = _wgrad_splits(L, D, D, B * T, CONV_TILED_WGRAD_WAVES)
     ws = _empty(dev, L * splits * D * D if splits > 1 else 1)
     _launch(name, x.data_ptr(), xs.data_ptr(), mask.data_ptr(), gam.data_ptr(),
@@ -1731,7 +1705,7 @@ def launch_conv_block_bwd_wide(x, xs, gam, beta, dw, wp, bp, seeds, drop_rate,
             thresh, scale, g.data_ptr(), dx.data_ptr(), dsmall.data_ptr(),
             dwp.data_ptr(), d_ws.data_ptr(), gp_ws.data_ptr(), gd_ws.data_ptr(),
             g_ws.data_ptr(), part.data_ptr(), ws.data_ptr(), splits, B, T, D, L,
-            K, plan.bwd_strip)
+            K, plan.strip)
     return dx, dsmall[:, 0], dsmall[:, 1], dsmall[:, 3:], dwp, dsmall[:, 2]
 
 
@@ -2200,9 +2174,9 @@ def mha_fwd_plan(B, T, D, n_heads):
 # 128; csrc/mha_block.cu, the wide kernels): the per-frame launches split
 # at their products, which run [B T, D] x [D, 3D] and [B T, D] x [D, D] (and
 # their transposes) over every frame at once on the tensor cores (mma.cuh
-# tc_gemm); the forward's attention is the block's own body at head dim
-# 128, the backward's a tensor-core kernel of its own, a CTA a (row, head)
-# with the head's k, v, q and g_att as bf16 rows (attn_bwd_wide_kernel).
+# tc_gemm); each attention is a tensor-core kernel of its own, a CTA a
+# (row, head) with the head's k, v, q (and g_att) as bf16 rows
+# (attn_fwd_wide_kernel, attn_bwd_wide_kernel); qkv is kept in bf16.
 # bf16 only: at fp32 head dim 128 stays on the plain version.
 MHA_WIDE_HEAD_DIMS = (128,)
 
@@ -2212,10 +2186,18 @@ def _wide_head_dim(D, n_heads):
             and D // n_heads in MHA_WIDE_HEAD_DIMS)
 
 
-# the wide attention backward: warps a CTA (csrc/mha_block.cu
-# kAttnWideWarps), each taking 16 queries, so T <= 16 * 8 at head dim 128
+# the wide attentions: warps a CTA (csrc/mha_block.cu kAttnWideWarps),
+# each taking 16 queries, so T <= 16 * 8 at head dim 128; the forward fits
+# two CTAs an SM (its __launch_bounds__), the backward one
 MHA_WIDE_ATTN_WARPS = 8
-MHA_WIDE_ATTN_TILES = (1, 2, 4, 8)  # the kernel's instances, tiles of 16 keys
+MHA_WIDE_ATTN_TILES = (1, 2, 4, 8)  # the kernels' instances, tiles of 16 keys
+MHA_WIDE_ATTN_FWD_CTAS_PER_SM = 2
+
+
+def _mha_wide_attn_fwd_bytes(tiles, hd=128):
+    """csrc/mha_block.cu attn_wide_fwd_bytes for `tiles` tiles of 16 keys."""
+    rows = 16 * tiles
+    return 2 * (3 * rows * _tc_stride(hd)) + 4 * rows
 
 
 def _mha_wide_attn_bwd_bytes(tiles, hd=128):
@@ -2238,30 +2220,27 @@ def _mha_wide_ln_bytes(D):
 class MHAWidePlan(NamedTuple):
     """One call of the wide block kernels: the backward's LayerNorm passes
     on `ctas` = B * `strips` CTAs of D / 4 threads streaming `strip`
-    frames of a row, `smem_frames` bytes each; the forward's
-    attention on query tiles of `q_tile` rows (`smem_attention` bytes a
-    CTA); the backward's on `attn_ctas` = B * heads CTAs of
-    MHA_WIDE_ATTN_WARPS warps, a (row, head) each, its T keys in
-    `attn_tiles` tiles of 16 (`smem_attn_bwd` bytes)."""
+    frames of a row, `smem_frames` bytes each; both attentions on
+    `attn_ctas` = B * heads CTAs of MHA_WIDE_ATTN_WARPS warps, a (row,
+    head) each, its T keys in `attn_tiles` tiles of 16 (`smem_attn_fwd`
+    and `smem_attn_bwd` bytes)."""
     strip: int
     strips: int
     ctas: int
     smem_frames: int
-    q_tile: int
-    smem_attention: int
     attn_tiles: int
     attn_ctas: int
+    smem_attn_fwd: int
     smem_attn_bwd: int
 
 
 @functools.lru_cache(maxsize=256)
 def mha_wide_plan(B, T, D, n_heads):
     """The wide block kernels' plan for B rows of [T, D] in n_heads heads of
-    MHA_WIDE_HEAD_DIMS: the forward's query tiles of MHA_FWD_QTILE rows,
-    halved while they do not fit; the backward's attention on the fewest
-    of MHA_WIDE_ATTN_TILES tiles of 16 keys that hold T; strips as
-    conv_wide_plan's backward's. Raises on what the kernels cannot take (T
-    above 16 * MHA_WIDE_ATTN_WARPS = 128 at head dim 128, D above 1024)."""
+    MHA_WIDE_HEAD_DIMS: both attentions on the fewest of
+    MHA_WIDE_ATTN_TILES tiles of 16 keys that hold T; strips as
+    conv_wide_plan's. Raises on what the kernels cannot take (T above 16 *
+    MHA_WIDE_ATTN_WARPS = 128 at head dim 128, D above 1024)."""
     if not _wide_head_dim(D, n_heads):
         raise ValueError("mha_wide_plan: head dim D/n_heads must be one of %s "
                          "with D a multiple of %d, got D=%d heads=%d"
@@ -2273,28 +2252,23 @@ def mha_wide_plan(B, T, D, n_heads):
         raise ValueError("mha_wide_plan: D=%d above the 1024 columns the "
                          "LayerNorm passes take (4 a thread of 256)" % D)
     if T > 16 * MHA_WIDE_ATTN_WARPS:
-        raise ValueError("mha_wide_plan: T=%d above the %d keys the attention "
-                         "backward at head dim 128 holds (a warp a 16 "
+        raise ValueError("mha_wide_plan: T=%d above the %d keys the "
+                         "attentions at head dim 128 hold (a warp a 16 "
                          "queries)" % (T, 16 * MHA_WIDE_ATTN_WARPS))
     hd = D // n_heads
-    q_tile = min(T, MHA_FWD_QTILE)
-    while _mha_fwd_attention_bytes(T, q_tile, hd) > MAX_SMEM_BYTES:
-        if q_tile == 1:
-            raise ValueError("mha_wide_plan: T=%d: no query tile of the "
-                             "forward fits" % T)
-        q_tile = -(-q_tile // 2)
     tiles = next(n for n in MHA_WIDE_ATTN_TILES if 16 * n >= T)
-    strip = _wide_bwd_strip(B, T)
+    strip = _wide_strip(B, T)
     strips = -(-T // strip)
     return MHAWidePlan(strip, strips, B * strips, _mha_wide_ln_bytes(D),
-                       q_tile, _mha_fwd_attention_bytes(T, q_tile, hd), tiles,
-                       B * n_heads, _mha_wide_attn_bwd_bytes(tiles, hd))
+                       tiles, B * n_heads, _mha_wide_attn_fwd_bytes(tiles, hd),
+                       _mha_wide_attn_bwd_bytes(tiles, hd))
 
 
 def _launch_mha_block_fwd_wide(x, mask, gam, beta, wqkv, bqkv, wd, bd,
                                n_heads, seeds, drop_rate):
     """launch_mha_block_fwd at head dim 128: the wide kernels on
-    mha_wide_plan, (out, qkv, att) as the bf16 block forward gives them."""
+    mha_wide_plan, (out, qkv, att) as the bf16 block forward gives them
+    but qkv in bf16 (its values are bf16 either way)."""
     name = "mha_block_fwd_wide_bf16"
     _require_bf16(name, x)
     _require_cuda(name, x, mask, gam, beta, wqkv, bqkv, wd, bd)
@@ -2304,14 +2278,15 @@ def _launch_mha_block_fwd_wide(x, mask, gam, beta, wqkv, bqkv, wd, bd,
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     # the products read bf16(Wqkv) and bf16(Wd), the function's roundings
     wqkvb, wdb = (w.to(torch.bfloat16).contiguous() for w in (wqkv, wd))
-    qkv = _empty(x.device, B, T, 3 * D)
+    qkv = torch.empty(B, T, 3 * D, device=x.device, dtype=torch.bfloat16)
     att = _empty(x.device, B, T, D)
     out = torch.empty_like(x)
     y_ws = torch.empty_like(x)
     _launch(name, x.data_ptr(), mask.data_ptr(), gam.data_ptr(),
             beta.data_ptr(), wqkvb.data_ptr(), bqkv.data_ptr(), wdb.data_ptr(),
             bd.data_ptr(), sp, thresh, scale, qkv.data_ptr(), att.data_ptr(),
-            out.data_ptr(), y_ws.data_ptr(), B, T, D, n_heads, plan.q_tile)
+            out.data_ptr(), y_ws.data_ptr(), B, T, D, n_heads,
+            plan.attn_tiles)
     return out, qkv, att
 
 
@@ -2324,8 +2299,8 @@ def _launch_mha_block_bwd_wide(x, mask, gam, beta, wqkv, wd, n_heads, seeds,
     _require_cuda(name, x, mask, gam, beta, wqkv, wd, qkv, att, g)
     B, T, D = _mha_shapes(name, x, n_heads, 0, mask, gam, beta, wqkv, wd,
                           dtype=x.dtype)
-    for t, shape in ((qkv, (B, T, 3 * D)), (att, (B, T, D))):
-        _check(name, t, shape)
+    _check(name, qkv, (B, T, 3 * D), torch.bfloat16)
+    _check(name, att, (B, T, D))
     _check(name, g, (B, T, D), x.dtype)
     plan = mha_wide_plan(B, T, D, n_heads)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
@@ -2380,8 +2355,8 @@ def launch_mha_block_fwd(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
     """The forward kernels on mha_fwd_plan's tiles: (out, qkv [B, T, 3D],
     att [B, T, D]), the last two being what the backward reads back; the
     bf16 entry point for bf16 x (out in x's dtype, qkv holding bf16 values
-    and att float32), the wide kernels at head dim 128. CUDA tensors
-    only."""
+    and att float32), the wide kernels at head dim 128 (qkv stored in
+    bf16). CUDA tensors only."""
     if _wide_head_dim(x.shape[-1], n_heads):
         return _launch_mha_block_fwd_wide(x, mask, gam, beta, wqkv, bqkv, wd,
                                           bd, n_heads, seeds, drop_rate)
@@ -2409,8 +2384,8 @@ def launch_mha_block_bwd(x, mask, gam, beta, wqkv, wd, n_heads, seeds,
     """The backward kernels on mha_bwd_plan's tiles: (dx, dgam, dbeta,
     dwqkv, dbqkv, dwd, dbd), the weight gradients summed over the batch;
     the bf16 entry point for bf16 x (g and dx in x's dtype; qkv, att and
-    the weight gradients float32 either way), the wide kernels at head dim
-    128. CUDA tensors only."""
+    the weight gradients float32 either way; at head dim 128 the wide
+    kernels, qkv in bf16). CUDA tensors only."""
     if _wide_head_dim(x.shape[-1], n_heads):
         return _launch_mha_block_bwd_wide(x, mask, gam, beta, wqkv, wd,
                                           n_heads, seeds, drop_rate, qkv, att,
