@@ -1606,7 +1606,15 @@ def bf16_timed_row(rows, name, source, line, err, tol, fn, plain, flops,
     kernels whose names hold `name`."""
     from vslnet_torch.bench.common import by_kernel
 
+    # a profile that kept no record of a call, or of a part of one (PERF.md
+    # §7), reads below the bound: it is taken again, once, and a second such
+    # profile fails the row
+    least, _ = bound(flops, nbytes, PEAK_BF16_FLOPS)
     parts = by_kernel(fn)
+    if sum(parts.values()) < least:
+        parts = by_kernel(fn)
+    check(sum(parts.values()) >= least, "%s: its profile read %g device ms, "
+          "below its bound of %g ms: a record lost" % (name, sum(parts.values()), least))
     named = {key: sum(ms for k, ms in parts.items() if sub in k)
              for key, sub in (parts_named or {}).items()}
     if plain_iters is None:
@@ -3410,7 +3418,16 @@ def sdpa_fwd_yardstick(dev, B, T, heads, D):
 # and the ones they replace, which must not launch at `saturated`
 SATURATED_FWD_KERNELS = {"conv_block_fwd_wide_bf16": "conv_wide_d_kernel",
                          "mha_block_fwd_wide_bf16": "attn_fwd_wide_kernel"}
-SATURATED_GONE_KERNELS = ("conv_wide_prologue_kernel", "attn_fwd_tile_kernel")
+SATURATED_GONE_KERNELS = ("conv_wide_prologue_kernel", "attn_fwd_tile_kernel",
+                          "tc_gemm_kernel", "wgrad_tc_partial_kernel")
+# every product of the wide kernels runs on this kernel (csrc/mma.cuh
+# tc_gemm, wgrad_wg); its launches a call of each wide kernel (L = 4
+# layers of the conv blocks)
+SATURATED_GEMM_KERNEL = "wg_gemm_kernel"
+SATURATED_GEMM_LAUNCHES = {
+    "tc_gemm_bf16": {"conv_block_fwd_wide_bf16": 4, "conv_block_bwd_wide_bf16": 4,
+                     "mha_block_fwd_wide_bf16": 2, "mha_block_bwd_wide_bf16": 2},
+    "wgrad_bf16": {"conv_block_bwd_wide_bf16": 1, "mha_block_bwd_wide_bf16": 2}}
 
 
 def saturated_kernel_rows(dev, max_w):
@@ -3623,6 +3640,65 @@ def saturated_kernel_rows(dev, max_w):
     return rows
 
 
+def gemm_kernel_rows(dev):
+    """The wide kernels' two products alone at `saturated`'s shapes
+    (bench/gemm_plans.py): tc_gemm as #9c wide's g_d ([B T, D] . bf16(wp)^T,
+    fp32 store) and wgrad_wg as its dwp (Z = L = 4, K = B T) against their
+    plain versions (TOL of scaled_err: fp32 sums of the same exact
+    products), equal bits twice, each no further from the fp64 product than
+    gemm_plans.FP64_FACTOR times the mma.sync form's distance; timed by
+    events and torch.profiler beside cuBLAS's bf16 product of the same
+    operands by events (library_ms; the port never calls it), after both
+    kernels (a profile taken right after cuBLAS's has come back with no
+    record of the next call, and cuBLAS's own profile has come back empty
+    or below the bound, so it is not read)."""
+    import torch
+
+    from vslnet_torch.bench import gemm_plans as G
+    from vslnet_torch.ops import kernels as K
+
+    rng = np.random.default_rng(SEED + 20)
+    M, D, L = 256 * 128, 1024, 4
+    rows, library = [], []
+    lib = G.mma_library()
+    a, b = G.operands(dev, rng, (M, D), (D, D))
+    wa, wb = G.operands(dev, rng, (L, M, D), (L, M, D))
+    S = K.wgrad_splits(L, D, D, M)
+    products = [
+        ("tc_gemm_bf16", 1092, lambda: K.launch_tc_gemm_bf16(a, b, True),
+         lambda: K.tc_gemm_plain(a, b, True), lambda: torch.matmul(a, b.t()),
+         lambda c: G.fp64_reading(c, a, b, True),
+         lambda: G.mma_product(lib, a, b, True), 2 * M * D * D,
+         2 * M * D + 2 * D * D + 4 * M * D, {"shape": [M, D, D], "bt": True}),
+        ("wgrad_bf16", 1089, lambda: K.launch_wgrad_bf16(wa, wb, S),
+         lambda: K.wgrad_plain(wa, wb), lambda: torch.matmul(wa.transpose(1, 2), wb),
+         lambda c: G.fp64_reading(c, wa, wb, batched=True),
+         lambda: G.mma_wgrad(lib, wa, wb, K._wgrad_splits(L, D, D, M)),
+         2 * L * M * D * D, 2 * 2 * L * M * D + 4 * L * D * D,
+         {"shape": [L, M, D, D], "splits": S})]
+    for name, line, fn, plain, cublas, reading, mma, flops, nbytes, extra in products:
+        got, again = fn(), fn()
+        fp64 = {"kernel": reading(got), "mma_sync_form": reading(mma())}
+        ok, why = G.fp64_verdict(fp64["kernel"], fp64["mma_sync_form"])
+        check(ok, "%s: %s" % (name, why))
+        check(torch.equal(got, again), "%s: two equal calls differ" % name)
+        bf16_timed_row(rows, name, "mma.cuh", line, scaled_err(got, plain()), TOL,
+                       fn, plain, flops, nbytes, fp64=fp64, equal_bits_twice=True,
+                       library="torch.matmul of the bf16 operands, bf16 out (cuBLAS)",
+                       **extra)
+        library.append(cublas)
+        del got, again
+    for row, cublas in zip(rows, library):
+        row["library_ms"] = cuda_ms(cublas, 20)
+        names = list(row["by_kernel"])
+        check(any(SATURATED_GEMM_KERNEL in k for k in names)
+              and not any(g in k for k in names for g in SATURATED_GONE_KERNELS),
+              "%s: kernels %s" % (row["name"], names))
+    del a, b, wa, wb
+    torch.cuda.empty_cache()
+    return rows
+
+
 def saturated_fwd_names(row):
     """A wide forward's row ran on its own per-frame or attention kernel
     (by name: a whole run's profiler may drop records, §7 of PERF.md) and
@@ -3750,6 +3826,7 @@ def saturated_path():
           "use_pallas=off in the fp32 turns" % B, **turns_fields(turns),
           **turns[1]})
     check_gone(turns, "the served batch")
+    profiled = {"served_batch": gemm_launches(turns)}
     del loc, loc_off, out, refs, batch
 
     tk, to = trainers(configs, dataset, feats)
@@ -3806,9 +3883,20 @@ def saturated_path():
           "use_pallas=off in the fp32 turns" % B, **turns_fields(turns),
           **turns[1]})
     check_gone(turns, "the train step")
+    profiled["train_step"] = gemm_launches(turns)
     del tk, to, tt, grads_k, grads_o
     torch.cuda.empty_cache()
-    return runs, max_w
+    return runs, max_w, profiled
+
+
+def gemm_launches(turns):
+    """The launches of the products' kernel in the profiled kernel turns
+    (c1, c2), each > 0."""
+    counts = [sum(n for k, n in t["kernel_launches"].items()
+                  if SATURATED_GEMM_KERNEL in k) for t in turns[1:3]]
+    check(all(n > 0 for n in counts),
+          "saturated: no %s in the profiled turns: %s" % (SATURATED_GEMM_KERNEL, counts))
+    return counts
 
 
 def check_gone(turns, what):
@@ -3821,12 +3909,32 @@ def check_gone(turns, what):
 
 
 def saturated_phase(dev):
-    """The saturated path, then its four kernels' rows; each row's launches
-    are the path's (a served batch and SATURATED_STEPS steps), each > 0."""
-    runs, max_w = saturated_path()
+    """The two products' rows, the saturated path, then its four kernels'
+    rows; each row's launches are the path's (a served batch and
+    SATURATED_STEPS steps), each > 0: the products' counted from the wide
+    kernels' launches (SATURATED_GEMM_LAUNCHES), which must equal their
+    launches in the path's profiled batch and step (`launches_profiled`,
+    c1 and c2: neither above, the larger equal, as a profile may lose a
+    record but never gains one)."""
+    products = gemm_kernel_rows(dev)
+    runs, max_w, profiled = saturated_path()
     rows = saturated_kernel_rows(dev, max_w)
     for row in rows:
-        by_run = {r: c[row["name"]] for r, c in runs.items()}
+        names = list(row["by_kernel"])
+        check(any(SATURATED_GEMM_KERNEL in k for k in names),
+              "%s: its products ran on %s" % (row["name"], names))
+    rows += products
+    derived = {"served_batch": 0, "train_step": 0}
+    for row in rows:
+        per_call = SATURATED_GEMM_LAUNCHES.get(row["name"])
+        if per_call is not None:
+            by_run = {r: sum(n * c[w] for w, n in per_call.items())
+                      for r, c in runs.items()}
+            row["launches_profiled"] = profiled
+            derived["served_batch"] += by_run["serve"]
+            derived["train_step"] += by_run["train"] / SATURATED_STEPS
+        else:
+            by_run = {r: c[row["name"]] for r, c in runs.items()}
         row["launches"] = sum(by_run.values())
         row["launches_by_run"] = by_run
         row["launches_per_served_batch"] = by_run["serve"]
@@ -3834,6 +3942,11 @@ def saturated_phase(dev):
         row["launches_path"] = "saturated"
         check(row["launches"] > 0, "%s never launched on the saturated path"
               % row["name"])
+    for run, n in derived.items():
+        check(max(profiled[run]) == n and all(p <= n for p in profiled[run]),
+              "saturated: %s launches counted from the wide kernels' (%s) "
+              "differ from the profiled %s launches of a %s (%s)"
+              % (SATURATED_GEMM_KERNEL, n, SATURATED_GEMM_KERNEL, run, profiled[run]))
     return rows
 
 

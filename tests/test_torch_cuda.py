@@ -1823,3 +1823,133 @@ def test_cuda_wide_wrappers_refuse_fp32_and_the_narrow_widths(cuda):
     with pytest.raises(TypeError, match="bf16"):
         kernels.launch_mha_block_fwd(*args, 2)
     assert not kernels.mha_kernel_fits(16, 256, 2)
+
+
+# --- the wide kernels' products alone (csrc/mma.cuh tc_gemm, wgrad_wg: wgmma
+# with operands by TMA), against an fp64 product of the same bf16 operands
+# beside the mma.sync form's distance from it (bench/gemm_plans.py)
+
+GEMM_CARD_SHAPES = [(32768, 1024, 1024, True), (32768, 1024, 1024, False),
+                    (3072, 1024, 1024, False), (3000, 1024, 1024, True),
+                    (3000, 1024, 1024, False), (6144, 896, 896, False),
+                    (6144, 896, 2688, True), (32768, 1024, 3072, True),
+                    (32768, 3072, 1024, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K,bt", GEMM_CARD_SHAPES)
+def test_cuda_tc_gemm_against_fp64(cuda, M, N, K, bt):
+    """tc_gemm at `saturated`'s products ([B T, D] x [D, D] and [D, 3D], the
+    g_d and g_y products with B^T as stored), the query stream's M = 3072, a
+    ragged M and D = 896: one launch, equal bits twice, and no further from
+    the fp64 product than gemm_plans.FP64_FACTOR times the mma.sync form's
+    distance (mean and largest, over |A| |B|)."""
+    from vslnet_torch.bench import gemm_plans as G
+
+    rng = np.random.default_rng(60)
+    a, b = G.operands(cuda, rng, (M, K), (N, K) if bt else (K, N))
+    kernels.reset_launches()
+    c = kernels.launch_tc_gemm_bf16(a, b, bt)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tc_gemm_bf16"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    assert c.shape == (M, N) and torch.equal(c, kernels.launch_tc_gemm_bf16(a, b, bt))
+    mine = G.fp64_reading(c, a, b, bt)
+    parent = G.fp64_reading(G.mma_product(G.mma_library(), a, b, bt), a, b, bt)
+    ok, why = G.fp64_verdict(mine, parent)
+    assert ok, why
+    # the plain version agrees to fp32 sums of the same products
+    ref = kernels.tc_gemm_plain(a, b, bt)
+    assert float((c - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+
+
+# (Z, M, N, K, S, S_mma): wgrad_wg's splits S (None: wgrad_splits') and
+# the mma.sync form's it is read beside: at the shapes a path runs, the
+# form's own plan (_wgrad_splits, None); at the others, the same S, so that
+# the two sums differ in their form alone (fewer splits sum longer chunks,
+# each further from fp64; PERF.md)
+WGRAD_CARD_SHAPES = [(4, 1024, 1024, 32768, 1, None), (4, 1024, 1024, 32768, 3, 3),
+                     (1, 1024, 3072, 32768, 2, None), (1, 1024, 1024, 32768, 2, None),
+                     (4, 1024, 1024, 3072, None, None), (4, 128, 128, 3000, 4, 4),
+                     (1, 896, 2688, 6144, None, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Z,M,N,K,S,S_mma", WGRAD_CARD_SHAPES)
+def test_cuda_wgrad_wg_against_fp64(cuda, Z, M, N, K, S, S_mma):
+    """wgrad_wg at #9c wide's dwp (Z = 4, one split and three), #10b wide's
+    dwqkv and dwd, the query stream's K, a ragged K and D = 896: one launch,
+    equal bits twice, and within FP64_FACTOR of wgrad_tc's distance from
+    the fp64 product (on S_mma splits, the parent's _wgrad_splits where
+    None)."""
+    from vslnet_torch.bench import gemm_plans as G
+
+    rng = np.random.default_rng(61)
+    a, b = G.operands(cuda, rng, (Z, K, M), (Z, K, N))
+    kernels.reset_launches()
+    c = kernels.launch_wgrad_bf16(a, b, S)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wgrad_bf16"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    assert c.shape == (Z, M, N) and torch.equal(c, kernels.launch_wgrad_bf16(a, b, S))
+    mine = G.fp64_reading(c, a, b, batched=True)
+    if S_mma is None:
+        S_mma = kernels._wgrad_splits(Z, M, N, K)
+    parent = G.fp64_reading(G.mma_wgrad(G.mma_library(), a, b, S_mma), a, b,
+                            batched=True)
+    ok, why = G.fp64_verdict(mine, parent)
+    assert ok, why
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["k_tile_skipped", "chain_not_added",
+                                   "b_transpose_flipped",
+                                   "split_partial_dropped"])
+def test_cuda_gemm_checks_refuse_planted_faults(cuda, fault):
+    """Each fault planted in a copy of wg_gemm_kernel is refused by the fp64
+    verdict in every product it reaches (tc_gemm with B and with B^T,
+    wgrad_wg at two splits), and the products it does not reach still
+    pass."""
+    from vslnet_torch.bench import gemm_plans as G
+    from vslnet_torch.bench.common import with_library
+
+    rng = np.random.default_rng(62)
+    a, b = G.operands(cuda, rng, (4096, 1024), (1024, 1024))
+    wa, wb = G.operands(cuda, rng, (4, 4096, 1024), (4, 4096, 1024))
+    lib = G.mma_library()
+    flib = G.fault_libraries()[fault]
+    readings = {}
+    for bt in (False, True):
+        c = with_library(flib, lambda: kernels.launch_tc_gemm_bf16(a, b, bt))
+        readings["tc_gemm_bt" if bt else "tc_gemm"] = (
+            G.fp64_reading(c, a, b, bt),
+            G.fp64_reading(G.mma_product(lib, a, b, bt), a, b, bt))
+    c = with_library(flib, lambda: kernels.launch_wgrad_bf16(wa, wb, 2))
+    readings["wgrad"] = (G.fp64_reading(c, wa, wb, batched=True),
+                         G.fp64_reading(G.mma_wgrad(lib, wa, wb, 2), wa, wb,
+                                        batched=True))
+    for product, (mine, parent) in readings.items():
+        ok, why = G.fp64_verdict(mine, parent)
+        if product in G.FAULT_REACHES[fault]:
+            assert not ok and "beyond the limits" in why, (product, why)
+        else:
+            assert ok, (product, why)
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """N or K off the tiles, M or N of wgrad_wg off its tiles, fp32
+    operands: the wrappers raise before any launch."""
+    a = torch.zeros(256, 1024, device=cuda, dtype=BF16)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="tc_gemm_bf16"):
+        kernels.launch_tc_gemm_bf16(a, torch.zeros(1024, 1000, device=cuda, dtype=BF16))
+    with pytest.raises(ValueError, match="tc_gemm_bf16"):
+        kernels.launch_tc_gemm_bf16(a[:, :1000].contiguous(),
+                                    torch.zeros(1000, 1024, device=cuda, dtype=BF16))
+    with pytest.raises(TypeError):
+        kernels.launch_tc_gemm_bf16(a.float(), torch.zeros(1024, 1024, device=cuda))
+    with pytest.raises(ValueError, match="wgrad_bf16"):
+        kernels.launch_wgrad_bf16(torch.zeros(1, 64, 200, device=cuda, dtype=BF16),
+                                  torch.zeros(1, 64, 256, device=cuda, dtype=BF16))
+    assert not any(kernels.LAUNCHES.values())

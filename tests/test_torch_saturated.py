@@ -377,7 +377,7 @@ def test_wide_constants_and_layouts_mirror_the_kernels():
     csrc's wide_pass_bytes, wide_d_bytes, wide_ln_pass_bytes,
     attn_wide_fwd_bytes and attn_wide_bwd_bytes)."""
     assert _constant("common.cuh", "kWideThreads") == kernels.WIDE_THREADS
-    assert _constant("mma.cuh", "kTcGemmN") == kernels.TC_GEMM_N
+    assert _constant("mma.cuh", "kGemmN") == kernels.TC_GEMM_N
     assert ("2 * (3 * (size_t)16 * NK * vsl::tc_stride(kAttnWideHd)) + "
             "4 * (16 * (size_t)NK)") in _body("mha_block.cu",
                                                "attn_wide_fwd_bytes")

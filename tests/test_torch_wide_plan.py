@@ -461,3 +461,287 @@ def test_conv_wide_fwd_d_stream_covers_every_frame_once_a_layer(B, T, D):
     assert ("launch_opted(conv_wide_d_kernel<kWideBwdK>, grid, D / 4, "
             "wide_d_bytes(D, K), stream,") in entry
     assert "xs, p, S, l, d, nullptr, drop, nullptr," in entry  # layer l, no g
+
+
+# --- the products on wgmma (csrc/mma.cuh wg_gemm_kernel: tc_gemm, wgrad_wg) ---
+# Every product of the wide kernels and the split-K weight gradients: items
+# (z, split, row tile, column tile) on a persistent grid of one CTA an SM,
+# a producer thread filling a ring of stages by TMA, two consumer
+# warpgroups taking chains of stages.
+
+# tc_gemm's (M, N, K) at `saturated` (M = B T: the video stream, the query
+# stream's T = 12), D = 896, a ragged M, tiny ones
+GEMM_SHAPES = [(32768, 1024, 1024), (32768, 3072, 1024), (32768, 1024, 3072),
+               (3072, 1024, 1024), (3000, 1024, 1024), (24 * 256, 896, 896),
+               (256 * 24, 896, 2688), (1, 128, 64), (129, 256, 192),
+               (130, 128, 128)]
+# wgrad_wg's (Z, M, N, K): #9c wide's dwp, #10b wide's dwqkv and dwd at
+# `saturated` and at the query stream's T = 12, ragged and tiny K
+WGRAD_SHAPES = [(4, 1024, 1024, 32768), (1, 1024, 3072, 32768),
+                (1, 1024, 1024, 32768), (4, 1024, 1024, 3072),
+                (1, 896, 2688, 6144), (4, 128, 128, 3000), (4, 1024, 1024, 100),
+                (2, 256, 384, 1), (16, 128, 128, 2048)]
+
+
+def _gemm_items(M, N, K, Z, S, chunk):
+    """wg::item_at for every item of the grid, in item order: (z, s, m0,
+    n0, kt0, kt1)."""
+    GM, GN, GK = kernels.GEMM_M, kernels.GEMM_N, kernels.GEMM_K
+    tn = N // GN
+    per = -(-M // GM) * tn
+    kts = -(-K // GK)
+    out = []
+    for it in range(Z * S * per):
+        zs, t = divmod(it, per)
+        z, s = divmod(zs, S)
+        kt0 = min(s * chunk, kts)
+        out.append((z, s, (t // tn) * GM, (t % tn) * GN, kt0,
+                    min(kt0 + chunk, kts)))
+    return out
+
+
+def _ring(items, grid):
+    """Each CTA's producer and consumers over its items (it = b, b + grid,
+    ...): the (stage, phase) of every load, and of every stage the
+    consumers' chains read and release, in order; the chains' stage counts."""
+    out = []
+    for b in range(grid):
+        loads, reads, chains = [], [], []
+        n = 0
+        for it in range(b, len(items), grid):
+            kt0, kt1 = items[it][4:]
+            for kt in range(kt0, kt1):
+                loads.append((n % kernels.GEMM_STAGES,
+                              (n // kernels.GEMM_STAGES) % 2, kt))
+                n += 1
+            kt = kt0
+            c = kernels.GEMM_CHAIN_STAGES
+            while kt + c <= kt1:
+                chains.append(c)
+                kt += c
+            if kt < kt1:
+                chains.append(kt1 - kt)
+        m = 0
+        for c in chains:
+            reads += [(i % kernels.GEMM_STAGES, (i // kernels.GEMM_STAGES) % 2)
+                      for i in range(m, m + c)]
+            m += c
+        out.append((loads, reads, chains))
+    return out
+
+
+@pytest.mark.parametrize("M,N,K", GEMM_SHAPES)
+def test_tc_gemm_items_cover_every_tile_once(M, N, K):
+    """tc_gemm's grid: every tile of C one item, taken by one CTA of the
+    persistent grid, over every stage of k once; the consumers' chains read
+    the ring's stages in the order and phase the producer filled them, each
+    chain at most GEMM_CHAIN k16 steps."""
+    assert kernels.tc_gemm_fits(M, N, K)
+    kts = K // kernels.GEMM_K
+    items = _gemm_items(M, N, K, 1, 1, kts)
+    tiles = {(m0, n0) for _, _, m0, n0, _, _ in items}
+    assert len(tiles) == len(items) == -(-M // 128) * (N // 128)
+    assert all(i[4:] == (0, kts) for i in items)
+    grid = min(len(items), kernels.N_SMS)
+    taken = sorted(it for b in range(grid) for it in range(b, len(items), grid))
+    assert taken == list(range(len(items)))
+    for loads, reads, chains in _ring(items, grid):
+        assert [(s, p) for s, p, _ in loads] == reads
+        assert all(1 <= c <= kernels.GEMM_CHAIN_STAGES for c in chains)
+        assert sum(chains) == len(loads)
+    # every row of C below M is in a tile, and a tile's rows past M only in
+    # the last row tile
+    assert max(m0 for _, _, m0, _, _, _ in items) < M <= max(
+        m0 for _, _, m0, _, _, _ in items) + kernels.GEMM_M
+
+
+@pytest.mark.parametrize("Z,M,N,K", WGRAD_SHAPES)
+def test_wgrad_wg_items_write_every_partial_once(Z, M, N, K):
+    """wgrad_wg's grid on wgrad_splits' S: every (z, split, tile) one item
+    writing its own partial P[z][s]; each tile's splits cover the stages of
+    K once, contiguous in the order of s that sum_partials adds them, each
+    of whole chains but the last, none empty; the ring replays as
+    tc_gemm's."""
+    assert kernels.wgrad_wg_fits(Z, M, N, K)
+    S = kernels.wgrad_splits(Z, M, N, K)
+    kts = -(-K // kernels.GEMM_K)
+    chunk = kernels._wgrad_chunk(kts, S)
+    assert chunk % kernels.GEMM_CHAIN_STAGES == 0
+    items = _gemm_items(M, N, K, Z, S, chunk)
+    keys = [i[:4] for i in items]
+    assert len(set(keys)) == len(keys) == Z * S * (M // 128) * (N // 128)
+    for z in range(Z):
+        for m0 in range(0, M, 128):
+            for n0 in range(0, N, 128):
+                spans = [(s, kt0, kt1) for zz, s, mm, nn, kt0, kt1 in items
+                         if (zz, mm, nn) == (z, m0, n0)]
+                assert [s for s, _, _ in spans] == list(range(S))
+                edges = [kt0 for _, kt0, _ in spans] + [spans[-1][2]]
+                assert edges[0] == 0 and edges[-1] == kts
+                assert all(a < b for a, b in zip(edges, edges[1:]))
+                assert all(kt1 == nxt for (_, _, kt1), (_, nxt, _) in
+                           zip(spans, spans[1:]))
+    grid = min(len(items), kernels.N_SMS)
+    for loads, reads, chains in _ring(items, grid):
+        assert [(s, p) for s, p, _ in loads] == reads
+        assert all(1 <= c <= kernels.GEMM_CHAIN_STAGES for c in chains)
+
+
+def test_gemm_ring_and_registers_fill_one_cta_an_sm():
+    """The ring and its barriers fit a block's shared memory; the
+    producer's and the consumers' registers after setmaxnreg fill the
+    registers the launch bound gives one CTA of GEMM_THREADS (168 a thread),
+    so one CTA an SM: a consumer thread holds 64 sums and a chain of 64
+    (the tile's 128 x 128 fp32 twice over), which two CTAs an SM could not
+    hold."""
+    smem = kernels._gemm_smem_bytes()
+    assert smem <= kernels.MAX_SMEM_BYTES
+    assert smem == 1024 + 6 * 32768 + 96
+    per_thread = kernels.SM_REGISTERS // kernels.GEMM_THREADS // 8 * 8
+    assert per_thread == 168
+    pool = 128 * kernels.GEMM_PRODUCER_REGS + 256 * kernels.GEMM_CONSUMER_REGS
+    assert pool <= per_thread * kernels.GEMM_THREADS
+    assert 2 * 256 * (64 + 64) * 4 > kernels.SM_REGISTERS * 4 // 2
+    # a stage: A's 128 rows and B's 128 columns of 64 values of k, bf16
+    assert kernels.GEMM_STAGE_BYTES == 2 * (128 + 128) * 64
+    assert kernels.GEMM_CHAIN_STAGES * kernels.GEMM_K == 16 * kernels.GEMM_CHAIN
+
+
+def test_gemm_constants_mirror_mma_cuh():
+    for name, value in [("kGemmM", kernels.GEMM_M), ("kGemmN", kernels.GEMM_N),
+                        ("kGemmK", kernels.GEMM_K),
+                        ("kGemmStages", kernels.GEMM_STAGES),
+                        ("kGemmChain", kernels.GEMM_CHAIN),
+                        ("kGemmThreads", kernels.GEMM_THREADS),
+                        ("kGemmProducerRegs", kernels.GEMM_PRODUCER_REGS),
+                        ("kGemmConsumerRegs", kernels.GEMM_CONSUMER_REGS)]:
+        assert _constant("mma.cuh", name) == value, name
+    text = (CSRC / "mma.cuh").read_text()
+    assert ("return 1024 + (size_t)kGemmStages * kGemmStageBytes + 2 * "
+            "kGemmStages * sizeof(uint64_t);") in text
+    assert ("(kts + S - 1) / S + kGemmChainStages - 1) / kGemmChainStages * "
+            "kGemmChainStages") in text
+    # the chain depth is the one read against fp64 (PERF.md, Appendix B):
+    # one stage, within 1.24 of a k16 step's fp32 adds at short splits
+    assert kernels.GEMM_CHAIN == 4 and kernels.GEMM_CHAIN_STAGES == 1
+
+
+# Each bf16 weight product by its call site: the wide kernels' on wgrad_wg
+# (`saturated`: #9c wide's dwp, Z = L = 4; #10b wide's dwd and dwqkv), the
+# T-tiled #9c's dwp at D = 128 (paths T=128, M and L: Z = L = 4, K = B T)
+# and the LSTM's dk_h (fp32 h_prev, which TMA cannot round) on mma.sync's
+# wgrad_tc, which two tensor maps a call would not speed up there: the host
+# paces those paths (PERF.md). (path, source, entry, form, its calls,
+# [(Z, M, N, K)] of the path's products)
+WEIGHT_PRODUCTS = [
+    ("T=128", "conv_block.cu", "vsl_conv_block_bwd_tiled_bf16", "wgrad_tc", 1,
+     [(4, 128, 128, 16 * 128)]),
+    ("M", "conv_block.cu", "vsl_conv_block_bwd_tiled_bf16", "wgrad_tc", 1,
+     [(4, 128, 128, 16 * 192)]),
+    ("L", "conv_block.cu", "vsl_conv_block_bwd_tiled_bf16", "wgrad_tc", 1,
+     [(4, 128, 128, 8 * 1024)]),
+    ("lstm", "lstm.cu", "vsl_lstm_recurrence_bwd_bf16", "wgrad_tc", 1,
+     [(1, 128, 512, 16 * 128)]),
+    ("saturated conv", "conv_block.cu", "vsl_conv_block_bwd_wide_bf16",
+     "wgrad_wg", 1, [(4, 1024, 1024, 256 * 128)]),
+    ("saturated mha", "mha_block.cu", "vsl_mha_block_bwd_wide_bf16", "wgrad_wg",
+     2, [(1, 1024, 1024, 256 * 128), (1, 1024, 3072, 256 * 128)]),
+]
+
+
+@pytest.mark.parametrize("path,source,entry,form,calls,shapes", WEIGHT_PRODUCTS,
+                         ids=[w[0] for w in WEIGHT_PRODUCTS])
+def test_weight_products_take_their_form_by_call_site(path, source, entry,
+                                                      form, calls, shapes):
+    """The entry point calls its form `calls` times and never the other,
+    with no shape predicate between them; wgrad_wg's products take whole
+    tiles of C and wgrad_splits' S, wgrad_tc's its own splits of 64 x 64
+    tiles."""
+    text = (CSRC / source).read_text()
+    body = text[text.index('extern "C" int %s(' % entry):]
+    body = body[:body.index("\n}\n")]
+    other = "wgrad_wg" if form == "wgrad_tc" else "wgrad_tc"
+    assert body.count("vsl::%s(" % form) == calls
+    assert "vsl::%s(" % other not in body
+    assert "wgrad_bf16" not in body and "wgrad_takes_wg" not in text
+    for Z, M, N, K in shapes:
+        if form == "wgrad_wg":
+            S = kernels.wgrad_splits(Z, M, N, K)
+            assert kernels.wgrad_wg_fits(Z, M, N, K)
+            assert 1 <= S <= -(-K // kernels.GEMM_K)
+        else:
+            S = kernels._wgrad_splits(Z, M, N, K, kernels.CONV_TILED_WGRAD_WAVES)
+            assert 1 <= S <= K
+
+
+@pytest.mark.parametrize("shape,S", [((4, 1024, 1024, 32768), 1),
+                                     ((1, 1024, 3072, 32768), 2),
+                                     ((1, 1024, 1024, 32768), 2)])
+def test_wgrad_splits_fill_the_card_at_saturated(shape, S):
+    """#9c wide's 256 tiles fill the card twice with no split; #10b wide's
+    dwqkv (192 tiles) and dwd (64) take two splits: 384 and 128 items."""
+    Z, M, N, K = shape
+    assert kernels.wgrad_splits(Z, M, N, K) == S
+    tiles = Z * (M // 128) * (N // 128) * S
+    assert tiles <= 3 * kernels.N_SMS
+
+
+@pytest.mark.parametrize("D", [896, 1024])
+@pytest.mark.parametrize("BT", [256 * 128, 256 * 12, 3000, 1])
+def test_tc_gemm_takes_every_wide_product(D, BT):
+    """The wide kernels' products: the conv's pointwise and g_d ([BT, D] x
+    [D, D]), the MHA block's QKV ([BT, D] x [D, 3D]), dense, g_z and g_y
+    ([BT, 3D] x [3D, D]^T), and the weight gradients at any BT."""
+    for M, N, K in [(BT, D, D), (BT, 3 * D, D), (BT, D, 3 * D)]:
+        assert kernels.tc_gemm_fits(M, N, K)
+    for Z, M, N in [(4, D, D), (1, D, 3 * D), (1, D, D)]:
+        assert kernels.wgrad_wg_fits(Z, M, N, BT)
+    assert not kernels.tc_gemm_fits(BT, D + 64, D)
+    assert not kernels.tc_gemm_fits(BT, D, D + 32)
+
+
+@pytest.mark.parametrize("bt", [False, True])
+def test_gemm_wrappers_on_the_cpu_are_the_plain_versions(bt):
+    """On CPU tensors the wrappers return the plain versions (fp32 products
+    of the bf16 operands) and count no launch; wgrad_plain is the batched
+    A^T . B."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((300, 192)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((256, 192) if bt else (192, 256))
+                         .astype(np.float32))
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    kernels.reset_launches()
+    got = kernels.launch_tc_gemm_bf16(a, b, bt)
+    ref = a.double() @ (b.double().t() if bt else b.double())
+    assert got.dtype == torch.float32 and got.shape == (300, 256)
+    assert torch.allclose(got.double(), ref, rtol=1e-5, atol=1e-4)
+    wa = torch.from_numpy(rng.standard_normal((2, 70, 128)).astype(np.float32))
+    wb = torch.from_numpy(rng.standard_normal((2, 70, 256)).astype(np.float32))
+    wa, wb = wa.to(torch.bfloat16), wb.to(torch.bfloat16)
+    got = kernels.launch_wgrad_bf16(wa, wb)
+    ref = wa.double().transpose(1, 2) @ wb.double()
+    assert got.shape == (2, 128, 256)
+    assert torch.allclose(got.double(), ref, rtol=1e-5, atol=1e-4)
+    assert not any(kernels.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("fault", ["k_tile_skipped", "chain_not_added",
+                                   "b_transpose_flipped",
+                                   "split_partial_dropped"])
+def test_gemm_faults_plant_once_in_a_copy_of_the_kernel(fault):
+    """Each fault of bench/gemm_plans.py's GEMM_FAULTS (which the card test
+    test_cuda_gemm_checks_refuse_planted_faults must see refused) finds its
+    anchor once in csrc/gemm.cu with mma.cuh inlined, and the copy's entry
+    points are the two products' own, renamed so that they stand beside
+    the package's."""
+    from vslnet_torch.bench import gemm_plans as G
+    from vslnet_torch.bench.common import edited_source
+
+    old, new = G.GEMM_FAULTS[fault]
+    src = edited_source(fault, "gemm.cu", [(old, new)], ["mma.cuh"])
+    assert new in src and '#include "mma.cuh"' not in src
+    assert 'extern "C" int vsl_' not in src
+    for entry in ("tc_gemm_bf16", "wgrad_bf16"):
+        assert src.count('extern "C" int fault_%s(' % entry) == 1
+    with pytest.raises(RuntimeError, match="not found once"):
+        edited_source(fault, "gemm.cu", [(old, new)])  # mma.cuh not inlined

@@ -34,7 +34,6 @@ its own twin with the forward's bf16 query scale (ROADMAP.md C6).
     ok, why = verdict(case, reading)
     ok, why = verdict(planted(case, "last_frame_fp32"), ...)  # refused
 """
-import ctypes
 import json
 import math
 from typing import Callable, NamedTuple
@@ -360,45 +359,20 @@ WIDE_FWD_FAULTS = ("padded_key_in_l", "fwd_keep_bit_flipped", "q_unrounded",
                    "p_unrounded")
 
 
-def _edited_library(name, source, entry, edits):
-    """The kernel library with the entry point vsl_<entry> taken from a copy
-    of csrc/<source> changed by edits [(old, new)], each old found once."""
-    from vslnet_torch.bench.common import build_copy
-
-    src = (K.CSRC / source).read_text()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError("%s: the anchor %r is not found once in %s"
-                               % (name, old, source))
-        src = src.replace(old, new)
-    copy = build_copy(name, src.replace('extern "C" int vsl_',
-                                        'extern "C" int fault_'))
-    fn = getattr(copy, "fault_" + entry)
-    fn.argtypes = K._SIGNATURES["vsl_" + entry]
-    fn.restype = ctypes.c_int
-    main = K._library()
-
-    class Lib:
-        def __getattr__(self, attr):
-            return fn if attr == "vsl_" + entry else getattr(main, attr)
-    return Lib()
-
-
 def _fault_library(fault):
     """The kernel library with the entry point of WIDE_FAULT_EDITS[fault]
     taken from a changed copy of its source."""
     source, entry, old, new = WIDE_FAULT_EDITS[fault]
-    return _edited_library("fault_" + fault, source, entry, [(old, new)])
+    from vslnet_torch.bench.common import edited_library
+
+    return edited_library("fault_" + fault, source, [entry], [(old, new)])
 
 
 def _with_library(lib, fn):
-    """fn() with lib swapped in for the wrapper's calls, its outputs
-    cloned."""
-    main, K._LIB = K._LIB, lib
-    try:
-        return [t.clone() for t in fn()]
-    finally:
-        K._LIB = main
+    """common.with_library's outputs of fn, cloned."""
+    from vslnet_torch.bench.common import with_library
+
+    return [t.clone() for t in with_library(lib, fn)]
 
 
 def wide_fault(case, fault):
@@ -480,8 +454,10 @@ def wide_bwd_from_fp32_qkv(case):
     fp32-qkv form computed them: the backward of a copy of mha_block.cu
     that loads fp32 qkv (fp32_qkv_edits), on the case's saved qkv widened
     to fp32."""
-    lib = _edited_library("fp32_qkv", "mha_block.cu", "mha_block_bwd_wide_bf16",
-                          fp32_qkv_edits())
+    from vslnet_torch.bench.common import edited_library
+
+    lib = edited_library("fp32_qkv", "mha_block.cu", ["mha_block_bwd_wide_bf16"],
+                         fp32_qkv_edits())
     x, mask, gam, beta, wqkv, bqkv, wd, bd, heads, seeds, rate, g, qkv, att = \
         case.args
     q32 = qkv.float()

@@ -1,7 +1,8 @@
 """What the card-only scripts of vslnet_torch/bench share: CUDA-event
-timing, time and launches by kernel, the card's name and power limit, a copy of a kernel
+timing, time and launches by kernel from padded profiles, the card's name and power limit, a copy of a kernel
 source with clock stamps, and building a changed copy of a kernel source
-into a library of its own."""
+into a library of its own, which the wrappers then call in place of the
+package's."""
 import ctypes
 import subprocess
 
@@ -26,45 +27,56 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def by_kernel(fn, reps=10):
-    """{kernel name, cut to 60 characters: device ms a call of fn}, from
-    torch.profiler over reps calls after one; the kernels whose names agree
-    in those characters (instantiations of one template) summed."""
+# host sleep on each side of a profile's window: torch.profiler reads the
+# card's timestamps up to milliseconds behind the host's and keeps no record
+# of a kernel that then seems to start before the window (PERF.md §7;
+# bench/profiler_window.py reads it)
+PROFILE_PAD_S = 0.05
+
+
+def profiled(fn, reps):
+    """torch.profiler's events of reps calls of fn, after one, the window
+    padded by PROFILE_PAD_S on each side: [(name, device type, device ms,
+    records)] from key_averages."""
+    import time
+
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    return [(e.key, e.device_type, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages()]
+
+
+def by_kernel(fn, reps=10):
+    """{kernel name, cut to 60 characters: device ms a call of fn}, from
+    profiled(fn, reps); the kernels whose names agree in those characters
+    (instantiations of one template) summed."""
+    from torch.autograd import DeviceType
+
     out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            out[e.key[:60]] = (out.get(e.key[:60], 0.0)
-                               + e.device_time_total / 1e3 / reps)
+    for key, device, ms, _ in profiled(fn, reps):
+        if device == DeviceType.CUDA:
+            out[key[:60]] = out.get(key[:60], 0.0) + ms / reps
     return out
 
 
 def kernel_counts(fn, reps=3):
     """{kernel name, cut to 60 characters: launches a call of fn}, from
-    torch.profiler over reps calls after one (by_kernel's names)."""
-    import torch
+    profiled(fn, reps) (by_kernel's names)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            out[e.key[:60]] = out.get(e.key[:60], 0) + e.count / reps
+    for key, device, _, count in profiled(fn, reps):
+        if device == DeviceType.CUDA:
+            out[key[:60]] = out.get(key[:60], 0) + count / reps
     return out
 
 
@@ -128,3 +140,50 @@ def build_copies(sources):
 def build_copy(name, src):
     """build_copies of one source: its loaded library."""
     return build_copies({name: src})[name]
+
+
+def edited_source(name, source, edits, inline=()):
+    """csrc/<source> with each header of `inline` put in place of its
+    #include (so that an edit can reach into it), changed by edits [(old,
+    new)], each old found once, and its entry points renamed fault_."""
+    src = (K.CSRC / source).read_text()
+    for header in inline:
+        src = src.replace('#include "%s"\n' % header, (K.CSRC / header).read_text(), 1)
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError("%s: the anchor %r is not found once in %s"
+                               % (name, old, source))
+        src = src.replace(old, new)
+    return src.replace('extern "C" int vsl_', 'extern "C" int fault_')
+
+
+def library_with(copy, entries):
+    """The kernel library with vsl_<entry>, for each of entries, taken from
+    the built copy's fault_<entry>."""
+    fns = {}
+    for entry in entries:
+        fn = getattr(copy, "fault_" + entry)
+        fn.argtypes = K._SIGNATURES["vsl_" + entry]
+        fn.restype = ctypes.c_int
+        fns["vsl_" + entry] = fn
+    main = K._library()
+
+    class Lib:
+        def __getattr__(self, attr):
+            return fns[attr] if attr in fns else getattr(main, attr)
+    return Lib()
+
+
+def edited_library(name, source, entries, edits, inline=()):
+    """library_with the copy of edited_source(...) built on its own."""
+    return library_with(build_copy(name, edited_source(name, source, edits, inline)),
+                        entries)
+
+
+def with_library(lib, fn):
+    """fn() with lib swapped in for the wrappers' calls."""
+    main, K._LIB = K._LIB, lib
+    try:
+        return fn()
+    finally:
+        K._LIB = main

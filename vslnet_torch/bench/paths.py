@@ -157,15 +157,19 @@ def profile_device(run, wall_ms):
     """Device time by kernel over one call of run() (torch.profiler), the
     part of it that is host-to-device copies (their time, kinds and
     bytes), and the share of the unprofiled wall time wall_ms the card
-    sits idle."""
+    sits idle; the window padded as common.profiled pads it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from vslnet_torch.bench.common import PROFILE_PAD_S
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         run()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA),
@@ -173,6 +177,10 @@ def profile_device(run, wall_ms):
     device_ms = sum(r[1] for r in rows)
     copy_ms = sum(r[1] for r in rows if r[0].startswith("Memcpy HtoD"))
     copies = htod_copies(prof)
+    launches, kernel_ms = {}, {}
+    for k, ms, n in rows:
+        launches[k[:70]] = launches.get(k[:70], 0) + n
+        kernel_ms[k[:70]] = kernel_ms.get(k[:70], 0.0) + ms
     return {"device_ms": device_ms, "htod_copy_ms": copy_ms,
             "htod_bytes": sum(b for _, b in copies.values()),
             "htod_copies": copies,
@@ -180,7 +188,8 @@ def profile_device(run, wall_ms):
             "device_idle_share": 1.0 - device_ms / wall_ms,
             "device_launches": sum(r[2] for r in rows),
             "top": [[k[:70], ms, n] for k, ms, n in rows[:12]],
-            "kernel_names": sorted({r[0][:70] for r in rows})}
+            "kernel_names": sorted({r[0][:70] for r in rows}),
+            "kernel_launches": launches, "kernel_ms": kernel_ms}
 
 
 def wall_ms(run, n=3):

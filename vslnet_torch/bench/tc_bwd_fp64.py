@@ -41,6 +41,14 @@ cases ("conv_wide", "mha_wide": [256, 128, 1024] first, drop 0 and 0.2):
 #9c wide's dx and dwp, #10b wide's dx (through which its attention's dq,
 dk and dv show) and dwqkv, each of them and every other output read
 against conv_block_bwd_plain and mha_block_bwd_plain at work=float64.
+
+    python3 -m vslnet_torch.bench.tc_bwd_fp64 --wide --seeds 8
+
+Only the wide backwards' small cases (WIDE_SEEDED: #9c wide at [32, 24,
+1024], #10b wide at [2, 128, 256]), drop 0 and 0.2, over 8 draws (seeds
+100-107), each row with its seed: a bf16 output's share of differing
+values counts a few hundred flips there, so that one draw's ratio to a
+parent's can stray by a quarter.
 """
 import ctypes
 import importlib.util
@@ -95,34 +103,47 @@ def k8_library():
 
 
 WIDE = ("conv_wide", "mha_wide")
+# (kind, shape) of the wide cases read over draws: [B, T, D] (and heads)
+WIDE_SEEDED = [("conv_wide", (32, 24, 1024)), ("mha_wide", (2, 128, 256, 2))]
 
 
 def cases(dev, seeds=0, wide=False):
-    """(kind, case) of the card cases and the long paths' shapes; with
-    `seeds`, #8b at T = 128 and 192 over that many draws instead; with
-    `wide`, the wide kernels' card cases instead."""
+    """(kind, case, seed) of the card cases and the long paths' shapes;
+    with `seeds`, #8b at T = 128 and 192 over that many draws instead; with
+    `wide`, the wide kernels' card cases instead, or with both, WIDE_SEEDED
+    over the draws (seed None where the case is drawn from a shared
+    generator)."""
     from vslnet_torch.bench import bf16_vjp as V
 
+    if wide and seeds:
+        for seed in range(100, 100 + seeds):
+            for kind, shape in WIDE_SEEDED:
+                for rate in (0.0, 0.2):
+                    rng = np.random.default_rng(seed)
+                    yield kind, (V.conv_case(dev, rng, *shape, rate, wide=True)
+                                 if kind == "conv_wide" else
+                                 V.mha_case(dev, rng, *shape, rate)), seed
+        return
     if wide:
         for kind in WIDE:
             for case in V.card_cases(dev, kind):
-                yield kind, case
+                yield kind, case, None
         return
     if seeds:
         for seed in range(100, 100 + seeds):
             for T in (128, 192):
-                yield "lstm", V.lstm_case(dev, np.random.default_rng(seed), T, 16, 128)
+                yield "lstm", V.lstm_case(dev, np.random.default_rng(seed), T, 16, 128), seed
         return
     for kind in ("lstm", "conv_tiled"):
         for case in V.card_cases(dev, kind):
-            yield kind, case
+            yield kind, case, None
         rng = np.random.default_rng(37)
         for shape in LONG[kind]:
             if kind == "lstm":
-                yield kind, V.lstm_case(dev, rng, *shape)
+                yield kind, V.lstm_case(dev, rng, *shape), None
             else:
                 for rate in (0.0, 0.2):
-                    yield kind, V.conv_case(dev, rng, *shape, rate, True)
+                    yield kind, V.conv_case(dev, rng, *shape, rate, True), None
 
 
 def main():
@@ -143,13 +164,13 @@ def main():
     argv = sys.argv[1:]
     k8 = k8_library() if "--k8" in argv else None
     seeds = int(argv[argv.index("--seeds") + 1]) if "--seeds" in argv else 0
-    for kind, case in cases(dev, seeds, "--wide" in argv):
+    for kind, case, seed in cases(dev, seeds, "--wide" in argv):
         kern = [t.clone() for t in case.kernel()]
         twin = [t.detach() for t in case.twin()]
         ref = [t.detach() for t in fp64[kind](*case.args, work=torch.float64)]
         ok, why = V.verdict(case, V.read(case))
         row = {"bench": "tc_bwd_fp64", "card": smi, "kernel": case.name,
-               "shape": list(case.shape), "verdict": ok, "why": why}
+               "shape": list(case.shape), "seed": seed, "verdict": ok, "why": why}
         if kind in ("conv_tiled", "conv_wide"):
             row["drop_rate"] = case.args[7]
         elif kind == "mha_wide":

@@ -1512,7 +1512,7 @@ namespace {
 //     sums (dbp, dgam, dbeta, ddw) carried over the strip and written once
 //     a strip;
 //   - the product [B T, D] x [D, D] over every frame at once on mma.cuh's
-//     tc_gemm, the layer's epilogue fused into it.
+//     tc_gemm (wgmma, operands by TMA), the layer's epilogue fused into it.
 // Forward, a layer: (1) conv_wide_d_kernel for layer l alone: d =
 // bf16(depthwise(bf16(LN(x_l)))) into a bf16 workspace, the backward's d
 // bit for bit; (2) tc_gemm d . bf16(wp) (the wrapper rounds wp once a call) with
@@ -1530,7 +1530,7 @@ namespace {
 // G_in + dx_ln and, below the top layer, the next layer down's g_p =
 // [p > 0] drop(G_out) from the same frames' G_out, its bf16 copy and dbp
 // (its prologue, fused into the pass above it). Then dwp = sum bf16(d)^T .
-// bf16(g_p) on wgrad_tc and the partials summed in a fixed order. The
+// bf16(g_p) on wgrad_wg and the partials summed in a fixed order. The
 // function, rounding for rounding, is the tiled bf16 kernels'; no atomics.
 // The per-frame launches take a CTA of D / 4 threads a strip of S frames of
 // a row (conv_wide_plan's strip: one CTA a row at `saturated`), four
@@ -1937,7 +1937,7 @@ cudaError_t by_type(bool bf16, F f) {
 
 // The per-frame launches take the model's taps and 4 columns a thread.
 bool wide_ok(int B, int T, int D, int L, int K, int S) {
-  return B >= 1 && T >= 1 && L >= 1 && K == kWideBwdK && D % vsl::kTcGemmN == 0 &&
+  return B >= 1 && T >= 1 && L >= 1 && K == kWideBwdK && D % vsl::kGemmN == 0 &&
          D / 4 <= kWideBwdMaxThreads && S >= 1 && wide_pass_bytes(D, K) <= 232448;
 }
 
@@ -2035,6 +2035,6 @@ extern "C" int vsl_conv_block_bwd_wide_bf16(const void* x, const float* xs, cons
   if (err != cudaSuccess) return static_cast<int>(err);
   err = vsl::sum_partials(part, dsmall, 1, B * grid.x, L * (3 + K) * D, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(vsl::wgrad_tc(static_cast<const bf16*>(d_ws), gp_all, dwp, gemm_ws, L,
+  return static_cast<int>(vsl::wgrad_wg(static_cast<const bf16*>(d_ws), gp_all, dwp, gemm_ws, L,
                                         D, D, B * T, splits, stream));
 }

@@ -1045,8 +1045,9 @@ namespace {
 // on warps a frame (the forward) or on strips of S frames a row streamed a
 // few frames at a time (the backward, wide_ln_pass_kernel), and the four
 // products [B T, D] x [D, 3D], [B T, D] x [D, D] and their transposes run
-// over every frame at once on mma.cuh's tc_gemm, the bias, rounding,
-// dropout and residual epilogues fused into them. Both attentions are
+// over every frame at once on mma.cuh's tc_gemm (wgmma, operands by TMA),
+// the bias, rounding, dropout and residual epilogues fused into them, and
+// the weight gradients on its wgrad_wg. Both attentions are
 // tensor-core kernels of their own, a CTA a (row, head) (attn_fwd_wide_kernel,
 // attn_bwd_wide_kernel below). The function, with each rounding point, is
 // the bf16 block's (vsl_mha_block_fwd_bf16 / _bwd_bf16 above): y, q, k, v,
@@ -1809,7 +1810,7 @@ cudaError_t launch_attn_fwd_wide(const __nv_bfloat16* qkv, const float* mask, vs
 
 bool wide_ok(int B, int T, int D, int n_heads) {
   return B >= 1 && T >= 1 && n_heads >= 1 && D == kAttnWideHd * n_heads &&
-         D % vsl::kTcGemmN == 0 && D / 4 <= kWideLnMaxThreads && T <= 16 * kAttnWideWarps;
+         D % vsl::kGemmN == 0 && D / 4 <= kWideLnMaxThreads && T <= 16 * kAttnWideWarps;
 }
 
 }  // namespace
@@ -1860,15 +1861,16 @@ extern "C" int vsl_mha_block_fwd_wide_bf16(const void* x_, const float* mask, co
 // Workspaces: gdt, z, y [B, T, D] bf16 (bf16(g_dpre), and dwd's and
 // dwqkv's operands); gz [B, T, D] fp32 (g_z, then g_y); gres, gatt [B, T,
 // D] fp32; dqkvt [B, T, 3D] bf16 (bf16(dqkv), from the attention's
-// epilogue); part [B * ceil(T / S), 8D]; gemm_ws [splits, D, 3D]. Strips
-// of S frames; the attention on NK tiles of 16 keys (T <= 16 NK).
+// epilogue); part [B * ceil(T / S), 8D]; gemm_ws [splits, D, 3D] (and
+// [splits_d, D, D], dwd's splits). Strips of S frames; the attention on NK
+// tiles of 16 keys (T <= 16 NK).
 extern "C" int vsl_mha_block_bwd_wide_bf16(
     const void* x_, const float* mask, const float* gam, const float* beta, const void* wqkvb,
     const void* wdb, const float* seeds, unsigned thresh, float scale, const void* qkv,
     const float* att, const void* g_, void* dx_, float* dsmall, float* dwqkv, float* dwd,
     void* gdt_, float* gz, void* z_, float* gres, float* gatt, void* dqkvt_, void* y_,
-    float* part, float* gemm_ws, int splits, int B, int T, int D, int n_heads, int S, int NK,
-    void* stream_) {
+    float* part, float* gemm_ws, int splits, int splits_d, int B, int T, int D, int n_heads,
+    int S, int NK, void* stream_) {
   using bf16 = __nv_bfloat16;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   if (!wide_ok(B, T, D, n_heads) || S < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -1905,9 +1907,10 @@ extern "C" int vsl_mha_block_bwd_wide_bf16(
                             T, D, S);
   if (err == cudaSuccess) err = vsl::sum_partials(part, dsmall, 1, B * grid.x, 8 * D, stream);
   if (err == cudaSuccess)
-    err = vsl::wgrad_tc(static_cast<const bf16*>(z), gdt, dwd, gemm_ws, 1, D, D, M, splits, stream);
+    err = vsl::wgrad_wg(static_cast<const bf16*>(z), gdt, dwd, gemm_ws, 1, D, D, M, splits_d,
+                        stream);
   if (err == cudaSuccess)
-    err = vsl::wgrad_tc(static_cast<const bf16*>(y), dqkvt, dwqkv, gemm_ws, 1, D, 3 * D, M, splits,
+    err = vsl::wgrad_wg(static_cast<const bf16*>(y), dqkvt, dwqkv, gemm_ws, 1, D, 3 * D, M, splits,
                         stream);
   return static_cast<int>(err);
 }

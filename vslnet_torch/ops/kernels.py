@@ -109,7 +109,8 @@ LAUNCHES = {"lstm_recurrence_fwd": 0, "lstm_recurrence_fwd_res": 0,
             "mha_block_bwd_bf16": 0, "mha_fwd_bf16": 0, "mha_bwd_bf16": 0,
             "flash_mha_fwd_bf16": 0, "flash_mha_bwd_bf16": 0,
             "conv_block_fwd_wide_bf16": 0, "conv_block_bwd_wide_bf16": 0,
-            "mha_block_fwd_wide_bf16": 0, "mha_block_bwd_wide_bf16": 0}
+            "mha_block_fwd_wide_bf16": 0, "mha_block_bwd_wide_bf16": 0,
+            "tc_gemm_bf16": 0, "wgrad_bf16": 0}
 # the kernels with a bf16 entry point: a wrapper given bf16 activations
 # launches `<name>_bf16`
 _BF16_KERNELS = ("lstm_recurrence_fwd", "conv_block_fwd",
@@ -168,7 +169,10 @@ _SIGNATURES.update({
     "vsl_conv_block_fwd_wide_bf16": [_P] * 7 + _DROP + [_P] * 4 + [_I] * 6 + [_P],
     "vsl_conv_block_bwd_wide_bf16": [_P] * 9 + _DROP + [_P] * 10 + [_I] * 7 + [_P],
     "vsl_mha_block_fwd_wide_bf16": [_P] * 9 + _DROP + [_P] * 4 + [_I] * 5 + [_P],
-    "vsl_mha_block_bwd_wide_bf16": [_P] * 7 + _DROP + [_P] * 16 + [_I] * 7 + [_P],
+    "vsl_mha_block_bwd_wide_bf16": [_P] * 7 + _DROP + [_P] * 16 + [_I] * 8 + [_P],
+    # the two products alone (csrc/gemm.cu)
+    "vsl_tc_gemm_bf16": [_P] * 3 + [_I] * 4 + [_P],
+    "vsl_wgrad_bf16": [_P] * 4 + [_I] * 5 + [_P],
 })
 
 
@@ -1550,6 +1554,158 @@ class FusedConvBlockTiled(torch.autograd.Function):
         return (*grads, None, None)
 
 
+# --- the wide kernels' bf16 products on Hopper's wgmma ----------------------------
+# csrc/mma.cuh tc_gemm and wgrad_wg (wg_gemm_kernel): C = A . B (or A . B^T,
+# or the split-K A[z]^T . B[z]) on tiles of 128 x 128 of C, bf16 operands
+# brought into a ring of shared memory by TMA and multiplied by
+# wgmma.mma_async, fp32 sums: chains of GEMM_CHAIN k16 steps in the tensor
+# cores, each added to the sums by fp32 adds. The wide kernels (#2c, #9c,
+# #3b, #10b wide) run every product on them from their own entry points;
+# launch_tc_gemm_bf16 and launch_wgrad_bf16 run the two alone (the card
+# tests, chip_smoke.py).
+
+# the kernel's tiles of C, stages of k, ring, chain, threads and registers
+# by role (kGemmM, kGemmN, kGemmK, kGemmStages, kGemmChain, kGemmThreads,
+# kGemmProducerRegs, kGemmConsumerRegs): a producer warpgroup and two
+# consumer warpgroups, one CTA an SM (the consumers' 64 sums and 64 chain
+# values a thread fill the registers), a persistent grid
+GEMM_M = 128
+GEMM_N = 128
+GEMM_K = 64
+GEMM_STAGES = 6
+GEMM_CHAIN = 4
+GEMM_THREADS = 384
+GEMM_PRODUCER_REGS = 40
+GEMM_CONSUMER_REGS = 232
+GEMM_STAGE_BYTES = 2 * (GEMM_M + GEMM_N) * GEMM_K
+GEMM_CHAIN_STAGES = GEMM_CHAIN * 16 // GEMM_K
+# the registers of one SM
+SM_REGISTERS = 65536
+# the card's bf16 tensor-core peak and memory rate (NVIDIA's H100 SXM data
+# sheet): the split plan's time of a stage and of a partial's bytes
+PEAK_BF16_FLOPS = 989e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _gemm_smem_bytes():
+    """csrc/mma.cuh gemm_smem_bytes: the ring, its full and empty mbarriers
+    and the slack that aligns the ring to 1024 bytes."""
+    return 1024 + GEMM_STAGES * GEMM_STAGE_BYTES + 2 * GEMM_STAGES * 8
+
+
+def tc_gemm_fits(M, N, K):
+    """csrc/mma.cuh tc_gemm_ok for contiguous rows: whole tiles of columns
+    and whole stages of k."""
+    return M >= 1 and N >= GEMM_N and N % GEMM_N == 0 and K >= GEMM_K \
+        and K % GEMM_K == 0
+
+
+def wgrad_wg_fits(Z, M, N, K):
+    """csrc/mma.cuh wgrad_wg_ok: whole tiles of C, any K."""
+    return Z >= 1 and K >= 1 and M >= GEMM_M and M % GEMM_M == 0 \
+        and N >= GEMM_N and N % GEMM_N == 0
+
+
+def _wgrad_chunk(kts, S):
+    """csrc/mma.cuh wgrad_wg: stages of k a split, whole chains."""
+    c = GEMM_CHAIN_STAGES
+    return -(-(-(-kts // S)) // c) * c
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_splits(Z, M, N, K):
+    """Splits of K for wgrad_wg's items: the S whose last CTA ends soonest,
+    with every split holding stages. Each of the card's N_SMS CTAs takes
+    items in turn, an item a tile and a split of chunk stages, a stage at
+    the bf16 peak's share of one SM; the partials beyond S = 1 are written
+    once and read once more by sum_partials at the memory rate."""
+    tiles = Z * (M // GEMM_M) * (N // GEMM_N)
+    kts = -(-K // GEMM_K)
+    stage_s = 2 * GEMM_M * GEMM_N * GEMM_K / (PEAK_BF16_FLOPS / N_SMS)
+    best = None
+    for S in range(1, max(1, -(-kts // GEMM_CHAIN_STAGES)) + 1):
+        chunk = _wgrad_chunk(kts, S)
+        if -(-kts // chunk) != S:
+            continue
+        waves = -(-tiles * S // N_SMS)
+        partials = (2 * S + 1) * Z * M * N * 4 if S > 1 else 0
+        cost = waves * chunk * stage_s + partials / HBM_BYTES_PER_S
+        if best is None or cost < best[0]:
+            best = (cost, S)
+    return best[1]
+
+
+class _NoTF32:
+    """float32 products in full float32 inside the block."""
+
+    def __enter__(self):
+        self.was = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self.was
+
+
+def tc_gemm_plain(a, b, bt=False):
+    """C = a . b (b [K, N]) or, with bt, a . b^T (b [N, K]), the bf16
+    operands in float32: the plain version of launch_tc_gemm_bf16."""
+    with _NoTF32():
+        b32 = b.float()
+        return torch.matmul(a.float(), b32.t() if bt else b32)
+
+
+def wgrad_plain(a, b):
+    """C[z] = a[z]^T . b[z] (a [Z, K, M], b [Z, K, N]), the bf16 operands in
+    float32: the plain version of launch_wgrad_bf16."""
+    with _NoTF32():
+        return torch.matmul(a.float().transpose(1, 2), b.float())
+
+
+def launch_tc_gemm_bf16(a, b, bt=False):
+    """tc_gemm with an fp32 store: a [M, K], b [K, N] (or with bt [N, K])
+    bf16 -> C [M, N] fp32. CUDA tensors launch the kernel, CPU tensors take
+    tc_gemm_plain."""
+    name = "tc_gemm_bf16"
+    if not _on_cuda(name, a, b):
+        return tc_gemm_plain(a, b, bt)
+    M, K = a.shape
+    N = b.shape[0] if bt else b.shape[1]
+    if not tc_gemm_fits(M, N, K):
+        raise ValueError("%s: needs N a multiple of %d and K of %d, got M=%d, "
+                         "N=%d, K=%d" % (name, GEMM_N, GEMM_K, M, N, K))
+    _check(name, a, (M, K), torch.bfloat16)
+    _check(name, b, (N, K) if bt else (K, N), torch.bfloat16)
+    a, b = _aligned16(a, b)
+    c = _empty(a.device, M, N)
+    _launch(name, a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K, int(bt))
+    return c
+
+
+def launch_wgrad_bf16(a, b, splits=None):
+    """wgrad_wg: a [Z, K, M], b [Z, K, N] bf16 -> C [Z, M, N] fp32 = a[z]^T .
+    b[z], K in `splits` splits (wgrad_splits' by default) summed in a fixed
+    order. CUDA tensors launch the kernel, CPU tensors take wgrad_plain."""
+    name = "wgrad_bf16"
+    if not _on_cuda(name, a, b):
+        return wgrad_plain(a, b)
+    Z, K, M = a.shape
+    N = b.shape[2]
+    if not wgrad_wg_fits(Z, M, N, K):
+        raise ValueError("%s: needs M and N multiples of %d, got Z=%d, M=%d, "
+                         "N=%d, K=%d" % (name, GEMM_M, Z, M, N, K))
+    _check(name, a, (Z, K, M), torch.bfloat16)
+    _check(name, b, (Z, K, N), torch.bfloat16)
+    S = wgrad_splits(Z, M, N, K) if splits is None else splits
+    if S < 1:
+        raise ValueError("%s: splits must be at least 1, got %d" % (name, S))
+    a, b = _aligned16(a, b)
+    c = _empty(a.device, Z, M, N)
+    ws = _empty(a.device, Z * S * M * N if S > 1 else 1)
+    _launch(name, a.data_ptr(), b.data_ptr(), c.data_ptr(), ws.data_ptr(), Z, M,
+            N, K, S)
+    return c
+
+
 # --- 2c. the bf16 conv block at the widths the tiled kernels do not take ------
 # #2c and #9c at D = 896 and 1024 (the JAX bench's `saturated` hidden 1024;
 # csrc/conv_block.cu, the wide kernels): a layer a few launches, its
@@ -1561,10 +1717,10 @@ class FusedConvBlockTiled(torch.autograd.Function):
 # The same function as the tiled bf16 pair, the same (out, xs, mask).
 
 # threads a CTA of the MHA backward's g_dpre launch (csrc/common.cuh
-# kWideThreads); the products' tiles of 128 columns (mma.cuh kTcGemmN) want
+# kWideThreads); the products' tiles of 128 columns (mma.cuh kGemmN) want
 # D % 128 == 0
 WIDE_THREADS = 512
-TC_GEMM_N = 128
+TC_GEMM_N = GEMM_N
 
 
 def _require_bf16(name, x):
@@ -1698,7 +1854,7 @@ def launch_conv_block_bwd_wide(x, xs, gam, beta, dw, wp, bp, seeds, drop_rate,
     gd_ws = _empty(dev, B, T, D)
     g_ws = _empty(dev, 2, B, T, D)
     part = _empty(dev, plan.ctas, L, 3 + K, D)
-    splits = _wgrad_splits(L, D, D, B * T, CONV_TILED_WGRAD_WAVES)
+    splits = wgrad_splits(L, D, D, B * T)
     ws = _empty(dev, L * splits * D * D if splits > 1 else 1)
     _launch(name, x.data_ptr(), xs.data_ptr(), mask.data_ptr(), gam.data_ptr(),
             beta.data_ptr(), dw.data_ptr(), wpb.data_ptr(), bp.data_ptr(), sp,
@@ -2314,15 +2470,18 @@ def _launch_mha_block_bwd_wide(x, mask, gam, beta, wqkv, wd, n_heads, seeds,
     gz, gres, gatt = (_empty(dev, B, T, D) for _ in range(3))
     dqkvt = torch.empty(B, T, 3 * D, device=dev, dtype=torch.bfloat16)
     part = _empty(dev, plan.ctas, 8 * D)
-    splits = _wgrad_splits(1, D, 3 * D, B * T)
-    ws = _empty(dev, splits * D * 3 * D if splits > 1 else 1)
+    # dwqkv's and dwd's splits, one workspace for either
+    splits = wgrad_splits(1, D, 3 * D, B * T)
+    splits_d = wgrad_splits(1, D, D, B * T)
+    ws = _empty(dev, max(splits * 3 if splits > 1 else 0,
+                         splits_d if splits_d > 1 else 0, 1) * D * D)
     _launch(name, x.data_ptr(), mask.data_ptr(), gam.data_ptr(),
             beta.data_ptr(), wqkvb.data_ptr(), wdb.data_ptr(), sp, thresh,
             scale, qkv.data_ptr(), att.data_ptr(), g.data_ptr(), dx.data_ptr(),
             dsmall.data_ptr(), dwqkv.data_ptr(), dwd.data_ptr(),
             gdt.data_ptr(), gz.data_ptr(), z.data_ptr(), gres.data_ptr(),
             gatt.data_ptr(), dqkvt.data_ptr(), y.data_ptr(), part.data_ptr(),
-            ws.data_ptr(), splits, B, T, D, n_heads, plan.strip,
+            ws.data_ptr(), splits, splits_d, B, T, D, n_heads, plan.strip,
             plan.attn_tiles)
     return (dx, dsmall[:2 * D].view(2, D), dsmall[2 * D:4 * D].view(2, D),
             dwqkv, dsmall[4 * D:7 * D], dwd, dsmall[7 * D:])
