@@ -70,7 +70,10 @@ Phases, each printing one JSON line:
               must fail), equal bits on
               two equal calls, their time by CUDA events and by
               torch.profiler, the twin's time, the bound at the bf16
-              peak (cuDNN's bf16 nn.LSTM beside #1); then the slice
+              peak (cuDNN's bf16 nn.LSTM beside #1, which the LSTM
+              forwards, on the tensor-core kernel alone, must beat; and
+              their distance from an fp64 evaluation of the bf16
+              function, within the twin's plus a slack); then the slice
               phase's model at bf16 with the same seeded weights: the
               slice phase's HTTP requests, their launches equal to the
               fp32 run's kernel by kernel with the four under their bf16
@@ -1236,12 +1239,25 @@ def bf16_function_check(name, key, value, control, tol):
     return {key: value, key + "_control": control, key + "_tol": tol}
 
 
+def lstm_tc_checks(row):
+    """A bf16 LSTM forward's row: its kernel the tensor-core forward alone
+    (no cluster-FMA kernel left on the bf16 path), below cuDNN's bf16
+    nn.LSTM by events."""
+    names = list(row["by_kernel"])
+    check(any("lstm_fwd_tc_kernel" in n for n in names)
+          and not any("lstm_fwd_cluster_kernel" in n for n in names),
+          "%s: its kernels are %s, not the tensor-core forward" % (row["name"], names))
+    check(row["ms"] < row["library_ms"], "%s: %g ms, not below cuDNN's bf16 %g"
+          % (row["name"], row["ms"], row["library_ms"]))
+
+
 def bf16_kernel_rows(dev, max_w):
     """The four bf16 kernels at the served shapes against their bf16 twins
     on the card: error, equal bits on two equal calls, time by CUDA events
     and by torch.profiler, the twin's time and the bound."""
     import torch
 
+    from vslnet_torch.bench import bf16_vjp as V
     from vslnet_torch.bench.common import by_kernel
     from vslnet_torch.ops import kernels as K
 
@@ -1288,6 +1304,8 @@ def bf16_kernel_rows(dev, max_w):
         lib_err = float((lstm(x_proj)[0].float() - out).abs()[valid.bool()]
                         .max())
         ms_lib = cuda_ms(lambda: lstm(x_proj), 20)
+    fp64 = V.lstm_fwd_fp64(lstm_args, [out])
+    check(*V.lstm_fwd_fp64_verdict(fp64))
     record("lstm_recurrence_fwd_bf16", "vslnet_torch/csrc/lstm.cu", 241, err,
            BF16_LSTM_TOL, lambda: K.fused_lstm_recurrence(*lstm_args),
            lambda: K.lstm_recurrence_plain(*lstm_args),
@@ -1295,8 +1313,9 @@ def bf16_kernel_rows(dev, max_w):
            2 * (T * B * 4 * H + H * 4 * H) + 4 * (T * B + T * B * H),
            library_ms=ms_lib, library="cuDNN nn.LSTM in bf16",
            library_max_abs_err_valid=lib_err, shape=[T, B, 4 * H],
-           err_vs_fp32_function=fp32_err, plan=plan_fields(K.lstm_plan(B, H)),
-           **mean_check)
+           err_vs_fp32_function=fp32_err,
+           plan=K.lstm_fwd_bf16_plan(B, H)._asdict(), fp64=fp64, **mean_check)
+    lstm_tc_checks(rows[-1])
 
     # 2. the conv block: the whole-row kernel at the query stream's [B,
     # max_w, D], the T-tiled one at the video's [B, T, D]
@@ -1715,6 +1734,8 @@ def bf16_train_kernel_rows(dev, max_w):
     mean_check = bf16_function_check(
         "lstm_recurrence_fwd_res_bf16", "mean_abs_err", mean_err(got[0]),
         mean_err(ref32[0]), BF16_LSTM_MEAN_TOL)
+    fp64 = V.lstm_fwd_fp64(args, list(got[:2]))
+    check(*V.lstm_fwd_fp64_verdict(fp64))
     lstm = lstm_yardstick(x_proj.float(), k_h.float()).to(bf)
     lstm.flatten_parameters()
     xl = x_proj.detach().clone().requires_grad_()
@@ -1735,7 +1756,9 @@ def bf16_train_kernel_rows(dev, max_w):
               fp32_device_ms=sum(by_kernel(
                   lambda: K.launch_lstm_fwd_res(*args32)).values()),
               shape=[T, B, 4 * H], equal_bits_twice=twice,
-              err_vs_fp32_function=max_err(got[0], ref32[0]), **mean_check)
+              err_vs_fp32_function=max_err(got[0], ref32[0]),
+              plan=K.lstm_fwd_bf16_plan(B, H)._asdict(), fp64=fp64, **mean_check)
+    lstm_tc_checks(rows[-1])
 
     def lstm_bwd_work(T_, n_valid_):
         return (4 * n_valid_ * H * 4 * H,

@@ -4,6 +4,7 @@ without a CUDA device. Imports no JAX, so it also runs on a machine that
 has only PyTorch (there: `python -m pytest --noconftest
 tests/test_torch_cuda.py`, since tests/conftest.py sets up JAX)."""
 import faulthandler
+import functools
 
 import numpy as np
 import pytest
@@ -1377,6 +1378,84 @@ def test_cuda_lstm_fwd_res_bf16_matches_twin(cuda, T, B, H):
     assert mean_err(got[0]) <= BF16_LSTM_MEAN_TOL < mean_err(ref32)
     assert all(torch.equal(a, b) for a, b in
                zip(got, kernels.launch_lstm_fwd_res(*args)))
+
+
+# The bf16 forwards' tensor-core plan (lstm_fwd_bf16_plan) under stress: T
+# = 1, 7, the main path's 128 and path M's 192; B = 1, a ragged 3, the main
+# path's 16 and a ragged last cluster of 17; H = 8 (one CTA of 2 warps and
+# one k16 step), 24 (3 CTAs, units past H in none), 128 and 256 (8 warps of
+# 16 k16 steps). Lengths ragged, the first row full, the second of 1.
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 7, 128, 192])
+@pytest.mark.parametrize("B", [1, 3, 16, 17])
+@pytest.mark.parametrize("H", [8, 24, 128, 256])
+def test_cuda_lstm_fwd_tc_matches_twin(cuda, T, B, H):
+    """#1b and #7b (lstm_fwd_tc_kernel) against the twin: the lean output
+    and all five outputs with residuals within BF16_LSTM_TOL, equal bits
+    on two calls, one launch of each bf16 entry."""
+    rng = np.random.default_rng(43)
+    lens = np.concatenate([[T, 1], rng.integers(1, T + 1, B)])[:B]
+    x_proj, k_h, valid = _lstm_inputs(rng, T, B, H, lens)
+    args = [_t(x_proj).to(cuda, BF16), _t(k_h).to(cuda, BF16),
+            _t(valid).to(cuda)]
+    kernels.reset_launches()
+    out = kernels.launch_lstm_fwd(*args)
+    got = kernels.launch_lstm_fwd_res(*args)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {
+        "lstm_recurrence_fwd_bf16": 1, "lstm_recurrence_fwd_res_bf16": 1}
+    ref = kernels.lstm_recurrence_plain(*args, residuals=True)
+    torch.testing.assert_close(out, ref[0], atol=BF16_LSTM_TOL, rtol=0)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, atol=BF16_LSTM_TOL, rtol=0)
+    assert torch.equal(out, kernels.launch_lstm_fwd(*args))
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, kernels.launch_lstm_fwd_res(*args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [128, 192])
+def test_cuda_lstm_fwd_bf16_against_fp64(cuda, T):
+    """#1b's out and #7b's out and acts at [T, 16, 512], T = 128 and path
+    M's 192: each no further from an fp64 evaluation of the bf16-rounded
+    function than the twin plus LSTM_FWD_FP64_SLACK (bench/bf16_vjp.py
+    lstm_fwd_fp64_verdict)."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    args = V.lstm_fwd_inputs(cuda, np.random.default_rng(44), T, 16, 128)
+    for residuals in (False, True):
+        f = V.lstm_fwd_fp64(args, V.lstm_fwd_outputs(args, residuals))
+        ok, why = V.lstm_fwd_fp64_verdict(f)
+        assert ok, (why, f)
+
+
+@functools.lru_cache(maxsize=1)
+def _lstm_fwd_fault_libraries():
+    from vslnet_torch.bench import bf16_vjp as V
+
+    return V.lstm_fwd_fault_libraries()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["k16_step_skipped", "neighbour_unit_fragment",
+                                   "x_proj_from_t_minus_1", "h_unrounded"])
+def test_cuda_lstm_fwd_bf16_refuses_a_planted_fault(cuda, fault):
+    """Each planted fault of the tensor-core forward (bench/bf16_vjp.py
+    LSTM_FWD_FAULTS: a k16 step skipped, gate o's fragment from the next
+    unit, x_proj[t - 1] in step t, and h unrounded in the product, the fp32
+    kernel on the same values) is refused by the fp64 reading at the main
+    path's shape, which passes the kernel on the same inputs."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    args = V.lstm_fwd_inputs(cuda, np.random.default_rng(45), 128, 16, 128)
+    libs = None if fault == "h_unrounded" else _lstm_fwd_fault_libraries()
+    for residuals in (False, True):
+        outs = V.lstm_fwd_outputs(args, residuals)
+        assert V.lstm_fwd_fp64_verdict(V.lstm_fwd_fp64(args, outs))[0]
+        bad = V.lstm_fwd_fault(args, fault, residuals, libs)
+        ok, why = V.lstm_fwd_fp64_verdict(V.lstm_fwd_fp64(args, bad))
+        assert not ok and "beyond" in why, (fault, residuals, why)
 
 
 @pytest.mark.cuda

@@ -126,16 +126,19 @@ def test_fits_take_the_shapes_they_took():
 
 
 def test_stamped_bench_copies_anchor_the_shipped_kernels():
-    """lstm_plans --bwd stamps the tensor-core LSTM backward's step phases
-    (each anchor once in the kernel), conv_plans --tiled --bf16 the
-    tensor-core conv backward's barriers and phases, and tc_bwd_fp64 --k8
-    finds the step's k16 product once."""
+    """lstm_plans --bwd and --fwd stamp the tensor-core LSTM backward's and
+    forward's step phases (each anchor once in the kernel), conv_plans
+    --tiled --bf16 the tensor-core conv backward's barriers and phases,
+    and tc_bwd_fp64 --k8 finds the step's k16 product once."""
     from vslnet_torch.bench import tc_bwd_fp64
 
     src = (kernels.CSRC / "lstm.cu").read_text()
     assert src.count(tc_bwd_fp64.K16_STEP) == 1
     stamped, names = lstm_plans.instrumented_bwd(src)
     assert names == [n for n, _ in lstm_plans.BWD_TC_PHASES]
+    assert stamped.count("pacc[") == len(names) + 2
+    stamped, names = lstm_plans.instrumented_fwd(src)
+    assert names == [n for n, _ in lstm_plans.FWD_TC_PHASES]
     assert stamped.count("pacc[") == len(names) + 2
     conv = (kernels.CSRC / "conv_block.cu").read_text()
     stamped, lines = conv_plans.instrumented_tiled(conv, "bwd_tc")

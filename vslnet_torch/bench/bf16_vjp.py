@@ -263,6 +263,113 @@ def fp64_verdict(case, r, f):
     return verdict(case, {**r, "kernel": {}})
 
 
+# --- the bf16 forwards (#1b lean, #7b with residuals) against fp64 ----------
+# The forwards' outputs are fp32, so they are read by their distance from
+# an fp64 evaluation of the same function (lstm_recurrence_plain at
+# state_dtype float64: bf16(h) for each product kept, every other value
+# float64): an output's mean absolute error over its mean magnitude at the
+# valid positions (mean_rel). The twin sums in cuBLAS's fp32 order and the
+# kernel in its mma tree, so each sits a few flips of bf16(h) from fp64 or,
+# on a draw without one, within 1e-6: one draw's ratio to the twin reads
+# 0.01-235. Over 64 draws at [T, 16, 512], T = 128 and 192, the kernel,
+# the fp32-FMA kernel it replaces and the twin each read at most 7.6e-5
+# (out) and 2.7e-5 (acts), h unrounded in the product 4.5e-4 and 1.6e-4,
+# the other planted faults 0.03 and more (PERF.md). A draw is held within
+# the twin's distance plus LSTM_FWD_FP64_SLACK; a tree against its parent
+# over draws to LSTM_FWD_FP64_RATIO on the mean (bench/tc_bwd_fp64.py
+# --against).
+LSTM_FWD_FP64_SLACK = 1e-4
+LSTM_FWD_FP64_RATIO = 1.25
+LSTM_FWD_OUTPUTS = ("out", "acts")
+# faults of the tensor-core forward (csrc/lstm.cu lstm_fwd_tc_kernel), built
+# from changed copies of its source, which the fp64 reading must refuse;
+# "h_unrounded" is the fp32 kernel on the same bf16 values (the product's
+# bf16 operands cannot hold an unrounded h)
+LSTM_FWD_FAULT_EDITS = {
+    # the last k16 step of each warp's product left out
+    "k16_step_skipped": [
+        ("      vsl::mma16(d[ks + j], a[ks + j], b[2 * j], b[2 * j + 1]);\n",
+         "      if (ks + j != KS - 1) vsl::mma16(d[ks + j], a[ks + j], b[2 * j], b[2 * j + 1]);\n")],
+    # gate o's A fragment taken from the next unit's k_h column
+    "neighbour_unit_fragment": [("    const int gate = m >> 2, unit = uw + (m & 3);\n",
+                                 "    const int gate = m >> 2, unit = uw + (m & 3) + (gate == 3);\n")],
+    # x_proj[t - 1] in step t's gates (step 0's as it is)
+    "x_proj_from_t_minus_1": [
+        ("      for (int g = 0; g < 4; ++g) nx[g] = ld_early(xp + next * G + g * H + unit);\n",
+         "      for (int g = 0; g < 4; ++g) nx[g] = ld_early(xp + (next - B) * G + g * H + unit);\n")],
+}
+LSTM_FWD_FAULTS = (*LSTM_FWD_FAULT_EDITS, "h_unrounded")
+LSTM_FWD_ENTRIES = ("lstm_recurrence_fwd_bf16", "lstm_recurrence_fwd_res_bf16")
+
+
+def lstm_fwd_inputs(dev, rng, T, B, H):
+    """x_proj [T, B, 4H] and k_h [H, 4H] in bf16, valid [T, B]: ragged
+    lengths, the first row full and the second of length 1."""
+    lens = np.concatenate([[T, 1], rng.integers(1, T + 1, B - 2)])[:B]
+    return (_t(dev, rng.standard_normal((T, B, 4 * H))).to(BF16),
+            _t(dev, rng.standard_normal((H, 4 * H)) / math.sqrt(H)).to(BF16),
+            _t(dev, np.arange(T)[:, None] < lens[None, :]))
+
+
+def lstm_fwd_outputs(args, residuals):
+    """The bf16 forward's outputs on args: [out] (#1b), or [out, acts]
+    (#7b's that the fp64 reading holds)."""
+    if residuals:
+        return list(K.launch_lstm_fwd_res(*args)[:2])
+    return [K.launch_lstm_fwd(*args)]
+
+
+def lstm_fwd_reading(outs, ref, valid):
+    """{output: mean_rel at the valid positions} of the forward's outputs
+    (out, and acts where given) against ref."""
+    keep = valid.bool()[..., None]
+    return {n: mean_rel(o, r, keep.expand(r.shape))
+            for n, o, r in zip(LSTM_FWD_OUTPUTS, outs, ref)}
+
+
+def lstm_fwd_fp64(args, outs, fp64_plain=None):
+    """The kernel's outputs `outs` (out, or out and acts) and the twin's
+    against fp64_plain(*args, state_dtype=torch.float64, residuals=True)
+    (this tree's lstm_recurrence_plain by default): {"kernel", "twin":
+    readings}."""
+    fp64_plain = fp64_plain or K.lstm_recurrence_plain
+    ref = fp64_plain(*args, state_dtype=torch.float64, residuals=True)
+    twin = K.lstm_recurrence_plain(*args, residuals=True)
+    n = len(outs)
+    return {"kernel": lstm_fwd_reading(outs, ref[:n], args[2]),
+            "twin": lstm_fwd_reading(twin[:n], ref[:n], args[2])}
+
+
+def lstm_fwd_fp64_verdict(f):
+    """(ok, reason): each output's distance from fp64 within the twin's
+    plus LSTM_FWD_FP64_SLACK."""
+    for n, k in f["kernel"].items():
+        t = f["twin"][n]
+        if not k <= t + LSTM_FWD_FP64_SLACK:
+            return False, "lstm forward bf16: %s %g from fp64, beyond the twin's %g plus " \
+                "%g" % (n, k, t, LSTM_FWD_FP64_SLACK)
+    return True, ""
+
+
+def lstm_fwd_fault_libraries():
+    """{fault: the kernel library with both bf16 forwards from a copy of
+    lstm.cu with LSTM_FWD_FAULT_EDITS[fault]}, the copies built at once."""
+    from vslnet_torch.bench.common import build_copies, edited_source, library_with
+
+    copies = build_copies({"fault_" + fault: edited_source("fault_" + fault, "lstm.cu", edits)
+                           for fault, edits in LSTM_FWD_FAULT_EDITS.items()})
+    return {fault: library_with(copies["fault_" + fault], LSTM_FWD_ENTRIES)
+            for fault in LSTM_FWD_FAULT_EDITS}
+
+
+def lstm_fwd_fault(args, fault, residuals, libs):
+    """The bf16 forward's outputs on args with LSTM_FWD_FAULTS[fault]
+    planted (libs: lstm_fwd_fault_libraries())."""
+    if fault == "h_unrounded":
+        return lstm_fwd_outputs((args[0].float(), args[1].float(), args[2]), residuals)
+    return _with_library(libs[fault], lambda: lstm_fwd_outputs(args, residuals))
+
+
 # --- faults planted in a kernel's activation gradient, which verdict must
 # refuse (the card tests and tests/test_torch_bf16_vjp.py) ------------------
 

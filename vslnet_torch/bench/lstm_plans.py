@@ -44,6 +44,19 @@ tensor-core kernel's phases (BWD_TC_PHASES) where lstm.cu has it, else
 the parent's fp32-FMA kernel's (BWD_PHASES), so that an older tree on
 PYTHONPATH, run by path (`PYTHONPATH=<parent> python3
 vslnet_torch/bench/lstm_plans.py --bwd`), gives its own.
+
+    python3 -m vslnet_torch.bench.lstm_plans --fwd
+
+The bf16 forwards (#1b lean, #7b with residuals) at B = 16, H = 128, T =
+128 and 192, each call's device time by kernel, CUDA events, its error
+against the twin and its cycles a step by phase from a stamped copy
+(thread 0 of CTA 0, the (unit 0, row 0) thread, swapped in for the
+wrapper's call): the tensor-core kernel's phases (FWD_TC_PHASES: wait,
+mma, gates, sends, stores) where lstm.cu has it, else an older tree's
+cluster kernel's (CLUSTER_PHASES), run by path as --bwd. Beside the
+shipped kernel, the same for two copies of it: layout (a), K split
+across the warps (SPLIT_K_FORM), and each k16 product as two m16n8k8
+mma (`k8_`, tc_bwd_fp64.fwd_k8_source).
 """
 import ctypes
 import json
@@ -53,52 +66,72 @@ import time
 
 import numpy as np
 
-from vslnet_torch.bench.common import build_copy, card, cuda_ms
+from vslnet_torch.bench.common import build_copy, card, cuda_ms, with_library
 from vslnet_torch.ops import kernels as K
 
-PHASES = ["wait", "dot", "butterfly+gates", "sends", "stores"]
+# the cluster forward's step phases (the fp32 kernel, and the bf16 one of a
+# tree before the tensor-core forward): stamps inserted before each anchor
+# of its step loop, the phase named the one the stamp ends
+CLUSTER_KERNEL = "lstm_fwd_cluster_kernel("
+CLUSTER_PHASES = [
+    ("wait", "    float nv = 0.f;\n    if (own && t + 1 < T) {"),
+    ("dot", "    for (int off = S >> 1; off > 0; off >>= 1)\n#pragma unroll\n"
+            "      for (int g = 0;"),
+    ("butterfly+gates", "      if (t + 1 < T) {"),
+    ("sends", "      const size_t o = (size_t)t * B + row;\n"),
+    ("stores", "    v = nv;\n  }\n"),
+]
+PHASES = [name for name, _ in CLUSTER_PHASES]
 # (n, bt, S, threads): lstm_plan's default at B=16, H=128 first
 PLANS = [(8, 2, 8, 128), (8, 4, 16, 256), (8, 4, 8, 128), (8, 1, 8, 128),
          (8, 2, 4, 64), (8, 2, 16, 256), (4, 4, 4, 128)]
+FWD_LOOP = "  uint32_t phase = 0;  // bit p: the parity of full[p]'s next phase\n\n  for (int t = 0;"
 
 
-def stamp(k, indent):
-    return (indent + "if (tid == 0 && blockIdx.x == 0) { unsigned long long "
-            "now = clock64(); if (%d > 0 || t > 0) pacc[%d] += now - plast; "
-            "plast = now; }\n" % (k, k))
+def stamped(src, head, phases, loop, step):
+    """(src, a csrc/lstm.cu source, with clock stamps in the step loop of the
+    kernel whose definition starts with `head`: before each phase's
+    anchor (thread 0 of CTA 0, the first step's wait skipped; the step
+    counter is `step`), and its ns between the loop's ends by
+    %globaltimer into g_prof[8], prof_read added, the entry points kept;
+    the phase names). Raises where an anchor is not found once in the
+    kernel."""
+    start = src.index(head)
+    end = src.index("\n}\n", start) + 3
+    body = src[start:end]
+
+    def insert(anchor, text, after=False):
+        nonlocal body
+        if body.count(anchor) != 1:
+            raise RuntimeError("anchor not found once in lstm.cu's %s: %r"
+                               % (head.split("(")[0], anchor))
+        body = body.replace(anchor, anchor + text if after else text + anchor)
+
+    for k, (_, anchor) in enumerate(phases):
+        insert(anchor, "    if (tid == 0 && blockIdx.x == 0) { unsigned long long now = "
+               "clock64(); if (%d > 0 || %s > 0) pacc[%d] += now - plast; plast = now; }\n"
+               % (k, step, k))
+    insert(loop, "  unsigned long long pacc[8] = {0, 0, 0, 0, 0, 0, 0, 0}, plast = 0, pt0 = 0;\n"
+           "  if (tid == 0 && blockIdx.x == 0) {\n"
+           "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pt0));\n"
+           "    plast = clock64();\n  }\n")
+    body = body[:-2] + ("  if (tid == 0 && blockIdx.x == 0) {\n    unsigned long long pt1;\n"
+                        "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pt1));\n"
+                        "    for (int k = 0; k < 8; ++k) g_prof[k] = pacc[k];\n"
+                        "    g_prof[8] = pt1 - pt0;\n  }\n}\n")
+    src = src[:start] + body + src[end:]
+    src = src.replace('#include "common.cuh"\n', '#include "common.cuh"\n'
+                      "__device__ unsigned long long g_prof[9];\n", 1)
+    return src + ('\nextern "C" int prof_read(unsigned long long* h) {\n'
+                  '  return (int)cudaMemcpyFromSymbol(h, g_prof, sizeof(g_prof));\n}\n'), \
+        [name for name, _ in phases]
 
 
 def instrumented(src):
-    """csrc/lstm.cu with clock stamps before lines of its forward kernel's
-    step loop (anchors long enough to miss the backward's like lines), and
-    its entry points renamed vsl_ -> prof_."""
-    def insert(anchor, text, after=False):
-        nonlocal src
-        if src.count(anchor) != 1:
-            raise RuntimeError("anchor not found once in lstm.cu: %r" % anchor)
-        src = src.replace(anchor, anchor + text if after else text + anchor)
-
-    insert('#include "common.cuh"\n', "__device__ unsigned long long g_prof[8];\n",
-           after=True)
-    insert("  uint32_t phase = 0;  // bit p: the parity of full[p]'s next phase\n\n"
-           "  for (int t = 0;", "  unsigned long long pacc[5] = {0, 0, 0, 0, 0}, "
-           "plast = 0, pt0 = 0, pt1 = 0;\n  if (tid == 0 && blockIdx.x == 0) {\n"
-           "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pt0));\n"
-           "    plast = clock64();\n  }\n")
-    insert("    decltype(ld_early(xp)) nx[4] = {0, 0, 0, 0};\n", stamp(0, "    "))
-    insert("    for (int off = S >> 1; off > 0; off >>= 1)\n#pragma unroll\n"
-           "      for (int g = 0;", stamp(1, "    "))
-    insert("      if (t + 1 < T) {", stamp(2, "      "))
-    insert("      const size_t o = (size_t)t * B + row;\n", stamp(3, "      "))
-    insert("#pragma unroll\n    for (int g = 0; g < 4; ++g) x[g] = widen(nx[g]);\n",
-           stamp(4, "    "))
-    insert("    v = nv;\n  }\n", "  if (tid == 0 && blockIdx.x == 0) {\n"
-           "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pt1));\n"
-           "    for (int k = 0; k < 5; ++k) g_prof[k] = pacc[k];\n"
-           "    g_prof[5] = pt1 - pt0;\n  }\n", after=True)
-    src = src.replace('extern "C" int vsl_', 'extern "C" int prof_')
-    return src + ('\nextern "C" int prof_read(unsigned long long* h) {\n'
-                  '  return (int)cudaMemcpyFromSymbol(h, g_prof, sizeof(g_prof));\n}\n')
+    """csrc/lstm.cu with clock stamps in the fp32 cluster forward's step loop
+    (stamped, CLUSTER_PHASES) and its entry points renamed vsl_ -> prof_."""
+    out, _ = stamped(src, CLUSTER_KERNEL, CLUSTER_PHASES, FWD_LOOP, "t")
+    return out.replace('extern "C" int vsl_', 'extern "C" int prof_')
 
 
 def build_instrumented():
@@ -108,6 +141,29 @@ def build_instrumented():
     lib.prof_read.argtypes = [ctypes.c_void_p]
     lib.prof_read.restype = ctypes.c_int
     return lib
+
+
+# the bf16 forwards' step phases on the tensor cores (lstm_fwd_tc_kernel)
+FWD_TC_KERNEL = "lstm_fwd_tc_kernel(const __nv_bfloat16* __restrict__ xp"
+FWD_TC_PHASES = [
+    ("wait", "    unsigned short nx[4] = {0, 0, 0, 0};\n"),
+    ("mma", "    float ig = 0.f, gg = 0.f, f = 0.f, og = 0.f,"),
+    ("gates", "    if (t + 1 < T) {  // the warp's pieces of h_(t+1)"),
+    ("sends", "    if (own) {  // the step's outputs, off the chain\n"),
+    ("stores", "    v = nv;\n  }\n"),
+]
+
+
+def fwd_phases(src):
+    """(kernel head, phases) of the bf16 forward in lstm.cu's source: the
+    tensor-core kernel's, or an older tree's cluster kernel's."""
+    return (FWD_TC_KERNEL, FWD_TC_PHASES) if FWD_TC_KERNEL in src else \
+        (CLUSTER_KERNEL, CLUSTER_PHASES)
+
+
+def instrumented_fwd(src):
+    """stamped() of the bf16 forward's kernel (fwd_phases)."""
+    return stamped(src, *fwd_phases(src), FWD_LOOP, "t")
 
 
 # the bf16 backward's step phases: stamps inserted before each anchor of
@@ -145,41 +201,168 @@ def bwd_phases(src):
 
 
 def instrumented_bwd(src):
-    """(csrc/lstm.cu with clock stamps in the step loop of the bf16
-    backward's kernel, before each phase's anchor (thread 0 of CTA 0, the
-    first step's wait skipped) and its ns between the loop's ends by
-    %globaltimer into g_prof[8], its entry points kept; the phase names).
-    Raises where an anchor is not found once in the kernel."""
-    head, phases = bwd_phases(src)
-    start = src.index(head)
-    end = src.index("\n}\n", start) + 3
-    body = src[start:end]
+    """stamped() of the bf16 backward's kernel (bwd_phases)."""
+    return stamped(src, *bwd_phases(src), BWD_LOOP, "s")
 
-    def insert(anchor, text, after=False):
-        nonlocal body
-        if body.count(anchor) != 1:
-            raise RuntimeError("anchor not found once in lstm.cu's %s: %r"
-                               % (head.split("(")[0], anchor))
-        body = body.replace(anchor, anchor + text if after else text + anchor)
 
-    for k, (_, anchor) in enumerate(phases):
-        insert(anchor, "    if (tid == 0 && blockIdx.x == 0) { unsigned long long now = "
-               "clock64(); if (%d > 0 || s > 0) pacc[%d] += now - plast; plast = now; }\n"
-               % (k, k))
-    insert(BWD_LOOP, "  unsigned long long pacc[8] = {0, 0, 0, 0, 0, 0, 0, 0}, plast = 0, pt0 = 0;\n"
-           "  if (tid == 0 && blockIdx.x == 0) {\n"
-           "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pt0));\n"
-           "    plast = clock64();\n  }\n")
-    body = body[:-2] + ("  if (tid == 0 && blockIdx.x == 0) {\n    unsigned long long pt1;\n"
-                        "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pt1));\n"
-                        "    for (int k = 0; k < 8; ++k) g_prof[k] = pacc[k];\n"
-                        "    g_prof[8] = pt1 - pt0;\n  }\n}\n")
-    src = src[:start] + body + src[end:]
-    src = src.replace('#include "common.cuh"\n', '#include "common.cuh"\n'
-                      "__device__ unsigned long long g_prof[9];\n", 1)
-    return src + ('\nextern "C" int prof_read(unsigned long long* h) {\n'
-                  '  return (int)cudaMemcpyFromSymbol(h, g_prof, sizeof(g_prof));\n}\n'), \
-        [name for name, _ in phases]
+# layout (a) of the tensor-core forward, which the bench times beside the
+# shipped layout (b) (PERF.md): K split across the warps as in the
+# backward, each warp holding every m16 tile of the CTA's 4U gate rows
+# (row gate U + unit) over its KS / W k16 steps, the warps' partials
+# through shared memory and a block barrier, then the thread of (unit,
+# column) adds them in warp order. Built for the main path's U = 16 (W =
+# 4 warps) only, in place of fwd_tc_fragments and fwd_tc_gates.
+SPLIT_K_FORM = r"""// The split-K form (bench copy): warp w holds every m16 tile of the 4U
+// gate rows over k16 steps [w KS / W, (w + 1) KS / W).
+constexpr int kSplitWarps = 4;
+template <int KS>
+__device__ __forceinline__ void fwd_tc_fragments(uint32_t (&a)[KS][4],
+                                                 const __nv_bfloat16* __restrict__ kh, int H,
+                                                 int uw) {
+  constexpr int W = kSplitWarps, KSW = KS / W, U = 4 * W;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, G = 4 * H;
+  const int warp = threadIdx.x >> 5, u0 = uw - kTcFwdWarpUnits * warp;
+  const auto pair = [&](int m, int k) {
+    const int gate = m / U, unit = u0 + m % U;
+    uint32_t out = 0;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (unit < H && k + e < H)
+        out |= static_cast<uint32_t>(__bfloat16_as_ushort(kh[(size_t)(k + e) * G + gate * H + unit]))
+               << (16 * e);
+    return out;
+  };
+#pragma unroll
+  for (int i = 0; i < KS; ++i) {
+    const int mt = i / KSW, k0 = 16 * (warp * KSW + i % KSW) + 2 * tq, m = 16 * mt + g;
+    a[i][0] = pair(m, k0);
+    a[i][1] = pair(m + 8, k0);
+    a[i][2] = pair(m, k0 + 8);
+    a[i][3] = pair(m + 8, k0 + 8);
+  }
+}
+
+template <int KS>
+__device__ __forceinline__ void fwd_tc_gates(float (&gate)[4], const uint32_t (&a)[KS][4],
+                                             const __nv_bfloat16* hc) {
+  constexpr int KST = TcFwdLayout<KS>::KST, W = kSplitWarps, KSW = KS / W, U = 4 * W;
+  __shared__ float part[W][4 * U][8];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, tq = lane & 3;
+  float d[KS][4];
+#pragma unroll
+  for (int i = 0; i < KS; ++i) {
+    uint32_t b[2];
+    vsl::ldsm_x2(b, hc + (lane & 7) * KST + 16 * (warp * KSW + i % KSW) + ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[i][e] = 0.f;
+    vsl::mma16(d[i], a[i], b[0], b[1]);
+  }
+#pragma unroll
+  for (int mt = 0; mt < W; ++mt) {
+#pragma unroll
+    for (int w = 1; w < KSW; w *= 2)
+#pragma unroll
+      for (int kk = 0; kk + w < KSW; kk += 2 * w)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[mt * KSW + kk][e] += d[mt * KSW + kk + w][e];
+    float* pw = &part[warp][16 * mt + g][2 * tq];
+    pw[0] = d[mt * KSW][0];
+    pw[1] = d[mt * KSW][1];
+    pw[64] = d[mt * KSW][2];
+    pw[65] = d[mt * KSW][3];
+  }
+  __syncthreads();
+  const int ul = kTcFwdWarpUnits * warp + ((lane >> 2) & 3), col = 2 * tq + (lane >> 4);
+#pragma unroll
+  for (int gi = 0; gi < 4; ++gi) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) sum += part[w][gi * U + ul][col];
+    gate[gi] = sum;
+  }
+}
+
+"""
+SPLIT_K_START = "// The A fragments of a warp's tile"
+SPLIT_K_END = "template <bool kResiduals, int KS>\n__global__ void __launch_bounds__(256)\nlstm_fwd_tc_kernel"
+
+
+def split_k_source(src):
+    """lstm.cu with layout (a), SPLIT_K_FORM, in place of the shipped
+    fragments and product."""
+    start, end = src.index(SPLIT_K_START), src.index(SPLIT_K_END)
+    return src[:start] + SPLIT_K_FORM + src[end:]
+
+
+def fwd_main(smi, dev):
+    """The --fwd rows (module docstring)."""
+    import torch
+
+    from vslnet_torch.bench.common import build_copies, by_kernel, library_with
+
+    src = (K.CSRC / "lstm.cu").read_text()
+    copies = {"": instrumented_fwd(src)[0]}
+    names = instrumented_fwd(src)[1]
+    if FWD_TC_KERNEL in src:  # the layouts timed beside the shipped one
+        from vslnet_torch.bench.tc_bwd_fp64 import fwd_k8_source
+
+        copies["split_k_"] = instrumented_fwd(split_k_source(src))[0]
+        copies["k8_"] = instrumented_fwd(fwd_k8_source(src))[0]
+    built = build_copies({"lstm_fwd_prof_" + key.strip("_"): s.replace(
+        'extern "C" int vsl_', 'extern "C" int fault_') for key, s in copies.items()})
+    libs = {}  # key: (the library with the copy's two forwards, the copy)
+    for key in copies:
+        copy = built["lstm_fwd_prof_" + key.strip("_")]
+        copy.prof_read.argtypes = [ctypes.c_void_p]
+        copy.prof_read.restype = ctypes.c_int
+        libs[key] = library_with(copy, ("lstm_recurrence_fwd_bf16",
+                                        "lstm_recurrence_fwd_res_bf16")), copy
+    bf = torch.bfloat16
+    rng = np.random.default_rng(0)
+    B, H = 16, 128
+    k_h = torch.from_numpy((rng.standard_normal((H, 4 * H)) / math.sqrt(H))
+                           .astype(np.float32)).to(dev).to(bf)
+    plan = getattr(K, "lstm_fwd_bf16_plan", K.lstm_plan)(B, H)
+    for T in (128, 192):
+        lens = np.concatenate([[T, 1], rng.integers(1, T + 1, B - 2)])
+        x_proj = torch.from_numpy(rng.standard_normal((T, B, 4 * H)).astype(
+            np.float32)).to(dev).to(bf)
+        valid = torch.from_numpy((np.arange(T)[:, None] < lens[None, :])
+                                 .astype(np.float32)).to(dev)
+        ref = K.lstm_recurrence_plain(x_proj, k_h, valid)
+        for name, call in (
+                ("lstm_recurrence_fwd_bf16", lambda: [K.launch_lstm_fwd(x_proj, k_h, valid)]),
+                ("lstm_recurrence_fwd_res_bf16",
+                 lambda: list(K.launch_lstm_fwd_res(x_proj, k_h, valid)))):
+            parts = by_kernel(call)
+            want = [t.clone() for t in call()]
+            row = {"bench": "lstm_plans", "card": smi, "kernel": name,
+                   "shape": [T, B, 4 * H], "plan": plan._asdict(),
+                   "device_ms": sum(parts.values()), "by_kernel": parts,
+                   "ms": cuda_ms(call),
+                   "max_abs_err": float((want[0] - ref).abs().max())}
+            for key, (lib, copy) in libs.items():
+                if key:  # another layout: its error, events and device time
+                    got = with_library(lib, lambda: [t.clone() for t in call()])
+                    row[key + "max_abs_err"] = float((got[0] - ref).abs().max())
+                    row[key + "ms"] = with_library(lib, lambda: cuda_ms(call))
+                    row[key + "device_ms"] = sum(with_library(
+                        lib, lambda: by_kernel(call)).values())
+                else:
+                    got = with_library(lib, call)
+                    row["stamped_equal_bits"] = all(
+                        torch.equal(a, b) for a, b in zip(want, got))
+                with_library(lib, lambda: [call() for _ in range(3)])
+                torch.cuda.synchronize()
+                stamps = (ctypes.c_ulonglong * 9)()
+                if copy.prof_read(stamps):
+                    raise RuntimeError("reading the stamps failed")
+                row[key + "cycles_per_step"] = {
+                    n: stamps[k] / (T - 1 if k == 0 else T) for k, n in enumerate(names)}
+                row[key + "prof_ns_per_step"] = stamps[8] / T
+                row[key + "sm_ghz"] = sum(stamps[k] for k in range(len(names))) / stamps[8]
+            print(json.dumps(row), flush=True)
+    return 0
 
 
 def bwd_main(smi, dev):
@@ -297,6 +480,8 @@ def main(argv=()):
         return bf16_main(card(), torch.device("cuda"))
     if "--bwd" in argv:
         return bwd_main(card(), torch.device("cuda"))
+    if "--fwd" in argv:
+        return fwd_main(card(), torch.device("cuda"))
     prof = build_instrumented()
     smi = card()
     rng = np.random.default_rng(0)
@@ -344,13 +529,13 @@ def main(argv=()):
             if code:
                 raise RuntimeError("instrumented launch failed: %d" % code)
         torch.cuda.synchronize()
-        stamps = (ctypes.c_ulonglong * 8)()
+        stamps = (ctypes.c_ulonglong * 9)()
         if prof.prof_read(stamps):
             raise RuntimeError("reading the stamps failed")
         row["T128_cycles_per_step"] = {name: stamps[k] / (T - 1 if k == 0 else T)
                                        for k, name in enumerate(PHASES)}
-        row["T128_prof_ns_per_step"] = stamps[5] / T
-        row["sm_ghz"] = sum(stamps[k] for k in range(5)) / stamps[5]
+        row["T128_prof_ns_per_step"] = stamps[8] / T
+        row["sm_ghz"] = sum(stamps[k] for k in range(len(PHASES))) / stamps[8]
         print(json.dumps(row), flush=True)
     # the wrapper's host time a call, its one-time launch set-up done
     x_proj, valid, _ = cases[128]

@@ -49,6 +49,28 @@ Only the wide backwards' small cases (WIDE_SEEDED: #9c wide at [32, 24,
 100-107), each row with its seed: a bf16 output's share of differing
 values counts a few hundred flips there, so that one draw's ratio to a
 parent's can stray by a quarter.
+
+    python3 -m vslnet_torch.bench.tc_bwd_fp64 --fwd [--seeds 16] [--faults]
+    PYTHONPATH=<parent> python3 vslnet_torch/bench/tc_bwd_fp64.py --fwd > parent.jsonl
+    python3 -m vslnet_torch.bench.tc_bwd_fp64 --fwd --against parent.jsonl
+
+Only the bf16 forwards, #1b's out and #7b's out and acts at [T, 16, 512],
+T = 128 and path M's 192, over 16 draws (seeds 100-115; --seeds sets the
+count; --k8 adds the readings of a copy whose k16 products are two
+m16n8k8 mma each, `kernel_k8`): each output's distance from an fp64
+evaluation of the bf16-rounded function (bench/bf16_vjp.py lstm_fwd_fp64:
+mean error over mean magnitude at the valid positions, this file's
+tree's twin at float64), the kernel's and the twin's, with bf16_vjp's
+verdict (the kernel within the twin's distance plus
+LSTM_FWD_FP64_SLACK). --faults adds, on the
+first draw, each of bf16_vjp's planted faults of the tensor-core forward
+(LSTM_FWD_FAULTS) with its reading and whether the verdict refused it.
+--against reads a parent's rows (the same command on the parent tree) and
+prints, for each kernel, T and output, the change's distance over the
+parent's on each draw (range, geometric mean, draws within the ratio) and
+the ratio of their means over the draws, held to 1.25 (ROADMAP C7's rule,
+read on the means: a draw without a flip puts a tree within 1e-6 of fp64,
+so one draw's ratio can read 0.05 or 40).
 """
 import ctypes
 import importlib.util
@@ -61,14 +83,96 @@ import numpy as np
 LONG = {"lstm": [(192, 16, 128)], "conv_tiled": [(16, 192, 128), (8, 1024, 128)]}
 
 
-def fp64_twins():
-    """This tree's ops/kernels.py, loaded on its own: its twins take
-    work=float64 (an older tree's may not)."""
-    path = Path(__file__).resolve().parents[1] / "ops" / "kernels.py"
-    spec = importlib.util.spec_from_file_location("tc_bwd_fp64_kernels", path)
+def _own(relpath, name):
+    """This tree's module at vslnet_torch/<relpath>, loaded on its own,
+    whatever tree on PYTHONPATH its imports come from."""
+    path = Path(__file__).resolve().parents[1] / relpath
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def fp64_twins():
+    """This tree's ops/kernels.py, loaded on its own: its twins take
+    work=float64 (an older tree's may not)."""
+    return _own("ops/kernels.py", "tc_bwd_fp64_kernels")
+
+
+def fwd_rows(V, twins, dev, seeds):
+    """(seed, T, entry name, residuals, args, the kernel's fp64 readings)
+    of each --fwd draw: seeds 100 on, T = 128 and 192, #1b and #7b."""
+    for seed in range(100, 100 + seeds):
+        for T in (128, 192):
+            args = V.lstm_fwd_inputs(dev, np.random.default_rng(seed), T, 16, 128)
+            for name, residuals in (("lstm_recurrence_fwd_bf16", False),
+                                    ("lstm_recurrence_fwd_res_bf16", True)):
+                f = V.lstm_fwd_fp64(args, V.lstm_fwd_outputs(args, residuals),
+                                    twins.lstm_recurrence_plain)
+                yield seed, T, name, residuals, args, f
+
+
+def fwd_main(argv, smi, dev):
+    """The --fwd rows (module docstring). The readings come from this
+    tree's bench/bf16_vjp.py, loaded on its own, so that a parent's
+    kernels are read as this tree's are."""
+    import torch
+
+    from vslnet_torch.bench.common import build_copy, library_with, with_library
+
+    V = _own("bench/bf16_vjp.py", "tc_fwd_bf16_vjp")
+    twins = fp64_twins()
+    seeds = int(argv[argv.index("--seeds") + 1]) if "--seeds" in argv else 16
+    if "--against" in argv:
+        return against(argv[argv.index("--against") + 1], fwd_rows(V, twins, dev, seeds),
+                       V.LSTM_FWD_FP64_RATIO)
+    libs = V.lstm_fwd_fault_libraries() if "--faults" in argv else None
+    k8 = None
+    if "--k8" in argv:
+        k8 = library_with(build_copy("lstm_fwd_k8", fwd_k8_source(
+            (V.K.CSRC / "lstm.cu").read_text()).replace('extern "C" int vsl_', 'extern "C" int fault_')),
+            V.LSTM_FWD_ENTRIES)
+    for seed, T, name, residuals, args, f in fwd_rows(V, twins, dev, seeds):
+        ok, why = V.lstm_fwd_fp64_verdict(f)
+        row = {"bench": "tc_bwd_fp64", "card": smi, "kernel": name, "shape": [T, 16, 512],
+               "seed": seed, "fp64": f, "verdict": ok, "why": why}
+        if k8 is not None:
+            got = with_library(k8, lambda: V.lstm_fwd_outputs(args, residuals))
+            row["kernel_k8"] = V.lstm_fwd_fp64(args, got, twins.lstm_recurrence_plain)["kernel"]
+        if libs is not None and seed == 100:
+            row["faults"] = {}
+            for fault in V.LSTM_FWD_FAULTS:
+                ff = V.lstm_fwd_fp64(args, V.lstm_fwd_fault(args, fault, residuals, libs),
+                                     twins.lstm_recurrence_plain)
+                row["faults"][fault] = {"kernel": ff["kernel"],
+                                        "refused": not V.lstm_fwd_fp64_verdict(ff)[0]}
+        print(json.dumps(row), flush=True)
+        torch.cuda.synchronize()
+    return 0
+
+
+def against(path, rows, ratio):
+    """The --against summary of this tree's fwd_rows over a parent's from
+    `path` (JSON lines of --fwd): exit 1 where no draw matches."""
+    parent = {}
+    for line in Path(path).read_text().splitlines():
+        row = json.loads(line) if line.startswith("{") else {}
+        if row.get("bench") == "tc_bwd_fp64" and "fp64" in row:
+            parent[row["kernel"], row["shape"][0], row["seed"]] = row["fp64"]["kernel"]
+    dists = {}  # (kernel, T, output): [(change, parent)] over the draws
+    for seed, T, name, _, _, f in rows:
+        for n, k in f["kernel"].items():
+            if (name, T, seed) in parent:
+                dists.setdefault((name, T, n), []).append((k, parent[name, T, seed][n]))
+    for (name, T, n), ds in sorted(dists.items()):
+        rs = [k / p for k, p in ds]
+        mean_ratio = float(np.mean([k for k, _ in ds]) / np.mean([p for _, p in ds]))
+        print(json.dumps({"bench": "tc_bwd_fp64", "against": path, "kernel": name,
+                          "T": T, "output": n, "draws": len(rs), "min": min(rs),
+                          "max": max(rs), "geometric_mean": float(np.exp(np.mean(np.log(rs)))),
+                          "mean_ratio": mean_ratio, "within": sum(r <= ratio for r in rs),
+                          "rule_met": mean_ratio <= ratio}), flush=True)
+    return 0 if dists else 1
 
 
 K16_STEP = "          vsl::mma16(c[ks][mt], a[mt][ks], b[0], b[1]);\n"
@@ -100,6 +204,23 @@ def k8_library():
                 return fn
             return getattr(main, name)
     return Lib()
+
+
+# the bf16 forward's k16 product (csrc/lstm.cu fwd_tc_gates) as two
+# m16n8k8 mma added in fp32 (8 products summed inside the tensor core, not
+# 16): a copy --fwd --k8 reads and lstm_plans --fwd times
+FWD_K16_STEP = "      vsl::mma16(d[ks + j], a[ks + j], b[2 * j], b[2 * j + 1]);\n"
+FWD_K8_STEP = ("      {\n        float h8[4] = {0.f, 0.f, 0.f, 0.f};\n"
+               "        vsl::mma8(d[ks + j], a[ks + j][0], a[ks + j][1], b[2 * j]);\n"
+               "        vsl::mma8(h8, a[ks + j][2], a[ks + j][3], b[2 * j + 1]);\n"
+               "        for (int e = 0; e < 4; ++e) d[ks + j][e] += h8[e];\n      }\n")
+
+
+def fwd_k8_source(src):
+    """lstm.cu with the bf16 forward's k16 products as FWD_K8_STEP."""
+    if src.count(FWD_K16_STEP) != 1:
+        raise RuntimeError("the forward's k16 step is not found once in lstm.cu")
+    return src.replace(FWD_K16_STEP, FWD_K8_STEP)
 
 
 WIDE = ("conv_wide", "mha_wide")
@@ -158,6 +279,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     smi = card()
+    if "--fwd" in sys.argv[1:]:
+        return fwd_main(sys.argv[1:], smi, dev)
     twins = fp64_twins()
     fp64 = {"lstm": twins.lstm_recurrence_bwd_plain, "conv_tiled": twins.conv_block_bwd_plain,
             "conv_wide": twins.conv_block_bwd_plain, "mha_wide": twins.mha_block_bwd_plain}

@@ -82,19 +82,17 @@
 // kernel at bf16 takes x_proj and k_h in bf16 and forms gates = f32(x_proj)
 // + dot(bf16(h), k_h) with fp32 accumulation; the gate math, c and the
 // carried h stay fp32 and the output is fp32 (pallas_kernels.py:250-269).
-// The same kernel, templated on the storage type: k_h widened into the
-// same fp32 shared-memory layout, x_proj widened as it is loaded, and the
-// h each CTA sends round the cluster rounded to bf16 (exact in fp32, so
-// the dot is unchanged), while the thread that owns a (row, unit) carries
-// its fp32 h in a register for the padding steps, the h_prev it writes
-// with residuals. Its bytes are half the fp32 kernel's x_proj; the chain
-// of steps bounds it all the same. The backward at bf16 (_lstm_bwd_kernel
-// and _fused_lstm_bwd, pallas_kernels.py:316-375, 550-557) keeps the gate
-// backward, dh and dc fp32 and rounds each step's dgates once, where they
-// leave the thread: the dh product of the step before reads them rounded
-// (dh += bf16(dgates) . k_h^T), dx_proj is written as those bf16 values
-// (the TPU's dxp.astype(bf16)), and dk_h = sum bf16(h_prev)^T . dgates is
-// a split-K product with h_prev rounded as it loads, rounded to bf16 once
+// That dot is mma.sync with bf16 operands and fp32 sums, so both bf16
+// forwards run on the tensor cores, in a kernel of their own on the
+// cluster design above (lstm_fwd_tc_kernel, at the end): k_h as mma A
+// fragments in registers, bf16(h) exchanged in 8-byte pieces. The
+// backward at bf16 (_lstm_bwd_kernel and _fused_lstm_bwd,
+// pallas_kernels.py:316-375, 550-557) keeps the gate backward, dh and dc
+// fp32 and rounds each step's dgates once, where they leave the thread:
+// the dh product of the step before reads them rounded (dh +=
+// bf16(dgates) . k_h^T), dx_proj is written as those bf16 values (the
+// TPU's dxp.astype(bf16)), and dk_h = sum bf16(h_prev)^T . dgates is a
+// split-K product with h_prev rounded as it loads, rounded to bf16 once
 // summed. Both products are mma.sync with bf16 operands and fp32 sums, in
 // a kernel of its own (lstm_bwd_tc_kernel, further down).
 #include <cooperative_groups.h>
@@ -181,7 +179,6 @@ __device__ __forceinline__ unsigned short ld_early(const __nv_bfloat16* p) {
   asm volatile("ld.global.nc.u16 %0, [%1];\n" : "=h"(v) : "l"(p));
   return v;
 }
-__device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(unsigned short v) {
   return __uint_as_float(static_cast<uint32_t>(v) << 16);  // bf16 -> fp32 is exact
 }
@@ -193,11 +190,9 @@ __device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
                : "memory");
 }
 
-// XT: the storage type of x_proj and k_h (float, or __nv_bfloat16 for the
-// bf16 lean forward).
-template <bool kResiduals, int kBt, typename XT = float>
+template <bool kResiduals, int kBt>
 __global__ void __launch_bounds__(512)
-lstm_fwd_cluster_kernel(const XT* __restrict__ xp, const XT* __restrict__ kh,
+lstm_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ kh,
                         const float* __restrict__ valid, float* __restrict__ out,
                         float* __restrict__ acts, float* __restrict__ th,
                         float* __restrict__ c_prev, float* __restrict__ h_prev, int T, int B,
@@ -222,7 +217,7 @@ lstm_fwd_cluster_kernel(const XT* __restrict__ xp, const XT* __restrict__ kh,
   for (int i = tid; i < C4 * KS; i += nt) {
     const int k = i / C4, lc = i - k * C4;
     const int g = lc / U, u = u0 + lc - g * U;
-    khf[(size_t)lc * KS + k] = (k < H && u < H) ? vsl::to_float(kh[(size_t)k * G + g * H + u]) : 0.f;
+    khf[(size_t)lc * KS + k] = (k < H && u < H) ? kh[(size_t)k * G + g * H + u] : 0.f;
   }
   for (int i = tid; i < 2 * kBt * Hp; i += nt) hbuf[i] = 0.f;
   if (tid == 0) {
@@ -243,11 +238,10 @@ lstm_fwd_cluster_kernel(const XT* __restrict__ xp, const XT* __restrict__ kh,
   const int unit = u0 + lu, row = row0 + ls;
   const bool column = lu < U;
   const bool own = column && unit < H && ls < kBt && row < B;
-  constexpr bool kBf16 = !std::is_same<XT, float>::value;
-  float c = 0.f, hreg = 0.f, x[4] = {0.f, 0.f, 0.f, 0.f}, v = 0.f;
+  float c = 0.f, x[4] = {0.f, 0.f, 0.f, 0.f}, v = 0.f;
   if (own && T > 0) {
 #pragma unroll
-    for (int g = 0; g < 4; ++g) x[g] = vsl::to_float(xp[(size_t)row * G + g * H + unit]);
+    for (int g = 0; g < 4; ++g) x[g] = xp[(size_t)row * G + g * H + unit];
     v = valid[row];
   }
   const float4* wcol = khs + (size_t)lu * L.KS4;
@@ -263,7 +257,7 @@ lstm_fwd_cluster_kernel(const XT* __restrict__ xp, const XT* __restrict__ kh,
       phase ^= 1u << p;
       if (tid == 0) mbar_expect(smem_u32(full + p), h_bytes);  // for h_(t+2)
     }
-    decltype(ld_early(xp)) nx[4] = {0, 0, 0, 0};
+    float nx[4] = {0.f, 0.f, 0.f, 0.f};
     float nv = 0.f;
     if (own && t + 1 < T) {  // off the chain: the next step's inputs
       const size_t o = (size_t)(t + 1) * B + row;
@@ -320,16 +314,13 @@ lstm_fwd_cluster_kernel(const XT* __restrict__ xp, const XT* __restrict__ kh,
       const float cn = cp * f + ig * gg;
       const float tc = tanhf(cn);
       c = v * cn + (1.f - v) * cp;
-      // bf16: the buffers hold h rounded for the product, the carried h is hreg
-      const float hp = kBf16 ? hreg : hc[ls * Hp + unit];
+      const float hp = hc[ls * Hp + unit];
       const float ho = v * (tc * og);
-      if (kBf16) hreg = ho + (1.f - v) * hp;
       if (t + 1 < T) {  // h_(t+1) into every CTA of the cluster
         const float hnew = ho + (1.f - v) * hp;
-        const float hs = kBf16 ? vsl::bf16_round(hnew) : hnew;
         const uint32_t dst = smem_u32(hn + ls * Hp + unit);
         const uint32_t bar = smem_u32(full + (p ^ 1));
-        for (int r = 0; r < N; ++r) st_async(cluster_u32(dst, r), hs, cluster_u32(bar, r));
+        for (int r = 0; r < N; ++r) st_async(cluster_u32(dst, r), hnew, cluster_u32(bar, r));
       }
       const size_t o = (size_t)t * B + row;
       out[o * H + unit] = ho;
@@ -344,7 +335,7 @@ lstm_fwd_cluster_kernel(const XT* __restrict__ xp, const XT* __restrict__ kh,
       }
     }
 #pragma unroll
-    for (int g = 0; g < 4; ++g) x[g] = widen(nx[g]);
+    for (int g = 0; g < 4; ++g) x[g] = nx[g];
     v = nv;
   }
 }
@@ -521,13 +512,13 @@ int by_rows(int B, int H, int N, int Bt, int S, int threads, F launch) {
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <bool kResiduals, typename XT = float>
-int launch_fwd_plan(const XT* xp, const XT* kh, const float* valid, float* out, float* acts,
+template <bool kResiduals>
+int launch_fwd_plan(const float* xp, const float* kh, const float* valid, float* out, float* acts,
                     float* th, float* c_prev, float* h_prev, int T, int B, int H, int N, int Bt,
                     int S, int threads, void* stream) {
   return by_rows(B, H, N, Bt, S, threads, [&](auto rows) {
     constexpr int kBt = decltype(rows)::value;
-    return vsl::launch_cluster(lstm_fwd_cluster_kernel<kResiduals, kBt, XT>, (B + kBt - 1) / kBt * N,
+    return vsl::launch_cluster(lstm_fwd_cluster_kernel<kResiduals, kBt>, (B + kBt - 1) / kBt * N,
                                N, threads, FwdLayout(H, N).smem_bytes(kBt),
                                static_cast<cudaStream_t>(stream), xp, kh, valid, out, acts, th,
                                c_prev, h_prev, T, B, H, S);
@@ -544,35 +535,12 @@ extern "C" int vsl_lstm_recurrence_fwd(const float* xp, const float* kh, const f
                                 N, Bt, S, threads, stream);
 }
 
-// The bf16 lean forward: x_proj [T, B, 4H] and k_h [H, 4H] in bf16, valid
-// and the output fp32, on the same plan.
-extern "C" int vsl_lstm_recurrence_fwd_bf16(const void* xp, const void* kh, const float* valid,
-                                            float* out, int T, int B, int H, int N, int Bt, int S,
-                                            int threads, void* stream) {
-  return launch_fwd_plan<false>(static_cast<const __nv_bfloat16*>(xp),
-                                static_cast<const __nv_bfloat16*>(kh), valid, out, nullptr,
-                                nullptr, nullptr, nullptr, T, B, H, N, Bt, S, threads, stream);
-}
-
 extern "C" int vsl_lstm_recurrence_fwd_res(const float* xp, const float* kh, const float* valid,
                                            float* out, float* acts, float* th, float* c_prev,
                                            float* h_prev, int T, int B, int H, int N, int Bt,
                                            int S, int threads, void* stream) {
   return launch_fwd_plan<true>(xp, kh, valid, out, acts, th, c_prev, h_prev, T, B, H, N, Bt, S,
                                threads, stream);
-}
-
-// The bf16 forward with residuals (#7 at bf16): x_proj and k_h in bf16, the
-// five outputs fp32, as the TPU kernel writes them (h_prev is the carried
-// fp32 h, which the backward rounds for dk_h).
-extern "C" int vsl_lstm_recurrence_fwd_res_bf16(const void* xp, const void* kh,
-                                                const float* valid, float* out, float* acts,
-                                                float* th, float* c_prev, float* h_prev, int T,
-                                                int B, int H, int N, int Bt, int S, int threads,
-                                                void* stream) {
-  return launch_fwd_plan<true>(static_cast<const __nv_bfloat16*>(xp),
-                               static_cast<const __nv_bfloat16*>(kh), valid, out, acts, th,
-                               c_prev, h_prev, T, B, H, N, Bt, S, threads, stream);
 }
 
 // The reverse recurrence on the same plan, then dkh = sum over the T*B rows
@@ -863,4 +831,337 @@ extern "C" int vsl_lstm_recurrence_bwd_bf16(const float* dy, const float* acts, 
                     splits, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(vsl::narrow_bf16(dkh32, static_cast<bf16*>(dkh_), H * 4 * H, stream));
+}
+
+namespace {
+
+// --- the bf16 forwards on the tensor cores (#1 and #7 at bf16) ---------------
+// A kernel of its own on ops/kernels.py lstm_fwd_bf16_plan: clusters of N
+// CTAs and Bt rows, as the fp32 forward, CTA r owning the units [r U, r U +
+// U), all four gates of each, with U a multiple of 8 (the backward's
+// units). U / kTcFwdWarpUnits warps a CTA.
+// - Warp w's mma tile holds the four gates of its 4 units: row m of the
+//   tile is gate m / 4 of unit r U + 4 w + m % 4. Before step 0 it takes
+//   those k_h columns as bf16 mma A fragments [16, 16 KS] (k = h's unit, 0
+//   past H) and keeps them in registers for the whole launch (32
+//   registers a thread at H = 128).
+// - bf16(h) of the cluster's rows sits in shared memory as bf16 rows
+//   [8][KST] (rows past Bt and units past H stay 0), double-buffered by
+//   step parity; the B fragments load by ldmatrix.
+// - A step: gates^T [16, 8] = k_h_own^T . bf16(h)^T, each of the warp's KS
+//   k16 steps one independent mma, the products added by fp32 adds in a
+//   fixed tree ((0 + 1) + (2 + 3)) + ..., then x_proj[t] (equal calls give
+//   equal bits). Lane l holds rows g and g + 8 of columns 2 tq and 2 tq + 1:
+//   below lane 16 gates i and f, from lane 16 on gates j and o, of unit g %
+//   4. Lanes l and l ^ 16 swap by two shuffles the two values the other
+//   needs, and each does the gate math of one (unit, row), column 2 tq + l /
+//   16, with the fp32 kernel's expressions, keeping c and the carried fp32
+//   h in registers: no partials in shared memory.
+// - The exchange: two shuffles gather the warp's 4 units of bf16(h_(t+1))
+//   of a row into 8 bytes, and the warp's lanes send them, one 8-byte
+//   st.async each, into the next buffer of every CTA of the cluster, its
+//   own included, whose mbarrier counts the bytes: no block barrier in the
+//   step (a CTA's 16-byte chunks of 8 units need one between two warps:
+//   PERF.md has both timed).
+// - No barrier guards the buffer a store overwrites, as in the fp32
+//   kernel: a warp that has all of h_t knows every warp of the cluster has
+//   sent its piece of h_t, so has read h_(t-1), the buffer h_(t+1) goes
+//   into. No step sends h_T.
+// - x_proj[t + 1] and valid[t + 1] are loaded a step ahead.
+// What bounds it: the chain of T dependent steps (exchange latency, the
+// warp's mma, the gate math, the gather), not bytes or FLOPs.
+constexpr int kTcFwdWarpUnits = 4;  // units a warp's m16 tile (kernels.py LSTM_FWD_TC_WARP_UNITS)
+
+// The tensor-core forward's shared memory for KS k16 steps (ops/kernels.py
+// lstm_fwd_bf16_plan reports its size; the launch uses this one):
+//   full [2] mbarrier: h of the next step has arrived, by step parity
+//   hbuf [2][8][KST] bf16: h of the cluster's rows, KST = tc_stride(16 KS)
+template <int KS>
+struct TcFwdLayout {
+  static constexpr int KST = vsl::tc_stride(16 * KS);
+  static constexpr size_t kBytes = 16 + 2 * 8 * (size_t)KST * 2;
+};
+
+// 8 bytes (lo, hi) into the cluster address `addr`, completing 8 bytes of
+// the mbarrier at the cluster address `bar`.
+__device__ __forceinline__ void st_async_v2(uint32_t addr, uint32_t lo, uint32_t hi,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          addr),
+      "r"(lo), "r"(hi), "r"(bar)
+      : "memory");
+}
+
+// sigmoid(x) as vsl::sigmoidf_ computes it: 1 / y correctly rounded is the
+// reciprocal correctly rounded, without the division's general path.
+__device__ __forceinline__ float sigmoid_rcp(float x) { return __frcp_rn(1.f + expf(-x)); }
+
+// The A fragments of a warp's tile: k_h[k, gate H + unit] at row 4 gate +
+// unit - uw, column k; 0 past H.
+template <int KS>
+__device__ __forceinline__ void fwd_tc_fragments(uint32_t (&a)[KS][4],
+                                                 const __nv_bfloat16* __restrict__ kh, int H,
+                                                 int uw) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, G = 4 * H;
+  const auto pair = [&](int m, int k) {
+    const int gate = m >> 2, unit = uw + (m & 3);
+    uint32_t out = 0;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (unit < H && k + e < H)
+        out |= static_cast<uint32_t>(__bfloat16_as_ushort(kh[(size_t)(k + e) * G + gate * H + unit]))
+               << (16 * e);
+    return out;
+  };
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int k0 = 16 * ks + 2 * tq;
+    a[ks][0] = pair(g, k0);
+    a[ks][1] = pair(g + 8, k0);
+    a[ks][2] = pair(g, k0 + 8);
+    a[ks][3] = pair(g + 8, k0 + 8);
+  }
+}
+
+// The step's product for this thread's (unit, column): gate[0..3] = i, j,
+// f, o of dot(bf16(h), k_h), h the shared rows hc at stride KST.
+template <int KS>
+__device__ __forceinline__ void fwd_tc_gates(float (&gate)[4], const uint32_t (&a)[KS][4],
+                                             const __nv_bfloat16* hc) {
+  constexpr int KST = TcFwdLayout<KS>::KST;
+  const int lane = threadIdx.x & 31;
+  float d[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ks += 2) {  // one ldmatrix for two k16 steps
+    uint32_t b[4];
+    if constexpr (KS == 1)
+      vsl::ldsm_x2(*reinterpret_cast<uint32_t(*)[2]>(b), hc + (lane & 7) * KST + ((lane >> 3) & 1) * 8);
+    else
+      vsl::ldsm_x4(b, hc + (lane & 7) * KST + 16 * ks + (lane >> 3) * 8);
+#pragma unroll
+    for (int j = 0; j < 2 && ks + j < KS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[ks + j][e] = 0.f;
+      vsl::mma16(d[ks + j], a[ks + j], b[2 * j], b[2 * j + 1]);
+    }
+  }
+  // the products' sums in a fixed tree: ((0 + 1) + (2 + 3)) + ...
+#pragma unroll
+  for (int w = 1; w < KS; w *= 2)
+#pragma unroll
+    for (int ks = 0; ks + w < KS; ks += 2 * w)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[ks][e] += d[ks + w][e];
+  // lane l < 16 keeps i and f of column 2 tq and takes j and o of it from
+  // lane l + 16, which keeps those of column 2 tq + 1 and takes i and f
+  const bool upper = lane >= 16;
+  const float s0 = __shfl_xor_sync(0xffffffffu, upper ? d[0][0] : d[0][1], 16);
+  const float s1 = __shfl_xor_sync(0xffffffffu, upper ? d[0][2] : d[0][3], 16);
+  gate[0] = upper ? s0 : d[0][0];
+  gate[1] = upper ? d[0][1] : s0;
+  gate[2] = upper ? s1 : d[0][2];
+  gate[3] = upper ? d[0][3] : s1;
+}
+
+template <bool kResiduals, int KS>
+__global__ void __launch_bounds__(256)
+lstm_fwd_tc_kernel(const __nv_bfloat16* __restrict__ xp, const __nv_bfloat16* __restrict__ kh,
+                   const float* __restrict__ valid, float* __restrict__ out,
+                   float* __restrict__ acts, float* __restrict__ th, float* __restrict__ c_prev,
+                   float* __restrict__ h_prev, int T, int B, int H, int U, int Bt) {
+  constexpr int KST = TcFwdLayout<KS>::KST;
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int N = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int u0 = rank * U, G = 4 * H;
+  const int row0 = static_cast<int>(blockIdx.x) / N * Bt, rows = min(Bt, B - row0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem4);
+  __nv_bfloat16* hbuf = reinterpret_cast<__nv_bfloat16*>(smem4 + 1);
+  // a step's h arrives from every CTA, this one included: N U bf16 for each
+  // valid row, 8 bytes a warp's piece
+  const uint32_t h_bytes = 2u * N * U * rows;
+  const int sends = rows * N;  // a warp's pieces a step: (row, CTA)
+
+  for (int i = tid; i < 8 * KST; i += blockDim.x) reinterpret_cast<uint32_t*>(hbuf)[i] = 0u;
+  const int uw = u0 + kTcFwdWarpUnits * warp;
+  uint32_t a[KS][4];
+  fwd_tc_fragments<KS>(a, kh, H, uw);
+  if (tid == 0) {
+    for (int p = 0; p < 2; ++p) {
+      mbar_init(smem_u32(full + p));
+      mbar_expect(smem_u32(full + p), h_bytes);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();  // every CTA's buffers and mbarriers are set before any remote store
+
+  // the (unit, column) of this thread's gate math: column 2 tq + l / 16 of
+  // the cluster's rows
+  const int unit = uw + ((lane >> 2) & 3), col = 2 * (lane & 3) + (lane >> 4);
+  const int row = row0 + col;
+  const bool own = col < rows && unit < H;
+  float c = 0.f, hreg = 0.f, x[4] = {0.f, 0.f, 0.f, 0.f}, v = 0.f;
+  if (own && T > 0) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) x[g] = vsl::to_float(xp[(size_t)row * G + g * H + unit]);
+    v = valid[row];
+  }
+  // the warp's pieces this lane sends each step, s = lane and lane + 32:
+  // column s / N (its units in lanes src + 4 j) into CTA s % N, at the
+  // cluster addresses of both buffers and mbarriers
+  int src[2];
+  bool on[2];
+  uint32_t dst_h[2][2], dst_bar[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int s = 32 * i + lane, sc = min(s, sends - 1) / N, dst = s < sends ? s - sc * N : 0;
+    on[i] = s < sends;
+    src[i] = (sc & 1) * 16 + (sc >> 1);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      dst_h[i][q] = cluster_u32(smem_u32(hbuf + (size_t)q * 8 * KST + (size_t)sc * KST + uw), dst);
+      dst_bar[i][q] = cluster_u32(smem_u32(full + q), dst);
+    }
+  }
+  uint32_t phase = 0;  // bit p: the parity of full[p]'s next phase
+
+  for (int t = 0; t < T; ++t) {
+    const int p = t & 1;
+    const __nv_bfloat16* hc = hbuf + (size_t)p * 8 * KST;
+    if (t > 0) {  // h_t, stored by every CTA at step t - 1
+      mbar_wait(smem_u32(full + p), (phase >> p) & 1u);
+      phase ^= 1u << p;
+      if (tid == 0) mbar_expect(smem_u32(full + p), h_bytes);  // for h_(t+2)
+    }
+    unsigned short nx[4] = {0, 0, 0, 0};
+    float nv = 0.f;
+    if (own && t + 1 < T) {  // off the chain: the next step's inputs
+      const size_t next = (size_t)(t + 1) * B + row;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) nx[g] = ld_early(xp + next * G + g * H + unit);
+      nv = ld_early(valid + next);
+    }
+    float gate[4];
+    fwd_tc_gates<KS>(gate, a, hc);
+    float ig = 0.f, gg = 0.f, f = 0.f, og = 0.f, tc = 0.f, cp = 0.f, hp = 0.f, ho = 0.f;
+    if (own) {
+      ig = sigmoid_rcp(gate[0] + x[0]);
+      gg = tanhf(gate[1] + x[1]);
+      f = sigmoid_rcp(gate[2] + x[2] + 1.f);
+      og = sigmoid_rcp(gate[3] + x[3]);
+      cp = c;
+      const float cn = cp * f + ig * gg;
+      tc = tanhf(cn);
+      c = v * cn + (1.f - v) * cp;
+      hp = hreg;
+      ho = v * (tc * og);
+      hreg = ho + (1.f - v) * hp;
+    }
+    if (t + 1 < T) {  // the warp's pieces of h_(t+1) into every CTA
+      // units 0-3 of a column by four shuffles (units past H carry 0)
+      const uint32_t hb = __bfloat16_as_ushort(__float2bfloat16(hreg));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (i == 1 && sends <= 32) break;
+        uint32_t u[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) u[j] = __shfl_sync(0xffffffffu, hb, src[i] + 4 * j);
+        if (on[i])  // into the buffer of parity p ^ 1
+          st_async_v2(p ? dst_h[i][0] : dst_h[i][1], u[0] | (u[1] << 16), u[2] | (u[3] << 16),
+                      p ? dst_bar[i][0] : dst_bar[i][1]);
+      }
+    }
+    if (own) {  // the step's outputs, off the chain
+      const size_t o = (size_t)t * B + row;
+      out[o * H + unit] = ho;
+      if (kResiduals) {
+        acts[o * G + unit] = ig;
+        acts[o * G + H + unit] = gg;
+        acts[o * G + 2 * H + unit] = f;
+        acts[o * G + 3 * H + unit] = og;
+        th[o * H + unit] = tc;
+        c_prev[o * H + unit] = cp;
+        h_prev[o * H + unit] = hp;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) x[g] = widen(nx[g]);
+    v = nv;
+  }
+}
+
+// The k16 steps of K that cover h's padded width N U (a power of two, so
+// that each count has a kernel of its own: a runtime trip count splits the
+// unrolled mma loop).
+int fwd_tc_ksteps(int N, int U) {
+  int ks = 1;
+  while (16 * ks < N * U) ks *= 2;
+  return ks;
+}
+
+// The tensor-core forward's plan (lstm_fwd_bf16_plan) must fit its layout
+// for H: U a multiple of 8 up to 32, every CTA owns a unit, a warp a 4
+// units, Bt rows within the mma's 8 columns, h's padded width within 16
+// k16 steps.
+cudaError_t check_fwd_tc_plan(int H, int N, int Bt, int U, int threads) {
+  if (H < 1 || N < 1 || N > kMaxCluster || U < 8 || U % 8 || U > 32 || Bt < 1 || Bt > 8 ||
+      (N - 1) * U >= H || N * U < H || threads != 32 * U / kTcFwdWarpUnits ||
+      fwd_tc_ksteps(N, U) > 16)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+template <bool kResiduals>
+int launch_fwd_tc(const void* xp_, const void* kh_, const float* valid, float* out, float* acts,
+                  float* th, float* c_prev, float* h_prev, int T, int B, int H, int N, int Bt,
+                  int U, int threads, void* stream_) {
+  if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = check_fwd_tc_plan(H, N, Bt, U, threads);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const auto* xp = static_cast<const __nv_bfloat16*>(xp_);
+  const auto* kh = static_cast<const __nv_bfloat16*>(kh_);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const int ctas = (B + Bt - 1) / Bt * N;
+  const auto launch = [&](auto steps) {
+    constexpr int KS = decltype(steps)::value;
+    return vsl::launch_cluster(lstm_fwd_tc_kernel<kResiduals, KS>, ctas, N, threads,
+                               TcFwdLayout<KS>::kBytes, stream, xp, kh, valid, out, acts, th,
+                               c_prev, h_prev, T, B, H, U, Bt);
+  };
+  switch (fwd_tc_ksteps(N, U)) {
+    case 1: e = launch(std::integral_constant<int, 1>{}); break;
+    case 2: e = launch(std::integral_constant<int, 2>{}); break;
+    case 4: e = launch(std::integral_constant<int, 4>{}); break;
+    case 8: e = launch(std::integral_constant<int, 8>{}); break;
+    case 16: e = launch(std::integral_constant<int, 16>{}); break;
+    default: e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+}  // namespace
+
+// The bf16 lean forward (#1 at bf16) on lstm_fwd_bf16_plan (N, Bt, U,
+// threads): x_proj [T, B, 4H] and k_h [H, 4H] in bf16, valid and the output
+// fp32.
+extern "C" int vsl_lstm_recurrence_fwd_bf16(const void* xp, const void* kh, const float* valid,
+                                            float* out, int T, int B, int H, int N, int Bt, int U,
+                                            int threads, void* stream) {
+  return launch_fwd_tc<false>(xp, kh, valid, out, nullptr, nullptr, nullptr, nullptr, T, B, H, N,
+                              Bt, U, threads, stream);
+}
+
+// The bf16 forward with residuals (#7 at bf16) on the same plan: x_proj and
+// k_h in bf16, the five outputs fp32, as the TPU kernel writes them (h_prev
+// is the carried fp32 h, which the backward rounds for dk_h).
+extern "C" int vsl_lstm_recurrence_fwd_res_bf16(const void* xp, const void* kh,
+                                                const float* valid, float* out, float* acts,
+                                                float* th, float* c_prev, float* h_prev, int T,
+                                                int B, int H, int N, int Bt, int U, int threads,
+                                                void* stream) {
+  return launch_fwd_tc<true>(xp, kh, valid, out, acts, th, c_prev, h_prev, T, B, H, N, Bt, U,
+                             threads, stream);
 }

@@ -466,7 +466,9 @@ def attention(q, k, v, mask, n_heads, seeds=None, drop_rate=0.0,
 # through distributed shared memory, so a step is bound by its on-chip
 # dot product, gate math and exchange latency, not by L2. The backward runs
 # on the same plan in reverse: each CTA keeps its units' k_h rows in shared
-# memory and sends its slice of each step's dgates to every CTA.
+# memory and sends its slice of each step's dgates to every CTA. At bf16
+# both directions run on the tensor cores, on the same clusters with k_h
+# as mma fragments in registers (lstm_fwd_bf16_plan, lstm_bwd_bf16_plan).
 
 LSTM_CLUSTER = 8          # CTAs a cluster: the most every sm_90 part schedules
 LSTM_ROWS = (1, 2, 4, 8)  # batch rows a cluster the kernel is built for
@@ -564,6 +566,45 @@ def lstm_bwd_bf16_plan(B, H):
     return LSTMBwdBf16Plan(n, bt, units, 32 * warps, smem, -(-B // bt))
 
 
+# units a warp of the bf16 forward takes (csrc/lstm.cu kTcFwdWarpUnits): its
+# m16 mma tile holds their four gates
+LSTM_FWD_TC_WARP_UNITS = 4
+
+
+class LSTMFwdBf16Plan(NamedTuple):
+    """One launch of the bf16 forwards on the tensor cores (csrc/lstm.cu
+    lstm_fwd_tc_kernel): clusters of `n` CTAs, each owning `units` hidden
+    units (a multiple of 8; h padded to n * units) of `bt` batch rows,
+    `threads` a CTA (a warp a LSTM_FWD_TC_WARP_UNITS units, its m16 tile
+    their four gates), `ksteps` k16 steps of h's padded width (a power of
+    two, the kernel's template), `smem` bytes of dynamic shared memory
+    (csrc/lstm.cu TcFwdLayout), `clusters` = ceil(B / bt)."""
+    n: int
+    bt: int
+    units: int
+    threads: int
+    ksteps: int
+    smem: int
+    clusters: int
+
+
+def lstm_fwd_bf16_plan(B, H):
+    """The bf16 forwards' plan for B rows of hidden size H: the backward's
+    geometry (lstm_bwd_bf16_plan: lstm_plan's clusters and rows, units a
+    CTA a multiple of 8), a warp a LSTM_FWD_TC_WARP_UNITS of the units.
+    Shared memory: two mbarriers and bf16(h) [2, 8, 16 ksteps] at
+    _tc_stride."""
+    if not 1 <= H <= LSTM_MAX_H or B < 1:
+        raise ValueError("lstm_fwd_bf16_plan: needs 1 <= H <= %d and B >= 1, "
+                         "got B=%d, H=%d" % (LSTM_MAX_H, B, H))
+    bwd = lstm_bwd_bf16_plan(B, H)
+    ksteps = 1 << max(0, (-(-bwd.n * bwd.units // 16) - 1).bit_length())
+    smem = 16 + 2 * 8 * _tc_stride(16 * ksteps) * 2
+    return LSTMFwdBf16Plan(bwd.n, bwd.bt, bwd.units,
+                           32 * bwd.units // LSTM_FWD_TC_WARP_UNITS, ksteps,
+                           smem, bwd.clusters)
+
+
 def lstm_recurrence_plain(x_proj, k_h, valid, state_dtype=torch.float32,
                           residuals=False):
     """[T, B, 4H] pre-projected inputs, [H, 4H] recurrent kernel, [T, B]
@@ -654,7 +695,9 @@ def lstm_recurrence_bwd_plain(dy, acts, th, c_prev, h_prev, valid, k_h,
 
 def _lstm_shapes(name, x_proj, k_h, valid, dtype=torch.float32):
     """(T, B, H, the plan's ints for csrc/lstm.cu): the forward's shapes
-    checked (x_proj and k_h in `dtype`), then planned."""
+    checked (x_proj and k_h in `dtype`), then planned: lstm_plan's (n, bt,
+    splits, threads), at bf16 lstm_fwd_bf16_plan's (n, bt, units,
+    threads)."""
     T, B, G = x_proj.shape
     H = G // 4
     if G != 4 * H or not 1 <= H <= 256 or B < 1:
@@ -663,6 +706,9 @@ def _lstm_shapes(name, x_proj, k_h, valid, dtype=torch.float32):
     _check(name, x_proj, (T, B, 4 * H), dtype)
     _check(name, k_h, (H, 4 * H), dtype)
     _check(name, valid, (T, B))
+    if dtype == torch.bfloat16:
+        p = lstm_fwd_bf16_plan(B, H)
+        return T, B, H, (p.n, p.bt, p.units, p.threads)
     plan = lstm_plan(B, H)
     return T, B, H, (plan.n, plan.bt, plan.splits, plan.threads)
 
@@ -3469,9 +3515,10 @@ def _plans_take(*calls):
 
 @functools.lru_cache(maxsize=256)
 def lstm_kernel_fits(B, H):
-    """csrc/lstm.cu takes B rows of hidden size H (lstm_plan and
-    lstm_bwd_bf16_plan: H up to LSTM_MAX_H)."""
-    return _plans_take((lstm_plan, B, H), (lstm_bwd_bf16_plan, B, H))
+    """csrc/lstm.cu takes B rows of hidden size H (lstm_plan,
+    lstm_fwd_bf16_plan and lstm_bwd_bf16_plan: H up to LSTM_MAX_H)."""
+    return _plans_take((lstm_plan, B, H), (lstm_fwd_bf16_plan, B, H),
+                       (lstm_bwd_bf16_plan, B, H))
 
 
 @functools.lru_cache(maxsize=256)
