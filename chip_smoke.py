@@ -176,12 +176,6 @@ import urllib.request
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the tensor cores
-# and HBM3 bandwidth. The bound of a kernel is the larger of its FLOPs over
-# the first and its bytes (inputs read once, outputs written once) over the
-# second.
-PEAK_FP32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
 TOL = 1e-4          # fp32 kernel vs plain version: summation order only
 LOGIT_ATOL = 1e-3   # whole model, kernels vs plain, on the served logits
 # A train step with the kernels vs use_pallas=off: the loss within 1e-4
@@ -203,10 +197,14 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+def bound(work, nbytes):
+    """vslnet_torch/bench/common.py bound_ms, the yardstick of every row:
+    (ms, "operations" or "bytes") of work {"fp32" or "bf16": the FLOPs done
+    at that type's peak} and nbytes (inputs read once, outputs written
+    once)."""
+    from vslnet_torch.bench.common import bound_ms
+
+    return bound_ms(work, nbytes)
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -358,13 +356,12 @@ def plan_fields(plan):
             "smem_bytes": plan.smem, "smem_bwd_bytes": plan.smem_bwd}
 
 
-def kernel_row(name, source, replaces, err, tol, ms, plain_ms, flops, nbytes,
-               library_ms=None, checked_err=None, peak_flops=PEAK_FP32_FLOPS,
-               **extra):
+def kernel_row(name, source, replaces, err, tol, ms, plain_ms, work, nbytes,
+               library_ms=None, checked_err=None, **extra):
     """One kernel's row, emitted and held to tol. checked_err, where given,
     is what is held to tol (scaled_err for gradients); err is always the
-    raw max abs error. The bound takes the FLOPs over peak_flops."""
-    bound_ms, bound_by = bound(flops, nbytes, peak_flops)
+    raw max abs error. The bound is bound(work, nbytes)."""
+    bound_ms, bound_by = bound(work, nbytes)
     checked = err if checked_err is None else checked_err
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "max_abs_err": err, "tol": tol,
@@ -417,7 +414,7 @@ def kernel_phase(dev, max_w):
            "vslnet_tpu/ops/pallas_kernels.py:241", err, TOL, ms,
            cuda_ms(lambda: K.lstm_recurrence_plain(x_proj, k_h, valid), 3),
            # only the valid steps need the product: padding freezes the state
-           2 * int(lens.sum()) * H * 4 * H,
+           {"fp32": 2 * int(lens.sum()) * H * 4 * H},
            4 * (T * B * 4 * H + H * 4 * H + T * B + T * B * H),
            library_ms=ms_lib, library_max_abs_err_valid=lib_err,
            shape=[T, B, 4 * H], us_per_step=ms * 1e3 / T,
@@ -474,7 +471,7 @@ def kernel_phase(dev, max_w):
            "vslnet_tpu/ops/pallas_kernels.py:1019", max(err, q_err, d_err), TOL,
            cuda_ms(lambda: fwd(*args), 50),
            cuda_ms(lambda: K.conv_block_plain(*args), 50),
-           L * 2 * B * T * D * (D + KS),
+           {"fp32": L * 2 * B * T * D * (D + KS)},
            4 * (2 * B * T * D + L * (3 * D + KS * D + D * D)),
            shape=[B, T, D], query_T=max_w, query_max_abs_err=q_err,
            dropout_max_abs_err=d_err, dropout_zero_pattern_equal=zeros_equal,
@@ -556,7 +553,7 @@ def kernel_phase(dev, max_w):
            "vslnet_tpu/ops/pallas_kernels.py:1736", max(err, q_err, d_err), TOL,
            cuda_ms(lambda: K.fused_mha_block(*args, heads), 50),
            cuda_ms(lambda: K.mha_block_plain(*args, heads), 50),
-           2 * B * T * D * 3 * D + 4 * T * keys * D + 2 * B * T * D * D,
+           {"fp32": 2 * B * T * D * 3 * D + 4 * T * keys * D + 2 * B * T * D * D},
            4 * (2 * B * T * D + B * T + 4 * D + 4 * D * D + 4 * D),
            shape=[B, T, D], heads=heads, query_T=max_w,
            query_max_abs_err=q_err, dropout_max_abs_err=d_err,
@@ -594,7 +591,8 @@ def kernel_phase(dev, max_w):
     def cqa_work(B_, T_, W_):
         """FLOPs (scores, both softmaxes, v2q, Sv^T.v, Sq.A, the products)
         and bytes (v, q, masks and weights read, the concat written)."""
-        return (B_ * (8 * T_ * W_ * D + 5 * T_ * D + 2 * W_ * D + 18 * T_ * W_),
+        return ({"fp32": B_ * (8 * T_ * W_ * D + 5 * T_ * D + 2 * W_ * D
+                               + 18 * T_ * W_)},
                 4 * (B_ * T_ * D + B_ * W_ * D + B_ * T_ + B_ * W_ + 3 * D
                      + B_ * T_ * 4 * D))
 
@@ -663,14 +661,14 @@ def kernel_phase(dev, max_w):
            "vslnet_tpu/ops/pallas_kernels.py:180", max(err, l_err), TOL,
            cuda_ms(lambda: K.fused_highlight_gate(*args), 100),
            cuda_ms(highlight_plain_gate, 100),
-           B * T * (3 * D + 4), 4 * (2 * B * T * D + 2 * B * T + D + 1),
+           {"fp32": B * T * (3 * D + 4)}, 4 * (2 * B * T * D + 2 * B * T + D + 1),
            shape=[B, T, D], device_ms=sum(by_kernel(
                lambda: K.fused_highlight_gate(*args)).values()), path_L={
                "shape": [BL, TL, D], "max_abs_err": l_err,
                "ms": cuda_ms(lambda: K.fused_highlight_gate(*l_args), 100),
                "device_ms": sum(by_kernel(
                    lambda: K.fused_highlight_gate(*l_args)).values()),
-               "bound_ms": bound(BL * TL * (3 * D + 4), 4 * (
+               "bound_ms": bound({"fp32": BL * TL * (3 * D + 4)}, 4 * (
                    2 * BL * TL * D + 2 * BL * TL + D + 1))[0]})
 
     # 6. span decode [B, T] of masked logits; exact indices
@@ -701,7 +699,7 @@ def kernel_phase(dev, max_w):
            max(index_err, l_err, tied_err), 0.0,
            cuda_ms(lambda: K.fused_span_decode(sl, el), 100),
            cuda_ms(lambda: K.span_decode_plain(sl, el), 100),
-           10 * B * T, 4 * (2 * B * T + 2 * B), shape=[B, T],
+           {"fp32": 10 * B * T}, 4 * (2 * B * T + 2 * B), shape=[B, T],
            device_ms=sum(by_kernel(
                lambda: K.fused_span_decode(sl, el)).values()),
            path_L={
@@ -710,7 +708,7 @@ def kernel_phase(dev, max_w):
                "ms": cuda_ms(lambda: K.fused_span_decode(sl_l, el_l), 100),
                "device_ms": sum(by_kernel(
                    lambda: K.fused_span_decode(sl_l, el_l)).values()),
-               "bound_ms": bound(10 * BL * TL, 4 * (2 * BL * TL + 2 * BL))[0]})
+               "bound_ms": bound({"fp32": 10 * BL * TL}, 4 * (2 * BL * TL + 2 * BL))[0]})
 
     # --- the training kernels: forward and every gradient of sum(out * g)
     # against the plain version's autograd, then each kernel timed alone
@@ -731,7 +729,7 @@ def kernel_phase(dev, max_w):
     record("lstm_recurrence_fwd_res", "vslnet_torch/csrc/lstm.cu",
            "vslnet_tpu/ops/pallas_kernels.py:276", abs_err, TOL, ms,
            cuda_ms(lambda: K.lstm_recurrence_plain(*leaves, valid), 3),
-           2 * steps * H * 4 * H,
+           {"fp32": 2 * steps * H * 4 * H},
            4 * (2 * T * B * 4 * H + H * 4 * H + T * B + 4 * T * B * H),
            library_ms=ms_lib_f, checked_err=err, shape=[T, B, 4 * H],
            us_per_step=ms * 1e3 / T, plan=plan_fields(plan))
@@ -743,7 +741,7 @@ def kernel_phase(dev, max_w):
            cuda_ms(lambda: torch.autograd.grad(out_p, leaves, dy,
                                                retain_graph=True), 3),
            # dgates . k_h^T along the chain and dk_h = h_prev^T . dgates
-           2 * 2 * steps * H * 4 * H,
+           {"fp32": 2 * 2 * steps * H * 4 * H},
            4 * (2 * T * B * 4 * H + 4 * T * B * H + T * B + 2 * H * 4 * H),
            library_ms=ms_lib_fb - ms_lib_f, checked_err=err,
            library_fwd_bwd_ms=ms_lib_fb, shape=[T, B, 4 * H],
@@ -812,7 +810,7 @@ def kernel_phase(dev, max_w):
            cuda_ms(lambda: torch.autograd.grad(out_p, leaves, g,
                                                retain_graph=True), 20),
            # the forward replayed, then the data and weight products
-           L * 6 * B * T * D * (D + KS),
+           {"fp32": L * 6 * B * T * D * (D + KS)},
            4 * (4 * B * T * D + 2 * L * (3 * D + KS * D + D * D) + B),
            checked_err=max(err, q_err, t_err), shape=[B, T, D], drop_rate=DROP,
            query_T=max_w, query_checked_err=q_err, tiled_max_abs_err=t_abs,
@@ -895,7 +893,8 @@ def kernel_phase(dev, max_w):
                                                    retain_graph=True), 20),
            # dense and QKV data + weight products; the scores recomputed,
            # dP, dV, dQ and dK over the valid keys
-           4 * B * T * D * D + 4 * B * T * D * 3 * D + 10 * T * keys * D,
+           {"fp32": 4 * B * T * D * D + 4 * B * T * D * 3 * D
+                    + 10 * T * keys * D},
            4 * (3 * B * T * D + B * T + B * T * 3 * D + B * T * D
                 + 2 * (4 * D + 4 * D * D + 4 * D) + B),
            checked_err=max(err, q_err), shape=[B, T, D], heads=heads,
@@ -1187,10 +1186,6 @@ def train_phase(dataset, feats):
 
 # --- the bf16 phase -----------------------------------------------------------
 
-# H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet, 700 W): the
-# bf16 rows' bound takes their FLOPs over it and counts their bf16
-# activations at 2 bytes
-PEAK_BF16_FLOPS = 989e12
 # a bf16 kernel against its bf16 twin on the card: the same roundings,
 # fp32 sums in another order, so a value on a bf16 rounding boundary can
 # round the other way in one of them. The LSTM's fp32 output within
@@ -1258,7 +1253,10 @@ def bf16_kernel_rows(dev, max_w):
     import torch
 
     from vslnet_torch.bench import bf16_vjp as V
-    from vslnet_torch.bench.common import by_kernel
+    from vslnet_torch.bench.common import (by_kernel, conv_fwd_bf16_bound,
+                                           conv_fwd_bf16_work,
+                                           mha_fwd_bf16_bound,
+                                           mha_fwd_bf16_work)
     from vslnet_torch.ops import kernels as K
 
     bf = torch.bfloat16
@@ -1267,7 +1265,7 @@ def bf16_kernel_rows(dev, max_w):
     B, T, D, H, L, KS, heads = 16, 128, 128, 128, 4, 7, 8
     rows = []
 
-    def record(name, source, line, err, tol, fn, plain, flops, nbytes,
+    def record(name, source, line, err, tol, fn, plain, work, nbytes,
                **extra):
         out = fn()
         twice = torch.equal(out, fn())
@@ -1276,7 +1274,7 @@ def bf16_kernel_rows(dev, max_w):
         rows.append(kernel_row(
             name, source, "vslnet_tpu/ops/pallas_kernels.py:%d" % line, err,
             tol, cuda_ms(fn, 50), cuda_ms(plain, 3 if "lstm" in name else 50),
-            flops, nbytes, peak_flops=PEAK_BF16_FLOPS, equal_bits_twice=twice,
+            work, nbytes, equal_bits_twice=twice,
             device_ms=sum(parts.values()), by_kernel=parts, **extra))
 
     # 1. the LSTM recurrence, x_proj [T, B, 4H] and k_h in bf16
@@ -1309,7 +1307,7 @@ def bf16_kernel_rows(dev, max_w):
     record("lstm_recurrence_fwd_bf16", "vslnet_torch/csrc/lstm.cu", 241, err,
            BF16_LSTM_TOL, lambda: K.fused_lstm_recurrence(*lstm_args),
            lambda: K.lstm_recurrence_plain(*lstm_args),
-           2 * int(lens.sum()) * H * 4 * H,
+           {"bf16": 2 * int(lens.sum()) * H * 4 * H},
            2 * (T * B * 4 * H + H * 4 * H) + 4 * (T * B + T * B * H),
            library_ms=ms_lib, library="cuDNN nn.LSTM in bf16",
            library_max_abs_err_valid=lib_err, shape=[T, B, 4 * H],
@@ -1327,51 +1325,71 @@ def bf16_kernel_rows(dev, max_w):
                 t(rng.standard_normal((L, D, D)) / math.sqrt(D)),
                 t(0.1 * rng.standard_normal((L, D)))]
 
-    def conv_flops(T_):
-        return L * 2 * B * T_ * D * (D + KS)
+    def conv_work(T_):  # the whole-row form's (#2b)
+        return ({"bf16": L * 2 * B * T_ * D * (D + KS)},
+                2 * 2 * B * T_ * D + 4 * L * (3 * D + KS * D + D * D))
 
-    def conv_bytes(T_):
-        return 2 * 2 * B * T_ * D + 4 * L * (3 * D + KS * D + D * D)
+    def fwd_fp64(kind, args, out):
+        # the forward against the twin and an fp64 evaluation of the same
+        # function (bench/bf16_vjp.py block_fwd_read), held to their limits
+        r = V.block_fwd_read(kind, args, None, 0.0, out)
+        check(*V.block_fwd_verdict(r))
+        return r
 
-    # the tiled forward also at path L's [8, 1024, 128], where #2c first
-    # runs, beside the fp32 tiled forward on the same inputs
-    args_l = [t(rng.standard_normal((8, 1024, D))).to(bf)] + conv_inputs(1)[1:]
-    ref_l = K.conv_block_plain(*args_l)
-    path_l = {"shape": [8, 1024, D], "device_ms": sum(by_kernel(
-        lambda: K.launch_conv_block_fwd_tiled(*args_l)).values()),
-        "fp32_device_ms": sum(by_kernel(lambda: K.launch_conv_block_fwd_tiled(
-            args_l[0].float(), *args_l[1:])).values()),
-        **bf16_function_check(
-            "conv_block_fwd_tiled_bf16 at path L", "share_differing",
-            share_differing(K.launch_conv_block_fwd_tiled(*args_l)[0],
-                            ref_l),
-            share_differing(K.conv_block_plain(args_l[0].float(),
-                                               *args_l[1:]).to(bf), ref_l),
-            BF16_SHARE_TOL)}
+    # the tiled forward (#2c, on the tensor cores) also at path
+    # M's [16, 192, 128] and path L's [8, 1024, 128], beside the fp32 tiled
+    # forward on the same inputs
+    paths = {}
+    for path, (B_, T_) in (("path_M", (16, 192)), ("path_L", (8, 1024))):
+        args_p = [t(rng.standard_normal((B_, T_, D))).to(bf)] + conv_inputs(1)[1:]
+        out_p = K.launch_conv_block_fwd_tiled(*args_p)[0]
+        ref_p = K.conv_block_plain(*args_p)
+        paths[path] = {
+            "shape": [B_, T_, D], "device_ms": sum(by_kernel(
+                lambda a=args_p: K.launch_conv_block_fwd_tiled(*a)).values()),
+            "fp32_device_ms": sum(by_kernel(
+                lambda a=args_p: K.launch_conv_block_fwd_tiled(
+                    a[0].float(), *a[1:])).values()),
+            "bound_ms": conv_fwd_bf16_bound(B_, T_, D, KS, L)[0],
+            "fp64": fwd_fp64("conv", args_p, out_p),
+            **bf16_function_check(
+                "conv_block_fwd_tiled_bf16 at %s" % path, "share_differing",
+                share_differing(out_p, ref_p),
+                share_differing(K.conv_block_plain(args_p[0].float(),
+                                                   *args_p[1:]).to(bf), ref_p),
+                BF16_SHARE_TOL)}
     for name, T_ in (("conv_block_fwd_bf16", max_w),
                      ("conv_block_fwd_tiled_bf16", T)):
         args = conv_inputs(T_)
-        whole = K.launch_conv_block_fwd(*args)
-        tiled = K.launch_conv_block_fwd_tiled(*args)[0]
-        ref = K.conv_block_plain(*args)
-        if "tiled" in name:
-            got, fn = tiled, lambda a=args: K.launch_conv_block_fwd_tiled(*a)[0]
+        tiled_row = "tiled" in name
+        if tiled_row:
+            got = K.launch_conv_block_fwd_tiled(*args)[0]
+            fn = lambda a=args: K.launch_conv_block_fwd_tiled(*a)[0]  # noqa: E731
         else:
-            got, fn = whole, lambda a=args: K.launch_conv_block_fwd(*a)
-        check(torch.equal(whole, tiled), "%s: the whole-row and tiled bf16 "
-              "forwards differ" % name)
+            got = K.launch_conv_block_fwd(*args)
+            fn = lambda a=args: K.launch_conv_block_fwd(*a)  # noqa: E731
+        ref = K.conv_block_plain(*args)
         ref32 = K.conv_block_plain(args[0].float(), *args[1:])
         share_check = bf16_function_check(
             name, "share_differing", share_differing(got, ref),
             share_differing(ref32.to(bf), ref), BF16_SHARE_TOL)
+        if tiled_row:  # its product's part alone in cuBLAS bf16
+            a_ = torch.randn(B * T_, D, device=dev, dtype=bf)
+            w_ = torch.randn(D, D, device=dev, dtype=bf)
+            extra = dict(paths, redesigned="tensor cores (mma.sync)", fp64=fwd_fp64("conv", args, got),
+                         plan=K.conv_tiled_fwd_bf16_plan(B, T_, D, KS, L)._asdict(),
+                         library_parts={"cublas_bf16_product_device_ms": sum(
+                             by_kernel(lambda: a_ @ w_).values()), "per": "layer"})
+            work = conv_fwd_bf16_work(B, T_, D, KS, L)
+        else:
+            extra, work = {}, conv_work(T_)
         record(name, "vslnet_torch/csrc/conv_block.cu", 1019,
                max_err(got, ref), BF16_TOL,
-               fn, lambda a=args: K.conv_block_plain(*a), conv_flops(T_),
-               conv_bytes(T_), checked_err=scaled_err(got, ref),
+               fn, lambda a=args: K.conv_block_plain(*a), *work,
+               checked_err=scaled_err(got, ref),
                shape=[B, T_, D], route_serve=K.conv_route(T_, D, KS, L),
-               whole_tiled_equal_bits=True,
-               **({"path_L": path_l} if "tiled" in name else {}),
-               err_vs_fp32_function=scaled_err(got, ref32), **share_check)
+               err_vs_fp32_function=scaled_err(got, ref32), **share_check,
+               **extra)
 
     # 3. the MHA block at the video's [B, T, D] and the query's [B, max_w, D]
     def mha_inputs(T_):
@@ -1401,18 +1419,38 @@ def bf16_kernel_rows(dev, max_w):
         min(share_differing(ref32.to(bf), ref),
             share_differing(q_ref32.to(bf), q_ref)), BF16_SHARE_TOL)
     keys = int(np.maximum(mlens, T * (mlens == 0)).sum())  # all for masked
+    q_lens = q_args[1].sum(dim=1)
+    q_keys = int(torch.where(q_lens > 0, q_lens, torch.full_like(q_lens, max_w)).sum())
+
+    def parts(T_, m):  # the block's parts alone: cuBLAS and SDPA in bf16
+        a_ = torch.randn(B * T_, D, device=dev, dtype=bf)
+        w3, w1 = (torch.randn(D, n, device=dev, dtype=bf) for n in (3 * D, D))
+        qh, kh, vh = (torch.randn(B, heads, T_, D // heads, device=dev,
+                                  dtype=bf) for _ in range(3))
+        am = m.bool()[:, None, None, :]
+        return {"cublas_qkv_device_ms": sum(by_kernel(lambda: a_ @ w3).values()),
+                "cublas_dense_device_ms": sum(by_kernel(lambda: a_ @ w1).values()),
+                "sdpa_device_ms": sum(by_kernel(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=am)).values())}
+
     record("mha_block_fwd_bf16", "vslnet_torch/csrc/mha_block.cu", 1736,
            max(max_err(out, ref), max_err(q_out, q_ref)), BF16_TOL,
            lambda: K.fused_mha_block(*args, heads),
            lambda: K.mha_block_plain(*args, heads),
-           2 * B * T * D * 3 * D + 4 * T * keys * D + 2 * B * T * D * D,
-           2 * 2 * B * T * D + 4 * (B * T + 4 * D + 4 * D * D + 4 * D),
+           *mha_fwd_bf16_work(B, T, D, keys),
            checked_err=max(scaled_err(out, ref), scaled_err(q_out, q_ref)),
-           shape=[B, T, D], heads=heads, query_T=max_w,
+           shape=[B, T, D], heads=heads, query_T=max_w, redesigned="tensor cores (mma.sync)",
+           plan=K.mha_fwd_bf16_plan(B, T, D, heads)._asdict(),
+           query_plan=K.mha_fwd_bf16_plan(B, max_w, D, heads)._asdict(),
+           fp64=fwd_fp64("mha", args + [heads], out),
+           query_fp64=fwd_fp64("mha", q_args + [heads], q_out),
            err_vs_fp32_function=scaled_err(out, ref32), **share_check,
            query_ms=cuda_ms(lambda: K.fused_mha_block(*q_args, heads), 50),
            query_device_ms=sum(by_kernel(
-               lambda: K.fused_mha_block(*q_args, heads)).values()))
+               lambda: K.fused_mha_block(*q_args, heads)).values()),
+           query_bound_ms=mha_fwd_bf16_bound(B, max_w, D, q_keys)[0],
+           library_parts=parts(T, args[1]), query_library_parts=parts(max_w, q_args[1]))
     return rows
 
 
@@ -1616,9 +1654,9 @@ BF16_STEP_OFF = 0.5
 BF16_STEP_ATOL = 5e-3
 
 
-def bf16_timed_row(rows, name, source, line, err, tol, fn, plain, flops,
+def bf16_timed_row(rows, name, source, line, err, tol, fn, plain, work,
                    nbytes, plain_iters=None, parts_named=None, **extra):
-    """A bf16 kernel's row (kernel_row, the bound at the bf16 peak): fn
+    """A bf16 kernel's row (kernel_row, its bound of work and nbytes): fn
     timed by CUDA events and by torch.profiler, its twin plain by events
     (plain_iters calls; 3 for the LSTM's Python loop, else 10).
     parts_named {key: name}: the row's key takes the device ms of fn's
@@ -1628,7 +1666,7 @@ def bf16_timed_row(rows, name, source, line, err, tol, fn, plain, flops,
     # a profile that kept no record of a call, or of a part of one (PERF.md
     # §7), reads below the bound: it is taken again, once, and a second such
     # profile fails the row
-    least, _ = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    least, _ = bound(work, nbytes)
     parts = by_kernel(fn)
     if sum(parts.values()) < least:
         parts = by_kernel(fn)
@@ -1641,12 +1679,12 @@ def bf16_timed_row(rows, name, source, line, err, tol, fn, plain, flops,
     rows.append(kernel_row(
         name, "vslnet_torch/csrc/" + source,
         "vslnet_tpu/ops/pallas_kernels.py:%d" % line, err, tol,
-        cuda_ms(fn, 20), cuda_ms(plain, plain_iters), flops, nbytes,
-        peak_flops=PEAK_BF16_FLOPS, device_ms=sum(parts.values()),
+        cuda_ms(fn, 20), cuda_ms(plain, plain_iters), work, nbytes,
+        device_ms=sum(parts.values()),
         by_kernel=parts, **named, **extra))
 
 
-def bf16_vjp_row(rows, name, source, line, cases, flops, nbytes, fp64=None,
+def bf16_vjp_row(rows, name, source, line, cases, work, nbytes, fp64=None,
                  **extra):
     """One row of the cases of one bf16 backward entry point (drop 0 and
     0.2, and the shapes given): each case's readings (bench/bf16_vjp.py:
@@ -1675,7 +1713,7 @@ def bf16_vjp_row(rows, name, source, line, cases, flops, nbytes, fp64=None,
             readings[-1]["fp64"] = f
     first = cases[0]
     bf16_timed_row(rows, name, source, line, raw, 1.0, first.kernel,
-                   first.twin, flops, nbytes,
+                   first.twin, work, nbytes,
                    fp32_ms=cuda_ms(first.fp32, 20),
                    fp32_device_ms=sum(by_kernel(first.fp32).values()),
                    checked_err_is="the worst reading over its limit",
@@ -1749,7 +1787,7 @@ def bf16_train_kernel_rows(dev, max_w):
               max(max_err(a, b) for a, b in zip(got, ref)), BF16_LSTM_TOL,
               lambda: K.launch_lstm_fwd_res(*args),
               lambda: K.lstm_recurrence_plain(*args, residuals=True),
-              2 * n_valid * H * 4 * H,
+              {"bf16": 2 * n_valid * H * 4 * H},
               2 * (T * B * 4 * H + H * 4 * H) + 4 * (T * B + 8 * T * B * H),
               library_ms=ms_lib_fwd, library="cuDNN nn.LSTM in bf16, forward",
               fp32_ms=cuda_ms(lambda: K.launch_lstm_fwd_res(*args32), 20),
@@ -1761,7 +1799,7 @@ def bf16_train_kernel_rows(dev, max_w):
     lstm_tc_checks(rows[-1])
 
     def lstm_bwd_work(T_, n_valid_):
-        return (4 * n_valid_ * H * 4 * H,
+        return ({"bf16": 4 * n_valid_ * H * 4 * H},
                 4 * (T_ * B + 8 * T_ * B * H) + 2 * (2 * H * 4 * H + T_ * B * 4 * H))
 
     # the tensor-core backward also at path M's T = 192: its device
@@ -1780,8 +1818,7 @@ def bf16_train_kernel_rows(dev, max_w):
              path_M={"shape": [192, B, 4 * H], "device_ms": sum(parts.values()),
                      "by_kernel": parts, "fp64": fp64_m,
                      "bound_ms": bound(*lstm_bwd_work(
-                         192, int(lstm_m.counted["dx_proj"].sum())),
-                         PEAK_BF16_FLOPS)[0]})
+                         192, int(lstm_m.counted["dx_proj"].sum())))[0]})
 
     # 2. the conv block backward (#9): whole-row at the query stream's [B,
     # max_w, D], T-tiled at the video's [B, T, D]; drop 0 and 0.2
@@ -1789,7 +1826,7 @@ def bf16_train_kernel_rows(dev, max_w):
         flops = L * 2 * B_ * T_ * D * (3 * D + 3 * KS)
         nbytes = (3 * 2 * B_ * T_ * D + 2 * 4 * L * (3 * D + KS * D + D * D)
                   + (4 * (L - 1) * B_ * T_ * D if tiled else 0))
-        return flops, nbytes
+        return {"bf16": flops}, nbytes
 
     for name, T_, tiled, line in (("conv_block_bwd_bf16", max_w, False, 1039),
                                   ("conv_block_bwd_tiled_bf16", T, True,
@@ -1808,7 +1845,7 @@ def bf16_train_kernel_rows(dev, max_w):
                     "fp32_device_ms": sum(by_kernel(cases[-1].fp32).values()),
                     "by_kernel": parts,
                     "plan": K.conv_tiled_bwd_bf16_plan(B_, T_p, D, KS, L)._asdict(),
-                    "bound_ms": bound(*conv_work(T_p, True, B_), PEAK_BF16_FLOPS)[0]}
+                    "bound_ms": bound(*conv_work(T_p, True, B_))[0]}
         vjp_rows(name, "conv_block.cu", line, cases, *conv_work(T_, tiled),
                  shape=[B, T_, D], route_train=K.conv_route(T_, D, KS, L, True),
                  **extra)
@@ -1819,7 +1856,7 @@ def bf16_train_kernel_rows(dev, max_w):
              for T_ in (T, max_w) for rate in (DROP, 0.0)]
     keys = T * T * (B - 1) // 2 + T * T  # about half the keys, one row all
     vjp_rows("mha_block_bwd_bf16", "mha_block.cu", 1762, cases,
-             16 * B * T * D * D + 10 * keys * D,
+             {"bf16": 16 * B * T * D * D + 10 * keys * D},
              2 * 3 * B * T * D + 4 * (4 * B * T * D + B * T)
              + 2 * 4 * (4 * D * D + 8 * D),
              shape=[B, T, D], heads=heads, query_T=max_w,
@@ -2083,7 +2120,7 @@ def long_kernel_rows(dev):
             cuda_ms(lambda: launch_fwd(q, k, v, mask, heads), 20),
             cuda_ms(lambda: K.attention(q, k, v, mask, heads), 5),
             # q, k, v and the mask read, out (and lse) written
-            4 * T * keys * D, 4 * (4 * io + B * T + lse_io),
+            {"fp32": 4 * T * keys * D}, 4 * (4 * io + B * T + lse_io),
             library_ms=lib_f, dropout_zero_pattern_equal=zeros_equal,
             dropout_ms=cuda_ms(lambda: launch_fwd(q, k, v, mask, heads,
                                                   seeds, DROP), 20),
@@ -2115,7 +2152,7 @@ def long_kernel_rows(dev):
             # scores recomputed, dP, dV, dQ and dK over the valid keys;
             # q, k, v, g, out (flash: and lse), mask and seeds read, dq, dk,
             # dv written
-            10 * T * keys * D, 4 * (8 * io + B * T + B + lse_io),
+            {"fp32": 10 * T * keys * D}, 4 * (8 * io + B * T + B + lse_io),
             library_ms=lib_b, checked_err=g_err, library_fwd_bwd_ms=lib_fb,
             library_device_ms=lib_b_device, drop_rate=DROP, **extra,
             **shape))
@@ -2174,7 +2211,8 @@ def long_kernel_rows(dev):
     weights = L * (3 * D + KS * D + D * D)
 
     def fwd_work(B_, T_):
-        return L * 2 * B_ * T_ * D * (D + KS), 4 * (2 * B_ * T_ * D + weights)
+        return ({"fp32": L * 2 * B_ * T_ * D * (D + KS)},
+                4 * (2 * B_ * T_ * D + weights))
 
     # the tiled forward on its plan at both paths: equal bits (out and xs)
     # on two equal calls, the device time of a call's kernels
@@ -2226,7 +2264,7 @@ def long_kernel_rows(dev):
                                             retain_graph=True), 20),
         # the forward's products for the ReLU masks, then the data and
         # weight products
-        L * 6 * B * T * D * (D + KS),
+        {"fp32": L * 6 * B * T * D * (D + KS)},
         4 * (3 * B * T * D + 2 * weights + B),
         checked_err=max(g_errs), drop_rate=DROP, equal_bits_twice=twice,
         dropout_zero_pattern_equal=all(bwd_zeros),
@@ -2478,7 +2516,7 @@ def bf16_long_kernel_rows(dev):
             lambda: fwd(q, k, v, mask, heads), lambda: twin(q, k, v, mask,
                                                             heads),
             # q, k, v (bf16) and the mask read, out (bf16; and lse) written
-            4 * T * keys * D, 2 * 4 * io + 4 * (B * T + lse_io),
+            {"bf16": 4 * T * keys * D}, 2 * 4 * io + 4 * (B * T + lse_io),
             plain_iters=5, checked_err=max(errs), library_ms=lib_f,
             library="SDPA in bf16, additive mask", equal_bits_twice=twice,
             library_device_ms=lib_f_device,
@@ -2503,7 +2541,7 @@ def bf16_long_kernel_rows(dev):
             # scores recomputed, dP, dV, dQ and dK over the valid keys; q,
             # k, v, g (bf16; flash: and out for delta, and lse), mask and
             # seeds read, dq, dk, dv (bf16) written
-            10 * T * keys * D,
+            {"bf16": 10 * T * keys * D},
             2 * (8 if flash else 7) * io + 4 * (B * T + B + lse_io),
             library_ms=lib_b, library="SDPA in bf16, forward+backward - "
             "forward", library_fwd_bwd_ms=lib_fb,
@@ -2753,15 +2791,17 @@ class ConvBlockCalls:
             return self
         fwd, bwd = self.saved.values()
 
-        def forward(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
-            out, xs, *mask = fwd(x, gam, beta, dw, wp, bp, seeds, drop_rate)
+        def forward(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0,
+                    wpb=None):
+            out, xs, *mask = fwd(x, gam, beta, dw, wp, bp, seeds, drop_rate,
+                                 wpb)
             self.record(x, gam, beta, dw, wp, bp, seeds, drop_rate, xs=xs)
             return (out, xs, *mask)
 
         def backward(x, xs, gam, beta, dw, wp, bp, seeds, drop_rate, g,
-                     mask=None):
+                     mask=None, wpb=None):
             grads = bwd(x, xs, gam, beta, dw, wp, bp, seeds, drop_rate, g,
-                        mask)
+                        mask, wpb)
             call, = [c for c in self.calls
                      if c["xs"].data_ptr() == xs.data_ptr()]
             call["g"], call["grads"] = g, grads
@@ -3473,30 +3513,30 @@ def saturated_kernel_rows(dev, max_w):
     rows = []
 
     def conv_fwd_work(T_):
-        return (2 * L * B * T_ * D * (D + KS),
+        return ({"bf16": 2 * L * B * T_ * D * (D + KS)},
                 2 * 2 * B * T_ * D + 4 * (L - 1) * B * T_ * D
                 + L * B * T_ * D // 4 + 4 * L * (D * D + (KS + 3) * D))
 
     def conv_bwd_work(T_):
-        return (2 * L * B * T_ * D * (2 * D + 3 * KS),
+        return ({"bf16": 2 * L * B * T_ * D * (2 * D + 3 * KS)},
                 3 * 2 * B * T_ * D + 4 * (L - 1) * B * T_ * D
                 + L * B * T_ * D // 4 + 2 * 4 * L * (D * D + (KS + 3) * D))
 
     def mha_fwd_work(T_, keys):  # qkv written in bf16, att in fp32
-        return (8 * B * T_ * D * D + 4 * keys * D,
+        return ({"bf16": 8 * B * T_ * D * D + 4 * keys * D},
                 2 * 2 * B * T_ * D + (2 * 3 + 4) * B * T_ * D + 4 * B * T_
                 + 4 * (4 * D * D + 8 * D))
 
     def mha_bwd_work(T_, keys):  # qkv read in bf16, att in fp32
-        return (16 * B * T_ * D * D + 10 * keys * D,
+        return ({"bf16": 16 * B * T_ * D * D + 10 * keys * D},
                 3 * 2 * B * T_ * D + 2 * 3 * B * T_ * D
                 + 4 * (B * T_ * D + B * T_) + 2 * 4 * (4 * D * D + 8 * D))
 
     def attn_fwd_work(T_, keys):  # qkv read in bf16, att written in fp32
-        return 4 * keys * D, 2 * 3 * B * T_ * D + 4 * B * T_ * D + 4 * B * T_
+        return {"bf16": 4 * keys * D}, 2 * 3 * B * T_ * D + 4 * B * T_ * D + 4 * B * T_
 
     def prologue_work(T_):  # x_l read (bf16, then fp32), d written in bf16
-        return (2 * L * B * T_ * D * (KS + 4),
+        return ({"bf16": 2 * L * B * T_ * D * (KS + 4)},
                 (2 + 4 * (L - 1) + 2 * L) * B * T_ * D + 4 * L * (KS + 2) * D)
 
     # 1. #2c wide: the video stream's [B, T, D], plain draws, drop 0.2
@@ -3533,7 +3573,7 @@ def saturated_kernel_rows(dev, max_w):
         shape=[B, T, D], equal_bits_twice=twice,
         plan=K.conv_wide_plan(B, T, D, KS, L)._asdict(),
         parts_named={"prologue_device_ms": "conv_wide_d_kernel"},
-        prologue_bound_ms=bound(*prologue_work(T), PEAK_BF16_FLOPS)[0],
+        prologue_bound_ms=bound(*prologue_work(T))[0],
         route_serve=K.conv_route(T, D, KS, L, False, bf),
         route_train=K.conv_route(T, D, KS, L, True, bf),
         query_case={"shape": [B, max_w, D],
@@ -3628,7 +3668,7 @@ def saturated_kernel_rows(dev, max_w):
         *mha_fwd_work(T, keys), shape=[B, T, D], heads=heads,
         equal_bits_twice=twice, plan=K.mha_wide_plan(B, T, D, heads)._asdict(),
         parts_named={"attention_device_ms": "attn_fwd_wide_kernel"},
-        attention_bound_ms=bound(*attn_fwd_work(T, keys), PEAK_BF16_FLOPS)[0],
+        attention_bound_ms=bound(*attn_fwd_work(T, keys))[0],
         attention_cases=att_readings, library_ms=sdpa["ms"],
         library_device_ms=sdpa["device_ms"],
         library="SDPA in bf16, forward, at %s, drop 0 (the attention part)"
@@ -3691,22 +3731,22 @@ def gemm_kernel_rows(dev):
         ("tc_gemm_bf16", 1092, lambda: K.launch_tc_gemm_bf16(a, b, True),
          lambda: K.tc_gemm_plain(a, b, True), lambda: torch.matmul(a, b.t()),
          lambda c: G.fp64_reading(c, a, b, True),
-         lambda: G.mma_product(lib, a, b, True), 2 * M * D * D,
+         lambda: G.mma_product(lib, a, b, True), {"bf16": 2 * M * D * D},
          2 * M * D + 2 * D * D + 4 * M * D, {"shape": [M, D, D], "bt": True}),
         ("wgrad_bf16", 1089, lambda: K.launch_wgrad_bf16(wa, wb, S),
          lambda: K.wgrad_plain(wa, wb), lambda: torch.matmul(wa.transpose(1, 2), wb),
          lambda c: G.fp64_reading(c, wa, wb, batched=True),
          lambda: G.mma_wgrad(lib, wa, wb, K._wgrad_splits(L, D, D, M)),
-         2 * L * M * D * D, 2 * 2 * L * M * D + 4 * L * D * D,
+         {"bf16": 2 * L * M * D * D}, 2 * 2 * L * M * D + 4 * L * D * D,
          {"shape": [L, M, D, D], "splits": S})]
-    for name, line, fn, plain, cublas, reading, mma, flops, nbytes, extra in products:
+    for name, line, fn, plain, cublas, reading, mma, work, nbytes, extra in products:
         got, again = fn(), fn()
         fp64 = {"kernel": reading(got), "mma_sync_form": reading(mma())}
         ok, why = G.fp64_verdict(fp64["kernel"], fp64["mma_sync_form"])
         check(ok, "%s: %s" % (name, why))
         check(torch.equal(got, again), "%s: two equal calls differ" % name)
         bf16_timed_row(rows, name, "mma.cuh", line, scaled_err(got, plain()), TOL,
-                       fn, plain, flops, nbytes, fp64=fp64, equal_bits_twice=True,
+                       fn, plain, work, nbytes, fp64=fp64, equal_bits_twice=True,
                        library="torch.matmul of the bf16 operands, bf16 out (cuBLAS)",
                        **extra)
         library.append(cublas)

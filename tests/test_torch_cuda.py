@@ -1143,8 +1143,12 @@ def test_cuda_lstm_bf16_matches_twin(cuda, T, B, H):
 @pytest.mark.parametrize("B,T,D", [(16, 128, 128), (16, 12, 128), (2, 13, 16),
                                    (16, 30, 128)])
 def test_cuda_conv_block_bf16_matches_twin(cuda, B, T, D, rate):
-    """Both forms, whole-row and T-tiled, against the twin; they do the
-    same arithmetic in the same order, so their bits are equal."""
+    """Both forms, whole-row and T-tiled, against the twin and against an
+    fp64 evaluation of the same function (the twin with its bf16 rounding
+    points and every other value in float64), each within BF16_TOL and
+    BF16_SHARE_TOL; the tiled form's product runs on the tensor cores,
+    another order of sums than the whole-row form's fmaf chain, so their
+    bits may differ. Equal calls give equal bits."""
     rng = np.random.default_rng(32)
     x, *w = _conv_inputs(rng, B, T, D)
     args = [_t(x).to(cuda, BF16)] + [_t(a).to(cuda) for a in w]
@@ -1157,13 +1161,19 @@ def test_cuda_conv_block_bf16_matches_twin(cuda, B, T, D, rate):
     torch.cuda.synchronize()
     for name in ("conv_block_fwd_bf16", "conv_block_fwd_tiled_bf16"):
         assert kernels.LAUNCHES[name] == before[name] + 1
-    assert whole.dtype == BF16 and xs.dtype == torch.float32
+    assert whole.dtype == BF16 and tiled.dtype == BF16
+    assert xs.dtype == torch.float32
     assert mask.dtype == torch.uint8 and mask.shape == (4, B, T, D // 4)
-    assert _scaled(whole, ref) <= BF16_TOL
     ref32 = kernels.conv_block_plain(args[0].float(), *args[1:], **drop)
-    assert _share(whole, ref) <= BF16_SHARE_TOL < _share(ref32.to(BF16), ref)
-    assert torch.equal(whole, tiled)
+    ref64 = kernels.conv_block_plain(*args, **drop,
+                                     residual_dtype=torch.float64)
+    for out in (whole, tiled):
+        for r in (ref, ref64):
+            assert _scaled(out, r) <= BF16_TOL
+            assert _share(out, r) <= BF16_SHARE_TOL < _share(ref32.to(BF16), r)
     assert torch.equal(whole, kernels.launch_conv_block_fwd(*args, **drop))
+    assert torch.equal(tiled, kernels.launch_conv_block_fwd_tiled(
+        *args, **drop)[0])
 
 
 @pytest.mark.cuda
@@ -1581,6 +1591,125 @@ def test_cuda_conv_block_fwd_tiled_bf16_mask_bits(cuda, B, T):
         differ += int(flips.sum())
     assert worst <= MASK_KINK and differ <= MASK_FLIPS * L * B * T * D, \
         (differ, worst)
+
+
+# --- #2c and #3b on the tensor cores (conv_layer_fwd_tc_tiled_kernel;
+# mha_proj_tc_kernel and attn_fwd_tc_kernel): the forwards through their
+# launch wrappers at the paths' shapes (the conv block at T = 128, path M's
+# 192 and path L's 1024; the MHA block at T = 128 and the query stream's
+# 12) and at small ragged ones (head dims 8-64, T up to the block route's
+# 200 at D = 16, a fully masked row), drop 0 and 0.2, held to the twin and
+# to an fp64 evaluation of the same function (bench/bf16_vjp.py
+# block_fwd_read, block_fwd_verdict: BF16_TOL and BF16_SHARE_TOL as above)
+BLOCK_FWD_TC_SHAPES = [
+    ("conv", (16, 128, 128)), ("conv", (16, 192, 128)), ("conv", (8, 1024, 128)),
+    ("conv", (2, 13, 16)), ("conv", (4, 30, 128)),
+    ("mha", (16, 128, 128, 8)), ("mha", (16, 12, 128, 8)), ("mha", (3, 10, 16, 2)),
+    ("mha", (4, 40, 128, 4)), ("mha", (2, 64, 128, 2)), ("mha", (4, 145, 128, 8)),
+    ("mha", (2, 200, 16, 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("kind,shape", BLOCK_FWD_TC_SHAPES)
+def test_cuda_block_fwd_tc_matches_twin(cuda, kind, shape, rate):
+    """Each forward within the limits of the twin and of fp64, one launch of
+    its bf16 entry a call, equal bits on two equal calls, finite. The MHA
+    block's saved residuals too: qkv (bf16) against the twin's projection
+    (mha_qkv_plain) within BF16_TOL, differing on at most 1% of the values,
+    and on at most 0.1% by more than one bf16 ulp plus what two fp32 sums
+    of D terms in other orders can differ by (D 2^-22 of the sum of the
+    terms' magnitudes: each sum off by at most D 2^-23 of it, as truncating
+    adds may be; near zero, where the terms cancel, that exceeds an ulp of
+    the value). Beyond that slack lie only the frames whose bf16(y) flipped
+    under the kernel's LayerNorm sums in another order; a fault in a tile
+    or a term moves far more. att within BF16_TOL of the twin's attention
+    on the saved q, k and v."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    rng = np.random.default_rng(45)
+    args, seeds = V.block_fwd_inputs(cuda, rng, kind, shape, rate)
+    if kind == "mha":
+        assert kernels.mha_route(shape[1], shape[2], shape[3], BF16) == "block"
+    kernels.reset_launches()
+    out = V.block_fwd(kind, args, seeds, rate)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {
+        V.BLOCK_FWD_ENTRIES[kind]: 1}
+    assert out.dtype == BF16 and torch.isfinite(out.float()).all()
+    r = V.block_fwd_read(kind, args, seeds, rate, out)
+    ok, why = V.block_fwd_verdict(r)
+    assert ok, (why, r)
+    assert torch.equal(out, V.block_fwd(kind, args, seeds, rate))
+    if kind == "mha":
+        x, mask, gam, beta, wqkv, bqkv, _, _, heads = args
+        _, qkv, att = kernels.launch_mha_block_fwd(*args, seeds, rate)
+        assert qkv.dtype == BF16 and att.dtype == torch.float32
+        ref = kernels.mha_qkv_plain(x, gam, beta, wqkv, bqkv, seeds, rate)
+        got = qkv.float()
+        y = kernels.site_dropout(kernels.layer_norm(x.float(), gam[0], beta[0]),
+                                 seeds, 0x200, rate).to(BF16).float()
+        terms = y.abs() @ wqkv.to(BF16).float().abs() + bqkv.abs()
+        slack = (torch.maximum(got.abs(), ref.abs()) * 2.0 ** -7
+                 + x.shape[-1] * 2.0 ** -22 * terms)
+        beyond = float(((got - ref).abs() > slack).float().mean())
+        assert beyond <= 0.001, beyond
+        assert _share(qkv, ref) <= 0.01, _share(qkv, ref)
+        assert _scaled(got, ref) <= BF16_TOL, _scaled(got, ref)
+        q, k, v = (t.contiguous() for t in got.split(x.shape[-1], dim=-1))
+        att_ref = kernels.attention(q, k, v, mask, heads, seeds, rate, BF16)
+        assert torch.isfinite(att).all() and _scaled(att, att_ref) <= BF16_TOL, \
+            _scaled(att, att_ref)
+
+
+@functools.lru_cache(maxsize=2)
+def _block_fwd_fault_libraries(kind):
+    from vslnet_torch.bench import bf16_vjp as V
+
+    return V.block_fwd_fault_libraries(kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["k16_step_skipped", "chain_group_not_added",
+                                   "b_transpose_flipped", "epilogue_bias_dropped"])
+@pytest.mark.parametrize("kind", ["conv", "mha"])
+def test_cuda_block_fwd_tc_refuses_a_planted_fault(cuda, kind, fault):
+    """Each planted fault of the two forwards' products and epilogues
+    (bench/bf16_vjp.py BLOCK_FWD_FAULT_EDITS: the last k16 step left out,
+    the second group of 4 k16 steps never added, B's fragments loaded
+    untransposed, + bp or + bqkv dropped), built into a copy of the
+    kernel's source, is refused by block_fwd_verdict at the main path's
+    shape and drop 0.2, which passes the kernel on the same inputs."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    shape = (16, 128, 128) if kind == "conv" else (16, 128, 128, 8)
+    args, seeds = V.block_fwd_inputs(cuda, np.random.default_rng(46), kind, shape, 0.2)
+    r = V.block_fwd_read(kind, args, seeds, 0.2, V.block_fwd(kind, args, seeds, 0.2))
+    assert V.block_fwd_verdict(r)[0], r
+    lib = _block_fwd_fault_libraries(kind)[fault]
+    rb = V.block_fwd_read(kind, args, seeds, 0.2,
+                          V.block_fwd_fault(kind, args, seeds, 0.2, lib))
+    ok, why = V.block_fwd_verdict(rb)
+    assert not ok and "beyond the limits" in why, rb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,heads,rate", [(16, 128, 128, 8, 0.2), (16, 12, 128, 8, 0.2),
+                                              (3, 10, 16, 2, 0.0), (2, 64, 128, 2, 0.2)])
+def test_cuda_mha_block_bwd_bf16_from_bf16_qkv_keeps_its_bits(cuda, B, T, D, heads, rate):
+    """#10b on the forward's bf16 qkv gives, bit for bit, what its form
+    that loads fp32 qkv (a copy of mha_block.cu with BLOCK_FP32_QKV_EDITS,
+    the load before the forward stored qkv in bf16) gives on the same
+    values widened to fp32."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    case = V.mha_case(cuda, np.random.default_rng(47), B, T, D, heads, rate)
+    assert case.args[-2].dtype == BF16
+    got = case.kernel()
+    want = V.block_bwd_from_fp32_qkv(case)
+    torch.cuda.synchronize()
+    for name, a, b in zip(V.MHA_NAMES, got, want):
+        assert torch.equal(a, b), name
 
 
 # --- the wide bf16 kernels (#2c, #9c at D = 896 and 1024; #3b, #10b at head

@@ -581,6 +581,43 @@ def wide_bwd_from_fp32_qkv(case):
         K._check = check
 
 
+# #10b from the bf16 forward's bf16 qkv: a copy of mha_block.cu whose bf16
+# backward loads fp32 qkv, as it did before the forward stored qkv in bf16
+BLOCK_FP32_QKV_EDITS = [
+    ("    return launch_attention_bwd_tiles<decltype(hd)::value, kBf16, float, float, XT>(",
+     "    return launch_attention_bwd_tiles<decltype(hd)::value, kBf16, float, float, float>("),
+    ("                           const XT* qkv, const float* att, const XT* g, XT* dx,",
+     "                           const float* qkv, const float* att, const XT* g, XT* dx,"),
+    ("      static_cast<const bf16*>(qkv), att, static_cast<const bf16*>(g),",
+     "      static_cast<const float*>(qkv), att, static_cast<const bf16*>(g),"),
+]
+
+
+def block_bwd_from_fp32_qkv(case):
+    """#10b's outputs for case (mha_case below head dim 128) as its
+    fp32-qkv form computes them: the backward of a copy of mha_block.cu
+    that loads fp32 qkv (BLOCK_FP32_QKV_EDITS), on the case's saved qkv
+    widened to fp32 (the same values)."""
+    from vslnet_torch.bench.common import edited_library
+
+    lib = edited_library("block_fp32_qkv", "mha_block.cu", ["mha_block_bwd_bf16"],
+                         BLOCK_FP32_QKV_EDITS)
+    x, mask, gam, beta, wqkv, bqkv, wd, bd, heads, seeds, rate, g, qkv, att = \
+        case.args
+    q32 = qkv.float()
+    check = K._check
+
+    def fp32_check(name, t, shape, dtype=torch.float32):
+        return check(name, t, shape, torch.float32 if t is q32 else dtype)
+
+    K._check = fp32_check
+    try:
+        return _with_library(lib, lambda: K.launch_mha_block_bwd(
+            x, mask, gam, beta, wqkv, wd, heads, seeds, rate, q32, att, g))
+    finally:
+        K._check = check
+
+
 def _autograd(fn, inputs, n_grad, g):
     """torch's autograd of fn at its inputs: the gradients of the first
     n_grad w.r.t. the cotangent g."""
@@ -928,6 +965,140 @@ def attention_case(dev, rng, B, T, D, heads, rate, flash):
         ATTN_NAMES, lambda: kernel(BF16), plain, args, lambda: kernel(f32),
         lambda: _autograd(fwd_twin, [q, k, v], 3, g), (B, T, D, heads),
         axes={"dq": (1, 0)}, short_row=B - 1, controls=controls)
+
+
+# --- the bf16 block forwards on the tensor cores (#2c, #3b): each output
+# held to its twin (conv_block_plain, mha_block_plain at bf16, cuBLAS's
+# sums) and to an fp64 evaluation of the same function (the twin with its
+# bf16 rounding points kept and every other value in float64), as the card
+# tests hold the forwards: `scaled`, the largest error over max(1, the
+# largest magnitude), within BF16_FWD_TOL; `share`, of the bf16 outputs
+# that differ, within BF16_FWD_SHARE_TOL (tests/test_torch_cuda.py BF16_TOL
+# and BF16_SHARE_TOL: the fp32 function's output differs on 12-15%); and
+# `mean_rel`, the mean error over the mean magnitude, the distance whose
+# mean over draws a change is held to against its parent (tc_bwd_fp64.py
+# --fwd --against).
+BF16_FWD_TOL = 2.0 ** -7
+BF16_FWD_SHARE_TOL = 0.05
+BLOCK_FWD_ENTRIES = {"conv": "conv_block_fwd_tiled_bf16", "mha": "mha_block_fwd_bf16"}
+# planted faults, each an edit of the kernel's source (mma.cuh inlined for
+# the product's): the last k16 step of the product left out, the second
+# group of 4 k16 steps never added, B's fragments loaded untransposed, a
+# term of the epilogue dropped (the conv's + bp, the QKV product's + bqkv)
+TILE_MMA_FAULTS = {
+    "k16_step_skipped": [("      for (int q = 0; q < 4; ++q) {\n        const int k0 = k + 16 * q;\n",
+                          "      for (int q = 0; q < 4; ++q) {\n        const int k0 = k + 16 * q;\n"
+                          "        if (k0 == Dk - 16) continue;\n")],
+    "chain_group_not_added": [
+        ("        for (int e = 0; e < 4; ++e) sum[h][e] = k ? sum[h][e] + c[h][e] : c[h][e];",
+         "        for (int e = 0; e < 4; ++e) sum[h][e] = k ? sum[h][e] : c[h][e];")],
+    "b_transpose_flipped": [("        ldsm_x4_trans(b, W + (size_t)(k0 + (lane & 15)) * ldw",
+                             "        ldsm_x4(b, W + (size_t)(k0 + (lane & 15)) * ldw")],
+}
+BLOCK_FWD_FAULT_EDITS = {
+    "conv": {**TILE_MMA_FAULTS, "epilogue_bias_dropped": [
+        ("      const float a0 = v0 + b2.x, a1 = v1 + b2.y;",
+         "      const float a0 = v0, a1 = v1;")]},
+    "mha": {**TILE_MMA_FAULTS, "epilogue_bias_dropped": [
+        ("                        vsl::pack_bf16(v0 + b2.x, v1 + b2.y);",
+         "                        vsl::pack_bf16(v0, v1);")]},
+}
+BLOCK_FWD_SOURCES = {"conv": "conv_block.cu", "mha": "mha_block.cu"}
+
+
+def block_fwd_inputs(dev, rng, kind, shape, rate):
+    """(args, seeds) of a bf16 block forward at shape: the conv block's x
+    [B, T, D] in bf16 and four layers' fp32 weights (plain draws, so that
+    the ReLU mask varies), or the MHA block's x, a ragged key mask with
+    its last row fully masked and the fp32 weights, and its heads; seeds
+    per row where rate > 0."""
+    if kind == "conv":
+        B, T, D = shape
+        L, KS = 4, 7
+        args = [_t(dev, rng.standard_normal((B, T, D))).to(BF16),
+                _t(dev, 1 + 0.1 * rng.standard_normal((L, D))),
+                _t(dev, 0.1 * rng.standard_normal((L, D))),
+                _t(dev, rng.standard_normal((L, KS, D)) / math.sqrt(KS)),
+                _t(dev, rng.standard_normal((L, D, D)) / math.sqrt(D)),
+                _t(dev, 0.1 * rng.standard_normal((L, D)))]
+    else:
+        B, T, D, heads = shape
+        lens = np.concatenate([rng.integers(1, T + 1, B - 1), [0]])
+        args = [_t(dev, rng.standard_normal((B, T, D))).to(BF16),
+                _t(dev, np.arange(T)[None, :] < lens[:, None]),
+                _t(dev, 1 + 0.1 * rng.standard_normal((2, D))),
+                _t(dev, 0.1 * rng.standard_normal((2, D))),
+                _t(dev, rng.standard_normal((D, 3 * D)) / math.sqrt(D)),
+                _t(dev, 0.1 * rng.standard_normal(3 * D)),
+                _t(dev, rng.standard_normal((D, D)) / math.sqrt(D)),
+                _t(dev, 0.1 * rng.standard_normal(D)), heads]
+    seeds = _t(dev, rng.integers(0, 1 << 23, (shape[0], 1))) if rate else None
+    return args, seeds
+
+
+def block_fwd(kind, args, seeds, rate):
+    """The bf16 forward kernel's output through its launch wrapper."""
+    if kind == "conv":
+        return K.launch_conv_block_fwd_tiled(*args, seeds, rate)[0]
+    return K.launch_mha_block_fwd(*args, seeds, rate)[0]
+
+
+def block_fwd_twin(kind, args, seeds, rate, work=torch.float32, plain=None):
+    """The forward's twin at bf16, its products and residuals in `work`
+    (float64: the fp64 evaluation); plain: a tree's ops/kernels.py (this
+    one's by default)."""
+    plain = plain or K
+    fn = plain.conv_block_plain if kind == "conv" else plain.mha_block_plain
+    return fn(*args, seeds, rate, residual_dtype=work)
+
+
+def block_fwd_reading(out, ref):
+    """{scaled, share, mean_rel} of a bf16 output against ref."""
+    o, r = out.double(), ref.double()
+    return {"scaled": float((o - r).abs().max() / max(1.0, float(r.abs().max()))),
+            "share": float((out != ref.to(out.dtype)).float().mean()),
+            "mean_rel": float((o - r).abs().mean() / r.abs().mean().clamp_min(1e-30))}
+
+
+def block_fwd_read(kind, args, seeds, rate, out, plain=None):
+    """{"kernel": against the twin, "fp64": against the fp64 evaluation,
+    "twin_fp64": the twin against it} of the forward's output out."""
+    twin = block_fwd_twin(kind, args, seeds, rate, plain=plain)
+    f64 = block_fwd_twin(kind, args, seeds, rate, torch.float64, plain)
+    return {"kernel": block_fwd_reading(out, twin), "fp64": block_fwd_reading(out, f64),
+            "twin_fp64": block_fwd_reading(twin, f64)}
+
+
+def block_fwd_verdict(r):
+    """(ok, reason): scaled and share within their limits against the twin
+    and against fp64."""
+    for against in ("kernel", "fp64"):
+        got = r[against]
+        if not (got["scaled"] <= BF16_FWD_TOL and got["share"] <= BF16_FWD_SHARE_TOL):
+            return False, "beyond the limits against the %s: %s" % (
+                "twin" if against == "kernel" else "fp64 evaluation", got)
+    return True, ""
+
+
+def block_fwd_fault_libraries(kind):
+    """{fault: the kernel library with the bf16 forward of `kind` from a
+    copy of its source with BLOCK_FWD_FAULT_EDITS[kind][fault]}, the
+    copies built at once."""
+    from vslnet_torch.bench.common import build_copies, edited_source, library_with
+
+    edits = BLOCK_FWD_FAULT_EDITS[kind]
+    copies = build_copies({
+        "fwd_%s_%s" % (kind, fault): edited_source(
+            "fwd_%s_%s" % (kind, fault), BLOCK_FWD_SOURCES[kind], e, inline=("mma.cuh",))
+        for fault, e in edits.items()})
+    return {fault: library_with(copies["fwd_%s_%s" % (kind, fault)],
+                                [BLOCK_FWD_ENTRIES[kind]]) for fault in edits}
+
+
+def block_fwd_fault(kind, args, seeds, rate, lib):
+    """The forward's output with a planted fault (lib: one of
+    block_fwd_fault_libraries(kind))."""
+    return _with_library(lib, lambda: [block_fwd(kind, args, seeds, rate)])[0]
 
 
 KINDS = ("lstm", "conv", "conv_tiled", "mha", "mha_whole", "flash",

@@ -80,6 +80,54 @@ def kernel_counts(fn, reps=3):
     return out
 
 
+# H100 SXM peaks (NVIDIA data sheet, 700 W), FLOP/s by operand type: fp32
+# outside the tensor cores, bf16 on them (dense); the memory rate is
+# K.HBM_BYTES_PER_S
+PEAK_FLOPS = {"fp32": 67e12, "bf16": K.PEAK_BF16_FLOPS}
+
+
+def bound_ms(work, nbytes):
+    """(the least ms the card could take for a function, "operations" or
+    "bytes"): work {"fp32" or "bf16": the FLOPs done at that type's peak},
+    nbytes the bytes it must move (each input read once, each output
+    written once) over the HBM's rate."""
+    t_ops = sum(f / PEAK_FLOPS[kind] for kind, f in work.items())
+    t_bytes = nbytes / K.HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def conv_fwd_bf16_work(B, T, D, KS, L):
+    """(work, nbytes) of the bf16 conv block forward, the function: the
+    pointwise products on the tensor cores, the depthwise taps in fp32; x
+    read and out written in bf16, the fp32 weights read. The layer inputs
+    and ReLU masks the port's training route keeps are not the function's
+    output and are not counted."""
+    btd = B * T * D
+    return ({"bf16": L * 2 * btd * D, "fp32": L * 2 * btd * KS},
+            2 * 2 * btd + 4 * L * (3 * D + KS * D + D * D))
+
+
+def conv_fwd_bf16_bound(B, T, D, KS, L):
+    """bound_ms of conv_fwd_bf16_work."""
+    return bound_ms(*conv_fwd_bf16_work(B, T, D, KS, L))
+
+
+def mha_fwd_bf16_work(B, T, D, keys):
+    """(work, nbytes) of the bf16 MHA block forward, the function: the two
+    projections and the attention over `keys` keys in all (summed over the
+    rows: a row's unmasked keys, all T for a fully masked row) on the
+    tensor cores; x read and out written in bf16, the key mask and the fp32
+    weights read. The qkv and att the port keeps for the backward are not
+    the function's output and are not counted."""
+    return ({"bf16": 2 * B * T * D * 4 * D + 4 * T * keys * D},
+            2 * 2 * B * T * D + 4 * B * T + 4 * (4 * D * D + 8 * D))
+
+
+def mha_fwd_bf16_bound(B, T, D, keys):
+    """bound_ms of mha_fwd_bf16_work."""
+    return bound_ms(*mha_fwd_bf16_work(B, T, D, keys))
+
+
 def card():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -56,8 +56,19 @@ PYTHONPATH), so that a change's breakdown can be set beside its parent's.
 
     python3 -m vslnet_torch.bench.conv_plans --tiled --bf16
 
-The bf16 T-tiled backward (#9c) at path L's [8, 1024, 128], path M's [16,
-192, 128] and the main path's [16, 128, 128], drop_rate 0.2: the call's
+The bf16 T-tiled forward (#2c) at path L's [8, 1024, 128], path M's [16,
+192, 128] and the main path's [16, 128, 128]: `launch_conv_block_fwd_tiled`
+on bf16 x by kernel (torch.profiler) at drop_rate 0 and 0.2, the call's
+time (CUDA events), its output's sha1 and the bound (bench/common.py
+conv_fwd_bf16_bound); on a tree with the tensor-core forward, each frame
+count of CONV_TILED_FRAMES through the kernel library
+(`tiled_bf16_fwd_runner`: device time, events, equal bits to the default
+plan); and the cycles a call between the layer kernel's barriers and
+phases (thread 0 of tile 1 of row 0, summed over the layers) from a
+stamped copy standing in for the kernel library while the wrapper
+launches it (the tensor-core kernel where conv_block.cu has it, else the
+parent's FMA kernel). Then the bf16 T-tiled backward (#9c) at the same
+shapes, drop_rate 0.2: the call's
 device time by kernel (torch.profiler: the layers, the partials' sum,
 the dwp product and its sum, the wrapper's own copies), its time by CUDA
 events, and the cycles a call between the layer kernel's barriers and
@@ -81,7 +92,8 @@ import sys
 
 import numpy as np
 
-from vslnet_torch.bench.common import build_copy, by_kernel, card, cuda_ms
+from vslnet_torch.bench import common
+from vslnet_torch.bench.common import build_copies, build_copy, by_kernel, card, cuda_ms
 from vslnet_torch.ops import kernels as K
 
 L, KS, D, B = 4, 7, 128, 16
@@ -249,7 +261,7 @@ def instrumented_tiled(src, kernel="bwd"):
     for i in range(first, last):
         code = lines[i].split("//")[0]
         opens = orig[i].startswith("  // ") and not orig[i - 1].startswith("  //")
-        if "__syncthreads();" in code or opens or (kernel == "fwd" and i == last - 1):
+        if "__syncthreads();" in code or opens or (kernel.startswith("fwd") and i == last - 1):
             lines[i] = code.rstrip() + stamp % len(at)
             at.append(i + 1)
     body_open = next(i for i in range(first, last) if lines[i].endswith(") {"))
@@ -419,8 +431,36 @@ class _Renamed:
         return getattr(self.lib, name.replace("vsl_", self.tag + "_", 1))
 
 
+def tiled_bf16_fwd_runner(args, seeds, rate, frames, sn):
+    """A call of the bf16 tiled forward's entry on `frames` frames a tile
+    and slices of `sn` columns through the kernel library: (out, xs,
+    mask)."""
+    import torch
+
+    x, gam, beta, dw, wp, bp = args
+    B, T, D = x.shape
+    L, KS = dw.shape[:2]
+    sp, thresh, scale = K._dropout_args("conv_block_fwd_tiled_bf16", seeds, rate, B)
+    wpb = wp.to(torch.bfloat16).contiguous()
+    out, xs = torch.empty_like(x), torch.empty(max(L - 1, 1), B, T, D, device=x.device)
+    mask = torch.empty(L, B, T, D // 4, device=x.device, dtype=torch.uint8)
+    fn = K._library().vsl_conv_block_fwd_tiled_bf16
+
+    def run():
+        code = fn(x.data_ptr(), gam.data_ptr(), beta.data_ptr(), dw.data_ptr(),
+                  wpb.data_ptr(), bp.data_ptr(), sp, thresh, scale, xs.data_ptr(),
+                  mask.data_ptr(), out.data_ptr(), B, T, D, L, KS, frames, sn,
+                  torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError("vsl_conv_block_fwd_tiled_bf16: error %d" % code)
+        return out, xs, mask
+    return run
+
+
 def tiled_bf16_main():
     """The --tiled --bf16 rows (module docstring)."""
+    import hashlib
+
     import torch
 
     smi = card()
@@ -428,17 +468,73 @@ def tiled_bf16_main():
     rng = np.random.default_rng(0)
     src = (K.CSRC / "conv_block.cu").read_text()
     kernel = "bwd_tc" if "conv_layer_bwd_tc_tiled_kernel(const " in src else "bwd"
+    fwd_kernel = "fwd_tc" if "conv_layer_fwd_tc_tiled_kernel(const " in src else "fwd"
     prof_src, stamped = instrumented_tiled(src, kernel)
-    prof = build_copy("tiled_bf16_prof", prof_src)
-    for name in ("conv_block_fwd_tiled_bf16", "conv_block_bwd_tiled_bf16"):
-        fn = getattr(prof, "tprof_" + name)
-        fn.argtypes = K._SIGNATURES["vsl_" + name]
-        fn.restype = ctypes.c_int
-    prof.tprof_read.argtypes = [ctypes.c_void_p]
-    prof.tprof_read.restype = ctypes.c_int
+    fprof_src, fstamped = instrumented_tiled(src, fwd_kernel)
+    copies = build_copies({"tiled_bf16_prof": prof_src, "tiled_bf16_fwd_prof": fprof_src})
+    prof, fprof = copies["tiled_bf16_prof"], copies["tiled_bf16_fwd_prof"]
+    for lib in (prof, fprof):
+        for name in ("conv_block_fwd_tiled_bf16", "conv_block_bwd_tiled_bf16"):
+            fn = getattr(lib, "tprof_" + name)
+            fn.argtypes = K._SIGNATURES["vsl_" + name]
+            fn.restype = ctypes.c_int
+        lib.tprof_read.argtypes = [ctypes.c_void_p]
+        lib.tprof_read.restype = ctypes.c_int
 
     def t(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    bound = getattr(common, "conv_fwd_bf16_bound", None)
+    fwd_plan = getattr(K, "conv_tiled_fwd_bf16_plan", K.conv_tiled_fwd_plan)
+    # the forward (#2c): by kernel at drop 0 and 0.2, then its frames a tile
+    # and stamps at 0.2
+    for B, T in ((8, 1024), (16, 192), (16, 128)):
+        args = [t(rng.standard_normal((B, T, D))).to(torch.bfloat16),
+                t(1 + 0.1 * rng.standard_normal((L, D))),
+                t(0.1 * rng.standard_normal((L, D))),
+                t(rng.standard_normal((L, KS, D)) / math.sqrt(KS)),
+                t(rng.standard_normal((L, D, D)) / math.sqrt(D)),
+                t(0.1 * rng.standard_normal((L, D)))]
+        seeds = t(rng.integers(0, 1 << 23, (B, 1)))
+        plan = fwd_plan(B, T, D, KS, L)
+        for rate in (0.0, 0.2):
+            def call():
+                return K.launch_conv_block_fwd_tiled(*args, seeds, rate)
+
+            parts = by_kernel(call)
+            out = call()
+            print(json.dumps({
+                "bench": "conv_plans", "card": smi, "kernel": "tiled forward bf16",
+                "shape": [B, T, D], "drop_rate": rate, "plan": plan._asdict(),
+                "device_ms": sum(parts.values()), "by_kernel": parts, "ms": cuda_ms(call),
+                "out_sha1": hashlib.sha1(out[0].float().cpu().numpy().tobytes()).hexdigest(),
+                **({"bound_ms": bound(B, T, D, KS, L)[0]} if bound else {})}), flush=True)
+        want = [x.clone() for x in call()]
+        if fwd_kernel == "fwd_tc":
+            for frames in sorted({min(T, f) for f in K.CONV_TILED_FRAMES}):
+                run = tiled_bf16_fwd_runner(args, seeds, 0.2, frames, plan.slice)
+                parts = by_kernel(run)
+                got = run()
+                print(json.dumps({
+                    "bench": "conv_plans", "card": smi, "kernel": "tiled forward bf16",
+                    "shape": [B, T, D], "drop_rate": 0.2, "frames": frames,
+                    "default": frames == plan.frames, "device_ms": sum(parts.values()),
+                    "ms": cuda_ms(run), "equal_bits_to_default": all(
+                        torch.equal(a, b) for a, b in zip(got, want))}), flush=True)
+        lib = K._library()
+        K._LIB = _Renamed(fprof, "tprof")  # the stamped copy, through the wrapper
+        try:
+            cycles = stamp_cycles(call, fprof.tprof_read, fstamped)
+            got = call()
+            torch.cuda.synchronize()
+        finally:
+            K._LIB = lib
+        print(json.dumps({
+            "bench": "conv_plans", "card": smi, "kernel": "tiled forward bf16",
+            "shape": [B, T, D], "drop_rate": 0.2, "cta": "tile 1 of row 0",
+            "cycles_to_each_stamp_over_the_layers": cycles, "cycles_total": sum(cycles.values()),
+            "stamped_equal_bits": all(torch.equal(a, b) for a, b in zip(want, got))}),
+            flush=True)
 
     for B, T in ((8, 1024), (16, 192), (16, 128)):
         args = [t(rng.standard_normal((B, T, D))).to(torch.bfloat16),

@@ -25,8 +25,8 @@ import sys
 
 import numpy as np
 
-from vslnet_torch.bench.common import (build_copies, build_copy, by_kernel, card, cuda_ms,
-                                       edited_source, library_with, with_library)
+from vslnet_torch.bench.common import (bound_ms, build_copies, build_copy, by_kernel, card,
+                                       cuda_ms, edited_source, library_with, with_library)
 from vslnet_torch.ops import kernels as K
 
 # (name, M, N, K, bt): tc_gemm at `saturated`'s [256, 128, 1024] (M = B T)
@@ -160,10 +160,6 @@ def operands(dev, rng, *shapes):
             for s in shapes]
 
 
-def bound_ms(flops, nbytes):
-    return max(flops / K.PEAK_BF16_FLOPS, nbytes / K.HBM_BYTES_PER_S) * 1e3
-
-
 def device_ms(fn, bound):
     """by_kernel's device ms a call of fn, the profile taken again once
     where it came back empty or below `bound` (a record lost, PERF.md §7);
@@ -194,7 +190,7 @@ def product_row(dev, rng, lib, name, M, N, Kk, bt):
     torch.cuda.synchronize()
     again = kernel()
     flops = 2 * M * N * Kk
-    bound = bound_ms(flops, 2 * (M * Kk + N * Kk) + 4 * M * N)
+    bound = bound_ms({"bf16": flops}, 2 * (M * Kk + N * Kk) + 4 * M * N)[0]
     ms = cuda_ms(kernel)
     dev_ms = device_ms(kernel, bound)
     row = {"kind": "tc_gemm", "name": name, "M": M, "N": N, "K": Kk, "bt": bt, "ms": ms,
@@ -224,7 +220,7 @@ def wgrad_row(dev, rng, lib, name, Z, M, N, Kk):
     c = kernel()
     torch.cuda.synchronize()
     flops = 2 * Z * M * N * Kk
-    bound = bound_ms(flops, 2 * Z * Kk * (M + N) + 4 * Z * M * N)
+    bound = bound_ms({"bf16": flops}, 2 * Z * Kk * (M + N) + 4 * Z * M * N)[0]
     dev_ms = device_ms(kernel, bound)
     row = {"kind": "wgrad", "name": name, "Z": Z, "M": M, "N": N, "K": Kk, "splits": S,
            "ms": cuda_ms(kernel), "device_ms": dev_ms, "tflops": tflops(flops, dev_ms),

@@ -5,6 +5,7 @@ call spends its time by kernel, and the time of each plan.
     python3 -m vslnet_torch.bench.mha_plans              # the backward
     python3 -m vslnet_torch.bench.mha_plans --forward    # the forward
     python3 -m vslnet_torch.bench.mha_plans --whole-t    # whole-T backward
+    python3 -m vslnet_torch.bench.mha_plans --forward --bf16   # #3b
     python3 -m vslnet_torch.bench.mha_plans [--forward|--whole-t] --by-kernel
 
 At [16, T, 128], 8 heads, ragged key lengths and one fully masked row, for
@@ -44,6 +45,24 @@ The whole-T backward (--whole-t), fused_mha's route on path M, at [16, 192,
   to where its dP and dK products start), thread 0 of CTA 0, from a copy
   of mha_block.cu with clock stamps built into
   vslnet_torch/_build/bench/, keyed by the stamp's line in mha_block.cu.
+The bf16 forward (--forward --bf16, #3b) at T = 128 and 12, drop 0 and 0.2:
+- `launch_mha_block_fwd` on bf16 x by kernel (torch.profiler), the call's
+  time (CUDA events) and the bound (bench/common.py mha_fwd_bf16_bound);
+- the library calls of its parts in bf16 (by device time; the port never
+  calls them): cuBLAS's [B T, 128] x [128, 384] and x [128, 128]
+  products, SDPA's forward at [16, 8 heads, T, 16] with the key mask;
+- #10b at the same T (`launch_mha_block_bwd` on bf16 x and g) by kernel,
+  fed qkv and att computed by the plain ops (bf16(y . bf16(Wqkv) + bqkv)
+  and `attention` at bf16), the same values whatever tree runs it, so
+  that `grads_sha1` can be set beside a parent's; and #11b (`launch_mha_fwd`
+  on bf16 q, k, v) at path M's [16, 192, 128] with `out_sha1`;
+- on a tree with the tensor-core forward, each plan of BF16_FWD_ROWS
+  frames a projection tile and BF16_FWD_COLS columns (`bf16_fwd_plans`)
+  through the kernel library: device time by kernel and whether the
+  output equals the default plan's bit for bit; and the cycles of a call
+  between the stamps of each of its three kernels (thread 0 of the
+  CTA at x, y, z 0, its phases' lines in mha_block.cu) from a stamped
+  copy standing in for the kernel library while the wrapper launches it.
 With --by-kernel only the default calls and the unfused block, which an
 older tree of the port with the same wrappers also runs (put it on
 PYTHONPATH), so that a change's breakdown can be set beside its parent's;
@@ -375,6 +394,201 @@ def forward(emit, rng, dev, only_by_kernel):
                  by_kernel=parts, max_abs_diff_from_default=diff)
 
 
+BF16_FWD_ROWS = [16, 32, 48]
+BF16_FWD_COLS = [128, 64, 32]
+# where the stamped copy takes a clock in each bf16 forward kernel, by the
+# text of the line: the projections' weight copies sent, the LayerNorm's
+# end, the landing barrier and the product's end; the attention's landing
+# barrier, the scores' and softmax's end, v's barrier and p . v's end
+BF16_FWD_STAMPS = {
+    "mha_proj_tc_kernel": ("  vsl::cp_async_commit();", "  vsl::cp_async_wait<0>();",
+                           "  __syncthreads();  // the weight's", "                });"),
+    "attn_fwd_tc_kernel": ("  __syncthreads();\n", "  vsl::cp_async_wait<0>();",
+                           "  __syncthreads();  // v landed", "  float* orow = att"),
+}
+
+
+def bf16_fwd_plans(B, T, D, heads):
+    """Each (rows, QKV columns, dense columns) of BF16_FWD_ROWS and
+    BF16_FWD_COLS whose shared memory fits, as mha_fwd_bf16_plan's fields."""
+    default = K.mha_fwd_bf16_plan(B, T, D, heads)
+    for rows in BF16_FWD_ROWS:
+        for cols in BF16_FWD_COLS:
+            if K._mha_tc_proj_bytes(rows, cols, D) <= K.MAX_SMEM_BYTES:
+                yield default._replace(rows=rows, tiles=-(-B * T // rows), qkv_cols=cols,
+                                       dense_cols=min(cols, D))
+
+
+def bf16_fwd_runner(args, heads, seeds, rate, plan, lib=None):
+    """A call of the bf16 forward's entry on `plan` through the kernel
+    library (or lib): (out, qkv, att)."""
+    import torch
+
+    x, mask, gam, beta, wqkv, bqkv, wd, bd = args
+    B, T, D = x.shape
+    sp, thresh, scale = K._dropout_args("mha_block_fwd_bf16", seeds, rate, B)
+    wqkvb, wdb = (w.to(torch.bfloat16).contiguous() for w in (wqkv, wd))
+    out, att = torch.empty_like(x), torch.empty(B, T, D, device=x.device)
+    qkv = torch.empty(B, T, 3 * D, device=x.device, dtype=torch.bfloat16)
+    fn = (lib or K._library()).vsl_mha_block_fwd_bf16
+
+    def run():
+        code = fn(x.data_ptr(), mask.data_ptr(), gam.data_ptr(), beta.data_ptr(),
+                  wqkvb.data_ptr(), bqkv.data_ptr(), wdb.data_ptr(), bd.data_ptr(), sp,
+                  thresh, scale, qkv.data_ptr(), att.data_ptr(), out.data_ptr(), B, T, D,
+                  heads, plan.rows, plan.qkv_cols, plan.dense_cols,
+                  torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError("vsl_mha_block_fwd_bf16: error %d" % code)
+        return out, qkv, att
+    return run
+
+
+def bf16_stamped(src):
+    """(mha_block.cu with clock stamps, thread 0 of the CTA at x, y, z 0, in
+    each kernel of BF16_FWD_STAMPS, its entry points renamed mprof_ and
+    mprof_read(h) added; {kernel: the stamps' lines})."""
+    lines = src.split("\n")
+    stamp = (" { if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)"
+             " { long long now = clock64(); g_prof[%d] += now - plast; plast = now; } }")
+    at, n = {}, 0
+    for kernel, marks in BF16_FWD_STAMPS.items():
+        first = next(i for i, ln in enumerate(lines) if ln.startswith(kernel + "("))
+        last = lines.index("}", first)
+        at[kernel] = []
+        for mark in marks:
+            one = mark.rstrip("\n")
+            i = next(i for i in range(first, last)
+                     if lines[i].startswith(one) and (mark[-1] != "\n" or lines[i] == one))
+            lines[i] = lines[i].split("//")[0].rstrip() + stamp % n
+            at[kernel].append((n, i + 1))
+            n += 1
+        body = next(i for i in range(first, last) if lines[i].endswith(") {"))
+        lines[body] += "\n  long long plast = clock64();"
+    src = "\n".join(lines).replace('#include "hash.cuh"\n', '#include "hash.cuh"\n'
+                                   "__device__ unsigned long long g_prof[64];\n", 1)
+    return src.replace('extern "C" int vsl_', 'extern "C" int mprof_') + r'''
+extern "C" int mprof_read(unsigned long long* h) {
+  const int err = (int)cudaMemcpyFromSymbol(h, g_prof, sizeof(g_prof));
+  unsigned long long z[64] = {0};
+  return err ? err : (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));
+}
+''', at
+
+
+def forward_bf16(emit, rng, dev, only_by_kernel):
+    """The --forward --bf16 rows (module docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    tc = hasattr(K, "mha_fwd_bf16_plan")
+    stamped = None
+    if tc and not only_by_kernel:
+        src, at = bf16_stamped((K.CSRC / "mha_block.cu").read_text())
+        stamped = (build_copy("mha_fwd_bf16_prof", src), at)
+    for T in (128, 12):
+        x, mask, gam, beta, wqkv, bqkv, wd, bd, seeds, g = inputs(rng, dev, T)
+        args = [x.to(bf), mask, gam, beta, wqkv, bqkv, wd, bd]
+        lens = mask.sum(dim=1)
+        keys = int(torch.where(lens > 0, lens, torch.full_like(lens, T)).sum())
+        bound = getattr(common, "mha_fwd_bf16_bound", None)
+        for rate in (0.0, RATE):
+            def call():
+                return K.launch_mha_block_fwd(*args, HEADS, seeds, rate)
+
+            parts = by_kernel(call)
+            emit(direction="forward", dtype="bf16", shape=[B, T, D], heads=HEADS,
+                 drop_rate=rate, call_ms=cuda_ms(call), device_ms=sum(parts.values()),
+                 by_kernel=parts, out_sha1=digest([call()[0].float()]),
+                 **({"bound_ms": bound(B, T, D, keys)[0]} if bound else {}))
+        # the parts' library calls in bf16, by device time
+        a = torch.randn(B * T, D, device=dev, dtype=bf)
+        w3, w1 = (torch.randn(D, n, device=dev, dtype=bf) for n in (3 * D, D))
+        qh, kh, vh = (torch.randn(B, HEADS, T, D // HEADS, device=dev, dtype=bf)
+                      for _ in range(3))
+        am = mask.bool()[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
+
+        emit(direction="forward", dtype="bf16", library="parts", shape=[B, T, D],
+             cublas_qkv_device_ms=sum(by_kernel(lambda: a @ w3).values()),
+             cublas_dense_device_ms=sum(by_kernel(lambda: a @ w1).values()),
+             sdpa_device_ms=sum(by_kernel(sdpa).values()), sdpa_ms=cuda_ms(sdpa))
+        # #10b at this T from qkv and att the plain ops compute
+        y = K.site_dropout(K.layer_norm(args[0].float(), gam[0], beta[0]), seeds, 0x200, RATE)
+        qkv = (y.to(bf).float() @ wqkv.to(bf).float() + bqkv).to(bf)
+        q, k, v = (t.contiguous() for t in qkv.float().split(D, dim=-1))
+        att = K.attention(q, k, v, mask, HEADS, seeds, RATE, dtype=bf)
+        gb = g.to(bf)
+        try:
+            K._check("mha_block_bwd_bf16", qkv, qkv.shape, bf)
+            K.launch_mha_block_bwd(args[0], mask, gam, beta, wqkv, wd, HEADS, seeds, RATE,
+                                   qkv, att, gb)
+            qkv_in = qkv
+        except (ValueError, TypeError):  # a tree whose backward reads fp32 qkv
+            qkv_in = qkv.float()
+
+        def bwd():
+            return K.launch_mha_block_bwd(args[0], mask, gam, beta, wqkv, wd, HEADS, seeds,
+                                          RATE, qkv_in, att, gb)
+
+        parts = by_kernel(bwd)
+        emit(direction="backward", dtype="bf16", shape=[B, T, D], heads=HEADS,
+             drop_rate=RATE, call_ms=cuda_ms(bwd), device_ms=sum(parts.values()),
+             by_kernel=parts, qkv_dtype=str(qkv_in.dtype),
+             grads_sha1=digest([t.float() for t in bwd()]))
+        if stamped is None:
+            continue
+        default = K.mha_fwd_bf16_plan(B, T, D, HEADS)
+        ref = K.launch_mha_block_fwd(*args, HEADS, seeds, RATE)
+        for plan in bf16_fwd_plans(B, T, D, HEADS):
+            run = bf16_fwd_runner(args, HEADS, seeds, RATE, plan)
+            parts = by_kernel(run)
+            emit(direction="forward", dtype="bf16", shape=[B, T, D], plan=plan._asdict(),
+                 default=plan == default, drop_rate=RATE, device_ms=sum(parts.values()),
+                 by_kernel=parts, equal_bits_to_default=all(
+                     torch.equal(a_, b_) for a_, b_ in zip(run(), ref)))
+        from vslnet_torch.bench.conv_plans import _Renamed
+
+        lib, at = stamped
+        lib.mprof_read.argtypes = [ctypes.c_void_p]
+        lib.mprof_mha_block_fwd_bf16.argtypes = K._SIGNATURES["vsl_mha_block_fwd_bf16"]
+        lib.mprof_mha_block_fwd_bf16.restype = ctypes.c_int
+        stamps = (ctypes.c_ulonglong * 64)()
+        run = bf16_fwd_runner(args, HEADS, seeds, RATE, default,
+                              _Renamed(lib, "mprof"))
+        run()
+        torch.cuda.synchronize()
+        lib.mprof_read(stamps)
+        reps = 5
+        for _ in range(reps):
+            got = run()
+        torch.cuda.synchronize()
+        lib.mprof_read(stamps)
+        emit(direction="forward", dtype="bf16", shape=[B, T, D], drop_rate=RATE,
+             cta="x, y, z 0", cycles_to_each_stamp={
+                 kernel: {"mha_block.cu:%d" % line: stamps[k] / reps for k, line in marks}
+                 for kernel, marks in at.items()},
+             stamped_equal_bits=all(torch.equal(a_, b_) for a_, b_ in zip(got, ref)))
+    # #11b at path M, q, k, v in bf16
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, 192, D)).astype(np.float32))
+               .to(dev, bf) for _ in range(3))
+    lens = list(rng.integers(1, 193, B - 1)) + [0]
+    m = torch.from_numpy((np.arange(192)[None, :] < np.asarray(lens)[:, None])
+                         .astype(np.float32)).to(dev)
+    sd = torch.from_numpy(rng.integers(0, 1 << 23, (B, 1)).astype(np.float32)).to(dev)
+
+    def whole():
+        return K.launch_mha_fwd(q, k, v, m, HEADS, sd, RATE)
+
+    parts = by_kernel(whole)
+    emit(direction="forward", dtype="bf16", kernel="whole-T (#11b)", shape=[B, 192, D],
+         drop_rate=RATE, device_ms=sum(parts.values()), by_kernel=parts,
+         out_sha1=digest([whole().float()]))
+
+
 def unfused_backward_ms(x, mask, gam, beta, wqkv, bqkv, wd, bd, seeds, g):
     """The backward of mha_block_unfused at these inputs, forward +
     backward minus forward: (CUDA events, device time of the kernels)."""
@@ -411,6 +625,9 @@ def main(argv):
         print(json.dumps({"bench": "mha_plans", "card": smi, **row}),
               flush=True)
 
+    if "--forward" in argv and "--bf16" in argv:
+        forward_bf16(emit, rng, dev, only_by_kernel)
+        return 0
     if "--forward" in argv:
         forward(emit, rng, dev, only_by_kernel)
         return 0

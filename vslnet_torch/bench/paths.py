@@ -14,7 +14,8 @@ the reference's default run), M (rnn, T = 192, batch 16) and L
 (transformer, T = 1024, batch 8), each on a synthetic dataset of its T
 (videos of T/2..T clips of 1024-d features, queries of 3-12 words). For
 each path, after two warm-ups: a served batch (Localizer.localize_batch)
-and a train step (Trainer.step), the wall ms of three each (synchronised),
+and a train step (Trainer.step), the wall ms of three each (synchronised;
+--wall-reps N: N each, their mean, median and least),
 then one of each through torch.profiler: device ms, its host-to-device
 copies (time, kinds and bytes), device ms without them, the card's idle share, its launches and
 the top kernels. Prints one JSON line a run with the card's name and power
@@ -192,14 +193,22 @@ def profile_device(run, wall_ms):
             "kernel_launches": launches, "kernel_ms": kernel_ms}
 
 
-def wall_ms(run, n=3):
+def wall_samples(run, n=3):
+    """The wall ms of each of n synchronised calls of run()."""
     import torch
 
-    t0 = time.perf_counter()
+    out = []
     for _ in range(n):
+        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / n * 1e3
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def wall_ms(run, n=3):
+    """The mean wall ms of n synchronised calls of run()."""
+    return sum(wall_samples(run, n)) / n
 
 
 def main(argv=None, seed=0):
@@ -210,6 +219,8 @@ def main(argv=None, seed=0):
                         default="fp32")
     parser.add_argument("--paths", default="",
                         help="comma-separated paths to run (default: all)")
+    parser.add_argument("--wall-reps", type=int, default=3,
+                        help="synchronised calls timed on the host's clock")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -249,6 +260,7 @@ def main(argv=None, seed=0):
             for _ in range(2):
                 fn()
             torch.cuda.synchronize()
+            walls = wall_samples(fn, args.wall_reps)
             print(json.dumps({"bench": "paths", "card": smi, "path": path,
                               "run": run, "T": T, "batch": B,
                               "precision": args.precision,
@@ -259,7 +271,9 @@ def main(argv=None, seed=0):
                                                       "vfeats"),
                               "serve_staging": ("pinned" if hasattr(
                                   loc, "_staging") else "pageable"),
-                              **profile_device(fn, wall_ms(fn))}),
+                              "wall_ms_median": float(np.median(walls)),
+                              "wall_ms_min": min(walls),
+                              **profile_device(fn, sum(walls) / len(walls))}),
                   flush=True)
         del loc, trainer
     return 0

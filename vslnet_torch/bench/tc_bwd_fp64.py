@@ -50,27 +50,32 @@ Only the wide backwards' small cases (WIDE_SEEDED: #9c wide at [32, 24,
 values counts a few hundred flips there, so that one draw's ratio to a
 parent's can stray by a quarter.
 
-    python3 -m vslnet_torch.bench.tc_bwd_fp64 --fwd [--seeds 16] [--faults]
+    python3 -m vslnet_torch.bench.tc_bwd_fp64 --fwd [--seeds 16] [--faults] [--kinds lstm,conv,mha]
     PYTHONPATH=<parent> python3 vslnet_torch/bench/tc_bwd_fp64.py --fwd > parent.jsonl
     python3 -m vslnet_torch.bench.tc_bwd_fp64 --fwd --against parent.jsonl
 
-Only the bf16 forwards, #1b's out and #7b's out and acts at [T, 16, 512],
-T = 128 and path M's 192, over 16 draws (seeds 100-115; --seeds sets the
-count; --k8 adds the readings of a copy whose k16 products are two
-m16n8k8 mma each, `kernel_k8`): each output's distance from an fp64
-evaluation of the bf16-rounded function (bench/bf16_vjp.py lstm_fwd_fp64:
-mean error over mean magnitude at the valid positions, this file's
-tree's twin at float64), the kernel's and the twin's, with bf16_vjp's
-verdict (the kernel within the twin's distance plus
-LSTM_FWD_FP64_SLACK). --faults adds, on the
-first draw, each of bf16_vjp's planted faults of the tensor-core forward
-(LSTM_FWD_FAULTS) with its reading and whether the verdict refused it.
---against reads a parent's rows (the same command on the parent tree) and
-prints, for each kernel, T and output, the change's distance over the
-parent's on each draw (range, geometric mean, draws within the ratio) and
-the ratio of their means over the draws, held to 1.25 (ROADMAP C7's rule,
-read on the means: a draw without a flip puts a tree within 1e-6 of fp64,
-so one draw's ratio can read 0.05 or 40).
+Only the bf16 forwards over 16 draws (seeds 100-115; --seeds sets the
+count; --kinds a subset): "lstm", #1b's out and #7b's out and acts at [T,
+16, 512], T = 128 and path M's 192 (--k8 adds the readings of a copy whose
+k16 products are two m16n8k8 mma each, `kernel_k8`); "conv", #2c's out
+at [16, 128, 128], path M's [16, 192, 128] and path L's [8, 1024, 128];
+"mha", #3b's out at [16, 128, 128] and the query stream's [16, 12, 128],
+8 heads (the blocks at drop 0 on even seeds, 0.2 on odd ones). Each
+output's distance from an fp64 evaluation of the bf16-rounded function
+(this file's tree's twin at float64; mean error over mean magnitude, at
+the LSTM's valid positions: bench/bf16_vjp.py lstm_fwd_fp64,
+block_fwd_read), the kernel's and the twin's, with bf16_vjp's verdict (the
+LSTM's kernel within the twin's distance plus LSTM_FWD_FP64_SLACK; a
+block's within BF16_FWD_TOL and BF16_FWD_SHARE_TOL of the twin and of
+fp64). --faults adds, on the first draw of each shape, each of bf16_vjp's
+planted faults of the tensor-core forwards (LSTM_FWD_FAULTS,
+BLOCK_FWD_FAULT_EDITS) with its reading and whether the verdict refused
+it. --against reads a parent's rows (the same command on the parent tree)
+and prints, for each kernel, shape and output, the change's distance over
+the parent's on each draw (range, geometric mean, draws within the ratio)
+and the ratio of their means over the draws, held to 1.25 (ROADMAP C7's
+rule, read on the means: a draw without a flip puts a tree within 1e-6 of
+fp64, so one draw's ratio can read 0.05 or 40).
 """
 import ctypes
 import importlib.util
@@ -99,17 +104,39 @@ def fp64_twins():
     return _own("ops/kernels.py", "tc_bwd_fp64_kernels")
 
 
-def fwd_rows(V, twins, dev, seeds):
-    """(seed, T, entry name, residuals, args, the kernel's fp64 readings)
-    of each --fwd draw: seeds 100 on, T = 128 and 192, #1b and #7b."""
+# the block forwards' shapes of --fwd: the main path's, path M's and path
+# L's conv blocks; the MHA block at T = 128 and the query stream's 12
+BLOCK_FWD_SHAPES = {"conv": [(16, 128, 128), (16, 192, 128), (8, 1024, 128)],
+                    "mha": [(16, 128, 128, 8), (16, 12, 128, 8)]}
+
+
+def fwd_rows(V, twins, dev, seeds, kinds=("lstm", "conv", "mha")):
+    """(seed, shape, entry name, what, args, the fp64 readings {"kernel",
+    "twin": {output: distance}}, the verdict) of each --fwd draw: seeds 100
+    on; #1b and #7b at T = 128 and 192 (what: residuals), the block
+    forwards at BLOCK_FWD_SHAPES (what: (kind, seeds, rate))."""
     for seed in range(100, 100 + seeds):
-        for T in (128, 192):
+        for T in (128, 192) if "lstm" in kinds else ():
             args = V.lstm_fwd_inputs(dev, np.random.default_rng(seed), T, 16, 128)
             for name, residuals in (("lstm_recurrence_fwd_bf16", False),
                                     ("lstm_recurrence_fwd_res_bf16", True)):
                 f = V.lstm_fwd_fp64(args, V.lstm_fwd_outputs(args, residuals),
                                     twins.lstm_recurrence_plain)
-                yield seed, T, name, residuals, args, f
+                yield (seed, (T, 16, 512), name, residuals, args, f,
+                       V.lstm_fwd_fp64_verdict(f))
+        for kind in ("conv", "mha"):
+            if kind not in kinds:
+                continue
+            for shape in BLOCK_FWD_SHAPES[kind]:
+                rate = 0.2 * (seed % 2)
+                args, sd = V.block_fwd_inputs(dev, np.random.default_rng(seed), kind,
+                                              shape, rate)
+                r = V.block_fwd_read(kind, args, sd, rate, V.block_fwd(kind, args, sd, rate),
+                                     twins)
+                f = {"kernel": {"out": r["fp64"]["mean_rel"]},
+                     "twin": {"out": r["twin_fp64"]["mean_rel"]}, "readings": r}
+                yield (seed, shape, V.BLOCK_FWD_ENTRIES[kind], (kind, sd, rate), args, f,
+                       V.block_fwd_verdict(r))
 
 
 def fwd_main(argv, smi, dev):
@@ -123,29 +150,44 @@ def fwd_main(argv, smi, dev):
     V = _own("bench/bf16_vjp.py", "tc_fwd_bf16_vjp")
     twins = fp64_twins()
     seeds = int(argv[argv.index("--seeds") + 1]) if "--seeds" in argv else 16
+    kinds = (argv[argv.index("--kinds") + 1].split(",") if "--kinds" in argv
+             else ("lstm", "conv", "mha"))
     if "--against" in argv:
-        return against(argv[argv.index("--against") + 1], fwd_rows(V, twins, dev, seeds),
-                       V.LSTM_FWD_FP64_RATIO)
-    libs = V.lstm_fwd_fault_libraries() if "--faults" in argv else None
+        return against(argv[argv.index("--against") + 1],
+                       fwd_rows(V, twins, dev, seeds, kinds), V.LSTM_FWD_FP64_RATIO)
+    libs = None
+    if "--faults" in argv:
+        libs = {"lstm": V.lstm_fwd_fault_libraries() if "lstm" in kinds else None,
+                **{k: V.block_fwd_fault_libraries(k) for k in ("conv", "mha") if k in kinds}}
     k8 = None
     if "--k8" in argv:
         k8 = library_with(build_copy("lstm_fwd_k8", fwd_k8_source(
             (V.K.CSRC / "lstm.cu").read_text()).replace('extern "C" int vsl_', 'extern "C" int fault_')),
             V.LSTM_FWD_ENTRIES)
-    for seed, T, name, residuals, args, f in fwd_rows(V, twins, dev, seeds):
-        ok, why = V.lstm_fwd_fp64_verdict(f)
-        row = {"bench": "tc_bwd_fp64", "card": smi, "kernel": name, "shape": [T, 16, 512],
+    for seed, shape, name, what, args, f, (ok, why) in fwd_rows(V, twins, dev, seeds, kinds):
+        lstm = name.startswith("lstm")
+        row = {"bench": "tc_bwd_fp64", "card": smi, "kernel": name, "shape": list(shape),
                "seed": seed, "fp64": f, "verdict": ok, "why": why}
-        if k8 is not None:
-            got = with_library(k8, lambda: V.lstm_fwd_outputs(args, residuals))
+        if not lstm:
+            row["drop_rate"] = what[2]
+        if k8 is not None and lstm:
+            got = with_library(k8, lambda: V.lstm_fwd_outputs(args, what))
             row["kernel_k8"] = V.lstm_fwd_fp64(args, got, twins.lstm_recurrence_plain)["kernel"]
-        if libs is not None and seed == 100:
+        if libs is not None and seed == 100 and lstm:
             row["faults"] = {}
             for fault in V.LSTM_FWD_FAULTS:
-                ff = V.lstm_fwd_fp64(args, V.lstm_fwd_fault(args, fault, residuals, libs),
+                ff = V.lstm_fwd_fp64(args, V.lstm_fwd_fault(args, fault, what, libs["lstm"]),
                                      twins.lstm_recurrence_plain)
                 row["faults"][fault] = {"kernel": ff["kernel"],
                                         "refused": not V.lstm_fwd_fp64_verdict(ff)[0]}
+        if libs is not None and seed == 101 and not lstm:  # drop 0.2
+            kind, sd, rate = what
+            row["faults"] = {}
+            for fault, lib in libs[kind].items():
+                rf = V.block_fwd_read(kind, args, sd, rate,
+                                      V.block_fwd_fault(kind, args, sd, rate, lib), twins)
+                row["faults"][fault] = {"fp64": rf["fp64"],
+                                        "refused": not V.block_fwd_verdict(rf)[0]}
         print(json.dumps(row), flush=True)
         torch.cuda.synchronize()
     return 0
@@ -158,17 +200,19 @@ def against(path, rows, ratio):
     for line in Path(path).read_text().splitlines():
         row = json.loads(line) if line.startswith("{") else {}
         if row.get("bench") == "tc_bwd_fp64" and "fp64" in row:
-            parent[row["kernel"], row["shape"][0], row["seed"]] = row["fp64"]["kernel"]
-    dists = {}  # (kernel, T, output): [(change, parent)] over the draws
-    for seed, T, name, _, _, f in rows:
+            parent[row["kernel"], tuple(row["shape"]), row["seed"]] = row["fp64"]["kernel"]
+    dists = {}  # (kernel, shape, output): [(change, parent)] over the draws
+    for seed, shape, name, _, _, f, _ in rows:
         for n, k in f["kernel"].items():
-            if (name, T, seed) in parent:
-                dists.setdefault((name, T, n), []).append((k, parent[name, T, seed][n]))
-    for (name, T, n), ds in sorted(dists.items()):
-        rs = [k / p for k, p in ds]
+            if (name, tuple(shape), seed) in parent:
+                dists.setdefault((name, tuple(shape), n), []).append(
+                    (k, parent[name, tuple(shape), seed][n]))
+    for (name, shape, n), ds in sorted(dists.items()):
+        rs = [k / p if p else (1.0 if k == p else float("inf")) for k, p in ds]
         mean_ratio = float(np.mean([k for k, _ in ds]) / np.mean([p for _, p in ds]))
         print(json.dumps({"bench": "tc_bwd_fp64", "against": path, "kernel": name,
-                          "T": T, "output": n, "draws": len(rs), "min": min(rs),
+                          "shape": list(shape), "T": shape[0] if name.startswith("lstm")
+                          else shape[1], "output": n, "draws": len(rs), "min": min(rs),
                           "max": max(rs), "geometric_mean": float(np.exp(np.mean(np.log(rs)))),
                           "mean_ratio": mean_ratio, "within": sum(r <= ratio for r in rs),
                           "rule_met": mean_ratio <= ratio}), flush=True)

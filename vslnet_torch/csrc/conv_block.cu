@@ -24,7 +24,9 @@
 // read by the neighbours two layers before, behind the barrier of the
 // layer between. Ragged T (the query stream's max_w) is masked in every
 // stage. The arithmetic, in its order, is the backward's replay and the
-// T-tiled forward's, so the three give equal bits and equal masks.
+// fp32 T-tiled forward's, so at fp32 the three give equal bits and equal
+// masks; at bf16 the T-tiled forward runs its product on the tensor cores
+// (another order of sums) and writes the mask its backward reads.
 //
 // Backward: a thread-block cluster of N CTAs per batch row (plan:
 // ops/kernels.py conv_plan; 6 CTAs of 22 frames at T = 128, so the card
@@ -70,12 +72,16 @@
 // weights in fp32, keeps the residual stream fp32 across all L layers,
 // rounds n = LN(x) to bf16 before the fp32 depthwise, rounds d and wp to
 // bf16 for the pointwise product (fp32 accumulation), and rounds the
-// output to bf16 once, after the last layer. The same forwards, templated:
-// x widened as it is loaded, n rounded as the LayerNorm stores it, d as
-// the depthwise stores it, wp in shared memory once it has landed, the
-// output narrowed as it is stored. The tiled forward's inter-layer stream
-// xs stays fp32, as the TPU kernel's stream does; only the first layer
-// reads bf16 and only the last writes it. Bound as the fp32 forwards are.
+// output to bf16 once, after the last layer. The whole-row forward,
+// templated: x widened as it is loaded, n rounded as the LayerNorm stores
+// it, d as the depthwise stores it, wp in shared memory once it has landed, the
+// output narrowed as it is stored; bound as the fp32 forward is. The tiled
+// forward at bf16 is a kernel of its own on the tensor cores
+// (conv_layer_fwd_tc_tiled_kernel, further down): bf16(d) . bf16(wp) by
+// mma.sync, its epilogue on the C fragments, the layer's ReLU mask written
+// for the backward. Its inter-layer stream xs stays fp32, as the TPU
+// kernel's stream does; only the first layer reads bf16 and only the last
+// writes it.
 //
 // bf16 backwards (vsl_conv_block_bwd_bf16, vsl_conv_block_bwd_tiled_bf16):
 // the TPU backward at bf16 (pallas_kernels.py:1039-1114, the custom VJP at
@@ -469,8 +475,10 @@ ConvParams make_params(const float* gam, const float* beta, const float* dw, con
 //      in shared memory, or streamed in slices of SK rows where it does not
 //      fit), and in its epilogue + bp, the ReLU, the dropout (salt 0x100 +
 //      l) and the residual, x_(l+1) = x_l + drop(relu(p + bp)), float4s.
-// That is the whole-row forward's arithmetic in the same order, so the two
-// give equal bits, and the backward below replays [p > 0] bit for bit.
+// That is the whole-row forward's arithmetic in the same order, so at fp32
+// the two give equal bits, and the backward below replays [p > 0] bit for
+// bit. (At bf16 the tiled forward is conv_layer_fwd_tc_tiled_kernel, whose
+// tensor-core sums round otherwise; the bf16 backward reads its mask.)
 //
 // The backward walks the layers in reverse, one launch a layer on the plan
 // of ops/kernels.py conv_tiled_bwd_plan (tiles of F frames, wp streamed in
@@ -519,9 +527,10 @@ constexpr int kTiledUnroll = 4;
 // kRound: each output rounded to bf16 as it is stored; kRoundIn: each
 // window value rounded to bf16 as it is read; Out: the output's storage
 // type (bf16 for the bf16 backward's d, which goes straight to dwp's
-// workspace).
+// workspace); ldo: the output's row stride (D, or a bf16 tile's).
 template <int K, bool kRev, bool kRound = false, bool kRoundIn = false, typename Out = float>
-__device__ void taps_sliding(const float* win, const float* taps, int rows, int D, Out* out) {
+__device__ void taps_sliding(const float* win, const float* taps, int rows, int D, Out* out,
+                             int ldo) {
   const auto in = [](float v) { return kRoundIn ? vsl::bf16_round(v) : v; };
   const int parts = max(1, static_cast<int>(blockDim.x) / D);  // threads a column
   const int per = (rows + parts - 1) / parts;
@@ -537,7 +546,7 @@ __device__ void taps_sliding(const float* win, const float* taps, int rows, int 
       float acc = 0.f;
 #pragma unroll
       for (int j = 0; j < K; ++j) acc = fmaf(kRev ? n[K - 1 - j] : n[j], w[j], acc);
-      out[e * D + c] = vsl::from_float<Out>(kRound ? vsl::bf16_round(acc) : acc);
+      out[e * ldo + c] = vsl::from_float<Out>(kRound ? vsl::bf16_round(acc) : acc);
 #pragma unroll
       for (int j = 0; j + 1 < K; ++j) n[j] = n[j + 1];
     }
@@ -549,9 +558,10 @@ __device__ void taps_sliding(const float* win, const float* taps, int rows, int 
 // register window of taps_sliding at the model's K = 7, a loop of taps at
 // any other K.
 template <bool kRev, bool kRound = false, bool kRoundIn = false, typename Out = float>
-__device__ void taps_rows(const float* win, const float* taps, int rows, int D, int K, Out* out) {
+__device__ void taps_rows(const float* win, const float* taps, int rows, int D, int K, Out* out,
+                          int ldo) {
   if (K == 7) {
-    taps_sliding<7, kRev, kRound, kRoundIn, Out>(win, taps, rows, D, out);
+    taps_sliding<7, kRev, kRound, kRoundIn, Out>(win, taps, rows, D, out, ldo);
     return;
   }
   for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
@@ -562,17 +572,17 @@ __device__ void taps_rows(const float* win, const float* taps, int rows, int D, 
       const float v = n[(kRev ? K - 1 - j : j) * D];
       acc = fmaf(kRoundIn ? vsl::bf16_round(v) : v, w[j * D], acc);
     }
-    out[i] = vsl::from_float<Out>(kRound ? vsl::bf16_round(acc) : acc);
+    out[i / D * ldo + i % D] = vsl::from_float<Out>(kRound ? vsl::bf16_round(acc) : acc);
   }
 }
 
-// vsl::layer_norm_rows of the rows [0, rows) of X [.][D] in place, for D
-// <= 32 kC: the same sums and expressions, so the same bits, with a row's
-// values, gam and beta in registers (one shared load and one store an
-// element) and two rows a warp at a time, so that their reductions
-// overlap. kRound: the output rounded to bf16 as it is stored.
+// vsl::layer_norm_rows of the rows [0, rows) of X [.][D] into Y (X itself
+// where Y is X), for D <= 32 kC: the same sums and expressions, so the same
+// bits, with a row's values, gam and beta in registers (one shared load and
+// one store an element) and two rows a warp at a time, so that their
+// reductions overlap. kRound: the output rounded to bf16 as it is stored.
 template <int kC, bool kRound = false>
-__device__ void ln_rows_in_registers(float* X, const float* __restrict__ gam,
+__device__ void ln_rows_in_registers(const float* X, float* Y, const float* __restrict__ gam,
                                      const float* __restrict__ beta, int rows, int D) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   float g[kC], bt[kC];
@@ -583,7 +593,8 @@ __device__ void ln_rows_in_registers(float* X, const float* __restrict__ gam,
     bt[i] = __ldg(beta + c);
   }
   for (int r0 = 2 * warp; r0 < rows; r0 += 2 * nwarps) {
-    float* x[2] = {X + (size_t)r0 * D, X + (size_t)min(r0 + 1, rows - 1) * D};
+    const size_t o[2] = {(size_t)r0 * D, (size_t)min(r0 + 1, rows - 1) * D};
+    const float* x[2] = {X + o[0], X + o[1]};
     float v[2][kC], mean[2], inv[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -617,7 +628,7 @@ __device__ void ln_rows_in_registers(float* X, const float* __restrict__ gam,
       for (int i = 0; i < kC; ++i)
         if (lane + 32 * i < D) {
           const float n = (v[h][i] - mean[h]) * inv[h] * g[i] + bt[i];
-          x[h][lane + 32 * i] = kRound ? vsl::bf16_round(n) : n;
+          Y[o[h] + lane + 32 * i] = kRound ? vsl::bf16_round(n) : n;
         }
   }
 }
@@ -676,9 +687,8 @@ struct TiledBwdLayout {
 // streamed in slices of SK rows through Wb (slice 0 already issued by the
 // caller as the last commit group; two buffers where SK < D), each fmaf
 // chain continued across the slices (smem_gemm_from), the last slice's
-// sums handed to epi(t, o, float4); kRound: each slice rounded to bf16 in
-// place once it has landed. Ends with a barrier.
-template <int R, bool kRound = false, typename Epi>
+// sums handed to epi(t, o, float4). Ends with a barrier.
+template <int R, typename Epi>
 __device__ void sliced_product(const float* A, int rows, int D, const float* __restrict__ Wg,
                                float* Wb, int SK, float* C, Epi epi) {
   const int S = D / SK;
@@ -691,10 +701,6 @@ __device__ void sliced_product(const float* A, int rows, int D, const float* __r
       vsl::cp_async_wait<0>();
     }
     __syncthreads();  // slice s landed for every thread; C's last slice written
-    if (kRound) {
-      vsl::round_bf16(Wb + (size_t)(s & 1) * SK * D, SK * D);
-      __syncthreads();
-    }
     const bool last = s + 1 == S;
     vsl::smem_gemm_from<R, kTiledUnroll>(
         A + s * SK, D, rows, SK, Wb + (size_t)(s & 1) * SK * D, D, D,
@@ -730,15 +736,12 @@ struct TiledFwdLayout {
 };
 
 // One layer of the tiled forward for the tile [t0, t0 + F) of row b: xout =
-// xin + drop(relu(depthwise(LN(xin)) . wp + bp)) over the own frames.
-// kBf16: the bf16 forward's roundings, and the layer's ReLU mask [p > 0]
-// into mask [B, T, D / 4], a byte a 4 columns (bit q: column 4 c + q), for
-// the bf16 tiled backward; XIn, XOut: the storage types of the layer's
-// input and output (bf16 for x and out, fp32 for xs).
-template <int R, bool kBf16 = false, typename XIn = float, typename XOut = float>
+// xin + drop(relu(depthwise(LN(xin)) . wp + bp)) over the own frames. (The
+// bf16 tiled forward is a kernel of its own further down.)
+template <int R>
 __global__ void __launch_bounds__(kTiledThreads, 1)
-conv_layer_fwd_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l, vsl::Dropout drop,
-                            XOut* __restrict__ xout, uint8_t* __restrict__ mask, int F, int SK) {
+conv_layer_fwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l, vsl::Dropout drop,
+                            float* __restrict__ xout, int F, int SK) {
   extern __shared__ float4 smem4[];
   const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2;
   const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0);
@@ -757,19 +760,12 @@ conv_layer_fwd_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l, vs
   // LayerNorm; n_l in place over the frames in [0, T)
   const int h0 = t0 - pad, lo = max(h0, 0), hi = min(h0 + nf + K - 1, T);
   vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
-  if constexpr (std::is_same<XIn, float>::value) {
-    for (int i = threadIdx.x; i < (nf + K - 1) * D / 4; i += blockDim.x) {
-      const int t = h0 + 4 * i / D;
-      if (t >= lo && t < hi)
-        vsl::cp_async_float4(X + 4 * i, xin + row + (size_t)h0 * D + 4 * i);
-      else
-        reinterpret_cast<float4*>(X)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  } else {  // bf16 x, widened by plain loads
-    for (int i = threadIdx.x; i < (nf + K - 1) * D; i += blockDim.x) {
-      const int t = h0 + i / D;
-      X[i] = t >= lo && t < hi ? vsl::to_float(xin[row + (size_t)h0 * D + i]) : 0.f;
-    }
+  for (int i = threadIdx.x; i < (nf + K - 1) * D / 4; i += blockDim.x) {
+    const int t = h0 + 4 * i / D;
+    if (t >= lo && t < hi)
+      vsl::cp_async_float4(X + 4 * i, xin + row + (size_t)h0 * D + 4 * i);
+    else
+      reinterpret_cast<float4*>(X)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   vsl::cp_async_commit();
   vsl::cp_async_floats(W, p.wp + (size_t)l * D * D, SK * D);
@@ -779,45 +775,26 @@ conv_layer_fwd_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l, vs
   const float* gam = p.gam + (size_t)l * D;
   const float* beta = p.beta + (size_t)l * D;
   if (D <= 128)
-    ln_rows_in_registers<4, kBf16>(own, gam, beta, hi - lo, D);
+    ln_rows_in_registers<4>(own, own, gam, beta, hi - lo, D);
   else  // wider rows than the model's: the same sums out of shared memory
-    vsl::layer_norm_rows<kBf16>(own, own, gam, beta, hi - lo, D);
+    vsl::layer_norm_rows(own, own, gam, beta, hi - lo, D);
   __syncthreads();
   // 2. d over the own frames: A[r] = sum_j n(t0 + r + j - pad) dw[j]
-  taps_rows<false, kBf16>(X, DW, nf, D, K, A);
+  taps_rows<false>(X, DW, nf, D, K, A, D);
   // 3. (sliced_product's first barrier orders A's writes before its reads)
   // x_(l+1) = x_l + drop(relu(d . wp + bp)), one float4 of x_l, of bp and
   // of the output an epilogue
-  sliced_product<R, kBf16>(A, nf, D, p.wp + (size_t)l * D * D, W, SK, C, [&](int r, int o,
-                                                                             float4 acc) {
+  sliced_product<R>(A, nf, D, p.wp + (size_t)l * D * D, W, SK, C, [&](int r, int o, float4 acc) {
     const size_t i = row + (size_t)(t0 + r) * D + o;
-    float4 x4;
-    if constexpr (std::is_same<XIn, float>::value)
-      x4 = __ldg(reinterpret_cast<const float4*>(xin + i));
-    else
-      x4 = make_float4(vsl::to_float(xin[i]), vsl::to_float(xin[i + 1]),
-                       vsl::to_float(xin[i + 2]), vsl::to_float(xin[i + 3]));
+    const float4 x4 = __ldg(reinterpret_cast<const float4*>(xin + i));
     const float4 b4 = __ldg(reinterpret_cast<const float4*>(bpl + o));
     const float a[4] = {acc.x, acc.y, acc.z, acc.w}, bb[4] = {b4.x, b4.y, b4.z, b4.w};
     float y[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q)
       y[q] = drop.apply(fmaxf(a[q] + bb[q], 0.f), seed, salt, t0 + r, o + q);
-    if constexpr (kBf16) {  // the backward's [p > 0], as it tested it
-      uint32_t bits = 0;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) bits |= (a[q] + bb[q] > 0.f ? 1u : 0u) << q;
-      mask[((size_t)b * T + t0 + r) * (D / 4) + o / 4] = static_cast<uint8_t>(bits);
-    }
-    if constexpr (std::is_same<XOut, float>::value) {
-      *reinterpret_cast<float4*>(xout + i) =
-          make_float4(x4.x + y[0], x4.y + y[1], x4.z + y[2], x4.w + y[3]);
-    } else {
-      xout[i] = vsl::from_float<XOut>(x4.x + y[0]);
-      xout[i + 1] = vsl::from_float<XOut>(x4.y + y[1]);
-      xout[i + 2] = vsl::from_float<XOut>(x4.z + y[2]);
-      xout[i + 3] = vsl::from_float<XOut>(x4.w + y[3]);
-    }
+    *reinterpret_cast<float4*>(xout + i) =
+        make_float4(x4.x + y[0], x4.y + y[1], x4.z + y[2], x4.w + y[3]);
   });
 }
 
@@ -873,7 +850,7 @@ conv_layer_bwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l,
   ln_window_rows(N, lo - h0, hi - lo, K - 1, nf, gam, p.beta + (size_t)l * D, XH, inv, D);
   __syncthreads();
   // 2. d over E, in the forward's order of taps: A[e] = sum_j N[e + j] dw[j]
-  taps_rows<false>(N, DW, ne, D, K, A);
+  taps_rows<false>(N, DW, ne, D, K, A, D);
   // (sliced_product's first barrier orders A's writes before its reads)
   // p = d . wp + bp, and g_p = [p > 0] * drop(G_in) into P, 0 outside [0, T)
   sliced_product<R>(A, ne, D, p.wp + (size_t)l * D * D, W, SK, P, [&](int e, int o,
@@ -913,7 +890,7 @@ conv_layer_bwd_tiled_kernel(const float* __restrict__ xin, ConvParams p, int l,
   // into P's first rows
   const bool staged = (size_t)nf * D <= lay.W;
   if (staged) vsl::cp_async_floats(W, Gin + row + (size_t)t0 * D, nf * D);
-  taps_rows<true>(A, DW, nf, D, K, P);
+  taps_rows<true>(A, DW, nf, D, K, P, D);
   __syncthreads();
   // ddw[j, c] = sum over the own frames of n(t + j - pad, c) * g_d(t, c)
   for (int i = tid; i < K * D; i += nt) {
@@ -1071,73 +1048,11 @@ extern "C" int vsl_conv_block_fwd_tiled(const float* x, const float* gam, const 
   for (int l = 0; l < L; ++l) {
     const float* in = l == 0 ? x : xs + (l - 1) * layer;
     float* o = l == L - 1 ? out : xs + l * layer;
-    kernel<<<grid, kTiledThreads, smem, stream>>>(in, p, l, drop, o, nullptr, F, SK);
+    kernel<<<grid, kTiledThreads, smem, stream>>>(in, p, l, drop, o, F, SK);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
-}
-
-namespace {
-
-// One layer of the bf16 tiled forward, its kernel picked by the layer's
-// input and output types.
-template <int R, typename XIn, typename XOut>
-cudaError_t tiled_bf16_layer(const XIn* in, const ConvParams& p, int l, const vsl::Dropout& drop,
-                             XOut* o, uint8_t* mask, int B, int F, int SK, size_t smem,
-                             cudaStream_t stream) {
-  auto kernel = conv_layer_fwd_tiled_kernel<R, true, XIn, XOut>;
-  const cudaError_t err = vsl::opt_in_smem(reinterpret_cast<const void*>(kernel), smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(tiles(p.T, F), B), kTiledThreads, smem, stream>>>(
-      in, p, l, drop, o, mask + (size_t)l * B * p.T * (p.D / 4), F, SK);
-  return cudaGetLastError();
-}
-
-template <int R>
-cudaError_t tiled_bf16_forward(const __nv_bfloat16* x, const ConvParams& p,
-                               const vsl::Dropout& drop, float* xs, uint8_t* mask,
-                               __nv_bfloat16* out, int B, int F, int SK, size_t smem,
-                               cudaStream_t stream) {
-  const size_t layer = (size_t)B * p.T * p.D;
-  const int L = p.L;
-  cudaError_t err = L == 1
-                        ? tiled_bf16_layer<R>(x, p, 0, drop, out, mask, B, F, SK, smem, stream)
-                        : tiled_bf16_layer<R>(x, p, 0, drop, xs, mask, B, F, SK, smem, stream);
-  for (int l = 1; l < L && err == cudaSuccess; ++l) {
-    const float* in = xs + (l - 1) * layer;
-    err = l == L - 1
-              ? tiled_bf16_layer<R>(in, p, l, drop, out, mask, B, F, SK, smem, stream)
-              : tiled_bf16_layer<R>(in, p, l, drop, xs + l * layer, mask, B, F, SK, smem, stream);
-  }
-  return err;
-}
-
-}  // namespace
-
-// The bf16 T-tiled forward on the same plan: x and out [B, T, D] in bf16,
-// the stream between the layers, xs [L - 1, B, T, D], in fp32, and each
-// layer's ReLU mask, mask [L, B, T, D / 4] bytes, for the bf16 backward.
-extern "C" int vsl_conv_block_fwd_tiled_bf16(const void* x, const float* gam, const float* beta,
-                                             const float* dw, const float* wp, const float* bp,
-                                             const float* seeds, unsigned thresh, float scale,
-                                             float* xs, void* mask, void* out, int B, int T,
-                                             int D, int L, int K, int F, int SK, int R,
-                                             void* stream_) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || SK < 4 || SK % 4 ||
-      D % SK || (R != 2 && R != 4))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = TiledFwdLayout(F, D, K, SK).floats(D, K) * sizeof(float);
-  const ConvParams p = make_params(gam, beta, dw, wp, bp, T, D, L, K);
-  const vsl::Dropout drop{seeds, thresh, scale};
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
-  return static_cast<int>(
-      R == 2 ? tiled_bf16_forward<2>(xb, p, drop, xs, static_cast<uint8_t*>(mask), ob, B, F, SK,
-                                     smem, stream)
-             : tiled_bf16_forward<4>(xb, p, drop, xs, static_cast<uint8_t*>(mask), ob, B, F, SK,
-                                     smem, stream));
 }
 
 // The T-tiled backward from the forward's xs on conv_tiled_bwd_plan's tiles
@@ -1328,7 +1243,7 @@ conv_layer_bwd_tc_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l,
   __syncthreads();
 
   // 2. d over the own frames (of bf16(n), rounded) into dwp's workspace
-  taps_rows<false, true, true>(N, DW, nf, D, K, d_l + row + (size_t)t0 * D);
+  taps_rows<false, true, true>(N, DW, nf, D, K, d_l + row + (size_t)t0 * D, D);
   // g_p over E: 4 columns an item, one load of G_in and one mask byte
   for (int i = tid; i < ne * D4; i += nt) {
     const int e = i / D4, o = 4 * (i - e * D4), t = e0 + e;
@@ -1411,7 +1326,7 @@ conv_layer_bwd_tc_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l,
   }
   __syncthreads();
   // g_n(t0 + r) = sum_j g_d(t0 + r + pad - j) dw[j] into N's first rows
-  taps_rows<true>(GD, DW, nf, D, K, N);
+  taps_rows<true>(GD, DW, nf, D, K, N, D);
   __syncthreads();
   // the LN backward over the own frames (dgam, dbeta), G_out = G_in + dx_ln
   vsl::ln_backward_rows(N, XH, inv, gam, nf, D, pr, pr + D, [&](int r, int c, float v) {
@@ -1435,6 +1350,189 @@ cudaError_t tc_tiled_bwd_layer(const XIn* in, const ConvParams& p, int l,
       in, p, l, wpb, mask + (size_t)l * B * p.T * (p.D / 4), drop, Gin, Gout, d_l, gp_l, part, F,
       SN);
   return cudaGetLastError();
+}
+
+
+// --- the bf16 T-tiled forward on the tensor cores (#2 at bf16, tiled) ------
+// One launch a layer on ops/kernels.py conv_tiled_fwd_bf16_plan (tiles of F
+// frames, bf16(wp)'s columns in slices of SN), no atomics. A CTA takes the
+// F own frames [t0, t0 + F) of one row:
+//   1. the taps and x_l over the own frames and the depthwise reach [t0 -
+//      pad, t0 + nf + K - 1 - pad) (0 outside [0, T)) by cp.async (bf16 x
+//      by plain loads), then bf16(wp)'s first slice (the wrapper rounds wp
+//      once a call), which lands behind the LayerNorm: n_l = bf16(LN(x_l))
+//      into a buffer of its own (x_l stays for the residual), a row in
+//      registers (the whole-row forward's sums and expressions);
+//   2. d = bf16(depthwise(n_l)) over the own frames (taps_rows, the taps in
+//      order), straight into the bf16 A tile [Fp][AST] (Fp = F rounded up
+//      to 16 frames, k = D rounded up to Dk, a multiple of 64; padding 0);
+//   3. p = d . bf16(wp) on mma.sync m16n8k16 (mma.cuh tile_mma: bf16
+//      operands, fp32 sums, each group of 4 k16 steps accumulated in the
+//      tensor cores and added by an fp32 add), a warp a (16 frames, 16
+//      columns) item, wp's rows as they are by ldmatrix.trans; the epilogue
+//      runs on the C fragments: + bp, the ReLU, the dropout (salt 0x100 +
+//      l), the ReLU mask [p > 0] for the bf16 backward (a byte a 4 columns:
+//      two lanes' pairs joined by a shuffle) and the fp32 residual out of
+//      shared memory, x_(l+1) = x_l + drop(relu(p + bp)).
+// Where bf16(wp)'s columns do not fit whole, slices of SN columns in turn,
+// each with its own epilogue. The product's sums are not the whole-row bf16
+// forward's one fmaf chain over k, so the two forms' bits differ where a sum
+// rounds otherwise (and a ReLU may flip at a pre-activation within an fp32
+// rounding of 0); the bf16 backward reads this kernel's mask, so the pair
+// agrees with itself. What bounds it: the x_l window's bytes and the
+// LayerNorm and depthwise passes out of shared memory; the product, 2 F D^2
+// FLOPs a tile, takes the tensor cores a few hundred cycles.
+constexpr int kTcFwdThreads = 512;  // (kernels.py CONV_TILED_THREADS)
+
+// Its shared memory for F frames a tile, K taps and slices of SN columns
+// (ops/kernels.py _conv_tiled_fwd_bf16_smem_bytes; the launch uses this
+// one), Dk = D rounded up to 64, Fp = F rounded up to 16:
+//   X   [F + K - 1][D] float  x_l over the own frames and the reach (the
+//                             epilogue's residual)
+//   N   [F + K - 1][D] float  n_l = bf16(LN(x_l)), 0 outside [0, T)
+//   DW  [K][D] float          the layer's taps
+//   A   [Fp][AST] bf16        bf16(d), 0 in its padding
+//   W   [Dk][WST] bf16        bf16(wp)'s columns of the slice, 0 past D
+struct TcTiledFwdLayout {
+  size_t X, DW, A, W;
+  int Dk, AST, WST, Fp;
+  __host__ __device__ TcTiledFwdLayout(int F, int D, int K, int SN)
+      : X((size_t)(F + K - 1) * D), DW((size_t)K * D), Dk((D + 63) / 64 * 64),
+        AST(vsl::tc_stride((D + 63) / 64 * 64)), WST(vsl::tc_stride(SN)), Fp((F + 15) / 16 * 16) {
+    A = (size_t)Fp * AST;
+    W = (size_t)Dk * WST;
+  }
+  __host__ __device__ size_t bytes() const { return 4 * (2 * X + DW) + 2 * (A + W); }
+};
+
+// One layer of the bf16 tiled forward for the tile [t0, t0 + F) of row b:
+// xout = xin + drop(relu(bf16(depthwise(bf16(LN(xin)))) . bf16(wp) + bp))
+// over the own frames, and the layer's ReLU mask mask_l [B, T, D / 4] (bit
+// q of byte c: column 4 c + q). XIn, XOut: the storage types of the
+// layer's input and output (bf16 for x and out, fp32 for xs).
+template <typename XIn, typename XOut>
+__global__ void __launch_bounds__(kTcFwdThreads, 1)
+conv_layer_fwd_tc_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l,
+                               const __nv_bfloat16* __restrict__ wpb, vsl::Dropout drop,
+                               XOut* __restrict__ xout, uint8_t* __restrict__ mask_l, int F,
+                               int SN) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ float4 smem4[];
+  const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2, D4 = D / 4;
+  const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0);
+  const TcTiledFwdLayout lay(F, D, K, SN);
+  float* X = reinterpret_cast<float*>(smem4);
+  float* N = X + lay.X;
+  float* DW = N + lay.X;
+  bf16* A = reinterpret_cast<bf16*>(DW + lay.DW);
+  bf16* W = A + lay.A;
+  const int Dk = lay.Dk, AST = lay.AST, WST = lay.WST;
+  const size_t row = (size_t)b * T * D;
+  const float* bpl = p.bp + (size_t)l * D;
+  const bf16* wl = wpb + (size_t)l * D * D;
+  const uint32_t seed = drop.seed(b), salt = vsl::site_salt(0x100u + l);
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  // 1. the taps and x_l over [t0 - pad, t0 + nf + K - 1 - pad) by cp.async
+  // (bf16 x by 8-byte loads, widened), then the first slice of bf16(wp),
+  // which lands behind the LayerNorm
+  const int h0 = t0 - pad, lo = max(h0, 0), hi = min(h0 + nf + K - 1, T);
+  vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = tid; i < (nf + K - 1) * D4; i += nt) {
+    const int t = h0 + i / D4;
+    const bool in = t >= lo && t < hi;
+    const XIn* src = xin + row + (size_t)h0 * D + 4 * i;
+    if constexpr (std::is_same<XIn, float>::value) {
+      if (in)
+        vsl::cp_async_float4(X + 4 * i, src);
+      else
+        reinterpret_cast<float4*>(X)[i] = zero4;
+    } else {
+      reinterpret_cast<float4*>(X)[i] = in ? vsl::load4(src) : zero4;
+    }
+    if (!in) reinterpret_cast<float4*>(N)[i] = zero4;
+  }
+  vsl::cp_async_commit();
+  // bf16(wp)'s columns [c0, c0 + SN) of its rows k < Dk by 16-byte copies
+  // (8-byte where D % 8 != 0), 0 past D either way
+  const auto load_slice = [&](int c0) {
+    const int w = D % 8 ? 4 : 8, q = SN / w;
+    for (int i = tid; i < Dk * q; i += nt) {
+      const int k = i / q, c = w * (i - k * q);
+      const bool on = k < D && c0 + c < D;
+      const bf16* src = wl + (on ? (size_t)k * D + c0 + c : 0);
+      if (w == 8)
+        vsl::cp_async16(W + (size_t)k * WST + c, src, on);
+      else
+        vsl::cp_async8(W + (size_t)k * WST + c, src, on);
+    }
+    vsl::cp_async_commit();
+  };
+  load_slice(0);
+  // A's padding: the columns [D, Dk) of every row and the rows [nf, Fp)
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int i = tid; i < lay.Fp * (Dk - D); i += nt) {
+    const int r = i / (Dk - D);
+    A[(size_t)r * AST + D + i - r * (Dk - D)] = zero;
+  }
+  for (int i = tid; i < (lay.Fp - nf) * D; i += nt) A[(size_t)(nf + i / D) * AST + i % D] = zero;
+  vsl::cp_async_wait<1>();  // the taps and x_l (the slice may be in flight)
+  __syncthreads();
+  // n_l into N, x_l kept in X for the residual
+  const size_t own = (size_t)(lo - h0) * D;
+  const float* gam = p.gam + (size_t)l * D;
+  const float* beta = p.beta + (size_t)l * D;
+  if (D <= 128)
+    ln_rows_in_registers<4, true>(X + own, N + own, gam, beta, hi - lo, D);
+  else  // wider rows than the model's: the same sums out of shared memory
+    vsl::layer_norm_rows<true>(X + own, N + own, gam, beta, hi - lo, D);
+  __syncthreads();
+  // 2. bf16(d) over the own frames: A[r] = sum_j n(t0 + r + j - pad) dw[j]
+  taps_rows<false, true, false, bf16>(N, DW, nf, D, K, A, AST);
+
+  // 3. p = bf16(d) . bf16(wp), a slice of columns at a time, and in the
+  // epilogue x_(l+1) = x_l + drop(relu(p + bp)) and the mask bits
+  const int mtiles = (nf + 15) / 16;
+  for (int c0 = 0; c0 < D; c0 += SN) {
+    if (c0 > 0) load_slice(c0);
+    vsl::cp_async_wait<0>();
+    __syncthreads();  // the slice landed; A written (or the last slice read)
+    vsl::tile_mma(A, AST, mtiles, W, WST, SN / 16, Dk, [&](int r, int c, float v0, float v1) {
+      const int col = c0 + c, t = t0 + r;
+      const bool on = r < nf && col < D;  // D % 4 == 0: col < D holds for col + 3 too
+      const float2 b2 = on ? __ldg(reinterpret_cast<const float2*>(bpl + col))
+                           : make_float2(0.f, 0.f);
+      const float a0 = v0 + b2.x, a1 = v1 + b2.y;
+      // the backward's [p > 0], as it tested it; the lane of columns col +
+      // 2, col + 3 is this one's neighbour (tq ^ 1)
+      const uint32_t bits = (a0 > 0.f ? 1u : 0u) | (a1 > 0.f ? 2u : 0u);
+      const uint32_t up = __shfl_xor_sync(0xffffffffu, bits, 1);
+      if (!on) return;
+      const size_t i = row + (size_t)t * D + col;
+      if ((c & 2) == 0) mask_l[i / 4] = static_cast<uint8_t>(bits | up << 2);
+      const float2 x2 = *reinterpret_cast<const float2*>(X + (size_t)(r + pad) * D + col);
+      const float y0 = x2.x + drop.apply(fmaxf(a0, 0.f), seed, salt, t, col);
+      const float y1 = x2.y + drop.apply(fmaxf(a1, 0.f), seed, salt, t, col + 1);
+      if constexpr (std::is_same<XOut, float>::value)
+        *reinterpret_cast<float2*>(xout + i) = make_float2(y0, y1);
+      else
+        *reinterpret_cast<uint32_t*>(xout + i) = vsl::pack_bf16(y0, y1);
+    });
+    if (c0 + SN < D) __syncthreads();  // the slice read before the next lands
+  }
+}
+
+// One layer of the bf16 tiled forward, its kernel picked by the storage
+// types of its input and output.
+template <typename XIn, typename XOut>
+cudaError_t tc_tiled_fwd_layer(const XIn* in, const ConvParams& p, int l,
+                               const __nv_bfloat16* wpb, const vsl::Dropout& drop, XOut* o,
+                               uint8_t* mask, int B, int F, int SN, size_t smem,
+                               cudaStream_t stream) {
+  return vsl::launch_opted(conv_layer_fwd_tc_tiled_kernel<XIn, XOut>, dim3(tiles(p.T, F), B),
+                           kTcFwdThreads, smem, stream, in, p, l, wpb, drop, o,
+                           mask + (size_t)l * B * p.T * (p.D / 4), F, SN);
 }
 
 }  // namespace
@@ -1496,6 +1594,42 @@ extern "C" int vsl_conv_block_bwd_tiled_bf16(const void* x, const float* xs, con
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(vsl::wgrad_tc(static_cast<const bf16*>(d_ws), gp_ws, dwp, gemm_ws, L, D,
                                         D, B * T, splits, stream));
+}
+
+// The bf16 T-tiled forward (#2 at bf16, tiled) on the tensor cores, on
+// conv_tiled_fwd_bf16_plan's tiles of F frames and slices of SN of
+// bf16(wp)'s columns: x and out [B, T, D] in bf16, wpb = bf16(wp) [L, D, D]
+// (the function's rounding of wp, made once a call), the stream between
+// the layers, xs [L - 1, B, T, D], in fp32, and each layer's ReLU mask,
+// mask [L, B, T, D / 4] bytes, for the bf16 backward. L launches: layer l
+// reads `l == 0 ? x : xs[l - 1]` and writes `l == L - 1 ? out : xs[l]`.
+extern "C" int vsl_conv_block_fwd_tiled_bf16(const void* x, const float* gam, const float* beta,
+                                             const float* dw, const void* wpb, const float* bp,
+                                             const float* seeds, unsigned thresh, float scale,
+                                             float* xs, void* mask, void* out, int B, int T,
+                                             int D, int L, int K, int F, int SN, void* stream_) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || SN < 16 || SN % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = TcTiledFwdLayout(F, D, K, SN).bytes();
+  const ConvParams p = make_params(gam, beta, dw, nullptr, bp, T, D, L, K);
+  const vsl::Dropout drop{seeds, thresh, scale};
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* w = static_cast<const bf16*>(wpb);
+  bf16* ob = static_cast<bf16*>(out);
+  uint8_t* mk = static_cast<uint8_t*>(mask);
+  const size_t layer = (size_t)B * T * D;
+  cudaError_t err = L == 1
+                        ? tc_tiled_fwd_layer(xb, p, 0, w, drop, ob, mk, B, F, SN, smem, stream)
+                        : tc_tiled_fwd_layer(xb, p, 0, w, drop, xs, mk, B, F, SN, smem, stream);
+  for (int l = 1; l < L && err == cudaSuccess; ++l) {
+    const float* in = xs + (l - 1) * layer;
+    err = l == L - 1
+              ? tc_tiled_fwd_layer(in, p, l, w, drop, ob, mk, B, F, SN, smem, stream)
+              : tc_tiled_fwd_layer(in, p, l, w, drop, xs + l * layer, mk, B, F, SN, smem, stream);
+  }
+  return static_cast<int>(err);
 }
 
 namespace {

@@ -86,13 +86,15 @@
 // bf16(q_h * scale).k_h with scale = bf16(1/sqrt(hd)) and fp32
 // accumulation, the fp32 mask and softmax, bf16(drop(p)).v_h with fp32
 // accumulation; the fp32 residual; z = bf16(drop(LN2(res))),
-// z.bf16(Wd) + bd; the output rounded to bf16. The same three launches,
-// templated: x widened as it is loaded, the weight slices rounded in shared
-// memory once they have landed, y, q, k, v, the scaled q and z rounded
-// where the TPU kernel rounds them, the probabilities normalised before
-// they are rounded (so att takes no scale after the product), the output
-// narrowed as it is stored. qkv and att stay fp32 buffers (qkv holding
-// rounded values). Bound as the fp32 forward is.
+// z.bf16(Wd) + bd; the output rounded to bf16. Three kernels of its own
+// on the tensor cores (mha_proj_tc_kernel, attn_fwd_tc_kernel, further
+// down, on ops/kernels.py mha_fwd_bf16_plan): the two projections on tiles
+// of the flattened [B T] frames with the LayerNorm, dropout and rounding in
+// their prologue and the bias, rounding, dropout and residual on the C
+// fragments; the attention a CTA a (query tile, head, row) with S and p . v
+// by mma.sync and the softmax on the C fragments. qkv is stored in bf16
+// (its values are bf16 either way; #10b reads it so), att in fp32 as the
+// TPU kernel's residual.
 //
 // bf16 (vsl_mha_block_bwd_bf16): the TPU backward at bf16
 // (_make_mha_block_bwd_kernel, pallas_kernels.py:1762-1858), from the bf16
@@ -104,7 +106,8 @@
 // sum first and rounds its tile in place after it; z, g_dpre, y and dqkv
 // reach the weight products rounded. The LayerNorm backwards, g_res, g_att
 // and the stream between the launches stay fp32. The attention body
-// (attn_bwd_cluster_kernel<HD, true>): bf16(g_att_h), dV = bf16(drop(P))^T
+// (attn_bwd_cluster_kernel<HD, true>, q, k and v loaded from the bf16
+// forward's bf16 qkv): bf16(g_att_h), dV = bf16(drop(P))^T
 // . gh, dS = P (dP - sum_j dP P) in fp32, dQ = (bf16(dS) . k_h) * scale,
 // dK = bf16(dS)^T . bf16(q_h * scale), scale = bf16(1/sqrt(hd)); #12 runs
 // the fp32 instantiation of the same template, whose code is unchanged.
@@ -364,12 +367,14 @@ __host__ __device__ inline size_t attn_tile_floats(int T, int TQ, int hd) {
 // bf16): q * scale and g_att rounded to bf16 as they land, drop(P) rounded
 // for dV, and dS = P (dP - sum_j dP P) with the sum taken over the keys
 // (not from att, whose product rounded drop(P)), rounded for dQ and dK.
-// IT: the storage type of q, k, v, att and g_att; OT: that of dq, dk and
-// dv (#12b: both bf16, the outputs rounded once as they are stored).
-template <int HD, bool kBf16 = false, typename IT = float, typename OT = float>
+// IT: the storage type of att and g_att; OT: that of dq, dk and dv (#12b:
+// both bf16, the outputs rounded once as they are stored); QT: that of q,
+// k and v (IT, but bf16 for #10b, whose forward stores qkv in bf16).
+template <int HD, bool kBf16 = false, typename IT = float, typename OT = float,
+          typename QT = IT>
 __global__ void __launch_bounds__(kMaxAttnThreads)
-attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
-                        const IT* __restrict__ vp, int ld, const float* __restrict__ mask,
+attn_bwd_cluster_kernel(const QT* __restrict__ qp, const QT* __restrict__ kp,
+                        const QT* __restrict__ vp, int ld, const float* __restrict__ mask,
                         vsl::Dropout drop, const IT* __restrict__ att,
                         const IT* __restrict__ gatt, OT* __restrict__ dqp,
                         OT* __restrict__ dkp, OT* __restrict__ dvp, int ldd, int T, int D,
@@ -562,8 +567,9 @@ attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
 // heads on query tiles of TQ rows: one cluster of ceil(T / TQ) CTAs of
 // `threads` threads a (row, head).
 // kBf16: the bf16 body, with the scale rounded to bf16.
-template <int HD, bool kBf16 = false, typename IT = float, typename OT = float>
-cudaError_t launch_attention_bwd_tiles(const IT* q, const IT* k, const IT* v, int ld,
+template <int HD, bool kBf16 = false, typename IT = float, typename OT = float,
+          typename QT = IT>
+cudaError_t launch_attention_bwd_tiles(const QT* q, const QT* k, const QT* v, int ld,
                                        const float* mask, vsl::Dropout drop, const IT* att,
                                        const IT* gatt, OT* dq, OT* dk, OT* dv,
                                        int ldd, int B, int T, int D, int n_heads, int TQ,
@@ -572,7 +578,7 @@ cudaError_t launch_attention_bwd_tiles(const IT* q, const IT* k, const IT* v, in
   const size_t smem = attn_tile_floats(T, TQ, HD) * sizeof(float);
   const float scale = kBf16 ? vsl::bf16_round_host(vsl::head_scale(HD)) : vsl::head_scale(HD);
   const cudaError_t err = vsl::launch_cluster(
-      attn_bwd_cluster_kernel<HD, kBf16, IT, OT>, B * n_heads * nq, nq, threads, smem, stream, q, k, v,
+      attn_bwd_cluster_kernel<HD, kBf16, IT, OT, QT>, B * n_heads * nq, nq, threads, smem, stream, q, k, v,
       ld, mask, drop, att, gatt, dq, dk, dv, ldd, T, D, n_heads, TQ, scale);
   return err == cudaSuccess ? cudaGetLastError() : err;
 }
@@ -596,11 +602,9 @@ __host__ __device__ inline size_t fwd_attn_tile_floats(int T, int TQ, int hd) {
 }
 
 // 1. qkv = drop200(LN1(x)).Wqkv + bqkv for one tile of F frames of one row.
-// XT: the storage type of x (float, or __nv_bfloat16 with the bf16
-// forward's roundings).
-template <typename XT = float>
+// (The bf16 forward's kernels are further down.)
 __global__ void __launch_bounds__(kThreads)
-fwd_qkv_tile_kernel(const XT* __restrict__ x, const float* __restrict__ gam,
+fwd_qkv_tile_kernel(const float* __restrict__ x, const float* __restrict__ gam,
                     const float* __restrict__ beta, const float* __restrict__ wqkv,
                     const float* __restrict__ bqkv, vsl::Dropout drop, float* __restrict__ qkv,
                     int T, int D, int F, int SK) {
@@ -613,23 +617,15 @@ fwd_qkv_tile_kernel(const XT* __restrict__ x, const float* __restrict__ gam,
   vsl::cp_async_floats(buf, wqkv, SK * 3 * D);  // lands behind the LN
   vsl::layer_norm_rows(x + tile, Y, gam, beta, nf, D);
   __syncthreads();
-  constexpr bool kBf16 = !std::is_same<XT, float>::value;
   if (drop.on()) {
     const uint32_t seed = drop.seed(b), s200 = vsl::site_salt(0x200u);
     for (int i = threadIdx.x; i < nel; i += blockDim.x)
       Y[i] = drop.apply(Y[i], seed, s200, t0 + i / D, i % D);
     __syncthreads();
   }
-  if (kBf16) {  // y_t = bf16(y), after the dropout
-    vsl::round_bf16(Y, nel);
-    __syncthreads();
-  }
-  streamed_gemm<kBf16>(Y, D, nf, D, wqkv, 3 * D, buf, SK, C);
+  streamed_gemm(Y, D, nf, D, wqkv, 3 * D, buf, SK, C);
   float* q = qkv + 3 * tile;
-  for (int i = threadIdx.x; i < 3 * nel; i += blockDim.x) {
-    const float v = C[i] + __ldg(bqkv + i % (3 * D));
-    q[i] = kBf16 ? vsl::bf16_round(v) : v;
-  }
+  for (int i = threadIdx.x; i < 3 * nel; i += blockDim.x) q[i] = C[i] + __ldg(bqkv + i % (3 * D));
 }
 
 // 2. the attention of one (query tile, head, row): att from q, k and v,
@@ -731,14 +727,12 @@ cudaError_t launch_attention_tiles(const IT* q, const IT* k, const IT* v, int ld
 }
 
 // 3. out = drop203(drop202(LN2(R)).Wd + bd) + R, R = drop201(att) + x, for
-// one tile of F frames of one row. XT: the storage type of x and out.
-template <typename XT = float>
+// one tile of F frames of one row.
 __global__ void __launch_bounds__(kThreads)
-fwd_out_tile_kernel(const XT* __restrict__ x, const float* __restrict__ att,
+fwd_out_tile_kernel(const float* __restrict__ x, const float* __restrict__ att,
                     const float* __restrict__ gam, const float* __restrict__ beta,
                     const float* __restrict__ wd, const float* __restrict__ bd, vsl::Dropout drop,
-                    XT* __restrict__ out, int T, int D, int F, int SK) {
-  constexpr bool kBf16 = !std::is_same<XT, float>::value;
+                    float* __restrict__ out, int T, int D, int F, int SK) {
   extern __shared__ float4 smem4[];
   const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0), nel = nf * D;
   const size_t FD = (size_t)F * D;
@@ -752,7 +746,7 @@ fwd_out_tile_kernel(const XT* __restrict__ x, const float* __restrict__ att,
                  s203 = vsl::site_salt(0x203u);
   vsl::cp_async_floats(buf, wd, SK * D);  // lands behind the residual and the LN
   for (int i = threadIdx.x; i < nel; i += blockDim.x)
-    R[i] = drop.apply(att[tile + i], seed, s201, t0 + i / D, i % D) + vsl::to_float(x[tile + i]);
+    R[i] = drop.apply(att[tile + i], seed, s201, t0 + i / D, i % D) + x[tile + i];
   __syncthreads();
   vsl::layer_norm_rows(R, Z, gam, beta, nf, D);
   __syncthreads();
@@ -761,16 +755,361 @@ fwd_out_tile_kernel(const XT* __restrict__ x, const float* __restrict__ att,
       Z[i] = drop.apply(Z[i], seed, s202, t0 + i / D, i % D);
     __syncthreads();
   }
-  if (kBf16) {  // z_t = bf16(z), after the dropout
-    vsl::round_bf16(Z, nel);
-    __syncthreads();
-  }
-  streamed_gemm<kBf16>(Z, D, nf, D, wd, D, buf, SK, O);
+  streamed_gemm(Z, D, nf, D, wd, D, buf, SK, O);
   for (int i = threadIdx.x; i < nel; i += blockDim.x) {
     const int c = i % D;
-    out[tile + i] = vsl::from_float<XT>(
-        drop.apply(O[i] + __ldg(bd + c), seed, s203, t0 + i / D, c) + R[i]);
+    out[tile + i] = drop.apply(O[i] + __ldg(bd + c), seed, s203, t0 + i / D, c) + R[i];
   }
+}
+
+
+// --- the bf16 forward on the tensor cores (#3 at bf16, head dims 8-64) ----
+// Three launches on ops/kernels.py mha_fwd_bf16_plan, the TPU kernel's
+// function at bf16 (_mha_block_fwd_math, pallas_kernels.py:1689-1746) with
+// its products on mma.sync m16n8k16 (bf16 operands, fp32 sums):
+//   1. (mha_proj_tc_kernel, kRes false) a CTA a tile of MR frames of the
+//      flattened [B T] rows and NC of Wqkv's columns: y = bf16(drop200(
+//      LN1(x))), one warp a frame (layer_norm_rows' sums and expressions),
+//      into a bf16 tile; bf16(Wqkv)'s columns (the wrapper rounds the
+//      weights once a call) by cp.async, landing behind the LayerNorm; qkv
+//      = y . bf16(Wqkv) by mma.cuh tile_mma (a warp a (16 frames, 16
+//      columns) item, each group of 4 k16 steps accumulated in the tensor
+//      cores and added by an fp32 add), + bqkv and rounded in the epilogue,
+//      stored as bf16 [B, T, 3D] (its values are bf16 either way; the
+//      backward reads it as the forward's residual).
+//   2. (attn_fwd_tc_kernel) a CTA a (query tile of 16 W queries, head,
+//      row), W warps of 16 queries: the head's k and v rows and the tile's
+//      q rows by cp.async (bf16, as qkv holds them; head dim 8 padded to a
+//      k16 step with zeros), qs = bf16(q * scale) in place; S = qs . k^T on
+//      the tensor cores into C fragments (every key of the row, 16 NK of
+//      them, in registers), + the key mask's -1e30 terms, the row max and
+//      sum of exp(s - max) by quad shuffles, p = bf16(drop(e / l)) with the
+//      keep bit hashed once a (t, j) at the head's salt, packed from the C
+//      fragments straight into the A fragments of att = p . v (v's rows by
+//      ldmatrix.trans; each group of 4 key tiles accumulated in the tensor
+//      cores, the groups added by fp32 adds), stored fp32 [B, T, D] as the
+//      TPU kernel's residual. A query whose keys are all masked takes the
+//      uniform softmax (the -1e30 terms), as the scalar body gives it.
+//   3. (mha_proj_tc_kernel, kRes true) the tiles of launch 1 against Wd's
+//      columns: z = bf16(drop202(LN2(R))), R = drop201(att) + x formed
+//      where it is read (so that a tile fits at every width the block route
+//      takes), z . bf16(Wd) on the tensor cores, and in the epilogue out =
+//      drop203(. + bd) + R, rounded to x's type.
+// What bounds them: the bytes of x, att, qkv and out, and at the served
+// shapes each launch's latency (the 12-frame query stream is ~200 frames
+// in all); the products take the tensor cores a few hundred cycles a CTA.
+constexpr int kTcProjThreads = 256;  // (kernels.py MHA_TC_THREADS)
+constexpr int kTcAttnWarps = 8;      // queries a CTA <= 16 of them (kernels.py MHA_TC_ATTN_WARPS)
+constexpr int kTcLnValues = 8;       // a lane's values of a row the projections keep in registers
+
+// The projection launches' shared memory for tiles of MR frames and NC
+// columns at width D, in bytes (ops/kernels.py _mha_tc_proj_bytes): the
+// bf16 operand [MR][tc_stride(Dk)] and the weight's columns
+// [Dk][tc_stride(NC)], Dk = D rounded up to 64.
+__host__ __device__ inline size_t tc_proj_bytes(int MR, int NC, int D) {
+  const int Dk = (D + 63) / 64 * 64;
+  return 2 * ((size_t)MR * vsl::tc_stride(Dk) + (size_t)Dk * vsl::tc_stride(NC));
+}
+
+// kRes false: qkv [M, N] (N = 3D) = bf16(y . w + bias) for the frames [m0,
+// m0 + MR) and the columns [c0, c0 + NC); kRes true: out [M, D] = drop203(z
+// . w + bias) + R. M = B T frames, x [M, D] of XT, att [M, D] fp32, w [D,
+// N] bf16, gam and beta the LayerNorm's.
+template <typename XT, bool kRes>
+__global__ void __launch_bounds__(kTcProjThreads)
+mha_proj_tc_kernel(const XT* __restrict__ x, const float* __restrict__ att,
+                   const float* __restrict__ gam, const float* __restrict__ beta,
+                   const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
+                   vsl::Dropout drop, __nv_bfloat16* __restrict__ qkv, XT* __restrict__ out, int M,
+                   int T, int D, int N, int MR, int NC) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ float4 smem4[];
+  const int m0 = blockIdx.x * MR, c0 = blockIdx.y * NC, mr = min(MR, M - m0);
+  const int Dk = (D + 63) / 64 * 64, YST = vsl::tc_stride(Dk), WST = vsl::tc_stride(NC);
+  bf16* Y = reinterpret_cast<bf16*>(smem4);
+  bf16* Ws = Y + (size_t)MR * YST;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = nt >> 5;
+  // w's columns [c0, c0 + NC) of its rows k < Dk by 16-byte cp.async, 0
+  // past D and N (D and N are multiples of 8)
+  const int q8 = NC / 8;
+  for (int i = tid; i < Dk * q8; i += nt) {
+    const int k = i / q8, c = 8 * (i - k * q8);
+    const bool on = k < D && c0 + c < N;
+    vsl::cp_async16(Ws + (size_t)k * WST + c, w + (on ? (size_t)k * N + c0 + c : 0), on);
+  }
+  vsl::cp_async_commit();
+  // the operand's padding: the columns [D, Dk) of every row, the rows [mr, MR)
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int i = tid; i < MR * (Dk - D); i += nt) {
+    const int r = i / (Dk - D);
+    Y[(size_t)r * YST + D + i - r * (Dk - D)] = zero;
+  }
+  for (int i = tid; i < (MR - mr) * D; i += nt) Y[(size_t)(mr + i / D) * YST + i % D] = zero;
+  // y = bf16(drop200(LN1(x))), or z = bf16(drop202(LN2(R))), R =
+  // drop201(att) + x: one warp a frame, layer_norm_rows' sums
+  const uint32_t s_ln = vsl::site_salt(kRes ? 0x202u : 0x200u), s201 = vsl::site_salt(0x201u);
+  const auto src = [&](int m, int t, uint32_t seed, int c) {
+    const float v = vsl::to_float(x[(size_t)m * D + c]);
+    if constexpr (kRes) return drop.apply(att[(size_t)m * D + c], seed, s201, t, c) + v;
+    return v;
+  };
+  const auto put = [&](int r, int t, uint32_t seed, int c, float n) {
+    Y[(size_t)r * YST + c] =
+        __float2bfloat16(drop.apply(n * __ldg(gam + c) + __ldg(beta + c), seed, s_ln, t, c));
+  };
+  for (int r = warp; r < mr; r += nwarps) {
+    const int m = m0 + r, b = m / T, t = m - b * T;
+    const uint32_t seed = drop.seed(b);
+    float s = 0.f, v = 0.f;
+    if (D <= 32 * kTcLnValues) {  // the row's values in registers, read once
+      float xv[kTcLnValues];
+#pragma unroll
+      for (int i = 0; i < kTcLnValues; ++i) {
+        const int c = lane + 32 * i;
+        xv[i] = c < D ? src(m, t, seed, c) : 0.f;
+        s += xv[i];
+      }
+      const float mean = vsl::warp_sum(s) / D;
+#pragma unroll
+      for (int i = 0; i < kTcLnValues; ++i)
+        if (lane + 32 * i < D) v += (xv[i] - mean) * (xv[i] - mean);
+      const float inv = rsqrtf(vsl::warp_sum(v) / D + vsl::kLnEps);
+#pragma unroll
+      for (int i = 0; i < kTcLnValues; ++i)
+        if (lane + 32 * i < D) put(r, t, seed, lane + 32 * i, (xv[i] - mean) * inv);
+      continue;
+    }
+    // wider rows than the model's: the same sums, each pass from global memory
+    for (int c = lane; c < D; c += 32) s += src(m, t, seed, c);
+    const float mean = vsl::warp_sum(s) / D;
+    for (int c = lane; c < D; c += 32) {
+      const float d = src(m, t, seed, c) - mean;
+      v += d * d;
+    }
+    const float inv = rsqrtf(vsl::warp_sum(v) / D + vsl::kLnEps);
+    for (int c = lane; c < D; c += 32) put(r, t, seed, c, (src(m, t, seed, c) - mean) * inv);
+  }
+  vsl::cp_async_wait<0>();
+  __syncthreads();  // the weight's columns landed; the operand written
+  const uint32_t s203 = vsl::site_salt(0x203u);
+  vsl::tile_mma(Y, YST, (mr + 15) / 16, Ws, WST, NC / 16, Dk,
+                [&](int r, int c, float v0, float v1) {
+                  const int m = m0 + r, n = c0 + c;
+                  if (r >= mr || n >= N) return;  // N even: n < N holds for n + 1 too
+                  const float2 b2 = __ldg(reinterpret_cast<const float2*>(bias + n));
+                  if constexpr (!kRes) {
+                    *reinterpret_cast<uint32_t*>(qkv + (size_t)m * N + n) =
+                        vsl::pack_bf16(v0 + b2.x, v1 + b2.y);
+                  } else {
+                    const int b = m / T, t = m - b * T;
+                    const uint32_t seed = drop.seed(b);
+                    const float o0 = drop.apply(v0 + b2.x, seed, s203, t, n) + src(m, t, seed, n);
+                    const float o1 =
+                        drop.apply(v1 + b2.y, seed, s203, t, n + 1) + src(m, t, seed, n + 1);
+                    out[(size_t)m * D + n] = vsl::from_float<XT>(o0);
+                    out[(size_t)m * D + n + 1] = vsl::from_float<XT>(o1);
+                  }
+                });
+}
+
+// The attention's shared memory for NK tiles of 16 keys, W warps of 16
+// queries and head dim HD, in bytes (ops/kernels.py _mha_tc_attn_bytes): k
+// and v [16 NK][tc_stride(HP)], qs [16 W][tc_stride(HP)] (bf16; HP = HD,
+// 16 at head dim 8) and the key mask's terms [16 NK] (fp32).
+__host__ __device__ constexpr size_t tc_attn_bytes(int HD, int NK, int W) {
+  return 2 * ((size_t)(2 * 16 * NK) + 16 * (size_t)W) * vsl::tc_stride(HD < 16 ? 16 : HD) +
+         4 * (16 * (size_t)NK);
+}
+
+template <int HD, int NK>
+__global__ void __launch_bounds__(32 * kTcAttnWarps)
+attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ mask,
+                   vsl::Dropout drop, float* __restrict__ att, int T, int D, float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int HP = HD < 16 ? 16 : HD, SH = vsl::tc_stride(HP), TP = 16 * NK, CH = HD / 8;
+  extern __shared__ float4 smem4[];
+  const int nt = blockDim.x, QR = nt / 2;  // 16 queries a warp
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);
+  bf16* Vs = Ks + TP * SH;
+  bf16* Qs = Vs + TP * SH;
+  float* negk = reinterpret_cast<float*>(Qs + (size_t)QR * SH);
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QR;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g8 = lane >> 2, tq = lane & 3;
+  const size_t D3 = 3 * (size_t)D;
+  const bf16* base = qkv + (size_t)b * T * D3 + h * HD;
+  // the tile's q rows and every key's k row in one commit group, v in a
+  // second that lands behind the scores; rows past T zero
+  for (int i = tid; i < QR * CH; i += nt) {
+    const int j = i / CH, c = (i % CH) * 8, t = q0 + j;
+    vsl::cp_async16(Qs + j * SH + c, base + (size_t)(t < T ? t : 0) * D3 + c, t < T);
+  }
+  for (int i = tid; i < TP * CH; i += nt) {
+    const int j = i / CH, c = (i % CH) * 8;
+    vsl::cp_async16(Ks + j * SH + c, base + (size_t)(j < T ? j : 0) * D3 + D + c, j < T);
+  }
+  vsl::cp_async_commit();
+  for (int i = tid; i < TP * CH; i += nt) {
+    const int j = i / CH, c = (i % CH) * 8;
+    vsl::cp_async16(Vs + j * SH + c, base + (size_t)(j < T ? j : 0) * D3 + 2 * D + c, j < T);
+  }
+  vsl::cp_async_commit();
+  if constexpr (HD < 16) {  // head dim 8: q's and k's columns [8, 16) are 0
+    for (int j = tid; j < QR + TP; j += nt)
+      *reinterpret_cast<uint4*>((j < QR ? Qs + j * SH : Ks + (j - QR) * SH) + 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int j = tid; j < TP; j += nt)
+    negk[j] = j < T ? (1.f - mask[(size_t)b * T + j]) * vsl::kMaskValue : 0.f;
+  vsl::cp_async_wait<1>();
+  for (int i = tid; i < QR * CH; i += nt) {  // qs = bf16(q * scale), the chunks this thread copied
+    uint4* p = reinterpret_cast<uint4*>(Qs + (i / CH) * SH + (i % CH) * 8);
+    uint4 u = *p;
+    uint32_t* wv = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(wv + k));
+      wv[k] = vsl::pack_bf16(f.x * scale, f.y * scale);
+    }
+    *p = u;
+  }
+  __syncthreads();
+  const int r0 = 16 * warp;
+  const bool active = q0 + r0 < T;
+  const uint32_t seed = drop.seed(b), salt = vsl::head_salt(h);
+  uint32_t pa[NK][4];
+  if (active) {
+    // S = qs . k^T over HP / 16 k16 steps (at most 4: one chain)
+    float sc[2 * NK][4];
+#pragma unroll
+    for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < HP / 16; ++ks) {
+      uint32_t a[4];
+      vsl::ldsm_x4(a, Qs + (r0 + (lane & 15)) * SH + 16 * ks + (lane >> 4) * 8);
+#pragma unroll
+      for (int n = 0; n < 2 * NK; n += 2) {
+        uint32_t bb[4];
+        vsl::ldsm_x4(bb, Ks + (8 * n + (lane & 7) + ((lane >> 4) << 3)) * SH + 16 * ks +
+                             ((lane >> 3) & 1) * 8);
+        vsl::mma16(sc[n], a, bb[0], bb[1]);
+        vsl::mma16(sc[n + 1], a, bb[2], bb[3]);
+      }
+    }
+    // this lane's queries q0 + r0 + g8 (e < 2) and + 8, keys 8 n + 2 tq + (e & 1)
+    float mx[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+    for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * n + 2 * tq + (e & 1);
+        sc[n][e] = j < T ? sc[n][e] + negk[j] : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+      }
+    float l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
+      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
+    }
+#pragma unroll
+    for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] = expf(sc[n][e] - mx[e >> 1]);  // 0 past T
+        l[e >> 1] += sc[n][e];
+      }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
+      l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
+    }
+    // p = bf16(drop(e / l)), the keep bit once a (t, j), into the A
+    // fragments of key tile ks: n = 2 ks (keys 16 ks + 2 tq, + 1) and 2 ks
+    // + 1 (+ 8), rows g8 and g8 + 8 (mma.cuh c_to_a's packing)
+#pragma unroll
+    for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int t = q0 + r0 + g8 + 8 * u;
+        float pd[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = 8 * n + 2 * tq + c;
+          const bool keep = j < T && t < T && drop.keep(seed, salt, t, j);
+          pd[c] = keep ? drop.kept(sc[n][2 * u + c] / l[u]) : 0.f;
+        }
+        pa[n >> 1][2 * (n & 1) + u] = vsl::pack_bf16(pd[0], pd[1]);
+      }
+  }
+  vsl::cp_async_wait<0>();
+  __syncthreads();  // v landed for every thread
+  if (!active) return;  // no barrier below
+  // att = p . v: each group of 4 key tiles in the tensor cores from zero,
+  // the groups added by fp32 adds in order
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int k0 = 0; k0 < NK; k0 += 4) {
+    float c[HD / 8][4];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+    for (int ks = k0; ks < k0 + 4 && ks < NK; ++ks) {
+      if constexpr (HD == 8) {
+        uint32_t bb[2];
+        vsl::ldsm_x2_trans(bb, Vs + (16 * ks + (lane & 15)) * SH);
+        vsl::mma16(c[0], pa[ks], bb[0], bb[1]);
+      } else {
+#pragma unroll
+        for (int n = 0; n < HD / 8; n += 2) {
+          uint32_t bb[4];
+          vsl::ldsm_x4_trans(bb, Vs + (16 * ks + (lane & 15)) * SH + 8 * (n + (lane >> 4)));
+          vsl::mma16(c[n], pa[ks], bb[0], bb[1]);
+          vsl::mma16(c[n + 1], pa[ks], bb[2], bb[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = k0 ? acc[n][e] + c[n][e] : c[n][e];
+  }
+  float* orow = att + (size_t)b * T * D + h * HD;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int t = q0 + r0 + g8 + 8 * u;
+      if (t < T)
+        *reinterpret_cast<float2*>(orow + (size_t)t * D + 8 * n + 2 * tq) =
+            make_float2(acc[n][2 * u], acc[n][2 * u + 1]);
+    }
+}
+
+// The tensor-core attention of B rows and n_heads heads at T <= 16 NK
+// keys (NK of 1, 2, 4, 8, 16: the fewest that hold T), W = min(8, ceil(T
+// / 16)) warps a CTA.
+template <int HD>
+cudaError_t launch_attn_fwd_tc(const __nv_bfloat16* qkv, const float* mask, vsl::Dropout drop,
+                               float* att, int B, int T, int D, int n_heads,
+                               cudaStream_t stream) {
+  const int nk = (T + 15) / 16, W = std::min(kTcAttnWarps, nk);
+  const dim3 grid((T + 16 * W - 1) / (16 * W), n_heads, B);
+  const float scale = vsl::bf16_round_host(vsl::head_scale(HD));
+  const auto go = [&](auto kernel, int NK) {
+    return vsl::launch_opted(kernel, grid, 32 * W, tc_attn_bytes(HD, NK, W), stream, qkv, mask,
+                             drop, att, T, D, scale);
+  };
+  if (nk <= 1) return go(attn_fwd_tc_kernel<HD, 1>, 1);
+  if (nk <= 2) return go(attn_fwd_tc_kernel<HD, 2>, 2);
+  if (nk <= 4) return go(attn_fwd_tc_kernel<HD, 4>, 4);
+  if (nk <= 8) return go(attn_fwd_tc_kernel<HD, 8>, 8);
+  if (nk <= 16) return go(attn_fwd_tc_kernel<HD, 16>, 16);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -791,10 +1130,10 @@ extern "C" int vsl_mha_block_fwd(const float* x, const float* mask, const float*
   const dim3 grid((T + F - 1) / F, B);
   const int smem1 = static_cast<int>(fwd_qkv_tile_floats(F, SK, D) * sizeof(float));
   cudaError_t err =
-      vsl::opt_in_smem(reinterpret_cast<const void*>(fwd_qkv_tile_kernel<float>), smem1);
+      vsl::opt_in_smem(reinterpret_cast<const void*>(fwd_qkv_tile_kernel), smem1);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fwd_qkv_tile_kernel<float><<<grid, kThreads, smem1, stream>>>(x, gam, beta, wqkv, bqkv, drop,
-                                                                qkv, T, D, F, SK);
+  fwd_qkv_tile_kernel<<<grid, kThreads, smem1, stream>>>(x, gam, beta, wqkv, bqkv, drop, qkv, T,
+                                                         D, F, SK);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -805,62 +1144,62 @@ extern "C" int vsl_mha_block_fwd(const float* x, const float* mask, const float*
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int smem3 = static_cast<int>(fwd_out_tile_floats(F, SK, D) * sizeof(float));
-  err = vsl::opt_in_smem(reinterpret_cast<const void*>(fwd_out_tile_kernel<float>), smem3);
+  err = vsl::opt_in_smem(reinterpret_cast<const void*>(fwd_out_tile_kernel), smem3);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fwd_out_tile_kernel<float><<<grid, kThreads, smem3, stream>>>(x, att, gam + D, beta + D, wd, bd,
-                                                                drop, out, T, D, F, SK);
+  fwd_out_tile_kernel<<<grid, kThreads, smem3, stream>>>(x, att, gam + D, beta + D, wd, bd, drop,
+                                                         out, T, D, F, SK);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 forward on the same plan: x and out [B, T, D] in bf16, mask and
-// the weights fp32; qkv [B, T, 3D] (bf16-rounded values) and att [B, T, D]
-// fp32.
+// The bf16 forward (#3 at bf16) on the tensor cores, on mha_fwd_bf16_plan's
+// tiles of MR frames, NCQ of Wqkv's and NCD of Wd's columns: x and out [B,
+// T, D] in bf16; wqkvb = bf16(Wqkv) [D, 3D] and wdb = bf16(Wd) [D, D] (the
+// function's roundings, made once a call), mask and the other weights
+// fp32; qkv [B, T, 3D] in bf16 and att [B, T, D] fp32, the backward's
+// residuals. Head dims 8-64, D a multiple of 8, T <= 256.
 extern "C" int vsl_mha_block_fwd_bf16(const void* x_, const float* mask, const float* gam,
-                                      const float* beta, const float* wqkv, const float* bqkv,
-                                      const float* wd, const float* bd, const float* seeds,
-                                      unsigned thresh, float scale, float* qkv, float* att,
-                                      void* out_, int B, int T, int D, int n_heads, int F, int SK,
-                                      int TQ, void* stream_) {
+                                      const float* beta, const void* wqkvb, const float* bqkv,
+                                      const void* wdb, const float* bd, const float* seeds,
+                                      unsigned thresh, float scale, void* qkv_, float* att,
+                                      void* out_, int B, int T, int D, int n_heads, int MR,
+                                      int NCQ, int NCD, void* stream_) {
   using bf16 = __nv_bfloat16;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (B < 1 || T < 1 || D < 4 || D % 4 || n_heads < 1 || D % n_heads || F < 1 || SK < 4 ||
-      SK % 4 || D % SK || TQ < 1)
+  if (B < 1 || T < 1 || T > 256 || D < 8 || D % 8 || n_heads < 1 || D % n_heads || MR < 16 ||
+      MR % 16 || NCQ < 16 || NCQ % 16 || NCD < 16 || NCD % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const bf16* x = static_cast<const bf16*>(x_);
+  bf16* qkv = static_cast<bf16*>(qkv_);
   bf16* out = static_cast<bf16*>(out_);
   const vsl::Dropout drop{seeds, thresh, scale};
-  const dim3 grid((T + F - 1) / F, B);
-  const int smem1 = static_cast<int>(fwd_qkv_tile_floats(F, SK, D) * sizeof(float));
-  cudaError_t err =
-      vsl::opt_in_smem(reinterpret_cast<const void*>(fwd_qkv_tile_kernel<bf16>), smem1);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fwd_qkv_tile_kernel<bf16><<<grid, kThreads, smem1, stream>>>(x, gam, beta, wqkv, bqkv, drop,
-                                                               qkv, T, D, F, SK);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  err = vsl::by_head_dim(D / n_heads, [&](auto hd) {
-    return launch_attention_tiles<decltype(hd)::value, true>(
-        qkv, qkv + D, qkv + 2 * D, 3 * D, mask, drop, att, D, B, T, n_heads, TQ, stream);
-  });
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int smem3 = static_cast<int>(fwd_out_tile_floats(F, SK, D) * sizeof(float));
-  err = vsl::opt_in_smem(reinterpret_cast<const void*>(fwd_out_tile_kernel<bf16>), smem3);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fwd_out_tile_kernel<bf16><<<grid, kThreads, smem3, stream>>>(x, att, gam + D, beta + D, wd, bd,
-                                                               drop, out, T, D, F, SK);
-  return static_cast<int>(cudaGetLastError());
+  const int M = B * T, tiles = (M + MR - 1) / MR;
+  cudaError_t err = vsl::launch_opted(
+      mha_proj_tc_kernel<bf16, false>, dim3(tiles, (3 * D + NCQ - 1) / NCQ), kTcProjThreads,
+      tc_proj_bytes(MR, NCQ, D), stream, x, static_cast<const float*>(nullptr), gam, beta,
+      static_cast<const bf16*>(wqkvb), bqkv, drop, qkv, static_cast<bf16*>(nullptr), M, T, D,
+      3 * D, MR, NCQ);
+  if (err == cudaSuccess)
+    err = vsl::by_head_dim(D / n_heads, [&](auto hd) {
+      return launch_attn_fwd_tc<decltype(hd)::value>(qkv, mask, drop, att, B, T, D, n_heads,
+                                                     stream);
+    });
+  if (err == cudaSuccess)
+    err = vsl::launch_opted(mha_proj_tc_kernel<bf16, true>, dim3(tiles, (D + NCD - 1) / NCD),
+                            kTcProjThreads, tc_proj_bytes(MR, NCD, D), stream, x,
+                            static_cast<const float*>(att), gam + D, beta + D,
+                            static_cast<const bf16*>(wdb), bd, drop,
+                            static_cast<bf16*>(nullptr), out, M, T, D, D, MR, NCD);
+  return static_cast<int>(err);
 }
 
 namespace {
 
 // The block backward's three launches, the partials' sum and the weight
-// products; XT the storage type of x, g and dx.
+// products; XT the storage type of x, g, dx and the forward's qkv.
 template <typename XT>
 cudaError_t block_backward(const XT* x, const float* mask, const float* gam, const float* beta,
                            const float* wqkvT, const float* wdT, vsl::Dropout drop,
-                           const float* qkv, const float* att, const XT* g, XT* dx,
+                           const XT* qkv, const float* att, const XT* g, XT* dx,
                            float* dsmall, float* dwqkv, float* dwd, float* z_ws, float* gdpre_ws,
                            float* gres_ws, float* gatt_ws, float* y_ws, float* dqkv, float* part,
                            float* gemm_ws, int splits, int B, int T, int D, int n_heads, int F,
@@ -878,7 +1217,7 @@ cudaError_t block_backward(const XT* x, const float* mask, const float* gam, con
   if (err != cudaSuccess) return err;
 
   err = vsl::by_head_dim(D / n_heads, [&](auto hd) {
-    return launch_attention_bwd_tiles<decltype(hd)::value, kBf16>(
+    return launch_attention_bwd_tiles<decltype(hd)::value, kBf16, float, float, XT>(
         qkv, qkv + D, qkv + 2 * D, 3 * D, mask, drop, att, gatt_ws, dqkv, dqkv + D, dqkv + 2 * D,
         3 * D, B, T, D, n_heads, TQ, kThreads, stream);
   });
@@ -929,12 +1268,12 @@ extern "C" int vsl_mha_block_bwd(const float* x, const float* mask, const float*
 }
 
 // The bf16 backward on the same plan (#10 at bf16): x, g and dx [B, T, D]
-// in bf16; qkv (bf16-rounded values), att, the workspaces and the weight
-// gradients fp32.
+// and the bf16 forward's qkv [B, T, 3D] in bf16; att, the workspaces and
+// the weight gradients fp32.
 extern "C" int vsl_mha_block_bwd_bf16(const void* x, const float* mask, const float* gam,
                                       const float* beta, const float* wqkvT, const float* wdT,
                                       const float* seeds, unsigned thresh, float scale,
-                                      const float* qkv, const float* att, const void* g, void* dx,
+                                      const void* qkv, const float* att, const void* g, void* dx,
                                       float* dsmall, float* dwqkv, float* dwd, float* z_ws,
                                       float* gdpre_ws, float* gres_ws, float* gatt_ws,
                                       float* y_ws, float* dqkv, float* part, float* gemm_ws,
@@ -944,7 +1283,7 @@ extern "C" int vsl_mha_block_bwd_bf16(const void* x, const float* mask, const fl
   if (!bwd_plan_ok(B, T, D, n_heads, F, SK, TQ)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(block_backward(
       static_cast<const bf16*>(x), mask, gam, beta, wqkvT, wdT, vsl::Dropout{seeds, thresh, scale},
-      qkv, att, static_cast<const bf16*>(g), static_cast<bf16*>(dx), dsmall, dwqkv, dwd, z_ws,
+      static_cast<const bf16*>(qkv), att, static_cast<const bf16*>(g), static_cast<bf16*>(dx), dsmall, dwqkv, dwd, z_ws,
       gdpre_ws, gres_ws, gatt_ws, y_ws, dqkv, part, gemm_ws, splits, B, T, D, n_heads, F, SK, TQ,
       static_cast<cudaStream_t>(stream_)));
 }

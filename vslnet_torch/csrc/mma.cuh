@@ -195,6 +195,53 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c)[2][4])
   a[3] = pack_bf16(c[1][2], c[1][3]);
 }
 
+// --- small products out of shared memory, a warp an item ----------------------
+// C = A . W over the rows [0, 16 mtiles) of A [.][lda] and the columns [0,
+// 16 nblocks) of W [Dk][ldw], both bf16 in shared memory with k along A's
+// rows and down W's columns (Dk a multiple of 64; A's columns and W's rows
+// past the operands' k are 0): the bf16 T-tiled conv forward's and the bf16
+// MHA block forward's products, the TPU kernels' jnp.dot of bf16 values
+// with fp32 accumulation. A warp takes the items (16 rows, 16 columns) w,
+// w + nwarps, ...: A's fragments by ldmatrix, W's by ldmatrix.trans; each
+// group of 4 k16 steps accumulates in the tensor cores from zero and is
+// added to the item's sums by an fp32 add, groups in order of k (the chains
+// of 4 of tc_gemm below: chains of 8 drift, PERF.md). epi(r, c, v0, v1)
+// takes each pair of neighbouring outputs (c even) of every item, rows and
+// columns past the caller's ranges included, from all 32 lanes of the warp
+// at once, so that it may shuffle.
+template <typename Epi>
+__device__ __forceinline__ void tile_mma(const __nv_bfloat16* A, int lda, int mtiles,
+                                         const __nv_bfloat16* W, int ldw, int nblocks, int Dk,
+                                         Epi epi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  for (int item = warp; item < mtiles * nblocks; item += nwarps) {
+    const int m0 = 16 * (item / nblocks), n0 = 16 * (item % nblocks);
+    float sum[2][4];
+    for (int k = 0; k < Dk; k += 64) {
+      float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k0 = k + 16 * q;
+        uint32_t a[4], b[4];
+        ldsm_x4(a, A + (size_t)(m0 + (lane & 15)) * lda + k0 + (lane >> 4) * 8);
+        ldsm_x4_trans(b, W + (size_t)(k0 + (lane & 15)) * ldw + n0 + (lane >> 4) * 8);
+        mma16(c[0], a, b[0], b[1]);
+        mma16(c[1], a, b[2], b[3]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[h][e] = k ? sum[h][e] + c[h][e] : c[h][e];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        epi(m0 + g + 8 * u, n0 + 8 * h + 2 * tq, sum[h][2 * u], sum[h][2 * u + 1]);
+  }
+}
+
 // --- bf16 weight gradients on mma.sync ---------------------------------------
 // C[z] = A[z]^T . B[z] for z < Z, as common.cuh wgrad computes it (A[z] [K,
 // M], B[z] [K, N] row-major, K every (row, position) of the batch, C[z] [M,

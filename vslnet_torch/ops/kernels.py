@@ -156,10 +156,10 @@ _SIGNATURES.update({"vsl_%s_bf16" % n: _SIGNATURES["vsl_" + n]
                     for n in _BF16_KERNELS})
 # the bf16 LSTM backward also takes a float32 workspace for dk_h's sums
 _SIGNATURES["vsl_lstm_recurrence_bwd_bf16"] = [_P] * 11 + [_I] * 8 + [_P]
-# the bf16 tiled conv forward also writes the ReLU mask; its backward takes
-# that mask, bf16(wp) in place of wp and wp^T, and wp's slice for the
-# product tile
-_SIGNATURES["vsl_conv_block_fwd_tiled_bf16"] = [_P] * 7 + _DROP + [_P] * 3 + [_I] * 8 + [_P]
+# the bf16 tiled conv forward takes bf16(wp) in place of wp, writes the
+# ReLU mask and takes no product tile; its backward takes that mask,
+# bf16(wp) in place of wp and wp^T, and wp's slice for the product tile
+_SIGNATURES["vsl_conv_block_fwd_tiled_bf16"] = [_P] * 7 + _DROP + [_P] * 3 + [_I] * 7 + [_P]
 _SIGNATURES["vsl_conv_block_bwd_tiled_bf16"] = [_P] * 9 + _DROP + [_P] * 9 + [_I] * 8 + [_P]
 # the bf16 flash forward takes no query rows a thread
 _SIGNATURES["vsl_flash_mha_fwd_bf16"] = [_P] * 5 + _DROP + [_P] * 2 + [_I] * 4 + [_P]
@@ -1467,49 +1467,130 @@ def conv_tiled_fwd_plan(B, T, D, K, L):
     return best[1]
 
 
+def _conv_tiled_fwd_bf16_smem_bytes(frames, D, K, sn):
+    """csrc/conv_block.cu TcTiledFwdLayout's bytes for `frames` frames a
+    tile and slices of `sn` of bf16(wp)'s columns: x_l's window, n_l's and
+    the taps in fp32, the bf16 A tile [frames rounded up to 16][_tc_stride(
+    Dk)] and the slice [Dk][_tc_stride(sn)], Dk = D rounded up to 64."""
+    dk = -(-D // 64) * 64
+    return (4 * (2 * (frames + K - 1) * D + K * D)
+            + 2 * (-(-frames // 16) * 16 * _tc_stride(dk) + dk * _tc_stride(sn)))
+
+
+class ConvTiledFwdBf16Plan(NamedTuple):
+    """One call of the bf16 tiled conv forward on the tensor cores: each of
+    L launches on `ctas` = B * `tiles` CTAs of CONV_TILED_THREADS threads, a
+    CTA taking `frames` frames of a row (tiles = ceil(T / frames)) and
+    `smem` bytes, bf16(wp)'s columns in slices of `slice` (a multiple of
+    16; ceil(D / slice) slices)."""
+    frames: int
+    tiles: int
+    slice: int
+    smem: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=256)
+def conv_tiled_fwd_bf16_plan(B, T, D, K, L):
+    """The bf16 tiled forward's launch plan, its tiles chosen as
+    conv_tiled_fwd_plan chooses them (the F of CONV_TILED_FRAMES, cut to T,
+    of the fewest waves times F + K - 1, the larger F on a tie), with
+    bf16(wp)'s columns whole in shared memory where they fit, else in the
+    widest slices of 16 columns that do. At path L's [8, 1024, 128]: 128
+    CTAs of 64 frames (~125 KB each); at path M's [16, 192, 128], 128 of 24;
+    at [16, 128, 128], 128 of 16. Raises on what the kernel cannot take."""
+    if B < 1 or T < 1 or K < 1 or L < 1 or D < 4 or D % 4:
+        raise ValueError("conv_tiled_fwd_bf16_plan: needs B, T, K, L >= 1 and "
+                         "D %% 4 == 0, got B=%d, T=%d, D=%d, K=%d, L=%d"
+                         % (B, T, D, K, L))
+    dn = -(-D // 16) * 16
+    best = None
+    for frames in sorted({min(T, f) for f in CONV_TILED_FRAMES}):
+        sn = next((sn for sn in range(dn, 15, -16)
+                   if _conv_tiled_fwd_bf16_smem_bytes(frames, D, K, sn)
+                   <= MAX_SMEM_BYTES), None)
+        if sn is None:
+            continue
+        tiles = -(-T // frames)
+        cost = -(-B * tiles // N_SMS) * (frames + K - 1)
+        if best is None or cost <= best[0]:
+            best = (cost, ConvTiledFwdBf16Plan(
+                frames, tiles, sn,
+                _conv_tiled_fwd_bf16_smem_bytes(frames, D, K, sn), B * tiles))
+    if best is None:
+        frames = min(T, CONV_TILED_FRAMES[0])
+        raise ValueError("conv_tiled_fwd_bf16_plan: D=%d needs %d bytes of "
+                         "shared memory a tile of %d frames, above the %d a "
+                         "block has" % (D, _conv_tiled_fwd_bf16_smem_bytes(
+                             frames, D, K, 16), frames, MAX_SMEM_BYTES))
+    return best[1]
+
+
+def _bf16_of(name, w, wb):
+    """bf16(w), the function's rounding of a weight: wb where the caller
+    made it (checked against w's shape), else made here."""
+    if wb is None:
+        return w.to(torch.bfloat16).contiguous()
+    _check(name, wb, w.shape, torch.bfloat16)
+    return wb
+
+
 def launch_conv_block_fwd_tiled(x, gam, beta, dw, wp, bp, seeds=None,
-                                drop_rate=0.0):
+                                drop_rate=0.0, wpb=None):
     """The tiled forward kernels on conv_tiled_fwd_plan: (out, xs [L - 1, B,
-    T, D], the inputs of layers 1..L-1, which the tiled backward reads),
-    the bf16 entry point for bf16 x (out in x's dtype, xs float32 either
-    way), which also returns each layer's ReLU mask [p > 0] for the bf16
+    T, D], the inputs of layers 1..L-1, which the tiled backward reads);
+    for bf16 x the bf16 entry point, the tensor-core kernels on
+    conv_tiled_fwd_bf16_plan (out in x's dtype, xs float32 either way),
+    which also returns each layer's ReLU mask [p > 0] for the bf16
     backward: (out, xs, mask [L, B, T, D / 4] uint8, bit q of byte c the
-    column 4 c + q). CUDA tensors only; raises where the tiled backward's
-    plan does not fit either."""
+    column 4 c + q). At bf16, wpb is bf16(wp) where the caller has it
+    (FusedConvBlockTiled hands the backward the same one), else made here.
+    CUDA tensors only; raises where the tiled backward's plan does not fit
+    either."""
     name = "conv_block_fwd_tiled"
     bf16 = _act_dtype(name, x) == torch.bfloat16
     name = _entry(name, x.dtype)
     _require_cuda(name, x, gam, beta, dw, wp, bp)
     B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0, x.dtype)
-    plan = conv_tiled_fwd_plan(B, T, D, K, L)
+    plan = (conv_tiled_fwd_bf16_plan if bf16 else conv_tiled_fwd_plan)(
+        B, T, D, K, L)
     (conv_tiled_bwd_bf16_plan if bf16 else conv_tiled_bwd_plan)(B, T, D, K, L)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
-    # x, the taps and the weights land by 16-byte cp.async, x and bp are
-    # read as float4s
+    # x, the taps and the weights land by 16-byte cp.async (bf16(wp), the
+    # function's rounding of wp, made once a call, too), x and bp are read
+    # as float4s (bp as float2s at bf16)
     x, dw, wp, bp = _aligned16(x, dw, wp, bp)
     out = torch.empty_like(x)
     xs = _empty(x.device, max(L - 1, 1), B, T, D)
-    mask = (torch.empty(L, B, T, D // 4, device=x.device, dtype=torch.uint8)
-            if bf16 else None)
+    if not bf16:
+        _launch(name, x.data_ptr(), gam.data_ptr(), beta.data_ptr(),
+                dw.data_ptr(), wp.data_ptr(), bp.data_ptr(), sp, thresh, scale,
+                xs.data_ptr(), out.data_ptr(), B, T, D, L, K, plan.frames,
+                plan.slice, plan.product_rows)
+        return out, xs
+    wpb = _bf16_of(name, wp, wpb)
+    mask = torch.empty(L, B, T, D // 4, device=x.device, dtype=torch.uint8)
     _launch(name, x.data_ptr(), gam.data_ptr(), beta.data_ptr(), dw.data_ptr(),
-            wp.data_ptr(), bp.data_ptr(), sp, thresh, scale, xs.data_ptr(),
-            *([mask.data_ptr()] if bf16 else []), out.data_ptr(), B, T, D, L,
-            K, plan.frames, plan.slice, plan.product_rows)
-    return (out, xs, mask) if bf16 else (out, xs)
+            wpb.data_ptr(), bp.data_ptr(), sp, thresh, scale, xs.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), B, T, D, L, K, plan.frames,
+            plan.slice)
+    return out, xs, mask
 
 
 def launch_conv_block_bwd_tiled(x, xs, gam, beta, dw, wp, bp, seeds,
-                                drop_rate, g, mask=None):
+                                drop_rate, g, mask=None, wpb=None):
     """The tiled backward kernels on conv_tiled_bwd_plan, from the forward's
     xs: (dx, dgam, dbeta, ddw, dwp, dbp), the weight gradients summed over
     the batch; for bf16 x the bf16 entry point on conv_tiled_bwd_bf16_plan,
-    which also takes the forward's ReLU `mask` (g and dx in x's dtype, xs,
+    which also takes the forward's ReLU `mask` and, where the caller has
+    it, the forward's bf16(wp) `wpb` (g and dx in x's dtype, xs,
     the gradient between the layers and the weight gradients float32).
     CUDA tensors only."""
     name = "conv_block_bwd_tiled"
     if _act_dtype(name, x) == torch.bfloat16:
         return _launch_conv_block_bwd_tiled_bf16(x, xs, mask, gam, beta, dw,
-                                                 wp, bp, seeds, drop_rate, g)
+                                                 wp, bp, seeds, drop_rate, g,
+                                                 wpb)
     _require_cuda(name, x, xs, gam, beta, dw, wp, bp, g)
     B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0, x.dtype)
     plan = conv_tiled_bwd_plan(B, T, D, K, L)
@@ -1540,7 +1621,7 @@ def launch_conv_block_bwd_tiled(x, xs, gam, beta, dw, wp, bp, seeds,
 
 
 def _launch_conv_block_bwd_tiled_bf16(x, xs, mask, gam, beta, dw, wp, bp,
-                                      seeds, drop_rate, g):
+                                      seeds, drop_rate, g, wpb=None):
     """launch_conv_block_bwd_tiled for bf16 x: the tensor-core kernels
     (csrc/conv_block.cu conv_layer_bwd_tc_tiled_kernel) on
     conv_tiled_bwd_bf16_plan, reading the forward's ReLU mask."""
@@ -1558,7 +1639,7 @@ def _launch_conv_block_bwd_tiled_bf16(x, xs, mask, gam, beta, dw, wp, bp,
     # x, g, xs and the taps are read as float4s (or 8 bytes of bf16) and by
     # cp.async; bf16(wp), the function's rounding of wp, by 8-byte cp.async
     x, g, dw, bp = _aligned16(x, g, dw, bp)
-    wpb = wp.to(torch.bfloat16).contiguous()
+    wpb = _bf16_of(name, wp, wpb)
     dx = torch.empty_like(x)
     dsmall = _empty(dev, L, 3 + K, D)
     dwp = _empty(dev, L, D, D)
@@ -1585,18 +1666,21 @@ class FusedConvBlockTiled(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gam, beta, dw, wp, bp, seeds, drop_rate):
+        # at bf16 one rounding of wp a step, read by both directions
+        wpb = (wp.to(torch.bfloat16).contiguous()
+               if x.dtype == torch.bfloat16 else None)
         out, xs, *mask = launch_conv_block_fwd_tiled(x, gam, beta, dw, wp, bp,
-                                                     seeds, drop_rate)
-        ctx.save_for_backward(x, xs, gam, beta, dw, wp, bp, seeds, *mask)
+                                                     seeds, drop_rate, wpb)
+        ctx.save_for_backward(x, xs, gam, beta, dw, wp, bp, seeds, wpb, *mask)
         ctx.drop_rate = drop_rate
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, xs, gam, beta, dw, wp, bp, seeds, *mask = ctx.saved_tensors
+        x, xs, gam, beta, dw, wp, bp, seeds, wpb, *mask = ctx.saved_tensors
         grads = launch_conv_block_bwd_tiled(x, xs, gam, beta, dw, wp, bp, seeds,
                                             ctx.drop_rate, g.contiguous(),
-                                            *mask)
+                                            *mask, wpb=wpb)
         return (*grads, None, None)
 
 
@@ -1944,6 +2028,22 @@ class FusedConvBlockWide(torch.autograd.Function):
 # tiles a (row, head).
 
 
+def mha_qkv_plain(x, gam, beta, wqkv, bqkv, seeds=None, drop_rate=0.0,
+                  residual_dtype=torch.float32):
+    """The MHA block's projection, qkv = drop200(LN1(x)) . Wqkv + bqkv [B,
+    T, 3D], rounded at x's dtype where the TPU kernel rounds it (y, Wqkv and
+    qkv; fp32 sums) and held in residual_dtype: with bf16 x, the values the
+    bf16 forward kernel saves in bf16 (pallas_kernels.py:1700-1708)."""
+    act, dt = x.dtype, residual_dtype
+
+    def rnd(t):  # a rounding point at x's dtype, held in residual_dtype
+        return t.to(act).to(dt)
+
+    y = site_dropout(layer_norm(x.to(dt), gam[0], beta[0]).to(dt), seeds,
+                     0x200, drop_rate)
+    return rnd(rnd(y) @ rnd(wqkv) + bqkv.to(dt))
+
+
 def _mha_block(attend, x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
                seeds, drop_rate, residual_dtype=torch.float32):
     act, dt = x.dtype, residual_dtype
@@ -1952,10 +2052,8 @@ def _mha_block(attend, x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
     def rnd(t):  # a rounding point at x's dtype, held in residual_dtype
         return t.to(act).to(dt)
 
+    qkv = mha_qkv_plain(x, gam, beta, wqkv, bqkv, seeds, drop_rate, dt)
     x = x.to(dt)
-    y = site_dropout(layer_norm(x, gam[0], beta[0]).to(dt), seeds, 0x200,
-                     drop_rate)
-    qkv = rnd(rnd(y) @ rnd(wqkv) + bqkv.to(dt))
     q, k, v = (t.contiguous() for t in qkv.split(D, dim=-1))
     att = attend(q, k, v, mask, n_heads, seeds, drop_rate)
     res = site_dropout(att, seeds, 0x201, drop_rate) + x
@@ -2371,6 +2469,101 @@ def mha_fwd_plan(B, T, D, n_heads):
                       -(-T // q_tile), _mha_fwd_attention_bytes(T, q_tile, hd))
 
 
+# the bf16 forward's kernels on the tensor cores (csrc/mha_block.cu
+# mha_proj_tc_kernel, attn_fwd_tc_kernel): threads a CTA of the two
+# projections (kTcProjThreads), frames a projection tile, the column chunks
+# a projection CTA may take (the widest whose shared memory fits), the most
+# warps of 16 queries an attention CTA (kTcAttnWarps), and the key tiles of
+# 16 the attention is built for (T <= 16 of the largest)
+MHA_TC_THREADS = 256
+MHA_TC_ROWS = 16
+MHA_TC_COLS = (128, 64, 32, 16)
+MHA_TC_ATTN_WARPS = 8
+MHA_TC_KEY_TILES = (1, 2, 4, 8, 16)
+
+
+class MHAFwdBf16Plan(NamedTuple):
+    """One call of the bf16 MHA block forward on the tensor cores: the two
+    projections on `tiles` = ceil(B T / rows) tiles of the flattened
+    frames, the QKV launch a CTA a (tile, `qkv_cols` of Wqkv's 3D
+    columns), the dense launch a (tile, `dense_cols` of Wd's D), `smem_qkv`
+    and `smem_dense` bytes; the attention on `q_tiles` = ceil(T / (16
+    q_warps)) CTAs a (row, head) of `q_warps` warps, each holding every
+    key of the row in `key_tiles` tiles of 16, `smem_attention` bytes."""
+    rows: int
+    tiles: int
+    qkv_cols: int
+    dense_cols: int
+    smem_qkv: int
+    smem_dense: int
+    key_tiles: int
+    q_warps: int
+    q_tiles: int
+    smem_attention: int
+
+
+def _mha_tc_proj_bytes(rows, cols, D):
+    """csrc/mha_block.cu tc_proj_bytes: the bf16 operand [rows][_tc_stride(
+    Dk)] and the weight's columns [Dk][_tc_stride(cols)], Dk = D rounded up
+    to 64."""
+    dk = -(-D // 64) * 64
+    return 2 * (rows * _tc_stride(dk) + dk * _tc_stride(cols))
+
+
+def _mha_tc_attn_bytes(hd, key_tiles, warps):
+    """csrc/mha_block.cu tc_attn_bytes: k, v [16 key_tiles] and qs [16
+    warps] rows of bf16 at _tc_stride(max(hd, 16)), the key terms fp32."""
+    return (2 * (2 * 16 * key_tiles + 16 * warps) * _tc_stride(max(hd, 16))
+            + 4 * 16 * key_tiles)
+
+
+@functools.lru_cache(maxsize=256)
+def mha_fwd_bf16_plan(B, T, D, n_heads):
+    """The bf16 MHA block forward's launch plan for B rows of [T, D] in
+    n_heads heads of MHA_HEAD_DIMS: projection tiles of MHA_TC_ROWS frames
+    and column chunks of MHA_TC_COLS that fit, no wider than the weight: the
+    QKV product's the widest whose CTAs still number half the SMs (else the
+    narrowest), the dense product's the widest no wider than that (128 of
+    the 384 and 128 columns at [16, 128, 128]: 384 and 128 CTAs; 64 at the
+    query stream's [16, 12, 128]: 72 and 24 CTAs, 7% faster than 128 there
+    by mha_plans.py --forward --bf16); the attention on key tiles of
+    the fewest of MHA_TC_KEY_TILES that hold T and min(8, ceil(T / 16))
+    warps (one CTA of 8 warps a (row, head) at T = 128, of 1 at T = 12).
+    Raises on what the kernels cannot take: D not a multiple of 8, T above
+    16 * MHA_TC_KEY_TILES[-1]."""
+    hd = _head_dim("mha_fwd_bf16_plan", D, n_heads)
+    if B < 1 or T < 1 or D % 8:
+        raise ValueError("mha_fwd_bf16_plan: needs B, T >= 1 and D %% 8 == 0,"
+                         " got B=%d, T=%d, D=%d" % (B, T, D))
+    nk = -(-T // 16)
+    key_tiles = next((k for k in MHA_TC_KEY_TILES if k >= nk), None)
+    if key_tiles is None:
+        raise ValueError("mha_fwd_bf16_plan: T=%d above the %d keys the "
+                         "attention holds" % (T, 16 * MHA_TC_KEY_TILES[-1]))
+
+    tiles = -(-B * T // MHA_TC_ROWS)
+
+    def fit(N, most):  # the widths that fit, no wider than N (rounded up to 16) or most
+        return [c for c in MHA_TC_COLS if c <= min(most, max(16, -(-N // 16) * 16))
+                and _mha_tc_proj_bytes(MHA_TC_ROWS, c, D) <= MAX_SMEM_BYTES]
+
+    qkv = fit(3 * D, MHA_TC_COLS[0])
+    full = [c for c in qkv if tiles * -(-3 * D // c) >= N_SMS // 2]
+    qkv_cols = (full or qkv[-1:] or [None])[0]
+    dense_cols = qkv_cols and fit(D, qkv_cols)[0]
+    if qkv_cols is None:
+        raise ValueError("mha_fwd_bf16_plan: D=%d needs %d bytes of shared "
+                         "memory a projection tile, above the %d a block has"
+                         % (D, _mha_tc_proj_bytes(MHA_TC_ROWS, 16, D),
+                            MAX_SMEM_BYTES))
+    warps = min(MHA_TC_ATTN_WARPS, nk)
+    return MHAFwdBf16Plan(
+        MHA_TC_ROWS, tiles, qkv_cols, dense_cols,
+        _mha_tc_proj_bytes(MHA_TC_ROWS, qkv_cols, D),
+        _mha_tc_proj_bytes(MHA_TC_ROWS, dense_cols, D), key_tiles, warps,
+        -(-T // (16 * warps)), _mha_tc_attn_bytes(hd, key_tiles, warps))
+
+
 # --- 3c. the bf16 MHA block at head dim 128 --------------------------------------
 # #3b and #10b at the JAX bench's `saturated` widths (D = 1024 in 8 heads of
 # 128; csrc/mha_block.cu, the wide kernels): the per-frame launches split
@@ -2558,24 +2751,38 @@ def _mha_shapes(name, x, n_heads, smem, mask, gam, beta, wqkv, wd, bqkv=None,
 def launch_mha_block_fwd(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
                          seeds=None, drop_rate=0.0):
     """The forward kernels on mha_fwd_plan's tiles: (out, qkv [B, T, 3D],
-    att [B, T, D]), the last two being what the backward reads back; the
-    bf16 entry point for bf16 x (out in x's dtype, qkv holding bf16 values
-    and att float32), the wide kernels at head dim 128 (qkv stored in
-    bf16). CUDA tensors only."""
+    att [B, T, D]), the last two being what the backward reads back; for
+    bf16 x the bf16 entry point, the tensor-core kernels on
+    mha_fwd_bf16_plan (out in x's dtype, qkv stored in bf16, att float32),
+    the wide kernels at head dim 128 (qkv stored in bf16). CUDA tensors
+    only."""
     if _wide_head_dim(x.shape[-1], n_heads):
         return _launch_mha_block_fwd_wide(x, mask, gam, beta, wqkv, bqkv, wd,
                                           bd, n_heads, seeds, drop_rate)
-    name = _entry("mha_block_fwd", _act_dtype("mha_block_fwd", x))
+    bf16 = _act_dtype("mha_block_fwd", x) == torch.bfloat16
+    name = _entry("mha_block_fwd", x.dtype)
     _require_cuda(name, x, mask, gam, beta, wqkv, bqkv, wd, bd)
     B, T, D = _mha_shapes(name, x, n_heads, 0, mask, gam, beta, wqkv, wd,
                           bqkv, bd, x.dtype)
-    plan = mha_fwd_plan(B, T, D, n_heads)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    att = _empty(x.device, B, T, D)
+    out = torch.empty_like(x)
+    if bf16:
+        plan = mha_fwd_bf16_plan(B, T, D, n_heads)
+        # the products read bf16(Wqkv) and bf16(Wd), the function's
+        # roundings, made once a call, by 16-byte cp.async
+        wqkvb, wdb = (w.to(torch.bfloat16).contiguous() for w in (wqkv, wd))
+        qkv = torch.empty(B, T, 3 * D, device=x.device, dtype=torch.bfloat16)
+        _launch(name, x.data_ptr(), mask.data_ptr(), gam.data_ptr(),
+                beta.data_ptr(), wqkvb.data_ptr(), bqkv.data_ptr(),
+                wdb.data_ptr(), bd.data_ptr(), sp, thresh, scale,
+                qkv.data_ptr(), att.data_ptr(), out.data_ptr(), B, T, D,
+                n_heads, plan.rows, plan.qkv_cols, plan.dense_cols)
+        return out, qkv, att
+    plan = mha_fwd_plan(B, T, D, n_heads)
     # the per-frame launches copy the weights by 16-byte cp.async
     wqkv, wd = _aligned16(wqkv, wd)
     qkv = _empty(x.device, B, T, 3 * D)
-    att = _empty(x.device, B, T, D)
-    out = torch.empty_like(x)
     _launch(name, x.data_ptr(), mask.data_ptr(), gam.data_ptr(),
             beta.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wd.data_ptr(),
             bd.data_ptr(), sp, thresh, scale, qkv.data_ptr(), att.data_ptr(),
@@ -2588,9 +2795,9 @@ def launch_mha_block_bwd(x, mask, gam, beta, wqkv, wd, n_heads, seeds,
                          drop_rate, qkv, att, g):
     """The backward kernels on mha_bwd_plan's tiles: (dx, dgam, dbeta,
     dwqkv, dbqkv, dwd, dbd), the weight gradients summed over the batch;
-    the bf16 entry point for bf16 x (g and dx in x's dtype; qkv, att and
-    the weight gradients float32 either way; at head dim 128 the wide
-    kernels, qkv in bf16). CUDA tensors only."""
+    the bf16 entry point for bf16 x (g, dx and the forward's qkv in x's
+    dtype; att and the weight gradients float32 either way; at head dim
+    128 the wide kernels). CUDA tensors only."""
     if _wide_head_dim(x.shape[-1], n_heads):
         return _launch_mha_block_bwd_wide(x, mask, gam, beta, wqkv, wd,
                                           n_heads, seeds, drop_rate, qkv, att,
@@ -2599,8 +2806,8 @@ def launch_mha_block_bwd(x, mask, gam, beta, wqkv, wd, n_heads, seeds,
     _require_cuda(name, x, mask, gam, beta, wqkv, wd, qkv, att, g)
     B, T, D = _mha_shapes(name, x, n_heads, 0, mask, gam, beta, wqkv, wd,
                           dtype=x.dtype)
-    for t, shape in ((qkv, (B, T, 3 * D)), (att, (B, T, D))):
-        _check(name, t, shape)
+    _check(name, qkv, (B, T, 3 * D), x.dtype)
+    _check(name, att, (B, T, D))
     _check(name, g, (B, T, D), x.dtype)
     plan = mha_bwd_plan(B, T, D, n_heads)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
@@ -3543,6 +3750,7 @@ def _conv_pair_fits(T, D, K, L, grad=False):
                            (conv_plan, 1, T, D, K, L))
     return _plans_take((conv_tiled_fwd_plan, 1, T, D, K, L),
                        (conv_tiled_bwd_plan, 1, T, D, K, L),
+                       (conv_tiled_fwd_bf16_plan, 1, T, D, K, L),
                        (conv_tiled_bwd_bf16_plan, 1, T, D, K, L))
 
 
