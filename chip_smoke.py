@@ -1733,7 +1733,7 @@ def bf16_train_kernel_rows(dev, max_w):
     import torch
 
     from vslnet_torch.bench import bf16_vjp as V
-    from vslnet_torch.bench.common import by_kernel
+    from vslnet_torch.bench.common import by_kernel, conv_bwd_bf16_work, mha_bwd_bf16_work
     from vslnet_torch.ops import kernels as K
 
     bf = torch.bfloat16
@@ -1822,18 +1822,27 @@ def bf16_train_kernel_rows(dev, max_w):
 
     # 2. the conv block backward (#9): whole-row at the query stream's [B,
     # max_w, D], T-tiled at the video's [B, T, D]; drop 0 and 0.2
-    def conv_work(T_, tiled, B_=B):
-        flops = L * 2 * B_ * T_ * D * (3 * D + 3 * KS)
-        nbytes = (3 * 2 * B_ * T_ * D + 2 * 4 * L * (3 * D + KS * D + D * D)
-                  + (4 * (L - 1) * B_ * T_ * D if tiled else 0))
-        return {"bf16": flops}, nbytes
+    # the bounds of the backwards' functions (bench/common.py): x, g and dx
+    # in bf16, the key mask, the weights and their gradients; not the
+    # residuals (layer inputs, masks, qkv, att) the port keeps between the
+    # two directions
+    def conv_work(T_, B_=B):
+        return conv_bwd_bf16_work(B_, T_, D, KS, L)
+
+    def lib_ms(fn):
+        return sum(by_kernel(fn).values())
 
     for name, T_, tiled, line in (("conv_block_bwd_bf16", max_w, False, 1039),
                                   ("conv_block_bwd_tiled_bf16", T, True,
                                    1039)):
         cases = [V.conv_case(dev, rng, B, T_, D, rate, tiled)
                  for rate in (DROP, 0.0)]
-        extra = {}
+        # its products' parts alone, a layer each, in cuBLAS bf16
+        a_ = torch.randn(B * T_, D, device=dev, dtype=bf)
+        w_ = torch.randn(D, D, device=dev, dtype=bf)
+        extra = {"parts_library_device_ms_a_layer": {
+            "cublas_g_d": lib_ms(lambda: a_ @ w_.t()),
+            "cublas_dwp": lib_ms(lambda: a_.t() @ a_)}}
         if tiled:  # also at path M's [16, 192, 128] and path L's [8, 1024,
             # 128], the tensor-core kernel's plan, device time and bound
             extra["plan"] = K.conv_tiled_bwd_bf16_plan(B, T_, D, KS, L)._asdict()
@@ -1845,22 +1854,61 @@ def bf16_train_kernel_rows(dev, max_w):
                     "fp32_device_ms": sum(by_kernel(cases[-1].fp32).values()),
                     "by_kernel": parts,
                     "plan": K.conv_tiled_bwd_bf16_plan(B_, T_p, D, KS, L)._asdict(),
-                    "bound_ms": bound(*conv_work(T_p, True, B_))[0]}
-        vjp_rows(name, "conv_block.cu", line, cases, *conv_work(T_, tiled),
-                 shape=[B, T_, D], route_train=K.conv_route(T_, D, KS, L, True),
-                 **extra)
+                    "bound_ms": bound(*conv_work(T_p, B_))[0]}
+        else:  # #9b: on the tensor cores from #2b's residuals
+            extra.update(
+                note="redesigned on the tensor cores: a CTA a row through every layer, g_d on "
+                     "mma.sync, dwp on wgrad_tc, from #2b's saved layer inputs "
+                     "and ReLU masks",
+                plan=K.conv_bwd_bf16_plan(B, T_, D, KS, L)._asdict())
+        vjp_rows(name, "conv_block.cu", line, cases, *conv_work(T_),
+                 fp64=None if tiled else K.conv_block_bwd_plain, shape=[B, T_, D],
+                 route_train=K.conv_route(T_, D, KS, L, True), **extra)
 
     # 3. the MHA block backward (#10) at [B, T, D] and [B, max_w, D], 8
-    # heads, a fully masked row; drop 0 and 0.2
+    # heads, a fully masked row; drop 0 and 0.2; the bound of this run's
+    # keys (a row's unmasked keys, all T for the fully masked row)
     cases = [V.mha_case(dev, rng, B, T_, D, heads, rate)
              for T_ in (T, max_w) for rate in (DROP, 0.0)]
-    keys = T * T * (B - 1) // 2 + T * T  # about half the keys, one row all
+
+    def keys_of(case):
+        mask = case.args[1]
+        lens = mask.sum(dim=1)
+        return int(torch.where(lens > 0, lens, torch.full_like(lens, mask.shape[1])).sum())
+
+    query = cases[2]
+    q_parts = by_kernel(query.kernel)
+    parts = {}
+    for T_, case in ((T, cases[0]), (max_w, query)):
+        # the parts alone in bf16: SDPA's backward at [B, heads, T, hd] with
+        # the key mask (forward + backward minus forward), cuBLAS's g_z, g_y,
+        # dwd and dwqkv
+        qh, kh, vh = (torch.randn(B, heads, T_, D // heads, device=dev, dtype=bf,
+                                  requires_grad=True) for _ in range(3))
+        am = case.args[1].bool()[:, None, None, :]
+        go = torch.randn(B, heads, T_, D // heads, device=dev, dtype=bf)
+
+        def sdpa(grad, qh=qh, kh=kh, vh=vh, am=am, go=go):
+            with torch.set_grad_enabled(grad):
+                out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
+                return torch.autograd.grad(out, (qh, kh, vh), go) if grad else out
+
+        a1, a3 = (torch.randn(B * T_, n, device=dev, dtype=bf) for n in (D, 3 * D))
+        w1, w3 = (torch.randn(D, n, device=dev, dtype=bf) for n in (D, 3 * D))
+        parts["T=%d" % T_] = {
+            "sdpa_backward": lib_ms(lambda: sdpa(True)) - lib_ms(lambda: sdpa(False)),
+            "cublas_g_z": lib_ms(lambda: a1 @ w1.t()), "cublas_g_y": lib_ms(lambda: a3 @ w3.t()),
+            "cublas_dwd": lib_ms(lambda: a1.t() @ a1), "cublas_dwqkv": lib_ms(lambda: a1.t() @ a3)}
     vjp_rows("mha_block_bwd_bf16", "mha_block.cu", 1762, cases,
-             {"bf16": 16 * B * T * D * D + 10 * keys * D},
-             2 * 3 * B * T * D + 4 * (4 * B * T * D + B * T)
-             + 2 * 4 * (4 * D * D + 8 * D),
+             *mha_bwd_bf16_work(B, T, D, keys_of(cases[0])), fp64=K.mha_block_bwd_plain,
              shape=[B, T, D], heads=heads, query_T=max_w,
-             plan=K.mha_bwd_plan(B, T, D, heads)._asdict())
+             note="redesigned on the tensor cores: the per-frame products on mma.sync (tile_mma_bt), the "
+                  "attention a CTA a (row, head) on mma.sync, dwd and dwqkv on wgrad_tc",
+             plan=K.mha_bwd_bf16_plan(B, T, D, heads)._asdict(),
+             query_plan=K.mha_bwd_bf16_plan(B, max_w, D, heads)._asdict(),
+             query_device_ms=sum(q_parts.values()), query_by_kernel=q_parts,
+             query_bound_ms=bound(*mha_bwd_bf16_work(B, max_w, D, keys_of(query)))[0],
+             parts_library_device_ms=parts)
     return rows
 
 

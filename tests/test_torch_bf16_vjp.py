@@ -18,7 +18,10 @@ def twins_as_kernels(monkeypatch):
     monkeypatch.setattr(K, "launch_lstm_fwd_res", lambda x, k, v: (
         K.lstm_recurrence_plain(x, k, v, residuals=True)))
     monkeypatch.setattr(K, "launch_lstm_bwd", K.lstm_recurrence_bwd_plain)
-    monkeypatch.setattr(K, "launch_conv_block_bwd", K.conv_block_bwd_plain)
+    monkeypatch.setattr(K, "launch_conv_block_fwd", lambda *a: (
+        K.conv_block_residuals_plain(*a[:8])))
+    monkeypatch.setattr(K, "launch_conv_block_bwd", lambda *a: (
+        K.conv_block_bwd_plain(*a[:9])))
     monkeypatch.setattr(K, "launch_mha_fwd", K.whole_attention_plain)
     monkeypatch.setattr(K, "launch_mha_bwd", lambda *a: K.attention_bwd_plain(
         *a[:7], a[8]))

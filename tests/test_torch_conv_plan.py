@@ -152,8 +152,8 @@ def test_conv_plans_bench_copies_match_the_kernel():
     assert "cluster.sync();" in lines[stamped[-1] - 1]  # the exit barrier
     assert 'extern "C" int prof_clusters' in prof
     # the occupancy helper names both cluster kernels as the source does
-    # (their fp32 instantiations)
-    assert "conv_block_bwd_cluster_kernel(const XT*" in src
+    # (the backward fp32 only, the forward's fp32 instantiation)
+    assert "conv_block_bwd_cluster_kernel(const float*" in src
     assert "conv_block_fwd_cluster_kernel(const XT*" in src
     assert "conv_block_fwd_cluster_kernel<2>" in src
     for rows, unroll in conv_plans.PRODUCT_TILES[1:]:

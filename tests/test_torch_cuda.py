@@ -1693,23 +1693,115 @@ def test_cuda_block_fwd_tc_refuses_a_planted_fault(cuda, kind, fault):
     assert not ok and "beyond the limits" in why, rb
 
 
+# the tensor-core backwards #10b and #9b at the main path's shapes (the MHA
+# block at [16, 128, 128] and the query stream's T = 12, the conv block at
+# the query stream's [16, 12, 128]), small and ragged ones, head dim 8, the
+# shared P / dS buffer (T = 145, 200), A read from device memory (D = 1024
+# in 32 heads, where the fp32 block kernels still take the shape),
+# a fully masked row in every MHA case, drop 0 and 0.2
+BWD_TC_SHAPES = [("mha", (16, 128, 128, 8)), ("mha", (16, 12, 128, 8)),
+                 ("mha", (3, 10, 16, 2)), ("mha", (4, 40, 128, 4)),
+                 ("mha", (2, 64, 128, 2)), ("mha", (2, 13, 16, 2)),
+                 ("mha", (1, 145, 128, 8)), ("mha", (2, 200, 16, 2)),
+                 ("mha", (2, 12, 1024, 32)),
+                 ("conv", (16, 12, 128)), ("conv", (3, 10, 16)),
+                 ("conv", (4, 40, 128)), ("conv", (2, 64, 128)),
+                 ("conv", (2, 13, 16)), ("conv", (1, 47, 128))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,D,heads,rate", [(16, 128, 128, 8, 0.2), (16, 12, 128, 8, 0.2),
-                                              (3, 10, 16, 2, 0.0), (2, 64, 128, 2, 0.2)])
-def test_cuda_mha_block_bwd_bf16_from_bf16_qkv_keeps_its_bits(cuda, B, T, D, heads, rate):
-    """#10b on the forward's bf16 qkv gives, bit for bit, what its form
-    that loads fp32 qkv (a copy of mha_block.cu with BLOCK_FP32_QKV_EDITS,
-    the load before the forward stored qkv in bf16) gives on the same
-    values widened to fp32."""
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("kind,shape", BWD_TC_SHAPES)
+def test_cuda_bwd_tc_matches_twin_and_fp64(cuda, kind, shape, rate):
+    """#10b and #9b on the tensor cores against their backward twins (the
+    JAX package's VJPs written out; bf16_vjp's readings and limits, both
+    controls beyond them, equal bits twice) and against an fp64 evaluation
+    of the same function (its bf16 outputs no further from it than the
+    twin plus the twin limits), one launch of the bf16 entry a call."""
     from vslnet_torch.bench import bf16_vjp as V
 
-    case = V.mha_case(cuda, np.random.default_rng(47), B, T, D, heads, rate)
-    assert case.args[-2].dtype == BF16
-    got = case.kernel()
-    want = V.block_bwd_from_fp32_qkv(case)
+    rng = np.random.default_rng(49)
+    case = (V.mha_case(cuda, rng, *shape, rate) if kind == "mha"
+            else V.conv_case(cuda, rng, *shape, rate))
+    kernels.reset_launches()
+    case.kernel()
     torch.cuda.synchronize()
-    for name, a, b in zip(V.MHA_NAMES, got, want):
-        assert torch.equal(a, b), name
+    assert kernels.LAUNCHES[case.name] == 1
+    reading = V.read(case)
+    ok, why = V.verdict(case, reading)
+    assert ok, (why, reading)
+    plain = (kernels.mha_block_bwd_plain if kind == "mha"
+             else kernels.conv_block_bwd_plain)
+    fp64 = V.fp64_readings(case, plain)
+    ok, why = V.fp64_verdict(case, reading, fp64)
+    assert ok, (why, fp64)
+
+
+@functools.lru_cache(maxsize=2)
+def _bwd_tc_fault_libraries(kind):
+    from vslnet_torch.bench import bf16_vjp as V
+
+    return V.bwd_tc_fault_libraries(kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,fault", [
+    *(("mha", f) for f in ("k16_step_skipped", "chain_group_not_added", "b_transpose_flipped",
+                           "attn_chain_group_not_added", "dbqkv_term_dropped")),
+    *(("conv", f) for f in ("k16_step_skipped", "chain_group_not_added", "b_transpose_flipped",
+                            "dbp_term_dropped", "mask_from_next_layer"))])
+def test_cuda_bwd_tc_refuses_a_planted_fault(cuda, kind, fault):
+    """Each fault planted in a copy of #10b's or #9b's source
+    (bench/bf16_vjp.py BWD_TC_FAULT_EDITS: a k16 step skipped, a group of
+    k16 steps not added, B's fragments transposed, a bias gradient's term
+    dropped, #9b's ReLU mask read from another layer) is refused by
+    `verdict` at the main path's shape, which passes the kernel itself."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    rng = np.random.default_rng(50)
+    case = (V.mha_case(cuda, rng, 16, 128, 128, 8, 0.2) if kind == "mha"
+            else V.conv_case(cuda, rng, 16, 12, 128, 0.2))
+    assert V.verdict(case, V.read(case))[0]
+    bad = V.bwd_tc_fault(case, _bwd_tc_fault_libraries(kind)[fault])
+    ok, why = V.verdict(bad, V.read(bad))
+    assert not ok and "beyond the limits" in why, why
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D", [(16, 12, 128), (2, 13, 16), (4, 40, 128)])
+def test_cuda_conv_block_fwd_bf16_residuals(cuda, B, T, D):
+    """#2b with its backward's residuals: the served output's bits and
+    launch count unchanged by them; the layer inputs it saves equal to its
+    plain twin's (conv_block_residuals_plain) within fp32 sums in another
+    order, its ReLU masks equal wherever the pre-ReLU lies beyond
+    MASK_KINK of the product's magnitude; the bf16 backward refuses a
+    call without them."""
+    from vslnet_torch.bench import bf16_vjp as V
+
+    rng = np.random.default_rng(51)
+    args = V.conv_inputs(cuda, rng, B, T, D)
+    args[-2] = args[-2] * 10  # plain draws of wp: the ReLU mask varies
+    seeds = _t(rng.integers(0, 1 << 23, (B, 1)).astype(np.float32)).to(cuda)
+    kernels.reset_launches()
+    served = kernels.launch_conv_block_fwd(*args, seeds, 0.2)
+    out, xs, mask = kernels.launch_conv_block_fwd(*args, seeds, 0.2, True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv_block_fwd_bf16"] == 2
+    assert torch.equal(served, out)
+    _, xs_ref, mask_ref = kernels.conv_block_residuals_plain(*args, seeds, 0.2)
+    L = args[1].shape[0]
+    assert xs.shape == (L - 1, B, T, D) and mask.shape == (L, B, T, D // 4)
+    assert float((xs - xs_ref).abs().max()) <= 1e-3 * max(1.0, float(xs_ref.abs().max()))
+    x = torch.cat([args[0].float()[None], xs])
+    for l in range(L):
+        n, _, _, d, p = kernels.conv_layer_replay(x[l], *(a[l] for a in args[1:]), BF16)
+        mag = d.abs() @ args[4][l].to(BF16).float().abs() + args[5][l].abs()
+        flip = kernels.relu_mask_bits(p) != mask[l]
+        near = (p.abs() <= MASK_KINK * mag).reshape(*p.shape[:-1], D // 4, 4).any(-1)
+        assert not bool((flip & ~near).any()), l
+        assert float((mask_ref[l] != mask[l]).float().mean()) <= 0.01, l
+    with pytest.raises(ValueError):
+        kernels.launch_conv_block_bwd(*args, seeds, 0.2, served)
 
 
 # --- the wide bf16 kernels (#2c, #9c at D = 896 and 1024; #3b, #10b at head

@@ -330,8 +330,12 @@ def test_planted_faults_and_stamps_find_their_anchors():
             for old, new in es:
                 assert src.count(old) == 1, (kind, fault)
                 assert old != new
-    for old, _ in V.BLOCK_FP32_QKV_EDITS:
-        assert MHA_SRC.count(old) == 1, old
+    for kind, edits in V.BWD_TC_FAULT_EDITS.items():
+        src = (kernels.CSRC / V.BWD_TC_SOURCES[kind]).read_text().replace(
+            '#include "mma.cuh"\n', MMA_SRC, 1)
+        for fault, es in edits.items():
+            for old, new in es:
+                assert src.count(old) == 1, (kind, fault)
     # the new kernels leave the older kernels' planted faults found once
     for source, _, old, _ in V.WIDE_FAULT_EDITS.values():
         assert (kernels.CSRC / source).read_text().count(old) == 1, old

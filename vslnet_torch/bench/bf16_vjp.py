@@ -581,41 +581,68 @@ def wide_bwd_from_fp32_qkv(case):
         K._check = check
 
 
-# #10b from the bf16 forward's bf16 qkv: a copy of mha_block.cu whose bf16
-# backward loads fp32 qkv, as it did before the forward stored qkv in bf16
-BLOCK_FP32_QKV_EDITS = [
-    ("    return launch_attention_bwd_tiles<decltype(hd)::value, kBf16, float, float, XT>(",
-     "    return launch_attention_bwd_tiles<decltype(hd)::value, kBf16, float, float, float>("),
-    ("                           const XT* qkv, const float* att, const XT* g, XT* dx,",
-     "                           const float* qkv, const float* att, const XT* g, XT* dx,"),
-    ("      static_cast<const bf16*>(qkv), att, static_cast<const bf16*>(g),",
-     "      static_cast<const float*>(qkv), att, static_cast<const bf16*>(g),"),
-]
+# --- faults planted in the tensor-core backwards of #10b and #9b, which
+# verdict must refuse (the card tests): each an edit of the kernel's source
+# (mma.cuh inlined for the MHA block's per-frame products), each anchor
+# found once: the last k16 step of a product left out, a group of 4 k16
+# steps (or, in #9b's g_d, one of its four chains) never added, B's
+# fragments loaded transposed, a term of a bias gradient dropped (dbqkv's
+# last row tile, dbp's first frame), and #9b's ReLU mask read from the
+# next layer's.
+BWD_TC_ENTRIES = {"mha": "mha_block_bwd_bf16", "conv": "conv_block_bwd_bf16"}
+BWD_TC_SOURCES = {"mha": "mha_block.cu", "conv": "conv_block.cu"}
+BWD_TC_FAULT_EDITS = {
+    "mha": {
+        "k16_step_skipped": [("        a[0] = pair(r0, k0 + 2 * tq);\n",
+                              "        if (k0 == Kp - 16) continue;\n"
+                              "        a[0] = pair(r0, k0 + 2 * tq);\n")],
+        "chain_group_not_added": [
+            ("sum[h][e] = k == 0 ? c[h][e] : sum[h][e] + c[h][e];",
+             "sum[h][e] = k == 0 ? c[h][e] : sum[h][e];")],
+        "b_transpose_flipped": [("        ldsm_x4(b, W + (size_t)(n0 + (lane & 7)",
+                                 "        ldsm_x4_trans(b, W + (size_t)(n0 + (lane & 7)")],
+        "attn_chain_group_not_added": [
+            ("acc[n][e] = k0 == 0 ? c[n][e] : acc[n][e] + c[n][e];",
+             "acc[n][e] = k0 == 0 ? c[n][e] : acc[n][e];")],
+        "dbqkv_term_dropped": [("for (int rt = 0; rt < NK; ++rt) s +=",
+                                "for (int rt = 0; rt + 1 < NK; ++rt) s +=")],
+    },
+    "conv": {
+        "k16_step_skipped": [("          const int k0 = k + 16 * q;\n"
+                              "          uint32_t a[4], bw[4];\n",
+                              "          const int k0 = k + 16 * q;\n"
+                              "          if (k0 == Dk - 16) continue;\n"
+                              "          uint32_t a[4], bw[4];\n")],
+        "chain_group_not_added": [("(acc[2][e / 4][e % 4] + acc[3][e / 4][e % 4]);",
+                                   "(acc[2][e / 4][e % 4] + 0.f);")],
+        "b_transpose_flipped": [("vsl::ldsm_x4(bw, W + (size_t)(n0 + (lane & 7)",
+                                 "vsl::ldsm_x4_trans(bw, W + (size_t)(n0 + (lane & 7)")],
+        "dbp_term_dropped": [("for (int t = 0; t < nf; ++t) s += GD[(size_t)(gl + t) * D + c];",
+                              "for (int t = 1; t < nf; ++t) s += GD[(size_t)(gl + t) * D + c];")],
+        "mask_from_next_layer": [("const uint8_t* mask_l = mask + l * (layer / 4);",
+                                  "const uint8_t* mask_l = mask + (l + 1) % L * (layer / 4);")],
+    },
+}
 
 
-def block_bwd_from_fp32_qkv(case):
-    """#10b's outputs for case (mha_case below head dim 128) as its
-    fp32-qkv form computes them: the backward of a copy of mha_block.cu
-    that loads fp32 qkv (BLOCK_FP32_QKV_EDITS), on the case's saved qkv
-    widened to fp32 (the same values)."""
-    from vslnet_torch.bench.common import edited_library
+def bwd_tc_fault_libraries(kind):
+    """{fault: the kernel library with the bf16 backward of `kind` ("mha",
+    "conv") from a copy of its source with BWD_TC_FAULT_EDITS[kind][fault]},
+    the copies built at once."""
+    from vslnet_torch.bench.common import build_copies, edited_source, library_with
 
-    lib = edited_library("block_fp32_qkv", "mha_block.cu", ["mha_block_bwd_bf16"],
-                         BLOCK_FP32_QKV_EDITS)
-    x, mask, gam, beta, wqkv, bqkv, wd, bd, heads, seeds, rate, g, qkv, att = \
-        case.args
-    q32 = qkv.float()
-    check = K._check
+    edits = BWD_TC_FAULT_EDITS[kind]
+    copies = build_copies({
+        "bwd_%s_%s" % (kind, fault): edited_source(
+            "bwd_%s_%s" % (kind, fault), BWD_TC_SOURCES[kind], e, inline=("mma.cuh",))
+        for fault, e in edits.items()})
+    return {fault: library_with(copies["bwd_%s_%s" % (kind, fault)], [BWD_TC_ENTRIES[kind]])
+            for fault in edits}
 
-    def fp32_check(name, t, shape, dtype=torch.float32):
-        return check(name, t, shape, torch.float32 if t is q32 else dtype)
 
-    K._check = fp32_check
-    try:
-        return _with_library(lib, lambda: K.launch_mha_block_bwd(
-            x, mask, gam, beta, wqkv, wd, heads, seeds, rate, q32, att, g))
-    finally:
-        K._check = check
+def bwd_tc_fault(case, lib):
+    """The case with its kernel from lib (one of bwd_tc_fault_libraries)."""
+    return case._replace(kernel=lambda: _with_library(lib, case.kernel))
 
 
 def _autograd(fn, inputs, n_grad, g):
@@ -667,8 +694,9 @@ CONV_NAMES = ("dx", "dgam", "dbeta", "ddw", "dwp", "dbp")
 
 
 def conv_case(dev, rng, B, T, D, rate, tiled=False, wide=False):
-    """#9 at bf16, whole-row or T-tiled (on its forward's xs), or the wide
-    form (#9c at D = 896 and 1024, on the wide forward's xs and mask), drop
+    """#9 at bf16, whole-row (on its forward's layer inputs and ReLU masks)
+    or T-tiled (on its forward's xs and masks), or the wide form (#9c at D
+    = 896 and 1024, on the wide forward's xs and mask), drop
     rate `rate` with per-row seeds. No fp32 kernel takes the wide widths:
     there control (a) is the fp32 function computed by the plain
     backward."""
@@ -676,11 +704,14 @@ def conv_case(dev, rng, B, T, D, rate, tiled=False, wide=False):
     seeds = _t(dev, rng.integers(0, 1 << 23, (B, 1))) if rate else None
     g = _t(dev, rng.standard_normal((B, T, D))).to(BF16)
     args32 = [args[0].float()] + args[1:]
-    # the forward's xs (and at bf16 its ReLU mask), by activation dtype
+    # the forward's xs (and at bf16 its ReLU mask), by activation dtype; the
+    # whole-row bf16 forward's residuals
     saved = {a[0].dtype: K.launch_conv_block_fwd_tiled(*a, seeds, rate)[1:]
              for a in (args, args32)} if tiled else None
     if wide:
         saved = {BF16: K.launch_conv_block_fwd_wide(*args, seeds, rate)[1:]}
+    if not (tiled or wide):
+        saved = {BF16: K.launch_conv_block_fwd(*args, seeds, rate, True)[1:]}
 
     def kernel(a, g_):
         if wide and a[0].dtype != BF16:
@@ -693,7 +724,8 @@ def conv_case(dev, rng, B, T, D, rate, tiled=False, wide=False):
             xs, *mask = saved[a[0].dtype]
             return K.launch_conv_block_bwd_tiled(a[0], xs, *a[1:], seeds, rate,
                                                  g_, *mask)
-        return K.launch_conv_block_bwd(*a, seeds, rate, g_)
+        return K.launch_conv_block_bwd(*a, seeds, rate, g_,
+                                       *saved.get(a[0].dtype, ()))
 
     name = ("conv_block_bwd_wide_bf16" if wide else "conv_block_bwd_tiled_bf16"
             if tiled else "conv_block_bwd_bf16")
@@ -1122,8 +1154,12 @@ def card_cases(dev, kind):
     if kind == "lstm":
         return [lstm_case(dev, rng, T, B, H) for T, B, H in
                 [(128, 16, 128), (12, 4, 8), (30, 5, 100)]]
-    if kind in ("conv", "conv_tiled"):
-        return [conv_case(dev, rng, B, T, D, rate, kind == "conv_tiled")
+    if kind == "conv":  # the whole-row route's T < 48: the query stream first
+        return [conv_case(dev, rng, B, T, D, rate)
+                for B, T, D in [(16, 12, 128), (16, 47, 128), (2, 13, 16),
+                                (4, 30, 128)] for rate in (0.0, 0.2)]
+    if kind == "conv_tiled":
+        return [conv_case(dev, rng, B, T, D, rate, True)
                 for B, T, D in [(16, 128, 128), (16, 12, 128), (2, 13, 16),
                                 (4, 30, 128)] for rate in (0.0, 0.2)]
     if kind == "conv_wide":  # `saturated`'s video and query streams

@@ -128,6 +128,40 @@ def mha_fwd_bf16_bound(B, T, D, keys):
     return bound_ms(*mha_fwd_bf16_work(B, T, D, keys))
 
 
+def conv_bwd_bf16_work(B, T, D, KS, L):
+    """(work, nbytes) of the bf16 conv block backward, the function (the
+    JAX package's VJP, which saves only x and the weights): the replay's,
+    g_d's and dwp's products on the tensor cores, the depthwise pass, its
+    transpose and ddw in fp32; x and g read and dx written in bf16, the
+    fp32 weights read and their gradients written. The layer inputs and
+    ReLU masks the port keeps between the two directions are not counted."""
+    btd = B * T * D
+    return ({"bf16": L * 3 * 2 * btd * D, "fp32": L * 3 * 2 * btd * KS},
+            3 * 2 * btd + 2 * 4 * L * (3 * D + KS * D + D * D))
+
+
+def conv_bwd_bf16_bound(B, T, D, KS, L):
+    """bound_ms of conv_bwd_bf16_work."""
+    return bound_ms(*conv_bwd_bf16_work(B, T, D, KS, L))
+
+
+def mha_bwd_bf16_work(B, T, D, keys):
+    """(work, nbytes) of the bf16 MHA block backward, the function: g_z,
+    g_y, dwd and dwqkv (16 B T D^2 FLOPs) and the attention's five products
+    over `keys` keys in all (summed over the rows: a row's unmasked keys,
+    all T for a fully masked row) on the tensor cores; x and g read and dx
+    written in bf16, the key mask read, the fp32 weights (gam, beta, Wqkv,
+    bqkv, Wd, bd) read and their gradients written. The qkv and att the
+    port keeps from the forward are not counted."""
+    return ({"bf16": 16 * B * T * D * D + 10 * T * keys * D},
+            3 * 2 * B * T * D + 4 * B * T + 2 * 4 * (4 * D * D + 8 * D))
+
+
+def mha_bwd_bf16_bound(B, T, D, keys):
+    """bound_ms of mha_bwd_bf16_work."""
+    return bound_ms(*mha_bwd_bf16_work(B, T, D, keys))
+
+
 def card():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

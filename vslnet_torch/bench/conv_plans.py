@@ -77,6 +77,21 @@ stamped copy of conv_block.cu standing in for the kernel library while
 the wrapper launches it: the tensor-core kernel where conv_block.cu has
 it, else the parent's (run an older tree by path with it on PYTHONPATH).
 
+    python3 -m vslnet_torch.bench.conv_plans --bf16
+
+The bf16 whole-row pair (#2b, #9b) at the query stream's [16, T, 128] for
+T of ROW_BF16_T, drop_rate 0.2: the forward served and with the
+backward's residuals (where the tree saves them), the backward, and the
+tiled pair (#2c, #9c) at the same inputs, each by kernel (torch.profiler)
+and by CUDA events; the pairs' device times side by side with the route a
+training call takes, the backward's plan and bound (bench/common.py
+conv_bwd_bf16_bound), the sha1 of the served output and of the
+gradients; cuBLAS's g_d and dwp products of one layer in bf16; and on a
+tree with the tensor-core backward, the cycles of a call between the
+layer's barriers and phases (thread 0 of row 1's CTA, summed over the
+layers) from a stamped copy standing in for the kernel library. An older
+tree runs it by path with it on PYTHONPATH.
+
     python3 -m vslnet_torch.bench.conv_plans --route
 
 Where conv_route should send a shape: at B = 16, 8, 4 and 1 rows and
@@ -246,13 +261,16 @@ def with_tiled_threads(src, threads):
 
 def instrumented_tiled(src, kernel="bwd"):
     """(csrc/conv_block.cu with a clock stamp, thread 0 of the CTA of tile 1
-    of row 0, at each block barrier of conv_layer_<kernel>_tiled_kernel and
-    at the first line of each comment that opens a phase, and for the
-    forward after its last statement, its entry points renamed tprof_, the
-    conv_block.cu line of each stamp)."""
+    of row 0, at each block barrier of conv_layer_<kernel>_tiled_kernel (at
+    "bwd_tc", of the layer it runs, conv_bwd_tc_layer, which the bf16
+    whole-row backward runs too: there thread 0 of row 1's CTA, every
+    layer) and at the first line of each comment that opens a phase, and
+    for the forward after its last statement, its entry points renamed
+    tprof_, the conv_block.cu line of each stamp)."""
     lines = src.split("\n")
     orig = list(lines)
-    head = "conv_layer_%s_tiled_kernel(const " % kernel
+    head = ("conv_bwd_tc_layer(const " if kernel == "bwd_tc" and
+            "conv_bwd_tc_layer(const " in src else "conv_layer_%s_tiled_kernel(const " % kernel)
     first = next(i for i, s in enumerate(lines) if s.startswith(head))
     last = lines.index("}", first)
     stamp = (" { if (threadIdx.x == 0 && blockIdx.x == 1 && blockIdx.y == 0) { long long "
@@ -571,6 +589,113 @@ def tiled_bf16_main():
     return 0
 
 
+# the query stream's lengths the bf16 whole-row pair takes with a gradient
+# (conv_route "block": T < CONV_TILED_PAIR_T), where it meets the tiled pair
+ROW_BF16_T = (12, 24, 36, 47)
+
+
+def row_bf16_main():
+    """The --bf16 rows (module docstring)."""
+    import hashlib
+    import inspect
+
+    import torch
+
+    smi = card()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    bf = torch.bfloat16
+    # a tree whose whole-row forward saves the backward's residuals
+    res = "residuals" in inspect.signature(K.launch_conv_block_fwd).parameters
+    src = (K.CSRC / "conv_block.cu").read_text()
+    prof = stamped = None
+    if "conv_block_bwd_tc_row_kernel(" in src:
+        prof_src, stamped = instrumented_tiled(src, "bwd_tc")
+        prof = build_copies({"row_bf16_prof": prof_src})["row_bf16_prof"]
+        prof.tprof_conv_block_bwd_bf16.argtypes = K._SIGNATURES["vsl_conv_block_bwd_bf16"]
+        prof.tprof_conv_block_bwd_bf16.restype = ctypes.c_int
+        prof.tprof_read.argtypes = [ctypes.c_void_p]
+        prof.tprof_read.restype = ctypes.c_int
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    def emit(**row):
+        print(json.dumps({"bench": "conv_plans", "card": smi, **row}), flush=True)
+
+    def sha1(ts):
+        return hashlib.sha1(b"".join(x.float().cpu().numpy().tobytes() for x in ts)).hexdigest()
+
+    bound = getattr(common, "conv_bwd_bf16_bound", None)
+    for T in ROW_BF16_T:
+        args = [t(rng.standard_normal((B, T, D))).to(bf),
+                t(1 + 0.1 * rng.standard_normal((L, D))),
+                t(0.1 * rng.standard_normal((L, D))),
+                t(rng.standard_normal((L, KS, D)) / math.sqrt(KS)),
+                t(0.1 * rng.standard_normal((L, D, D)) / math.sqrt(D)),
+                t(np.where(rng.random((L, D)) < 0.5, -1.0, 1.0))]
+        seeds = t(rng.integers(0, 1 << 23, (B, 1)))
+        g = t(rng.standard_normal((B, T, D))).to(bf)
+
+        def served():
+            return K.launch_conv_block_fwd(*args, seeds, 0.2)
+
+        def fwd():  # with the backward's residuals, where the tree saves them
+            return K.launch_conv_block_fwd(*args, seeds, 0.2, True) if res else served()
+
+        saved = fwd()[1:] if res else ()
+
+        def bwd():
+            return K.launch_conv_block_bwd(*args, seeds, 0.2, g, *saved)
+
+        saved_t = K.launch_conv_block_fwd_tiled(*args, seeds, 0.2)[1:]
+
+        def fwd_t():
+            return K.launch_conv_block_fwd_tiled(*args, seeds, 0.2)
+
+        def bwd_t():
+            return K.launch_conv_block_bwd_tiled(args[0], saved_t[0], *args[1:], seeds, 0.2,
+                                                 g, *saved_t[1:])
+
+        ms = {}
+        for name, fn in (("fwd_served", served), ("fwd", fwd), ("bwd", bwd),
+                         ("fwd_tiled", fwd_t), ("bwd_tiled", bwd_t)):
+            parts = by_kernel(fn)
+            ms[name] = sum(parts.values())
+            emit(kernel="whole-row bf16 " + name, shape=[B, T, D], drop_rate=0.2,
+                 device_ms=ms[name], by_kernel=parts, ms=cuda_ms(fn))
+        plan = getattr(K, "conv_bwd_bf16_plan", K.conv_plan)(B, T, D, KS, L)
+        emit(kernel="whole-row bf16 pair against the tiled pair", shape=[B, T, D],
+             drop_rate=0.2, plan=plan._asdict(), whole_pair_device_ms=ms["fwd"] + ms["bwd"],
+             tiled_pair_device_ms=ms["fwd_tiled"] + ms["bwd_tiled"],
+             route_train=K.conv_route(T, D, KS, L, True, bf),
+             out_sha1=sha1([served()]), grads_sha1=sha1(bwd()),
+             **({"bound_ms": bound(B, T, D, KS, L)[0]} if bound else {}))
+        # the parts' library calls in bf16 at this T, a layer each: cuBLAS's
+        # g_d = g_p . wp^T and dwp = d^T . g_p
+        a = torch.randn(B * T, D, device=dev, dtype=bf)
+        w = torch.randn(D, D, device=dev, dtype=bf)
+        emit(kernel="whole-row bf16 backward", library="parts", shape=[B, T, D],
+             cublas_g_d_device_ms_a_layer=sum(by_kernel(lambda: a @ w.t()).values()),
+             cublas_dwp_device_ms_a_layer=sum(by_kernel(lambda: a.t() @ a).values()))
+        if prof is None:
+            continue
+        want = [x.clone() for x in bwd()]
+        lib = K._library()
+        K._LIB = _Renamed(prof, "tprof")  # the stamped copy, through the wrapper
+        try:
+            cycles = stamp_cycles(bwd, prof.tprof_read, stamped)
+            got = bwd()
+            torch.cuda.synchronize()
+        finally:
+            K._LIB = lib
+        emit(kernel="whole-row bf16 backward", shape=[B, T, D], drop_rate=0.2,
+             cta="row 1", cycles_to_each_stamp_over_the_layers=cycles,
+             cycles_total=sum(cycles.values()),
+             stamped_equal_bits=all(torch.equal(a_, b_) for a_, b_ in zip(want, got)))
+    return 0
+
+
 def renamed(src, tag):
     """src with its entry points renamed vsl_ -> <tag>_."""
     return src.replace('extern "C" int vsl_', 'extern "C" int %s_' % tag)
@@ -591,7 +716,7 @@ def instrumented(src):
     cluster kernel and a helper that reports how many clusters fit, the
     conv_block.cu line of each stamp's barrier)."""
     lines = src.split("\n")
-    head = "conv_block_bwd_cluster_kernel(const XT* __restrict__ x"
+    head = "conv_block_bwd_cluster_kernel(const float* __restrict__ x"
     first = next(i for i, s in enumerate(lines) if s.startswith(head))
     last = lines.index("}", first)
     stamp = (" { if (threadIdx.x == 0 && blockIdx.x == 0) { long long now = "
@@ -615,7 +740,7 @@ extern "C" int prof_read(unsigned long long* h) {
 }
 extern "C" int prof_clusters(int N, int smem, int fwd_frames) {
   // the backward's kernel, or the forward's for fwd_frames frames a CTA
-  const void* fn = fwd_frames == 0 ? (const void*)conv_block_bwd_cluster_kernel<float>
+  const void* fn = fwd_frames == 0 ? (const void*)conv_block_bwd_cluster_kernel
                    : fwd_frames <= 16 ? (const void*)conv_block_fwd_cluster_kernel<2>
                                       : (const void*)conv_block_fwd_cluster_kernel<3>;
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -690,6 +815,8 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     if "--tiled" in argv and "--bf16" in argv:
         return tiled_bf16_main()
+    if "--bf16" in argv:
+        return row_bf16_main()
     if "--tiled" in argv:
         return tiled_main(argv)
     if "--route" in argv:

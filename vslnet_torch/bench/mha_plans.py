@@ -6,6 +6,7 @@ call spends its time by kernel, and the time of each plan.
     python3 -m vslnet_torch.bench.mha_plans --forward    # the forward
     python3 -m vslnet_torch.bench.mha_plans --whole-t    # whole-T backward
     python3 -m vslnet_torch.bench.mha_plans --forward --bf16   # #3b
+    python3 -m vslnet_torch.bench.mha_plans --bf16   # #10b (and #12b's bits)
     python3 -m vslnet_torch.bench.mha_plans [--forward|--whole-t] --by-kernel
 
 At [16, T, 128], 8 heads, ragged key lengths and one fully masked row, for
@@ -63,6 +64,18 @@ The bf16 forward (--forward --bf16, #3b) at T = 128 and 12, drop 0 and 0.2:
   between the stamps of each of its three kernels (thread 0 of the
   CTA at x, y, z 0, its phases' lines in mha_block.cu) from a stamped
   copy standing in for the kernel library while the wrapper launches it.
+The bf16 backward (--bf16, #10b) at T = 128 and 12, drop 0 and 0.2, from
+qkv and att the plain ops compute (`plain_residuals`, the same values
+whatever tree runs it): `launch_mha_block_bwd` on bf16 x and g by kernel,
+the call's time, its plan, the bound (bench/common.py mha_bwd_bf16_bound)
+and `grads_sha1`; the library calls of its parts in bf16 (SDPA's backward
+at [16, 8 heads, T, 16] with the key mask, cuBLAS's g_z, g_y, dwd and
+dwqkv), and on a tree with the tensor-core backward the cycles of a call
+between the stamps of each of its three kernels (BF16_BWD_STAMPS, thread 0
+of the CTA at x, y, z 0) from a stamped copy standing in for the kernel
+library; then #12b at path M's [16, 192, 128] (`launch_mha_bwd` on bf16 q,
+k, v, g) with the sha1 of its forward's output (#11b) and of its
+gradients, to set beside a parent's run by path.
 With --by-kernel only the default calls and the unfused block, which an
 older tree of the port with the same wrappers also runs (put it on
 PYTHONPATH), so that a change's breakdown can be set beside its parent's;
@@ -444,15 +457,31 @@ def bf16_fwd_runner(args, heads, seeds, rate, plan, lib=None):
     return run
 
 
-def bf16_stamped(src):
+# the bf16 backward's (#10b on the tensor cores): the per-frame launches'
+# landing barrier, LayerNorm statistics and the end of the product and its
+# pass; the attention's loads landed, qs rounded, scores, products and the
+# dbqkv partials
+BF16_BWD_STAMPS = {
+    "mha_bwd_out_tc_kernel": ("  __syncthreads();  // R and the tile's",
+                              "  vsl::ln_normalize_rows(XH, XH, inv, nf, D);",
+                              "  __syncthreads();\n"),
+    "attn_bwd_tc_kernel": ("  vsl::cp_async_wait<0>();", "  const uint32_t seed = drop.seed(b), salt",
+                           "    scores(true, true);", "    products(0, 3);",
+                           "  // dbqkv of the head's columns"),
+    "mha_bwd_qkv_tc_kernel": ("  vsl::ln_normalize_rows(x + tile, XH, inv, nf, D);",
+                              "  __syncthreads();\n"),
+}
+
+
+def bf16_stamped(src, stamps=None):
     """(mha_block.cu with clock stamps, thread 0 of the CTA at x, y, z 0, in
-    each kernel of BF16_FWD_STAMPS, its entry points renamed mprof_ and
-    mprof_read(h) added; {kernel: the stamps' lines})."""
+    each kernel of `stamps` (BF16_FWD_STAMPS by default), its entry points
+    renamed mprof_ and mprof_read(h) added; {kernel: the stamps' lines})."""
     lines = src.split("\n")
     stamp = (" { if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)"
              " { long long now = clock64(); g_prof[%d] += now - plast; plast = now; } }")
     at, n = {}, 0
-    for kernel, marks in BF16_FWD_STAMPS.items():
+    for kernel, marks in (stamps or BF16_FWD_STAMPS).items():
         first = next(i for i, ln in enumerate(lines) if ln.startswith(kernel + "("))
         last = lines.index("}", first)
         at[kernel] = []
@@ -589,6 +618,127 @@ def forward_bf16(emit, rng, dev, only_by_kernel):
          out_sha1=digest([whole().float()]))
 
 
+def plain_residuals(args, seeds, rate):
+    """qkv and att of the bf16 forward, computed by the plain ops (bf16(y .
+    bf16(Wqkv) + bqkv) and `attention` at bf16): the same values whatever
+    tree runs the backward."""
+    import torch
+
+    bf = torch.bfloat16
+    x, mask, gam, beta, wqkv, bqkv = args[:6]
+    D = x.shape[-1]
+    y = K.site_dropout(K.layer_norm(x.float(), gam[0], beta[0]), seeds, 0x200, rate)
+    qkv = (y.to(bf).float() @ wqkv.to(bf).float() + bqkv).to(bf)
+    q, k, v = (t.contiguous() for t in qkv.float().split(D, dim=-1))
+    return qkv, K.attention(q, k, v, mask, HEADS, seeds, rate, dtype=bf)
+
+
+def backward_bf16(emit, rng, dev, only_by_kernel):
+    """The --bf16 rows (module docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    tc = hasattr(K, "mha_bwd_bf16_plan")
+    stamped = None
+    if tc and not only_by_kernel:
+        src, at = bf16_stamped((K.CSRC / "mha_block.cu").read_text(), BF16_BWD_STAMPS)
+        stamped = (build_copy("mha_bwd_bf16_prof", src), at)
+    bound = getattr(common, "mha_bwd_bf16_bound", None)
+    for T in (128, 12):
+        x, mask, gam, beta, wqkv, bqkv, wd, bd, seeds, g = inputs(rng, dev, T)
+        args = [x.to(bf), mask, gam, beta, wqkv, bqkv, wd, bd]
+        lens = mask.sum(dim=1)
+        keys = int(torch.where(lens > 0, lens, torch.full_like(lens, T)).sum())
+        gb = g.to(bf)
+        for rate in (0.0, RATE):
+            sd = seeds if rate else None
+            qkv, att = plain_residuals(args, sd, rate)
+
+            def bwd():
+                return K.launch_mha_block_bwd(args[0], mask, gam, beta, wqkv, wd, HEADS, sd,
+                                              rate, qkv, att, gb)
+
+            parts = by_kernel(bwd)
+            emit(direction="backward", dtype="bf16", shape=[B, T, D], heads=HEADS,
+                 drop_rate=rate, call_ms=cuda_ms(bwd), device_ms=sum(parts.values()),
+                 by_kernel=parts, grads_sha1=digest([t.float() for t in bwd()]),
+                 **({"plan": K.mha_bwd_bf16_plan(B, T, D, HEADS)._asdict()} if tc else {}),
+                 **({"bound_ms": bound(B, T, D, keys)[0]} if bound else {}))
+        # the parts' library calls in bf16, by device time: SDPA's backward
+        # at [16, 8 heads, T, 16] with the key mask (forward + backward minus
+        # forward), cuBLAS's g_z, g_y, dwd and dwqkv at their shapes
+        qh, kh, vh = (torch.randn(B, HEADS, T, D // HEADS, device=dev, dtype=bf,
+                                  requires_grad=True) for _ in range(3))
+        am = mask.bool()[:, None, None, :]
+        go = torch.randn(B, HEADS, T, D // HEADS, device=dev, dtype=bf)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
+
+        def sdpa_both():
+            out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
+            return torch.autograd.grad(out, (qh, kh, vh), go)
+
+        a1, a3 = (torch.randn(B * T, n, device=dev, dtype=bf) for n in (D, 3 * D))
+        w1, w3 = (torch.randn(D, n, device=dev, dtype=bf) for n in (D, 3 * D))
+        emit(direction="backward", dtype="bf16", library="parts", shape=[B, T, D],
+             sdpa_bwd_device_ms=sum(by_kernel(sdpa_both).values())
+             - sum(by_kernel(sdpa_fwd).values()),
+             cublas_g_z_device_ms=sum(by_kernel(lambda: a1 @ w1.t()).values()),
+             cublas_g_y_device_ms=sum(by_kernel(lambda: a3 @ w3.t()).values()),
+             cublas_dwd_device_ms=sum(by_kernel(lambda: a1.t() @ a1).values()),
+             cublas_dwqkv_device_ms=sum(by_kernel(lambda: a1.t() @ a3).values()))
+        if stamped is None:
+            continue
+        from vslnet_torch.bench.common import with_library
+        from vslnet_torch.bench.conv_plans import _Renamed
+
+        lib, at = stamped
+        lib.mprof_read.argtypes = [ctypes.c_void_p]
+        lib.mprof_mha_block_bwd_bf16.argtypes = K._SIGNATURES["vsl_mha_block_bwd_bf16"]
+        lib.mprof_mha_block_bwd_bf16.restype = ctypes.c_int
+        qkv, att = plain_residuals(args, seeds, RATE)
+
+        def bwd():
+            return K.launch_mha_block_bwd(args[0], mask, gam, beta, wqkv, wd, HEADS, seeds,
+                                          RATE, qkv, att, gb)
+
+        ref = bwd()
+        stamps = (ctypes.c_ulonglong * 64)()
+        run = lambda: with_library(_Renamed(lib, "mprof"), bwd)  # noqa: E731
+        run()
+        torch.cuda.synchronize()
+        lib.mprof_read(stamps)
+        reps = 5
+        for _ in range(reps):
+            got = run()
+        torch.cuda.synchronize()
+        lib.mprof_read(stamps)
+        emit(direction="backward", dtype="bf16", shape=[B, T, D], drop_rate=RATE,
+             cta="x, y, z 0", cycles_to_each_stamp={
+                 kernel: {"mha_block.cu:%d" % line: stamps[k] / reps for k, line in marks}
+                 for kernel, marks in at.items()},
+             stamped_equal_bits=all(torch.equal(a_, b_) for a_, b_ in zip(got, ref)))
+    # #12b at path M, q, k, v, g in bf16: its bits, which this redesign leaves
+    q, k, v, gq = (torch.from_numpy(rng.standard_normal((B, 192, D)).astype(np.float32))
+                   .to(dev, bf) for _ in range(4))
+    lens = list(rng.integers(1, 193, B - 1)) + [0]
+    m = torch.from_numpy((np.arange(192)[None, :] < np.asarray(lens)[:, None])
+                         .astype(np.float32)).to(dev)
+    sd = torch.from_numpy(rng.integers(0, 1 << 23, (B, 1)).astype(np.float32)).to(dev)
+    out = K.launch_mha_fwd(q, k, v, m, HEADS, sd, RATE)
+
+    def whole():
+        return K.launch_mha_bwd(q, k, v, m, HEADS, sd, RATE, out, gq)
+
+    parts = by_kernel(whole)
+    emit(direction="backward", dtype="bf16", kernel="whole-T (#12b)", shape=[B, 192, D],
+         drop_rate=RATE, device_ms=sum(parts.values()), by_kernel=parts,
+         out_sha1=digest([out.float()]), grads_sha1=digest([t.float() for t in whole()]))
+
+
 def unfused_backward_ms(x, mask, gam, beta, wqkv, bqkv, wd, bd, seeds, g):
     """The backward of mha_block_unfused at these inputs, forward +
     backward minus forward: (CUDA events, device time of the kernels)."""
@@ -627,6 +777,9 @@ def main(argv):
 
     if "--forward" in argv and "--bf16" in argv:
         forward_bf16(emit, rng, dev, only_by_kernel)
+        return 0
+    if "--bf16" in argv:
+        backward_bf16(emit, rng, dev, only_by_kernel)
         return 0
     if "--forward" in argv:
         forward(emit, rng, dev, only_by_kernel)

@@ -50,6 +50,18 @@ Only the wide backwards' small cases (WIDE_SEEDED: #9c wide at [32, 24,
 values counts a few hundred flips there, so that one draw's ratio to a
 parent's can stray by a quarter.
 
+    python3 -m vslnet_torch.bench.tc_bwd_fp64 --block-bwd [--seeds 64]
+    PYTHONPATH=<parent> python3 vslnet_torch/bench/tc_bwd_fp64.py --block-bwd > parent.jsonl
+    python3 -m vslnet_torch.bench.tc_bwd_fp64 --block-bwd --against parent.jsonl
+
+Only the bf16 block backwards over 64 draws (seeds 100-163; drop 0 on even
+seeds, 0.2 on odd ones): #9b at the query stream's [16, 12, 128] and
+#10b at [16, 128, 128] and T = 12, 8 heads, each output's mean error over
+its mean magnitude against an fp64 evaluation of its function (this file's
+tree's twin at float64), the kernel's and the twin's, with bf16_vjp's
+verdict; --against as --fwd's (an older tree's whole-row conv wrappers
+run through `_older_conv_wrappers`).
+
     python3 -m vslnet_torch.bench.tc_bwd_fp64 --fwd [--seeds 16] [--faults] [--kinds lstm,conv,mha]
     PYTHONPATH=<parent> python3 vslnet_torch/bench/tc_bwd_fp64.py --fwd > parent.jsonl
     python3 -m vslnet_torch.bench.tc_bwd_fp64 --fwd --against parent.jsonl
@@ -193,6 +205,70 @@ def fwd_main(argv, smi, dev):
     return 0
 
 
+# the bf16 block backwards of --block-bwd: #9b at the query stream's [16,
+# 12, 128], #10b at [16, 128, 128] and the query stream's T = 12, 8 heads
+BLOCK_BWD_SHAPES = {"conv": [(16, 12, 128)], "mha": [(16, 128, 128, 8), (16, 12, 128, 8)]}
+
+
+def _older_conv_wrappers(K):
+    """An older tree's whole-row conv wrappers under this tree's calls: its
+    bf16 forward saves no residuals, its backward replays the forward."""
+    import inspect
+
+    if "residuals" in inspect.signature(K.launch_conv_block_fwd).parameters:
+        return
+    fwd, bwd = K.launch_conv_block_fwd, K.launch_conv_block_bwd
+    K.launch_conv_block_fwd = lambda *a: (fwd(*a[:8]), None, None) if a[8:9] == (True,) \
+        else fwd(*a)
+    K.launch_conv_block_bwd = lambda *a: bwd(*a[:9])
+
+
+def block_bwd_rows(V, twins, dev, seeds):
+    """(seed, shape, entry name, drop rate, the fp64 readings {"kernel",
+    "twin": {output: mean error over mean magnitude}}, the verdict) of each
+    --block-bwd draw: seeds 100 on, drop 0 on even seeds and 0.2 on odd
+    ones, BLOCK_BWD_SHAPES."""
+    import torch
+
+    _older_conv_wrappers(V.K)
+    for seed in range(100, 100 + seeds):
+        rate = 0.2 if seed % 2 else 0.0
+        for kind, shapes in BLOCK_BWD_SHAPES.items():
+            for shape in shapes:
+                rng = np.random.default_rng(seed)
+                case = (V.conv_case(dev, rng, *shape, rate) if kind == "conv"
+                        else V.mha_case(dev, rng, *shape, rate))
+                plain = (twins.conv_block_bwd_plain if kind == "conv"
+                         else twins.mha_block_bwd_plain)
+                ref = [t.detach() for t in plain(*case.args, work=torch.float64)]
+                f = {}
+                for who, outs in (("kernel", case.kernel()), ("twin", case.twin())):
+                    f[who] = {n: V.mean_rel(o.detach(), r, torch.ones_like(r, dtype=torch.bool))
+                              for n, o, r in zip(case.names, outs, ref)}
+                yield seed, shape, case.name, rate, f, V.verdict(case, V.read(case))
+
+
+def block_bwd_main(argv, smi, dev):
+    """The --block-bwd rows (module docstring), from this tree's
+    bench/bf16_vjp.py loaded on its own, as --fwd's."""
+    import torch
+
+    V = _own("bench/bf16_vjp.py", "tc_block_bwd_bf16_vjp")
+    twins = fp64_twins()
+    seeds = int(argv[argv.index("--seeds") + 1]) if "--seeds" in argv else 64
+    rows = block_bwd_rows(V, twins, dev, seeds)
+    if "--against" in argv:
+        return against(argv[argv.index("--against") + 1],
+                       ((seed, shape, name, None, None, f, None)
+                        for seed, shape, name, _, f, _ in rows), 1.25)
+    for seed, shape, name, rate, f, (ok, why) in rows:
+        print(json.dumps({"bench": "tc_bwd_fp64", "card": smi, "kernel": name,
+                          "shape": list(shape), "seed": seed, "drop_rate": rate, "fp64": f,
+                          "verdict": ok, "why": why}), flush=True)
+        torch.cuda.synchronize()
+    return 0
+
+
 def against(path, rows, ratio):
     """The --against summary of this tree's fwd_rows over a parent's from
     `path` (JSON lines of --fwd): exit 1 where no draw matches."""
@@ -325,6 +401,8 @@ def main():
     smi = card()
     if "--fwd" in sys.argv[1:]:
         return fwd_main(sys.argv[1:], smi, dev)
+    if "--block-bwd" in sys.argv[1:]:
+        return block_bwd_main(sys.argv[1:], smi, dev)
     twins = fp64_twins()
     fp64 = {"lstm": twins.lstm_recurrence_bwd_plain, "conv_tiled": twins.conv_block_bwd_plain,
             "conv_wide": twins.conv_block_bwd_plain, "mha_wide": twins.mha_block_bwd_plain}

@@ -28,7 +28,8 @@
 // masks; at bf16 the T-tiled forward runs its product on the tensor cores
 // (another order of sums) and writes the mask its backward reads.
 //
-// Backward: a thread-block cluster of N CTAs per batch row (plan:
+// Backward (fp32; the bf16 backwards are kernels of their own, below): a
+// thread-block cluster of N CTAs per batch row (plan:
 // ops/kernels.py conv_plan; 6 CTAs of 22 frames at T = 128, so the card
 // holds the 16 rows' clusters at once), CTA r owning the frames
 // [r*F, min(T, (r+1)*F)). The TPU kernel keeps every layer's residuals of a
@@ -75,7 +76,9 @@
 // output to bf16 once, after the last layer. The whole-row forward,
 // templated: x widened as it is loaded, n rounded as the LayerNorm stores
 // it, d as the depthwise stores it, wp in shared memory once it has landed, the
-// output narrowed as it is stored; bound as the fp32 forward is. The tiled
+// output narrowed as it is stored; bound as the fp32 forward is. Where a
+// gradient follows it also writes each layer's input (fp32) and ReLU mask
+// for the bf16 whole-row backward. The tiled
 // forward at bf16 is a kernel of its own on the tensor cores
 // (conv_layer_fwd_tc_tiled_kernel, further down): bf16(d) . bf16(wp) by
 // mma.sync, its epilogue on the C fragments, the layer's ReLU mask written
@@ -91,15 +94,14 @@
 // bf16(d)^T . bf16(g_p) and g_d = bf16(g_p) . bf16(wp)^T take it rounded;
 // g_n, ddw, the LayerNorm backward and G stay fp32, and ddw pairs g_d with
 // the UNROUNDED n (the forward's depthwise read bf16(n)); dx = bf16(G)
-// once, after layer 0. The whole-row backward, templated: the n windows
-// keep the unrounded n and the depthwise replay rounds each value as it
-// reads it (kRoundIn), dbp is summed before g_p is rounded in place, wp
-// and wp^T are rounded in shared memory once they have landed, d and g_p
-// reach the dwp workspaces rounded (so the split-K product takes them as
-// they are); bound as the fp32 backward is. The tiled backward at bf16 is
-// a kernel of its own on the tensor cores (conv_layer_bwd_tc_tiled_kernel,
-// further down): it reads the ReLU mask the bf16 tiled forward wrote in
-// place of replaying p, and runs g_d and dwp as mma.sync products.
+// once, after layer 0. Both are kernels of their own on the tensor cores
+// that read what their forward saved in place of replaying p: the tiled
+// backward (conv_layer_bwd_tc_tiled_kernel, one layer a launch) the ReLU
+// mask the bf16 tiled forward writes, the whole-row backward
+// (conv_block_bwd_tc_row_kernel, a CTA a row through every layer, the same
+// layer with the row as its tile) each layer's input and ReLU mask, which
+// the bf16 whole-row forward writes when a gradient follows; each runs g_d
+// on mma.sync and dwp on wgrad_tc.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -201,20 +203,16 @@ __device__ void fill_halo(cg::cluster_group& cluster, float* buf, int lo, int c0
 // out[t][c] = sum_j win[t + j][c] * taps[j][c] for the nf own frames: the
 // depthwise product over a window (taps in order, as the plain version
 // adds them) or its transpose (taps reversed).
-// kRound: each output rounded to bf16 as it is stored; kRoundIn: each
-// window value rounded to bf16 as it is read (the bf16 backward's replay,
-// whose window holds the unrounded n that its ddw needs).
-template <bool kReversed, bool kRound = false, bool kRoundIn = false>
+// kRound: each output rounded to bf16 as it is stored.
+template <bool kReversed, bool kRound = false>
 __device__ void window_taps(const float* win, const float* taps, int nf, int D, int K, float* out) {
   for (int i = threadIdx.x; i < nf * D; i += blockDim.x) {
     const int t = i / D, c = i - t * D;
     float acc = 0.f;
 #pragma unroll 7
-    for (int j = 0; j < K; ++j) {
-      const float w = win[(size_t)(t + j) * D + c];
-      acc = fmaf(kRoundIn ? vsl::bf16_round(w) : w,
-                 taps[(size_t)(kReversed ? K - 1 - j : j) * D + c], acc);
-    }
+    for (int j = 0; j < K; ++j)
+      acc = fmaf(win[(size_t)(t + j) * D + c], taps[(size_t)(kReversed ? K - 1 - j : j) * D + c],
+                 acc);
     out[i] = kRound ? vsl::bf16_round(acc) : acc;
   }
 }
@@ -222,11 +220,17 @@ __device__ void window_taps(const float* win, const float* taps, int nf, int D, 
 // The forward's product tile: R rows x 4 columns (R = 3 above 16 frames a
 // CTA, so that the main path's 22 are 256 items, one a thread; else 2),
 // the k loop unrolled 4 times. XT: the storage type of x and out (float,
-// or __nv_bfloat16 for the bf16 forward).
+// or __nv_bfloat16 for the bf16 forward). With xs and mask non-null (the
+// bf16 forward when a gradient follows) it also writes the backward's
+// residuals: each layer's input x_l, l >= 1, into xs [L - 1, B, T, D]
+// (fp32, as the stream holds it) and each layer's ReLU mask [p > 0] into
+// mask [L, B, T, D / 4] (bit q of byte c: column 4 c + q, the T-tiled
+// forward's layout); null pointers write nothing more.
 template <int R, typename XT = float>
 __global__ void __launch_bounds__(kThreads)
 conv_block_fwd_cluster_kernel(const XT* __restrict__ x, ConvParams p, vsl::Dropout drop,
-                              XT* __restrict__ out, int F) {
+                              XT* __restrict__ out, float* __restrict__ xs,
+                              uint8_t* __restrict__ mask, int F) {
   constexpr bool kBf16 = !std::is_same<XT, float>::value;
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -244,10 +248,13 @@ conv_block_fwd_cluster_kernel(const XT* __restrict__ x, ConvParams p, vsl::Dropo
   const size_t own = ((size_t)b * T + c0) * D;
   const uint32_t seed = drop.seed(b);
   const int nel = nf * D;
+  const size_t layer = (size_t)gridDim.x / N * T * D;  // a layer's stride in xs
   for (int i = threadIdx.x; i < nel; i += blockDim.x) X[i] = vsl::to_float(x[own + i]);
   for (int l = 0; l < p.L; ++l) {
     float* NWl = NW + (l & 1) * lay.HD;
     __syncthreads();  // X written; W, DW and P read by the layer before
+    if (xs != nullptr && l > 0)  // x_l, the layer's input
+      for (int i = threadIdx.x; i < nel; i += blockDim.x) xs[(l - 1) * layer + own + i] = X[i];
     vsl::cp_async_floats(DW, p.dw + (size_t)l * K * D, K * D);
     vsl::cp_async_floats(W, p.wp + (size_t)l * D * D, D * D);  // lands behind the LN and depthwise
     vsl::layer_norm_rows<kBf16>(X, NWl + (size_t)pad * D, p.gam + (size_t)l * D,
@@ -265,12 +272,17 @@ conv_block_fwd_cluster_kernel(const XT* __restrict__ x, ConvParams p, vsl::Dropo
     }
     const float* bpl = p.bp + (size_t)l * D;
     const uint32_t salt = vsl::site_salt(0x100u + l);
+    uint8_t* mask_l = mask == nullptr ? nullptr : mask + l * (layer / 4);
     vsl::smem_gemm<R, 4>(P, D, nf, D, W, D, D, [&](int t, int o, float4 acc) {
       const float a[4] = {acc.x, acc.y, acc.z, acc.w};
+      uint32_t bits = 0;
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        X[(size_t)t * D + o + q] +=
-            drop.apply(fmaxf(a[q] + __ldg(bpl + o + q), 0.f), seed, salt, c0 + t, o + q);
+      for (int q = 0; q < 4; ++q) {
+        const float pre = a[q] + __ldg(bpl + o + q);
+        bits |= (pre > 0.f ? 1u : 0u) << q;
+        X[(size_t)t * D + o + q] += drop.apply(fmaxf(pre, 0.f), seed, salt, c0 + t, o + q);
+      }
+      if (mask_l != nullptr) mask_l[(own + (size_t)t * D + o) / 4] = static_cast<uint8_t>(bits);
     });
   }
   __syncthreads();
@@ -279,18 +291,12 @@ conv_block_fwd_cluster_kernel(const XT* __restrict__ x, ConvParams p, vsl::Dropo
 }
 
 // Per-CTA partials part [B * N, L, 3 + K, D]: dgam, dbeta, dbp, then ddw [K, D].
-// XT: the storage type of x, g and dx (float, or __nv_bfloat16 for the bf16
-// backward: the replay rounds as the bf16 forward does, from the unrounded
-// n; g_p and wp^T are rounded for g_d, after dbp; d and g_p go to the
-// workspaces rounded, dwp's operands; dx is rounded once, at the end).
-template <typename XT = float>
 __global__ void __launch_bounds__(kThreads)
-conv_block_bwd_cluster_kernel(const XT* __restrict__ x, ConvParams p,
+conv_block_bwd_cluster_kernel(const float* __restrict__ x, ConvParams p,
                               const float* __restrict__ wpT, vsl::Dropout drop,
-                              const XT* __restrict__ g, XT* __restrict__ dx,
+                              const float* __restrict__ g, float* __restrict__ dx,
                               float* __restrict__ d_ws, float* __restrict__ gp_ws,
                               float* __restrict__ part, int F) {
-  constexpr bool kBf16 = !std::is_same<XT, float>::value;
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int T = p.T, D = p.D, K = p.K, L = p.L, pad = (K - 1) / 2, gl = K - 1 - pad;
@@ -318,7 +324,7 @@ conv_block_bwd_cluster_kernel(const XT* __restrict__ x, ConvParams p,
 
   // 1. forward replay: each layer's input, n_l window and masks stay in
   // place; d = depthwise(n_l) goes to d_ws for dwp
-  for (int i = tid; i < nel; i += nt) X[i] = vsl::to_float(x[own + i]);
+  for (int i = tid; i < nel; i += nt) X[i] = x[own + i];
   for (int l = 0; l < L; ++l) {
     float* Xl = X + l * FD;
     float* NWl = NW + l * HD;
@@ -332,15 +338,11 @@ conv_block_bwd_cluster_kernel(const XT* __restrict__ x, ConvParams p,
     fill_halo(cluster, NWl, pad, c0, nf, F, T, D, K);
     vsl::cp_async_wait<1>();
     __syncthreads();
-    // P[t] = sum_j n(t + j - pad) dw[j]; bf16: sum_j bf16(n) dw[j], rounded
-    window_taps<false, kBf16, kBf16>(NWl, DW, nf, D, K, P);
+    // P[t] = sum_j n(t + j - pad) dw[j]
+    window_taps<false>(NWl, DW, nf, D, K, P);
     for (int i = tid; i < nel; i += nt) d_ws[l * layer + own + i] = P[i];  // own writes: no barrier
     vsl::cp_async_wait<0>();
     __syncthreads();
-    if (kBf16) {  // wp rounded in place for the product
-      vsl::round_bf16(W, D * D);
-      __syncthreads();
-    }
     const float* bpl = p.bp + (size_t)l * D;
     const uint32_t salt = vsl::site_salt(0x100u + l);
     const bool next = l + 1 < L;
@@ -361,7 +363,7 @@ conv_block_bwd_cluster_kernel(const XT* __restrict__ x, ConvParams p,
   }
 
   // 2. backward, layer by layer
-  for (int i = tid; i < nel; i += nt) G[i] = vsl::to_float(g[own + i]);
+  for (int i = tid; i < nel; i += nt) G[i] = g[own + i];
   for (int l = L - 1; l >= 0; --l) {
     const float* Xl = X + l * FD;
     const float* NWl = NW + l * HD;
@@ -380,20 +382,14 @@ conv_block_bwd_cluster_kernel(const XT* __restrict__ x, ConvParams p,
       const uint32_t m = Ml[t * D4 + (c >> 2)] >> (c & 3);
       const float gp = (m & 17u) == 17u ? drop.kept(G[i]) : 0.f;
       P[i] = gp;
-      gp_ws[l * layer + own + i] = kBf16 ? vsl::bf16_round(gp) : gp;
+      gp_ws[l * layer + own + i] = gp;
     }
     vsl::cp_async_wait<0>();
     __syncthreads();
-    for (int c = tid; c < D; c += nt) {  // dbp, of the unrounded g_p
+    for (int c = tid; c < D; c += nt) {  // dbp
       float s = 0.f;
       for (int t = 0; t < nf; ++t) s += P[(size_t)t * D + c];
       pr[2 * D + c] = s;
-    }
-    if (kBf16) {  // g_p and wp^T rounded in place for g_d
-      __syncthreads();
-      vsl::round_bf16(P, nel);
-      vsl::round_bf16(W, D * D);
-      __syncthreads();
     }
     // g_d = g_p . wp^T
     vsl::smem_gemm<kGemmRows, kGemmUnroll>(P, D, nf, D, W, D, D, [&](int t, int o, float4 acc) {
@@ -443,7 +439,7 @@ conv_block_bwd_cluster_kernel(const XT* __restrict__ x, ConvParams p,
     }
   }
   __syncthreads();
-  for (int i = tid; i < nel; i += nt) dx[own + i] = vsl::from_float<XT>(G[i]);
+  for (int i = tid; i < nel; i += nt) dx[own + i] = G[i];
   cluster.sync();  // no CTA leaves while a neighbour may read its windows
 }
 
@@ -928,21 +924,27 @@ extern "C" int vsl_conv_block_fwd(const float* x, const float* gam, const float*
   const ConvParams p = make_params(gam, beta, dw, wp, bp, T, D, L, K);
   const vsl::Dropout drop{seeds, thresh, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* no_xs = nullptr;
+  uint8_t* no_mask = nullptr;
   cudaError_t err = F <= 16 ? vsl::launch_cluster(conv_block_fwd_cluster_kernel<2>, B * N, N,
-                                                  kThreads, smem, s, x, p, drop, out, F)
+                                                  kThreads, smem, s, x, p, drop, out, no_xs,
+                                                  no_mask, F)
                             : vsl::launch_cluster(conv_block_fwd_cluster_kernel<3>, B * N, N,
-                                                  kThreads, smem, s, x, p, drop, out, F);
+                                                  kThreads, smem, s, x, p, drop, out, no_xs,
+                                                  no_mask, F);
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);
 }
 
 // The bf16 forward on the same plan: x and out [B, T, D] in bf16, the
-// weights fp32.
+// weights fp32; where a gradient follows, the bf16 backward's residuals xs
+// [L - 1, B, T, D] (fp32) and mask [L, B, T, D / 4] (bytes), else both
+// null.
 extern "C" int vsl_conv_block_fwd_bf16(const void* x, const float* gam, const float* beta,
                                        const float* dw, const float* wp, const float* bp,
                                        const float* seeds, unsigned thresh, float scale,
-                                       void* out, int B, int T, int D, int L, int K, int N, int F,
-                                       void* stream) {
+                                       void* out, float* xs, void* mask, int B, int T, int D,
+                                       int L, int K, int N, int F, void* stream) {
   if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || N < 1 || N > 8 ||
       N != (T + F - 1) / F)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -953,36 +955,16 @@ extern "C" int vsl_conv_block_fwd_bf16(const void* x, const float* gam, const fl
   const ConvParams p = make_params(gam, beta, dw, wp, bp, T, D, L, K);
   const vsl::Dropout drop{seeds, thresh, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint8_t* mk = static_cast<uint8_t*>(mask);
   cudaError_t err = F <= 16 ? vsl::launch_cluster(conv_block_fwd_cluster_kernel<2, bf16>, B * N,
-                                                  N, kThreads, smem, s, xb, p, drop, ob, F)
+                                                  N, kThreads, smem, s, xb, p, drop, ob, xs, mk,
+                                                  F)
                             : vsl::launch_cluster(conv_block_fwd_cluster_kernel<3, bf16>, B * N,
-                                                  N, kThreads, smem, s, xb, p, drop, ob, F);
+                                                  N, kThreads, smem, s, xb, p, drop, ob, xs, mk,
+                                                  F);
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);
 }
-
-namespace {
-
-// The whole-row backward's launch, the partials' sum and dwp.
-template <typename XT>
-cudaError_t block_backward(const XT* x, const ConvParams& p, const float* wpT,
-                           const vsl::Dropout& drop, const XT* g, XT* dx, float* dsmall,
-                           float* dwp, float* d_ws, float* gp_ws, float* part, float* gemm_ws,
-                           int splits, int B, int N, int F, cudaStream_t stream) {
-  const int T = p.T, D = p.D, L = p.L, K = p.K;
-  const size_t smem = BwdLayout(F, D, L, K).floats(D, L, K) * sizeof(float);
-  cudaError_t err = vsl::launch_cluster(conv_block_bwd_cluster_kernel<XT>, B * N, N, kThreads,
-                                        smem, stream, x, p, wpT, drop, g, dx, d_ws, gp_ws, part,
-                                        F);
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = vsl::sum_partials(part, dsmall, 1, B * N, L * (3 + K) * D, stream);
-  if (err != cudaSuccess) return err;
-  // dwp[l] = d_l^T . g_p,l over the B*T rows of layer l
-  return vsl::wgrad(d_ws, gp_ws, dwp, gemm_ws, L, D, D, B * T, splits, stream);
-}
-
-}  // namespace
 
 // The backward on conv_plan's N CTAs a row, F frames a CTA (N = ceil(T /
 // F) <= 8). dsmall [L, 3 + K, D]: dgam, dbeta, dbp, ddw; dwp [L, D, D].
@@ -999,29 +981,16 @@ extern "C" int vsl_conv_block_bwd(const float* x, const float* gam, const float*
   if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || N < 1 || N > 8 ||
       N != (T + F - 1) / F)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(block_backward(x, make_params(gam, beta, dw, wp, bp, T, D, L, K), wpT,
-                                         vsl::Dropout{seeds, thresh, scale}, g, dx, dsmall, dwp,
-                                         d_ws, gp_ws, part, gemm_ws, splits, B, N, F, stream));
-}
-
-// The bf16 backward on the same plan (#9 at bf16): x, g and dx [B, T, D] in
-// bf16, the weights and their gradients fp32.
-extern "C" int vsl_conv_block_bwd_bf16(const void* x, const float* gam, const float* beta,
-                                       const float* dw, const float* wp, const float* wpT,
-                                       const float* bp, const float* seeds, unsigned thresh,
-                                       float scale, const void* g, void* dx, float* dsmall,
-                                       float* dwp, float* d_ws, float* gp_ws, float* part,
-                                       float* gemm_ws, int splits, int B, int T, int D, int L,
-                                       int K, int N, int F, void* stream_) {
-  using bf16 = __nv_bfloat16;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || F < 1 || N < 1 || N > 8 ||
-      N != (T + F - 1) / F)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(block_backward(
-      static_cast<const bf16*>(x), make_params(gam, beta, dw, wp, bp, T, D, L, K), wpT,
-      vsl::Dropout{seeds, thresh, scale}, static_cast<const bf16*>(g), static_cast<bf16*>(dx),
-      dsmall, dwp, d_ws, gp_ws, part, gemm_ws, splits, B, N, F, stream));
+  const ConvParams p = make_params(gam, beta, dw, wp, bp, T, D, L, K);
+  const size_t smem = BwdLayout(F, D, L, K).floats(D, L, K) * sizeof(float);
+  cudaError_t err = vsl::launch_cluster(conv_block_bwd_cluster_kernel, B * N, N, kThreads, smem,
+                                        stream, x, p, wpT, vsl::Dropout{seeds, thresh, scale}, g,
+                                        dx, d_ws, gp_ws, part, F);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err == cudaSuccess) err = vsl::sum_partials(part, dsmall, 1, B * N, L * (3 + K) * D, stream);
+  // dwp[l] = d_l^T . g_p,l over the B*T rows of layer l
+  if (err == cudaSuccess) err = vsl::wgrad(d_ws, gp_ws, dwp, gemm_ws, L, D, D, B * T, splits, stream);
+  return static_cast<int>(err);
 }
 
 // The T-tiled forward on conv_tiled_fwd_plan's tiles of F frames, weight
@@ -1154,24 +1123,27 @@ struct TcTiledBwdLayout {
   __host__ __device__ size_t bytes() const { return 4 * (2 * N + XH + DW + F4) + 2 * (GP + W); }
 };
 
-// One layer of the bf16 tiled backward for the tile [t0, t0 + F) of row b:
-// G_in -> G_out, bf16 d and g_p of the own frames into d_l and gp_l,
-// per-(row, tile) partials part [B * tiles, L, 3 + K, D] (dgam, dbeta, dbp,
-// ddw [K, D]); mask_l [B, T, D / 4] the forward's [p > 0] bits of layer l.
-// XIn, GIn, GOut: the storage types of the layer's input, G_in and G_out
-// (bf16 for x, g and dx, fp32 for xs and the stream between the layers).
+// One layer of the bf16 backward for the tile [t0, t0 + F) of row b, t0 =
+// tile F: G_in -> G_out, bf16 d and g_p of the own frames into d_l and
+// gp_l, per-(row, tile) partials part [B * tiles, L, 3 + K, D] (dgam,
+// dbeta, dbp, ddw [K, D]); mask_l [B, T, D / 4] the forward's [p > 0] bits
+// of layer l. XIn, GIn, GOut: the storage types of the layer's input, G_in
+// and G_out (bf16 for x, g and dx, fp32 for xs and the stream between the
+// layers). The T-tiled backward runs it a layer a launch; the whole-row
+// backward (conv_block_bwd_tc_row_kernel) a row a CTA, every layer in one
+// launch, G_in read where the layer before wrote G_out (so no read-only
+// loads of them).
 template <typename XIn, typename GIn, typename GOut>
-__global__ void __launch_bounds__(kTcTiledThreads, 1)
-conv_layer_bwd_tc_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l,
-                               const __nv_bfloat16* __restrict__ wpb,
-                               const uint8_t* __restrict__ mask_l, vsl::Dropout drop,
-                               const GIn* __restrict__ Gin, GOut* __restrict__ Gout,
-                               __nv_bfloat16* __restrict__ d_l, __nv_bfloat16* __restrict__ gp_l,
-                               float* __restrict__ part, int F, int SN) {
+__device__ __forceinline__ void
+conv_bwd_tc_layer(const XIn* __restrict__ xin, const ConvParams& p, int l,
+                  const __nv_bfloat16* __restrict__ wpb, const uint8_t* __restrict__ mask_l,
+                  const vsl::Dropout& drop, const GIn* Gin, GOut* Gout,
+                  __nv_bfloat16* __restrict__ d_l, __nv_bfloat16* __restrict__ gp_l,
+                  float* __restrict__ part, int b, int tile, int tiles, int F, int SN) {
   using bf16 = __nv_bfloat16;
   extern __shared__ float4 smem4[];
   const int T = p.T, D = p.D, K = p.K, pad = (K - 1) / 2, gl = K - 1 - pad, D4 = D / 4;
-  const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0);
+  const int t0 = tile * F, nf = min(F, T - t0);
   const int ne = nf + K - 1;  // E: frames [t0 - gl, t0 + nf + pad)
   const int e0 = t0 - gl;
   const TcTiledBwdLayout lay(F, D, K, SN);
@@ -1186,7 +1158,7 @@ conv_layer_bwd_tc_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l,
   const size_t row = (size_t)b * T * D;
   const float* gam = p.gam + (size_t)l * D;
   const bf16* wl = wpb + (size_t)l * D * D;
-  float* pr = part + ((size_t)(b * gridDim.x + blockIdx.x) * p.L + l) * (3 + K) * D;
+  float* pr = part + ((size_t)(b * tiles + tile) * p.L + l) * (3 + K) * D;
   const uint32_t seed = drop.seed(b), salt = vsl::site_salt(0x100u + l);
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = nt >> 5;
@@ -1335,6 +1307,19 @@ conv_layer_bwd_tc_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l,
   });
 }
 
+template <typename XIn, typename GIn, typename GOut>
+__global__ void __launch_bounds__(kTcTiledThreads, 1)
+conv_layer_bwd_tc_tiled_kernel(const XIn* __restrict__ xin, ConvParams p, int l,
+                               const __nv_bfloat16* __restrict__ wpb,
+                               const uint8_t* __restrict__ mask_l, vsl::Dropout drop,
+                               const GIn* __restrict__ Gin, GOut* __restrict__ Gout,
+                               __nv_bfloat16* __restrict__ d_l, __nv_bfloat16* __restrict__ gp_l,
+                               float* __restrict__ part, int F, int SN) {
+  conv_bwd_tc_layer(xin, p, l, wpb, mask_l, drop, Gin, Gout, d_l, gp_l, part,
+                    static_cast<int>(blockIdx.y), static_cast<int>(blockIdx.x),
+                    static_cast<int>(gridDim.x), F, SN);
+}
+
 // One layer of the bf16 tiled backward, its kernel picked by the storage
 // types of its input, G_in and G_out.
 template <typename XIn, typename GIn, typename GOut>
@@ -1350,6 +1335,50 @@ cudaError_t tc_tiled_bwd_layer(const XIn* in, const ConvParams& p, int l,
       in, p, l, wpb, mask + (size_t)l * B * p.T * (p.D / 4), drop, Gin, Gout, d_l, gp_l, part, F,
       SN);
   return cudaGetLastError();
+}
+
+// --- the bf16 whole-row backward on the tensor cores (#9 at bf16) ----------
+// The T-tiled backward's layer (conv_bwd_tc_layer) at whole-row scale, on
+// ops/kernels.py conv_bwd_bf16_plan: one CTA a row, its tile the whole row
+// (F = T, so the depthwise reach outside the own frames is the zero
+// padding of the sequence ends), all L layers in one launch, the layers in
+// reverse with a block barrier between them. It reads what the bf16
+// whole-row forward saved for it (x_l for l >= 1 in xs, each layer's [p >
+// 0] in mask) in place of the replay that recomputed p = bf16(d) .
+// bf16(wp) on FMA products: n_l = LN(x_l) and d = depthwise(bf16(n_l)) are
+// recomputed from the saved x_l, the replay's values bit for bit, and the
+// only product left, g_d = bf16(g_p) . bf16(wp)^T, runs on mma.sync. The
+// running gradient between the layers goes through g_ws [2, B, T, D] (fp32;
+// layer l writes g_ws[l & 1], layer 0 the bf16 dx), written and read by
+// the same CTA. What bounds it: the LayerNorm, depthwise and gradient
+// passes out of shared memory and the barriers between them, a row's CTA
+// in turn through its layers (16 CTAs at the query stream's [16, 12, 128]).
+__global__ void __launch_bounds__(kTcTiledThreads, 1)
+conv_block_bwd_tc_row_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ xs,
+                             const uint8_t* __restrict__ mask, ConvParams p,
+                             const __nv_bfloat16* __restrict__ wpb, vsl::Dropout drop,
+                             const __nv_bfloat16* __restrict__ g, __nv_bfloat16* dx, float* g_ws,
+                             __nv_bfloat16* __restrict__ d_ws, __nv_bfloat16* __restrict__ gp_ws,
+                             float* __restrict__ part, int SN) {
+  const int b = static_cast<int>(blockIdx.x), T = p.T, L = p.L;
+  const size_t layer = (size_t)gridDim.x * T * p.D;
+  for (int l = L - 1; l >= 0; --l) {
+    const uint8_t* mask_l = mask + l * (layer / 4);
+    __nv_bfloat16* d_l = d_ws + l * layer;
+    __nv_bfloat16* gp_l = gp_ws + l * layer;
+    const float* gin = g_ws + ((l + 1) & 1) * layer;
+    float* gout = g_ws + (l & 1) * layer;
+    const float* in = xs + (l > 0 ? l - 1 : 0) * layer;
+    if (l == 0 && L == 1)
+      conv_bwd_tc_layer(x, p, l, wpb, mask_l, drop, g, dx, d_l, gp_l, part, b, 0, 1, T, SN);
+    else if (l == 0)
+      conv_bwd_tc_layer(x, p, l, wpb, mask_l, drop, gin, dx, d_l, gp_l, part, b, 0, 1, T, SN);
+    else if (l == L - 1)
+      conv_bwd_tc_layer(in, p, l, wpb, mask_l, drop, g, gout, d_l, gp_l, part, b, 0, 1, T, SN);
+    else
+      conv_bwd_tc_layer(in, p, l, wpb, mask_l, drop, gin, gout, d_l, gp_l, part, b, 0, 1, T, SN);
+    __syncthreads();  // G_out written and the shared buffers read before the next layer's loads
+  }
 }
 
 
@@ -1594,6 +1623,37 @@ extern "C" int vsl_conv_block_bwd_tiled_bf16(const void* x, const float* xs, con
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(vsl::wgrad_tc(static_cast<const bf16*>(d_ws), gp_ws, dwp, gemm_ws, L, D,
                                         D, B * T, splits, stream));
+}
+
+// The bf16 whole-row backward (#9 at bf16) on conv_bwd_bf16_plan's CTA a
+// row and slices of SN of bf16(wp)'s rows, from the bf16 whole-row
+// forward's xs [L - 1, B, T, D] and mask [L, B, T, D / 4]; the arguments
+// and workspaces of vsl_conv_block_bwd_tiled_bf16 (part [B, L, 3 + K, D]).
+extern "C" int vsl_conv_block_bwd_bf16(const void* x, const float* xs, const void* mask,
+                                       const float* gam, const float* beta, const float* dw,
+                                       const void* wpb, const float* bp, const float* seeds,
+                                       unsigned thresh, float scale, const void* g, void* dx,
+                                       float* dsmall, float* dwp, void* d_ws_, void* gp_ws_,
+                                       float* g_ws, float* part, float* gemm_ws, int splits,
+                                       int B, int T, int D, int L, int K, int SN, void* stream_) {
+  using bf16 = __nv_bfloat16;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (B < 1 || T < 1 || L < 1 || K < 1 || D < 4 || D % 4 || SN < 16 || SN % 16 ||
+      ((D + 63) / 64 * 64) % SN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ConvParams p = make_params(gam, beta, dw, nullptr, bp, T, D, L, K);
+  bf16* d_ws = static_cast<bf16*>(d_ws_);
+  bf16* gp_ws = static_cast<bf16*>(gp_ws_);
+  cudaError_t err = vsl::launch_opted(
+      conv_block_bwd_tc_row_kernel, dim3(B), kTcTiledThreads, TcTiledBwdLayout(T, D, K, SN).bytes(),
+      stream, static_cast<const bf16*>(x), xs, static_cast<const uint8_t*>(mask), p,
+      static_cast<const bf16*>(wpb), vsl::Dropout{seeds, thresh, scale}, static_cast<const bf16*>(g),
+      static_cast<bf16*>(dx), g_ws, d_ws, gp_ws, part, SN);
+  if (err == cudaSuccess) err = vsl::sum_partials(part, dsmall, 1, B, L * (3 + K) * D, stream);
+  if (err == cudaSuccess)
+    err = vsl::wgrad_tc(static_cast<const bf16*>(d_ws), gp_ws, dwp, gemm_ws, L, D, D, B * T,
+                        splits, stream);
+  return static_cast<int>(err);
 }
 
 // The bf16 T-tiled forward (#2 at bf16, tiled) on the tensor cores, on

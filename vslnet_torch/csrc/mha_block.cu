@@ -38,8 +38,9 @@
 // qkv [B, T, 3D] and att [B, T, D] go through device memory (L2-resident at
 // the served shapes); the backward takes them as saved residuals.
 //
-// Backward: three launches, plus the weight products; the plan (frames a
-// tile F, weight slice SK, query tile TQ) is ops/kernels.py mha_bwd_plan.
+// Backward (fp32; the bf16 backward has kernels of its own, below): three
+// launches, plus the weight products; the plan (frames a tile F, weight
+// slice SK, query tile TQ) is ops/kernels.py mha_bwd_plan.
 //   1. dense + LN2 backward on a grid of (tiles of F frames, rows): the
 //      frames couple only through the weight and LN column sums. g_dpre,
 //      g_z = g_dpre . Wd^T (Wd^T streamed into shared memory by cp.async in
@@ -98,20 +99,21 @@
 //
 // bf16 (vsl_mha_block_bwd_bf16): the TPU backward at bf16
 // (_make_mha_block_bwd_kernel, pallas_kernels.py:1762-1858), from the bf16
-// forward's qkv and att. Its custom VJP rounds at its own points: each
-// bias gradient sums the UNROUNDED gradient (dbd of g_dpre, dbqkv of dqkv),
-// and the product beside it takes the rounded one (dwd = bf16(z)^T .
-// bf16(g_dpre), g_z = bf16(g_dpre) . bf16(Wd)^T; dwqkv = bf16(y)^T .
-// bf16(dqkv), g_y = bf16(dqkv) . bf16(Wqkv)^T), so each launch takes the
-// sum first and rounds its tile in place after it; z, g_dpre, y and dqkv
-// reach the weight products rounded. The LayerNorm backwards, g_res, g_att
-// and the stream between the launches stay fp32. The attention body
-// (attn_bwd_cluster_kernel<HD, true>, q, k and v loaded from the bf16
-// forward's bf16 qkv): bf16(g_att_h), dV = bf16(drop(P))^T
-// . gh, dS = P (dP - sum_j dP P) in fp32, dQ = (bf16(dS) . k_h) * scale,
-// dK = bf16(dS)^T . bf16(q_h * scale), scale = bf16(1/sqrt(hd)); #12 runs
-// the fp32 instantiation of the same template, whose code is unchanged.
-// dx = bf16(g_res + the LN1 path). Bound as the fp32 backward is.
+// forward's qkv and att and its bf16(Wqkv) and bf16(Wd). Its custom VJP
+// rounds at its own points: each bias gradient sums the UNROUNDED gradient
+// (dbd of g_dpre, dbqkv of dqkv), and the product beside it takes the
+// rounded one (dwd = bf16(z)^T . bf16(g_dpre), g_z = bf16(g_dpre) .
+// bf16(Wd)^T; dwqkv = bf16(y)^T . bf16(dqkv), g_y = bf16(dqkv) .
+// bf16(Wqkv)^T); the attention: bf16(g_att_h), dV = bf16(drop(P))^T . gh,
+// dS = P (dP - sum_j dP P) in fp32 (the sum over the keys, not from att),
+// dQ = (bf16(dS) . k_h) * scale, dK = bf16(dS)^T . bf16(q_h * scale),
+// scale = bf16(1/sqrt(hd)); the LayerNorm backwards, g_res and the stream
+// between the launches fp32; dx = bf16(g_res + the LN1 path). Three
+// kernels of its own on the tensor cores (mha_bwd_out_tc_kernel,
+// attn_bwd_tc_kernel, mha_bwd_qkv_tc_kernel, on ops/kernels.py
+// mha_bwd_bf16_plan, further down): every product on mma.sync, dwd and
+// dwqkv on mma.cuh's wgrad_tc. The whole-T backward at bf16 (#12b) keeps
+// the cluster body's kBf16 form.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -149,8 +151,6 @@ __host__ __device__ inline size_t qkv_tile_floats(int F, int SK, int D) {
 // added to C in slice order. The caller has issued the first slice into
 // buf as the last cp.async group; every thread calls this, and it ends
 // with a block barrier.
-// kRound: each slice rounded to bf16 in place once it has landed.
-template <bool kRound = false>
 __device__ void streamed_gemm(const float* A, int lda, int rows, int K, const float* __restrict__ Wg,
                               int ncols, float* buf, int SK, float* C) {
   const int S = K / SK;
@@ -163,10 +163,6 @@ __device__ void streamed_gemm(const float* A, int lda, int rows, int K, const fl
       vsl::cp_async_wait<0>();
     }
     __syncthreads();  // slice s landed for every thread; C's last slice written
-    if (kRound) {
-      vsl::round_bf16(buf + (size_t)(s & 1) * SK * ncols, SK * ncols);
-      __syncthreads();
-    }
     vsl::smem_gemm<kGemmRows, 4>(
         A + s * SK, lda, rows, SK, buf + (size_t)(s & 1) * SK * ncols, ncols, ncols,
         [&](int t, int o, float4 acc) {
@@ -187,18 +183,14 @@ __device__ void streamed_gemm(const float* A, int lda, int rows, int K, const fl
 // 1. out = drop203(z.Wd + bd) + res: g_dpre = drop203(g) (and dbd); g_z =
 // g_dpre . Wd^T; z = drop202(LN2(res)): the LN2 backward (dgam2, dbeta2);
 // g_res = g + the LN2 path; g_att = drop201(g_res). One tile of F frames
-// of one row; writes z and g_dpre (for dwd), g_res and g_att. XT: the
-// storage type of x and g (bf16: z and g_dpre rounded where they are
-// stored, g_dpre and Wd^T rounded for g_z after dbd).
-template <typename XT = float>
+// of one row; writes z and g_dpre (for dwd), g_res and g_att.
 __global__ void __launch_bounds__(kThreads)
-bwd_out_tile_kernel(const XT* __restrict__ x, const float* __restrict__ att,
+bwd_out_tile_kernel(const float* __restrict__ x, const float* __restrict__ att,
                     const float* __restrict__ gam, const float* __restrict__ beta,
-                    const float* __restrict__ wdT, vsl::Dropout drop, const XT* __restrict__ g,
+                    const float* __restrict__ wdT, vsl::Dropout drop, const float* __restrict__ g,
                     float* __restrict__ z_ws, float* __restrict__ gdpre_ws,
                     float* __restrict__ gres_ws, float* __restrict__ gatt_ws,
                     float* __restrict__ part, int T, int D, int F, int SK) {
-  constexpr bool kBf16 = !std::is_same<XT, float>::value;
   extern __shared__ float4 smem4[];
   const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0), nel = nf * D;
   const size_t FD = (size_t)F * D;
@@ -215,34 +207,29 @@ bwd_out_tile_kernel(const XT* __restrict__ x, const float* __restrict__ att,
   vsl::cp_async_floats(buf, wdT, SK * D);  // lands behind the loads and the LN
   for (int i = threadIdx.x; i < nel; i += blockDim.x) {
     const int t = t0 + i / D, c = i % D;
-    const float gd = drop.apply(vsl::to_float(g[tile + i]), seed, s203, t, c);
+    const float gd = drop.apply(g[tile + i], seed, s203, t, c);
     GD[i] = gd;
-    gdpre_ws[tile + i] = kBf16 ? vsl::bf16_round(gd) : gd;
-    XH[i] = drop.apply(att[tile + i], seed, s201, t, c) + vsl::to_float(x[tile + i]);
+    gdpre_ws[tile + i] = gd;
+    XH[i] = drop.apply(att[tile + i], seed, s201, t, c) + x[tile + i];
   }
   __syncthreads();
   vsl::ln_normalize_rows(XH, XH, inv, nf, D);
   for (int c = threadIdx.x; c < D; c += blockDim.x) {
     float s = 0.f;
     for (int t = 0; t < nf; ++t) s += GD[(size_t)t * D + c];
-    pr[7 * D + c] = s;  // dbd, of the unrounded g_dpre
+    pr[7 * D + c] = s;  // dbd
   }
-  if (kBf16) {  // g_dpre rounded in place (streamed_gemm's barrier orders it)
-    __syncthreads();
-    vsl::round_bf16(GD, nel);
-  }
-  streamed_gemm<kBf16>(GD, D, nf, D, wdT, D, buf, SK, GZ);  // g_z = g_dpre . Wd^T
+  streamed_gemm(GD, D, nf, D, wdT, D, buf, SK, GZ);  // g_z = g_dpre . Wd^T
   for (int i = threadIdx.x; i < nel; i += blockDim.x) {
     const int t = t0 + i / D, c = i % D;
     GZ[i] = drop.apply(GZ[i], seed, s202, t, c);
-    const float z = drop.apply(XH[i] * __ldg(gam + c) + __ldg(beta + c), seed, s202, t, c);
-    z_ws[tile + i] = kBf16 ? vsl::bf16_round(z) : z;
+    z_ws[tile + i] = drop.apply(XH[i] * __ldg(gam + c) + __ldg(beta + c), seed, s202, t, c);
   }
   __syncthreads();
   vsl::ln_backward_rows(  // dgam, dbeta of LN2
       GZ, XH, inv, gam, nf, D, pr + D, pr + 3 * D, [&](int t, int c, float v) {
         const size_t i = tile + (size_t)t * D + c;
-        const float gr = vsl::to_float(g[i]) + v;
+        const float gr = g[i] + v;
         gres_ws[i] = gr;
         gatt_ws[i] = drop.apply(gr, seed, s201, t0 + t, c);
       });
@@ -250,18 +237,13 @@ bwd_out_tile_kernel(const XT* __restrict__ x, const float* __restrict__ att,
 
 // 3. qkv = y.Wqkv + bqkv, y = drop200(LN1(x)): dbqkv, g_y = dqkv . Wqkv^T,
 // the LN1 backward (dgam1, dbeta1), dx = g_res + the LN1 path. One tile of
-// F frames of one row; writes y (for dwqkv) and dx. XT: the storage type
-// of x and dx (bf16: after dbqkv the tile's dqkv is rounded in place and
-// written back over its rows, dwqkv's operand, Wqkv^T is rounded for g_y,
-// y is stored rounded).
-template <typename XT = float>
+// F frames of one row; writes y (for dwqkv) and dx.
 __global__ void __launch_bounds__(kThreads)
-bwd_qkv_tile_kernel(const XT* __restrict__ x, const float* __restrict__ gam,
+bwd_qkv_tile_kernel(const float* __restrict__ x, const float* __restrict__ gam,
                     const float* __restrict__ beta, const float* __restrict__ wqkvT,
-                    vsl::Dropout drop, float* __restrict__ dqkv,
+                    vsl::Dropout drop, const float* __restrict__ dqkv,
                     const float* __restrict__ gres_ws, float* __restrict__ y_ws,
-                    XT* __restrict__ dx, float* __restrict__ part, int T, int D, int F, int SK) {
-  constexpr bool kBf16 = !std::is_same<XT, float>::value;
+                    float* __restrict__ dx, float* __restrict__ part, int T, int D, int F, int SK) {
   extern __shared__ float4 smem4[];
   const int b = blockIdx.y, t0 = blockIdx.x * F, nf = min(F, T - t0), nel = nf * D;
   const size_t FD = (size_t)F * D;
@@ -280,28 +262,19 @@ bwd_qkv_tile_kernel(const XT* __restrict__ x, const float* __restrict__ gam,
   for (int c = threadIdx.x; c < 3 * D; c += blockDim.x) {
     float s = 0.f;
     for (int t = 0; t < nf; ++t) s += DQ[(size_t)t * 3 * D + c];
-    pr[4 * D + c] = s;  // dbqkv, of the unrounded dqkv
+    pr[4 * D + c] = s;  // dbqkv
   }
-  if (kBf16) {  // bf16(dqkv), in place and over the tile's rows of dqkv
-    __syncthreads();
-    for (int i = threadIdx.x; i < 3 * nel; i += blockDim.x) {
-      const float v = vsl::bf16_round(DQ[i]);
-      DQ[i] = v;
-      dqkv[3 * tile + i] = v;
-    }
-  }
-  streamed_gemm<kBf16>(DQ, 3 * D, nf, 3 * D, wqkvT, D, buf, SK, GY);  // g_y = dqkv . Wqkv^T
+  streamed_gemm(DQ, 3 * D, nf, 3 * D, wqkvT, D, buf, SK, GY);  // g_y = dqkv . Wqkv^T
   for (int i = threadIdx.x; i < nel; i += blockDim.x) {
     const int t = t0 + i / D, c = i % D;
     GY[i] = drop.apply(GY[i], seed, s200, t, c);
-    const float y = drop.apply(XH[i] * __ldg(gam + c) + __ldg(beta + c), seed, s200, t, c);
-    y_ws[tile + i] = kBf16 ? vsl::bf16_round(y) : y;
+    y_ws[tile + i] = drop.apply(XH[i] * __ldg(gam + c) + __ldg(beta + c), seed, s200, t, c);
   }
   __syncthreads();
   vsl::ln_backward_rows(  // dgam, dbeta of LN1
       GY, XH, inv, gam, nf, D, pr, pr + 2 * D, [&](int t, int c, float v) {
         const size_t i = tile + (size_t)t * D + c;
-        dx[i] = vsl::from_float<XT>(gres_ws[i] + v);
+        dx[i] = gres_ws[i] + v;
       });
 }
 
@@ -363,18 +336,16 @@ __host__ __device__ inline size_t attn_tile_floats(int T, int TQ, int hd) {
 // D, v = qkv + 2D; the whole-T route's [B, T, D] tensors: ld = D), the
 // saved attention output att and its gradient g_att [B, T, D]; writes dq,
 // dk and dv through base pointers and one row stride ldd (into dqkv, or
-// three [B, T, D] tensors). kBf16: #10's attention at bf16 (scale already
-// bf16): q * scale and g_att rounded to bf16 as they land, drop(P) rounded
-// for dV, and dS = P (dP - sum_j dP P) with the sum taken over the keys
-// (not from att, whose product rounded drop(P)), rounded for dQ and dK.
-// IT: the storage type of att and g_att; OT: that of dq, dk and dv (#12b:
-// both bf16, the outputs rounded once as they are stored); QT: that of q,
-// k and v (IT, but bf16 for #10b, whose forward stores qkv in bf16).
-template <int HD, bool kBf16 = false, typename IT = float, typename OT = float,
-          typename QT = IT>
+// three [B, T, D] tensors). kBf16: the attention at bf16 (#12b; scale
+// already bf16): q * scale and g_att rounded to bf16 as they land, drop(P)
+// rounded for dV, and dS = P (dP - sum_j dP P) with the sum taken over the
+// keys (not from att, whose product rounded drop(P)), rounded for dQ and
+// dK. IT: the storage type of q, k, v, att and g_att; OT: that of dq, dk
+// and dv (#12b: both bf16, the outputs rounded once as they are stored).
+template <int HD, bool kBf16 = false, typename IT = float, typename OT = float>
 __global__ void __launch_bounds__(kMaxAttnThreads)
-attn_bwd_cluster_kernel(const QT* __restrict__ qp, const QT* __restrict__ kp,
-                        const QT* __restrict__ vp, int ld, const float* __restrict__ mask,
+attn_bwd_cluster_kernel(const IT* __restrict__ qp, const IT* __restrict__ kp,
+                        const IT* __restrict__ vp, int ld, const float* __restrict__ mask,
                         vsl::Dropout drop, const IT* __restrict__ att,
                         const IT* __restrict__ gatt, OT* __restrict__ dqp,
                         OT* __restrict__ dkp, OT* __restrict__ dvp, int ldd, int T, int D,
@@ -567,9 +538,8 @@ attn_bwd_cluster_kernel(const QT* __restrict__ qp, const QT* __restrict__ kp,
 // heads on query tiles of TQ rows: one cluster of ceil(T / TQ) CTAs of
 // `threads` threads a (row, head).
 // kBf16: the bf16 body, with the scale rounded to bf16.
-template <int HD, bool kBf16 = false, typename IT = float, typename OT = float,
-          typename QT = IT>
-cudaError_t launch_attention_bwd_tiles(const QT* q, const QT* k, const QT* v, int ld,
+template <int HD, bool kBf16 = false, typename IT = float, typename OT = float>
+cudaError_t launch_attention_bwd_tiles(const IT* q, const IT* k, const IT* v, int ld,
                                        const float* mask, vsl::Dropout drop, const IT* att,
                                        const IT* gatt, OT* dq, OT* dk, OT* dv,
                                        int ldd, int B, int T, int D, int n_heads, int TQ,
@@ -578,7 +548,7 @@ cudaError_t launch_attention_bwd_tiles(const QT* q, const QT* k, const QT* v, in
   const size_t smem = attn_tile_floats(T, TQ, HD) * sizeof(float);
   const float scale = kBf16 ? vsl::bf16_round_host(vsl::head_scale(HD)) : vsl::head_scale(HD);
   const cudaError_t err = vsl::launch_cluster(
-      attn_bwd_cluster_kernel<HD, kBf16, IT, OT, QT>, B * n_heads * nq, nq, threads, smem, stream, q, k, v,
+      attn_bwd_cluster_kernel<HD, kBf16, IT, OT>, B * n_heads * nq, nq, threads, smem, stream, q, k, v,
       ld, mask, drop, att, gatt, dq, dk, dv, ldd, T, D, n_heads, TQ, scale);
   return err == cudaSuccess ? cudaGetLastError() : err;
 }
@@ -1112,6 +1082,520 @@ cudaError_t launch_attn_fwd_tc(const __nv_bfloat16* qkv, const float* mask, vsl:
   return cudaErrorInvalidValue;
 }
 
+// --- the bf16 backward on the tensor cores (#10 at bf16, head dims 8-64) ---
+// Three launches on ops/kernels.py mha_bwd_bf16_plan, then the partials'
+// sum and the two weight products: the TPU kernel's function at bf16
+// (_make_mha_block_bwd_kernel, pallas_kernels.py:1762-1858, the custom
+// VJP's rounding points listed at the head of this file) with every
+// product on the tensor cores (mma.sync m16n8k16, bf16 operands, fp32
+// sums):
+//   1. (mha_bwd_out_tc_kernel) a CTA a tile of kTcBwdRows frames of a row:
+//      g_dpre = drop203(g), dbd summed from the unrounded g_dpre,
+//      bf16(g_dpre) to its workspace (dwd's operand, and this product's A
+//      rows); R = drop201(att) + x and LN2's xh and inv; g_z = bf16(g_dpre)
+//      . bf16(Wd)^T by mma.cuh tile_mma_bt (A fragments from the tile's
+//      bf16 rows, kept in shared memory where they fit beside a slice, B
+//      from bf16(Wd)'s rows as they are stored, slices of SN
+//      of them by cp.async, each group of 4 k16 steps accumulated in the
+//      tensor cores and added by an fp32 add); then, in fp32 as before,
+//      drop202, z = bf16(drop202(LN2(R))) to its workspace, the LN2
+//      backward, g_res = g + its path, and bf16(drop201(g_res)) = the
+//      attention's bf16(g_att) to its workspace.
+//   2. (attn_bwd_tc_kernel) a CTA a (row, head) holding every key of the
+//      row, k, v, qs = bf16(q * scale) and gh = bf16(g_att) as bf16 rows
+//      (head dim 8 padded to a k16 step with zeros): each warp takes query
+//      tiles of 16, S = qs . k^T and dP = gh . v^T on the tensor cores, in
+//      the C fragments the mask terms, the row max, p = exp(s - max) / l,
+//      the keep bit at the head's (t, j), bf16(drop(p)) into P, dP's
+//      dropout, D_t = sum_j dP p over the keys (not from att) and
+//      bf16(p (dP - D_t)) into dS; then each warp takes (16 rows, 16
+//      columns) items of dQ = bf16(dS) . k * scale, dK = bf16(dS)^T . qs
+//      and dV = bf16(drop(P))^T . gh (ldmatrix.trans for the transposed
+//      operands; each group of 4 k16 steps accumulated in the tensor cores,
+//      the groups added by fp32 adds in order), bf16(dq), bf16(dk),
+//      bf16(dv) stored straight into dqkvt [B, T, 3D] and the unrounded
+//      values summed over the row (the lanes' rows by shuffles, then the
+//      row tiles in order) into the row's first tile's dbqkv partials,
+//      zeros in its other tiles'. Where P and dS do not both fit (head dims
+//      8 and 16 beyond 208 keys), one buffer holds P for dV, then dS, whose
+//      scores are computed again (tc_attn_bwd_share).
+//   3. (mha_bwd_qkv_tc_kernel) the tiles of launch 1: LN1's xh and inv; g_y
+//      = bf16(dqkv) . bf16(Wqkv)^T by tile_mma_bt (A from dqkvt's rows,
+//      copied into shared memory where they fit, B from bf16(Wqkv)'s rows
+//      in slices); drop200, y = bf16(drop200(LN1(x)))
+//      to its workspace, the LN1 backward, dx = bf16(g_res + its path).
+// dwd = bf16(z)^T . bf16(g_dpre) and dwqkv = bf16(y)^T . bf16(dqkv) are
+// mma.cuh's wgrad_tc over the bf16 workspaces; dgam, dbeta, dbqkv and dbd
+// per-tile partials summed in a fixed order. No atomics: two equal calls
+// give equal bits. What bounds it: at the served shapes each launch's
+// latency (the query stream is ~200 frames in all); the products take the
+// tensor cores a few hundred cycles a CTA, the attention 10 T^2 hd FLOPs a
+// (row, head).
+constexpr int kTcBwdThreads = 256;  // (kernels.py MHA_TC_THREADS)
+constexpr int kTcBwdRows = 16;      // frames a per-frame tile (kernels.py MHA_TC_ROWS)
+constexpr int kTcBwdAttnWarps = 8;  // (kernels.py MHA_TC_ATTN_WARPS)
+
+// The per-frame launches' shared memory for slices of SN of a weight's rows
+// of K values at width D, in bytes (ops/kernels.py _mha_tc_bwd_frames_bytes):
+// two fp32 tiles [kTcBwdRows][D] (xh and the product's output) and inv,
+// then with a_smem the product's A tile [kTcBwdRows][tc_stride(Kp)] and
+// the slice [SN][tc_stride(Kp)] bf16, Kp = K rounded up to 64. Where the A
+// tile does not fit beside a slice (D above ~700), the product reads A's
+// rows from device memory (L2) a k16 step at a time instead.
+__host__ __device__ inline size_t tc_bwd_frames_bytes(int SN, int K, int D, bool a_smem) {
+  const int Kp = (K + 63) / 64 * 64;
+  return 4 * (2 * (size_t)kTcBwdRows * D + kTcBwdRows) +
+         2 * ((a_smem ? kTcBwdRows : 0) + (size_t)SN) * vsl::tc_stride(Kp);
+}
+
+// The slice [c0, c0 + SN) of w's rows (K bf16 values each, K % 8 == 0) into
+// Ws [SN][ldw] by 16-byte cp.async, rows past D left as they are (their
+// outputs are not stored), as one commit group.
+__device__ __forceinline__ void load_rows(__nv_bfloat16* Ws, int ldw, const __nv_bfloat16* w,
+                                          int c0, int SN, int K, int D) {
+  const int q8 = K / 8;
+  for (int i = threadIdx.x; i < SN * q8; i += blockDim.x) {
+    const int r = i / q8, c = 8 * (i - r * q8);
+    if (c0 + r < D) vsl::cp_async16(Ws + (size_t)r * ldw + c, w + (size_t)(c0 + r) * K + c, true);
+  }
+  vsl::cp_async_commit();
+}
+
+// Ws's columns [K, Kp) of its SN rows, never written by a copy, set to 0.
+__device__ __forceinline__ void zero_pad_cols(__nv_bfloat16* Ws, int ldw, int SN, int K, int Kp) {
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < SN * (Kp - K); i += blockDim.x) {
+    const int r = i / (Kp - K);
+    Ws[(size_t)r * ldw + K + i - r * (Kp - K)] = zero;
+  }
+}
+
+// 1. g_dpre, dbd, g_z and the LN2 backward for the tile [t0, t0 + 16) of row
+// b (part [B * tiles, 8D]; gam, beta LN2's).
+__global__ void __launch_bounds__(kTcBwdThreads)
+mha_bwd_out_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ att,
+                      const float* __restrict__ gam, const float* __restrict__ beta,
+                      const __nv_bfloat16* __restrict__ wdb, vsl::Dropout drop,
+                      const __nv_bfloat16* __restrict__ g, __nv_bfloat16* gdpre_ws,
+                      __nv_bfloat16* __restrict__ z_ws, float* __restrict__ gres_ws,
+                      __nv_bfloat16* __restrict__ gatt_ws, float* __restrict__ part, int T, int D,
+                      int SN, int a_smem) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.y, t0 = blockIdx.x * kTcBwdRows, nf = min(kTcBwdRows, T - t0);
+  const int nel = nf * D, Kp = (D + 63) / 64 * 64, WST = vsl::tc_stride(Kp);
+  float* XH = reinterpret_cast<float*>(smem4);  // R, then its xh
+  float* GZ = XH + kTcBwdRows * D;              // g_z, then drop202(g_z)
+  float* inv = GZ + kTcBwdRows * D;
+  bf16* As = reinterpret_cast<bf16*>(inv + kTcBwdRows);  // bf16(g_dpre) [16][WST] with a_smem
+  bf16* Ws = As + (a_smem ? kTcBwdRows * WST : 0);
+  const size_t tile = ((size_t)b * T + t0) * D;
+  const uint32_t seed = drop.seed(b);
+  const uint32_t s201 = vsl::site_salt(0x201u), s202 = vsl::site_salt(0x202u),
+                 s203 = vsl::site_salt(0x203u);
+  float* pr = part + ((size_t)b * gridDim.x + blockIdx.x) * 8 * D;
+  load_rows(Ws, WST, wdb, 0, SN, D, D);  // lands behind the loads and the LN
+  zero_pad_cols(Ws, WST, SN, D, Kp);
+  for (int i = threadIdx.x; i < nel; i += blockDim.x) {
+    const int r = i / D, c = i - r * D;
+    const bf16 gd = __float2bfloat16(drop.apply(vsl::to_float(g[tile + i]), seed, s203, t0 + r, c));
+    gdpre_ws[tile + i] = gd;
+    if (a_smem) As[r * WST + c] = gd;
+    XH[i] = drop.apply(att[tile + i], seed, s201, t0 + r, c) + vsl::to_float(x[tile + i]);
+  }
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    float s = 0.f;
+    for (int t = 0; t < nf; ++t)
+      s += drop.apply(vsl::to_float(g[tile + (size_t)t * D + c]), seed, s203, t0 + t, c);
+    pr[7 * D + c] = s;  // dbd, of the unrounded g_dpre
+  }
+  __syncthreads();  // R and the tile's bf16(g_dpre) rows written
+  vsl::ln_normalize_rows(XH, XH, inv, nf, D);
+  // g_z = bf16(g_dpre) . bf16(Wd)^T, a slice of Wd's rows at a time
+  for (int c0 = 0; c0 < D; c0 += SN) {
+    if (c0 > 0) load_rows(Ws, WST, wdb, c0, SN, D, D);
+    vsl::cp_async_wait<0>();
+    __syncthreads();  // the slice landed (and the last one read)
+    vsl::tile_mma_bt(a_smem ? As : gdpre_ws + tile, a_smem ? WST : D, nf, D, Ws, WST, SN / 16, Kp,
+                     [&](int r, int c, float v0, float v1) {
+                       const int n = c0 + c;
+                       if (r < nf && n < D)  // D % 8 == 0: n + 1 < D too
+                         *reinterpret_cast<float2*>(GZ + (size_t)r * D + n) = make_float2(v0, v1);
+                     });
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < nel; i += blockDim.x) {
+    const int t = t0 + i / D, c = i % D;
+    GZ[i] = drop.apply(GZ[i], seed, s202, t, c);
+    const float z = drop.apply(XH[i] * __ldg(gam + c) + __ldg(beta + c), seed, s202, t, c);
+    z_ws[tile + i] = __float2bfloat16(z);
+  }
+  __syncthreads();
+  vsl::ln_backward_rows(  // dgam, dbeta of LN2
+      GZ, XH, inv, gam, nf, D, pr + D, pr + 3 * D, [&](int t, int c, float v) {
+        const size_t i = tile + (size_t)t * D + c;
+        const float gr = vsl::to_float(g[i]) + v;
+        gres_ws[i] = gr;
+        gatt_ws[i] = __float2bfloat16(drop.apply(gr, seed, s201, t0 + t, c));
+      });
+}
+
+// 3. g_y and the LN1 backward for the tile [t0, t0 + 16) of row b: dx (part
+// as launch 1's; gam, beta LN1's).
+__global__ void __launch_bounds__(kTcBwdThreads)
+mha_bwd_qkv_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gam,
+                      const float* __restrict__ beta, const __nv_bfloat16* __restrict__ wqkvb,
+                      vsl::Dropout drop, const __nv_bfloat16* __restrict__ dqkvt,
+                      const float* __restrict__ gres_ws, __nv_bfloat16* __restrict__ y_ws,
+                      __nv_bfloat16* __restrict__ dx, float* __restrict__ part, int T, int D,
+                      int SN, int a_smem) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.y, t0 = blockIdx.x * kTcBwdRows, nf = min(kTcBwdRows, T - t0);
+  const int nel = nf * D, K = 3 * D, Kp = (K + 63) / 64 * 64, WST = vsl::tc_stride(Kp);
+  float* XH = reinterpret_cast<float*>(smem4);  // xh of LN1
+  float* GY = XH + kTcBwdRows * D;              // g_y, then drop200(g_y)
+  float* inv = GY + kTcBwdRows * D;
+  bf16* As = reinterpret_cast<bf16*>(inv + kTcBwdRows);  // bf16(dqkv) [16][WST] with a_smem
+  bf16* Ws = As + (a_smem ? kTcBwdRows * WST : 0);
+  const size_t tile = ((size_t)b * T + t0) * D;
+  const uint32_t seed = drop.seed(b), s200 = vsl::site_salt(0x200u);
+  float* pr = part + ((size_t)b * gridDim.x + blockIdx.x) * 8 * D;
+  if (a_smem)  // the tile's rows of bf16(dqkv), in load_rows' commit group
+    for (int i = threadIdx.x; i < nf * (K / 8); i += blockDim.x) {
+      const int r = i / (K / 8), c = 8 * (i - r * (K / 8));
+      vsl::cp_async16(As + r * WST + c, dqkvt + 3 * tile + (size_t)r * K + c, true);
+    }
+  load_rows(Ws, WST, wqkvb, 0, SN, K, D);  // lands behind the LN
+  zero_pad_cols(Ws, WST, SN, K, Kp);
+  vsl::ln_normalize_rows(x + tile, XH, inv, nf, D);
+  // g_y = bf16(dqkv) . bf16(Wqkv)^T, a slice of Wqkv's rows at a time
+  for (int c0 = 0; c0 < D; c0 += SN) {
+    if (c0 > 0) load_rows(Ws, WST, wqkvb, c0, SN, K, D);
+    vsl::cp_async_wait<0>();
+    __syncthreads();  // the slice landed (and the last one read)
+    vsl::tile_mma_bt(a_smem ? As : dqkvt + 3 * tile, a_smem ? WST : K, nf, K, Ws, WST, SN / 16, Kp,
+                     [&](int r, int c, float v0, float v1) {
+                       const int n = c0 + c;
+                       if (r < nf && n < D)
+                         *reinterpret_cast<float2*>(GY + (size_t)r * D + n) = make_float2(v0, v1);
+                     });
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < nel; i += blockDim.x) {
+    const int t = t0 + i / D, c = i % D;
+    GY[i] = drop.apply(GY[i], seed, s200, t, c);
+    const float y = drop.apply(XH[i] * __ldg(gam + c) + __ldg(beta + c), seed, s200, t, c);
+    y_ws[tile + i] = __float2bfloat16(y);
+  }
+  __syncthreads();
+  vsl::ln_backward_rows(  // dgam, dbeta of LN1
+      GY, XH, inv, gam, nf, D, pr, pr + 2 * D, [&](int t, int c, float v) {
+        const size_t i = tile + (size_t)t * D + c;
+        dx[i] = __float2bfloat16(gres_ws[i] + v);
+      });
+}
+
+// 2. The attention's shared memory for NK tiles of 16 keys at head dim HD,
+// in bytes (ops/kernels.py _mha_tc_attn_bwd_bytes): k, v, qs, gh [16
+// NK][tc_stride(HP)] (bf16; HP = HD, 16 at head dim 8), P and dS [16
+// NK][tc_stride(16 NK)] (bf16; one buffer for both with share), the mask
+// terms [16 NK] and the column sums' row-tile partials [3][NK][HD] (fp32).
+__host__ __device__ constexpr size_t tc_attn_bwd_bytes(int HD, int NK, bool share) {
+  return 2 * (4 * (size_t)16 * NK * vsl::tc_stride(HD < 16 ? 16 : HD) +
+              (share ? 1 : 2) * (size_t)16 * NK * vsl::tc_stride(16 * NK)) +
+         4 * (16 * (size_t)NK + 3 * (size_t)NK * HD);
+}
+// P and dS in one buffer where two do not fit a block (kernels.py
+// MAX_SMEM_BYTES)
+__host__ __device__ constexpr bool tc_attn_bwd_share(int HD, int NK) {
+  return tc_attn_bwd_bytes(HD, NK, false) > 232448;
+}
+// the most tiles of 16 keys at each head dim: the keys the block route
+// gives it (mha_route: T <= 223, 209, 183, 143 at head dims 8-64;
+// kernels.py MHA_TC_BWD_KEY_TILES)
+__host__ __device__ constexpr int tc_attn_bwd_max_tiles(int HD) {
+  return HD == 64 ? 9 : HD == 32 ? 12 : 14;
+}
+
+// c[n] = A . B^T for a warp's 16 rows [r0, r0 + 16) of A [.][ld] against
+// the 16 NK rows of Bt [.][ld] (B^T row-major), k = HP: its HP / 16 k16
+// steps (at most 4, one chain) accumulated in the tensor cores.
+template <int NK, int HP>
+__device__ __forceinline__ void attn_tc_scores(float (&c)[2 * NK][4], const __nv_bfloat16* A,
+                                               const __nv_bfloat16* Bt, int ld, int r0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < HP / 16; ++ks) {
+    uint32_t a[4];
+    vsl::ldsm_x4(a, A + (r0 + (lane & 15)) * ld + 16 * ks + (lane >> 4) * 8);
+#pragma unroll
+    for (int n = 0; n < 2 * NK; n += 2) {
+      uint32_t bb[4];
+      vsl::ldsm_x4(bb, Bt + (8 * n + (lane & 7) + ((lane >> 4) << 3)) * ld + 16 * ks +
+                           ((lane >> 3) & 1) * 8);
+      vsl::mma16(c[n], a, bb[0], bb[1]);
+      vsl::mma16(c[n + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+template <int HD, int NK>
+__global__ void __launch_bounds__(32 * kTcBwdAttnWarps, 1)
+attn_bwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ mask,
+                   vsl::Dropout drop, const __nv_bfloat16* __restrict__ gatt,
+                   __nv_bfloat16* __restrict__ dqkvt, float* __restrict__ part, int T, int D,
+                   int n_heads, int tiles, float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int HP = HD < 16 ? 16 : HD, SH = vsl::tc_stride(HP), TP = 16 * NK;
+  constexpr int SP = vsl::tc_stride(TP), CH = HD / 8, NT = 32 * kTcBwdAttnWarps;
+  constexpr bool kShare = tc_attn_bwd_share(HD, NK);
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);
+  bf16* Vs = Ks + TP * SH;
+  bf16* Qs = Vs + TP * SH;
+  bf16* Gs = Qs + TP * SH;
+  bf16* Ps = Gs + TP * SH;
+  bf16* DSs = kShare ? Ps : Ps + TP * SP;
+  float* negk = reinterpret_cast<float*>(DSs + TP * SP);
+  float* colp = negk + TP;  // [3][NK][HD]
+  const int b = static_cast<int>(blockIdx.x) / n_heads, h = static_cast<int>(blockIdx.x) % n_heads;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g8 = lane >> 2, tq = lane & 3;
+  const size_t D3 = 3 * (size_t)D;
+  const bf16* qrow = qkv + (size_t)b * T * D3 + h * HD;
+  const bf16* grow = gatt + (size_t)b * T * D + h * HD;
+  // q, k, v and gh of every row by cp.async (bf16 as qkv and the g_att
+  // workspace hold them), rows past T zero
+  for (int i = tid; i < TP * CH; i += NT) {
+    const int j = i / CH, c = (i % CH) * 8, r = j < T ? j : 0;
+    const bf16* src = qrow + (size_t)r * D3 + c;
+    vsl::cp_async16(Qs + j * SH + c, src, j < T);
+    vsl::cp_async16(Ks + j * SH + c, src + D, j < T);
+    vsl::cp_async16(Vs + j * SH + c, src + 2 * D, j < T);
+    vsl::cp_async16(Gs + j * SH + c, grow + (size_t)r * D + c, j < T);
+  }
+  vsl::cp_async_commit();
+  if constexpr (HD < 16) {  // head dim 8: the columns [8, 16) of k, v, qs and gh are 0
+    for (int j = tid; j < 4 * TP; j += NT)
+      *reinterpret_cast<uint4*>(Ks + (size_t)j * SH + 8) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int j = tid; j < TP; j += NT)
+    negk[j] = j < T ? (1.f - mask[(size_t)b * T + j]) * vsl::kMaskValue : 0.f;
+  vsl::cp_async_wait<0>();
+  for (int i = tid; i < TP * CH; i += NT) {  // qs = bf16(q * scale), the chunks this thread copied
+    uint4* p = reinterpret_cast<uint4*>(Qs + (i / CH) * SH + (i % CH) * 8);
+    uint4 u = *p;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + k));
+      w[k] = vsl::pack_bf16(f.x * scale, f.y * scale);
+    }
+    *p = u;
+  }
+  __syncthreads();
+  const uint32_t seed = drop.seed(b), salt = vsl::head_salt(h);
+  // each warp's query tiles: S and dP, the softmax and dropout in the C
+  // fragments, bf16(drop(p)) into P and/or bf16(p (dP - D_t)) into dS
+  const auto scores = [&](bool put_p, bool put_ds) {
+    for (int qt = warp; qt < NK; qt += kTcBwdAttnWarps) {
+      const int r0 = 16 * qt;
+      float sc[2 * NK][4], dp[2 * NK][4];
+      attn_tc_scores<NK, HP>(sc, Qs, Ks, SH, r0);
+      attn_tc_scores<NK, HP>(dp, Gs, Vs, SH, r0);
+      // this lane's rows r0 + g8 (e < 2) and r0 + g8 + 8, keys 8 n + 2 tq + (e & 1)
+      float mx[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+      for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 8 * n + 2 * tq + (e & 1);
+          sc[n][e] = j < T ? sc[n][e] + negk[j] : -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+        }
+      float l[2] = {0.f, 0.f};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
+        mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
+      }
+#pragma unroll
+      for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[n][e] = expf(sc[n][e] - mx[e >> 1]);  // 0 past T
+          l[e >> 1] += sc[n][e];
+        }
+      float dt[2] = {0.f, 0.f};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
+        l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
+        l[u] = 1.f / l[u];
+      }
+      // p, the keep bit once a (t, j), bf16(drop(p)) into P, dP's dropout
+#pragma unroll
+      for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int t = r0 + g8 + 8 * u;
+          float pd[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 2 * u + c, j = 8 * n + 2 * tq + c;
+            const float p = sc[n][e] * l[u];
+            sc[n][e] = p;
+            const bool keep = t < T && j < T && drop.keep(seed, salt, t, j);
+            pd[c] = keep ? drop.kept(p) : 0.f;
+            dp[n][e] = keep ? drop.kept(dp[n][e]) : 0.f;
+            dt[u] = fmaf(dp[n][e], p, dt[u]);
+          }
+          if (put_p)
+            *reinterpret_cast<uint32_t*>(Ps + t * SP + 8 * n + 2 * tq) = vsl::pack_bf16(pd[0], pd[1]);
+        }
+      if (!put_ds) continue;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        dt[u] += __shfl_xor_sync(0xffffffffu, dt[u], 1);
+        dt[u] += __shfl_xor_sync(0xffffffffu, dt[u], 2);
+      }
+      // bf16(p (dP - D_t)) into dS, 0 on the rows past T
+#pragma unroll
+      for (int n = 0; n < 2 * NK; ++n)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int t = r0 + g8 + 8 * u;
+          const bool in = t < T;
+          *reinterpret_cast<uint32_t*>(DSs + t * SP + 8 * n + 2 * tq) =
+              vsl::pack_bf16(in ? sc[n][2 * u] * (dp[n][2 * u] - dt[u]) : 0.f,
+                             in ? sc[n][2 * u + 1] * (dp[n][2 * u + 1] - dt[u]) : 0.f);
+        }
+    }
+  };
+  // item (which, row tile rt, column block cb) of the three products: dQ
+  // rows are queries (k: keys), dK and dV rows keys (k: queries); the
+  // head's columns in blocks of 16 (one block of 8 at head dim 8)
+  constexpr int NB = HD >= 16 ? HD / 16 : 1, NN = HD >= 16 ? 2 : 1;
+  bf16* orow = dqkvt + (size_t)b * T * D3 + h * HD;
+  const auto product = [&](int which, int rt, int cb) {
+    const bf16* As = which == 2 ? Ps : DSs;
+    const bf16* Bs = which == 0 ? Ks : which == 1 ? Qs : Gs;
+    const int i = lane >> 3;
+    float acc[NN][4];
+#pragma unroll
+    for (int k0 = 0; k0 < NK; k0 += 4) {
+      float c[NN][4];
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+      for (int ks = k0; ks < k0 + 4 && ks < NK; ++ks) {
+        uint32_t a[4];
+        if (which == 0)
+          vsl::ldsm_x4(a, As + (16 * rt + (lane & 15)) * SP + 16 * ks + (lane >> 4) * 8);
+        else
+          vsl::ldsm_x4_trans(a, As + (16 * ks + (lane & 7) + ((i >> 1) << 3)) * SP + 16 * rt +
+                                    ((i & 1) << 3));
+        if constexpr (HD == 8) {
+          uint32_t bb[2];
+          vsl::ldsm_x2_trans(bb, Bs + (16 * ks + (lane & 15)) * SH);
+          vsl::mma16(c[0], a, bb[0], bb[1]);
+        } else {
+          uint32_t bb[4];
+          vsl::ldsm_x4_trans(bb, Bs + (16 * ks + (lane & 15)) * SH + 16 * cb + 8 * (lane >> 4));
+          vsl::mma16(c[0], a, bb[0], bb[1]);
+          vsl::mma16(c[NN - 1], a, bb[2], bb[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = k0 == 0 ? c[n][e] : acc[n][e] + c[n][e];
+    }
+    const float f = which == 0 ? scale : 1.f;
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const int col = 16 * cb + 8 * n + 2 * tq;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int t = 16 * rt + g8 + 8 * u;
+        if (t < T)
+          *reinterpret_cast<uint32_t*>(orow + (size_t)t * D3 + which * D + col) =
+              vsl::pack_bf16(acc[n][2 * u], acc[n][2 * u + 1]);
+      }
+      // the unrounded sums over the tile's rows (those past T hold zeros:
+      // dS and drop(P) are 0 there)
+      float cs[2] = {acc[n][0] + acc[n][2], acc[n][1] + acc[n][3]};
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) cs[u] += __shfl_xor_sync(0xffffffffu, cs[u], off);
+      if (g8 == 0)
+        *reinterpret_cast<float2*>(colp + (which * NK + rt) * HD + col) = make_float2(cs[0], cs[1]);
+    }
+  };
+  const auto products = [&](int w0, int w1) {  // the items of products w0 .. w1 - 1
+    for (int it = warp; it < (w1 - w0) * NK * NB; it += kTcBwdAttnWarps)
+      product(w0 + it / (NK * NB), it / NB % NK, it % NB);
+  };
+  if constexpr (kShare) {  // P for dV, then dS in its place
+    scores(true, false);
+    __syncthreads();
+    products(2, 3);
+    __syncthreads();
+    scores(false, true);
+    __syncthreads();
+    products(0, 2);
+  } else {
+    scores(true, true);
+    __syncthreads();
+    products(0, 3);
+  }
+  __syncthreads();
+  // dbqkv of the head's columns over the row, the row tiles in order
+  float* pr = part + (size_t)b * tiles * 8 * D + 4 * D + h * HD;
+  for (int i = tid; i < 3 * HD; i += NT) {
+    const int which = i / HD, c = i % HD;
+    float s = 0.f;
+#pragma unroll
+    for (int rt = 0; rt < NK; ++rt) s += colp[(which * NK + rt) * HD + c];
+    pr[which * D + c] = s;
+    for (int st = 1; st < tiles; ++st) pr[(size_t)st * 8 * D + which * D + c] = 0.f;
+  }
+}
+
+// The tensor-core attention backward of B rows and n_heads heads at T <=
+// 16 NK keys (NK of 1, 2, 4, 8 and tc_attn_bwd_max_tiles(HD)), `tiles`
+// per-frame tiles a row (dbqkv's partials go to the first).
+template <int HD>
+cudaError_t launch_attn_bwd_tc(const __nv_bfloat16* qkv, const float* mask, vsl::Dropout drop,
+                               const __nv_bfloat16* gatt, __nv_bfloat16* dqkvt, float* part, int B,
+                               int T, int D, int n_heads, int tiles, int NK, cudaStream_t stream) {
+  constexpr int kMax = tc_attn_bwd_max_tiles(HD);
+  if (T > 16 * NK) return cudaErrorInvalidValue;
+  const float scale = vsl::bf16_round_host(vsl::head_scale(HD));
+  const auto go = [&](auto kernel, int nk) {
+    return vsl::launch_opted(kernel, dim3(B * n_heads), 32 * kTcBwdAttnWarps,
+                             tc_attn_bwd_bytes(HD, nk, tc_attn_bwd_share(HD, nk)), stream, qkv,
+                             mask, drop, gatt, dqkvt, part, T, D, n_heads, tiles, scale);
+  };
+  switch (NK) {
+    case 1: return go(attn_bwd_tc_kernel<HD, 1>, 1);
+    case 2: return go(attn_bwd_tc_kernel<HD, 2>, 2);
+    case 4: return go(attn_bwd_tc_kernel<HD, 4>, 4);
+    case 8: return go(attn_bwd_tc_kernel<HD, 8>, 8);
+    case kMax: return go(attn_bwd_tc_kernel<HD, kMax>, kMax);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Plan: tiles of F frames, weight slices of SK rows (D % SK == 0, SK % 4 ==
@@ -1192,60 +1676,6 @@ extern "C" int vsl_mha_block_fwd_bf16(const void* x_, const float* mask, const f
   return static_cast<int>(err);
 }
 
-namespace {
-
-// The block backward's three launches, the partials' sum and the weight
-// products; XT the storage type of x, g, dx and the forward's qkv.
-template <typename XT>
-cudaError_t block_backward(const XT* x, const float* mask, const float* gam, const float* beta,
-                           const float* wqkvT, const float* wdT, vsl::Dropout drop,
-                           const XT* qkv, const float* att, const XT* g, XT* dx,
-                           float* dsmall, float* dwqkv, float* dwd, float* z_ws, float* gdpre_ws,
-                           float* gres_ws, float* gatt_ws, float* y_ws, float* dqkv, float* part,
-                           float* gemm_ws, int splits, int B, int T, int D, int n_heads, int F,
-                           int SK, int TQ, cudaStream_t stream) {
-  constexpr bool kBf16 = !std::is_same<XT, float>::value;
-  const dim3 grid((T + F - 1) / F, B);
-  const int smem1 = static_cast<int>(out_tile_floats(F, SK, D) * sizeof(float));
-  cudaError_t err =
-      vsl::opt_in_smem(reinterpret_cast<const void*>(bwd_out_tile_kernel<XT>), smem1);
-  if (err != cudaSuccess) return err;
-  bwd_out_tile_kernel<XT><<<grid, kThreads, smem1, stream>>>(
-      x, att, gam + D, beta + D, wdT, drop, g, z_ws, gdpre_ws, gres_ws, gatt_ws, part, T, D, F,
-      SK);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  err = vsl::by_head_dim(D / n_heads, [&](auto hd) {
-    return launch_attention_bwd_tiles<decltype(hd)::value, kBf16, float, float, XT>(
-        qkv, qkv + D, qkv + 2 * D, 3 * D, mask, drop, att, gatt_ws, dqkv, dqkv + D, dqkv + 2 * D,
-        3 * D, B, T, D, n_heads, TQ, kThreads, stream);
-  });
-  if (err != cudaSuccess) return err;
-
-  const int smem3 = static_cast<int>(qkv_tile_floats(F, SK, D) * sizeof(float));
-  err = vsl::opt_in_smem(reinterpret_cast<const void*>(bwd_qkv_tile_kernel<XT>), smem3);
-  if (err != cudaSuccess) return err;
-  bwd_qkv_tile_kernel<XT><<<grid, kThreads, smem3, stream>>>(x, gam, beta, wqkvT, drop, dqkv,
-                                                             gres_ws, y_ws, dx, part, T, D, F, SK);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  err = vsl::sum_partials(part, dsmall, 1, B * grid.x, 8 * D, stream);
-  if (err != cudaSuccess) return err;
-  err = vsl::wgrad(z_ws, gdpre_ws, dwd, gemm_ws, 1, D, D, B * T, splits, stream);
-  if (err != cudaSuccess) return err;
-  return vsl::wgrad(y_ws, dqkv, dwqkv, gemm_ws, 1, D, 3 * D, B * T, splits, stream);
-}
-
-bool bwd_plan_ok(int B, int T, int D, int n_heads, int F, int SK, int TQ) {
-  const int nq = TQ > 0 ? (T + TQ - 1) / TQ : 0;
-  return !(B < 1 || T < 1 || D < 4 || D % 4 || n_heads < 1 || D % n_heads || F < 1 || SK < 4 ||
-           SK % 4 || D % SK || nq < 1 || nq > kMaxCluster);
-}
-
-}  // namespace
-
 // dsmall [8D]: dgam [2, D], dbeta [2, D], dbqkv [3D], dbd [D]; dwqkv
 // [D, 3D]; dwd [D, D]. Plan: tiles of F frames, weight slices of SK rows
 // (D % SK == 0, SK % 4 == 0), query tiles of TQ rows (ceil(T / TQ) <= 8).
@@ -1260,32 +1690,98 @@ extern "C" int vsl_mha_block_bwd(const float* x, const float* mask, const float*
                                  float* dqkv, float* part, float* gemm_ws, int splits, int B,
                                  int T, int D, int n_heads, int F, int SK, int TQ,
                                  void* stream_) {
-  if (!bwd_plan_ok(B, T, D, n_heads, F, SK, TQ)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(block_backward(
-      x, mask, gam, beta, wqkvT, wdT, vsl::Dropout{seeds, thresh, scale}, qkv, att, g, dx, dsmall,
-      dwqkv, dwd, z_ws, gdpre_ws, gres_ws, gatt_ws, y_ws, dqkv, part, gemm_ws, splits, B, T, D,
-      n_heads, F, SK, TQ, static_cast<cudaStream_t>(stream_)));
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const int nq = TQ > 0 ? (T + TQ - 1) / TQ : 0;
+  if (B < 1 || T < 1 || D < 4 || D % 4 || n_heads < 1 || D % n_heads || F < 1 || SK < 4 ||
+      SK % 4 || D % SK || nq < 1 || nq > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const vsl::Dropout drop{seeds, thresh, scale};
+  const dim3 grid((T + F - 1) / F, B);
+  const size_t smem1 = out_tile_floats(F, SK, D) * sizeof(float);
+  cudaError_t err = vsl::launch_opted(bwd_out_tile_kernel, grid, kThreads, smem1, stream, x, att,
+                                      gam + D, beta + D, wdT, drop, g, z_ws, gdpre_ws, gres_ws,
+                                      gatt_ws, part, T, D, F, SK);
+  if (err == cudaSuccess)
+    err = vsl::by_head_dim(D / n_heads, [&](auto hd) {
+      return launch_attention_bwd_tiles<decltype(hd)::value>(
+          qkv, qkv + D, qkv + 2 * D, 3 * D, mask, drop, att, gatt_ws, dqkv, dqkv + D,
+          dqkv + 2 * D, 3 * D, B, T, D, n_heads, TQ, kThreads, stream);
+    });
+  const size_t smem3 = qkv_tile_floats(F, SK, D) * sizeof(float);
+  if (err == cudaSuccess)
+    err = vsl::launch_opted(bwd_qkv_tile_kernel, grid, kThreads, smem3, stream, x, gam, beta,
+                            wqkvT, drop, static_cast<const float*>(dqkv),
+                            static_cast<const float*>(gres_ws), y_ws, dx, part, T, D, F, SK);
+  if (err == cudaSuccess) err = vsl::sum_partials(part, dsmall, 1, B * grid.x, 8 * D, stream);
+  if (err == cudaSuccess)
+    err = vsl::wgrad(z_ws, gdpre_ws, dwd, gemm_ws, 1, D, D, B * T, splits, stream);
+  if (err == cudaSuccess)
+    err = vsl::wgrad(y_ws, dqkv, dwqkv, gemm_ws, 1, D, 3 * D, B * T, splits, stream);
+  return static_cast<int>(err);
 }
 
-// The bf16 backward on the same plan (#10 at bf16): x, g and dx [B, T, D]
-// and the bf16 forward's qkv [B, T, 3D] in bf16; att, the workspaces and
-// the weight gradients fp32.
-extern "C" int vsl_mha_block_bwd_bf16(const void* x, const float* mask, const float* gam,
-                                      const float* beta, const float* wqkvT, const float* wdT,
+// The bf16 backward (#10 at bf16) on the tensor cores, on
+// mha_bwd_bf16_plan's tiles of 16 frames a row, slices of SNo of
+// bf16(Wd)'s and SNq of bf16(Wqkv)'s rows and the attention's NK tiles of
+// 16 keys (a_smem: the per-frame products' A tiles in shared memory): x,
+// g and dx [B, T, D] bf16; wqkvb = bf16(Wqkv) [D, 3D], wdb =
+// bf16(Wd) [D, D] (the forward's roundings); the bf16 forward's qkv [B, T,
+// 3D] (bf16) and att [B, T, D] (fp32); dsmall [8D] (dgam [2, D], dbeta
+// [2, D], dbqkv [3D], dbd [D]), dwqkv [D, 3D], dwd [D, D] fp32.
+// Workspaces: z, gdpre, gatt, y [B, T, D] bf16 (the weight products'
+// operands and the attention's bf16(g_att)); gres [B, T, D] fp32; dqkvt
+// [B, T, 3D] bf16 (bf16(dqkv)); part [B * ceil(T / 16), 8D]; gemm_ws
+// [splits, D, 3D] (unused when splits == 1). Head dims 8-64, D a multiple
+// of 8.
+extern "C" int vsl_mha_block_bwd_bf16(const void* x_, const float* mask, const float* gam,
+                                      const float* beta, const void* wqkvb_, const void* wdb_,
                                       const float* seeds, unsigned thresh, float scale,
-                                      const void* qkv, const float* att, const void* g, void* dx,
-                                      float* dsmall, float* dwqkv, float* dwd, float* z_ws,
-                                      float* gdpre_ws, float* gres_ws, float* gatt_ws,
-                                      float* y_ws, float* dqkv, float* part, float* gemm_ws,
-                                      int splits, int B, int T, int D, int n_heads, int F, int SK,
-                                      int TQ, void* stream_) {
+                                      const void* qkv_, const float* att, const void* g_,
+                                      void* dx_, float* dsmall, float* dwqkv, float* dwd,
+                                      void* z_, void* gdpre_, float* gres, void* gatt_, void* y_,
+                                      void* dqkvt_, float* part, float* gemm_ws, int splits,
+                                      int B, int T, int D, int n_heads, int SNo, int SNq, int NK,
+                                      int a_smem, void* stream_) {
   using bf16 = __nv_bfloat16;
-  if (!bwd_plan_ok(B, T, D, n_heads, F, SK, TQ)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(block_backward(
-      static_cast<const bf16*>(x), mask, gam, beta, wqkvT, wdT, vsl::Dropout{seeds, thresh, scale},
-      static_cast<const bf16*>(qkv), att, static_cast<const bf16*>(g), static_cast<bf16*>(dx), dsmall, dwqkv, dwd, z_ws,
-      gdpre_ws, gres_ws, gatt_ws, y_ws, dqkv, part, gemm_ws, splits, B, T, D, n_heads, F, SK, TQ,
-      static_cast<cudaStream_t>(stream_)));
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (B < 1 || T < 1 || D < 8 || D % 8 || n_heads < 1 || D % n_heads || SNo < 16 || SNo % 16 ||
+      SNq < 16 || SNq % 16 || T > 16 * NK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* x = static_cast<const bf16*>(x_);
+  const bf16* g = static_cast<const bf16*>(g_);
+  const bf16* wqkvb = static_cast<const bf16*>(wqkvb_);
+  const bf16 *z = static_cast<const bf16*>(z_), *y = static_cast<const bf16*>(y_);
+  bf16* gdpre = static_cast<bf16*>(gdpre_);
+  bf16* gatt = static_cast<bf16*>(gatt_);
+  bf16* dqkvt = static_cast<bf16*>(dqkvt_);
+  const vsl::Dropout drop{seeds, thresh, scale};
+  const int tiles = (T + kTcBwdRows - 1) / kTcBwdRows;
+  const dim3 grid(tiles, B);
+  // 1. g_dpre, dbd, g_z, the LN2 backward: g_res and bf16(g_att)
+  cudaError_t err = vsl::launch_opted(
+      mha_bwd_out_tc_kernel, grid, kTcBwdThreads, tc_bwd_frames_bytes(SNo, D, D, a_smem), stream,
+      x, att, gam + D, beta + D, static_cast<const bf16*>(wdb_), drop, g, gdpre,
+      static_cast<bf16*>(z_), gres, gatt, part, T, D, SNo, a_smem);
+  // 2. the attention backward: bf16(dqkv) and dbqkv
+  if (err == cudaSuccess)
+    err = vsl::by_head_dim(D / n_heads, [&](auto hd) {
+      return launch_attn_bwd_tc<decltype(hd)::value>(static_cast<const bf16*>(qkv_), mask, drop,
+                                                     gatt, dqkvt, part, B, T, D, n_heads, tiles,
+                                                     NK, stream);
+    });
+  // 3. g_y, the LN1 backward: dx
+  if (err == cudaSuccess)
+    err = vsl::launch_opted(mha_bwd_qkv_tc_kernel, grid, kTcBwdThreads,
+                            tc_bwd_frames_bytes(SNq, 3 * D, D, a_smem), stream, x, gam, beta,
+                            wqkvb, drop, static_cast<const bf16*>(dqkvt),
+                            static_cast<const float*>(gres), static_cast<bf16*>(y_),
+                            static_cast<bf16*>(dx_), part, T, D, SNq, a_smem);
+  if (err == cudaSuccess) err = vsl::sum_partials(part, dsmall, 1, B * tiles, 8 * D, stream);
+  if (err == cudaSuccess)
+    err = vsl::wgrad_tc(z, gdpre, dwd, gemm_ws, 1, D, D, B * T, splits, stream);
+  if (err == cudaSuccess)
+    err = vsl::wgrad_tc(y, dqkvt, dwqkv, gemm_ws, 1, D, 3 * D, B * T, splits, stream);
+  return static_cast<int>(err);
 }
 
 // Whole-T multi-head attention (fused_mha's small-T route), replacing the

@@ -242,6 +242,59 @@ __device__ __forceinline__ void tile_mma(const __nv_bfloat16* A, int lda, int mt
   }
 }
 
+// C = A . W^T for the 16 rows of a tile of A [16][K] (bf16 rows lda values
+// apart, in device or shared memory, read as 4-byte pairs straight into A
+// fragments: rows past `rows` read as row 0, k past K as 0; K % 8 == 0)
+// and the rows [0, 16 nblocks) of W [.][ldw] in shared memory (bf16, k
+// along each row, Kp = K rounded up to 64, W's columns [K, Kp) 0): the
+// bf16 MHA block backward's products with a weight's transpose, W's rows
+// read as they are stored (B fragments by ldmatrix, no transpose), as
+// tile_mma's with each group of 4 k16 steps accumulated in the tensor
+// cores from zero and added by an fp32 add, groups in order of k. A warp
+// takes the column blocks w, w + nwarps, ...; epi(r, c, v0, v1) as
+// tile_mma's, from all 32 lanes at once.
+template <typename Epi>
+__device__ __forceinline__ void tile_mma_bt(const __nv_bfloat16* A, size_t lda, int rows, int K,
+                                            const __nv_bfloat16* W, int ldw, int nblocks, int Kp,
+                                            Epi epi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const __nv_bfloat16* r0 = A + (g < rows ? (size_t)g * lda : 0);
+  const __nv_bfloat16* r8 = A + (g + 8 < rows ? (size_t)(g + 8) * lda : 0);
+  const auto pair = [&](const __nv_bfloat16* row, int k) {
+    return k < K ? *reinterpret_cast<const uint32_t*>(row + k) : 0u;
+  };
+  for (int nb = warp; nb < nblocks; nb += nwarps) {
+    const int n0 = 16 * nb;
+    float sum[2][4];
+    for (int k = 0; k < Kp; k += 64) {
+      float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k0 = k + 16 * j;
+        uint32_t a[4], b[4];
+        a[0] = pair(r0, k0 + 2 * tq);
+        a[1] = pair(r8, k0 + 2 * tq);
+        a[2] = pair(r0, k0 + 8 + 2 * tq);
+        a[3] = pair(r8, k0 + 8 + 2 * tq);
+        ldsm_x4(b, W + (size_t)(n0 + (lane & 7) + ((lane >> 4) << 3)) * ldw + k0 +
+                       ((lane >> 3) & 1) * 8);
+        mma16(c[0], a, b[0], b[1]);
+        mma16(c[1], a, b[2], b[3]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[h][e] = k == 0 ? c[h][e] : sum[h][e] + c[h][e];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        epi(g + 8 * u, n0 + 8 * h + 2 * tq, sum[h][2 * u], sum[h][2 * u + 1]);
+  }
+}
+
 // --- bf16 weight gradients on mma.sync ---------------------------------------
 // C[z] = A[z]^T . B[z] for z < Z, as common.cuh wgrad computes it (A[z] [K,
 // M], B[z] [K, N] row-major, K every (row, position) of the batch, C[z] [M,

@@ -161,6 +161,14 @@ _SIGNATURES["vsl_lstm_recurrence_bwd_bf16"] = [_P] * 11 + [_I] * 8 + [_P]
 # bf16(wp) in place of wp and wp^T, and wp's slice for the product tile
 _SIGNATURES["vsl_conv_block_fwd_tiled_bf16"] = [_P] * 7 + _DROP + [_P] * 3 + [_I] * 7 + [_P]
 _SIGNATURES["vsl_conv_block_bwd_tiled_bf16"] = [_P] * 9 + _DROP + [_P] * 9 + [_I] * 8 + [_P]
+# the bf16 whole-row conv forward also writes its backward's residuals (xs
+# and the ReLU mask, null when serving); its backward reads them, with the
+# tiled backward's arguments but a CTA a row (no frames a tile)
+_SIGNATURES["vsl_conv_block_fwd_bf16"] = [_P] * 7 + _DROP + [_P] * 3 + [_I] * 7 + [_P]
+_SIGNATURES["vsl_conv_block_bwd_bf16"] = [_P] * 9 + _DROP + [_P] * 9 + [_I] * 7 + [_P]
+# the bf16 MHA block backward takes bf16 weights, its slices and key tiles
+# and whether its products' A tiles sit in shared memory
+_SIGNATURES["vsl_mha_block_bwd_bf16"] = [_P] * 7 + _DROP + [_P] * 15 + [_I] * 9 + [_P]
 # the bf16 flash forward takes no query rows a thread
 _SIGNATURES["vsl_flash_mha_fwd_bf16"] = [_P] * 5 + _DROP + [_P] * 2 + [_I] * 4 + [_P]
 # the wide forms of #2c, #9c, #3b and #10b (bf16 only; bf16 weights in
@@ -871,6 +879,31 @@ def conv_block_plain(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0,
     return x.to(act)
 
 
+def relu_mask_bits(p):
+    """[p > 0] of p [..., D] packed as the bf16 kernels store it, [..., D /
+    4] uint8: bit q of byte c the column 4 c + q."""
+    bits = (p > 0).reshape(*p.shape[:-1], p.shape[-1] // 4, 4).to(torch.uint8)
+    return (bits * torch.tensor([1, 2, 4, 8], dtype=torch.uint8,
+                                device=p.device)).sum(dim=-1, dtype=torch.uint8)
+
+
+def conv_block_residuals_plain(x, gam, beta, dw, wp, bp, seeds=None,
+                               drop_rate=0.0):
+    """conv_block_plain with the residuals the bf16 whole-row forward saves
+    for its backward: (out, xs [L - 1, B, T, D] float32, the inputs of
+    layers 1..L-1, mask [L, B, T, D / 4] uint8, each layer's [p > 0] as
+    relu_mask_bits packs it), from conv_block_replay at x's dtype; xs holds
+    one unused layer where L = 1."""
+    saved = conv_block_replay(x, gam, beta, dw, wp, bp, seeds, drop_rate)
+    xl, xs = x.float(), []
+    for l, (_, _, _, _, p) in enumerate(saved):
+        xs.append(xl)
+        xl = xl + site_dropout(torch.relu(p), seeds, 0x100 + l, drop_rate)
+    xs = torch.stack(xs[1:]) if len(xs) > 1 else torch.zeros_like(xl)[None]
+    return (xl.to(x.dtype), xs,
+            torch.stack([relu_mask_bits(s[4]) for s in saved]))
+
+
 def _ln_stats(x):
     """(xh, inv) of the JAX package's _ln_fwd: x - mean times inv =
     rsqrt(population variance + 1e-6), over the last dim."""
@@ -1110,28 +1143,87 @@ def _aligned16(*tensors):
     return [a if a.data_ptr() % 16 == 0 else a.clone() for a in tensors]
 
 
-def launch_conv_block_fwd(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0):
+def launch_conv_block_fwd(x, gam, beta, dw, wp, bp, seeds=None, drop_rate=0.0,
+                          residuals=False):
     """The forward kernel on conv_fwd_plan's CTAs, its bf16 entry point for
-    bf16 x (out in x's dtype): CUDA tensors only."""
+    bf16 x (out in x's dtype): CUDA tensors only. With residuals (bf16 x,
+    a gradient to follow) (out, xs, mask), what the bf16 backward reads:
+    xs [L - 1, B, T, D] float32, the inputs of layers 1..L-1, and mask [L,
+    B, T, D / 4] uint8, each layer's [p > 0] (conv_block_residuals_plain's
+    function)."""
     name = _entry("conv_block_fwd", _act_dtype("conv_block_fwd", x))
     _require_cuda(name, x, gam, beta, dw, wp, bp)
     B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0, x.dtype)
+    if residuals and x.dtype != torch.bfloat16:
+        raise ValueError("%s: the residuals are the bf16 forward's" % name)
     plan = conv_fwd_plan(B, T, D, K, L)
     sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
     dw, wp = _aligned16(dw, wp)
     out = torch.empty_like(x)
-    _launch(name, x.data_ptr(), gam.data_ptr(), beta.data_ptr(), dw.data_ptr(),
-            wp.data_ptr(), bp.data_ptr(), sp, thresh, scale, out.data_ptr(),
-            B, T, D, L, K, plan.n, plan.frames)
-    return out
+    args = [x.data_ptr(), gam.data_ptr(), beta.data_ptr(), dw.data_ptr(),
+            wp.data_ptr(), bp.data_ptr(), sp, thresh, scale, out.data_ptr()]
+    if x.dtype == torch.bfloat16:
+        xs = mask = None
+        if residuals:
+            xs = _empty(x.device, max(L - 1, 1), B, T, D)
+            mask = torch.empty(L, B, T, D // 4, device=x.device,
+                               dtype=torch.uint8)
+        args += [0 if xs is None else xs.data_ptr(),
+                 0 if mask is None else mask.data_ptr()]
+    _launch(name, *args, B, T, D, L, K, plan.n, plan.frames)
+    return (out, xs, mask) if residuals else out
 
 
-def launch_conv_block_bwd(x, gam, beta, dw, wp, bp, seeds, drop_rate, g):
+class ConvBwdBf16Plan(NamedTuple):
+    """One call of the bf16 whole-row conv backward on the tensor cores:
+    `ctas` = B CTAs of CONV_TILED_THREADS threads, a row each, `frames` =
+    T, `smem` bytes, bf16(wp)'s rows in slices of `slice` (a multiple of 16
+    dividing D rounded up to 64)."""
+    frames: int
+    slice: int
+    smem: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=256)
+def conv_bwd_bf16_plan(B, T, D, K, L):
+    """The bf16 whole-row backward's launch plan (csrc/conv_block.cu
+    conv_block_bwd_tc_row_kernel): the T-tiled tensor-core backward's
+    layer with the whole row as its tile, one CTA a row through every
+    layer, bf16(wp)'s rows whole in shared memory where they fit, else in
+    the largest slices that do (_conv_tiled_bwd_bf16_smem_bytes at T
+    frames). At the query stream's [16, 12, 128]: 16 CTAs of ~72 KB. It
+    takes every shape conv_route sends to "block" with a gradient. Raises
+    on what the kernel cannot take."""
+    if B < 1 or T < 1 or K < 1 or L < 1 or D < 4 or D % 4:
+        raise ValueError("conv_bwd_bf16_plan: needs B, T, K, L >= 1 and D %% "
+                         "4 == 0, got B=%d, T=%d, D=%d, K=%d, L=%d"
+                         % (B, T, D, K, L))
+    dk = -(-D // 64) * 64
+    sn = next((sn for sn in range(dk, 15, -16) if dk % sn == 0
+               and _conv_tiled_bwd_bf16_smem_bytes(T, D, K, sn)
+               <= MAX_SMEM_BYTES), None)
+    if sn is None:
+        raise ValueError("conv_bwd_bf16_plan: T=%d, D=%d needs %d bytes of "
+                         "shared memory a row, above the %d a block has"
+                         % (T, D, _conv_tiled_bwd_bf16_smem_bytes(T, D, K, 16),
+                            MAX_SMEM_BYTES))
+    return ConvBwdBf16Plan(T, sn, _conv_tiled_bwd_bf16_smem_bytes(T, D, K, sn),
+                           B)
+
+
+def launch_conv_block_bwd(x, gam, beta, dw, wp, bp, seeds, drop_rate, g,
+                          xs=None, mask=None, wpb=None):
     """The backward kernel: (dx, dgam, dbeta, ddw, dwp, dbp), the weight
     gradients summed over the batch; the bf16 entry point for bf16 x (g and
-    dx in x's dtype, the weight gradients float32 either way). CUDA tensors
-    only."""
+    dx in x's dtype, the weight gradients float32 either way), on
+    conv_bwd_bf16_plan, which reads the bf16 forward's residuals xs and
+    mask (launch_conv_block_fwd with residuals) and, where the caller has
+    it, the forward's bf16(wp) wpb. CUDA tensors only."""
     name = _entry("conv_block_bwd", _act_dtype("conv_block_bwd", x))
+    if x.dtype == torch.bfloat16:
+        return _launch_conv_block_bwd_bf16(x, xs, mask, gam, beta, dw, wp, bp,
+                                           seeds, drop_rate, g, wpb)
     _require_cuda(name, x, gam, beta, dw, wp, bp, g)
     B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0, x.dtype)
     plan = conv_plan(B, T, D, K, L)
@@ -1155,21 +1247,71 @@ def launch_conv_block_bwd(x, gam, beta, dw, wp, bp, seeds, drop_rate, g):
     return dx, dsmall[:, 0], dsmall[:, 1], dsmall[:, 3:], dwp, dsmall[:, 2]
 
 
+def _launch_conv_block_bwd_bf16(x, xs, mask, gam, beta, dw, wp, bp, seeds,
+                                drop_rate, g, wpb=None):
+    """launch_conv_block_bwd for bf16 x: the tensor-core kernel
+    (csrc/conv_block.cu conv_block_bwd_tc_row_kernel) on
+    conv_bwd_bf16_plan, reading the forward's layer inputs and ReLU
+    masks; raises without them (no replay)."""
+    name = "conv_block_bwd_bf16"
+    if xs is None or mask is None:
+        raise ValueError("%s: needs the bf16 forward's residuals xs and mask "
+                         "(launch_conv_block_fwd with residuals)" % name)
+    _require_cuda(name, x, xs, mask, gam, beta, dw, wp, bp, g)
+    B, T, D, L, K = _conv_shapes(name, x, gam, beta, dw, wp, bp, 0, x.dtype)
+    plan = conv_bwd_bf16_plan(B, T, D, K, L)
+    _check(name, xs, (max(L - 1, 1), B, T, D))
+    _check(name, mask, (L, B, T, D // 4), torch.uint8)
+    _check(name, g, (B, T, D), x.dtype)
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    dev = x.device
+    # x, g, xs and the taps are read as float4s (or 8 bytes of bf16) and by
+    # cp.async; bf16(wp), the function's rounding of wp, by 8-byte cp.async
+    x, g, dw, bp = _aligned16(x, g, dw, bp)
+    wpb = _bf16_of(name, wp, wpb)
+    dx = torch.empty_like(x)
+    dsmall = _empty(dev, L, 3 + K, D)
+    dwp = _empty(dev, L, D, D)
+    # dwp's operands bf16(d) and bf16(g_p), and the running gradient between
+    # the layers in two float32 buffers, dx only layer 0's output
+    d_ws, gp_ws = (torch.empty(L, B, T, D, device=dev, dtype=torch.bfloat16)
+                   for _ in range(2))
+    g_ws = _empty(dev, 2, B, T, D)
+    part = _empty(dev, B, L, 3 + K, D)
+    splits = _wgrad_splits(L, D, D, B * T, CONV_TILED_WGRAD_WAVES)
+    ws = _empty(dev, L * splits * D * D if splits > 1 else 1)
+    _launch(name, x.data_ptr(), xs.data_ptr(), mask.data_ptr(), gam.data_ptr(),
+            beta.data_ptr(), dw.data_ptr(), wpb.data_ptr(), bp.data_ptr(), sp,
+            thresh, scale, g.data_ptr(), dx.data_ptr(), dsmall.data_ptr(),
+            dwp.data_ptr(), d_ws.data_ptr(), gp_ws.data_ptr(), g_ws.data_ptr(),
+            part.data_ptr(), ws.data_ptr(), splits, B, T, D, L, K, plan.slice)
+    return dx, dsmall[:, 0], dsmall[:, 1], dsmall[:, 3:], dwp, dsmall[:, 2]
+
+
 class FusedConvBlock(torch.autograd.Function):
-    """The conv block on the card: forward kernel, backward kernel."""
+    """The conv block on the card: forward kernel, backward kernel; at
+    bf16 the forward keeps the backward's residuals (each layer's input and
+    ReLU mask) and one rounding of wp a step, read by both."""
 
     @staticmethod
     def forward(ctx, x, gam, beta, dw, wp, bp, seeds, drop_rate):
-        out = launch_conv_block_fwd(x, gam, beta, dw, wp, bp, seeds, drop_rate)
-        ctx.save_for_backward(x, gam, beta, dw, wp, bp, seeds)
+        saved = []
+        if x.dtype == torch.bfloat16:
+            out, xs, mask = launch_conv_block_fwd(x, gam, beta, dw, wp, bp,
+                                                  seeds, drop_rate, True)
+            saved = [xs, mask, wp.to(torch.bfloat16).contiguous()]
+        else:
+            out = launch_conv_block_fwd(x, gam, beta, dw, wp, bp, seeds,
+                                        drop_rate)
+        ctx.save_for_backward(x, gam, beta, dw, wp, bp, seeds, *saved)
         ctx.drop_rate = drop_rate
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, gam, beta, dw, wp, bp, seeds = ctx.saved_tensors
+        x, gam, beta, dw, wp, bp, seeds, *saved = ctx.saved_tensors
         grads = launch_conv_block_bwd(x, gam, beta, dw, wp, bp, seeds,
-                                      ctx.drop_rate, g.contiguous())
+                                      ctx.drop_rate, g.contiguous(), *saved)
         return (*grads, None, None)
 
 
@@ -2251,7 +2393,9 @@ def mha_route(T, D, n_heads, dtype=torch.float32):
     t_limit = (max(3 * T * D + T + 16 * D, 4 * T * hd + 3 * T + T * (T + 1))
                * 4 <= MAX_SMEM_BYTES)
     if (t_limit and _mha_fwd_sizes(T, D, hd) is not None
-            and _mha_bwd_sizes(T, D, hd) is not None):
+            and _mha_bwd_sizes(T, D, hd) is not None
+            and (dtype != torch.bfloat16
+                 or _plans_take((mha_bwd_bf16_plan, 1, T, D, n_heads)))):
         return "block"
     return attention_route(T, hd)
 
@@ -2564,6 +2708,109 @@ def mha_fwd_bf16_plan(B, T, D, n_heads):
         -(-T // (16 * warps)), _mha_tc_attn_bytes(hd, key_tiles, warps))
 
 
+# the bf16 backward's kernels on the tensor cores (csrc/mha_block.cu
+# mha_bwd_out_tc_kernel, attn_bwd_tc_kernel, mha_bwd_qkv_tc_kernel): the
+# per-frame launches take tiles of MHA_TC_ROWS frames a row and slices of a
+# weight's rows of a multiple of 16 (the most that fit); the attention a
+# CTA of MHA_TC_ATTN_WARPS warps a (row, head) holding every key of the row
+# in tiles of 16, built for these counts of them at each head dim (the most
+# the keys of mha_route's T limit need: 223, 209, 183 and 143)
+MHA_TC_BWD_KEY_TILES = {8: (1, 2, 4, 8, 14), 16: (1, 2, 4, 8, 14),
+                        32: (1, 2, 4, 8, 12), 64: (1, 2, 4, 8, 9)}
+
+
+def _mha_tc_bwd_frames_bytes(sn, K, D, a_smem=True):
+    """csrc/mha_block.cu tc_bwd_frames_bytes: two fp32 tiles [rows][D] and
+    the rows' inverse deviations, then (a_smem) the product's A tile [rows]
+    and a slice of sn of a weight's rows, of K values at _tc_stride(K
+    rounded up to 64), bf16."""
+    kp = -(-K // 64) * 64
+    return (4 * (2 * MHA_TC_ROWS * D + MHA_TC_ROWS)
+            + 2 * ((MHA_TC_ROWS if a_smem else 0) + sn) * _tc_stride(kp))
+
+
+def _mha_tc_attn_bwd_bytes(hd, key_tiles, share=False):
+    """csrc/mha_block.cu tc_attn_bwd_bytes: k, v, qs, gh [16 key_tiles]
+    rows of bf16 at _tc_stride(max(hd, 16)), P and dS (one buffer with
+    share) [16 key_tiles][_tc_stride(16 key_tiles)] bf16, the key terms and
+    the column sums' partials [3][key_tiles][hd] fp32."""
+    rows = 16 * key_tiles
+    return (2 * (4 * rows * _tc_stride(max(hd, 16))
+                 + (1 if share else 2) * rows * _tc_stride(rows))
+            + 4 * (rows + 3 * key_tiles * hd))
+
+
+def _mha_tc_attn_bwd_share(hd, key_tiles):
+    """csrc/mha_block.cu tc_attn_bwd_share: P and dS in one buffer (dS's
+    scores computed again) where the two do not fit a block."""
+    return _mha_tc_attn_bwd_bytes(hd, key_tiles) > MAX_SMEM_BYTES
+
+
+class MHABwdBf16Plan(NamedTuple):
+    """One call of the bf16 MHA block backward on the tensor cores: the two
+    per-frame launches on `tiles` = ceil(T / rows) tiles a row, bf16(Wd)'s
+    rows in slices of `out_slice` and bf16(Wqkv)'s of `qkv_slice`, their
+    products' A tiles in shared memory where `a_smem` (else read from
+    device memory), `smem_out` and `smem_qkv` bytes; the attention on `attn_ctas` = B *
+    heads CTAs, a (row, head) each, its T keys in `key_tiles` tiles of 16,
+    P and dS in one buffer where `share`, `smem_attention` bytes."""
+    rows: int
+    tiles: int
+    out_slice: int
+    qkv_slice: int
+    a_smem: bool
+    smem_out: int
+    smem_qkv: int
+    key_tiles: int
+    share: bool
+    attn_ctas: int
+    smem_attention: int
+
+
+@functools.lru_cache(maxsize=256)
+def mha_bwd_bf16_plan(B, T, D, n_heads):
+    """The bf16 MHA block backward's launch plan for B rows of [T, D] in
+    n_heads heads of MHA_HEAD_DIMS: per-frame tiles of MHA_TC_ROWS frames a
+    row with the widest slices of the weights' rows (multiples of 16, no
+    wider than D rounded up to 16) that fit; the attention on the fewest of
+    MHA_TC_BWD_KEY_TILES[hd] that hold T. At [16, 128, 128] in 8 heads:
+    8 x 16 tiles of ~50 and ~116 KB, 128 attention CTAs of 8 key tiles;
+    at the query stream's [16, 12, 128], 16 tiles and 128 CTAs of one key
+    tile. Raises on what the kernels cannot take: D not a multiple of 8, T
+    above the key tiles' keys, a slice of 16 rows that does not fit."""
+    hd = _head_dim("mha_bwd_bf16_plan", D, n_heads)
+    if B < 1 or T < 1 or D % 8:
+        raise ValueError("mha_bwd_bf16_plan: needs B, T >= 1 and D %% 8 == 0,"
+                         " got B=%d, T=%d, D=%d" % (B, T, D))
+    key_tiles = next((k for k in MHA_TC_BWD_KEY_TILES[hd] if 16 * k >= T), None)
+    if key_tiles is None:
+        raise ValueError("mha_bwd_bf16_plan: T=%d above the %d keys the "
+                         "attention holds at head dim %d"
+                         % (T, 16 * MHA_TC_BWD_KEY_TILES[hd][-1], hd))
+    dn = -(-D // 16) * 16
+
+    def widest(K, a_smem):
+        return next((sn for sn in range(dn, 15, -16)
+                     if _mha_tc_bwd_frames_bytes(sn, K, D, a_smem)
+                     <= MAX_SMEM_BYTES), None)
+
+    # the A tiles in shared memory where both launches fit them beside a
+    # slice (D up to about 700), else read from device memory
+    a_smem = None not in (widest(D, True), widest(3 * D, True))
+    out_slice, qkv_slice = widest(D, a_smem), widest(3 * D, a_smem)
+    if out_slice is None or qkv_slice is None:
+        raise ValueError("mha_bwd_bf16_plan: D=%d needs %d bytes of shared "
+                         "memory a tile, above the %d a block has"
+                         % (D, _mha_tc_bwd_frames_bytes(16, 3 * D, D, False),
+                            MAX_SMEM_BYTES))
+    share = _mha_tc_attn_bwd_share(hd, key_tiles)
+    return MHABwdBf16Plan(
+        MHA_TC_ROWS, -(-T // MHA_TC_ROWS), out_slice, qkv_slice, a_smem,
+        _mha_tc_bwd_frames_bytes(out_slice, D, D, a_smem),
+        _mha_tc_bwd_frames_bytes(qkv_slice, 3 * D, D, a_smem), key_tiles,
+        share, B * n_heads, _mha_tc_attn_bwd_bytes(hd, key_tiles, share))
+
+
 # --- 3c. the bf16 MHA block at head dim 128 --------------------------------------
 # #3b and #10b at the JAX bench's `saturated` widths (D = 1024 in 8 heads of
 # 128; csrc/mha_block.cu, the wide kernels): the per-frame launches split
@@ -2749,13 +2996,14 @@ def _mha_shapes(name, x, n_heads, smem, mask, gam, beta, wqkv, wd, bqkv=None,
 
 
 def launch_mha_block_fwd(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
-                         seeds=None, drop_rate=0.0):
+                         seeds=None, drop_rate=0.0, wqkvb=None, wdb=None):
     """The forward kernels on mha_fwd_plan's tiles: (out, qkv [B, T, 3D],
     att [B, T, D]), the last two being what the backward reads back; for
     bf16 x the bf16 entry point, the tensor-core kernels on
-    mha_fwd_bf16_plan (out in x's dtype, qkv stored in bf16, att float32),
-    the wide kernels at head dim 128 (qkv stored in bf16). CUDA tensors
-    only."""
+    mha_fwd_bf16_plan (out in x's dtype, qkv stored in bf16, att float32;
+    wqkvb, wdb: bf16(Wqkv), bf16(Wd) where the caller has them, else made
+    here), the wide kernels at head dim 128 (qkv stored in bf16). CUDA
+    tensors only."""
     if _wide_head_dim(x.shape[-1], n_heads):
         return _launch_mha_block_fwd_wide(x, mask, gam, beta, wqkv, bqkv, wd,
                                           bd, n_heads, seeds, drop_rate)
@@ -2771,7 +3019,7 @@ def launch_mha_block_fwd(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
         plan = mha_fwd_bf16_plan(B, T, D, n_heads)
         # the products read bf16(Wqkv) and bf16(Wd), the function's
         # roundings, made once a call, by 16-byte cp.async
-        wqkvb, wdb = (w.to(torch.bfloat16).contiguous() for w in (wqkv, wd))
+        wqkvb, wdb = _bf16_of(name, wqkv, wqkvb), _bf16_of(name, wd, wdb)
         qkv = torch.empty(B, T, 3 * D, device=x.device, dtype=torch.bfloat16)
         _launch(name, x.data_ptr(), mask.data_ptr(), gam.data_ptr(),
                 beta.data_ptr(), wqkvb.data_ptr(), bqkv.data_ptr(),
@@ -2792,17 +3040,23 @@ def launch_mha_block_fwd(x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads,
 
 
 def launch_mha_block_bwd(x, mask, gam, beta, wqkv, wd, n_heads, seeds,
-                         drop_rate, qkv, att, g):
+                         drop_rate, qkv, att, g, wqkvb=None, wdb=None):
     """The backward kernels on mha_bwd_plan's tiles: (dx, dgam, dbeta,
     dwqkv, dbqkv, dwd, dbd), the weight gradients summed over the batch;
-    the bf16 entry point for bf16 x (g, dx and the forward's qkv in x's
-    dtype; att and the weight gradients float32 either way; at head dim
-    128 the wide kernels). CUDA tensors only."""
+    the bf16 entry point for bf16 x, the tensor-core kernels on
+    mha_bwd_bf16_plan (g, dx and the forward's qkv in x's dtype; att and
+    the weight gradients float32 either way; wqkvb, wdb: the forward's
+    bf16(Wqkv), bf16(Wd) where the caller has them, else made here; at head
+    dim 128 the wide kernels). CUDA tensors only."""
     if _wide_head_dim(x.shape[-1], n_heads):
         return _launch_mha_block_bwd_wide(x, mask, gam, beta, wqkv, wd,
                                           n_heads, seeds, drop_rate, qkv, att,
                                           g)
-    name = _entry("mha_block_bwd", _act_dtype("mha_block_bwd", x))
+    if _act_dtype("mha_block_bwd", x) == torch.bfloat16:
+        return _launch_mha_block_bwd_bf16(x, mask, gam, beta, wqkv, wd,
+                                          n_heads, seeds, drop_rate, qkv, att,
+                                          g, wqkvb, wdb)
+    name = "mha_block_bwd"
     _require_cuda(name, x, mask, gam, beta, wqkv, wd, qkv, att, g)
     B, T, D = _mha_shapes(name, x, n_heads, 0, mask, gam, beta, wqkv, wd,
                           dtype=x.dtype)
@@ -2838,25 +3092,76 @@ def launch_mha_block_bwd(x, mask, gam, beta, wqkv, wd, n_heads, seeds,
             dwqkv, dsmall[4 * D:7 * D], dwd, dsmall[7 * D:])
 
 
+def _launch_mha_block_bwd_bf16(x, mask, gam, beta, wqkv, wd, n_heads, seeds,
+                               drop_rate, qkv, att, g, wqkvb=None, wdb=None):
+    """launch_mha_block_bwd for bf16 x below head dim 128: the tensor-core
+    kernels (csrc/mha_block.cu mha_bwd_out_tc_kernel, attn_bwd_tc_kernel,
+    mha_bwd_qkv_tc_kernel) on mha_bwd_bf16_plan."""
+    name = "mha_block_bwd_bf16"
+    _require_cuda(name, x, mask, gam, beta, wqkv, wd, qkv, att, g)
+    B, T, D = _mha_shapes(name, x, n_heads, 0, mask, gam, beta, wqkv, wd,
+                          dtype=x.dtype)
+    _check(name, qkv, (B, T, 3 * D), torch.bfloat16)
+    _check(name, att, (B, T, D))
+    _check(name, g, (B, T, D), x.dtype)
+    plan = mha_bwd_bf16_plan(B, T, D, n_heads)
+    sp, thresh, scale = _dropout_args(name, seeds, drop_rate, B)
+    dev = x.device
+    # the products read bf16(Wqkv)'s and bf16(Wd)'s rows, the forward's
+    # roundings, by 16-byte cp.async
+    wqkvb, wdb = _bf16_of(name, wqkv, wqkvb), _bf16_of(name, wd, wdb)
+    dx = torch.empty_like(x)
+    dsmall = _empty(dev, 8 * D)
+    dwqkv = _empty(dev, D, 3 * D)
+    dwd = _empty(dev, D, D)
+    # the bf16 workspaces z, g_dpre, g_att, y [B, T, D] and bf16(dqkv) [B, T,
+    # 3D]; g_res, the tiles' partials and the split-K partials fp32
+    splits = _wgrad_splits(1, D, 3 * D, B * T)
+    btd = B * T * D
+    work16 = torch.empty(7 * btd, device=dev, dtype=torch.bfloat16)
+    z, gdpre, gatt, y = (work16[i * btd:] for i in range(4))
+    dqkvt = work16[4 * btd:]
+    n_part = B * plan.tiles * 8 * D
+    work = _empty(dev, btd + n_part + (splits * D * 3 * D if splits > 1
+                                       else 1))
+    gres, part, ws = work, work[btd:], work[btd + n_part:]
+    _launch(name, x.data_ptr(), mask.data_ptr(), gam.data_ptr(),
+            beta.data_ptr(), wqkvb.data_ptr(), wdb.data_ptr(), sp, thresh,
+            scale, qkv.data_ptr(), att.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            dsmall.data_ptr(), dwqkv.data_ptr(), dwd.data_ptr(), z.data_ptr(),
+            gdpre.data_ptr(), gres.data_ptr(), gatt.data_ptr(), y.data_ptr(),
+            dqkvt.data_ptr(), part.data_ptr(), ws.data_ptr(), splits, B, T, D,
+            n_heads, plan.out_slice, plan.qkv_slice, plan.key_tiles,
+            int(plan.a_smem))
+    return (dx, dsmall[:2 * D].view(2, D), dsmall[2 * D:4 * D].view(2, D),
+            dwqkv, dsmall[4 * D:7 * D], dwd, dsmall[7 * D:])
+
+
 class FusedMHABlock(torch.autograd.Function):
     """The MHA block on the card: forward kernels, backward kernels; qkv
-    and the attention output are kept from the forward."""
+    and the attention output are kept from the forward, and at bf16 below
+    head dim 128 one rounding of Wqkv and Wd a step, read by both."""
 
     @staticmethod
     def forward(ctx, x, mask, gam, beta, wqkv, bqkv, wd, bd, n_heads, seeds,
                 drop_rate):
+        wb = ([w.to(torch.bfloat16).contiguous() for w in (wqkv, wd)]
+              if x.dtype == torch.bfloat16
+              and not _wide_head_dim(x.shape[-1], n_heads) else [])
         out, qkv, att = launch_mha_block_fwd(x, mask, gam, beta, wqkv, bqkv,
-                                             wd, bd, n_heads, seeds, drop_rate)
-        ctx.save_for_backward(x, mask, gam, beta, wqkv, wd, seeds, qkv, att)
+                                             wd, bd, n_heads, seeds, drop_rate,
+                                             *wb)
+        ctx.save_for_backward(x, mask, gam, beta, wqkv, wd, seeds, qkv, att,
+                              *wb)
         ctx.n_heads, ctx.drop_rate = n_heads, drop_rate
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, mask, gam, beta, wqkv, wd, seeds, qkv, att = ctx.saved_tensors
+        x, mask, gam, beta, wqkv, wd, seeds, qkv, att, *wb = ctx.saved_tensors
         dx, dgam, dbeta, dwqkv, dbqkv, dwd, dbd = launch_mha_block_bwd(
             x, mask, gam, beta, wqkv, wd, ctx.n_heads, seeds, ctx.drop_rate,
-            qkv, att, g.contiguous())
+            qkv, att, g.contiguous(), *wb)
         return (dx, None, dgam, dbeta, dwqkv, dbqkv, dwd, dbd, None, None,
                 None)
 
